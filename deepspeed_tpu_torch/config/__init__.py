@@ -1,0 +1,5 @@
+"""Config parsing of the port."""
+
+from deepspeed_tpu_torch.config.config import ConfigError, ServingConfig
+
+__all__ = ["ConfigError", "ServingConfig"]

@@ -1,0 +1,78 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by ``nvcc``
+for Hopper (``sm_90a``) into ``build/kernels/`` beside the package (a
+directory ``.gitignore`` lists), named by a hash of the source and the
+flags, so an edited source is rebuilt and an unchanged one is not. Nothing
+here runs at import: the CPU tests import every module, and only a call on
+a CUDA tensor builds.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Optional
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def find_nvcc() -> Optional[str]:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ((os.path.join(cuda_home, "bin", "nvcc")
+                  if cuda_home else None),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.access(cand, os.X_OK):
+            return cand
+    return None
+
+
+def library_path(name: str) -> str:
+    """Where the build of ``csrc/<name>.cu`` lands (hash-named)."""
+    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless its build exists; returns the
+    library's path. ``nvcc``'s ``-Xptxas -v`` report (registers, shared
+    memory, spills) is kept beside it as ``.log``. Raises if there is no
+    ``nvcc`` or the compile fails."""
+    out = library_path(name)
+    if os.path.exists(out):
+        return out
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            f"cannot build the CUDA kernel {name!r}: nvcc not found (set "
+            f"CUDA_HOME or put nvcc on PATH)")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {name!r} "
+                           f"(rc {proc.returncode}):\n{proc.stderr}")
+    with open(out[:-3] + ".log", "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    os.replace(tmp, out)   # atomic: a concurrent builder loads either copy
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    with _LOCK:
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(build(name))
+        return _LIBS[name]

@@ -1,0 +1,169 @@
+"""Paged decode attention: the serving decode hot loop.
+
+The port of ``deepspeed_tpu/ops/transformer/paged_attention.py``. Queries
+``q`` [B, S, H, D] attend over the paged K/V pools [N, BS, H, D] through
+each row's block table [B, WB]: the K/V blocks are read straight from the
+pool, and the gathered [B, WB*BS, H, D] copy is never made. Table-relative
+key ``j`` is visible to query ``i`` iff ``j <= pos[b] + i``.
+
+- On a CUDA tensor, :func:`paged_decode_attention` launches the Hopper
+  kernel ``csrc/paged_attention.cu`` (built at first use) or raises. It
+  never falls back to the plain version.
+- On a CPU tensor it runs :func:`paged_decode_attention_reference`, the
+  plain PyTorch version the CPU tests hold against the JAX kernel and
+  ``chip_smoke.py`` holds the CUDA kernel against.
+
+``paged_decode_attention.launches`` counts kernel launches (CUDA only), so
+a run can show that its decode went through the kernel.
+"""
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from deepspeed_tpu_torch.ops import build
+
+__all__ = ["paged_decode_attention", "paged_decode_attention_reference",
+           "paged_decode_ok"]
+
+MAX_HEAD_DIM = 256
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_FN = None
+
+
+def paged_decode_ok(head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether the CUDA kernel takes this pool: float32 or bfloat16, and
+    ``head_dim`` a multiple of 8 (one 16-byte bf16 vector per thread) and
+    at most 256. Any block size works."""
+    return (dtype in _DTYPE_CODES and head_dim % 8 == 0
+            and 8 <= head_dim <= MAX_HEAD_DIM)
+
+
+def _check_int8_scales(k_scale, v_scale) -> None:
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "paged_decode_attention over int8 KV pools (k_scale/v_scale) "
+            "is not yet ported to deepspeed_tpu_torch")
+
+
+def paged_decode_attention_reference(
+        q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+        block_table: torch.Tensor, pos: torch.Tensor, *, block_size: int,
+        softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version: gather the window, masked fp32 softmax. Keys that no
+    query of a row can see are zeroed before use, so garbage there (the
+    scratch block, unwritten slots) reaches the output through no product,
+    as in the kernel."""
+    b, s, h, d = q.shape
+    length = block_table.shape[1] * block_size
+    scale = (softmax_scale if softmax_scale is not None
+             else 1.0 / (d ** 0.5))
+    bt = block_table.long()
+    k = k_pool[bt].reshape(b, length, h, d).float()
+    v = v_pool[bt].reshape(b, length, h, d).float()
+    kpos = torch.arange(length, device=q.device)
+    qpos = pos.long()[:, None] + torch.arange(s, device=q.device)[None, :]
+    visible = kpos[None, None, :] <= qpos[:, :, None]            # [B, S, L]
+    seen = visible.any(dim=1)[:, :, None, None]                  # [B, L, 1, 1]
+    k = torch.where(seen, k, 0.0)
+    v = torch.where(seen, v, 0.0)
+    logits = torch.einsum("bshd,blhd->bhsl", q.float() * scale, k)
+    logits = logits.masked_fill(~visible[:, None], float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhsl,blhd->bshd", probs, v).to(q.dtype)
+
+
+def _kernel():
+    global _FN
+    if _FN is None:
+        lib = build.load("paged_attention")
+        fn = lib.paged_decode_attention_fwd
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = lib.paged_decode_attention_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _FN = (fn, err)
+    return _FN
+
+
+def _check_cuda_inputs(q, k_pool, v_pool, block_table, pos, block_size):
+    b, s, h, d = q.shape
+    if not paged_decode_ok(d, q.dtype):
+        raise ValueError(f"paged_decode_attention kernel takes float32 or "
+                         f"bfloat16 and head_dim a multiple of 8 in [8, "
+                         f"{MAX_HEAD_DIM}], got {q.dtype}, head_dim {d}")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
+        if t.ndim != 4 or tuple(t.shape[1:]) != (block_size, h, d):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != "
+                             f"[N, {block_size}, {h}, {d}]")
+    if block_table.dtype != torch.int32 or block_table.ndim != 2 \
+            or block_table.shape[0] != b:
+        raise ValueError(f"block_table must be int32 [{b}, WB], got "
+                         f"{block_table.dtype} {tuple(block_table.shape)}")
+    if pos.dtype != torch.int32 or tuple(pos.shape) != (b,):
+        raise ValueError(f"pos must be int32 [{b}], got {pos.dtype} "
+                         f"{tuple(pos.shape)}")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                    ("block_table", block_table), ("pos", pos)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor,
+                           k_scale: Optional[torch.Tensor],
+                           v_scale: Optional[torch.Tensor],
+                           block_table: torch.Tensor, pos: torch.Tensor, *,
+                           block_size: int,
+                           softmax_scale: Optional[float] = None
+                           ) -> torch.Tensor:
+    """Attention of ``q`` [B, S, H, D] over the paged pools through each
+    row's block table.
+
+    ``k_pool``/``v_pool``: [N, BS, H, D]; ``k_scale``/``v_scale`` must be
+    None (the int8 pool is not ported yet). ``block_table``: [B, WB] int32
+    pool-block ids (a column-sliced window is fine: positions are
+    table-relative). ``pos``: [B] int32, the first query's position.
+    Returns [B, S, H, D] in ``q.dtype``. The chunk's own K/V must already
+    be in the pools (``PagedLayerCache.update_attend`` does both).
+    """
+    _check_int8_scales(k_scale, v_scale)
+    if k_pool.shape[1] != block_size:
+        raise ValueError(f"pool block size {k_pool.shape[1]} != "
+                         f"{block_size}")
+    if q.device.type == "cpu":
+        return paged_decode_attention_reference(
+            q, k_pool, v_pool, block_table, pos, block_size=block_size,
+            softmax_scale=softmax_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention runs on CUDA or CPU "
+                         f"tensors, got {q.device}")
+    _check_cuda_inputs(q, k_pool, v_pool, block_table, pos, block_size)
+    b, s, h, d = q.shape
+    scale = (softmax_scale if softmax_scale is not None
+             else 1.0 / (d ** 0.5))
+    out = torch.empty_like(q)
+    fn, err = _kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                b, s, h, d, block_size, block_table.shape[1], float(scale),
+                _DTYPE_CODES[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_decode_attention kernel launch failed: "
+                           f"{err(rc).decode()} (cudaError {rc})")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
