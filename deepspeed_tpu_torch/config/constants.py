@@ -30,8 +30,8 @@ SERVING_SEED = "seed"
 SERVING_SEED_DEFAULT = 0
 # "gather" materialises the [B, window, H, D] K/V copy over the full
 # table; "kernel" runs the paged decode-attention kernel over a window
-# capped at the longest active row; "auto" takes the kernel on a CUDA
-# device where the head geometry fits it, else the capped gather.
+# capped at the longest active row; "auto" is "kernel" on a CUDA device
+# (an unfit head geometry raises) and the capped gather on the CPU.
 SERVING_DECODE_ATTENTION = "decode_attention"
 SERVING_DECODE_ATTENTION_DEFAULT = "gather"
 SERVING_DECODE_ATTENTION_CHOICES = ("gather", "auto", "kernel")

@@ -13,7 +13,8 @@
 // keys the sequence's last query can see) and does only ~4 flops per
 // element read, far below the ~295 flop/byte at which the tensor cores
 // become the limit. At 3.35 TB/s a batch of 8 sequences of 1024 bf16
-// tokens with H=12, D=64 needs at least 12.6 MB / 3.35 TB/s = 3.8 us.
+// tokens with H=12, D=64 reads 8 * 2 * 1024 * 12 * 64 * 2 bytes = 25.2 MB
+// of K and V, so it needs at least 25.2 MB / 3.35 TB/s = 7.5 us.
 //
 // What the design does about that bound:
 // - it reads each visible K and V row exactly once, as 16-byte vector loads

@@ -226,7 +226,11 @@ class GPT(nn.Module):
 
         x = _layer_norm(self.ln_f, x)
         if self.lm_head is None:
-            logits = (x.to(dt) @ self.wte.to(dt).t()).float()
+            # The JAX head is a ``dt`` matmul with fp32 output: round both
+            # operands to ``dt``, then multiply in fp32. Products of bf16
+            # values are exact in fp32 (and in TF32), so the logits carry
+            # fp32 sums, not a bf16 rounding of them.
+            logits = x.to(dt).float() @ self.wte.to(dt).float().t()
             if cfg.padded_vocab != cfg.vocab_size:
                 logits = logits[..., :cfg.vocab_size]
         else:

@@ -18,8 +18,9 @@ window, the port runs eagerly, and the pools are written in place.
 
 ``decode_attention``: "gather" gathers the full table window each step;
 "kernel" caps the window at the longest active row (a power-of-two block
-count) and attends through the paged decode-attention kernel; "auto"
-takes the kernel on a CUDA device whose geometry the kernel fits.
+count) and attends through the paged decode-attention kernel; "auto" is
+"kernel" on a CUDA device (raising where the kernel does not take the
+pool) and "gather" on the CPU.
 
 Not ported yet, and refused by ``ServingConfig``: the prefix cache,
 speculative decoding, chunked prefill, the int8 KV pool, resilience and
@@ -44,6 +45,24 @@ from deepspeed_tpu_torch.serving.kv_cache import (BlockPool, PagedLayerCache,
                                                   pack_prefill)
 from deepspeed_tpu_torch.serving.scheduler import Scheduler, Sequence
 from deepspeed_tpu_torch.utils.logging import log_dist
+
+
+def resolve_decode_attention(mode: str, device_type: str, head_dim: int,
+                             dtype: torch.dtype) -> str:
+    """The decode attention impl for ``serving.decode_attention``.
+
+    On a CUDA device "auto" is "kernel", and a pool the kernel does not
+    take raises: the decode never drops to the gather path behind the
+    caller's back. On the CPU "auto" is "gather"."""
+    if mode == "auto":
+        mode = "kernel" if device_type == "cuda" else "gather"
+    if mode == "kernel" and device_type == "cuda" \
+            and not paged_decode_ok(head_dim, dtype):
+        raise ValueError(
+            f"serving.decode_attention='kernel': the CUDA kernel takes "
+            f"float32 or bfloat16 pools and head_dim a multiple of 8 up "
+            f"to 256, not {dtype} / {head_dim}")
+    return mode
 
 
 class ServeEngine:
@@ -82,19 +101,10 @@ class ServeEngine:
         self._pools = init_paged_pools(self.model_cfg,
                                        self.scfg.kv_num_blocks, bs,
                                        dtype=self._dtype, device=self.device)
-        mode = self.scfg.decode_attention
-        self._fast_path = mode != "gather"
-        kernel_ok = paged_decode_ok(self.model_cfg.head_dim, self._dtype)
-        if mode == "auto":
-            mode = ("kernel" if self.device.type == "cuda" and kernel_ok
-                    else "gather")
-        elif mode == "kernel" and self.device.type == "cuda" \
-                and not kernel_ok:
-            raise ValueError(
-                f"serving.decode_attention='kernel': the CUDA kernel takes "
-                f"float32 or bfloat16 pools and head_dim a multiple of 8 up "
-                f"to 256, not {self._dtype} / {self.model_cfg.head_dim}")
-        self._attn_impl = mode
+        self._fast_path = self.scfg.decode_attention != "gather"
+        self._attn_impl = resolve_decode_attention(
+            self.scfg.decode_attention, self.device.type,
+            self.model_cfg.head_dim, self._dtype)
         self._generator = None
         if self.scfg.temperature > 0.0:
             self._generator = torch.Generator(device=self.device)

@@ -72,6 +72,31 @@ def test_logits_match_jax(tie, tiny_pair):
     assert np.abs(got - want).max() <= LOGITS_ATOL
 
 
+def test_bf16_tied_head_keeps_fp32_logits():
+    """In bf16 the tied head multiplies bf16-rounded operands with fp32
+    sums, as the JAX einsum with ``preferred_element_type=float32`` does:
+    no bf16 rounding of the logits. With no blocks the logits are the head
+    of LN(embedding) alone, so both sides agree to fp32 summation order
+    (1e-5), well under the ~1e-3 a bf16 rounding of them would cost."""
+    jm, _ = jax_make_gpt("tiny", dropout_rate=0.0, dtype=jnp.bfloat16,
+                         num_layers=0)
+    params = _jax_params(jm)
+    tm, _ = make_gpt("tiny", dtype=torch.bfloat16, num_layers=0)
+    sd = gpt_params_from_flax(jax.tree_util.tree_map(np.asarray, params))
+    eng = deepspeed_tpu_torch.init_inference(tm, params=sd,
+                                             dtype=torch.bfloat16,
+                                             device="cpu")
+    ids = np.random.default_rng(4).integers(0, 512, (2, 16), dtype=np.int32)
+    want = jm.apply({"params": params}, {"input_ids": ids},
+                    deterministic=True)["logits"]
+    got = eng.forward(ids)["logits"]
+    assert want.dtype == jnp.float32 and got.dtype == torch.float32
+    want_bf16 = np.asarray(want.astype(jnp.bfloat16).astype(jnp.float32))
+    want = np.asarray(want)
+    assert np.abs(want_bf16 - want).max() > 1e-4   # the rounding avoided
+    assert np.abs(got.numpy() - want).max() <= 1e-5
+
+
 def test_dense_cache_prefill_and_decode_match_jax(tiny_pair):
     """Prefill 10 tokens into the dense cache, then 4 single-token decode
     steps, on both sides; every step's logits agree."""

@@ -21,6 +21,7 @@ from deepspeed_tpu.serving import ServeEngine as JaxServeEngine
 from deepspeed_tpu_torch.config import ConfigError, ServingConfig
 from deepspeed_tpu_torch.models import gpt_params_from_flax, make_gpt
 from deepspeed_tpu_torch.serving import ServeEngine
+from deepspeed_tpu_torch.serving.engine import resolve_decode_attention
 
 # the serving config of tests/test_serving.py, with the kernel on
 SERVE = {"max_batch_size": 2, "kv_block_size": 4, "kv_num_blocks": 64,
@@ -141,6 +142,21 @@ def test_init_serving_entry_point(tiny, tmp_path):
     assert _run(srv, prompts, TRACE[:2]) == \
         _generate(sd, prompts, TRACE[:2])
     assert srv.stats["kernel_steps"] == 0
+
+
+def test_auto_decode_attention_takes_the_kernel_on_cuda():
+    """"auto" resolves to the kernel on a CUDA device and raises where the
+    kernel does not take the pool; only the CPU gathers."""
+    bf16 = torch.bfloat16
+    assert resolve_decode_attention("auto", "cuda", 64, bf16) == "kernel"
+    assert resolve_decode_attention("auto", "cpu", 64, bf16) == "gather"
+    assert resolve_decode_attention("gather", "cuda", 60,
+                                    torch.float16) == "gather"
+    for mode in ("auto", "kernel"):
+        with pytest.raises(ValueError, match="CUDA kernel takes"):
+            resolve_decode_attention(mode, "cuda", 64, torch.float16)
+        with pytest.raises(ValueError, match="CUDA kernel takes"):
+            resolve_decode_attention(mode, "cuda", 60, bf16)
 
 
 @pytest.mark.parametrize("config", [
