@@ -1,22 +1,38 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (deepspeed_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # everything, one card
+    python3 chip_smoke.py --only kernels   # stop after phase 2
 
 1. Device: requires CUDA, prints the card's name and power limit, builds
-   every kernel of the serving path from the sources in this checkout.
-2. Kernels against their plain PyTorch versions at the serving shapes of
-   GPT-2 (12 heads, head_dim 64, block 16, 8 rows, 1 and 5 queries,
-   windows of 1 to 64 blocks, ragged positions, table tails on a scratch
-   block filled with NaN), in fp32 (atol 1e-5) and bf16 (atol 2e-2), and
-   timed with CUDA events beside the plain version, the
-   ``scaled_dot_product_attention`` yardstick and the bytes bound.
-3. End to end: ``init_serving`` on full-width GPT-2 (random weights from a
-   seed) serves 16 requests in two waves through
+   every kernel from the sources in this checkout (one ``nvcc`` per
+   source, all started together) and prints each ``-Xptxas -v`` report.
+2. Kernels against their plain PyTorch versions at the main paths'
+   shapes, in fp32 (atol 1e-5) and bf16 (atol 2e-2), each timed with CUDA
+   events beside the plain version, a PyTorch yardstick and its bound:
+   - paged decode attention at GPT-2's serving shapes (12 heads, head_dim
+     64, block 16, 8 rows, 1 and 5 queries, windows of 1 to 64 blocks,
+     table tails on a scratch block filled with NaN);
+   - flash attention forward, dq and dk/dv at [16, 512, 12, 64] causal,
+     with and without a key mask holding an all-padding row, and at S=5
+     and S=300; the whole autograd path against the plain version's; fp32
+     within 1e-5 (dO x 0.1), bf16 within one rounding step plus 1e-3 of
+     the reference's RMS (0.15 on the autograd path; dO unscaled);
+   - fused Adam, bit for bit, over GPT-2's 148 parameter tensors (with
+     the bf16 copy of the new params that the bf16 training step uses).
+3. Serving end to end: ``init_serving`` on full-width GPT-2 (random
+   weights from a seed) serves 16 requests in two waves through
    ``decode_attention: "kernel"`` in bf16; the kernel's launch count must
    equal ``kernel_steps * num_layers``. The same trace in fp32 through
    "kernel" and "gather" must give the same tokens (and match
    ``generate``), except at a true tie of the top two logits.
+4. Training end to end: ``initialize`` -> ``train_batch`` on full-width
+   GPT-2 with ``bench.py:bench_gpt2``'s configuration plus
+   ``optimizer.fused_update``: each flash kernel launches 96 times and
+   fused Adam once per step, no plain version runs, the loss falls; step
+   time, tokens/s, model TFLOP/s and MFU, and a profiled step. Then, in
+   fp32 at 2 layers, the kernels' path against the plain path (first-step
+   gradients within 1e-4 of each leaf's norm, losses within 1e-5).
 
 Any failure exits non-zero. The last stdout line is
 ``{"ok": true, "device": {...}}``; before it come the card line and a
@@ -33,7 +49,22 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOPS = 67e12               # H100 SXM fp32, outside the tensor cores
+BF16_FLOPS = 989e12              # H100 SXM dense bf16, tensor cores
 KERNEL_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# Flash attention: in fp32, dO is scaled by 0.1 and every element held to
+# atol 1e-5 (1e-4 of gradients near 0.1). In bf16, dO is unscaled and each
+# element held to one bf16 rounding step of the reference's value plus a
+# share of the reference's RMS: both sides round an fp32 result once, and
+# where the fp32 values differ in their last bits the roundings may differ
+# by one step (3.1e-2 for values in [4, 8), above a flat 2e-2). Each kernel
+# gets the plain version's inputs (lse and delta included): 1e-3 of the
+# RMS. The autograd path computes delta = rowsum(dO * O) from the bf16
+# output, as the JAX kernel's backward does, where the plain version's
+# autograd uses its fp32 output: that moves dq and dk by up to 0.057 of
+# the RMS (the plain backward versions fed either delta, on the CPU at
+# B=2, S=512), so that path is held to 0.15.
+FLASH_DOUT_SCALE = {"float32": 0.1, "bfloat16": 1.0}
+FLASH_BF16_RMS_TOL = {"kernel": 1e-3, "autograd": 0.15}
 TIE_GAP = 1e-4                   # top-2 logit gap of a true tie
 
 
@@ -213,6 +244,342 @@ def check_paged_attention(torch, report):
 
 
 # ---------------------------------------------------------------------------
+# 2b. flash attention forward and backward against their plain versions
+# ---------------------------------------------------------------------------
+
+def flash_case(torch, dtype, b, s, h, d, seed, masked=False,
+               dout_scale=1.0):
+    """q, k, v as the training path makes them: [B, S, H, D] views of one
+    fused QKV projection [B, S, 3*H*D] (strided, read in place); dO
+    normal, times ``dout_scale``. With ``masked``, a [B, S] key mask: row 0
+    all real, row 1 all padding, the others padded at the end from a
+    random length."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    qkv = torch.randn(b, s, 3 * h * d, generator=g).to("cuda", dtype)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    dout = (torch.randn(b, s, h, d, generator=g) * dout_scale).to(
+        "cuda", dtype)
+    mask = None
+    if masked:
+        lens = torch.randint(1, s + 1, (b,), generator=g)
+        lens[0] = s
+        if b > 1:
+            lens[1] = 0
+        mask = (torch.arange(s)[None, :] < lens[:, None]).to("cuda")
+    return qkv, q, k, v, dout, mask
+
+
+def bf16_step(torch, ref):
+    """One bf16 rounding step (unit in the last place) at each element of
+    ``ref``: 2**(e - 8) for |x| in [2**(e-1), 2**e); 0 where ref is 0."""
+    r = ref.float()
+    exp = torch.frexp(r.abs())[1]
+    step = torch.ldexp(torch.ones_like(r), exp - 8)
+    return torch.where(r == 0, torch.zeros_like(r), step)
+
+
+def flash_bytes_flops(q, mask, which):
+    """What one kernel must move and compute for these inputs (causal,
+    self-attention): each input read once and each output written once;
+    per visible (query, key) pair 2*D flops for each of its products (the
+    forward has 2, dq 3, dk/dv 4)."""
+    b, s, h, d = q.shape
+    es = q.element_size()
+    big = b * s * h * d * es               # one [B, S, H, D] tensor
+    rows = b * h * s * 4                   # one fp32 [B, H, S] vector
+    mbytes = 0 if mask is None else b * s * 4
+    pairs = b * h * s * (s + 1) // 2
+    if which == "fwd":                     # q, k, v -> o, lse
+        return 4 * big + rows + mbytes, 4 * d * pairs
+    if which == "dq":                      # q, k, v, dO, lse, delta -> dq
+        return 5 * big + 2 * rows + mbytes, 6 * d * pairs
+    return 6 * big + 2 * rows + mbytes, 8 * d * pairs  # -> dk, dv
+
+
+def check_flash_attention(torch, reports):
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    h, d = 12, 64
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        tol = KERNEL_TOL[name]
+        for b, s, masked in ((16, 512, False), (16, 512, True),
+                             (4, 5, True), (4, 300, False), (4, 300, True)):
+            qkv, q, k, v, dout, mask = flash_case(
+                torch, dtype, b, s, h, d, seed=s + masked, masked=masked,
+                dout_scale=FLASH_DOUT_SCALE[name])
+            scale = 1.0 / d ** 0.5
+            qp, kp, vp, mp = fa._prepare(q, k, v, mask, True)
+            if qp.data_ptr() != q.data_ptr():
+                fail("flash_attention copied an aligned strided view")
+            out, lse = fa.flash_attention_fwd(qp, kp, vp, mp, True, scale)
+            want = fa.flash_attention_reference(q, k, v, causal=True,
+                                                kv_mask=mask)
+            delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+            delta = delta.contiguous()
+            dq = fa.flash_attention_bwd_dq(qp, kp, vp, dout, mp, lse, delta,
+                                           True, scale)
+            dk, dv = fa.flash_attention_bwd_dkv(qp, kp, vp, dout, mp, lse,
+                                                delta, True, scale)
+            torch.cuda.synchronize()
+            dq_w = fa.flash_bwd_dq_reference(q, k, v, dout, mp, lse, delta,
+                                             True, scale)
+            dk_w, dv_w = fa.flash_bwd_dkv_reference(q, k, v, dout, mp, lse,
+                                                    delta, True, scale)
+            # the whole autograd path against the reference's autograd
+            x1 = qkv.detach().clone().requires_grad_()
+            x2 = qkv.detach().clone().requires_grad_()
+            outs = []
+            for x, fn in ((x1, fa.flash_attention),
+                          (x2, fa.flash_attention_reference)):
+                qq, kk, vv = (t.reshape(b, s, h, d)
+                              for t in x.split(h * d, dim=-1))
+                o = fn(qq, kk, vv, causal=True, kv_mask=mask)
+                o.backward(dout)
+                outs.append(o)
+            torch.cuda.synchronize()
+            pairs = {"fwd": (out, want), "dq": (dq, dq_w), "dk": (dk, dk_w),
+                     "dv": (dv, dv_w), "autograd out": tuple(outs),
+                     "autograd dqkv": (x1.grad, x2.grad)}
+            for key, (got, ref) in pairs.items():
+                if not torch.isfinite(got).all():
+                    fail(f"flash {key} {name} B={b} S={s} masked={masked}: "
+                         f"non-finite output")
+                diff = (got.float() - ref.float()).abs()
+                err = diff.max().item()
+                rms = ref.float().pow(2).mean().sqrt().item()
+                peak = ref.float().abs().max().item()
+                if name == "float32":
+                    rel = 0.0
+                    bad = err > tol
+                else:
+                    rel = ((diff - bf16_step(torch, ref)).clamp_min(0).max()
+                           .item() / max(rms, 1e-30))
+                    bad = rel > FLASH_BF16_RMS_TOL[
+                        "autograd" if key.startswith("autograd") else
+                        "kernel"]
+                if bad:
+                    fail(f"flash {key} {name} B={b} S={s} masked={masked}: "
+                         f"max |err| {err} (reference RMS {rms}, max |x| "
+                         f"{peak}); beyond one bf16 step {rel} of the RMS")
+                w = worst.get((key, name))
+                if w is None or err > w[0]:
+                    worst[(key, name)] = (err, rms, peak)
+                w = worst.get((key, name, "rel"))
+                worst[(key, name, "rel")] = max(w or 0.0, rel)
+            if masked and b > 1 and (out[1].abs().max().item() != 0.0
+                                     or dq[1].abs().max().item() != 0.0):
+                fail("flash: the all-padding row is not exactly zero")
+    for key, name in sorted(k for k in worst if len(k) == 2):
+        err, rms, peak = worst[(key, name)]
+        lim = FLASH_BF16_RMS_TOL["autograd" if key.startswith("autograd")
+                                 else "kernel"]
+        limit = (f"atol {KERNEL_TOL[name]}" if name == "float32" else
+                 f"beyond one bf16 step: {worst[(key, name, 'rel')]:.3g} "
+                 f"of the RMS, limit {lim}")
+        print(f"flash_attention {key} {name} (B,S) in (16,512) (4,5) "
+              f"(4,300), causal, with/without key mask, dO x "
+              f"{FLASH_DOUT_SCALE[name]}: max |err| {err:.3g} where the "
+              f"reference's RMS is {rms:.3g} and its max |x| {peak:.3g} "
+              f"({limit})")
+
+    # Timing at the training shape, bf16, causal, no mask, rotating over
+    # 4 layers' inputs (150 MB, three times the 50 MB L2) as the step does.
+    b, s = 16, 512
+    layers = [flash_case(torch, torch.bfloat16, b, s, h, d, seed=100 + i)
+              for i in range(4)]
+    scale = 1.0 / d ** 0.5
+    prepped = []
+    for _qkv, q, k, v, dout, _m in layers:
+        out, lse = fa.flash_attention_fwd(q, k, v, None, True, scale)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+        prepped.append((q, k, v, dout, lse, delta.contiguous()))
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % len(prepped)
+        return prepped[it["i"]]
+
+    def run_fwd():
+        q, k, v = nxt()[:3]
+        fa.flash_attention_fwd(q, k, v, None, True, scale)
+
+    def run_dq():
+        q, k, v, dout, lse, delta = nxt()
+        fa.flash_attention_bwd_dq(q, k, v, dout, None, lse, delta, True,
+                                  scale)
+
+    def run_dkv():
+        q, k, v, dout, lse, delta = nxt()
+        fa.flash_attention_bwd_dkv(q, k, v, dout, None, lse, delta, True,
+                                   scale)
+
+    def plain_fwd():
+        q, k, v = nxt()[:3]
+        fa.flash_attention_reference(q, k, v, causal=True)
+
+    def plain_dq():
+        q, k, v, dout, lse, delta = nxt()
+        fa.flash_bwd_dq_reference(q, k, v, dout, None, lse, delta, True,
+                                  scale)
+
+    def plain_dkv():
+        q, k, v, dout, lse, delta = nxt()
+        fa.flash_bwd_dkv_reference(q, k, v, dout, None, lse, delta, True,
+                                   scale)
+
+    # yardstick: SDPA (causal) on contiguous [B, H, S, D] copies
+    sdpa_in = []
+    for _qkv, q, k, v, dout, _m in layers:
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        sdpa_in.append((qt, kt, vt, o, dout.transpose(1, 2).contiguous()))
+    sit = {"i": 0}
+
+    def snxt():
+        sit["i"] = (sit["i"] + 1) % len(sdpa_in)
+        return sdpa_in[sit["i"]]
+
+    def sdpa_fwd():
+        qt, kt, vt = snxt()[:3]
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def sdpa_bwd():
+        qt, kt, vt, o, dot = snxt()
+        torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
+
+    sdpa_fwd_ms = cuda_ms(sdpa_fwd)
+    sdpa_bwd_ms = cuda_ms(sdpa_bwd)
+    q0 = layers[0][1]
+    for key, kern, plain, lib in (
+            ("fwd", run_fwd, plain_fwd, sdpa_fwd_ms),
+            ("dq", run_dq, plain_dq, sdpa_bwd_ms),
+            ("dkv", run_dkv, plain_dkv, sdpa_bwd_ms)):
+        kernel_ms = cuda_ms(kern)
+        plain_ms = cuda_ms(plain, iters=10, warmup=2)
+        nbytes, flops = flash_bytes_flops(q0, None, key)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / BF16_FLOPS
+        rep = reports[key]
+        errs = ([worst[("fwd", "bfloat16")][0]] if key == "fwd" else
+                [worst[("dq", "bfloat16")][0]] if key == "dq" else
+                [worst[("dk", "bfloat16")][0],
+                 worst[("dv", "bfloat16")][0]])
+        rep.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=lib,
+                   bound_ms=max(t_bytes, t_ops) * 1e3,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   max_abs_err=max(errs))
+        print(f"flash_attention {key} timing bf16 B={b} S={s} H={h} D={d} "
+              f"causal: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"SDPA {'fwd' if key == 'fwd' else 'bwd (dq+dk+dv)'} "
+              f"{lib:.4f} ms, bound {rep['bound_ms']:.4f} ms "
+              f"({nbytes} bytes / 3.35 TB/s, {flops} flops / 989 TFLOP/s)")
+
+
+# ---------------------------------------------------------------------------
+# 2c. fused Adam against its plain version, bit for bit
+# ---------------------------------------------------------------------------
+
+def gpt2_param_shapes(torch):
+    from deepspeed_tpu_torch.models import make_gpt
+
+    with torch.device("meta"):
+        model, _cfg = make_gpt("gpt2")
+    return [tuple(p.shape) for p in model.state_dict().values()]
+
+
+def adam_case(torch, shapes, seed, g_dtype=None):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(shape, std):
+        return torch.randn(shape, device="cuda", generator=g) * std
+
+    params = [rnd(s, 0.02) for s in shapes]
+    grads = [rnd(s, 1e-3) for s in shapes]
+    if g_dtype is not None:
+        grads = [x.to(g_dtype) for x in grads]
+    exp_avg = [rnd(s, 1e-3) for s in shapes]
+    exp_avg_sq = [rnd(s, 1e-3) ** 2 for s in shapes]
+    return params, grads, exp_avg, exp_avg_sq
+
+
+def check_fused_adam(torch, report):
+    from deepspeed_tpu_torch.ops.adam import (AdamState, FusedAdam,
+                                              fused_adam_apply)
+    from deepspeed_tpu_torch.ops.adam.fused_update import \
+        fused_adam_reference
+
+    shapes = gpt2_param_shapes(torch)
+    n = sum(int(torch.Size(s).numel()) for s in shapes)
+    cases = [("gpt2 148 leaves, Adam(W) wd 0, fp32 grads", shapes,
+              dict(lr=1e-4), None, torch.bfloat16),
+             ("AdamW wd 0.01, bf16 grads", shapes[:6],
+              dict(lr=1e-3, weight_decay=0.01), torch.bfloat16, None),
+             ("Adam L2 wd 0.01", shapes[:6],
+              dict(lr=1e-3, weight_decay=0.01, adamw_mode=False), None,
+              torch.float16)]
+    for label, shp, kw, g_dtype, cast in cases:
+        opt = FusedAdam(**kw)
+        p, g, m, v = adam_case(torch, shp, seed=len(shp), g_dtype=g_dtype)
+        scalars = opt.step_scalars(5, None, "cuda")
+        want = fused_adam_reference(opt, g, m, v, p, scalars, cast)
+        pk, mk, vk = ([x.clone() for x in xs] for xs in (p, m, v))
+        got = fused_adam_apply(opt, g, AdamState(4, mk, vk), pk,
+                               cast_dtype=cast)
+        torch.cuda.synchronize()
+        got_lists = (got[0], got[1].exp_avg, got[1].exp_avg_sq) + (
+            (got[2],) if cast is not None else ())
+        for what, a_list, b_list in zip(("p", "m", "v", "cast"), got_lists,
+                                        want):
+            for i, (a, b_) in enumerate(zip(a_list, b_list)):
+                if not torch.equal(a, b_):
+                    diff = (a.float() - b_.float()).abs().max().item()
+                    fail(f"fused_adam {label}: {what}[{i}] differs from "
+                         f"the plain version (max |diff| {diff})")
+        print(f"fused_adam {label}: bit-equal to the plain version "
+              f"({len(shp)} tensors)")
+        del p, g, m, v, pk, mk, vk, want, got, got_lists
+
+    # Timing as the bf16 training step calls it: fp32 grads, and the new
+    # masters also written in bf16 into the engine's buffers (30 bytes per
+    # parameter); the same call without the cast beside it (28 bytes).
+    opt = FusedAdam(lr=1e-4)
+    p, g, m, v = adam_case(torch, shapes, seed=1)
+    state = AdamState(4, m, v)
+    casts = [torch.empty(x.shape, dtype=torch.bfloat16, device="cuda")
+             for x in p]
+    kernel_ms = cuda_ms(lambda: fused_adam_apply(
+        opt, g, state, p, cast_dtype=torch.bfloat16, cast_out=casts),
+        iters=20)
+    nocast_ms = cuda_ms(lambda: fused_adam_apply(opt, g, state, p), iters=20)
+    scalars = opt.step_scalars(5, None, "cuda")
+    plain_ms = cuda_ms(lambda: fused_adam_reference(
+        opt, g, m, v, p, scalars, torch.bfloat16), iters=5, warmup=1)
+    leaves = [x.clone().requires_grad_() for x in p]
+    for leaf, grad in zip(leaves, g):
+        leaf.grad = grad
+    lib = torch.optim.Adam(leaves, lr=1e-4, fused=True)
+    library_ms = cuda_ms(lib.step, iters=20)
+    nbytes = 30 * n
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, 12 * n / FP32_FLOPS) * 1e3
+    report.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                  bound_ms=bound_ms, bound_by="bytes", max_abs_err=0.0)
+    print(f"fused_adam timing, {len(shapes)} tensors, {n} params, fp32 "
+          f"grads: kernel with the bf16 cast {kernel_ms:.4f} ms (1 launch; "
+          f"bound {bound_ms:.4f} ms, {nbytes} bytes / 3.35 TB/s), without "
+          f"the cast {nocast_ms:.4f} ms (bound "
+          f"{28 * n / HBM_BYTES_PER_S * 1e3:.4f} ms), plain with the cast "
+          f"{plain_ms:.4f} ms, torch.optim.Adam(fused=True) (no cast) "
+          f"{library_ms:.4f} ms")
+    del p, g, m, v, leaves, lib, casts
+
+
+# ---------------------------------------------------------------------------
 # 3. serving end to end
 # ---------------------------------------------------------------------------
 
@@ -339,12 +706,40 @@ def quantile(xs, f):
     return xs[lo] + (xs[hi] - xs[lo]) * (x - lo)
 
 
+def kernel_stats(events, steps, wall_us):
+    """Device busy time (union of kernel intervals), idle share and the
+    top kernels by device time, per step, from profiler events."""
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s_, e_ in spans[1:]:
+        if s_ > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    busy += cur_e - cur_s
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"steps": steps, "step_ms": wall_us / steps / 1e3,
+            "device_busy_ms_per_step": busy / steps / 1e3,
+            "device_idle_share": 1.0 - busy / wall_us,
+            "kernels_per_step": len(kernels) / steps,
+            "top_kernels_ms_per_step": {n[:70]: t / steps / 1e3
+                                        for n, t in top}}
+
+
 def profile_decode(torch, params, requests, steps=16):
     """Device busy share and device time by kernel over ``steps`` steady
     decode steps (8 active rows, no prefill) of the bf16 kernel path,
     from a ``torch.profiler`` trace. The profiler adds host time, so the
     idle share it shows is an upper bound."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     srv = serving_engine(torch, torch.bfloat16, "kernel", params)
@@ -362,33 +757,13 @@ def profile_decode(torch, params, requests, steps=16):
                 fail(f"profile window is not steady decode: {info}")
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
+    out = kernel_stats(prof.events(), steps, wall_us)
+    if out is None:
         print("decode profile: the profiler recorded no device events; "
               "device busy share not measured")
-        return None
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for s_, e_ in spans[1:]:
-        if s_ > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s_, e_
-        else:
-            cur_e = max(cur_e, e_)
-    busy += cur_e - cur_s
-    by_name = {}
-    for e in kernels:
-        us = e.time_range.elapsed_us()
-        by_name[e.name] = by_name.get(e.name, 0.0) + us
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    out = {"steps": steps, "step_ms": wall_us / steps / 1e3,
-           "device_busy_ms_per_step": busy / steps / 1e3,
-           "device_idle_share": 1.0 - busy / wall_us,
-           "kernels_per_step": len(kernels) / steps,
-           "top_kernels_ms_per_step": {
-               n[:60]: t / steps / 1e3 for n, t in top}}
-    print(f"decode profile (bf16, 8 active, under torch.profiler): "
-          f"{json.dumps(out)}")
+    else:
+        print(f"decode profile (bf16, 8 active, under torch.profiler): "
+              f"{json.dumps(out)}")
     return out
 
 
@@ -442,6 +817,252 @@ def check_serving(torch):
     return serving
 
 
+KERNELS = (
+    ("paged_decode_attention", "paged_attention",
+     "deepspeed_tpu/ops/transformer/paged_attention.py:69"),
+    ("flash_attention_fwd", "flash_attention",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:113"),
+    ("flash_attention_bwd_dq", "flash_attention",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:231"),
+    ("flash_attention_bwd_dkv", "flash_attention",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:287"),
+    ("fused_adam", "fused_adam", "deepspeed_tpu/ops/adam/fused_update.py:52"),
+)
+
+
+# ---------------------------------------------------------------------------
+# 4. training end to end
+# ---------------------------------------------------------------------------
+
+TRAIN_CONFIG = {                  # bench.py:bench_gpt2's, plus the kernel
+    "train_micro_batch_size_per_gpu": 16,
+    "gradient_accumulation_steps": 8,
+    "optimizer": {"type": "Adam", "params": {"lr": 1e-4},
+                  "fused_update": True},
+    "zero_optimization": {"stage": 2},
+    "data_types": {"grad_accum_dtype": "bfloat16"},
+    "bf16": {"enabled": True},
+}
+TRAIN_SEQ = 512
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+
+
+def train_flops_per_step(n_params, batch, seq, hidden, layers):
+    """bench.py:train_flops_per_step: 6 N per token for the dense path plus
+    the attention score/value products, 12 S H per token per layer."""
+    tokens = batch * seq
+    return 6.0 * n_params * tokens + 12.0 * layers * hidden * seq * tokens
+
+
+class PlainCalls:
+    """Counts calls of the plain versions while the main path runs: the
+    module attributes the wrappers call are swapped for counting shims."""
+
+    def __init__(self):
+        from deepspeed_tpu_torch.ops.adam import fused_update
+        from deepspeed_tpu_torch.ops.transformer import (attention,
+                                                         flash_attention)
+        self.targets = [(flash_attention, "flash_attention_reference"),
+                        (attention, "xla_attention"),
+                        (fused_update, "fused_adam_reference")]
+        self.calls = {name: 0 for _m, name in self.targets}
+
+    def __enter__(self):
+        self.saved = []
+        for mod, name in self.targets:
+            orig = getattr(mod, name)
+            self.saved.append((mod, name, orig))
+
+            def shim(*a, _orig=orig, _name=name, **k):
+                self.calls[_name] += 1
+                return _orig(*a, **k)
+
+            setattr(mod, name, shim)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in self.saved:
+            setattr(mod, name, orig)
+
+
+def check_training(torch, card):
+    import numpy as np
+
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models import init_gpt_params, make_gpt
+    from deepspeed_tpu_torch.ops.adam import fused_adam_apply
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    from torch.profiler import ProfilerActivity, profile
+
+    model, cfg = make_gpt("gpt2", dropout_rate=0.0)
+    sd = init_gpt_params(cfg, seed=0)
+    n_params = sum(int(np.prod(v.shape)) for v in sd.values())
+    engine, _opt, _loader, _sched = dtt.initialize(model=model, params=sd,
+                                                   config=TRAIN_CONFIG)
+    gas = TRAIN_CONFIG["gradient_accumulation_steps"]
+    micro = TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
+    rng = np.random.default_rng(0)
+    batches = {"input_ids": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (gas, micro, TRAIN_SEQ), dtype=np.int32)).cuda()}
+    counters = {"flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+                "fused_adam": fused_adam_apply}
+    losses = []
+    for _ in range(TRAIN_WARMUP):
+        losses.append(float(engine.train_batch(batches)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for fn in counters.values():
+        fn.launches = 0
+    with PlainCalls() as plain:
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss = engine.train_batch(batches)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    per_step = {"flash_attention_fwd": cfg.num_layers * gas,
+                "flash_attention_bwd_dq": cfg.num_layers * gas,
+                "flash_attention_bwd_dkv": cfg.num_layers * gas,
+                "fused_adam": 1}
+    for name, n in per_step.items():
+        if launches[name] != TRAIN_STEPS * n:
+            fail(f"training: {name} launched {launches[name]} times in "
+                 f"{TRAIN_STEPS} steps, expected {TRAIN_STEPS * n}")
+    if any(plain.calls.values()):
+        fail(f"training: a plain version ran on the main path: "
+             f"{plain.calls}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"training: losses not finite or not falling on a fixed "
+             f"batch: {losses}")
+    med = median(step_ms)
+    tokens = gas * micro * TRAIN_SEQ
+    flops = train_flops_per_step(n_params, gas * micro, TRAIN_SEQ,
+                                 cfg.hidden_size, cfg.num_layers)
+    training = {
+        "model": "gpt2", "params": n_params, "micro_batch": micro,
+        "gas": gas, "seq": TRAIN_SEQ, "dtype": "bfloat16",
+        "fused_update": True, "steps": TRAIN_STEPS,
+        "step_ms_median": med, "step_ms_min": min(step_ms),
+        "step_ms_max": max(step_ms), "step_ms": step_ms,
+        "tokens_per_s": tokens / (med / 1e3),
+        "model_tflops_per_s": flops / (med / 1e3) / 1e12,
+        "mfu_vs_989_tflops_dense_bf16": flops / (med / 1e3) / BF16_FLOPS,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "losses": losses, "launches": launches, "card": card}
+    print(f"training bf16 gpt2 (initialize -> train_batch): "
+          f"{json.dumps(training)}")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_batch(batches)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    stats = kernel_stats(prof.events(), 1, wall_us)
+    if stats is None:
+        print("training profile: the profiler recorded no device events; "
+              "device busy share not measured")
+    else:
+        print(f"training profile (one train_batch under torch.profiler): "
+              f"{json.dumps(stats)}")
+        # A second step with the operands' shapes recorded (which costs
+        # host time, so the idle share above comes from the first): the
+        # matmuls by shape, i.e. which products take the GEMM time.
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            engine.train_batch(batches)
+            torch.cuda.synchronize()
+
+        def dev_us(a):
+            return getattr(a, "self_device_time_total",
+                           getattr(a, "self_cuda_time_total", 0.0))
+
+        ops = [a for a in prof.key_averages(group_by_input_shape=True)
+               if a.key in ("aten::mm", "aten::addmm", "aten::bmm")]
+        ops.sort(key=lambda a: -dev_us(a))
+        print("training profile, matmuls by input shape (op, shapes, "
+              "device ms per step, calls): " + json.dumps(
+                  [[a.key, str(a.input_shapes)[:90], dev_us(a) / 1e3,
+                    a.count] for a in ops[:10]]))
+    training["launches"] = launches
+    del engine, model
+    torch.cuda.empty_cache()
+    return training
+
+
+def check_training_fp32(torch):
+    """fp32 on the card, gpt2 width at 2 layers, micro 4 x seq 512, GAS 2:
+    the kernels' path (flash attention, fused Adam) against the plain path
+    (attention_impl "xla", the per-tensor Adam chain). The first step's
+    accumulated gradients agree leaf by leaf to 1e-4 of the leaf's norm
+    (each attention leaf is held on its own, not hidden in the norm of the
+    whole tree, which the tied embedding's gradient dominates) and the 3
+    losses to 1e-5 relative."""
+    import numpy as np
+
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models import init_gpt_params, make_gpt
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    from deepspeed_tpu_torch.runtime.utils import global_norm
+
+    gas, micro = 2, 4
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(rng.integers(0, 50257, (3, gas, micro, 512),
+                                        dtype=np.int32)).cuda()
+    runs = {}
+    for label, impl, fused in (("kernels", "auto", True),
+                               ("plain", "xla", False)):
+        model, cfg = make_gpt("gpt2", dropout_rate=0.0, num_layers=2,
+                              dtype=torch.float32, attention_impl=impl)
+        conf = {"train_micro_batch_size_per_gpu": micro,
+                "gradient_accumulation_steps": gas,
+                "optimizer": {"type": "Adam", "params": {"lr": 1e-4},
+                              "fused_update": fused},
+                "zero_optimization": {"stage": 2}}
+        engine, *_ = dtt.initialize(model=model,
+                                    params=init_gpt_params(cfg, seed=1),
+                                    config=conf)
+        before = fa.flash_attention_fwd.launches
+        first = []
+        for j in range(gas):
+            first.append(engine.forward({"input_ids": ids[0, j]}))
+            engine.backward(first[-1])
+        grads = [g.clone() for g in engine.state.grad_acc]
+        engine.step()
+        losses = [float(torch.stack(first).mean())]
+        for s in (1, 2):
+            losses.append(float(engine.train_batch({"input_ids": ids[s]})))
+        launched = fa.flash_attention_fwd.launches - before
+        if (launched > 0) != (label == "kernels"):
+            fail(f"fp32 comparison: the {label} run launched the flash "
+                 f"forward {launched} times")
+        runs[label] = (grads, losses)
+        names = engine.param_names
+        del engine, model
+    (gk, lk), (gp, lp) = runs["kernels"], runs["plain"]
+    rel = {n: float(global_norm([a - b])) / float(global_norm([b]))
+           for n, a, b in zip(names, gk, gp)}
+    whole = (float(global_norm([a - b for a, b in zip(gk, gp)]))
+             / float(global_norm(gp)))
+    worst = max(rel, key=rel.get)
+    attn = {n: f"{e:.3g}" for n, e in rel.items()
+            if "c_attn" in n or "c_proj" in n}
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    print(f"training fp32 gpt2-width 2 layers, micro 4 x 512, GAS 2: "
+          f"kernels vs plain path: first-step grad |diff|/|grad| per leaf: "
+          f"worst {worst} {rel[worst]:.3g} (limit 1e-4); attention leaves "
+          f"{json.dumps(attn)}; whole tree {whole:.3g}; losses {lk} vs "
+          f"{lp}, max rel diff {loss_rel:.3g} (limit 1e-5)")
+    if not rel[worst] <= 1e-4 or not loss_rel <= 1e-5:
+        fail("training fp32: the kernels' path disagrees with the plain "
+             "path")
+
+
 def main() -> int:
     import torch
 
@@ -457,35 +1078,60 @@ def main() -> int:
     if os.path.dirname(pkg) != HERE:
         fail(f"imported deepspeed_tpu_torch from {pkg}, not from this "
              f"checkout ({HERE})")
+    only_kernels = sys.argv[1:] == ["--only", "kernels"]
+    if sys.argv[1:] and not only_kernels:
+        fail(f"unknown arguments {sys.argv[1:]} (none, or --only kernels)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # 1. device and build
+    # 1. device and build: one nvcc per source, all started together
     card = card_line()
     print(card)
     t0 = time.perf_counter()
-    lib = build.build("paged_attention")
-    print(f"built {os.path.relpath(lib, HERE)} in "
+    sources = sorted({src for _n, src, _r in KERNELS})
+    libs = build.build_all(sources)
+    print(f"built {len(libs)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s")
-    with open(lib[:-3] + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                print("  " + line.strip())
+    for lib in libs:
+        print(f"  {os.path.relpath(lib, HERE)}")
+        with open(lib[:-3] + ".log") as f:
+            for line in f:
+                if "registers" in line or "spill" in line \
+                        or "Compiling entry" in line:
+                    print("    " + line.strip())
 
     # 2. kernels against their plain versions
-    report = {"name": "paged_decode_attention", "route": "cuda",
-              "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
-              "replaces": "deepspeed_tpu/ops/transformer/"
-                          "paged_attention.py:69"}
-    check_paged_attention(torch, report)
+    reports = {name: {"name": name, "route": "cuda",
+                      "source": f"deepspeed_tpu_torch/csrc/{src}.cu",
+                      "replaces": rep}
+               for name, src, rep in KERNELS}
+    check_paged_attention(torch, reports["paged_decode_attention"])
+    check_flash_attention(torch, {
+        "fwd": reports["flash_attention_fwd"],
+        "dq": reports["flash_attention_bwd_dq"],
+        "dkv": reports["flash_attention_bwd_dkv"]})
+    check_fused_adam(torch, reports["fused_adam"])
+    if only_kernels:
+        print(json.dumps({"kernels_checked": [k for k, *_ in KERNELS]}))
+        return 0
 
     # 3. the serving path end to end
     serving = check_serving(torch)
-    report["launches"] = serving["kernel_launches"]
+    reports["paged_decode_attention"]["launches"] = \
+        serving["kernel_launches"]
+
+    # 4. the training path end to end, and its fp32 comparison
+    training = check_training(torch, card)
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "fused_adam"):
+        reports[name]["launches"] = training["launches"][name]
+    check_training_fp32(torch)
+
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    print(json.dumps({"kernels": [{k: report[k] for k in keys}]}))
+    print(json.dumps({"kernels": [{k: reports[n][k] for k in keys}
+                                  for n, *_ in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

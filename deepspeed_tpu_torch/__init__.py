@@ -5,16 +5,72 @@ schema, same module paths, same outputs on the same weights. It imports
 torch and numpy, never jax, flax or deepspeed_tpu. Its entry points run on
 the CUDA device unless the caller passes ``device="cpu"``.
 
-Ported so far: continuous-batching GPT serving (``init_serving``) over the
-inference engine (``init_inference``), with the paged decode-attention
-kernel written in CUDA for Hopper.
+Ported so far: single-device training (``initialize`` -> ``train_batch``)
+with the flash-attention and fused-Adam kernels, and continuous-batching
+GPT serving (``init_serving``) over the inference engine
+(``init_inference``) with the paged decode-attention kernel; every kernel
+written in CUDA for Hopper.
 """
 
 import json
-from typing import Any, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.version import __version__
+
+
+def initialize(model=None, params: Optional[Dict[str, Any]] = None,
+               config: Optional[Union[str, Dict[str, Any]]] = None,
+               loss_fn: Optional[Callable] = None, device=None,
+               optimizer=None, lr_scheduler=None, training_data=None,
+               config_params=None, rng_seed: int = 0):
+    """Build the training engine. Returns ``(engine, optimizer, None,
+    lr_scheduler)``.
+
+    Two entry styles, as in the JAX package:
+    - module: ``model`` is an ``nn.Module`` whose forward returns the loss
+      (or a dict holding ``"loss"``), e.g. the port's GPT; ``params`` an
+      optional ``state_dict`` to load first. The module's parameters become
+      the fp32 masters, on ``device``, and are trained in place;
+    - functional: ``loss_fn(params, batch, rng)`` with ``params`` a dict
+      of tensors.
+
+    ``device`` None means the CUDA device; the CPU only when asked for.
+    ``training_data`` (the dataloader) is not ported yet.
+    """
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.config.config import (DeepSpeedConfig,
+                                                   not_yet_ported)
+    from deepspeed_tpu_torch.inference.engine import resolve_device
+    from deepspeed_tpu_torch.models.adapter import module_loss_fn
+    from deepspeed_tpu_torch.runtime.engine import (DeepSpeedEngine,
+                                                    engine_world_size)
+
+    if training_data is not None:
+        raise not_yet_ported("initialize(training_data=...) (the "
+                             "dataloader)")
+    cfg = config if config is not None else config_params
+    if not isinstance(cfg, DeepSpeedConfig):
+        cfg = DeepSpeedConfig(cfg, world_size=engine_world_size())
+    dev = resolve_device(device)
+    if loss_fn is None:
+        if model is None:
+            raise ValueError("initialize needs model= or loss_fn=")
+        if params is not None:
+            model.load_state_dict(
+                {k: v if isinstance(v, torch.Tensor)
+                 else torch.as_tensor(np.asarray(v))
+                 for k, v in params.items()}, strict=True)
+        model.to(device=dev, dtype=torch.float32)
+        loss_fn, params = module_loss_fn(model)
+    elif params is None:
+        raise ValueError("initialize(loss_fn=...) needs params=")
+    engine = DeepSpeedEngine(loss_fn, dict(params), cfg, device=dev,
+                             optimizer=optimizer, lr_scheduler=lr_scheduler,
+                             module=model, rng_seed=rng_seed)
+    return engine, engine.optimizer, None, engine.lr_scheduler
 
 
 def init_inference(model=None, **kwargs):
@@ -49,5 +105,5 @@ def init_serving(model=None,
     return ServeEngine(init_inference(model, **kwargs), config=scfg)
 
 
-__all__ = ["init_inference", "init_serving", "log_dist", "logger",
-           "__version__"]
+__all__ = ["initialize", "init_inference", "init_serving", "log_dist",
+           "logger", "__version__"]

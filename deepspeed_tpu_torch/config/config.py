@@ -1,12 +1,15 @@
-"""Parsed config blocks of the port: ``ServingConfig`` and ``ConfigError``.
+"""Parsed configs of the port: ``DeepSpeedConfig`` (training),
+``ServingConfig`` and ``ConfigError``.
 
-Held to the walls of ``deepspeed_tpu/config/config.py:ServingConfig``. A
-key the port has no feature for yet raises a ``ConfigError`` that names it
-and says "not yet ported"; an unknown key raises too. Nothing is ignored.
+Held to the walls of ``deepspeed_tpu/config/config.py``. A key the port has
+no feature for yet raises a ``ConfigError`` that names it and says "not yet
+ported"; an unknown key raises too. Nothing is ignored.
 """
 
+import json
+import os
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 from deepspeed_tpu_torch.config import constants as C
 
@@ -151,3 +154,219 @@ def check_serving_blocks(config: Dict[str, Any]) -> None:
     if config.get(C.RESILIENCE):
         raise not_yet_ported("the resilience block (serving fault "
                              "injection)")
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+@dataclass
+class FP16Config:
+    enabled: bool = False
+    loss_scale: float = 0.0      # 0 => dynamic
+    initial_scale_power: int = C.FP16_INITIAL_SCALE_POWER_DEFAULT
+    loss_scale_window: int = C.FP16_LOSS_SCALE_WINDOW_DEFAULT
+    hysteresis: int = C.FP16_HYSTERESIS_DEFAULT
+    min_loss_scale: float = C.FP16_MIN_LOSS_SCALE_DEFAULT
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "FP16Config":
+        d = d or {}
+        known = {C.FP16_ENABLED, C.FP16_LOSS_SCALE,
+                 C.FP16_INITIAL_SCALE_POWER, C.FP16_LOSS_SCALE_WINDOW,
+                 C.FP16_HYSTERESIS, C.FP16_MIN_LOSS_SCALE}
+        unknown = set(d) - known
+        if unknown:
+            raise ConfigError(f"unknown fp16 keys {sorted(unknown)}")
+        return cls(
+            enabled=bool(_get(d, C.FP16_ENABLED, False)),
+            loss_scale=float(_get(d, C.FP16_LOSS_SCALE, 0.0)),
+            initial_scale_power=int(_get(d, C.FP16_INITIAL_SCALE_POWER,
+                                         C.FP16_INITIAL_SCALE_POWER_DEFAULT)),
+            loss_scale_window=int(_get(d, C.FP16_LOSS_SCALE_WINDOW,
+                                       C.FP16_LOSS_SCALE_WINDOW_DEFAULT)),
+            hysteresis=int(_get(d, C.FP16_HYSTERESIS,
+                                C.FP16_HYSTERESIS_DEFAULT)),
+            min_loss_scale=float(_get(d, C.FP16_MIN_LOSS_SCALE,
+                                      C.FP16_MIN_LOSS_SCALE_DEFAULT)))
+
+    @property
+    def dynamic_loss_scale(self) -> bool:
+        return self.loss_scale == 0.0
+
+
+def _turns_on(key: str, value: Any) -> bool:
+    """Whether a top-level block of the JAX schema turns its feature on:
+    falsy values and ``{"enabled": false, ...}`` are off, as are a
+    one-stage ``pipeline`` and a ``mesh`` whose axes are all 1 (or -1 for
+    the inferred data axis)."""
+    if not value:
+        return False
+    if isinstance(value, dict):
+        if C.SUB_BLOCK_ENABLED in value:
+            return bool(value[C.SUB_BLOCK_ENABLED])
+        if key == "pipeline":
+            return int(value.get("stages", 1)) > 1
+        if key == "mesh":
+            return any(int(v) not in (1, -1) for v in value.values())
+    return True
+
+
+_TRAINING_KEYS = frozenset({
+    C.TRAIN_BATCH_SIZE, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU,
+    C.TRAIN_MICRO_BATCH_SIZE_PER_CHIP, C.GRADIENT_ACCUMULATION_STEPS,
+    C.OPTIMIZER, C.SCHEDULER, C.FP16, C.BF16, C.BFLOAT16, C.DATA_TYPES,
+    C.GRADIENT_CLIPPING, C.PRESCALE_GRADIENTS, C.GRADIENT_PREDIVIDE_FACTOR,
+    C.STEPS_PER_PRINT, C.ZERO_OPTIMIZATION, C.SERVING,
+})
+
+
+class DeepSpeedConfig:
+    """Parsed, validated training configuration (the port of
+    ``DeepSpeedTPUConfig``): the batch triple, the optimizer (Adam/AdamW,
+    ``fused_update``), the scheduler, bf16/fp16, the gradient-accumulation
+    dtype, clipping, prescaling, ``steps_per_print`` and the
+    ``zero_optimization`` block. Every other training block of the JAX
+    schema raises ``ConfigError`` naming it with "not yet ported" unless it
+    is off; an unknown key raises. ``world_size`` is the data-parallel
+    degree the batch triple is solved for (one process so far)."""
+
+    def __init__(self, config: Union[str, Dict[str, Any], None],
+                 world_size: int = 1):
+        if config is None:
+            config = {}
+        if isinstance(config, str):
+            if not os.path.exists(config):
+                raise ConfigError(f"config file not found: {config}")
+            with open(config) as f:
+                config = json.load(f)
+        if not isinstance(config, dict):
+            raise ConfigError(f"config must be a path or dict, got "
+                              f"{type(config)}")
+        d = dict(config)
+        for key in C.NOT_YET_PORTED_BLOCKS:
+            if key in d and _turns_on(key, d[key]):
+                raise not_yet_ported(f"the {key!r} config block")
+        unknown = set(d) - _TRAINING_KEYS - set(C.NOT_YET_PORTED_BLOCKS)
+        if unknown:
+            raise ConfigError(f"unknown config keys {sorted(unknown)}")
+        self.world_size = int(world_size)
+
+        micro = d.get(C.TRAIN_MICRO_BATCH_SIZE_PER_GPU,
+                      d.get(C.TRAIN_MICRO_BATCH_SIZE_PER_CHIP))
+        (self.train_batch_size, self.train_micro_batch_size_per_gpu,
+         self.gradient_accumulation_steps) = resolve_batch_triple(
+            d.get(C.TRAIN_BATCH_SIZE), micro,
+            d.get(C.GRADIENT_ACCUMULATION_STEPS), self.world_size)
+
+        opt = d.get(C.OPTIMIZER)
+        self.optimizer_name: Optional[str] = None
+        self.optimizer_params: Dict[str, Any] = {}
+        self.optimizer_fused_update = C.OPTIMIZER_FUSED_UPDATE_DEFAULT
+        if opt is not None:
+            if C.OPTIMIZER_TYPE not in opt:
+                raise ConfigError("optimizer block requires a 'type'")
+            unknown = set(opt) - {C.OPTIMIZER_TYPE, C.OPTIMIZER_PARAMS,
+                                  C.OPTIMIZER_FUSED_UPDATE}
+            if unknown:
+                raise ConfigError(f"unknown optimizer keys {sorted(unknown)}")
+            name = str(opt[C.OPTIMIZER_TYPE]).lower()
+            if name in C.NOT_YET_PORTED_OPTIMIZERS:
+                raise not_yet_ported(f"optimizer type {name!r}")
+            if name not in (C.ADAM_OPTIMIZER, C.ADAMW_OPTIMIZER):
+                raise ConfigError(f"unknown optimizer '{name}'")
+            self.optimizer_name = name
+            self.optimizer_params = dict(opt.get(C.OPTIMIZER_PARAMS) or {})
+            self.optimizer_fused_update = bool(opt.get(
+                C.OPTIMIZER_FUSED_UPDATE, C.OPTIMIZER_FUSED_UPDATE_DEFAULT))
+
+        sched = d.get(C.SCHEDULER)
+        self.scheduler_name: Optional[str] = None
+        self.scheduler_params: Dict[str, Any] = {}
+        if sched is not None:
+            if C.SCHEDULER_TYPE not in sched:
+                raise ConfigError("scheduler block requires a 'type'")
+            self.scheduler_name = str(sched[C.SCHEDULER_TYPE])
+            self.scheduler_params = dict(sched.get(C.SCHEDULER_PARAMS) or {})
+
+        self.fp16 = FP16Config.from_dict(d.get(C.FP16))
+        bf16_block = d.get(C.BF16, d.get(C.BFLOAT16))
+        self.bf16_enabled = bool(_get(bf16_block or {}, C.BF16_ENABLED,
+                                      False))
+        if self.fp16.enabled and self.bf16_enabled:
+            raise ConfigError("fp16 and bf16 cannot both be enabled")
+        self.gradient_clipping = float(_get(d, C.GRADIENT_CLIPPING,
+                                            C.GRADIENT_CLIPPING_DEFAULT))
+        self.prescale_gradients = bool(_get(d, C.PRESCALE_GRADIENTS,
+                                            C.PRESCALE_GRADIENTS_DEFAULT))
+        self.gradient_predivide_factor = float(_get(
+            d, C.GRADIENT_PREDIVIDE_FACTOR,
+            C.GRADIENT_PREDIVIDE_FACTOR_DEFAULT))
+        dt_block = dict(d.get(C.DATA_TYPES) or {})
+        unknown = set(dt_block) - {C.GRAD_ACCUM_DTYPE}
+        if unknown:
+            raise ConfigError(f"unknown data_types keys {sorted(unknown)}")
+        self.grad_accum_dtype = str(dt_block.get(C.GRAD_ACCUM_DTYPE,
+                                                 C.GRAD_ACCUM_DTYPE_DEFAULT))
+        if self.grad_accum_dtype not in ("float32", "fp32", "bfloat16",
+                                         "bf16"):
+            raise ConfigError(
+                f"data_types.grad_accum_dtype must be float32 or bfloat16, "
+                f"got '{self.grad_accum_dtype}'")
+        from deepspeed_tpu_torch.runtime.zero.config import ZeroConfig
+
+        self.zero_config = ZeroConfig.from_dict(d.get(C.ZERO_OPTIMIZATION))
+        self.zero_enabled = self.zero_config.enabled
+        if C.SERVING in d:
+            ServingConfig.from_dict(d[C.SERVING])
+        self.steps_per_print = int(_get(d, C.STEPS_PER_PRINT,
+                                        C.STEPS_PER_PRINT_DEFAULT))
+
+    @property
+    def precision_dtype(self) -> str:
+        if self.bf16_enabled:
+            return "bfloat16"
+        if self.fp16.enabled:
+            return "float16"
+        return "float32"
+
+
+def resolve_batch_triple(train: Optional[int], micro: Optional[int],
+                         gas: Optional[int], dp: int):
+    """Solve and check train = micro x gas x dp."""
+    train = int(train) if train is not None else None
+    micro = int(micro) if micro is not None else None
+    gas = int(gas) if gas is not None else None
+    if all(v is not None for v in (train, micro, gas)):
+        if train != micro * gas * dp:
+            raise ConfigError(
+                f"batch sizes inconsistent: train_batch_size={train} != "
+                f"micro({micro}) x gas({gas}) x dp({dp})")
+    elif train is not None and micro is not None:
+        if train % (micro * dp) != 0:
+            raise ConfigError(f"train_batch_size {train} not divisible by "
+                              f"micro x dp={micro * dp}")
+        gas = train // (micro * dp)
+    elif train is not None and gas is not None:
+        if train % (gas * dp) != 0:
+            raise ConfigError(f"train_batch_size {train} not divisible by "
+                              f"gas x dp={gas * dp}")
+        micro = train // (gas * dp)
+    elif micro is not None:
+        gas = gas or 1
+        train = micro * gas * dp
+    elif train is not None:
+        gas = 1
+        if train % dp != 0:
+            raise ConfigError(f"train_batch_size {train} not divisible by "
+                              f"dp={dp}")
+        micro = train // dp
+    else:
+        raise ConfigError("at least one of train_batch_size / "
+                          "train_micro_batch_size_per_gpu must be specified")
+    for name, v in (("train_batch_size", train),
+                    ("train_micro_batch_size_per_gpu", micro),
+                    ("gradient_accumulation_steps", gas)):
+        if v <= 0:
+            raise ConfigError(f"{name} must be positive, got {v}")
+    return train, micro, gas

@@ -101,6 +101,7 @@ class InferenceEngine:
     def forward(self, input_ids, **kwargs):
         """Deterministic forward; returns the module's output dict."""
         ids = torch.as_tensor(input_ids, device=self.device).long()
+        kwargs.setdefault("deterministic", True)
         return self.module(ids, **kwargs)
 
     __call__ = forward

@@ -1,9 +1,12 @@
-"""GPT-2 family as PyTorch modules, in inference form.
+"""GPT-2 family as PyTorch modules.
 
-The port of ``deepspeed_tpu/models/gpt.py`` for serving and generation:
-pre-LN blocks with a combined QKV projection, LayerNorm in fp32, the
-tanh-GELU MLP and a tied (or untied) head. A forward with a cache takes
-one of three cache forms, as the JAX model does:
+The port of ``deepspeed_tpu/models/gpt.py``: pre-LN blocks with a combined
+QKV projection, LayerNorm in fp32, the tanh-GELU MLP and a tied (or
+untied) head. A forward without a cache is the training/eval form: it
+returns the token-mean next-token loss (through the fused CE head when the
+head is tied) and attention goes through ``ops/transformer/attention``
+(the flash kernels on the card). A forward with a cache takes one of three
+cache forms, as the JAX model does:
 
 - a per-layer ``(k, v)`` tuple of dense [B, max_len, H, D] tensors
   (prefill, ``generate``), written at the scalar ``pos``;
@@ -14,9 +17,12 @@ one of three cache forms, as the JAX model does:
   decode-attention kernel straight over the pools.
 
 Parameter names follow torch (``h.0.c_attn.weight`` [out, in]);
-``models/convert.py`` maps them to and from the flax tree. Dropout, MoE,
-sparse attention, the fused LN kernel and remat are training options of
-the JAX model and are refused until the training slice ports them.
+``models/convert.py`` maps them to and from the flax tree. The config's
+defaults are the JAX package's. Dropout (``dropout_rate > 0``) is refused
+where it would act, in a training forward; inference, serving and eval are
+deterministic and ignore it, as in JAX. MoE, sparse attention, the fused
+LN kernel, remat and the sparse embedding gradient are refused at
+construction until a later slice ports them.
 """
 
 from dataclasses import dataclass, replace
@@ -27,7 +33,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepspeed_tpu_torch.config.config import not_yet_ported
-from deepspeed_tpu_torch.ops.transformer.attention import xla_attention
+from deepspeed_tpu_torch.ops.embedding import embedding_lookup, vocab_pad_mask
+from deepspeed_tpu_torch.ops.transformer.attention import (attention,
+                                                           xla_attention)
+from deepspeed_tpu_torch.ops.xent import fused_cross_entropy
 
 
 @dataclass(frozen=True)
@@ -38,25 +47,28 @@ class GPTConfig:
     num_layers: int = 12
     num_heads: int = 12
     mlp_ratio: int = 4
-    # The port is inference-only so far: its configs carry no dropout.
-    dropout_rate: float = 0.0
+    dropout_rate: float = 0.1
     dtype: torch.dtype = torch.bfloat16      # activation/compute dtype
+    attention_impl: str = "auto"
+    remat: bool = False
     tie_embeddings: bool = True
     layer_norm_epsilon: float = 1e-5
+    fused_ce: bool = True                    # ops/xent.py fused CE head
+    fused_ce_fp32_logits: bool = False       # fp32 logits inside it
     attention_scale: Optional[float] = None  # None -> 1/sqrt(head_dim)
     vocab_pad_multiple: int = 0
-    # Training-only options of the JAX GPTConfig, accepted off only.
-    remat: bool = False
+    embed_grad_matmul: bool = False          # fp32-summed embedding grad
+    sparse_embedding_grad: Any = None
+    fast_dropout: bool = True
+    # Training options of the JAX GPTConfig, accepted off only.
     fused_ln: Any = False
     sparse_attention: Any = None
     moe_experts: int = 0
 
     def __post_init__(self):
-        if self.dropout_rate > 0:
-            raise not_yet_ported(f"GPTConfig.dropout_rate="
-                                 f"{self.dropout_rate} (training dropout)")
         for key, off in (("remat", False), ("fused_ln", False),
-                         ("sparse_attention", None), ("moe_experts", 0)):
+                         ("sparse_attention", None), ("moe_experts", 0),
+                         ("sparse_embedding_grad", None)):
             if getattr(self, key) not in (off, None, 0, False):
                 raise not_yet_ported(f"GPTConfig.{key}")
         if self.hidden_size % self.num_heads:
@@ -78,7 +90,7 @@ class GPTConfig:
 # Named configurations (sizes follow the public GPT-2 family).
 GPT_CONFIGS: Dict[str, GPTConfig] = {
     "tiny": GPTConfig(vocab_size=512, max_seq_len=128, hidden_size=64,
-                      num_layers=2, num_heads=4),
+                      num_layers=2, num_heads=4, dropout_rate=0.0),
     "gpt2": GPTConfig(hidden_size=768, num_layers=12, num_heads=12),
     "gpt2-medium": GPTConfig(hidden_size=1024, num_layers=24, num_heads=16),
     "gpt2-large": GPTConfig(hidden_size=1280, num_layers=36, num_heads=20),
@@ -131,8 +143,8 @@ class GPTBlock(nn.Module):
         q, k, v = (t.reshape(shape) for t in qkv.split(cfg.hidden_size, -1))
         scale = cfg.attention_scale
         if kv_cache is None:
-            o = xla_attention(q, k, v, causal=True, mask=attn_mask,
-                              softmax_scale=scale)
+            o = attention(q, k, v, causal=True, mask=attn_mask,
+                          softmax_scale=scale, impl=cfg.attention_impl)
         elif isinstance(kv_cache, tuple):
             ck, cv = kv_cache
             ck[:, pos:pos + s] = k.to(ck.dtype)
@@ -165,8 +177,9 @@ class GPTBlock(nn.Module):
 
 
 class GPT(nn.Module):
-    """Causal LM. ``forward(input_ids, ...)`` returns ``{"logits"}`` and,
-    in cache mode, ``{"logits", "cache"}``."""
+    """Causal LM. ``forward(input_ids, labels=None, attention_mask=None,
+    deterministic=False)`` returns ``{"loss", "logits"}``; in cache mode
+    ``{"logits", "cache"}``."""
 
     def __init__(self, cfg: GPTConfig):
         super().__init__()
@@ -182,27 +195,42 @@ class GPT(nn.Module):
                         else nn.Linear(d, cfg.vocab_size, bias=False))
 
     def forward(self, input_ids: torch.Tensor,
-                position_ids: Optional[torch.Tensor] = None,
+                labels: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
+                deterministic: bool = False,
+                position_ids: Optional[torch.Tensor] = None,
                 cache: Optional[List[Any]] = None,
                 pos: Optional[int] = None) -> Dict[str, Any]:
-        """``input_ids``: [B, S]. ``position_ids``: optional per-row
-        positions [B, S] (left-padded prompts re-base theirs to start at
-        0). ``attention_mask``: [B, S] (1 = keep), or in cache mode a full
+        """``input_ids``: [B, S]. ``labels``: [B, S] next-token targets
+        (-100 = ignore), or None for ``input_ids`` shifted left.
+        ``attention_mask``: [B, S] (1 = keep), or in cache mode a full
         [B, cache_len] key-validity mask (the JAX model also places a
         [B, S] chunk mask at ``pos``; nothing in the port needs that).
-        ``cache``: per-layer caches (see the module docstring); ``pos``:
-        the dense cache's write offset."""
+        ``deterministic``: False is a training forward. ``position_ids``:
+        optional per-row positions [B, S] (left-padded prompts re-base
+        theirs to start at 0). ``cache``: per-layer caches (see the module
+        docstring); ``pos``: the dense cache's write offset.
+
+        A training forward through the fused CE head returns
+        ``"logits": None``: eagerly, the fp32 [B, S, V] logits would cost
+        their matmul and 1.6 GB at GPT-2's bench shape for nothing, where
+        the JAX step's compiler drops them unused."""
         cfg = self.cfg
         dt = cfg.dtype
         b, s = input_ids.shape
+        if cache is None and not deterministic and cfg.dropout_rate > 0:
+            raise not_yet_ported(
+                f"GPT dropout_rate={cfg.dropout_rate} in a training forward "
+                f"(hash dropout and the flash kernels' dropout branch)")
         if position_ids is not None:
             pe = self.wpe[position_ids]
         elif pos is None:
             pe = self.wpe[:s][None]
         else:
             pe = self.wpe[pos:pos + s][None]
-        x = self.wte[input_ids].to(dt) + pe.to(dt)
+        tok = embedding_lookup(self.wte, input_ids,
+                               matmul_grad=cfg.embed_grad_matmul)
+        x = tok.to(dt) + pe.to(dt)
 
         attn_mask = None
         if attention_mask is not None:
@@ -225,6 +253,29 @@ class GPT(nn.Module):
                 x = block(x, attn_mask)
 
         x = _layer_norm(self.ln_f, x)
+        fused = cfg.tie_embeddings and cfg.fused_ce
+        logits = None
+        if cache is not None or deterministic or not fused:
+            logits = self._head(x)
+        if cache is not None:
+            return {"logits": logits, "cache": new_cache}
+        # Loss through the fused CE head (ops/xent.py): compute-dtype
+        # logits, lse-only residual, backward recompute.
+        tgt = shift_labels({"input_ids": input_ids, "labels": labels})
+        if fused:
+            mask = (vocab_pad_mask(cfg.padded_vocab, cfg.vocab_size,
+                                   device=x.device)
+                    if cfg.padded_vocab != cfg.vocab_size else None)
+            loss = fused_cross_entropy(x.to(dt), self.wte.to(dt), tgt,
+                                       bias=mask, bias_grad=False,
+                                       logits_fp32=cfg.fused_ce_fp32_logits)
+        else:
+            loss = cross_entropy_with_ignore(logits, tgt)
+        return {"loss": loss, "logits": logits}
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        dt = cfg.dtype
         if self.lm_head is None:
             # The JAX head is a ``dt`` matmul with fp32 output: round both
             # operands to ``dt``, then multiply in fp32. Products of bf16
@@ -233,12 +284,30 @@ class GPT(nn.Module):
             logits = x.to(dt).float() @ self.wte.to(dt).float().t()
             if cfg.padded_vocab != cfg.vocab_size:
                 logits = logits[..., :cfg.vocab_size]
-        else:
-            logits = _dense(self.lm_head, x, dt).float()
-        out = {"logits": logits}
-        if cache is not None:
-            out["cache"] = new_cache
-        return out
+            return logits
+        return _dense(self.lm_head, x, dt).float()
+
+
+def shift_labels(batch: Dict[str, Any]) -> torch.Tensor:
+    """Next-token labels: explicit ``labels`` or ``input_ids`` shifted left
+    with the trailing position ignored (-100)."""
+    labels = batch.get("labels")
+    if labels is None:
+        ids = batch["input_ids"]
+        labels = F.pad(ids[:, 1:], (0, 1), value=-100)
+    return labels
+
+
+def cross_entropy_with_ignore(logits: torch.Tensor, labels: torch.Tensor,
+                              ignore_index: int = -100) -> torch.Tensor:
+    """Token-mean cross entropy, fp32, ignoring ``ignore_index``
+    positions."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum() / valid.sum().clamp_min(1)
 
 
 def init_kv_cache(cfg: GPTConfig, batch_size: int, max_len: int,

@@ -48,26 +48,42 @@ def build(name: str) -> str:
     library's path. ``nvcc``'s ``-Xptxas -v`` report (registers, shared
     memory, spills) is kept beside it as ``.log``. Raises if there is no
     ``nvcc`` or the compile fails."""
-    out = library_path(name)
-    if os.path.exists(out):
-        return out
+    return build_all([name])[0]
+
+
+def build_all(names) -> list:
+    """Compile every ``csrc/<name>.cu`` of ``names`` that is not built yet,
+    one ``nvcc`` per source, all started together; returns the libraries'
+    paths in order."""
+    outs = [library_path(n) for n in names]
+    todo = [(n, o) for n, o in zip(names, outs) if not os.path.exists(o)]
+    if not todo:
+        return outs
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError(
-            f"cannot build the CUDA kernel {name!r}: nvcc not found (set "
-            f"CUDA_HOME or put nvcc on PATH)")
+            f"cannot build the CUDA kernel {todo[0][0]!r}: nvcc not found "
+            f"(set CUDA_HOME or put nvcc on PATH)")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {name!r} "
-                           f"(rc {proc.returncode}):\n{proc.stderr}")
-    with open(out[:-3] + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, out)   # atomic: a concurrent builder loads either copy
-    return out
+    procs = []
+    for name, out in todo:
+        tmp = f"{out}.{os.getpid()}.tmp"
+        procs.append((name, out, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed to build {name!r} "
+                          f"(rc {proc.returncode}):\n{stderr}")
+            continue
+        with open(out[:-3] + ".log", "w") as f:
+            f.write(stdout + stderr)
+        os.replace(tmp, out)   # atomic: a concurrent builder loads either
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,31 +1,57 @@
-"""Dense multi-head attention in plain PyTorch.
+"""Multi-head attention: the dispatch and its plain path.
 
-The port of ``deepspeed_tpu/ops/transformer/attention.py:xla_attention``,
-the always-correct path the JAX package leaves to XLA. Prefill, ``generate``
-and the gather decode path use it. It is no Pallas kernel, so plain
-``einsum`` is its right form.
+The port of ``deepspeed_tpu/ops/transformer/attention.py``. Every model
+reaches attention through :func:`attention` over [B, S, H, D] tensors;
+``impl`` picks the path:
+
+- ``"xla"``: :func:`xla_attention`, dense attention in plain PyTorch (the
+  JAX package's always-correct path, left to XLA there), softmax in fp32.
+  Prefill, ``generate`` and the gather decode path use it directly.
+- ``"flash"`` (``"pallas"``, the JAX name, is an alias): the flash kernels
+  of ``flash_attention.py``; a key-padding mask only.
+- ``"auto"``: on a CUDA tensor, the flash kernels for causal or
+  key-padding-masked attention; plain attention only for what the JAX
+  dispatch also leaves to XLA (a bias or a general mask). A shape the
+  kernels refuse raises there; it does not drop to the plain path on the
+  card. On the CPU, plain attention, as the JAX package off the TPU. (The
+  JAX crossover ``PALLAS_MIN_SEQ_K`` is a TPU measurement and is not
+  carried over.)
+
+``"ring"``, ``"ulysses"`` and ``"pallas_pad"`` and attention dropout are not
+ported yet.
 """
 
 from typing import Optional
 
 import torch
 
+from deepspeed_tpu_torch.config.config import not_yet_ported
+from deepspeed_tpu_torch.ops.transformer.flash_attention import \
+    flash_attention
+
+IMPLS = ("auto", "flash", "pallas", "xla")
+NOT_YET_PORTED_IMPLS = ("ring", "ulysses", "pallas_pad")
+
 
 def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = False,
+                  bias: Optional[torch.Tensor] = None,
                   mask: Optional[torch.Tensor] = None,
                   softmax_scale: Optional[float] = None) -> torch.Tensor:
     """q, k, v: [B, S, H, D] (k/v's sequence may differ from q's).
 
     Logits and softmax are fp32 whatever the input dtype; masked logits are
     ``finfo(float32).min``; the causal mask is aligned bottom-right
-    (``tril(k=sk-sq)``), as in the JAX package. ``mask``: [B, Sk] key
-    padding, or anything broadcastable to [B, H, Sq, Sk]; True = attend.
+    (``tril(k=sk-sq)``), as in the JAX package. ``bias``: added to the
+    logits. ``mask``: [B, Sk] key padding, or anything broadcastable to
+    [B, H, Sq, Sk]; True = attend.
     """
     orig_dtype = q.dtype
     scale = (softmax_scale if softmax_scale is not None
              else 1.0 / (q.shape[-1] ** 0.5))
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias.float()
     neg = torch.finfo(torch.float32).min
     if causal:
         sq, sk = logits.shape[-2], logits.shape[-1]
@@ -42,3 +68,60 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # as jnp.einsum promotes: bf16 probs against an fp32 cache give fp32
     dt = torch.promote_types(orig_dtype, v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(dt), v.to(dt))
+
+
+def _as_kv_mask(mask: Optional[torch.Tensor], batch: int, sk: int
+                ) -> Optional[torch.Tensor]:
+    """A key-padding mask [B, Sk] from the common mask forms ([B, Sk],
+    [B, 1, Sk], [B, 1, 1, Sk]), or None if ``mask`` is a general pattern
+    the flash kernels cannot take."""
+    if mask is None:
+        return None
+    if mask.ndim == 2 and tuple(mask.shape) == (batch, sk):
+        return mask
+    if (mask.ndim == 4 and mask.shape[0] == batch and mask.shape[1] == 1
+            and mask.shape[2] == 1 and mask.shape[3] == sk):
+        return mask[:, 0, 0, :]
+    if (mask.ndim == 3 and mask.shape[0] == batch and mask.shape[1] == 1
+            and mask.shape[2] == sk):
+        return mask[:, 0, :]
+    return None
+
+
+def resolve_attention_impl(impl: str, device_type: str,
+                           general: bool) -> str:
+    """The path ``impl`` takes on ``device_type``: "flash" or "xla".
+    ``general``: the call has a bias or a mask that is not key padding."""
+    if impl in NOT_YET_PORTED_IMPLS:
+        raise not_yet_ported(f"attention impl={impl!r}")
+    if impl not in IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}; expected one of "
+                         f"{IMPLS}")
+    if impl == "auto":
+        return "flash" if device_type == "cuda" and not general else "xla"
+    return "xla" if impl == "xla" else "flash"
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = False,
+              bias: Optional[torch.Tensor] = None,
+              mask: Optional[torch.Tensor] = None,
+              dropout_rate: float = 0.0,
+              deterministic: bool = True,
+              softmax_scale: Optional[float] = None,
+              impl: str = "auto") -> torch.Tensor:
+    """Dispatching attention entry point used by the model families."""
+    kv_mask = _as_kv_mask(mask, q.shape[0], k.shape[1])
+    general = bias is not None or (mask is not None and kv_mask is None)
+    path = resolve_attention_impl(impl, q.device.type, general)
+    if dropout_rate > 0.0 and not deterministic:
+        raise not_yet_ported("attention dropout")
+    if path == "flash":
+        if general:
+            raise ValueError("impl='flash' attention takes only key-padding "
+                             "masks ([B, Sk] / [B, 1, Sk] / [B, 1, 1, Sk]) "
+                             "and no bias: use impl='xla' for those")
+        return flash_attention(q, k, v, causal=causal, kv_mask=kv_mask,
+                               softmax_scale=softmax_scale)
+    return xla_attention(q, k, v, causal=causal, bias=bias, mask=mask,
+                         softmax_scale=softmax_scale)

@@ -1,0 +1,306 @@
+"""Flash attention: the training attention, forward and backward.
+
+The port of ``deepspeed_tpu/ops/transformer/flash_attention.py``. ``q``,
+``k``, ``v`` are [B, S, H, D]; causality is aligned bottom-right (key ``j``
+is visible to query ``i`` iff ``j <= i + Sk - Sq``); an optional key mask
+``kv_mask`` [B, Sk] (1 = attend) multiplies the probabilities, so a row
+whose keys are all masked gives zeros, not NaN. The forward saves ``out``
+and the fp32 row logsumexp; the backward recomputes the probabilities.
+
+- On CUDA tensors, :func:`flash_attention` runs the three Hopper kernels of
+  ``csrc/flash_attention.cu`` (built at first use) through an
+  ``autograd.Function``: :func:`flash_attention_fwd`, then in the backward
+  :func:`flash_attention_bwd_dq` and :func:`flash_attention_bwd_dkv`. It
+  launches them or raises; it never falls back to the plain version.
+- On CPU tensors it runs :func:`flash_attention_reference`, the plain
+  PyTorch version (materialised fp32 scores, differentiated by autograd)
+  that the CPU tests hold against the JAX kernel and ``chip_smoke.py``
+  holds the CUDA kernels against.
+
+Each kernel wrapper counts its launches in ``.launches``. Attention dropout
+inside the kernels (``dropout_rate`` of the JAX function) is not ported yet.
+"""
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from deepspeed_tpu_torch.ops import build
+
+__all__ = ["flash_attention", "flash_attention_reference", "flash_ok",
+           "flash_attention_fwd", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv", "flash_bwd_dq_reference",
+           "flash_bwd_dkv_reference"]
+
+MAX_HEAD_DIM = 256
+MAX_BATCH_HEADS = 65535          # the grid's second dimension
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_FN = None
+
+
+def flash_ok(q: torch.Tensor, k: torch.Tensor, causal: bool) -> bool:
+    """Whether the CUDA kernels take these inputs: float32, bfloat16 or
+    float16; ``head_dim`` a multiple of 8 and at most 256; any sequence
+    lengths, except more queries than keys under ``causal`` (rows with no
+    visible key)."""
+    b, sq, h, d = q.shape
+    return (q.dtype in _DTYPE_CODES and d % 8 == 0 and 8 <= d <= MAX_HEAD_DIM
+            and b * h <= MAX_BATCH_HEADS and sq >= 1 and k.shape[1] >= 1
+            and not (causal and sq > k.shape[1]))
+
+
+def _scale_of(q: torch.Tensor, softmax_scale: Optional[float]) -> float:
+    return (softmax_scale if softmax_scale is not None
+            else 1.0 / (q.shape[-1] ** 0.5))
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = False,
+                              kv_mask: Optional[torch.Tensor] = None,
+                              softmax_scale: Optional[float] = None
+                              ) -> torch.Tensor:
+    """Plain version: the same function as the kernels over materialised
+    fp32 scores [B, H, Sq, Sk], differentiated by autograd. The row max is
+    taken over the causally visible keys, masked ones included, and the
+    mask multiplies ``exp(s - max)``, as in the kernels."""
+    scale = _scale_of(q, softmax_scale)
+    sq, sk = q.shape[1], k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    if causal:
+        keep = torch.ones((sq, sk), dtype=torch.bool,
+                          device=q.device).tril(sk - sq)
+        s = s.masked_fill(~keep, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True).detach()
+    p = torch.exp(s - m)
+    if kv_mask is not None:
+        p = p * kv_mask.float()[:, None, None, :]
+    l = p.sum(dim=-1, keepdim=True)
+    # l = 0 only where every key is masked: there p = 0 and o = 0, and a
+    # divisor of 1 keeps that row's gradient exactly 0
+    l = torch.where(l == 0, torch.ones_like(l), l.clamp_min(1e-30))
+    o = torch.einsum("bhqk,bkhd->bqhd", p / l, v.float())
+    return o.to(q.dtype)
+
+
+def _bwd_probs(q, k, v, dout, kv_mask, lse, delta, causal, scale):
+    """Shared part of the backward kernels' plain versions: scale * q,
+    p = exp(s - lse) * mask and ds = p (dO.v - delta), fp32,
+    [B, H, Sq, Sk]."""
+    sq, sk = q.shape[1], k.shape[1]
+    qs = q.float() * scale
+    s = torch.einsum("bqhd,bkhd->bhqk", qs, k.float())
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        keep = torch.ones((sq, sk), dtype=torch.bool,
+                          device=q.device).tril(sk - sq)
+        p = p.masked_fill(~keep, 0.0)
+    if kv_mask is not None:
+        p = p * kv_mask.float()[:, None, None, :]
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
+    return qs, p, p * (dp - delta[..., None])
+
+
+def flash_bwd_dq_reference(q, k, v, dout, kv_mask, lse, delta, causal: bool,
+                           scale: float) -> torch.Tensor:
+    """Plain version of the dq kernel on the same inputs (``lse`` and
+    ``delta`` fp32 [B, H, Sq])."""
+    _qs, _p, ds = _bwd_probs(q, k, v, dout, kv_mask, lse, delta, causal,
+                             scale)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    return dq.to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, dout, kv_mask, lse, delta,
+                            causal: bool, scale: float):
+    """Plain version of the dk/dv kernel on the same inputs."""
+    qs, p, ds = _bwd_probs(q, k, v, dout, kv_mask, lse, delta, causal,
+                           scale)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _kernel():
+    global _FN
+    if _FN is None:
+        lib = build.load("flash_attention")
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        shape = [i32] * 5 + [f32, i32, i32, ptr]
+        fwd = lib.flash_attention_fwd
+        fwd.argtypes = [ptr] * 7 + shape
+        dq = lib.flash_attention_bwd_dq
+        dq.argtypes = [ptr] * 9 + shape
+        dkv = lib.flash_attention_bwd_dkv
+        dkv.argtypes = [ptr] * 10 + shape
+        for fn in (fwd, dq, dkv):
+            fn.restype = i32
+        err = lib.flash_attention_error_string
+        err.argtypes = [i32]
+        err.restype = ctypes.c_char_p
+        _FN = (fwd, dq, dkv, err)
+    return _FN
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """16-byte vector loads of 8 elements: the data pointer, and the batch,
+    sequence and head strides, in whole 8-element vectors."""
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(s % 8 == 0 for s in t.stride()[:3]))
+
+
+def _prepare(q, k, v, kv_mask, causal):
+    """Checks the kernels rely on; returns inputs the kernels can read
+    through their strides (a misaligned view is copied first) and the
+    mask as contiguous fp32 [B, Sk], or None."""
+    if not flash_ok(q, k, causal):
+        raise ValueError(
+            f"flash_attention kernel takes float32, bfloat16 or float16, "
+            f"head_dim a multiple of 8 in [8, {MAX_HEAD_DIM}], at most "
+            f"{MAX_BATCH_HEADS} batch x heads and, when causal, no more "
+            f"queries than keys; got {q.dtype}, q {tuple(q.shape)}, "
+            f"k {tuple(k.shape)}")
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
+        if t.shape != (b, sk, h, d):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != "
+                             f"{(b, sk, h, d)}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    q, k, v = (t if _aligned(t) else t.contiguous() for t in (q, k, v))
+    if kv_mask is not None:
+        if tuple(kv_mask.shape) != (b, sk):
+            raise ValueError(f"kv_mask shape {tuple(kv_mask.shape)} != "
+                             f"{(b, sk)}")
+        kv_mask = kv_mask.to(device=q.device, dtype=torch.float32)
+        kv_mask = kv_mask.contiguous()
+    return q, k, v, kv_mask
+
+
+def _strides(q, k, v):
+    return (ctypes.c_longlong * 9)(*(s for t in (q, k, v)
+                                     for s in t.stride()[:3]))
+
+
+def _check(rc, what):
+    if rc != 0:
+        err = _kernel()[3]
+        raise RuntimeError(f"flash_attention {what} kernel launch failed: "
+                           f"{err(rc).decode()} (cudaError {rc})")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def flash_attention_fwd(q, k, v, kv_mask, causal: bool, scale: float):
+    """Launch the forward kernel: returns ``out`` (contiguous [B, Sq, H, D]
+    in q's dtype) and ``lse`` (fp32 [B, H, Sq]). Inputs as
+    :func:`_prepare` returns them."""
+    b, sq, h, d = q.shape
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    fwd = _kernel()[0]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+                 out.data_ptr(), lse.data_ptr(), _strides(q, k, v), b, h, sq,
+                 k.shape[1], d, float(scale), int(causal),
+                 _DTYPE_CODES[q.dtype], stream)
+    _check(rc, "forward")
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd_dq(q, k, v, dout, kv_mask, lse, delta, causal: bool,
+                           scale: float):
+    """Launch the dq kernel: ``dout`` contiguous [B, Sq, H, D]; ``lse`` and
+    ``delta`` fp32 [B, H, Sq]. Returns dq, contiguous [B, Sq, H, D]."""
+    b, sq, h, d = q.shape
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    fn = _kernel()[1]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                _ptr(kv_mask), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), _strides(q, k, v), b, h, sq, k.shape[1], d,
+                float(scale), int(causal), _DTYPE_CODES[q.dtype], stream)
+    _check(rc, "dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, kv_mask, lse, delta,
+                            causal: bool, scale: float):
+    """Launch the dk/dv kernel. Returns dk, dv, contiguous
+    [B, Sk, H, D]."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
+    fn = _kernel()[2]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                _ptr(kv_mask), lse.data_ptr(), delta.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), _strides(q, k, v), b, h, sq, sk,
+                d, float(scale), int(causal), _DTYPE_CODES[q.dtype], stream)
+    _check(rc, "dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_fwd.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The CUDA kernels with their gradient: the forward saves ``out`` and
+    ``lse``; the backward takes ``delta = rowsum(dO * out)`` in fp32, then
+    launches dq and dk/dv."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal, scale):
+        q, k, v, kv_mask = _prepare(q, k, v, kv_mask, causal)
+        out, lse = flash_attention_fwd(q, k, v, kv_mask, causal, scale)
+        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+        delta = delta.contiguous()                       # [B, H, Sq]
+        dq = flash_attention_bwd_dq(q, k, v, dout, kv_mask, lse, delta,
+                                    ctx.causal, ctx.scale)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, dout, kv_mask, lse, delta,
+                                         ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = False,
+                    kv_mask: Optional[torch.Tensor] = None,
+                    softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """Flash attention over [B, S, H, D] tensors; ``kv_mask`` [B, Sk]
+    (1/True = attend). Returns [B, Sq, H, D] in q's dtype; differentiable
+    in q, k and v. Causal attention takes no more queries than keys (a
+    query row with no visible key has no defined output)."""
+    if causal and q.shape[1] > k.shape[1]:
+        raise ValueError(f"causal flash_attention needs Sq <= Sk, got Sq "
+                         f"{q.shape[1]}, Sk {k.shape[1]}")
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal=causal,
+                                         kv_mask=kv_mask,
+                                         softmax_scale=softmax_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
+                         f"{q.device}")
+    return _FlashAttention.apply(q, k, v, kv_mask, bool(causal),
+                                 float(_scale_of(q, softmax_scale)))

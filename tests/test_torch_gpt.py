@@ -175,5 +175,79 @@ def test_seeded_weights_have_the_flax_layout_and_distributions():
     {"dropout_rate": 0.1}, {"moe_experts": 4}, {"remat": True},
     {"fused_ln": True}, {"sparse_attention": {"mode": "fixed"}}])
 def test_training_options_not_yet_ported(override):
+    """Each option is refused; dropout only where it would act, in a
+    training forward (the others at construction)."""
     with pytest.raises(ConfigError, match="not yet ported"):
-        make_gpt("tiny", **override)
+        model, _ = make_gpt("tiny", **override)
+        model(torch.zeros(1, 4, dtype=torch.long), deterministic=False)
+
+
+@pytest.mark.parametrize("name", ["tiny", "gpt2"])
+def test_config_defaults_match_jax(name):
+    """``make_gpt(name)`` builds the same configuration in both packages:
+    every field they share agrees (dtypes by name)."""
+    _jm, jcfg = jax_make_gpt(name)
+    _tm, tcfg = make_gpt(name) if name == "tiny" else (None, GPT_CONFIGS[
+        name])
+    jf = jcfg.__dataclass_fields__
+    shared = [f for f in tcfg.__dataclass_fields__ if f in jf]
+    assert len(shared) >= 20
+    for f in shared:
+        a, b = getattr(tcfg, f), getattr(jcfg, f)
+        if f == "dtype":
+            a, b = str(a).split(".")[-1], jnp.dtype(b).name
+        assert a == b, (f, a, b)
+    assert tcfg.head_dim == jcfg.head_dim
+    assert tcfg.padded_vocab == jcfg.padded_vocab
+
+
+def test_dropout_config_still_serves():
+    """A dropout-0.1 config (the gpt2 default) serves and evaluates: cache
+    mode and deterministic forwards ignore dropout, as in JAX."""
+    cfg = GPT_CONFIGS["tiny"]
+    model, _ = make_gpt("tiny", dropout_rate=0.1, dtype=torch.float32)
+    sd = deepspeed_tpu_torch.models.init_gpt_params(cfg, seed=0)
+    srv = deepspeed_tpu_torch.init_serving(
+        model, params=sd, dtype=torch.float32, device="cpu",
+        config={"serving": {"max_batch_size": 2, "kv_block_size": 4,
+                            "kv_num_blocks": 16}})
+    rid = srv.submit([1, 2, 3], 3)
+    assert len(srv.run_until_complete()[rid]["tokens"]) == 6
+    out = srv.engine.forward(np.array([[1, 2, 3, 4]]))
+    assert torch.isfinite(out["loss"]) and out["logits"].shape == (1, 4, 512)
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_training_loss_and_grads_match_jax(padded):
+    """The training forward (fused CE head, shifted labels, key-padding
+    mask) and its gradient against jax.grad of the JAX model, fp32: loss to
+    1e-5 relative, every parameter's gradient to 1e-5 of its largest
+    element. ``padded`` pads the vocab to a multiple of 128 (masked pad
+    logits, pad rows with zero gradient)."""
+    over = {"vocab_pad_multiple": 128} if padded else {}
+    jm, _ = jax_make_gpt("tiny", dropout_rate=0.0, dtype=jnp.float32,
+                         vocab_size=500, **over)
+    params = _jax_params(jm)
+    rng = np.random.default_rng(8)
+    ids = rng.integers(0, 500, (2, 20), dtype=np.int32)
+    mask = np.ones((2, 20), np.int32)
+    mask[1, 15:] = 0
+    batch = {"input_ids": ids, "attention_mask": mask}
+
+    def jloss(p):
+        return jm.apply({"params": p}, batch, deterministic=True)["loss"]
+
+    want, jgrads = jax.jit(jax.value_and_grad(jloss))(params)
+    tm, _ = make_gpt("tiny", dtype=torch.float32, vocab_size=500, **over)
+    tm.load_state_dict(gpt_params_from_flax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    out = tm(torch.from_numpy(ids).long(),
+             attention_mask=torch.from_numpy(mask))
+    assert out["logits"] is None          # not materialised in training
+    out["loss"].backward()
+    assert abs(float(out["loss"].detach()) - float(want)) <= 1e-5 * float(want)
+    wg = gpt_params_from_flax(jax.tree_util.tree_map(np.asarray, jgrads))
+    for k, p in tm.named_parameters():
+        w = wg[k].numpy()
+        assert np.abs(p.grad.numpy() - w).max() <= 1e-5 * max(
+            np.abs(w).max(), 1e-3), k

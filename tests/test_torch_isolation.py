@@ -1,5 +1,6 @@
 """The port (deepspeed_tpu_torch) and chip_smoke.py stand alone: neither
-imports jax, flax or the JAX package deepspeed_tpu."""
+imports jax, flax or the JAX package deepspeed_tpu, whether serving or
+training (``initialize`` and one ``train_batch`` on the CPU)."""
 
 import ast
 import os
@@ -28,6 +29,17 @@ srv = deepspeed_tpu_torch.init_serving(
                                       "decode_attention": "kernel"}})
 rid = srv.submit([1, 2, 3, 4, 5], 4)
 assert len(srv.run_until_complete()[rid]["tokens"]) == 9
+
+model, cfg = make_gpt("tiny", dtype=torch.float32)
+engine, _opt, _loader, _sched = deepspeed_tpu_torch.initialize(
+    model=model, params=init_gpt_params(cfg, seed=0), device="cpu",
+    config={"train_micro_batch_size_per_gpu": 2,
+            "gradient_accumulation_steps": 2,
+            "optimizer": {"type": "Adam", "params": {"lr": 1e-3},
+                          "fused_update": True},
+            "zero_optimization": {"stage": 2}})
+loss = engine.train_batch({"input_ids": torch.randint(0, 512, (2, 2, 16))})
+assert torch.isfinite(loss) and engine.global_steps == 1
 print(sorted(m for m in set(sys.modules) - before
              if m.split(".")[0] in ("jax", "jaxlib", "flax")
              or m == "deepspeed_tpu" or m.startswith("deepspeed_tpu.")))
