@@ -12,7 +12,13 @@
    events beside the plain version, a PyTorch yardstick and its bound:
    - paged decode attention at GPT-2's serving shapes (12 heads, head_dim
      64, block 16, 8 rows, 1 and 5 queries, windows of 1 to 64 blocks,
-     table tails on a scratch block filled with NaN);
+     table tails on a scratch block filled with NaN), over fp/bf16 pools
+     and over int8 pools with fp32 scales (NaN scales on scratch), with
+     fp32 and bf16 queries;
+   - ragged chunked-prefill attention at the same shapes: a 256-token
+     mixed step (8 decode rows at positions 100-1000, a 200-token chunk
+     from 0, a 40-token chunk from 37, pad rows) and an 8-token
+     all-decode step, fp/bf16 and int8 pools, pad rows excluded;
    - flash attention forward, dq and dk/dv at [16, 512, 12, 64] causal,
      with and without a key mask holding an all-padding row, and at S=5
      and S=300; the whole autograd path against the plain version's; fp32
@@ -21,11 +27,21 @@
    - fused Adam, bit for bit, over GPT-2's 148 parameter tensors (with
      the bf16 copy of the new params that the bf16 training step uses).
 3. Serving end to end: ``init_serving`` on full-width GPT-2 (random
-   weights from a seed) serves 16 requests in two waves through
-   ``decode_attention: "kernel"`` in bf16; the kernel's launch count must
-   equal ``kernel_steps * num_layers``. The same trace in fp32 through
-   "kernel" and "gather" must give the same tokens (and match
-   ``generate``), except at a true tie of the top two logits.
+   weights from a seed) serves 16 requests in two waves:
+   - bucketed bf16 through ``decode_attention: "kernel"`` (kernel #1
+     launches == ``kernel_steps * num_layers``), and chunked prefill at
+     token budget 256 (kernel #2 launches == ``mixed_steps *
+     num_layers``, kernel #1 none, no plain attention at all); both timed
+     on their second run;
+   - fp32 token identity of "kernel", "gather", chunked prefill at budget
+     64 and ``generate``, except at a true tie of the top two logits;
+   - the int8 pool: bucketed bf16 through kernel #1's int8 branch (no
+     gather), fp32 "kernel" vs "gather", and chunked fp32 with kernel #2
+     against its plain version swapped in (tie rule on the int8 model);
+   - a prefix trace (8 requests sharing a 512-token head), bucketed and
+     chunked with ``prefix_cache``: >= 7 hits, tokens equal to the run
+     without the cache (tie rule);
+   - a profiled window of 16 decode steps and of 16 chunked mixed steps.
 4. Training end to end: ``initialize`` -> ``train_batch`` on full-width
    GPT-2 with ``bench.py:bench_gpt2``'s configuration plus
    ``optimizer.fused_update``: each flash kernel launches 96 times and
@@ -91,6 +107,32 @@ def card_line() -> str:
             handle, ctypes.byref(mw)):
         fail("neither nvidia-smi nor NVML reads the power limit")
     return f"{torch.cuda.get_device_name(0)}, {mw.value / 1000:.2f} W"
+
+
+def ptxas_summary(lib: str) -> str:
+    """One line from the ``-Xptxas -v`` report kept beside a library (the
+    full report is the ``.log`` file): kernels compiled, the register
+    range, and the kernels that spill."""
+    import re
+
+    regs, spills, name = [], [], None
+    with open(lib[:-3] + ".log") as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and int(m.group(1)) and name:
+                # the kernel's name and template arguments, mangled
+                spills.append(re.sub(r"^.*_cu_[0-9a-f]{8}\d+", "",
+                                     name)[:48])
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                regs.append(int(m.group(1)))
+    if not regs:
+        return "no ptxas report"
+    return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+            f"{len(spills)} spilling" + (f" ({spills})" if spills else ""))
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -241,6 +283,342 @@ def check_paged_attention(torch, report):
                   bound_by="bytes",
                   max_abs_err=max(worst[("bfloat16", 1)],
                                   worst[("bfloat16", 5)]))
+
+
+# ---------------------------------------------------------------------------
+# 2a'. the int8 branch of paged decode attention against its plain version
+# ---------------------------------------------------------------------------
+
+def int8_pools(torch, pools):
+    """int8 codes and fp32 scales (the serving pool's quantization) of fp
+    pools; the scratch block's scales are NaN, so a read of it would
+    poison the output."""
+    from deepspeed_tpu_torch.serving.kv_cache import _quant_tokens
+
+    out = []
+    for pair in pools:
+        layer = []
+        for p in pair:
+            p = p.float().clone()
+            p[0] = 0.0
+            codes, scales = _quant_tokens(p)
+            scales[0] = float("nan")
+            layer.append((codes, scales))
+        (kq, ks), (vq, vs) = layer
+        out.append((kq, vq, ks, vs))
+    return out
+
+
+def int8_bytes(q, ctx_tokens, h, d):
+    """Codes (1 byte per element) and fp32 scales (4 bytes per (token,
+    head)) of K and V for ``ctx_tokens`` key rows, plus q read and out
+    written."""
+    es = q.element_size()
+    return 2 * q.numel() * es + 2 * ctx_tokens * h * (d + 4)
+
+
+def check_paged_attention_int8(torch, report):
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.transformer.paged_attention import (
+        dequantized, paged_decode_attention, paged_decode_attention_reference)
+
+    h, d, bs, b = 12, 64, 16, 8
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for s in (1, 5):
+            for wb in (1, 2, 4, 8, 16, 32, 64):
+                if s > wb * bs:
+                    continue
+                q, pools, bt, pos = paged_case(torch, dtype, b, s, h, d, bs,
+                                               wb, seed=wb * 10 + s + 1)
+                kq, vq, ks, vs = int8_pools(torch, pools)[0]
+                got = paged_decode_attention(q, kq, vq, ks, vs, bt, pos,
+                                             block_size=bs)
+                torch.cuda.synchronize()
+                want = paged_decode_attention_reference(
+                    q, kq, vq, bt, pos, block_size=bs, k_scale=ks,
+                    v_scale=vs)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                if not torch.isfinite(got).all() or err > KERNEL_TOL[name]:
+                    fail(f"paged_decode_attention int8 {name} q S={s} "
+                         f"WB={wb}: max |err| {err} > {KERNEL_TOL[name]} or "
+                         f"non-finite")
+                worst[(name, s)] = max(worst.get((name, s), 0.0), err)
+    for (name, s), err in sorted(worst.items()):
+        print(f"paged_decode_attention int8 pools, {name} q, S={s} "
+              f"WB=1..64: max |err| {err:.3g} (atol {KERNEL_TOL[name]}, "
+              f"NaN scratch scales)")
+
+    timings = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for s in (1, 5):
+            q, pools, bt, pos = paged_case(torch, dtype, b, s, h, d, bs, 64,
+                                           seed=17 + s, layers=8)
+            pools = int8_pools(torch, pools)
+            for _kq, _vq, ks, vs in pools:   # no NaN into the timed calls
+                ks[0] = 1.0
+                vs[0] = 1.0
+            it = {"i": 0}
+
+            def nxt():
+                it["i"] = (it["i"] + 1) % len(pools)
+                return pools[it["i"]]
+
+            def kern():
+                kq, vq, ks, vs = nxt()
+                paged_decode_attention(q, kq, vq, ks, vs, bt, pos,
+                                       block_size=bs)
+
+            def plain():
+                kq, vq, ks, vs = nxt()
+                paged_decode_attention_reference(q, kq, vq, bt, pos,
+                                                 block_size=bs, k_scale=ks,
+                                                 v_scale=vs)
+
+            kernel_ms = cuda_ms(kern)
+            plain_ms = cuda_ms(plain, iters=20)
+            # yardstick: SDPA over K/V gathered and dequantized beforehand
+            length = 64 * bs
+            btl = bt.long()
+            kpos = torch.arange(length, device="cuda")
+            qpos = pos.long()[:, None] + torch.arange(s, device="cuda")
+            mask = (kpos[None, None] <= qpos[:, :, None])[:, None]
+            gathered = [tuple(dequantized(p, sc, btl).to(dtype)
+                              .reshape(b, length, h, d).transpose(1, 2)
+                              .contiguous() for p, sc in ((kq, ks), (vq, vs)))
+                        for kq, vq, ks, vs in pools]
+            qt = q.transpose(1, 2).contiguous()
+            git = {"i": 0}
+
+            def gnxt():
+                git["i"] = (git["i"] + 1) % len(gathered)
+                return gathered[git["i"]]
+
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, *gnxt(), attn_mask=mask))
+            ctx = sum(min(64 * bs, int(p) + s) for p in pos.tolist())
+            nbytes = int8_bytes(q, ctx, h, d) + bt.numel() * 4 + b * 4
+            flops = 4 * s * ctx * h * d
+            bound_ms = max(nbytes / HBM_BYTES_PER_S,
+                           flops / FP32_FLOPS) * 1e3
+            timings[(name, s)] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                                      library_ms=library_ms,
+                                      bound_ms=bound_ms)
+            print(f"paged_decode_attention int8 pools timing, {name} q, "
+                  f"B={b} S={s} H={h} D={d} BS={bs} WB=64: kernel "
+                  f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+                  f"(pre-dequantized K/V) {library_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({nbytes} bytes / 3.35 TB/s)")
+            del gathered, pools
+    main = timings[("bfloat16", 1)]
+    report.update(ms=main["ms"], plain_ms=main["plain_ms"],
+                  library_ms=main["library_ms"], bound_ms=main["bound_ms"],
+                  bound_by="bytes",
+                  max_abs_err=max(worst[("bfloat16", 1)],
+                                  worst[("bfloat16", 5)]))
+
+
+# ---------------------------------------------------------------------------
+# 2a''. ragged chunked-prefill attention against its plain version
+# ---------------------------------------------------------------------------
+
+MIXED_DECODE_POS = [100, 228, 357, 485, 614, 742, 871, 1000]
+MIXED_CHUNKS = [(0, 200), (37, 40)]          # (first position, tokens)
+
+
+def chunked_case(torch, dtype, n_tokens, decode_pos, chunks, seed,
+                 layers=1, int8=False, h=12, d=64, bs=16, wb=64):
+    """A mixed step's ragged batch as the engine builds it: one decode
+    token per ``decode_pos`` (its sequence's blocks cover 0..pos), each
+    chunk's tokens at consecutive positions (its sequence's blocks cover
+    the chunk's end), then pad rows up to ``n_tokens`` (all-scratch table
+    row, position 0). Every sequence owns distinct blocks; table tails
+    and pads point at scratch block 0, which holds NaN (int8: NaN
+    scales). Returns q, per-layer pools ``(k, v, k_scale, v_scale)``,
+    table, pos, the number of real rows and the distinct blocks read."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    seqs = [(p, 1) for p in decode_pos] + list(chunks)
+    need = [(p0 + c - 1) // bs + 1 for p0, c in seqs]
+    n = sum(need) + 1
+    perm = (torch.randperm(n - 1, generator=g) + 1).int()
+    table = torch.zeros(n_tokens, wb, dtype=torch.int32)
+    pos = torch.zeros(n_tokens, dtype=torch.int32)
+    r, used = 0, 0
+    for (p0, c), nb in zip(seqs, need):
+        row = torch.zeros(wb, dtype=torch.int32)
+        row[:nb] = perm[used:used + nb]
+        used += nb
+        for i in range(c):
+            table[r] = row
+            pos[r] = p0 + i
+            r += 1
+    if r > n_tokens:
+        fail(f"chunked case holds {r} real rows, more than {n_tokens}")
+    pools = []
+    for _ in range(layers):
+        kp = torch.randn(n, bs, h, d, generator=g).to("cuda", dtype)
+        vp = torch.randn(n, bs, h, d, generator=g).to("cuda", dtype)
+        kp[0] = float("nan")
+        vp[0] = float("nan")
+        pools.append((kp, vp))
+    pools = (int8_pools(torch, pools) if int8
+             else [(k, v, None, None) for k, v in pools])
+    q = torch.randn(n_tokens, h, d, generator=g).to("cuda", dtype)
+    blocks = sum(need) + (1 if r < n_tokens else 0)   # + scratch for pads
+    return q, pools, table.cuda(), pos.cuda(), r, blocks
+
+
+def chunked_bytes_flops(q, table, pos, blocks, bs, int8):
+    """What one call must move and compute for these inputs: each
+    distinct K/V block (and its scales) read once, q read, out written,
+    table and positions read; 4 flops per (token, visible key, element)
+    over every row, pad rows included."""
+    t, h, d = q.shape
+    es = q.element_size()
+    per_token = h * (d + 4) if int8 else h * d * es
+    nbytes = (2 * q.numel() * es + 2 * blocks * bs * per_token
+              + table.numel() * 4 + pos.numel() * 4)
+    flops = 4 * (int(pos.long().sum()) + t) * h * d
+    return nbytes, flops
+
+
+def segment_sdpa_inputs(torch, q, pools, table, pos, n_real, bs):
+    """The library yardstick's inputs: per segment (tokens sharing a table
+    row), K/V gathered and dequantized beforehand, in q's dtype; queries
+    padded to the longest segment, a visibility mask per segment (padded
+    queries see key 0 only, so every row stays finite)."""
+    from deepspeed_tpu_torch.ops.transformer.paged_attention import \
+        dequantized
+
+    t, h, d = q.shape
+    tl, pl = table.tolist(), pos.tolist()
+    segs, start = [], 0
+    for r in range(1, n_real + 1):
+        if r == n_real or tl[r] != tl[start] or pl[r] != pl[r - 1] + 1:
+            segs.append((start, r - start))
+            start = r
+    sq = max(c for _s, c in segs)
+    sk = table.shape[1] * bs
+    qs = torch.zeros(len(segs), h, sq, d, dtype=q.dtype, device="cuda")
+    mask = torch.zeros(len(segs), 1, sq, sk, dtype=torch.bool,
+                       device="cuda")
+    mask[..., 0] = True
+    kpos = torch.arange(sk, device="cuda")
+    rows = torch.tensor([s0 for s0, _c in segs], device="cuda")
+    for i, (s0, c) in enumerate(segs):
+        qs[i, :, :c] = q[s0:s0 + c].transpose(0, 1)
+        mask[i, 0, :c] = kpos[None, :] <= pos[s0:s0 + c].long()[:, None]
+    tb = table[rows].long()
+    kv = [tuple(dequantized(p, sc, tb).to(q.dtype)
+                .reshape(len(segs), sk, h, d).transpose(1, 2).contiguous()
+                for p, sc in ((k, ks), (v, vs)))
+          for k, v, ks, vs in pools]
+    return qs, kv, mask
+
+
+def check_chunked_prefill(torch, report):
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.transformer.chunked_prefill import (
+        chunked_prefill_attention, chunked_prefill_attention_reference)
+
+    bs = 16
+    shapes = {"T=256 mixed": (256, MIXED_DECODE_POS, MIXED_CHUNKS),
+              "T=8 all-decode": (8, MIXED_DECODE_POS, [])}
+    worst = {}
+    for int8 in (False, True):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            label = f"{'int8 pools, ' if int8 else ''}{name} q"
+            for sname, (t, dpos, chunks) in shapes.items():
+                q, pools, table, pos, n_real, _blocks = chunked_case(
+                    torch, dtype, t, dpos, chunks, seed=t + int8,
+                    int8=int8)
+                kp, vp, ks, vs = pools[0]
+                got = chunked_prefill_attention(q, kp, vp, ks, vs, table,
+                                                pos, block_size=bs)
+                torch.cuda.synchronize()
+                want = chunked_prefill_attention_reference(
+                    q, kp, vp, ks, vs, table, pos, block_size=bs)
+                torch.cuda.synchronize()
+                real = got[:n_real]
+                err = (real.float() - want[:n_real].float()).abs().max()
+                err = err.item()
+                if not torch.isfinite(real).all() \
+                        or err > KERNEL_TOL[name]:
+                    fail(f"chunked_prefill_attention {label} {sname}: max "
+                         f"|err| {err} > {KERNEL_TOL[name]} or non-finite "
+                         f"real rows")
+                worst[(label, sname)] = err
+    for (label, sname), err in sorted(worst.items()):
+        print(f"chunked_prefill_attention {label}, {sname} (H=12 D=64 "
+              f"BS=16 WB=64, NaN scratch, pad rows excluded): max |err| "
+              f"{err:.3g} (atol {KERNEL_TOL[label.split()[-2]]})")
+
+    # Timing at the mixed step's shape, rotating over 8 layers' pools (no
+    # NaN in the timed inputs: pads read a zeroed scratch block).
+    timings = {}
+    for int8 in (False, True):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            label = f"{'int8 pools, ' if int8 else ''}{name} q"
+            q, pools, table, pos, n_real, blocks = chunked_case(
+                torch, dtype, 256, MIXED_DECODE_POS, MIXED_CHUNKS,
+                seed=5 + int8, layers=8, int8=int8)
+            for k, v, ks, vs in pools:
+                if int8:
+                    ks[0] = 1.0
+                    vs[0] = 1.0
+                else:
+                    k[0] = 0.0
+                    v[0] = 0.0
+            it = {"i": 0}
+
+            def nxt():
+                it["i"] = (it["i"] + 1) % len(pools)
+                return pools[it["i"]]
+
+            kernel_ms = cuda_ms(lambda: chunked_prefill_attention(
+                q, *nxt(), table, pos, block_size=bs))
+            plain_ms = cuda_ms(lambda: chunked_prefill_attention_reference(
+                q, *nxt(), table, pos, block_size=bs), iters=5, warmup=1)
+            qs, kv, mask = segment_sdpa_inputs(torch, q, pools, table, pos,
+                                               n_real, bs)
+            git = {"i": 0}
+
+            def gnxt():
+                git["i"] = (git["i"] + 1) % len(kv)
+                return kv[git["i"]]
+
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qs, *gnxt(), attn_mask=mask))
+            nbytes, flops = chunked_bytes_flops(q, table, pos, blocks, bs,
+                                                 int8)
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = flops / FP32_FLOPS
+            timings[label] = dict(
+                ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+            print(f"chunked_prefill_attention timing, {label}, T=256 mixed "
+                  f"(decode rows at {MIXED_DECODE_POS}, chunks (first "
+                  f"position, tokens) {MIXED_CHUNKS}, {256 - n_real} pads): "
+                  f"kernel {kernel_ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, SDPA per segment (pre-gathered) "
+                  f"{library_ms:.4f} ms, bound "
+                  f"{timings[label]['bound_ms']:.4f} ms "
+                  f"({timings[label]['bound_by']}: {nbytes} bytes / 3.35 "
+                  f"TB/s, {flops} flops / 67 TFLOP/s)")
+            del pools, kv
+    main = timings["bfloat16 q"]
+    report.update(ms=main["ms"], plain_ms=main["plain_ms"],
+                  library_ms=main["library_ms"], bound_ms=main["bound_ms"],
+                  bound_by=main["bound_by"],
+                  max_abs_err=max(worst[("bfloat16 q", s)] for s in shapes))
 
 
 # ---------------------------------------------------------------------------
@@ -583,19 +961,11 @@ def check_fused_adam(torch, report):
 # 3. serving end to end
 # ---------------------------------------------------------------------------
 
-def trace(cfg):
-    import numpy as np
-
-    rng = np.random.default_rng(0)
-    lengths = rng.permutation(np.linspace(16, 700, 16).astype(int))
-    new = rng.integers(32, 65, 16)
-    return [(rng.integers(0, cfg.vocab_size, int(t)).tolist(), int(n))
-            for t, n in zip(lengths, new)]
-
-
-def serving_engine(torch, dtype, mode, params):
+def serving_engine(torch, dtype, mode, params, **serving):
     """Full-width GPT-2 behind ``init_serving``: 8 slots, KV block 16, a
-    pool of 8 x 1024 positions (plus the scratch block)."""
+    pool of 8 x 1024 positions (plus the scratch block); ``serving`` adds
+    keys of the serving block (chunked prefill, int8 pool, prefix
+    cache)."""
     import deepspeed_tpu_torch as dtt
     from deepspeed_tpu_torch.models import make_gpt
 
@@ -605,57 +975,193 @@ def serving_engine(torch, dtype, mode, params):
     return dtt.init_serving(model, params=params, dtype=dtype, config={
         "serving": {"max_batch_size": 8, "kv_block_size": bs,
                     "kv_num_blocks": 8 * 1024 // bs + 1,
-                    "decode_attention": mode}})
+                    "decode_attention": mode, **serving}})
 
 
-def serve(torch, dtype, mode, params, requests):
+def serving_plain_targets(mode, chunked, prefix):
+    """Plain versions a serving path must not call on the card: the
+    kernels' plain versions always; under chunked prefill also any dense
+    attention and any gather (its prompts go through kernel #2 too); on
+    the bucketed kernel path the paged cache's gather (a prefix hit's tail
+    prefill gathers by design, as in the JAX package, so not there)."""
+    from deepspeed_tpu_torch.models import gpt
+    from deepspeed_tpu_torch.ops.transformer import (chunked_prefill,
+                                                     paged_attention)
+    from deepspeed_tpu_torch.serving.kv_cache import PagedLayerCache
+
+    targets = [(paged_attention, "paged_decode_attention_reference"),
+               (chunked_prefill, "chunked_prefill_attention_reference")]
+    if chunked:
+        targets.append((gpt, "xla_attention"))
+    if chunked or (mode == "kernel" and not prefix):
+        targets.append((PagedLayerCache, "_gather"))
+    return targets
+
+
+class KernelShims:
+    """Swaps the serving attention for the duration of a run:
+
+    - ``"plain"``: the chunked step's attention is its plain version (the
+      module attribute the chunked cache looks up at each call);
+    - ``"both"``: after each cache's ``update_attend`` (write, then the
+      kernel), the plain version runs on the same pools and the largest
+      difference is kept in ``max_err``; the kernel's output is used, so
+      the run is the kernel path, held call by call.
+    """
+
+    def __init__(self, attention):
+        from deepspeed_tpu_torch.ops.transformer import (chunked_prefill,
+                                                         paged_attention)
+        from deepspeed_tpu_torch.serving.kv_cache import (ChunkedLayerCache,
+                                                          PagedLayerCache)
+        self.attention = attention
+        self.cp = chunked_prefill
+        self.kernel = chunked_prefill.chunked_prefill_attention
+        self.caches = (PagedLayerCache, ChunkedLayerCache)
+        self.methods = tuple(c.update_attend for c in self.caches)
+        # captured before any counting shim: these calls are the check's,
+        # not the main path's
+        self.plain = (paged_attention.paged_decode_attention_reference,
+                      chunked_prefill.chunked_prefill_attention_reference)
+        self.max_err = 0.0
+        self.checked = 0
+
+    def _note(self, out, ref):
+        self.max_err = max(self.max_err,
+                           (out.float() - ref.float()).abs().max().item())
+        self.checked += 1
+
+    def __enter__(self):
+        shims = self
+        paged, chunked = self.methods
+
+        def both_paged(cache, q, k_new, v_new, softmax_scale=None):
+            cache, o = paged(cache, q, k_new, v_new, softmax_scale)
+            qk = q if cache.int8 else q.to(cache.k.dtype)
+            ref = shims.plain[0](
+                qk, cache.k, cache.v, cache.block_table, cache.pos,
+                block_size=cache.block_size, softmax_scale=softmax_scale,
+                k_scale=cache.k_scale, v_scale=cache.v_scale)
+            shims._note(o, ref)
+            return cache, o
+
+        def both_chunked(cache, q, k_new, v_new, softmax_scale=None):
+            cache, o = chunked(cache, q, k_new, v_new, softmax_scale)
+            qk = q[0] if cache.int8 else q[0].to(cache.k.dtype)
+            ref = shims.plain[1](
+                qk, cache.k, cache.v, cache.k_scale, cache.v_scale,
+                cache.block_table[cache.slots.long()], cache.pos,
+                block_size=cache.block_size, softmax_scale=softmax_scale)
+            shims._note(o[0], ref)
+            return cache, o
+
+        if self.attention == "plain":
+            cp = self.cp
+            cp.chunked_prefill_attention = (
+                lambda *a, **k: cp.chunked_prefill_attention_reference(
+                    *a, **k))
+        elif self.attention == "both":
+            self.caches[0].update_attend = both_paged
+            self.caches[1].update_attend = both_chunked
+        return self
+
+    def __exit__(self, *exc):
+        self.cp.chunked_prefill_attention = self.kernel
+        for cls, method in zip(self.caches, self.methods):
+            cls.update_attend = method
+
+
+def serve(torch, dtype, mode, params, requests, wave1=10,
+          second_wave="finish", attention="kernel", **serving):
+    """Serve ``requests``: ``wave1`` at once, the rest when the first
+    request finishes (backfill), or with ``second_wave="prefill"`` as soon
+    as request 0 has its first token (so the rest find its prompt in the
+    prefix cache). Checks completion, leaks, backfill, the kernels'
+    launch counts and that no plain version ran on the main path.
+    ``attention`` (``KernelShims``): "kernel"; "plain", the chunked
+    step's kernel replaced by its plain version (nothing launches); or
+    "both", every kernel call held against its plain version on the
+    same inputs (``max_err`` in the metrics)."""
+    from deepspeed_tpu_torch.ops.transformer import chunked_prefill
     from deepspeed_tpu_torch.ops.transformer.paged_attention import \
         paged_decode_attention
 
-    srv = serving_engine(torch, dtype, mode, params)
+    srv = serving_engine(torch, dtype, mode, params, **serving)
     cfg = srv.model_cfg
-    wave1 = 10
+    chunked = srv.scfg.chunked_prefill
+    label = (f"{mode}/{dtype}/{attention}/" + ",".join(
+        f"{k}={v}" for k, v in sorted(serving.items())))
+    cp = chunked_prefill.chunked_prefill_attention
     rids = [srv.submit(p, n) for p, n in requests[:wave1]]
-    decode_ms, decode_tokens = [], 0
+    step_ms, decode_tokens = [], 0
     paged_decode_attention.launches = 0
-    t0 = time.perf_counter()
-    while not srv.idle():
-        ts = time.perf_counter()
-        info = srv.step()        # ends in a host fetch: the card is done
-        dt = time.perf_counter() - ts
-        if not info["prefilled"] and info["active"]:
-            decode_ms.append(dt * 1e3)
-            decode_tokens += info["active"]
-        if len(rids) == wave1 and info["finished"]:
-            # second wave arrives once the first slot frees: backfill
-            rids += [srv.submit(p, n) for p, n in requests[wave1:]]
-    wall = time.perf_counter() - t0
-    launches = paged_decode_attention.launches
+    cp.launches = 0
+    swap_plain = attention == "plain"
+    shims = KernelShims(attention)
+    targets = ([(chunked_prefill, "chunked_prefill_attention_reference")]
+               if swap_plain else serving_plain_targets(
+                   mode, chunked, srv.prefix_cache is not None))
+    with shims, PlainCalls(targets) as plain:
+        t0 = time.perf_counter()
+        while not srv.idle():
+            ts = time.perf_counter()
+            info = srv.step()  # ends in a host fetch: the card is done
+            dt = time.perf_counter() - ts
+            if info["active"] and (chunked or not info["prefilled"]):
+                step_ms.append(dt * 1e3)
+                decode_tokens += info["active"]
+            if len(rids) == wave1 and (
+                    info["finished"] if second_wave == "finish"
+                    else rids[0] in info["prefilled"]):
+                rids += [srv.submit(p, n) for p, n in requests[wave1:]]
+        wall = time.perf_counter() - t0
+    launches = {"paged_decode_attention": paged_decode_attention.launches,
+                "chunked_prefill_attention": cp.launches}
     res = srv.results
     for rid, (p, n) in zip(rids, requests):
         r = res.get(rid)
         if r is None or r["status"] != "finished" \
                 or len(r["tokens"]) != len(p) + n:
             got = r and (r["status"], len(r["tokens"]))
-            fail(f"{mode}/{dtype}: request {rid} did not finish with "
+            fail(f"{label}: request {rid} did not finish with "
                  f"{len(p) + n} tokens: {got}")
+    if srv.prefix_cache is not None:
+        srv.prefix_cache.clear()
     if srv.pool.used_blocks != 0:
-        fail(f"{mode}/{dtype}: {srv.pool.used_blocks} KV blocks leaked")
-    if max(srv.stats["slot_assignments"].values()) < 2:
-        fail(f"{mode}/{dtype}: no slot served two requests (no backfill)")
-    if mode == "kernel":
-        want = srv.stats["kernel_steps"] * cfg.num_layers
-        if launches != want or launches == 0:
-            fail(f"kernel launches {launches} != kernel_steps x layers "
-                 f"{want}")
-    elif launches:
-        fail(f"gather mode launched the kernel {launches} times")
+        fail(f"{label}: {srv.pool.used_blocks} KV blocks leaked")
+    if second_wave == "finish" \
+            and max(srv.stats["slot_assignments"].values()) < 2:
+        fail(f"{label}: no slot served two requests (no backfill)")
+    want = {"paged_decode_attention": 0, "chunked_prefill_attention": 0}
+    if chunked and not swap_plain:
+        want["chunked_prefill_attention"] = \
+            srv.stats["mixed_steps"] * cfg.num_layers
+    elif not chunked and mode == "kernel":
+        want["paged_decode_attention"] = \
+            srv.stats["kernel_steps"] * cfg.num_layers
+    if launches != want or (chunked and not swap_plain
+                            and not want["chunked_prefill_attention"]):
+        fail(f"{label}: kernel launches {launches}, expected {want}")
+    called = {k: v for k, v in plain.calls.items() if v}
+    if swap_plain and not called:
+        fail(f"{label}: the swapped-in plain version never ran")
+    if not swap_plain and called:
+        fail(f"{label}: a plain version ran on the main path: {called}")
+    tokens = sum(n for _p, n in requests)
+    if attention == "both" and (
+            not shims.checked
+            or shims.max_err > KERNEL_TOL[str(dtype).split(".")[1]]):
+        fail(f"{label}: {shims.checked} kernel calls held against their "
+             f"plain version, max |err| {shims.max_err}")
     return srv, [res[r]["tokens"] for r in rids], dict(
-        wall_s=wall, launches=launches, decode_ms=decode_ms,
-        decode_tokens=decode_tokens,
+        wall_s=wall, launches=launches, step_ms=step_ms,
+        max_err=shims.max_err, checked_calls=shims.checked,
+        decode_tokens=decode_tokens, gen_tokens_per_s=tokens / wall,
         ttft_ms=[res[r]["ttft_ms"] for r in rids],
         decode_steps=srv.stats["decode_steps"],
-        kernel_steps=srv.stats["kernel_steps"])
+        kernel_steps=srv.stats["kernel_steps"],
+        mixed_steps=srv.stats["mixed_steps"],
+        prefix_hits=srv.stats["prefix_hits"])
 
 
 def first_diff(a, b):
@@ -671,9 +1177,60 @@ def top2_gap(torch, engine, prefix) -> float:
     return float(top[0] - top[1])
 
 
-def check_identity(torch, engine, name, got, want, prompt_lens):
+def int8_gap(torch, srv, chunked):
+    """Top-2 logit gap of the int8 pool's model at a prefix, the way the
+    serving path computes it (through the plain gather path, fp32):
+    chunked, every token attends over pool K/V quantized when written;
+    bucketed, the prompt attends over its own unquantized dense cache,
+    is packed into the pool quantized, and each later token attends over
+    the pool."""
+    from deepspeed_tpu_torch.models import init_kv_cache
+    from deepspeed_tpu_torch.serving.kv_cache import (PagedLayerCache,
+                                                      init_paged_pools,
+                                                      pack_prefill)
+
+    cfg, bs = srv.model_cfg, srv.block_size
+
+    def gap(prefix, prompt_len):
+        n = len(prefix)
+        nb = -(-n // bs)
+        pools = init_paged_pools(cfg, nb + 1, bs, int8=True, device="cuda")
+        blocks = torch.arange(1, nb + 1, device="cuda")
+        bt = blocks.int()[None]
+        ids = torch.tensor([prefix], device="cuda")
+
+        def paged(lo):
+            start = torch.tensor([lo], dtype=torch.int32, device="cuda")
+            cache = [PagedLayerCache(*pools[i], bt, start, bs, "gather",
+                                     dtype=srv._dtype)
+                     for i in range(cfg.num_layers)]
+            return srv.module(ids[:, lo:], position_ids=torch.arange(
+                lo, n, device="cuda")[None], cache=cache)["logits"][0, -1]
+
+        with torch.no_grad():
+            if chunked:
+                logits = paged(0)
+            else:
+                dense = init_kv_cache(cfg, 1, nb * bs, dtype=srv._dtype,
+                                      device="cuda")
+                out = srv.module(ids[:, :prompt_len], cache=dense, pos=0)
+                logits = out["logits"][0, -1]
+                pack_prefill(pools, blocks,
+                             torch.stack([c[0][0] for c in dense]),
+                             torch.stack([c[1][0] for c in dense]))
+                if n > prompt_len:
+                    logits = paged(prompt_len)
+        top = torch.topk(logits.float(), 2).values
+        return float(top[0] - top[1])
+
+    return gap
+
+
+def check_identity(torch, engine, name, got, want, prompt_lens, gap=None):
     """Token identity, except where the first difference sits on a true
-    tie of the top two logits (then the rows legitimately diverge)."""
+    tie of the top two logits (then the rows legitimately diverge).
+    ``gap(prefix, prompt_len)``: the model's top-2 gap there (default:
+    the fp forward of ``engine``)."""
     ties = 0
     for i, (a, b) in enumerate(zip(got, want)):
         at = first_diff(a, b)
@@ -681,12 +1238,13 @@ def check_identity(torch, engine, name, got, want, prompt_lens):
             continue
         if at is None or at < prompt_lens[i]:
             fail(f"{name}: request {i} differs in length or prompt")
-        gap = top2_gap(torch, engine, a[:at])
+        g = (gap(a[:at], prompt_lens[i]) if gap is not None
+             else top2_gap(torch, engine, a[:at]))
         print(f"{name}: request {i} first differs at position {at}, "
-              f"top-2 logit gap {gap:.3g}")
-        if gap >= TIE_GAP:
+              f"top-2 logit gap {g:.3g}")
+        if g >= TIE_GAP:
             fail(f"{name}: request {i} differs at {at} with top-2 gap "
-                 f"{gap} >= {TIE_GAP} (not a tie)")
+                 f"{g} >= {TIE_GAP} (not a tie)")
         ties += 1
     return ties
 
@@ -735,36 +1293,107 @@ def kernel_stats(events, steps, wall_us):
                                         for n, t in top}}
 
 
-def profile_decode(torch, params, requests, steps=16):
-    """Device busy share and device time by kernel over ``steps`` steady
-    decode steps (8 active rows, no prefill) of the bf16 kernel path,
-    from a ``torch.profiler`` trace. The profiler adds host time, so the
-    idle share it shows is an upper bound."""
+def profile_steps(torch, srv, steps, what, check):
+    """Device busy share and device time by kernel over ``steps`` serving
+    steps, from a ``torch.profiler`` trace. The profiler adds host time,
+    so the idle share it shows is an upper bound."""
     from torch.profiler import ProfilerActivity, profile
 
-    srv = serving_engine(torch, torch.bfloat16, "kernel", params)
-    for p, n in requests[:8]:
-        srv.submit(p, n)
-    while srv.sched.queue_depth:        # one admission per step
-        srv.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            info = srv.step()
-            if info["prefilled"] or info["active"] != 8:
-                fail(f"profile window is not steady decode: {info}")
+            check(srv.step())
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     out = kernel_stats(prof.events(), steps, wall_us)
     if out is None:
-        print("decode profile: the profiler recorded no device events; "
-              "device busy share not measured")
+        print(f"{what} profile: the profiler recorded no device events; "
+              f"device busy share not measured")
     else:
-        print(f"decode profile (bf16, 8 active, under torch.profiler): "
-              f"{json.dumps(out)}")
+        print(f"{what} profile (under torch.profiler): {json.dumps(out)}")
     return out
+
+
+def profile_decode(torch, params, requests, steps=16):
+    """16 steady decode steps (8 active rows, no prefill) of the bf16
+    bucketed kernel path."""
+    srv = serving_engine(torch, torch.bfloat16, "kernel", params)
+    for p, n in requests[:8]:
+        srv.submit(p, n)
+    while srv.sched.queue_depth:        # one admission per step
+        srv.step()
+
+    def steady(info):
+        if info["prefilled"] or info["active"] != 8:
+            fail(f"profile window is not steady decode: {info}")
+
+    return profile_steps(torch, srv, steps, "decode (bf16, 8 active)",
+                         steady)
+
+
+def profile_chunked(torch, params, requests, steps=16):
+    """16 mixed steps of the bf16 chunked path at budget 256, from the
+    step after the 8th admission: prompt chunks still landing beside
+    decode rows, then decode rows alone."""
+    from deepspeed_tpu_torch.ops.transformer import chunked_prefill
+
+    srv = serving_engine(torch, torch.bfloat16, "kernel", params,
+                         chunked_prefill={"token_budget": 256})
+    for p, n in requests[:8]:
+        srv.submit(p, n)
+    while srv.sched.queue_depth:
+        srv.step()
+    before = srv.stats["mixed_steps"]
+    launched = chunked_prefill.chunked_prefill_attention.launches
+
+    def mixed(info):
+        if not info["active"]:
+            fail(f"chunked profile window ran out of work: {info}")
+
+    out = profile_steps(torch, srv, steps, "chunked mixed steps (bf16, "
+                        "budget 256)", mixed)
+    n = (chunked_prefill.chunked_prefill_attention.launches - launched)
+    if srv.stats["mixed_steps"] - before != steps \
+            or n != steps * srv.model_cfg.num_layers:
+        fail(f"chunked profile: {n} kernel #2 launches in "
+             f"{srv.stats['mixed_steps'] - before} mixed steps")
+    return out
+
+
+def trace(cfg):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lengths = rng.permutation(np.linspace(16, 700, 16).astype(int))
+    new = rng.integers(32, 65, 16)
+    return [(rng.integers(0, cfg.vocab_size, int(t)).tolist(), int(n))
+            for t, n in zip(lengths, new)]
+
+
+def prefix_trace(cfg):
+    """8 requests sharing a 512-token head (32 blocks of 16) with
+    distinct tails of 16-128 tokens, 32-64 new tokens each."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    head = rng.integers(0, cfg.vocab_size, 512).tolist()
+    tails = rng.permutation(np.linspace(16, 128, 8).astype(int))
+    new = rng.integers(32, 65, 8)
+    return [(head + rng.integers(0, cfg.vocab_size, int(t)).tolist(), int(n))
+            for t, n in zip(tails, new)]
+
+
+def step_summary(m):
+    return {"steps": len(m["step_ms"]),
+            "step_ms_median": median(m["step_ms"]),
+            "step_ms_p10": quantile(m["step_ms"], 0.1),
+            "step_ms_p90": quantile(m["step_ms"], 0.9),
+            "ttft_ms_median": median(m["ttft_ms"]),
+            "ttft_ms_p90": quantile(m["ttft_ms"], 0.9),
+            "generated_tokens_per_s_over_wall": m["gen_tokens_per_s"],
+            "wall_s": m["wall_s"]}
 
 
 def check_serving(torch):
@@ -776,50 +1405,167 @@ def check_serving(torch):
     print(f"gpt2 weights from seed 0: {time.perf_counter() - t0:.1f} s")
     requests = trace(cfg)
     plens = [len(p) for p, _ in requests]
+    bf16, fp32 = torch.bfloat16, torch.float32
+    out = {}
 
-    # the first run pays one-time costs (cuBLAS handles, allocator growth);
-    # the second is the one measured
-    serve(torch, torch.bfloat16, "kernel", params, requests)
-    _srv, _toks, m = serve(torch, torch.bfloat16, "kernel", params,
-                           requests)
-    dec_s = sum(m["decode_ms"]) / 1e3
+    # -- bucketed bf16 through kernel #1: the first run pays one-time costs
+    # (cuBLAS handles, allocator growth); the second is the one measured
+    serve(torch, bf16, "kernel", params, requests)
+    _srv, _toks, m = serve(torch, bf16, "kernel", params, requests)
+    dec_s = sum(m["step_ms"]) / 1e3
     serving = {
         "model": "gpt2", "dtype": "bfloat16", "requests": len(requests),
         "decode_attention": "kernel", "decode_steps": m["decode_steps"],
-        "kernel_steps": m["kernel_steps"], "kernel_launches": m["launches"],
+        "kernel_steps": m["kernel_steps"],
+        "kernel_launches": m["launches"]["paged_decode_attention"],
         "decode_tokens_per_s": m["decode_tokens"] / dec_s,
-        "decode_step_ms_median": median(m["decode_ms"]),
-        "decode_step_ms_p10": quantile(m["decode_ms"], 0.1),
-        "decode_step_ms_p90": quantile(m["decode_ms"], 0.9),
+        "decode_step_ms_median": median(m["step_ms"]),
+        "decode_step_ms_p10": quantile(m["step_ms"], 0.1),
+        "decode_step_ms_p90": quantile(m["step_ms"], 0.9),
         "ttft_ms_median": median(m["ttft_ms"]),
+        "ttft_ms_p90": quantile(m["ttft_ms"], 0.9),
+        "generated_tokens_per_s_over_wall": m["gen_tokens_per_s"],
         "wall_s": m["wall_s"]}
     print(f"serving bf16 kernel: {json.dumps(serving)}")
+    out["bucketed"] = serving
 
-    srv_k, toks_k, mk = serve(torch, torch.float32, "kernel", params,
-                              requests)
-    _srv_g, toks_g, mg = serve(torch, torch.float32, "gather", params,
-                               requests)
+    # -- chunked bf16 at budget 256 through kernel #2: the timed run
+    chunk256 = {"chunked_prefill": {"token_budget": 256}}
+    serve(torch, bf16, "kernel", params, requests, **chunk256)
+    _srv, _toks, m = serve(torch, bf16, "kernel", params, requests,
+                           **chunk256)
+    chunked = {"dtype": "bfloat16", "token_budget": 256,
+               "mixed_steps": m["mixed_steps"],
+               "kernel_launches": m["launches"]["chunked_prefill_attention"],
+               **step_summary(m)}
+    print(f"serving bf16 chunked (kernel #2 launches == mixed_steps x 12, "
+          f"kernel #1 launches 0, no plain attention): "
+          f"{json.dumps(chunked)}")
+    out["chunked"] = chunked
+
+    # -- fp32 token identity: kernel #1 vs gather vs generate, and the
+    # chunked path (budget 64, the JAX default) against both
+    srv_k, toks_k, mk = serve(torch, fp32, "kernel", params, requests)
+    _srv_g, toks_g, mg = serve(torch, fp32, "gather", params, requests)
+    _srv_c, toks_c, mc = serve(torch, fp32, "kernel", params, requests,
+                               chunked_prefill={"token_budget": 64})
     print(f"serving fp32: kernel {mk['wall_s']:.2f} s, gather "
-          f"{mg['wall_s']:.2f} s; decode step median kernel "
-          f"{median(mk['decode_ms']):.2f} ms, gather "
-          f"{median(mg['decode_ms']):.2f} ms")
-    ties = check_identity(torch, srv_k.engine, "fp32 kernel vs gather",
-                          toks_k, toks_g, plens)
+          f"{mg['wall_s']:.2f} s, chunked@64 {mc['wall_s']:.2f} s; step "
+          f"median kernel {median(mk['step_ms']):.2f} ms, gather "
+          f"{median(mg['step_ms']):.2f} ms, chunked@64 "
+          f"{median(mc['step_ms']):.2f} ms")
+    eng = srv_k.engine
+    ties = check_identity(torch, eng, "fp32 kernel vs gather", toks_k,
+                          toks_g, plens)
+    ties += check_identity(torch, eng, "fp32 chunked@64 vs bucketed kernel",
+                           toks_c, toks_k, plens)
     # generate() is the token-identity oracle in both packages
     for i in sorted(range(len(requests)), key=lambda i: plens[i])[::5]:
         p, n = requests[i]
-        gen = srv_k.engine.generate([p], max_new_tokens=n)[0].tolist()
-        ties += check_identity(torch, srv_k.engine,
+        gen = eng.generate([p], max_new_tokens=n)[0].tolist()
+        ties += check_identity(torch, eng,
                                f"fp32 kernel vs generate (request {i})",
                                [toks_k[i]], [gen], [plens[i]])
+        ties += check_identity(torch, eng,
+                               f"fp32 chunked vs generate (request {i})",
+                               [toks_c[i]], [gen], [plens[i]])
     serving["fp32_ties"] = ties
-    profile_decode(torch, params, requests)
-    return serving
+
+    # -- the int8 pool: bucketed bf16 through kernel #1's int8 branch
+    # (measured second), fp32 kernel vs gather, chunked fp32 kernel #2 vs
+    # its plain version swapped in
+    serve(torch, bf16, "kernel", params, requests, int8_kv_cache=True)
+    _srv, _toks, m = serve(torch, bf16, "kernel", params, requests,
+                           int8_kv_cache=True)
+    int8 = {"dtype": "bfloat16", "kernel_steps": m["kernel_steps"],
+            "kernel_launches": m["launches"]["paged_decode_attention"],
+            "decode_step_ms_median": median(m["step_ms"]),
+            "ttft_ms_median": median(m["ttft_ms"]),
+            "decode_tokens_per_s": m["decode_tokens"]
+            / (sum(m["step_ms"]) / 1e3), "wall_s": m["wall_s"]}
+    print(f"serving bf16 int8 pool, kernel (int8 launches == kernel_steps "
+          f"x 12, no gather): {json.dumps(int8)}")
+    out["int8"] = int8
+    # fp32: runs of the int8 pool that differ only in fp32 summation
+    # order do not stay token-identical at ties alone. Every new K/V row
+    # is requantized: a value on a half step whose fp32 rounding differs
+    # takes the next code, one quantization step (amax / 127) away, and
+    # that moves later logits by far more than 1e-4. So each kernel is
+    # held against its plain version call by call on the served run's own
+    # pools (fp32 atol 1e-5), and the separately served paths are
+    # compared for information.
+    srv_ik, toks_ik, mik = serve(torch, fp32, "kernel", params, requests,
+                                 attention="both", int8_kv_cache=True)
+    _srv, toks_ig, _ = serve(torch, fp32, "gather", params, requests,
+                             int8_kv_cache=True)
+    i8c = {"int8_kv_cache": True, "chunked_prefill": {"token_budget": 64}}
+    srv_ic, toks_ic, mic = serve(torch, fp32, "kernel", params, requests,
+                                 attention="both", **i8c)
+    _srv, toks_icp, _ = serve(torch, fp32, "kernel", params, requests,
+                              attention="plain", **i8c)
+    print(f"fp32 int8 pool, every kernel call held against its plain "
+          f"version on the same pools: kernel #1 int8 {mik['checked_calls']}"
+          f" calls, max |err| {mik['max_err']:.3g}; kernel #2 int8 "
+          f"{mic['checked_calls']} calls, max |err| {mic['max_err']:.3g} "
+          f"(atol 1e-5)")
+    int8["fp32_max_err_kernel1"] = mik["max_err"]
+    int8["fp32_max_err_kernel2"] = mic["max_err"]
+    for key, name, got, want, chunked in (
+            ("kernel_vs_gather", "int8 kernel vs gather", toks_ik, toks_ig,
+             False),
+            ("chunked_kernel_vs_plain", "int8 chunked, kernel #2 vs its "
+             "plain version", toks_ic, toks_icp, True),
+            ("chunked_vs_bucketed", "int8 chunked vs int8 bucketed",
+             toks_ic, toks_ik, True)):
+        gap = int8_gap(torch, srv_ic if chunked else srv_ik, chunked)
+        diffs = [(i, at, plens[i], round(gap(a[:at], plens[i]), 6))
+                 for i, (a, b) in enumerate(zip(got, want))
+                 if (at := first_diff(a, b)) is not None]
+        print(f"fp32 {name} (information): {len(diffs)} of "
+              f"{len(requests)} requests differ; (request, first differing "
+              f"position, prompt length, int8 top-2 gap there): {diffs}")
+        int8[f"fp32_{key}_requests_differing"] = len(diffs)
+
+    # -- the prefix cache: request 0 first, the rest once it has its first
+    # token; bucketed and chunked against the same run without the cache
+    preq = prefix_trace(cfg)
+    pl = [len(p) for p, _ in preq]
+    ref_srv, toks_ref, mref = serve(torch, fp32, "kernel", params, preq,
+                                    wave1=1, second_wave="prefill")
+    prefix = {"requests": len(preq), "shared_head": 512,
+              "cold_ttft_ms_median": median(mref["ttft_ms"][1:])}
+    for label, extra in (("bucketed", {}),
+                         ("chunked", {"chunked_prefill":
+                                      {"token_budget": 256}})):
+        _srv, toks_p, mp = serve(torch, fp32, "kernel", params, preq,
+                                 wave1=1, second_wave="prefill",
+                                 prefix_cache=True, **extra)
+        if mp["prefix_hits"] < 7:
+            fail(f"prefix {label}: {mp['prefix_hits']} prefix hits < 7")
+        ties = check_identity(torch, ref_srv.engine,
+                              f"fp32 prefix {label} vs no prefix cache",
+                              toks_p, toks_ref, pl)
+        prefix[label] = {"prefix_hits": mp["prefix_hits"],
+                         "warm_ttft_ms_median": median(mp["ttft_ms"][1:]),
+                         "first_request_ttft_ms": mp["ttft_ms"][0],
+                         "ties": ties, "wall_s": mp["wall_s"]}
+    print(f"serving fp32 prefix trace (8 requests, 512-token shared head; "
+          f"TTFT of requests 1-7, warm with the cache, cold without): "
+          f"{json.dumps(prefix)}")
+    out["prefix"] = prefix
+
+    out["decode_profile"] = profile_decode(torch, params, requests)
+    out["chunked_profile"] = profile_chunked(torch, params, requests)
+    return out
 
 
 KERNELS = (
     ("paged_decode_attention", "paged_attention",
      "deepspeed_tpu/ops/transformer/paged_attention.py:69"),
+    ("paged_decode_attention_int8", "paged_attention",
+     "deepspeed_tpu/ops/transformer/paged_attention.py:69"),
+    ("chunked_prefill_attention", "chunked_prefill",
+     "deepspeed_tpu/ops/transformer/chunked_prefill.py:65"),
     ("flash_attention_fwd", "flash_attention",
      "deepspeed_tpu/ops/transformer/flash_attention.py:113"),
     ("flash_attention_bwd_dq", "flash_attention",
@@ -856,15 +1602,19 @@ def train_flops_per_step(n_params, batch, seq, hidden, layers):
 
 class PlainCalls:
     """Counts calls of the plain versions while the main path runs: the
-    module attributes the wrappers call are swapped for counting shims."""
+    module (or class) attributes the wrappers call are swapped for
+    counting shims. ``targets``: ``(owner, name)`` pairs; by default the
+    training path's."""
 
-    def __init__(self):
-        from deepspeed_tpu_torch.ops.adam import fused_update
-        from deepspeed_tpu_torch.ops.transformer import (attention,
-                                                         flash_attention)
-        self.targets = [(flash_attention, "flash_attention_reference"),
-                        (attention, "xla_attention"),
-                        (fused_update, "fused_adam_reference")]
+    def __init__(self, targets=None):
+        if targets is None:
+            from deepspeed_tpu_torch.ops.adam import fused_update
+            from deepspeed_tpu_torch.ops.transformer import (
+                attention, flash_attention)
+            targets = [(flash_attention, "flash_attention_reference"),
+                       (attention, "xla_attention"),
+                       (fused_update, "fused_adam_reference")]
+        self.targets = targets
         self.calls = {name: 0 for _m, name in self.targets}
 
     def __enter__(self):
@@ -1093,12 +1843,7 @@ def main() -> int:
     print(f"built {len(libs)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s")
     for lib in libs:
-        print(f"  {os.path.relpath(lib, HERE)}")
-        with open(lib[:-3] + ".log") as f:
-            for line in f:
-                if "registers" in line or "spill" in line \
-                        or "Compiling entry" in line:
-                    print("    " + line.strip())
+        print(f"  {os.path.relpath(lib, HERE)}: {ptxas_summary(lib)}")
 
     # 2. kernels against their plain versions
     reports = {name: {"name": name, "route": "cuda",
@@ -1106,6 +1851,8 @@ def main() -> int:
                       "replaces": rep}
                for name, src, rep in KERNELS}
     check_paged_attention(torch, reports["paged_decode_attention"])
+    check_paged_attention_int8(torch, reports["paged_decode_attention_int8"])
+    check_chunked_prefill(torch, reports["chunked_prefill_attention"])
     check_flash_attention(torch, {
         "fwd": reports["flash_attention_fwd"],
         "dq": reports["flash_attention_bwd_dq"],
@@ -1118,7 +1865,11 @@ def main() -> int:
     # 3. the serving path end to end
     serving = check_serving(torch)
     reports["paged_decode_attention"]["launches"] = \
-        serving["kernel_launches"]
+        serving["bucketed"]["kernel_launches"]
+    reports["paged_decode_attention_int8"]["launches"] = \
+        serving["int8"]["kernel_launches"]
+    reports["chunked_prefill_attention"]["launches"] = \
+        serving["chunked"]["kernel_launches"]
 
     # 4. the training path end to end, and its fp32 comparison
     training = check_training(torch, card)

@@ -59,6 +59,10 @@ class ServingConfig:
     model's max_seq_len). ``max_prefills_per_step``: prefills admitted per
     decode boundary. ``temperature`` / ``top_k`` / ``seed``: sampling
     (0.0 = greedy). ``decode_attention``: gather | auto | kernel.
+    ``int8_kv_cache``: int8 K/V pools with per-(token, head) fp32 scales.
+    ``prefix_cache``: share full prompt-head blocks between requests.
+    ``chunked_prefill`` / ``chunked_token_budget``: chunked-prefill
+    admission, at most ``chunked_token_budget`` tokens per mixed step.
     """
 
     max_batch_size: int = C.SERVING_MAX_BATCH_SIZE_DEFAULT
@@ -71,6 +75,10 @@ class ServingConfig:
     top_k: int = C.SERVING_TOP_K_DEFAULT
     seed: int = C.SERVING_SEED_DEFAULT
     decode_attention: str = C.SERVING_DECODE_ATTENTION_DEFAULT
+    int8_kv_cache: bool = C.SERVING_INT8_KV_CACHE_DEFAULT
+    prefix_cache: bool = C.SERVING_PREFIX_CACHE_DEFAULT
+    chunked_prefill: bool = False
+    chunked_token_budget: int = C.SERVING_CHUNKED_TOKEN_BUDGET_DEFAULT
 
     def __post_init__(self):
         if self.max_batch_size < 1:
@@ -94,6 +102,16 @@ class ServingConfig:
                 f"serving.decode_attention must be one of "
                 f"{C.SERVING_DECODE_ATTENTION_CHOICES}, got "
                 f"{self.decode_attention!r}")
+        if self.chunked_token_budget < self.max_batch_size:
+            raise ConfigError(
+                "serving.chunked_prefill.token_budget must be >= "
+                "max_batch_size (every decoding slot needs a row in each "
+                "mixed step)")
+        if self.chunked_prefill and self.temperature != 0.0:
+            raise ConfigError(
+                "serving.chunked_prefill requires temperature == 0 "
+                "(greedy): the contract with the bucketed path is token "
+                "identity")
 
     @classmethod
     def from_dict(cls, d: Optional[Dict[str, Any]]) -> "ServingConfig":
@@ -103,15 +121,23 @@ class ServingConfig:
             raise ConfigError(
                 f"unknown serving keys {sorted(unknown)}; expected a subset "
                 f"of {sorted(_KNOWN_SERVING_KEYS)}")
-        if d.get(C.SERVING_INT8_KV_CACHE):
-            raise not_yet_ported("serving.int8_kv_cache: true (the int8 KV "
-                                 "pool)")
-        if d.get(C.SERVING_PREFIX_CACHE):
-            raise not_yet_ported("serving.prefix_cache")
-        for key in (C.SERVING_SPECULATIVE, C.SERVING_RESILIENCE,
-                    C.SERVING_CHUNKED_PREFILL):
+        for key in (C.SERVING_SPECULATIVE, C.SERVING_RESILIENCE):
             if _enabled_block(d, key):
                 raise not_yet_ported(f"serving.{key}")
+        chunked = d.get(C.SERVING_CHUNKED_PREFILL)
+        if chunked is False:
+            chunked = None                  # named in its off state
+        if chunked is not None and not isinstance(chunked, dict):
+            raise ConfigError("serving.chunked_prefill must be a dict")
+        present = chunked is not None
+        chunked = chunked or {}
+        known_chunked = {C.SERVING_CHUNKED_ENABLED,
+                         C.SERVING_CHUNKED_TOKEN_BUDGET}
+        unknown = set(chunked) - known_chunked
+        if unknown:
+            raise ConfigError(
+                f"unknown serving.chunked_prefill keys {sorted(unknown)}; "
+                f"expected a subset of {sorted(known_chunked)}")
         return cls(
             max_batch_size=int(_get(d, C.SERVING_MAX_BATCH_SIZE,
                                     C.SERVING_MAX_BATCH_SIZE_DEFAULT)),
@@ -134,6 +160,16 @@ class ServingConfig:
             seed=int(_get(d, C.SERVING_SEED, C.SERVING_SEED_DEFAULT)),
             decode_attention=str(_get(d, C.SERVING_DECODE_ATTENTION,
                                       C.SERVING_DECODE_ATTENTION_DEFAULT)),
+            int8_kv_cache=bool(_get(d, C.SERVING_INT8_KV_CACHE,
+                                    C.SERVING_INT8_KV_CACHE_DEFAULT)),
+            prefix_cache=bool(_get(d, C.SERVING_PREFIX_CACHE,
+                                   C.SERVING_PREFIX_CACHE_DEFAULT)),
+            # a present block defaults to enabled
+            chunked_prefill=bool(chunked.get(
+                C.SERVING_CHUNKED_ENABLED, present)),
+            chunked_token_budget=int(_get(
+                chunked, C.SERVING_CHUNKED_TOKEN_BUDGET,
+                C.SERVING_CHUNKED_TOKEN_BUDGET_DEFAULT)),
         )
 
 

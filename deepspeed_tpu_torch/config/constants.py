@@ -103,12 +103,20 @@ SERVING_SEED_DEFAULT = 0
 SERVING_DECODE_ATTENTION = "decode_attention"
 SERVING_DECODE_ATTENTION_DEFAULT = "gather"
 SERVING_DECODE_ATTENTION_CHOICES = ("gather", "auto", "kernel")
+# Prompt-head reuse: a ref-counted trie over full prompt blocks.
+SERVING_PREFIX_CACHE = "prefix_cache"
+SERVING_PREFIX_CACHE_DEFAULT = False
+# Chunked-prefill admission: decode tokens and budget-bounded prompt
+# chunks share one ragged mixed step (kernel #2). A present block
+# defaults to enabled.
+SERVING_CHUNKED_PREFILL = "chunked_prefill"
+SERVING_CHUNKED_ENABLED = "enabled"
+SERVING_CHUNKED_TOKEN_BUDGET = "token_budget"  # tokens per mixed step
+SERVING_CHUNKED_TOKEN_BUDGET_DEFAULT = 64
 # Keys of the JAX package's serving block whose features are not ported
 # yet. Each is accepted only in its off state.
-SERVING_PREFIX_CACHE = "prefix_cache"
 SERVING_SPECULATIVE = "speculative"
 SERVING_RESILIENCE = "resilience"
-SERVING_CHUNKED_PREFILL = "chunked_prefill"
 SUB_BLOCK_ENABLED = "enabled"
 
 #############################################

@@ -1,0 +1,339 @@
+// The walk shared by the paged decode kernel (paged_attention.cu, TPU
+// kernel #1) and the ragged chunked-prefill kernel (chunked_prefill.cu,
+// TPU kernel #2): one thread block attends a run of up to MAX_S queries of
+// one head, at consecutive positions p0 .. p0 + ns - 1 of one sequence,
+// over that sequence's K/V pool blocks through its row of the block
+// table. Key j (table-relative) is visible to query i iff j <= p0 + i.
+// The softmax runs online in fp32; the output is written in q's dtype.
+//
+// Pools are in q's dtype (float or bf16) or int8. An int8 pool carries
+// per-(token, head) fp32 scales [N, BS, H]: each key row's thread group
+// reads its own head's scale at stride H and dequantizes k = code * scale
+// in fp32 (never rounded to bf16), as the TPU kernels do.
+//
+// Layout of one thread block (THREADS threads): a key row of D elements is
+// read by D / 8 threads, 8 elements each (16 bytes for bf16, 32 for fp32,
+// 8 codes for int8), rounded up to TPKP, a power of two, so that a row's
+// threads form an aligned group inside a warp and reduce with shuffles.
+// KPP = THREADS / TPKP keys are processed side by side, NPASS times per
+// tile of KT = NPASS * KPP keys; each tile's K and V loads are all issued
+// at the tile's start, so a tile costs about one device-memory latency.
+//
+// Masked keys contribute nothing at all: their score is replaced by -inf
+// (a select, not arithmetic) and their value row is skipped, not
+// multiplied by 0, so a non-finite value in the scratch block or in an
+// unwritten slot cannot reach the output. Every output element is summed
+// by one thread in a fixed order, with no atomics.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace paged {
+
+constexpr int THREADS = 128;
+constexpr int NWARPS = THREADS / 32;
+constexpr int MAX_S = 8;    // queries per thread block
+constexpr int MAX_D = 256;  // largest head_dim
+constexpr int VEC = 8;      // elements of a row per thread
+constexpr int NPASS = 4;    // rows per thread per tile, loaded together
+constexpr unsigned FULL = 0xffffffffu;
+
+// One thread's 8-element slice of a K or V row, as loaded.
+template <typename P>
+struct Slice;
+template <>
+struct Slice<float> {
+  float4 a, b;
+};
+template <>
+struct Slice<__nv_bfloat16> {
+  uint4 a;
+};
+template <>
+struct Slice<int8_t> {
+  uint2 a;
+};
+
+__device__ __forceinline__ void load(const float* p, Slice<float>& s) {
+  s.a = *reinterpret_cast<const float4*>(p);
+  s.b = *reinterpret_cast<const float4*>(p + 4);
+}
+__device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                     Slice<__nv_bfloat16>& s) {
+  s.a = *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ void load(const int8_t* p, Slice<int8_t>& s) {
+  s.a = *reinterpret_cast<const uint2*>(p);
+}
+__device__ __forceinline__ void unpack(const Slice<float>& s,
+                                       float (&x)[VEC]) {
+  x[0] = s.a.x; x[1] = s.a.y; x[2] = s.a.z; x[3] = s.a.w;
+  x[4] = s.b.x; x[5] = s.b.y; x[6] = s.b.z; x[7] = s.b.w;
+}
+__device__ __forceinline__ void unpack(const Slice<__nv_bfloat16>& s,
+                                       float (&x)[VEC]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&s.a);
+#pragma unroll
+  for (int k = 0; k < VEC / 2; ++k) {
+    const float2 f = __bfloat1622float2(h[k]);
+    x[2 * k] = f.x;
+    x[2 * k + 1] = f.y;
+  }
+}
+// int8 codes, sign-extended byte by byte (little-endian: byte k of a word
+// is element k).
+__device__ __forceinline__ void unpack(const Slice<int8_t>& s,
+                                       float (&x)[VEC]) {
+  const unsigned w[2] = {s.a.x, s.a.y};
+#pragma unroll
+  for (int k = 0; k < VEC; ++k)
+    x[k] = (float)((int)(w[k / 4] << (24 - 8 * (k % 4))) >> 24);
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
+  return v;
+}
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  return v;
+}
+
+// Attend one run. ``q`` and ``out`` point at the run's first query's head
+// ``h`` row; consecutive queries are ``row = H * D`` elements apart (the
+// pools' token stride too). ``bt``: the sequence's table row of WB block
+// ids. Called once per thread block, by all THREADS threads, with ns >= 1
+// uniform across the block. D <= VEC * TPKP.
+template <typename T, typename P, int TPKP>
+__device__ __forceinline__ void attend_run(
+    const T* __restrict__ q, T* __restrict__ out,
+    const P* __restrict__ k_pool, const P* __restrict__ v_pool,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+    const int* __restrict__ bt, int WB, int p0, int ns, int H, int D, int BS,
+    int h, float scale) {
+  constexpr bool INT8 = sizeof(P) == 1;
+  constexpr int KPP = THREADS / TPKP;  // keys per pass
+  constexpr int KT = NPASS * KPP;      // keys per tile
+  constexpr int DMAX = VEC * TPKP;     // widest head this TPKP covers
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int t = tid % TPKP;  // which 8-element slice of a row
+  const int g = tid / TPKP;  // which key of a pass
+  const bool has_slice = t * VEC < D;
+
+  __shared__ __align__(16) float q_s[MAX_S][DMAX];  // q * scale, fp32
+  __shared__ float p_s[MAX_S][KT];                  // scores, then probs
+  __shared__ float m_s[MAX_S];                      // running max
+  __shared__ float l_s[MAX_S];                      // running normaliser
+  __shared__ float a_s[MAX_S];                      // tile rescale factor
+  __shared__ float red[NWARPS][MAX_S][DMAX];
+
+  const long row = (long)H * D;  // elements between tokens
+  for (int idx = tid; idx < ns * D; idx += THREADS) {
+    const int i = idx / D;
+    const int d = idx - i * D;
+    q_s[i][d] = to_float(q[i * row + d]) * scale;
+  }
+  if (tid < MAX_S) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.f;
+  }
+  __syncthreads();
+
+  float acc[MAX_S][VEC];
+#pragma unroll
+  for (int i = 0; i < MAX_S; ++i)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[i][e] = 0.f;
+
+  // Keys past the last query's position are visible to no query here.
+  const int n_keys = min(WB * BS, p0 + ns);
+  const long head_off = (long)h * D + t * VEC;
+
+  for (int k0 = 0; k0 < n_keys; k0 += KT) {
+    const int nk = min(KT, n_keys - k0);
+
+    // 0. issue every K and V load of the tile (and int8 scales)
+    Slice<P> ks[NPASS], vs[NPASS];
+    float ksc[NPASS], vsc[NPASS];
+#pragma unroll
+    for (int r = 0; r < NPASS; ++r) {
+      const int j = r * KPP + g;
+      if (j < nk && has_slice) {
+        const int kp = k0 + j;
+        const long tok = (long)bt[kp / BS] * BS + kp % BS;
+        load(k_pool + tok * row + head_off, ks[r]);
+        load(v_pool + tok * row + head_off, vs[r]);
+        if (INT8) {
+          ksc[r] = k_scale[tok * H + h];
+          vsc[r] = v_scale[tok * H + h];
+        }
+      }
+    }
+
+    // 1. scores of the tile's keys against every query
+#pragma unroll
+    for (int r = 0; r < NPASS; ++r) {
+      const int j = r * KPP + g;
+      float part[MAX_S];
+#pragma unroll
+      for (int i = 0; i < MAX_S; ++i) part[i] = 0.f;
+      if (j < nk && has_slice) {
+        float kx[VEC];
+        unpack(ks[r], kx);
+        if (INT8) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) kx[e] *= ksc[r];
+        }
+#pragma unroll
+        for (int i = 0; i < MAX_S; ++i) {
+          if (i < ns) {
+            const float4 qa = *reinterpret_cast<const float4*>(
+                &q_s[i][t * VEC]);
+            const float4 qb = *reinterpret_cast<const float4*>(
+                &q_s[i][t * VEC + 4]);
+            part[i] = qa.x * kx[0] + qa.y * kx[1] + qa.z * kx[2] +
+                      qa.w * kx[3] + qb.x * kx[4] + qb.y * kx[5] +
+                      qb.z * kx[6] + qb.w * kx[7];
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < MAX_S; ++i) {
+        if (i < ns) {  // uniform across the block
+#pragma unroll
+          for (int off = TPKP >> 1; off > 0; off >>= 1)
+            part[i] += __shfl_xor_sync(FULL, part[i], off);
+        }
+      }
+      if (t == 0) {
+        for (int i = 0; i < ns; ++i)
+          p_s[i][j] = (j < nk && k0 + j <= p0 + i) ? part[i] : -INFINITY;
+      }
+    }
+    __syncthreads();
+
+    // 2. online-softmax statistics, one warp per query
+    for (int i = warp; i < ns; i += NWARPS) {
+      float mx = -INFINITY;
+      for (int j = lane; j < nk; j += 32)
+        if (k0 + j <= p0 + i) mx = fmaxf(mx, p_s[i][j]);
+      mx = warp_max(mx);
+      const float m_old = m_s[i];
+      const float m_new = fmaxf(m_old, mx);
+      float alpha = 1.f;
+      float sum = 0.f;
+      if (m_new == -INFINITY) {  // no key of this query seen yet
+        for (int j = lane; j < KT; j += 32) p_s[i][j] = 0.f;
+      } else {
+        alpha = (m_old == -INFINITY) ? 0.f : expf(m_old - m_new);
+        for (int j = lane; j < KT; j += 32) {
+          const float p =
+              (j < nk && k0 + j <= p0 + i) ? expf(p_s[i][j] - m_new) : 0.f;
+          p_s[i][j] = p;
+          sum += p;
+        }
+      }
+      sum = warp_sum(sum);
+      __syncwarp();  // every lane has read m_s[i] before lane 0 writes it
+      if (lane == 0) {
+        m_s[i] = m_new;
+        l_s[i] = l_s[i] * alpha + sum;
+        a_s[i] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // 3. rescale the partial accumulators, add this tile's values
+#pragma unroll
+    for (int i = 0; i < MAX_S; ++i) {
+      if (i < ns) {
+        const float alpha = a_s[i];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[i][e] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < NPASS; ++r) {
+      const int j = r * KPP + g;
+      if (j < nk && has_slice) {
+        const int kp = k0 + j;
+        float vx[VEC];
+        unpack(vs[r], vx);
+        if (INT8) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) vx[e] *= vsc[r];
+        }
+#pragma unroll
+        for (int i = 0; i < MAX_S; ++i) {
+          if (i < ns && kp <= p0 + i) {
+            const float p = p_s[i][j];
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[i][e] += p * vx[e];
+          }
+        }
+      }
+    }
+    __syncthreads();  // p_s is rewritten by the next tile
+  }
+
+  // Sum the key groups' partial accumulators: inside each warp with
+  // shuffles, then across warps through shared memory.
+#pragma unroll
+  for (int off = TPKP; off < 32; off <<= 1) {
+#pragma unroll
+    for (int i = 0; i < MAX_S; ++i)
+      if (i < ns)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          acc[i][e] += __shfl_xor_sync(FULL, acc[i][e], off);
+  }
+  if (lane < TPKP && has_slice) {
+#pragma unroll
+    for (int i = 0; i < MAX_S; ++i)
+      if (i < ns)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) red[warp][i][t * VEC + e] = acc[i][e];
+  }
+  __syncthreads();
+  for (int idx = tid; idx < ns * D; idx += THREADS) {
+    const int i = idx / D;
+    const int d = idx - i * D;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) sum += red[w][i][d];
+    store(out + i * row + d, sum / fmaxf(l_s[i], 1e-30f));
+  }
+}
+
+// Instantiate ``KERNEL<T, P, TPKP>`` for head_dim D (TPKP = the power of
+// two >= D / 8) by calling LAUNCH(TPKP); shared by both kernels' hosts.
+#define PAGED_DISPATCH_D(D, LAUNCH) \
+  do {                              \
+    if ((D) <= 8) LAUNCH(1);        \
+    else if ((D) <= 16) LAUNCH(2);  \
+    else if ((D) <= 32) LAUNCH(4);  \
+    else if ((D) <= 64) LAUNCH(8);  \
+    else if ((D) <= 128) LAUNCH(16); \
+    else LAUNCH(32);                \
+  } while (0)
+
+}  // namespace paged

@@ -14,7 +14,11 @@ cache forms, as the JAX model does:
   ``attn_impl == "gather"``: write through the block table, gather the
   window, masked dense attention;
 - the same with ``attn_impl == "kernel"``: write, then the paged
-  decode-attention kernel straight over the pools.
+  decode-attention kernel straight over the pools;
+- a chunked layer cache (``serving/kv_cache.ChunkedLayerCache``,
+  ``attn_impl == "chunked"``): the flat ragged token batch of a mixed
+  step as one row [1, T], written per token, then the chunked-prefill
+  kernel over the pools.
 
 Parameter names follow torch (``h.0.c_attn.weight`` [out, in]);
 ``models/convert.py`` maps them to and from the flax tree. The config's
@@ -157,7 +161,10 @@ class GPTBlock(nn.Module):
             if attn_mask is not None:
                 mask = mask & attn_mask
             o = xla_attention(q, ck, cv, mask=mask, softmax_scale=scale)
-        elif kv_cache.attn_impl == "kernel" and attn_mask is None:
+        elif kv_cache.attn_impl in ("kernel", "chunked") \
+                and attn_mask is None:
+            # "chunked": the ragged mixed step (ChunkedLayerCache), its
+            # flat token batch riding as one row [1, T].
             kv_cache, o = kv_cache.update_attend(q, k, v,
                                                  softmax_scale=scale)
         else:

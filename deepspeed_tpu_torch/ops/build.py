@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/kernels/`` beside the package (a
-directory ``.gitignore`` lists), named by a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is not. Nothing
+directory ``.gitignore`` lists), named by a hash of the source, the
+headers it includes and the flags, so an edited source is rebuilt and an
+unchanged one is not. Nothing
 here runs at import: the CPU tests import every module, and only a call on
 a CUDA tensor builds.
 """
@@ -11,6 +12,7 @@ a CUDA tensor builds.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -37,9 +39,14 @@ def find_nvcc() -> Optional[str]:
 
 
 def library_path(name: str) -> str:
-    """Where the build of ``csrc/<name>.cu`` lands (hash-named)."""
+    """Where the build of ``csrc/<name>.cu`` lands, named by a hash of the
+    source, the ``csrc/`` headers it includes and the flags."""
     with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        source = f.read()
+    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode())
+    for header in re.findall(rb'#include\s+"([^"]+)"', source):
+        with open(os.path.join(CSRC, header.decode()), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

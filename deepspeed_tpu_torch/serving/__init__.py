@@ -1,11 +1,14 @@
 """Continuous-batching serving: paged KV cache, scheduler, engine."""
 
 from deepspeed_tpu_torch.serving.engine import ServeEngine
-from deepspeed_tpu_torch.serving.kv_cache import (BlockPool, PagedLayerCache,
+from deepspeed_tpu_torch.serving.kv_cache import (BlockPool,
+                                                  ChunkedLayerCache,
+                                                  PagedLayerCache,
                                                   init_paged_pools,
                                                   pack_prefill)
-from deepspeed_tpu_torch.serving.scheduler import (Request, Scheduler,
-                                                   Sequence)
+from deepspeed_tpu_torch.serving.scheduler import (PrefixCache, Request,
+                                                   Scheduler, Sequence)
 
-__all__ = ["ServeEngine", "BlockPool", "PagedLayerCache", "init_paged_pools",
-           "pack_prefill", "Request", "Scheduler", "Sequence"]
+__all__ = ["ServeEngine", "BlockPool", "ChunkedLayerCache",
+           "PagedLayerCache", "init_paged_pools", "pack_prefill",
+           "PrefixCache", "Request", "Scheduler", "Sequence"]

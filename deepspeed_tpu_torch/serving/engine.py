@@ -1,16 +1,24 @@
 """ServeEngine: continuous batching over the inference engine.
 
-The port of ``deepspeed_tpu/serving/engine.py`` on its default admission
-path. Each ``step()``:
+The port of ``deepspeed_tpu/serving/engine.py``. Each ``step()``:
 
-- **admits and prefills** up to ``max_prefills_per_step`` waiting requests:
-  one sequence's prompt, right-padded to a power-of-two bucket of whole
-  blocks, runs the dense-cache forward, its first token is sampled, and
-  its K/V are packed into the paged pools;
+- **admits** up to ``max_prefills_per_step`` waiting requests. On the
+  bucketed path (the default) each admitted prompt is prefilled at once:
+  right-padded to a power-of-two bucket of whole blocks, it runs the
+  dense-cache forward, its first token is sampled, and its K/V are packed
+  into the paged pools; a prompt whose head was adopted from the prefix
+  cache prefills only its tail, through the paged cache. Under
+  ``serving.chunked_prefill`` admission only allocates: the prompt enters
+  the mixed step in chunks;
 - **decodes** one token for every running sequence: the whole slot batch
   goes through the paged cache with per-row positions, and inactive slots
-  point at the scratch block;
-- samples greedily (or with temperature/top-k from a seeded generator).
+  point at the scratch block. Under chunked prefill this is the **mixed
+  step** instead: one ragged token batch of every decoding sequence's
+  token plus prompt chunks (FCFS, up to ``token_budget`` tokens), padded
+  to the budget, through the chunked-prefill kernel; a prompt whose last
+  chunk lands takes its first token from that chunk's last row;
+- samples greedily (or with temperature/top-k from a seeded generator; the
+  chunked path is greedy only).
 
 Scheduling between steps is host Python (``serving/scheduler.py``). Where
 the JAX package compiles one program per prompt bucket and per decode
@@ -20,11 +28,11 @@ window, the port runs eagerly, and the pools are written in place.
 "kernel" caps the window at the longest active row (a power-of-two block
 count) and attends through the paged decode-attention kernel; "auto" is
 "kernel" on a CUDA device (raising where the kernel does not take the
-pool) and "gather" on the CPU.
+pool) and "gather" on the CPU. ``int8_kv_cache`` stores the pools as int8
+with per-(token, head) scales on every path.
 
-Not ported yet, and refused by ``ServingConfig``: the prefix cache,
-speculative decoding, chunked prefill, the int8 KV pool, resilience and
-telemetry.
+Not ported yet, and refused by ``ServingConfig``: speculative decoding,
+resilience and telemetry.
 """
 
 import time
@@ -40,28 +48,42 @@ from deepspeed_tpu_torch.inference.engine import (InferenceEngine,
 from deepspeed_tpu_torch.models.gpt import init_kv_cache
 from deepspeed_tpu_torch.ops.transformer.paged_attention import \
     paged_decode_ok
-from deepspeed_tpu_torch.serving.kv_cache import (BlockPool, PagedLayerCache,
+from deepspeed_tpu_torch.serving.kv_cache import (BlockPool,
+                                                  ChunkedLayerCache,
+                                                  PagedLayerCache,
                                                   init_paged_pools,
                                                   pack_prefill)
-from deepspeed_tpu_torch.serving.scheduler import Scheduler, Sequence
+from deepspeed_tpu_torch.serving.scheduler import (PrefixCache, Scheduler,
+                                                   Sequence)
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 
+def _check_kernel_takes(what: str, head_dim: int, dtype: torch.dtype,
+                        pool_dtype: Optional[torch.dtype]) -> None:
+    if not paged_decode_ok(head_dim, dtype, pool_dtype):
+        raise ValueError(
+            f"{what}: the CUDA kernel takes float32 or bfloat16 queries, "
+            f"pools of their dtype or int8, and head_dim a multiple of 8 "
+            f"up to 256, not {dtype} over {pool_dtype or dtype} pools / "
+            f"{head_dim}")
+
+
 def resolve_decode_attention(mode: str, device_type: str, head_dim: int,
-                             dtype: torch.dtype) -> str:
+                             dtype: torch.dtype,
+                             pool_dtype: Optional[torch.dtype] = None
+                             ) -> str:
     """The decode attention impl for ``serving.decode_attention``.
 
-    On a CUDA device "auto" is "kernel", and a pool the kernel does not
-    take raises: the decode never drops to the gather path behind the
-    caller's back. On the CPU "auto" is "gather"."""
+    ``dtype``: the queries' dtype at the kernel; ``pool_dtype``: the
+    pools' (None: the same; int8 for the int8 pool). On a CUDA device
+    "auto" is "kernel", and operands the kernel does not take raise: the
+    decode never drops to the gather path behind the caller's back. On
+    the CPU "auto" is "gather"."""
     if mode == "auto":
         mode = "kernel" if device_type == "cuda" else "gather"
-    if mode == "kernel" and device_type == "cuda" \
-            and not paged_decode_ok(head_dim, dtype):
-        raise ValueError(
-            f"serving.decode_attention='kernel': the CUDA kernel takes "
-            f"float32 or bfloat16 pools and head_dim a multiple of 8 up "
-            f"to 256, not {dtype} / {head_dim}")
+    if mode == "kernel" and device_type == "cuda":
+        _check_kernel_takes("serving.decode_attention='kernel'", head_dim,
+                            dtype, pool_dtype)
     return mode
 
 
@@ -96,15 +118,33 @@ class ServeEngine:
                 f"({model_max}): no prompt bucket fits")
 
         self.pool = BlockPool(self.scfg.kv_num_blocks)
-        self.sched = Scheduler(self.scfg.max_batch_size, self.pool, bs)
+        self.prefix_cache = (PrefixCache(self.pool, bs)
+                             if self.scfg.prefix_cache else None)
+        self.sched = Scheduler(self.scfg.max_batch_size, self.pool, bs,
+                               prefix_cache=self.prefix_cache)
         self._dtype = engine.dtype
+        int8 = self.scfg.int8_kv_cache
         self._pools = init_paged_pools(self.model_cfg,
                                        self.scfg.kv_num_blocks, bs,
-                                       dtype=self._dtype, device=self.device)
+                                       int8=int8, dtype=self._dtype,
+                                       device=self.device)
+        # What the kernels see: an fp pool gets q cast to its dtype, an
+        # int8 pool q in the model's compute dtype.
+        pool_dtype = torch.int8 if int8 else self._dtype
+        q_dtype = self.model_cfg.dtype if int8 else self._dtype
         self._fast_path = self.scfg.decode_attention != "gather"
         self._attn_impl = resolve_decode_attention(
             self.scfg.decode_attention, self.device.type,
-            self.model_cfg.head_dim, self._dtype)
+            self.model_cfg.head_dim, q_dtype, pool_dtype)
+        # Chunked prefill: every token of a mixed step goes through the
+        # chunked-prefill kernel on CUDA (no head_dim % 128 gate: that is
+        # the TPU's lane tiling).
+        self._chunked = self.scfg.chunked_prefill
+        self._chunk_budget = self.scfg.chunked_token_budget
+        if self._chunked and self.device.type == "cuda":
+            _check_kernel_takes("serving.chunked_prefill",
+                                self.model_cfg.head_dim, q_dtype,
+                                pool_dtype)
         self._generator = None
         if self.scfg.temperature > 0.0:
             self._generator = torch.Generator(device=self.device)
@@ -113,15 +153,22 @@ class ServeEngine:
         self.results: Dict[int, Dict[str, Any]] = {}
         # ``gathered_positions``: key positions the decode steps covered
         # per row (window width x steps); ``full_positions``: the same for
-        # an uncapped window.
+        # an uncapped window. ``mixed_steps``: chunked mixed dispatches;
+        # ``chunk_tokens_last``: real tokens in the last one.
         self.stats = {"decode_steps": 0,
                       "slot_assignments": {}, "kernel_steps": 0,
-                      "gathered_positions": 0, "full_positions": 0}
+                      "gathered_positions": 0, "full_positions": 0,
+                      "prefix_hits": 0, "mixed_steps": 0,
+                      "chunk_tokens_last": 0}
+        admission = (f"chunked prefill, token budget {self._chunk_budget}"
+                     if self._chunked else "bucketed prefill")
         log_dist(
             f"serving: {self.scfg.max_batch_size} slots, KV pool "
-            f"{self.pool.capacity}x{bs} positions ({self._dtype}) on "
-            f"{self.device}, decode attention {self._attn_impl}, "
-            f"max_model_len {self.max_model_len}", ranks=[0])
+            f"{self.pool.capacity}x{bs} positions "
+            f"({'int8' if int8 else self._dtype}) on {self.device}, "
+            f"{admission}, decode attention {self._attn_impl}, prefix "
+            f"cache {'on' if self.prefix_cache else 'off'}, max_model_len "
+            f"{self.max_model_len}", ranks=[0])
 
     # ------------------------------------------------------------------
     # submission
@@ -170,8 +217,9 @@ class ServeEngine:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def step(self) -> Dict[str, Any]:
-        """One engine iteration: admit + prefill (bounded), then advance
-        the whole decode batch one token. Returns a step report
+        """One engine iteration: admit (+ prefill on the bucketed path,
+        bounded), then advance the whole decode batch one token (under
+        chunked prefill: one mixed step). Returns a step report
         (``finished`` / ``prefilled`` request ids, ``active`` count)."""
         info: Dict[str, Any] = {"step": self._step_count, "prefilled": [],
                                 "finished": [], "active": 0}
@@ -179,10 +227,17 @@ class ServeEngine:
             seq = self.sched.try_admit(self._bucket_of, self._step_count)
             if seq is None:
                 break
-            self._prefill(seq)
-            info["prefilled"].append(seq.request.rid)
             self.stats["slot_assignments"].setdefault(seq.slot, 0)
             self.stats["slot_assignments"][seq.slot] += 1
+            if self._chunked:
+                # No prefill here: the prompt enters the mixed step in
+                # chunks from its adopted head; its first token and prefix
+                # registration come with its last chunk (_mixed_round).
+                seq.pos = seq.prefilled = seq.shared_len
+                continue
+            self._prefill(seq)
+            self.sched.register_prefix(seq, self._step_count)
+            info["prefilled"].append(seq.request.rid)
             if seq.finished():      # max_new_tokens == 1 / instant EOS
                 self._finish(seq, info)
 
@@ -192,13 +247,18 @@ class ServeEngine:
         active = self.sched.active          # preemption may have evicted
         info["active"] = len(active)
         if active:
-            toks = self._decode(active)
-            for seq, tok in zip(active, toks):
-                seq.tokens.append(tok)
-                seq.pos += 1
-                if seq.finished():
-                    self._finish(seq, info)
+            if self._chunked:
+                self._mixed_round(active, info)
+            else:
+                toks = self._decode(active)
+                for seq, tok in zip(active, toks):
+                    seq.tokens.append(tok)
+                    seq.pos += 1
+                    if seq.finished():
+                        self._finish(seq, info)
             self.stats["decode_steps"] += 1
+        if self.prefix_cache is not None:
+            self.stats["prefix_hits"] = self.prefix_cache.hits
         self._step_count += 1
         return info
 
@@ -221,6 +281,11 @@ class ServeEngine:
     # internals
     # ------------------------------------------------------------------
     def _bucket_of(self, t: int) -> int:
+        if self._chunked:
+            # Exact whole blocks: the ragged mixed step takes any length,
+            # so neither KV blocks nor prefill compute pay pow2 rounding.
+            return min(-(-t // self.block_size) * self.block_size,
+                       self.bucket_cap)
         b = bucket_length(t, cap=self.bucket_cap)
         b = -(-b // self.block_size) * self.block_size   # whole blocks
         return min(max(b, -(-t // self.block_size) * self.block_size),
@@ -256,6 +321,11 @@ class ServeEngine:
 
     # -- prefill --------------------------------------------------------
     def _prefill(self, seq: Sequence) -> None:
+        if seq.shared_len:
+            # Prefix-cache hit: the adopted blocks already hold positions
+            # [0, shared_len); only the tail is computed.
+            self._prefill_tail(seq)
+            return
         t = len(seq.request.prompt)
         ids = torch.zeros((1, seq.bucket), dtype=torch.long)
         ids[0, :t] = torch.tensor(seq.request.prompt)  # right-pad: causal
@@ -263,9 +333,42 @@ class ServeEngine:
         blocks = torch.tensor(seq.block_table, dtype=torch.long,
                               device=self.device)
         pack_prefill(self._pools, blocks, k_stack, v_stack)
-        first = int(tok)                     # host fetch = first token
+        self._record_first_token(seq, int(tok))   # host fetch
+
+    def _prefill_tail(self, seq: Sequence) -> None:
+        """Prefill only the unshared prompt tail: the tail, right-padded
+        to a block-multiple bucket, runs one multi-token paged forward at
+        position ``shared_len`` through the gather path (as the JAX
+        package's tail prefill does). Writes land past the adopted head
+        blocks; pad positions past the allocated blocks hit zero table
+        entries (scratch). The bucket is capped so no write index runs
+        past the table."""
+        t = len(seq.request.prompt)
+        sl = seq.shared_len
+        tail = t - sl                           # >= 1 (match is capped)
+        tb = min(self._bucket_of(tail),
+                 self.max_blocks * self.block_size - sl)
+        ids = torch.zeros((1, tb), dtype=torch.long)
+        ids[0, :tail] = torch.tensor(seq.request.prompt[sl:])
+        bt = torch.zeros((1, self.max_blocks), dtype=torch.int32)
+        bt[0, :len(seq.block_table)] = torch.tensor(seq.block_table)
+        dev = self.device
+        start = torch.tensor([sl], dtype=torch.int32, device=dev)
+        cache = [PagedLayerCache(*self._pools[i], bt.to(dev), start,
+                                 self.block_size, "gather",
+                                 dtype=self._dtype)
+                 for i in range(self.model_cfg.num_layers)]
+        pos_ids = torch.clamp(start.long()[:, None] + torch.arange(
+            tb, device=dev), max=self.model_cfg.max_seq_len - 1)
+        out = self.module(ids.to(dev), position_ids=pos_ids, cache=cache)
+        last = out["logits"][:, tail - 1].float()                # [1, V]
+        self._record_first_token(seq, int(self._sample(last)[0]))
+
+    def _record_first_token(self, seq: Sequence, first: int) -> None:
+        """Append the prefill's sampled token; TTFT is stamped at the
+        request's first prefill only (not on a preemption restart)."""
         seq.tokens.append(first)
-        if seq.request.first_token_time is None:   # not on a restart
+        if seq.request.first_token_time is None:
             seq.request.first_token_time = time.monotonic()
 
     def _prefill_impl(self, ids: torch.Tensor, length: int):
@@ -331,8 +434,82 @@ class ServeEngine:
 
     def _decode_impl(self, bt, pos, toks, impl: str) -> torch.Tensor:
         cache = [PagedLayerCache(*self._pools[i], bt, pos, self.block_size,
-                                 impl)
+                                 impl, dtype=self._dtype)
                  for i in range(self.model_cfg.num_layers)]
         out = self.module(toks[:, None], position_ids=pos.long()[:, None],
                           cache=cache)
         return out["logits"][:, -1].float()
+
+    # -- chunked prefill: the mixed ragged step -------------------------
+    def _mixed_round(self, active: List[Sequence],
+                     info: Dict[str, Any]) -> None:
+        """One mixed step: every decoding sequence advances one token and
+        prompts being prefilled advance one chunk, all in one ragged
+        batch. Rows: decode tokens first (the budget is >= the slot
+        count), then chunks FCFS by ``(admitted_step, rid)`` until the
+        budget is full. A prompt whose last chunk lands samples its first
+        token from that chunk's last row: the logits the bucketed prefill
+        samples from."""
+        plen = [len(s.request.prompt) for s in active]
+        decoding = [s for s, n in zip(active, plen) if s.prefilled >= n]
+        prefilling = sorted(
+            (s for s, n in zip(active, plen) if s.prefilled < n),
+            key=lambda s: (s.admitted_step, s.request.rid))
+        rows = [(s.slot, s.tokens[-1], s.pos) for s in decoding]
+        chunks = []                              # (seq, first_row, count)
+        for s in prefilling:
+            if len(rows) >= self._chunk_budget:
+                break
+            t0 = s.prefilled
+            c = min(len(s.request.prompt) - t0,
+                    self._chunk_budget - len(rows))
+            chunks.append((s, len(rows), c))
+            rows.extend((s.slot, s.request.prompt[t0 + i], t0 + i)
+                        for i in range(c))
+        tok_host = self._mixed_dispatch(active, rows)
+        self.stats["chunk_tokens_last"] = len(rows)
+        for r, seq in enumerate(decoding):
+            seq.tokens.append(int(tok_host[r]))
+            seq.pos += 1
+            if seq.finished():
+                self._finish(seq, info)
+        for seq, r0, c in chunks:
+            seq.prefilled += c
+            seq.pos = seq.prefilled
+            if seq.prefilled == len(seq.request.prompt):
+                self._record_first_token(seq, int(tok_host[r0 + c - 1]))
+                self.sched.register_prefix(seq, self._step_count)
+                info["prefilled"].append(seq.request.rid)
+                if seq.finished():   # max_new_tokens == 1 / instant EOS
+                    self._finish(seq, info)
+
+    def _mixed_dispatch(self, table_seqs: List[Sequence], rows):
+        """Run one ragged token batch. ``rows``: ``(slot, token,
+        position)`` triples, padded to the token budget with pad rows of
+        slot ``max_batch_size``, the spare all-scratch table row (their
+        writes land in scratch block 0, their reads see only it)."""
+        nb, mb, budget = (self.scfg.max_batch_size, self.max_blocks,
+                          self._chunk_budget)
+        bt = np.zeros((nb + 1, mb), np.int32)    # row nb: pad/scratch row
+        toks = np.zeros((budget,), np.int64)
+        pos = np.zeros((budget,), np.int32)
+        slots = np.full((budget,), nb, np.int32)
+        for seq in table_seqs:
+            bt[seq.slot, :len(seq.block_table)] = seq.block_table
+        for r, (sl, tk, p) in enumerate(rows):
+            slots[r], toks[r], pos[r] = sl, tk, p
+        dev = self.device
+        logits = self._mixed_impl(
+            torch.from_numpy(bt).to(dev), torch.from_numpy(pos).to(dev),
+            torch.from_numpy(slots).to(dev), torch.from_numpy(toks).to(dev))
+        self.stats["mixed_steps"] += 1
+        return self._sample(logits).cpu().numpy()   # host fetch
+
+    def _mixed_impl(self, bt, pos, slots, toks) -> torch.Tensor:
+        cache = [ChunkedLayerCache(*self._pools[i], bt, slots, pos,
+                                   self.block_size)
+                 for i in range(self.model_cfg.num_layers)]
+        pos_ids = torch.clamp(pos.long(), max=self.model_cfg.max_seq_len - 1)
+        out = self.module(toks[None, :], position_ids=pos_ids[None, :],
+                          cache=cache)
+        return out["logits"][0].float()                          # [T, V]

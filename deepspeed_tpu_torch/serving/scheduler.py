@@ -18,16 +18,21 @@ Policies:
   greedy decoding the output is the same). The oldest sequence therefore
   always completes. An evicted request re-admits only when its WHOLE
   remaining run fits in free blocks, so it cannot thrash.
-
-The JAX package's prefix cache is not ported yet (``serving.prefix_cache``
-raises).
+- **Prefix reuse** (``serving.prefix_cache``): a ref-counted trie over
+  full prompt-head blocks keyed by their token content. A request whose
+  prompt head matches adopts the cached blocks (shared blocks are
+  immutable: every write lands past the adopter's ``shared_len``) and
+  only the tail is prefilled. Cache-held blocks survive completion and
+  preemption (the cache holds its own pool reference); under pool
+  pressure the cache drops least-recently-used leaves before any running
+  sequence is preempted.
 """
 
 import collections
 import itertools
 import time
 from dataclasses import dataclass, field
-from typing import Deque, Dict, List, Optional
+from typing import Deque, Dict, List, Optional, Tuple
 
 from deepspeed_tpu_torch.serving.kv_cache import BlockPool
 
@@ -62,6 +67,12 @@ class Sequence:
     tokens: List[int] = field(default_factory=list)   # prompt + generated
     pos: int = 0                      # next cache write index
     admitted_step: int = 0
+    # Prompt positions [0, shared_len) adopted from the prefix cache (a
+    # whole-block multiple; 0 = cold): only the tail is prefilled.
+    shared_len: int = 0
+    # Chunked-prefill cursor: prompt positions [0, prefilled) have their
+    # KV written (the bucketed path never reads it).
+    prefilled: int = 0
 
     @property
     def last_write_pos(self) -> int:
@@ -81,13 +92,142 @@ class Sequence:
                 and self.tokens[-1] == eos)
 
 
+class _PrefixNode:
+    """One cached prompt-head block: a trie edge keyed by the block's token
+    content (the exact tuple, so no hash collision is possible)."""
+
+    __slots__ = ("block", "children", "last_use", "parent", "key")
+
+    def __init__(self, block: int, parent, key):
+        self.block = block
+        self.children: Dict[Tuple[int, ...], "_PrefixNode"] = {}
+        self.last_use = 0
+        self.parent = parent
+        self.key = key
+
+
+class PrefixCache:
+    """Ref-counted prompt-head trie over KV pool blocks.
+
+    Nodes are **full** prompt blocks only (a partial tail block mixes
+    prompt K/V with later decode writes), and a match is capped one token
+    short of the prompt, so the adopter always prefills at least one tail
+    token (the first token's logits come from a real forward). Each node
+    holds its own pool reference (``BlockPool.share``), so a warm head
+    outlives the sequence that made it.
+    """
+
+    def __init__(self, pool: BlockPool, block_size: int):
+        self.pool = pool
+        self.block_size = int(block_size)
+        self._root_children: Dict[Tuple[int, ...], _PrefixNode] = {}
+        self.nodes = 0
+        self.hits = 0                 # requests that adopted >= 1 block
+        self.blocks_reused = 0        # running total of adopted blocks
+
+    def _chunks(self, prompt: List[int], limit: int):
+        bs = self.block_size
+        for i in range(limit):
+            yield i, tuple(prompt[i * bs:(i + 1) * bs])
+
+    def match(self, prompt: List[int], step: int) -> List[int]:
+        """Longest cached head as a block list, each block incref'd for
+        the caller (who releases them on any failure path). Capped at
+        ``(len(prompt) - 1) // block_size`` blocks. The hit counters move
+        only in :meth:`commit_hit`: a blocked head-of-queue request
+        re-matches every step."""
+        children = self._root_children
+        blocks: List[int] = []
+        for _i, chunk in self._chunks(prompt,
+                                      (len(prompt) - 1) // self.block_size):
+            node = children.get(chunk)
+            if node is None:
+                break
+            node.last_use = step
+            blocks.append(node.block)
+            children = node.children
+        if blocks:
+            self.pool.share(blocks)
+        return blocks
+
+    def commit_hit(self, n_blocks: int) -> None:
+        """Record one adoption (after the matched request is admitted)."""
+        if n_blocks:
+            self.hits += 1
+            self.blocks_reused += n_blocks
+
+    def insert(self, prompt: List[int], block_table: List[int],
+               step: int) -> None:
+        """Register a prefilled sequence's full prompt blocks. Existing
+        nodes are refreshed (LRU); new ones take a cache-owned reference
+        on the sequence's block. The first writer wins a key collision."""
+        children = self._root_children
+        parent = None
+        for i, chunk in self._chunks(prompt,
+                                     len(prompt) // self.block_size):
+            node = children.get(chunk)
+            if node is None:
+                block = block_table[i]
+                self.pool.share([block])
+                node = _PrefixNode(block, parent, chunk)
+                children[chunk] = node
+                self.nodes += 1
+            node.last_use = step
+            parent = node
+            children = node.children
+
+    def _leaves(self) -> List[_PrefixNode]:
+        out = []
+        stack = list(self._root_children.values())
+        while stack:
+            n = stack.pop()
+            if n.children:
+                stack.extend(n.children.values())
+            else:
+                out.append(n)
+        return out
+
+    def _drop(self, node: _PrefixNode) -> None:
+        owner = (node.parent.children if node.parent is not None
+                 else self._root_children)
+        del owner[node.key]
+        self.nodes -= 1
+        self.pool.release([node.block])
+
+    def evict(self, need_free: int) -> int:
+        """Free at least ``need_free`` pool blocks by dropping
+        least-recently-used leaves (trie paths stay contiguous from the
+        root). Only leaves nobody else holds are dropped: a leaf co-held
+        by a running sequence would free nothing now. Returns the blocks
+        freed."""
+        freed = 0
+        while freed < need_free:
+            sole = [n for n in self._leaves()
+                    if self.pool.refcount(n.block) == 1]
+            if not sole:
+                break
+            before = self.pool.free_blocks
+            self._drop(min(sole, key=lambda n: n.last_use))
+            freed += self.pool.free_blocks - before
+        return freed
+
+    def clear(self) -> None:
+        """Drop every cached node (releases all cache-held references):
+        with no sequence running, a cleared cache leaves the pool free."""
+        while self.nodes:
+            for node in self._leaves():
+                self._drop(node)
+
+
 class Scheduler:
     """Slot + block bookkeeping for one serving engine."""
 
-    def __init__(self, num_slots: int, pool: BlockPool, block_size: int):
+    def __init__(self, num_slots: int, pool: BlockPool, block_size: int,
+                 prefix_cache: Optional[PrefixCache] = None):
         self.num_slots = int(num_slots)
         self.pool = pool
         self.block_size = int(block_size)
+        self.prefix_cache = prefix_cache
         self.waiting: Deque[Request] = collections.deque()
         self.running: Dict[int, Sequence] = {}            # slot -> seq
         self._free_slots: List[int] = list(range(self.num_slots))[::-1]
@@ -116,43 +256,74 @@ class Scheduler:
     # -- admission ------------------------------------------------------
     def try_admit(self, bucket_of, step: int) -> Optional[Sequence]:
         """Admit the head-of-queue request if a slot is free and the pool
-        covers its prompt bucket; returns the new Sequence (blocks
-        allocated, not yet prefilled) or None."""
+        covers its prompt bucket (less any head adopted from the prefix
+        cache); returns the new Sequence (blocks allocated, not yet
+        prefilled) or None."""
         if not self.waiting or not self._free_slots:
             return None
         req = self.waiting[0]
         bucket = bucket_of(len(req.prompt))
+        shared: List[int] = []
+        if self.prefix_cache is not None:
+            shared = self.prefix_cache.match(req.prompt, step)
+        n_shared = len(shared)
         if req.preempted_count:
             # Already evicted once: re-admit only when its WHOLE remaining
             # run fits in free blocks (the last sampled token writes no
-            # KV), else admit/prefill/evict would thrash.
+            # KV), else admit/prefill/evict would thrash. Adopted blocks
+            # need no free blocks.
             lifetime = max(bucket, len(req.prompt) + req.max_new_tokens - 1)
-            if self.pool.free_blocks < -(-lifetime // self.block_size):
+            need = -(-lifetime // self.block_size) - n_shared
+            if self.pool.free_blocks < need:
+                if shared:
+                    self.pool.release(shared)
                 return None
-        blocks = self.pool.alloc(bucket // self.block_size)
+        tail_n = bucket // self.block_size - n_shared
+        blocks = self.pool.alloc(tail_n)
+        if blocks is None and self.prefix_cache is not None:
+            # Cold cache entries yield to live admissions before any
+            # running sequence would be preempted.
+            self.prefix_cache.evict(tail_n - self.pool.free_blocks)
+            blocks = self.pool.alloc(tail_n)
         if blocks is None:
+            if shared:
+                self.pool.release(shared)
             return None
         self.waiting.popleft()
         slot = self._free_slots.pop()
+        if self.prefix_cache is not None:
+            self.prefix_cache.commit_hit(n_shared)
         seq = Sequence(request=req, slot=slot, bucket=bucket,
-                       block_table=blocks, tokens=list(req.prompt),
-                       pos=len(req.prompt), admitted_step=step)
+                       block_table=shared + blocks, tokens=list(req.prompt),
+                       pos=len(req.prompt), admitted_step=step,
+                       shared_len=n_shared * self.block_size)
         self.running[slot] = seq
         if req.admitted_time is None:
             req.admitted_time = time.monotonic()
         return seq
 
+    def register_prefix(self, seq: Sequence, step: int) -> None:
+        """After a completed prefill: make this sequence's full prompt
+        blocks adoptable by later requests (no-op without a cache)."""
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(seq.request.prompt, seq.block_table,
+                                     step)
+
     # -- growth / preemption -------------------------------------------
     def ensure_capacity(self, seq: Sequence) -> bool:
         """Make sure ``seq`` can write its next token (``seq.pos``), capped
         at the last position it can ever write. Allocates a block when the
-        write crosses into uncovered territory, evicting the YOUNGEST
-        running sequence (possibly ``seq`` itself) when the pool is dry,
-        so the oldest sequence always completes. Returns False when
-        ``seq`` was the youngest and got evicted."""
+        write crosses into uncovered territory, dropping cold prefix-cache
+        leaves first and then evicting the YOUNGEST running sequence
+        (possibly ``seq`` itself) when the pool is dry, so the oldest
+        sequence always completes. Returns False when ``seq`` was the
+        youngest and got evicted."""
         target = min(seq.pos, seq.last_write_pos)
         while target >= len(seq.block_table) * self.block_size:
             got = self.pool.alloc(1)
+            if got is None and self.prefix_cache is not None \
+                    and self.prefix_cache.evict(1):
+                got = self.pool.alloc(1)
             if got is not None:
                 seq.block_table.extend(got)
                 continue
@@ -176,8 +347,9 @@ class Scheduler:
                    key=lambda s: (s.admitted_step, s.request.rid))
 
     def preempt(self, seq: Sequence) -> None:
-        """Evict: release blocks + slot, requeue the ORIGINAL request at
-        the front (it restarts from its prompt on re-admission)."""
+        """Evict: release blocks + slot (cache-held head blocks stay with
+        the cache), requeue the ORIGINAL request at the front (it restarts
+        from its prompt, or its cached head, on re-admission)."""
         self._release(seq)
         seq.request.preempted_count += 1
         self.waiting.appendleft(seq.request)

@@ -1,6 +1,7 @@
 """The port (deepspeed_tpu_torch) and chip_smoke.py stand alone: neither
-imports jax, flax or the JAX package deepspeed_tpu, whether serving or
-training (``initialize`` and one ``train_batch`` on the CPU)."""
+imports jax, flax or the JAX package deepspeed_tpu, whether serving (the
+bucketed path, and the chunked path with the int8 pool and the prefix
+cache) or training (``initialize`` and one ``train_batch`` on the CPU)."""
 
 import ast
 import os
@@ -29,6 +30,20 @@ srv = deepspeed_tpu_torch.init_serving(
                                       "decode_attention": "kernel"}})
 rid = srv.submit([1, 2, 3, 4, 5], 4)
 assert len(srv.run_until_complete()[rid]["tokens"]) == 9
+
+model, cfg = make_gpt("tiny", dtype=torch.float32)
+srv = deepspeed_tpu_torch.init_serving(
+    model, params=init_gpt_params(cfg, seed=0), dtype=torch.float32,
+    device="cpu", config={"serving": {"max_batch_size": 2,
+                                      "kv_block_size": 4,
+                                      "kv_num_blocks": 16,
+                                      "int8_kv_cache": True,
+                                      "prefix_cache": True,
+                                      "chunked_prefill": {"token_budget": 4}}})
+rids = [srv.submit(list(range(1, 11)) + [t], 3) for t in (20, 30, 40)]
+res = srv.run_until_complete()
+assert all(len(res[r]["tokens"]) == 14 for r in rids)
+assert srv.stats["prefix_hits"] >= 1 and srv.stats["mixed_steps"] > 0
 
 model, cfg = make_gpt("tiny", dtype=torch.float32)
 engine, _opt, _loader, _sched = deepspeed_tpu_torch.initialize(

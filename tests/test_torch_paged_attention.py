@@ -18,6 +18,7 @@ from deepspeed_tpu_torch.ops import build
 from deepspeed_tpu_torch.ops.transformer.paged_attention import (
     paged_decode_attention, paged_decode_attention_reference,
     paged_decode_ok)
+from deepspeed_tpu_torch.serving.kv_cache import _quant_tokens
 
 H, WB = 3, 4
 
@@ -89,11 +90,47 @@ def test_masked_garbage_cannot_leak():
     assert torch.equal(clean[1], dirty[1])
 
 
+@pytest.mark.parametrize("s", [1, 5])
+@pytest.mark.parametrize("d", [16, 64])
+def test_int8_plain_version_matches_jax_kernel(s, d):
+    """int8 pools with per-(token, head) scales, made by each package's
+    own ``_quant_tokens`` (bit-equal), against the JAX kernel's int8
+    branch in interpret mode (the oracle of
+    tests/test_serving_fastpath.py::test_int8_in_kernel_dequant_parity),
+    fp32 q, atol 2e-5: the dequantized values are equal, only the
+    summation order differs."""
+    bs = 4
+    q, k, v, bt, pos = _case(seed=40 + s + d, s=s, d=d, bs=bs)
+    kq, ks = _quant_tokens(torch.from_numpy(k))
+    vq, vs = _quant_tokens(torch.from_numpy(v))
+    want = np.asarray(jax_paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kq.numpy()), jnp.asarray(vq.numpy()),
+        jnp.asarray(ks.numpy()), jnp.asarray(vs.numpy()), jnp.asarray(bt),
+        jnp.asarray(pos), block_size=bs))
+    got = paged_decode_attention(
+        torch.from_numpy(q), kq, vq, ks, vs, torch.from_numpy(bt),
+        torch.from_numpy(pos), block_size=bs)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
+
+
 def test_int8_scales_not_yet_ported():
+    """The int8 branch is ported now: k_scale/v_scale are taken (the CPU
+    wrapper runs the plain version, which dequantizes in fp32), a bf16 q
+    over int8 pools keeps its dtype, and half a pair of scales raises."""
     q, k, v, bt, pos = (torch.from_numpy(a) for a in _case(3, 1, 16, 4))
-    scale = torch.ones(k.shape[:3])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        paged_decode_attention(q, k, v, scale, scale, bt, pos, block_size=4)
+    kq, ks = _quant_tokens(k)
+    vq, vs = _quant_tokens(v)
+    got = paged_decode_attention(q, kq, vq, ks, vs, bt, pos, block_size=4)
+    kd = kq.float() * ks[..., None]
+    vd = vq.float() * vs[..., None]
+    want = paged_decode_attention_reference(q, kd, vd, bt, pos,
+                                            block_size=4)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+    half = paged_decode_attention(q.bfloat16(), kq, vq, ks, vs, bt, pos,
+                                  block_size=4)
+    assert half.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="both k_scale and v_scale"):
+        paged_decode_attention(q, kq, vq, ks, None, bt, pos, block_size=4)
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -119,3 +156,10 @@ def test_kernel_geometry_gate():
     assert paged_decode_ok(256, bf16)
     assert not paged_decode_ok(60, bf16) and not paged_decode_ok(264, fp32)
     assert not paged_decode_ok(64, torch.float16)
+    # pools of q's dtype or int8 (with fp32/bf16 q); never mixed floats
+    assert paged_decode_ok(64, bf16, torch.int8)
+    assert paged_decode_ok(64, fp32, torch.int8)
+    assert paged_decode_ok(64, fp32, fp32)
+    assert not paged_decode_ok(64, fp32, bf16)
+    assert not paged_decode_ok(64, torch.float16, torch.int8)
+    assert not paged_decode_ok(60, bf16, torch.int8)
