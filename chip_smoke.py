@@ -25,7 +25,15 @@
      within 1e-5 (dO x 0.1), bf16 within one rounding step plus 1e-3 of
      the reference's RMS (0.15 on the autograd path; dO unscaled);
    - fused Adam, bit for bit, over GPT-2's 148 parameter tensors (with
-     the bf16 copy of the new params that the bf16 training step uses).
+     the bf16 copy of the new params that the bf16 training step uses);
+   - block-sparse attention forward, dq and dk/dv (kernels #8-#10) at
+     (a) [1, 4096, 12, 64], BigBird block 256, causal, fp32 and bf16,
+     (b) [2, 1024, 12, 64], ``fixed`` block 16, bidirectional, with a key
+     mask whose second batch row is all padding (o, dq, dk, dv exactly 0
+     there, lse -1e30), fp32 and bf16, and (c) the path's shape [1, 16384,
+     12, 64], bf16; each kernel and (a), (b) the whole autograd path, with
+     flash's tolerances, lse to 1e-5; timed at (c) beside the plain
+     version, SDPA with the layout-expanded mask and the bound.
 3. Serving end to end: ``init_serving`` on full-width GPT-2 (random
    weights from a seed) serves 16 requests in two waves:
    - bucketed bf16 through ``decode_attention: "kernel"`` (kernel #1
@@ -49,6 +57,16 @@
    time, tokens/s, model TFLOP/s and MFU, and a profiled step. Then, in
    fp32 at 2 layers, the kernels' path against the plain path (first-step
    gradients within 1e-4 of each leaf's norm, losses within 1e-5).
+5. Long-sequence training: ``initialize`` -> ``train_batch`` on
+   full-width GPT-2 at seq 16384 with ``bench.py:bench_gpt2_long(sparse=
+   True)``'s configuration (BigBird block 256 through the
+   ``sparse_attention`` block) plus ``optimizer.fused_update``: #8-#10
+   launch 48 times each per step, fused Adam once, the flash kernels and
+   every plain version never, the loss falls; step time, tokens/s, peak
+   memory and a profiled step. Then the same configuration with dense
+   flash attention (1 + 2 steps) for the sparse/dense tokens/s ratio, and
+   in fp32 at 2 layers and seq 4096 the kernels' path against the plain
+   path (``impl: "xla"``), held as in phase 4.
 
 Any failure exits non-zero. The last stdout line is
 ``{"ok": true, "device": {...}}``; before it come the card line and a
@@ -860,6 +878,283 @@ def check_flash_attention(torch, reports):
 
 
 # ---------------------------------------------------------------------------
+# 2d. block-sparse attention forward and backward against their plain
+#     versions
+# ---------------------------------------------------------------------------
+
+# bench.py:bench_gpt2_long's layout: BigBird at block 256, causal
+SPARSE_LONG = {"mode": "bigbird", "block": 256, "num_random_blocks": 1,
+               "num_sliding_window_blocks": 3, "num_global_blocks": 1,
+               "attention": "unidirectional"}
+SPARSE_SEQ = 16384
+SPARSE_LSE_TOL = 1e-5            # fp32 lse, from the same fp32 scores
+# (case, B, S, layout block, causal, key mask): (a) the path's layout at
+# seq 4096, (b) the reference's default block 16, bidirectional, with a
+# key mask whose second batch row is all padding (rows with no visible
+# key), (c) the path's own shape.
+SPARSE_CASES = (("a", 1, 4096, SPARSE_LONG, True, False),
+                ("b", 2, 1024, {"mode": "fixed", "block": 16}, False, True),
+                ("c", 1, SPARSE_SEQ, SPARSE_LONG, True, False))
+
+
+def sparse_module():
+    import importlib
+
+    # the package exports a function of the module's name
+    return importlib.import_module(
+        "deepspeed_tpu_torch.ops.sparse_attention.sparse_attention")
+
+
+def sparse_layout(block_cfg, heads, seq):
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        sparsity_config_from_dict
+
+    return sparsity_config_from_dict(block_cfg, heads).make_layout(seq)
+
+
+def sparse_pairs(layout, block, causal):
+    """Visible (query, key) pairs of one batch row over all heads: a whole
+    block for every active block below the diagonal, its lower triangle
+    for a diagonal block, nothing above it when causal."""
+    import numpy as np
+
+    lay = np.asarray(layout) != 0
+    if not causal:
+        return int(lay.sum()) * block * block
+    nb = lay.shape[1]
+    below = int((lay & np.tril(np.ones((nb, nb), bool), -1)[None]).sum())
+    diag = int((lay & np.eye(nb, dtype=bool)[None]).sum())
+    return below * block * block + diag * block * (block + 1) // 2
+
+
+def sparse_bytes_flops(q, pairs, which):
+    """What one kernel must move and compute: each input read once and each
+    output written once (the index lists are a few kB); per visible pair
+    2*D flops for each of its products (the forward has 2, dq 3, dk/dv
+    4). ``pairs``: visible pairs of one batch row."""
+    b, s, h, d = q.shape
+    big = b * s * h * d * q.element_size()   # one [B, S, H, D] tensor
+    rows = b * h * s * 4                     # one fp32 [B, H, S] vector
+    p = b * pairs
+    if which == "fwd":                       # q, k, v -> o, lse
+        return 4 * big + rows, 4 * d * p
+    if which == "dq":                        # q, k, v, dO, lse, delta -> dq
+        return 5 * big + 2 * rows, 6 * d * p
+    return 6 * big + 2 * rows, 8 * d * p     # -> dk, dv
+
+
+def sparse_plain_grads(torch, sp, q, k, v, dout, mask, plan, causal, scale):
+    """The whole path on the plain versions, as the autograd Function runs
+    it on the kernels: forward, delta from the output in its dtype, dq and
+    dk/dv."""
+    out, lse = sp.sparse_fwd_reference(q, k, v, mask, plan, causal, scale)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+    args = (dout, mask, lse, delta.contiguous(), plan, causal, scale)
+    dq = sp.sparse_bwd_dq_reference(q, k, v, *args)
+    dk, dv = sp.sparse_bwd_dkv_reference(q, k, v, *args)
+    b, s = q.shape[:2]
+    return out, torch.cat([t.reshape(b, s, -1) for t in (dq, dk, dv)], -1)
+
+
+def check_sparse_attention(torch, reports):
+    """Kernels #8-#10 against their plain versions at cases (a) and (b)
+    in fp32 and bf16, and (c) in bf16; each kernel and the whole autograd
+    path, with flash's tolerances. Then timing at (c), the path's shape."""
+    import torch.nn.functional as F
+
+    sp = sparse_module()
+    h, d = 12, 64
+    scale = 1.0 / d ** 0.5
+    worst = {}
+    for case, b, s, block_cfg, causal, masked in SPARSE_CASES:
+        layout = sparse_layout(block_cfg, h, s)
+        block = block_cfg["block"]
+        plan = sp.sparse_plan(layout, block)
+        for dtype in ((torch.bfloat16,) if case == "c" else
+                      (torch.float32, torch.bfloat16)):
+            name = str(dtype).split(".")[1]
+            qkv, q, k, v, dout, mask = flash_case(
+                torch, dtype, b, s, h, d, seed=s + masked, masked=masked,
+                dout_scale=FLASH_DOUT_SCALE[name])
+            if masked:
+                mask[0, s - 100:] = False      # row 1 is all padding
+            qp, kp, vp, mp = sp._prepare(q, k, v, mask, plan)
+            if qp.data_ptr() != q.data_ptr():
+                fail("sparse_attention copied an aligned strided view")
+            out, lse = sp.sparse_attention_fwd(qp, kp, vp, mp, plan, causal,
+                                               scale)
+            want, want_lse = sp.sparse_fwd_reference(q, k, v, mp, plan,
+                                                     causal, scale)
+            delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+            args = (dout, mp, lse, delta.contiguous(), plan, causal, scale)
+            dq = sp.sparse_attention_bwd_dq(qp, kp, vp, *args)
+            dk, dv = sp.sparse_attention_bwd_dkv(qp, kp, vp, *args)
+            torch.cuda.synchronize()
+            dq_w = sp.sparse_bwd_dq_reference(q, k, v, *args)
+            dk_w, dv_w = sp.sparse_bwd_dkv_reference(q, k, v, *args)
+            pairs = {"fwd": (out, want), "dq": (dq, dq_w), "dk": (dk, dk_w),
+                     "dv": (dv, dv_w)}
+            if case != "c":
+                # the whole autograd path against the plain versions' chain
+                x = qkv.detach().clone().requires_grad_()
+                qq, kk, vv = (t.reshape(b, s, h, d)
+                              for t in x.split(h * d, dim=-1))
+                o = sp.sparse_attention(qq, kk, vv, layout, block,
+                                        causal=causal, key_mask=mask)
+                o.backward(dout)
+                ref_o, ref_g = sparse_plain_grads(torch, sp, q, k, v, dout,
+                                                  mp, plan, causal, scale)
+                pairs["autograd out"] = (o, ref_o)
+                pairs["autograd dqkv"] = (x.grad, ref_g)
+            torch.cuda.synchronize()
+            seen = want_lse > sp.NEG_INF / 2
+            if not torch.equal(seen, lse > sp.NEG_INF / 2) or \
+                    not (lse[~seen] == sp.NEG_INF).all():
+                fail(f"sparse lse {case} {name}: empty rows differ")
+            lse_err = (lse - want_lse)[seen].abs().max().item()
+            if not lse_err <= SPARSE_LSE_TOL:
+                fail(f"sparse lse {case} {name}: max |err| {lse_err}")
+            for key, (got, ref) in pairs.items():
+                if not torch.isfinite(got).all():
+                    fail(f"sparse {key} {case} {name}: non-finite output")
+                diff = (got.float() - ref.float()).abs()
+                err = diff.max().item()
+                rms = ref.float().pow(2).mean().sqrt().item()
+                if name == "float32":
+                    rel, bad = 0.0, err > KERNEL_TOL[name]
+                else:
+                    rel = ((diff - bf16_step(torch, ref)).clamp_min(0).max()
+                           .item() / max(rms, 1e-30))
+                    bad = rel > FLASH_BF16_RMS_TOL[
+                        "autograd" if key.startswith("autograd") else
+                        "kernel"]
+                if bad:
+                    fail(f"sparse {key} {case} {name}: max |err| {err} "
+                         f"(reference RMS {rms}); beyond one bf16 step "
+                         f"{rel} of the RMS")
+                w = worst.get((key, name))
+                if w is None or err > w[0]:
+                    worst[(key, name)] = (err, rms, rel, lse_err)
+            if masked:
+                if any(t[1].abs().max().item() != 0.0
+                       for t in (out, dq, dk, dv)):
+                    fail(f"sparse {case} {name}: the all-padding batch row "
+                         f"is not exactly zero")
+                print(f"sparse_attention {case} {name}: batch row 1 (all "
+                      f"padding): o, dq, dk, dv exactly 0, lse -1e30")
+            del qkv, q, k, v, dout, out, lse, want, want_lse, dq, dk, dv
+            del dq_w, dk_w, dv_w, pairs
+            torch.cuda.empty_cache()
+    for key, name in sorted(worst):
+        err, rms, rel, lse_err = worst[(key, name)]
+        path = "autograd" if key.startswith("autograd") else "kernel"
+        lim = ("atol 1e-5" if name == "float32" else
+               f"beyond one bf16 step {rel:.3g} of the RMS, limit "
+               f"{FLASH_BF16_RMS_TOL[path]}")
+        print(f"sparse_attention {key} {name} cases (a) [1,4096,12,64] "
+              f"bigbird-256 causal, (b) [2,1024,12,64] fixed-16 "
+              f"bidirectional with a key mask, (c) [1,16384,12,64] "
+              f"bigbird-256 causal (bf16), dO x {FLASH_DOUT_SCALE[name]}: "
+              f"max |err| {err:.3g} where the reference's RMS is "
+              f"{rms:.3g} ({lim}); lse max |err| {lse_err:.3g}")
+
+    # Timing at the path's shape, bf16, rotating over 4 layers' inputs
+    # (300 MB of q/k/v, six times the 50 MB L2) as the step does.
+    b, s = 1, SPARSE_SEQ
+    layout = sparse_layout(SPARSE_LONG, h, s)
+    block = SPARSE_LONG["block"]
+    plan = sp.sparse_plan(layout, block)
+    layers = [flash_case(torch, torch.bfloat16, b, s, h, d, seed=200 + i)
+              for i in range(4)]
+    prepped = []
+    for _qkv, q, k, v, dout, _m in layers:
+        out, lse = sp.sparse_attention_fwd(q, k, v, None, plan, True, scale)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+        prepped.append((q, k, v, dout, None, lse, delta.contiguous(), plan,
+                        True, scale))
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % len(prepped)
+        return prepped[it["i"]]
+
+    def run(fn, plain):
+        def go():
+            q, k, v, dout, m, lse, delta, pl, c, sc = nxt()
+            if fn == "fwd":
+                (sp.sparse_fwd_reference if plain else
+                 sp.sparse_attention_fwd)(q, k, v, m, pl, c, sc)
+            elif fn == "dq":
+                (sp.sparse_bwd_dq_reference if plain else
+                 sp.sparse_attention_bwd_dq)(q, k, v, dout, m, lse, delta,
+                                             pl, c, sc)
+            else:
+                (sp.sparse_bwd_dkv_reference if plain else
+                 sp.sparse_attention_bwd_dkv)(q, k, v, dout, m, lse, delta,
+                                              pl, c, sc)
+        return go
+
+    # yardstick: SDPA with the layout-expanded boolean mask (one layout
+    # for every head here) on contiguous [B, H, S, D] copies
+    if (layout != layout[:1]).any():
+        fail("the timing layout differs between heads")
+    am = sp._dense_mask(layout[0], block, "cuda")
+    am &= torch.ones_like(am).tril()
+    sdpa_in = []
+    for _qkv, q, k, v, dout, _m in layers[:2]:
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+        sdpa_in.append((qt, kt, vt, o, dout.transpose(1, 2).contiguous()))
+    sit = {"i": 0}
+
+    def snxt():
+        sit["i"] = (sit["i"] + 1) % len(sdpa_in)
+        return sdpa_in[sit["i"]]
+
+    def sdpa_fwd():
+        qt, kt, vt = snxt()[:3]
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+
+    def sdpa_bwd():
+        qt, kt, vt, o, dot = snxt()
+        torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
+
+    sdpa_fwd_ms = cuda_ms(sdpa_fwd, iters=5, warmup=2)
+    sdpa_bwd_ms = cuda_ms(sdpa_bwd, iters=5, warmup=2)
+    del sdpa_in
+    torch.cuda.empty_cache()
+    q0 = layers[0][1]
+    npairs = sparse_pairs(layout, block, True)
+    for key, lib in (("fwd", sdpa_fwd_ms), ("dq", sdpa_bwd_ms),
+                     ("dkv", sdpa_bwd_ms)):
+        kernel_ms = cuda_ms(run(key, False), iters=20, warmup=3)
+        plain_ms = cuda_ms(run(key, True), iters=2, warmup=1)
+        nbytes, flops = sparse_bytes_flops(q0, npairs, key)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / BF16_FLOPS
+        rep = reports[key]
+        errs = ([worst[("fwd", "bfloat16")][0]] if key == "fwd" else
+                [worst[("dq", "bfloat16")][0]] if key == "dq" else
+                [worst[("dk", "bfloat16")][0],
+                 worst[("dv", "bfloat16")][0]])
+        rep.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=lib,
+                   bound_ms=max(t_bytes, t_ops) * 1e3,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   max_abs_err=max(errs))
+        print(f"sparse_attention {key} timing bf16 B={b} S={s} H={h} D={d} "
+              f"bigbird block {block} causal ({npairs} visible pairs, "
+              f"{npairs / (h * s * (s + 1) / 2):.4f} of the causal square): "
+              f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+              f"with the mask {'fwd' if key == 'fwd' else 'bwd (dq+dk+dv)'} "
+              f"{lib:.4f} ms, bound {rep['bound_ms']:.4f} ms ({nbytes} "
+              f"bytes / 3.35 TB/s, {flops} flops / 989 TFLOP/s)")
+    del layers, prepped
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # 2c. fused Adam against its plain version, bit for bit
 # ---------------------------------------------------------------------------
 
@@ -1573,6 +1868,12 @@ KERNELS = (
     ("flash_attention_bwd_dkv", "flash_attention",
      "deepspeed_tpu/ops/transformer/flash_attention.py:287"),
     ("fused_adam", "fused_adam", "deepspeed_tpu/ops/adam/fused_update.py:52"),
+    ("sparse_attention_fwd", "sparse_attention",
+     "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:88"),
+    ("sparse_attention_bwd_dq", "sparse_attention",
+     "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:147"),
+    ("sparse_attention_bwd_dkv", "sparse_attention",
+     "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:194"),
 )
 
 
@@ -1604,16 +1905,20 @@ class PlainCalls:
     """Counts calls of the plain versions while the main path runs: the
     module (or class) attributes the wrappers call are swapped for
     counting shims. ``targets``: ``(owner, name)`` pairs; by default the
-    training path's."""
+    training paths': dense and sparse attention and Adam."""
 
     def __init__(self, targets=None):
         if targets is None:
             from deepspeed_tpu_torch.ops.adam import fused_update
             from deepspeed_tpu_torch.ops.transformer import (
                 attention, flash_attention)
+            sp = sparse_module()
             targets = [(flash_attention, "flash_attention_reference"),
                        (attention, "xla_attention"),
-                       (fused_update, "fused_adam_reference")]
+                       (fused_update, "fused_adam_reference"),
+                       (sp, "_xla_sparse"), (sp, "sparse_fwd_reference"),
+                       (sp, "sparse_bwd_dq_reference"),
+                       (sp, "sparse_bwd_dkv_reference")]
         self.targets = targets
         self.calls = {name: 0 for _m, name in self.targets}
 
@@ -1635,13 +1940,92 @@ class PlainCalls:
             setattr(mod, name, orig)
 
 
+def training_counters():
+    """The launch counters of every kernel a training step may run."""
+    from deepspeed_tpu_torch.ops.adam import fused_adam_apply
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    sp = sparse_module()
+    return {"flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "sparse_attention_fwd": sp.sparse_attention_fwd,
+            "sparse_attention_bwd_dq": sp.sparse_attention_bwd_dq,
+            "sparse_attention_bwd_dkv": sp.sparse_attention_bwd_dkv,
+            "fused_adam": fused_adam_apply}
+
+
+def timed_steps(torch, engine, batches, steps):
+    """Host-clock ms of each ``train_batch`` (ending in a synchronize)
+    and its loss."""
+    step_ms, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = engine.train_batch(batches)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    return step_ms, losses
+
+
+def counted_steps(torch, engine, batches, per_step, what, warmup, steps):
+    """The main path of a training phase: ``warmup`` steps, then every
+    launch count set to 0 and ``steps`` timed steps with the plain
+    versions counted. Fails unless each kernel launched ``per_step[name]``
+    times per step, no plain version ran and the loss fell on the fixed
+    batch. Returns (step ms, losses, launches); the peak memory counts
+    from the timed steps."""
+    import numpy as np
+
+    counters = training_counters()
+    losses = [float(engine.train_batch(batches)) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    with PlainCalls() as plain:
+        step_ms, timed = timed_steps(torch, engine, batches, steps)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    losses += timed
+    for name, n in per_step.items():
+        if launches[name] != steps * n:
+            fail(f"{what}: {name} launched {launches[name]} times in "
+                 f"{steps} steps, expected {steps * n}")
+    if any(plain.calls.values()):
+        fail(f"{what}: a plain version ran on the main path: "
+             f"{plain.calls}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"{what}: losses not finite or not falling on a fixed "
+             f"batch: {losses}")
+    return step_ms, losses, launches
+
+
+def profile_step(torch, engine, batches, what):
+    """Device busy share and device time by kernel of one profiled
+    ``train_batch``; returns the stats, or None without device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_batch(batches)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    stats = kernel_stats(prof.events(), 1, wall_us)
+    if stats is None:
+        print(f"{what} profile: the profiler recorded no device events; "
+              f"device busy share not measured")
+    else:
+        print(f"{what} profile (one train_batch under torch.profiler): "
+              f"{json.dumps(stats)}")
+    return stats
+
+
 def check_training(torch, card):
     import numpy as np
 
     import deepspeed_tpu_torch as dtt
     from deepspeed_tpu_torch.models import init_gpt_params, make_gpt
-    from deepspeed_tpu_torch.ops.adam import fused_adam_apply
-    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
     from torch.profiler import ProfilerActivity, profile
 
     model, cfg = make_gpt("gpt2", dropout_rate=0.0)
@@ -1654,40 +2038,14 @@ def check_training(torch, card):
     rng = np.random.default_rng(0)
     batches = {"input_ids": torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (gas, micro, TRAIN_SEQ), dtype=np.int32)).cuda()}
-    counters = {"flash_attention_fwd": fa.flash_attention_fwd,
-                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
-                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
-                "fused_adam": fused_adam_apply}
-    losses = []
-    for _ in range(TRAIN_WARMUP):
-        losses.append(float(engine.train_batch(batches)))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms = []
-    for fn in counters.values():
-        fn.launches = 0
-    with PlainCalls() as plain:
-        for _ in range(TRAIN_STEPS):
-            t0 = time.perf_counter()
-            loss = engine.train_batch(batches)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            losses.append(float(loss))
-    launches = {name: fn.launches for name, fn in counters.items()}
-    per_step = {"flash_attention_fwd": cfg.num_layers * gas,
-                "flash_attention_bwd_dq": cfg.num_layers * gas,
-                "flash_attention_bwd_dkv": cfg.num_layers * gas,
-                "fused_adam": 1}
-    for name, n in per_step.items():
-        if launches[name] != TRAIN_STEPS * n:
-            fail(f"training: {name} launched {launches[name]} times in "
-                 f"{TRAIN_STEPS} steps, expected {TRAIN_STEPS * n}")
-    if any(plain.calls.values()):
-        fail(f"training: a plain version ran on the main path: "
-             f"{plain.calls}")
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        fail(f"training: losses not finite or not falling on a fixed "
-             f"batch: {losses}")
+    per_step = {name: 0 for name in training_counters()}
+    per_step.update({"flash_attention_fwd": cfg.num_layers * gas,
+                     "flash_attention_bwd_dq": cfg.num_layers * gas,
+                     "flash_attention_bwd_dkv": cfg.num_layers * gas,
+                     "fused_adam": 1})
+    step_ms, losses, launches = counted_steps(
+        torch, engine, batches, per_step, "training", TRAIN_WARMUP,
+        TRAIN_STEPS)
     med = median(step_ms)
     tokens = gas * micro * TRAIN_SEQ
     flops = train_flops_per_step(n_params, gas * micro, TRAIN_SEQ,
@@ -1706,19 +2064,7 @@ def check_training(torch, card):
     print(f"training bf16 gpt2 (initialize -> train_batch): "
           f"{json.dumps(training)}")
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.train_batch(batches)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    stats = kernel_stats(prof.events(), 1, wall_us)
-    if stats is None:
-        print("training profile: the profiler recorded no device events; "
-              "device busy share not measured")
-    else:
-        print(f"training profile (one train_batch under torch.profiler): "
-              f"{json.dumps(stats)}")
+    if profile_step(torch, engine, batches, "training") is not None:
         # A second step with the operands' shapes recorded (which costs
         # host time, so the idle share above comes from the first): the
         # matmuls by shape, i.e. which products take the GEMM time.
@@ -1739,45 +2085,53 @@ def check_training(torch, card):
               "device ms per step, calls): " + json.dumps(
                   [[a.key, str(a.input_shapes)[:90], dev_us(a) / 1e3,
                     a.count] for a in ops[:10]]))
-    training["launches"] = launches
     del engine, model
     torch.cuda.empty_cache()
     return training
 
 
-def check_training_fp32(torch):
-    """fp32 on the card, gpt2 width at 2 layers, micro 4 x seq 512, GAS 2:
-    the kernels' path (flash attention, fused Adam) against the plain path
-    (attention_impl "xla", the per-tensor Adam chain). The first step's
-    accumulated gradients agree leaf by leaf to 1e-4 of the leaf's norm
-    (each attention leaf is held on its own, not hidden in the norm of the
-    whole tree, which the tied embedding's gradient dominates) and the 3
-    losses to 1e-5 relative."""
+def check_training_fp32(torch, seq=512, micro=4, sparse=None):
+    """fp32 on the card, gpt2 width at 2 layers, GAS 2: the kernels' path
+    (flash attention, or with ``sparse`` the block-sparse kernels, and
+    fused Adam) against the plain path (``xla`` attention, the per-tensor
+    Adam chain). The first step's accumulated gradients agree leaf by leaf
+    to 1e-4 of the leaf's norm (each attention leaf is held on its own,
+    not hidden in the norm of the whole tree, which the tied embedding's
+    gradient dominates) and the 3 losses to 1e-5 relative. A ``sparse``
+    block gets rng_seed 1 on both runs, so that each draws its layout
+    fresh at this length: the same random blocks."""
     import numpy as np
 
     import deepspeed_tpu_torch as dtt
     from deepspeed_tpu_torch.models import init_gpt_params, make_gpt
-    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
     from deepspeed_tpu_torch.runtime.utils import global_norm
 
-    gas, micro = 2, 4
+    counter = training_counters()["sparse_attention_fwd" if sparse else
+                                  "flash_attention_fwd"]
+    what = "sparse " if sparse else ""
+    gas = 2
     rng = np.random.default_rng(1)
-    ids = torch.from_numpy(rng.integers(0, 50257, (3, gas, micro, 512),
+    ids = torch.from_numpy(rng.integers(0, 50257, (3, gas, micro, seq),
                                         dtype=np.int32)).cuda()
     runs = {}
     for label, impl, fused in (("kernels", "auto", True),
                                ("plain", "xla", False)):
-        model, cfg = make_gpt("gpt2", dropout_rate=0.0, num_layers=2,
-                              dtype=torch.float32, attention_impl=impl)
         conf = {"train_micro_batch_size_per_gpu": micro,
                 "gradient_accumulation_steps": gas,
                 "optimizer": {"type": "Adam", "params": {"lr": 1e-4},
                               "fused_update": fused},
                 "zero_optimization": {"stage": 2}}
+        if sparse:
+            conf["sparse_attention"] = dict(sparse, impl=impl, rng_seed=1)
+            over = {"max_seq_len": seq}
+        else:
+            over = {"attention_impl": impl}
+        model, cfg = make_gpt("gpt2", dropout_rate=0.0, num_layers=2,
+                              dtype=torch.float32, **over)
         engine, *_ = dtt.initialize(model=model,
                                     params=init_gpt_params(cfg, seed=1),
                                     config=conf)
-        before = fa.flash_attention_fwd.launches
+        before = counter.launches
         first = []
         for j in range(gas):
             first.append(engine.forward({"input_ids": ids[0, j]}))
@@ -1787,13 +2141,14 @@ def check_training_fp32(torch):
         losses = [float(torch.stack(first).mean())]
         for s in (1, 2):
             losses.append(float(engine.train_batch({"input_ids": ids[s]})))
-        launched = fa.flash_attention_fwd.launches - before
+        launched = counter.launches - before
         if (launched > 0) != (label == "kernels"):
-            fail(f"fp32 comparison: the {label} run launched the flash "
-                 f"forward {launched} times")
+            fail(f"fp32 comparison: the {label} run launched the {what}"
+                 f"attention forward {launched} times")
         runs[label] = (grads, losses)
         names = engine.param_names
         del engine, model
+        torch.cuda.empty_cache()
     (gk, lk), (gp, lp) = runs["kernels"], runs["plain"]
     rel = {n: float(global_norm([a - b])) / float(global_norm([b]))
            for n, a, b in zip(names, gk, gp)}
@@ -1803,14 +2158,111 @@ def check_training_fp32(torch):
     attn = {n: f"{e:.3g}" for n, e in rel.items()
             if "c_attn" in n or "c_proj" in n}
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
-    print(f"training fp32 gpt2-width 2 layers, micro 4 x 512, GAS 2: "
-          f"kernels vs plain path: first-step grad |diff|/|grad| per leaf: "
-          f"worst {worst} {rel[worst]:.3g} (limit 1e-4); attention leaves "
-          f"{json.dumps(attn)}; whole tree {whole:.3g}; losses {lk} vs "
-          f"{lp}, max rel diff {loss_rel:.3g} (limit 1e-5)")
+    layout = (f", {sparse['mode']} block {sparse['block']}" if sparse
+              else "")
+    print(f"training fp32 gpt2-width 2 layers, micro {micro} x {seq}, GAS "
+          f"2{layout}: kernels vs plain path: first-step grad |diff|/|grad| "
+          f"per leaf: worst {worst} {rel[worst]:.3g} (limit 1e-4); "
+          f"attention leaves {json.dumps(attn)}; whole tree {whole:.3g}; "
+          f"losses {lk} vs {lp}, max rel diff {loss_rel:.3g} (limit 1e-5)")
     if not rel[worst] <= 1e-4 or not loss_rel <= 1e-5:
-        fail("training fp32: the kernels' path disagrees with the plain "
-             "path")
+        fail(f"training fp32{layout}: the kernels' path disagrees with the "
+             f"plain path")
+
+
+# ---------------------------------------------------------------------------
+# 5. long-sequence training with block-sparse attention
+# ---------------------------------------------------------------------------
+
+LONG_CONFIG = {                   # bench.py:bench_gpt2_long(sparse=True)'s,
+    "train_micro_batch_size_per_gpu": 1,     # plus the fused update
+    "gradient_accumulation_steps": 4,
+    "optimizer": {"type": "Adam", "params": {"lr": 1e-4},
+                  "fused_update": True},
+    "zero_optimization": {"stage": 2},
+    "data_types": {"grad_accum_dtype": "bfloat16"},
+    "bf16": {"enabled": True},
+    "sparse_attention": SPARSE_LONG,
+}
+LONG_WARMUP, LONG_STEPS = 2, 5
+DENSE_WARMUP, DENSE_STEPS = 1, 2
+SPARSE_KERNELS = ("sparse_attention_fwd", "sparse_attention_bwd_dq",
+                  "sparse_attention_bwd_dkv")
+
+
+def long_engine(torch, config):
+    import numpy as np
+
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models import init_gpt_params, make_gpt
+
+    model, cfg = make_gpt("gpt2", dropout_rate=0.0, max_seq_len=SPARSE_SEQ)
+    engine, *_ = dtt.initialize(model=model, params=init_gpt_params(
+        cfg, seed=0), config=config)
+    gas = config["gradient_accumulation_steps"]
+    micro = config["train_micro_batch_size_per_gpu"]
+    rng = np.random.default_rng(0)
+    batches = {"input_ids": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (gas, micro, SPARSE_SEQ), dtype=np.int32)).cuda()}
+    return engine, model, cfg, batches
+
+
+def check_long_training(torch, card):
+    """Full-width GPT-2 at seq 16384 through ``initialize`` ->
+    ``train_batch`` with BigBird block-sparse attention: #8-#10 launch 48
+    times each per step (12 layers x GAS 4), fused Adam once, the flash
+    kernels and every plain version never; the loss falls on a fixed
+    batch. Then, for the sparse/dense ratio, the same config with dense
+    flash attention."""
+    engine, model, cfg, batches = long_engine(torch, LONG_CONFIG)
+    if model.cfg.sparse_attention != SPARSE_LONG or \
+            any(blk.cfg is not model.cfg for blk in model.h):
+        fail("long training: initialize did not route the blocks' "
+             "attention through the sparse_attention block")
+    gas = LONG_CONFIG["gradient_accumulation_steps"]
+    micro = LONG_CONFIG["train_micro_batch_size_per_gpu"]
+    per_step = {name: 0 for name in training_counters()}
+    per_step.update({name: cfg.num_layers * gas for name in SPARSE_KERNELS})
+    per_step["fused_adam"] = 1
+    step_ms, losses, launches = counted_steps(
+        torch, engine, batches, per_step, "long training", LONG_WARMUP,
+        LONG_STEPS)
+    med = median(step_ms)
+    tokens = gas * micro * SPARSE_SEQ
+    long = {
+        "model": "gpt2", "seq": SPARSE_SEQ, "micro_batch": micro,
+        "gas": gas, "dtype": "bfloat16", "fused_update": True,
+        "sparse_attention": SPARSE_LONG, "steps": LONG_STEPS,
+        "step_ms_median": med, "step_ms_min": min(step_ms),
+        "step_ms_max": max(step_ms), "step_ms": step_ms,
+        "tokens_per_s": tokens / (med / 1e3),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "losses": losses, "launches": launches, "card": card}
+    print(f"long training bf16 gpt2 seq {SPARSE_SEQ} bigbird "
+          f"(initialize -> train_batch): {json.dumps(long)}")
+    profile_step(torch, engine, batches, "long training")
+    del engine, model, batches
+    torch.cuda.empty_cache()
+
+    # the same configuration with dense flash attention, for the ratio
+    dense = dict(LONG_CONFIG)
+    del dense["sparse_attention"]
+    engine, model, cfg, batches = long_engine(torch, dense)
+    for _ in range(DENSE_WARMUP):
+        engine.train_batch(batches)
+    torch.cuda.synchronize()
+    dense_ms, dense_losses = timed_steps(torch, engine, batches,
+                                         DENSE_STEPS)
+    dense_tps = tokens / (median(dense_ms) / 1e3)
+    dense_run = {"step_ms": dense_ms, "tokens_per_s": dense_tps,
+                 "losses": dense_losses}
+    print(f"long training bf16 gpt2 seq {SPARSE_SEQ} dense flash (for the "
+          f"ratio): {json.dumps(dense_run)}; sparse/dense tokens/s "
+          f"{long['tokens_per_s'] / dense_tps:.4f} (bench.py's "
+          f"gpt2_seq16k_sparse_speedup)")
+    del engine, model, batches
+    torch.cuda.empty_cache()
+    return long
 
 
 def main() -> int:
@@ -1858,6 +2310,10 @@ def main() -> int:
         "dq": reports["flash_attention_bwd_dq"],
         "dkv": reports["flash_attention_bwd_dkv"]})
     check_fused_adam(torch, reports["fused_adam"])
+    check_sparse_attention(torch, {
+        "fwd": reports["sparse_attention_fwd"],
+        "dq": reports["sparse_attention_bwd_dq"],
+        "dkv": reports["sparse_attention_bwd_dkv"]})
     if only_kernels:
         print(json.dumps({"kernels_checked": [k for k, *_ in KERNELS]}))
         return 0
@@ -1877,6 +2333,13 @@ def main() -> int:
                  "flash_attention_bwd_dkv", "fused_adam"):
         reports[name]["launches"] = training["launches"][name]
     check_training_fp32(torch)
+
+    # 5. long-sequence training with block-sparse attention, and its fp32
+    # comparison
+    long = check_long_training(torch, card)
+    for name in SPARSE_KERNELS:
+        reports[name]["launches"] = long["launches"][name]
+    check_training_fp32(torch, seq=4096, micro=1, sparse=SPARSE_LONG)
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -6,8 +6,9 @@ torch and numpy, never jax, flax or deepspeed_tpu. Its entry points run on
 the CUDA device unless the caller passes ``device="cpu"``.
 
 Ported so far: single-device training (``initialize`` -> ``train_batch``)
-with the flash-attention and fused-Adam kernels, and continuous-batching
-GPT serving (``init_serving``) over the inference engine
+with the flash-attention and fused-Adam kernels, block-sparse attention
+(the ``sparse_attention`` block) with its own kernels, and
+continuous-batching GPT serving (``init_serving``) over the inference engine
 (``init_inference``) with the paged decode-attention kernel; every kernel
 written in CUDA for Hopper.
 """
@@ -55,6 +56,9 @@ def initialize(model=None, params: Optional[Dict[str, Any]] = None,
     if not isinstance(cfg, DeepSpeedConfig):
         cfg = DeepSpeedConfig(cfg, world_size=engine_world_size())
     dev = resolve_device(device)
+    if cfg.sparse_attention:
+        model = _sparse_attention_surgery(model, loss_fn,
+                                          cfg.sparse_attention)
     if loss_fn is None:
         if model is None:
             raise ValueError("initialize needs model= or loss_fn=")
@@ -71,6 +75,33 @@ def initialize(model=None, params: Optional[Dict[str, Any]] = None,
                              optimizer=optimizer, lr_scheduler=lr_scheduler,
                              module=model, rng_seed=rng_seed)
     return engine, engine.optimizer, None, engine.lr_scheduler
+
+
+def _sparse_attention_surgery(model, loss_fn, block):
+    """Config-driven sparse attention (``deepspeed_tpu/__init__.py:61-88``):
+    an in-tree model whose config has a ``sparse_attention`` field gets the
+    block in place (the same parameter tensors; nothing happens when its
+    config already carries this block). A custom model or a ``loss_fn``
+    entry cannot be rerouted: a warning says so."""
+    if model is not None and loss_fn is None and hasattr(model, "cfg") \
+            and hasattr(model.cfg, "sparse_attention"):
+        if model.cfg.sparse_attention != block:
+            from deepspeed_tpu_torch.ops.sparse_attention.utils import \
+                SparseAttentionUtils
+
+            model = (SparseAttentionUtils.
+                     replace_model_self_attention_with_sparse_self_attention(
+                         model, block))
+            log_dist(f"sparse_attention: routed {type(model).__name__} "
+                     f"attention through mode="
+                     f"{block.get('mode', 'fixed')}", ranks=[0])
+    else:
+        logger.warning(
+            "sparse_attention config block with a custom model/loss_fn: no "
+            "surgery applied — route attention through "
+            "ops.sparse_attention.SparseSelfAttention yourself (see "
+            "ops/sparse_attention/utils.py)")
+    return model
 
 
 def init_inference(model=None, **kwargs):

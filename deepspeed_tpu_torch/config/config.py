@@ -253,7 +253,7 @@ _TRAINING_KEYS = frozenset({
     C.TRAIN_MICRO_BATCH_SIZE_PER_CHIP, C.GRADIENT_ACCUMULATION_STEPS,
     C.OPTIMIZER, C.SCHEDULER, C.FP16, C.BF16, C.BFLOAT16, C.DATA_TYPES,
     C.GRADIENT_CLIPPING, C.PRESCALE_GRADIENTS, C.GRADIENT_PREDIVIDE_FACTOR,
-    C.STEPS_PER_PRINT, C.ZERO_OPTIMIZATION, C.SERVING,
+    C.STEPS_PER_PRINT, C.ZERO_OPTIMIZATION, C.SERVING, C.SPARSE_ATTENTION,
 })
 
 
@@ -261,8 +261,10 @@ class DeepSpeedConfig:
     """Parsed, validated training configuration (the port of
     ``DeepSpeedTPUConfig``): the batch triple, the optimizer (Adam/AdamW,
     ``fused_update``), the scheduler, bf16/fp16, the gradient-accumulation
-    dtype, clipping, prescaling, ``steps_per_print`` and the
-    ``zero_optimization`` block. Every other training block of the JAX
+    dtype, clipping, prescaling, ``steps_per_print``, the
+    ``zero_optimization`` block and the ``sparse_attention`` block (kept
+    as given in ``.sparse_attention``; ``initialize`` routes the model's
+    attention through it). Every other training block of the JAX
     schema raises ``ConfigError`` naming it with "not yet ported" unless it
     is off; an unknown key raises. ``world_size`` is the data-parallel
     degree the batch triple is solved for (one process so far)."""
@@ -355,6 +357,9 @@ class DeepSpeedConfig:
         self.zero_enabled = self.zero_config.enabled
         if C.SERVING in d:
             ServingConfig.from_dict(d[C.SERVING])
+        self.sparse_attention = d.get(C.SPARSE_ATTENTION)
+        if self.sparse_attention:
+            _check_sparse_attention(self.sparse_attention)
         self.steps_per_print = int(_get(d, C.STEPS_PER_PRINT,
                                         C.STEPS_PER_PRINT_DEFAULT))
 
@@ -365,6 +370,21 @@ class DeepSpeedConfig:
         if self.fp16.enabled:
             return "float16"
         return "float32"
+
+
+def _check_sparse_attention(block: Any) -> None:
+    """A ``sparse_attention`` block must name a mode and keys that mode
+    takes; the layout itself is made when the model first runs."""
+    from deepspeed_tpu_torch.ops.sparse_attention.utils import \
+        sparsity_config_from_dict
+
+    if not isinstance(block, dict):
+        raise ConfigError(f"sparse_attention must be a dict, got "
+                          f"{type(block).__name__}")
+    try:
+        sparsity_config_from_dict(block, num_heads=1)
+    except ValueError as e:
+        raise ConfigError(str(e)) from None
 
 
 def resolve_batch_triple(train: Optional[int], micro: Optional[int],

@@ -61,6 +61,9 @@ GRADIENT_PREDIVIDE_FACTOR_DEFAULT = 1.0
 STEPS_PER_PRINT = "steps_per_print"
 STEPS_PER_PRINT_DEFAULT = 10
 ZERO_OPTIMIZATION = "zero_optimization"
+# Block-sparse attention (ops/sparse_attention): a present, non-empty
+# block routes the in-tree model's training attention through it.
+SPARSE_ATTENTION = "sparse_attention"
 
 # Top-level training blocks of the JAX package not ported yet: accepted
 # only in their off state, refused by name otherwise.
@@ -68,8 +71,8 @@ NOT_YET_PORTED_BLOCKS = (
     "comm", "pipeline", "moe", "telemetry", "autotuning",
     "elasticity", "resilience", "activation_checkpointing",
     "sparse_gradients", "flops_profiler", "progressive_layer_drop",
-    "quantize_training", "guardrails", "mesh", "sparse_attention",
-    "eigenvalue", "amp", "tensorboard", "aio", "wall_clock_breakdown",
+    "quantize_training", "guardrails", "mesh", "eigenvalue", "amp",
+    "tensorboard", "aio", "wall_clock_breakdown",
     "memory_breakdown", "dump_state", "check_numerics",
     "communication_data_type", "compressed_allreduce", "legacy_fusion",
 )

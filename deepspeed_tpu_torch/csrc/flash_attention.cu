@@ -52,108 +52,16 @@
 // (lane g takes columns g, g + 4, ...), reduce with shuffles, and split the
 // D output columns (lane g takes float4 slices g, g + 4, ...).
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <math.h>
+
+#include "attention_tile.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
+using namespace attn_tile;
+
 constexpr int ROWS = 64;              // rows of the tile a block owns
 constexpr int LPR = THREADS / ROWS;   // lanes per row
-constexpr unsigned FULL = 0xffffffffu;
-
-struct Strides {  // elements between consecutive batch, sequence, head
-  long long qb, qs, qh, kb, ks, kh, vb, vs, vh;
-};
-
-__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
-  const uint4 a = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float2 f = __bfloat1622float2(h[k]);
-    x[2 * k] = f.x;
-    x[2 * k + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void load8(const __half* p, float (&x)[8]) {
-  const uint4 a = *reinterpret_cast<const uint4*>(p);
-  const __half2* h = reinterpret_cast<const __half2*>(&a);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float2 f = __half22float2(h[k]);
-    x[2 * k] = f.x;
-    x[2 * k + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-__device__ __forceinline__ void store(__half* p, float v) {
-  *p = __float2half(v);
-}
-
-template <typename T>
-__device__ __forceinline__ void store4(T* p, float4 v) {
-  store(p, v.x);
-  store(p + 1, v.y);
-  store(p + 2, v.z);
-  store(p + 3, v.w);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-__device__ __forceinline__ void fma4(float4& acc, float s, float4 x) {
-  acc.x += s * x.x;
-  acc.y += s * x.y;
-  acc.z += s * x.z;
-  acc.w += s * x.w;
-}
-
-// rows x D elements from `src` (row stride `stride`) into the fp32 shared
-// tile `dst` [rows][DP], times `mul`; rows at or past `valid` are zeros.
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long stride, int rows,
-                                          int valid, int D, float mul) {
-  const int per_row = D / 8;
-  for (int idx = threadIdx.x; idx < rows * per_row; idx += THREADS) {
-    const int r = idx / per_row;
-    const int c = (idx - r * per_row) * 8;
-    float x[8];
-    if (r < valid) {
-      load8(src + r * stride + c, x);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) x[e] *= mul;
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) x[e] = 0.f;
-    }
-    float4* d = reinterpret_cast<float4*>(dst + r * DP + c);
-    d[0] = make_float4(x[0], x[1], x[2], x[3]);
-    d[1] = make_float4(x[4], x[5], x[6], x[7]);
-  }
-}
-
-__device__ __forceinline__ float row_max(float v) {  // over a row's 4 lanes
-  v = fmaxf(v, __shfl_xor_sync(FULL, v, 1));
-  return fmaxf(v, __shfl_xor_sync(FULL, v, 2));
-}
-__device__ __forceinline__ float row_sum(float v) {
-  v += __shfl_xor_sync(FULL, v, 1);
-  return v + __shfl_xor_sync(FULL, v, 2);
-}
 
 // ---------------------------------------------------------------------------
 // forward: grid (ceil(Sq / ROWS), B * H)
@@ -223,7 +131,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
       s[jj] = vis ? s[jj] : -INFINITY;
       mt = fmaxf(mt, s[jj]);
     }
-    const float m_new = fmaxf(m, row_max(mt));
+    const float m_new = fmaxf(m, row_max<LPR>(mt));
     float alpha = 1.f, sum = 0.f;
 #pragma unroll
     for (int jj = 0; jj < NS; ++jj) {
@@ -237,7 +145,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
       sum += p;
     }
     if (m_new != -INFINITY) alpha = (m == -INFINITY) ? 0.f : expf(m - m_new);
-    l = l * alpha + row_sum(sum);
+    l = l * alpha + row_sum<LPR>(sum);
     m = m_new;
     __syncwarp();  // the row's 4 lanes wrote pr; the same lanes read it
 
@@ -587,10 +495,6 @@ int run(Which w, const Args& a, int dtype, void* stream) {
   else if (dtype == 2) err = dispatch_d<__half>(w, a, st);
   else err = cudaErrorInvalidValue;
   return (int)err;
-}
-
-Strides strides_of(const long long* s) {
-  return Strides{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8]};
 }
 
 }  // namespace

@@ -24,8 +24,11 @@ Parameter names follow torch (``h.0.c_attn.weight`` [out, in]);
 ``models/convert.py`` maps them to and from the flax tree. The config's
 defaults are the JAX package's. Dropout (``dropout_rate > 0``) is refused
 where it would act, in a training forward; inference, serving and eval are
-deterministic and ignore it, as in JAX. MoE, sparse attention, the fused
-LN kernel, remat and the sparse embedding gradient are refused at
+deterministic and ignore it, as in JAX. A ``sparse_attention`` block
+(the DeepSpeed config block: mode, block, ...) routes the training
+forward's attention through ``ops/sparse_attention`` (its kernels on the
+card); a forward with a cache stays dense, as in JAX. MoE, the fused LN
+kernel, remat and the sparse embedding gradient are refused at
 construction until a later slice ports them.
 """
 
@@ -38,6 +41,8 @@ from torch import nn
 
 from deepspeed_tpu_torch.config.config import not_yet_ported
 from deepspeed_tpu_torch.ops.embedding import embedding_lookup, vocab_pad_mask
+from deepspeed_tpu_torch.ops.sparse_attention.utils import \
+    get_sparse_self_attention
 from deepspeed_tpu_torch.ops.transformer.attention import (attention,
                                                            xla_attention)
 from deepspeed_tpu_torch.ops.xent import fused_cross_entropy
@@ -64,14 +69,16 @@ class GPTConfig:
     embed_grad_matmul: bool = False          # fp32-summed embedding grad
     sparse_embedding_grad: Any = None
     fast_dropout: bool = True
+    # Block-sparse attention config dict (the DeepSpeed `sparse_attention`
+    # block: mode/block/num_local_blocks/...); None = dense attention.
+    sparse_attention: Any = None
     # Training options of the JAX GPTConfig, accepted off only.
     fused_ln: Any = False
-    sparse_attention: Any = None
     moe_experts: int = 0
 
     def __post_init__(self):
         for key, off in (("remat", False), ("fused_ln", False),
-                         ("sparse_attention", None), ("moe_experts", 0),
+                         ("moe_experts", 0),
                          ("sparse_embedding_grad", None)):
             if getattr(self, key) not in (off, None, 0, False):
                 raise not_yet_ported(f"GPTConfig.{key}")
@@ -146,7 +153,14 @@ class GPTBlock(nn.Module):
         shape = (b, s, cfg.num_heads, cfg.head_dim)
         q, k, v = (t.reshape(shape) for t in qkv.split(cfg.hidden_size, -1))
         scale = cfg.attention_scale
-        if kv_cache is None:
+        if kv_cache is None and cfg.sparse_attention is not None:
+            # The block-sparse path: the layout of this sequence length,
+            # shared by every layer (get_sparse_self_attention caches it).
+            ssa = get_sparse_self_attention(cfg.sparse_attention,
+                                            cfg.num_heads)
+            km = attn_mask[:, 0, 0, :] if attn_mask is not None else None
+            o = ssa(q, k, v, causal=True, key_mask=km, softmax_scale=scale)
+        elif kv_cache is None:
             o = attention(q, k, v, causal=True, mask=attn_mask,
                           softmax_scale=scale, impl=cfg.attention_impl)
         elif isinstance(kv_cache, tuple):

@@ -1,0 +1,477 @@
+"""Block-sparse attention executors.
+
+The port of ``deepspeed_tpu/ops/sparse_attention/sparse_attention.py``.
+q, k, v are [B, S, H, D]; a layout [H, NB, NB] (NB = S / block, from
+``sparsity_config.py``) says which key blocks each query block attends.
+Masked pairs (outside the layout, above the diagonal under ``causal``, or
+a key whose ``key_mask`` [B, S] entry is 0) are selected out; a row with
+no visible key gives 0 (and lse -1e30), not NaN.
+
+- ``impl="xla"``: :func:`_xla_sparse`, dense attention under the
+  layout-expanded mask in plain PyTorch, differentiated by autograd (the
+  JAX package's numerics oracle, fine for modest sequence lengths).
+- ``impl="pallas"`` (the JAX name) and ``"auto"``: the kernels of
+  ``csrc/sparse_attention.cu`` through an ``autograd.Function``:
+  :func:`sparse_attention_fwd` (TPU kernel #8),
+  then in the backward :func:`sparse_attention_bwd_dq` (#9) and
+  :func:`sparse_attention_bwd_dkv` (#10). Per (head, query block) they
+  walk only that row's active key blocks, and dk/dv walk the transposed
+  lists, so compute and memory traffic scale with the layout's density.
+  On a CUDA tensor each wrapper launches its kernel (built at first use)
+  or raises; it never falls back. On a CPU tensor each wrapper runs its
+  plain version (:func:`sparse_fwd_reference`,
+  :func:`sparse_bwd_dq_reference`, :func:`sparse_bwd_dkv_reference`),
+  which the CPU tests hold against the JAX kernels and ``chip_smoke.py``
+  holds the CUDA kernels against.
+
+The index lists (``layout_kv_indices`` / ``layout_q_indices`` and the
+per-row and per-column counts) are built on the host once per layout and
+kept on each device they are used on (:func:`sparse_plan`), as the JAX
+package caches its closure per layout. Each kernel wrapper counts its
+launches in ``.launches``.
+"""
+
+import ctypes
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from deepspeed_tpu_torch.ops import build
+from deepspeed_tpu_torch.ops.transformer.flash_attention import (_aligned,
+                                                                 _ptr,
+                                                                 _strides)
+
+__all__ = ["NEG_INF", "layout_to_dense_mask", "layout_kv_indices",
+           "layout_q_indices", "sparse_plan", "SparsePlan",
+           "sparse_attention", "SparseSelfAttention", "pad_to_block_size",
+           "sparse_fwd_reference", "sparse_bwd_dq_reference",
+           "sparse_bwd_dkv_reference", "sparse_attention_fwd",
+           "sparse_attention_bwd_dq", "sparse_attention_bwd_dkv"]
+
+NEG_INF = -1e30
+LSE_FLOOR = NEG_INF / 2          # the backward's guard for empty rows
+MAX_HEAD_DIM = 128
+MAX_BATCH_HEADS = 65535          # the grid's second dimension
+BLOCK_MULTIPLE = 16              # the kernels' row tiles: 16, 32 or 64
+IMPLS = ("auto", "pallas", "xla")
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_FN = None
+
+
+def layout_to_dense_mask(layout: np.ndarray, block: int) -> np.ndarray:
+    """[H, B, B] block layout -> [H, S, S] bool element mask."""
+    return _dense_mask(layout, block, "cpu").numpy()
+
+
+def layout_kv_indices(layout: np.ndarray):
+    """Per (head, q-block) active kv-block ids, ascending, padded with -1:
+    -> int32 [H, B, max_active]."""
+    layout = np.asarray(layout)
+    h, b, _ = layout.shape
+    max_active = int(layout.sum(-1).max())
+    idx = np.full((h, b, max_active), -1, np.int32)
+    for hi in range(h):
+        for qi in range(b):
+            cols = np.nonzero(layout[hi, qi])[0]
+            idx[hi, qi, :len(cols)] = cols
+    return idx, max_active
+
+
+def layout_q_indices(layout: np.ndarray):
+    """Transpose layout: per (head, kv-block) active q-block ids, padded
+    with -1 — the dk/dv backward's iteration order."""
+    layout = np.asarray(layout)
+    return layout_kv_indices(layout.transpose(0, 2, 1))
+
+
+class SparsePlan:
+    """One layout as the kernels read it: int32 ``kv_idx`` [H, NB, max_kv]
+    and ``kv_cnt`` [H, NB] (``layout.sum(-1)``), ``q_idx`` [H, NB, max_q]
+    and ``q_cnt`` [H, NB] (``layout.sum(-2)``), built on the host once and
+    copied to a device once per device."""
+
+    def __init__(self, layout: np.ndarray, block: int):
+        self.layout = np.asarray(layout).astype(np.int8)
+        self.block = int(block)
+        self.num_heads, self.num_blocks = self.layout.shape[:2]
+        kv_idx, self.max_kv = layout_kv_indices(self.layout)
+        q_idx, self.max_q = layout_q_indices(self.layout)
+        self._host = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (
+            kv_idx, self.layout.sum(-1).astype(np.int32),
+            q_idx, self.layout.sum(-2).astype(np.int32)))
+        self._on = {}
+
+    def on(self, device: torch.device):
+        """``(kv_idx, kv_cnt, q_idx, q_cnt)`` on ``device``."""
+        key = str(device)
+        if key not in self._on:
+            self._on[key] = tuple(t.to(device) for t in self._host)
+        return self._on[key]
+
+    def visible(self, head: int, causal: bool,
+                key_mask: Optional[torch.Tensor], device) -> torch.Tensor:
+        """The plain versions' bool mask of one head's visible pairs,
+        [B or 1, S, S]."""
+        vis = _dense_mask(self.layout[head], self.block, device)[None]
+        if causal:
+            vis = vis & torch.ones(vis.shape[-2:], dtype=torch.bool,
+                                   device=device).tril()
+        if key_mask is not None:
+            vis = vis & (key_mask > 0)[:, None, :].to(device)
+        return vis
+
+
+def _dense_mask(layout, block: int, device) -> torch.Tensor:
+    """``layout_to_dense_mask`` built on ``device``: [..., NB, NB] ->
+    [..., S, S] bool."""
+    m = torch.from_numpy(np.asarray(layout) != 0).to(device)
+    return m.repeat_interleave(block, -2).repeat_interleave(block, -1)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(layout_bytes: bytes, h: int, nb: int, block: int) -> SparsePlan:
+    layout = np.frombuffer(layout_bytes, np.int8).reshape(h, nb, nb)
+    return SparsePlan(layout, block)
+
+
+def sparse_plan(layout, block: int) -> SparsePlan:
+    """The cached :class:`SparsePlan` of a layout (keyed by its bytes)."""
+    layout = np.asarray(layout).astype(np.int8)
+    return _plan(layout.tobytes(), layout.shape[0], layout.shape[1],
+                 int(block))
+
+
+def _xla_sparse(q, k, v, layout, block, causal, scale, key_mask=None):
+    """Dense attention under the layout-expanded mask (the JAX package's
+    ``_xla_sparse``): fp32 scores, masked entries at -1e30, rows with no
+    visible key give 0, probabilities cast to q's dtype before p.V."""
+    mask = _dense_mask(layout, block, q.device)             # [H, S, S]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    logits = logits.masked_fill(~mask[None], NEG_INF)
+    if key_mask is not None:
+        keep = key_mask.bool()[:, None, None, :].to(q.device)
+        logits = logits.masked_fill(~keep, NEG_INF)
+    if causal:
+        s = q.shape[1]
+        cm = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~cm[None, None], NEG_INF)
+    rowmax = logits.amax(dim=-1, keepdim=True)
+    probs = torch.where(rowmax > NEG_INF / 2, torch.softmax(logits, dim=-1),
+                        torch.zeros_like(logits))
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), v)
+
+
+def sparse_fwd_reference(q, k, v, key_mask, plan: SparsePlan, causal: bool,
+                         scale: float):
+    """Plain version of the forward kernel: ``(o, lse)``, o [B, S, H, D] in
+    q's dtype and lse fp32 [B, H, S], over materialised fp32 scores, one
+    head at a time (so a long sequence fits on the card). p stays fp32
+    through p.V, as in the kernel."""
+    outs, lses = [], []
+    for h in range(q.shape[2]):
+        vis = plan.visible(h, causal, key_mask, q.device)
+        s = torch.einsum("bqd,bkd->bqk", q[:, :, h].float() * scale,
+                         k[:, :, h].float())
+        s = s.masked_fill(~vis, float("-inf"))
+        m = s.amax(dim=-1, keepdim=True)
+        seen = m > float("-inf")
+        p = torch.exp(s - torch.where(seen, m, torch.zeros_like(m)))
+        l = p.sum(dim=-1, keepdim=True)
+        p = p / torch.where(seen, l, torch.ones_like(l))
+        outs.append(torch.einsum("bqk,bkd->bqd", p, v[:, :, h].float()))
+        lses.append(torch.where(seen, m + torch.log(l),
+                                torch.full_like(m, NEG_INF))[..., 0])
+    return torch.stack(outs, dim=2).to(q.dtype), torch.stack(lses, dim=1)
+
+
+def _bwd_heads(q, k, v, dout, key_mask, lse, delta, plan, causal, scale):
+    """Shared part of the backward kernels' plain versions, per head h:
+    scale * q, p = exp(s - max(lse, -5e29)) on visible pairs (0 elsewhere)
+    and ds = p (dO.v - delta), fp32 [B, S, S]."""
+    for h in range(q.shape[2]):
+        vis = plan.visible(h, causal, key_mask, q.device)
+        qs = q[:, :, h].float() * scale
+        s = torch.einsum("bqd,bkd->bqk", qs, k[:, :, h].float())
+        p = torch.exp(s - lse[:, h].clamp_min(LSE_FLOOR)[..., None])
+        p = p.masked_fill(~vis, 0.0)
+        dp = torch.einsum("bqd,bkd->bqk", dout[:, :, h].float(),
+                          v[:, :, h].float())
+        yield h, qs, p, p * (dp - delta[:, h, :, None])
+
+
+def sparse_bwd_dq_reference(q, k, v, dout, key_mask, lse, delta,
+                            plan: SparsePlan, causal: bool, scale: float):
+    """Plain version of the dq kernel on the same inputs (``lse`` and
+    ``delta`` fp32 [B, H, S])."""
+    dq = [torch.einsum("bqk,bkd->bqd", ds, k[:, :, h].float()) * scale
+          for h, _qs, _p, ds in _bwd_heads(q, k, v, dout, key_mask, lse,
+                                           delta, plan, causal, scale)]
+    return torch.stack(dq, dim=2).to(q.dtype)
+
+
+def sparse_bwd_dkv_reference(q, k, v, dout, key_mask, lse, delta,
+                             plan: SparsePlan, causal: bool, scale: float):
+    """Plain version of the dk/dv kernel on the same inputs."""
+    dk, dv = [], []
+    for h, qs, p, ds in _bwd_heads(q, k, v, dout, key_mask, lse, delta, plan,
+                                   causal, scale):
+        dk.append(torch.einsum("bqk,bqd->bkd", ds, qs))
+        dv.append(torch.einsum("bqk,bqd->bkd", p, dout[:, :, h].float()))
+    return (torch.stack(dk, dim=2).to(k.dtype),
+            torch.stack(dv, dim=2).to(v.dtype))
+
+
+def _kernel():
+    global _FN
+    if _FN is None:
+        lib = build.load("sparse_attention")
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        shape = [i32] * 5 + [f32, i32, i32, ptr]
+        fwd = lib.sparse_attention_fwd
+        fwd.argtypes = [ptr] * 6 + [i32] + [ptr] * 3 + shape
+        dq = lib.sparse_attention_bwd_dq
+        dq.argtypes = [ptr] * 7 + [i32] + [ptr] * 4 + shape
+        dkv = lib.sparse_attention_bwd_dkv
+        dkv.argtypes = [ptr] * 7 + [i32] + [ptr] * 5 + shape
+        for fn in (fwd, dq, dkv):
+            fn.restype = i32
+        err = lib.sparse_attention_error_string
+        err.argtypes = [i32]
+        err.restype = ctypes.c_char_p
+        _FN = (fwd, dq, dkv, err)
+    return _FN
+
+
+def _prepare(q, k, v, key_mask, plan: SparsePlan):
+    """Checks the kernels rely on, on CUDA tensors; returns inputs the
+    kernels can read through their strides (a misaligned view is copied
+    first) and the mask as contiguous fp32 [B, S], or None."""
+    b, s, h, d = q.shape
+    block = plan.block
+    if q.dtype not in _DTYPE_CODES or d % 8 or not 8 <= d <= MAX_HEAD_DIM \
+            or b * h > MAX_BATCH_HEADS:
+        raise ValueError(
+            f"sparse_attention kernels take float32, bfloat16 or float16, "
+            f"head_dim a multiple of 8 in [8, {MAX_HEAD_DIM}] and at most "
+            f"{MAX_BATCH_HEADS} batch x heads; got {q.dtype}, q "
+            f"{tuple(q.shape)}")
+    if block % BLOCK_MULTIPLE:
+        raise ValueError(
+            f"sparse_attention kernels take a layout block that is a "
+            f"multiple of {BLOCK_MULTIPLE}; got block {block}")
+    if plan.num_heads != h or plan.num_blocks * block != s:
+        raise ValueError(
+            f"layout of {plan.num_heads} heads x {plan.num_blocks} blocks "
+            f"of {block} does not fit q {tuple(q.shape)}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
+        if t.shape != q.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != "
+                             f"{tuple(q.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    q, k, v = (t if _aligned(t) else t.contiguous() for t in (q, k, v))
+    if key_mask is not None:
+        if tuple(key_mask.shape) != (b, s):
+            raise ValueError(f"key_mask shape {tuple(key_mask.shape)} != "
+                             f"{(b, s)}")
+        key_mask = key_mask.to(device=q.device,
+                               dtype=torch.float32).contiguous()
+    return q, k, v, key_mask
+
+
+def _check(rc, what):
+    if rc != 0:
+        err = _kernel()[3]
+        raise RuntimeError(f"sparse_attention {what} kernel launch failed: "
+                           f"{err(rc).decode()} (cudaError {rc})")
+
+
+def _on_cuda(q: torch.Tensor, what: str) -> bool:
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"sparse_attention {what} runs on CUDA or CPU "
+                         f"tensors, got {q.device}")
+    return True
+
+
+def sparse_attention_fwd(q, k, v, key_mask, plan: SparsePlan, causal: bool,
+                         scale: float):
+    """Forward (kernel #8): returns ``out`` (contiguous [B, S, H, D] in q's
+    dtype) and ``lse`` (fp32 [B, H, S]). On CUDA the inputs are as
+    :func:`_prepare` returns them; on the CPU, the plain version."""
+    if not _on_cuda(q, "forward"):
+        return sparse_fwd_reference(q, k, v, key_mask, plan, causal, scale)
+    b, s, h, d = q.shape
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    kv_idx, kv_cnt, _q_idx, _q_cnt = plan.on(q.device)
+    fwd = _kernel()[0]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+                 kv_idx.data_ptr(), kv_cnt.data_ptr(), plan.max_kv,
+                 out.data_ptr(), lse.data_ptr(), _strides(q, k, v), b, h, s,
+                 d, plan.block, float(scale), int(causal),
+                 _DTYPE_CODES[q.dtype], stream)
+    _check(rc, "forward")
+    sparse_attention_fwd.launches += 1
+    return out, lse
+
+
+def sparse_attention_bwd_dq(q, k, v, dout, key_mask, lse, delta,
+                            plan: SparsePlan, causal: bool, scale: float):
+    """dq (kernel #9): ``dout`` contiguous [B, S, H, D]; ``lse`` and
+    ``delta`` fp32 [B, H, S]. Returns dq, contiguous [B, S, H, D]."""
+    if not _on_cuda(q, "dq"):
+        return sparse_bwd_dq_reference(q, k, v, dout, key_mask, lse, delta,
+                                       plan, causal, scale)
+    b, s, h, d = q.shape
+    dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    kv_idx, kv_cnt, _q_idx, _q_cnt = plan.on(q.device)
+    fn = _kernel()[1]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                _ptr(key_mask), kv_idx.data_ptr(), kv_cnt.data_ptr(),
+                plan.max_kv, lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                _strides(q, k, v), b, h, s, d, plan.block, float(scale),
+                int(causal), _DTYPE_CODES[q.dtype], stream)
+    _check(rc, "dq")
+    sparse_attention_bwd_dq.launches += 1
+    return dq
+
+
+def sparse_attention_bwd_dkv(q, k, v, dout, key_mask, lse, delta,
+                             plan: SparsePlan, causal: bool, scale: float):
+    """dk and dv (kernel #10), walking the transposed lists. Returns dk,
+    dv, contiguous [B, S, H, D]."""
+    if not _on_cuda(q, "dkv"):
+        return sparse_bwd_dkv_reference(q, k, v, dout, key_mask, lse, delta,
+                                        plan, causal, scale)
+    b, s, h, d = q.shape
+    dk = torch.empty((b, s, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, s, h, d), dtype=v.dtype, device=q.device)
+    _kv_idx, _kv_cnt, q_idx, q_cnt = plan.on(q.device)
+    fn = _kernel()[2]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                _ptr(key_mask), q_idx.data_ptr(), q_cnt.data_ptr(),
+                plan.max_q, lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), _strides(q, k, v), b, h, s, d, plan.block,
+                float(scale), int(causal), _DTYPE_CODES[q.dtype], stream)
+    _check(rc, "dkv")
+    sparse_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+sparse_attention_fwd.launches = 0
+sparse_attention_bwd_dq.launches = 0
+sparse_attention_bwd_dkv.launches = 0
+
+
+class _SparseAttention(torch.autograd.Function):
+    """The kernels with their gradient (the JAX ``_sparse_vjp_fn``): the
+    forward saves ``out`` and ``lse``; the backward takes ``delta =
+    rowsum(dO * out)`` in fp32 from the output in its dtype, then runs dq
+    and dk/dv."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, plan, causal, scale):
+        if q.device.type == "cuda":
+            q, k, v, key_mask = _prepare(q, k, v, key_mask, plan)
+        out, lse = sparse_attention_fwd(q, k, v, key_mask, plan, causal,
+                                        scale)
+        ctx.save_for_backward(q, k, v, key_mask, out, lse)
+        ctx.plan, ctx.causal, ctx.scale = plan, causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, key_mask, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+        delta = delta.contiguous()                       # [B, H, S]
+        args = (key_mask, lse, delta, ctx.plan, ctx.causal, ctx.scale)
+        dq = sparse_attention_bwd_dq(q, k, v, dout, *args)
+        dk, dv = sparse_attention_bwd_dkv(q, k, v, dout, *args)
+        return dq, dk, dv, None, None, None, None
+
+
+def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     layout, block: int, *, causal: bool = False,
+                     softmax_scale: Optional[float] = None,
+                     impl: str = "auto",
+                     key_mask: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Block-sparse attention over [B, S, H, D] with an [H, B, B] layout.
+
+    ``key_mask``: optional [B, S] key-padding mask (1 = keep): masked keys
+    drop out of every row. ``impl``: "auto" or "pallas" run the kernels
+    (their plain versions on a CPU tensor); "xla" the dense masked path.
+    Differentiable in q, k and v."""
+    s = q.shape[1]
+    if s % block:
+        raise ValueError(f"seq {s} not divisible by block {block}")
+    if np.asarray(layout).shape[1] != s // block:
+        raise ValueError(f"layout has {np.asarray(layout).shape[1]} blocks, "
+                         f"sequence needs {s // block}")
+    scale = (softmax_scale if softmax_scale is not None
+             else 1.0 / (q.shape[-1] ** 0.5))
+    if impl == "xla":
+        return _xla_sparse(q, k, v, layout, block, causal, scale, key_mask)
+    if impl in ("auto", "pallas"):
+        _on_cuda(q, "attention")
+        return _SparseAttention.apply(q, k, v, key_mask,
+                                      sparse_plan(layout, block),
+                                      bool(causal), float(scale))
+    raise ValueError(f"unknown sparse attention impl '{impl}' (one of "
+                     f"{IMPLS})")
+
+
+class SparseSelfAttention:
+    """Layout-bound attention callable (reference
+    ops/sparse_attention/sparse_self_attention.py:14): construct once with
+    a SparsityConfig, call with q/k/v [B, S, H, D]. The layout of each
+    sequence length is made once and kept."""
+
+    def __init__(self, sparsity_config, max_seq_length: int = 2048,
+                 attn_mask_mode: str = "mul", impl: str = "auto"):
+        self.sparsity_config = sparsity_config
+        self.max_seq_length = max_seq_length
+        self.impl = impl
+        self._layouts = {}
+
+    def layout(self, seq_len: int):
+        if seq_len not in self._layouts:
+            self._layouts[seq_len] = self.sparsity_config.make_layout(seq_len)
+        return self._layouts[seq_len]
+
+    def __call__(self, q, k, v, *, causal: Optional[bool] = None,
+                 key_mask: Optional[torch.Tensor] = None,
+                 softmax_scale: Optional[float] = None):
+        if causal is None:
+            causal = getattr(self.sparsity_config, "attention",
+                             "bidirectional") == "unidirectional"
+        return sparse_attention(q, k, v, self.layout(q.shape[1]),
+                                self.sparsity_config.block, causal=causal,
+                                softmax_scale=softmax_scale,
+                                key_mask=key_mask, impl=self.impl)
+
+
+def pad_to_block_size(x: torch.Tensor, block: int, axis: int = 1):
+    """Right-pad the seq axis to a block multiple with zeros; returns
+    ``(padded, pad_len)``."""
+    s = x.shape[axis]
+    pad = (-s) % block
+    if pad == 0:
+        return x, 0
+    widths = [0, 0] * x.dim()
+    widths[2 * (x.dim() - 1 - axis % x.dim()) + 1] = pad
+    return F.pad(x, widths), pad

@@ -335,7 +335,8 @@ NOT_PORTED += [("pipeline", {"stages": 2}), ("mesh", {"model": 2}),
                ("sparse_gradients", True), ("wall_clock_breakdown", True),
                ("memory_breakdown", True), ("dump_state", True),
                ("check_numerics", True), ("communication_data_type", "bf16"),
-               ("legacy_fusion", True), ("sparse_attention", {"mode": "fixed"}),
+               ("legacy_fusion", True),
+               ("activation_checkpointing", {"partition_activations": True}),
                ("quantize_training", {"quantize_bits": 8}),
                ("eigenvalue", {"max_iter": 10})]
 
@@ -345,6 +346,83 @@ def test_unported_training_blocks_raise(key, value):
     with pytest.raises(ConfigError, match="not yet ported") as err:
         DeepSpeedConfig(dict(_config(), **{key: value}))
     assert key in str(err.value)
+
+
+SPARSE = {"mode": "bigbird", "block": 16, "num_random_blocks": 1,
+          "num_sliding_window_blocks": 3, "num_global_blocks": 1,
+          "attention": "unidirectional", "rng_seed": 23}
+
+
+def test_sparse_attention_block_is_accepted_and_routed(monkeypatch):
+    """The ``sparse_attention`` block parses (its keys checked as the
+    layout classes check them) and ``initialize`` routes the model's
+    attention through it in place: the same parameter tensors, the block
+    on the model's and every block's config, nothing done when the config
+    already carries it; a loss_fn entry gets the JAX warning."""
+    assert DeepSpeedConfig(_config()).sparse_attention is None
+    assert DeepSpeedConfig(dict(_config(), sparse_attention=SPARSE)
+                           ).sparse_attention == SPARSE
+    for bad, match in (({"mode": "nope"}, "unknown sparse_attention mode"),
+                       ({"mode": "fixed", "bogus": 1}, "invalid"),
+                       ("fixed", "must be a dict")):
+        with pytest.raises(ConfigError, match=match):
+            DeepSpeedConfig(dict(_config(), sparse_attention=bad))
+    model, _ = make_gpt("tiny", dtype=torch.float32, max_seq_len=64)
+    params = list(model.parameters())
+    cfg = dict(_config(), sparse_attention=SPARSE)
+    eng, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                             device="cpu")
+    assert model.cfg.sparse_attention == SPARSE
+    assert all(b.cfg is model.cfg for b in model.h)
+    assert all(a is b for a, b in zip(model.parameters(), params))
+    assert len(list(model.parameters())) == len(params)
+    routed = model.cfg
+    deepspeed_tpu_torch.initialize(model=model, config=cfg, device="cpu")
+    assert model.cfg is routed                     # no-op when repeated
+    loss = eng.train_batch({"input_ids": np.zeros((GAS, MICRO, 64),
+                                                  np.int32)})
+    assert torch.isfinite(loss)
+    warned = []
+    monkeypatch.setattr(deepspeed_tpu_torch.logger, "warning",
+                        lambda msg, *a, **k: warned.append(msg))
+    deepspeed_tpu_torch.initialize(
+        loss_fn=lambda p, b, r: (p["w"] ** 2).sum(),
+        params={"w": torch.ones(2)}, config=cfg, device="cpu")
+    assert len(warned) == 1 and "no surgery applied" in warned[0]
+
+
+def test_sparse_attention_training_matches_jax():
+    """Tiny GPT at seq 64 with a BigBird block-16 ``sparse_attention``
+    block, through ``initialize`` (the surgery included) on both sides:
+    the losses of two train_batch steps to 1e-5 relative and every final
+    param to 1e-5, fp32 (Adam eps 1e-6, as in the dense comparison)."""
+    cfg = _config(adam={"eps": 1e-6}, sparse_attention=SPARSE)
+    rng = np.random.default_rng(3)
+    batches = [{"input_ids": rng.integers(0, 512, (GAS, MICRO, 64),
+                                          dtype=np.int32)}
+               for _ in range(2)]
+    # the sparse path adds no parameters: the dense model's init is its
+    params = jax_make_gpt("tiny", dropout_rate=0.0, dtype=jnp.float32,
+                          max_seq_len=64)[0].init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+        {"input_ids": batches[0]["input_ids"][0, :, :8]})["params"]
+    sd = gpt_params_from_flax(jax.tree_util.tree_map(np.asarray, params))
+    jm, _ = jax_make_gpt("tiny", dropout_rate=0.0, dtype=jnp.float32,
+                         max_seq_len=64)
+    jeng, *_ = deepspeed_tpu.initialize(
+        model=jm, params=params, config=DeepSpeedTPUConfig(cfg, world_size=1),
+        mesh=build_mesh(devices=jax.devices()[:1]))
+    jl = [float(jeng.train_batch(b)) for b in batches]
+    jp = gpt_params_from_flax(jax.tree_util.tree_map(np.asarray,
+                                                     jeng.state.params))
+    model, _ = make_gpt("tiny", dtype=torch.float32, max_seq_len=64)
+    eng, *_ = deepspeed_tpu_torch.initialize(model=model, params=sd,
+                                             config=cfg, device="cpu")
+    tl = [float(eng.train_batch(b)) for b in batches]
+    np.testing.assert_allclose(tl, jl, rtol=1e-5, atol=0)
+    for k, v in model.state_dict().items():
+        np.testing.assert_allclose(v.numpy(), jp[k], atol=1e-5, rtol=0,
+                                   err_msg=k)
 
 
 @pytest.mark.parametrize("key,value", [

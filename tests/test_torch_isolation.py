@@ -1,7 +1,8 @@
 """The port (deepspeed_tpu_torch) and chip_smoke.py stand alone: neither
 imports jax, flax or the JAX package deepspeed_tpu, whether serving (the
 bucketed path, and the chunked path with the int8 pool and the prefix
-cache) or training (``initialize`` and one ``train_batch`` on the CPU)."""
+cache) or training (``initialize`` and one ``train_batch`` on the CPU,
+dense and with a ``sparse_attention`` block)."""
 
 import ast
 import os
@@ -55,6 +56,18 @@ engine, _opt, _loader, _sched = deepspeed_tpu_torch.initialize(
             "zero_optimization": {"stage": 2}})
 loss = engine.train_batch({"input_ids": torch.randint(0, 512, (2, 2, 16))})
 assert torch.isfinite(loss) and engine.global_steps == 1
+
+import deepspeed_tpu_torch.ops.sparse_attention
+model, cfg = make_gpt("tiny", dtype=torch.float32, max_seq_len=64)
+engine, _opt, _loader, _sched = deepspeed_tpu_torch.initialize(
+    model=model, params=init_gpt_params(cfg, seed=0), device="cpu",
+    config={"train_micro_batch_size_per_gpu": 1,
+            "gradient_accumulation_steps": 2,
+            "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+            "sparse_attention": {"mode": "bigbird", "block": 16,
+                                 "attention": "unidirectional"}})
+loss = engine.train_batch({"input_ids": torch.randint(0, 512, (2, 1, 64))})
+assert torch.isfinite(loss) and model.cfg.sparse_attention["block"] == 16
 print(sorted(m for m in set(sys.modules) - before
              if m.split(".")[0] in ("jax", "jaxlib", "flax")
              or m == "deepspeed_tpu" or m.startswith("deepspeed_tpu.")))
