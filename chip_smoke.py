@@ -33,7 +33,16 @@
      there, lse -1e30), fp32 and bf16, and (c) the path's shape [1, 16384,
      12, 64], bf16; each kernel and (a), (b) the whole autograd path, with
      flash's tolerances, lse to 1e-5; timed at (c) beside the plain
-     version, SDPA with the layout-expanded mask and the bound.
+     version, SDPA with the layout-expanded mask and the bound;
+   - the fused LayerNorm + projection forward and backward (kernels #6,
+     #7) at the training path's two sites (n = 8192 rows, D = 768, F =
+     2304 without activation and 3072 with GELU) and a tail (n = 300, D
+     = 136, F = 200), fp32 and bf16, each kernel alone and the whole
+     autograd path: fp32 within 1e-5 of each output's RMS, bf16 within
+     one rounding step plus 1e-3 of it; timed in bf16 at the path's
+     sites beside the plain versions and the unfused eager sequence
+     (``F.layer_norm`` -> cast -> ``F.linear`` (-> GELU) and its autograd
+     backward).
 3. Serving end to end: ``init_serving`` on full-width GPT-2 (random
    weights from a seed) serves 16 requests in two waves:
    - bucketed bf16 through ``decode_attention: "kernel"`` (kernel #1
@@ -67,6 +76,14 @@
    flash attention (1 + 2 steps) for the sparse/dense tokens/s ratio, and
    in fp32 at 2 layers and seq 4096 the kernels' path against the plain
    path (``impl: "xla"``), held as in phase 4.
+6. Training with the fused LayerNorm + projection sites: phase 4's
+   configuration on ``make_gpt("gpt2", fused_ln=True)``: #6 and #7 launch
+   192 times each per step (2 sites x 12 layers x GAS 8), flash 96, fused
+   Adam once, no plain version, the loss falls; step time, tokens/s, MFU,
+   peak memory, a profiled step and the ratio to phase 4's step; the
+   "qkv" and "mlp" variants (1 + 2 steps each); then in fp32 at 2 layers
+   the fused kernels' path against the unfused plain path, held as in
+   phase 4.
 
 Any failure exits non-zero. The last stdout line is
 ``{"ok": true, "device": {...}}``; before it come the card line and a
@@ -1253,6 +1270,223 @@ def check_fused_adam(torch, report):
 
 
 # ---------------------------------------------------------------------------
+# 2e. fused LayerNorm + projection (kernels #6, #7) against their plain
+#     versions
+# ---------------------------------------------------------------------------
+
+# (n, D, F, activation): the training path's two sites at micro 16 x seq
+# 512 (LN1 + QKV, LN2 + fc + GELU) and a tail no tile divides (300 rows,
+# D = 136, F = 200: ragged row, column and depth tiles)
+FUSED_LN_SITES = ((16 * 512, 768, 2304, None), (16 * 512, 768, 3072, "gelu"))
+FUSED_LN_TAIL = ((300, 136, 200, None), (300, 136, 200, "gelu"))
+FUSED_LN_NAMES = ("dx", "dgamma", "dbeta", "dw", "dbias")
+# Each output's max |err| over its plain version's RMS. fp32: the same
+# products summed in other orders over 768 (y), 2304-3072 (dln, hence dx)
+# and 8192 (dW, the row sums) terms, the largest difference over up to 25
+# M outputs: 1.3e-5 of the RMS in the first run on the card (y at fc +
+# GELU), so 5e-5, not flash's 1e-5. bf16, beyond one rounding step of the
+# output: both sides round the fp32 LayerNorm output (and dy gelu'(pre))
+# to bf16 before the product, and their fp32 values differ in the last
+# bits (1.0f / sqrtf against torch.rsqrt, sums in other orders), so an
+# element at a rounding boundary rounds to neighbouring bf16 values and
+# moves a product by up to 2**-8 |ln| |w|, ~4e-3 of the RMS at these
+# shapes (2.9e-3 measured); 1e-2.
+FUSED_LN_TOL = {"float32": 5e-5, "bfloat16": 1e-2}
+
+
+def fused_ln_case(torch, dtype, n, d, f, seed):
+    """x [n, D] (mean 0.5, std 2), gamma ~ 1, beta and bias ~ 0.1, w [F, D]
+    with std 1/sqrt(D), dy normal; all in ``dtype`` (the bf16 training
+    step casts gamma, beta and bias to bf16 too)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (torch.randn(*shape, generator=g) * std + mean).to(
+            "cuda", dtype)
+
+    return (rnd(n, d, std=2.0, mean=0.5), rnd(d, std=0.1, mean=1.0),
+            rnd(d, std=0.1), rnd(f, d, std=d ** -0.5), rnd(f, std=0.1),
+            rnd(n, f))
+
+
+def fused_ln_bytes_flops(n, d, f, act, es, which):
+    """What one call must move and compute: each input read once, each
+    output written once; 2 n D F flops per product (the forward has 1, the
+    backward 2, and 3 under GELU, whose pre-activation it recomputes)."""
+    vectors = (2 * d + f) * es                       # gamma, beta, bias
+    if which == "fwd":                               # x, W -> y
+        return (n * d + f * d + n * f) * es + vectors, 2 * n * d * f
+    # x, W, dy -> dx, dW, plus the vectors and their gradients
+    return ((2 * n * d + 2 * f * d + n * f) * es + 2 * vectors,
+            (3 if act else 2) * 2 * n * d * f)
+
+
+def fused_ln_unfused(torch, x, gamma, beta, w, bias, act):
+    """The yardstick: the port's unfused eager sequence for a site
+    (models/gpt.py without fused_ln): fp32 F.layer_norm, the cast, F.linear
+    in the compute dtype (cuBLAS), the tanh GELU."""
+    import torch.nn.functional as F
+
+    h = F.layer_norm(x.float(), (x.shape[-1],), gamma.float(), beta.float(),
+                     1e-5).to(w.dtype)
+    y = F.linear(h, w, bias)
+    return F.gelu(y, approximate="tanh") if act else y
+
+
+def check_fused_ln(torch, reports):
+    """#6 and #7 alone on the plain versions' inputs, and the whole
+    autograd path (3-D x through ``ln_matmul``) against the plain
+    versions, in fp32 and bf16 at the path's two sites and the tail
+    (FUSED_LN_TOL);
+    then timed in bf16 at the path's sites, per layer (both sites summed),
+    beside the plain versions and the unfused eager sequence."""
+    from deepspeed_tpu_torch.ops.transformer import fused as fz
+    from torch.profiler import ProfilerActivity, profile
+
+    worst, bad = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for i, (n, d, f, act) in enumerate(FUSED_LN_SITES + FUSED_LN_TAIL):
+            x, gamma, beta, w, bias, dy = fused_ln_case(torch, dtype, n, d,
+                                                        f, seed=40 + i)
+            kw = dict(eps=1e-5, activation=act)
+            args = fz._prepare(x, gamma, beta, w, bias)
+            if args[0].data_ptr() != x.data_ptr() or \
+                    args[3].data_ptr() != w.data_ptr():
+                fail("fused_ln copied a contiguous aligned operand")
+            y = fz.ln_matmul_fwd(*args, **kw)
+            grads = fz.ln_matmul_bwd(*args, dy, **kw)
+            torch.cuda.synchronize()
+            y_w = fz.ln_matmul_reference(x, gamma, beta, w, bias, **kw)
+            grads_w = fz.ln_matmul_bwd_reference(x, gamma, beta, w, bias,
+                                                 dy, **kw)
+            # the whole path: x as [16, n / 16, D] through the Function
+            leaves = [t.detach().clone().requires_grad_()
+                      for t in (x, gamma, beta, w, bias)]
+            x3 = leaves[0].reshape(16, -1, d) if n % 16 == 0 else leaves[0]
+            y3 = fz.ln_matmul(x3, *leaves[1:], **kw)
+            y3.backward(dy.reshape(y3.shape))
+            torch.cuda.synchronize()
+            pairs = [("fwd y", y, y_w), ("autograd y", y3.reshape(n, f),
+                                         y_w)]
+            pairs += [(f"bwd {k}", a, b) for k, a, b in
+                      zip(FUSED_LN_NAMES, grads, grads_w)]
+            pairs += [(f"autograd {k}", t.grad, b) for k, t, b in
+                      zip(FUSED_LN_NAMES, leaves, grads_w)]
+            for key, got, ref in pairs:
+                if got.dtype != ref.dtype or got.shape != ref.shape:
+                    fail(f"fused_ln {key} {name}: {got.dtype} "
+                         f"{tuple(got.shape)}, plain {ref.dtype} "
+                         f"{tuple(ref.shape)}")
+                if not torch.isfinite(got).all():
+                    fail(f"fused_ln {key} {name} n={n} F={f}: non-finite")
+                diff = (got.float() - ref.float()).abs()
+                rms = ref.float().pow(2).mean().sqrt().item()
+                err = diff.max().item()
+                if name == "bfloat16":
+                    diff = (diff - bf16_step(torch, ref)).clamp_min(0)
+                rel = diff.max().item() / max(rms, 1e-30)
+                if rel > FUSED_LN_TOL[name]:
+                    bad.append(f"{key} {name} n={n} D={d} F={f} {act}: max "
+                               f"|err| {err}, {rel} of the plain version's "
+                               f"RMS {rms}")
+                k = (key.split()[0], name)
+                w_ = worst.get(k, (0.0, 0.0))
+                worst[k] = (max(w_[0], err), max(w_[1], rel))
+                if i < len(FUSED_LN_SITES) and name == "bfloat16":
+                    worst[("path", key.split()[0])] = max(
+                        worst.get(("path", key.split()[0]), 0.0), err)
+            del x, gamma, beta, w, bias, dy, args, y, grads, y_w, grads_w
+            del leaves, x3, y3, pairs
+    for (key, name), (err, rel) in sorted(
+            (k, v) for k, v in worst.items() if k[0] != "path"):
+        limit = (f"limit {FUSED_LN_TOL[name]}" if name == "float32" else
+                 f"beyond one bf16 step; limit {FUSED_LN_TOL[name]}")
+        print(f"fused_ln {key} {name} (path sites and tail, +-GELU): max "
+              f"|err| {err:.3g}, {rel:.3g} of the plain version's RMS "
+              f"({limit})")
+    if bad:
+        fail("fused_ln kernels disagree with their plain versions:\n  "
+             + "\n  ".join(bad))
+
+    # Timing at the path's sites, bf16, rotating over 2 sets of inputs
+    sets = {site: [fused_ln_case(torch, torch.bfloat16, *site[:3],
+                                 seed=60 + j) for j in range(2)]
+            for site in FUSED_LN_SITES}
+    times = {}
+    for site, cases in sets.items():
+        n, d, f, act = site
+        kw = dict(eps=1e-5, activation=act)
+        it = {"i": 0}
+
+        def nxt():
+            it["i"] = (it["i"] + 1) % len(cases)
+            return cases[it["i"]]
+
+        lib_in = []
+        for x, gamma, beta, w, bias, dy in cases:
+            leaves = [t.clone().requires_grad_()
+                      for t in (x, gamma, beta, w, bias)]
+            lib_in.append((leaves, fused_ln_unfused(torch, *leaves, act),
+                           dy))
+
+        def lib_fwd():
+            with torch.no_grad():
+                fused_ln_unfused(torch, *nxt()[:5], act)
+
+        def lib_bwd():
+            leaves, out, dy = lib_in[it["i"]]
+            it["i"] = (it["i"] + 1) % len(cases)
+            torch.autograd.grad(out, leaves, dy, retain_graph=True)
+
+        t = {"fwd": cuda_ms(lambda: fz.ln_matmul_fwd(*nxt()[:5], **kw)),
+             "bwd": cuda_ms(lambda: fz.ln_matmul_bwd(*nxt(), **kw),
+                            iters=20),
+             "plain fwd": cuda_ms(lambda: fz.ln_matmul_reference(
+                 *nxt()[:5], **kw), iters=10, warmup=2),
+             "plain bwd": cuda_ms(lambda: fz.ln_matmul_bwd_reference(
+                 *nxt(), **kw), iters=5, warmup=1),
+             "library fwd": cuda_ms(lib_fwd),
+             "library bwd": cuda_ms(lib_bwd, iters=20)}
+        for which in ("fwd", "bwd"):
+            nbytes, flops = fused_ln_bytes_flops(n, d, f, act, 2, which)
+            t[f"bound {which}"] = max(nbytes / HBM_BYTES_PER_S,
+                                      flops / BF16_FLOPS) * 1e3
+            t[f"by {which}"] = ("bytes" if nbytes / HBM_BYTES_PER_S
+                                >= flops / BF16_FLOPS else "operations")
+            t[f"tflops {which}"] = flops / (t[which] / 1e3) / 1e12
+        # the kernels of one forward and backward call, by device time
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(5):
+                x, gamma, beta, w, bias, dy = nxt()
+                fz.ln_matmul_fwd(x, gamma, beta, w, bias, **kw)
+                fz.ln_matmul_bwd(x, gamma, beta, w, bias, dy, **kw)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        t["profile per fwd + bwd"] = kernel_stats(prof.events(), 5, wall_us)
+        times[site] = t
+        print(f"fused_ln timing bf16 n={n} D={d} F={f} {act}: "
+              f"{json.dumps(t)}")
+        del lib_in
+    del sets
+    for which in ("fwd", "bwd"):
+        rep = reports[which]
+        rep.update(
+            ms=sum(t[which] for t in times.values()),
+            plain_ms=sum(t[f"plain {which}"] for t in times.values()),
+            library_ms=sum(t[f"library {which}"] for t in times.values()),
+            bound_ms=sum(t[f"bound {which}"] for t in times.values()),
+            bound_by=times[FUSED_LN_SITES[0]][f"by {which}"],
+            max_abs_err=worst[("path", which)])
+        print(f"fused_ln {which} per layer (both sites, bf16): kernel "
+              f"{rep['ms']:.4f} ms, plain {rep['plain_ms']:.4f} ms, unfused "
+              f"eager sequence {rep['library_ms']:.4f} ms, bound "
+              f"{rep['bound_ms']:.4f} ms ({rep['bound_by']})")
+
+
+# ---------------------------------------------------------------------------
 # 3. serving end to end
 # ---------------------------------------------------------------------------
 
@@ -1874,6 +2108,10 @@ KERNELS = (
      "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:147"),
     ("sparse_attention_bwd_dkv", "sparse_attention",
      "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:194"),
+    ("fused_ln_matmul_fwd", "fused_ln",
+     "deepspeed_tpu/ops/transformer/fused.py:68"),
+    ("fused_ln_matmul_bwd", "fused_ln",
+     "deepspeed_tpu/ops/transformer/fused.py:81"),
 )
 
 
@@ -1905,20 +2143,23 @@ class PlainCalls:
     """Counts calls of the plain versions while the main path runs: the
     module (or class) attributes the wrappers call are swapped for
     counting shims. ``targets``: ``(owner, name)`` pairs; by default the
-    training paths': dense and sparse attention and Adam."""
+    training paths': dense and sparse attention, Adam and the fused
+    LayerNorm + projection."""
 
     def __init__(self, targets=None):
         if targets is None:
             from deepspeed_tpu_torch.ops.adam import fused_update
             from deepspeed_tpu_torch.ops.transformer import (
-                attention, flash_attention)
+                attention, flash_attention, fused)
             sp = sparse_module()
             targets = [(flash_attention, "flash_attention_reference"),
                        (attention, "xla_attention"),
                        (fused_update, "fused_adam_reference"),
                        (sp, "_xla_sparse"), (sp, "sparse_fwd_reference"),
                        (sp, "sparse_bwd_dq_reference"),
-                       (sp, "sparse_bwd_dkv_reference")]
+                       (sp, "sparse_bwd_dkv_reference"),
+                       (fused, "ln_matmul_reference"),
+                       (fused, "ln_matmul_bwd_reference")]
         self.targets = targets
         self.calls = {name: 0 for _m, name in self.targets}
 
@@ -1944,6 +2185,7 @@ def training_counters():
     """The launch counters of every kernel a training step may run."""
     from deepspeed_tpu_torch.ops.adam import fused_adam_apply
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    from deepspeed_tpu_torch.ops.transformer import fused
 
     sp = sparse_module()
     return {"flash_attention_fwd": fa.flash_attention_fwd,
@@ -1952,7 +2194,9 @@ def training_counters():
             "sparse_attention_fwd": sp.sparse_attention_fwd,
             "sparse_attention_bwd_dq": sp.sparse_attention_bwd_dq,
             "sparse_attention_bwd_dkv": sp.sparse_attention_bwd_dkv,
-            "fused_adam": fused_adam_apply}
+            "fused_adam": fused_adam_apply,
+            "fused_ln_matmul_fwd": fused.ln_matmul_fwd,
+            "fused_ln_matmul_bwd": fused.ln_matmul_bwd}
 
 
 def timed_steps(torch, engine, batches, steps):
@@ -2021,16 +2265,17 @@ def profile_step(torch, engine, batches, what):
     return stats
 
 
-def check_training(torch, card):
+def train_engine(torch, fused_ln):
+    """bench_gpt2's engine (TRAIN_CONFIG) on full-width GPT-2 with the
+    given ``fused_ln``, its fixed batch, and the launches each kernel
+    makes per step."""
     import numpy as np
 
     import deepspeed_tpu_torch as dtt
-    from deepspeed_tpu_torch.models import init_gpt_params, make_gpt
-    from torch.profiler import ProfilerActivity, profile
+    from deepspeed_tpu_torch.models import gpt, init_gpt_params, make_gpt
 
-    model, cfg = make_gpt("gpt2", dropout_rate=0.0)
+    model, cfg = make_gpt("gpt2", dropout_rate=0.0, fused_ln=fused_ln)
     sd = init_gpt_params(cfg, seed=0)
-    n_params = sum(int(np.prod(v.shape)) for v in sd.values())
     engine, _opt, _loader, _sched = dtt.initialize(model=model, params=sd,
                                                    config=TRAIN_CONFIG)
     gas = TRAIN_CONFIG["gradient_accumulation_steps"]
@@ -2038,14 +2283,31 @@ def check_training(torch, card):
     rng = np.random.default_rng(0)
     batches = {"input_ids": torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (gas, micro, TRAIN_SEQ), dtype=np.int32)).cuda()}
+    per_layer = cfg.num_layers * gas
+    sites = len(gpt._fused_ln_sites(fused_ln))
     per_step = {name: 0 for name in training_counters()}
-    per_step.update({"flash_attention_fwd": cfg.num_layers * gas,
-                     "flash_attention_bwd_dq": cfg.num_layers * gas,
-                     "flash_attention_bwd_dkv": cfg.num_layers * gas,
-                     "fused_adam": 1})
+    per_step.update({"flash_attention_fwd": per_layer,
+                     "flash_attention_bwd_dq": per_layer,
+                     "flash_attention_bwd_dkv": per_layer,
+                     "fused_adam": 1,
+                     "fused_ln_matmul_fwd": sites * per_layer,
+                     "fused_ln_matmul_bwd": sites * per_layer})
+    n_params = sum(int(np.prod(v.shape)) for v in sd.values())
+    return engine, model, cfg, batches, per_step, n_params
+
+
+def check_training(torch, card, fused_ln=False):
+    """Phase 4 (unfused) or 6 (``fused_ln=True``): the counted, timed and
+    profiled training steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    engine, model, cfg, batches, per_step, n_params = train_engine(
+        torch, fused_ln)
+    what = "fused_ln training" if fused_ln else "training"
+    gas = TRAIN_CONFIG["gradient_accumulation_steps"]
+    micro = TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
     step_ms, losses, launches = counted_steps(
-        torch, engine, batches, per_step, "training", TRAIN_WARMUP,
-        TRAIN_STEPS)
+        torch, engine, batches, per_step, what, TRAIN_WARMUP, TRAIN_STEPS)
     med = median(step_ms)
     tokens = gas * micro * TRAIN_SEQ
     flops = train_flops_per_step(n_params, gas * micro, TRAIN_SEQ,
@@ -2053,7 +2315,7 @@ def check_training(torch, card):
     training = {
         "model": "gpt2", "params": n_params, "micro_batch": micro,
         "gas": gas, "seq": TRAIN_SEQ, "dtype": "bfloat16",
-        "fused_update": True, "steps": TRAIN_STEPS,
+        "fused_update": True, "fused_ln": fused_ln, "steps": TRAIN_STEPS,
         "step_ms_median": med, "step_ms_min": min(step_ms),
         "step_ms_max": max(step_ms), "step_ms": step_ms,
         "tokens_per_s": tokens / (med / 1e3),
@@ -2061,10 +2323,10 @@ def check_training(torch, card):
         "mfu_vs_989_tflops_dense_bf16": flops / (med / 1e3) / BF16_FLOPS,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "losses": losses, "launches": launches, "card": card}
-    print(f"training bf16 gpt2 (initialize -> train_batch): "
+    print(f"{what} bf16 gpt2 (initialize -> train_batch): "
           f"{json.dumps(training)}")
 
-    if profile_step(torch, engine, batches, "training") is not None:
+    if profile_step(torch, engine, batches, what) is not None:
         # A second step with the operands' shapes recorded (which costs
         # host time, so the idle share above comes from the first): the
         # matmuls by shape, i.e. which products take the GEMM time.
@@ -2081,7 +2343,7 @@ def check_training(torch, card):
         ops = [a for a in prof.key_averages(group_by_input_shape=True)
                if a.key in ("aten::mm", "aten::addmm", "aten::bmm")]
         ops.sort(key=lambda a: -dev_us(a))
-        print("training profile, matmuls by input shape (op, shapes, "
+        print(f"{what} profile, matmuls by input shape (op, shapes, "
               "device ms per step, calls): " + json.dumps(
                   [[a.key, str(a.input_shapes)[:90], dev_us(a) / 1e3,
                     a.count] for a in ops[:10]]))
@@ -2090,7 +2352,30 @@ def check_training(torch, card):
     return training
 
 
-def check_training_fp32(torch, seq=512, micro=4, sparse=None):
+def check_fused_ln_sites(torch, card, base_ms):
+    """The one-site variants of phase 6, as tools/probe_fused_r5.py runs
+    them: "qkv" and "mlp", 1 + 2 counted steps each (96 launches of #6
+    and #7 per step, no plain version, the loss falls); step ms beside
+    phase 4's unfused median from this run."""
+    out = {}
+    for mode in ("qkv", "mlp"):
+        engine, model, _cfg, batches, per_step, _n = train_engine(torch,
+                                                                  mode)
+        step_ms, losses, launches = counted_steps(
+            torch, engine, batches, per_step, f"fused_ln={mode!r} training",
+            1, 2)
+        out[mode] = {"step_ms": step_ms, "losses": losses,
+                     "fused_ln_matmul_fwd": launches["fused_ln_matmul_fwd"],
+                     "step_ratio_vs_unfused": median(step_ms) / base_ms}
+        del engine, model, batches
+        torch.cuda.empty_cache()
+    print(f"fused_ln one-site variants (1 + 2 steps each; unfused step "
+          f"{base_ms:.2f} ms, {card}): {json.dumps(out)}")
+    return out
+
+
+def check_training_fp32(torch, seq=512, micro=4, sparse=None,
+                        fused_ln=False):
     """fp32 on the card, gpt2 width at 2 layers, GAS 2: the kernels' path
     (flash attention, or with ``sparse`` the block-sparse kernels, and
     fused Adam) against the plain path (``xla`` attention, the per-tensor
@@ -2099,15 +2384,19 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None):
     not hidden in the norm of the whole tree, which the tied embedding's
     gradient dominates) and the 3 losses to 1e-5 relative. A ``sparse``
     block gets rng_seed 1 on both runs, so that each draws its layout
-    fresh at this length: the same random blocks."""
+    fresh at this length: the same random blocks. With ``fused_ln`` the
+    kernels' model fuses both LayerNorm sites (#6, #7) and the plain path
+    runs the unfused model."""
     import numpy as np
 
     import deepspeed_tpu_torch as dtt
     from deepspeed_tpu_torch.models import init_gpt_params, make_gpt
     from deepspeed_tpu_torch.runtime.utils import global_norm
 
-    counter = training_counters()["sparse_attention_fwd" if sparse else
-                                  "flash_attention_fwd"]
+    counters = training_counters()
+    counter = counters["sparse_attention_fwd" if sparse else
+                       "flash_attention_fwd"]
+    ln_counter = counters["fused_ln_matmul_bwd"]
     what = "sparse " if sparse else ""
     gas = 2
     rng = np.random.default_rng(1)
@@ -2126,12 +2415,14 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None):
             over = {"max_seq_len": seq}
         else:
             over = {"attention_impl": impl}
+        if fused_ln and label == "kernels":
+            over["fused_ln"] = fused_ln
         model, cfg = make_gpt("gpt2", dropout_rate=0.0, num_layers=2,
                               dtype=torch.float32, **over)
         engine, *_ = dtt.initialize(model=model,
                                     params=init_gpt_params(cfg, seed=1),
                                     config=conf)
-        before = counter.launches
+        before, ln_before = counter.launches, ln_counter.launches
         first = []
         for j in range(gas):
             first.append(engine.forward({"input_ids": ids[0, j]}))
@@ -2145,6 +2436,10 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None):
         if (launched > 0) != (label == "kernels"):
             fail(f"fp32 comparison: the {label} run launched the {what}"
                  f"attention forward {launched} times")
+        ln_launched = ln_counter.launches - ln_before
+        if (ln_launched > 0) != (label == "kernels" and bool(fused_ln)):
+            fail(f"fp32 comparison: the {label} run launched the fused_ln "
+                 f"backward {ln_launched} times")
         runs[label] = (grads, losses)
         names = engine.param_names
         del engine, model
@@ -2155,15 +2450,18 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None):
     whole = (float(global_norm([a - b for a, b in zip(gk, gp)]))
              / float(global_norm(gp)))
     worst = max(rel, key=rel.get)
+    keys = ("ln_1", "c_attn", "ln_2", "c_fc") if fused_ln else (
+        "c_attn", "c_proj")
     attn = {n: f"{e:.3g}" for n, e in rel.items()
-            if "c_attn" in n or "c_proj" in n}
+            if any(k in n for k in keys)}
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
     layout = (f", {sparse['mode']} block {sparse['block']}" if sparse
-              else "")
+              else f", fused_ln={fused_ln!r}" if fused_ln else "")
     print(f"training fp32 gpt2-width 2 layers, micro {micro} x {seq}, GAS "
           f"2{layout}: kernels vs plain path: first-step grad |diff|/|grad| "
           f"per leaf: worst {worst} {rel[worst]:.3g} (limit 1e-4); "
-          f"attention leaves {json.dumps(attn)}; whole tree {whole:.3g}; "
+          f"{'fused sites' if fused_ln else 'attention'} leaves "
+          f"{json.dumps(attn)}; whole tree {whole:.3g}; "
           f"losses {lk} vs {lp}, max rel diff {loss_rel:.3g} (limit 1e-5)")
     if not rel[worst] <= 1e-4 or not loss_rel <= 1e-5:
         fail(f"training fp32{layout}: the kernels' path disagrees with the "
@@ -2314,6 +2612,8 @@ def main() -> int:
         "fwd": reports["sparse_attention_fwd"],
         "dq": reports["sparse_attention_bwd_dq"],
         "dkv": reports["sparse_attention_bwd_dkv"]})
+    check_fused_ln(torch, {"fwd": reports["fused_ln_matmul_fwd"],
+                           "bwd": reports["fused_ln_matmul_bwd"]})
     if only_kernels:
         print(json.dumps({"kernels_checked": [k for k, *_ in KERNELS]}))
         return 0
@@ -2340,6 +2640,20 @@ def main() -> int:
     for name in SPARSE_KERNELS:
         reports[name]["launches"] = long["launches"][name]
     check_training_fp32(torch, seq=4096, micro=1, sparse=SPARSE_LONG)
+
+    # 6. training with the fused LayerNorm + projection sites, its one-site
+    # variants and its fp32 comparison
+    fused = check_training(torch, card, fused_ln=True)
+    for name in ("fused_ln_matmul_fwd", "fused_ln_matmul_bwd"):
+        reports[name]["launches"] = fused["launches"][name]
+    base_ms = training["step_ms_median"]
+    print(f"fused_ln training: step {fused['step_ms_median']:.2f} ms against "
+          f"the unfused {base_ms:.2f} ms of phase 4: ratio "
+          f"{fused['step_ms_median'] / base_ms:.4f}; peak memory "
+          f"{fused['peak_memory_gb']:.3f} GB against "
+          f"{training['peak_memory_gb']:.3f} GB")
+    check_fused_ln_sites(torch, card, base_ms)
+    check_training_fp32(torch, fused_ln=True)
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -7,7 +7,8 @@ the CUDA device unless the caller passes ``device="cpu"``.
 
 Ported so far: single-device training (``initialize`` -> ``train_batch``)
 with the flash-attention and fused-Adam kernels, block-sparse attention
-(the ``sparse_attention`` block) with its own kernels, and
+(the ``sparse_attention`` block) with its own kernels, the GPT's fused
+LayerNorm + projection sites (``GPTConfig.fused_ln``) with theirs, and
 continuous-batching GPT serving (``init_serving``) over the inference engine
 (``init_inference``) with the paged decode-attention kernel; every kernel
 written in CUDA for Hopper.

@@ -1,6 +1,7 @@
 // Tile helpers shared by the attention kernels that stream [B, S, H, D]
 // tiles through shared memory in fp32: flash_attention.cu (TPU kernels
-// #3-#5) and sparse_attention.cu (TPU kernels #8-#10).
+// #3-#5) and sparse_attention.cu (TPU kernels #8-#10); fused_ln.cu (#6,
+// #7) borrows the loads, stores and reductions.
 //
 // A block has THREADS threads. The rows of the tile it owns get LPR
 // neighbouring lanes each (LPR a power of two up to 32, so that a row's

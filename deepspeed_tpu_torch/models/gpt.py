@@ -27,9 +27,11 @@ where it would act, in a training forward; inference, serving and eval are
 deterministic and ignore it, as in JAX. A ``sparse_attention`` block
 (the DeepSpeed config block: mode, block, ...) routes the training
 forward's attention through ``ops/sparse_attention`` (its kernels on the
-card); a forward with a cache stays dense, as in JAX. MoE, the fused LN
-kernel, remat and the sparse embedding gradient are refused at
-construction until a later slice ports them.
+card); a forward with a cache stays dense, as in JAX. ``fused_ln`` fuses
+the pre-LN sites (LN1 + QKV, LN2 + fc + GELU) through
+``ops/transformer/fused.ln_matmul`` (its kernels on the card), in every
+forward form, as in JAX. MoE, remat and the sparse embedding gradient are
+refused at construction until a later slice ports them.
 """
 
 from dataclasses import dataclass, replace
@@ -45,7 +47,20 @@ from deepspeed_tpu_torch.ops.sparse_attention.utils import \
     get_sparse_self_attention
 from deepspeed_tpu_torch.ops.transformer.attention import (attention,
                                                            xla_attention)
+from deepspeed_tpu_torch.ops.transformer.fused import ln_matmul, ln_matmul_ok
 from deepspeed_tpu_torch.ops.xent import fused_cross_entropy
+
+
+def _fused_ln_sites(mode) -> Tuple[str, ...]:
+    """The sites a ``fused_ln`` value asks for; raises ValueError on a
+    value the JAX model refuses (anything but False, None, True, "auto",
+    "qkv" and "mlp")."""
+    if mode is False or mode is None:
+        return ()
+    if mode is not True and mode not in ("auto", "qkv", "mlp"):
+        raise ValueError(f"unknown fused_ln value {mode!r}: expected False, "
+                         "True, 'auto', 'qkv', or 'mlp'")
+    return ("qkv", "mlp") if mode is True or mode == "auto" else (mode,)
 
 
 @dataclass(frozen=True)
@@ -72,13 +87,16 @@ class GPTConfig:
     # Block-sparse attention config dict (the DeepSpeed `sparse_attention`
     # block: mode/block/num_local_blocks/...); None = dense attention.
     sparse_attention: Any = None
-    # Training options of the JAX GPTConfig, accepted off only.
+    # Fused LayerNorm + projection at the two pre-LN sites (LN1 + QKV and
+    # LN2 + fc + GELU): True = both, "qkv" / "mlp" = one, "auto" = both
+    # when the input is on CUDA, False / None = unfused.
     fused_ln: Any = False
+    # Training option of the JAX GPTConfig, accepted off only.
     moe_experts: int = 0
 
     def __post_init__(self):
-        for key, off in (("remat", False), ("fused_ln", False),
-                         ("moe_experts", 0),
+        _fused_ln_sites(self.fused_ln)
+        for key, off in (("remat", False), ("moe_experts", 0),
                          ("sparse_embedding_grad", None)):
             if getattr(self, key) not in (off, None, 0, False):
                 raise not_yet_ported(f"GPTConfig.{key}")
@@ -109,6 +127,21 @@ GPT_CONFIGS: Dict[str, GPTConfig] = {
 }
 
 
+def _use_fused_ln(cfg: GPTConfig, x: torch.Tensor) -> frozenset:
+    """The fused sites of this forward (``deepspeed_tpu/models/gpt.py:
+    _use_fused_ln``): "auto" takes both sites on a CUDA input and none on
+    the CPU; each asked-for site is then gated on its own shapes by
+    ``ln_matmul_ok``."""
+    want = _fused_ln_sites(cfg.fused_ln)
+    if cfg.fused_ln == "auto" and x.device.type != "cuda":
+        return frozenset()
+    n = x.shape[0] * x.shape[1]
+    out_dim = {"qkv": 3 * cfg.hidden_size,
+               "mlp": cfg.mlp_ratio * cfg.hidden_size}
+    return frozenset(s for s in want
+                     if ln_matmul_ok(n, cfg.hidden_size, out_dim[s]))
+
+
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """fp32 LayerNorm, as flax's ``LayerNorm(dtype=float32)``. flax takes
     the variance as E[x^2] - E[x]^2; torch's two-pass form differs from it
@@ -125,7 +158,8 @@ def _dense(lin: nn.Linear, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
 
 class GPTBlock(nn.Module):
     """Pre-LN transformer block: LN -> QKV -> attention -> proj, then
-    LN -> fc -> tanh-GELU -> proj, each with a residual."""
+    LN -> fc -> tanh-GELU -> proj, each with a residual; under ``fused_ln``
+    a site's LN and projection (and GELU) are one ``ln_matmul``."""
 
     def __init__(self, cfg: GPTConfig):
         super().__init__()
@@ -147,8 +181,14 @@ class GPTBlock(nn.Module):
         an updated copy)."""
         cfg = self.cfg
         dt = cfg.dtype
-        h = _layer_norm(self.ln_1, x).to(dt)
-        qkv = _dense(self.c_attn, h, dt)
+        fused = _use_fused_ln(cfg, x)
+        if "qkv" in fused:
+            qkv = ln_matmul(x, self.ln_1.weight, self.ln_1.bias,
+                            self.c_attn.weight.to(dt),
+                            self.c_attn.bias.to(dt), eps=self.ln_1.eps)
+        else:
+            h = _layer_norm(self.ln_1, x).to(dt)
+            qkv = _dense(self.c_attn, h, dt)
         b, s = x.shape[0], x.shape[1]
         shape = (b, s, cfg.num_heads, cfg.head_dim)
         q, k, v = (t.reshape(shape) for t in qkv.split(cfg.hidden_size, -1))
@@ -191,8 +231,13 @@ class GPTBlock(nn.Module):
             o = xla_attention(q, ck, cv, mask=mask, softmax_scale=scale)
         o = _dense(self.c_proj, o.reshape(b, s, cfg.hidden_size), dt)
         x = x + o
-        h = _layer_norm(self.ln_2, x).to(dt)
-        h = F.gelu(_dense(self.c_fc, h, dt), approximate="tanh")
+        if "mlp" in fused:
+            h = ln_matmul(x, self.ln_2.weight, self.ln_2.bias,
+                          self.c_fc.weight.to(dt), self.c_fc.bias.to(dt),
+                          eps=self.ln_2.eps, activation="gelu")
+        else:
+            h = _layer_norm(self.ln_2, x).to(dt)
+            h = F.gelu(_dense(self.c_fc, h, dt), approximate="tanh")
         x = x + _dense(self.mlp_proj, h, dt)
         return (x, kv_cache) if kv_cache is not None else x
 

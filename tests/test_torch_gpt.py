@@ -173,10 +173,11 @@ def test_seeded_weights_have_the_flax_layout_and_distributions():
 
 @pytest.mark.parametrize("override", [
     {"dropout_rate": 0.1}, {"moe_experts": 4}, {"remat": True},
-    {"fused_ln": True}, {"sparse_embedding_grad": True}])
+    {"sparse_embedding_grad": True}])
 def test_training_options_not_yet_ported(override):
     """Each option is refused; dropout only where it would act, in a
-    training forward (the others at construction)."""
+    training forward (the others at construction). ``fused_ln`` is ported:
+    tests/test_torch_fused_ln.py holds its values and sites."""
     with pytest.raises(ConfigError, match="not yet ported"):
         model, _ = make_gpt("tiny", **override)
         model(torch.zeros(1, 4, dtype=torch.long), deterministic=False)
