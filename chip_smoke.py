@@ -23,7 +23,12 @@
      with and without a key mask holding an all-padding row, and at S=5
      and S=300; the whole autograd path against the plain version's; fp32
      within 1e-5 (dO x 0.1), bf16 within one rounding step plus 1e-3 of
-     the reference's RMS (0.15 on the autograd path; dO unscaled);
+     the reference's RMS (0.15 on the autograd path; dO unscaled); the
+     same at dropout 0.1 at [16, 512, 12, 64] with one seed on both sides;
+     timed at dropout 0 and 0.1 beside SDPA at ``dropout_p`` 0 and 0.1;
+     and the dropout keep-mask read back out of the forward and dk/dv
+     kernels (fp32, [2, 2048, 2, 256], an identity V and dO on a 256-wide
+     window) against ``dropout_keep_mask``, no bit flipped;
    - fused Adam, bit for bit, over GPT-2's 148 parameter tensors (with
      the bf16 copy of the new params that the bf16 training step uses);
    - block-sparse attention forward, dq and dk/dv (kernels #8-#10) at
@@ -37,12 +42,11 @@
    - the fused LayerNorm + projection forward and backward (kernels #6,
      #7) at the training path's two sites (n = 8192 rows, D = 768, F =
      2304 without activation and 3072 with GELU) and a tail (n = 300, D
-     = 136, F = 200), fp32 and bf16, each kernel alone and the whole
-     autograd path: fp32 within 1e-5 of each output's RMS, bf16 within
-     one rounding step plus 1e-3 of it; timed in bf16 at the path's
-     sites beside the plain versions and the unfused eager sequence
-     (``F.layer_norm`` -> cast -> ``F.linear`` (-> GELU) and its autograd
-     backward).
+     = 136, F = 200), fp32, bf16 and fp16, each kernel alone and the whole
+     autograd path, as ``FUSED_LN_TOL`` states; timed in bf16 and fp16 at
+     the path's sites beside the plain versions and the unfused eager
+     sequence (``F.layer_norm`` -> cast -> ``F.linear`` (-> GELU) and its
+     autograd backward).
 3. Serving end to end: ``init_serving`` on full-width GPT-2 (random
    weights from a seed) serves 16 requests in two waves:
    - bucketed bf16 through ``decode_attention: "kernel"`` (kernel #1
@@ -83,7 +87,18 @@
    peak memory, a profiled step and the ratio to phase 4's step; the
    "qkv" and "mlp" variants (1 + 2 steps each); then in fp32 at 2 layers
    the fused kernels' path against the unfused plain path, held as in
-   phase 4.
+   phase 4; then ``fp16`` (loss scale from 2**16) on the fp16 model (1 + 2
+   steps): #6 and #7 launch 192 times each per step through their fp16
+   branch, no plain version, finite losses.
+7. Training at the default dropout: phase 4's configuration on
+   ``make_gpt("gpt2")`` as it is (``dropout_rate`` 0.1, hash dropout):
+   each flash kernel launches 96 times per step through its dropout
+   branch, fused Adam once, no plain version, the loss falls; step time,
+   tokens/s, MFU, peak memory, the ratio to phase 4's step and a profiled
+   step (device ms of the flash kernels and of the hash dropout's
+   forward passes). Then in fp32 at 2 layers and dropout 0.1 the kernels'
+   path against the plain path (``impl: "xla"``, the same mask function
+   and seeds), held as in phase 4.
 
 Any failure exits non-zero. The last stdout line is
 ``{"ok": true, "device": {...}}``; before it come the card line and a
@@ -682,12 +697,17 @@ def flash_case(torch, dtype, b, s, h, d, seed, masked=False,
     return qkv, q, k, v, dout, mask
 
 
-def bf16_step(torch, ref):
-    """One bf16 rounding step (unit in the last place) at each element of
-    ``ref``: 2**(e - 8) for |x| in [2**(e-1), 2**e); 0 where ref is 0."""
+def round_step(torch, ref, dtype=None):
+    """One rounding step (unit in the last place) of ``dtype`` (bf16 by
+    default, or fp16) at each element of ``ref``: 2**(e - 8) in bf16 and
+    2**(e - 11) in fp16 (at least 2**-24, its subnormal step) for |x| in
+    [2**(e-1), 2**e); 0 where ref is 0."""
     r = ref.float()
     exp = torch.frexp(r.abs())[1]
-    step = torch.ldexp(torch.ones_like(r), exp - 8)
+    if dtype == torch.float16:
+        step = torch.ldexp(torch.ones_like(r), (exp - 11).clamp_min(-24))
+    else:
+        step = torch.ldexp(torch.ones_like(r), exp - 8)
     return torch.where(r == 0, torch.zeros_like(r), step)
 
 
@@ -709,189 +729,286 @@ def flash_bytes_flops(q, mask, which):
     return 6 * big + 2 * rows + mbytes, 8 * d * pairs  # -> dk, dv
 
 
+def compare_flash_case(torch, fa, dtype, b, s, h, d, masked, worst,
+                       rate=0.0, seed=None):
+    """Kernels #3-#5 and the whole autograd path against their plain
+    versions on one case (causal), at dropout ``rate`` with ``seed``;
+    folds each output's max |err| into ``worst`` and fails beyond the
+    tolerances (KERNEL_TOL, FLASH_BF16_RMS_TOL)."""
+    name = str(dtype).split(".")[1]
+    tol = KERNEL_TOL[name]
+    qkv, q, k, v, dout, mask = flash_case(
+        torch, dtype, b, s, h, d, seed=s + masked, masked=masked,
+        dout_scale=FLASH_DOUT_SCALE[name])
+    scale = 1.0 / d ** 0.5
+    drop = (rate, seed)
+    qp, kp, vp, mp = fa._prepare(q, k, v, mask, True)
+    if qp.data_ptr() != q.data_ptr():
+        fail("flash_attention copied an aligned strided view")
+    out, lse = fa.flash_attention_fwd(qp, kp, vp, mp, True, scale, *drop)
+    want = fa.flash_attention_reference(q, k, v, causal=True, kv_mask=mask,
+                                        dropout_rate=rate, dropout_seed=seed)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+    delta = delta.contiguous()
+    dq = fa.flash_attention_bwd_dq(qp, kp, vp, dout, mp, lse, delta, True,
+                                   scale, *drop)
+    dk, dv = fa.flash_attention_bwd_dkv(qp, kp, vp, dout, mp, lse, delta,
+                                        True, scale, *drop)
+    torch.cuda.synchronize()
+    dq_w = fa.flash_bwd_dq_reference(q, k, v, dout, mp, lse, delta, True,
+                                     scale, *drop)
+    dk_w, dv_w = fa.flash_bwd_dkv_reference(q, k, v, dout, mp, lse, delta,
+                                            True, scale, *drop)
+    # the whole autograd path against the reference's autograd
+    x1 = qkv.detach().clone().requires_grad_()
+    x2 = qkv.detach().clone().requires_grad_()
+    outs = []
+    for x, fn in ((x1, fa.flash_attention),
+                  (x2, fa.flash_attention_reference)):
+        qq, kk, vv = (t.reshape(b, s, h, d) for t in x.split(h * d, dim=-1))
+        o = fn(qq, kk, vv, causal=True, kv_mask=mask, dropout_rate=rate,
+               dropout_seed=seed)
+        o.backward(dout)
+        outs.append(o)
+    torch.cuda.synchronize()
+    grad_w = x2.grad
+    if rate and name != "float32":
+        # the path's delta comes from its bf16 output (FLASH_BF16_RMS_TOL):
+        # at dropout a row with one visible key outputs (1 / 0.9) v, which
+        # bf16 rounds, so the masked case moves dq and dk by 0.59 of the
+        # RMS against fp32 autograd (first run on the card). The path is
+        # held to the plain backward versions on its own delta instead;
+        # fp32 holds it to autograd.
+        grad_w = torch.cat([t.reshape(b, s, h * d)
+                            for t in (dq_w, dk_w, dv_w)], -1)
+    pairs = {"fwd": (out, want), "dq": (dq, dq_w), "dk": (dk, dk_w),
+             "dv": (dv, dv_w), "autograd out": tuple(outs),
+             "autograd dqkv": (x1.grad, grad_w)}
+    what = f"B={b} S={s} masked={masked} dropout={rate}"
+    for key, (got, ref) in pairs.items():
+        if not torch.isfinite(got).all():
+            fail(f"flash {key} {name} {what}: non-finite output")
+        diff = (got.float() - ref.float()).abs()
+        err = diff.max().item()
+        rms = ref.float().pow(2).mean().sqrt().item()
+        peak = ref.float().abs().max().item()
+        if name == "float32":
+            rel = 0.0
+            bad = err > tol
+        else:
+            rel = ((diff - round_step(torch, ref)).clamp_min(0).max()
+                   .item() / max(rms, 1e-30))
+            bad = rel > FLASH_BF16_RMS_TOL[
+                "autograd" if key.startswith("autograd") and not rate
+                else "kernel"]
+        if bad:
+            fail(f"flash {key} {name} {what}: max |err| {err} (reference "
+                 f"RMS {rms}, max |x| {peak}); beyond one bf16 step {rel} "
+                 f"of the RMS")
+        w = worst.get((key, name))
+        if w is None or err > w[0]:
+            worst[(key, name)] = (err, rms, peak)
+        w = worst.get((key, name, "rel"))
+        worst[(key, name, "rel")] = max(w or 0.0, rel)
+    if masked and b > 1 and (out[1].abs().max().item() != 0.0
+                             or dq[1].abs().max().item() != 0.0):
+        fail(f"flash {what}: the all-padding row is not exactly zero")
+
+
+def print_flash_worst(worst, cases, rate=0.0):
+    for key, name in sorted(k for k in worst if len(k) == 2):
+        err, rms, peak = worst[(key, name)]
+        lim = FLASH_BF16_RMS_TOL["autograd" if key.startswith("autograd")
+                                 and not rate else "kernel"]
+        limit = (f"atol {KERNEL_TOL[name]}" if name == "float32" else
+                 f"beyond one bf16 step: {worst[(key, name, 'rel')]:.3g} "
+                 f"of the RMS, limit {lim}")
+        print(f"flash_attention {key} {name} {cases}, causal, with/without "
+              f"key mask, dO x {FLASH_DOUT_SCALE[name]}: max |err| "
+              f"{err:.3g} where the reference's RMS is {rms:.3g} and its "
+              f"max |x| {peak:.3g} ({limit})")
+
+
+FLASH_DROPOUT = 0.1              # GPTConfig.dropout_rate's default
+FLASH_DROPOUT_SEED = -123456789  # any int: the kernels take it as uint32
+
+
 def check_flash_attention(torch, reports):
+    """#3-#5 against their plain versions at dropout 0 ((B, S) in (16,
+    512), (4, 5), (4, 300)) and at dropout 0.1 ((16, 512)), with and
+    without a key mask holding an all-padding row; then timed at the
+    training shape, in bf16, at both rates, beside the plain versions and
+    SDPA. ``reports``: the rows by (kernel, rate)."""
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 
     h, d = 12, 64
-    worst = {}
+    worst, worst_drop = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[1]
-        tol = KERNEL_TOL[name]
         for b, s, masked in ((16, 512, False), (16, 512, True),
                              (4, 5, True), (4, 300, False), (4, 300, True)):
-            qkv, q, k, v, dout, mask = flash_case(
-                torch, dtype, b, s, h, d, seed=s + masked, masked=masked,
-                dout_scale=FLASH_DOUT_SCALE[name])
-            scale = 1.0 / d ** 0.5
-            qp, kp, vp, mp = fa._prepare(q, k, v, mask, True)
-            if qp.data_ptr() != q.data_ptr():
-                fail("flash_attention copied an aligned strided view")
-            out, lse = fa.flash_attention_fwd(qp, kp, vp, mp, True, scale)
-            want = fa.flash_attention_reference(q, k, v, causal=True,
-                                                kv_mask=mask)
-            delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
-            delta = delta.contiguous()
-            dq = fa.flash_attention_bwd_dq(qp, kp, vp, dout, mp, lse, delta,
-                                           True, scale)
-            dk, dv = fa.flash_attention_bwd_dkv(qp, kp, vp, dout, mp, lse,
-                                                delta, True, scale)
-            torch.cuda.synchronize()
-            dq_w = fa.flash_bwd_dq_reference(q, k, v, dout, mp, lse, delta,
-                                             True, scale)
-            dk_w, dv_w = fa.flash_bwd_dkv_reference(q, k, v, dout, mp, lse,
-                                                    delta, True, scale)
-            # the whole autograd path against the reference's autograd
-            x1 = qkv.detach().clone().requires_grad_()
-            x2 = qkv.detach().clone().requires_grad_()
-            outs = []
-            for x, fn in ((x1, fa.flash_attention),
-                          (x2, fa.flash_attention_reference)):
-                qq, kk, vv = (t.reshape(b, s, h, d)
-                              for t in x.split(h * d, dim=-1))
-                o = fn(qq, kk, vv, causal=True, kv_mask=mask)
-                o.backward(dout)
-                outs.append(o)
-            torch.cuda.synchronize()
-            pairs = {"fwd": (out, want), "dq": (dq, dq_w), "dk": (dk, dk_w),
-                     "dv": (dv, dv_w), "autograd out": tuple(outs),
-                     "autograd dqkv": (x1.grad, x2.grad)}
-            for key, (got, ref) in pairs.items():
-                if not torch.isfinite(got).all():
-                    fail(f"flash {key} {name} B={b} S={s} masked={masked}: "
-                         f"non-finite output")
-                diff = (got.float() - ref.float()).abs()
-                err = diff.max().item()
-                rms = ref.float().pow(2).mean().sqrt().item()
-                peak = ref.float().abs().max().item()
-                if name == "float32":
-                    rel = 0.0
-                    bad = err > tol
-                else:
-                    rel = ((diff - bf16_step(torch, ref)).clamp_min(0).max()
-                           .item() / max(rms, 1e-30))
-                    bad = rel > FLASH_BF16_RMS_TOL[
-                        "autograd" if key.startswith("autograd") else
-                        "kernel"]
-                if bad:
-                    fail(f"flash {key} {name} B={b} S={s} masked={masked}: "
-                         f"max |err| {err} (reference RMS {rms}, max |x| "
-                         f"{peak}); beyond one bf16 step {rel} of the RMS")
-                w = worst.get((key, name))
-                if w is None or err > w[0]:
-                    worst[(key, name)] = (err, rms, peak)
-                w = worst.get((key, name, "rel"))
-                worst[(key, name, "rel")] = max(w or 0.0, rel)
-            if masked and b > 1 and (out[1].abs().max().item() != 0.0
-                                     or dq[1].abs().max().item() != 0.0):
-                fail("flash: the all-padding row is not exactly zero")
-    for key, name in sorted(k for k in worst if len(k) == 2):
-        err, rms, peak = worst[(key, name)]
-        lim = FLASH_BF16_RMS_TOL["autograd" if key.startswith("autograd")
-                                 else "kernel"]
-        limit = (f"atol {KERNEL_TOL[name]}" if name == "float32" else
-                 f"beyond one bf16 step: {worst[(key, name, 'rel')]:.3g} "
-                 f"of the RMS, limit {lim}")
-        print(f"flash_attention {key} {name} (B,S) in (16,512) (4,5) "
-              f"(4,300), causal, with/without key mask, dO x "
-              f"{FLASH_DOUT_SCALE[name]}: max |err| {err:.3g} where the "
-              f"reference's RMS is {rms:.3g} and its max |x| {peak:.3g} "
-              f"({limit})")
+            compare_flash_case(torch, fa, dtype, b, s, h, d, masked, worst)
+        for masked in (False, True):
+            compare_flash_case(torch, fa, dtype, 16, 512, h, d, masked,
+                               worst_drop, FLASH_DROPOUT, FLASH_DROPOUT_SEED)
+    print_flash_worst(worst, "(B,S) in (16,512) (4,5) (4,300)")
+    print_flash_worst(worst_drop, f"dropout {FLASH_DROPOUT} (B,S) = "
+                      f"(16,512)", FLASH_DROPOUT)
 
     # Timing at the training shape, bf16, causal, no mask, rotating over
-    # 4 layers' inputs (150 MB, three times the 50 MB L2) as the step does.
+    # 4 layers' inputs (150 MB, three times the 50 MB L2) as the step does,
+    # at dropout 0 and 0.1.
     b, s = 16, 512
     layers = [flash_case(torch, torch.bfloat16, b, s, h, d, seed=100 + i)
               for i in range(4)]
     scale = 1.0 / d ** 0.5
-    prepped = []
-    for _qkv, q, k, v, dout, _m in layers:
-        out, lse = fa.flash_attention_fwd(q, k, v, None, True, scale)
-        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
-        prepped.append((q, k, v, dout, lse, delta.contiguous()))
     it = {"i": 0}
 
-    def nxt():
+    def nxt(prepped):
         it["i"] = (it["i"] + 1) % len(prepped)
         return prepped[it["i"]]
 
-    def run_fwd():
-        q, k, v = nxt()[:3]
-        fa.flash_attention_fwd(q, k, v, None, True, scale)
+    def runs(rate):
+        """The kernels and the plain versions at ``rate``, as timed
+        closures."""
+        drop = (rate, FLASH_DROPOUT_SEED if rate else None)
+        prepped = []
+        for _qkv, q, k, v, dout, _m in layers:
+            out, lse = fa.flash_attention_fwd(q, k, v, None, True, scale,
+                                              *drop)
+            delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+            prepped.append((q, k, v, dout, lse, delta.contiguous()))
+        def one(fn):
+            def run():
+                q, k, v, dout, lse, delta = nxt(prepped)
+                return fn(q, k, v, dout, None, lse, delta, True, scale,
+                          *drop)
+            return run
 
-    def run_dq():
-        q, k, v, dout, lse, delta = nxt()
-        fa.flash_attention_bwd_dq(q, k, v, dout, None, lse, delta, True,
-                                  scale)
+        kern = {"fwd": lambda: fa.flash_attention_fwd(
+                    *nxt(prepped)[:3], None, True, scale, *drop),
+                "dq": one(fa.flash_attention_bwd_dq),
+                "dkv": one(fa.flash_attention_bwd_dkv)}
+        plain = {
+            "fwd": lambda: fa.flash_attention_reference(
+                *nxt(prepped)[:3], causal=True, dropout_rate=rate,
+                dropout_seed=drop[1]),
+            "dq": one(fa.flash_bwd_dq_reference),
+            "dkv": one(fa.flash_bwd_dkv_reference)}
+        return kern, plain
 
-    def run_dkv():
-        q, k, v, dout, lse, delta = nxt()
-        fa.flash_attention_bwd_dkv(q, k, v, dout, None, lse, delta, True,
-                                   scale)
-
-    def plain_fwd():
-        q, k, v = nxt()[:3]
-        fa.flash_attention_reference(q, k, v, causal=True)
-
-    def plain_dq():
-        q, k, v, dout, lse, delta = nxt()
-        fa.flash_bwd_dq_reference(q, k, v, dout, None, lse, delta, True,
-                                  scale)
-
-    def plain_dkv():
-        q, k, v, dout, lse, delta = nxt()
-        fa.flash_bwd_dkv_reference(q, k, v, dout, None, lse, delta, True,
-                                   scale)
-
-    # yardstick: SDPA (causal) on contiguous [B, H, S, D] copies
+    # yardstick: SDPA (causal) on contiguous [B, H, S, D] copies; at 0.1
+    # its own dropout (Philox bits, another mask): the same work, not the
+    # same function
     sdpa_in = []
     for _qkv, q, k, v, dout, _m in layers:
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                       for t in (q, k, v))
-        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-        sdpa_in.append((qt, kt, vt, o, dout.transpose(1, 2).contiguous()))
-    sit = {"i": 0}
+        dot = dout.transpose(1, 2).contiguous()
+        sdpa_in.append((qt, kt, vt, dot, {
+            p: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              dropout_p=p)
+            for p in (0.0, FLASH_DROPOUT)}))
 
-    def snxt():
-        sit["i"] = (sit["i"] + 1) % len(sdpa_in)
-        return sdpa_in[sit["i"]]
+    def sdpa(which, p):
+        def run():
+            qt, kt, vt, dot, outs = nxt(sdpa_in)
+            if which == "fwd":
+                with torch.no_grad():
+                    F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True,
+                                                   dropout_p=p)
+            else:
+                torch.autograd.grad(outs[p], (qt, kt, vt), dot,
+                                    retain_graph=True)
+        return run
 
-    def sdpa_fwd():
-        qt, kt, vt = snxt()[:3]
-        with torch.no_grad():
-            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-
-    def sdpa_bwd():
-        qt, kt, vt, o, dot = snxt()
-        torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
-
-    sdpa_fwd_ms = cuda_ms(sdpa_fwd)
-    sdpa_bwd_ms = cuda_ms(sdpa_bwd)
     q0 = layers[0][1]
-    for key, kern, plain, lib in (
-            ("fwd", run_fwd, plain_fwd, sdpa_fwd_ms),
-            ("dq", run_dq, plain_dq, sdpa_bwd_ms),
-            ("dkv", run_dkv, plain_dkv, sdpa_bwd_ms)):
-        kernel_ms = cuda_ms(kern)
-        plain_ms = cuda_ms(plain, iters=10, warmup=2)
-        nbytes, flops = flash_bytes_flops(q0, None, key)
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = flops / BF16_FLOPS
-        rep = reports[key]
-        errs = ([worst[("fwd", "bfloat16")][0]] if key == "fwd" else
-                [worst[("dq", "bfloat16")][0]] if key == "dq" else
-                [worst[("dk", "bfloat16")][0],
-                 worst[("dv", "bfloat16")][0]])
-        rep.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=lib,
-                   bound_ms=max(t_bytes, t_ops) * 1e3,
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   max_abs_err=max(errs))
-        print(f"flash_attention {key} timing bf16 B={b} S={s} H={h} D={d} "
-              f"causal: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"SDPA {'fwd' if key == 'fwd' else 'bwd (dq+dk+dv)'} "
-              f"{lib:.4f} ms, bound {rep['bound_ms']:.4f} ms "
-              f"({nbytes} bytes / 3.35 TB/s, {flops} flops / 989 TFLOP/s)")
+    for rate in (0.0, FLASH_DROPOUT):
+        kern, plain = runs(rate)
+        lib = {"fwd": cuda_ms(sdpa("fwd", rate)),
+               "bwd": cuda_ms(sdpa("bwd", rate))}
+        src = worst_drop if rate else worst
+        for key in ("fwd", "dq", "dkv"):
+            kernel_ms = cuda_ms(kern[key])
+            plain_ms = cuda_ms(plain[key], iters=10, warmup=2)
+            nbytes, flops = flash_bytes_flops(q0, None, key)
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = flops / BF16_FLOPS
+            errs = [src[(k, "bfloat16")][0] for k in
+                    {"fwd": ("fwd",), "dq": ("dq",), "dkv": ("dk", "dv")}[
+                        key]]
+            rep = reports[(key, rate)]
+            library = lib["fwd" if key == "fwd" else "bwd"]
+            rep.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library,
+                       bound_ms=max(t_bytes, t_ops) * 1e3,
+                       bound_by="bytes" if t_bytes >= t_ops
+                       else "operations",
+                       max_abs_err=max(errs))
+            print(f"flash_attention {key} timing bf16 B={b} S={s} H={h} "
+                  f"D={d} causal dropout {rate}: kernel {kernel_ms:.4f} ms"
+                  + (f" (at dropout 0: {reports[(key, 0.0)]['ms']:.4f} ms)"
+                     if rate else "")
+                  + f", plain {plain_ms:.4f} ms, SDPA "
+                  f"{'fwd' if key == 'fwd' else 'bwd (dq+dk+dv)'} "
+                  f"dropout_p={rate} {library:.4f} ms, bound "
+                  f"{rep['bound_ms']:.4f} ms ({nbytes} bytes / 3.35 TB/s, "
+                  f"{flops} flops / 989 TFLOP/s; the hash's integer "
+                  f"operations are not counted)")
+    del layers, sdpa_in
+
+
+def check_flash_dropout_mask(torch):
+    """The keep-mask read back out of the forward and dk/dv kernels, bit
+    for bit against ``dropout_keep_mask``: non-causal fp32 at [2, 2048, 2,
+    256]. The key mask keeps only cols 1792-2047 and V is the identity on
+    them (V[j, c] = 1 iff j = 1792 + c), so o[i, c] != 0 iff score (i,
+    1792 + c) was kept; dO is the identity on rows 1024-1279, so dv[j, c]
+    != 0 iff score (1024 + c, j) was kept, for j in the window."""
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    b, s, h, d, c0, r0 = 2, 2048, 2, 256, 1792, 1024
+    g = torch.Generator(device="cpu").manual_seed(5)
+    q, k = ((torch.randn(b, s, h, d, generator=g) * 0.5).cuda()
+            for _ in range(2))
+    eye = torch.eye(d, device="cuda")
+    v = torch.zeros(b, s, h, d, device="cuda")
+    v[:, c0:c0 + d] = eye[None, :, None, :]
+    dout = torch.zeros(b, s, h, d, device="cuda")
+    dout[:, r0:r0 + d] = eye[None, :, None, :]
+    mask = torch.zeros(b, s, device="cuda")
+    mask[:, c0:] = 1.0
+    scale = 1.0 / d ** 0.5
+    drop = (FLASH_DROPOUT, FLASH_DROPOUT_SEED)
+    qp, kp, vp, mp = fa._prepare(q, k, v, mask, False)
+    out, lse = fa.flash_attention_fwd(qp, kp, vp, mp, False, scale, *drop)
+    delta = (dout * out).sum(-1).transpose(1, 2).contiguous()
+    _dk, dv = fa.flash_attention_bwd_dkv(qp, kp, vp, dout, mp, lse, delta,
+                                         False, scale, *drop)
+    torch.cuda.synchronize()
+    ar = torch.arange(s, device="cuda")
+    cols = torch.arange(c0, c0 + d, device="cuda")
+    flips_o = flips_dv = 0
+    for bb in range(b):
+        for hh in range(h):
+            bh = bb * h + hh
+            want = fa.dropout_keep_mask(FLASH_DROPOUT_SEED, bh, ar[:, None],
+                                        cols[None, :], FLASH_DROPOUT)
+            flips_o += int(((out[bb, :, hh] != 0) != want).sum())
+            want_dv = fa.dropout_keep_mask(
+                FLASH_DROPOUT_SEED, bh, torch.arange(r0, r0 + d,
+                                                     device="cuda")[None, :],
+                cols[:, None], FLASH_DROPOUT)          # [key j, row c]
+            flips_dv += int(((dv[bb, c0:, hh] != 0) != want_dv).sum())
+    kept = float((out != 0).float().mean())
+    print(f"flash dropout mask readout (fp32, non-causal, [2, 2048, 2, 256]"
+          f", rate {FLASH_DROPOUT}): forward {b * h * s * d} scores, {flips_o}"
+          f" differ from dropout_keep_mask; dk/dv {b * h * d * d} scores, "
+          f"{flips_dv} differ; kept share {kept:.4f}")
+    if flips_o or flips_dv:
+        fail("flash dropout: the kernels' keep-mask differs from "
+             "dropout_keep_mask")
 
 
 # ---------------------------------------------------------------------------
@@ -1040,7 +1157,7 @@ def check_sparse_attention(torch, reports):
                 if name == "float32":
                     rel, bad = 0.0, err > KERNEL_TOL[name]
                 else:
-                    rel = ((diff - bf16_step(torch, ref)).clamp_min(0).max()
+                    rel = ((diff - round_step(torch, ref)).clamp_min(0).max()
                            .item() / max(rms, 1e-30))
                     bad = rel > FLASH_BF16_RMS_TOL[
                         "autograd" if key.startswith("autograd") else
@@ -1290,14 +1407,17 @@ FUSED_LN_NAMES = ("dx", "dgamma", "dbeta", "dw", "dbias")
 # bits (1.0f / sqrtf against torch.rsqrt, sums in other orders), so an
 # element at a rounding boundary rounds to neighbouring bf16 values and
 # moves a product by up to 2**-8 |ln| |w|, ~4e-3 of the RMS at these
-# shapes (2.9e-3 measured); 1e-2.
-FUSED_LN_TOL = {"float32": 5e-5, "bfloat16": 1e-2}
+# shapes (2.9e-3 measured); 1e-2. fp16, beyond one rounding step of the
+# output: the same rounding points, where a step is 2**-11 of a value, so
+# a boundary case moves a product by up to 2**-11 |ln| |w|, ~5e-4 of the
+# RMS: 1e-3.
+FUSED_LN_TOL = {"float32": 5e-5, "bfloat16": 1e-2, "float16": 1e-3}
 
 
 def fused_ln_case(torch, dtype, n, d, f, seed):
     """x [n, D] (mean 0.5, std 2), gamma ~ 1, beta and bias ~ 0.1, w [F, D]
-    with std 1/sqrt(D), dy normal; all in ``dtype`` (the bf16 training
-    step casts gamma, beta and bias to bf16 too)."""
+    with std 1/sqrt(D), dy normal; all in ``dtype`` (the 16-bit training
+    steps cast gamma, beta and bias to the compute dtype too)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
 
     def rnd(*shape, std=1.0, mean=0.0):
@@ -1336,15 +1456,14 @@ def fused_ln_unfused(torch, x, gamma, beta, w, bias, act):
 def check_fused_ln(torch, reports):
     """#6 and #7 alone on the plain versions' inputs, and the whole
     autograd path (3-D x through ``ln_matmul``) against the plain
-    versions, in fp32 and bf16 at the path's two sites and the tail
-    (FUSED_LN_TOL);
-    then timed in bf16 at the path's sites, per layer (both sites summed),
-    beside the plain versions and the unfused eager sequence."""
+    versions, in fp32, bf16 and fp16 at the path's two sites and the tail
+    (FUSED_LN_TOL); then timed in bf16 and fp16 at the path's sites, per
+    layer (both sites summed), beside the plain versions and the unfused
+    eager sequence. ``reports``: the rows by (dtype name, "fwd"/"bwd")."""
     from deepspeed_tpu_torch.ops.transformer import fused as fz
-    from torch.profiler import ProfilerActivity, profile
 
     worst, bad = {}, []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         name = str(dtype).split(".")[1]
         for i, (n, d, f, act) in enumerate(FUSED_LN_SITES + FUSED_LN_TAIL):
             x, gamma, beta, w, bias, dy = fused_ln_case(torch, dtype, n, d,
@@ -1383,8 +1502,9 @@ def check_fused_ln(torch, reports):
                 diff = (got.float() - ref.float()).abs()
                 rms = ref.float().pow(2).mean().sqrt().item()
                 err = diff.max().item()
-                if name == "bfloat16":
-                    diff = (diff - bf16_step(torch, ref)).clamp_min(0)
+                if name != "float32":
+                    diff = (diff - round_step(torch, ref, ref.dtype)
+                            ).clamp_min(0)
                 rel = diff.max().item() / max(rms, 1e-30)
                 if rel > FUSED_LN_TOL[name]:
                     bad.append(f"{key} {name} n={n} D={d} F={f} {act}: max "
@@ -1393,25 +1513,40 @@ def check_fused_ln(torch, reports):
                 k = (key.split()[0], name)
                 w_ = worst.get(k, (0.0, 0.0))
                 worst[k] = (max(w_[0], err), max(w_[1], rel))
-                if i < len(FUSED_LN_SITES) and name == "bfloat16":
-                    worst[("path", key.split()[0])] = max(
-                        worst.get(("path", key.split()[0]), 0.0), err)
+                if i < len(FUSED_LN_SITES):
+                    pk = ("path", name, key.split()[0])
+                    worst[pk] = max(worst.get(pk, 0.0), err)
             del x, gamma, beta, w, bias, dy, args, y, grads, y_w, grads_w
             del leaves, x3, y3, pairs
     for (key, name), (err, rel) in sorted(
             (k, v) for k, v in worst.items() if k[0] != "path"):
         limit = (f"limit {FUSED_LN_TOL[name]}" if name == "float32" else
-                 f"beyond one bf16 step; limit {FUSED_LN_TOL[name]}")
+                 f"beyond one {name} step; limit {FUSED_LN_TOL[name]}")
         print(f"fused_ln {key} {name} (path sites and tail, +-GELU): max "
               f"|err| {err:.3g}, {rel:.3g} of the plain version's RMS "
               f"({limit})")
     if bad:
         fail("fused_ln kernels disagree with their plain versions:\n  "
              + "\n  ".join(bad))
+    for dtype in (torch.bfloat16, torch.float16):
+        name = str(dtype).split(".")[1]
+        time_fused_ln(torch, dtype, {
+            which: reports[(name, which)] for which in ("fwd", "bwd")},
+            {which: worst[("path", name, which)]
+             for which in ("fwd", "bwd")})
 
-    # Timing at the path's sites, bf16, rotating over 2 sets of inputs
-    sets = {site: [fused_ln_case(torch, torch.bfloat16, *site[:3],
-                                 seed=60 + j) for j in range(2)]
+
+def time_fused_ln(torch, dtype, reports, errs):
+    """#6 and #7 timed at the path's sites in ``dtype``, rotating over 2
+    sets of inputs, beside the plain versions and the unfused eager
+    sequence; fills the ``fwd`` / ``bwd`` rows per layer (both sites
+    summed)."""
+    from deepspeed_tpu_torch.ops.transformer import fused as fz
+    from torch.profiler import ProfilerActivity, profile
+
+    name = str(dtype).split(".")[1]
+    sets = {site: [fused_ln_case(torch, dtype, *site[:3], seed=60 + j)
+                   for j in range(2)]
             for site in FUSED_LN_SITES}
     times = {}
     for site, cases in sets.items():
@@ -1467,7 +1602,7 @@ def check_fused_ln(torch, reports):
             wall_us = (time.perf_counter() - t0) * 1e6
         t["profile per fwd + bwd"] = kernel_stats(prof.events(), 5, wall_us)
         times[site] = t
-        print(f"fused_ln timing bf16 n={n} D={d} F={f} {act}: "
+        print(f"fused_ln timing {name} n={n} D={d} F={f} {act}: "
               f"{json.dumps(t)}")
         del lib_in
     del sets
@@ -1479,8 +1614,8 @@ def check_fused_ln(torch, reports):
             library_ms=sum(t[f"library {which}"] for t in times.values()),
             bound_ms=sum(t[f"bound {which}"] for t in times.values()),
             bound_by=times[FUSED_LN_SITES[0]][f"by {which}"],
-            max_abs_err=worst[("path", which)])
-        print(f"fused_ln {which} per layer (both sites, bf16): kernel "
+            max_abs_err=errs[which])
+        print(f"fused_ln {which} per layer (both sites, {name}): kernel "
               f"{rep['ms']:.4f} ms, plain {rep['plain_ms']:.4f} ms, unfused "
               f"eager sequence {rep['library_ms']:.4f} ms, bound "
               f"{rep['bound_ms']:.4f} ms ({rep['bound_by']})")
@@ -1793,12 +1928,15 @@ def quantile(xs, f):
     return xs[lo] + (xs[hi] - xs[lo]) * (x - lo)
 
 
-def kernel_stats(events, steps, wall_us):
+def kernel_stats(events, steps, wall_us, annotations=()):
     """Device busy time (union of kernel intervals), idle share and the
-    top kernels by device time, per step, from profiler events."""
+    top kernels by device time, per step, from profiler events; the
+    device-side spans of the ``record_function`` ranges named in
+    ``annotations`` are not kernels and are left out."""
     from torch.autograd import DeviceType
 
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name not in annotations]
     if not kernels:
         return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
@@ -2112,7 +2250,19 @@ KERNELS = (
      "deepspeed_tpu/ops/transformer/fused.py:68"),
     ("fused_ln_matmul_bwd", "fused_ln",
      "deepspeed_tpu/ops/transformer/fused.py:81"),
+    ("flash_attention_fwd_dropout", "flash_attention",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:160"),
+    ("flash_attention_bwd_dq_dropout", "flash_attention",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:276"),
+    ("flash_attention_bwd_dkv_dropout", "flash_attention",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:330"),
+    ("fused_ln_matmul_fwd_fp16", "fused_ln",
+     "deepspeed_tpu/ops/transformer/fused.py:68"),
+    ("fused_ln_matmul_bwd_fp16", "fused_ln",
+     "deepspeed_tpu/ops/transformer/fused.py:81"),
 )
+FLASH_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv")
 
 
 # ---------------------------------------------------------------------------
@@ -2265,19 +2415,113 @@ def profile_step(torch, engine, batches, what):
     return stats
 
 
-def train_engine(torch, fused_ln):
+def profile_dropout_step(torch, engine, batches):
+    """One profiled ``train_batch`` at dropout: device busy share and top
+    kernels, the device ms of the flash kernels by kernel, and of the hash
+    dropout's forward passes (every ``hash_dropout`` call inside a
+    ``record_function`` range; the backward's masked multiply runs in
+    autograd, outside the ranges, and is not in that sum)."""
+    from deepspeed_tpu_torch.ops import dropout as drop_mod
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    orig = drop_mod.hash_dropout
+
+    def ranged(*a, **k):
+        with record_function("hash_dropout"):
+            return orig(*a, **k)
+
+    drop_mod.hash_dropout = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.train_batch(batches)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        drop_mod.hash_dropout = orig
+    events = prof.events()
+    stats = kernel_stats(events, 1, wall_us, annotations=("hash_dropout",))
+    if stats is None:
+        print("dropout training profile: the profiler recorded no device "
+              "events; device times not measured")
+        return None
+    flash = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and "flash_" in e.name:
+            key = e.name.split("<")[0].split()[-1]
+            flash[key] = flash.get(key, 0.0) + e.time_range.elapsed_us()
+    ranges = [e for e in events if e.name == "hash_dropout"
+              and e.device_type == DeviceType.CPU]
+    dev = sum(getattr(e, "device_time_total", 0.0) for e in ranges)
+    stats.update(
+        flash_ms_per_step={k: v / 1e3 for k, v in flash.items()},
+        hash_dropout_calls_per_step=len(ranges),
+        hash_dropout_forward_device_ms_per_step=dev / 1e3,
+        hash_dropout_share_of_busy=dev / 1e3 / stats[
+            "device_busy_ms_per_step"])
+    print(f"dropout training profile (one train_batch under "
+          f"torch.profiler): {json.dumps(stats)}")
+    return stats
+
+
+def check_fused_ln_fp16(torch, card):
+    """``fp16: {enabled: true, initial_scale_power: 16}`` (dynamic loss
+    scale from 2**16, DeepSpeed's documented setting; the default 2**32
+    overflows every step here) on ``make_gpt("gpt2", fused_ln=True)`` in
+    fp16, phase 4's batch shape, 1 + 2 steps: #6 and #7 launch 192 times each per step through their fp16
+    branch, flash 96, no plain version runs and the losses are finite
+    (fused Adam runs only on the steps the loss scaler does not skip)."""
+    import numpy as np
+
+    config = {k: v for k, v in TRAIN_CONFIG.items()
+              if k not in ("bf16", "data_types")}
+    config["fp16"] = {"enabled": True, "initial_scale_power": 16}
+    engine, model, _cfg, batches, per_step, _n = train_engine(
+        torch, True, config=config, dtype=torch.float16)
+    counters = training_counters()
+    engine.train_batch(batches)
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    with PlainCalls() as plain:
+        step_ms, losses = timed_steps(torch, engine, batches, 2)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name, n in per_step.items():
+        if name != "fused_adam" and launches[name] != 2 * n:
+            fail(f"fp16 fused_ln training: {name} launched "
+                 f"{launches[name]} times in 2 steps, expected {2 * n}")
+    if any(plain.calls.values()) or not np.all(np.isfinite(losses)):
+        fail(f"fp16 fused_ln training: plain calls {plain.calls}, losses "
+             f"{losses}")
+    out = {"step_ms": step_ms, "losses": losses, "launches": launches,
+           "skipped_steps": engine.skipped_steps,
+           "loss_scale": engine.loss_scale(), "card": card}
+    print(f"fp16 fused_ln training gpt2 (1 + 2 steps): {json.dumps(out)}")
+    del engine, model, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_engine(torch, fused_ln, dropout=False, config=TRAIN_CONFIG,
+                 **over):
     """bench_gpt2's engine (TRAIN_CONFIG) on full-width GPT-2 with the
     given ``fused_ln``, its fixed batch, and the launches each kernel
-    makes per step."""
+    makes per step. ``dropout``: the model as ``make_gpt("gpt2")`` makes
+    it, at its default dropout 0.1; else dropout 0. ``over``: further
+    GPTConfig fields."""
     import numpy as np
 
     import deepspeed_tpu_torch as dtt
     from deepspeed_tpu_torch.models import gpt, init_gpt_params, make_gpt
 
-    model, cfg = make_gpt("gpt2", dropout_rate=0.0, fused_ln=fused_ln)
+    if not dropout:
+        over["dropout_rate"] = 0.0
+    model, cfg = make_gpt("gpt2", fused_ln=fused_ln, **over)
     sd = init_gpt_params(cfg, seed=0)
     engine, _opt, _loader, _sched = dtt.initialize(model=model, params=sd,
-                                                   config=TRAIN_CONFIG)
+                                                   config=config)
     gas = TRAIN_CONFIG["gradient_accumulation_steps"]
     micro = TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
     rng = np.random.default_rng(0)
@@ -2296,14 +2540,17 @@ def train_engine(torch, fused_ln):
     return engine, model, cfg, batches, per_step, n_params
 
 
-def check_training(torch, card, fused_ln=False):
-    """Phase 4 (unfused) or 6 (``fused_ln=True``): the counted, timed and
-    profiled training steps."""
+def check_training(torch, card, fused_ln=False, dropout=False):
+    """Phase 4 (unfused), 6 (``fused_ln=True``) or 7 (``dropout``, the
+    default 0.1): the counted, timed and profiled training steps."""
     from torch.profiler import ProfilerActivity, profile
 
     engine, model, cfg, batches, per_step, n_params = train_engine(
-        torch, fused_ln)
-    what = "fused_ln training" if fused_ln else "training"
+        torch, fused_ln, dropout)
+    if dropout and cfg.dropout_rate != 0.1:
+        fail(f"make_gpt('gpt2') has dropout_rate {cfg.dropout_rate}")
+    what = ("dropout training" if dropout else
+            "fused_ln training" if fused_ln else "training")
     gas = TRAIN_CONFIG["gradient_accumulation_steps"]
     micro = TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
     step_ms, losses, launches = counted_steps(
@@ -2315,7 +2562,8 @@ def check_training(torch, card, fused_ln=False):
     training = {
         "model": "gpt2", "params": n_params, "micro_batch": micro,
         "gas": gas, "seq": TRAIN_SEQ, "dtype": "bfloat16",
-        "fused_update": True, "fused_ln": fused_ln, "steps": TRAIN_STEPS,
+        "fused_update": True, "fused_ln": fused_ln,
+        "dropout_rate": cfg.dropout_rate, "steps": TRAIN_STEPS,
         "step_ms_median": med, "step_ms_min": min(step_ms),
         "step_ms_max": max(step_ms), "step_ms": step_ms,
         "tokens_per_s": tokens / (med / 1e3),
@@ -2326,7 +2574,9 @@ def check_training(torch, card, fused_ln=False):
     print(f"{what} bf16 gpt2 (initialize -> train_batch): "
           f"{json.dumps(training)}")
 
-    if profile_step(torch, engine, batches, what) is not None:
+    if dropout:
+        training["profile"] = profile_dropout_step(torch, engine, batches)
+    elif profile_step(torch, engine, batches, what) is not None:
         # A second step with the operands' shapes recorded (which costs
         # host time, so the idle share above comes from the first): the
         # matmuls by shape, i.e. which products take the GEMM time.
@@ -2375,7 +2625,7 @@ def check_fused_ln_sites(torch, card, base_ms):
 
 
 def check_training_fp32(torch, seq=512, micro=4, sparse=None,
-                        fused_ln=False):
+                        fused_ln=False, dropout=0.0):
     """fp32 on the card, gpt2 width at 2 layers, GAS 2: the kernels' path
     (flash attention, or with ``sparse`` the block-sparse kernels, and
     fused Adam) against the plain path (``xla`` attention, the per-tensor
@@ -2386,7 +2636,10 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None,
     block gets rng_seed 1 on both runs, so that each draws its layout
     fresh at this length: the same random blocks. With ``fused_ln`` the
     kernels' model fuses both LayerNorm sites (#6, #7) and the plain path
-    runs the unfused model."""
+    runs the unfused model. At ``dropout`` both models drop out at that
+    rate with the engines' seeds (one ``rng_seed``, so the same seeds):
+    the same masks on both paths (the plain attention uses the kernels'
+    mask function)."""
     import numpy as np
 
     import deepspeed_tpu_torch as dtt
@@ -2417,7 +2670,7 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None,
             over = {"attention_impl": impl}
         if fused_ln and label == "kernels":
             over["fused_ln"] = fused_ln
-        model, cfg = make_gpt("gpt2", dropout_rate=0.0, num_layers=2,
+        model, cfg = make_gpt("gpt2", dropout_rate=dropout, num_layers=2,
                               dtype=torch.float32, **over)
         engine, *_ = dtt.initialize(model=model,
                                     params=init_gpt_params(cfg, seed=1),
@@ -2456,7 +2709,8 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None,
             if any(k in n for k in keys)}
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
     layout = (f", {sparse['mode']} block {sparse['block']}" if sparse
-              else f", fused_ln={fused_ln!r}" if fused_ln else "")
+              else f", fused_ln={fused_ln!r}" if fused_ln
+              else f", dropout {dropout}" if dropout else "")
     print(f"training fp32 gpt2-width 2 layers, micro {micro} x {seq}, GAS "
           f"2{layout}: kernels vs plain path: first-step grad |diff|/|grad| "
           f"per leaf: worst {worst} {rel[worst]:.3g} (limit 1e-4); "
@@ -2604,16 +2858,20 @@ def main() -> int:
     check_paged_attention_int8(torch, reports["paged_decode_attention_int8"])
     check_chunked_prefill(torch, reports["chunked_prefill_attention"])
     check_flash_attention(torch, {
-        "fwd": reports["flash_attention_fwd"],
-        "dq": reports["flash_attention_bwd_dq"],
-        "dkv": reports["flash_attention_bwd_dkv"]})
+        (key, rate): reports[name + ("_dropout" if rate else "")]
+        for key, name in zip(("fwd", "dq", "dkv"), FLASH_NAMES)
+        for rate in (0.0, FLASH_DROPOUT)})
+    check_flash_dropout_mask(torch)
     check_fused_adam(torch, reports["fused_adam"])
     check_sparse_attention(torch, {
         "fwd": reports["sparse_attention_fwd"],
         "dq": reports["sparse_attention_bwd_dq"],
         "dkv": reports["sparse_attention_bwd_dkv"]})
-    check_fused_ln(torch, {"fwd": reports["fused_ln_matmul_fwd"],
-                           "bwd": reports["fused_ln_matmul_bwd"]})
+    check_fused_ln(torch, {
+        ("bfloat16", "fwd"): reports["fused_ln_matmul_fwd"],
+        ("bfloat16", "bwd"): reports["fused_ln_matmul_bwd"],
+        ("float16", "fwd"): reports["fused_ln_matmul_fwd_fp16"],
+        ("float16", "bwd"): reports["fused_ln_matmul_bwd_fp16"]})
     if only_kernels:
         print(json.dumps({"kernels_checked": [k for k, *_ in KERNELS]}))
         return 0
@@ -2629,8 +2887,7 @@ def main() -> int:
 
     # 4. the training path end to end, and its fp32 comparison
     training = check_training(torch, card)
-    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
-                 "flash_attention_bwd_dkv", "fused_adam"):
+    for name in FLASH_NAMES + ("fused_adam",):
         reports[name]["launches"] = training["launches"][name]
     check_training_fp32(torch)
 
@@ -2654,6 +2911,27 @@ def main() -> int:
           f"{training['peak_memory_gb']:.3f} GB")
     check_fused_ln_sites(torch, card, base_ms)
     check_training_fp32(torch, fused_ln=True)
+    fp16 = check_fused_ln_fp16(torch, card)
+    for name in ("fused_ln_matmul_fwd", "fused_ln_matmul_bwd"):
+        reports[name + "_fp16"]["launches"] = fp16["launches"][name]
+
+    # 7. training at the default dropout 0.1 (make_gpt("gpt2") as it is),
+    # and its fp32 comparison at that rate
+    drop = check_training(torch, card, dropout=True)
+    for name in FLASH_NAMES:
+        reports[name + "_dropout"]["launches"] = drop["launches"][name]
+    prof = drop.get("profile") or {}
+    print(f"dropout training: step {drop['step_ms_median']:.2f} ms (min "
+          f"{drop['step_ms_min']:.2f}, max {drop['step_ms_max']:.2f}) "
+          f"against phase 4's {base_ms:.2f} ms at dropout 0: ratio "
+          f"{drop['step_ms_median'] / base_ms:.4f}; "
+          f"{drop['tokens_per_s']:.1f} tokens/s, MFU "
+          f"{drop['mfu_vs_989_tflops_dense_bf16']:.4f}; peak memory "
+          f"{drop['peak_memory_gb']:.3f} GB against "
+          f"{training['peak_memory_gb']:.3f} GB; hash dropout forward "
+          f"{prof.get('hash_dropout_forward_device_ms_per_step')} device "
+          f"ms per step, flash {prof.get('flash_ms_per_step')} ({card})")
+    check_training_fp32(torch, dropout=FLASH_DROPOUT)
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

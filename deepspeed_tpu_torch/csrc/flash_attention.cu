@@ -22,6 +22,19 @@
 // A row whose keys are all masked gets o = 0 and lse = m + log(1e-30), and
 // contributes nothing to any gradient, as in the TPU kernel.
 //
+// Attention dropout (the dropout branch of the three TPU kernels): with
+// keep_ij the counter hash of (seed, b * H + h, i, j) (Drop::keep below,
+// the bits of the JAX dropout_keep_mask) and r = 1 / (1 - rate),
+//
+//   o_i   = sum_j D_ij p_ij v_j / max(l_i, 1e-30),  D_ij = keep_ij ? r : 0
+//           (l_i and lse_i keep the full, undropped mass)
+//   ds_ij = p_ij (D_ij dp_ij - delta_i),            dv_j = sum_i D_ij p_ij dO_i
+//
+// The host computes the seed, the integer threshold and r (in fp32), and
+// the kernels regenerate the mask from absolute (row, col) in every pass:
+// no mask is stored. Each kernel is compiled twice; rate 0 runs the
+// variant without the hash.
+//
 // What bounds it on an H100: at the training shape (B*H = 192, S = 512,
 // D = 64, bf16, causal) the forward must move q, k, v and o, 4 x 12.6 MB,
 // about 15 us at 3.35 TB/s, and do 6.4 GFLOP, 6.5 us at the 989 TFLOP/s of
@@ -53,6 +66,7 @@
 // D output columns (lane g takes float4 slices g, g + 4, ...).
 
 #include <math.h>
+#include <stdint.h>
 
 #include "attention_tile.cuh"
 
@@ -63,15 +77,42 @@ using namespace attn_tile;
 constexpr int ROWS = 64;              // rows of the tile a block owns
 constexpr int LPR = THREADS / ROWS;   // lanes per row
 
+// The dropout of one (batch, head): the hash terms that do not depend on
+// the score's coordinates, the threshold of the top 24 bits and the scale.
+struct Drop {
+  uint32_t seed_term, bh_term;
+  int thresh;
+  float inv_keep;
+  __device__ Drop(uint32_t seed, int bh, int t, float r)
+      : seed_term(seed + 0x165667B1u),
+        bh_term((uint32_t)bh * 0x58F633B5u + 1u), thresh(t), inv_keep(r) {}
+  // JAX flash_attention.py: _dropout_bits, _hash_u32, dropout_keep_mask
+  __device__ __forceinline__ bool keep(int i, int j) const {
+    uint32_t x = (uint32_t)i * 0x9E3779B9u + (uint32_t)j * 0x7FEB352Du;
+    x ^= seed_term;
+    x ^= bh_term;
+    x *= 0x85EBCA6Bu;
+    x ^= x >> 16;
+    x *= 0xC2B2AE35u;
+    x ^= x >> 13;
+    x *= 0x27D4EB2Fu;
+    x ^= x >> 16;
+    return (int)(x >> 8) >= thresh;
+  }
+  __device__ __forceinline__ float apply(float v, int i, int j) const {
+    return keep(i, j) ? v * inv_keep : 0.f;
+  }
+};
+
 // ---------------------------------------------------------------------------
 // forward: grid (ceil(Sq / ROWS), B * H)
 // ---------------------------------------------------------------------------
-template <typename T, int DMAX, int BC>
+template <typename T, int DMAX, int BC, bool DROP>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ mask, T* __restrict__ out,
     float* __restrict__ lse, Strides st, int H, int Sq, int Sk, int D,
-    float scale, int causal) {
+    float scale, int causal, uint32_t seed, int thresh, float inv_keep) {
   constexpr int DP = DMAX + 4;      // padded row: 16-byte rows, no conflicts
   constexpr int NS = BC / LPR;      // scores per lane per tile
   constexpr int NV = DMAX / (4 * LPR);  // float4 output slices per lane
@@ -93,6 +134,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
   const T* kb = k + b * st.kb + h * st.kh;
   const T* vb = v + b * st.vb + h * st.vh;
   const float* mb = mask ? mask + (long long)b * Sk : nullptr;
+  const Drop drop(seed, bh, thresh, inv_keep);
 
   load_tile<T, DP>(Qs, q + b * st.qb + h * st.qh + q0 * st.qs, st.qs, ROWS,
                    nq, D, scale);
@@ -141,8 +183,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
         p = expf(s[jj] - m_new);
         if (mb) p *= mb[j];
       }
-      pr[g + LPR * jj] = p;
-      sum += p;
+      sum += p;  // the normaliser keeps the undropped mass
+      pr[g + LPR * jj] = DROP ? drop.apply(p, i, j) : p;
     }
     if (m_new != -INFINITY) alpha = (m == -INFINITY) ? 0.f : expf(m - m_new);
     l = l * alpha + row_sum<LPR>(sum);
@@ -183,13 +225,13 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
 // backward, dq: grid (ceil(Sq / ROWS), B * H). dout is contiguous
 // [B, Sq, H, D]; lse and delta [B * H, Sq].
 // ---------------------------------------------------------------------------
-template <typename T, int DMAX, int BC>
+template <typename T, int DMAX, int BC, bool DROP>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ mask,
     const float* __restrict__ lse, const float* __restrict__ delta,
     T* __restrict__ dq, Strides st, int H, int Sq, int Sk, int D, float scale,
-    int causal) {
+    int causal, uint32_t seed, int thresh, float inv_keep) {
   constexpr int DP = DMAX + 4;
   constexpr int NS = BC / LPR;
   constexpr int NV = DMAX / (4 * LPR);
@@ -213,6 +255,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
   const T* kb = k + b * st.kb + h * st.kh;
   const T* vb = v + b * st.vb + h * st.vh;
   const float* mb = mask ? mask + (long long)b * Sk : nullptr;
+  const Drop drop(seed, bh, thresh, inv_keep);
 
   load_tile<T, DP>(Qs, q + b * st.qb + h * st.qh + q0 * st.qs, st.qs, ROWS,
                    nq, D, scale);
@@ -258,7 +301,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
       if (vis) {
         float p = expf(s[jj] - lse_i);
         if (mb) p *= mb[j];
-        ds = p * (dp[jj] - delta_i);
+        ds = p * ((DROP ? drop.apply(dp[jj], i, j) : dp[jj]) - delta_i);
       }
       pr[g + LPR * jj] = ds;
     }
@@ -290,13 +333,14 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
 // ---------------------------------------------------------------------------
 // backward, dk and dv: grid (ceil(Sk / ROWS), B * H)
 // ---------------------------------------------------------------------------
-template <typename T, int DMAX, int BC>
+template <typename T, int DMAX, int BC, bool DROP>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ mask,
     const float* __restrict__ lse, const float* __restrict__ delta,
     T* __restrict__ dk, T* __restrict__ dv, Strides st, int H, int Sq, int Sk,
-    int D, float scale, int causal) {
+    int D, float scale, int causal, uint32_t seed, int thresh,
+    float inv_keep) {
   constexpr int DP = DMAX + 4;
   constexpr int NS = BC / LPR;
   constexpr int NV = DMAX / (4 * LPR);
@@ -323,6 +367,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
   const T* qb = q + b * st.qb + h * st.qh;
   const T* ob = dout + (long long)b * Sq * orow_stride + (long long)h * D;
   const float km = (mask && j < Sk) ? mask[(long long)b * Sk + j] : 1.f;
+  const Drop drop(seed, bh, thresh, inv_keep);
 
   load_tile<T, DP>(Ks, k + b * st.kb + h * st.kh + k0 * st.ks, st.ks, ROWS,
                    nk, D, 1.f);
@@ -374,7 +419,13 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
       float p = 0.f, ds = 0.f;
       if (vis) {
         p = expf(s[ii] - Ls[rr]) * km;
-        ds = p * (dp[ii] - Es[rr]);
+        if (DROP) {
+          const bool kp = drop.keep(i, j);
+          ds = p * ((kp ? dp[ii] * drop.inv_keep : 0.f) - Es[rr]);
+          p = kp ? p * drop.inv_keep : 0.f;  // dv sums the dropped p
+        } else {
+          ds = p * (dp[ii] - Es[rr]);
+        }
       }
       pr[rr] = p;
       dr[rr] = ds;
@@ -435,9 +486,12 @@ struct Args {
   int B, H, Sq, Sk, D;
   float scale;
   int causal;
+  uint32_t seed;   // dropout: the host's seed, threshold and 1 / (1 - rate)
+  int thresh;
+  float inv_keep;
 };
 
-template <typename T, int DMAX, int BC>
+template <typename T, int DMAX, int BC, bool DROP>
 cudaError_t launch(Which w, const Args& a, cudaStream_t stream) {
   const size_t smem = smem_bytes<DMAX, BC>(w);
   const int rows = w == DKV ? a.Sk : a.Sq;  // the axis the blocks split
@@ -448,51 +502,62 @@ cudaError_t launch(Which w, const Args& a, cudaStream_t stream) {
   const T* dout = static_cast<const T*>(a.dout);
   cudaError_t err;
   if (w == FWD) {
-    auto fn = flash_fwd_kernel<T, DMAX, BC>;
+    auto fn = flash_fwd_kernel<T, DMAX, BC, DROP>;
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
     fn<<<grid, THREADS, smem, stream>>>(q, k, v, a.mask, static_cast<T*>(a.out),
                                         a.lse, a.st, a.H, a.Sq, a.Sk, a.D,
-                                        a.scale, a.causal);
+                                        a.scale, a.causal, a.seed, a.thresh,
+                                        a.inv_keep);
   } else if (w == DQ) {
-    auto fn = flash_bwd_dq_kernel<T, DMAX, BC>;
+    auto fn = flash_bwd_dq_kernel<T, DMAX, BC, DROP>;
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
     fn<<<grid, THREADS, smem, stream>>>(q, k, v, dout, a.mask, a.lse_in,
                                         a.delta, static_cast<T*>(a.dq), a.st,
                                         a.H, a.Sq, a.Sk, a.D, a.scale,
-                                        a.causal);
+                                        a.causal, a.seed, a.thresh,
+                                        a.inv_keep);
   } else {
-    auto fn = flash_bwd_dkv_kernel<T, DMAX, BC>;
+    auto fn = flash_bwd_dkv_kernel<T, DMAX, BC, DROP>;
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
     fn<<<grid, THREADS, smem, stream>>>(q, k, v, dout, a.mask, a.lse_in,
                                         a.delta, static_cast<T*>(a.dk),
                                         static_cast<T*>(a.dv), a.st, a.H, a.Sq,
-                                        a.Sk, a.D, a.scale, a.causal);
+                                        a.Sk, a.D, a.scale, a.causal, a.seed,
+                                        a.thresh, a.inv_keep);
   }
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool DROP>
 cudaError_t dispatch_d(Which w, const Args& a, cudaStream_t stream) {
-  if (a.D <= 64) return launch<T, 64, 64>(w, a, stream);
-  if (a.D <= 128) return launch<T, 128, 64>(w, a, stream);
-  return launch<T, 256, 32>(w, a, stream);
+  if (a.D <= 64) return launch<T, 64, 64, DROP>(w, a, stream);
+  if (a.D <= 128) return launch<T, 128, 64, DROP>(w, a, stream);
+  return launch<T, 256, 32, DROP>(w, a, stream);
+}
+
+template <typename T>
+cudaError_t dispatch_drop(Which w, const Args& a, cudaStream_t stream) {
+  // rate 0 (threshold 0, scale 1) is the variant without the hash
+  return a.thresh > 0 || a.inv_keep != 1.f ? dispatch_d<T, true>(w, a, stream)
+                                           : dispatch_d<T, false>(w, a, stream);
 }
 
 int run(Which w, const Args& a, int dtype, void* stream) {
   if (a.D < 8 || a.D > 256 || a.D % 8 != 0 || a.B < 1 || a.H < 1 ||
-      a.Sq < 1 || a.Sk < 1 || (a.causal && a.Sq > a.Sk))
+      a.Sq < 1 || a.Sk < 1 || (a.causal && a.Sq > a.Sk) || a.thresh < 0 ||
+      a.thresh > (1 << 24))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0) err = dispatch_d<float>(w, a, st);
-  else if (dtype == 1) err = dispatch_d<__nv_bfloat16>(w, a, st);
-  else if (dtype == 2) err = dispatch_d<__half>(w, a, st);
+  if (dtype == 0) err = dispatch_drop<float>(w, a, st);
+  else if (dtype == 1) err = dispatch_drop<__nv_bfloat16>(w, a, st);
+  else if (dtype == 2) err = dispatch_drop<__half>(w, a, st);
   else err = cudaErrorInvalidValue;
   return (int)err;
 }
@@ -504,19 +569,21 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. strides: 9 host int64s,
 // the batch, sequence and head strides of q, k and v in elements (the head
 // dim is contiguous). mask: [B, Sk] fp32 0/1, or null. out: contiguous
-// [B, Sq, H, D]; lse: [B * H, Sq] fp32. Every call returns
-// cudaGetLastError() after its launch (0 = launched). The Python wrapper
-// checks shapes, dtypes and 16-byte alignment.
+// [B, Sq, H, D]; lse: [B * H, Sq] fp32. Dropout: seed (uint32), thresh =
+// int(rate * 2**24) (0: no dropout) and inv_keep = 1 / (1 - rate), as the
+// host computes them. Every call returns cudaGetLastError() after its
+// launch (0 = launched). The Python wrapper checks shapes, dtypes and
+// 16-byte alignment.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const float* mask, void* out, float* lse,
                         const long long* strides, int B, int H, int Sq, int Sk,
-                        int D, float scale, int causal, int dtype,
-                        void* stream) {
+                        int D, float scale, int causal, uint32_t seed,
+                        int thresh, float inv_keep, int dtype, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.mask = mask; a.out = out; a.lse = lse;
   a.st = strides_of(strides);
   a.B = B; a.H = H; a.Sq = Sq; a.Sk = Sk; a.D = D; a.scale = scale;
-  a.causal = causal;
+  a.causal = causal; a.seed = seed; a.thresh = thresh; a.inv_keep = inv_keep;
   return run(FWD, a, dtype, stream);
 }
 
@@ -526,13 +593,14 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                            const void* dout, const float* mask,
                            const float* lse, const float* delta, void* dq,
                            const long long* strides, int B, int H, int Sq,
-                           int Sk, int D, float scale, int causal, int dtype,
-                           void* stream) {
+                           int Sk, int D, float scale, int causal,
+                           uint32_t seed, int thresh, float inv_keep,
+                           int dtype, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.mask = mask; a.lse_in = lse;
   a.delta = delta; a.dq = dq; a.st = strides_of(strides);
   a.B = B; a.H = H; a.Sq = Sq; a.Sk = Sk; a.D = D; a.scale = scale;
-  a.causal = causal;
+  a.causal = causal; a.seed = seed; a.thresh = thresh; a.inv_keep = inv_keep;
   return run(DQ, a, dtype, stream);
 }
 
@@ -542,12 +610,13 @@ int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                             const float* lse, const float* delta, void* dk,
                             void* dv, const long long* strides, int B, int H,
                             int Sq, int Sk, int D, float scale, int causal,
+                            uint32_t seed, int thresh, float inv_keep,
                             int dtype, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.mask = mask; a.lse_in = lse;
   a.delta = delta; a.dk = dk; a.dv = dv; a.st = strides_of(strides);
   a.B = B; a.H = H; a.Sq = Sq; a.Sk = Sk; a.D = D; a.scale = scale;
-  a.causal = causal;
+  a.causal = causal; a.seed = seed; a.thresh = thresh; a.inv_keep = inv_keep;
   return run(DKV, a, dtype, stream);
 }
 

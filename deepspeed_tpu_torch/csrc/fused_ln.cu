@@ -3,7 +3,7 @@
 // Replaces the two Pallas TPU kernels of deepspeed_tpu/ops/transformer/
 // fused.py: _fwd_kernel (forward) and _bwd_kernel (backward). With x
 // [n, D], gamma and beta [D], W [F, D] (torch's nn.Linear layout, read in
-// place) and bias [F], T the dtype of x and W:
+// place) and bias [F], T the dtype of x and W (fp32, bf16 or fp16):
 //
 //   mean_i = sum_k x_ik / D,  var_i = sum_k (x_ik - mean_i)^2 / D  (fp32,
 //            two passes over the row)
@@ -31,9 +31,10 @@
 // GELU to recompute pre, 59 and 117 us.
 //
 // What the design does:
-// - bf16 products run on the tensor cores through mma.sync.m16n8k16 with
-//   fp32 accumulators: products of bf16 values are exact in fp32, so this
-//   is the TPU kernel's bf16 x bf16 -> fp32 dot up to the order of the
+// - bf16 and fp16 products run on the tensor cores through
+//   mma.sync.m16n8k16 with fp32 accumulators (the two forms share one
+//   fragment layout): products of 16-bit values are exact in fp32, so
+//   this is the TPU kernel's T x T -> fp32 dot up to the order of the
 //   sums. Fragments come from shared memory through ldmatrix, and through
 //   ldmatrix.trans for the operands whose k runs along their source's
 //   rows (W in dln; dyc and x in dW), which are stored as they are read.
@@ -88,7 +89,7 @@ constexpr int SPLIT_ROWS = 2048;      // dW: rows per split, at most 4 splits
 constexpr float SQRT_2_OVER_PI = 0.7978845608028654f;
 
 // A shared tile holds 128 rows (m or n) x BK of k in one of two layouts:
-// k-contiguous, 128 rows of BK padded to SK (80 bytes), or, for a bf16
+// k-contiguous, 128 rows of BK padded to SK (80 bytes), or, for a 16-bit
 // operand whose k runs along its source's rows, BK rows of 128 padded to
 // SM (272 bytes), which ldmatrix.trans turns into fragments. Either way
 // ldmatrix's eight 16-byte rows hit 32 distinct banks, and fp32 rows stay
@@ -110,6 +111,14 @@ struct Tile<float> {
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
+
+// the dtype code of T, as the entry points and put() take it
+template <typename T>
+constexpr int code_of() {
+  return std::is_same<T, float>::value ? 0
+         : std::is_same<T, __nv_bfloat16>::value ? 1 : 2;
 }
 
 // gamma, beta and bias come in their own dtype: 0 fp32, 1 bf16, 2 fp16
@@ -167,43 +176,39 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
 
 // eight elements into a 16-byte aligned shared row
 __device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
   reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
 }
-__device__ __forceinline__ void store8(__nv_bfloat16* p,
-                                      const float (&v)[8]) {
+template <typename T16>
+__device__ __forceinline__ void store8(T16* p, const float (&v)[8]) {
+  static_assert(sizeof(T16) == 2, "bf16 or fp16");
   uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+  T16* h = reinterpret_cast<T16*>(&u);
 #pragma unroll
-  for (int k = 0; k < 4; ++k)
-    h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+  for (int k = 0; k < 4; ++k) store2(h + 2 * k, v[2 * k], v[2 * k + 1]);
   *reinterpret_cast<uint4*>(p) = u;
 }
 
 // eight elements as loaded from device memory (16 or 32 bytes)
 template <typename T>
-struct Raw;
-template <>
-struct Raw<__nv_bfloat16> {
+struct Raw {  // bf16 or fp16: one 16-byte vector
+  static_assert(sizeof(T) == 2, "16-bit types; fp32 below");
   uint4 u;
-  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+  __device__ __forceinline__ void load(const T* p) {
     u = *reinterpret_cast<const uint4*>(p);
   }
   __device__ __forceinline__ void zero() { u = make_uint4(0, 0, 0, 0); }
-  __device__ __forceinline__ void store(__nv_bfloat16* p) const {
+  __device__ __forceinline__ void store(T* p) const {
     *reinterpret_cast<uint4*>(p) = u;
   }
   __device__ __forceinline__ void unpack(float (&v)[8]) const {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = __bfloat1622float2(h[k]);
-      v[2 * k] = f.x;
-      v[2 * k + 1] = f.y;
-    }
+    load8(reinterpret_cast<const T*>(&u), v);
   }
 };
 template <>
@@ -398,7 +403,7 @@ struct TransTile {
   }
 };
 
-// The same operand in bf16, kept as its source lays it out: tile[c][m] =
+// The same operand in bf16 or fp16, kept as its source lays it out: tile[c][m] =
 // f(src[(k0 + c) * ld + m0 + m]) for BK rows of 128, read by ldmatrix.trans.
 template <typename T, typename Fn>
 struct RowTile {
@@ -460,31 +465,50 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
       : "r"(a));
 }
 
-// acc += A B^T over one shared stage: A [128][BK] and B [128][BK],
-// k-contiguous, or with TA / TB k-major [BK][128]; the warp's 64 x 32
-// tile in mma.sync's C fragment layout: acc[mt][nt][2 h + e] is row
-// wm*64 + mt*16 + g + 8 h, column wn*32 + nt*8 + 2 t + e (g = lane / 4,
-// t = lane % 4).
-template <bool TA, bool TB>
-__device__ __forceinline__ void warp_mma(const __nv_bfloat16* As,
-                                         const __nv_bfloat16* Bs,
-                                         float (&acc)[MT][NT][4]) {
-  constexpr int SK = Tile<__nv_bfloat16>::SK, SM = Tile<__nv_bfloat16>::SM;
+// one m16n8k16 product into fp32 accumulators: the bf16 form, or the
+// fp16 form with the same fragment layout
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
+                                      const uint32_t (&b)[2],
+                                      const __nv_bfloat16*) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
+                                      const uint32_t (&b)[2], const __half*) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc += A B^T over one shared stage of 16-bit T: A [128][BK] and B
+// [128][BK], k-contiguous, or with TA / TB k-major [BK][128]; the warp's
+// 64 x 32 tile in mma.sync's C fragment layout: acc[mt][nt][2 h + e] is
+// row wm*64 + mt*16 + g + 8 h, column wn*32 + nt*8 + 2 t + e (g = lane /
+// 4, t = lane % 4).
+template <bool TA, bool TB, typename T16>
+__device__ __forceinline__ std::enable_if_t<sizeof(T16) == 2> warp_mma(
+    const T16* As, const T16* Bs, float (&acc)[MT][NT][4]) {
+  constexpr int SK = Tile<T16>::SK, SM = Tile<T16>::SM;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // ldmatrix x4 row addresses (lanes 8j .. 8j + 7 address matrix j): A's
   // four 8 x 8 matrices are m 0-7 and 8-15 at k and k + 8 (a0..a3); B's
   // are n 0-7 at k and k + 8, then n 8-15 (b0, b1 of two n-tiles)
-  const __nv_bfloat16* ab =
+  const T16* ab =
       TA ? As + ((lane >> 4) * 8 + (lane & 7)) * SM + (warp >> 2) * WM +
                ((lane >> 3) & 1) * 8
          : As + ((warp >> 2) * WM + (lane & 15)) * SK + (lane >> 4) * 8;
-  const __nv_bfloat16* bb =
+  const T16* bb =
       TB ? Bs + (((lane >> 3) & 1) * 8 + (lane & 7)) * SM + (warp & 3) * WN +
                (lane >> 4) * 8
          : Bs + ((warp & 3) * WN + (lane & 7) + ((lane >> 4) << 3)) * SK +
                ((lane >> 3) & 1) * 8;
 #pragma unroll
-  for (int kk = 0; kk < Tile<__nv_bfloat16>::BK; kk += 16) {
+  for (int kk = 0; kk < Tile<T16>::BK; kk += 16) {
     uint32_t a[MT][4], b[NT][2];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
@@ -504,15 +528,7 @@ __device__ __forceinline__ void warp_mma(const __nv_bfloat16* As,
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        asm volatile(
-            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-            "{%0, %1, %2, %3};\n"
-            : "+f"(acc[mt][nt][0]), "+f"(acc[mt][nt][1]),
-              "+f"(acc[mt][nt][2]), "+f"(acc[mt][nt][3])
-            : "r"(a[mt][0]), "r"(a[mt][1]), "r"(a[mt][2]), "r"(a[mt][3]),
-              "r"(b[nt][0]), "r"(b[nt][1]));
+      for (int nt = 0; nt < NT; ++nt) mma16(acc[mt][nt], a[mt], b[nt], As);
   }
 }
 
@@ -933,9 +949,9 @@ int bwd(const void* xv, const void* gamma, const void* beta, int gcode,
   dw_kernel<T><<<dim3(cdiv(F, BM), cdiv(D, BN), L.splits), THREADS, 0, s>>>(
       x, gamma, beta, gcode, stats, dyc, dw_part, n, D, F, L.chunk);
   if ((rc = (int)cudaGetLastError())) return rc;
-  const int wcode = sizeof(T) == 2 ? 1 : 0;
   ReduceJobs jobs;
-  jobs.job[0] = ReduceJob{dw_part, (long long)F * D, L.splits, wcode, dwv};
+  jobs.job[0] = ReduceJob{dw_part, (long long)F * D, L.splits, code_of<T>(),
+                          dwv};
   jobs.job[1] = ReduceJob{dbias_part, F, L.p1, bcode, dbias};
   jobs.job[2] = ReduceJob{dg_part, D, L.p2, gcode, dgamma};
   jobs.job[3] = ReduceJob{db_part, D, L.p2, gcode, dbeta};
@@ -948,7 +964,8 @@ int bwd(const void* xv, const void* gamma, const void* beta, int gcode,
 
 extern "C" {
 
-// dtype (of x, W, y, dy, dx, dW): 0 = float32, 1 = bfloat16. gcode (gamma,
+// dtype (of x, W, y, dy, dx, dW): 0 = float32, 1 = bfloat16, 2 = float16.
+// gcode (gamma,
 // beta, dgamma, dbeta) and bcode (bias, dbias): 0 = float32, 1 = bfloat16,
 // 2 = float16. x [n, D], W [F, D], y and dy [n, F]: contiguous and 16-byte
 // aligned; D and F multiples of 8; stats: 2 n floats of scratch. Every
@@ -961,13 +978,16 @@ int fused_ln_fwd(const void* x, const void* gamma, const void* beta,
   if (dtype == 1)
     return fwd<__nv_bfloat16>(x, gamma, beta, gcode, w, bias, bcode, y,
                               stats, n, D, F, eps, gelu, s);
+  if (dtype == 2)
+    return fwd<__half>(x, gamma, beta, gcode, w, bias, bcode, y, stats, n,
+                       D, F, eps, gelu, s);
   return fwd<float>(x, gamma, beta, gcode, w, bias, bcode, y, stats, n, D,
                     F, eps, gelu, s);
 }
 
 // bytes of the workspace fused_ln_bwd needs
 long long fused_ln_bwd_workspace(int n, int D, int F, int gelu, int dtype) {
-  return (long long)BwdLayout(n, D, F, gelu, dtype == 1 ? 2 : 4).bytes;
+  return (long long)BwdLayout(n, D, F, gelu, dtype == 0 ? 4 : 2).bytes;
 }
 
 // dx [n, D] and dW [F, D] in dtype; dbias [F] in bcode; dgamma, dbeta [D]
@@ -982,6 +1002,9 @@ int fused_ln_bwd(const void* x, const void* gamma, const void* beta,
     return bwd<__nv_bfloat16>(x, gamma, beta, gcode, w, bias, bcode, dy, dx,
                               dw, dbias, dgamma, dbeta, work, n, D, F, eps,
                               gelu, s);
+  if (dtype == 2)
+    return bwd<__half>(x, gamma, beta, gcode, w, bias, bcode, dy, dx, dw,
+                       dbias, dgamma, dbeta, work, n, D, F, eps, gelu, s);
   return bwd<float>(x, gamma, beta, gcode, w, bias, bcode, dy, dx, dw,
                     dbias, dgamma, dbeta, work, n, D, F, eps, gelu, s);
 }

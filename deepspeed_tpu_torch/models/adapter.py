@@ -6,7 +6,9 @@ of parameter tensors; :func:`module_loss_fn` builds one from an
 ``nn.Module`` whose forward returns the loss (or a dict holding it),
 running the module with the given tensors in place of its own parameters
 (``torch.func.functional_call``). ``rng`` None means evaluation: the
-module runs with ``deterministic=True``.
+module runs with ``deterministic=True``. In training the engine passes a
+host int drawn for the micro-batch (where JAX passes a PRNG key); it
+reaches the forward as ``dropout_seed`` when the forward takes one.
 """
 
 import inspect
@@ -25,13 +27,16 @@ def module_loss_fn(module: torch.nn.Module,
     forward's keyword arguments (``input_ids``, ``labels``, ...)."""
     if params is None:
         params = {k: p.detach() for k, p in module.named_parameters()}
-    takes_det = "deterministic" in inspect.signature(
-        module.forward).parameters
+    sig = inspect.signature(module.forward).parameters
+    takes_det = "deterministic" in sig
+    takes_seed = "dropout_seed" in sig
 
     def loss_fn(p, batch, rng):
         kwargs = dict(batch)
         if takes_det:
             kwargs["deterministic"] = rng is None
+        if takes_seed and rng is not None:
+            kwargs["dropout_seed"] = rng
         out = functional_call(module, p, (), kwargs)
         if isinstance(out, dict):
             loss = out[loss_key]

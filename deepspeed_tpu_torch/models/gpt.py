@@ -22,9 +22,20 @@ cache forms, as the JAX model does:
 
 Parameter names follow torch (``h.0.c_attn.weight`` [out, in]);
 ``models/convert.py`` maps them to and from the flax tree. The config's
-defaults are the JAX package's. Dropout (``dropout_rate > 0``) is refused
-where it would act, in a training forward; inference, serving and eval are
-deterministic and ignore it, as in JAX. A ``sparse_attention`` block
+defaults are the JAX package's. Dropout (``dropout_rate > 0``) acts in a
+training forward (``deterministic=False``, no cache) at the JAX model's
+four sites: the attention probabilities (inside the flash kernels, or
+the plain attention with the same mask), the attention output after
+``c_proj``, the MLP output and the embeddings; ``ops/dropout.py`` drops
+the activations (``fast_dropout``: the counter hash, bit-equal to JAX's
+for one seed). Such a forward takes ``dropout_seed``, a host int, and
+each site's seed is ``fold_seed(dropout_seed, layer + 1, site)`` (sites
+0, 1, 2: probabilities, attention output, MLP output; the embeddings are
+``fold_seed(dropout_seed, 0, 0)``): the port's own fold, since flax's
+``make_rng`` path folds cannot be reproduced without jax. Inference,
+serving and eval are deterministic and ignore dropout, as in JAX. Under
+``sparse_attention`` the probabilities get no dropout, as in JAX; the
+three activation sites still apply. A ``sparse_attention`` block
 (the DeepSpeed config block: mode, block, ...) routes the training
 forward's attention through ``ops/sparse_attention`` (its kernels on the
 card); a forward with a cache stays dense, as in JAX. ``fused_ln`` fuses
@@ -42,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepspeed_tpu_torch.config.config import not_yet_ported
+from deepspeed_tpu_torch.ops.dropout import dropout_module, fold_seed
 from deepspeed_tpu_torch.ops.embedding import embedding_lookup, vocab_pad_mask
 from deepspeed_tpu_torch.ops.sparse_attention.utils import \
     get_sparse_self_attention
@@ -172,15 +184,20 @@ class GPTBlock(nn.Module):
         self.ln_2 = nn.LayerNorm(d, eps=eps)
         self.c_fc = nn.Linear(d, cfg.mlp_ratio * d)
         self.mlp_proj = nn.Linear(cfg.mlp_ratio * d, d)
+        self.drop = dropout_module(cfg)(cfg.dropout_rate)
 
     def forward(self, x: torch.Tensor, attn_mask=None, kv_cache=None,
-                pos: Optional[int] = None):
+                pos: Optional[int] = None,
+                seeds: Optional[Tuple[int, int, int]] = None):
         """``kv_cache``: None, a dense ``(k, v)`` tuple, or a paged layer
         cache. Returns ``(x, cache)`` in cache mode, ``x`` otherwise. The
         dense cache is written in place at ``pos`` (the JAX model returns
-        an updated copy)."""
+        an updated copy). ``seeds``: the dropout seeds of the layer's three
+        sites (probabilities, attention output, MLP output), or None for
+        no dropout."""
         cfg = self.cfg
         dt = cfg.dtype
+        attn_seed, proj_seed, mlp_seed = seeds or (None, None, None)
         fused = _use_fused_ln(cfg, x)
         if "qkv" in fused:
             qkv = ln_matmul(x, self.ln_1.weight, self.ln_1.bias,
@@ -202,7 +219,10 @@ class GPTBlock(nn.Module):
             o = ssa(q, k, v, causal=True, key_mask=km, softmax_scale=scale)
         elif kv_cache is None:
             o = attention(q, k, v, causal=True, mask=attn_mask,
-                          softmax_scale=scale, impl=cfg.attention_impl)
+                          dropout_rate=cfg.dropout_rate,
+                          dropout_seed=attn_seed,
+                          deterministic=seeds is None, softmax_scale=scale,
+                          impl=cfg.attention_impl)
         elif isinstance(kv_cache, tuple):
             ck, cv = kv_cache
             ck[:, pos:pos + s] = k.to(ck.dtype)
@@ -230,7 +250,7 @@ class GPTBlock(nn.Module):
                 mask = mask & attn_mask
             o = xla_attention(q, ck, cv, mask=mask, softmax_scale=scale)
         o = _dense(self.c_proj, o.reshape(b, s, cfg.hidden_size), dt)
-        x = x + o
+        x = x + self.drop(o, proj_seed)
         if "mlp" in fused:
             h = ln_matmul(x, self.ln_2.weight, self.ln_2.bias,
                           self.c_fc.weight.to(dt), self.c_fc.bias.to(dt),
@@ -238,14 +258,15 @@ class GPTBlock(nn.Module):
         else:
             h = _layer_norm(self.ln_2, x).to(dt)
             h = F.gelu(_dense(self.c_fc, h, dt), approximate="tanh")
-        x = x + _dense(self.mlp_proj, h, dt)
+        h = _dense(self.mlp_proj, h, dt)
+        x = x + self.drop(h, mlp_seed)
         return (x, kv_cache) if kv_cache is not None else x
 
 
 class GPT(nn.Module):
     """Causal LM. ``forward(input_ids, labels=None, attention_mask=None,
-    deterministic=False)`` returns ``{"loss", "logits"}``; in cache mode
-    ``{"logits", "cache"}``."""
+    deterministic=False, dropout_seed=None)`` returns ``{"loss",
+    "logits"}``; in cache mode ``{"logits", "cache"}``."""
 
     def __init__(self, cfg: GPTConfig):
         super().__init__()
@@ -259,6 +280,7 @@ class GPT(nn.Module):
         self.ln_f = nn.LayerNorm(d, eps=cfg.layer_norm_epsilon)
         self.lm_head = (None if cfg.tie_embeddings
                         else nn.Linear(d, cfg.vocab_size, bias=False))
+        self.drop = dropout_module(cfg)(cfg.dropout_rate)
 
     def forward(self, input_ids: torch.Tensor,
                 labels: Optional[torch.Tensor] = None,
@@ -266,7 +288,8 @@ class GPT(nn.Module):
                 deterministic: bool = False,
                 position_ids: Optional[torch.Tensor] = None,
                 cache: Optional[List[Any]] = None,
-                pos: Optional[int] = None) -> Dict[str, Any]:
+                pos: Optional[int] = None,
+                dropout_seed: Optional[int] = None) -> Dict[str, Any]:
         """``input_ids``: [B, S]. ``labels``: [B, S] next-token targets
         (-100 = ignore), or None for ``input_ids`` shifted left.
         ``attention_mask``: [B, S] (1 = keep), or in cache mode a full
@@ -276,6 +299,9 @@ class GPT(nn.Module):
         optional per-row positions [B, S] (left-padded prompts re-base
         theirs to start at 0). ``cache``: per-layer caches (see the module
         docstring); ``pos``: the dense cache's write offset.
+        ``dropout_seed``: the host int a training forward at
+        ``dropout_rate > 0`` drops out with (the engine draws one per
+        micro-batch); the sites' seeds fold from it (module docstring).
 
         A training forward through the fused CE head returns
         ``"logits": None``: eagerly, the fp32 [B, S, V] logits would cost
@@ -284,10 +310,11 @@ class GPT(nn.Module):
         cfg = self.cfg
         dt = cfg.dtype
         b, s = input_ids.shape
-        if cache is None and not deterministic and cfg.dropout_rate > 0:
-            raise not_yet_ported(
-                f"GPT dropout_rate={cfg.dropout_rate} in a training forward "
-                f"(hash dropout and the flash kernels' dropout branch)")
+        drop = cache is None and not deterministic and cfg.dropout_rate > 0
+        if drop and dropout_seed is None:
+            raise ValueError(
+                f"a training forward at dropout_rate={cfg.dropout_rate} "
+                f"needs dropout_seed (or deterministic=True)")
         if position_ids is not None:
             pe = self.wpe[position_ids]
         elif pos is None:
@@ -297,6 +324,8 @@ class GPT(nn.Module):
         tok = embedding_lookup(self.wte, input_ids,
                                matmul_grad=cfg.embed_grad_matmul)
         x = tok.to(dt) + pe.to(dt)
+        if drop:
+            x = self.drop(x, fold_seed(dropout_seed, 0, 0))
 
         attn_mask = None
         if attention_mask is not None:
@@ -316,7 +345,9 @@ class GPT(nn.Module):
                 x, layer_kv = block(x, attn_mask, cache[i], pos)
                 new_cache.append(layer_kv)
             else:
-                x = block(x, attn_mask)
+                seeds = (tuple(fold_seed(dropout_seed, i + 1, site)
+                               for site in range(3)) if drop else None)
+                x = block(x, attn_mask, seeds=seeds)
 
         x = _layer_norm(self.ln_f, x)
         fused = cfg.tie_embeddings and cfg.fused_ce

@@ -17,8 +17,16 @@ reaches attention through :func:`attention` over [B, S, H, D] tensors;
   JAX crossover ``PALLAS_MIN_SEQ_K`` is a TPU measurement and is not
   carried over.)
 
-``"ring"``, ``"ulysses"`` and ``"pallas_pad"`` and attention dropout are not
-ported yet.
+Attention dropout (``dropout_rate`` > 0 in a non-deterministic call) takes
+the step's int ``dropout_seed`` where JAX takes ``dropout_rng``. Both of
+the port's paths drop out with the same mask, the flash kernels'
+counter hash ``flash_attention.dropout_keep_mask`` over (seed,
+batch-head, row, col), so the kernel path and the plain path agree bit
+for bit on the mask for one seed. That differs from the JAX xla branch,
+which draws ``jax.random.bernoulli`` bits that no torch code reproduces;
+the JAX flash kernels use the same hash as the port.
+
+``"ring"``, ``"ulysses"`` and ``"pallas_pad"`` are not ported yet.
 """
 
 from typing import Optional
@@ -26,8 +34,8 @@ from typing import Optional
 import torch
 
 from deepspeed_tpu_torch.config.config import not_yet_ported
-from deepspeed_tpu_torch.ops.transformer.flash_attention import \
-    flash_attention
+from deepspeed_tpu_torch.ops.transformer.flash_attention import (
+    _check_dropout, _dropped, _keep_bhqk, flash_attention)
 
 IMPLS = ("auto", "flash", "pallas", "xla")
 NOT_YET_PORTED_IMPLS = ("ring", "ulysses", "pallas_pad")
@@ -37,15 +45,20 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = False,
                   bias: Optional[torch.Tensor] = None,
                   mask: Optional[torch.Tensor] = None,
-                  softmax_scale: Optional[float] = None) -> torch.Tensor:
+                  softmax_scale: Optional[float] = None,
+                  dropout_rate: float = 0.0,
+                  dropout_seed: Optional[int] = None) -> torch.Tensor:
     """q, k, v: [B, S, H, D] (k/v's sequence may differ from q's).
 
     Logits and softmax are fp32 whatever the input dtype; masked logits are
     ``finfo(float32).min``; the causal mask is aligned bottom-right
     (``tril(k=sk-sq)``), as in the JAX package. ``bias``: added to the
     logits. ``mask``: [B, Sk] key padding, or anything broadcastable to
-    [B, H, Sq, Sk]; True = attend.
+    [B, H, Sq, Sk]; True = attend. ``dropout_rate`` > 0: the fp32
+    probabilities masked by ``dropout_keep_mask`` of ``dropout_seed`` and
+    scaled by ``1 / (1 - rate)``, as the flash kernels do.
     """
+    _check_dropout(dropout_rate, dropout_seed)
     orig_dtype = q.dtype
     scale = (softmax_scale if softmax_scale is not None
              else 1.0 / (q.shape[-1] ** 0.5))
@@ -65,6 +78,10 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             mask = mask[:, None]
         logits = logits.masked_fill(~mask.bool(), neg)
     probs = torch.softmax(logits, dim=-1)
+    if dropout_rate > 0.0:
+        keep = _keep_bhqk(dropout_seed, q.shape[0], q.shape[2], q.shape[1],
+                          k.shape[1], dropout_rate, q.device)
+        probs = _dropped(probs, keep, dropout_rate)
     # as jnp.einsum promotes: bf16 probs against an fp32 cache give fp32
     dt = torch.promote_types(orig_dtype, v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(dt), v.to(dt))
@@ -107,21 +124,29 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               bias: Optional[torch.Tensor] = None,
               mask: Optional[torch.Tensor] = None,
               dropout_rate: float = 0.0,
+              dropout_seed: Optional[int] = None,
               deterministic: bool = True,
               softmax_scale: Optional[float] = None,
               impl: str = "auto") -> torch.Tensor:
-    """Dispatching attention entry point used by the model families."""
+    """Dispatching attention entry point used by the model families.
+    Dropout acts only when ``deterministic`` is False; it then needs
+    ``dropout_seed``."""
     kv_mask = _as_kv_mask(mask, q.shape[0], k.shape[1])
     general = bias is not None or (mask is not None and kv_mask is None)
     path = resolve_attention_impl(impl, q.device.type, general)
-    if dropout_rate > 0.0 and not deterministic:
-        raise not_yet_ported("attention dropout")
+    if deterministic:
+        dropout_rate = 0.0
+    _check_dropout(dropout_rate, dropout_seed)
     if path == "flash":
         if general:
             raise ValueError("impl='flash' attention takes only key-padding "
                              "masks ([B, Sk] / [B, 1, Sk] / [B, 1, 1, Sk]) "
                              "and no bias: use impl='xla' for those")
         return flash_attention(q, k, v, causal=causal, kv_mask=kv_mask,
-                               softmax_scale=softmax_scale)
+                               softmax_scale=softmax_scale,
+                               dropout_rate=dropout_rate,
+                               dropout_seed=dropout_seed)
     return xla_attention(q, k, v, causal=causal, bias=bias, mask=mask,
-                         softmax_scale=softmax_scale)
+                         softmax_scale=softmax_scale,
+                         dropout_rate=dropout_rate,
+                         dropout_seed=dropout_seed)

@@ -17,8 +17,19 @@ and the fp32 row logsumexp; the backward recomputes the probabilities.
   that the CPU tests hold against the JAX kernel and ``chip_smoke.py``
   holds the CUDA kernels against.
 
-Each kernel wrapper counts its launches in ``.launches``. Attention dropout
-inside the kernels (``dropout_rate`` of the JAX function) is not ported yet.
+Attention dropout (``dropout_rate`` > 0 with an int ``dropout_seed``) is
+the JAX function's: the keep-mask of score (row i, col j) of batch-head
+``bh = b * H + h`` is :func:`dropout_keep_mask`, a counter hash of (seed,
+bh, i, j) that the forward and both backward kernels regenerate, so no
+[S, S] mask is ever stored. The forward's normaliser keeps the full
+probability mass; only the accumulated probabilities are masked and
+scaled by ``1 / (1 - rate)``; the backward masks and scales ``dp`` (and,
+for dv, ``p``). The seed is the host int the JAX function derives from its
+key (``kd[0] ^ (kd[-1] << 1)``); the kernels take it, and the integer
+threshold and the fp32 ``1 / (1 - rate)`` the host computes, as
+arguments. At rate 0 they run a variant compiled without the hash.
+
+Each kernel wrapper counts its launches in ``.launches``.
 """
 
 import ctypes
@@ -27,11 +38,12 @@ from typing import Optional
 import torch
 
 from deepspeed_tpu_torch.ops import build
+from deepspeed_tpu_torch.ops.dropout import MASK32, keep_threshold, mul32
 
 __all__ = ["flash_attention", "flash_attention_reference", "flash_ok",
            "flash_attention_fwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "flash_bwd_dq_reference",
-           "flash_bwd_dkv_reference"]
+           "flash_bwd_dkv_reference", "dropout_keep_mask"]
 
 MAX_HEAD_DIM = 256
 MAX_BATCH_HEADS = 65535          # the grid's second dimension
@@ -50,6 +62,69 @@ def flash_ok(q: torch.Tensor, k: torch.Tensor, causal: bool) -> bool:
             and not (causal and sq > k.shape[1]))
 
 
+def _hash_u32(x: torch.Tensor) -> torch.Tensor:
+    """The kernels' murmur3-style finalizer (JAX ``flash_attention.
+    _hash_u32``), over int64 holding uint32 values; not the splitmix32
+    hash of ``ops/dropout.py``."""
+    x = mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 16)
+    x = mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 13)
+    x = mul32(x, 0x27D4EB2F)
+    return x ^ (x >> 16)
+
+
+def _dropout_bits(seed: int, bh, rows, cols) -> torch.Tensor:
+    """uint32 hash bits (in int64) of absolute score coordinates: ``bh``,
+    ``rows`` and ``cols`` int64 tensors (or ints) that broadcast."""
+    x = (mul32(torch.as_tensor(rows, dtype=torch.int64), 0x9E3779B9)
+         + mul32(torch.as_tensor(cols, dtype=torch.int64), 0x7FEB352D)
+         ) & MASK32
+    x = x ^ ((int(seed) + 0x165667B1) & MASK32)
+    x = x ^ ((mul32(torch.as_tensor(bh, dtype=torch.int64), 0x58F633B5)
+              + 1) & MASK32)
+    return _hash_u32(x)
+
+
+def dropout_keep_mask(seed: int, bh, rows, cols,
+                      rate: float) -> torch.Tensor:
+    """Boolean keep-mask of attention dropout: the top 24 hash bits of
+    (seed, batch-head, absolute row, absolute col) against
+    ``int(rate * 2**24)``, bit for bit the JAX function's and the
+    kernels'. The port's plain attention (``attention.xla_attention``)
+    drops out with this mask too."""
+    return (_dropout_bits(seed, bh, rows, cols) >> 8) >= keep_threshold(
+        rate)
+
+
+def _keep_bhqk(seed: int, b: int, h: int, sq: int, sk: int, rate: float,
+               device) -> torch.Tensor:
+    """The keep-mask of every score, [B, H, Sq, Sk], ``bh = b * H + h``."""
+    def i64(n):
+        return torch.arange(n, dtype=torch.int64, device=device)
+
+    bh = (i64(b)[:, None] * h + i64(h)[None, :])[:, :, None, None]
+    return dropout_keep_mask(seed, bh, i64(sq)[:, None], i64(sk)[None, :],
+                             rate)
+
+
+def _dropped(t: torch.Tensor, keep: Optional[torch.Tensor],
+             rate: float) -> torch.Tensor:
+    """``t`` (fp32) masked by ``keep`` and scaled by the fp32 ``1 / (1 -
+    rate)``, as the kernels apply it; ``t`` itself when ``keep`` is
+    None."""
+    if keep is None:
+        return t
+    return torch.where(keep, t * (1.0 / (1.0 - rate)), 0.0)
+
+
+def _check_dropout(rate: float, seed) -> None:
+    if rate < 0.0 or rate >= 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
+    if rate > 0.0 and seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
+
+
 def _scale_of(q: torch.Tensor, softmax_scale: Optional[float]) -> float:
     return (softmax_scale if softmax_scale is not None
             else 1.0 / (q.shape[-1] ** 0.5))
@@ -58,12 +133,16 @@ def _scale_of(q: torch.Tensor, softmax_scale: Optional[float]) -> float:
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = False,
                               kv_mask: Optional[torch.Tensor] = None,
-                              softmax_scale: Optional[float] = None
+                              softmax_scale: Optional[float] = None,
+                              dropout_rate: float = 0.0,
+                              dropout_seed: Optional[int] = None
                               ) -> torch.Tensor:
     """Plain version: the same function as the kernels over materialised
     fp32 scores [B, H, Sq, Sk], differentiated by autograd. The row max is
     taken over the causally visible keys, masked ones included, and the
-    mask multiplies ``exp(s - max)``, as in the kernels."""
+    mask multiplies ``exp(s - max)``, as in the kernels; dropout masks the
+    normalised probabilities after the normaliser."""
+    _check_dropout(dropout_rate, dropout_seed)
     scale = _scale_of(q, softmax_scale)
     sq, sk = q.shape[1], k.shape[1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
@@ -79,14 +158,20 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     # l = 0 only where every key is masked: there p = 0 and o = 0, and a
     # divisor of 1 keeps that row's gradient exactly 0
     l = torch.where(l == 0, torch.ones_like(l), l.clamp_min(1e-30))
-    o = torch.einsum("bhqk,bkhd->bqhd", p / l, v.float())
+    keep = (_keep_bhqk(dropout_seed, q.shape[0], q.shape[2], sq, sk,
+                       dropout_rate, q.device)
+            if dropout_rate > 0.0 else None)
+    o = torch.einsum("bhqk,bkhd->bqhd", _dropped(p / l, keep, dropout_rate),
+                     v.float())
     return o.to(q.dtype)
 
 
-def _bwd_probs(q, k, v, dout, kv_mask, lse, delta, causal, scale):
+def _bwd_probs(q, k, v, dout, kv_mask, lse, delta, causal, scale,
+               dropout_rate, dropout_seed):
     """Shared part of the backward kernels' plain versions: scale * q,
-    p = exp(s - lse) * mask and ds = p (dO.v - delta), fp32,
-    [B, H, Sq, Sk]."""
+    p = exp(s - lse) * mask, dropped out (for dv), and ds = p (D(dO.v) -
+    delta) with D the dropout's mask and scale, fp32, [B, H, Sq, Sk]."""
+    _check_dropout(dropout_rate, dropout_seed)
     sq, sk = q.shape[1], k.shape[1]
     qs = q.float() * scale
     s = torch.einsum("bqhd,bkhd->bhqk", qs, k.float())
@@ -98,24 +183,32 @@ def _bwd_probs(q, k, v, dout, kv_mask, lse, delta, causal, scale):
     if kv_mask is not None:
         p = p * kv_mask.float()[:, None, None, :]
     dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
-    return qs, p, p * (dp - delta[..., None])
+    keep = (_keep_bhqk(dropout_seed, q.shape[0], q.shape[2], sq, sk,
+                       dropout_rate, q.device)
+            if dropout_rate > 0.0 else None)
+    dp = _dropped(dp, keep, dropout_rate)
+    return qs, _dropped(p, keep, dropout_rate), p * (dp - delta[..., None])
 
 
 def flash_bwd_dq_reference(q, k, v, dout, kv_mask, lse, delta, causal: bool,
-                           scale: float) -> torch.Tensor:
+                           scale: float, dropout_rate: float = 0.0,
+                           dropout_seed: Optional[int] = None
+                           ) -> torch.Tensor:
     """Plain version of the dq kernel on the same inputs (``lse`` and
     ``delta`` fp32 [B, H, Sq])."""
     _qs, _p, ds = _bwd_probs(q, k, v, dout, kv_mask, lse, delta, causal,
-                             scale)
+                             scale, dropout_rate, dropout_seed)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
     return dq.to(q.dtype)
 
 
 def flash_bwd_dkv_reference(q, k, v, dout, kv_mask, lse, delta,
-                            causal: bool, scale: float):
+                            causal: bool, scale: float,
+                            dropout_rate: float = 0.0,
+                            dropout_seed: Optional[int] = None):
     """Plain version of the dk/dv kernel on the same inputs."""
     qs, p, ds = _bwd_probs(q, k, v, dout, kv_mask, lse, delta, causal,
-                           scale)
+                           scale, dropout_rate, dropout_seed)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.float())
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -126,7 +219,9 @@ def _kernel():
     if _FN is None:
         lib = build.load("flash_attention")
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        shape = [i32] * 5 + [f32, i32, i32, ptr]
+        # B, H, Sq, Sk, D, scale, causal, seed, thresh, inv_keep, dtype,
+        # stream
+        shape = [i32] * 5 + [f32, i32, ctypes.c_uint32, i32, f32, i32, ptr]
         fwd = lib.flash_attention_fwd
         fwd.argtypes = [ptr] * 7 + shape
         dq = lib.flash_attention_bwd_dq
@@ -196,10 +291,22 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def flash_attention_fwd(q, k, v, kv_mask, causal: bool, scale: float):
+def _drop_args(rate: float, seed: Optional[int]):
+    """The kernels' dropout arguments: the seed as uint32, the integer
+    threshold (0 turns the hash off) and the fp32 ``1 / (1 - rate)``, all
+    from the host."""
+    _check_dropout(rate, seed)
+    if rate <= 0.0:
+        return 0, 0, 1.0
+    return int(seed) & MASK32, keep_threshold(rate), 1.0 / (1.0 - rate)
+
+
+def flash_attention_fwd(q, k, v, kv_mask, causal: bool, scale: float,
+                        dropout_rate: float = 0.0,
+                        dropout_seed: Optional[int] = None):
     """Launch the forward kernel: returns ``out`` (contiguous [B, Sq, H, D]
-    in q's dtype) and ``lse`` (fp32 [B, H, Sq]). Inputs as
-    :func:`_prepare` returns them."""
+    in q's dtype) and ``lse`` (fp32 [B, H, Sq], of the undropped
+    probabilities). Inputs as :func:`_prepare` returns them."""
     b, sq, h, d = q.shape
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -209,6 +316,7 @@ def flash_attention_fwd(q, k, v, kv_mask, causal: bool, scale: float):
         rc = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
                  out.data_ptr(), lse.data_ptr(), _strides(q, k, v), b, h, sq,
                  k.shape[1], d, float(scale), int(causal),
+                 *_drop_args(dropout_rate, dropout_seed),
                  _DTYPE_CODES[q.dtype], stream)
     _check(rc, "forward")
     flash_attention_fwd.launches += 1
@@ -216,7 +324,8 @@ def flash_attention_fwd(q, k, v, kv_mask, causal: bool, scale: float):
 
 
 def flash_attention_bwd_dq(q, k, v, dout, kv_mask, lse, delta, causal: bool,
-                           scale: float):
+                           scale: float, dropout_rate: float = 0.0,
+                           dropout_seed: Optional[int] = None):
     """Launch the dq kernel: ``dout`` contiguous [B, Sq, H, D]; ``lse`` and
     ``delta`` fp32 [B, H, Sq]. Returns dq, contiguous [B, Sq, H, D]."""
     b, sq, h, d = q.shape
@@ -227,14 +336,18 @@ def flash_attention_bwd_dq(q, k, v, dout, kv_mask, lse, delta, causal: bool,
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                 _ptr(kv_mask), lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), _strides(q, k, v), b, h, sq, k.shape[1], d,
-                float(scale), int(causal), _DTYPE_CODES[q.dtype], stream)
+                float(scale), int(causal),
+                *_drop_args(dropout_rate, dropout_seed),
+                _DTYPE_CODES[q.dtype], stream)
     _check(rc, "dq")
     flash_attention_bwd_dq.launches += 1
     return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, kv_mask, lse, delta,
-                            causal: bool, scale: float):
+                            causal: bool, scale: float,
+                            dropout_rate: float = 0.0,
+                            dropout_seed: Optional[int] = None):
     """Launch the dk/dv kernel. Returns dk, dv, contiguous
     [B, Sk, H, D]."""
     b, sq, h, d = q.shape
@@ -247,7 +360,9 @@ def flash_attention_bwd_dkv(q, k, v, dout, kv_mask, lse, delta,
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                 _ptr(kv_mask), lse.data_ptr(), delta.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), _strides(q, k, v), b, h, sq, sk,
-                d, float(scale), int(causal), _DTYPE_CODES[q.dtype], stream)
+                d, float(scale), int(causal),
+                *_drop_args(dropout_rate, dropout_seed),
+                _DTYPE_CODES[q.dtype], stream)
     _check(rc, "dkv")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
@@ -260,15 +375,17 @@ flash_attention_bwd_dkv.launches = 0
 
 class _FlashAttention(torch.autograd.Function):
     """The CUDA kernels with their gradient: the forward saves ``out`` and
-    ``lse``; the backward takes ``delta = rowsum(dO * out)`` in fp32, then
-    launches dq and dk/dv."""
+    ``lse`` (and keeps the dropout's rate and seed); the backward takes
+    ``delta = rowsum(dO * out)`` in fp32, then launches dq and dk/dv,
+    which regenerate the forward's keep-mask."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, causal, scale):
+    def forward(ctx, q, k, v, kv_mask, causal, scale, rate, seed):
         q, k, v, kv_mask = _prepare(q, k, v, kv_mask, causal)
-        out, lse = flash_attention_fwd(q, k, v, kv_mask, causal, scale)
+        out, lse = flash_attention_fwd(q, k, v, kv_mask, causal, scale,
+                                       rate, seed)
         ctx.save_for_backward(q, k, v, kv_mask, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.rate, ctx.seed = causal, scale, rate, seed
         return out
 
     @staticmethod
@@ -277,30 +394,40 @@ class _FlashAttention(torch.autograd.Function):
         dout = dout.contiguous()
         delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
         delta = delta.contiguous()                       # [B, H, Sq]
+        drop = (ctx.rate, ctx.seed)
         dq = flash_attention_bwd_dq(q, k, v, dout, kv_mask, lse, delta,
-                                    ctx.causal, ctx.scale)
+                                    ctx.causal, ctx.scale, *drop)
         dk, dv = flash_attention_bwd_dkv(q, k, v, dout, kv_mask, lse, delta,
-                                         ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None, None
+                                         ctx.causal, ctx.scale, *drop)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False,
                     kv_mask: Optional[torch.Tensor] = None,
-                    softmax_scale: Optional[float] = None) -> torch.Tensor:
+                    softmax_scale: Optional[float] = None,
+                    dropout_rate: float = 0.0,
+                    dropout_seed: Optional[int] = None) -> torch.Tensor:
     """Flash attention over [B, S, H, D] tensors; ``kv_mask`` [B, Sk]
     (1/True = attend). Returns [B, Sq, H, D] in q's dtype; differentiable
     in q, k and v. Causal attention takes no more queries than keys (a
-    query row with no visible key has no defined output)."""
+    query row with no visible key has no defined output).
+    ``dropout_rate`` > 0 drops attention probabilities with the keep-mask
+    :func:`dropout_keep_mask` of the host int ``dropout_seed``."""
+    dropout_rate = float(dropout_rate)
+    _check_dropout(dropout_rate, dropout_seed)
     if causal and q.shape[1] > k.shape[1]:
         raise ValueError(f"causal flash_attention needs Sq <= Sk, got Sq "
                          f"{q.shape[1]}, Sk {k.shape[1]}")
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal,
                                          kv_mask=kv_mask,
-                                         softmax_scale=softmax_scale)
+                                         softmax_scale=softmax_scale,
+                                         dropout_rate=dropout_rate,
+                                         dropout_seed=dropout_seed)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
                          f"{q.device}")
     return _FlashAttention.apply(q, k, v, kv_mask, bool(causal),
-                                 float(_scale_of(q, softmax_scale)))
+                                 float(_scale_of(q, softmax_scale)),
+                                 dropout_rate, dropout_seed)

@@ -33,14 +33,15 @@ from typing import Optional
 
 import torch
 
+from deepspeed_tpu_torch.config.config import not_yet_ported
 from deepspeed_tpu_torch.ops import build
 
 __all__ = ["ln_matmul", "ln_matmul_ok", "ln_matmul_reference",
            "ln_matmul_bwd_reference", "ln_matmul_fwd", "ln_matmul_bwd"]
 
 _SQRT_2_OVER_PI = 0.7978845608028654
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_PARAM_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_PARAM_CODES = _DTYPE_CODES
 MAX_COL_TILES = 65535            # the grid's second dimension, 128 a tile
 _FN = None
 
@@ -158,16 +159,18 @@ def _dense(t: torch.Tensor) -> torch.Tensor:
 def _prepare(x, gamma, beta, w, bias):
     """Checks the kernels rely on; returns the inputs as they read them:
     x, w, gamma and beta contiguous and 16-byte aligned (the kernels read
-    them in vectors of 8), bias contiguous, beta in gamma's dtype."""
+    them in vectors of 8), bias contiguous, beta in gamma's dtype. A dtype
+    the kernels do not take raises the port's "not yet ported" error."""
     n, d = x.shape
     f = w.shape[0]
     if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
-        raise TypeError(f"fused_ln kernels take float32 or bfloat16 x and w "
-                        f"of one dtype; got x {x.dtype}, w {w.dtype}")
+        raise not_yet_ported(
+            f"fused_ln kernels for x {x.dtype} and w {w.dtype} (they take "
+            f"float32, bfloat16 or float16 x and w of one dtype)")
     if gamma.dtype not in _PARAM_CODES or bias.dtype not in _PARAM_CODES:
-        raise TypeError(f"fused_ln kernels take float32, bfloat16 or "
-                        f"float16 gamma, beta and bias; got {gamma.dtype}, "
-                        f"{bias.dtype}")
+        raise not_yet_ported(
+            f"fused_ln kernels for gamma {gamma.dtype} and bias "
+            f"{bias.dtype} (they take float32, bfloat16 or float16)")
     if not ln_matmul_ok(n, d, f):
         raise ValueError(f"fused_ln kernels take D and F multiples of 8; got "
                          f"n={n}, D={d}, F={f}")

@@ -78,7 +78,9 @@ class DeepSpeedEngine:
 
     ``params``: an ordered dict name -> tensor, the fp32 masters; the
     engine updates these tensors in place (pass a module's parameters to
-    train the module). ``device``: where they live.
+    train the module). ``device``: where they live. ``rng``: a host int in
+    [-2**31, 2**31) drawn per micro-batch from a CPU generator seeded with
+    ``rng_seed`` (the seed of the step's dropout), None in evaluation.
     """
 
     def __init__(self, loss_fn: Callable, params: Dict[str, torch.Tensor],
@@ -134,7 +136,9 @@ class DeepSpeedEngine:
         # unscaled fp32 gradients: the same buffers every step
         self._grads32 = [torch.empty(p.shape, dtype=torch.float32,
                                      device=device) for p in masters]
-        self.generator = torch.Generator(device=device)
+        # the micro-batches' dropout seeds, drawn on the host: a generator
+        # on the card would synchronize every micro-step to give one up
+        self.generator = torch.Generator(device="cpu")
         self.generator.manual_seed(int(rng_seed))
         self.global_steps = 0
         self.micro_steps = 0
@@ -181,11 +185,14 @@ class DeepSpeedEngine:
 
     def _micro_step(self, compute: List[torch.Tensor], batch) -> torch.Tensor:
         """Forward and backward of one micro-batch; adds its gradients into
-        the accumulator. Returns the fp32 loss (unscaled)."""
+        the accumulator. Returns the fp32 loss (unscaled). The loss
+        function's ``rng`` is a host int, one draw per micro-step."""
         cfg = self.config
         scale = self.state.loss_scale.scale if cfg.fp16.enabled else 1.0
+        seed = int(torch.randint(-2 ** 31, 2 ** 31, (),
+                                 generator=self.generator))
         out = self.loss_fn(dict(zip(self.param_names, compute)), batch,
-                           self.generator)
+                           seed)
         loss = out[0] if isinstance(out, tuple) else out
         loss32 = loss.float()
         scaled = loss32 * scale / self.gradient_accumulation_steps

@@ -23,6 +23,11 @@ from deepspeed_tpu_torch.ops.transformer.chunked_prefill import (
     chunked_prefill_attention, chunked_prefill_attention_reference)
 from deepspeed_tpu_torch.serving.kv_cache import _quant_tokens
 
+# One intra-op thread: the tests run in several worker processes at
+# once, and torch's OpenMP threads spinning against the other workers
+# made them several times slower.
+torch.set_num_threads(1)
+
 BS, H, WB = 4, 2, 4
 
 # the four mixes of tests/test_chunked_prefill.py

@@ -25,6 +25,11 @@ from deepspeed_tpu_torch.ops.adam import (AdamState, FusedAdam, FusedAdamW,
 from deepspeed_tpu_torch.ops.adam.fused_adam import bias_corrections
 from deepspeed_tpu_torch.runtime import lr_schedules, precision, utils
 
+# One intra-op thread: the tests run in several worker processes at
+# once, and torch's OpenMP threads spinning against the other workers
+# made them several times slower.
+torch.set_num_threads(1)
+
 SHAPES = [(33, 17), (129,), (8, 4, 3)]
 
 

@@ -42,9 +42,15 @@ from deepspeed_tpu_torch.models import gpt as tgpt
 from deepspeed_tpu_torch.ops import build
 from deepspeed_tpu_torch.ops.transformer import fused
 
+# One intra-op thread: the tests run in several worker processes at
+# once, and torch's OpenMP threads spinning against the other workers
+# made them several times slower.
+torch.set_num_threads(1)
+
 EPS = 1e-5
 DTYPES = {"float32": (jnp.float32, torch.float32),
-          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+          "bfloat16": (jnp.bfloat16, torch.bfloat16),
+          "float16": (jnp.float16, torch.float16)}
 
 
 def _inputs(seed, n, d, f):
@@ -104,23 +110,36 @@ def _close(got, want, tol, what):
     assert err <= tol * scale, (what, err, scale)
 
 
+@pytest.fixture(scope="module")
+def sides():
+    """Both sides' y and gradients on one input set (n 256, D 128, F 384),
+    each (dtype, activation) computed once for the forward and the
+    gradient tests."""
+    arrs = _inputs(0, 256, 128, 384)
+    cache = {}
+
+    def get(dtype, act):
+        if (dtype, act) not in cache:
+            cache[(dtype, act)] = (_jax_side(arrs, dtype, act),
+                                   _port_side(arrs, dtype, act))
+        return cache[(dtype, act)]
+
+    return get
+
+
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-5),
                                        ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("act", [None, "gelu"])
-def test_forward_matches_jax(act, dtype, tol):
-    arrs = _inputs(0, 256, 128, 384)
-    want, _ = _jax_side(arrs, dtype, act)
-    got, _ = _port_side(arrs, dtype, act)
+def test_forward_matches_jax(act, dtype, tol, sides):
+    (want, _), (got, _) = sides(dtype, act)
     assert np.abs(got - want).max() <= tol
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-4),
                                        ("bfloat16", 5e-2)])
 @pytest.mark.parametrize("act", [None, "gelu"])
-def test_gradients_match_jax(act, dtype, tol):
-    arrs = _inputs(1, 256, 128, 256)
-    _, want = _jax_side(arrs, dtype, act)
-    _, got = _port_side(arrs, dtype, act)
+def test_gradients_match_jax(act, dtype, tol, sides):
+    (_, want), (_, got) = sides(dtype, act)
     for name, g, w in zip(("dx", "dgamma", "dbeta", "dw", "dbias"), got,
                           want):
         _close(g, w, tol, name)

@@ -6,6 +6,8 @@ LayerNorm takes the variance as E[x^2] - E[x]^2 and torch's as a two-pass
 mean of squared deviations, and the matmuls sum in other orders.
 """
 
+from dataclasses import replace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,13 +24,32 @@ from deepspeed_tpu_torch.models import (GPT_CONFIGS, flax_params_from_gpt,
                                         init_flax_gpt_params, init_kv_cache,
                                         make_gpt)
 
+# One intra-op thread: the tests run in several worker processes at
+# once, and torch's OpenMP threads spinning against the other workers
+# made them several times slower.
+torch.set_num_threads(1)
+
 LOGITS_ATOL = 1e-4
 
 
+def _flax_init(model, seed=0):
+    return jax.jit(model.init)({"params": jax.random.PRNGKey(seed),
+                                "dropout": jax.random.PRNGKey(seed + 1)},
+                               {"input_ids": np.zeros((1, 8), np.int32)}
+                               )["params"]
+
+
 def _jax_params(model, seed=0):
-    return model.init({"params": jax.random.PRNGKey(seed),
-                       "dropout": jax.random.PRNGKey(seed + 1)},
-                      {"input_ids": np.zeros((1, 8), np.int32)})["params"]
+    """Weights for the JAX ``model``: ``init_flax_gpt_params`` of its
+    configuration, the tree and distributions of flax's init (held by
+    ``test_seeded_weights_have_the_flax_layout_and_distributions``)
+    without flax's eager init, which costs seconds per model."""
+    c = model.cfg
+    cfg = replace(GPT_CONFIGS["tiny"], **{f: getattr(c, f) for f in (
+        "vocab_size", "max_seq_len", "hidden_size", "num_layers",
+        "num_heads", "mlp_ratio", "tie_embeddings", "vocab_pad_multiple")})
+    return jax.tree_util.tree_map(jnp.asarray,
+                                  init_flax_gpt_params(cfg, seed))
 
 
 def _pair(**overrides):
@@ -65,8 +86,8 @@ def test_flax_round_trip_is_bit_exact(tiny_pair):
 def test_logits_match_jax(tie, tiny_pair):
     jm, params, eng = tiny_pair if tie else _pair(tie_embeddings=False)
     ids = np.random.default_rng(1).integers(0, 512, (2, 24), dtype=np.int32)
-    want = np.asarray(jm.apply({"params": params}, {"input_ids": ids},
-                               deterministic=True)["logits"])
+    want = np.asarray(jax.jit(jm.apply, static_argnames="deterministic")(
+        {"params": params}, {"input_ids": ids}, deterministic=True)["logits"])
     got = eng.forward(ids)["logits"].numpy()
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= LOGITS_ATOL
@@ -106,14 +127,16 @@ def test_dense_cache_prefill_and_decode_match_jax(tiny_pair):
     steps = rng.integers(0, 512, (4, 2, 1), dtype=np.int32)
     jcache = jax_init_kv_cache(jm.cfg, 2, 16, dtype=jnp.float32)
     tcache = init_kv_cache(eng.model_cfg, 2, 16, dtype=torch.float32)
-    jo = jm.apply({"params": params}, {"input_ids": ids},
-                  deterministic=True, cache=jcache, pos=0)
+    # one compiled program per input shape (pos traced), not op by op
+    apply = jax.jit(lambda ids, cache, pos: jm.apply(
+        {"params": params}, {"input_ids": ids}, deterministic=True,
+        cache=cache, pos=pos))
+    jo = apply(ids, jcache, 0)
     to = eng.forward(ids, cache=tcache, pos=0)
     assert np.abs(to["logits"].numpy()
                   - np.asarray(jo["logits"])).max() <= LOGITS_ATOL
     for i, tok in enumerate(steps):
-        jo = jm.apply({"params": params}, {"input_ids": tok},
-                      deterministic=True, cache=jo["cache"], pos=10 + i)
+        jo = apply(tok, jo["cache"], 10 + i)
         to = eng.forward(tok, cache=to["cache"], pos=10 + i)
         assert np.abs(to["logits"].numpy()
                       - np.asarray(jo["logits"])).max() <= LOGITS_ATOL
@@ -154,7 +177,7 @@ def test_seeded_weights_have_the_flax_layout_and_distributions():
     """init_flax_gpt_params makes the tree GPT.init makes (same paths,
     shapes and dtypes) with flax's initialiser distributions."""
     jm, _ = jax_make_gpt("tiny", dropout_rate=0.0)
-    ref = _jax_params(jm)
+    ref = _flax_init(jm)
     tree = init_flax_gpt_params(GPT_CONFIGS["tiny"], seed=0)
     assert jax.tree_util.tree_structure(tree) == \
         jax.tree_util.tree_structure(ref)
@@ -172,12 +195,11 @@ def test_seeded_weights_have_the_flax_layout_and_distributions():
 
 
 @pytest.mark.parametrize("override", [
-    {"dropout_rate": 0.1}, {"moe_experts": 4}, {"remat": True},
-    {"sparse_embedding_grad": True}])
+    {"moe_experts": 4}, {"remat": True}, {"sparse_embedding_grad": True}])
 def test_training_options_not_yet_ported(override):
-    """Each option is refused; dropout only where it would act, in a
-    training forward (the others at construction). ``fused_ln`` is ported:
-    tests/test_torch_fused_ln.py holds its values and sites."""
+    """Each option is refused at construction. ``fused_ln`` and dropout
+    are ported: tests/test_torch_fused_ln.py holds fused_ln's values and
+    sites, tests/test_torch_dropout.py the dropout sites."""
     with pytest.raises(ConfigError, match="not yet ported"):
         model, _ = make_gpt("tiny", **override)
         model(torch.zeros(1, 4, dtype=torch.long), deterministic=False)

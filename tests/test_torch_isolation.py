@@ -80,6 +80,9 @@ def _forbidden(name: str) -> bool:
 
 def test_serving_on_cpu_imports_no_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    # one OpenMP thread: the tests run in several worker processes at
+    # once, and threads spinning against them made this run 5x slower
+    env["OMP_NUM_THREADS"] = "1"
     out = subprocess.run([sys.executable, "-c", SERVE_TINY], cwd=REPO,
                          env=env, capture_output=True, text=True,
                          timeout=300)

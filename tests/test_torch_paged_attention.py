@@ -20,6 +20,11 @@ from deepspeed_tpu_torch.ops.transformer.paged_attention import (
     paged_decode_ok)
 from deepspeed_tpu_torch.serving.kv_cache import _quant_tokens
 
+# One intra-op thread: the tests run in several worker processes at
+# once, and torch's OpenMP threads spinning against the other workers
+# made them several times slower.
+torch.set_num_threads(1)
+
 H, WB = 3, 4
 
 

@@ -17,6 +17,11 @@ from deepspeed_tpu_torch.comm.quantize import (dequantize_blockwise,
                                                quantize_blockwise)
 from deepspeed_tpu_torch.serving.kv_cache import _quant_tokens
 
+# One intra-op thread: the tests run in several worker processes at
+# once, and torch's OpenMP threads spinning against the other workers
+# made them several times slower.
+torch.set_num_threads(1)
+
 
 def _blocks(seed):
     """[6, 3, 64] fp32 with the cases that decide bit equality: a zero

@@ -30,6 +30,11 @@ from deepspeed_tpu_torch.ops.sparse_attention import (
     pad_to_block_size, sparse_attention, sparsity_config_from_dict)
 from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as sc
 
+# One intra-op thread: the tests run in several worker processes at
+# once, and torch's OpenMP threads spinning against the other workers
+# made them several times slower.
+torch.set_num_threads(1)
+
 # The packages export a function of the module's name: import the modules.
 jax_ops = importlib.import_module(
     "deepspeed_tpu.ops.sparse_attention.sparse_attention")

@@ -23,6 +23,11 @@ from deepspeed_tpu_torch.models.gpt import cross_entropy_with_ignore
 from deepspeed_tpu_torch.ops.embedding import embedding_lookup, vocab_pad_mask
 from deepspeed_tpu_torch.ops.xent import fused_cross_entropy
 
+# One intra-op thread: the tests run in several worker processes at
+# once, and torch's OpenMP threads spinning against the other workers
+# made them several times slower.
+torch.set_num_threads(1)
+
 N, D, V, VPAD = 24, 16, 50, 64
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
