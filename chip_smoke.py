@@ -21,14 +21,21 @@
      all-decode step, fp/bf16 and int8 pools, pad rows excluded;
    - flash attention forward, dq and dk/dv at [16, 512, 12, 64] causal,
      with and without a key mask holding an all-padding row, and at S=5
-     and S=300; the whole autograd path against the plain version's; fp32
-     within 1e-5 (dO x 0.1), bf16 within one rounding step plus 1e-3 of
-     the reference's RMS (0.15 on the autograd path; dO unscaled); the
-     same at dropout 0.1 at [16, 512, 12, 64] with one seed on both sides;
-     timed at dropout 0 and 0.1 beside SDPA at ``dropout_p`` 0 and 0.1;
-     and the dropout keep-mask read back out of the forward and dk/dv
-     kernels (fp32, [2, 2048, 2, 256], an identity V and dO on a 256-wide
-     window) against ``dropout_keep_mask``, no bit flipped;
+     and S=300, in fp32 (the FMA kernels), bf16 and fp16 (the tensor-core
+     forward and dk/dv of ``csrc/flash_attention_tc.cu``, the FMA dq);
+     in 16 bits also at D=128, at D=72 (zero-padded to 80) and with Sq <
+     Sk (bottom-right causal); the whole autograd path against the plain
+     version's; fp32 within 1e-5 (dO x 0.1), 16-bit within one rounding
+     step of its type plus 1e-3 of the reference's RMS (0.15 on the
+     autograd path; dO unscaled); dk/dv bit-equal over two launches; the
+     same at dropout 0.1 with one seed on both sides; timed as device
+     time (``torch.profiler``) at dropout 0 and 0.1 beside the FMA
+     kernels on the same inputs, the plain versions and SDPA with its
+     backend pinned and printed; and the dropout keep-mask read back out
+     of the forward and dk/dv kernels (fp32 [2, 2048, 2, 256] through the
+     FMA kernels, bf16 [2, 2048, 2, 64] through the tensor-core ones; an
+     identity V and dO on a D-wide window) against ``dropout_keep_mask``,
+     no bit flipped;
    - fused Adam, bit for bit, over GPT-2's 148 parameter tensors (with
      the bf16 copy of the new params that the bf16 training step uses);
    - block-sparse attention forward, dq and dk/dv (kernels #8-#10) at
@@ -65,8 +72,9 @@
    - a profiled window of 16 decode steps and of 16 chunked mixed steps.
 4. Training end to end: ``initialize`` -> ``train_batch`` on full-width
    GPT-2 with ``bench.py:bench_gpt2``'s configuration plus
-   ``optimizer.fused_update``: each flash kernel launches 96 times and
-   fused Adam once per step, no plain version runs, the loss falls; step
+   ``optimizer.fused_update``: the tensor-core flash forward and dk/dv and
+   the FMA dq launch 96 times each and fused Adam once per step, the FMA
+   forward and dk/dv never, no plain version runs, the loss falls; step
    time, tokens/s, model TFLOP/s and MFU, and a profiled step. Then, in
    fp32 at 2 layers, the kernels' path against the plain path (first-step
    gradients within 1e-4 of each leaf's norm, losses within 1e-5).
@@ -82,7 +90,8 @@
    path (``impl: "xla"``), held as in phase 4.
 6. Training with the fused LayerNorm + projection sites: phase 4's
    configuration on ``make_gpt("gpt2", fused_ln=True)``: #6 and #7 launch
-   192 times each per step (2 sites x 12 layers x GAS 8), flash 96, fused
+   192 times each per step (2 sites x 12 layers x GAS 8), flash as in
+   phase 4, fused
    Adam once, no plain version, the loss falls; step time, tokens/s, MFU,
    peak memory, a profiled step and the ratio to phase 4's step; the
    "qkv" and "mlp" variants (1 + 2 steps each); then in fp32 at 2 layers
@@ -92,9 +101,10 @@
    branch, no plain version, finite losses.
 7. Training at the default dropout: phase 4's configuration on
    ``make_gpt("gpt2")`` as it is (``dropout_rate`` 0.1, hash dropout):
-   each flash kernel launches 96 times per step through its dropout
-   branch, fused Adam once, no plain version, the loss falls; step time,
-   tokens/s, MFU, peak memory, the ratio to phase 4's step and a profiled
+   each flash kernel of phase 4 launches 96 times per step through its
+   dropout branch, fused Adam once, no plain version, the loss falls;
+   step time, tokens/s, MFU, peak memory, the ratio to phase 4's step and
+   a profiled
    step (device ms of the flash kernels and of the hash dropout's
    forward passes). Then in fp32 at 2 layers and dropout 0.1 the kernels'
    path against the plain path (``impl: "xla"``, the same mask function
@@ -102,7 +112,11 @@
 
 Any failure exits non-zero. The last stdout line is
 ``{"ok": true, "device": {...}}``; before it come the card line and a
-``{"kernels": [...]}`` line.
+``{"kernels": [...]}`` line. The FMA flash forward and dk/dv rows
+(``flash_attention_fwd``, ``flash_attention_bwd_dkv`` and their
+``_dropout`` twins) are fp32's route: timed in fp32, their launches
+counted over the fp32 comparison of phase 4 (and of phase 7 at dropout),
+every count set to 0 just before it.
 """
 
 import json
@@ -128,9 +142,10 @@ KERNEL_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # output, as the JAX kernel's backward does, where the plain version's
 # autograd uses its fp32 output: that moves dq and dk by up to 0.057 of
 # the RMS (the plain backward versions fed either delta, on the CPU at
-# B=2, S=512), so that path is held to 0.15.
-FLASH_DOUT_SCALE = {"float32": 0.1, "bfloat16": 1.0}
-FLASH_BF16_RMS_TOL = {"kernel": 1e-3, "autograd": 0.15}
+# B=2, S=512), so that path is held to 0.15. fp16 is held the same way
+# at its own rounding step (2**-11 of the value, not bf16's 2**-8).
+FLASH_DOUT_SCALE = {"float32": 0.1, "bfloat16": 1.0, "float16": 1.0}
+FLASH_16BIT_RMS_TOL = {"kernel": 1e-3, "autograd": 0.15}
 TIE_GAP = 1e-4                   # top-2 logit gap of a true tie
 
 
@@ -159,30 +174,38 @@ def card_line() -> str:
     return f"{torch.cuda.get_device_name(0)}, {mw.value / 1000:.2f} W"
 
 
-def ptxas_summary(lib: str) -> str:
+def ptxas_summary(lib: str, each: bool = False) -> str:
     """One line from the ``-Xptxas -v`` report kept beside a library (the
     full report is the ``.log`` file): kernels compiled, the register
-    range, and the kernels that spill."""
+    range, and the kernels that spill; with ``each``, then every kernel's
+    registers and spill-store bytes."""
     import re
 
-    regs, spills, name = [], [], None
+    regs, spills, name, per = [], [], None, {}
     with open(lib[:-3] + ".log") as f:
         for line in f:
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                name = m.group(1)
-            m = re.search(r"(\d+) bytes spill stores", line)
-            if m and int(m.group(1)) and name:
                 # the kernel's name and template arguments, mangled
-                spills.append(re.sub(r"^.*_cu_[0-9a-f]{8}\d+", "",
-                                     name)[:48])
+                name = re.sub(r"^.*_cu_[0-9a-f]{8}\d+", "", m.group(1))[:52]
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and name:
+                per.setdefault(name, [None, 0])[1] = int(m.group(1))
+                if int(m.group(1)):
+                    spills.append(name)
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 regs.append(int(m.group(1)))
+                if name:
+                    per.setdefault(name, [None, 0])[0] = int(m.group(1))
     if not regs:
         return "no ptxas report"
-    return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
-            f"{len(spills)} spilling" + (f" ({spills})" if spills else ""))
+    out = (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+           f"{len(spills)} spilling" + (f" ({spills})" if spills else ""))
+    if each:
+        out += "; " + "; ".join(f"{n}: {r} registers, {sp} bytes spilled"
+                                for n, (r, sp) in sorted(per.items()))
+    return out
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -729,22 +752,45 @@ def flash_bytes_flops(q, mask, which):
     return 6 * big + 2 * rows + mbytes, 8 * d * pairs  # -> dk, dv
 
 
-def compare_flash_case(torch, fa, dtype, b, s, h, d, masked, worst,
-                       rate=0.0, seed=None):
+# Phase 2's flash cases, causal: (B, Sq, Sk, H, D, key mask). Every dtype
+# runs FLASH_CASES (the training shape and ragged S, D = 64); bf16 and
+# fp16 also run FLASH_CASES_16, the tensor-core kernels' other widths
+# (D = 128, and D = 72, zero-padded to 80 in shared memory) and Sq < Sk
+# (bottom-right causal). At dropout 0.1 the same split.
+FLASH_CASES = ((16, 512, 512, 12, 64, False), (16, 512, 512, 12, 64, True),
+               (4, 5, 5, 12, 64, True), (4, 300, 300, 12, 64, False),
+               (4, 300, 300, 12, 64, True))
+FLASH_CASES_16 = ((4, 300, 300, 4, 128, False), (4, 300, 300, 4, 128, True),
+                  (4, 300, 300, 4, 72, True), (4, 5, 5, 4, 72, True),
+                  (4, 100, 300, 12, 64, True), (4, 100, 300, 4, 128, False),
+                  (4, 37, 300, 4, 72, True))
+FLASH_DROP_CASES = ((16, 512, 512, 12, 64, False),
+                    (16, 512, 512, 12, 64, True))
+FLASH_DROP_CASES_16 = ((4, 300, 300, 4, 128, True),
+                       (4, 100, 300, 4, 72, True))
+
+
+def compare_flash_case(torch, fa, dtype, case, worst, rate=0.0, seed=None):
     """Kernels #3-#5 and the whole autograd path against their plain
-    versions on one case (causal), at dropout ``rate`` with ``seed``;
-    folds each output's max |err| into ``worst`` and fails beyond the
-    tolerances (KERNEL_TOL, FLASH_BF16_RMS_TOL)."""
+    versions on one causal ``case`` (B, Sq, Sk, H, D, masked), at dropout
+    ``rate`` with ``seed``; q is the last Sq rows of the fused projection.
+    Folds each output's max |err| into ``worst`` and fails beyond the
+    tolerances (KERNEL_TOL, FLASH_16BIT_RMS_TOL), if dk/dv differ between
+    two launches on the same inputs, or if an all-padding batch row is
+    not exactly zero. Returns the route the forward and dk/dv took."""
+    b, sq, s, h, d, masked = case
     name = str(dtype).split(".")[1]
-    tol = KERNEL_TOL[name]
     qkv, q, k, v, dout, mask = flash_case(
-        torch, dtype, b, s, h, d, seed=s + masked, masked=masked,
+        torch, dtype, b, s, h, d,
+        seed=s + masked + 1000 * (d != 64) + 7 * (s - sq), masked=masked,
         dout_scale=FLASH_DOUT_SCALE[name])
+    q, dout = q[:, s - sq:], dout[:, s - sq:].contiguous()
     scale = 1.0 / d ** 0.5
     drop = (rate, seed)
     qp, kp, vp, mp = fa._prepare(q, k, v, mask, True)
     if qp.data_ptr() != q.data_ptr():
         fail("flash_attention copied an aligned strided view")
+    route = fa._route(dtype, d)
     out, lse = fa.flash_attention_fwd(qp, kp, vp, mp, True, scale, *drop)
     want = fa.flash_attention_reference(q, k, v, causal=True, kv_mask=mask,
                                         dropout_rate=rate, dropout_seed=seed)
@@ -754,7 +800,13 @@ def compare_flash_case(torch, fa, dtype, b, s, h, d, masked, worst,
                                    scale, *drop)
     dk, dv = fa.flash_attention_bwd_dkv(qp, kp, vp, dout, mp, lse, delta,
                                         True, scale, *drop)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(qp, kp, vp, dout, mp, lse, delta,
+                                          True, scale, *drop)
     torch.cuda.synchronize()
+    what = (f"{name} B={b} Sq={sq} Sk={s} H={h} D={d} masked={masked} "
+            f"dropout={rate} ({route})")
+    if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+        fail(f"flash dkv {what}: two launches on one input differ")
     dq_w = fa.flash_bwd_dq_reference(q, k, v, dout, mp, lse, delta, True,
                                      scale, *drop)
     dk_w, dv_w = fa.flash_bwd_dkv_reference(q, k, v, dout, mp, lse, delta,
@@ -766,63 +818,65 @@ def compare_flash_case(torch, fa, dtype, b, s, h, d, masked, worst,
     for x, fn in ((x1, fa.flash_attention),
                   (x2, fa.flash_attention_reference)):
         qq, kk, vv = (t.reshape(b, s, h, d) for t in x.split(h * d, dim=-1))
-        o = fn(qq, kk, vv, causal=True, kv_mask=mask, dropout_rate=rate,
-               dropout_seed=seed)
+        o = fn(qq[:, s - sq:], kk, vv, causal=True, kv_mask=mask,
+               dropout_rate=rate, dropout_seed=seed)
         o.backward(dout)
         outs.append(o)
     torch.cuda.synchronize()
     grad_w = x2.grad
     if rate and name != "float32":
-        # the path's delta comes from its bf16 output (FLASH_BF16_RMS_TOL):
-        # at dropout a row with one visible key outputs (1 / 0.9) v, which
-        # bf16 rounds, so the masked case moves dq and dk by 0.59 of the
-        # RMS against fp32 autograd (first run on the card). The path is
-        # held to the plain backward versions on its own delta instead;
-        # fp32 holds it to autograd.
+        # the path's delta comes from its 16-bit output
+        # (FLASH_16BIT_RMS_TOL): at dropout a row with one visible key
+        # outputs (1 / 0.9) v, which bf16 rounds, so the masked case moves
+        # dq and dk by 0.59 of the RMS against fp32 autograd (first run on
+        # the card). The path is held to the plain backward versions on
+        # its own delta instead; fp32 holds it to autograd.
+        dq_full = torch.zeros(b, s, h, d, dtype=dtype, device="cuda")
+        dq_full[:, s - sq:] = dq_w
         grad_w = torch.cat([t.reshape(b, s, h * d)
-                            for t in (dq_w, dk_w, dv_w)], -1)
+                            for t in (dq_full, dk_w, dv_w)], -1)
     pairs = {"fwd": (out, want), "dq": (dq, dq_w), "dk": (dk, dk_w),
              "dv": (dv, dv_w), "autograd out": tuple(outs),
              "autograd dqkv": (x1.grad, grad_w)}
-    what = f"B={b} S={s} masked={masked} dropout={rate}"
     for key, (got, ref) in pairs.items():
         if not torch.isfinite(got).all():
-            fail(f"flash {key} {name} {what}: non-finite output")
+            fail(f"flash {key} {what}: non-finite output")
         diff = (got.float() - ref.float()).abs()
         err = diff.max().item()
         rms = ref.float().pow(2).mean().sqrt().item()
         peak = ref.float().abs().max().item()
         if name == "float32":
             rel = 0.0
-            bad = err > tol
+            bad = err > KERNEL_TOL[name]
         else:
-            rel = ((diff - round_step(torch, ref)).clamp_min(0).max()
+            rel = ((diff - round_step(torch, ref, dtype)).clamp_min(0).max()
                    .item() / max(rms, 1e-30))
-            bad = rel > FLASH_BF16_RMS_TOL[
+            bad = rel > FLASH_16BIT_RMS_TOL[
                 "autograd" if key.startswith("autograd") and not rate
                 else "kernel"]
         if bad:
-            fail(f"flash {key} {name} {what}: max |err| {err} (reference "
-                 f"RMS {rms}, max |x| {peak}); beyond one bf16 step {rel} "
+            fail(f"flash {key} {what}: max |err| {err} (reference RMS "
+                 f"{rms}, max |x| {peak}); beyond one rounding step {rel} "
                  f"of the RMS")
         w = worst.get((key, name))
         if w is None or err > w[0]:
             worst[(key, name)] = (err, rms, peak)
         w = worst.get((key, name, "rel"))
         worst[(key, name, "rel")] = max(w or 0.0, rel)
-    if masked and b > 1 and (out[1].abs().max().item() != 0.0
-                             or dq[1].abs().max().item() != 0.0):
+    if masked and b > 1 and any(t[1].abs().max().item() != 0.0
+                                for t in (out, dq, dk, dv)):
         fail(f"flash {what}: the all-padding row is not exactly zero")
+    return route
 
 
 def print_flash_worst(worst, cases, rate=0.0):
     for key, name in sorted(k for k in worst if len(k) == 2):
         err, rms, peak = worst[(key, name)]
-        lim = FLASH_BF16_RMS_TOL["autograd" if key.startswith("autograd")
-                                 and not rate else "kernel"]
+        lim = FLASH_16BIT_RMS_TOL["autograd" if key.startswith("autograd")
+                                  and not rate else "kernel"]
         limit = (f"atol {KERNEL_TOL[name]}" if name == "float32" else
-                 f"beyond one bf16 step: {worst[(key, name, 'rel')]:.3g} "
-                 f"of the RMS, limit {lim}")
+                 f"beyond one {name} step: "
+                 f"{worst[(key, name, 'rel')]:.3g} of the RMS, limit {lim}")
         print(f"flash_attention {key} {name} {cases}, causal, with/without "
               f"key mask, dO x {FLASH_DOUT_SCALE[name]}: max |err| "
               f"{err:.3g} where the reference's RMS is {rms:.3g} and its "
@@ -833,160 +887,255 @@ FLASH_DROPOUT = 0.1              # GPTConfig.dropout_rate's default
 FLASH_DROPOUT_SEED = -123456789  # any int: the kernels take it as uint32
 
 
-def check_flash_attention(torch, reports):
-    """#3-#5 against their plain versions at dropout 0 ((B, S) in (16,
-    512), (4, 5), (4, 300)) and at dropout 0.1 ((16, 512)), with and
-    without a key mask holding an all-padding row; then timed at the
-    training shape, in bf16, at both rates, beside the plain versions and
-    SDPA. ``reports``: the rows by (kernel, rate)."""
-    import torch.nn.functional as F
+def device_ms(torch, fn, iters=20, warmup=3):
+    """Device time of one call of ``fn``: the durations of the device
+    kernels (and copies) ``torch.profiler`` records over ``iters`` calls,
+    summed and divided by ``iters``, so that the host's time between
+    launches is not counted. Returns (ms, {kernel name: ms per call})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            names[e.name] = (names.get(e.name, 0.0)
+                             + e.time_range.elapsed_us() / iters / 1e3)
+    if not names:
+        fail("the profiler recorded no device events; device time not "
+             "measured")
+    return sum(names.values()), names
+
+
+def check_flash_attention(torch, reports):
+    """#3-#5 against their plain versions in fp32, bf16 and fp16 at dropout
+    0 (FLASH_CASES, and FLASH_CASES_16 in the 16-bit types) and at dropout
+    0.1 (FLASH_DROP_CASES, FLASH_DROP_CASES_16); 16-bit forward and dk/dv
+    must take the tensor-core kernels and fp32 the FMA kernels. Then
+    timed by device time at the training shape (:func:`time_flash`).
+    ``reports``: the kernels line's rows by name."""
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 
-    h, d = 12, 64
     worst, worst_drop = {}, {}
-    for dtype in (torch.float32, torch.bfloat16):
-        for b, s, masked in ((16, 512, False), (16, 512, True),
-                             (4, 5, True), (4, 300, False), (4, 300, True)):
-            compare_flash_case(torch, fa, dtype, b, s, h, d, masked, worst)
-        for masked in (False, True):
-            compare_flash_case(torch, fa, dtype, 16, 512, h, d, masked,
-                               worst_drop, FLASH_DROPOUT, FLASH_DROPOUT_SEED)
-    print_flash_worst(worst, "(B,S) in (16,512) (4,5) (4,300)")
-    print_flash_worst(worst_drop, f"dropout {FLASH_DROPOUT} (B,S) = "
-                      f"(16,512)", FLASH_DROPOUT)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        sixteen = dtype != torch.float32
+        for cases, sink, rate in (
+                (FLASH_CASES + (FLASH_CASES_16 if sixteen else ()), worst,
+                 0.0),
+                (FLASH_DROP_CASES + (FLASH_DROP_CASES_16 if sixteen else ()),
+                 worst_drop, FLASH_DROPOUT)):
+            for case in cases:
+                tc = fa.flash_attention_fwd_tc.launches
+                route = compare_flash_case(
+                    torch, fa, dtype, case, sink, rate,
+                    FLASH_DROPOUT_SEED if rate else None)
+                if route != ("tc" if sixteen else "fma") or (
+                        (fa.flash_attention_fwd_tc.launches > tc)
+                        != sixteen):
+                    fail(f"flash {dtype} {case}: routed to {route}")
+    print_flash_worst(worst, "(B,Sq,Sk,H,D) in FLASH_CASES (+ "
+                      "FLASH_CASES_16 in 16 bits)")
+    print_flash_worst(worst_drop, f"dropout {FLASH_DROPOUT}, "
+                      f"FLASH_DROP_CASES (+ FLASH_DROP_CASES_16)",
+                      FLASH_DROPOUT)
+    time_flash(torch, fa, reports, worst, worst_drop)
 
-    # Timing at the training shape, bf16, causal, no mask, rotating over
-    # 4 layers' inputs (150 MB, three times the 50 MB L2) as the step does,
-    # at dropout 0 and 0.1.
-    b, s = 16, 512
-    layers = [flash_case(torch, torch.bfloat16, b, s, h, d, seed=100 + i)
-              for i in range(4)]
+
+def time_flash(torch, fa, reports, worst, worst_drop):
+    """The flash rows' times at the training shape [16, 512, 12, 64],
+    causal, no mask, rotating over 4 layers' inputs (150 MB in bf16, three
+    times the 50 MB L2) as the step does, at dropout 0 and 0.1, all as
+    device time (:func:`device_ms`): bf16 on the routed kernels (the
+    tensor-core forward and dk/dv, FMA dq) beside the FMA forward and
+    dk/dv on the same inputs (their first versions' route), and fp32 on
+    the FMA kernels, which fp32 takes; each beside its plain version and
+    SDPA with its backend pinned (flash for bf16, memory-efficient for
+    fp32). The tensor-core rows also print their host-paced time
+    (:func:`cuda_ms`: 50 back-to-back calls between two events), which
+    counts the wrapper's host work where it exceeds the device's."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, s, h, d = 16, 512, 12, 64
     scale = 1.0 / d ** 0.5
     it = {"i": 0}
 
-    def nxt(prepped):
-        it["i"] = (it["i"] + 1) % len(prepped)
-        return prepped[it["i"]]
+    def nxt(items):
+        it["i"] = (it["i"] + 1) % len(items)
+        return items[it["i"]]
 
-    def runs(rate):
-        """The kernels and the plain versions at ``rate``, as timed
-        closures."""
-        drop = (rate, FLASH_DROPOUT_SEED if rate else None)
-        prepped = []
-        for _qkv, q, k, v, dout, _m in layers:
-            out, lse = fa.flash_attention_fwd(q, k, v, None, True, scale,
-                                              *drop)
-            delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
-            prepped.append((q, k, v, dout, lse, delta.contiguous()))
-        def one(fn):
-            def run():
-                q, k, v, dout, lse, delta = nxt(prepped)
-                return fn(q, k, v, dout, None, lse, delta, True, scale,
-                          *drop)
-            return run
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        backend = (SDPBackend.FLASH_ATTENTION if dtype == torch.bfloat16
+                   else SDPBackend.EFFICIENT_ATTENTION)
+        layers = [flash_case(torch, dtype, b, s, h, d, seed=100 + i)
+                  for i in range(4)]
+        q0 = layers[0][1]
+        for rate in (0.0, FLASH_DROPOUT):
+            drop = (rate, FLASH_DROPOUT_SEED if rate else None)
+            prepped = []
+            for _qkv, q, k, v, dout, _m in layers:
+                out, lse = fa.flash_attention_fwd(q, k, v, None, True,
+                                                  scale, *drop)
+                delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+                prepped.append((q, k, v, dout, lse, delta.contiguous()))
 
-        kern = {"fwd": lambda: fa.flash_attention_fwd(
-                    *nxt(prepped)[:3], None, True, scale, *drop),
-                "dq": one(fa.flash_attention_bwd_dq),
-                "dkv": one(fa.flash_attention_bwd_dkv)}
-        plain = {
-            "fwd": lambda: fa.flash_attention_reference(
-                *nxt(prepped)[:3], causal=True, dropout_rate=rate,
-                dropout_seed=drop[1]),
-            "dq": one(fa.flash_bwd_dq_reference),
-            "dkv": one(fa.flash_bwd_dkv_reference)}
-        return kern, plain
+            def bwd(fn):
+                def run():
+                    q, k, v, dout, lse, delta = nxt(prepped)
+                    return fn(q, k, v, dout, None, lse, delta, True, scale,
+                              *drop)
+                return run
 
-    # yardstick: SDPA (causal) on contiguous [B, H, S, D] copies; at 0.1
-    # its own dropout (Philox bits, another mask): the same work, not the
-    # same function
-    sdpa_in = []
-    for _qkv, q, k, v, dout, _m in layers:
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                      for t in (q, k, v))
-        dot = dout.transpose(1, 2).contiguous()
-        sdpa_in.append((qt, kt, vt, dot, {
-            p: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              dropout_p=p)
-            for p in (0.0, FLASH_DROPOUT)}))
+            def fma(which):
+                def run():
+                    q, k, v, dout, lse, delta = nxt(prepped)
+                    if which == "fwd":
+                        return fa._launch_fwd("flash_attention", q, k, v,
+                                              None, True, scale, *drop)
+                    return fa._launch_dkv("flash_attention", q, k, v, dout,
+                                          None, lse, delta, True, scale,
+                                          *drop)
+                return run
 
-    def sdpa(which, p):
-        def run():
-            qt, kt, vt, dot, outs = nxt(sdpa_in)
-            if which == "fwd":
-                with torch.no_grad():
-                    F.scaled_dot_product_attention(qt, kt, vt,
-                                                   is_causal=True,
-                                                   dropout_p=p)
-            else:
-                torch.autograd.grad(outs[p], (qt, kt, vt), dot,
-                                    retain_graph=True)
-        return run
+            kern = {"fwd": lambda: fa.flash_attention_fwd(
+                        *nxt(prepped)[:3], None, True, scale, *drop),
+                    "dq": bwd(fa.flash_attention_bwd_dq),
+                    "dkv": bwd(fa.flash_attention_bwd_dkv)}
+            plain = {
+                "fwd": lambda: fa.flash_attention_reference(
+                    *nxt(prepped)[:3], causal=True, dropout_rate=rate,
+                    dropout_seed=drop[1]),
+                "dq": bwd(fa.flash_bwd_dq_reference),
+                "dkv": bwd(fa.flash_bwd_dkv_reference)}
+            # yardstick: SDPA (causal) on contiguous [B, H, S, D] copies;
+            # at 0.1 its own dropout (Philox bits, another mask): the same
+            # work, not the same function
+            sdpa_in = []
+            with sdpa_kernel(backend):
+                for _qkv, q, k, v, dout, _m in layers:
+                    qt, kt, vt = (t.transpose(1, 2).contiguous()
+                                  .requires_grad_() for t in (q, k, v))
+                    o = F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, dropout_p=rate)
+                    sdpa_in.append((qt, kt, vt, o,
+                                    dout.transpose(1, 2).contiguous()))
 
-    q0 = layers[0][1]
-    for rate in (0.0, FLASH_DROPOUT):
-        kern, plain = runs(rate)
-        lib = {"fwd": cuda_ms(sdpa("fwd", rate)),
-               "bwd": cuda_ms(sdpa("bwd", rate))}
-        src = worst_drop if rate else worst
-        for key in ("fwd", "dq", "dkv"):
-            kernel_ms = cuda_ms(kern[key])
-            plain_ms = cuda_ms(plain[key], iters=10, warmup=2)
-            nbytes, flops = flash_bytes_flops(q0, None, key)
-            t_bytes = nbytes / HBM_BYTES_PER_S
-            t_ops = flops / BF16_FLOPS
-            errs = [src[(k, "bfloat16")][0] for k in
-                    {"fwd": ("fwd",), "dq": ("dq",), "dkv": ("dk", "dv")}[
-                        key]]
-            rep = reports[(key, rate)]
-            library = lib["fwd" if key == "fwd" else "bwd"]
-            rep.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library,
-                       bound_ms=max(t_bytes, t_ops) * 1e3,
-                       bound_by="bytes" if t_bytes >= t_ops
-                       else "operations",
-                       max_abs_err=max(errs))
-            print(f"flash_attention {key} timing bf16 B={b} S={s} H={h} "
-                  f"D={d} causal dropout {rate}: kernel {kernel_ms:.4f} ms"
-                  + (f" (at dropout 0: {reports[(key, 0.0)]['ms']:.4f} ms)"
-                     if rate else "")
-                  + f", plain {plain_ms:.4f} ms, SDPA "
-                  f"{'fwd' if key == 'fwd' else 'bwd (dq+dk+dv)'} "
-                  f"dropout_p={rate} {library:.4f} ms, bound "
-                  f"{rep['bound_ms']:.4f} ms ({nbytes} bytes / 3.35 TB/s, "
-                  f"{flops} flops / 989 TFLOP/s; the hash's integer "
-                  f"operations are not counted)")
-    del layers, sdpa_in
+                def sdpa_fwd():
+                    qt, kt, vt, _o, _do = nxt(sdpa_in)
+                    with torch.no_grad():
+                        F.scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=True, dropout_p=rate)
+
+                def sdpa_bwd():
+                    qt, kt, vt, o, dot = nxt(sdpa_in)
+                    torch.autograd.grad(o, (qt, kt, vt), dot,
+                                        retain_graph=True)
+
+                lib = {"fwd": device_ms(torch, sdpa_fwd),
+                       "bwd": device_ms(torch, sdpa_bwd)}
+            src = worst_drop if rate else worst
+            keys = ("fwd", "dq", "dkv") if dtype == torch.bfloat16 else (
+                "fwd", "dkv")
+            for key in keys:
+                route = "fma" if key == "dq" else fa._route(dtype, d)
+                row = {"fwd": "flash_attention_fwd", "dq":
+                       "flash_attention_bwd_dq", "dkv":
+                       "flash_attention_bwd_dkv"}[key]
+                row += ("_tc" if route == "tc" else "") + (
+                    "_dropout" if rate else "")
+                kernel_ms, kernel_names = device_ms(torch, kern[key])
+                plain_ms, _ = device_ms(torch, plain[key], iters=5,
+                                        warmup=1)
+                library, lib_names = lib["fwd" if key == "fwd" else "bwd"]
+                nbytes, flops = flash_bytes_flops(q0, None, key)
+                peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+                t_bytes = nbytes / HBM_BYTES_PER_S
+                t_ops = flops / peak
+                errs = [src[(k, name)][0] for k in
+                        {"fwd": ("fwd",), "dq": ("dq",),
+                         "dkv": ("dk", "dv")}[key]]
+                rep = reports[row]
+                rep.update(ms=kernel_ms, plain_ms=plain_ms,
+                           library_ms=library,
+                           bound_ms=max(t_bytes, t_ops) * 1e3,
+                           bound_by="bytes" if t_bytes >= t_ops
+                           else "operations",
+                           max_abs_err=max(errs))
+                extra = ""
+                if route == "tc":
+                    host_ms = cuda_ms(kern[key])
+                    first_ms, _ = device_ms(torch, fma(key))
+                    rep.update(host_paced_ms=host_ms, fma_ms=first_ms)
+                    extra = (f", host-paced {host_ms:.4f} ms (50 calls "
+                             f"between two events), the FMA kernel on the "
+                             f"same inputs {first_ms:.4f} ms "
+                             f"({first_ms / kernel_ms:.2f}x)")
+                lib_top = {k[:60]: round(v, 4) for k, v in lib_names.items()}
+                print(f"flash_attention {key} timing {name} B={b} S={s} "
+                      f"H={h} D={d} causal dropout {rate} ({row}, device "
+                      f"time): kernel {kernel_ms:.4f} ms "
+                      f"{sorted(kernel_names)}{extra}, plain "
+                      f"{plain_ms:.4f} ms, SDPA "
+                      f"{'fwd' if key == 'fwd' else 'bwd (dq+dk+dv)'} "
+                      f"dropout_p={rate} backend {backend.name} "
+                      f"{library:.4f} ms {lib_top}, bound {rep['bound_ms']:.4f} ms ({nbytes} bytes / "
+                      f"3.35 TB/s, {flops} flops / {peak / 1e12:.0f} "
+                      f"TFLOP/s; the hash's integer operations are not "
+                      f"counted)")
+            del prepped, sdpa_in
+        del layers
+        torch.cuda.empty_cache()
 
 
-def check_flash_dropout_mask(torch):
-    """The keep-mask read back out of the forward and dk/dv kernels, bit
-    for bit against ``dropout_keep_mask``: non-causal fp32 at [2, 2048, 2,
-    256]. The key mask keeps only cols 1792-2047 and V is the identity on
-    them (V[j, c] = 1 iff j = 1792 + c), so o[i, c] != 0 iff score (i,
-    1792 + c) was kept; dO is the identity on rows 1024-1279, so dv[j, c]
-    != 0 iff score (1024 + c, j) was kept, for j in the window."""
+def check_flash_dropout_mask(torch, dtype, d):
+    """The keep-mask read back out of the forward and dk/dv kernels that
+    ``dtype`` and head dim ``d`` route to, bit for bit against
+    ``dropout_keep_mask``: non-causal at [2, 2048, 2, d] (fp32 at d = 256:
+    the FMA kernels; bf16 at d = 64: the tensor-core kernels). The key
+    mask keeps only the last d cols, c0 = 2048 - d onwards, and V is the
+    identity on them (V[j, c] = 1 iff j = c0 + c), so o[i, c] != 0 iff
+    score (i, c0 + c) was kept; dO is the identity on rows 1024 to 1023 +
+    d, so dv[j, c] != 0 iff score (1024 + c, j) was kept, for j in the
+    window."""
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 
-    b, s, h, d, c0, r0 = 2, 2048, 2, 256, 1792, 1024
+    b, s, h, r0 = 2, 2048, 2, 1024
+    c0 = s - d
     g = torch.Generator(device="cpu").manual_seed(5)
-    q, k = ((torch.randn(b, s, h, d, generator=g) * 0.5).cuda()
+    q, k = ((torch.randn(b, s, h, d, generator=g) * 0.5).to("cuda", dtype)
             for _ in range(2))
-    eye = torch.eye(d, device="cuda")
-    v = torch.zeros(b, s, h, d, device="cuda")
+    eye = torch.eye(d, device="cuda", dtype=dtype)
+    v = torch.zeros(b, s, h, d, device="cuda", dtype=dtype)
     v[:, c0:c0 + d] = eye[None, :, None, :]
-    dout = torch.zeros(b, s, h, d, device="cuda")
+    dout = torch.zeros(b, s, h, d, device="cuda", dtype=dtype)
     dout[:, r0:r0 + d] = eye[None, :, None, :]
     mask = torch.zeros(b, s, device="cuda")
     mask[:, c0:] = 1.0
     scale = 1.0 / d ** 0.5
     drop = (FLASH_DROPOUT, FLASH_DROPOUT_SEED)
+    route = fa._route(dtype, d)
+    before = (fa.flash_attention_fwd_tc.launches,
+              fa.flash_attention_bwd_dkv_tc.launches)
     qp, kp, vp, mp = fa._prepare(q, k, v, mask, False)
     out, lse = fa.flash_attention_fwd(qp, kp, vp, mp, False, scale, *drop)
-    delta = (dout * out).sum(-1).transpose(1, 2).contiguous()
-    _dk, dv = fa.flash_attention_bwd_dkv(qp, kp, vp, dout, mp, lse, delta,
-                                         False, scale, *drop)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+    _dk, dv = fa.flash_attention_bwd_dkv(qp, kp, vp, dout, mp, lse,
+                                         delta.contiguous(), False, scale,
+                                         *drop)
     torch.cuda.synchronize()
+    tc = (fa.flash_attention_fwd_tc.launches - before[0],
+          fa.flash_attention_bwd_dkv_tc.launches - before[1])
+    if tc != ((1, 1) if route == "tc" else (0, 0)):
+        fail(f"flash dropout mask readout ({dtype}, D={d}): tensor-core "
+             f"launches {tc}, route {route}")
     ar = torch.arange(s, device="cuda")
     cols = torch.arange(c0, c0 + d, device="cuda")
     flips_o = flips_dv = 0
@@ -1002,12 +1151,14 @@ def check_flash_dropout_mask(torch):
                 cols[:, None], FLASH_DROPOUT)          # [key j, row c]
             flips_dv += int(((dv[bb, c0:, hh] != 0) != want_dv).sum())
     kept = float((out != 0).float().mean())
-    print(f"flash dropout mask readout (fp32, non-causal, [2, 2048, 2, 256]"
-          f", rate {FLASH_DROPOUT}): forward {b * h * s * d} scores, {flips_o}"
-          f" differ from dropout_keep_mask; dk/dv {b * h * d * d} scores, "
-          f"{flips_dv} differ; kept share {kept:.4f}")
+    name = str(dtype).split(".")[1]
+    print(f"flash dropout mask readout ({name}, non-causal, [{b}, {s}, {h}, "
+          f"{d}], rate {FLASH_DROPOUT}, {route} kernels): forward "
+          f"{b * h * s * d} scores, {flips_o} differ from dropout_keep_mask;"
+          f" dk/dv {b * h * d * d} scores, {flips_dv} differ; kept share "
+          f"{kept:.4f}")
     if flips_o or flips_dv:
-        fail("flash dropout: the kernels' keep-mask differs from "
+        fail(f"flash dropout ({name}): the kernels' keep-mask differs from "
              "dropout_keep_mask")
 
 
@@ -1159,7 +1310,7 @@ def check_sparse_attention(torch, reports):
                 else:
                     rel = ((diff - round_step(torch, ref)).clamp_min(0).max()
                            .item() / max(rms, 1e-30))
-                    bad = rel > FLASH_BF16_RMS_TOL[
+                    bad = rel > FLASH_16BIT_RMS_TOL[
                         "autograd" if key.startswith("autograd") else
                         "kernel"]
                 if bad:
@@ -1184,7 +1335,7 @@ def check_sparse_attention(torch, reports):
         path = "autograd" if key.startswith("autograd") else "kernel"
         lim = ("atol 1e-5" if name == "float32" else
                f"beyond one bf16 step {rel:.3g} of the RMS, limit "
-               f"{FLASH_BF16_RMS_TOL[path]}")
+               f"{FLASH_16BIT_RMS_TOL[path]}")
         print(f"sparse_attention {key} {name} cases (a) [1,4096,12,64] "
               f"bigbird-256 causal, (b) [2,1024,12,64] fixed-16 "
               f"bidirectional with a key mask, (c) [1,16384,12,64] "
@@ -2260,9 +2411,20 @@ KERNELS = (
      "deepspeed_tpu/ops/transformer/fused.py:68"),
     ("fused_ln_matmul_bwd_fp16", "fused_ln",
      "deepspeed_tpu/ops/transformer/fused.py:81"),
+    ("flash_attention_fwd_tc", "flash_attention_tc",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:113"),
+    ("flash_attention_bwd_dkv_tc", "flash_attention_tc",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:287"),
+    ("flash_attention_fwd_tc_dropout", "flash_attention_tc",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:160"),
+    ("flash_attention_bwd_dkv_tc_dropout", "flash_attention_tc",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:330"),
 )
-FLASH_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
-               "flash_attention_bwd_dkv")
+# the flash kernels of the 16-bit training step: the tensor-core forward
+# and dk/dv, the FMA dq; the FMA forward and dk/dv take the fp32 path
+FLASH_NAMES = ("flash_attention_fwd_tc", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv_tc")
+FLASH_FMA_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dkv")
 
 
 # ---------------------------------------------------------------------------
@@ -2339,8 +2501,10 @@ def training_counters():
 
     sp = sparse_module()
     return {"flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_fwd_tc": fa.flash_attention_fwd_tc,
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "flash_attention_bwd_dkv_tc": fa.flash_attention_bwd_dkv_tc,
             "sparse_attention_fwd": sp.sparse_attention_fwd,
             "sparse_attention_bwd_dq": sp.sparse_attention_bwd_dq,
             "sparse_attention_bwd_dkv": sp.sparse_attention_bwd_dkv,
@@ -2530,10 +2694,8 @@ def train_engine(torch, fused_ln, dropout=False, config=TRAIN_CONFIG,
     per_layer = cfg.num_layers * gas
     sites = len(gpt._fused_ln_sites(fused_ln))
     per_step = {name: 0 for name in training_counters()}
-    per_step.update({"flash_attention_fwd": per_layer,
-                     "flash_attention_bwd_dq": per_layer,
-                     "flash_attention_bwd_dkv": per_layer,
-                     "fused_adam": 1,
+    per_step.update({name: per_layer for name in FLASH_NAMES})
+    per_step.update({"fused_adam": 1,
                      "fused_ln_matmul_fwd": sites * per_layer,
                      "fused_ln_matmul_bwd": sites * per_layer})
     n_params = sum(int(np.prod(v.shape)) for v in sd.values())
@@ -2639,7 +2801,8 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None,
     runs the unfused model. At ``dropout`` both models drop out at that
     rate with the engines' seeds (one ``rng_seed``, so the same seeds):
     the same masks on both paths (the plain attention uses the kernels'
-    mask function)."""
+    mask function). Returns the kernels' run's launches, every count set to
+    0 just before it (the fp32 path's rows of the kernels line)."""
     import numpy as np
 
     import deepspeed_tpu_torch as dtt
@@ -2675,6 +2838,9 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None,
         engine, *_ = dtt.initialize(model=model,
                                     params=init_gpt_params(cfg, seed=1),
                                     config=conf)
+        if label == "kernels":
+            for fn in counters.values():
+                fn.launches = 0
         before, ln_before = counter.launches, ln_counter.launches
         first = []
         for j in range(gas):
@@ -2693,6 +2859,12 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None,
         if (ln_launched > 0) != (label == "kernels" and bool(fused_ln)):
             fail(f"fp32 comparison: the {label} run launched the fused_ln "
                  f"backward {ln_launched} times")
+        if label == "kernels":
+            launches = {n: fn.launches for n, fn in counters.items()}
+            if launches["flash_attention_fwd_tc"] or \
+                    launches["flash_attention_bwd_dkv_tc"]:
+                fail(f"fp32 comparison: the kernels' run launched the "
+                     f"tensor-core flash kernels: {launches}")
         runs[label] = (grads, losses)
         names = engine.param_names
         del engine, model
@@ -2720,6 +2892,7 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None,
     if not rel[worst] <= 1e-4 or not loss_rel <= 1e-5:
         fail(f"training fp32{layout}: the kernels' path disagrees with the "
              f"plain path")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2846,8 +3019,9 @@ def main() -> int:
     libs = build.build_all(sources)
     print(f"built {len(libs)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s")
-    for lib in libs:
-        print(f"  {os.path.relpath(lib, HERE)}: {ptxas_summary(lib)}")
+    for src, lib in zip(sources, libs):
+        print(f"  {os.path.relpath(lib, HERE)}: "
+              f"{ptxas_summary(lib, each=src == 'flash_attention_tc')}")
 
     # 2. kernels against their plain versions
     reports = {name: {"name": name, "route": "cuda",
@@ -2857,11 +3031,9 @@ def main() -> int:
     check_paged_attention(torch, reports["paged_decode_attention"])
     check_paged_attention_int8(torch, reports["paged_decode_attention_int8"])
     check_chunked_prefill(torch, reports["chunked_prefill_attention"])
-    check_flash_attention(torch, {
-        (key, rate): reports[name + ("_dropout" if rate else "")]
-        for key, name in zip(("fwd", "dq", "dkv"), FLASH_NAMES)
-        for rate in (0.0, FLASH_DROPOUT)})
-    check_flash_dropout_mask(torch)
+    check_flash_attention(torch, reports)
+    check_flash_dropout_mask(torch, torch.float32, 256)
+    check_flash_dropout_mask(torch, torch.bfloat16, 64)
     check_fused_adam(torch, reports["fused_adam"])
     check_sparse_attention(torch, {
         "fwd": reports["sparse_attention_fwd"],
@@ -2889,7 +3061,9 @@ def main() -> int:
     training = check_training(torch, card)
     for name in FLASH_NAMES + ("fused_adam",):
         reports[name]["launches"] = training["launches"][name]
-    check_training_fp32(torch)
+    fp32 = check_training_fp32(torch)
+    for name in FLASH_FMA_NAMES:
+        reports[name]["launches"] = fp32[name]
 
     # 5. long-sequence training with block-sparse attention, and its fp32
     # comparison
@@ -2931,7 +3105,9 @@ def main() -> int:
           f"{training['peak_memory_gb']:.3f} GB; hash dropout forward "
           f"{prof.get('hash_dropout_forward_device_ms_per_step')} device "
           f"ms per step, flash {prof.get('flash_ms_per_step')} ({card})")
-    check_training_fp32(torch, dropout=FLASH_DROPOUT)
+    fp32 = check_training_fp32(torch, dropout=FLASH_DROPOUT)
+    for name in FLASH_FMA_NAMES:
+        reports[name + "_dropout"]["launches"] = fp32[name]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

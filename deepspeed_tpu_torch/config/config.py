@@ -124,13 +124,13 @@ class ServingConfig:
         for key in (C.SERVING_SPECULATIVE, C.SERVING_RESILIENCE):
             if _enabled_block(d, key):
                 raise not_yet_ported(f"serving.{key}")
+        # as the reference parses it: a present key (even a falsy one,
+        # read as an empty block) turns chunked prefill on by default
         chunked = d.get(C.SERVING_CHUNKED_PREFILL)
-        if chunked is False:
-            chunked = None                  # named in its off state
-        if chunked is not None and not isinstance(chunked, dict):
-            raise ConfigError("serving.chunked_prefill must be a dict")
         present = chunked is not None
         chunked = chunked or {}
+        if not isinstance(chunked, dict):
+            raise ConfigError("serving.chunked_prefill must be a dict")
         known_chunked = {C.SERVING_CHUNKED_ENABLED,
                          C.SERVING_CHUNKED_TOKEN_BUDGET}
         unknown = set(chunked) - known_chunked

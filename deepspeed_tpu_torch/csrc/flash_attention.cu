@@ -23,8 +23,9 @@
 // contributes nothing to any gradient, as in the TPU kernel.
 //
 // Attention dropout (the dropout branch of the three TPU kernels): with
-// keep_ij the counter hash of (seed, b * H + h, i, j) (Drop::keep below,
-// the bits of the JAX dropout_keep_mask) and r = 1 / (1 - rate),
+// keep_ij the counter hash of (seed, b * H + h, i, j) (Drop::keep in
+// attention_tile.cuh, the bits of the JAX dropout_keep_mask) and r = 1 /
+// (1 - rate),
 //
 //   o_i   = sum_j D_ij p_ij v_j / max(l_i, 1e-30),  D_ij = keep_ij ? r : 0
 //           (l_i and lse_i keep the full, undropped mass)
@@ -38,11 +39,12 @@
 // What bounds it on an H100: at the training shape (B*H = 192, S = 512,
 // D = 64, bf16, causal) the forward must move q, k, v and o, 4 x 12.6 MB,
 // about 15 us at 3.35 TB/s, and do 6.4 GFLOP, 6.5 us at the 989 TFLOP/s of
-// dense bf16 on the tensor cores: bytes bound it. This first kernel does
-// its products as fp32 FMAs (67 TFLOP/s), as the TPU kernel multiplies in
-// fp32, so it is bound by the FMA rate, about 0.1 ms for the forward. The
-// tensor-core version (wgmma over bf16 tiles, which must then round p to
-// bf16 before p.V) is later work.
+// dense bf16 on the tensor cores: bytes bound it. These kernels do their
+// products as fp32 FMAs (67 TFLOP/s), as the TPU kernel multiplies in
+// fp32, so they are bound by the FMA rate, about 0.1 ms for the forward.
+// They run every fp32 call, dq in every dtype, and the forward and dk/dv
+// for 16-bit head dims above 128; flash_attention_tc.cu holds the
+// tensor-core forward and dk/dv that take bf16 and fp16 up to D = 128.
 //
 // What the design does:
 // - every kernel streams one axis in tiles through shared memory and keeps
@@ -76,33 +78,6 @@ using namespace attn_tile;
 
 constexpr int ROWS = 64;              // rows of the tile a block owns
 constexpr int LPR = THREADS / ROWS;   // lanes per row
-
-// The dropout of one (batch, head): the hash terms that do not depend on
-// the score's coordinates, the threshold of the top 24 bits and the scale.
-struct Drop {
-  uint32_t seed_term, bh_term;
-  int thresh;
-  float inv_keep;
-  __device__ Drop(uint32_t seed, int bh, int t, float r)
-      : seed_term(seed + 0x165667B1u),
-        bh_term((uint32_t)bh * 0x58F633B5u + 1u), thresh(t), inv_keep(r) {}
-  // JAX flash_attention.py: _dropout_bits, _hash_u32, dropout_keep_mask
-  __device__ __forceinline__ bool keep(int i, int j) const {
-    uint32_t x = (uint32_t)i * 0x9E3779B9u + (uint32_t)j * 0x7FEB352Du;
-    x ^= seed_term;
-    x ^= bh_term;
-    x *= 0x85EBCA6Bu;
-    x ^= x >> 16;
-    x *= 0xC2B2AE35u;
-    x ^= x >> 13;
-    x *= 0x27D4EB2Fu;
-    x ^= x >> 16;
-    return (int)(x >> 8) >= thresh;
-  }
-  __device__ __forceinline__ float apply(float v, int i, int j) const {
-    return keep(i, j) ? v * inv_keep : 0.f;
-  }
-};
 
 // ---------------------------------------------------------------------------
 // forward: grid (ceil(Sq / ROWS), B * H)

@@ -76,7 +76,10 @@
 namespace {
 
 using attn_tile::dot4;
+using attn_tile::ldsm_x4;
+using attn_tile::ldsm_x4_t;
 using attn_tile::load8;
+using attn_tile::mma16;
 using attn_tile::row_sum;
 
 constexpr int THREADS = 256;          // 8 warps
@@ -447,43 +450,6 @@ struct RowTile {
 template <typename T, typename Fn>
 using KRowsTile = std::conditional_t<sizeof(T) == 2, RowTile<T, Fn>,
                                      TransTile<T, Fn>>;
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// one m16n8k16 product into fp32 accumulators: the bf16 form, or the
-// fp16 form with the same fragment layout
-__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
-                                      const uint32_t (&b)[2],
-                                      const __nv_bfloat16*) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
-                                      const uint32_t (&b)[2], const __half*) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // acc += A B^T over one shared stage of 16-bit T: A [128][BK] and B
 // [128][BK], k-contiguous, or with TA / TB k-major [BK][128]; the warp's

@@ -7,11 +7,17 @@ is visible to query ``i`` iff ``j <= i + Sk - Sq``); an optional key mask
 whose keys are all masked gives zeros, not NaN. The forward saves ``out``
 and the fp32 row logsumexp; the backward recomputes the probabilities.
 
-- On CUDA tensors, :func:`flash_attention` runs the three Hopper kernels of
-  ``csrc/flash_attention.cu`` (built at first use) through an
-  ``autograd.Function``: :func:`flash_attention_fwd`, then in the backward
-  :func:`flash_attention_bwd_dq` and :func:`flash_attention_bwd_dkv`. It
-  launches them or raises; it never falls back to the plain version.
+- On CUDA tensors, :func:`flash_attention` runs Hopper kernels (built at
+  first use) through an ``autograd.Function``: :func:`flash_attention_fwd`,
+  then in the backward :func:`flash_attention_bwd_dq` and
+  :func:`flash_attention_bwd_dkv`. :func:`_route` picks the forward and
+  dk/dv kernels: bfloat16 and float16 with ``head_dim`` up to 128 run the
+  tensor-core kernels of ``csrc/flash_attention_tc.cu``
+  (:func:`flash_attention_fwd_tc`, :func:`flash_attention_bwd_dkv_tc`);
+  float32 and 16-bit head dims in (128, 256] run the fp32-FMA kernels of
+  ``csrc/flash_attention.cu``, which also hold dq for every dtype. It
+  launches them or raises; it never falls back to the plain version or
+  from one kernel to another.
 - On CPU tensors it runs :func:`flash_attention_reference`, the plain
   PyTorch version (materialised fp32 scores, differentiated by autograd)
   that the CPU tests hold against the JAX kernel and ``chip_smoke.py``
@@ -29,7 +35,10 @@ key (``kd[0] ^ (kd[-1] << 1)``); the kernels take it, and the integer
 threshold and the fp32 ``1 / (1 - rate)`` the host computes, as
 arguments. At rate 0 they run a variant compiled without the hash.
 
-Each kernel wrapper counts its launches in ``.launches``.
+Each kernel counts its launches in its own wrapper's ``.launches``: the
+FMA kernels in ``flash_attention_fwd``, ``flash_attention_bwd_dq`` and
+``flash_attention_bwd_dkv``, the tensor-core ones in
+``flash_attention_fwd_tc`` and ``flash_attention_bwd_dkv_tc``.
 """
 
 import ctypes
@@ -42,13 +51,27 @@ from deepspeed_tpu_torch.ops.dropout import MASK32, keep_threshold, mul32
 
 __all__ = ["flash_attention", "flash_attention_reference", "flash_ok",
            "flash_attention_fwd", "flash_attention_bwd_dq",
-           "flash_attention_bwd_dkv", "flash_bwd_dq_reference",
+           "flash_attention_bwd_dkv", "flash_attention_fwd_tc",
+           "flash_attention_bwd_dkv_tc", "flash_bwd_dq_reference",
            "flash_bwd_dkv_reference", "dropout_keep_mask"]
 
 MAX_HEAD_DIM = 256
-MAX_BATCH_HEADS = 65535          # the grid's second dimension
+TC_MAX_HEAD_DIM = 128            # the tensor-core kernels' widest head
+MAX_BATCH_HEADS = 65535          # the FMA kernels' grid second dimension
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_FN = None
+_FN = {}
+
+
+def _route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernels compute the forward and dk/dv on CUDA: ``"tc"`` (the
+    tensor cores, ``csrc/flash_attention_tc.cu``) for bfloat16 and float16
+    with ``head_dim`` a multiple of 8 in [8, 128] (a head dim that is not
+    a multiple of 16 is zero-padded in shared memory); ``"fma"``
+    (``csrc/flash_attention.cu``) for everything else the kernels take:
+    float32, and 16-bit head dims in (128, 256]."""
+    return ("tc" if dtype in (torch.bfloat16, torch.float16)
+            and head_dim % 8 == 0 and 8 <= head_dim <= TC_MAX_HEAD_DIM
+            else "fma")
 
 
 def flash_ok(q: torch.Tensor, k: torch.Tensor, causal: bool) -> bool:
@@ -214,27 +237,31 @@ def flash_bwd_dkv_reference(q, k, v, dout, kv_mask, lse, delta,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _kernel():
-    global _FN
-    if _FN is None:
-        lib = build.load("flash_attention")
+def _kernel(name: str = "flash_attention"):
+    """The ctypes functions of ``csrc/<name>.cu`` (``flash_attention``:
+    forward, dq, dk/dv; ``flash_attention_tc``: forward and dk/dv), built
+    and loaded at first use."""
+    if name not in _FN:
+        lib = build.load(name)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # B, H, Sq, Sk, D, scale, causal, seed, thresh, inv_keep, dtype,
         # stream
         shape = [i32] * 5 + [f32, i32, ctypes.c_uint32, i32, f32, i32, ptr]
-        fwd = lib.flash_attention_fwd
-        fwd.argtypes = [ptr] * 7 + shape
-        dq = lib.flash_attention_bwd_dq
-        dq.argtypes = [ptr] * 9 + shape
-        dkv = lib.flash_attention_bwd_dkv
-        dkv.argtypes = [ptr] * 10 + shape
-        for fn in (fwd, dq, dkv):
+        fns = {"fwd": (f"{name}_fwd", 7), "dkv": (f"{name}_bwd_dkv", 10)}
+        if name == "flash_attention":
+            fns["dq"] = (f"{name}_bwd_dq", 9)
+        out = {}
+        for key, (sym, n_ptrs) in fns.items():
+            fn = getattr(lib, sym)
+            fn.argtypes = [ptr] * n_ptrs + shape
             fn.restype = i32
-        err = lib.flash_attention_error_string
+            out[key] = fn
+        err = getattr(lib, f"{name}_error_string")
         err.argtypes = [i32]
         err.restype = ctypes.c_char_p
-        _FN = (fwd, dq, dkv, err)
-    return _FN
+        out["err"] = err
+        _FN[name] = out
+    return _FN[name]
 
 
 def _aligned(t: torch.Tensor) -> bool:
@@ -280,10 +307,10 @@ def _strides(q, k, v):
                                      for s in t.stride()[:3]))
 
 
-def _check(rc, what):
+def _check(rc, what, name="flash_attention"):
     if rc != 0:
-        err = _kernel()[3]
-        raise RuntimeError(f"flash_attention {what} kernel launch failed: "
+        err = _kernel(name)["err"]
+        raise RuntimeError(f"{name} {what} kernel launch failed: "
                            f"{err(rc).decode()} (cudaError {rc})")
 
 
@@ -301,16 +328,12 @@ def _drop_args(rate: float, seed: Optional[int]):
     return int(seed) & MASK32, keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
-def flash_attention_fwd(q, k, v, kv_mask, causal: bool, scale: float,
-                        dropout_rate: float = 0.0,
-                        dropout_seed: Optional[int] = None):
-    """Launch the forward kernel: returns ``out`` (contiguous [B, Sq, H, D]
-    in q's dtype) and ``lse`` (fp32 [B, H, Sq], of the undropped
-    probabilities). Inputs as :func:`_prepare` returns them."""
+def _launch_fwd(name, q, k, v, kv_mask, causal, scale, dropout_rate,
+                dropout_seed):
     b, sq, h, d = q.shape
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    fwd = _kernel()[0]
+    fwd = _kernel(name)["fwd"]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
@@ -318,19 +341,76 @@ def flash_attention_fwd(q, k, v, kv_mask, causal: bool, scale: float,
                  k.shape[1], d, float(scale), int(causal),
                  *_drop_args(dropout_rate, dropout_seed),
                  _DTYPE_CODES[q.dtype], stream)
-    _check(rc, "forward")
+    _check(rc, "forward", name)
+    return out, lse
+
+
+def _launch_dkv(name, q, k, v, dout, kv_mask, lse, delta, causal, scale,
+                dropout_rate, dropout_seed):
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
+    fn = _kernel(name)["dkv"]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                _ptr(kv_mask), lse.data_ptr(), delta.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), _strides(q, k, v), b, h, sq, sk,
+                d, float(scale), int(causal),
+                *_drop_args(dropout_rate, dropout_seed),
+                _DTYPE_CODES[q.dtype], stream)
+    _check(rc, "dkv", name)
+    return dk, dv
+
+
+def _require_tc(q):
+    if _route(q.dtype, q.shape[-1]) != "tc":
+        raise ValueError(
+            f"the tensor-core flash kernels take bfloat16 or float16 with "
+            f"head_dim a multiple of 8 in [8, {TC_MAX_HEAD_DIM}]; got "
+            f"{q.dtype}, head_dim {q.shape[-1]}")
+
+
+def flash_attention_fwd(q, k, v, kv_mask, causal: bool, scale: float,
+                        dropout_rate: float = 0.0,
+                        dropout_seed: Optional[int] = None):
+    """Launch the forward kernel :func:`_route` picks: returns ``out``
+    (contiguous [B, Sq, H, D] in q's dtype) and ``lse`` (fp32 [B, H, Sq],
+    of the undropped probabilities). Inputs as :func:`_prepare` returns
+    them. The FMA kernel's launches count here, the tensor-core kernel's
+    in :func:`flash_attention_fwd_tc`."""
+    if _route(q.dtype, q.shape[-1]) == "tc":
+        return flash_attention_fwd_tc(q, k, v, kv_mask, causal, scale,
+                                      dropout_rate, dropout_seed)
+    out, lse = _launch_fwd("flash_attention", q, k, v, kv_mask, causal,
+                           scale, dropout_rate, dropout_seed)
     flash_attention_fwd.launches += 1
+    return out, lse
+
+
+def flash_attention_fwd_tc(q, k, v, kv_mask, causal: bool, scale: float,
+                           dropout_rate: float = 0.0,
+                           dropout_seed: Optional[int] = None):
+    """Launch the tensor-core forward kernel (bfloat16 or float16,
+    ``head_dim`` a multiple of 8 up to 128; anything else raises). Inputs
+    and outputs as :func:`flash_attention_fwd`."""
+    _require_tc(q)
+    out, lse = _launch_fwd("flash_attention_tc", q, k, v, kv_mask, causal,
+                           scale, dropout_rate, dropout_seed)
+    flash_attention_fwd_tc.launches += 1
     return out, lse
 
 
 def flash_attention_bwd_dq(q, k, v, dout, kv_mask, lse, delta, causal: bool,
                            scale: float, dropout_rate: float = 0.0,
                            dropout_seed: Optional[int] = None):
-    """Launch the dq kernel: ``dout`` contiguous [B, Sq, H, D]; ``lse`` and
-    ``delta`` fp32 [B, H, Sq]. Returns dq, contiguous [B, Sq, H, D]."""
+    """Launch the dq kernel (the FMA kernel, every dtype): ``dout``
+    contiguous [B, Sq, H, D]; ``lse`` and ``delta`` fp32 [B, H, Sq].
+    Returns dq, contiguous [B, Sq, H, D]."""
     b, sq, h, d = q.shape
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    fn = _kernel()[1]
+    fn = _kernel()["dq"]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
@@ -348,29 +428,38 @@ def flash_attention_bwd_dkv(q, k, v, dout, kv_mask, lse, delta,
                             causal: bool, scale: float,
                             dropout_rate: float = 0.0,
                             dropout_seed: Optional[int] = None):
-    """Launch the dk/dv kernel. Returns dk, dv, contiguous
-    [B, Sk, H, D]."""
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
-    fn = _kernel()[2]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                _ptr(kv_mask), lse.data_ptr(), delta.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), _strides(q, k, v), b, h, sq, sk,
-                d, float(scale), int(causal),
-                *_drop_args(dropout_rate, dropout_seed),
-                _DTYPE_CODES[q.dtype], stream)
-    _check(rc, "dkv")
+    """Launch the dk/dv kernel :func:`_route` picks. Returns dk, dv,
+    contiguous [B, Sk, H, D]. The FMA kernel's launches count here, the
+    tensor-core kernel's in :func:`flash_attention_bwd_dkv_tc`."""
+    if _route(q.dtype, q.shape[-1]) == "tc":
+        return flash_attention_bwd_dkv_tc(q, k, v, dout, kv_mask, lse, delta,
+                                          causal, scale, dropout_rate,
+                                          dropout_seed)
+    dk, dv = _launch_dkv("flash_attention", q, k, v, dout, kv_mask, lse,
+                         delta, causal, scale, dropout_rate, dropout_seed)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
 
+def flash_attention_bwd_dkv_tc(q, k, v, dout, kv_mask, lse, delta,
+                               causal: bool, scale: float,
+                               dropout_rate: float = 0.0,
+                               dropout_seed: Optional[int] = None):
+    """Launch the tensor-core dk/dv kernel (bfloat16 or float16,
+    ``head_dim`` a multiple of 8 up to 128; anything else raises). Inputs
+    and outputs as :func:`flash_attention_bwd_dkv`."""
+    _require_tc(q)
+    dk, dv = _launch_dkv("flash_attention_tc", q, k, v, dout, kv_mask, lse,
+                         delta, causal, scale, dropout_rate, dropout_seed)
+    flash_attention_bwd_dkv_tc.launches += 1
+    return dk, dv
+
+
 flash_attention_fwd.launches = 0
+flash_attention_fwd_tc.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv_tc.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -136,10 +136,10 @@ def test_chunked_config_walls_and_parsing():
                                    "prefix_cache": True})
     assert (cfg.chunked_prefill, cfg.chunked_token_budget,
             cfg.int8_kv_cache, cfg.prefix_cache) == (True, 8, True, True)
-    # named in its off state: off (the JAX parser turns a bare ``false``
-    # on; ROADMAP queue C)
-    assert not ServingConfig.from_dict({"chunked_prefill": False}
-                                       ).chunked_prefill
+    # a bare ``false`` is a present key read as an empty block: on, as the
+    # JAX parser reads it (test_torch_serving_config_parity.py)
+    assert ServingConfig.from_dict({"chunked_prefill": False}
+                                   ).chunked_prefill
 
 
 def test_int8_decode_attention_on_cuda_takes_the_kernel():
