@@ -8,13 +8,21 @@
    every kernel from the sources in this checkout (one ``nvcc`` per
    source, all started together) and prints each ``-Xptxas -v`` report.
 2. Kernels against their plain PyTorch versions at the main paths'
-   shapes, in fp32 (atol 1e-5) and bf16 (atol 2e-2), each timed with CUDA
-   events beside the plain version, a PyTorch yardstick and its bound:
+   shapes, in fp32 (atol 1e-5) and bf16 (atol 2e-2), each timed as device
+   time (:func:`device_ms`: CUDA events around calls the host enqueued
+   while a sleep kernel held the device, so the host's pace between
+   launches is not counted) beside the plain version (host-paced: CUDA
+   events around back-to-back calls), a PyTorch yardstick (device time)
+   and its bound:
    - paged decode attention at GPT-2's serving shapes (12 heads, head_dim
      64, block 16, 8 rows, 1 and 5 queries, windows of 1 to 64 blocks,
      table tails on a scratch block filled with NaN), over fp/bf16 pools
      and over int8 pools with fp32 scales (NaN scales on scratch), with
-     fp32 and bf16 queries;
+     fp32 and bf16 queries; at a 64-block window also at every split
+     count of its key split (1 to 8 blocks per cluster) and on rows whose
+     context is shorter than one split's share (bit-equal over two
+     launches); timed beside its one-split walk (the first version's) on
+     the same inputs, and its split rule timed against every count;
    - ragged chunked-prefill attention at the same shapes: a 256-token
      mixed step (8 decode rows at positions 100-1000, a 200-token chunk
      from 0, a 40-token chunk from 37, pad rows) and an 8-token
@@ -22,20 +30,22 @@
    - flash attention forward, dq and dk/dv at [16, 512, 12, 64] causal,
      with and without a key mask holding an all-padding row, and at S=5
      and S=300, in fp32 (the FMA kernels), bf16 and fp16 (the tensor-core
-     forward and dk/dv of ``csrc/flash_attention_tc.cu``, the FMA dq);
+     forward, dq and dk/dv of ``csrc/flash_attention_tc.cu``, the FMA dq
+     on the same inputs beside it);
      in 16 bits also at D=128, at D=72 (zero-padded to 80) and with Sq <
      Sk (bottom-right causal); the whole autograd path against the plain
      version's; fp32 within 1e-5 (dO x 0.1), 16-bit within one rounding
      step of its type plus 1e-3 of the reference's RMS (0.15 on the
-     autograd path; dO unscaled); dk/dv bit-equal over two launches; the
+     autograd path; dO unscaled); dq and dk/dv bit-equal over two
+     launches; the
      same at dropout 0.1 with one seed on both sides; timed as device
-     time (``torch.profiler``) at dropout 0 and 0.1 beside the FMA
+     time at dropout 0 and 0.1 beside the FMA
      kernels on the same inputs, the plain versions and SDPA with its
      backend pinned and printed; and the dropout keep-mask read back out
-     of the forward and dk/dv kernels (fp32 [2, 2048, 2, 256] through the
-     FMA kernels, bf16 [2, 2048, 2, 64] through the tensor-core ones; an
-     identity V and dO on a D-wide window) against ``dropout_keep_mask``,
-     no bit flipped;
+     of the forward, dq and dk/dv kernels (fp32 [2, 2048, 2, 256] through
+     the FMA kernels, bf16 [2, 2048, 2, 64] through the tensor-core ones;
+     an identity V, K and dO on a D-wide window) against
+     ``dropout_keep_mask``, no bit flipped;
    - fused Adam, bit for bit, over GPT-2's 148 parameter tensors (with
      the bf16 copy of the new params that the bf16 training step uses);
    - block-sparse attention forward, dq and dk/dv (kernels #8-#10) at
@@ -72,9 +82,9 @@
    - a profiled window of 16 decode steps and of 16 chunked mixed steps.
 4. Training end to end: ``initialize`` -> ``train_batch`` on full-width
    GPT-2 with ``bench.py:bench_gpt2``'s configuration plus
-   ``optimizer.fused_update``: the tensor-core flash forward and dk/dv and
-   the FMA dq launch 96 times each and fused Adam once per step, the FMA
-   forward and dk/dv never, no plain version runs, the loss falls; step
+   ``optimizer.fused_update``: the tensor-core flash forward, dq and dk/dv
+   launch 96 times each and fused Adam once per step, the FMA flash
+   kernels never, no plain version runs, the loss falls; step
    time, tokens/s, model TFLOP/s and MFU, and a profiled step. Then, in
    fp32 at 2 layers, the kernels' path against the plain path (first-step
    gradients within 1e-4 of each leaf's norm, losses within 1e-5).
@@ -112,8 +122,8 @@
 
 Any failure exits non-zero. The last stdout line is
 ``{"ok": true, "device": {...}}``; before it come the card line and a
-``{"kernels": [...]}`` line. The FMA flash forward and dk/dv rows
-(``flash_attention_fwd``, ``flash_attention_bwd_dkv`` and their
+``{"kernels": [...]}`` line. The FMA flash rows (``flash_attention_fwd``,
+``flash_attention_bwd_dq``, ``flash_attention_bwd_dkv`` and their
 ``_dropout`` twins) are fp32's route: timed in fp32, their launches
 counted over the fp32 comparison of phase 4 (and of phase 7 at dropout),
 every count set to 0 just before it.
@@ -227,10 +237,13 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 # 2. paged decode attention against its plain version
 # ---------------------------------------------------------------------------
 
-def paged_case(torch, dtype, b, s, h, d, bs, wb, seed, layers=1):
+def paged_case(torch, dtype, b, s, h, d, bs, wb, seed, layers=1,
+               lasts=None):
     """Pools, tables and positions as the decode path makes them: each row
     owns distinct blocks for its visible keys, its table tail points at
-    scratch block 0, and block 0 holds NaN (it must never be read)."""
+    scratch block 0, and block 0 holds NaN (it must never be read).
+    ``lasts``: each row's last query position (default: row 0 at the
+    window's end, the others anywhere in it)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     n = b * wb + 1
     pools = []
@@ -246,8 +259,8 @@ def paged_case(torch, dtype, b, s, h, d, bs, wb, seed, layers=1):
     for r in range(b):
         # the last query sits anywhere in the window, the first row at its
         # end, so every window width is exercised in full
-        last = (wb * bs - 1 if r == 0 else
-                int(torch.randint(s - 1, wb * bs, (1,), generator=g)))
+        last = (lasts[r] if lasts is not None else wb * bs - 1 if r == 0
+                else int(torch.randint(s - 1, wb * bs, (1,), generator=g)))
         used = last // bs + 1
         bt[r, :used] = perm[r * wb:r * wb + used].int()
         pos[r] = last - (s - 1)
@@ -299,11 +312,15 @@ def check_paged_attention(torch, report):
     for (name, s), err in sorted(worst.items()):
         print(f"paged_decode_attention {name} S={s} WB=1..64: max |err| "
               f"{err:.3g} (atol {KERNEL_TOL[name]})")
+    check_paged_splits(torch, int8=False)
 
     # Timing at the decode path's widest window (64 blocks = 1024
     # positions), rotating over 8 layers' pools (200 MB of bf16 K/V, of
     # which the visible rows are about 100 MB, twice the 50 MB L2) so that
     # each launch finds its pools cold, as a decode step's next layer does.
+    from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
+
+    rule = pa.paged_decode_splits(64 * bs, h, b)
     timings = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
@@ -319,8 +336,15 @@ def check_paged_attention(torch, report):
                 it["i"] = (it["i"] + 1) % len(pools)
                 return pools[it["i"]]
 
-            kernel_ms = cuda_ms(lambda: paged_decode_attention(
-                q, *nxt(), None, None, bt, pos, block_size=bs))
+            def kern():
+                paged_decode_attention(q, *nxt(), None, None, bt, pos,
+                                       block_size=bs)
+
+            kernel_ms = device_ms(torch, kern)[0]
+            host_ms = cuda_ms(kern)
+            # the first version's walk: one block per (head, sequence)
+            first_ms = device_ms(torch, lambda: pa._launch(
+                q, *nxt(), None, None, bt, pos, bs, None, 1))[0]
             plain_ms = cuda_ms(lambda: paged_decode_attention_reference(
                 q, *nxt(), bt, pos, block_size=bs), iters=20)
             # yardstick: SDPA over K/V gathered beforehand, same mask
@@ -338,8 +362,8 @@ def check_paged_attention(torch, report):
                 git["i"] = (git["i"] + 1) % len(gathered)
                 return gathered[git["i"]]
 
-            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, *gnxt(), attn_mask=mask))
+            library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, *gnxt(), attn_mask=mask))[0]
             nbytes, flops = paged_bytes_flops(q, bt, pos, bs)
             bound_ms = max(nbytes / HBM_BYTES_PER_S,
                            flops / FP32_FLOPS) * 1e3
@@ -347,15 +371,118 @@ def check_paged_attention(torch, report):
                                       library_ms=library_ms,
                                       bound_ms=bound_ms, bytes=nbytes)
             print(f"paged_decode_attention timing {name} B={b} S={s} H={h} "
-                  f"D={d} BS={bs} WB=64: kernel {kernel_ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms ({nbytes} bytes / 3.35 TB/s)")
+                  f"D={d} BS={bs} WB=64 (device time): kernel "
+                  f"{kernel_ms:.4f} ms at {rule} splits (host-paced "
+                  f"{host_ms:.4f} ms; 1 split, the first version's walk, "
+                  f"{first_ms:.4f} ms), plain "
+                  f"{plain_ms:.4f} ms (host-paced), SDPA {library_ms:.4f} "
+                  f"ms, bound {bound_ms:.4f} ms ({nbytes} bytes / 3.35 "
+                  f"TB/s)")
     main = timings[("bfloat16", 1)]
     report.update(ms=main["ms"], plain_ms=main["plain_ms"],
                   library_ms=main["library_ms"], bound_ms=main["bound_ms"],
-                  bound_by="bytes",
-                  max_abs_err=max(worst[("bfloat16", 1)],
+                  bound_by="bytes", max_abs_err=max(worst[("bfloat16", 1)],
                                   worst[("bfloat16", 5)]))
+
+
+# each row's last query position in the short-context case: a 64-block
+# window (8 splits of 128 keys) whose rows but the first see less than
+# one split's share, so most blocks of their clusters walk no key
+PAGED_SHORT_LASTS = {1: [1023, 0, 3, 15, 16, 64, 65, 127],
+                     5: [1023, 4, 7, 20, 63, 64, 100, 127]}
+
+
+def check_paged_splits(torch, int8):
+    """Kernel #1 at every split count (1 to 8, forced through the launch
+    helper) at a 64-block window, and through the wrapper's rule on the
+    short-context case; fp32 and bf16 q, S = 1 and 5, against the plain
+    version (KERNEL_TOL); the wrapper's output bit-equal over two
+    launches."""
+    from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
+
+    h, d, bs, b, wb = 12, 64, 16, 8, 64
+    label = "int8 pools, " if int8 else ""
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for s in (1, 5):
+            for short in (False, True):
+                q, pools, bt, pos = paged_case(
+                    torch, dtype, b, s, h, d, bs, wb, seed=900 + s + short,
+                    lasts=PAGED_SHORT_LASTS[s] if short else None)
+                ops = (int8_pools(torch, pools)[0] if int8 else
+                       (*pools[0], None, None))
+                want = pa.paged_decode_attention_reference(
+                    q, *ops[:2], bt, pos, block_size=bs, k_scale=ops[2],
+                    v_scale=ops[3])
+                outs = {}
+                for n in (range(1, pa.MAX_SPLITS + 1) if not short
+                          else ("rule", "rule again")):
+                    if isinstance(n, int):
+                        outs[n] = pa._launch(q, *ops, bt, pos, bs, None, n)
+                    else:
+                        outs[n] = pa.paged_decode_attention(
+                            q, *ops[:2], ops[2], ops[3], bt, pos,
+                            block_size=bs)
+                torch.cuda.synchronize()
+                for n, got in outs.items():
+                    err = (got.float() - want.float()).abs().max().item()
+                    if not torch.isfinite(got).all() \
+                            or err > KERNEL_TOL[name]:
+                        fail(f"paged_decode_attention {label}{name} S={s} "
+                             f"splits={n} short={short}: max |err| {err} > "
+                             f"{KERNEL_TOL[name]} or non-finite")
+                    key = (name, s, "short" if short else "1..8")
+                    worst[key] = max(worst.get(key, 0.0), err)
+                if short and not torch.equal(outs["rule"],
+                                             outs["rule again"]):
+                    fail(f"paged_decode_attention {label}{name} S={s}: two "
+                         f"launches on one input differ")
+    rule = pa.paged_decode_splits(wb * bs, h, b)
+    for (name, s, what), err in sorted(worst.items()):
+        print(f"paged_decode_attention {label}{name} q S={s} WB=64 "
+              + ("at every split count 1..8" if what == "1..8" else
+                 f"short contexts (last positions {PAGED_SHORT_LASTS[s]}) "
+                 f"at the rule's {rule} splits, bit-equal over two "
+                 f"launches")
+              + f": max |err| {err:.3g} (atol {KERNEL_TOL[name]})")
+
+
+def time_paged_splits(torch):
+    """The split rule measured: device time of kernel #1 (bf16 pools, S =
+    1, 12 heads, D = 64, every row's last query at the window's end) at
+    split counts 1 to 8 for batches of 1, 8 and 32 and windows of 8 to 64
+    blocks (128 to 1024 keys), beside the count paged_decode_splits
+    picks."""
+    from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
+
+    h, d, bs = 12, 64, 16
+    for b in (1, 8, 32):
+        for wb in (8, 16, 32, 64):
+            q, pools, bt, pos = paged_case(
+                torch, torch.bfloat16, b, 1, h, d, bs, wb, seed=300 + wb,
+                layers=2, lasts=[wb * bs - 1] * b)
+            for kp, vp in pools:
+                kp[0] = 0.0
+                vp[0] = 0.0
+            it = {"i": 0}
+
+            def nxt():
+                it["i"] = (it["i"] + 1) % len(pools)
+                return pools[it["i"]]
+
+            row = {}
+            for n in range(1, pa.MAX_SPLITS + 1):
+                row[n] = device_ms(torch, lambda: pa._launch(
+                    q, *nxt(), None, None, bt, pos, bs, None, n))[0]
+            rule = pa.paged_decode_splits(wb * bs, h, b)
+            best = min(row, key=row.get)
+            print(f"paged_decode_attention split rule, bf16 B={b} S=1 H={h} "
+                  f"D={d} window {wb * bs} keys (device ms by splits): "
+                  + ", ".join(f"{n}: {t:.4f}" for n, t in row.items())
+                  + f"; best {best} ({row[best]:.4f}), rule {rule} "
+                  f"({row[rule]:.4f}, {row[rule] / row[best]:.3f}x best)")
+            del pools
 
 
 # ---------------------------------------------------------------------------
@@ -424,7 +551,11 @@ def check_paged_attention_int8(torch, report):
         print(f"paged_decode_attention int8 pools, {name} q, S={s} "
               f"WB=1..64: max |err| {err:.3g} (atol {KERNEL_TOL[name]}, "
               f"NaN scratch scales)")
+    check_paged_splits(torch, int8=True)
 
+    from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
+
+    rule = pa.paged_decode_splits(64 * bs, h, b)
     timings = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
@@ -452,7 +583,13 @@ def check_paged_attention_int8(torch, report):
                                                  block_size=bs, k_scale=ks,
                                                  v_scale=vs)
 
-            kernel_ms = cuda_ms(kern)
+            def first():
+                kq, vq, ks, vs = nxt()
+                pa._launch(q, kq, vq, ks, vs, bt, pos, bs, None, 1)
+
+            kernel_ms = device_ms(torch, kern)[0]
+            host_ms = cuda_ms(kern)
+            first_ms = device_ms(torch, first)[0]
             plain_ms = cuda_ms(plain, iters=20)
             # yardstick: SDPA over K/V gathered and dequantized beforehand
             length = 64 * bs
@@ -471,8 +608,8 @@ def check_paged_attention_int8(torch, report):
                 git["i"] = (git["i"] + 1) % len(gathered)
                 return gathered[git["i"]]
 
-            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, *gnxt(), attn_mask=mask))
+            library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, *gnxt(), attn_mask=mask))[0]
             ctx = sum(min(64 * bs, int(p) + s) for p in pos.tolist())
             nbytes = int8_bytes(q, ctx, h, d) + bt.numel() * 4 + b * 4
             flops = 4 * s * ctx * h * d
@@ -482,16 +619,17 @@ def check_paged_attention_int8(torch, report):
                                       library_ms=library_ms,
                                       bound_ms=bound_ms)
             print(f"paged_decode_attention int8 pools timing, {name} q, "
-                  f"B={b} S={s} H={h} D={d} BS={bs} WB=64: kernel "
-                  f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+                  f"B={b} S={s} H={h} D={d} BS={bs} WB=64 (device time): "
+                  f"kernel {kernel_ms:.4f} ms at {rule} splits (host-paced "
+                  f"{host_ms:.4f} ms; 1 split {first_ms:.4f} ms), plain "
+                  f"{plain_ms:.4f} ms (host-paced), SDPA "
                   f"(pre-dequantized K/V) {library_ms:.4f} ms, bound "
                   f"{bound_ms:.4f} ms ({nbytes} bytes / 3.35 TB/s)")
             del gathered, pools
     main = timings[("bfloat16", 1)]
     report.update(ms=main["ms"], plain_ms=main["plain_ms"],
                   library_ms=main["library_ms"], bound_ms=main["bound_ms"],
-                  bound_by="bytes",
-                  max_abs_err=max(worst[("bfloat16", 1)],
+                  bound_by="bytes", max_abs_err=max(worst[("bfloat16", 1)],
                                   worst[("bfloat16", 5)]))
 
 
@@ -655,8 +793,12 @@ def check_chunked_prefill(torch, report):
                 it["i"] = (it["i"] + 1) % len(pools)
                 return pools[it["i"]]
 
-            kernel_ms = cuda_ms(lambda: chunked_prefill_attention(
-                q, *nxt(), table, pos, block_size=bs))
+            def kern():
+                chunked_prefill_attention(q, *nxt(), table, pos,
+                                          block_size=bs)
+
+            kernel_ms = device_ms(torch, kern)[0]
+            host_ms = cuda_ms(kern)
             plain_ms = cuda_ms(lambda: chunked_prefill_attention_reference(
                 q, *nxt(), table, pos, block_size=bs), iters=5, warmup=1)
             qs, kv, mask = segment_sdpa_inputs(torch, q, pools, table, pos,
@@ -667,8 +809,8 @@ def check_chunked_prefill(torch, report):
                 git["i"] = (git["i"] + 1) % len(kv)
                 return kv[git["i"]]
 
-            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qs, *gnxt(), attn_mask=mask))
+            library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, *gnxt(), attn_mask=mask))[0]
             nbytes, flops = chunked_bytes_flops(q, table, pos, blocks, bs,
                                                  int8)
             t_bytes = nbytes / HBM_BYTES_PER_S
@@ -679,9 +821,10 @@ def check_chunked_prefill(torch, report):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
             print(f"chunked_prefill_attention timing, {label}, T=256 mixed "
                   f"(decode rows at {MIXED_DECODE_POS}, chunks (first "
-                  f"position, tokens) {MIXED_CHUNKS}, {256 - n_real} pads): "
-                  f"kernel {kernel_ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, SDPA per segment (pre-gathered) "
+                  f"position, tokens) {MIXED_CHUNKS}, {256 - n_real} pads; "
+                  f"device time): kernel {kernel_ms:.4f} ms (host-paced "
+                  f"{host_ms:.4f} ms), plain {plain_ms:.4f} ms (host-paced), "
+                  f"SDPA per segment (pre-gathered) "
                   f"{library_ms:.4f} ms, bound "
                   f"{timings[label]['bound_ms']:.4f} ms "
                   f"({timings[label]['bound_by']}: {nbytes} bytes / 3.35 "
@@ -798,15 +941,23 @@ def compare_flash_case(torch, fa, dtype, case, worst, rate=0.0, seed=None):
     delta = delta.contiguous()
     dq = fa.flash_attention_bwd_dq(qp, kp, vp, dout, mp, lse, delta, True,
                                    scale, *drop)
+    dq2 = fa.flash_attention_bwd_dq(qp, kp, vp, dout, mp, lse, delta, True,
+                                    scale, *drop)
     dk, dv = fa.flash_attention_bwd_dkv(qp, kp, vp, dout, mp, lse, delta,
                                         True, scale, *drop)
     dk2, dv2 = fa.flash_attention_bwd_dkv(qp, kp, vp, dout, mp, lse, delta,
                                           True, scale, *drop)
+    # the FMA dq (the first version of the 16-bit route) on the same inputs
+    dq_fma = (fa._launch_dq("flash_attention", qp, kp, vp, dout, mp, lse,
+                            delta, True, scale, *drop)
+              if route == "tc" else None)
     torch.cuda.synchronize()
     what = (f"{name} B={b} Sq={sq} Sk={s} H={h} D={d} masked={masked} "
             f"dropout={rate} ({route})")
     if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
         fail(f"flash dkv {what}: two launches on one input differ")
+    if not torch.equal(dq, dq2):
+        fail(f"flash dq {what}: two launches on one input differ")
     dq_w = fa.flash_bwd_dq_reference(q, k, v, dout, mp, lse, delta, True,
                                      scale, *drop)
     dk_w, dv_w = fa.flash_bwd_dkv_reference(q, k, v, dout, mp, lse, delta,
@@ -838,6 +989,8 @@ def compare_flash_case(torch, fa, dtype, case, worst, rate=0.0, seed=None):
     pairs = {"fwd": (out, want), "dq": (dq, dq_w), "dk": (dk, dk_w),
              "dv": (dv, dv_w), "autograd out": tuple(outs),
              "autograd dqkv": (x1.grad, grad_w)}
+    if dq_fma is not None:
+        pairs["dq (FMA kernel, same inputs)"] = (dq_fma, dq_w)
     for key, (got, ref) in pairs.items():
         if not torch.isfinite(got).all():
             fail(f"flash {key} {what}: non-finite output")
@@ -887,43 +1040,88 @@ FLASH_DROPOUT = 0.1              # GPTConfig.dropout_rate's default
 FLASH_DROPOUT_SEED = -123456789  # any int: the kernels take it as uint32
 
 
-def device_ms(torch, fn, iters=20, warmup=3):
-    """Device time of one call of ``fn``: the durations of the device
-    kernels (and copies) ``torch.profiler`` records over ``iters`` calls,
-    summed and divided by ``iters``, so that the host's time between
-    launches is not counted. Returns (ms, {kernel name: ms per call})."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+_SLEEP = {}
 
+
+def _sleep_cycles_per_ms(torch) -> float:
+    """Cycles of ``torch.cuda._sleep`` per device millisecond, timed once."""
+    if "rate" not in _SLEEP:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        _SLEEP["rate"] = 20_000_000 / start.elapsed_time(end)
+    return _SLEEP["rate"]
+
+
+def device_ms(torch, fn, iters=20, warmup=3, names=False):
+    """Device time of one call of ``fn``: CUDA events around ``iters``
+    back-to-back calls that the host enqueues while a sleep kernel holds
+    the device, so the device runs them without waiting for the host (the
+    host's pace is not counted; the device's own gaps between kernels
+    are). The window counts only if the device had not reached its start
+    event when the host finished enqueueing it; else the sleep grows and
+    it is measured again. With ``names``, one ``torch.profiler`` window
+    of 2 calls names the device kernels (not timed by it: its records
+    may come late or not at all). Returns (ms, {kernel name: ms per
+    call of that window})."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    rate = _sleep_cycles_per_ms(torch)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _attempt in range(4):
+        torch.cuda._sleep(int(rate * (2.0 * host_ms + 1.0)))
+        start.record()
         for _ in range(iters):
             fn()
+        end.record()
+        covered = not start.query()
         torch.cuda.synchronize()
-    names = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            names[e.name] = (names.get(e.name, 0.0)
-                             + e.time_range.elapsed_us() / iters / 1e3)
-    if not names:
-        fail("the profiler recorded no device events; device time not "
-             "measured")
-    return sum(names.values()), names
+        if covered:
+            break
+        host_ms *= 4
+    else:
+        fail("device time not measured: the host could not enqueue the "
+             "window before the device reached it")
+    kernels = {}
+    if names:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                kernels[e.name] = (kernels.get(e.name, 0.0)
+                                   + e.time_range.elapsed_us() / 2 / 1e3)
+    return start.elapsed_time(end) / iters, kernels
 
 
 def check_flash_attention(torch, reports):
     """#3-#5 against their plain versions in fp32, bf16 and fp16 at dropout
     0 (FLASH_CASES, and FLASH_CASES_16 in the 16-bit types) and at dropout
-    0.1 (FLASH_DROP_CASES, FLASH_DROP_CASES_16); 16-bit forward and dk/dv
-    must take the tensor-core kernels and fp32 the FMA kernels. Then
+    0.1 (FLASH_DROP_CASES, FLASH_DROP_CASES_16); 16-bit forward, dq and
+    dk/dv must take the tensor-core kernels and fp32 the FMA kernels. Then
     timed by device time at the training shape (:func:`time_flash`).
     ``reports``: the kernels line's rows by name."""
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 
     worst, worst_drop = {}, {}
+    tc_wrappers = (fa.flash_attention_fwd_tc, fa.flash_attention_bwd_dq_tc,
+                   fa.flash_attention_bwd_dkv_tc)
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         sixteen = dtype != torch.float32
         for cases, sink, rate in (
@@ -932,14 +1130,15 @@ def check_flash_attention(torch, reports):
                 (FLASH_DROP_CASES + (FLASH_DROP_CASES_16 if sixteen else ()),
                  worst_drop, FLASH_DROPOUT)):
             for case in cases:
-                tc = fa.flash_attention_fwd_tc.launches
+                tc = [w.launches for w in tc_wrappers]
                 route = compare_flash_case(
                     torch, fa, dtype, case, sink, rate,
                     FLASH_DROPOUT_SEED if rate else None)
-                if route != ("tc" if sixteen else "fma") or (
-                        (fa.flash_attention_fwd_tc.launches > tc)
-                        != sixteen):
-                    fail(f"flash {dtype} {case}: routed to {route}")
+                grew = [w.launches > n for w, n in zip(tc_wrappers, tc)]
+                if route != ("tc" if sixteen else "fma") or \
+                        grew != [sixteen] * 3:
+                    fail(f"flash {dtype} {case}: routed to {route}, "
+                         f"tensor-core launches {grew}")
     print_flash_worst(worst, "(B,Sq,Sk,H,D) in FLASH_CASES (+ "
                       "FLASH_CASES_16 in 16 bits)")
     print_flash_worst(worst_drop, f"dropout {FLASH_DROPOUT}, "
@@ -953,9 +1152,9 @@ def time_flash(torch, fa, reports, worst, worst_drop):
     causal, no mask, rotating over 4 layers' inputs (150 MB in bf16, three
     times the 50 MB L2) as the step does, at dropout 0 and 0.1, all as
     device time (:func:`device_ms`): bf16 on the routed kernels (the
-    tensor-core forward and dk/dv, FMA dq) beside the FMA forward and
-    dk/dv on the same inputs (their first versions' route), and fp32 on
-    the FMA kernels, which fp32 takes; each beside its plain version and
+    tensor-core forward, dq and dk/dv) beside the FMA kernels on the same
+    inputs (their first versions' route), and fp32 on the FMA kernels,
+    which fp32 takes; each beside its plain version and
     SDPA with its backend pinned (flash for bf16, memory-efficient for
     fp32). The tensor-core rows also print their host-paced time
     (:func:`cuda_ms`: 50 back-to-back calls between two events), which
@@ -1000,9 +1199,10 @@ def time_flash(torch, fa, reports, worst, worst_drop):
                     if which == "fwd":
                         return fa._launch_fwd("flash_attention", q, k, v,
                                               None, True, scale, *drop)
-                    return fa._launch_dkv("flash_attention", q, k, v, dout,
-                                          None, lse, delta, True, scale,
-                                          *drop)
+                    return (fa._launch_dq if which == "dq" else
+                            fa._launch_dkv)("flash_attention", q, k, v,
+                                            dout, None, lse, delta, True,
+                                            scale, *drop)
                 return run
 
             kern = {"fwd": lambda: fa.flash_attention_fwd(
@@ -1039,19 +1239,18 @@ def time_flash(torch, fa, reports, worst, worst_drop):
                     torch.autograd.grad(o, (qt, kt, vt), dot,
                                         retain_graph=True)
 
-                lib = {"fwd": device_ms(torch, sdpa_fwd),
-                       "bwd": device_ms(torch, sdpa_bwd)}
+                lib = {"fwd": device_ms(torch, sdpa_fwd, names=True),
+                       "bwd": device_ms(torch, sdpa_bwd, names=True)}
             src = worst_drop if rate else worst
-            keys = ("fwd", "dq", "dkv") if dtype == torch.bfloat16 else (
-                "fwd", "dkv")
-            for key in keys:
-                route = "fma" if key == "dq" else fa._route(dtype, d)
+            for key in ("fwd", "dq", "dkv"):
+                route = fa._route(dtype, d)
                 row = {"fwd": "flash_attention_fwd", "dq":
                        "flash_attention_bwd_dq", "dkv":
                        "flash_attention_bwd_dkv"}[key]
                 row += ("_tc" if route == "tc" else "") + (
                     "_dropout" if rate else "")
-                kernel_ms, kernel_names = device_ms(torch, kern[key])
+                kernel_ms, kernel_names = device_ms(torch, kern[key],
+                                                    names=True)
                 plain_ms, _ = device_ms(torch, plain[key], iters=5,
                                         warmup=1)
                 library, lib_names = lib["fwd" if key == "fwd" else "bwd"]
@@ -1096,15 +1295,17 @@ def time_flash(torch, fa, reports, worst, worst_drop):
 
 
 def check_flash_dropout_mask(torch, dtype, d):
-    """The keep-mask read back out of the forward and dk/dv kernels that
-    ``dtype`` and head dim ``d`` route to, bit for bit against
+    """The keep-mask read back out of the forward, dq and dk/dv kernels
+    that ``dtype`` and head dim ``d`` route to, bit for bit against
     ``dropout_keep_mask``: non-causal at [2, 2048, 2, d] (fp32 at d = 256:
     the FMA kernels; bf16 at d = 64: the tensor-core kernels). The key
     mask keeps only the last d cols, c0 = 2048 - d onwards, and V is the
     identity on them (V[j, c] = 1 iff j = c0 + c), so o[i, c] != 0 iff
     score (i, c0 + c) was kept; dO is the identity on rows 1024 to 1023 +
     d, so dv[j, c] != 0 iff score (1024 + c, j) was kept, for j in the
-    window."""
+    window. For dq, K is the identity on the window too (zero elsewhere),
+    dO is all ones and delta 0, so ds[i, j] = p D dp = p D is non-zero on
+    the window iff kept, and dq[i, c] = scale ds[i, c0 + c]."""
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 
     b, s, h, r0 = 2, 2048, 2, 1024
@@ -1122,29 +1323,37 @@ def check_flash_dropout_mask(torch, dtype, d):
     scale = 1.0 / d ** 0.5
     drop = (FLASH_DROPOUT, FLASH_DROPOUT_SEED)
     route = fa._route(dtype, d)
-    before = (fa.flash_attention_fwd_tc.launches,
-              fa.flash_attention_bwd_dkv_tc.launches)
+    tc_wrappers = (fa.flash_attention_fwd_tc, fa.flash_attention_bwd_dq_tc,
+                   fa.flash_attention_bwd_dkv_tc)
+    before = [w.launches for w in tc_wrappers]
     qp, kp, vp, mp = fa._prepare(q, k, v, mask, False)
     out, lse = fa.flash_attention_fwd(qp, kp, vp, mp, False, scale, *drop)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
     _dk, dv = fa.flash_attention_bwd_dkv(qp, kp, vp, dout, mp, lse,
                                          delta.contiguous(), False, scale,
                                          *drop)
+    k_eye = v.clone()                  # the identity on the window
+    _o, lse_eye = fa.flash_attention_fwd(qp, k_eye, vp, mp, False, scale,
+                                         *drop)
+    ones = torch.ones(b, s, h, d, device="cuda", dtype=dtype)
+    zeros = torch.zeros(b, h, s, device="cuda")
+    dq = fa.flash_attention_bwd_dq(qp, k_eye, vp, ones, mp, lse_eye, zeros,
+                                   False, scale, *drop)
     torch.cuda.synchronize()
-    tc = (fa.flash_attention_fwd_tc.launches - before[0],
-          fa.flash_attention_bwd_dkv_tc.launches - before[1])
-    if tc != ((1, 1) if route == "tc" else (0, 0)):
+    tc = [w.launches - n for w, n in zip(tc_wrappers, before)]
+    if tc != ([2, 1, 1] if route == "tc" else [0, 0, 0]):
         fail(f"flash dropout mask readout ({dtype}, D={d}): tensor-core "
              f"launches {tc}, route {route}")
     ar = torch.arange(s, device="cuda")
     cols = torch.arange(c0, c0 + d, device="cuda")
-    flips_o = flips_dv = 0
+    flips_o = flips_dv = flips_dq = 0
     for bb in range(b):
         for hh in range(h):
             bh = bb * h + hh
             want = fa.dropout_keep_mask(FLASH_DROPOUT_SEED, bh, ar[:, None],
                                         cols[None, :], FLASH_DROPOUT)
             flips_o += int(((out[bb, :, hh] != 0) != want).sum())
+            flips_dq += int(((dq[bb, :, hh] != 0) != want).sum())
             want_dv = fa.dropout_keep_mask(
                 FLASH_DROPOUT_SEED, bh, torch.arange(r0, r0 + d,
                                                      device="cuda")[None, :],
@@ -1155,9 +1364,10 @@ def check_flash_dropout_mask(torch, dtype, d):
     print(f"flash dropout mask readout ({name}, non-causal, [{b}, {s}, {h}, "
           f"{d}], rate {FLASH_DROPOUT}, {route} kernels): forward "
           f"{b * h * s * d} scores, {flips_o} differ from dropout_keep_mask;"
-          f" dk/dv {b * h * d * d} scores, {flips_dv} differ; kept share "
+          f" dq {b * h * s * d} scores, {flips_dq} differ; dk/dv "
+          f"{b * h * d * d} scores, {flips_dv} differ; kept share "
           f"{kept:.4f}")
-    if flips_o or flips_dv:
+    if flips_o or flips_dv or flips_dq:
         fail(f"flash dropout ({name}): the kernels' keep-mask differs from "
              "dropout_keep_mask")
 
@@ -1406,15 +1616,15 @@ def check_sparse_attention(torch, reports):
         qt, kt, vt, o, dot = snxt()
         torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
 
-    sdpa_fwd_ms = cuda_ms(sdpa_fwd, iters=5, warmup=2)
-    sdpa_bwd_ms = cuda_ms(sdpa_bwd, iters=5, warmup=2)
+    sdpa_fwd_ms = device_ms(torch, sdpa_fwd, iters=5, warmup=2)[0]
+    sdpa_bwd_ms = device_ms(torch, sdpa_bwd, iters=5, warmup=2)[0]
     del sdpa_in
     torch.cuda.empty_cache()
     q0 = layers[0][1]
     npairs = sparse_pairs(layout, block, True)
     for key, lib in (("fwd", sdpa_fwd_ms), ("dq", sdpa_bwd_ms),
                      ("dkv", sdpa_bwd_ms)):
-        kernel_ms = cuda_ms(run(key, False), iters=20, warmup=3)
+        kernel_ms = device_ms(torch, run(key, False), iters=20, warmup=3)[0]
         plain_ms = cuda_ms(run(key, True), iters=2, warmup=1)
         nbytes, flops = sparse_bytes_flops(q0, npairs, key)
         t_bytes = nbytes / HBM_BYTES_PER_S
@@ -1430,8 +1640,9 @@ def check_sparse_attention(torch, reports):
                    max_abs_err=max(errs))
         print(f"sparse_attention {key} timing bf16 B={b} S={s} H={h} D={d} "
               f"bigbird block {block} causal ({npairs} visible pairs, "
-              f"{npairs / (h * s * (s + 1) / 2):.4f} of the causal square): "
-              f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+              f"{npairs / (h * s * (s + 1) / 2):.4f} of the causal square; "
+              f"device time): kernel {kernel_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms (host-paced), SDPA "
               f"with the mask {'fwd' if key == 'fwd' else 'bwd (dq+dk+dv)'} "
               f"{lib:.4f} ms, bound {rep['bound_ms']:.4f} ms ({nbytes} "
               f"bytes / 3.35 TB/s, {flops} flops / 989 TFLOP/s)")
@@ -1511,10 +1722,10 @@ def check_fused_adam(torch, report):
     state = AdamState(4, m, v)
     casts = [torch.empty(x.shape, dtype=torch.bfloat16, device="cuda")
              for x in p]
-    kernel_ms = cuda_ms(lambda: fused_adam_apply(
-        opt, g, state, p, cast_dtype=torch.bfloat16, cast_out=casts),
-        iters=20)
-    nocast_ms = cuda_ms(lambda: fused_adam_apply(opt, g, state, p), iters=20)
+    kernel_ms = device_ms(torch, lambda: fused_adam_apply(
+        opt, g, state, p, cast_dtype=torch.bfloat16, cast_out=casts))[0]
+    nocast_ms = device_ms(torch, lambda: fused_adam_apply(opt, g, state,
+                                                          p))[0]
     scalars = opt.step_scalars(5, None, "cuda")
     plain_ms = cuda_ms(lambda: fused_adam_reference(
         opt, g, m, v, p, scalars, torch.bfloat16), iters=5, warmup=1)
@@ -1522,18 +1733,20 @@ def check_fused_adam(torch, report):
     for leaf, grad in zip(leaves, g):
         leaf.grad = grad
     lib = torch.optim.Adam(leaves, lr=1e-4, fused=True)
-    library_ms = cuda_ms(lib.step, iters=20)
+    library_ms, lib_names = device_ms(torch, lib.step, names=True)
     nbytes = 30 * n
     bound_ms = max(nbytes / HBM_BYTES_PER_S, 12 * n / FP32_FLOPS) * 1e3
     report.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                   bound_ms=bound_ms, bound_by="bytes", max_abs_err=0.0)
     print(f"fused_adam timing, {len(shapes)} tensors, {n} params, fp32 "
-          f"grads: kernel with the bf16 cast {kernel_ms:.4f} ms (1 launch; "
+          f"grads (device time; plain host-paced): kernel with the bf16 "
+          f"cast {kernel_ms:.4f} ms (1 launch; "
           f"bound {bound_ms:.4f} ms, {nbytes} bytes / 3.35 TB/s), without "
           f"the cast {nocast_ms:.4f} ms (bound "
           f"{28 * n / HBM_BYTES_PER_S * 1e3:.4f} ms), plain with the cast "
           f"{plain_ms:.4f} ms, torch.optim.Adam(fused=True) (no cast) "
-          f"{library_ms:.4f} ms")
+          f"{library_ms:.4f} ms "
+          f"{ {k[:60]: round(v, 4) for k, v in lib_names.items()} }")
     del p, g, m, v, leaves, lib, casts
 
 
@@ -1725,15 +1938,16 @@ def time_fused_ln(torch, dtype, reports, errs):
             it["i"] = (it["i"] + 1) % len(cases)
             torch.autograd.grad(out, leaves, dy, retain_graph=True)
 
-        t = {"fwd": cuda_ms(lambda: fz.ln_matmul_fwd(*nxt()[:5], **kw)),
-             "bwd": cuda_ms(lambda: fz.ln_matmul_bwd(*nxt(), **kw),
-                            iters=20),
+        t = {"fwd": device_ms(torch, lambda: fz.ln_matmul_fwd(
+                 *nxt()[:5], **kw))[0],
+             "bwd": device_ms(torch, lambda: fz.ln_matmul_bwd(
+                 *nxt(), **kw))[0],
              "plain fwd": cuda_ms(lambda: fz.ln_matmul_reference(
                  *nxt()[:5], **kw), iters=10, warmup=2),
              "plain bwd": cuda_ms(lambda: fz.ln_matmul_bwd_reference(
                  *nxt(), **kw), iters=5, warmup=1),
-             "library fwd": cuda_ms(lib_fwd),
-             "library bwd": cuda_ms(lib_bwd, iters=20)}
+             "library fwd": device_ms(torch, lib_fwd)[0],
+             "library bwd": device_ms(torch, lib_bwd)[0]}
         for which in ("fwd", "bwd"):
             nbytes, flops = fused_ln_bytes_flops(n, d, f, act, 2, which)
             t[f"bound {which}"] = max(nbytes / HBM_BYTES_PER_S,
@@ -1766,7 +1980,8 @@ def time_fused_ln(torch, dtype, reports, errs):
             bound_ms=sum(t[f"bound {which}"] for t in times.values()),
             bound_by=times[FUSED_LN_SITES[0]][f"by {which}"],
             max_abs_err=errs[which])
-        print(f"fused_ln {which} per layer (both sites, {name}): kernel "
+        print(f"fused_ln {which} per layer (both sites, {name}; device "
+              f"time, plain host-paced): kernel "
               f"{rep['ms']:.4f} ms, plain {rep['plain_ms']:.4f} ms, unfused "
               f"eager sequence {rep['library_ms']:.4f} ms, bound "
               f"{rep['bound_ms']:.4f} ms ({rep['bound_by']})")
@@ -2419,12 +2634,17 @@ KERNELS = (
      "deepspeed_tpu/ops/transformer/flash_attention.py:160"),
     ("flash_attention_bwd_dkv_tc_dropout", "flash_attention_tc",
      "deepspeed_tpu/ops/transformer/flash_attention.py:330"),
+    ("flash_attention_bwd_dq_tc", "flash_attention_tc",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:231"),
+    ("flash_attention_bwd_dq_tc_dropout", "flash_attention_tc",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:276"),
 )
-# the flash kernels of the 16-bit training step: the tensor-core forward
-# and dk/dv, the FMA dq; the FMA forward and dk/dv take the fp32 path
-FLASH_NAMES = ("flash_attention_fwd_tc", "flash_attention_bwd_dq",
+# the flash kernels of the 16-bit training step: the tensor-core forward,
+# dq and dk/dv; the FMA kernels take the fp32 path
+FLASH_NAMES = ("flash_attention_fwd_tc", "flash_attention_bwd_dq_tc",
                "flash_attention_bwd_dkv_tc")
-FLASH_FMA_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dkv")
+FLASH_FMA_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                   "flash_attention_bwd_dkv")
 
 
 # ---------------------------------------------------------------------------
@@ -2503,6 +2723,7 @@ def training_counters():
     return {"flash_attention_fwd": fa.flash_attention_fwd,
             "flash_attention_fwd_tc": fa.flash_attention_fwd_tc,
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dq_tc": fa.flash_attention_bwd_dq_tc,
             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
             "flash_attention_bwd_dkv_tc": fa.flash_attention_bwd_dkv_tc,
             "sparse_attention_fwd": sp.sparse_attention_fwd,
@@ -2861,8 +3082,7 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None,
                  f"backward {ln_launched} times")
         if label == "kernels":
             launches = {n: fn.launches for n, fn in counters.items()}
-            if launches["flash_attention_fwd_tc"] or \
-                    launches["flash_attention_bwd_dkv_tc"]:
+            if any(launches[n] for n in FLASH_NAMES):
                 fail(f"fp32 comparison: the kernels' run launched the "
                      f"tensor-core flash kernels: {launches}")
         runs[label] = (grads, losses)
@@ -3030,6 +3250,7 @@ def main() -> int:
                for name, src, rep in KERNELS}
     check_paged_attention(torch, reports["paged_decode_attention"])
     check_paged_attention_int8(torch, reports["paged_decode_attention_int8"])
+    time_paged_splits(torch)
     check_chunked_prefill(torch, reports["chunked_prefill_attention"])
     check_flash_attention(torch, reports)
     check_flash_dropout_mask(torch, torch.float32, 256)

@@ -42,9 +42,9 @@
 // dense bf16 on the tensor cores: bytes bound it. These kernels do their
 // products as fp32 FMAs (67 TFLOP/s), as the TPU kernel multiplies in
 // fp32, so they are bound by the FMA rate, about 0.1 ms for the forward.
-// They run every fp32 call, dq in every dtype, and the forward and dk/dv
-// for 16-bit head dims above 128; flash_attention_tc.cu holds the
-// tensor-core forward and dk/dv that take bf16 and fp16 up to D = 128.
+// They run every fp32 call and every 16-bit call with a head dim above
+// 128; flash_attention_tc.cu holds the tensor-core forward, dq and dk/dv
+// that take bf16 and fp16 up to D = 128.
 //
 // What the design does:
 // - every kernel streams one axis in tiles through shared memory and keeps

@@ -24,46 +24,145 @@
 // paged_walk.cuh, shared with the chunked-prefill kernel):
 // - it reads each visible K and V row exactly once, as vector loads by
 //   neighbouring threads, and stops the walk after the last key any query
-//   of the block can see (table entries past it are never looked up);
+//   of the run can see (table entries past it are never looked up);
 // - each tile's K and V loads are all issued at the tile's start;
+// - the key axis is split across a thread-block cluster, in one launch:
+//   one thread block per (head, sequence, group of up to MAX_S queries)
+//   would give a batch of 8 x 12 heads 96 blocks for 132 SMs, each walking
+//   1024 keys tile by tile, too few bytes in flight to approach the bound.
+//   The grid's x axis is (head, split); the `splits` blocks of a cluster
+//   (at most 8, the portable cluster size) each walk a contiguous share of
+//   the run's visible key tiles (a share may hold none) and leave their
+//   partial (m, l, o) in fp32 in their own shared memory. After
+//   cluster.sync(), rank 0 reads the partials through distributed shared
+//   memory in rank order, combines them (o = sum_r e^(m_r - M) o_r / sum_r
+//   e^(m_r - M) l_r) and writes the output. No scratch in device memory,
+//   no second launch (a decode step keeps one launch per layer), no
+//   atomics, a fixed combine order; the host picks `splits` from the
+//   window and the batch (paged_attention.py: paged_decode_splits);
 // - nothing but the output is written to device memory.
-// It is a simple kernel, not yet a fast one: one thread block per (head,
-// sequence, group of up to MAX_S queries) walks the keys tile by tile, so
-// a batch of 8 x 12 heads gives 96 blocks for 132 SMs and the card cannot
-// keep enough bytes in flight to reach its bound. TMA, wgmma, a split of
-// the key axis across blocks and cross-tile prefetch are later work.
+// With splits = 1 a block walks the whole run, as the first version did.
+// A single-token decode (S = 1) runs an instantiation for one query per
+// block, whose accumulators take 8 registers per thread instead of 64, so
+// more blocks stay resident and more K/V loads are in flight.
+// TMA and cross-tile prefetch are later work.
+
+#include <cooperative_groups.h>
+
+#include <utility>
 
 #include "paged_walk.cuh"
 
 namespace {
 
 using namespace paged;
+namespace cg = cooperative_groups;
 
-// grid: (H, B, ceil(S / MAX_S)); block: THREADS.
-template <typename T, typename P, int TPKP>
+constexpr int MAX_SPLITS = 8;   // the portable cluster size
+
+// grid: (H * splits, B, ceil(S / NQ)), clusters of (splits, 1, 1);
+// block: THREADS. NQ queries per block: 1 for a single-token decode (its
+// accumulators take NQ x 8 registers per thread), else MAX_S.
+template <typename T, typename P, int TPKP, int NQ>
 __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
     const T* __restrict__ q, const P* __restrict__ k_pool,
     const P* __restrict__ v_pool, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int* __restrict__ block_table,
     const int* __restrict__ pos, T* __restrict__ out, int S, int H, int D,
-    int BS, int WB, float scale) {
-  const int h = blockIdx.x;
+    int BS, int WB, float scale, int splits) {
+  constexpr int KT = WalkSmem<TPKP, NQ>::KT;
+  constexpr int DMAX = WalkSmem<TPKP, NQ>::DMAX;
+  __shared__ __align__(16) WalkSmem<TPKP, NQ> sm;
+  __shared__ float wgt[MAX_SPLITS][NQ];      // e^(m_r - M), rank 0
+  __shared__ float lsum[NQ];                 // sum_r e^(m_r - M) l_r
+
+  const int h = blockIdx.x / splits;
   const int b = blockIdx.y;
-  const int s0 = blockIdx.z * MAX_S;
+  const int s0 = blockIdx.z * NQ;
+  const int ns = min(NQ, S - s0);
+  const int p0 = pos[b] + s0;
   const long first = ((long)b * S + s0) * H * D + (long)h * D;
-  attend_run<T, P, TPKP>(q + first, out + first, k_pool, v_pool, k_scale,
-                         v_scale, block_table + (long)b * WB, WB,
-                         pos[b] + s0, min(MAX_S, S - s0), H, D, BS, h,
-                         scale);
+  // this block's share of the run's visible key tiles
+  const int n_keys = min(WB * BS, p0 + ns);
+  const int nt = (n_keys + KT - 1) / KT;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = splits > 1 ? (int)cluster.block_rank() : 0;
+  const int k_lo = min(n_keys, rank * nt / splits * KT);
+  const int k_hi = min(n_keys, (rank + 1) * nt / splits * KT);
+  walk_keys<T, P, TPKP, NQ>(sm, q + first, k_pool, v_pool, k_scale,
+                            v_scale, block_table + (long)b * WB, p0, ns, H,
+                            D, BS, h, scale, k_lo, k_hi);
+  if (splits == 1) {
+    finish_run<T, TPKP, NQ>(sm, out + first, ns, H, D);
+    return;
+  }
+
+  // this block's partial o: the warps' sums, in place in red[0]
+  for (int idx = threadIdx.x; idx < ns * D; idx += THREADS) {
+    const int i = idx / D;
+    const int d = idx - i * D;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) sum += sm.red[w][i][d];
+    sm.red[0][i][d] = sum;
+  }
+  cluster.sync();   // every block's partial is in its shared memory
+  if (rank == 0) {
+    if (threadIdx.x < ns) {
+      const int i = threadIdx.x;
+      float mx = -INFINITY;
+      for (int r = 0; r < splits; ++r)
+        mx = fmaxf(mx, cluster.map_shared_rank(&sm.m_s[0], r)[i]);
+      float l = 0.f;
+      for (int r = 0; r < splits; ++r) {
+        const float m = cluster.map_shared_rank(&sm.m_s[0], r)[i];
+        const float w = m == -INFINITY ? 0.f : expf(m - mx);
+        wgt[r][i] = w;
+        l += cluster.map_shared_rank(&sm.l_s[0], r)[i] * w;
+      }
+      lsum[i] = l;
+    }
+    __syncthreads();
+    const long row = (long)H * D;
+    for (int idx = threadIdx.x; idx < ns * D; idx += THREADS) {
+      const int i = idx / D;
+      const int d = idx - i * D;
+      float o = 0.f;
+      for (int r = 0; r < splits; ++r)
+        o += cluster.map_shared_rank(&sm.red[0][0][0], r)[i * DMAX + d] *
+             wgt[r][i];
+      store(out + first + i * row + d, o / fmaxf(lsum[i], 1e-30f));
+    }
+  }
+  cluster.sync();   // no block leaves while rank 0 reads its partial
+}
+
+// Launch `kernel` on `grid` in clusters of (splits, 1, 1).
+template <typename... KArgs, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(KArgs...), dim3 grid, int splits,
+                            cudaStream_t st, Args&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
 }
 
 template <typename T, typename P>
-void launch(const void* q, const void* k_pool, const void* v_pool,
-            const void* k_scale, const void* v_scale,
-            const void* block_table, const void* pos, void* out, int B,
-            int S, int H, int D, int BS, int WB, float scale,
-            cudaStream_t st) {
-  const dim3 grid(H, B, (S + MAX_S - 1) / MAX_S);
+cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
+                   const void* k_scale, const void* v_scale,
+                   const void* block_table, const void* pos, void* out,
+                   int B, int S, int H, int D, int BS, int WB, float scale,
+                   int splits, cudaStream_t st) {
+  const dim3 grid(H * splits, B, S == 1 ? 1 : (S + MAX_S - 1) / MAX_S);
   const T* qp = static_cast<const T*>(q);
   const P* kp = static_cast<const P*>(k_pool);
   const P* vp = static_cast<const P*>(v_pool);
@@ -72,11 +171,18 @@ void launch(const void* q, const void* k_pool, const void* v_pool,
   const int* bt = static_cast<const int*>(block_table);
   const int* ps = static_cast<const int*>(pos);
   T* op = static_cast<T*>(out);
-#define PAGED_DECODE_LAUNCH(TP)                                           \
-  paged_decode_kernel<T, P, TP><<<grid, THREADS, 0, st>>>(                \
-      qp, kp, vp, ksp, vsp, bt, ps, op, S, H, D, BS, WB, scale)
+  cudaError_t err = cudaSuccess;
+#define PAGED_DECODE_LAUNCH(TP)                                          \
+  err = S == 1 ? launch_clusters(paged_decode_kernel<T, P, TP, 1>, grid, \
+                                 splits, st, qp, kp, vp, ksp, vsp, bt,   \
+                                 ps, op, S, H, D, BS, WB, scale, splits) \
+               : launch_clusters(paged_decode_kernel<T, P, TP, MAX_S>,   \
+                                 grid, splits, st, qp, kp, vp, ksp, vsp, \
+                                 bt, ps, op, S, H, D, BS, WB, scale,     \
+                                 splits)
   PAGED_DISPATCH_D(D, PAGED_DECODE_LAUNCH);
 #undef PAGED_DECODE_LAUNCH
+  return err;
 }
 
 }  // namespace
@@ -85,34 +191,42 @@ extern "C" {
 
 // dtype (of q, out and an fp pool): 0 = float32, 1 = bfloat16. int8: 1 for
 // int8 pools with fp32 scales k_scale / v_scale [N, BS, H] (else both may
-// be null). Returns cudaGetLastError() after the launch (0 = launched).
-// Shapes, dtypes, contiguity and 16-byte alignment are checked by the
-// Python wrapper; this checks only what it relies on.
+// be null). splits: blocks per (head, sequence, query group), 1 to 8, each
+// walking a share of the keys. Returns the launch's error, else
+// cudaGetLastError() after it (0 = launched). Shapes, dtypes, contiguity
+// and 16-byte alignment are checked by the Python wrapper; this checks
+// only what it relies on.
 int paged_decode_attention_fwd(const void* q, const void* k_pool,
                                const void* v_pool, const void* k_scale,
                                const void* v_scale, const void* block_table,
                                const void* pos, void* out, int B, int S,
                                int H, int D, int BS, int WB, float scale,
-                               int dtype, int int8, void* stream) {
+                               int dtype, int int8, int splits,
+                               void* stream) {
   if (D < VEC || D > MAX_D || D % VEC != 0 || BS < 1 || WB < 1 || B < 1 ||
-      S < 1 || H < 1 || (dtype != 0 && dtype != 1) ||
+      S < 1 || H < 1 || (dtype != 0 && dtype != 1) || splits < 1 ||
+      splits > MAX_SPLITS ||
       (int8 && (k_scale == nullptr || v_scale == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   if (dtype == 1 && int8)
-    launch<__nv_bfloat16, int8_t>(q, k_pool, v_pool, k_scale, v_scale,
-                                  block_table, pos, out, B, S, H, D, BS, WB,
-                                  scale, st);
+    err = launch<__nv_bfloat16, int8_t>(q, k_pool, v_pool, k_scale, v_scale,
+                                        block_table, pos, out, B, S, H, D,
+                                        BS, WB, scale, splits, st);
   else if (dtype == 1)
-    launch<__nv_bfloat16, __nv_bfloat16>(q, k_pool, v_pool, nullptr,
-                                         nullptr, block_table, pos, out, B,
-                                         S, H, D, BS, WB, scale, st);
+    err = launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pool, v_pool, nullptr, nullptr, block_table, pos, out, B, S, H,
+        D, BS, WB, scale, splits, st);
   else if (int8)
-    launch<float, int8_t>(q, k_pool, v_pool, k_scale, v_scale, block_table,
-                          pos, out, B, S, H, D, BS, WB, scale, st);
+    err = launch<float, int8_t>(q, k_pool, v_pool, k_scale, v_scale,
+                                block_table, pos, out, B, S, H, D, BS, WB,
+                                scale, splits, st);
   else
-    launch<float, float>(q, k_pool, v_pool, nullptr, nullptr, block_table,
-                         pos, out, B, S, H, D, BS, WB, scale, st);
+    err = launch<float, float>(q, k_pool, v_pool, nullptr, nullptr,
+                               block_table, pos, out, B, S, H, D, BS, WB,
+                               scale, splits, st);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -5,6 +5,11 @@
 // over that sequence's K/V pool blocks through its row of the block
 // table. Key j (table-relative) is visible to query i iff j <= p0 + i.
 // The softmax runs online in fp32; the output is written in q's dtype.
+// walk_keys walks a contiguous range of the keys and leaves the block's
+// partial state (m, l and the warps' unnormalised sums) in a WalkSmem;
+// attend_run walks them all and writes the output (the chunked-prefill
+// kernel's whole walk); the decode kernel may give each block of a
+// cluster a share of the keys and combine the partials itself.
 //
 // Pools are in q's dtype (float or bf16) or int8. An int8 pool carries
 // per-(token, head) fp32 scales [N, BS, H]: each key row's thread group
@@ -115,22 +120,40 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Attend one run. ``q`` and ``out`` point at the run's first query's head
-// ``h`` row; consecutive queries are ``row = H * D`` elements apart (the
-// pools' token stride too). ``bt``: the sequence's table row of WB block
-// ids. Called once per thread block, by all THREADS threads, with ns >= 1
-// uniform across the block. D <= VEC * TPKP.
-template <typename T, typename P, int TPKP>
-__device__ __forceinline__ void attend_run(
-    const T* __restrict__ q, T* __restrict__ out,
+// The shared memory of one walk of up to NQ queries: q * scale, the
+// tile's scores and probabilities, the online-softmax state and the warps'
+// partial sums.
+template <int TPKP, int NQ = MAX_S>
+struct WalkSmem {
+  static constexpr int KT = NPASS * (THREADS / TPKP);  // keys per tile
+  static constexpr int DMAX = VEC * TPKP;  // widest head this TPKP covers
+  float q_s[NQ][DMAX];                     // q * scale, fp32 (first: 16 B)
+  float p_s[NQ][KT];                       // scores, then probs
+  float m_s[NQ];                           // running max
+  float l_s[NQ];                           // running normaliser
+  float a_s[NQ];                           // tile rescale factor
+  float red[NWARPS][NQ][DMAX];             // the warps' partial sums
+};
+
+// Walk keys k_lo .. k_hi - 1 (table-relative, k_lo a multiple of the tile
+// KT) of one run. ``q`` points at the run's first query's head ``h`` row;
+// consecutive queries are ``row = H * D`` elements apart (the pools' token
+// stride too). ``bt``: the sequence's table row of WB block ids. Called by
+// all THREADS threads, with 1 <= ns <= NQ uniform across the block. D <=
+// VEC * TPKP. NQ sizes the per-thread accumulators (NQ x VEC registers),
+// so a single-query decode instantiates NQ = 1. Leaves in ``sm`` the
+// run's m_s and l_s over these keys (m = -inf, l = 0 for a query that saw
+// none) and in red[w][i][d] warp w's sum of p v over them.
+template <typename T, typename P, int TPKP, int NQ = MAX_S>
+__device__ __forceinline__ void walk_keys(
+    WalkSmem<TPKP, NQ>& sm, const T* __restrict__ q,
     const P* __restrict__ k_pool, const P* __restrict__ v_pool,
     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
-    const int* __restrict__ bt, int WB, int p0, int ns, int H, int D, int BS,
-    int h, float scale) {
+    const int* __restrict__ bt, int p0, int ns, int H, int D, int BS,
+    int h, float scale, int k_lo, int k_hi) {
   constexpr bool INT8 = sizeof(P) == 1;
   constexpr int KPP = THREADS / TPKP;  // keys per pass
-  constexpr int KT = NPASS * KPP;      // keys per tile
-  constexpr int DMAX = VEC * TPKP;     // widest head this TPKP covers
+  constexpr int KT = WalkSmem<TPKP, NQ>::KT;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -138,13 +161,12 @@ __device__ __forceinline__ void attend_run(
   const int t = tid % TPKP;  // which 8-element slice of a row
   const int g = tid / TPKP;  // which key of a pass
   const bool has_slice = t * VEC < D;
-
-  __shared__ __align__(16) float q_s[MAX_S][DMAX];  // q * scale, fp32
-  __shared__ float p_s[MAX_S][KT];                  // scores, then probs
-  __shared__ float m_s[MAX_S];                      // running max
-  __shared__ float l_s[MAX_S];                      // running normaliser
-  __shared__ float a_s[MAX_S];                      // tile rescale factor
-  __shared__ float red[NWARPS][MAX_S][DMAX];
+  auto& q_s = sm.q_s;
+  auto& p_s = sm.p_s;
+  auto& m_s = sm.m_s;
+  auto& l_s = sm.l_s;
+  auto& a_s = sm.a_s;
+  auto& red = sm.red;
 
   const long row = (long)H * D;  // elements between tokens
   for (int idx = tid; idx < ns * D; idx += THREADS) {
@@ -152,25 +174,22 @@ __device__ __forceinline__ void attend_run(
     const int d = idx - i * D;
     q_s[i][d] = to_float(q[i * row + d]) * scale;
   }
-  if (tid < MAX_S) {
+  if (tid < NQ) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
   }
   __syncthreads();
 
-  float acc[MAX_S][VEC];
+  float acc[NQ][VEC];
 #pragma unroll
-  for (int i = 0; i < MAX_S; ++i)
+  for (int i = 0; i < NQ; ++i)
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc[i][e] = 0.f;
 
-  // Keys past the last query's position are visible to no query here.
-  const int n_keys = min(WB * BS, p0 + ns);
   const long head_off = (long)h * D + t * VEC;
 
-  for (int k0 = 0; k0 < n_keys; k0 += KT) {
-    const int nk = min(KT, n_keys - k0);
-
+  for (int k0 = k_lo; k0 < k_hi; k0 += KT) {
+    const int nk = min(KT, k_hi - k0);
     // 0. issue every K and V load of the tile (and int8 scales)
     Slice<P> ks[NPASS], vs[NPASS];
     float ksc[NPASS], vsc[NPASS];
@@ -193,9 +212,9 @@ __device__ __forceinline__ void attend_run(
 #pragma unroll
     for (int r = 0; r < NPASS; ++r) {
       const int j = r * KPP + g;
-      float part[MAX_S];
+      float part[NQ];
 #pragma unroll
-      for (int i = 0; i < MAX_S; ++i) part[i] = 0.f;
+      for (int i = 0; i < NQ; ++i) part[i] = 0.f;
       if (j < nk && has_slice) {
         float kx[VEC];
         unpack(ks[r], kx);
@@ -204,7 +223,7 @@ __device__ __forceinline__ void attend_run(
           for (int e = 0; e < VEC; ++e) kx[e] *= ksc[r];
         }
 #pragma unroll
-        for (int i = 0; i < MAX_S; ++i) {
+        for (int i = 0; i < NQ; ++i) {
           if (i < ns) {
             const float4 qa = *reinterpret_cast<const float4*>(
                 &q_s[i][t * VEC]);
@@ -217,7 +236,7 @@ __device__ __forceinline__ void attend_run(
         }
       }
 #pragma unroll
-      for (int i = 0; i < MAX_S; ++i) {
+      for (int i = 0; i < NQ; ++i) {
         if (i < ns) {  // uniform across the block
 #pragma unroll
           for (int off = TPKP >> 1; off > 0; off >>= 1)
@@ -264,7 +283,7 @@ __device__ __forceinline__ void attend_run(
 
     // 3. rescale the partial accumulators, add this tile's values
 #pragma unroll
-    for (int i = 0; i < MAX_S; ++i) {
+    for (int i = 0; i < NQ; ++i) {
       if (i < ns) {
         const float alpha = a_s[i];
 #pragma unroll
@@ -283,7 +302,7 @@ __device__ __forceinline__ void attend_run(
           for (int e = 0; e < VEC; ++e) vx[e] *= vsc[r];
         }
 #pragma unroll
-        for (int i = 0; i < MAX_S; ++i) {
+        for (int i = 0; i < NQ; ++i) {
           if (i < ns && kp <= p0 + i) {
             const float p = p_s[i][j];
 #pragma unroll
@@ -300,7 +319,7 @@ __device__ __forceinline__ void attend_run(
 #pragma unroll
   for (int off = TPKP; off < 32; off <<= 1) {
 #pragma unroll
-    for (int i = 0; i < MAX_S; ++i)
+    for (int i = 0; i < NQ; ++i)
       if (i < ns)
 #pragma unroll
         for (int e = 0; e < VEC; ++e)
@@ -308,20 +327,45 @@ __device__ __forceinline__ void attend_run(
   }
   if (lane < TPKP && has_slice) {
 #pragma unroll
-    for (int i = 0; i < MAX_S; ++i)
+    for (int i = 0; i < NQ; ++i)
       if (i < ns)
 #pragma unroll
         for (int e = 0; e < VEC; ++e) red[warp][i][t * VEC + e] = acc[i][e];
   }
   __syncthreads();
-  for (int idx = tid; idx < ns * D; idx += THREADS) {
+}
+
+// The output of a run walked whole by walk_keys: the warps' sums over
+// max(l, 1e-30), in q's dtype.
+template <typename T, int TPKP, int NQ = MAX_S>
+__device__ __forceinline__ void finish_run(const WalkSmem<TPKP, NQ>& sm,
+                                           T* __restrict__ out, int ns,
+                                           int H, int D) {
+  const long row = (long)H * D;
+  for (int idx = threadIdx.x; idx < ns * D; idx += THREADS) {
     const int i = idx / D;
     const int d = idx - i * D;
     float sum = 0.f;
 #pragma unroll
-    for (int w = 0; w < NWARPS; ++w) sum += red[w][i][d];
-    store(out + i * row + d, sum / fmaxf(l_s[i], 1e-30f));
+    for (int w = 0; w < NWARPS; ++w) sum += sm.red[w][i][d];
+    store(out + i * row + d, sum / fmaxf(sm.l_s[i], 1e-30f));
   }
+}
+
+// Attend one run over all its visible keys (keys past the last query's
+// position are visible to no query) and write its output: walk_keys over
+// 0 .. min(WB * BS, p0 + ns), then finish_run.
+template <typename T, typename P, int TPKP>
+__device__ __forceinline__ void attend_run(
+    const T* __restrict__ q, T* __restrict__ out,
+    const P* __restrict__ k_pool, const P* __restrict__ v_pool,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+    const int* __restrict__ bt, int WB, int p0, int ns, int H, int D, int BS,
+    int h, float scale) {
+  __shared__ __align__(16) WalkSmem<TPKP> sm;
+  walk_keys<T, P, TPKP>(sm, q, k_pool, v_pool, k_scale, v_scale, bt, p0, ns,
+                        H, D, BS, h, scale, 0, min(WB * BS, p0 + ns));
+  finish_run<T, TPKP>(sm, out, ns, H, D);
 }
 
 // Instantiate ``KERNEL<T, P, TPKP>`` for head_dim D (TPKP = the power of

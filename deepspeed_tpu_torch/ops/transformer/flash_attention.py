@@ -10,12 +10,12 @@ and the fp32 row logsumexp; the backward recomputes the probabilities.
 - On CUDA tensors, :func:`flash_attention` runs Hopper kernels (built at
   first use) through an ``autograd.Function``: :func:`flash_attention_fwd`,
   then in the backward :func:`flash_attention_bwd_dq` and
-  :func:`flash_attention_bwd_dkv`. :func:`_route` picks the forward and
-  dk/dv kernels: bfloat16 and float16 with ``head_dim`` up to 128 run the
+  :func:`flash_attention_bwd_dkv`. :func:`_route` picks the kernels of all
+  three: bfloat16 and float16 with ``head_dim`` up to 128 run the
   tensor-core kernels of ``csrc/flash_attention_tc.cu``
-  (:func:`flash_attention_fwd_tc`, :func:`flash_attention_bwd_dkv_tc`);
-  float32 and 16-bit head dims in (128, 256] run the fp32-FMA kernels of
-  ``csrc/flash_attention.cu``, which also hold dq for every dtype. It
+  (:func:`flash_attention_fwd_tc`, :func:`flash_attention_bwd_dq_tc`,
+  :func:`flash_attention_bwd_dkv_tc`); float32 and 16-bit head dims in
+  (128, 256] run the fp32-FMA kernels of ``csrc/flash_attention.cu``. It
   launches them or raises; it never falls back to the plain version or
   from one kernel to another.
 - On CPU tensors it runs :func:`flash_attention_reference`, the plain
@@ -38,7 +38,8 @@ arguments. At rate 0 they run a variant compiled without the hash.
 Each kernel counts its launches in its own wrapper's ``.launches``: the
 FMA kernels in ``flash_attention_fwd``, ``flash_attention_bwd_dq`` and
 ``flash_attention_bwd_dkv``, the tensor-core ones in
-``flash_attention_fwd_tc`` and ``flash_attention_bwd_dkv_tc``.
+``flash_attention_fwd_tc``, ``flash_attention_bwd_dq_tc`` and
+``flash_attention_bwd_dkv_tc``.
 """
 
 import ctypes
@@ -52,7 +53,8 @@ from deepspeed_tpu_torch.ops.dropout import MASK32, keep_threshold, mul32
 __all__ = ["flash_attention", "flash_attention_reference", "flash_ok",
            "flash_attention_fwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "flash_attention_fwd_tc",
-           "flash_attention_bwd_dkv_tc", "flash_bwd_dq_reference",
+           "flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc",
+           "flash_bwd_dq_reference",
            "flash_bwd_dkv_reference", "dropout_keep_mask"]
 
 MAX_HEAD_DIM = 256
@@ -63,7 +65,7 @@ _FN = {}
 
 
 def _route(dtype: torch.dtype, head_dim: int) -> str:
-    """Which kernels compute the forward and dk/dv on CUDA: ``"tc"`` (the
+    """Which kernels compute the forward, dq and dk/dv on CUDA: ``"tc"`` (the
     tensor cores, ``csrc/flash_attention_tc.cu``) for bfloat16 and float16
     with ``head_dim`` a multiple of 8 in [8, 128] (a head dim that is not
     a multiple of 16 is zero-padded in shared memory); ``"fma"``
@@ -238,18 +240,17 @@ def flash_bwd_dkv_reference(q, k, v, dout, kv_mask, lse, delta,
 
 
 def _kernel(name: str = "flash_attention"):
-    """The ctypes functions of ``csrc/<name>.cu`` (``flash_attention``:
-    forward, dq, dk/dv; ``flash_attention_tc``: forward and dk/dv), built
-    and loaded at first use."""
+    """The ctypes functions of ``csrc/<name>.cu`` (``flash_attention``,
+    ``flash_attention_tc``: forward, dq, dk/dv), built and loaded at first
+    use."""
     if name not in _FN:
         lib = build.load(name)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # B, H, Sq, Sk, D, scale, causal, seed, thresh, inv_keep, dtype,
         # stream
         shape = [i32] * 5 + [f32, i32, ctypes.c_uint32, i32, f32, i32, ptr]
-        fns = {"fwd": (f"{name}_fwd", 7), "dkv": (f"{name}_bwd_dkv", 10)}
-        if name == "flash_attention":
-            fns["dq"] = (f"{name}_bwd_dq", 9)
+        fns = {"fwd": (f"{name}_fwd", 7), "dq": (f"{name}_bwd_dq", 9),
+               "dkv": (f"{name}_bwd_dkv", 10)}
         out = {}
         for key, (sym, n_ptrs) in fns.items():
             fn = getattr(lib, sym)
@@ -345,6 +346,23 @@ def _launch_fwd(name, q, k, v, kv_mask, causal, scale, dropout_rate,
     return out, lse
 
 
+def _launch_dq(name, q, k, v, dout, kv_mask, lse, delta, causal, scale,
+               dropout_rate, dropout_seed):
+    b, sq, h, d = q.shape
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    fn = _kernel(name)["dq"]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                _ptr(kv_mask), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), _strides(q, k, v), b, h, sq, k.shape[1], d,
+                float(scale), int(causal),
+                *_drop_args(dropout_rate, dropout_seed),
+                _DTYPE_CODES[q.dtype], stream)
+    _check(rc, "dq", name)
+    return dq
+
+
 def _launch_dkv(name, q, k, v, dout, kv_mask, lse, delta, causal, scale,
                 dropout_rate, dropout_seed):
     b, sq, h, d = q.shape
@@ -405,22 +423,31 @@ def flash_attention_fwd_tc(q, k, v, kv_mask, causal: bool, scale: float,
 def flash_attention_bwd_dq(q, k, v, dout, kv_mask, lse, delta, causal: bool,
                            scale: float, dropout_rate: float = 0.0,
                            dropout_seed: Optional[int] = None):
-    """Launch the dq kernel (the FMA kernel, every dtype): ``dout``
-    contiguous [B, Sq, H, D]; ``lse`` and ``delta`` fp32 [B, H, Sq].
-    Returns dq, contiguous [B, Sq, H, D]."""
-    b, sq, h, d = q.shape
-    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    fn = _kernel()["dq"]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                _ptr(kv_mask), lse.data_ptr(), delta.data_ptr(),
-                dq.data_ptr(), _strides(q, k, v), b, h, sq, k.shape[1], d,
-                float(scale), int(causal),
-                *_drop_args(dropout_rate, dropout_seed),
-                _DTYPE_CODES[q.dtype], stream)
-    _check(rc, "dq")
+    """Launch the dq kernel :func:`_route` picks: ``dout`` contiguous [B,
+    Sq, H, D]; ``lse`` and ``delta`` fp32 [B, H, Sq]. Returns dq,
+    contiguous [B, Sq, H, D]. The FMA kernel's launches count here, the
+    tensor-core kernel's in :func:`flash_attention_bwd_dq_tc`."""
+    if _route(q.dtype, q.shape[-1]) == "tc":
+        return flash_attention_bwd_dq_tc(q, k, v, dout, kv_mask, lse, delta,
+                                         causal, scale, dropout_rate,
+                                         dropout_seed)
+    dq = _launch_dq("flash_attention", q, k, v, dout, kv_mask, lse, delta,
+                    causal, scale, dropout_rate, dropout_seed)
     flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dq_tc(q, k, v, dout, kv_mask, lse, delta,
+                              causal: bool, scale: float,
+                              dropout_rate: float = 0.0,
+                              dropout_seed: Optional[int] = None):
+    """Launch the tensor-core dq kernel (bfloat16 or float16, ``head_dim``
+    a multiple of 8 up to 128; anything else raises). Inputs and output as
+    :func:`flash_attention_bwd_dq`."""
+    _require_tc(q)
+    dq = _launch_dq("flash_attention_tc", q, k, v, dout, kv_mask, lse, delta,
+                    causal, scale, dropout_rate, dropout_seed)
+    flash_attention_bwd_dq_tc.launches += 1
     return dq
 
 
@@ -458,6 +485,7 @@ def flash_attention_bwd_dkv_tc(q, k, v, dout, kv_mask, lse, delta,
 flash_attention_fwd.launches = 0
 flash_attention_fwd_tc.launches = 0
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq_tc.launches = 0
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv_tc.launches = 0
 

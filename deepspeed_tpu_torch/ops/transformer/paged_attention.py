@@ -10,7 +10,9 @@ in q's dtype, or int8 with per-(token, head) fp32 scales ``k_scale`` /
 
 - On a CUDA tensor, :func:`paged_decode_attention` launches the Hopper
   kernel ``csrc/paged_attention.cu`` (built at first use) or raises. It
-  never falls back to the plain version.
+  never falls back to the plain version. The kernel splits each (head,
+  sequence, query group)'s keys over a thread-block cluster of
+  :func:`paged_decode_splits` blocks, in one launch.
 - On a CPU tensor it runs :func:`paged_decode_attention_reference`, the
   plain PyTorch version the CPU tests hold against the JAX kernel and
   ``chip_smoke.py`` holds the CUDA kernel against.
@@ -27,9 +29,12 @@ import torch
 from deepspeed_tpu_torch.ops import build
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_reference",
-           "paged_decode_ok"]
+           "paged_decode_ok", "paged_decode_splits"]
 
 MAX_HEAD_DIM = 256
+MAX_SPLITS = 8              # the portable thread-block cluster size
+KEYS_PER_SPLIT = 64         # the fewest keys worth a block of a cluster
+BLOCKS_PER_CARD = 792       # six blocks on each of an H100's 132 SMs
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FN = None
 
@@ -43,6 +48,21 @@ def paged_decode_ok(head_dim: int, dtype: torch.dtype,
     return (dtype in _DTYPE_CODES
             and pool_dtype in (None, dtype, torch.int8)
             and head_dim % 8 == 0 and 8 <= head_dim <= MAX_HEAD_DIM)
+
+
+def paged_decode_splits(context: int, heads: int, batch: int) -> int:
+    """Blocks per (head, sequence, query group) of the decode kernel, 1 to
+    ``MAX_SPLITS``: one per ``KEYS_PER_SPLIT`` keys of ``context`` (the
+    longest visible context of the batch; the wrapper passes its window,
+    block table columns x block size, which the host knows without
+    reading ``pos``), and no more than the ``heads x batch`` clusters fit
+    in ``BLOCKS_PER_CARD``: past that the blocks queue and each split
+    adds only its combine. ``chip_smoke.py`` (``time_paged_splits``)
+    times every count against this rule on the card for a single-token
+    decode (batches 1, 8 and 32, windows of 128 to 1024 keys)."""
+    by_keys = -(-int(context) // KEYS_PER_SPLIT)
+    by_card = BLOCKS_PER_CARD // max(1, int(heads) * int(batch))
+    return max(1, min(MAX_SPLITS, by_keys, by_card))
 
 
 def dequantized(pool: torch.Tensor, scale: Optional[torch.Tensor],
@@ -90,7 +110,8 @@ def _kernel():
         lib = build.load("paged_attention")
         fn = lib.paged_decode_attention_fwd
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = lib.paged_decode_attention_error_string
         err.argtypes = [ctypes.c_int]
@@ -184,6 +205,19 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     b, s, h, d = q.shape
     check_pool_operands("paged_decode_attention", q, k_pool, v_pool,
                         k_scale, v_scale, (block_table, b), pos, block_size)
+    splits = paged_decode_splits(block_table.shape[1] * block_size, h, b)
+    out = _launch(q, k_pool, v_pool, k_scale, v_scale, block_table, pos,
+                  block_size, softmax_scale, splits)
+    paged_decode_attention.launches += 1
+    return out
+
+
+def _launch(q, k_pool, v_pool, k_scale, v_scale, block_table, pos,
+            block_size: int, softmax_scale: Optional[float],
+            splits: int) -> torch.Tensor:
+    """One launch of the kernel with ``splits`` blocks per cluster, on
+    operands :func:`check_pool_operands` accepted."""
+    b, s, h, d = q.shape
     scale = (softmax_scale if softmax_scale is not None
              else 1.0 / (d ** 0.5))
     out = torch.empty_like(q)
@@ -196,11 +230,10 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                 v_scale.data_ptr() if int8 else None,
                 block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
                 b, s, h, d, block_size, block_table.shape[1], float(scale),
-                _DTYPE_CODES[q.dtype], int(int8), stream)
+                _DTYPE_CODES[q.dtype], int(int8), int(splits), stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"{err(rc).decode()} (cudaError {rc})")
-    paged_decode_attention.launches += 1
     return out
 
 

@@ -1,17 +1,18 @@
 """The tensor-core flash kernels' route and their one numerical choice
 (deepspeed_tpu_torch).
 
-``csrc/flash_attention_tc.cu`` (the forward and dk/dv for bfloat16 and
-float16) runs only on the card, where ``chip_smoke.py`` holds it against
-the plain versions. Here: which dtypes and head dims ``_route`` sends to
-it, that its wrappers refuse the rest, and a plain PyTorch model of its
-arithmetic: the inputs are exact in 16 bits, so their products are exact
-in fp32; p (in p.V and in dv) and ds (in dk) are fp32, and the kernel
-splits each into two 16-bit terms, hi = T(x) and lo = T(x - hi), whose
-products it sums in fp32. The model, on the same numpy-made inputs as the
-JAX kernel (``interpret=True``, fp32) and the port's fp32 plain versions,
-stays within 1e-5 of the reference's largest value; one rounding of p or
-ds to 16 bits does not, which is why the kernel pays for the second term.
+``csrc/flash_attention_tc.cu`` (the forward, dq and dk/dv for bfloat16
+and float16) runs only on the card, where ``chip_smoke.py`` holds it
+against the plain versions. Here: which dtypes and head dims ``_route``
+sends to it (dq exactly as dk/dv), that its wrappers refuse the rest, and
+a plain PyTorch model of its arithmetic: the inputs are exact in 16 bits,
+so their products are exact in fp32; p (in p.V and in dv) and ds (in dq
+and dk) are fp32, and the kernel splits each into two 16-bit terms, hi =
+T(x) and lo = T(x - hi), whose products it sums in fp32. The model, on
+the same numpy-made inputs as the JAX kernel (``interpret=True``, fp32)
+and the port's fp32 plain versions, stays within 1e-5 of the reference's
+largest value, with and without dropout; one rounding of p or ds to 16
+bits does not, which is why the kernel pays for the second term.
 """
 
 import jax
@@ -130,3 +131,119 @@ def test_split_operand_product_matches_jax(dtype):
             assert max(errs) <= REL, (n, errs)
         else:
             assert min(errs) > REL, (n, errs)
+
+
+ROUTES = [(torch.bfloat16, 64, "tc"), (torch.float16, 64, "tc"),
+          (torch.bfloat16, 8, "tc"), (torch.float16, 72, "tc"),
+          (torch.bfloat16, 128, "tc"), (torch.float16, 128, "tc"),
+          (torch.float32, 64, "fma"), (torch.float32, 128, "fma"),
+          (torch.float32, 256, "fma"), (torch.bfloat16, 136, "fma"),
+          (torch.float16, 256, "fma")]
+
+
+@pytest.mark.parametrize("dtype,head_dim,route", ROUTES)
+def test_dq_routes_like_dkv(dtype, head_dim, route, monkeypatch):
+    """``flash_attention_bwd_dq`` launches the kernel of the library that
+    ``flash_attention_bwd_dkv`` launches, and counts it in the routed
+    wrapper's ``.launches`` (the launches are recorded, not run: the
+    operands are meta tensors)."""
+    launched = []
+    monkeypatch.setattr(fa, "_launch_dq",
+                        lambda name, *a: launched.append(("dq", name)))
+    monkeypatch.setattr(fa, "_launch_dkv",
+                        lambda name, *a: launched.append(("dkv", name))
+                        or (None, None))
+    wrappers = (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dq_tc,
+                fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dkv_tc)
+    for w in wrappers:
+        monkeypatch.setattr(w, "launches", 0)
+    q = torch.empty(1, 8, 1, head_dim, dtype=dtype, device="meta")
+    lse = torch.empty(1, 1, 8, device="meta")
+    fa.flash_attention_bwd_dq(q, q, q, q, None, lse, lse, True, 0.125)
+    fa.flash_attention_bwd_dkv(q, q, q, q, None, lse, lse, True, 0.125)
+    lib = "flash_attention_tc" if route == "tc" else "flash_attention"
+    assert launched == [("dq", lib), ("dkv", lib)]
+    tc = route == "tc"
+    assert [w.launches for w in wrappers] == [int(not tc), int(tc),
+                                              int(not tc), int(tc)]
+
+
+@pytest.mark.parametrize("dtype,head_dim", [(torch.float32, 64),
+                                            (torch.float16, 256),
+                                            (torch.bfloat16, 136)])
+def test_dq_tc_wrapper_refuses_the_fma_route(dtype, head_dim):
+    """The tensor-core dq wrapper raises, before any launch, for what the
+    FMA kernel takes; it never falls back to it."""
+    q = torch.empty(1, 8, 1, head_dim, dtype=dtype, device="meta")
+    lse = torch.empty(1, 1, 8, device="meta")
+    before = fa.flash_attention_bwd_dq_tc.launches
+    with pytest.raises(ValueError, match="tensor-core flash kernels"):
+        fa.flash_attention_bwd_dq_tc(q, q, q, q, None, lse, lse, True,
+                                     0.125)
+    assert fa.flash_attention_bwd_dq_tc.launches == before
+
+
+def _seed_of(key) -> int:
+    kd = np.asarray(jax.random.key_data(key)).astype(np.uint32).ravel()
+    return int(kd[0] ^ (kd[-1] << np.uint32(1)))
+
+
+def _dq_model(q, k, v, do, mask, out, scale, dtype, n, rate, seed):
+    """The dq kernel's arithmetic in plain PyTorch (causal): lse of the
+    fp32 scores of 16-bit-exact inputs and delta = rowsum(dO * out) as
+    its caller gives them; s = q.k^T and dp = dO.v^T summed in fp32, dp
+    dropped out, ds = p (dp - delta) in fp32, and dq = scale * ds.k with
+    ds in ``n`` 16-bit terms."""
+    sq, sk = q.shape[1], k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    keep = torch.ones(sq, sk, dtype=torch.bool).tril(sk - sq)
+    s = s.masked_fill(~keep, float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    ls = (torch.exp(s - m) * mask[:, None, None, :]).sum(-1, keepdim=True)
+    lse = m + torch.log(ls.clamp_min(1e-30))
+    delta = (do * out).sum(-1).transpose(1, 2)[..., None]
+    p = torch.exp(s - lse).masked_fill(~keep, 0.0) * mask[:, None, None, :]
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    if rate:
+        kept = fa._keep_bhqk(seed, q.shape[0], q.shape[2], sq, sk, rate,
+                             "cpu")
+        dp = torch.where(kept, dp * (1.0 / (1.0 - rate)), 0.0)
+    ds = p * (dp - delta)
+    return torch.einsum("bhqk,bkhd->bqhd", _terms(ds, dtype, n), k) * scale
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_dq_split_operand_product_matches_jax(dtype, rate):
+    """The dq model with ds in two 16-bit terms against the JAX
+    ``_bwd_dq_kernel`` (interpret, fp32, through ``jax.grad``): within
+    1e-5 of its largest |dq|, at dropout 0 and 0.1; with one term, not."""
+    rng = np.random.default_rng(23 + int(rate * 10))
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(B, S, H, D))
+                                    .astype(np.float32)).to(dtype).float()
+                   for _ in range(4))
+    mask = np.ones((B, S), np.float32)
+    mask[1, 90:] = 0.0
+    scale = 1.0 / D ** 0.5
+    key = jax.random.PRNGKey(5)
+
+    def f(q):
+        out = jax_flash_attention(
+            q, jnp.asarray(k.numpy()), jnp.asarray(v.numpy()), causal=True,
+            kv_mask=jnp.asarray(mask), block_q=64, block_k=64,
+            dropout_rate=rate, dropout_rng=key if rate else None,
+            interpret=True)
+        return jnp.sum(out * jnp.asarray(do.numpy())), out
+
+    (_, out), dq = jax.value_and_grad(f, has_aux=True)(jnp.asarray(q.numpy()))
+    want = np.asarray(dq)
+    out = torch.from_numpy(np.array(out))
+    seed = _seed_of(key) if rate else None
+    for n, within in ((2, True), (1, False)):
+        got = _dq_model(q, k, v, do, torch.from_numpy(mask), out, scale,
+                        dtype, n, rate, seed)
+        err = float(np.abs(got.numpy() - want).max() / np.abs(want).max())
+        if within:
+            assert err <= REL, (n, err)
+        else:
+            assert err > REL, (n, err)
