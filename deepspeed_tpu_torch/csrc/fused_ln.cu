@@ -1,5 +1,11 @@
 // Fused LayerNorm + projection, forward and backward, for Hopper (sm_90a).
 //
+// The route of float32, and of bf16 and fp16 at D above TC_MAX_D (1664):
+// ops/transformer/fused.py:_route sends bf16 and fp16 up to that width to
+// the wgmma + TMA kernels of csrc/fused_ln_tc.cu. This file's 16-bit
+// mma.sync path stays for the wider D, and chip_smoke.py times it as the
+// first version on the 16-bit route's inputs.
+//
 // Replaces the two Pallas TPU kernels of deepspeed_tpu/ops/transformer/
 // fused.py: _fwd_kernel (forward) and _bwd_kernel (backward). With x
 // [n, D], gamma and beta [D], W [F, D] (torch's nn.Linear layout, read in

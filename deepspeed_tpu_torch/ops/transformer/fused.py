@@ -10,11 +10,16 @@ dtype. The backward recomputes the LayerNorm (and under GELU the
 pre-activation) from what the forward saved, ``(x, gamma, beta, w,
 bias)``, as the JAX VJP does.
 
-- On CUDA tensors, :func:`ln_matmul` runs the Hopper kernels of
-  ``csrc/fused_ln.cu`` (built at first use) through an
-  ``autograd.Function``: :func:`ln_matmul_fwd`, then in the backward
-  :func:`ln_matmul_bwd`. It launches them or raises; it never falls back
-  to the plain versions.
+- On CUDA tensors, :func:`ln_matmul` runs Hopper kernels (built at first
+  use) through an ``autograd.Function``: :func:`ln_matmul_fwd`, then in
+  the backward :func:`ln_matmul_bwd`. :func:`_route` picks the kernels of
+  both: bfloat16 and float16 with D up to ``TC_MAX_D`` run the wgmma + TMA
+  kernels of ``csrc/fused_ln_tc.cu`` (:func:`ln_matmul_fwd_tc`: one
+  kernel a call; :func:`ln_matmul_bwd_tc`: five kernels a call under
+  GELU, six without); float32, and 16-bit D above ``TC_MAX_D``, run
+  ``csrc/fused_ln.cu`` (fp32 FMAs, 16-bit ``mma.sync``: two kernels a
+  forward call, six a backward call). It launches them or raises; it
+  never falls back to the plain versions or from one kernel to another.
 - On CPU tensors the same Function runs :func:`ln_matmul_reference` and
   :func:`ln_matmul_bwd_reference`, the plain PyTorch versions that the CPU
   tests hold against the JAX kernels and ``chip_smoke.py`` holds the CUDA
@@ -22,10 +27,15 @@ bias)``, as the JAX VJP does.
   and rounding points: ``dy`` rounded to ``w``'s dtype before both
   products, ``dbias`` summed from the fp32 ``dy``.
 
-Each kernel wrapper counts its launches in ``.launches``. The JAX
-package's ``LNParams`` / ``DenseParams`` (flax shadow modules that keep
-the parameter tree of the unfused model) have no counterpart: the port's
-GPT passes its ``nn.LayerNorm`` and ``nn.Linear`` tensors.
+Each route counts its calls in its own wrappers' ``.launches``, one per
+call whatever the kernels a call runs: ``csrc/fused_ln.cu``'s in
+``ln_matmul_fwd`` and ``ln_matmul_bwd``, ``csrc/fused_ln_tc.cu``'s in
+``ln_matmul_fwd_tc`` and ``ln_matmul_bwd_tc``. A training step of
+``make_gpt("gpt2", fused_ln=True)`` in bf16 or fp16 counts 2 sites x 12
+layers x GAS in each ``_tc`` wrapper and 0 in the others.
+The JAX package's ``LNParams`` / ``DenseParams`` (flax shadow modules that
+keep the parameter tree of the unfused model) have no counterpart: the
+port's GPT passes its ``nn.LayerNorm`` and ``nn.Linear`` tensors.
 """
 
 import ctypes
@@ -37,13 +47,32 @@ from deepspeed_tpu_torch.config.config import not_yet_ported
 from deepspeed_tpu_torch.ops import build
 
 __all__ = ["ln_matmul", "ln_matmul_ok", "ln_matmul_reference",
-           "ln_matmul_bwd_reference", "ln_matmul_fwd", "ln_matmul_bwd"]
+           "ln_matmul_bwd_reference", "ln_matmul_fwd", "ln_matmul_bwd",
+           "ln_matmul_fwd_tc", "ln_matmul_bwd_tc"]
 
 _SQRT_2_OVER_PI = 0.7978845608028654
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _PARAM_CODES = _DTYPE_CODES
 MAX_COL_TILES = 65535            # the grid's second dimension, 128 a tile
-_FN = None
+# The widest D the wgmma kernels take: a forward block keeps a panel of
+# 64 normalised rows in shared memory (128 D bytes) beside at least two
+# 8 KB stages of W and 136 bytes of barriers, within the 232,448 bytes a
+# block may use on an H100: 128 D + 16,520 <= 232,448 holds up to D =
+# 1664 (a multiple of 64), so every GPT-2 width (768, 1024, 1280, 1600)
+# takes them. csrc/fused_ln_tc.cu holds the same constant, TC_MAX_D, and
+# refuses a wider D; tests/test_torch_fused_ln_tc.py holds the two equal.
+TC_MAX_D = 1664
+_FN = {}
+
+
+def _route(dtype: torch.dtype, d: int) -> str:
+    """The library that computes #6 and #7 on CUDA: ``"fused_ln_tc"``
+    (wgmma + TMA, ``csrc/fused_ln_tc.cu``) for bfloat16 and float16 with D
+    a multiple of 8 up to ``TC_MAX_D``; ``"fused_ln"``
+    (``csrc/fused_ln.cu``) for everything else the kernels take: float32,
+    and 16-bit D above ``TC_MAX_D``."""
+    return ("fused_ln_tc" if dtype in (torch.bfloat16, torch.float16)
+            and d % 8 == 0 and 8 <= d <= TC_MAX_D else "fused_ln")
 
 
 def _gelu_tanh(x):
@@ -120,33 +149,35 @@ def ln_matmul_bwd_reference(x, gamma, beta, w, bias, dy, *,
             g.sum(0).to(bias.dtype))
 
 
-def _kernel():
-    global _FN
-    if _FN is None:
-        lib = build.load("fused_ln")
+def _kernel(name: str = "fused_ln"):
+    """The ctypes functions of ``csrc/<name>.cu`` (``fused_ln`` or
+    ``fused_ln_tc``, one C interface): forward, backward, the backward's
+    workspace size and the error string, built and loaded at first use."""
+    if name not in _FN:
+        lib = build.load(name)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fwd = lib.fused_ln_fwd
+        fwd = getattr(lib, f"{name}_fwd")
         fwd.argtypes = [ptr, ptr, ptr, i32, ptr, ptr, i32, ptr, ptr, i32,
                         i32, i32, f32, i32, i32, ptr]
-        bwd = lib.fused_ln_bwd
+        bwd = getattr(lib, f"{name}_bwd")
         bwd.argtypes = ([ptr, ptr, ptr, i32, ptr, ptr, i32] + [ptr] * 7
                         + [i32, i32, i32, f32, i32, i32, ptr])
         for fn in (fwd, bwd):
             fn.restype = i32
-        work = lib.fused_ln_bwd_workspace
+        work = getattr(lib, f"{name}_bwd_workspace")
         work.argtypes = [i32] * 5
         work.restype = ctypes.c_longlong
-        err = lib.fused_ln_error_string
+        err = getattr(lib, f"{name}_error_string")
         err.argtypes = [i32]
         err.restype = ctypes.c_char_p
-        _FN = (fwd, bwd, work, err)
-    return _FN
+        _FN[name] = (fwd, bwd, work, err)
+    return _FN[name]
 
 
-def _check(rc, what):
+def _check(rc, what, name="fused_ln"):
     if rc != 0:
-        err = _kernel()[3]
-        raise RuntimeError(f"fused_ln {what} kernel launch failed: "
+        err = _kernel(name)[3]
+        raise RuntimeError(f"{name} {what} kernel launch failed: "
                            f"{err(rc).decode()} (cudaError {rc})")
 
 
@@ -158,9 +189,9 @@ def _dense(t: torch.Tensor) -> torch.Tensor:
 
 def _prepare(x, gamma, beta, w, bias):
     """Checks the kernels rely on; returns the inputs as they read them:
-    x, w, gamma and beta contiguous and 16-byte aligned (the kernels read
-    them in vectors of 8), bias contiguous, beta in gamma's dtype. A dtype
-    the kernels do not take raises the port's "not yet ported" error."""
+    x, w, gamma, beta and bias contiguous and 16-byte aligned (the kernels
+    read them in vectors of 8), beta in gamma's dtype. A dtype the kernels
+    do not take raises the port's "not yet ported" error."""
     n, d = x.shape
     f = w.shape[0]
     if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
@@ -179,39 +210,34 @@ def _prepare(x, gamma, beta, w, bias):
             raise ValueError(f"fused_ln operands on {t.device} and "
                              f"{x.device}")
     return (_dense(x), _dense(gamma), _dense(beta.to(gamma.dtype)),
-            _dense(w), bias.contiguous())
+            _dense(w), _dense(bias))
 
 
-def ln_matmul_fwd(x, gamma, beta, w, bias, *, eps: float = 1e-5,
-                  activation: Optional[str] = None) -> torch.Tensor:
-    """Launch the forward kernel on x [n, D] (inputs as :func:`_prepare`
-    returns them); returns y [n, F] in x's dtype. One call is one launch
-    of the forward, whose two kernels (the rows' statistics, then the
-    product) run on the current stream."""
+def _launch_fwd(name, x, gamma, beta, w, bias, eps, activation):
+    """One call of ``csrc/<name>.cu``'s forward on inputs as
+    :func:`_prepare` returns them; y [n, F] in x's dtype."""
     n, d = x.shape
     f = w.shape[0]
     y = torch.empty((n, f), dtype=x.dtype, device=x.device)
-    stats = torch.empty(2 * n, dtype=torch.float32, device=x.device)
-    fwd = _kernel()[0]
+    # fused_ln.cu's row statistics; the wgmma forward computes its own
+    stats = (torch.empty(2 * n, dtype=torch.float32, device=x.device)
+             if name == "fused_ln" else None)
+    fwd = _kernel(name)[0]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fwd(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                  _PARAM_CODES[gamma.dtype], w.data_ptr(), bias.data_ptr(),
-                 _PARAM_CODES[bias.dtype], y.data_ptr(), stats.data_ptr(), n,
-                 d, f, float(eps), int(activation == "gelu"),
+                 _PARAM_CODES[bias.dtype], y.data_ptr(),
+                 None if stats is None else stats.data_ptr(), n, d, f,
+                 float(eps), int(activation == "gelu"),
                  _DTYPE_CODES[x.dtype], stream)
-    _check(rc, "forward")
-    ln_matmul_fwd.launches += 1
+    _check(rc, "forward", name)
     return y
 
 
-def ln_matmul_bwd(x, gamma, beta, w, bias, dy, *, eps: float = 1e-5,
-                  activation: Optional[str] = None):
-    """Launch the backward kernels on x [n, D] and dy [n, F] (dy in x's
-    dtype); returns ``(dx, dgamma, dbeta, dw, dbias)`` in the dtypes of
-    :func:`ln_matmul_bwd_reference`. One call is one launch of the
-    backward, whose six kernels run on the current stream; their scratch
-    comes from PyTorch's caching allocator."""
+def _launch_bwd(name, x, gamma, beta, w, bias, dy, eps, activation):
+    """One call of ``csrc/<name>.cu``'s backward; ``(dx, dgamma, dbeta,
+    dw, dbias)`` in the dtypes of :func:`ln_matmul_bwd_reference`."""
     n, d = x.shape
     f = w.shape[0]
     if dy.dtype != x.dtype or tuple(dy.shape) != (n, f):
@@ -219,7 +245,7 @@ def ln_matmul_bwd(x, gamma, beta, w, bias, dy, *, eps: float = 1e-5,
                          f"{(n, f)} {x.dtype}")
     dy = _dense(dy)
     gelu = int(activation == "gelu")
-    _fwd, bwd, work, _err = _kernel()
+    _fwd, bwd, work, _err = _kernel(name)
     code = _DTYPE_CODES[x.dtype]
     ws = torch.empty(work(n, d, f, gelu, code), dtype=torch.uint8,
                      device=x.device)
@@ -236,13 +262,81 @@ def ln_matmul_bwd(x, gamma, beta, w, bias, dy, *, eps: float = 1e-5,
                  dw.data_ptr(), dbias.data_ptr(), dgamma.data_ptr(),
                  dbeta.data_ptr(), ws.data_ptr(), n, d, f, float(eps), gelu,
                  code, stream)
-    _check(rc, "backward")
-    ln_matmul_bwd.launches += 1
+    _check(rc, "backward", name)
     return dx, dgamma, dbeta, dw, dbias
 
 
+def _require_tc(x):
+    if _route(x.dtype, x.shape[-1]) != "fused_ln_tc":
+        raise ValueError(
+            f"the wgmma fused_ln kernels take bfloat16 or float16 with D a "
+            f"multiple of 8 up to {TC_MAX_D}; got {x.dtype}, D "
+            f"{x.shape[-1]}")
+
+
+def ln_matmul_fwd(x, gamma, beta, w, bias, *, eps: float = 1e-5,
+                  activation: Optional[str] = None) -> torch.Tensor:
+    """Launch the forward :func:`_route` picks on x [n, D] (inputs as
+    :func:`_prepare` returns them); returns y [n, F] in x's dtype.
+    ``csrc/fused_ln.cu``'s forward (two kernels: the rows' statistics,
+    then the product) counts one launch here per call; the wgmma forward
+    (one kernel) counts in :func:`ln_matmul_fwd_tc`."""
+    if _route(x.dtype, x.shape[-1]) == "fused_ln_tc":
+        return ln_matmul_fwd_tc(x, gamma, beta, w, bias, eps=eps,
+                                activation=activation)
+    y = _launch_fwd("fused_ln", x, gamma, beta, w, bias, eps, activation)
+    ln_matmul_fwd.launches += 1
+    return y
+
+
+def ln_matmul_fwd_tc(x, gamma, beta, w, bias, *, eps: float = 1e-5,
+                     activation: Optional[str] = None) -> torch.Tensor:
+    """The wgmma + TMA forward of ``csrc/fused_ln_tc.cu`` (bfloat16 or
+    float16, D up to ``TC_MAX_D``; anything else raises): one kernel that
+    normalises a panel of rows once and walks W's column tiles against
+    it. One call is one launch."""
+    _require_tc(x)
+    y = _launch_fwd("fused_ln_tc", x, gamma, beta, w, bias, eps, activation)
+    ln_matmul_fwd_tc.launches += 1
+    return y
+
+
+def ln_matmul_bwd(x, gamma, beta, w, bias, dy, *, eps: float = 1e-5,
+                  activation: Optional[str] = None):
+    """Launch the backward :func:`_route` picks on x [n, D] and dy [n, F]
+    (dy in x's dtype); returns ``(dx, dgamma, dbeta, dw, dbias)`` in the
+    dtypes of :func:`ln_matmul_bwd_reference`. Its kernels run on the
+    current stream, with scratch from PyTorch's caching allocator:
+    ``csrc/fused_ln.cu``'s six count one launch here per call, the wgmma
+    route's in :func:`ln_matmul_bwd_tc`."""
+    if _route(x.dtype, x.shape[-1]) == "fused_ln_tc":
+        return ln_matmul_bwd_tc(x, gamma, beta, w, bias, dy, eps=eps,
+                                activation=activation)
+    grads = _launch_bwd("fused_ln", x, gamma, beta, w, bias, dy, eps,
+                        activation)
+    ln_matmul_bwd.launches += 1
+    return grads
+
+
+def ln_matmul_bwd_tc(x, gamma, beta, w, bias, dy, *, eps: float = 1e-5,
+                     activation: Optional[str] = None):
+    """The backward of ``csrc/fused_ln_tc.cu`` (bfloat16 or float16, D up
+    to ``TC_MAX_D``; anything else raises): T(ln) once into the
+    workspace (by the GELU recompute's kernel, or without GELU a rows
+    kernel), dln = dyc W and dW = dyc^T T(ln) on wgmma, the row pass and
+    the fixed-order sums; five kernels under GELU, six without, one
+    launch counted per call."""
+    _require_tc(x)
+    grads = _launch_bwd("fused_ln_tc", x, gamma, beta, w, bias, dy, eps,
+                        activation)
+    ln_matmul_bwd_tc.launches += 1
+    return grads
+
+
 ln_matmul_fwd.launches = 0
+ln_matmul_fwd_tc.launches = 0
 ln_matmul_bwd.launches = 0
+ln_matmul_bwd_tc.launches = 0
 
 
 class _LNMatmul(torch.autograd.Function):
