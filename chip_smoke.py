@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # everything, one card
     python3 chip_smoke.py --only kernels   # stop after phase 2
+    python3 chip_smoke.py --only sparse    # the build, then phase 2d only
 
 1. Device: requires CUDA, prints the card's name and power limit, builds
    every kernel from the sources in this checkout (one ``nvcc`` per
@@ -49,13 +50,25 @@
    - fused Adam, bit for bit, over GPT-2's 148 parameter tensors (with
      the bf16 copy of the new params that the bf16 training step uses);
    - block-sparse attention forward, dq and dk/dv (kernels #8-#10) at
-     (a) [1, 4096, 12, 64], BigBird block 256, causal, fp32 and bf16,
-     (b) [2, 1024, 12, 64], ``fixed`` block 16, bidirectional, with a key
-     mask whose second batch row is all padding (o, dq, dk, dv exactly 0
-     there, lse -1e30), fp32 and bf16, and (c) the path's shape [1, 16384,
-     12, 64], bf16; each kernel and (a), (b) the whole autograd path, with
-     flash's tolerances, lse to 1e-5; timed at (c) beside the plain
-     version, SDPA with the layout-expanded mask and the bound;
+     (a) [1, 4096, 12, 64], BigBird block 256, causal, fp32, bf16 and
+     fp16, (b) [2, 1024, 12, 64], ``fixed`` block 16, bidirectional, with
+     a key mask whose second batch row is all padding (o, dq, dk, dv
+     exactly 0 there, lse -1e30), fp32 and bf16, (c) the path's shape [1,
+     16384, 12, 64], bf16 and fp16, (d) [2, 2048, 12, 64], BigBird block
+     64, bidirectional, with (b)'s key mask, bf16 and fp16, (e) [2, 2048,
+     4, 128], BigBird block 128, causal, with the key mask, bf16 and fp16,
+     and (f) [1, 1024, 4, 72], ``fixed`` block 64, bf16; (d)-(f) also at
+     the split cap 4 (where dq and dk/dv both split); dq and dk/dv on the
+     route ``sparse_attention._route`` picks (16 bits at blocks of 64 and
+     more: the tensor-core kernels of ``csrc/sparse_attention_tc.cu``;
+     fp32 and block 16: ``csrc/sparse_attention.cu``; each call counted
+     by its route's wrappers only); each kernel and, but at (c), the
+     whole autograd path, with flash's tolerances, lse to 1e-5, every
+     output bit-equal over two launches; timed at (c) in bf16, the
+     tensor-core dq and dk/dv beside the FMA kernels on the same inputs,
+     the plain versions, SDPA with the layout-expanded mask and the bound,
+     and the tensor-core pair at every split cap of SPARSE_SWEEP_CAPS
+     (items, split tiles, pieces and longest walk printed);
    - the fused LayerNorm + projection forward and backward (kernels #6,
      #7) on the route ``fused._route`` picks (bf16 and fp16 up to D =
      1664: the wgmma kernels of ``csrc/fused_ln_tc.cu``; fp32 and wider
@@ -99,13 +112,15 @@
 5. Long-sequence training: ``initialize`` -> ``train_batch`` on
    full-width GPT-2 at seq 16384 with ``bench.py:bench_gpt2_long(sparse=
    True)``'s configuration (BigBird block 256 through the
-   ``sparse_attention`` block) plus ``optimizer.fused_update``: #8-#10
-   launch 48 times each per step, fused Adam once, the flash kernels and
-   every plain version never, the loss falls; step time, tokens/s, peak
-   memory and a profiled step. Then the same configuration with dense
-   flash attention (1 + 2 steps) for the sparse/dense tokens/s ratio, and
-   in fp32 at 2 layers and seq 4096 the kernels' path against the plain
-   path (``impl: "xla"``), held as in phase 4.
+   ``sparse_attention`` block) plus ``optimizer.fused_update``: #8 and the
+   tensor-core dq and dk/dv launch 48 times each per step, fused Adam
+   once, the FMA dq and dk/dv, the flash kernels and every plain version
+   never, the loss falls; step time, tokens/s, peak memory and a profiled
+   step. Then the same configuration with dense flash attention (1 + 2
+   steps) for the sparse/dense tokens/s ratio, both printed beside the
+   same step's reading on the FMA dq and dk/dv, and in fp32 at 2 layers
+   and seq 4096 the kernels' path (#8-#10 on FMAs) against the plain path
+   (``impl: "xla"``), held as in phase 4.
 6. Training with the fused LayerNorm + projection sites: phase 4's
    configuration on ``make_gpt("gpt2", fused_ln=True)``: #6 and #7 launch
    192 times each per step (2 sites x 12 layers x GAS 8) through the
@@ -137,7 +152,11 @@ Any failure exits non-zero. The last stdout line is
 counted over the fp32 comparison of phase 4 (and of phase 7 at dropout),
 every count set to 0 just before it; so are ``fused_ln.cu``'s rows
 (``fused_ln_matmul_fwd``, ``fused_ln_matmul_bwd``) over phase 6's fp32
-comparison, while the ``_tc`` rows count phase 6 and its fp16 run.
+comparison, while the ``_tc`` rows count phase 6 and its fp16 run. The
+FMA sparse dq and dk/dv rows (``sparse_attention_bwd_dq``,
+``sparse_attention_bwd_dkv``) count phase 5's fp32 comparison and are
+timed on the bf16 inputs of their tensor-core twins (their first
+version's route), which count phase 5's long steps with #8.
 """
 
 import json
@@ -1394,13 +1413,39 @@ SPARSE_LONG = {"mode": "bigbird", "block": 256, "num_random_blocks": 1,
                "attention": "unidirectional"}
 SPARSE_SEQ = 16384
 SPARSE_LSE_TOL = 1e-5            # fp32 lse, from the same fp32 scores
-# (case, B, S, layout block, causal, key mask): (a) the path's layout at
-# seq 4096, (b) the reference's default block 16, bidirectional, with a
-# key mask whose second batch row is all padding (rows with no visible
-# key), (c) the path's own shape.
-SPARSE_CASES = (("a", 1, 4096, SPARSE_LONG, True, False),
-                ("b", 2, 1024, {"mode": "fixed", "block": 16}, False, True),
-                ("c", 1, SPARSE_SEQ, SPARSE_LONG, True, False))
+# BigBird at block 64, bidirectional: its global rows and columns walk
+# every block, so dq and dk/dv both split
+SPARSE_BIDIR = {"mode": "bigbird", "block": 64, "num_random_blocks": 1,
+                "num_sliding_window_blocks": 3, "num_global_blocks": 1,
+                "attention": "bidirectional"}
+# (case, B, S, H, D, layout, causal, key mask, dtypes, caps): (a) the
+# path's layout at seq 4096, (b) the reference's default block 16,
+# bidirectional, with a key mask whose second batch row is all padding
+# (rows with no visible key), (c) the path's own shape, (d) SPARSE_BIDIR
+# with (b)'s key mask: the tensor-core route's key-mask and non-causal
+# branches, (e) and (f) its other head dims: D = 128 (dq reads q and dO
+# from shared memory, dk/dv streams 32-query steps) causal with the key
+# mask, and D = 72 (zero-padded to 80). 16 bits take the tensor-core dq
+# and dk/dv at blocks of 64 and more, (b)'s the FMA kernels. ``caps``:
+# split caps the tensor-core kernels also run at (beside SPLIT_CAP).
+SPARSE_SMALL_CAP = 4             # every walk longer than 4 tiles splits
+SPARSE_CASES = (
+    ("a", 1, 4096, 12, 64, SPARSE_LONG, True, False,
+     ("float32", "bfloat16", "float16"), ()),
+    ("b", 2, 1024, 12, 64, {"mode": "fixed", "block": 16}, False, True,
+     ("float32", "bfloat16"), ()),
+    ("c", 1, SPARSE_SEQ, 12, 64, SPARSE_LONG, True, False,
+     ("bfloat16", "float16"), ()),
+    ("d", 2, 2048, 12, 64, SPARSE_BIDIR, False, True,
+     ("bfloat16", "float16"), (SPARSE_SMALL_CAP,)),
+    ("e", 2, 2048, 4, 128, dict(SPARSE_LONG, block=128), True, True,
+     ("bfloat16", "float16"), (SPARSE_SMALL_CAP,)),
+    ("f", 1, 1024, 4, 72, {"mode": "fixed", "block": 64}, False, False,
+     ("bfloat16",), (SPARSE_SMALL_CAP,)))
+SPARSE_SWEEP_CAPS = (4, 8, 16, 32, 64, 128, None)   # None: no split
+SPARSE_TC_NAMES = ("sparse_attention_bwd_dq_tc",
+                   "sparse_attention_bwd_dkv_tc")
+SPARSE_FMA_NAMES = ("sparse_attention_bwd_dq", "sparse_attention_bwd_dkv")
 
 
 def sparse_module():
@@ -1462,25 +1507,61 @@ def sparse_plain_grads(torch, sp, q, k, v, dout, mask, plan, causal, scale):
     return out, torch.cat([t.reshape(b, s, -1) for t in (dq, dk, dv)], -1)
 
 
-def check_sparse_attention(torch, reports):
-    """Kernels #8-#10 against their plain versions at cases (a) and (b)
-    in fp32 and bf16, and (c) in bf16; each kernel and the whole autograd
-    path, with flash's tolerances. Then timing at (c), the path's shape."""
-    import torch.nn.functional as F
+def same_bits(torch, a, b):
+    """Bit-equality of two tensors of one floating dtype."""
+    view = torch.int32 if a.element_size() == 4 else torch.int16
+    return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
 
+
+def check_sparse_attention(torch, reports):
+    """Kernels #8-#10 against their plain versions in SPARSE_CASES: each
+    kernel and, but at (c), the whole autograd path, with flash's
+    tolerances; dq and dk/dv on the route ``sparse_attention._route``
+    picks (each call counted by that route's wrappers only), (d)-(f) on
+    the tensor cores also at SPARSE_SMALL_CAP; every output bit-equal over
+    two launches. Then timing at (c), the path's shape, and the sweep of the
+    split cap (:func:`time_sparse`). ``reports``: the kernels line's rows
+    ("fwd", "dq", "dkv" for the FMA kernels, "dq_tc", "dkv_tc")."""
     sp = sparse_module()
-    h, d = 12, 64
-    scale = 1.0 / d ** 0.5
+    routes = {"fma": (sp.sparse_attention_bwd_dq, sp.sparse_attention_bwd_dkv),
+              "tc": (sp.sparse_attention_bwd_dq_tc,
+                     sp.sparse_attention_bwd_dkv_tc)}   # dq, dk/dv wrappers
     worst = {}
-    for case, b, s, block_cfg, causal, masked in SPARSE_CASES:
+
+    def hold(key, case, name, route, got, ref):
+        if not torch.isfinite(got).all():
+            fail(f"sparse {key} {case} {name}: non-finite output")
+        diff = (got.float() - ref.float()).abs()
+        err = diff.max().item()
+        rms = ref.float().pow(2).mean().sqrt().item()
+        if name == "float32":
+            rel, bad = 0.0, err > KERNEL_TOL[name]
+        else:
+            step = round_step(torch, ref, getattr(torch, name))
+            rel = ((diff - step).clamp_min(0).max().item()
+                   / max(rms, 1e-30))
+            bad = rel > FLASH_16BIT_RMS_TOL[
+                "autograd" if key.startswith("autograd") else "kernel"]
+        if bad:
+            fail(f"sparse {key} {case} {name} ({route}): max |err| {err} "
+                 f"(reference RMS {rms}); beyond one {name} step {rel} of "
+                 f"the RMS")
+        w = worst.get((key, name, route))
+        if w is None or err > w[0]:
+            worst[(key, name, route)] = (err, rms, rel)
+
+    for (case, b, s, h, d, block_cfg, causal, masked, dtypes,
+         caps) in SPARSE_CASES:
+        scale = 1.0 / d ** 0.5
         layout = sparse_layout(block_cfg, h, s)
         block = block_cfg["block"]
         plan = sp.sparse_plan(layout, block)
-        for dtype in ((torch.bfloat16,) if case == "c" else
-                      (torch.float32, torch.bfloat16)):
-            name = str(dtype).split(".")[1]
+        for name in dtypes:
+            dtype = getattr(torch, name)
+            route = sp._route(dtype, d, block)
             qkv, q, k, v, dout, mask = flash_case(
-                torch, dtype, b, s, h, d, seed=s + masked, masked=masked,
+                torch, dtype, b, s, h, d,
+                seed=s + masked if d == 64 else s + d, masked=masked,
                 dout_scale=FLASH_DOUT_SCALE[name])
             if masked:
                 mask[0, s - 100:] = False      # row 1 is all padding
@@ -1489,17 +1570,48 @@ def check_sparse_attention(torch, reports):
                 fail("sparse_attention copied an aligned strided view")
             out, lse = sp.sparse_attention_fwd(qp, kp, vp, mp, plan, causal,
                                                scale)
-            want, want_lse = sp.sparse_fwd_reference(q, k, v, mp, plan,
-                                                     causal, scale)
             delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
             args = (dout, mp, lse, delta.contiguous(), plan, causal, scale)
+            before = {r: [w.launches for w in ws] for r, ws in routes.items()}
             dq = sp.sparse_attention_bwd_dq(qp, kp, vp, *args)
             dk, dv = sp.sparse_attention_bwd_dkv(qp, kp, vp, *args)
+            grew = {r: [w.launches - n for w, n in zip(ws, before[r])]
+                    for r, ws in routes.items()}
+            if any(grew[r] != ([1, 1] if r == route else [0, 0])
+                   for r in routes):
+                fail(f"sparse {case} {name}: routed to {route}, launches "
+                     f"{grew}")
+            got = {"fwd": out, "dq": dq, "dk": dk, "dv": dv}
+            again = dict(zip(("fwd", "lse"), sp.sparse_attention_fwd(
+                qp, kp, vp, mp, plan, causal, scale)))
+            again["dq"] = sp.sparse_attention_bwd_dq(qp, kp, vp, *args)
+            again["dk"], again["dv"] = sp.sparse_attention_bwd_dkv(
+                qp, kp, vp, *args)
+            for cap in caps if route == "tc" else ():
+                for which in ("dq", "dkv"):   # both kernels split here
+                    if not plan.work(which, causal, cap).n_split:
+                        fail(f"sparse {case}: the {which} walks do not "
+                             f"split at cap {cap}")
+                tag = f" cap {cap}"
+                for sink in (got, again):
+                    sink["dq" + tag] = sp.sparse_attention_bwd_dq_tc(
+                        qp, kp, vp, *args, cap=cap)
+                    sink["dk" + tag], sink["dv" + tag] = \
+                        sp.sparse_attention_bwd_dkv_tc(qp, kp, vp, *args,
+                                                       cap=cap)
             torch.cuda.synchronize()
+            if not same_bits(torch, lse, again.pop("lse")):
+                fail(f"sparse lse {case} {name}: differs between launches")
+            for key, t in got.items():
+                if not same_bits(torch, t, again[key]):
+                    fail(f"sparse {key} {case} {name} ({route}): differs "
+                         f"between two launches")
+            want, want_lse = sp.sparse_fwd_reference(q, k, v, mp, plan,
+                                                     causal, scale)
             dq_w = sp.sparse_bwd_dq_reference(q, k, v, *args)
             dk_w, dv_w = sp.sparse_bwd_dkv_reference(q, k, v, *args)
-            pairs = {"fwd": (out, want), "dq": (dq, dq_w), "dk": (dk, dk_w),
-                     "dv": (dv, dv_w)}
+            ref = {"fwd": want, "dq": dq_w, "dk": dk_w, "dv": dv_w}
+            pairs = {key: (t, ref[key.split()[0]]) for key, t in got.items()}
             if case != "c":
                 # the whole autograd path against the plain versions' chain
                 x = qkv.detach().clone().requires_grad_()
@@ -1520,52 +1632,55 @@ def check_sparse_attention(torch, reports):
             lse_err = (lse - want_lse)[seen].abs().max().item()
             if not lse_err <= SPARSE_LSE_TOL:
                 fail(f"sparse lse {case} {name}: max |err| {lse_err}")
-            for key, (got, ref) in pairs.items():
-                if not torch.isfinite(got).all():
-                    fail(f"sparse {key} {case} {name}: non-finite output")
-                diff = (got.float() - ref.float()).abs()
-                err = diff.max().item()
-                rms = ref.float().pow(2).mean().sqrt().item()
-                if name == "float32":
-                    rel, bad = 0.0, err > KERNEL_TOL[name]
-                else:
-                    rel = ((diff - round_step(torch, ref)).clamp_min(0).max()
-                           .item() / max(rms, 1e-30))
-                    bad = rel > FLASH_16BIT_RMS_TOL[
-                        "autograd" if key.startswith("autograd") else
-                        "kernel"]
-                if bad:
-                    fail(f"sparse {key} {case} {name}: max |err| {err} "
-                         f"(reference RMS {rms}); beyond one bf16 step "
-                         f"{rel} of the RMS")
-                w = worst.get((key, name))
-                if w is None or err > w[0]:
-                    worst[(key, name)] = (err, rms, rel, lse_err)
+            if lse_err >= worst.get(("lse", name, "fma"), (0.0,))[0]:
+                worst[("lse", name, "fma")] = (lse_err, 0.0, 0.0)
+            for key, (t, r) in pairs.items():
+                hold(key, case, name, "fma" if key == "fwd" else route, t, r)
             if masked:
                 if any(t[1].abs().max().item() != 0.0
-                       for t in (out, dq, dk, dv)):
+                       for t in got.values()):
                     fail(f"sparse {case} {name}: the all-padding batch row "
                          f"is not exactly zero")
-                print(f"sparse_attention {case} {name}: batch row 1 (all "
-                      f"padding): o, dq, dk, dv exactly 0, lse -1e30")
+                print(f"sparse_attention {case} {name} ({route}): batch row "
+                      f"1 (all padding): o, {', '.join(list(got)[1:])} "
+                      f"exactly 0, lse -1e30")
             del qkv, q, k, v, dout, out, lse, want, want_lse, dq, dk, dv
-            del dq_w, dk_w, dv_w, pairs
+            del dq_w, dk_w, dv_w, pairs, got, again, ref
             torch.cuda.empty_cache()
-    for key, name in sorted(worst):
-        err, rms, rel, lse_err = worst[(key, name)]
+    print(f"sparse_attention worst errors over SPARSE_CASES ((a) "
+          f"[1,4096,12,64] bigbird-256 causal, (b) [2,1024,12,64] fixed-16 "
+          f"bidirectional with a key mask, (c) [1,16384,12,64] bigbird-256 "
+          f"causal, (d) [2,2048,12,64] bigbird-64 bidirectional with a key "
+          f"mask, (e) [2,2048,4,128] bigbird-128 causal with a key mask, "
+          f"(f) [1,1024,4,72] fixed-64 bidirectional; (d)-(f) also at cap "
+          f"{SPARSE_SMALL_CAP}), dO x 0.1 in fp32 and x 1 in 16 bits; each "
+          f"output by dtype and route:")
+    for key, name, route in sorted(worst):
+        err, rms, rel = worst[(key, name, route)]
         path = "autograd" if key.startswith("autograd") else "kernel"
-        lim = ("atol 1e-5" if name == "float32" else
-               f"beyond one bf16 step {rel:.3g} of the RMS, limit "
+        lim = (f"limit {SPARSE_LSE_TOL}" if key == "lse" else
+               "atol 1e-5" if name == "float32" else
+               f"beyond one step {rel:.3g} of the RMS, limit "
                f"{FLASH_16BIT_RMS_TOL[path]}")
-        print(f"sparse_attention {key} {name} cases (a) [1,4096,12,64] "
-              f"bigbird-256 causal, (b) [2,1024,12,64] fixed-16 "
-              f"bidirectional with a key mask, (c) [1,16384,12,64] "
-              f"bigbird-256 causal (bf16), dO x {FLASH_DOUT_SCALE[name]}: "
-              f"max |err| {err:.3g} where the reference's RMS is "
-              f"{rms:.3g} ({lim}); lse max |err| {lse_err:.3g}")
+        print(f"  {key} {name} ({route}): max |err| {err:.3g}, reference "
+              f"RMS {rms:.3g} ({lim})")
+    time_sparse(torch, sp, reports, worst)
 
-    # Timing at the path's shape, bf16, rotating over 4 layers' inputs
-    # (300 MB of q/k/v, six times the 50 MB L2) as the step does.
+
+def time_sparse(torch, sp, reports, worst):
+    """The sparse rows' times at the path's shape [1, 16384, 12, 64] bf16,
+    BigBird 256, causal, rotating over 4 layers' inputs (300 MB of q/k/v,
+    six times the 50 MB L2) as the step does, as device time: #8 and the
+    FMA dq and dk/dv (their first versions) and the tensor-core dq and
+    dk/dv on the same inputs, beside the plain versions (host-paced), SDPA
+    with the layout-expanded mask (the forward, and its whole backward for
+    the pair) and the bound. Then the tensor-core kernels at every cap of
+    SPARSE_SWEEP_CAPS: the split's items, split tiles, pieces and longest
+    walk, and their device time."""
+    import torch.nn.functional as F
+
+    h, d = 12, 64
+    scale = 1.0 / d ** 0.5
     b, s = 1, SPARSE_SEQ
     layout = sparse_layout(SPARSE_LONG, h, s)
     block = SPARSE_LONG["block"]
@@ -1584,20 +1699,21 @@ def check_sparse_attention(torch, reports):
         it["i"] = (it["i"] + 1) % len(prepped)
         return prepped[it["i"]]
 
-    def run(fn, plain):
+    def call(which, how, cap=None):
+        """One call of ``which`` ("fwd", "dq", "dkv") by ``how``: "plain",
+        "fma" or "tc" (at ``cap``)."""
         def go():
-            q, k, v, dout, m, lse, delta, pl, c, sc = nxt()
-            if fn == "fwd":
-                (sp.sparse_fwd_reference if plain else
-                 sp.sparse_attention_fwd)(q, k, v, m, pl, c, sc)
-            elif fn == "dq":
-                (sp.sparse_bwd_dq_reference if plain else
-                 sp.sparse_attention_bwd_dq)(q, k, v, dout, m, lse, delta,
-                                             pl, c, sc)
-            else:
-                (sp.sparse_bwd_dkv_reference if plain else
-                 sp.sparse_attention_bwd_dkv)(q, k, v, dout, m, lse, delta,
-                                              pl, c, sc)
+            a = nxt()
+            if which == "fwd":
+                return (sp.sparse_fwd_reference if how == "plain" else
+                        sp.sparse_attention_fwd)(*a[:3], a[4], *a[7:])
+            if how == "plain":
+                return (sp.sparse_bwd_dq_reference if which == "dq" else
+                        sp.sparse_bwd_dkv_reference)(*a)
+            if how == "fma":
+                return sp._launch_fma(which, *a)
+            return (sp.sparse_attention_bwd_dq_tc if which == "dq" else
+                    sp.sparse_attention_bwd_dkv_tc)(*a, cap=cap)
         return go
 
     # yardstick: SDPA with the layout-expanded boolean mask (one layout
@@ -1633,30 +1749,74 @@ def check_sparse_attention(torch, reports):
     torch.cuda.empty_cache()
     q0 = layers[0][1]
     npairs = sparse_pairs(layout, block, True)
-    for key, lib in (("fwd", sdpa_fwd_ms), ("dq", sdpa_bwd_ms),
-                     ("dkv", sdpa_bwd_ms)):
-        kernel_ms = device_ms(torch, run(key, False), iters=20, warmup=3)[0]
-        plain_ms = cuda_ms(run(key, True), iters=2, warmup=1)
-        nbytes, flops = sparse_bytes_flops(q0, npairs, key)
+    plain = {which: cuda_ms(call(which, "plain"), iters=2, warmup=1)
+             for which in ("fwd", "dq", "dkv")}
+    times = {}
+    for row, which, how in (("fwd", "fwd", "fma"), ("dq", "dq", "fma"),
+                            ("dkv", "dkv", "fma"), ("dq_tc", "dq", "tc"),
+                            ("dkv_tc", "dkv", "tc")):
+        times[row] = device_ms(torch, call(which, how), iters=20,
+                               warmup=3)[0]
+        lib = sdpa_fwd_ms if which == "fwd" else sdpa_bwd_ms
+        nbytes, flops = sparse_bytes_flops(q0, npairs, which)
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = flops / BF16_FLOPS
-        rep = reports[key]
-        errs = ([worst[("fwd", "bfloat16")][0]] if key == "fwd" else
-                [worst[("dq", "bfloat16")][0]] if key == "dq" else
-                [worst[("dk", "bfloat16")][0],
-                 worst[("dv", "bfloat16")][0]])
-        rep.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=lib,
+        route = "tc" if how == "tc" else "fma"
+        keys = {"fwd": ("fwd",), "dq": ("dq",), "dkv": ("dk", "dv")}[which]
+        errs = [w[0] for (k, _n, r), w in worst.items()
+                if k.split()[0] in keys and (r == route or k == "fwd")]
+        rep = reports[row]
+        rep.update(ms=times[row], plain_ms=plain[which], library_ms=lib,
                    bound_ms=max(t_bytes, t_ops) * 1e3,
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    max_abs_err=max(errs))
-        print(f"sparse_attention {key} timing bf16 B={b} S={s} H={h} D={d} "
+        extra = ""
+        if how == "tc":
+            fma_ms = times[which]
+            rep["fma_ms"] = fma_ms
+            extra = (f", the FMA kernel on the same inputs {fma_ms:.4f} ms "
+                     f"({fma_ms / times[row]:.2f}x)")
+        print(f"sparse_attention {row} timing bf16 B={b} S={s} H={h} D={d} "
               f"bigbird block {block} causal ({npairs} visible pairs, "
               f"{npairs / (h * s * (s + 1) / 2):.4f} of the causal square; "
-              f"device time): kernel {kernel_ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms (host-paced), SDPA "
-              f"with the mask {'fwd' if key == 'fwd' else 'bwd (dq+dk+dv)'} "
+              f"device time): kernel {times[row]:.4f} ms{extra}, plain "
+              f"{plain[which]:.4f} ms (host-paced), SDPA with the mask "
+              f"{'fwd' if which == 'fwd' else 'bwd (dq+dk+dv)'} "
               f"{lib:.4f} ms, bound {rep['bound_ms']:.4f} ms ({nbytes} "
               f"bytes / 3.35 TB/s, {flops} flops / 989 TFLOP/s)")
+    pair = times["dq_tc"] + times["dkv_tc"]
+    print(f"sparse_attention backward pair bf16 at the path's shape: "
+          f"tensor cores dq + dk/dv {pair:.4f} ms, FMA "
+          f"{times['dq'] + times['dkv']:.4f} ms, SDPA's whole backward with "
+          f"the mask {sdpa_bwd_ms:.4f} ms ({pair / sdpa_bwd_ms:.3f}x)")
+
+    # the split cap: every cap of the sweep on the same inputs
+    sweep = {}
+    for cap in SPARSE_SWEEP_CAPS:
+        c = cap or s // sp.TC_TILE
+        row = {}
+        for which in ("dq", "dkv"):
+            w = plan.work(which, True, c)
+            row[which] = {
+                "ms": device_ms(torch, call(which, "tc", c), iters=10,
+                                warmup=2)[0],
+                "items": w.n_items, "split_tiles": w.n_split,
+                "pieces": w.n_slots, "longest_walk": w.longest}
+        sweep["none" if cap is None else cap] = row
+        print(f"sparse_attention split cap {cap or 'none (no split)'} "
+              f"(bf16, the path's shape, device time): "
+              f"{json.dumps(row)}")
+    best = min(sweep, key=lambda c: sweep[c]["dq"]["ms"]
+               + sweep[c]["dkv"]["ms"])
+    dkv = plan.work("dkv", True)
+    print(f"sparse_attention split cap sweep: fastest dq + dk/dv at cap "
+          f"{best} ({sweep[best]['dq']['ms'] + sweep[best]['dkv']['ms']:.4f}"
+          f" ms); SPLIT_CAP = {sp.SPLIT_CAP}: {dkv.n_split} split dk/dv "
+          f"tiles in {dkv.n_slots} pieces, longest dk/dv walk "
+          f"{dkv.longest} tiles, longest dq walk "
+          f"{plan.work('dq', True).longest}")
+    if dkv.longest > sp.SPLIT_CAP:
+        fail("a dk/dv walk is longer than the split cap")
     del layers, prepped
     torch.cuda.empty_cache()
 
@@ -2774,6 +2934,10 @@ KERNELS = (
      "deepspeed_tpu/ops/transformer/flash_attention.py:231"),
     ("flash_attention_bwd_dq_tc_dropout", "flash_attention_tc",
      "deepspeed_tpu/ops/transformer/flash_attention.py:276"),
+    ("sparse_attention_bwd_dq_tc", "sparse_attention_tc",
+     "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:147"),
+    ("sparse_attention_bwd_dkv_tc", "sparse_attention_tc",
+     "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:194"),
 )
 # the flash kernels of the 16-bit training step: the tensor-core forward,
 # dq and dk/dv; the FMA kernels take the fp32 path
@@ -2784,7 +2948,7 @@ FLASH_FMA_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
 # #6/#7 of the 16-bit steps (wgmma); fused_ln.cu's take the fp32 path
 FUSED_LN_TC_NAMES = FUSED_LN_ROUTES["fused_ln_tc"]
 # the sources whose ptxas report is printed kernel by kernel
-TC_SOURCES = ("flash_attention_tc", "fused_ln_tc")
+TC_SOURCES = ("flash_attention_tc", "fused_ln_tc", "sparse_attention_tc")
 
 
 # ---------------------------------------------------------------------------
@@ -2869,6 +3033,8 @@ def training_counters():
             "sparse_attention_fwd": sp.sparse_attention_fwd,
             "sparse_attention_bwd_dq": sp.sparse_attention_bwd_dq,
             "sparse_attention_bwd_dkv": sp.sparse_attention_bwd_dkv,
+            "sparse_attention_bwd_dq_tc": sp.sparse_attention_bwd_dq_tc,
+            "sparse_attention_bwd_dkv_tc": sp.sparse_attention_bwd_dkv_tc,
             "fused_adam": fused_adam_apply,
             "fused_ln_matmul_fwd": fused.ln_matmul_fwd,
             "fused_ln_matmul_bwd": fused.ln_matmul_bwd,
@@ -3227,10 +3393,11 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None,
                  f"backward {ln_launched} times")
         if label == "kernels":
             launches = {n: fn.launches for n, fn in counters.items()}
-            if any(launches[n] for n in FLASH_NAMES + FUSED_LN_TC_NAMES):
+            if any(launches[n] for n in FLASH_NAMES + FUSED_LN_TC_NAMES
+                   + SPARSE_TC_NAMES):
                 fail(f"fp32 comparison: the kernels' run launched a 16-bit "
-                     f"route (tensor-core flash, wgmma fused_ln): "
-                     f"{launches}")
+                     f"route (tensor-core flash or sparse, wgmma "
+                     f"fused_ln): {launches}")
         runs[label] = (grads, losses)
         names = engine.param_names
         del engine, model
@@ -3277,8 +3444,11 @@ LONG_CONFIG = {                   # bench.py:bench_gpt2_long(sparse=True)'s,
 }
 LONG_WARMUP, LONG_STEPS = 2, 5
 DENSE_WARMUP, DENSE_STEPS = 1, 2
-SPARSE_KERNELS = ("sparse_attention_fwd", "sparse_attention_bwd_dq",
-                  "sparse_attention_bwd_dkv")
+# the long step's sparse kernels: #8 (FMA) and the tensor-core dq, dk/dv
+SPARSE_KERNELS = ("sparse_attention_fwd",) + SPARSE_TC_NAMES
+# the same configuration's step and ratio on the FMA dq and dk/dv
+# (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md §5)
+LONG_FMA_STEP_MS, LONG_FMA_RATIO = 1342.20, 0.7291
 
 
 def long_engine(torch, config):
@@ -3300,11 +3470,11 @@ def long_engine(torch, config):
 
 def check_long_training(torch, card):
     """Full-width GPT-2 at seq 16384 through ``initialize`` ->
-    ``train_batch`` with BigBird block-sparse attention: #8-#10 launch 48
-    times each per step (12 layers x GAS 4), fused Adam once, the flash
-    kernels and every plain version never; the loss falls on a fixed
-    batch. Then, for the sparse/dense ratio, the same config with dense
-    flash attention."""
+    ``train_batch`` with BigBird block-sparse attention: #8 and the
+    tensor-core dq and dk/dv launch 48 times each per step (12 layers x
+    GAS 4), fused Adam once, the FMA dq and dk/dv, the flash kernels and
+    every plain version never; the loss falls on a fixed batch. Then, for
+    the sparse/dense ratio, the same config with dense flash attention."""
     engine, model, cfg, batches = long_engine(torch, LONG_CONFIG)
     if model.cfg.sparse_attention != SPARSE_LONG or \
             any(blk.cfg is not model.cfg for blk in model.h):
@@ -3347,10 +3517,18 @@ def check_long_training(torch, card):
     dense_tps = tokens / (median(dense_ms) / 1e3)
     dense_run = {"step_ms": dense_ms, "tokens_per_s": dense_tps,
                  "losses": dense_losses}
+    long["sparse_dense_ratio"] = long["tokens_per_s"] / dense_tps
     print(f"long training bf16 gpt2 seq {SPARSE_SEQ} dense flash (for the "
           f"ratio): {json.dumps(dense_run)}; sparse/dense tokens/s "
-          f"{long['tokens_per_s'] / dense_tps:.4f} (bench.py's "
+          f"{long['sparse_dense_ratio']:.4f} (bench.py's "
           f"gpt2_seq16k_sparse_speedup)")
+    print(f"long training summary ({card}): step {long['step_ms_median']:.2f}"
+          f" ms (on the FMA dq and dk/dv {LONG_FMA_STEP_MS:.2f}), "
+          f"{long['tokens_per_s']:.1f} tokens/s, peak memory "
+          f"{long['peak_memory_gb']:.3f} GB, dense twin "
+          f"{median(dense_ms):.2f} ms, sparse/dense "
+          f"{long['sparse_dense_ratio']:.4f} (on the FMA dq and dk/dv "
+          f"{LONG_FMA_RATIO})")
     del engine, model, batches
     torch.cuda.empty_cache()
     return long
@@ -3371,9 +3549,11 @@ def main() -> int:
     if os.path.dirname(pkg) != HERE:
         fail(f"imported deepspeed_tpu_torch from {pkg}, not from this "
              f"checkout ({HERE})")
-    only_kernels = sys.argv[1:] == ["--only", "kernels"]
-    if sys.argv[1:] and not only_kernels:
-        fail(f"unknown arguments {sys.argv[1:]} (none, or --only kernels)")
+    args = sys.argv[1:]
+    only = args[1] if len(args) == 2 and args[0] == "--only" else None
+    if args and only not in ("kernels", "sparse"):
+        fail(f"unknown arguments {args} (none, --only kernels or --only "
+             f"sparse)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3394,18 +3574,24 @@ def main() -> int:
                       "source": f"deepspeed_tpu_torch/csrc/{src}.cu",
                       "replaces": rep}
                for name, src, rep in KERNELS}
-    check_paged_attention(torch, reports["paged_decode_attention"])
-    check_paged_attention_int8(torch, reports["paged_decode_attention_int8"])
-    time_paged_splits(torch)
-    check_chunked_prefill(torch, reports["chunked_prefill_attention"])
-    check_flash_attention(torch, reports)
-    check_flash_dropout_mask(torch, torch.float32, 256)
-    check_flash_dropout_mask(torch, torch.bfloat16, 64)
-    check_fused_adam(torch, reports["fused_adam"])
+    if only != "sparse":
+        check_paged_attention(torch, reports["paged_decode_attention"])
+        check_paged_attention_int8(torch,
+                                   reports["paged_decode_attention_int8"])
+        time_paged_splits(torch)
+        check_chunked_prefill(torch, reports["chunked_prefill_attention"])
+        check_flash_attention(torch, reports)
+        check_flash_dropout_mask(torch, torch.float32, 256)
+        check_flash_dropout_mask(torch, torch.bfloat16, 64)
+        check_fused_adam(torch, reports["fused_adam"])
     check_sparse_attention(torch, {
         "fwd": reports["sparse_attention_fwd"],
         "dq": reports["sparse_attention_bwd_dq"],
-        "dkv": reports["sparse_attention_bwd_dkv"]})
+        "dkv": reports["sparse_attention_bwd_dkv"],
+        "dq_tc": reports["sparse_attention_bwd_dq_tc"],
+        "dkv_tc": reports["sparse_attention_bwd_dkv_tc"]})
+    if only == "sparse":
+        return 0
     check_fused_ln(torch, {
         ("bfloat16", "fwd"): reports["fused_ln_matmul_fwd_tc"],
         ("bfloat16", "bwd"): reports["fused_ln_matmul_bwd_tc"],
@@ -3413,7 +3599,7 @@ def main() -> int:
         ("float16", "bwd"): reports["fused_ln_matmul_bwd_tc_fp16"],
         ("float32", "fwd"): reports["fused_ln_matmul_fwd"],
         ("float32", "bwd"): reports["fused_ln_matmul_bwd"]})
-    if only_kernels:
+    if only == "kernels":
         print(json.dumps({"kernels_checked": [k for k, *_ in KERNELS]}))
         return 0
 
@@ -3439,7 +3625,9 @@ def main() -> int:
     long = check_long_training(torch, card)
     for name in SPARSE_KERNELS:
         reports[name]["launches"] = long["launches"][name]
-    check_training_fp32(torch, seq=4096, micro=1, sparse=SPARSE_LONG)
+    fp32 = check_training_fp32(torch, seq=4096, micro=1, sparse=SPARSE_LONG)
+    for name in SPARSE_FMA_NAMES:
+        reports[name]["launches"] = fp32[name]
 
     # 6. training with the fused LayerNorm + projection sites, its one-site
     # variants and its fp32 comparison

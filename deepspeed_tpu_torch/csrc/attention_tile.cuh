@@ -3,8 +3,9 @@
 // #3-#5) and sparse_attention.cu (TPU kernels #8-#10); fused_ln.cu (#6,
 // #7) borrows the loads, stores and reductions. The 16-bit tensor-core
 // helpers at the end (ldmatrix, mma.sync.m16n8k16, cp.async, the split
-// of an fp32 operand into two 16-bit terms) serve fused_ln.cu and
-// flash_attention_tc.cu; Drop is the attention dropout's hash, shared by
+// of an fp32 operand into two 16-bit terms) serve fused_ln.cu and, through
+// attention_tc.cuh's tiles, flash_attention_tc.cu and
+// sparse_attention_tc.cu; Drop is the attention dropout's hash, shared by
 // both flash sources.
 //
 // A block has THREADS threads. The rows of the tile it owns get LPR

@@ -1,8 +1,13 @@
-// Block-sparse attention forward and backward for Hopper (sm_90a).
+// Block-sparse attention forward and backward for Hopper (sm_90a), on
+// fp32 FMAs.
 //
 // Replaces the three Pallas TPU kernels of deepspeed_tpu/ops/
-// sparse_attention/sparse_attention.py: _sparse_kernel (forward),
-// _sparse_bwd_dq_kernel and _sparse_bwd_dkv_kernel (backward). A layout
+// sparse_attention/sparse_attention.py: _sparse_kernel (forward, for every
+// input), _sparse_bwd_dq_kernel and _sparse_bwd_dkv_kernel (backward) on
+// their FMA route (ops/sparse_attention/sparse_attention.py, _route): fp32,
+// and layout blocks of 16 or 32. bf16 and fp16 at blocks that are
+// multiples of 64 take the tensor-core dq and dk/dv of
+// sparse_attention_tc.cu, which compute the same function. A layout
 // [H, NB, NB] of blocks of `block` positions (NB = S / block) says which
 // key blocks each query block attends. The host turns it into index lists:
 // kv_idx [H, NB, max_kv] with kv_cnt [H, NB] (the active key blocks of
@@ -32,9 +37,9 @@
 // 12, S = 16384, D = 64, bf16, BigBird block 256: 2832 active blocks, 5.8%
 // of the causal square) the forward must move q, k, v and o, 4 x 25.2 MB,
 // 30 us at 3.35 TB/s, and do 41 GFLOP over the visible pairs, 42 us at
-// the 989 TFLOP/s of dense bf16: operations bound it. These first kernels
+// the 989 TFLOP/s of dense bf16: operations bound it. These kernels
 // multiply in fp32 FMAs (67 TFLOP/s), as the TPU kernels do, so they are
-// bound by the FMA rate; tensor-core tiles (wgmma) are later work.
+// bound by the FMA rate.
 //
 // What the design does (the flash kernels of flash_attention.cu, walking
 // a list of blocks instead of every block):

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/kernels/`` beside the package (a
 directory ``.gitignore`` lists), named by a hash of the source, the
-headers it includes and the flags, so an edited source is rebuilt and an
-unchanged one is not. Nothing
+``csrc/`` headers it includes (directly or through another header) and
+the flags, so an edited source or header is rebuilt and an unchanged one
+is not. Nothing
 here runs at import: the CPU tests import every module, and only a call on
 a CUDA tensor builds.
 """
@@ -38,15 +39,35 @@ def find_nvcc() -> Optional[str]:
     return None
 
 
+def _headers(source: bytes) -> list:
+    """The ``csrc/`` headers ``source`` includes with ``#include "..."``,
+    directly or through another header: each once, in the order a
+    depth-first walk first reaches it (a cycle ends where it closes)."""
+    seen, order = set(), []
+
+    def walk(text: bytes):
+        for name in re.findall(rb'#include\s+"([^"]+)"', text):
+            if name in seen:
+                continue
+            seen.add(name)
+            with open(os.path.join(CSRC, name.decode()), "rb") as f:
+                body = f.read()
+            order.append(body)
+            walk(body)
+
+    walk(source)
+    return order
+
+
 def library_path(name: str) -> str:
     """Where the build of ``csrc/<name>.cu`` lands, named by a hash of the
-    source, the ``csrc/`` headers it includes and the flags."""
+    source, every ``csrc/`` header it includes (nested ones too) and the
+    flags."""
     with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
         source = f.read()
     digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode())
-    for header in re.findall(rb'#include\s+"([^"]+)"', source):
-        with open(os.path.join(CSRC, header.decode()), "rb") as f:
-            digest.update(f.read())
+    for header in _headers(source):
+        digest.update(header)
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -10,25 +10,36 @@ no visible key gives 0 (and lse -1e30), not NaN.
 - ``impl="xla"``: :func:`_xla_sparse`, dense attention under the
   layout-expanded mask in plain PyTorch, differentiated by autograd (the
   JAX package's numerics oracle, fine for modest sequence lengths).
-- ``impl="pallas"`` (the JAX name) and ``"auto"``: the kernels of
-  ``csrc/sparse_attention.cu`` through an ``autograd.Function``:
-  :func:`sparse_attention_fwd` (TPU kernel #8),
+- ``impl="pallas"`` (the JAX name) and ``"auto"``: the kernels through an
+  ``autograd.Function``: :func:`sparse_attention_fwd` (TPU kernel #8),
   then in the backward :func:`sparse_attention_bwd_dq` (#9) and
   :func:`sparse_attention_bwd_dkv` (#10). Per (head, query block) they
   walk only that row's active key blocks, and dk/dv walk the transposed
   lists, so compute and memory traffic scale with the layout's density.
-  On a CUDA tensor each wrapper launches its kernel (built at first use)
-  or raises; it never falls back. On a CPU tensor each wrapper runs its
-  plain version (:func:`sparse_fwd_reference`,
-  :func:`sparse_bwd_dq_reference`, :func:`sparse_bwd_dkv_reference`),
-  which the CPU tests hold against the JAX kernels and ``chip_smoke.py``
-  holds the CUDA kernels against.
+  :func:`_route` picks the backward's kernels: bfloat16 and float16 with
+  ``head_dim`` a multiple of 8 up to 128 and a layout block that is a
+  multiple of 64 run the tensor-core kernels of
+  ``csrc/sparse_attention_tc.cu`` (:func:`sparse_attention_bwd_dq_tc`,
+  :func:`sparse_attention_bwd_dkv_tc`), which walk the work lists of
+  :meth:`SparsePlan.work` (long walks cut into pieces of at most
+  :data:`SPLIT_CAP` tiles, summed in a fixed order by a second pass);
+  float32 and blocks of 16 or 32 run the fp32-FMA kernels of
+  ``csrc/sparse_attention.cu``, which also holds the forward for every
+  input. On a CUDA tensor each wrapper launches its kernel (built at
+  first use) or raises; it never falls back. On a CPU tensor each
+  dispatching wrapper runs its plain version
+  (:func:`sparse_fwd_reference`, :func:`sparse_bwd_dq_reference`,
+  :func:`sparse_bwd_dkv_reference`), which the CPU tests hold against the
+  JAX kernels and ``chip_smoke.py`` holds the CUDA kernels against.
 
 The index lists (``layout_kv_indices`` / ``layout_q_indices`` and the
-per-row and per-column counts) are built on the host once per layout and
-kept on each device they are used on (:func:`sparse_plan`), as the JAX
-package caches its closure per layout. Each kernel wrapper counts its
-launches in ``.launches``.
+per-row and per-column counts) and the work lists are built on the host
+once per layout and kept on each device they are used on
+(:func:`sparse_plan`), as the JAX package caches its closure per layout.
+Each kernel wrapper counts its launches in ``.launches``: the FMA kernels
+in ``sparse_attention_fwd``, ``sparse_attention_bwd_dq`` and
+``sparse_attention_bwd_dkv``, the tensor-core ones in
+``sparse_attention_bwd_dq_tc`` and ``sparse_attention_bwd_dkv_tc``.
 """
 
 import ctypes
@@ -49,16 +60,39 @@ __all__ = ["NEG_INF", "layout_to_dense_mask", "layout_kv_indices",
            "sparse_attention", "SparseSelfAttention", "pad_to_block_size",
            "sparse_fwd_reference", "sparse_bwd_dq_reference",
            "sparse_bwd_dkv_reference", "sparse_attention_fwd",
-           "sparse_attention_bwd_dq", "sparse_attention_bwd_dkv"]
+           "sparse_attention_bwd_dq", "sparse_attention_bwd_dkv",
+           "sparse_attention_bwd_dq_tc", "sparse_attention_bwd_dkv_tc",
+           "SPLIT_CAP", "WorkList"]
 
 NEG_INF = -1e30
 LSE_FLOOR = NEG_INF / 2          # the backward's guard for empty rows
 MAX_HEAD_DIM = 128
 MAX_BATCH_HEADS = 65535          # the grid's second dimension
 BLOCK_MULTIPLE = 16              # the kernels' row tiles: 16, 32 or 64
+TC_TILE = 64                     # the tensor-core kernels' row tile
+# The longest run of 64-row tiles that one work item of the tensor-core
+# backward walks (SparsePlan.work cuts longer walks into pieces). Taken
+# from chip_smoke.py's sweep of the cap at the long-sequence path's shape
+# ([1, 16384, 12, 64] bf16, BigBird block 256, causal) on an H100 (PERF.md
+# section 6): the pair is fastest at 64, ahead of no split (dk/dv's
+# global column walks 256 tiles alone) and of caps from 4 to 32 (more
+# pieces, each re-reading its key tile and writing fp32 partials).
+SPLIT_CAP = 64
 IMPLS = ("auto", "pallas", "xla")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_FN = None
+_FN = {}
+
+
+def _route(dtype: torch.dtype, head_dim: int, block: int) -> str:
+    """Which kernels compute dq and dk/dv on CUDA: ``"tc"`` (the tensor
+    cores, ``csrc/sparse_attention_tc.cu``) for bfloat16 and float16 with
+    ``head_dim`` a multiple of 8 in [8, 128] and a layout ``block`` that is
+    a multiple of 64 (a 64-row tile never straddles two layout rows);
+    ``"fma"`` (``csrc/sparse_attention.cu``) for everything else the
+    kernels take: float32, and blocks of 16 or 32."""
+    return ("tc" if dtype in (torch.bfloat16, torch.float16)
+            and head_dim % 8 == 0 and 8 <= head_dim <= MAX_HEAD_DIM
+            and block % TC_TILE == 0 else "fma")
 
 
 def layout_to_dense_mask(layout: np.ndarray, block: int) -> np.ndarray:
@@ -87,11 +121,107 @@ def layout_q_indices(layout: np.ndarray):
     return layout_kv_indices(layout.transpose(0, 2, 1))
 
 
+class WorkList:
+    """The work of one tensor-core backward kernel for one (layout, causal,
+    cap), as the kernel reads it:
+
+    - ``items`` int32 [n, 5]: a thread block's share of one batch row, in
+      launch order (longest first): the head, the first row of the 64-row
+      tile it owns (queries for dq, keys for dk/dv), the offset and count
+      of its run in ``tiles``, and its scratch slot if it is a piece of a
+      split walk (-1 if not);
+    - ``tiles`` int32: the first rows of the streamed 64-row tiles, item
+      after item;
+    - ``splits`` int32 [n_split, 4]: each split tile's head, first row,
+      first slot and piece count (its pieces hold consecutive slots, in
+      walk order); ``n_slots`` slots in all."""
+
+    def __init__(self, items, tiles, splits, n_slots):
+        self.items, self.tiles, self.splits = items, tiles, splits
+        self.n_slots = int(n_slots)
+
+    @property
+    def n_items(self) -> int:
+        return len(self.items)
+
+    @property
+    def n_split(self) -> int:
+        return len(self.splits)
+
+    @property
+    def longest(self) -> int:
+        """The longest run one item walks, in 64-row tiles."""
+        return int(self.items[:, 3].max())
+
+
+def _walks(layout: np.ndarray, block: int, which: str, causal: bool):
+    """For each (head, 64-row tile) of the rows the ``which`` kernel owns
+    (queries for "dq", keys for "dkv"), head by head, tile by tile: ``(h,
+    first row, walk)``, the walk being the first rows of the other axis'
+    64-row tiles that its layout row ("dq") or column ("dkv") lists, in
+    ascending order, without the tiles wholly above the causal diagonal
+    (keys after the tile's last query; queries before its first key)."""
+    lay = layout if which == "dq" else layout.transpose(0, 2, 1)
+    sub = np.arange(block // TC_TILE, dtype=np.int64) * TC_TILE
+    for h in range(lay.shape[0]):
+        for r in range(lay.shape[1]):
+            starts = (np.nonzero(lay[h, r])[0][:, None] * block
+                      + sub[None]).ravel()
+            for row0 in r * block + sub:
+                walk = starts
+                if causal:
+                    walk = (starts[starts <= row0] if which == "dq" else
+                            starts[starts >= row0])
+                yield h, int(row0), walk
+
+
+def build_work(layout: np.ndarray, block: int, which: str, causal: bool,
+               cap: int) -> WorkList:
+    """The :class:`WorkList` of one backward kernel: every (head, 64-row
+    tile) of :func:`_walks`, its walk (counted after the causal skip) cut
+    into ``ceil(len / cap)`` pieces of consecutive entries whose lengths
+    differ by at most one, so none is longer than ``cap``; an empty walk
+    is one item with no tiles (its output is written as zeros). Items
+    sorted longest first (then by head, row and piece: a fixed order)."""
+    if cap < 1:
+        raise ValueError(f"split cap must be >= 1, got {cap}")
+    pieces = []                       # (len, h, row0, piece, count, run)
+    for h, row0, walk in _walks(layout, block, which, causal):
+        n = len(walk)
+        count = max(1, -(-n // cap))
+        for p in range(count):
+            run = walk[p * n // count:(p + 1) * n // count]
+            pieces.append((len(run), h, row0, p, count, run))
+    pieces.sort(key=lambda x: (-x[0], x[1], x[2], x[3]))
+    first, splits, n_slots = {}, [], 0
+    for _n, h, row0, _p, count, _r in sorted(
+            (x for x in pieces if x[4] > 1 and x[3] == 0),
+            key=lambda x: (x[1], x[2])):
+        first[(h, row0)] = n_slots
+        splits.append((h, row0, n_slots, count))
+        n_slots += count
+    items = np.empty((len(pieces), 5), np.int32)
+    off = 0
+    for i, (n, h, row0, p, count, _r) in enumerate(pieces):
+        items[i] = (h, row0, off, n,
+                    first[(h, row0)] + p if count > 1 else -1)
+        off += n
+    tiles = np.concatenate([np.zeros(0, np.int64)]
+                           + [x[5] for x in pieces]).astype(np.int32)
+    return WorkList(items, tiles if len(tiles) else np.zeros(1, np.int32),
+                    np.asarray(splits, np.int32).reshape(-1, 4), n_slots)
+
+
+def _work_key(which: str, causal: bool, cap: Optional[int]):
+    return which, bool(causal), int(SPLIT_CAP if cap is None else cap)
+
+
 class SparsePlan:
     """One layout as the kernels read it: int32 ``kv_idx`` [H, NB, max_kv]
     and ``kv_cnt`` [H, NB] (``layout.sum(-1)``), ``q_idx`` [H, NB, max_q]
     and ``q_cnt`` [H, NB] (``layout.sum(-2)``), built on the host once and
-    copied to a device once per device."""
+    copied to a device once per device; and, for the tensor-core backward,
+    each kernel's :class:`WorkList` per (causal, cap) (:meth:`work`)."""
 
     def __init__(self, layout: np.ndarray, block: int):
         self.layout = np.asarray(layout).astype(np.int8)
@@ -103,12 +233,41 @@ class SparsePlan:
             kv_idx, self.layout.sum(-1).astype(np.int32),
             q_idx, self.layout.sum(-2).astype(np.int32)))
         self._on = {}
+        self._work = {}
 
     def on(self, device: torch.device):
         """``(kv_idx, kv_cnt, q_idx, q_cnt)`` on ``device``."""
         key = str(device)
         if key not in self._on:
             self._on[key] = tuple(t.to(device) for t in self._host)
+        return self._on[key]
+
+    def work(self, which: str, causal: bool,
+             cap: Optional[int] = None) -> WorkList:
+        """The :class:`WorkList` of the tensor-core ``which`` kernel ("dq"
+        or "dkv"), its walks cut at ``cap`` tiles (:data:`SPLIT_CAP` by
+        default); built once per (which, causal, cap)."""
+        if which not in ("dq", "dkv"):
+            raise ValueError(f"no work list for kernel {which!r}")
+        if self.block % TC_TILE:
+            raise ValueError(f"the tensor-core kernels take a layout block "
+                             f"that is a multiple of {TC_TILE}; got block "
+                             f"{self.block}")
+        key = _work_key(which, causal, cap)
+        if key not in self._work:
+            self._work[key] = build_work(self.layout, self.block, *key)
+        return self._work[key]
+
+    def work_on(self, device: torch.device, which: str, causal: bool,
+                cap: Optional[int] = None):
+        """``(work list, items, tiles, splits)``, the arrays on
+        ``device``, copied once per device."""
+        w = self.work(which, causal, cap)
+        key = (str(device),) + _work_key(which, causal, cap)
+        if key not in self._on:
+            self._on[key] = (w,) + tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for a in (w.items, w.tiles, w.splits))
         return self._on[key]
 
     def visible(self, head: int, causal: bool,
@@ -224,25 +383,39 @@ def sparse_bwd_dkv_reference(q, k, v, dout, key_mask, lse, delta,
             torch.stack(dv, dim=2).to(v.dtype))
 
 
-def _kernel():
-    global _FN
-    if _FN is None:
-        lib = build.load("sparse_attention")
+def _kernel(name: str = "sparse_attention"):
+    """The ctypes functions of ``csrc/<name>.cu``: ``sparse_attention``
+    (forward, dq, dk/dv on FMAs) or ``sparse_attention_tc`` (dq, dk/dv on
+    the tensor cores), built and loaded at first use."""
+    if name not in _FN:
+        lib = build.load(name)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        shape = [i32] * 5 + [f32, i32, i32, ptr]
-        fwd = lib.sparse_attention_fwd
-        fwd.argtypes = [ptr] * 6 + [i32] + [ptr] * 3 + shape
-        dq = lib.sparse_attention_bwd_dq
-        dq.argtypes = [ptr] * 7 + [i32] + [ptr] * 4 + shape
-        dkv = lib.sparse_attention_bwd_dkv
-        dkv.argtypes = [ptr] * 7 + [i32] + [ptr] * 5 + shape
-        for fn in (fwd, dq, dkv):
+        # B, H, S, D, block, scale, causal (then, on the tensor-core
+        # route, part, splits, n_split, n_slots), dtype, stream
+        shape = [i32] * 5 + [f32, i32]
+        end = [i32, ptr]
+        fns = {}
+        if name == "sparse_attention":
+            fns["fwd"] = (lib.sparse_attention_fwd,
+                          [ptr] * 6 + [i32] + [ptr] * 3 + shape + end)
+            tail = shape + end
+        else:
+            tail = shape + [ptr, ptr, i32, i32] + end
+        fns["dq"] = (getattr(lib, f"{name}_bwd_dq"),
+                     [ptr] * 7 + [i32] + [ptr] * 4 + tail)
+        fns["dkv"] = (getattr(lib, f"{name}_bwd_dkv"),
+                      [ptr] * 7 + [i32] + [ptr] * 5 + tail)
+        out = {}
+        for key, (fn, argtypes) in fns.items():
+            fn.argtypes = argtypes
             fn.restype = i32
-        err = lib.sparse_attention_error_string
+            out[key] = fn
+        err = getattr(lib, f"{name}_error_string")
         err.argtypes = [i32]
         err.restype = ctypes.c_char_p
-        _FN = (fwd, dq, dkv, err)
-    return _FN
+        out["err"] = err
+        _FN[name] = out
+    return _FN[name]
 
 
 def _prepare(q, k, v, key_mask, plan: SparsePlan):
@@ -284,10 +457,10 @@ def _prepare(q, k, v, key_mask, plan: SparsePlan):
     return q, k, v, key_mask
 
 
-def _check(rc, what):
+def _check(rc, what, name="sparse_attention"):
     if rc != 0:
-        err = _kernel()[3]
-        raise RuntimeError(f"sparse_attention {what} kernel launch failed: "
+        err = _kernel(name)["err"]
+        raise RuntimeError(f"{name} {what} kernel launch failed: "
                            f"{err(rc).decode()} (cudaError {rc})")
 
 
@@ -302,16 +475,17 @@ def _on_cuda(q: torch.Tensor, what: str) -> bool:
 
 def sparse_attention_fwd(q, k, v, key_mask, plan: SparsePlan, causal: bool,
                          scale: float):
-    """Forward (kernel #8): returns ``out`` (contiguous [B, S, H, D] in q's
-    dtype) and ``lse`` (fp32 [B, H, S]). On CUDA the inputs are as
-    :func:`_prepare` returns them; on the CPU, the plain version."""
+    """Forward (kernel #8, FMA for every input): returns ``out``
+    (contiguous [B, S, H, D] in q's dtype) and ``lse`` (fp32 [B, H, S]).
+    On CUDA the inputs are as :func:`_prepare` returns them; on the CPU,
+    the plain version."""
     if not _on_cuda(q, "forward"):
         return sparse_fwd_reference(q, k, v, key_mask, plan, causal, scale)
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     kv_idx, kv_cnt, _q_idx, _q_cnt = plan.on(q.device)
-    fwd = _kernel()[0]
+    fwd = _kernel()["fwd"]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
@@ -324,63 +498,147 @@ def sparse_attention_fwd(q, k, v, key_mask, plan: SparsePlan, causal: bool,
     return out, lse
 
 
-def sparse_attention_bwd_dq(q, k, v, dout, key_mask, lse, delta,
-                            plan: SparsePlan, causal: bool, scale: float):
-    """dq (kernel #9): ``dout`` contiguous [B, S, H, D]; ``lse`` and
-    ``delta`` fp32 [B, H, S]. Returns dq, contiguous [B, S, H, D]."""
-    if not _on_cuda(q, "dq"):
-        return sparse_bwd_dq_reference(q, k, v, dout, key_mask, lse, delta,
-                                       plan, causal, scale)
+def _launch_fma(which, q, k, v, dout, key_mask, lse, delta, plan, causal,
+                scale):
+    """dq (``which`` "dq") or dk, dv ("dkv") by the FMA kernels of
+    ``csrc/sparse_attention.cu``, over the layout's index lists."""
     b, s, h, d = q.shape
-    dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    kv_idx, kv_cnt, _q_idx, _q_cnt = plan.on(q.device)
-    fn = _kernel()[1]
+    outs = [torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+            for _ in range(1 if which == "dq" else 2)]
+    kv_idx, kv_cnt, q_idx, q_cnt = plan.on(q.device)
+    idx, cnt, n = ((kv_idx, kv_cnt, plan.max_kv) if which == "dq" else
+                   (q_idx, q_cnt, plan.max_q))
+    fn = _kernel()[which]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                _ptr(key_mask), kv_idx.data_ptr(), kv_cnt.data_ptr(),
-                plan.max_kv, lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                _strides(q, k, v), b, h, s, d, plan.block, float(scale),
-                int(causal), _DTYPE_CODES[q.dtype], stream)
-    _check(rc, "dq")
+                _ptr(key_mask), idx.data_ptr(), cnt.data_ptr(), n,
+                lse.data_ptr(), delta.data_ptr(),
+                *(t.data_ptr() for t in outs), _strides(q, k, v), b, h, s,
+                d, plan.block, float(scale), int(causal),
+                _DTYPE_CODES[q.dtype], stream)
+    _check(rc, which)
+    return outs[0] if which == "dq" else tuple(outs)
+
+
+def _launch_tc(which, q, k, v, dout, key_mask, lse, delta, plan, causal,
+               scale, cap):
+    """dq or dk, dv by the tensor-core kernels of
+    ``csrc/sparse_attention_tc.cu``, over the plan's work list at ``cap``;
+    the split walks' fp32 partials go to scratch allocated here."""
+    b, s, h, d = q.shape
+    nout = 1 if which == "dq" else 2
+    outs = [torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+            for _ in range(nout)]
+    work, items, tiles, splits = plan.work_on(q.device, which, causal, cap)
+    part = (torch.empty((b, work.n_slots, nout, TC_TILE, d),
+                        dtype=torch.float32, device=q.device)
+            if work.n_split else None)
+    fn = _kernel("sparse_attention_tc")[which]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                _ptr(key_mask), items.data_ptr(), tiles.data_ptr(),
+                work.n_items, lse.data_ptr(), delta.data_ptr(),
+                *(t.data_ptr() for t in outs), _strides(q, k, v), b, h, s,
+                d, plan.block, float(scale), int(causal), _ptr(part),
+                splits.data_ptr() if work.n_split else None, work.n_split,
+                work.n_slots, _DTYPE_CODES[q.dtype], stream)
+    _check(rc, which, "sparse_attention_tc")
+    return outs[0] if which == "dq" else tuple(outs)
+
+
+def _require_tc(q, plan: SparsePlan, what: str):
+    """The tensor-core wrappers' walls: inputs of their route, on CUDA."""
+    if _route(q.dtype, q.shape[-1], plan.block) != "tc":
+        raise ValueError(
+            f"the tensor-core sparse {what} kernel takes bfloat16 or "
+            f"float16 with head_dim a multiple of 8 in [8, {MAX_HEAD_DIM}] "
+            f"and a layout block that is a multiple of {TC_TILE}; got "
+            f"{q.dtype}, head_dim {q.shape[-1]}, block {plan.block}")
+    if q.device.type != "cuda":
+        raise ValueError(f"the tensor-core sparse {what} kernel runs on "
+                         f"CUDA tensors, got {q.device}")
+
+
+def sparse_attention_bwd_dq(q, k, v, dout, key_mask, lse, delta,
+                            plan: SparsePlan, causal: bool, scale: float):
+    """dq (kernel #9) on the kernel :func:`_route` picks: ``dout``
+    contiguous [B, S, H, D]; ``lse`` and ``delta`` fp32 [B, H, S].
+    Returns dq, contiguous [B, S, H, D]. The FMA kernel's launches count
+    here, the tensor-core kernel's in :func:`sparse_attention_bwd_dq_tc`;
+    on the CPU, the plain version (neither counts)."""
+    if not _on_cuda(q, "dq"):
+        return sparse_bwd_dq_reference(q, k, v, dout, key_mask, lse, delta,
+                                       plan, causal, scale)
+    if _route(q.dtype, q.shape[-1], plan.block) == "tc":
+        return sparse_attention_bwd_dq_tc(q, k, v, dout, key_mask, lse,
+                                          delta, plan, causal, scale)
+    dq = _launch_fma("dq", q, k, v, dout, key_mask, lse, delta, plan,
+                     causal, scale)
     sparse_attention_bwd_dq.launches += 1
+    return dq
+
+
+def sparse_attention_bwd_dq_tc(q, k, v, dout, key_mask, lse, delta,
+                               plan: SparsePlan, causal: bool, scale: float,
+                               cap: Optional[int] = None):
+    """dq on the tensor cores (bfloat16 or float16, ``head_dim`` a
+    multiple of 8 up to 128, a layout block that is a multiple of 64, CUDA
+    tensors; anything else raises ValueError). Walks cut at ``cap`` tiles
+    (:data:`SPLIT_CAP` by default). Inputs and output as
+    :func:`sparse_attention_bwd_dq`."""
+    _require_tc(q, plan, "dq")
+    dq = _launch_tc("dq", q, k, v, dout, key_mask, lse, delta, plan, causal,
+                    scale, cap)
+    sparse_attention_bwd_dq_tc.launches += 1
     return dq
 
 
 def sparse_attention_bwd_dkv(q, k, v, dout, key_mask, lse, delta,
                              plan: SparsePlan, causal: bool, scale: float):
-    """dk and dv (kernel #10), walking the transposed lists. Returns dk,
-    dv, contiguous [B, S, H, D]."""
+    """dk and dv (kernel #10) on the kernel :func:`_route` picks, walking
+    the transposed lists. Returns dk, dv, contiguous [B, S, H, D]. The FMA
+    kernel's launches count here, the tensor-core kernel's in
+    :func:`sparse_attention_bwd_dkv_tc`; on the CPU, the plain version."""
     if not _on_cuda(q, "dkv"):
         return sparse_bwd_dkv_reference(q, k, v, dout, key_mask, lse, delta,
                                         plan, causal, scale)
-    b, s, h, d = q.shape
-    dk = torch.empty((b, s, h, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, s, h, d), dtype=v.dtype, device=q.device)
-    _kv_idx, _kv_cnt, q_idx, q_cnt = plan.on(q.device)
-    fn = _kernel()[2]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                _ptr(key_mask), q_idx.data_ptr(), q_cnt.data_ptr(),
-                plan.max_q, lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), _strides(q, k, v), b, h, s, d, plan.block,
-                float(scale), int(causal), _DTYPE_CODES[q.dtype], stream)
-    _check(rc, "dkv")
+    if _route(q.dtype, q.shape[-1], plan.block) == "tc":
+        return sparse_attention_bwd_dkv_tc(q, k, v, dout, key_mask, lse,
+                                           delta, plan, causal, scale)
+    dk, dv = _launch_fma("dkv", q, k, v, dout, key_mask, lse, delta, plan,
+                         causal, scale)
     sparse_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def sparse_attention_bwd_dkv_tc(q, k, v, dout, key_mask, lse, delta,
+                                plan: SparsePlan, causal: bool,
+                                scale: float, cap: Optional[int] = None):
+    """dk and dv on the tensor cores (the walls of
+    :func:`sparse_attention_bwd_dq_tc`); a key tile's walk longer than
+    ``cap`` tiles is split, its pieces summed by a second pass in piece
+    order. Inputs and outputs as :func:`sparse_attention_bwd_dkv`."""
+    _require_tc(q, plan, "dkv")
+    dk, dv = _launch_tc("dkv", q, k, v, dout, key_mask, lse, delta, plan,
+                        causal, scale, cap)
+    sparse_attention_bwd_dkv_tc.launches += 1
     return dk, dv
 
 
 sparse_attention_fwd.launches = 0
 sparse_attention_bwd_dq.launches = 0
+sparse_attention_bwd_dq_tc.launches = 0
 sparse_attention_bwd_dkv.launches = 0
+sparse_attention_bwd_dkv_tc.launches = 0
 
 
 class _SparseAttention(torch.autograd.Function):
     """The kernels with their gradient (the JAX ``_sparse_vjp_fn``): the
     forward saves ``out`` and ``lse``; the backward takes ``delta =
     rowsum(dO * out)`` in fp32 from the output in its dtype, then runs dq
-    and dk/dv."""
+    and dk/dv on the route :func:`_route` picks."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, plan, causal, scale):
