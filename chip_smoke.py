@@ -4,6 +4,8 @@
     python3 chip_smoke.py                  # everything, one card
     python3 chip_smoke.py --only kernels   # stop after phase 2
     python3 chip_smoke.py --only sparse    # the build, then phase 2d only
+    python3 chip_smoke.py --only chunked   # the build, then phase 2a'' only
+    python3 chip_smoke.py --only sparse,chunked
 
 1. Device: requires CUDA, prints the card's name and power limit, builds
    every kernel from the sources in this checkout (one ``nvcc`` per
@@ -24,10 +26,19 @@
      context is shorter than one split's share (bit-equal over two
      launches); timed beside its one-split walk (the first version's) on
      the same inputs, and its split rule timed against every count;
-   - ragged chunked-prefill attention at the same shapes: a 256-token
-     mixed step (8 decode rows at positions 100-1000, a 200-token chunk
-     from 0, a 40-token chunk from 37, pad rows) and an 8-token
-     all-decode step, fp/bf16 and int8 pools, pad rows excluded;
+   - ragged chunked-prefill attention at the same shapes, on the route
+     ``chunked_prefill._route`` picks (bf16 q over bf16 or int8 pools:
+     the run kernels, counted in ``chunked_prefill_attention_tc``; fp32
+     q: the first kernel, counted in ``chunked_prefill_attention``): a
+     256-token mixed step (8 decode rows at positions 100-1000, a
+     200-token chunk from 0, a 40-token chunk from 37, pad rows), an
+     8-token all-decode step, a 128-token step whose 100-token chunk
+     from 37 crosses 64-token boundaries and sees more than 64 keys, and
+     8 decode rows over a 1,024-key window (the run kernels also at every
+     split count 1-8), fp/bf16 and int8 pools, NaN scratch, pad rows
+     excluded, bit-equal over two launches; timed at the mixed step, the
+     run kernels beside the first kernel on the same bf16 inputs, and
+     the decode rows' split counts beside the rule's pick;
    - flash attention forward, dq and dk/dv at [16, 512, 12, 64] causal,
      with and without a key mask holding an all-padding row, and at S=5
      and S=300, in fp32 (the FMA kernels), bf16 and fp16 (the tensor-core
@@ -49,7 +60,8 @@
      ``dropout_keep_mask``, no bit flipped;
    - fused Adam, bit for bit, over GPT-2's 148 parameter tensors (with
      the bf16 copy of the new params that the bf16 training step uses);
-   - block-sparse attention forward, dq and dk/dv (kernels #8-#10) at
+   - block-sparse attention forward, dq and dk/dv (kernels #8-#10; all
+     three on the route ``sparse_attention._route`` picks) at
      (a) [1, 4096, 12, 64], BigBird block 256, causal, fp32, bf16 and
      fp16, (b) [2, 1024, 12, 64], ``fixed`` block 16, bidirectional, with
      a key mask whose second batch row is all padding (o, dq, dk, dv
@@ -58,17 +70,20 @@
      64, bidirectional, with (b)'s key mask, bf16 and fp16, (e) [2, 2048,
      4, 128], BigBird block 128, causal, with the key mask, bf16 and fp16,
      and (f) [1, 1024, 4, 72], ``fixed`` block 64, bf16; (d)-(f) also at
-     the split cap 4 (where dq and dk/dv both split); dq and dk/dv on the
-     route ``sparse_attention._route`` picks (16 bits at blocks of 64 and
-     more: the tensor-core kernels of ``csrc/sparse_attention_tc.cu``;
-     fp32 and block 16: ``csrc/sparse_attention.cu``; each call counted
-     by its route's wrappers only); each kernel and, but at (c), the
-     whole autograd path, with flash's tolerances, lse to 1e-5, every
-     output bit-equal over two launches; timed at (c) in bf16, the
-     tensor-core dq and dk/dv beside the FMA kernels on the same inputs,
-     the plain versions, SDPA with the layout-expanded mask and the bound,
-     and the tensor-core pair at every split cap of SPARSE_SWEEP_CAPS
-     (items, split tiles, pieces and longest walk printed);
+     the split cap 4 (where the forward, dq and dk/dv all split); the
+     forward, dq and dk/dv on the route ``sparse_attention._route``
+     picks (16 bits at blocks of 64 and more: the tensor-core kernels of
+     ``csrc/sparse_attention_tc.cu``; fp32 and block 16:
+     ``csrc/sparse_attention.cu``; each call counted by its route's
+     wrappers only); each kernel and, but at (c), the whole autograd
+     path, with flash's tolerances, lse to 1e-5 (``SPARSE_LSE_TOL``),
+     every output bit-equal over two launches, the all-padding rows o = 0
+     and lse = -1e30 exactly; timed at (c) in bf16, the tensor-core
+     forward, dq and dk/dv beside the FMA kernels on the same inputs, the
+     plain versions, SDPA with the layout-expanded mask and the bound,
+     the tensor-core pair at every split cap of SPARSE_SWEEP_CAPS and the
+     forward at every cap at (d)'s shape (items, split tiles, pieces and
+     longest walk printed);
    - the fused LayerNorm + projection forward and backward (kernels #6,
      #7) on the route ``fused._route`` picks (bf16 and fp16 up to D =
      1664: the wgmma kernels of ``csrc/fused_ln_tc.cu``; fp32 and wider
@@ -89,9 +104,12 @@
    weights from a seed) serves 16 requests in two waves:
    - bucketed bf16 through ``decode_attention: "kernel"`` (kernel #1
      launches == ``kernel_steps * num_layers``), and chunked prefill at
-     token budget 256 (kernel #2 launches == ``mixed_steps *
-     num_layers``, kernel #1 none, no plain attention at all); both timed
-     on their second run;
+     token budget 256 (kernel #2's run kernels: one call a layer a mixed
+     step, ``mixed_steps * num_layers`` calls, each launching one or two
+     kernels; the first kernel and kernel #1 none, no plain attention at
+     all), its TTFT and mixed step printed beside an earlier reading
+     on the first kernel; both timed on their second run; the fp32 chunked runs go
+     through the first kernel, counted the same way;
    - fp32 token identity of "kernel", "gather", chunked prefill at budget
      64 and ``generate``, except at a true tie of the top two logits;
    - the int8 pool: bucketed bf16 through kernel #1's int8 branch (no
@@ -112,15 +130,15 @@
 5. Long-sequence training: ``initialize`` -> ``train_batch`` on
    full-width GPT-2 at seq 16384 with ``bench.py:bench_gpt2_long(sparse=
    True)``'s configuration (BigBird block 256 through the
-   ``sparse_attention`` block) plus ``optimizer.fused_update``: #8 and the
-   tensor-core dq and dk/dv launch 48 times each per step, fused Adam
-   once, the FMA dq and dk/dv, the flash kernels and every plain version
-   never, the loss falls; step time, tokens/s, peak memory and a profiled
-   step. Then the same configuration with dense flash attention (1 + 2
-   steps) for the sparse/dense tokens/s ratio, both printed beside the
-   same step's reading on the FMA dq and dk/dv, and in fp32 at 2 layers
-   and seq 4096 the kernels' path (#8-#10 on FMAs) against the plain path
-   (``impl: "xla"``), held as in phase 4.
+   ``sparse_attention`` block) plus ``optimizer.fused_update``: the
+   tensor-core forward, dq and dk/dv launch 48 times each per step, fused
+   Adam once, the FMA forward, dq and dk/dv, the flash kernels and every
+   plain version never, the loss falls; step time, tokens/s, peak memory
+   and a profiled step. Then the same configuration with dense flash
+   attention (1 + 2 steps) for the sparse/dense tokens/s ratio, both
+   printed beside the same step's reading with the FMA forward,
+   and in fp32 at 2 layers and seq 4096 the kernels' path (#8-#10 on
+   FMAs) against the plain path (``impl: "xla"``), held as in phase 4.
 6. Training with the fused LayerNorm + projection sites: phase 4's
    configuration on ``make_gpt("gpt2", fused_ln=True)``: #6 and #7 launch
    192 times each per step (2 sites x 12 layers x GAS 8) through the
@@ -153,10 +171,14 @@ counted over the fp32 comparison of phase 4 (and of phase 7 at dropout),
 every count set to 0 just before it; so are ``fused_ln.cu``'s rows
 (``fused_ln_matmul_fwd``, ``fused_ln_matmul_bwd``) over phase 6's fp32
 comparison, while the ``_tc`` rows count phase 6 and its fp16 run. The
-FMA sparse dq and dk/dv rows (``sparse_attention_bwd_dq``,
+FMA sparse rows (``sparse_attention_fwd``, ``sparse_attention_bwd_dq``,
 ``sparse_attention_bwd_dkv``) count phase 5's fp32 comparison and are
 timed on the bf16 inputs of their tensor-core twins (their first
-version's route), which count phase 5's long steps with #8.
+version's route), which count phase 5's long steps. The first chunked-
+prefill kernel's row (``chunked_prefill_attention``) counts phase 3's
+fp32 chunked run and is timed on the bf16 inputs of the run kernels'
+row (``chunked_prefill_attention_tc``, which counts the bf16 chunked
+run).
 """
 
 import json
@@ -761,47 +783,97 @@ def segment_sdpa_inputs(torch, q, pools, table, pos, n_real, bs):
     return qs, kv, mask
 
 
-def check_chunked_prefill(torch, report):
+# A chunk whose items see more than 64 keys and cross 64-token boundaries
+# (100 tokens from position 37: items of 64 and 36 tokens walking 101 and
+# 137 keys; 20 more from 130) beside two decode rows; and 8 decode rows
+# over a 1,024-key window, shortest to longest, held at every split count.
+# the bf16 chunked trace at budget 256 on the first kernel (measured on
+# one NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 5)
+CHUNKED_FIRST_TTFT_MS, CHUNKED_FIRST_STEP_MS = 95.1, 11.17
+CROSS_DECODE_POS = [500, 900]
+CROSS_CHUNKS = [(37, 100), (130, 20)]
+WINDOW_DECODE_POS = [1023, 1000, 777, 512, 64, 63, 5, 0]
+CHUNKED_SHAPES = {"T=256 mixed": (256, MIXED_DECODE_POS, MIXED_CHUNKS),
+                  "T=8 all-decode": (8, MIXED_DECODE_POS, []),
+                  "T=128 chunks across 64": (128, CROSS_DECODE_POS,
+                                             CROSS_CHUNKS),
+                  "T=8 window 1024": (8, WINDOW_DECODE_POS, [])}
+CHUNKED_NAMES = {"walk": "chunked_prefill_attention",
+                 "tc": "chunked_prefill_attention_tc"}
+
+
+def check_chunked_prefill(torch, reports):
+    """Kernel #2 on the route ``chunked_prefill._route`` picks (bf16 q over
+    bf16 or int8 pools: the run kernels; fp32 q: the first kernel), each
+    call counted by its route's wrapper only, in CHUNKED_SHAPES against
+    the plain version (fp32 1e-5, bf16 2e-2, NaN scratch, pad rows
+    excluded), every output bit-equal over two launches; the run kernels
+    also at every split count of the decode rows (the 1,024-key window).
+    Then timing at the T=256 mixed step: the run kernels beside the first
+    kernel on the same bf16 inputs (its first version), the plain version,
+    SDPA per segment and the bound; and the decode rows' split counts.
+    ``reports``: the kernels line's rows, by route."""
+    import numpy as np
     import torch.nn.functional as F
 
-    from deepspeed_tpu_torch.ops.transformer.chunked_prefill import (
-        chunked_prefill_attention, chunked_prefill_attention_reference)
+    from deepspeed_tpu_torch.ops.transformer import chunked_prefill as cp
 
-    bs = 16
-    shapes = {"T=256 mixed": (256, MIXED_DECODE_POS, MIXED_CHUNKS),
-              "T=8 all-decode": (8, MIXED_DECODE_POS, [])}
+    bs, d = 16, 64
+    wrappers = {"walk": cp.chunked_prefill_attention,
+                "tc": cp.chunked_prefill_attention_tc}
     worst = {}
     for int8 in (False, True):
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
             label = f"{'int8 pools, ' if int8 else ''}{name} q"
-            for sname, (t, dpos, chunks) in shapes.items():
+            route = cp._route(dtype, torch.int8 if int8 else dtype, d)
+            for sname, (t, dpos, chunks) in CHUNKED_SHAPES.items():
                 q, pools, table, pos, n_real, _blocks = chunked_case(
                     torch, dtype, t, dpos, chunks, seed=t + int8,
                     int8=int8)
                 kp, vp, ks, vs = pools[0]
-                got = chunked_prefill_attention(q, kp, vp, ks, vs, table,
-                                                pos, block_size=bs)
+                args = (q, kp, vp, ks, vs, table, pos)
+                before = {r: w.launches for r, w in wrappers.items()}
+                outs = {"": [cp.chunked_prefill_attention(
+                    *args, block_size=bs) for _ in range(2)]}
+                grew = {r: w.launches - before[r]
+                        for r, w in wrappers.items()}
+                if grew != {r: 2 if r == route else 0 for r in wrappers}:
+                    fail(f"chunked_prefill {label} {sname}: routed to "
+                         f"{route}, launches {grew}")
+                if route == "tc" and sname == "T=8 window 1024":
+                    for sp_ in range(1, 9):
+                        outs[f", {sp_} splits"] = [
+                            cp.chunked_prefill_attention_tc(
+                                *args, block_size=bs, splits=sp_)
+                            for _ in range(2)]
                 torch.cuda.synchronize()
-                want = chunked_prefill_attention_reference(
-                    q, kp, vp, ks, vs, table, pos, block_size=bs)
+                want = cp.chunked_prefill_attention_reference(
+                    *args, block_size=bs)
                 torch.cuda.synchronize()
-                real = got[:n_real]
-                err = (real.float() - want[:n_real].float()).abs().max()
-                err = err.item()
-                if not torch.isfinite(real).all() \
-                        or err > KERNEL_TOL[name]:
-                    fail(f"chunked_prefill_attention {label} {sname}: max "
-                         f"|err| {err} > {KERNEL_TOL[name]} or non-finite "
-                         f"real rows")
-                worst[(label, sname)] = err
-    for (label, sname), err in sorted(worst.items()):
-        print(f"chunked_prefill_attention {label}, {sname} (H=12 D=64 "
-              f"BS=16 WB=64, NaN scratch, pad rows excluded): max |err| "
-              f"{err:.3g} (atol {KERNEL_TOL[label.split()[-2]]})")
+                for tag, (got, again) in outs.items():
+                    if not same_bits(torch, got, again):
+                        fail(f"chunked_prefill {label} {sname}{tag}: "
+                             f"differs between two launches")
+                    real = got[:n_real]
+                    err = (real.float() - want[:n_real].float()).abs().max()
+                    err = err.item()
+                    if not torch.isfinite(real).all() \
+                            or err > KERNEL_TOL[name]:
+                        fail(f"chunked_prefill_attention {label} {sname}"
+                             f"{tag} ({route}): max |err| {err} > "
+                             f"{KERNEL_TOL[name]} or non-finite real rows")
+                    key = (route, label, sname + tag)
+                    worst[key] = max(worst.get(key, 0.0), err)
+    for (route, label, sname), err in sorted(worst.items()):
+        print(f"chunked_prefill_attention {label}, {sname} ({route}; H=12 "
+              f"D=64 BS=16 WB=64, NaN scratch, pad rows excluded, bit-equal "
+              f"over two launches): max |err| {err:.3g} (atol "
+              f"{KERNEL_TOL[label.split()[-2]]})")
 
     # Timing at the mixed step's shape, rotating over 8 layers' pools (no
-    # NaN in the timed inputs: pads read a zeroed scratch block).
+    # NaN in the timed inputs: pads read a zeroed scratch block); the run
+    # list found once, as the serving engine finds it once per step.
     timings = {}
     for int8 in (False, True):
         for dtype in (torch.bfloat16, torch.float32):
@@ -817,20 +889,33 @@ def check_chunked_prefill(torch, report):
                 else:
                     k[0] = 0.0
                     v[0] = 0.0
+            runs = cp.chunked_runs(table.cpu(), pos.cpu(), bs)
             it = {"i": 0}
 
             def nxt():
                 it["i"] = (it["i"] + 1) % len(pools)
                 return pools[it["i"]]
 
-            def kern():
-                chunked_prefill_attention(q, *nxt(), table, pos,
-                                          block_size=bs)
+            def first():
+                cp._launch_walk(q, *nxt(), table, pos, bs, None)
 
-            kernel_ms = device_ms(torch, kern)[0]
-            host_ms = cuda_ms(kern)
-            plain_ms = cuda_ms(lambda: chunked_prefill_attention_reference(
-                q, *nxt(), table, pos, block_size=bs), iters=5, warmup=1)
+            def runs_call(items):
+                return lambda: cp.chunked_prefill_attention_tc(
+                    q, *nxt(), table, pos, block_size=bs, runs=items)
+
+            row = {"first_ms": device_ms(torch, first)[0]}
+            if dtype == torch.bfloat16:
+                row["ms"] = device_ms(torch, runs_call(runs))[0]
+                row["host_ms"] = cuda_ms(runs_call(runs))
+                # each kernel alone: the chunk items, the decode items
+                none = np.zeros((0, 4))
+                row["chunk_ms"] = device_ms(torch, runs_call(cp.ChunkedRuns(
+                    runs.items[:runs.n_chunk], none)))[0]
+                row["decode_ms"] = device_ms(torch, runs_call(
+                    cp.ChunkedRuns(none, runs.items[runs.n_chunk:])))[0]
+            row["plain_ms"] = cuda_ms(
+                lambda: cp.chunked_prefill_attention_reference(
+                    q, *nxt(), table, pos, block_size=bs), iters=5, warmup=1)
             qs, kv, mask = segment_sdpa_inputs(torch, q, pools, table, pos,
                                                n_real, bs)
             git = {"i": 0}
@@ -839,32 +924,98 @@ def check_chunked_prefill(torch, report):
                 git["i"] = (git["i"] + 1) % len(kv)
                 return kv[git["i"]]
 
-            library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
-                qs, *gnxt(), attn_mask=mask))[0]
+            row["library_ms"] = device_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qs, *gnxt(), attn_mask=mask))[0]
             nbytes, flops = chunked_bytes_flops(q, table, pos, blocks, bs,
                                                  int8)
             t_bytes = nbytes / HBM_BYTES_PER_S
-            t_ops = flops / FP32_FLOPS
-            timings[label] = dict(
-                ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=max(t_bytes, t_ops) * 1e3,
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+            # the run kernels' chunk products on the tensor cores; the
+            # first kernel on fp32 FMAs
+            peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+            t_ops = flops / peak
+            row.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+                       bound_by="bytes" if t_bytes >= t_ops else "operations")
+            timings[label] = row
+            new = (f"run kernels {row['ms']:.4f} ms (host-paced "
+                   f"{row['host_ms']:.4f} ms; {runs.n_chunk} chunk items "
+                   f"alone {row['chunk_ms']:.4f} ms, {runs.n_decode} decode "
+                   f"items at {cp.chunked_decode_splits(runs, 12)} splits "
+                   f"alone {row['decode_ms']:.4f} ms), the first kernel on "
+                   f"the same inputs " if "ms" in row
+                   else "the first kernel ")
             print(f"chunked_prefill_attention timing, {label}, T=256 mixed "
                   f"(decode rows at {MIXED_DECODE_POS}, chunks (first "
                   f"position, tokens) {MIXED_CHUNKS}, {256 - n_real} pads; "
-                  f"device time): kernel {kernel_ms:.4f} ms (host-paced "
-                  f"{host_ms:.4f} ms), plain {plain_ms:.4f} ms (host-paced), "
-                  f"SDPA per segment (pre-gathered) "
-                  f"{library_ms:.4f} ms, bound "
-                  f"{timings[label]['bound_ms']:.4f} ms "
-                  f"({timings[label]['bound_by']}: {nbytes} bytes / 3.35 "
-                  f"TB/s, {flops} flops / 67 TFLOP/s)")
+                  f"device time): {new}{row['first_ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms (host-paced), SDPA per segment "
+                  f"(pre-gathered) {row['library_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes} "
+                  f"bytes / 3.35 TB/s, {flops} flops / "
+                  f"{peak / 1e12:.0f} TFLOP/s)")
             del pools, kv
+
+    time_chunked_splits(torch, cp, bs)
+
     main = timings["bfloat16 q"]
-    report.update(ms=main["ms"], plain_ms=main["plain_ms"],
-                  library_ms=main["library_ms"], bound_ms=main["bound_ms"],
-                  bound_by=main["bound_by"],
-                  max_abs_err=max(worst[("bfloat16 q", s)] for s in shapes))
+    reports["tc"].update(
+        ms=main["ms"], plain_ms=main["plain_ms"],
+        library_ms=main["library_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], first_ms=main["first_ms"],
+        max_abs_err=max(e for (r, lab, _s), e in worst.items()
+                        if r == "tc" and not lab.startswith("int8")))
+    # the first kernel's row: its own route's errors (fp32 q), its time on
+    # the run kernels' bf16 inputs (the first version of that route)
+    reports["walk"].update(
+        ms=main["first_ms"], plain_ms=main["plain_ms"],
+        library_ms=main["library_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"],
+        max_abs_err=max(e for (r, lab, _s), e in worst.items()
+                        if r == "walk" and not lab.startswith("int8")))
+    print(f"chunked_prefill_attention at the T=256 mixed step, bf16: run "
+          f"kernels {main['ms']:.4f} ms against the first kernel's "
+          f"{main['first_ms']:.4f} ({main['first_ms'] / main['ms']:.2f}x) "
+          f"and SDPA per segment's {main['library_ms']:.4f} "
+          f"({main['ms'] / main['library_ms']:.3f}x); int8 pools: run "
+          f"kernels {timings['int8 pools, bfloat16 q']['ms']:.4f} ms, first "
+          f"kernel {timings['int8 pools, bfloat16 q']['first_ms']:.4f} ms")
+
+
+def time_chunked_splits(torch, cp, bs):
+    """The run kernels' decode rows at every split count (1-8) and the
+    rule's pick (``chunked_decode_splits``): 1, 2, 4 and 8 rows (a mixed
+    step's decode rows, at most the 8 slots), each at the last position of
+    a 256- or 1,024-key window (bf16, 8 layers' pools in rotation; device
+    time)."""
+    sweep = {}
+    for window in (256, 1024):
+        for rows in (1, 2, 4, 8):
+            q, pools, table, pos, _n, _b = chunked_case(
+                torch, torch.bfloat16, rows, [window - 1] * rows, [],
+                seed=11 + rows, layers=8, wb=window // bs)
+            for k, v, _ks, _vs in pools:
+                k[0] = 0.0
+                v[0] = 0.0
+            runs = cp.chunked_runs(table.cpu(), pos.cpu(), bs)
+            it = {"i": 0}
+
+            def call(n):
+                it["i"] = (it["i"] + 1) % len(pools)
+                cp.chunked_prefill_attention_tc(
+                    q, *pools[it["i"]], table, pos, block_size=bs,
+                    runs=runs, splits=n)
+
+            ms = {n: device_ms(torch, lambda n=n: call(n))[0]
+                  for n in range(1, 9)}
+            pick = cp.chunked_decode_splits(runs, 12)
+            best = min(ms, key=ms.get)
+            sweep[f"{rows}x{window}"] = {
+                "ms": {n: round(v, 4) for n, v in ms.items()},
+                "fastest": best, "pick": pick,
+                "pick_over_fastest": round(ms[pick] / ms[best], 4)}
+            del pools
+    print(f"chunked_prefill decode rows by split count (rows x window keys,"
+          f" bf16, H=12 D=64, device ms): {json.dumps(sweep)}")
 
 
 # ---------------------------------------------------------------------------
@@ -1412,7 +1563,10 @@ SPARSE_LONG = {"mode": "bigbird", "block": 256, "num_random_blocks": 1,
                "num_sliding_window_blocks": 3, "num_global_blocks": 1,
                "attention": "unidirectional"}
 SPARSE_SEQ = 16384
-SPARSE_LSE_TOL = 1e-5            # fp32 lse, from the same fp32 scores
+# lse: the same fp32 scores summed in another order (the tensor-core
+# forward: 16-bit products, exact in fp32, its softmax in base 2, the lse
+# converted once); the FMA forward's is held to the same 1e-5
+SPARSE_LSE_TOL = 1e-5
 # BigBird at block 64, bidirectional: its global rows and columns walk
 # every block, so dq and dk/dv both split
 SPARSE_BIDIR = {"mode": "bigbird", "block": 64, "num_random_blocks": 1,
@@ -1523,9 +1677,11 @@ def check_sparse_attention(torch, reports):
     split cap (:func:`time_sparse`). ``reports``: the kernels line's rows
     ("fwd", "dq", "dkv" for the FMA kernels, "dq_tc", "dkv_tc")."""
     sp = sparse_module()
-    routes = {"fma": (sp.sparse_attention_bwd_dq, sp.sparse_attention_bwd_dkv),
-              "tc": (sp.sparse_attention_bwd_dq_tc,
-                     sp.sparse_attention_bwd_dkv_tc)}   # dq, dk/dv wrappers
+    routes = {"fma": (sp.sparse_attention_fwd, sp.sparse_attention_bwd_dq,
+                      sp.sparse_attention_bwd_dkv),
+              "tc": (sp.sparse_attention_fwd_tc,
+                     sp.sparse_attention_bwd_dq_tc,
+                     sp.sparse_attention_bwd_dkv_tc)}   # fwd, dq, dk/dv
     worst = {}
 
     def hold(key, case, name, route, got, ref):
@@ -1568,40 +1724,48 @@ def check_sparse_attention(torch, reports):
             qp, kp, vp, mp = sp._prepare(q, k, v, mask, plan)
             if qp.data_ptr() != q.data_ptr():
                 fail("sparse_attention copied an aligned strided view")
+            before = {r: [w.launches for w in ws] for r, ws in routes.items()}
             out, lse = sp.sparse_attention_fwd(qp, kp, vp, mp, plan, causal,
                                                scale)
             delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
             args = (dout, mp, lse, delta.contiguous(), plan, causal, scale)
-            before = {r: [w.launches for w in ws] for r, ws in routes.items()}
             dq = sp.sparse_attention_bwd_dq(qp, kp, vp, *args)
             dk, dv = sp.sparse_attention_bwd_dkv(qp, kp, vp, *args)
             grew = {r: [w.launches - n for w, n in zip(ws, before[r])]
                     for r, ws in routes.items()}
-            if any(grew[r] != ([1, 1] if r == route else [0, 0])
+            if any(grew[r] != ([1, 1, 1] if r == route else [0, 0, 0])
                    for r in routes):
                 fail(f"sparse {case} {name}: routed to {route}, launches "
                      f"{grew}")
             got = {"fwd": out, "dq": dq, "dk": dk, "dv": dv}
+            lses = {"": (lse,)}
             again = dict(zip(("fwd", "lse"), sp.sparse_attention_fwd(
                 qp, kp, vp, mp, plan, causal, scale)))
+            lses[""] += (again.pop("lse"),)
             again["dq"] = sp.sparse_attention_bwd_dq(qp, kp, vp, *args)
             again["dk"], again["dv"] = sp.sparse_attention_bwd_dkv(
                 qp, kp, vp, *args)
             for cap in caps if route == "tc" else ():
-                for which in ("dq", "dkv"):   # both kernels split here
+                for which in ("fwd", "dq", "dkv"):   # all three split here
                     if not plan.work(which, causal, cap).n_split:
                         fail(f"sparse {case}: the {which} walks do not "
                              f"split at cap {cap}")
                 tag = f" cap {cap}"
+                lses[tag] = ()
                 for sink in (got, again):
+                    sink["fwd" + tag], lse_c = sp.sparse_attention_fwd_tc(
+                        qp, kp, vp, mp, plan, causal, scale, cap=cap)
+                    lses[tag] += (lse_c,)
                     sink["dq" + tag] = sp.sparse_attention_bwd_dq_tc(
                         qp, kp, vp, *args, cap=cap)
                     sink["dk" + tag], sink["dv" + tag] = \
                         sp.sparse_attention_bwd_dkv_tc(qp, kp, vp, *args,
                                                        cap=cap)
             torch.cuda.synchronize()
-            if not same_bits(torch, lse, again.pop("lse")):
-                fail(f"sparse lse {case} {name}: differs between launches")
+            for tag, (first, second) in lses.items():
+                if not same_bits(torch, first, second):
+                    fail(f"sparse lse{tag} {case} {name}: differs between "
+                         f"launches")
             for key, t in got.items():
                 if not same_bits(torch, t, again[key]):
                     fail(f"sparse {key} {case} {name} ({route}): differs "
@@ -1626,25 +1790,28 @@ def check_sparse_attention(torch, reports):
                 pairs["autograd dqkv"] = (x.grad, ref_g)
             torch.cuda.synchronize()
             seen = want_lse > sp.NEG_INF / 2
-            if not torch.equal(seen, lse > sp.NEG_INF / 2) or \
-                    not (lse[~seen] == sp.NEG_INF).all():
-                fail(f"sparse lse {case} {name}: empty rows differ")
-            lse_err = (lse - want_lse)[seen].abs().max().item()
-            if not lse_err <= SPARSE_LSE_TOL:
-                fail(f"sparse lse {case} {name}: max |err| {lse_err}")
-            if lse_err >= worst.get(("lse", name, "fma"), (0.0,))[0]:
-                worst[("lse", name, "fma")] = (lse_err, 0.0, 0.0)
+            for tag, (got_lse, _b) in lses.items():
+                if not torch.equal(seen, got_lse > sp.NEG_INF / 2) or \
+                        not (got_lse[~seen] == sp.NEG_INF).all():
+                    fail(f"sparse lse{tag} {case} {name}: empty rows differ")
+                lse_err = (got_lse - want_lse)[seen].abs().max().item()
+                if not lse_err <= SPARSE_LSE_TOL:
+                    fail(f"sparse lse{tag} {case} {name} ({route}): max "
+                         f"|err| {lse_err}")
+                if lse_err >= worst.get(("lse", name, route), (0.0,))[0]:
+                    worst[("lse", name, route)] = (lse_err, 0.0, 0.0)
             for key, (t, r) in pairs.items():
-                hold(key, case, name, "fma" if key == "fwd" else route, t, r)
+                hold(key, case, name, route, t, r)
             if masked:
                 if any(t[1].abs().max().item() != 0.0
                        for t in got.values()):
                     fail(f"sparse {case} {name}: the all-padding batch row "
                          f"is not exactly zero")
                 print(f"sparse_attention {case} {name} ({route}): batch row "
-                      f"1 (all padding): o, {', '.join(list(got)[1:])} "
-                      f"exactly 0, lse -1e30")
+                      f"1 (all padding): {', '.join(got)} exactly 0, lse "
+                      f"-1e30")
             del qkv, q, k, v, dout, out, lse, want, want_lse, dq, dk, dv
+            del lses
             del dq_w, dk_w, dv_w, pairs, got, again, ref
             torch.cuda.empty_cache()
     print(f"sparse_attention worst errors over SPARSE_CASES ((a) "
@@ -1705,8 +1872,11 @@ def time_sparse(torch, sp, reports, worst):
         def go():
             a = nxt()
             if which == "fwd":
+                fa = (*a[:3], a[4], *a[7:])
+                if how == "tc":
+                    return sp.sparse_attention_fwd_tc(*fa, cap=cap)
                 return (sp.sparse_fwd_reference if how == "plain" else
-                        sp.sparse_attention_fwd)(*a[:3], a[4], *a[7:])
+                        sp._launch_fma_fwd)(*fa)
             if how == "plain":
                 return (sp.sparse_bwd_dq_reference if which == "dq" else
                         sp.sparse_bwd_dkv_reference)(*a)
@@ -1753,8 +1923,8 @@ def time_sparse(torch, sp, reports, worst):
              for which in ("fwd", "dq", "dkv")}
     times = {}
     for row, which, how in (("fwd", "fwd", "fma"), ("dq", "dq", "fma"),
-                            ("dkv", "dkv", "fma"), ("dq_tc", "dq", "tc"),
-                            ("dkv_tc", "dkv", "tc")):
+                            ("dkv", "dkv", "fma"), ("fwd_tc", "fwd", "tc"),
+                            ("dq_tc", "dq", "tc"), ("dkv_tc", "dkv", "tc")):
         times[row] = device_ms(torch, call(which, how), iters=20,
                                warmup=3)[0]
         lib = sdpa_fwd_ms if which == "fwd" else sdpa_bwd_ms
@@ -1764,7 +1934,7 @@ def time_sparse(torch, sp, reports, worst):
         route = "tc" if how == "tc" else "fma"
         keys = {"fwd": ("fwd",), "dq": ("dq",), "dkv": ("dk", "dv")}[which]
         errs = [w[0] for (k, _n, r), w in worst.items()
-                if k.split()[0] in keys and (r == route or k == "fwd")]
+                if k.split()[0] in keys and r == route]
         rep = reports[row]
         rep.update(ms=times[row], plain_ms=plain[which], library_ms=lib,
                    bound_ms=max(t_bytes, t_ops) * 1e3,
@@ -1784,6 +1954,10 @@ def time_sparse(torch, sp, reports, worst):
               f"{'fwd' if which == 'fwd' else 'bwd (dq+dk+dv)'} "
               f"{lib:.4f} ms, bound {rep['bound_ms']:.4f} ms ({nbytes} "
               f"bytes / 3.35 TB/s, {flops} flops / 989 TFLOP/s)")
+    print(f"sparse_attention forward bf16 at the path's shape: tensor "
+          f"cores {times['fwd_tc']:.4f} ms, FMA {times['fwd']:.4f} ms "
+          f"({times['fwd'] / times['fwd_tc']:.2f}x), SDPA with the mask "
+          f"{sdpa_fwd_ms:.4f} ms ({times['fwd_tc'] / sdpa_fwd_ms:.3f}x)")
     pair = times["dq_tc"] + times["dkv_tc"]
     print(f"sparse_attention backward pair bf16 at the path's shape: "
           f"tensor cores dq + dk/dv {pair:.4f} ms, FMA "
@@ -1818,6 +1992,46 @@ def time_sparse(torch, sp, reports, worst):
     if dkv.longest > sp.SPLIT_CAP:
         fail("a dk/dv walk is longer than the split cap")
     del layers, prepped
+    torch.cuda.empty_cache()
+    sweep_sparse_fwd(torch, sp)
+
+
+def sweep_sparse_fwd(torch, sp):
+    """The tensor-core forward at every cap of SPARSE_SWEEP_CAPS at case
+    (d)'s shape ([2, 2048, 12, 64] bf16, BigBird block 64, bidirectional,
+    the key mask with an all-padding row), where the global rows walk all
+    32 key tiles; 4 layers' inputs in rotation: items, split tiles,
+    pieces, the longest walk and device ms at each cap."""
+    b, s, h, d = 2, 2048, 12, 64
+    layout = sparse_layout(SPARSE_BIDIR, h, s)
+    plan = sp.sparse_plan(layout, SPARSE_BIDIR["block"])
+    layers = []
+    for i in range(4):
+        _qkv, q, k, v, _do, mask = flash_case(torch, torch.bfloat16, b, s, h,
+                                              d, seed=300 + i, masked=True)
+        mask[0, s - 100:] = False
+        layers.append(sp._prepare(q, k, v, mask, plan))
+    it = {"i": 0}
+
+    def go(cap):
+        it["i"] = (it["i"] + 1) % len(layers)
+        return sp.sparse_attention_fwd_tc(*layers[it["i"]], plan, False,
+                                          d ** -0.5, cap=cap)
+
+    sweep = {}
+    for cap in SPARSE_SWEEP_CAPS:
+        c = cap or s // sp.TC_TILE
+        w = plan.work("fwd", False, c)
+        sweep["none" if cap is None else cap] = {
+            "ms": device_ms(torch, lambda: go(c), iters=10, warmup=2)[0],
+            "items": w.n_items, "split_tiles": w.n_split,
+            "pieces": w.n_slots, "longest_walk": w.longest}
+    best = min(sweep, key=lambda c: sweep[c]["ms"])
+    print(f"sparse_attention forward split cap sweep at (d) (bf16 "
+          f"[{b},{s},{h},{d}], bigbird-64 bidirectional, key mask; device "
+          f"time): {json.dumps(sweep)}; fastest at cap {best}, SPLIT_CAP = "
+          f"{sp.SPLIT_CAP}")
+    del layers
     torch.cuda.empty_cache()
 
 
@@ -2380,8 +2594,8 @@ class KernelShims:
         if self.attention == "plain":
             cp = self.cp
             cp.chunked_prefill_attention = (
-                lambda *a, **k: cp.chunked_prefill_attention_reference(
-                    *a, **k))
+                lambda *a, runs=None, **k:
+                cp.chunked_prefill_attention_reference(*a, **k))
         elif self.attention == "both":
             self.caches[0].update_attend = both_paged
             self.caches[1].update_attend = both_chunked
@@ -2413,11 +2627,17 @@ def serve(torch, dtype, mode, params, requests, wave1=10,
     chunked = srv.scfg.chunked_prefill
     label = (f"{mode}/{dtype}/{attention}/" + ",".join(
         f"{k}={v}" for k, v in sorted(serving.items())))
-    cp = chunked_prefill.chunked_prefill_attention
+    # kernel #2's route: the run kernels for bf16 q (over bf16 or int8
+    # pools), the first kernel for fp32
+    cp_route = chunked_prefill._route(
+        dtype, torch.int8 if serving.get("int8_kv_cache") else dtype,
+        cfg.hidden_size // cfg.num_heads)
+    cps = {r: getattr(chunked_prefill, n) for r, n in CHUNKED_NAMES.items()}
     rids = [srv.submit(p, n) for p, n in requests[:wave1]]
     step_ms, decode_tokens = [], 0
     paged_decode_attention.launches = 0
-    cp.launches = 0
+    for w in cps.values():
+        w.launches = 0
     swap_plain = attention == "plain"
     shims = KernelShims(attention)
     targets = ([(chunked_prefill, "chunked_prefill_attention_reference")]
@@ -2438,7 +2658,7 @@ def serve(torch, dtype, mode, params, requests, wave1=10,
                 rids += [srv.submit(p, n) for p, n in requests[wave1:]]
         wall = time.perf_counter() - t0
     launches = {"paged_decode_attention": paged_decode_attention.launches,
-                "chunked_prefill_attention": cp.launches}
+                **{CHUNKED_NAMES[r]: w.launches for r, w in cps.items()}}
     res = srv.results
     for rid, (p, n) in zip(rids, requests):
         r = res.get(rid)
@@ -2454,15 +2674,17 @@ def serve(torch, dtype, mode, params, requests, wave1=10,
     if second_wave == "finish" \
             and max(srv.stats["slot_assignments"].values()) < 2:
         fail(f"{label}: no slot served two requests (no backfill)")
-    want = {"paged_decode_attention": 0, "chunked_prefill_attention": 0}
+    # kernel #2: one call a layer a mixed step on its route (the run
+    # kernels' call launches one or two kernels); #1 one a layer a step
+    want = dict.fromkeys(launches, 0)
     if chunked and not swap_plain:
-        want["chunked_prefill_attention"] = \
+        want[CHUNKED_NAMES[cp_route]] = \
             srv.stats["mixed_steps"] * cfg.num_layers
     elif not chunked and mode == "kernel":
         want["paged_decode_attention"] = \
             srv.stats["kernel_steps"] * cfg.num_layers
     if launches != want or (chunked and not swap_plain
-                            and not want["chunked_prefill_attention"]):
+                            and not want[CHUNKED_NAMES[cp_route]]):
         fail(f"{label}: kernel launches {launches}, expected {want}")
     called = {k: v for k, v in plain.calls.items() if v}
     if swap_plain and not called:
@@ -2671,7 +2893,7 @@ def profile_chunked(torch, params, requests, steps=16):
     while srv.sched.queue_depth:
         srv.step()
     before = srv.stats["mixed_steps"]
-    launched = chunked_prefill.chunked_prefill_attention.launches
+    launched = chunked_prefill.chunked_prefill_attention_tc.launches
 
     def mixed(info):
         if not info["active"]:
@@ -2679,7 +2901,7 @@ def profile_chunked(torch, params, requests, steps=16):
 
     out = profile_steps(torch, srv, steps, "chunked mixed steps (bf16, "
                         "budget 256)", mixed)
-    n = (chunked_prefill.chunked_prefill_attention.launches - launched)
+    n = (chunked_prefill.chunked_prefill_attention_tc.launches - launched)
     if srv.stats["mixed_steps"] - before != steps \
             or n != steps * srv.model_cfg.num_layers:
         fail(f"chunked profile: {n} kernel #2 launches in "
@@ -2761,11 +2983,18 @@ def check_serving(torch):
                            **chunk256)
     chunked = {"dtype": "bfloat16", "token_budget": 256,
                "mixed_steps": m["mixed_steps"],
-               "kernel_launches": m["launches"]["chunked_prefill_attention"],
+               "kernel_launches":
+                   m["launches"]["chunked_prefill_attention_tc"],
                **step_summary(m)}
-    print(f"serving bf16 chunked (kernel #2 launches == mixed_steps x 12, "
-          f"kernel #1 launches 0, no plain attention): "
+    print(f"serving bf16 chunked (kernel #2's run kernels: one call, one or "
+          f"two launches, a layer a mixed step: calls == mixed_steps x 12; "
+          f"the first kernel and kernel #1 0, no plain attention): "
           f"{json.dumps(chunked)}")
+    print(f"serving bf16 chunked at budget 256: TTFT median "
+          f"{chunked.get('ttft_ms_median', float('nan')):.1f} ms (the "
+          f"reading on the first kernel {CHUNKED_FIRST_TTFT_MS}), mixed step "
+          f"median {chunked.get('step_ms_median', float('nan')):.2f} ms "
+          f"({CHUNKED_FIRST_STEP_MS})")
     out["chunked"] = chunked
 
     # -- fp32 token identity: kernel #1 vs gather vs generate, and the
@@ -2774,6 +3003,9 @@ def check_serving(torch):
     _srv_g, toks_g, mg = serve(torch, fp32, "gather", params, requests)
     _srv_c, toks_c, mc = serve(torch, fp32, "kernel", params, requests,
                                chunked_prefill={"token_budget": 64})
+    out["chunked_fp32"] = {
+        "token_budget": 64, "mixed_steps": mc["mixed_steps"],
+        "kernel_launches": mc["launches"]["chunked_prefill_attention"]}
     print(f"serving fp32: kernel {mk['wall_s']:.2f} s, gather "
           f"{mg['wall_s']:.2f} s, chunked@64 {mc['wall_s']:.2f} s; step "
           f"median kernel {median(mk['step_ms']):.2f} ms, gather "
@@ -2938,6 +3170,10 @@ KERNELS = (
      "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:147"),
     ("sparse_attention_bwd_dkv_tc", "sparse_attention_tc",
      "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:194"),
+    ("sparse_attention_fwd_tc", "sparse_attention_tc",
+     "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:88"),
+    ("chunked_prefill_attention_tc", "chunked_prefill",
+     "deepspeed_tpu/ops/transformer/chunked_prefill.py:65"),
 )
 # the flash kernels of the 16-bit training step: the tensor-core forward,
 # dq and dk/dv; the FMA kernels take the fp32 path
@@ -2948,7 +3184,8 @@ FLASH_FMA_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
 # #6/#7 of the 16-bit steps (wgmma); fused_ln.cu's take the fp32 path
 FUSED_LN_TC_NAMES = FUSED_LN_ROUTES["fused_ln_tc"]
 # the sources whose ptxas report is printed kernel by kernel
-TC_SOURCES = ("flash_attention_tc", "fused_ln_tc", "sparse_attention_tc")
+TC_SOURCES = ("flash_attention_tc", "fused_ln_tc", "sparse_attention_tc",
+              "chunked_prefill")
 
 
 # ---------------------------------------------------------------------------
@@ -3031,6 +3268,7 @@ def training_counters():
             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
             "flash_attention_bwd_dkv_tc": fa.flash_attention_bwd_dkv_tc,
             "sparse_attention_fwd": sp.sparse_attention_fwd,
+            "sparse_attention_fwd_tc": sp.sparse_attention_fwd_tc,
             "sparse_attention_bwd_dq": sp.sparse_attention_bwd_dq,
             "sparse_attention_bwd_dkv": sp.sparse_attention_bwd_dkv,
             "sparse_attention_bwd_dq_tc": sp.sparse_attention_bwd_dq_tc,
@@ -3444,11 +3682,11 @@ LONG_CONFIG = {                   # bench.py:bench_gpt2_long(sparse=True)'s,
 }
 LONG_WARMUP, LONG_STEPS = 2, 5
 DENSE_WARMUP, DENSE_STEPS = 1, 2
-# the long step's sparse kernels: #8 (FMA) and the tensor-core dq, dk/dv
-SPARSE_KERNELS = ("sparse_attention_fwd",) + SPARSE_TC_NAMES
-# the same configuration's step and ratio on the FMA dq and dk/dv
+# the long step's sparse kernels: the tensor-core forward, dq and dk/dv
+SPARSE_KERNELS = ("sparse_attention_fwd_tc",) + SPARSE_TC_NAMES
+# the same configuration's step and ratio with the forward #8 on FMAs
 # (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md §5)
-LONG_FMA_STEP_MS, LONG_FMA_RATIO = 1342.20, 0.7291
+LONG_FMA_STEP_MS, LONG_FMA_RATIO = 583.05, 1.6777
 
 
 def long_engine(torch, config):
@@ -3470,11 +3708,12 @@ def long_engine(torch, config):
 
 def check_long_training(torch, card):
     """Full-width GPT-2 at seq 16384 through ``initialize`` ->
-    ``train_batch`` with BigBird block-sparse attention: #8 and the
-    tensor-core dq and dk/dv launch 48 times each per step (12 layers x
-    GAS 4), fused Adam once, the FMA dq and dk/dv, the flash kernels and
-    every plain version never; the loss falls on a fixed batch. Then, for
-    the sparse/dense ratio, the same config with dense flash attention."""
+    ``train_batch`` with BigBird block-sparse attention: the tensor-core
+    forward (#8), dq and dk/dv launch 48 times each per step (12 layers x
+    GAS 4), fused Adam once, the FMA forward, dq and dk/dv, the flash
+    kernels and every plain version never; the loss falls on a fixed
+    batch. Then, for the sparse/dense ratio, the same config with dense
+    flash attention."""
     engine, model, cfg, batches = long_engine(torch, LONG_CONFIG)
     if model.cfg.sparse_attention != SPARSE_LONG or \
             any(blk.cfg is not model.cfg for blk in model.h):
@@ -3523,11 +3762,11 @@ def check_long_training(torch, card):
           f"{long['sparse_dense_ratio']:.4f} (bench.py's "
           f"gpt2_seq16k_sparse_speedup)")
     print(f"long training summary ({card}): step {long['step_ms_median']:.2f}"
-          f" ms (on the FMA dq and dk/dv {LONG_FMA_STEP_MS:.2f}), "
+          f" ms (with the FMA forward {LONG_FMA_STEP_MS:.2f}), "
           f"{long['tokens_per_s']:.1f} tokens/s, peak memory "
           f"{long['peak_memory_gb']:.3f} GB, dense twin "
           f"{median(dense_ms):.2f} ms, sparse/dense "
-          f"{long['sparse_dense_ratio']:.4f} (on the FMA dq and dk/dv "
+          f"{long['sparse_dense_ratio']:.4f} (with the FMA forward "
           f"{LONG_FMA_RATIO})")
     del engine, model, batches
     torch.cuda.empty_cache()
@@ -3550,10 +3789,13 @@ def main() -> int:
         fail(f"imported deepspeed_tpu_torch from {pkg}, not from this "
              f"checkout ({HERE})")
     args = sys.argv[1:]
-    only = args[1] if len(args) == 2 and args[0] == "--only" else None
-    if args and only not in ("kernels", "sparse"):
-        fail(f"unknown arguments {args} (none, --only kernels or --only "
-             f"sparse)")
+    only = (set(args[1].split(",")) if len(args) == 2
+            and args[0] == "--only" else None)
+    if args and (not only or not only <= {"kernels", "sparse", "chunked"}
+                 or ("kernels" in only and len(only) > 1)):
+        fail(f"unknown arguments {args} (none, --only kernels, or --only "
+             f"with sparse, chunked or both, comma-separated)")
+    part = only is not None and "kernels" not in only
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3574,23 +3816,28 @@ def main() -> int:
                       "source": f"deepspeed_tpu_torch/csrc/{src}.cu",
                       "replaces": rep}
                for name, src, rep in KERNELS}
-    if only != "sparse":
+    if not part:
         check_paged_attention(torch, reports["paged_decode_attention"])
         check_paged_attention_int8(torch,
                                    reports["paged_decode_attention_int8"])
         time_paged_splits(torch)
-        check_chunked_prefill(torch, reports["chunked_prefill_attention"])
+    if not part or "chunked" in only:
+        check_chunked_prefill(torch, {
+            r: reports[n] for r, n in CHUNKED_NAMES.items()})
+    if not part:
         check_flash_attention(torch, reports)
         check_flash_dropout_mask(torch, torch.float32, 256)
         check_flash_dropout_mask(torch, torch.bfloat16, 64)
         check_fused_adam(torch, reports["fused_adam"])
-    check_sparse_attention(torch, {
-        "fwd": reports["sparse_attention_fwd"],
-        "dq": reports["sparse_attention_bwd_dq"],
-        "dkv": reports["sparse_attention_bwd_dkv"],
-        "dq_tc": reports["sparse_attention_bwd_dq_tc"],
-        "dkv_tc": reports["sparse_attention_bwd_dkv_tc"]})
-    if only == "sparse":
+    if not part or "sparse" in only:
+        check_sparse_attention(torch, {
+            "fwd": reports["sparse_attention_fwd"],
+            "fwd_tc": reports["sparse_attention_fwd_tc"],
+            "dq": reports["sparse_attention_bwd_dq"],
+            "dkv": reports["sparse_attention_bwd_dkv"],
+            "dq_tc": reports["sparse_attention_bwd_dq_tc"],
+            "dkv_tc": reports["sparse_attention_bwd_dkv_tc"]})
+    if part:
         return 0
     check_fused_ln(torch, {
         ("bfloat16", "fwd"): reports["fused_ln_matmul_fwd_tc"],
@@ -3599,7 +3846,7 @@ def main() -> int:
         ("float16", "bwd"): reports["fused_ln_matmul_bwd_tc_fp16"],
         ("float32", "fwd"): reports["fused_ln_matmul_fwd"],
         ("float32", "bwd"): reports["fused_ln_matmul_bwd"]})
-    if only == "kernels":
+    if only:
         print(json.dumps({"kernels_checked": [k for k, *_ in KERNELS]}))
         return 0
 
@@ -3609,8 +3856,10 @@ def main() -> int:
         serving["bucketed"]["kernel_launches"]
     reports["paged_decode_attention_int8"]["launches"] = \
         serving["int8"]["kernel_launches"]
-    reports["chunked_prefill_attention"]["launches"] = \
+    reports["chunked_prefill_attention_tc"]["launches"] = \
         serving["chunked"]["kernel_launches"]
+    reports["chunked_prefill_attention"]["launches"] = \
+        serving["chunked_fp32"]["kernel_launches"]
 
     # 4. the training path end to end, and its fp32 comparison
     training = check_training(torch, card)
@@ -3626,7 +3875,7 @@ def main() -> int:
     for name in SPARSE_KERNELS:
         reports[name]["launches"] = long["launches"][name]
     fp32 = check_training_fp32(torch, seq=4096, micro=1, sparse=SPARSE_LONG)
-    for name in SPARSE_FMA_NAMES:
+    for name in ("sparse_attention_fwd",) + SPARSE_FMA_NAMES:
         reports[name]["launches"] = fp32[name]
 
     # 6. training with the fused LayerNorm + projection sites, its one-site

@@ -27,15 +27,19 @@ def _get(d: Dict[str, Any], key: str, default: Any) -> Any:
     return default if v is None else v
 
 
-def _enabled_block(d: Dict[str, Any], key: str) -> bool:
-    """Whether a sub-block of the JAX schema turns its feature on: a
-    present block is an opt-in unless it says ``enabled: false``."""
-    block = d.get(key)
-    if block is None or block is False:
-        return False
-    if not isinstance(block, dict):
-        raise ConfigError(f"serving.{key} must be a dict")
-    return bool(block.get(C.SUB_BLOCK_ENABLED, True))
+def _as_block(value: Any, what: str) -> Dict[str, Any]:
+    """A sub-block as the reference reads it: a falsy value is an empty
+    block; a truthy value that is not a dict raises."""
+    value = value or {}
+    if not isinstance(value, dict):
+        raise ConfigError(f"{what} must be a dict")
+    return value
+
+
+def _flag(block: Dict[str, Any], key: str) -> bool:
+    """``bool(block[key])`` with None read as False (the reference's
+    ``_get(d, key, False)``)."""
+    return bool(_get(block, key, False))
 
 
 _KNOWN_SERVING_KEYS = frozenset({
@@ -121,9 +125,22 @@ class ServingConfig:
             raise ConfigError(
                 f"unknown serving keys {sorted(unknown)}; expected a subset "
                 f"of {sorted(_KNOWN_SERVING_KEYS)}")
-        for key in (C.SERVING_SPECULATIVE, C.SERVING_RESILIENCE):
-            if _enabled_block(d, key):
-                raise not_yet_ported(f"serving.{key}")
+        # as the reference parses them: speculative decoding is on only
+        # with ``enabled: true``; resilience with ``enabled: true`` or,
+        # without ``enabled``, for a non-empty block
+        spec = _as_block(d.get(C.SERVING_SPECULATIVE),
+                         f"serving.{C.SERVING_SPECULATIVE}")
+        if _flag(spec, C.SUB_BLOCK_ENABLED):
+            raise not_yet_ported(f"serving.{C.SERVING_SPECULATIVE}")
+        resil = _as_block(d.get(C.SERVING_RESILIENCE),
+                          f"serving.{C.SERVING_RESILIENCE}")
+        unknown = set(resil) - C.SERVING_RESILIENCE_KEYS
+        if unknown:
+            raise ConfigError(
+                f"unknown serving.resilience keys {sorted(unknown)}; "
+                f"expected a subset of {sorted(C.SERVING_RESILIENCE_KEYS)}")
+        if bool(resil.get(C.SUB_BLOCK_ENABLED, bool(resil))):
+            raise not_yet_ported(f"serving.{C.SERVING_RESILIENCE}")
         # as the reference parses it: a present key (even a falsy one,
         # read as an empty block) turns chunked prefill on by default
         chunked = d.get(C.SERVING_CHUNKED_PREFILL)
@@ -175,19 +192,20 @@ class ServingConfig:
 
 def check_serving_blocks(config: Dict[str, Any]) -> None:
     """Refuse the top-level blocks of an ``init_serving`` config that the
-    port cannot honour yet: a telemetry block that turns anything on, a
-    resilience (fault injection) block, and any key it does not know."""
+    port cannot honour yet, read as the reference's ``init_serving`` reads
+    them: a telemetry block with ``enabled: true``, a resilience block
+    with a ``fault_injection`` plan (serving chaos), and any key it does
+    not know."""
     unknown = set(config) - {C.SERVING, C.TELEMETRY, C.RESILIENCE}
     if unknown:
         raise ConfigError(
             f"unknown init_serving config keys {sorted(unknown)}; the port "
-            f"reads {sorted({C.SERVING, C.TELEMETRY})}")
-    tel = config.get(C.TELEMETRY)
-    if tel:
-        if not isinstance(tel, dict) or set(tel) != {C.SUB_BLOCK_ENABLED} \
-                or tel[C.SUB_BLOCK_ENABLED]:
-            raise not_yet_ported("the telemetry block")
-    if config.get(C.RESILIENCE):
+            f"reads {sorted({C.SERVING, C.TELEMETRY, C.RESILIENCE})}")
+    if _flag(_as_block(config.get(C.TELEMETRY), C.TELEMETRY),
+             C.SUB_BLOCK_ENABLED):
+        raise not_yet_ported("the telemetry block")
+    if _as_block(config.get(C.RESILIENCE), C.RESILIENCE).get(
+            "fault_injection"):
         raise not_yet_ported("the resilience block (serving fault "
                              "injection)")
 
@@ -231,21 +249,112 @@ class FP16Config:
         return self.loss_scale == 0.0
 
 
-def _turns_on(key: str, value: Any) -> bool:
-    """Whether a top-level block of the JAX schema turns its feature on:
-    falsy values and ``{"enabled": false, ...}`` are off, as are a
-    one-stage ``pipeline`` and a ``mesh`` whose axes are all 1 (or -1 for
-    the inferred data axis)."""
-    if not value:
+def _enabled(value: Any, key: str) -> bool:
+    """The rule of most blocks: on only with ``enabled: true``."""
+    return _flag(_as_block(value, key), C.SUB_BLOCK_ENABLED)
+
+
+def _moe_on(value: Any, key: str) -> bool:
+    """A present block is an opt-in (``moe: {}``, ``false`` and ``0``
+    too) unless it says ``enabled: false``."""
+    if value is None:
         return False
-    if isinstance(value, dict):
-        if C.SUB_BLOCK_ENABLED in value:
-            return bool(value[C.SUB_BLOCK_ENABLED])
-        if key == "pipeline":
-            return int(value.get("stages", 1)) > 1
-        if key == "mesh":
-            return any(int(v) not in (1, -1) for v in value.values())
-    return True
+    return bool(_get(_as_block(value, key), C.SUB_BLOCK_ENABLED, True))
+
+
+def _comm_on(value: Any, key: str) -> bool:
+    """``hierarchical: on`` forces the explicit grad sync; ``auto``
+    engages it only on a multi-slice mesh (refused by ``mesh``), ``off``
+    (the default) never."""
+    mode = str(_get(_as_block(value, key), "hierarchical", "off")).lower()
+    if mode not in ("auto", "on", "off"):
+        raise ConfigError(f"comm.hierarchical must be auto|on|off, got "
+                          f"{mode!r}")
+    return mode == "on"
+
+
+def _autotuning_on(value: Any, key: str) -> bool:
+    """An explicit ``enabled`` wins; without it the launcher's
+    environment handshake turns the search on."""
+    block = _as_block(value, key)
+    if block.get(C.SUB_BLOCK_ENABLED) is not None:
+        return bool(block[C.SUB_BLOCK_ENABLED])
+    return os.environ.get(C.AUTOTUNING_ENV, "") not in ("", "0")
+
+
+def _elasticity_on(value: Any, key: str) -> bool:
+    """The batch ladder (``enabled``) or its live tier (which the
+    reference refuses without the ladder)."""
+    block = _as_block(value, key)
+    return _flag(block, C.SUB_BLOCK_ENABLED) or _enabled(block.get("live"),
+                                                         "elasticity.live")
+
+
+def _resilience_on(value: Any, key: str) -> bool:
+    """Auto checkpointing (``enabled``), or a fault-injection plan in the
+    block or the environment."""
+    block = _as_block(value, key)
+    return (_flag(block, C.SUB_BLOCK_ENABLED)
+            or bool(block.get("fault_injection"))
+            or bool(os.environ.get(C.FAULT_PLAN_ENV)))
+
+
+def _remat_policy_on(value: Any, key: str) -> bool:
+    """Only these two flags change the rematerialisation policy."""
+    block = _as_block(value, key)
+    return (_flag(block, "partition_activations")
+            or _flag(block, "cpu_checkpointing"))
+
+
+def _pipeline_on(value: Any, key: str) -> bool:
+    return int(_get(_as_block(value, key), "stages", 1)) > 1
+
+
+def _mesh_on(value: Any, key: str) -> bool:
+    """Any axis but a data axis of 1 or -1 (inferred) and sizes of 1."""
+    return any(int(v) not in (1, -1)
+               for v in _as_block(value, key).values() if v is not None)
+
+
+def _truthy(value: Any, key: str) -> bool:
+    """A boolean switch, read as ``bool(value)``."""
+    return bool(value)
+
+
+def _never(value: Any, key: str) -> bool:
+    """Read by no feature of the reference (``eigenvalue`` and
+    ``compressed_allreduce``) or only by one that another block turns on
+    (``aio`` configures NVMe offload, refused under
+    ``zero_optimization``)."""
+    return False
+
+
+# For each top-level block of C.NOT_YET_PORTED_BLOCKS, whether a value
+# turns its feature on, by the reference's own rule
+# (deepspeed_tpu/config/config.py and the engine that reads it).
+_BLOCK_ON = {
+    "comm": _comm_on, "pipeline": _pipeline_on, "moe": _moe_on,
+    "telemetry": _enabled, "autotuning": _autotuning_on,
+    "elasticity": _elasticity_on, "resilience": _resilience_on,
+    "activation_checkpointing": _remat_policy_on,
+    "sparse_gradients": _truthy, "flops_profiler": _enabled,
+    "progressive_layer_drop": _enabled, "quantize_training": _enabled,
+    "guardrails": _enabled, "mesh": _mesh_on, "eigenvalue": _never,
+    "amp": _enabled, "tensorboard": _enabled, "aio": _never,
+    "wall_clock_breakdown": _truthy, "memory_breakdown": _truthy,
+    "dump_state": _truthy, "check_numerics": _truthy,
+    "communication_data_type": lambda value, key: value is not None,
+    "compressed_allreduce": _never, "legacy_fusion": _truthy,
+}
+
+
+def _turns_on(key: str, value: Any) -> bool:
+    """Whether the top-level block ``key`` with ``value`` turns its
+    feature on (``_BLOCK_ON``). The environment's autotuning handshake
+    and fault plan count without their blocks, as in the reference."""
+    if value is None and key not in ("autotuning", "resilience"):
+        return False
+    return _BLOCK_ON[key](value, key)
 
 
 _TRAINING_KEYS = frozenset({
@@ -283,7 +392,7 @@ class DeepSpeedConfig:
                               f"{type(config)}")
         d = dict(config)
         for key in C.NOT_YET_PORTED_BLOCKS:
-            if key in d and _turns_on(key, d[key]):
+            if _turns_on(key, d.get(key)):
                 raise not_yet_ported(f"the {key!r} config block")
         unknown = set(d) - _TRAINING_KEYS - set(C.NOT_YET_PORTED_BLOCKS)
         if unknown:

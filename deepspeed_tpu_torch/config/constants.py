@@ -66,7 +66,8 @@ ZERO_OPTIMIZATION = "zero_optimization"
 SPARSE_ATTENTION = "sparse_attention"
 
 # Top-level training blocks of the JAX package not ported yet: accepted
-# only in their off state, refused by name otherwise.
+# only in their off state, refused by name otherwise. Each is read "on"
+# by the reference's own rule (config.py:_BLOCK_ON).
 NOT_YET_PORTED_BLOCKS = (
     "comm", "pipeline", "moe", "telemetry", "autotuning",
     "elasticity", "resilience", "activation_checkpointing",
@@ -76,6 +77,11 @@ NOT_YET_PORTED_BLOCKS = (
     "memory_breakdown", "dump_state", "check_numerics",
     "communication_data_type", "compressed_allreduce", "legacy_fusion",
 )
+# The environment the reference's parser also reads: the launcher's
+# autotuning handshake turns the search on when the block has no
+# ``enabled``; a fault plan in the environment arms fault injection.
+AUTOTUNING_ENV = "DSTPU_AUTOTUNE"
+FAULT_PLAN_ENV = "DSTPU_FAULT_PLAN"
 
 #############################################
 # Serving: the continuous-batching serving engine (serving/)
@@ -121,6 +127,11 @@ SERVING_CHUNKED_TOKEN_BUDGET_DEFAULT = 64
 SERVING_SPECULATIVE = "speculative"
 SERVING_RESILIENCE = "resilience"
 SUB_BLOCK_ENABLED = "enabled"
+# the keys the reference's serving.resilience block takes
+SERVING_RESILIENCE_KEYS = frozenset({
+    SUB_BLOCK_ENABLED, "max_queue_depth", "max_queue_wait_ms",
+    "default_deadline_ms", "max_retries", "retry_base_sec", "degrade_after",
+    "slow_step_ms"})
 
 #############################################
 # Other top-level blocks of the JAX package's config that serving reads

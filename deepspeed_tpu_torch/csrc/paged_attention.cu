@@ -49,16 +49,12 @@
 
 #include <cooperative_groups.h>
 
-#include <utility>
-
 #include "paged_walk.cuh"
 
 namespace {
 
 using namespace paged;
 namespace cg = cooperative_groups;
-
-constexpr int MAX_SPLITS = 8;   // the portable cluster size
 
 // grid: (H * splits, B, ceil(S / NQ)), clusters of (splits, 1, 1);
 // block: THREADS. NQ queries per block: 1 for a single-token decode (its
@@ -71,10 +67,7 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
     const int* __restrict__ pos, T* __restrict__ out, int S, int H, int D,
     int BS, int WB, float scale, int splits) {
   constexpr int KT = WalkSmem<TPKP, NQ>::KT;
-  constexpr int DMAX = WalkSmem<TPKP, NQ>::DMAX;
   __shared__ __align__(16) WalkSmem<TPKP, NQ> sm;
-  __shared__ float wgt[MAX_SPLITS][NQ];      // e^(m_r - M), rank 0
-  __shared__ float lsum[NQ];                 // sum_r e^(m_r - M) l_r
 
   const int h = blockIdx.x / splits;
   const int b = blockIdx.y;
@@ -84,76 +77,13 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
   const long first = ((long)b * S + s0) * H * D + (long)h * D;
   // this block's share of the run's visible key tiles
   const int n_keys = min(WB * BS, p0 + ns);
-  const int nt = (n_keys + KT - 1) / KT;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = splits > 1 ? (int)cluster.block_rank() : 0;
-  const int k_lo = min(n_keys, rank * nt / splits * KT);
-  const int k_hi = min(n_keys, (rank + 1) * nt / splits * KT);
+  const int rank = splits > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  int k_lo, k_hi;
+  cluster_share<KT>(n_keys, rank, splits, k_lo, k_hi);
   walk_keys<T, P, TPKP, NQ>(sm, q + first, k_pool, v_pool, k_scale,
                             v_scale, block_table + (long)b * WB, p0, ns, H,
                             D, BS, h, scale, k_lo, k_hi);
-  if (splits == 1) {
-    finish_run<T, TPKP, NQ>(sm, out + first, ns, H, D);
-    return;
-  }
-
-  // this block's partial o: the warps' sums, in place in red[0]
-  for (int idx = threadIdx.x; idx < ns * D; idx += THREADS) {
-    const int i = idx / D;
-    const int d = idx - i * D;
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < NWARPS; ++w) sum += sm.red[w][i][d];
-    sm.red[0][i][d] = sum;
-  }
-  cluster.sync();   // every block's partial is in its shared memory
-  if (rank == 0) {
-    if (threadIdx.x < ns) {
-      const int i = threadIdx.x;
-      float mx = -INFINITY;
-      for (int r = 0; r < splits; ++r)
-        mx = fmaxf(mx, cluster.map_shared_rank(&sm.m_s[0], r)[i]);
-      float l = 0.f;
-      for (int r = 0; r < splits; ++r) {
-        const float m = cluster.map_shared_rank(&sm.m_s[0], r)[i];
-        const float w = m == -INFINITY ? 0.f : expf(m - mx);
-        wgt[r][i] = w;
-        l += cluster.map_shared_rank(&sm.l_s[0], r)[i] * w;
-      }
-      lsum[i] = l;
-    }
-    __syncthreads();
-    const long row = (long)H * D;
-    for (int idx = threadIdx.x; idx < ns * D; idx += THREADS) {
-      const int i = idx / D;
-      const int d = idx - i * D;
-      float o = 0.f;
-      for (int r = 0; r < splits; ++r)
-        o += cluster.map_shared_rank(&sm.red[0][0][0], r)[i * DMAX + d] *
-             wgt[r][i];
-      store(out + first + i * row + d, o / fmaxf(lsum[i], 1e-30f));
-    }
-  }
-  cluster.sync();   // no block leaves while rank 0 reads its partial
-}
-
-// Launch `kernel` on `grid` in clusters of (splits, 1, 1).
-template <typename... KArgs, typename... Args>
-cudaError_t launch_clusters(void (*kernel)(KArgs...), dim3 grid, int splits,
-                            cudaStream_t st, Args&&... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+  finish_cluster<T, TPKP, NQ>(sm, out + first, ns, H, D, rank, splits);
 }
 
 template <typename T, typename P>

@@ -7,9 +7,11 @@
 // The softmax runs online in fp32; the output is written in q's dtype.
 // walk_keys walks a contiguous range of the keys and leaves the block's
 // partial state (m, l and the warps' unnormalised sums) in a WalkSmem;
-// attend_run walks them all and writes the output (the chunked-prefill
-// kernel's whole walk); the decode kernel may give each block of a
-// cluster a share of the keys and combine the partials itself.
+// attend_run walks them all and writes the output (the first chunked-
+// prefill kernel's whole walk); the decode kernel and the chunked-prefill
+// kernel's decode rows give each block of a cluster a share of the keys
+// (cluster_share) and combine the partials through distributed shared
+// memory (finish_cluster; launch_clusters launches such a grid).
 //
 // Pools are in q's dtype (float or bf16) or int8. An int8 pool carries
 // per-(token, head) fp32 scales [N, BS, H]: each key row's thread group
@@ -32,10 +34,13 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <utility>
 
 namespace paged {
 
@@ -45,6 +50,7 @@ constexpr int MAX_S = 8;    // queries per thread block
 constexpr int MAX_D = 256;  // largest head_dim
 constexpr int VEC = 8;      // elements of a row per thread
 constexpr int NPASS = 4;    // rows per thread per tile, loaded together
+constexpr int MAX_SPLITS = 8;   // the portable cluster size
 constexpr unsigned FULL = 0xffffffffu;
 
 // One thread's 8-element slice of a K or V row, as loaded.
@@ -366,6 +372,102 @@ __device__ __forceinline__ void attend_run(
   walk_keys<T, P, TPKP>(sm, q, k_pool, v_pool, k_scale, v_scale, bt, p0, ns,
                         H, D, BS, h, scale, 0, min(WB * BS, p0 + ns));
   finish_run<T, TPKP>(sm, out, ns, H, D);
+}
+
+// This block's share [k_lo, k_hi) of the n_keys keys of a run whose walk
+// is split over the `splits` blocks of a cluster (rank: this block's
+// rank): contiguous runs of whole KT-key tiles, rank by rank; a share may
+// hold none.
+template <int KT>
+__device__ __forceinline__ void cluster_share(int n_keys, int rank,
+                                              int splits, int& k_lo,
+                                              int& k_hi) {
+  const int nt = (n_keys + KT - 1) / KT;
+  k_lo = min(n_keys, rank * nt / splits * KT);
+  k_hi = min(n_keys, (rank + 1) * nt / splits * KT);
+}
+
+// The output of a run whose keys the `splits` blocks of a cluster walked
+// share by share (walk_keys over cluster_share's range), each leaving its
+// partial (m, l, o) in its own shared memory. With one split, finish_run.
+// Else rank 0 reads the partials through distributed shared memory in
+// rank order after cluster.sync(), combines them (o = sum_r e^(m_r - M)
+// o_r / sum_r e^(m_r - M) l_r) and writes the output; no block leaves
+// while rank 0 reads its partial. Called by every thread of every block
+// of the cluster.
+template <typename T, int TPKP, int NQ>
+__device__ __forceinline__ void finish_cluster(WalkSmem<TPKP, NQ>& sm,
+                                               T* __restrict__ out, int ns,
+                                               int H, int D, int rank,
+                                               int splits) {
+  namespace cg = cooperative_groups;
+  constexpr int DMAX = WalkSmem<TPKP, NQ>::DMAX;
+  __shared__ float wgt[MAX_SPLITS][NQ];      // e^(m_r - M), rank 0
+  __shared__ float lsum[NQ];                 // sum_r e^(m_r - M) l_r
+  if (splits == 1) {
+    finish_run<T, TPKP, NQ>(sm, out, ns, H, D);
+    return;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+
+  // this block's partial o: the warps' sums, in place in red[0]
+  for (int idx = threadIdx.x; idx < ns * D; idx += THREADS) {
+    const int i = idx / D;
+    const int d = idx - i * D;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) sum += sm.red[w][i][d];
+    sm.red[0][i][d] = sum;
+  }
+  cluster.sync();   // every block's partial is in its shared memory
+  if (rank == 0) {
+    if (threadIdx.x < ns) {
+      const int i = threadIdx.x;
+      float mx = -INFINITY;
+      for (int r = 0; r < splits; ++r)
+        mx = fmaxf(mx, cluster.map_shared_rank(&sm.m_s[0], r)[i]);
+      float l = 0.f;
+      for (int r = 0; r < splits; ++r) {
+        const float m = cluster.map_shared_rank(&sm.m_s[0], r)[i];
+        const float w = m == -INFINITY ? 0.f : expf(m - mx);
+        wgt[r][i] = w;
+        l += cluster.map_shared_rank(&sm.l_s[0], r)[i] * w;
+      }
+      lsum[i] = l;
+    }
+    __syncthreads();
+    const long row = (long)H * D;
+    for (int idx = threadIdx.x; idx < ns * D; idx += THREADS) {
+      const int i = idx / D;
+      const int d = idx - i * D;
+      float o = 0.f;
+      for (int r = 0; r < splits; ++r)
+        o += cluster.map_shared_rank(&sm.red[0][0][0], r)[i * DMAX + d] *
+             wgt[r][i];
+      store(out + i * row + d, o / fmaxf(lsum[i], 1e-30f));
+    }
+  }
+  cluster.sync();   // no block leaves while rank 0 reads its partial
+}
+
+// Launch `kernel` on `grid` in clusters of (splits, 1, 1), THREADS
+// threads a block, static shared memory only.
+template <typename... KArgs, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(KArgs...), dim3 grid, int splits,
+                            cudaStream_t st, Args&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
 }
 
 // Instantiate ``KERNEL<T, P, TPKP>`` for head_dim D (TPKP = the power of

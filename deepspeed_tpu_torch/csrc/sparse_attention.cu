@@ -2,11 +2,11 @@
 // fp32 FMAs.
 //
 // Replaces the three Pallas TPU kernels of deepspeed_tpu/ops/
-// sparse_attention/sparse_attention.py: _sparse_kernel (forward, for every
-// input), _sparse_bwd_dq_kernel and _sparse_bwd_dkv_kernel (backward) on
-// their FMA route (ops/sparse_attention/sparse_attention.py, _route): fp32,
-// and layout blocks of 16 or 32. bf16 and fp16 at blocks that are
-// multiples of 64 take the tensor-core dq and dk/dv of
+// sparse_attention/sparse_attention.py: _sparse_kernel (forward),
+// _sparse_bwd_dq_kernel and _sparse_bwd_dkv_kernel (backward) on their
+// FMA route (ops/sparse_attention/sparse_attention.py, _route): fp32, and
+// layout blocks of 16 or 32. bf16 and fp16 at blocks that are multiples
+// of 64 take the tensor-core forward, dq and dk/dv of
 // sparse_attention_tc.cu, which compute the same function. A layout
 // [H, NB, NB] of blocks of `block` positions (NB = S / block) says which
 // key blocks each query block attends. The host turns it into index lists:

@@ -16,21 +16,21 @@ no visible key gives 0 (and lse -1e30), not NaN.
   :func:`sparse_attention_bwd_dkv` (#10). Per (head, query block) they
   walk only that row's active key blocks, and dk/dv walk the transposed
   lists, so compute and memory traffic scale with the layout's density.
-  :func:`_route` picks the backward's kernels: bfloat16 and float16 with
-  ``head_dim`` a multiple of 8 up to 128 and a layout block that is a
-  multiple of 64 run the tensor-core kernels of
-  ``csrc/sparse_attention_tc.cu`` (:func:`sparse_attention_bwd_dq_tc`,
-  :func:`sparse_attention_bwd_dkv_tc`), which walk the work lists of
-  :meth:`SparsePlan.work` (long walks cut into pieces of at most
-  :data:`SPLIT_CAP` tiles, summed in a fixed order by a second pass);
-  float32 and blocks of 16 or 32 run the fp32-FMA kernels of
-  ``csrc/sparse_attention.cu``, which also holds the forward for every
-  input. On a CUDA tensor each wrapper launches its kernel (built at
-  first use) or raises; it never falls back. On a CPU tensor each
-  dispatching wrapper runs its plain version
-  (:func:`sparse_fwd_reference`, :func:`sparse_bwd_dq_reference`,
-  :func:`sparse_bwd_dkv_reference`), which the CPU tests hold against the
-  JAX kernels and ``chip_smoke.py`` holds the CUDA kernels against.
+  :func:`_route` picks the kernels of all three: bfloat16 and float16
+  with ``head_dim`` a multiple of 8 up to 128 and a layout block that is
+  a multiple of 64 run the tensor-core kernels of
+  ``csrc/sparse_attention_tc.cu`` (:func:`sparse_attention_fwd_tc`,
+  :func:`sparse_attention_bwd_dq_tc`, :func:`sparse_attention_bwd_dkv_tc`),
+  which walk the work lists of :meth:`SparsePlan.work` (long walks cut
+  into pieces of at most :data:`SPLIT_CAP` tiles, whose fp32 partials a
+  second pass combines in a fixed order); float32 and blocks of 16 or 32
+  run the fp32-FMA kernels of ``csrc/sparse_attention.cu``. On a CUDA
+  tensor each wrapper launches its kernel (built at first use) or
+  raises; it never falls back. On a CPU tensor each dispatching wrapper
+  runs its plain version (:func:`sparse_fwd_reference`,
+  :func:`sparse_bwd_dq_reference`, :func:`sparse_bwd_dkv_reference`),
+  which the CPU tests hold against the JAX kernels and ``chip_smoke.py``
+  holds the CUDA kernels against.
 
 The index lists (``layout_kv_indices`` / ``layout_q_indices`` and the
 per-row and per-column counts) and the work lists are built on the host
@@ -39,7 +39,8 @@ once per layout and kept on each device they are used on
 Each kernel wrapper counts its launches in ``.launches``: the FMA kernels
 in ``sparse_attention_fwd``, ``sparse_attention_bwd_dq`` and
 ``sparse_attention_bwd_dkv``, the tensor-core ones in
-``sparse_attention_bwd_dq_tc`` and ``sparse_attention_bwd_dkv_tc``.
+``sparse_attention_fwd_tc``, ``sparse_attention_bwd_dq_tc`` and
+``sparse_attention_bwd_dkv_tc``.
 """
 
 import ctypes
@@ -60,6 +61,7 @@ __all__ = ["NEG_INF", "layout_to_dense_mask", "layout_kv_indices",
            "sparse_attention", "SparseSelfAttention", "pad_to_block_size",
            "sparse_fwd_reference", "sparse_bwd_dq_reference",
            "sparse_bwd_dkv_reference", "sparse_attention_fwd",
+           "sparse_attention_fwd_tc",
            "sparse_attention_bwd_dq", "sparse_attention_bwd_dkv",
            "sparse_attention_bwd_dq_tc", "sparse_attention_bwd_dkv_tc",
            "SPLIT_CAP", "WorkList"]
@@ -84,7 +86,7 @@ _FN = {}
 
 
 def _route(dtype: torch.dtype, head_dim: int, block: int) -> str:
-    """Which kernels compute dq and dk/dv on CUDA: ``"tc"`` (the tensor
+    """Which kernels compute o, dq and dk/dv on CUDA: ``"tc"`` (the tensor
     cores, ``csrc/sparse_attention_tc.cu``) for bfloat16 and float16 with
     ``head_dim`` a multiple of 8 in [8, 128] and a layout ``block`` that is
     a multiple of 64 (a 64-row tile never straddles two layout rows);
@@ -213,7 +215,10 @@ def build_work(layout: np.ndarray, block: int, which: str, causal: bool,
 
 
 def _work_key(which: str, causal: bool, cap: Optional[int]):
-    return which, bool(causal), int(SPLIT_CAP if cap is None else cap)
+    """The forward walks dq's list: both own query tiles and visit the
+    key tiles of their layout row."""
+    return ("dq" if which == "fwd" else which, bool(causal),
+            int(SPLIT_CAP if cap is None else cap))
 
 
 class SparsePlan:
@@ -244,10 +249,11 @@ class SparsePlan:
 
     def work(self, which: str, causal: bool,
              cap: Optional[int] = None) -> WorkList:
-        """The :class:`WorkList` of the tensor-core ``which`` kernel ("dq"
-        or "dkv"), its walks cut at ``cap`` tiles (:data:`SPLIT_CAP` by
-        default); built once per (which, causal, cap)."""
-        if which not in ("dq", "dkv"):
+        """The :class:`WorkList` of the tensor-core ``which`` kernel ("fwd",
+        "dq" or "dkv"; the forward's is dq's, the same object), its walks
+        cut at ``cap`` tiles (:data:`SPLIT_CAP` by default); built once per
+        (which, causal, cap)."""
+        if which not in ("fwd", "dq", "dkv"):
             raise ValueError(f"no work list for kernel {which!r}")
         if self.block % TC_TILE:
             raise ValueError(f"the tensor-core kernels take a layout block "
@@ -385,8 +391,8 @@ def sparse_bwd_dkv_reference(q, k, v, dout, key_mask, lse, delta,
 
 def _kernel(name: str = "sparse_attention"):
     """The ctypes functions of ``csrc/<name>.cu``: ``sparse_attention``
-    (forward, dq, dk/dv on FMAs) or ``sparse_attention_tc`` (dq, dk/dv on
-    the tensor cores), built and loaded at first use."""
+    (forward, dq, dk/dv on FMAs) or ``sparse_attention_tc`` (forward, dq,
+    dk/dv on the tensor cores), built and loaded at first use."""
     if name not in _FN:
         lib = build.load(name)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -401,6 +407,8 @@ def _kernel(name: str = "sparse_attention"):
             tail = shape + end
         else:
             tail = shape + [ptr, ptr, i32, i32] + end
+            fns["fwd"] = (lib.sparse_attention_tc_fwd,
+                          [ptr] * 6 + [i32] + [ptr] * 3 + tail)
         fns["dq"] = (getattr(lib, f"{name}_bwd_dq"),
                      [ptr] * 7 + [i32] + [ptr] * 4 + tail)
         fns["dkv"] = (getattr(lib, f"{name}_bwd_dkv"),
@@ -475,12 +483,25 @@ def _on_cuda(q: torch.Tensor, what: str) -> bool:
 
 def sparse_attention_fwd(q, k, v, key_mask, plan: SparsePlan, causal: bool,
                          scale: float):
-    """Forward (kernel #8, FMA for every input): returns ``out``
-    (contiguous [B, S, H, D] in q's dtype) and ``lse`` (fp32 [B, H, S]).
-    On CUDA the inputs are as :func:`_prepare` returns them; on the CPU,
-    the plain version."""
+    """Forward (kernel #8) on the kernel :func:`_route` picks: returns
+    ``out`` (contiguous [B, S, H, D] in q's dtype) and ``lse`` (fp32 [B,
+    H, S], natural log; -1e30 for a row with no visible key). On CUDA the
+    inputs are as :func:`_prepare` returns them. The FMA kernel's launches
+    count here, the tensor-core kernel's in
+    :func:`sparse_attention_fwd_tc`; on the CPU, the plain version
+    (neither counts)."""
     if not _on_cuda(q, "forward"):
         return sparse_fwd_reference(q, k, v, key_mask, plan, causal, scale)
+    if _route(q.dtype, q.shape[-1], plan.block) == "tc":
+        return sparse_attention_fwd_tc(q, k, v, key_mask, plan, causal, scale)
+    out, lse = _launch_fma_fwd(q, k, v, key_mask, plan, causal, scale)
+    sparse_attention_fwd.launches += 1
+    return out, lse
+
+
+def _launch_fma_fwd(q, k, v, key_mask, plan, causal, scale):
+    """The forward by the FMA kernel of ``csrc/sparse_attention.cu``, over
+    the layout's index lists (any dtype the kernels take)."""
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -494,7 +515,36 @@ def sparse_attention_fwd(q, k, v, key_mask, plan: SparsePlan, causal: bool,
                  d, plan.block, float(scale), int(causal),
                  _DTYPE_CODES[q.dtype], stream)
     _check(rc, "forward")
-    sparse_attention_fwd.launches += 1
+    return out, lse
+
+
+def sparse_attention_fwd_tc(q, k, v, key_mask, plan: SparsePlan,
+                            causal: bool, scale: float,
+                            cap: Optional[int] = None):
+    """The forward on the tensor cores (the walls of
+    :func:`sparse_attention_bwd_dq_tc`), over dq's work list at ``cap``
+    tiles (:data:`SPLIT_CAP` by default): a split tile's pieces leave fp32
+    partials (o, m, l) that a second pass combines in piece order. Inputs
+    and outputs as :func:`sparse_attention_fwd`."""
+    _require_tc(q, plan, "forward")
+    b, s, h, d = q.shape
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    work, items, tiles, splits = plan.work_on(q.device, "fwd", causal, cap)
+    part = (torch.empty(b * work.n_slots * TC_TILE * (d + 2),
+                        dtype=torch.float32, device=q.device)
+            if work.n_split else None)
+    fn = _kernel("sparse_attention_tc")["fwd"]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+                items.data_ptr(), tiles.data_ptr(), work.n_items,
+                out.data_ptr(), lse.data_ptr(), _strides(q, k, v), b, h, s,
+                d, plan.block, float(scale), int(causal), _ptr(part),
+                splits.data_ptr() if work.n_split else None, work.n_split,
+                work.n_slots, _DTYPE_CODES[q.dtype], stream)
+    _check(rc, "forward", "sparse_attention_tc")
+    sparse_attention_fwd_tc.launches += 1
     return out, lse
 
 
@@ -628,6 +678,7 @@ def sparse_attention_bwd_dkv_tc(q, k, v, dout, key_mask, lse, delta,
 
 
 sparse_attention_fwd.launches = 0
+sparse_attention_fwd_tc.launches = 0
 sparse_attention_bwd_dq.launches = 0
 sparse_attention_bwd_dq_tc.launches = 0
 sparse_attention_bwd_dkv.launches = 0

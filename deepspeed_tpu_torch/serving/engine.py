@@ -46,6 +46,7 @@ from deepspeed_tpu_torch.inference.engine import (InferenceEngine,
                                                   bucket_length,
                                                   sample_logits)
 from deepspeed_tpu_torch.models.gpt import init_kv_cache
+from deepspeed_tpu_torch.ops.transformer.chunked_prefill import chunked_runs
 from deepspeed_tpu_torch.ops.transformer.paged_attention import \
     paged_decode_ok
 from deepspeed_tpu_torch.serving.kv_cache import (BlockPool,
@@ -499,15 +500,20 @@ class ServeEngine:
         for r, (sl, tk, p) in enumerate(rows):
             slots[r], toks[r], pos[r] = sl, tk, p
         dev = self.device
+        # the step's runs of one sequence, found once for every layer and
+        # copied with the step's other inputs, before any kernel runs
+        runs = chunked_runs(bt[slots], pos, self.block_size)
+        runs.on(dev)
         logits = self._mixed_impl(
             torch.from_numpy(bt).to(dev), torch.from_numpy(pos).to(dev),
-            torch.from_numpy(slots).to(dev), torch.from_numpy(toks).to(dev))
+            torch.from_numpy(slots).to(dev), torch.from_numpy(toks).to(dev),
+            runs)
         self.stats["mixed_steps"] += 1
         return self._sample(logits).cpu().numpy()   # host fetch
 
-    def _mixed_impl(self, bt, pos, slots, toks) -> torch.Tensor:
+    def _mixed_impl(self, bt, pos, slots, toks, runs) -> torch.Tensor:
         cache = [ChunkedLayerCache(*self._pools[i], bt, slots, pos,
-                                   self.block_size)
+                                   self.block_size, runs)
                  for i in range(self.model_cfg.num_layers)]
         pos_ids = torch.clamp(pos.long(), max=self.model_cfg.max_seq_len - 1)
         out = self.module(toks[None, :], position_ids=pos_ids[None, :],

@@ -273,7 +273,9 @@ class ChunkedLayerCache:
 
     The GPT block hands :meth:`update_attend` a ``[1, T, H, D]`` chunk (the
     flat batch rides as one row); key ``j`` is visible to token ``t`` iff
-    ``j <= pos[t]`` over the token's own table row.
+    ``j <= pos[t]`` over the token's own table row. ``runs``: the step's
+    ``chunked_prefill.chunked_runs``, found once on the host and shared by
+    every layer's cache (None: the kernel finds them itself).
     """
 
     attn_impl = "chunked"       # routes the model's paged branch
@@ -282,9 +284,10 @@ class ChunkedLayerCache:
                  k_scale: Optional[torch.Tensor],
                  v_scale: Optional[torch.Tensor],
                  block_table: torch.Tensor, slots: torch.Tensor,
-                 pos: torch.Tensor, block_size: int):
+                 pos: torch.Tensor, block_size: int, runs=None):
         if (k_scale is None) != (v_scale is None):
             raise ValueError("int8 pools need both k_scale and v_scale")
+        self.runs = runs
         self.k = k
         self.v = v
         self.k_scale = k_scale
@@ -326,7 +329,7 @@ class ChunkedLayerCache:
         o = chunked_prefill.chunked_prefill_attention(
             qk.contiguous(), self.k, self.v, self.k_scale, self.v_scale,
             table, self.pos, block_size=self.block_size,
-            softmax_scale=softmax_scale)
+            softmax_scale=softmax_scale, runs=self.runs)
         return self, o[None].to(q.dtype)
 
 

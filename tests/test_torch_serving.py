@@ -169,7 +169,7 @@ def test_auto_decode_attention_takes_the_kernel_on_cuda():
     {"serving": {"speculative": {"enabled": True, "draft_layers": 1}}},
     {"serving": {"speculative": {"enabled": True, "k": 3}}},
     {"serving": {"resilience": {"max_retries": 3}}},
-    {"serving": {"resilience": {}}},
+    {"serving": {"resilience": {"enabled": True}}},
     {"telemetry": {"enabled": True}},
     {"telemetry": {"enabled": True, "dir": "run"}},
     {"resilience": {"fault_injection": {"serve_decode_fault_at_step": 1}}},

@@ -32,3 +32,61 @@ def test_chunked_prefill_parsed_as_the_reference(chunked):
     got = ServingConfig.from_dict(dict(d))
     assert (got.chunked_prefill, got.chunked_token_budget) == (
         want.chunked_prefill, want.chunked_token_budget)
+
+
+@pytest.mark.parametrize("key", ["speculative", "resilience"])
+@pytest.mark.parametrize(
+    "block", [None, {}, {"k": 2}, 0, False, {"enabled": True},
+              {"enabled": False, "k": 2}, 3],
+    ids=["none", "empty", "k2", "zero", "false", "enabled", "disabled",
+         "three"])
+def test_speculative_and_resilience_parsed_as_the_reference(key, block):
+    """``speculative`` is on only with ``enabled: true``; ``resilience``
+    with ``enabled: true`` or, without ``enabled``, for a non-empty block;
+    a falsy value of either is an empty block and a truthy value that is
+    not a dict raises "must be a dict"; an unknown resilience key raises.
+    Where the reference's feature is on, the port raises its "not yet
+    ported" error; where it is off, the port parses."""
+    d = {key: block}
+    try:
+        want = JaxServingConfig.from_dict(dict(d))
+    except JaxConfigError as e:
+        match = ("must be a dict" if "must be a dict" in str(e)
+                 else "unknown serving.resilience keys")
+        assert match in str(e)
+        with pytest.raises(ConfigError, match=match):
+            ServingConfig.from_dict(dict(d))
+        return
+    on = want.spec_decode if key == "speculative" else want.resilience
+    if on:
+        with pytest.raises(ConfigError, match="not yet ported"):
+            ServingConfig.from_dict(dict(d))
+    else:
+        ServingConfig.from_dict(dict(d))
+
+
+@pytest.mark.parametrize("config,on", [
+    ({"telemetry": {"dir": "run"}}, False),
+    ({"telemetry": {}}, False), ({"telemetry": False}, False),
+    ({"telemetry": {"enabled": True, "dir": "run"}}, True),
+    ({"resilience": {}}, False), ({"resilience": 0}, False),
+    ({"resilience": {"enabled": True}}, False),
+    ({"resilience": {"fault_injection": {"serve_decode_fault_at_step": 1}}},
+     True)])
+def test_init_serving_top_level_blocks_as_the_reference(config, on):
+    """``init_serving``'s top-level blocks, read as the reference's
+    ``init_serving`` reads them: telemetry is on with ``enabled: true``
+    (``TelemetryConfig``), resilience only through a ``fault_injection``
+    plan (serving chaos)."""
+    from deepspeed_tpu.config.config import TelemetryConfig
+    from deepspeed_tpu_torch.config.config import check_serving_blocks
+
+    ref_on = (TelemetryConfig.from_dict(config.get("telemetry")).enabled
+              or bool(dict(config.get("resilience") or {}).get(
+                  "fault_injection")))
+    assert ref_on == on
+    if on:
+        with pytest.raises(ConfigError, match="not yet ported"):
+            check_serving_blocks(config)
+    else:
+        check_serving_blocks(config)

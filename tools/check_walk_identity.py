@@ -4,15 +4,15 @@
     python3 tools/check_walk_identity.py PARENT_DIR
 
 ``PARENT_DIR`` holds a checkout of the commit to compare with (e.g. made
-by ``git archive``). Builds that checkout's ``csrc/chunked_prefill.cu``
-and ``csrc/paged_attention.cu`` with this checkout's nvcc flags, runs
-both builds on the same inputs (``chip_smoke.py``'s phase-2 cases: the
-chunked-prefill kernel #2 at the T=256 mixed and T=8 all-decode steps,
-the paged decode kernel #1 at windows of 1 to 64 blocks and S = 1 and 5;
-fp32 and bf16 q, fp and int8 pools) and compares every output bit for
-bit, the NaN-reading pad rows included. Kernel #1 of this checkout runs
-with one block per run (``splits`` = 1), its first version's walk.
-Needs one CUDA card; exits non-zero on any difference.
+by ``git archive``; its kernel #1 takes a split count). Builds that
+checkout's ``csrc/chunked_prefill.cu`` and ``csrc/paged_attention.cu``
+with this checkout's nvcc flags, runs both builds on the same inputs
+(``chip_smoke.py``'s phase-2 cases: the first chunked-prefill kernel #2,
+``chunked_prefill_attention_fwd``, at the T=256 mixed and T=8 all-decode
+steps, the paged decode kernel #1 at windows of 1 to 64 blocks and S = 1
+and 5 at every split count from 1 to 8; fp32 and bf16 q, fp and int8
+pools) and compares every output bit for bit, the NaN-reading pad rows
+included. Needs one CUDA card; exits non-zero on any difference.
 """
 
 import ctypes
@@ -62,7 +62,7 @@ def main() -> int:
         [ptr] * 8 + [i32] * 5 + [ctypes.c_float, i32, i32, ptr])
     old_pa = build_parent(parent, "paged_attention", build.NVCC_FLAGS)
     old_pa.paged_decode_attention_fwd.argtypes = (
-        [ptr] * 8 + [i32] * 6 + [ctypes.c_float, i32, i32, ptr])
+        [ptr] * 8 + [i32] * 6 + [ctypes.c_float, i32, i32, i32, ptr])
     codes = {torch.float32: 0, torch.bfloat16: 1}
     bs, h, d = 16, 12, 64
     differ, checked = [], 0
@@ -81,8 +81,8 @@ def main() -> int:
                 q, pools, table, pos, _n, _b = cs.chunked_case(
                     torch, dtype, t, dpos, chunks, seed=t + int8, int8=int8)
                 kp, vp, ks, vs = pools[0]
-                new = cp.chunked_prefill_attention(q, kp, vp, ks, vs, table,
-                                                   pos, block_size=bs)
+                new = cp._launch_walk(q, kp, vp, ks, vs, table, pos, bs,
+                                      None)
                 old = torch.empty_like(q)
                 rc = old_cp.chunked_prefill_attention_fwd(
                     q.data_ptr(), kp.data_ptr(), vp.data_ptr(), p_(ks),
@@ -93,7 +93,7 @@ def main() -> int:
                 checked += 1
                 if rc or not torch.equal(bits(new), bits(old)):
                     differ.append(f"#2 {label} {dtype} int8={int8} rc={rc}")
-            # kernel #1 at one split against the parent's kernel
+            # kernel #1 at every split count against the parent's kernel
             for s in (1, 5):
                 for wb in (1, 2, 4, 8, 16, 32, 64):
                     if s > wb * bs:
@@ -102,20 +102,24 @@ def main() -> int:
                         torch, dtype, 8, s, h, d, bs, wb, seed=wb * 10 + s)
                     kp, vp, ks, vs = (cs.int8_pools(torch, pools)[0] if int8
                                       else (*pools[0], None, None))
-                    new = pa._launch(q, kp, vp, ks, vs, bt, pos, bs, None, 1)
-                    old = torch.empty_like(q)
-                    rc = old_pa.paged_decode_attention_fwd(
-                        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), p_(ks),
-                        p_(vs), bt.data_ptr(), pos.data_ptr(),
-                        old.data_ptr(), 8, s, h, d, bs, wb, d ** -0.5,
-                        codes[dtype], int(int8), stream)
-                    torch.cuda.synchronize()
-                    checked += 1
-                    if rc or not torch.equal(bits(new), bits(old)):
-                        differ.append(f"#1 splits=1 S={s} WB={wb} {dtype} "
-                                      f"int8={int8} rc={rc}")
-    print(f"check_walk_identity: {checked} cases of kernels #2 and #1 "
-          f"(1 split) against {parent}: {len(differ)} differ {differ}")
+                    for splits in range(1, 9):
+                        new = pa._launch(q, kp, vp, ks, vs, bt, pos, bs,
+                                         None, splits)
+                        old = torch.empty_like(q)
+                        rc = old_pa.paged_decode_attention_fwd(
+                            q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                            p_(ks), p_(vs), bt.data_ptr(), pos.data_ptr(),
+                            old.data_ptr(), 8, s, h, d, bs, wb, d ** -0.5,
+                            codes[dtype], int(int8), splits, stream)
+                        torch.cuda.synchronize()
+                        checked += 1
+                        if rc or not torch.equal(bits(new), bits(old)):
+                            differ.append(f"#1 splits={splits} S={s} "
+                                          f"WB={wb} {dtype} int8={int8} "
+                                          f"rc={rc}")
+    print(f"check_walk_identity: {checked} cases of kernels #2 (the first "
+          f"kernel) and #1 (splits 1-8) against {parent}: {len(differ)} "
+          f"differ {differ}")
     return 1 if differ else 0
 
 
