@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only kernels   # stop after phase 2
     python3 chip_smoke.py --only sparse    # the build, then phase 2d only
     python3 chip_smoke.py --only chunked   # the build, then phase 2a'' only
+    python3 chip_smoke.py --only spec      # the build, then phase 3b only
     python3 chip_smoke.py --only sparse,chunked
 
 1. Device: requires CUDA, prints the card's name and power limit, builds
@@ -119,6 +120,35 @@
      chunked with ``prefix_cache``: >= 7 hits, tokens equal to the run
      without the cache (tie rule);
    - a profiled window of 16 decode steps and of 16 chunked mixed steps.
+3b. Speculative serving and resilience: the same model and trace with
+   ``speculative: {enabled: true, k: 4}`` (the draft: the first 6
+   layers), guarded by ``serving.resilience``:
+   - kernel #1 at the verify's S = k + 1 and at S = 9 (k = 8: two query
+     groups) against its plain version, timed at the path's shapes beside
+     SDPA and its bound (the kernels line's ``paged_decode_attention_verify``
+     row);
+   - bf16 speculative serving beside the same trace without it (each run
+     once to warm up, then measured in turn): kernel #1 launches ==
+     ``spec_rounds x (k x 6 + 12)`` (S = 1 and S = k + 1 counted
+     apart), no gather, no plain version, ``degraded_level`` 0; accept
+     rate, tokens per verify, decode tokens/s and TTFT printed;
+   - bf16 chunked at budget 256 (kernel #2 from the mixed rounds, #1 from
+     the speculative rounds) and the int8 pool, with speculation;
+   - fp32 token identity (tie rule) of speculation at k = 4 and k = 8
+     (every kernel call of the k = 8 run held against its plain version)
+     against plain decode and ``generate``;
+   - the same with a draft that agrees more often (the upper 6 layers'
+     output projections x 0.2): k = 4 on the trace at an accept rate of
+     at least 0.2 with full accepts, and one request run to max_model_len
+     at k = 8 whose verify writes past the table land in scratch block 0
+     only, with rounds that append several tokens; tokens equal plain
+     decode's;
+   - an fp32 fault run (``FAULT_PLAN``): a decode fault that exhausts the
+     retries (rebuild and replay), then a slow step; the ladder skips
+     rung 2 (kernel #1 -> gather) on the card and halves the batch cap,
+     and kernel #1 goes on launching; tokens equal the clean run's, no
+     plain version runs, no block leaks;
+   - a profiled window of speculative rounds.
 4. Training end to end: ``initialize`` -> ``train_batch`` on full-width
    GPT-2 with ``bench.py:bench_gpt2``'s configuration plus
    ``optimizer.fused_update``: the tensor-core flash forward, dq and dk/dv
@@ -178,7 +208,9 @@ version's route), which count phase 5's long steps. The first chunked-
 prefill kernel's row (``chunked_prefill_attention``) counts phase 3's
 fp32 chunked run and is timed on the bf16 inputs of the run kernels'
 row (``chunked_prefill_attention_tc``, which counts the bf16 chunked
-run).
+run). The verify row (``paged_decode_attention_verify``, kernel #1 at S =
+k + 1) counts the S = 5 launches of phase 3b's measured bf16 speculative
+run and is timed at S = 5 on the path's shapes.
 """
 
 import json
@@ -333,8 +365,6 @@ def paged_bytes_flops(q, bt, pos, bs):
 
 
 def check_paged_attention(torch, report):
-    import torch.nn.functional as F
-
     from deepspeed_tpu_torch.ops.transformer.paged_attention import (
         paged_decode_attention, paged_decode_attention_reference)
 
@@ -342,7 +372,8 @@ def check_paged_attention(torch, report):
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
-        for s in (1, 5):
+        # S = 9: a speculative verify at k = 8, two query groups of MAX_S
+        for s in (1, 5, 9):
             for wb in (1, 2, 4, 8, 16, 32, 64):
                 if s > wb * bs:
                     continue
@@ -366,75 +397,80 @@ def check_paged_attention(torch, report):
               f"{err:.3g} (atol {KERNEL_TOL[name]})")
     check_paged_splits(torch, int8=False)
 
-    # Timing at the decode path's widest window (64 blocks = 1024
-    # positions), rotating over 8 layers' pools (200 MB of bf16 K/V, of
-    # which the visible rows are about 100 MB, twice the 50 MB L2) so that
-    # each launch finds its pools cold, as a decode step's next layer does.
-    from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
-
-    rule = pa.paged_decode_splits(64 * bs, h, b)
-    timings = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[1]
-        for s in (1, 5):
-            q, pools, bt, pos = paged_case(torch, dtype, b, s, h, d, bs, 64,
-                                           seed=7 + s, layers=8)
-            for kp, vp in pools:       # real keys only: the timing reads no
-                kp[0] = 0.0            # NaN into the plain version
-                vp[0] = 0.0
-            it = {"i": 0}
-
-            def nxt():
-                it["i"] = (it["i"] + 1) % len(pools)
-                return pools[it["i"]]
-
-            def kern():
-                paged_decode_attention(q, *nxt(), None, None, bt, pos,
-                                       block_size=bs)
-
-            kernel_ms = device_ms(torch, kern)[0]
-            host_ms = cuda_ms(kern)
-            # the first version's walk: one block per (head, sequence)
-            first_ms = device_ms(torch, lambda: pa._launch(
-                q, *nxt(), None, None, bt, pos, bs, None, 1))[0]
-            plain_ms = cuda_ms(lambda: paged_decode_attention_reference(
-                q, *nxt(), bt, pos, block_size=bs), iters=20)
-            # yardstick: SDPA over K/V gathered beforehand, same mask
-            length = 64 * bs
-            kpos = torch.arange(length, device="cuda")
-            qpos = pos.long()[:, None] + torch.arange(s, device="cuda")
-            mask = (kpos[None, None] <= qpos[:, :, None])[:, None]
-            gathered = [tuple(p[bt.long()].reshape(b, length, h, d)
-                              .transpose(1, 2).contiguous() for p in pair)
-                        for pair in pools]
-            qt = q.transpose(1, 2).contiguous()
-            git = {"i": 0}
-
-            def gnxt():
-                git["i"] = (git["i"] + 1) % len(gathered)
-                return gathered[git["i"]]
-
-            library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, *gnxt(), attn_mask=mask))[0]
-            nbytes, flops = paged_bytes_flops(q, bt, pos, bs)
-            bound_ms = max(nbytes / HBM_BYTES_PER_S,
-                           flops / FP32_FLOPS) * 1e3
-            timings[(name, s)] = dict(ms=kernel_ms, plain_ms=plain_ms,
-                                      library_ms=library_ms,
-                                      bound_ms=bound_ms, bytes=nbytes)
-            print(f"paged_decode_attention timing {name} B={b} S={s} H={h} "
-                  f"D={d} BS={bs} WB=64 (device time): kernel "
-                  f"{kernel_ms:.4f} ms at {rule} splits (host-paced "
-                  f"{host_ms:.4f} ms; 1 split, the first version's walk, "
-                  f"{first_ms:.4f} ms), plain "
-                  f"{plain_ms:.4f} ms (host-paced), SDPA {library_ms:.4f} "
-                  f"ms, bound {bound_ms:.4f} ms ({nbytes} bytes / 3.35 "
-                  f"TB/s)")
+    timings = {(str(dtype).split(".")[1], s): time_paged(torch, dtype, s)
+               for dtype in (torch.bfloat16, torch.float32) for s in (1, 5)}
     main = timings[("bfloat16", 1)]
     report.update(ms=main["ms"], plain_ms=main["plain_ms"],
                   library_ms=main["library_ms"], bound_ms=main["bound_ms"],
                   bound_by="bytes", max_abs_err=max(worst[("bfloat16", 1)],
                                   worst[("bfloat16", 5)]))
+
+
+def time_paged(torch, dtype, s, seed=None):
+    """Kernel #1 timed at the decode path's widest window (64 blocks =
+    1024 positions, 8 rows, 12 heads, D 64, block 16) with ``s`` queries a
+    row, rotating over 8 layers' pools (200 MB of bf16 K/V, of which the
+    visible rows are about 100 MB, twice the 50 MB L2) so that each launch
+    finds its pools cold, as a decode step's next layer does: the kernel
+    (device time, and host-paced), the first version's one-split walk,
+    the plain version (host-paced), SDPA over K/V gathered beforehand
+    with the same mask, and the bound."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
+
+    h, d, bs, b = 12, 64, 16, 8
+    name = str(dtype).split(".")[1]
+    rule = pa.paged_decode_splits(64 * bs, h, b)
+    q, pools, bt, pos = paged_case(torch, dtype, b, s, h, d, bs, 64,
+                                   seed=7 + s if seed is None else seed,
+                                   layers=8)
+    for kp, vp in pools:       # real keys only: the timing reads no NaN
+        kp[0] = 0.0            # into the plain version
+        vp[0] = 0.0
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % len(pools)
+        return pools[it["i"]]
+
+    def kern():
+        pa.paged_decode_attention(q, *nxt(), None, None, bt, pos,
+                                  block_size=bs)
+
+    kernel_ms = device_ms(torch, kern)[0]
+    host_ms = cuda_ms(kern)
+    # the first version's walk: one block per (head, sequence)
+    first_ms = device_ms(torch, lambda: pa._launch(
+        q, *nxt(), None, None, bt, pos, bs, None, 1))[0]
+    plain_ms = cuda_ms(lambda: pa.paged_decode_attention_reference(
+        q, *nxt(), bt, pos, block_size=bs), iters=20)
+    length = 64 * bs
+    kpos = torch.arange(length, device="cuda")
+    qpos = pos.long()[:, None] + torch.arange(s, device="cuda")
+    mask = (kpos[None, None] <= qpos[:, :, None])[:, None]
+    gathered = [tuple(p[bt.long()].reshape(b, length, h, d)
+                      .transpose(1, 2).contiguous() for p in pair)
+                for pair in pools]
+    qt = q.transpose(1, 2).contiguous()
+    git = {"i": 0}
+
+    def gnxt():
+        git["i"] = (git["i"] + 1) % len(gathered)
+        return gathered[git["i"]]
+
+    library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, *gnxt(), attn_mask=mask))[0]
+    nbytes, flops = paged_bytes_flops(q, bt, pos, bs)
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+    print(f"paged_decode_attention timing {name} B={b} S={s} H={h} D={d} "
+          f"BS={bs} WB=64 (device time): kernel {kernel_ms:.4f} ms at "
+          f"{rule} splits (host-paced {host_ms:.4f} ms; 1 split, the first "
+          f"version's walk, {first_ms:.4f} ms), plain {plain_ms:.4f} ms "
+          f"(host-paced), SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} "
+          f"ms ({nbytes} bytes / 3.35 TB/s)")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bytes=nbytes, first_ms=first_ms)
 
 
 # each row's last query position in the short-context case: a 64-block
@@ -2497,21 +2533,25 @@ def time_fused_ln(torch, dtype, reports, errs):
 # 3. serving end to end
 # ---------------------------------------------------------------------------
 
-def serving_engine(torch, dtype, mode, params, **serving):
+def serving_engine(torch, dtype, mode, params, fault=None, **serving):
     """Full-width GPT-2 behind ``init_serving``: 8 slots, KV block 16, a
     pool of 8 x 1024 positions (plus the scratch block); ``serving`` adds
-    keys of the serving block (chunked prefill, int8 pool, prefix
-    cache)."""
+    keys of the serving block (chunked prefill, int8 pool, prefix cache,
+    speculative decoding, resilience); ``fault``: a
+    ``resilience.fault_injection`` plan."""
     import deepspeed_tpu_torch as dtt
     from deepspeed_tpu_torch.models import make_gpt
 
     with torch.device("cuda"):
         model, _cfg = make_gpt("gpt2", dtype=dtype)
     bs = 16
-    return dtt.init_serving(model, params=params, dtype=dtype, config={
-        "serving": {"max_batch_size": 8, "kv_block_size": bs,
-                    "kv_num_blocks": 8 * 1024 // bs + 1,
-                    "decode_attention": mode, **serving}})
+    config = {"serving": {"max_batch_size": 8, "kv_block_size": bs,
+                          "kv_num_blocks": 8 * 1024 // bs + 1,
+                          "decode_attention": mode, **serving}}
+    if fault is not None:
+        config["resilience"] = {"fault_injection": fault}
+    return dtt.init_serving(model, params=params, dtype=dtype,
+                            config=config)
 
 
 def serving_plain_targets(mode, chunked, prefix):
@@ -2636,6 +2676,7 @@ def serve(torch, dtype, mode, params, requests, wave1=10,
     rids = [srv.submit(p, n) for p, n in requests[:wave1]]
     step_ms, decode_tokens = [], 0
     paged_decode_attention.launches = 0
+    paged_decode_attention.launches_by_queries = {}
     for w in cps.values():
         w.launches = 0
     swap_plain = attention == "plain"
@@ -2647,11 +2688,14 @@ def serve(torch, dtype, mode, params, requests, wave1=10,
         t0 = time.perf_counter()
         while not srv.idle():
             ts = time.perf_counter()
+            before = srv._decode_tokens
             info = srv.step()  # ends in a host fetch: the card is done
             dt = time.perf_counter() - ts
             if info["active"] and (chunked or not info["prefilled"]):
                 step_ms.append(dt * 1e3)
-                decode_tokens += info["active"]
+                # the tokens the round appended (up to k + 1 a row when
+                # speculative)
+                decode_tokens += srv._decode_tokens - before
             if len(rids) == wave1 and (
                     info["finished"] if second_wave == "finish"
                     else rids[0] in info["prefilled"]):
@@ -2659,6 +2703,7 @@ def serve(torch, dtype, mode, params, requests, wave1=10,
         wall = time.perf_counter() - t0
     launches = {"paged_decode_attention": paged_decode_attention.launches,
                 **{CHUNKED_NAMES[r]: w.launches for r, w in cps.items()}}
+    by_queries = dict(paged_decode_attention.launches_by_queries)
     res = srv.results
     for rid, (p, n) in zip(rids, requests):
         r = res.get(rid)
@@ -2675,17 +2720,29 @@ def serve(torch, dtype, mode, params, requests, wave1=10,
             and max(srv.stats["slot_assignments"].values()) < 2:
         fail(f"{label}: no slot served two requests (no backfill)")
     # kernel #2: one call a layer a mixed step on its route (the run
-    # kernels' call launches one or two kernels); #1 one a layer a step
+    # kernels' call launches one or two kernels); #1 one a layer a plain
+    # decode step, and a speculative round's k draft steps of dl layers
+    # (S = 1) plus its verify of every layer (S = k + 1)
     want = dict.fromkeys(launches, 0)
+    n_layers, st = cfg.num_layers, srv.stats
+    spec_rounds = st["spec_rounds"] if mode == "kernel" else 0
+    want_by_s = {}
+    if spec_rounds:
+        k, dl = srv.scfg.spec_k, srv._draft_layers
+        want_by_s = {1: spec_rounds * k * dl, k + 1:
+                     spec_rounds * n_layers}
     if chunked and not swap_plain:
-        want[CHUNKED_NAMES[cp_route]] = \
-            srv.stats["mixed_steps"] * cfg.num_layers
+        want[CHUNKED_NAMES[cp_route]] = st["mixed_steps"] * n_layers
     elif not chunked and mode == "kernel":
-        want["paged_decode_attention"] = \
-            srv.stats["kernel_steps"] * cfg.num_layers
-    if launches != want or (chunked and not swap_plain
-                            and not want[CHUNKED_NAMES[cp_route]]):
-        fail(f"{label}: kernel launches {launches}, expected {want}")
+        plain_rounds = st["kernel_steps"] - spec_rounds
+        if plain_rounds:
+            want_by_s[1] = want_by_s.get(1, 0) + plain_rounds * n_layers
+    want["paged_decode_attention"] = sum(want_by_s.values())
+    if launches != want or by_queries != want_by_s or (
+            chunked and not swap_plain
+            and not want[CHUNKED_NAMES[cp_route]]):
+        fail(f"{label}: kernel launches {launches} (by query count "
+             f"{by_queries}), expected {want} ({want_by_s})")
     called = {k: v for k, v in plain.calls.items() if v}
     if swap_plain and not called:
         fail(f"{label}: the swapped-in plain version never ran")
@@ -2705,7 +2762,12 @@ def serve(torch, dtype, mode, params, requests, wave1=10,
         decode_steps=srv.stats["decode_steps"],
         kernel_steps=srv.stats["kernel_steps"],
         mixed_steps=srv.stats["mixed_steps"],
-        prefix_hits=srv.stats["prefix_hits"])
+        prefix_hits=srv.stats["prefix_hits"], launches_by_queries=by_queries,
+        **{n: srv.stats[n] for n in SPEC_STATS})
+
+
+SPEC_STATS = ("spec_rounds", "spec_proposed", "spec_accepted",
+              "spec_new_tokens")
 
 
 def first_diff(a, b):
@@ -3116,6 +3178,437 @@ def check_serving(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 3b. speculative serving and resilience
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+# the clean traces run guarded: a resilience block that must stay at rung 0
+RESIL_ON = {"resilience": {"enabled": True}}
+
+
+def spec_block(k):
+    return {"speculative": {"enabled": True, "k": k}}
+
+
+def check_verify_kernel(torch, report, k):
+    """Kernel #1 at the verify's S = k + 1 (and S = 9, k = 8's two query
+    groups) against its plain version, bf16 and fp32, at a 4- and a
+    64-block window; then timed at the serving path's shapes
+    (:func:`time_paged`). Fills the kernels line's verify row."""
+    from deepspeed_tpu_torch.ops.transformer.paged_attention import (
+        paged_decode_attention, paged_decode_attention_reference)
+
+    h, d, bs, b = 12, 64, 16, 8
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for s in (k + 1, 9):
+            for wb in (4, 64):
+                q, pools, bt, pos = paged_case(torch, dtype, b, s, h, d, bs,
+                                               wb, seed=300 + wb + s)
+                kp, vp = pools[0]
+                got = paged_decode_attention(q, kp, vp, None, None, bt, pos,
+                                             block_size=bs)
+                want = paged_decode_attention_reference(q, kp, vp, bt, pos,
+                                                        block_size=bs)
+                err = (got.float() - want.float()).abs().max().item()
+                if not torch.isfinite(got).all() or err > KERNEL_TOL[name]:
+                    fail(f"verify kernel #1 {name} S={s} WB={wb}: max |err| "
+                         f"{err} > {KERNEL_TOL[name]} or non-finite")
+                if name == "bfloat16" and s == k + 1:
+                    worst = max(worst, err)
+    t = time_paged(torch, torch.bfloat16, k + 1, seed=41)
+    t9 = time_paged(torch, torch.bfloat16, 9, seed=43)
+    print(f"verify kernel #1, bf16, S={k + 1} (k={k}): {t['ms']:.4f} ms, "
+          f"SDPA {t['library_ms']:.4f}, bound {t['bound_ms']:.4f}, ratio to "
+          f"SDPA {t['ms'] / t['library_ms']:.3f}; S=9 (k=8, grid z=2) "
+          f"{t9['ms']:.4f} ms, SDPA {t9['library_ms']:.4f}")
+    report.update(ms=t["ms"], plain_ms=t["plain_ms"],
+                  library_ms=t["library_ms"], bound_ms=t["bound_ms"],
+                  bound_by="bytes", max_abs_err=worst)
+    return {"verify_ms": t["ms"], "verify_sdpa_ms": t["library_ms"],
+            "verify_bound_ms": t["bound_ms"], "verify_s9_ms": t9["ms"],
+            "verify_s9_sdpa_ms": t9["library_ms"]}
+
+
+def spec_summary(m, k):
+    rounds, proposed = m["spec_rounds"], m["spec_proposed"]
+    return {"spec_rounds": rounds, "accept_rate":
+            m["spec_accepted"] / max(1, proposed),
+            "tokens_per_round": m["spec_new_tokens"] / max(1, rounds),
+            "tokens_per_row_verify":
+                m["spec_new_tokens"] / max(1, proposed / k),
+            "launches_by_queries": m["launches_by_queries"]}
+
+
+def clean_resilience(srv, label):
+    """A clean trace ran guarded and never left rung 0."""
+    resil = srv._resil
+    if resil is None or resil.degraded_level != 0 or any(
+            resil.counters.values()):
+        fail(f"{label}: resilience manager {resil and resil.counters}, "
+             f"degraded level {resil and resil.degraded_level} on a clean "
+             f"trace")
+
+
+def profile_spec(torch, params, requests, steps=6):
+    """``steps`` speculative rounds of the bf16 kernel path at k = 4: the
+    8 longest requests admitted, no prefill in the window."""
+    srv = serving_engine(torch, torch.bfloat16, "kernel", params,
+                         **spec_block(SPEC_K))
+    for p, n in sorted(requests, key=lambda r: -r[1])[:8]:
+        srv.submit(p, n)
+    while srv.sched.queue_depth:
+        srv.step()
+    rounds = srv.stats["spec_rounds"]
+
+    def spec_round(info):
+        if info["prefilled"] or not info["active"]:
+            fail(f"spec profile window is not speculative decode: {info}")
+
+    out = profile_steps(torch, srv, steps, f"speculative rounds (bf16, "
+                        f"k={SPEC_K})", spec_round)
+    if srv.stats["spec_rounds"] - rounds != steps:
+        fail("spec profile: a step of the window was not a spec round")
+    return out
+
+
+def check_speculative(torch, card, report):
+    """Phase 3b on full-width GPT-2 (random weights, seed 0), phase 3's
+    16-request trace: bf16 speculative serving at k = 4 (draft = the first
+    6 layers) beside the same trace without it, guarded by resilience;
+    chunked at budget 256 and the int8 pool with speculation; fp32 token
+    identity at k = 4 and 8 against plain decode and ``generate``; the
+    same with a draft that agrees more often, and a run to max_model_len
+    whose verify writes pass the table; a fault run that recovers and
+    climbs the ladder; the verify's S = k + 1 launch of kernel #1
+    timed."""
+    from deepspeed_tpu_torch.models import GPT_CONFIGS, init_gpt_params
+
+    t_phase = time.perf_counter()
+    cfg = GPT_CONFIGS["gpt2"]
+    params = init_gpt_params(cfg, seed=0)
+    requests = trace(cfg)
+    plens = [len(p) for p, _ in requests]
+    bf16, fp32 = torch.bfloat16, torch.float32
+    k = SPEC_K
+    spec = spec_block(k)
+    out = {"verify": check_verify_kernel(torch, report, k)}
+
+    # -- bf16 speculative and plain serving, each run once to warm up, then
+    # measured in turn
+    serve(torch, bf16, "kernel", params, requests, **RESIL_ON)
+    serve(torch, bf16, "kernel", params, requests, **spec, **RESIL_ON)
+    srv_p, toks_p, mp = serve(torch, bf16, "kernel", params, requests,
+                              **RESIL_ON)
+    srv_s, toks_s, ms = serve(torch, bf16, "kernel", params, requests,
+                              **spec, **RESIL_ON)
+    clean_resilience(srv_p, "bf16 plain")
+    clean_resilience(srv_s, "bf16 speculative")
+    if srv_s._draft_layers != cfg.num_layers // 2 or not ms["spec_rounds"] \
+            or ms["kernel_steps"] != ms["spec_rounds"]:
+        fail(f"bf16 speculative: draft {srv_s._draft_layers} layers, "
+             f"{ms['spec_rounds']} spec rounds of {ms['kernel_steps']}")
+    report["launches"] = ms["launches_by_queries"][k + 1]
+    rows = {}
+    for label, m in (("plain", mp), ("speculative", ms)):
+        rows[label] = {
+            "decode_tokens_per_s": m["decode_tokens"]
+            / (sum(m["step_ms"]) / 1e3),
+            "decode_step_ms_median": median(m["step_ms"]),
+            "ttft_ms_median": median(m["ttft_ms"]),
+            "ttft_ms_p90": quantile(m["ttft_ms"], 0.9),
+            "generated_tokens_per_s_over_wall": m["gen_tokens_per_s"],
+            "decode_steps": m["decode_steps"], "wall_s": m["wall_s"],
+            "kernel1_launches": m["launches"]["paged_decode_attention"]}
+    rows["speculative"].update(spec_summary(ms, k))
+    diffs = [(i, first_diff(a, b)) for i, (a, b) in
+             enumerate(zip(toks_s, toks_p)) if a != b]
+    rows["speculative"]["bf16_requests_differing_from_plain"] = len(diffs)
+    print(f"serving bf16 speculative k={k} (kernel #1 launches == "
+          f"spec_rounds x (k x 6 + 12), no gather, no plain version, "
+          f"degraded_level 0) beside the same trace without it: "
+          f"{json.dumps(rows)}")
+    print(f"bf16 speculative vs plain (information; bf16 logits differ "
+          f"near ties): {len(diffs)} of {len(requests)} requests differ, "
+          f"(request, first differing position): {diffs}")
+    sp, pl = rows["speculative"], rows["plain"]
+    print(f"serving bf16 speculative: decode {sp['decode_tokens_per_s']:.1f} "
+          f"tokens/s against {pl['decode_tokens_per_s']:.1f} plain (ratio "
+          f"{sp['decode_tokens_per_s'] / pl['decode_tokens_per_s']:.4f}), "
+          f"TTFT median {sp['ttft_ms_median']:.1f} ms against "
+          f"{pl['ttft_ms_median']:.1f}, accept rate {sp['accept_rate']:.4f}"
+          f" ({card})")
+    out["bf16"] = rows
+
+    # -- chunked at budget 256 and the int8 pool, with speculation
+    for label, extra in (("chunked", {"chunked_prefill":
+                                      {"token_budget": 256}}),
+                         ("int8", {"int8_kv_cache": True})):
+        srv, _toks, m = serve(torch, bf16, "kernel", params, requests,
+                              **spec, **extra, **RESIL_ON)
+        clean_resilience(srv, f"bf16 {label} speculative")
+        if not m["spec_rounds"] or (label == "chunked"
+                                    and not m["mixed_steps"]):
+            fail(f"bf16 {label} speculative: {m['spec_rounds']} spec "
+                 f"rounds, {m['mixed_steps']} mixed steps")
+        row = {"mixed_steps": m["mixed_steps"], "launches": m["launches"],
+               **spec_summary(m, k), **step_summary(m)}
+        print(f"serving bf16 {label} + speculative k={k}: {json.dumps(row)}")
+        out[label] = row
+
+    # -- fp32 token identity: speculative at k = 4 and k = 8 (every kernel
+    # call of the k = 8 run held against its plain version) against plain
+    # decode and generate
+    srv_f, toks_f, _ = serve(torch, fp32, "kernel", params, requests)
+    eng = srv_f.engine
+    _srv, toks4, m4 = serve(torch, fp32, "kernel", params, requests, **spec,
+                            **RESIL_ON)
+    _srv, toks8, m8 = serve(torch, fp32, "kernel", params, requests,
+                            attention="both", **spec_block(8), **RESIL_ON)
+    ties = check_identity(torch, eng, "fp32 spec k=4 vs plain", toks4,
+                          toks_f, plens)
+    ties += check_identity(torch, eng, "fp32 spec k=8 vs plain", toks8,
+                           toks_f, plens)
+    for i in sorted(range(len(requests)), key=lambda i: plens[i])[::5]:
+        p, n = requests[i]
+        gen = eng.generate([p], max_new_tokens=n)[0].tolist()
+        for kk, toks in ((4, toks4), (8, toks8)):
+            ties += check_identity(
+                torch, eng, f"fp32 spec k={kk} vs generate (request {i})",
+                [toks[i]], [gen], [plens[i]])
+    print(f"fp32 speculative identity: k=4 {json.dumps(spec_summary(m4, 4))}"
+          f", k=8 {json.dumps(spec_summary(m8, 8))}, every kernel #1 call "
+          f"of the k=8 run ({m8['checked_calls']}) held against its plain "
+          f"version, max |err| {m8['max_err']:.3g} (atol 1e-5); ties "
+          f"{ties}")
+    out["fp32"] = {"ties": ties, "k4": spec_summary(m4, 4),
+                   "k8": spec_summary(m8, 8),
+                   "k8_checked_calls": m8["checked_calls"],
+                   "k8_max_err": m8["max_err"]}
+
+    # -- fp32 with a draft that agrees more often: multi-token appends, full
+    # accepts, and a run that ends at max_model_len at k = 8
+    out["accepting"] = check_accepting_spec(torch, params, requests, plens)
+
+    # -- the fault run: a decode fault wide enough to exhaust the retries
+    # (rebuild + replay), then a slow step: the ladder climbs past rung 2
+    out["fault"] = check_fault_run(torch, params, requests, plens, eng,
+                                   toks4)
+    out["profile"] = profile_spec(torch, params, requests)
+    print(f"phase 3b: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# The upper layers' output projections are scaled by this in the
+# accepting runs, so the first 6 layers' draft agrees with the target on
+# most tokens (``tests/test_torch_spec.py`` scales its tiny GPT so).
+DRAFT_SCALE = 0.2
+# the accept rate the accepting trace must reach (0.283 at full width on
+# an H100: a quarter of the drafts, and full accepts, are enough to drive
+# multi-token appends and the bonus token)
+ACCEPT_MIN = 0.2
+
+
+def draft_friendly(params, cfg, dl):
+    """``params`` with layers ``dl..``'s attention and MLP output
+    projections scaled by ``DRAFT_SCALE``."""
+    out = dict(params)
+    for i in range(dl, cfg.num_layers):
+        for site in ("c_proj", "mlp_proj"):
+            for leaf in ("weight", "bias"):
+                key = f"h.{i}.{site}.{leaf}"
+                out[key] = params[key] * DRAFT_SCALE
+    return out
+
+
+class RoundGains:
+    """The tokens each row gains in each speculative round while a run
+    lasts (``gains``; a full accept with its bonus token gains k + 1)."""
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.serving.engine import ServeEngine
+
+        self.cls, self.orig, self.gains = (ServeEngine,
+                                           ServeEngine._spec_round, [])
+        orig, gains = self.orig, self.gains
+
+        def noted(srv, active, info):
+            before = [len(s.tokens) for s in active]
+            n = orig(srv, active, info)
+            gains.extend(len(s.tokens) - b for s, b in zip(active, before))
+            return n
+
+        ServeEngine._spec_round = noted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._spec_round = self.orig
+
+
+def check_accepting_spec(torch, params, requests, plens):
+    """fp32 speculation with a draft that agrees more often
+    (:func:`draft_friendly`): the 16-request trace at k = 4 equals plain
+    decode under the tie rule, with an accept rate of at least
+    ``ACCEPT_MIN`` and rows that accept all 4 drafts and take the bonus
+    token; then one request whose run ends at max_model_len, at k = 8:
+    its last verify chunks write past the row's table, those writes land
+    in scratch block 0 (no pool block outside the row's own and block 0
+    changes), rounds append several tokens, and its tokens equal plain
+    decode's."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.models import GPT_CONFIGS
+
+    cfg = GPT_CONFIGS["gpt2"]
+    fp32 = torch.float32
+    sparams = draft_friendly(params, cfg, cfg.num_layers // 2)
+    srv_p, toks_p, mp = serve(torch, fp32, "kernel", sparams, requests)
+    eng = srv_p.engine
+    with RoundGains() as trace_gains:
+        srv_s, toks_s, m = serve(torch, fp32, "kernel", sparams, requests,
+                                 **spec_block(SPEC_K), **RESIL_ON)
+    clean_resilience(srv_s, "fp32 accepting speculative")
+    summary = spec_summary(m, SPEC_K)
+    full = trace_gains.gains.count(SPEC_K + 1)
+    if summary["accept_rate"] < ACCEPT_MIN or not full:
+        fail(f"fp32 accepting speculative: accept rate "
+             f"{summary['accept_rate']} < {ACCEPT_MIN}, or no full accept "
+             f"({full} of {len(trace_gains.gains)} row rounds)")
+    ties = check_identity(torch, eng, "fp32 accepting spec k=4 vs plain",
+                          toks_s, toks_p, plens)
+
+    # one request to max_model_len at k = 8, beside plain decode
+    k = 8
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(0, cfg.vocab_size, 1000).tolist()
+    srv = serving_engine(torch, fp32, "kernel", sparams, **spec_block(k),
+                         **RESIL_ON)
+    n_new = srv.max_model_len - len(prompt)
+    before = [tuple(t.clone() for t in layer if t is not None)
+              for layer in srv._pools]
+    rid = srv.submit(prompt, n_new)
+    row_blocks, clamped = set(), 0
+    alloc = srv.pool.alloc
+
+    def alloc_noted(n):          # the row's blocks: all the pool hands out
+        got = alloc(n)
+        row_blocks.update(got or ())
+        return got
+
+    srv.pool.alloc = alloc_noted
+    with PlainCalls(serving_plain_targets("kernel", False, False)) as plain, \
+            RoundGains() as max_len_gains:
+        while not srv.idle():
+            # a round from pos writes pos..pos + k; past max_model_len is
+            # past the row's table
+            seq = next(iter(srv.sched.running.values()), None)
+            clamped += seq is not None and seq.pos + k >= srv.max_model_len
+            srv.step()
+    gains = max_len_gains.gains
+    toks = srv.results[rid]["tokens"]
+    if srv.results[rid]["status"] != "finished" \
+            or len(toks) != srv.max_model_len:
+        fail(f"spec to max_model_len: {srv.results[rid]['status']}, "
+             f"{len(toks)} tokens")
+    if any(plain.calls.values()):
+        fail(f"spec to max_model_len: a plain version ran: {plain.calls}")
+    if not clamped or max(gains) < 2:
+        fail(f"spec to max_model_len: {clamped} rounds wrote past the "
+             f"table, tokens per round {gains}")
+    others = torch.ones(srv.scfg.kv_num_blocks, dtype=torch.bool,
+                        device="cuda")
+    others[sorted(row_blocks | {0})] = False
+    changed = sum(int((a[others] != b[others]).any())
+                  for layer, was in zip(srv._pools, before)
+                  for a, b in zip((t for t in layer if t is not None), was))
+    if changed or srv.pool.used_blocks:
+        fail(f"spec to max_model_len: {changed} pool tensors changed "
+             f"outside the row's {len(row_blocks)} blocks and scratch "
+             f"block 0; {srv.pool.used_blocks} blocks leaked")
+    ref = serving_engine(torch, fp32, "kernel", sparams)
+    ref_rid = ref.submit(prompt, n_new)
+    want = ref.run_until_complete()[ref_rid]["tokens"]
+    ties += check_identity(torch, eng, "fp32 spec k=8 to max_model_len vs "
+                           "plain", [toks], [want], [len(prompt)])
+    rate = {label: mm["decode_tokens"] / (sum(mm["step_ms"]) / 1e3)
+            for label, mm in (("plain", mp), ("speculative", m))}
+    row = {"k4": summary, "k4_full_accepts": full,
+           "k4_row_rounds": len(trace_gains.gains), "ties": ties,
+           "decode_tokens_per_s": rate,
+           "decode_ratio": rate["speculative"] / rate["plain"],
+           "max_len_k8": {"rounds": len(gains), "tokens_per_round": gains,
+                          "rounds_past_the_table": clamped,
+                          "row_blocks": len(row_blocks)}}
+    print(f"fp32 accepting speculative (upper layers' output projections "
+          f"x {DRAFT_SCALE}): {json.dumps(row)}")
+    return row
+
+
+FAULT_PLAN = {"serve_decode_fault_at_step": 6, "serve_decode_fault_count": 3,
+              "serve_slow_step_at_step": 20, "serve_slow_step_seconds": 0.5}
+FAULT_RESIL = {"max_retries": 2, "retry_base_sec": 0.01, "degrade_after": 1,
+               "slow_step_ms": 400.0}
+
+
+def check_fault_run(torch, params, requests, plens, eng, clean):
+    """fp32 speculative k = 4 with ``FAULT_PLAN``: dispatch attempts 6-8
+    fail (the first attempt and both retries), so the manager rebuilds the
+    pools and replays every live sequence, then the next dispatch runs
+    (rung 1: speculation off); attempt 20 is slowed past ``slow_step_ms``,
+    and the ladder skips rung 2 (kernel #1 -> gather) on the card for rung
+    3 (the batch cap halved). Tokens equal the clean run's (tie rule),
+    kernel #1 goes on launching after the climb, no plain version or
+    gather runs, no block leaks."""
+    from deepspeed_tpu_torch.ops.transformer.paged_attention import \
+        paged_decode_attention
+
+    srv = serving_engine(torch, torch.float32, "kernel", params,
+                         fault=FAULT_PLAN, **spec_block(SPEC_K),
+                         resilience=FAULT_RESIL)
+    rids = [srv.submit(p, n) for p, n in requests]
+    paged_decode_attention.launches = 0
+    at_climb = None
+    t0 = time.perf_counter()
+    with PlainCalls(serving_plain_targets("kernel", False, False)) as plain:
+        while not srv.idle():
+            srv.step()
+            if at_climb is None and srv._resil.degraded_level >= 2:
+                at_climb = paged_decode_attention.launches
+    wall = time.perf_counter() - t0
+    resil = srv._resil
+    res = srv.results
+    toks = [res[r]["tokens"] for r in rids]
+    if any(res[r]["status"] != "finished" for r in rids):
+        fail(f"fault run: statuses {[res[r]['status'] for r in rids]}")
+    if resil.counters["recoveries"] < 1 or resil.counters["retries"] < 2:
+        fail(f"fault run: counters {resil.counters}")
+    if resil.degraded_level != 3 or srv._attn_impl != "kernel" \
+            or srv.sched.slot_cap != srv.scfg.max_batch_size // 2 \
+            or at_climb is None \
+            or paged_decode_attention.launches <= at_climb:
+        fail(f"fault run: degraded level {resil.degraded_level}, attention "
+             f"{srv._attn_impl}, slot cap {srv.sched.slot_cap}; kernel #1 "
+             f"launches {paged_decode_attention.launches}, {at_climb} at "
+             f"the climb past rung 1")
+    if any(plain.calls.values()):
+        fail(f"fault run: a plain version ran: {plain.calls}")
+    if srv.pool.used_blocks != 0:
+        fail(f"fault run: {srv.pool.used_blocks} KV blocks leaked")
+    ties = check_identity(torch, eng, "fp32 fault run vs clean speculative",
+                          toks, clean, plens)
+    row = {"counters": resil.counters, "anomalies": resil.anomalies,
+           "degraded_level": resil.degraded_level,
+           "kernel1_launches_at_climb": at_climb,
+           "kernel1_launches": paged_decode_attention.launches,
+           "spec_rounds": srv.stats["spec_rounds"], "ties": ties,
+           "wall_s": wall}
+    print(f"fp32 fault run (plan {json.dumps(FAULT_PLAN)}, resilience "
+          f"{json.dumps(FAULT_RESIL)}): {json.dumps(row)}")
+    return row
+
+
 KERNELS = (
     ("paged_decode_attention", "paged_attention",
      "deepspeed_tpu/ops/transformer/paged_attention.py:69"),
@@ -3174,6 +3667,8 @@ KERNELS = (
      "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:88"),
     ("chunked_prefill_attention_tc", "chunked_prefill",
      "deepspeed_tpu/ops/transformer/chunked_prefill.py:65"),
+    ("paged_decode_attention_verify", "paged_attention",
+     "deepspeed_tpu/ops/transformer/paged_attention.py:69"),
 )
 # the flash kernels of the 16-bit training step: the tensor-core forward,
 # dq and dk/dv; the FMA kernels take the fp32 path
@@ -3791,10 +4286,11 @@ def main() -> int:
     args = sys.argv[1:]
     only = (set(args[1].split(",")) if len(args) == 2
             and args[0] == "--only" else None)
-    if args and (not only or not only <= {"kernels", "sparse", "chunked"}
+    if args and (not only
+                 or not only <= {"kernels", "sparse", "chunked", "spec"}
                  or ("kernels" in only and len(only) > 1)):
         fail(f"unknown arguments {args} (none, --only kernels, or --only "
-             f"with sparse, chunked or both, comma-separated)")
+             f"with sparse, chunked, spec or several, comma-separated)")
     part = only is not None and "kernels" not in only
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3838,6 +4334,9 @@ def main() -> int:
             "dq_tc": reports["sparse_attention_bwd_dq_tc"],
             "dkv_tc": reports["sparse_attention_bwd_dkv_tc"]})
     if part:
+        if "spec" in only:
+            check_speculative(torch, card,
+                              reports["paged_decode_attention_verify"])
         return 0
     check_fused_ln(torch, {
         ("bfloat16", "fwd"): reports["fused_ln_matmul_fwd_tc"],
@@ -3860,6 +4359,9 @@ def main() -> int:
         serving["chunked"]["kernel_launches"]
     reports["chunked_prefill_attention"]["launches"] = \
         serving["chunked_fp32"]["kernel_launches"]
+
+    # 3b. speculative serving and resilience (fills the verify row)
+    check_speculative(torch, card, reports["paged_decode_attention_verify"])
 
     # 4. the training path end to end, and its fp32 comparison
     training = check_training(torch, card)

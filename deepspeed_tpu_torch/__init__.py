@@ -10,8 +10,10 @@ with the flash-attention and fused-Adam kernels, block-sparse attention
 (the ``sparse_attention`` block) with its own kernels, the GPT's fused
 LayerNorm + projection sites (``GPTConfig.fused_ln``) with theirs, and
 continuous-batching GPT serving (``init_serving``) over the inference engine
-(``init_inference``) with the paged decode-attention kernel; every kernel
-written in CUDA for Hopper.
+(``init_inference``) with the paged decode-attention kernel, speculative
+decoding and serving resilience (deadlines, shedding, recovery, the
+degradation ladder, ``FaultPlan`` chaos); every kernel written in CUDA for
+Hopper.
 """
 
 import json
@@ -120,21 +122,28 @@ def init_serving(model=None,
     """Serving engine entry: continuous batching over ``init_inference``.
 
     ``config``: a dict (or JSON path) whose ``serving`` block configures
-    the engine (``ServingConfig`` keys). Keys the port has not ported yet
-    raise ``ConfigError``. Other kwargs go to ``init_inference`` (params,
-    dtype, device, ...). Returns a step-driven ``ServeEngine``.
+    the engine (``ServingConfig`` keys) and whose
+    ``resilience.fault_injection`` block (with the ``DSTPU_FAULT_PLAN``
+    override) is the serving chaos plan, as in the JAX package. Keys the
+    port has not ported yet raise ``ConfigError``. Other kwargs go to
+    ``init_inference`` (params, dtype, device, ...). Returns a step-driven
+    ``ServeEngine``.
     """
     from deepspeed_tpu_torch.config.config import (ServingConfig,
                                                    check_serving_blocks)
+    from deepspeed_tpu_torch.resilience import FaultPlan
     from deepspeed_tpu_torch.serving.engine import ServeEngine
 
     if isinstance(config, str):
         with open(config) as f:
             config = json.load(f)
     config = dict(config or {})
-    check_serving_blocks(config)
+    fault_block = check_serving_blocks(config)
     scfg = ServingConfig.from_dict(config.get("serving"))
-    return ServeEngine(init_inference(model, **kwargs), config=scfg)
+    fault_plan = (FaultPlan.resolve(fault_block) if fault_block is not None
+                  else None)
+    return ServeEngine(init_inference(model, **kwargs), config=scfg,
+                       fault_plan=fault_plan)
 
 
 __all__ = ["initialize", "init_inference", "init_serving", "log_dist",

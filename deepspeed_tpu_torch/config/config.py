@@ -67,6 +67,14 @@ class ServingConfig:
     ``prefix_cache``: share full prompt-head blocks between requests.
     ``chunked_prefill`` / ``chunked_token_budget``: chunked-prefill
     admission, at most ``chunked_token_budget`` tokens per mixed step.
+    ``spec_decode`` / ``spec_k`` / ``spec_draft_layers``: speculative
+    decoding, ``k`` draft tokens a round from the target's first
+    ``draft_layers`` layers (None: half of them); greedy only.
+    ``resilience`` and the ``resil_*`` fields: deadlines and ``cancel``,
+    the admission gate (``max_queue_depth``, ``max_queue_wait_ms``),
+    decode recovery (``max_retries``, ``retry_base_sec``) and the
+    degradation ladder (``degrade_after`` anomalies a rung;
+    ``slow_step_ms`` marks a slow decode step as one).
     """
 
     max_batch_size: int = C.SERVING_MAX_BATCH_SIZE_DEFAULT
@@ -83,6 +91,17 @@ class ServingConfig:
     prefix_cache: bool = C.SERVING_PREFIX_CACHE_DEFAULT
     chunked_prefill: bool = False
     chunked_token_budget: int = C.SERVING_CHUNKED_TOKEN_BUDGET_DEFAULT
+    spec_decode: bool = False
+    spec_k: int = C.SERVING_SPEC_K_DEFAULT
+    spec_draft_layers: Optional[int] = None
+    resilience: bool = False
+    resil_max_queue_depth: Optional[int] = None
+    resil_max_queue_wait_ms: Optional[float] = None
+    resil_default_deadline_ms: Optional[float] = None
+    resil_max_retries: int = C.SERVING_RESIL_MAX_RETRIES_DEFAULT
+    resil_retry_base_sec: float = C.SERVING_RESIL_RETRY_BASE_SEC_DEFAULT
+    resil_degrade_after: int = C.SERVING_RESIL_DEGRADE_AFTER_DEFAULT
+    resil_slow_step_ms: Optional[float] = None
 
     def __post_init__(self):
         if self.max_batch_size < 1:
@@ -116,6 +135,28 @@ class ServingConfig:
                 "serving.chunked_prefill requires temperature == 0 "
                 "(greedy): the contract with the bucketed path is token "
                 "identity")
+        if self.spec_k < 1:
+            raise ConfigError("serving.speculative.k must be >= 1")
+        if self.spec_draft_layers is not None and self.spec_draft_layers < 1:
+            raise ConfigError(
+                "serving.speculative.draft_layers must be >= 1")
+        if self.spec_decode and self.temperature != 0.0:
+            raise ConfigError(
+                "serving.speculative requires temperature == 0 (greedy): "
+                "the accept rule's contract is token identity with greedy "
+                "decode")
+        for key, lo, strict in (
+                ("max_queue_depth", 1, False),
+                ("max_queue_wait_ms", 0, True),
+                ("default_deadline_ms", 0, True),
+                ("max_retries", 0, False),
+                ("retry_base_sec", 0, True),
+                ("degrade_after", 1, False),
+                ("slow_step_ms", 0, True)):
+            v = getattr(self, f"resil_{key}")
+            if v is not None and (v <= lo if strict else v < lo):
+                raise ConfigError(f"serving.resilience.{key} must be "
+                                  f"{'>' if strict else '>='} {lo}")
 
     @classmethod
     def from_dict(cls, d: Optional[Dict[str, Any]]) -> "ServingConfig":
@@ -130,8 +171,6 @@ class ServingConfig:
         # without ``enabled``, for a non-empty block
         spec = _as_block(d.get(C.SERVING_SPECULATIVE),
                          f"serving.{C.SERVING_SPECULATIVE}")
-        if _flag(spec, C.SUB_BLOCK_ENABLED):
-            raise not_yet_ported(f"serving.{C.SERVING_SPECULATIVE}")
         resil = _as_block(d.get(C.SERVING_RESILIENCE),
                           f"serving.{C.SERVING_RESILIENCE}")
         unknown = set(resil) - C.SERVING_RESILIENCE_KEYS
@@ -139,8 +178,10 @@ class ServingConfig:
             raise ConfigError(
                 f"unknown serving.resilience keys {sorted(unknown)}; "
                 f"expected a subset of {sorted(C.SERVING_RESILIENCE_KEYS)}")
-        if bool(resil.get(C.SUB_BLOCK_ENABLED, bool(resil))):
-            raise not_yet_ported(f"serving.{C.SERVING_RESILIENCE}")
+
+        def opt(block, key, cast):
+            return cast(block[key]) if block.get(key) is not None else None
+
         # as the reference parses it: a present key (even a falsy one,
         # read as an empty block) turns chunked prefill on by default
         chunked = d.get(C.SERVING_CHUNKED_PREFILL)
@@ -187,15 +228,38 @@ class ServingConfig:
             chunked_token_budget=int(_get(
                 chunked, C.SERVING_CHUNKED_TOKEN_BUDGET,
                 C.SERVING_CHUNKED_TOKEN_BUDGET_DEFAULT)),
+            spec_decode=bool(spec.get(C.SUB_BLOCK_ENABLED, False)),
+            spec_k=int(spec.get(C.SERVING_SPEC_K, C.SERVING_SPEC_K_DEFAULT)),
+            spec_draft_layers=opt(spec, C.SERVING_SPEC_DRAFT_LAYERS, int),
+            resilience=bool(resil.get(C.SUB_BLOCK_ENABLED, bool(resil))),
+            resil_max_queue_depth=opt(resil, C.SERVING_RESIL_MAX_QUEUE_DEPTH,
+                                      int),
+            resil_max_queue_wait_ms=opt(
+                resil, C.SERVING_RESIL_MAX_QUEUE_WAIT_MS, float),
+            resil_default_deadline_ms=opt(
+                resil, C.SERVING_RESIL_DEFAULT_DEADLINE_MS, float),
+            resil_max_retries=int(resil.get(
+                C.SERVING_RESIL_MAX_RETRIES,
+                C.SERVING_RESIL_MAX_RETRIES_DEFAULT)),
+            resil_retry_base_sec=float(resil.get(
+                C.SERVING_RESIL_RETRY_BASE_SEC,
+                C.SERVING_RESIL_RETRY_BASE_SEC_DEFAULT)),
+            resil_degrade_after=int(resil.get(
+                C.SERVING_RESIL_DEGRADE_AFTER,
+                C.SERVING_RESIL_DEGRADE_AFTER_DEFAULT)),
+            resil_slow_step_ms=opt(resil, C.SERVING_RESIL_SLOW_STEP_MS,
+                                   float),
         )
 
 
-def check_serving_blocks(config: Dict[str, Any]) -> None:
-    """Refuse the top-level blocks of an ``init_serving`` config that the
-    port cannot honour yet, read as the reference's ``init_serving`` reads
-    them: a telemetry block with ``enabled: true``, a resilience block
-    with a ``fault_injection`` plan (serving chaos), and any key it does
-    not know."""
+def check_serving_blocks(config: Dict[str, Any]
+                         ) -> Optional[Dict[str, Any]]:
+    """Check the top-level blocks of an ``init_serving`` config, read as
+    the reference's ``init_serving`` reads them: a telemetry block with
+    ``enabled: true`` is refused as not yet ported, and so is any key it
+    does not know. Returns the ``resilience.fault_injection`` block (the
+    serving chaos plan ``FaultPlan.resolve`` reads), or None when the
+    block has none."""
     unknown = set(config) - {C.SERVING, C.TELEMETRY, C.RESILIENCE}
     if unknown:
         raise ConfigError(
@@ -204,10 +268,8 @@ def check_serving_blocks(config: Dict[str, Any]) -> None:
     if _flag(_as_block(config.get(C.TELEMETRY), C.TELEMETRY),
              C.SUB_BLOCK_ENABLED):
         raise not_yet_ported("the telemetry block")
-    if _as_block(config.get(C.RESILIENCE), C.RESILIENCE).get(
-            "fault_injection"):
-        raise not_yet_ported("the resilience block (serving fault "
-                             "injection)")
+    return _as_block(config.get(C.RESILIENCE), C.RESILIENCE).get(
+        C.FAULT_INJECTION) or None
 
 
 # ---------------------------------------------------------------------------

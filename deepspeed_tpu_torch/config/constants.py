@@ -122,19 +122,38 @@ SERVING_CHUNKED_PREFILL = "chunked_prefill"
 SERVING_CHUNKED_ENABLED = "enabled"
 SERVING_CHUNKED_TOKEN_BUDGET = "token_budget"  # tokens per mixed step
 SERVING_CHUNKED_TOKEN_BUDGET_DEFAULT = 64
-# Keys of the JAX package's serving block whose features are not ported
-# yet. Each is accepted only in its off state.
-SERVING_SPECULATIVE = "speculative"
-SERVING_RESILIENCE = "resilience"
 SUB_BLOCK_ENABLED = "enabled"
+# Speculative decoding: a draft (the target's first ``draft_layers``
+# layers) proposes ``k`` tokens a round, one target pass verifies them.
+# On only with ``enabled: true``; greedy only.
+SERVING_SPECULATIVE = "speculative"
+SERVING_SPEC_K = "k"                          # draft tokens per round
+SERVING_SPEC_K_DEFAULT = 4
+SERVING_SPEC_DRAFT_LAYERS = "draft_layers"    # None -> num_layers // 2
+# Serving resilience (serving/resilience.py): deadlines and cancel,
+# admission control and shedding, decode recovery, the degradation
+# ladder. A present block defaults to enabled.
+SERVING_RESILIENCE = "resilience"
+SERVING_RESIL_MAX_QUEUE_DEPTH = "max_queue_depth"      # None: unbounded
+SERVING_RESIL_MAX_QUEUE_WAIT_MS = "max_queue_wait_ms"  # None: no wait gate
+SERVING_RESIL_DEFAULT_DEADLINE_MS = "default_deadline_ms"  # None: none
+SERVING_RESIL_MAX_RETRIES = "max_retries"    # decode-dispatch retries
+SERVING_RESIL_MAX_RETRIES_DEFAULT = 2
+SERVING_RESIL_RETRY_BASE_SEC = "retry_base_sec"
+SERVING_RESIL_RETRY_BASE_SEC_DEFAULT = 0.05
+SERVING_RESIL_DEGRADE_AFTER = "degrade_after"  # anomalies per ladder rung
+SERVING_RESIL_DEGRADE_AFTER_DEFAULT = 2
+SERVING_RESIL_SLOW_STEP_MS = "slow_step_ms"  # None: no slow-step anomaly
 # the keys the reference's serving.resilience block takes
 SERVING_RESILIENCE_KEYS = frozenset({
-    SUB_BLOCK_ENABLED, "max_queue_depth", "max_queue_wait_ms",
-    "default_deadline_ms", "max_retries", "retry_base_sec", "degrade_after",
-    "slow_step_ms"})
+    SUB_BLOCK_ENABLED, SERVING_RESIL_MAX_QUEUE_DEPTH,
+    SERVING_RESIL_MAX_QUEUE_WAIT_MS, SERVING_RESIL_DEFAULT_DEADLINE_MS,
+    SERVING_RESIL_MAX_RETRIES, SERVING_RESIL_RETRY_BASE_SEC,
+    SERVING_RESIL_DEGRADE_AFTER, SERVING_RESIL_SLOW_STEP_MS})
 
 #############################################
 # Other top-level blocks of the JAX package's config that serving reads
 #############################################
 TELEMETRY = "telemetry"
 RESILIENCE = "resilience"
+FAULT_INJECTION = "fault_injection"   # resilience.fault_injection: a FaultPlan

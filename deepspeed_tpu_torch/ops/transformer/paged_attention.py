@@ -18,7 +18,9 @@ in q's dtype, or int8 with per-(token, head) fp32 scales ``k_scale`` /
   ``chip_smoke.py`` holds the CUDA kernel against.
 
 ``paged_decode_attention.launches`` counts kernel launches (CUDA only), so
-a run can show that its decode went through the kernel.
+a run can show that its decode went through the kernel, and
+``paged_decode_attention.launches_by_queries`` counts them by S (1 for a
+decode step or a speculative draft step, ``k + 1`` for a verify).
 """
 
 import ctypes
@@ -209,6 +211,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     out = _launch(q, k_pool, v_pool, k_scale, v_scale, block_table, pos,
                   block_size, softmax_scale, splits)
     paged_decode_attention.launches += 1
+    by_s = paged_decode_attention.launches_by_queries
+    by_s[s] = by_s.get(s, 0) + 1
     return out
 
 
@@ -238,3 +242,4 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, block_table, pos,
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.launches_by_queries = {}

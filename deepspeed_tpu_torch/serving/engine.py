@@ -18,7 +18,31 @@ The port of ``deepspeed_tpu/serving/engine.py``. Each ``step()``:
   to the budget, through the chunked-prefill kernel; a prompt whose last
   chunk lands takes its first token from that chunk's last row;
 - samples greedily (or with temperature/top-k from a seeded generator; the
-  chunked path is greedy only).
+  chunked path and speculative decoding are greedy only).
+
+Under ``serving.speculative`` a decode round is **speculative**: a draft
+model, the target's first ``draft_layers`` layers over the target's own
+embeddings, final LN and head (the same Parameter objects), proposes ``k``
+tokens in ``k`` single-token steps that read and write the target's pools
+for its layers (no second KV cache), and one target pass verifies the
+chunk ``[t0, d_1..d_k]`` at positions ``pos..pos+k`` (kernel #1 with
+``k + 1`` queries a row on the kernel path). The reference's scan runs
+``k + 1`` draft steps; the last one's token is dropped and its K/V write
+at ``pos + k`` is rewritten by the verify before anything reads it, so
+the port leaves it out. The greedy accept rule keeps
+the output token-identical to plain decode: a draft token stays iff it is
+the target's greedy choice there, and the first disagreement is replaced
+by the target's token. The chunk's writes are clamped
+(``PagedLayerCache.clamp_writes``): lookahead past a row's blocks lands in
+scratch block 0. Under chunked prefill a round with a prompt chunk in
+flight is a mixed step, the others are speculative.
+
+Under ``serving.resilience`` (``serving/resilience.py``) each step first
+resolves deadlines and cancellations, ``submit`` may shed a request at
+the admission gate, and the decode round is guarded: retry, then rebuild
+and replay, then one final dispatch. A ``FaultPlan``
+(``resilience.fault_injection``) injects decode faults, slow steps and
+request storms, with or without the manager.
 
 Scheduling between steps is host Python (``serving/scheduler.py``). Where
 the JAX package compiles one program per prompt bucket and per decode
@@ -31,10 +55,10 @@ count) and attends through the paged decode-attention kernel; "auto" is
 pool) and "gather" on the CPU. ``int8_kv_cache`` stores the pools as int8
 with per-(token, head) scales on every path.
 
-Not ported yet, and refused by ``ServingConfig``: speculative decoding,
-resilience and telemetry.
+Not ported yet, and refused by ``init_serving``: telemetry.
 """
 
+import dataclasses
 import time
 from typing import Any, Dict, List, Optional
 
@@ -54,6 +78,7 @@ from deepspeed_tpu_torch.serving.kv_cache import (BlockPool,
                                                   PagedLayerCache,
                                                   init_paged_pools,
                                                   pack_prefill)
+from deepspeed_tpu_torch.serving.resilience import ResilienceManager
 from deepspeed_tpu_torch.serving.scheduler import (PrefixCache, Scheduler,
                                                    Sequence)
 from deepspeed_tpu_torch.utils.logging import log_dist
@@ -92,12 +117,13 @@ class ServeEngine:
     """Continuous-batching serving engine over an :class:`InferenceEngine`.
 
     ``engine``: an InferenceEngine wrapping the port's GPT. ``config``: a
-    ``ServingConfig`` (None for defaults). Drive it with ``submit()`` and
-    ``step()`` / ``run_until_complete()``.
+    ``ServingConfig`` (None for defaults). ``fault_plan``: a
+    ``resilience.FaultPlan`` whose serving hooks inject chaos (None: none).
+    Drive it with ``submit()`` and ``step()`` / ``run_until_complete()``.
     """
 
     def __init__(self, engine: InferenceEngine,
-                 config: Optional[ServingConfig] = None):
+                 config: Optional[ServingConfig] = None, fault_plan=None):
         self.engine = engine
         self.module = engine.module
         self.model_cfg = engine.model_cfg
@@ -125,10 +151,6 @@ class ServeEngine:
                                prefix_cache=self.prefix_cache)
         self._dtype = engine.dtype
         int8 = self.scfg.int8_kv_cache
-        self._pools = init_paged_pools(self.model_cfg,
-                                       self.scfg.kv_num_blocks, bs,
-                                       int8=int8, dtype=self._dtype,
-                                       device=self.device)
         # What the kernels see: an fp pool gets q cast to its dtype, an
         # int8 pool q in the model's compute dtype.
         pool_dtype = torch.int8 if int8 else self._dtype
@@ -150,17 +172,49 @@ class ServeEngine:
         if self.scfg.temperature > 0.0:
             self._generator = torch.Generator(device=self.device)
             self._generator.manual_seed(self.scfg.seed)
+        self._spec_k = 0
+        if self.scfg.spec_decode:
+            self._init_speculative()
+        # Chaos is independent of the manager: a serve fault with
+        # resilience off crashes the loop.
+        self._fault = fault_plan
+        self._dispatch_attempts = 0      # decode dispatches, fault-keyed
+        self._storm_template = None      # last submit's arguments
+        self._resil = (ResilienceManager(self) if self.scfg.resilience
+                       else None)
+        if self._resil is not None and self.device.type == "cuda":
+            # Build (or load) the path's kernels now: a build failure
+            # raises here, never inside a guarded dispatch's retries.
+            from deepspeed_tpu_torch.ops.transformer import (
+                chunked_prefill, paged_attention)
+
+            if self._attn_impl == "kernel":
+                paged_attention._kernel()
+            if self._chunked:
+                chunked_prefill._kernel()
+        self._pools = init_paged_pools(self.model_cfg,
+                                       self.scfg.kv_num_blocks, bs,
+                                       int8=int8, dtype=self._dtype,
+                                       device=self.device)
         self._step_count = 0
+        # The cumulative decode rate (tokens over the decode rounds' wall
+        # seconds): the admission gate's projected wait reads it.
+        self._decode_tokens = 0
+        self._decode_sec = 0.0
         self.results: Dict[int, Dict[str, Any]] = {}
         # ``gathered_positions``: key positions the decode steps covered
         # per row (window width x steps); ``full_positions``: the same for
         # an uncapped window. ``mixed_steps``: chunked mixed dispatches;
-        # ``chunk_tokens_last``: real tokens in the last one.
+        # ``chunk_tokens_last``: real tokens in the last one. ``spec_*``:
+        # speculative rounds, draft tokens proposed and accepted, tokens
+        # appended by the rounds.
         self.stats = {"decode_steps": 0,
                       "slot_assignments": {}, "kernel_steps": 0,
                       "gathered_positions": 0, "full_positions": 0,
                       "prefix_hits": 0, "mixed_steps": 0,
-                      "chunk_tokens_last": 0}
+                      "chunk_tokens_last": 0, "spec_rounds": 0,
+                      "spec_proposed": 0, "spec_accepted": 0,
+                      "spec_new_tokens": 0}
         admission = (f"chunked prefill, token budget {self._chunk_budget}"
                      if self._chunked else "bucketed prefill")
         log_dist(
@@ -168,16 +222,25 @@ class ServeEngine:
             f"{self.pool.capacity}x{bs} positions "
             f"({'int8' if int8 else self._dtype}) on {self.device}, "
             f"{admission}, decode attention {self._attn_impl}, prefix "
-            f"cache {'on' if self.prefix_cache else 'off'}, max_model_len "
+            f"cache {'on' if self.prefix_cache else 'off'}, speculative "
+            f"k {self._spec_k}, resilience "
+            f"{'on' if self._resil else 'off'}, max_model_len "
             f"{self.max_model_len}", ranks=[0])
 
     # ------------------------------------------------------------------
     # submission
     # ------------------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int,
-               eos_token_id: Optional[int] = None) -> int:
+               eos_token_id: Optional[int] = None,
+               deadline_ms: Optional[float] = None) -> int:
         """Queue one request; returns its request id. Admission happens at
-        the next ``step()`` boundary."""
+        the next ``step()`` boundary.
+
+        ``deadline_ms`` (needs ``serving.resilience``): a wall-clock budget
+        from submission; past it the request is aborted at the next step
+        boundary with status ``deadline_expired`` and the tokens it has.
+        With resilience on, the admission gate may refuse the request:
+        the returned rid then has a terminal ``shed`` record."""
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         if not prompt:
             raise ValueError("empty prompt")
@@ -206,9 +269,39 @@ class ServeEngine:
                 f"request needs {need} KV blocks but the pool holds "
                 f"{self.pool.capacity}: it could never be admitted; raise "
                 f"serving.kv_num_blocks")
+        if deadline_ms is not None:
+            if self._resil is None:
+                raise ValueError("deadline_ms requires serving.resilience")
+            if deadline_ms <= 0:
+                raise ValueError(
+                    f"deadline_ms must be > 0, got {deadline_ms}")
         eos = eos_token_id if eos_token_id is not None \
             else self.scfg.eos_token_id
-        return self.sched.submit(prompt, int(max_new_tokens), eos)
+        if self._fault is not None:
+            self._storm_template = (list(prompt), int(max_new_tokens),
+                                    eos_token_id, deadline_ms)
+        if self._resil is not None:
+            reason = self._resil.admission_gate(prompt, int(max_new_tokens))
+            if reason is not None:
+                return self._resil.shed(prompt, int(max_new_tokens), eos,
+                                        reason)
+        rid = self.sched.submit(prompt, int(max_new_tokens), eos)
+        if self._resil is not None:
+            dl = (deadline_ms if deadline_ms is not None
+                  else self.scfg.resil_default_deadline_ms)
+            if dl is not None:
+                req = self.sched.waiting[-1]
+                req.deadline = req.arrival + dl / 1e3
+        return rid
+
+    def cancel(self, rid: int) -> bool:
+        """Flag a submitted request for cancellation, resolved at the next
+        step boundary: dropped from the queue, or aborted with its partial
+        output and status ``cancelled``. False when the rid is unknown or
+        already terminal. Needs ``serving.resilience``."""
+        if self._resil is None:
+            raise RuntimeError("cancel() requires serving.resilience")
+        return self._resil.request_cancel(rid)
 
     def idle(self) -> bool:
         return self.sched.idle()
@@ -218,12 +311,19 @@ class ServeEngine:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def step(self) -> Dict[str, Any]:
-        """One engine iteration: admit (+ prefill on the bucketed path,
-        bounded), then advance the whole decode batch one token (under
-        chunked prefill: one mixed step). Returns a step report
-        (``finished`` / ``prefilled`` request ids, ``active`` count)."""
+        """One engine iteration: resolve deadlines and cancellations (with
+        resilience on) and any scheduled request storm, admit (+ prefill on
+        the bucketed path, bounded), then advance the whole decode batch
+        (one token, a speculative round, or under chunked prefill a mixed
+        step). Returns a step report (``finished`` / ``prefilled`` request
+        ids, ``active`` count)."""
         info: Dict[str, Any] = {"step": self._step_count, "prefilled": [],
                                 "finished": [], "active": 0}
+        if self._resil is not None:
+            self._resil.process_boundary()
+        if self._fault is not None \
+                and self._fault.should_serve_storm(self._step_count):
+            self._inject_storm()
         for _ in range(self.scfg.max_prefills_per_step):
             seq = self.sched.try_admit(self._bucket_of, self._step_count)
             if seq is None:
@@ -242,32 +342,37 @@ class ServeEngine:
             if seq.finished():      # max_new_tokens == 1 / instant EOS
                 self._finish(seq, info)
 
+        # a speculative round writes k + 1 positions: capacity is ensured
+        # with that lookahead, capped at each row's lifetime
         for seq in self.sched.active:
             if self.sched.running.get(seq.slot) is seq:
-                self.sched.ensure_capacity(seq)
+                self.sched.ensure_capacity(seq, lookahead=self._spec_k)
         active = self.sched.active          # preemption may have evicted
         info["active"] = len(active)
         if active:
-            if self._chunked:
-                self._mixed_round(active, info)
+            if self._resil is not None:
+                n_tokens, dt, active = self._resil.run_decode(active, info)
+                self._resil.note_step(dt)
             else:
-                toks = self._decode(active)
-                for seq, tok in zip(active, toks):
-                    seq.tokens.append(tok)
-                    seq.pos += 1
-                    if seq.finished():
-                        self._finish(seq, info)
+                n_tokens, dt = self._decode_round(active, info)
             self.stats["decode_steps"] += 1
+            if n_tokens and dt > 0:
+                self._decode_tokens += n_tokens
+                self._decode_sec += dt
         if self.prefix_cache is not None:
             self.stats["prefix_hits"] = self.prefix_cache.hits
         self._step_count += 1
         return info
 
-    def run_until_complete(self, max_steps: int = 100_000
+    def run_until_complete(self, max_steps: int = 100_000,
+                           timeout_sec: Optional[float] = None
                            ) -> Dict[int, Any]:
         """Drive ``step()`` until every submitted request has finished;
-        returns the results map (rid -> record)."""
+        returns the results map (rid -> record). ``timeout_sec``: a
+        wall-clock bound; a wedged loop raises with the queue and the
+        running rids."""
         steps = 0
+        t0 = time.monotonic()
         while not self.idle():
             self.step()
             steps += 1
@@ -276,7 +381,29 @@ class ServeEngine:
                     f"serving did not drain in {max_steps} steps "
                     f"(queue={self.sched.queue_depth}, "
                     f"running={len(self.sched.running)})")
+            if timeout_sec is not None \
+                    and time.monotonic() - t0 > timeout_sec:
+                waiting = [r.rid for r in self.sched.waiting]
+                running = {s.slot: s.request.rid
+                           for s in self.sched.running.values()}
+                raise RuntimeError(
+                    f"serving wall-clock timeout: not drained after "
+                    f"{timeout_sec:.3f}s ({steps} steps, "
+                    f"queue={self.sched.queue_depth} rids={waiting[:8]}, "
+                    f"running={running})")
         return self.results
+
+    def close(self) -> None:
+        """Give every request still running or queued a terminal
+        ``aborted`` record (its slot and blocks released): every
+        submitted rid resolves through ``results``."""
+        for seq in list(self.sched.running.values()):
+            self.sched.abort(seq)
+            self.results[seq.request.rid] = self._result_record(seq,
+                                                                "aborted")
+        while self.sched.waiting:
+            req = self.sched.waiting.popleft()
+            self.results[req.rid] = self._queue_record(req, "aborted")
 
     # ------------------------------------------------------------------
     # internals
@@ -293,6 +420,9 @@ class ServeEngine:
                    self.bucket_cap)
 
     def _result_record(self, seq: Sequence, status: str) -> Dict[str, Any]:
+        """Terminal record of an admitted sequence: ``finished``, or a
+        resilience terminal (``deadline_expired``, ``cancelled``,
+        ``aborted``) with the partial output."""
         req = seq.request
         now = time.monotonic()
         return {
@@ -310,6 +440,27 @@ class ServeEngine:
             "preempted_count": req.preempted_count,
         }
 
+    def _queue_record(self, req, status: str,
+                      reason: Optional[str] = None) -> Dict[str, Any]:
+        """Terminal record of a request never admitted (shed, cancelled or
+        expired in the queue, aborted): ``tokens`` is the prompt."""
+        now = time.monotonic()
+        rec = {
+            "tokens": list(req.prompt),
+            "prompt_len": len(req.prompt),
+            "status": status,
+            "slot": None,
+            "finish_step": self._step_count,
+            "ttft_ms": None,
+            "finish_time": now,
+            "e2e_ms": (now - req.arrival) * 1e3,
+            "queue_wait_ms": None,
+            "preempted_count": req.preempted_count,
+        }
+        if reason is not None:
+            rec["shed_reason"] = reason
+        return rec
+
     def _finish(self, seq: Sequence, info: Dict[str, Any]) -> None:
         rid = seq.request.rid
         self.sched.finish(seq)
@@ -322,35 +473,40 @@ class ServeEngine:
 
     # -- prefill --------------------------------------------------------
     def _prefill(self, seq: Sequence) -> None:
+        self._record_first_token(seq, self._prefill_tokens(
+            seq, seq.request.prompt))
+
+    def _prefill_tokens(self, seq: Sequence, tokens: List[int]) -> int:
+        """Write ``tokens``' K/V at positions ``[0, len(tokens))`` of
+        ``seq``'s blocks and return the token sampled after them (a host
+        fetch). A prefix-cache hit (``shared_len``) computes only the
+        tail: the adopted blocks already hold ``[0, shared_len)``."""
         if seq.shared_len:
-            # Prefix-cache hit: the adopted blocks already hold positions
-            # [0, shared_len); only the tail is computed.
-            self._prefill_tail(seq)
-            return
-        t = len(seq.request.prompt)
+            return self._prefill_tail(seq, tokens)
+        t = len(tokens)
         ids = torch.zeros((1, seq.bucket), dtype=torch.long)
-        ids[0, :t] = torch.tensor(seq.request.prompt)  # right-pad: causal
+        ids[0, :t] = torch.tensor(tokens)        # right-pad: causal
         tok, k_stack, v_stack = self._prefill_impl(ids.to(self.device), t)
         blocks = torch.tensor(seq.block_table, dtype=torch.long,
                               device=self.device)
         pack_prefill(self._pools, blocks, k_stack, v_stack)
-        self._record_first_token(seq, int(tok))   # host fetch
+        return int(tok)
 
-    def _prefill_tail(self, seq: Sequence) -> None:
-        """Prefill only the unshared prompt tail: the tail, right-padded
-        to a block-multiple bucket, runs one multi-token paged forward at
-        position ``shared_len`` through the gather path (as the JAX
-        package's tail prefill does). Writes land past the adopted head
-        blocks; pad positions past the allocated blocks hit zero table
-        entries (scratch). The bucket is capped so no write index runs
-        past the table."""
-        t = len(seq.request.prompt)
+    def _prefill_tail(self, seq: Sequence, tokens: List[int]) -> int:
+        """Prefill only the unshared tail of ``tokens``: the tail,
+        right-padded to a block-multiple bucket, runs one multi-token
+        paged forward at position ``shared_len`` through the gather path
+        (as the JAX package's tail prefill does). Writes land past the
+        adopted head blocks; pad positions past the allocated blocks hit
+        zero table entries (scratch). The bucket is capped so no write
+        index runs past the table."""
+        t = len(tokens)
         sl = seq.shared_len
         tail = t - sl                           # >= 1 (match is capped)
         tb = min(self._bucket_of(tail),
                  self.max_blocks * self.block_size - sl)
         ids = torch.zeros((1, tb), dtype=torch.long)
-        ids[0, :tail] = torch.tensor(seq.request.prompt[sl:])
+        ids[0, :tail] = torch.tensor(tokens[sl:])
         bt = torch.zeros((1, self.max_blocks), dtype=torch.int32)
         bt[0, :len(seq.block_table)] = torch.tensor(seq.block_table)
         dev = self.device
@@ -363,7 +519,7 @@ class ServeEngine:
             tb, device=dev), max=self.model_cfg.max_seq_len - 1)
         out = self.module(ids.to(dev), position_ids=pos_ids, cache=cache)
         last = out["logits"][:, tail - 1].float()                # [1, V]
-        self._record_first_token(seq, int(self._sample(last)[0]))
+        return int(self._sample(last)[0])
 
     def _record_first_token(self, seq: Sequence, first: int) -> None:
         """Append the prefill's sampled token; TTFT is stamped at the
@@ -371,6 +527,30 @@ class ServeEngine:
         seq.tokens.append(first)
         if seq.request.first_token_time is None:
             seq.request.first_token_time = time.monotonic()
+
+    def _replay_prefill(self, seq: Sequence, replay: List[int]) -> None:
+        """Recovery replay (``serving/resilience.py``): rebuild ``seq``'s
+        K/V ``[0, pos)`` in the fresh pools from its recorded
+        ``tokens[:-1]`` through the same prefill paths as an admission.
+        The sampled token is dropped: under greedy it is the recorded
+        ``tokens[-1]``, whose K/V the next decode round writes. No TTFT,
+        no token appended."""
+        if self._chunked:
+            self._replay_chunked(seq, replay)
+        else:
+            self._prefill_tokens(seq, replay)
+
+    def _replay_chunked(self, seq: Sequence, replay: List[int]) -> None:
+        """Chunked replay: ``[shared_len, len(replay))`` through the mixed
+        step in budget-sized chunks (resilience routes only fully
+        prefilled sequences here); the samples are dropped."""
+        t0, total = seq.shared_len, len(replay)
+        while t0 < total:
+            c = min(self._chunk_budget, total - t0)
+            self._mixed_dispatch(
+                [seq], [(seq.slot, replay[t0 + i], t0 + i)
+                        for i in range(c)])
+            t0 += c
 
     def _prefill_impl(self, ids: torch.Tensor, length: int):
         cache = init_kv_cache(self.model_cfg, 1, ids.shape[1],
@@ -386,6 +566,55 @@ class ServeEngine:
         return tok, k_stack, v_stack
 
     # -- decode ---------------------------------------------------------
+    def _decode_round(self, active: List[Sequence], info: Dict[str, Any]):
+        """One decode round for the batch: a mixed step (chunked prefill,
+        with speculation only while a prompt chunk is in flight), a
+        speculative round, or one token a row. Appends the tokens and
+        finishes rows; returns ``(n_tokens, seconds)``. The resilience
+        manager guards this boundary."""
+        t_dec = time.perf_counter()
+        if self._chunked and (not self._spec_k or any(
+                s.prefilled < len(s.request.prompt) for s in active)):
+            n_tokens = self._mixed_round(active, info)
+        elif self._spec_k:
+            n_tokens = self._spec_round(active, info)
+        else:
+            toks = self._decode(active)
+            n_tokens = len(active)
+            for seq, tok in zip(active, toks):
+                seq.tokens.append(tok)
+                seq.pos += 1
+                if seq.finished():
+                    self._finish(seq, info)
+        return n_tokens, time.perf_counter() - t_dec
+
+    def _inject_storm(self) -> None:
+        """FaultPlan request storm: duplicates of the last submitted
+        request through ``submit()`` (and so through the shed gate)."""
+        if self._storm_template is None:
+            return
+        prompt, max_new, eos, dl = self._storm_template
+        n = self._fault.serve_storm_requests
+        log_dist(f"serving: FaultPlan request storm, {n} submissions at "
+                 f"step {self._step_count}", ranks=[0])
+        for _ in range(n):
+            if self._resil is not None:
+                self.submit(prompt, max_new, eos, deadline_ms=dl)
+            else:
+                self.submit(prompt, max_new, eos)
+
+    def _fault_hook(self) -> None:
+        """Serving chaos, keyed on the decode dispatch-attempt count
+        (monotonic across steps and retries). It runs before a round's
+        first pool write, so a raise here changes no pool."""
+        if self._fault is None:
+            return
+        self._dispatch_attempts += 1
+        if self._fault.should_serve_decode_fault(self._dispatch_attempts):
+            self._fault.serve_decode_fault(self._dispatch_attempts)
+        if self._fault.should_serve_slow_step(self._dispatch_attempts):
+            self._fault.serve_slow_step()
+
     def _batch_inputs(self, active: List[Sequence]):
         """Host-side decode batch matrices (inactive rows -> scratch)."""
         nb, mb = self.scfg.max_batch_size, self.max_blocks
@@ -399,23 +628,27 @@ class ServeEngine:
             toks[s] = seq.tokens[-1]
         return bt, pos, toks
 
-    def _window_blocks(self, active: List[Sequence]) -> int:
+    def _window_blocks(self, active: List[Sequence], chunk: int) -> int:
         """Capped key window: enough table columns for the longest active
-        row's reads and this step's write, ceiled to a power of two."""
-        need_pos = max(seq.pos for seq in active) + 1
+        row's reads and this round's ``chunk`` writes (1, or ``k + 1`` for
+        a speculative round), ceiled to a power of two."""
+        need_pos = max(seq.pos for seq in active) + chunk
         need = -(-need_pos // self.block_size)
         wb = 1
         while wb < need:
             wb *= 2
         return min(wb, self.max_blocks)
 
-    def _dispatch_batch(self, active: List[Sequence]):
+    def _dispatch_batch(self, active: List[Sequence], chunk: int):
         """Decode batch tensors on the device, the window cut under the
-        fast path, and the attention impl; keeps the window accounting."""
+        fast path, and the attention impl; keeps the window accounting.
+        Shared by the plain and the speculative round, after the fault
+        hook."""
+        self._fault_hook()
         mb = self.max_blocks
         bt, pos, toks = self._batch_inputs(active)
         if self._fast_path:
-            wb, impl = self._window_blocks(active), self._attn_impl
+            wb, impl = self._window_blocks(active, chunk), self._attn_impl
             bt = np.ascontiguousarray(bt[:, :wb])
         else:
             wb, impl = mb, "gather"
@@ -428,7 +661,7 @@ class ServeEngine:
                 torch.from_numpy(toks).to(dev), impl)
 
     def _decode(self, active: List[Sequence]) -> List[int]:
-        bt, pos, toks, impl = self._dispatch_batch(active)
+        bt, pos, toks, impl = self._dispatch_batch(active, 1)
         logits = self._decode_impl(bt, pos, toks, impl)
         tok_host = self._sample(logits).cpu().numpy()   # host fetch
         return [int(tok_host[s.slot]) for s in active]
@@ -443,14 +676,15 @@ class ServeEngine:
 
     # -- chunked prefill: the mixed ragged step -------------------------
     def _mixed_round(self, active: List[Sequence],
-                     info: Dict[str, Any]) -> None:
+                     info: Dict[str, Any]) -> int:
         """One mixed step: every decoding sequence advances one token and
         prompts being prefilled advance one chunk, all in one ragged
         batch. Rows: decode tokens first (the budget is >= the slot
         count), then chunks FCFS by ``(admitted_step, rid)`` until the
         budget is full. A prompt whose last chunk lands samples its first
         token from that chunk's last row: the logits the bucketed prefill
-        samples from."""
+        samples from. Returns the number of tokens appended."""
+        self._fault_hook()   # live rounds only: a replay never injects
         plen = [len(s.request.prompt) for s in active]
         decoding = [s for s, n in zip(active, plen) if s.prefilled >= n]
         prefilling = sorted(
@@ -469,6 +703,7 @@ class ServeEngine:
                         for i in range(c))
         tok_host = self._mixed_dispatch(active, rows)
         self.stats["chunk_tokens_last"] = len(rows)
+        appended = len(decoding)
         for r, seq in enumerate(decoding):
             seq.tokens.append(int(tok_host[r]))
             seq.pos += 1
@@ -479,10 +714,12 @@ class ServeEngine:
             seq.pos = seq.prefilled
             if seq.prefilled == len(seq.request.prompt):
                 self._record_first_token(seq, int(tok_host[r0 + c - 1]))
+                appended += 1
                 self.sched.register_prefix(seq, self._step_count)
                 info["prefilled"].append(seq.request.rid)
                 if seq.finished():   # max_new_tokens == 1 / instant EOS
                     self._finish(seq, info)
+        return appended
 
     def _mixed_dispatch(self, table_seqs: List[Sequence], rows):
         """Run one ragged token batch. ``rows``: ``(slot, token,
@@ -519,3 +756,99 @@ class ServeEngine:
         out = self.module(toks[None, :], position_ids=pos_ids[None, :],
                           cache=cache)
         return out["logits"][0].float()                          # [T, V]
+
+    # -- speculative decoding -------------------------------------------
+    def _init_speculative(self) -> None:
+        """The draft: a GPT of the target's first ``draft_layers`` layers
+        whose embeddings, blocks, final LN (and untied head) are the
+        target's own modules, so it shares their Parameter objects and
+        copies no weight. Its layers' K/V equal the target's for the same
+        inputs, so it reads and writes the target's pools for layers
+        ``< draft_layers``: no second KV cache, no draft prefill."""
+        cfg = self.model_cfg
+        if self.scfg.temperature != 0.0:
+            raise ValueError("speculative decoding requires greedy "
+                             "sampling (serving.temperature == 0)")
+        dl = (self.scfg.spec_draft_layers
+              if self.scfg.spec_draft_layers is not None
+              else max(1, cfg.num_layers // 2))
+        if not 1 <= dl < cfg.num_layers:
+            raise ValueError(
+                f"serving.speculative.draft_layers must be in "
+                f"[1, {cfg.num_layers - 1}] for a {cfg.num_layers}-layer "
+                f"target, got {dl}")
+        target = self.module
+        with torch.device("meta"):       # no weights of its own
+            draft = type(target)(dataclasses.replace(cfg, num_layers=dl))
+        draft.wte, draft.wpe, draft.ln_f = target.wte, target.wpe, \
+            target.ln_f
+        draft.h = torch.nn.ModuleList(target.h[:dl])
+        draft.lm_head = target.lm_head
+        draft.drop = target.drop
+        self._draft = draft.eval()
+        self._draft_layers = dl
+        self._spec_k = int(self.scfg.spec_k)
+        log_dist(f"serving: speculative decoding on, draft = first {dl}/"
+                 f"{cfg.num_layers} layers, k={self._spec_k}", ranks=[0])
+
+    def _spec_round(self, active: List[Sequence],
+                    info: Dict[str, Any]) -> int:
+        """One speculative round for the batch: the draft proposes ``k``
+        tokens, one target pass scores all ``k + 1`` positions, and the
+        greedy accept rule appends what plain greedy decode would: the
+        draft tokens up to the first disagreement, then the target's own
+        token there (or the bonus token after a full accept). Rejected
+        positions stay behind ``seq.pos``: masked now, overwritten by the
+        next round. Returns the number of tokens appended."""
+        k = self._spec_k
+        bt, pos, toks, impl = self._dispatch_batch(active, k + 1)
+        chunk, greedy = self._spec_impl(bt, pos, toks, k, impl)
+        appended = 0
+        for seq in active:
+            s = seq.slot
+            drafted = chunk[s, 1:]               # d_1..d_k
+            target = greedy[s]                   # g_1..g_{k+1}
+            accept = 0
+            while accept < k and int(drafted[accept]) == int(target[accept]):
+                accept += 1
+            self.stats["spec_proposed"] += k
+            self.stats["spec_accepted"] += accept
+            for tok in list(drafted[:accept]) + [target[accept]]:
+                seq.tokens.append(int(tok))
+                seq.pos += 1
+                appended += 1
+                if seq.finished():
+                    self._finish(seq, info)
+                    break
+        self.stats["spec_rounds"] += 1
+        self.stats["spec_new_tokens"] += appended
+        return appended
+
+    def _spec_impl(self, bt, pos, toks, k: int, impl: str):
+        """``k`` single-token draft steps, each writing at ``pos + j``,
+        then one target verification of the chunk ``[t0, d_1..d_k]`` at
+        ``pos..pos+k``, which writes every layer there (the draft's too)
+        before it attends. Writes are clamped: lookahead past a row's
+        blocks lands in scratch. Returns the chunk and the target's greedy
+        tokens, [B, k + 1] each, on the host."""
+        dl, nl = self._draft_layers, self.model_cfg.num_layers
+        bs, max_pos = self.block_size, self.model_cfg.max_seq_len - 1
+        cur, inputs = toks, [toks]
+        for j in range(k):
+            pj = pos + j
+            cache = [PagedLayerCache(*self._pools[i], bt, pj, bs, impl,
+                                     dtype=self._dtype, clamp_writes=True)
+                     for i in range(dl)]
+            out = self._draft(cur[:, None], position_ids=torch.clamp(
+                pj.long(), max=max_pos)[:, None], cache=cache)
+            cur = torch.argmax(out["logits"][:, -1].float(), dim=-1)
+            inputs.append(cur)
+        chunk = torch.stack(inputs, dim=1)                    # [B, k + 1]
+        pos_ids = torch.clamp(pos.long()[:, None] + torch.arange(
+            k + 1, device=pos.device), max=max_pos)
+        cache = [PagedLayerCache(*self._pools[i], bt, pos, bs, impl,
+                                 dtype=self._dtype, clamp_writes=True)
+                 for i in range(nl)]
+        out = self.module(chunk, position_ids=pos_ids, cache=cache)
+        greedy = torch.argmax(out["logits"].float(), dim=-1)   # [B, k + 1]
+        return chunk.cpu().numpy(), greedy.cpu().numpy()   # host fetch

@@ -165,7 +165,12 @@ class PagedLayerCache:
     and runs the paged decode-attention kernel over the pools
     (``attn_impl == "kernel"``). ``dtype`` is the compute dtype the
     gathered int8 window is dequantized to (default: the pool's dtype,
-    float32 for an int8 pool).
+    float32 for an int8 pool). ``clamp_writes``: a write past the table
+    goes to scratch block 0 (a block index past the last column is
+    clamped to it, a position at or past ``WB * BS`` is routed to block
+    0), never to a block another row owns; a speculative round's chunk may
+    overshoot a row's blocks. Off on the plain decode path, which never
+    overshoots.
     """
 
     def __init__(self, k: torch.Tensor, v: torch.Tensor,
@@ -173,7 +178,8 @@ class PagedLayerCache:
                  v_scale: Optional[torch.Tensor],
                  block_table: torch.Tensor, pos: torch.Tensor,
                  block_size: int, attn_impl: str = "gather",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 clamp_writes: bool = False):
         if (k_scale is None) != (v_scale is None):
             raise ValueError("int8 pools need both k_scale and v_scale")
         if attn_impl not in ("gather", "kernel"):
@@ -187,6 +193,7 @@ class PagedLayerCache:
         self.pos = pos                      # [B] int32: next write index
         self.block_size = int(block_size)
         self.attn_impl = attn_impl
+        self.clamp_writes = bool(clamp_writes)
         self.dtype = dtype if dtype is not None else (
             torch.float32 if k.dtype == torch.int8 else k.dtype)
 
@@ -207,7 +214,14 @@ class PagedLayerCache:
         idx = self.pos.long()[:, None] + torch.arange(
             s, device=chunk.device)[None, :]                     # [B, S]
         rows = torch.arange(b, device=chunk.device)[:, None]
-        blk = self.block_table.long()[rows, idx // self.block_size]
+        if self.clamp_writes:
+            mb = self.block_table.shape[1]
+            blk = self.block_table.long()[
+                rows, torch.clamp(idx // self.block_size, max=mb - 1)]
+            blk = torch.where(idx < mb * self.block_size, blk,
+                              torch.zeros_like(blk))
+        else:
+            blk = self.block_table.long()[rows, idx // self.block_size]
         _store(pool, scale, (blk, idx % self.block_size), chunk)
 
     def _gather(self, pool: torch.Tensor,

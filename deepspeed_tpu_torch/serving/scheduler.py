@@ -54,6 +54,10 @@ class Request:
     preempted_count: int = 0
     # Set at the request's FIRST admission and kept across restarts.
     admitted_time: Optional[float] = None
+    # Absolute monotonic deadline (``serving.resilience``): past it the
+    # request is aborted at the next step boundary with status
+    # ``deadline_expired``. None = no limit.
+    deadline: Optional[float] = None
 
 
 @dataclass
@@ -231,6 +235,9 @@ class Scheduler:
         self.waiting: Deque[Request] = collections.deque()
         self.running: Dict[int, Sequence] = {}            # slot -> seq
         self._free_slots: List[int] = list(range(self.num_slots))[::-1]
+        # Admission-level batch cap (<= num_slots): the degradation ladder
+        # (serving/resilience.py) halves it; slots above it stay empty.
+        self.slot_cap = int(num_slots)
         self._ids = itertools.count()
         self.preempted_total = 0
 
@@ -241,6 +248,11 @@ class Scheduler:
         self.waiting.append(Request(rid, list(prompt), int(max_new_tokens),
                                     eos_token_id))
         return rid
+
+    def reserve_rid(self) -> int:
+        """Draw the next request id without queueing anything: a shed
+        request still gets a real rid and a terminal record."""
+        return next(self._ids)
 
     @property
     def queue_depth(self) -> int:
@@ -260,6 +272,8 @@ class Scheduler:
         cache); returns the new Sequence (blocks allocated, not yet
         prefilled) or None."""
         if not self.waiting or not self._free_slots:
+            return None
+        if len(self.running) >= self.slot_cap:
             return None
         req = self.waiting[0]
         bucket = bucket_of(len(req.prompt))
@@ -310,15 +324,17 @@ class Scheduler:
                                      step)
 
     # -- growth / preemption -------------------------------------------
-    def ensure_capacity(self, seq: Sequence) -> bool:
-        """Make sure ``seq`` can write its next token (``seq.pos``), capped
-        at the last position it can ever write. Allocates a block when the
-        write crosses into uncovered territory, dropping cold prefix-cache
-        leaves first and then evicting the YOUNGEST running sequence
-        (possibly ``seq`` itself) when the pool is dry, so the oldest
-        sequence always completes. Returns False when ``seq`` was the
-        youngest and got evicted."""
-        target = min(seq.pos, seq.last_write_pos)
+    def ensure_capacity(self, seq: Sequence, lookahead: int = 0) -> bool:
+        """Make sure ``seq`` can write its next token (``seq.pos``) plus
+        ``lookahead`` further positions (a speculative round's verify chunk
+        writes ``pos..pos+k``), capped at the last position it can ever
+        write: overshoot past that lands in scratch and needs no block.
+        Allocates a block when the write crosses into uncovered territory,
+        dropping cold prefix-cache leaves first and then evicting the
+        YOUNGEST running sequence (possibly ``seq`` itself) when the pool
+        is dry, so the oldest sequence always completes. Returns False
+        when ``seq`` was the youngest and got evicted."""
+        target = min(seq.pos + lookahead, seq.last_write_pos)
         while target >= len(seq.block_table) * self.block_size:
             got = self.pool.alloc(1)
             if got is None and self.prefix_cache is not None \
@@ -357,6 +373,12 @@ class Scheduler:
 
     # -- completion -----------------------------------------------------
     def finish(self, seq: Sequence) -> None:
+        self._release(seq)
+
+    def abort(self, seq: Sequence) -> None:
+        """Terminal eviction (``deadline_expired`` / ``cancelled`` /
+        ``aborted``): release slot and blocks exactly once, no requeue;
+        the caller writes the terminal record."""
         self._release(seq)
 
     def _release(self, seq: Sequence) -> None:

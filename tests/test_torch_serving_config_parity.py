@@ -45,8 +45,8 @@ def test_speculative_and_resilience_parsed_as_the_reference(key, block):
     with ``enabled: true`` or, without ``enabled``, for a non-empty block;
     a falsy value of either is an empty block and a truthy value that is
     not a dict raises "must be a dict"; an unknown resilience key raises.
-    Where the reference's feature is on, the port raises its "not yet
-    ported" error; where it is off, the port parses."""
+    Where the reference parses, the port parses to the same switch and
+    fields."""
     d = {key: block}
     try:
         want = JaxServingConfig.from_dict(dict(d))
@@ -57,12 +57,12 @@ def test_speculative_and_resilience_parsed_as_the_reference(key, block):
         with pytest.raises(ConfigError, match=match):
             ServingConfig.from_dict(dict(d))
         return
-    on = want.spec_decode if key == "speculative" else want.resilience
-    if on:
-        with pytest.raises(ConfigError, match="not yet ported"):
-            ServingConfig.from_dict(dict(d))
-    else:
-        ServingConfig.from_dict(dict(d))
+    got = ServingConfig.from_dict(dict(d))
+    prefix = "spec_" if key == "speculative" else "resil"
+    fields = [f for f in vars(got) if f.startswith(prefix)]
+    assert len(fields) == (3 if key == "speculative" else 8)
+    assert {f: getattr(got, f) for f in fields} == \
+        {f: getattr(want, f) for f in fields}
 
 
 @pytest.mark.parametrize("config,on", [
@@ -76,17 +76,18 @@ def test_speculative_and_resilience_parsed_as_the_reference(key, block):
 def test_init_serving_top_level_blocks_as_the_reference(config, on):
     """``init_serving``'s top-level blocks, read as the reference's
     ``init_serving`` reads them: telemetry is on with ``enabled: true``
-    (``TelemetryConfig``), resilience only through a ``fault_injection``
-    plan (serving chaos)."""
+    (``TelemetryConfig``) and is not ported yet; resilience acts only
+    through a ``fault_injection`` plan (serving chaos), which the port
+    hands back for ``FaultPlan.resolve``."""
     from deepspeed_tpu.config.config import TelemetryConfig
     from deepspeed_tpu_torch.config.config import check_serving_blocks
 
+    fault = dict(config.get("resilience") or {}).get("fault_injection")
     ref_on = (TelemetryConfig.from_dict(config.get("telemetry")).enabled
-              or bool(dict(config.get("resilience") or {}).get(
-                  "fault_injection")))
+              or bool(fault))
     assert ref_on == on
-    if on:
+    if TelemetryConfig.from_dict(config.get("telemetry")).enabled:
         with pytest.raises(ConfigError, match="not yet ported"):
             check_serving_blocks(config)
     else:
-        check_serving_blocks(config)
+        assert check_serving_blocks(config) == (fault or None)
