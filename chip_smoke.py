@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only sparse    # the build, then phase 2d only
     python3 chip_smoke.py --only chunked   # the build, then phase 2a'' only
     python3 chip_smoke.py --only spec      # the build, then phase 3b only
+    python3 chip_smoke.py --only telemetry # the build, then phase 3c only
     python3 chip_smoke.py --only sparse,chunked
 
 1. Device: requires CUDA, prints the card's name and power limit, builds
@@ -149,6 +150,19 @@
      and kernel #1 goes on launching; tokens equal the clean run's, no
      plain version runs, no block leaks;
    - a profiled window of speculative rounds.
+3c. Serving telemetry: the same model and trace in bf16 on the bucketed,
+   chunked 256, int8 and speculative k = 4 (under ``serving.resilience``)
+   paths, each with telemetry off and on (JSONL and memory sinks, the
+   trace with ``sync_spans``, request records, ``numerics``):
+   - tokens and kernel #1/#2 launch counts equal between on and off;
+   - 16 finished request records whose categories sum to each lifetime
+     within 1 ms, a trace with one ``decode_step`` / ``mixed_step`` /
+     ``spec_step`` span per decode step, finite KV error gauges on the
+     int8 pool, ``tools/slo_report.py`` exiting 0 on the directory;
+   - the decode step and TTFT medians off, on (bucketed: also on without
+     sync spans), the overhead printed with the card;
+   - a short run with ``trace.jax_profiler_dir`` whose ``torch.profiler``
+     trace names kernel #1, stopped by ``close()``.
 4. Training end to end: ``initialize`` -> ``train_batch`` on full-width
    GPT-2 with ``bench.py:bench_gpt2``'s configuration plus
    ``optimizer.fused_update``: the tensor-core flash forward, dq and dk/dv
@@ -2533,12 +2547,14 @@ def time_fused_ln(torch, dtype, reports, errs):
 # 3. serving end to end
 # ---------------------------------------------------------------------------
 
-def serving_engine(torch, dtype, mode, params, fault=None, **serving):
+def serving_engine(torch, dtype, mode, params, fault=None, telemetry=None,
+                   **serving):
     """Full-width GPT-2 behind ``init_serving``: 8 slots, KV block 16, a
     pool of 8 x 1024 positions (plus the scratch block); ``serving`` adds
     keys of the serving block (chunked prefill, int8 pool, prefix cache,
     speculative decoding, resilience); ``fault``: a
-    ``resilience.fault_injection`` plan."""
+    ``resilience.fault_injection`` plan; ``telemetry``: a telemetry
+    block."""
     import deepspeed_tpu_torch as dtt
     from deepspeed_tpu_torch.models import make_gpt
 
@@ -2550,6 +2566,8 @@ def serving_engine(torch, dtype, mode, params, fault=None, **serving):
                           "decode_attention": mode, **serving}}
     if fault is not None:
         config["resilience"] = {"fault_injection": fault}
+    if telemetry is not None:
+        config["telemetry"] = telemetry
     return dtt.init_serving(model, params=params, dtype=dtype,
                             config=config)
 
@@ -2648,7 +2666,8 @@ class KernelShims:
 
 
 def serve(torch, dtype, mode, params, requests, wave1=10,
-          second_wave="finish", attention="kernel", **serving):
+          second_wave="finish", attention="kernel", telemetry=None,
+          **serving):
     """Serve ``requests``: ``wave1`` at once, the rest when the first
     request finishes (backfill), or with ``second_wave="prefill"`` as soon
     as request 0 has its first token (so the rest find its prompt in the
@@ -2657,12 +2676,14 @@ def serve(torch, dtype, mode, params, requests, wave1=10,
     ``attention`` (``KernelShims``): "kernel"; "plain", the chunked
     step's kernel replaced by its plain version (nothing launches); or
     "both", every kernel call held against its plain version on the
-    same inputs (``max_err`` in the metrics)."""
+    same inputs (``max_err`` in the metrics). ``telemetry``: a telemetry
+    block for ``init_serving`` (the caller closes the engine)."""
     from deepspeed_tpu_torch.ops.transformer import chunked_prefill
     from deepspeed_tpu_torch.ops.transformer.paged_attention import \
         paged_decode_attention
 
-    srv = serving_engine(torch, dtype, mode, params, **serving)
+    srv = serving_engine(torch, dtype, mode, params, telemetry=telemetry,
+                         **serving)
     cfg = srv.model_cfg
     chunked = srv.scfg.chunked_prefill
     label = (f"{mode}/{dtype}/{attention}/" + ",".join(
@@ -3687,6 +3708,182 @@ TC_SOURCES = ("flash_attention_tc", "fused_ln_tc", "sparse_attention_tc",
 # 4. training end to end
 # ---------------------------------------------------------------------------
 
+# Phase 3c's paths: each served with telemetry on and off
+TELEMETRY_PATHS = (
+    ("bucketed", {}),
+    ("chunked", {"chunked_prefill": {"token_budget": 256}}),
+    ("int8", {"int8_kv_cache": True}),
+    ("spec", {**spec_block(SPEC_K), **RESIL_ON}),
+)
+# the spans of a decode round: one per step that had active rows
+ROUND_SPANS = ("decode_step", "mixed_step", "spec_step")
+# kernel #1's CUDA function, as the profiler names it
+KERNEL1_SYMBOL = "paged_decode_kernel"
+
+
+def telemetry_block(run_dir, sync_spans=True, profiler_dir=None):
+    """Everything serving telemetry has: JSONL and memory sinks, the trace,
+    the request records, the int8 KV error gauges."""
+    trace = {"enabled": True, "sync_spans": sync_spans}
+    if profiler_dir is not None:
+        trace["jax_profiler_dir"] = profiler_dir
+    return {"enabled": True, "dir": run_dir,
+            "metrics": {"sinks": ["jsonl", "memory"]}, "trace": trace,
+            "requests": {"enabled": True}, "numerics": {"enabled": True}}
+
+
+def check_telemetry_files(srv, label, run_dir, n_requests, int8):
+    """Close the engine, then hold its telemetry: one finished record per
+    request whose categories sum to its lifetime within 1 ms, a trace
+    that parses with one round span per decode step and one prefill span
+    per cold prefill, finite KV error gauges (two per cold prefill on the
+    int8 pool, none otherwise), and ``tools/slo_report.py`` exiting 0 on
+    the directory. Returns the span counts."""
+    import collections
+
+    sink = next(s for s in srv.telemetry.registry.sinks
+                if type(s).__name__ == "InMemorySink")
+    srv.close()
+    with open(os.path.join(run_dir, "requests.jsonl")) as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    if len(records) != n_requests \
+            or any(r["status"] != "finished" for r in records):
+        fail(f"telemetry {label}: {len(records)} records, statuses "
+             f"{sorted({r['status'] for r in records})}")
+    worst = max(abs(sum(r["categories"].values()) - r["lifetime_sec"])
+                for r in records)
+    if worst > 1e-3:
+        fail(f"telemetry {label}: categories miss a lifetime by {worst} s")
+    with open(os.path.join(run_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    spans = collections.Counter(e["name"] for e in events if e["ph"] == "X")
+    rounds = sum(spans[n] for n in ROUND_SPANS)
+    prefills = 0 if srv.scfg.chunked_prefill else n_requests
+    if rounds != srv.stats["decode_steps"] or spans["prefill"] != prefills:
+        fail(f"telemetry {label}: spans {dict(spans)} for "
+             f"{srv.stats['decode_steps']} decode steps, {prefills} cold "
+             f"prefills")
+    kv = [r["value"] for r in sink.rows if r["tag"].startswith("numerics/")]
+    if len(kv) != (2 * n_requests if int8 else 0) or not all(
+            v == v and abs(v) != float("inf") for v in kv):
+        fail(f"telemetry {label}: KV error gauges {kv}")
+    out = subprocess.run(
+        [sys.executable, os.path.join(HERE, "tools", "slo_report.py"),
+         run_dir], capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        fail(f"telemetry {label}: tools/slo_report.py exited "
+             f"{out.returncode}: {out.stderr[-2000:]}")
+    return dict(spans), (max(kv) if kv else None), worst
+
+
+def check_telemetry(torch, card):
+    """Phase 3c: serving telemetry on full-width GPT-2 (random weights,
+    seed 0) over phase 3's 16-request trace in bf16, on the bucketed,
+    chunked 256, int8 and speculative k = 4 (under ``serving.resilience``)
+    paths, each with telemetry off and on (``telemetry_block``, sync
+    spans): the same tokens and #1/#2 launch counts on and off, the files
+    as ``check_telemetry_files`` holds them; the bucketed path also with a
+    trace without sync spans, and in turns, for the overhead; then a
+    short run with
+    ``trace.jax_profiler_dir``, whose torch.profiler trace must name
+    kernel #1."""
+    from deepspeed_tpu_torch.models import GPT_CONFIGS, init_gpt_params
+
+    t_phase = time.perf_counter()
+    cfg = GPT_CONFIGS["gpt2"]
+    params = init_gpt_params(cfg, seed=0)
+    requests = trace(cfg)
+    bf16 = torch.bfloat16
+    root = os.path.join(HERE, "build", "telemetry")
+    shutil.rmtree(root, ignore_errors=True)
+    serve(torch, bf16, "kernel", params, requests)          # warm-up
+    out = {}
+    for label, extra in TELEMETRY_PATHS:
+        # the bucketed path measures the overhead in turns (off, on,
+        # synced, synced, on, off); the others run off, then synced
+        order = (("off", "on", "on_sync", "on_sync", "on", "off")
+                 if label == "bucketed" else ("off", "on_sync"))
+        got = {}
+        for i, name in enumerate(order):
+            tel = None if name == "off" else telemetry_block(
+                os.path.join(root, f"{label}_{name}_{i}"),
+                sync_spans=name == "on_sync")
+            srv, toks, m = serve(torch, bf16, "kernel", params, requests,
+                                 telemetry=tel, **extra)
+            row = got.setdefault(name, {
+                "tokens": toks, "step_ms": [], "ttft_ms": [],
+                "launches": m["launches"],
+                "launches_by_queries": m["launches_by_queries"]})
+            row["step_ms"] += m["step_ms"]
+            row["ttft_ms"] += m["ttft_ms"]
+            if toks != got["off"]["tokens"] \
+                    or m["launches"] != got["off"]["launches"] \
+                    or m["launches_by_queries"] != \
+                    got["off"]["launches_by_queries"]:
+                fail(f"telemetry {label}/{name}: tokens or launches differ "
+                     f"from the run without telemetry: {m['launches']} "
+                     f"{m['launches_by_queries']} against "
+                     f"{got['off']['launches']} "
+                     f"{got['off']['launches_by_queries']}")
+            if tel is not None:
+                spans, kv_max, worst = check_telemetry_files(
+                    srv, f"{label}/{name}", tel["dir"], len(requests),
+                    label == "int8")
+                row.update(spans=spans, kv_rel_err_max=kv_max,
+                           categories_worst_s=worst)
+        out[label] = {name: {
+            "step_ms_median": median(row["step_ms"]),
+            "ttft_ms_median": median(row["ttft_ms"]),
+            **{k: v for k, v in row.items()
+               if k not in ("tokens", "step_ms", "ttft_ms")}}
+            for name, row in got.items()}
+        print(f"telemetry {label}: decode step ms median / TTFT ms median "
+              + ", ".join(f"{name} {row['step_ms_median']:.3f} / "
+                          f"{row['ttft_ms_median']:.1f}"
+                          for name, row in out[label].items())
+              + f" ({card}); {json.dumps(out[label])}")
+
+    # the torch.profiler capture: 4 requests of 8 tokens
+    short = [(p, 8) for p, _n in requests[:4]]
+    run_dir = os.path.join(root, "profiler")
+    prof_dir = os.path.join(run_dir, "prof")
+    srv, _toks, m = serve(torch, bf16, "kernel", params, short, wave1=4,
+                          second_wave="prefill", telemetry=telemetry_block(
+                              run_dir, profiler_dir=prof_dir))
+    if not srv.telemetry.tracer.profiler_active:
+        fail("telemetry: trace.jax_profiler_dir started no torch.profiler "
+             "capture")
+    check_telemetry_files(srv, "profiler", run_dir, len(short), False)
+    if srv.telemetry.tracer.profiler_active:
+        fail("telemetry: close() left the torch.profiler capture running")
+    from deepspeed_tpu_torch.telemetry.tracer import PROFILER_TRACE_FILE
+
+    path = os.path.join(prof_dir, PROFILER_TRACE_FILE)
+    with open(path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    hits = sorted(n for n in names if KERNEL1_SYMBOL in n)
+    if not hits:
+        fail(f"telemetry: the torch.profiler trace {path} names no "
+             f"{KERNEL1_SYMBOL} ({len(names)} event names)")
+    out["profiler"] = {"trace_mb": os.path.getsize(path) / 2**20,
+                       "kernel1_names": hits[:2],
+                       "kernel1_launches": m["launches"][
+                           "paged_decode_attention"]}
+    print(f"telemetry profiler capture: {json.dumps(out['profiler'])}")
+    b = out["bucketed"]
+    for name in ("on", "on_sync"):
+        print(f"telemetry overhead, bucketed bf16, {name} against off: "
+              f"decode step {b[name]['step_ms_median']:.3f} / "
+              f"{b['off']['step_ms_median']:.3f} ms (ratio "
+              f"{b[name]['step_ms_median'] / b['off']['step_ms_median']:.4f})"
+              f", TTFT {b[name]['ttft_ms_median']:.1f} / "
+              f"{b['off']['ttft_ms_median']:.1f} ms (ratio "
+              f"{b[name]['ttft_ms_median'] / b['off']['ttft_ms_median']:.4f})"
+              f" ({card})")
+    print(f"phase 3c: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 TRAIN_CONFIG = {                  # bench.py:bench_gpt2's, plus the kernel
     "train_micro_batch_size_per_gpu": 16,
     "gradient_accumulation_steps": 8,
@@ -4287,10 +4484,12 @@ def main() -> int:
     only = (set(args[1].split(",")) if len(args) == 2
             and args[0] == "--only" else None)
     if args and (not only
-                 or not only <= {"kernels", "sparse", "chunked", "spec"}
+                 or not only <= {"kernels", "sparse", "chunked", "spec",
+                                 "telemetry"}
                  or ("kernels" in only and len(only) > 1)):
         fail(f"unknown arguments {args} (none, --only kernels, or --only "
-             f"with sparse, chunked, spec or several, comma-separated)")
+             f"with sparse, chunked, spec, telemetry or several, "
+             f"comma-separated)")
     part = only is not None and "kernels" not in only
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4337,6 +4536,8 @@ def main() -> int:
         if "spec" in only:
             check_speculative(torch, card,
                               reports["paged_decode_attention_verify"])
+        if "telemetry" in only:
+            check_telemetry(torch, card)
         return 0
     check_fused_ln(torch, {
         ("bfloat16", "fwd"): reports["fused_ln_matmul_fwd_tc"],
@@ -4362,6 +4563,9 @@ def main() -> int:
 
     # 3b. speculative serving and resilience (fills the verify row)
     check_speculative(torch, card, reports["paged_decode_attention_verify"])
+
+    # 3c. serving telemetry: on and off give the same tokens and launches
+    check_telemetry(torch, card)
 
     # 4. the training path end to end, and its fp32 comparison
     training = check_training(torch, card)

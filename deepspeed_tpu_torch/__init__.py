@@ -11,9 +11,10 @@ with the flash-attention and fused-Adam kernels, block-sparse attention
 LayerNorm + projection sites (``GPTConfig.fused_ln``) with theirs, and
 continuous-batching GPT serving (``init_serving``) over the inference engine
 (``init_inference``) with the paged decode-attention kernel, speculative
-decoding and serving resilience (deadlines, shedding, recovery, the
-degradation ladder, ``FaultPlan`` chaos); every kernel written in CUDA for
-Hopper.
+decoding, serving resilience (deadlines, shedding, recovery, the
+degradation ladder, ``FaultPlan`` chaos) and serving telemetry (metrics,
+a Chrome trace of the steps, per-request SLO records); every kernel
+written in CUDA for Hopper.
 """
 
 import json
@@ -122,17 +123,23 @@ def init_serving(model=None,
     """Serving engine entry: continuous batching over ``init_inference``.
 
     ``config``: a dict (or JSON path) whose ``serving`` block configures
-    the engine (``ServingConfig`` keys) and whose
+    the engine (``ServingConfig`` keys), whose ``telemetry`` block, when
+    enabled, wires the metrics sinks, the step trace, the request records
+    (``telemetry.requests``) and the int8 KV error gauges
+    (``telemetry.numerics``) into ``telemetry.dir``, and whose
     ``resilience.fault_injection`` block (with the ``DSTPU_FAULT_PLAN``
     override) is the serving chaos plan, as in the JAX package. Keys the
     port has not ported yet raise ``ConfigError``. Other kwargs go to
     ``init_inference`` (params, dtype, device, ...). Returns a step-driven
-    ``ServeEngine``.
+    ``ServeEngine``; its ``close()`` closes the telemetry files.
     """
     from deepspeed_tpu_torch.config.config import (ServingConfig,
+                                                   TelemetryConfig,
                                                    check_serving_blocks)
+    from deepspeed_tpu_torch.inference.engine import resolve_device
     from deepspeed_tpu_torch.resilience import FaultPlan
     from deepspeed_tpu_torch.serving.engine import ServeEngine
+    from deepspeed_tpu_torch.telemetry import build_requests, build_telemetry
 
     if isinstance(config, str):
         with open(config) as f:
@@ -140,10 +147,20 @@ def init_serving(model=None,
     config = dict(config or {})
     fault_block = check_serving_blocks(config)
     scfg = ServingConfig.from_dict(config.get("serving"))
+    tcfg = TelemetryConfig.from_dict(config.get("telemetry"))
     fault_plan = (FaultPlan.resolve(fault_block) if fault_block is not None
                   else None)
-    return ServeEngine(init_inference(model, **kwargs), config=scfg,
-                       fault_plan=fault_plan)
+    kwargs["device"] = resolve_device(kwargs.get("device"))
+    tel = build_telemetry(tcfg, device=kwargs["device"])
+    try:
+        engine = init_inference(model, tracer=tel.tracer, **kwargs)
+        return ServeEngine(engine, config=scfg, telemetry=tel,
+                           measure_kv_quant_error=tcfg.numerics.enabled,
+                           request_accountant=build_requests(tcfg, tel),
+                           fault_plan=fault_plan)
+    except BaseException:
+        tel.close()      # the sink files and a profiler capture
+        raise
 
 
 __all__ = ["initialize", "init_inference", "init_serving", "log_dist",

@@ -1,9 +1,10 @@
 """Blockwise symmetric int8 quantization: deterministic round trips with
-per-block fp32 scales.
+per-block fp32 scales, and the round-trip error gauges built on them.
 
 The port's copy of ``deepspeed_tpu/comm/quantize.py`` (the JAX package's
-one int8 implementation). In the port its consumer is the serving KV pool
-(``serving/kv_cache.py``), one block per (token, head) vector. The codes
+one int8 implementation). In the port its consumers are the serving KV pool
+(``serving/kv_cache.py``), one block per (token, head) vector, and the
+int8 KV-cache error gauges of serving telemetry (``roundtrip_error``). The codes
 match the JAX package's bit for bit on the same fp32 input:
 
 - **round half to even**: ``torch.round`` rounds ties to even, as
@@ -20,7 +21,8 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["qmax_for_bits", "quantize_blockwise", "dequantize_blockwise"]
+__all__ = ["qmax_for_bits", "quantize_blockwise", "dequantize_blockwise",
+           "roundtrip_error_parts", "rel_from_parts", "roundtrip_error"]
 
 
 def qmax_for_bits(bits: int) -> int:
@@ -59,3 +61,42 @@ def dequantize_blockwise(q: torch.Tensor, scales: torch.Tensor,
     *lead, m = q.shape
     blocks = q.reshape(*lead, m // block_size, block_size).float()
     return (blocks * scales[..., None]).reshape(*lead, m)
+
+
+def roundtrip_error_parts(x: torch.Tensor, bits: int = 8,
+                          block_size: int = 256
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """``(err_sq, ref_sq, max_abs)`` fp32 scalars of the round trip of
+    ``x``: ``bits`` 8 is the blockwise int8 round trip (half to even), 16
+    the bf16 cast, 32 and more exact (zero error). A non-finite block
+    poisons its scale, so the error is NaN rather than hidden."""
+    x32 = x.float()
+    ref_sq = torch.sum(x32 * x32)
+    if bits >= 32:
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        return zero, ref_sq, zero
+    if bits == 16:
+        dq = x32.to(torch.bfloat16).float()
+    else:
+        q, s = quantize_blockwise(x32, block_size, bits=bits)
+        dq = dequantize_blockwise(q, s, block_size)
+    diff = dq - x32
+    return torch.sum(diff * diff), ref_sq, torch.max(torch.abs(diff))
+
+
+def rel_from_parts(err_sq: torch.Tensor, ref_sq: torch.Tensor
+                   ) -> torch.Tensor:
+    """Relative L2 error from the parts (0 for a zero reference; NaN
+    propagates)."""
+    return torch.sqrt(err_sq) / torch.sqrt(torch.clamp(ref_sq, min=1e-30))
+
+
+def roundtrip_error(x: torch.Tensor, bits: int = 8,
+                    block_size: int = 256
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(rel_l2, max_abs)`` fp32 scalars of the round trip of ``x``'s last
+    dim in blocks: ``rel_l2 = ||dq(q(x)) - x|| / ||x||`` and the worst
+    element error (at most half a block's step for a finite block)."""
+    err_sq, ref_sq, max_abs = roundtrip_error_parts(x, bits, block_size)
+    return rel_from_parts(err_sq, ref_sq), max_abs

@@ -1,5 +1,6 @@
 """Config parsing of the port."""
 
-from deepspeed_tpu_torch.config.config import ConfigError, ServingConfig
+from deepspeed_tpu_torch.config.config import (ConfigError, ServingConfig,
+                                               TelemetryConfig)
 
-__all__ = ["ConfigError", "ServingConfig"]
+__all__ = ["ConfigError", "ServingConfig", "TelemetryConfig"]

@@ -1,5 +1,5 @@
 """Parsed configs of the port: ``DeepSpeedConfig`` (training),
-``ServingConfig`` and ``ConfigError``.
+``ServingConfig``, ``TelemetryConfig`` (serving) and ``ConfigError``.
 
 Held to the walls of ``deepspeed_tpu/config/config.py``. A key the port has
 no feature for yet raises a ``ConfigError`` that names it and says "not yet
@@ -8,7 +8,7 @@ ported"; an unknown key raises too. Nothing is ignored.
 
 import json
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Union
 
 from deepspeed_tpu_torch.config import constants as C
@@ -252,22 +252,409 @@ class ServingConfig:
         )
 
 
+def _telemetry_block(d: Any, what: str, known) -> Dict[str, Any]:
+    """A telemetry (sub-)block as the reference reads it (a falsy value is
+    an empty block), with the port's wall: an unknown key raises."""
+    d = _as_block(d, what)
+    unknown = set(d) - set(known)
+    if unknown:
+        raise ConfigError(f"unknown {what} keys {sorted(unknown)}; expected "
+                          f"a subset of {sorted(known)}")
+    return d
+
+
+@dataclass
+class TelemetryTraceConfig:
+    """Step tracer knobs (telemetry/tracer.py). ``jax_profiler_dir`` keeps
+    the reference's name: in the port it is a ``torch.profiler`` capture
+    directory."""
+
+    enabled: bool = C.TELEMETRY_TRACE_ENABLED_DEFAULT
+    file: str = C.TELEMETRY_TRACE_FILE_DEFAULT
+    sync_spans: bool = C.TELEMETRY_TRACE_SYNC_SPANS_DEFAULT
+    jax_profiler_dir: Optional[str] = None
+
+    @classmethod
+    def from_dict(cls, d: Any) -> "TelemetryTraceConfig":
+        d = _telemetry_block(d, "telemetry.trace", (
+            C.TELEMETRY_TRACE_ENABLED, C.TELEMETRY_TRACE_FILE,
+            C.TELEMETRY_TRACE_SYNC_SPANS,
+            C.TELEMETRY_TRACE_JAX_PROFILER_DIR))
+        return cls(
+            enabled=bool(_get(d, C.TELEMETRY_TRACE_ENABLED,
+                              C.TELEMETRY_TRACE_ENABLED_DEFAULT)),
+            file=str(_get(d, C.TELEMETRY_TRACE_FILE,
+                          C.TELEMETRY_TRACE_FILE_DEFAULT)),
+            sync_spans=bool(_get(d, C.TELEMETRY_TRACE_SYNC_SPANS,
+                                 C.TELEMETRY_TRACE_SYNC_SPANS_DEFAULT)),
+            jax_profiler_dir=d.get(C.TELEMETRY_TRACE_JAX_PROFILER_DIR))
+
+
+@dataclass
+class TelemetryMetricsConfig:
+    """Metrics registry sinks (telemetry/registry.py)."""
+
+    sinks: tuple = C.TELEMETRY_METRICS_SINKS_DEFAULT
+    file: str = C.TELEMETRY_METRICS_FILE_DEFAULT
+
+    @classmethod
+    def from_dict(cls, d: Any) -> "TelemetryMetricsConfig":
+        d = _telemetry_block(d, "telemetry.metrics", (
+            C.TELEMETRY_METRICS_SINKS, C.TELEMETRY_METRICS_FILE))
+        sinks = tuple(_get(d, C.TELEMETRY_METRICS_SINKS,
+                           C.TELEMETRY_METRICS_SINKS_DEFAULT))
+        for s in sinks:
+            if s not in C.TELEMETRY_METRICS_VALID_SINKS:
+                raise ConfigError(
+                    f"telemetry.metrics.sinks: unknown sink {s!r} (valid: "
+                    f"{list(C.TELEMETRY_METRICS_VALID_SINKS)})")
+        return cls(sinks=sinks,
+                   file=str(_get(d, C.TELEMETRY_METRICS_FILE,
+                                 C.TELEMETRY_METRICS_FILE_DEFAULT)))
+
+
+def _pattern_file(value: str, prefix: str, ext: str, what: str,
+                  reader: str) -> None:
+    """Files the stdlib-only report tools discover by pattern must match
+    it, or they would be written and never read."""
+    if not (value.startswith(prefix) and value.endswith(ext)):
+        raise ConfigError(f"{what} must match '{prefix}*{ext}' ({reader} "
+                          f"discovers it by that pattern), got '{value}'")
+
+
+@dataclass
+class TelemetryFleetConfig:
+    """``telemetry.fleet``: parsed and checked as the reference does; the
+    fleet aggregator is not ported yet (refused when on)."""
+
+    enabled: bool = C.TELEMETRY_FLEET_ENABLED_DEFAULT
+    window: int = C.TELEMETRY_FLEET_WINDOW_DEFAULT
+    min_window: int = C.TELEMETRY_FLEET_MIN_WINDOW_DEFAULT
+    zscore: float = C.TELEMETRY_FLEET_ZSCORE_DEFAULT
+    persist: int = C.TELEMETRY_FLEET_PERSIST_DEFAULT
+    breakdown_file: str = C.TELEMETRY_FLEET_BREAKDOWN_FILE_DEFAULT
+
+    @classmethod
+    def from_dict(cls, d: Any) -> "TelemetryFleetConfig":
+        d = _telemetry_block(d, "telemetry.fleet", (
+            C.TELEMETRY_FLEET_ENABLED, C.TELEMETRY_FLEET_WINDOW,
+            C.TELEMETRY_FLEET_MIN_WINDOW, C.TELEMETRY_FLEET_ZSCORE,
+            C.TELEMETRY_FLEET_PERSIST, C.TELEMETRY_FLEET_BREAKDOWN_FILE))
+        cfg = cls(
+            enabled=bool(_get(d, C.TELEMETRY_FLEET_ENABLED,
+                              C.TELEMETRY_FLEET_ENABLED_DEFAULT)),
+            window=int(_get(d, C.TELEMETRY_FLEET_WINDOW,
+                            C.TELEMETRY_FLEET_WINDOW_DEFAULT)),
+            min_window=int(_get(d, C.TELEMETRY_FLEET_MIN_WINDOW,
+                                C.TELEMETRY_FLEET_MIN_WINDOW_DEFAULT)),
+            zscore=float(_get(d, C.TELEMETRY_FLEET_ZSCORE,
+                              C.TELEMETRY_FLEET_ZSCORE_DEFAULT)),
+            persist=int(_get(d, C.TELEMETRY_FLEET_PERSIST,
+                             C.TELEMETRY_FLEET_PERSIST_DEFAULT)),
+            breakdown_file=str(_get(d, C.TELEMETRY_FLEET_BREAKDOWN_FILE,
+                                    C.TELEMETRY_FLEET_BREAKDOWN_FILE_DEFAULT)))
+        if cfg.min_window < 1 or cfg.window < cfg.min_window:
+            raise ConfigError(
+                f"telemetry.fleet: need window >= min_window >= 1, got "
+                f"window={cfg.window} min_window={cfg.min_window}")
+        if cfg.zscore <= 0:
+            raise ConfigError(
+                f"telemetry.fleet.zscore must be positive, got {cfg.zscore}")
+        if cfg.persist < 1:
+            raise ConfigError(
+                f"telemetry.fleet.persist must be >= 1, got {cfg.persist}")
+        _pattern_file(cfg.breakdown_file, "fleet_breakdown", ".json",
+                      "telemetry.fleet.breakdown_file",
+                      "tools/fleet_report.py")
+        return cfg
+
+
+@dataclass
+class TelemetryMemoryConfig:
+    """``telemetry.memory``: parsed and checked as the reference does; the
+    memory observatory is not ported yet (refused when on)."""
+
+    enabled: bool = C.TELEMETRY_MEMORY_ENABLED_DEFAULT
+    headroom_warn_frac: float = C.TELEMETRY_MEMORY_HEADROOM_WARN_FRAC_DEFAULT
+    crashdump_dir: str = C.TELEMETRY_MEMORY_CRASHDUMP_DIR_DEFAULT
+    oom_exit_code: int = C.TELEMETRY_MEMORY_OOM_EXIT_CODE_DEFAULT
+    plan_at_init: bool = C.TELEMETRY_MEMORY_PLAN_AT_INIT_DEFAULT
+    plan_file: str = C.TELEMETRY_MEMORY_PLAN_FILE_DEFAULT
+    activation_bytes_per_sample: float = C.TELEMETRY_MEMORY_ACT_BYTES_DEFAULT
+    hbm_limit_gb: Optional[float] = None
+
+    @classmethod
+    def from_dict(cls, d: Any) -> "TelemetryMemoryConfig":
+        d = _telemetry_block(d, "telemetry.memory", (
+            C.TELEMETRY_MEMORY_ENABLED, C.TELEMETRY_MEMORY_HEADROOM_WARN_FRAC,
+            C.TELEMETRY_MEMORY_CRASHDUMP_DIR, C.TELEMETRY_MEMORY_OOM_EXIT_CODE,
+            C.TELEMETRY_MEMORY_PLAN_AT_INIT, C.TELEMETRY_MEMORY_PLAN_FILE,
+            C.TELEMETRY_MEMORY_ACT_BYTES, C.TELEMETRY_MEMORY_HBM_LIMIT_GB))
+        cfg = cls(
+            enabled=bool(_get(d, C.TELEMETRY_MEMORY_ENABLED,
+                              C.TELEMETRY_MEMORY_ENABLED_DEFAULT)),
+            headroom_warn_frac=float(_get(
+                d, C.TELEMETRY_MEMORY_HEADROOM_WARN_FRAC,
+                C.TELEMETRY_MEMORY_HEADROOM_WARN_FRAC_DEFAULT)),
+            crashdump_dir=str(_get(d, C.TELEMETRY_MEMORY_CRASHDUMP_DIR,
+                                   C.TELEMETRY_MEMORY_CRASHDUMP_DIR_DEFAULT)),
+            oom_exit_code=int(_get(d, C.TELEMETRY_MEMORY_OOM_EXIT_CODE,
+                                   C.TELEMETRY_MEMORY_OOM_EXIT_CODE_DEFAULT)),
+            plan_at_init=bool(_get(d, C.TELEMETRY_MEMORY_PLAN_AT_INIT,
+                                   C.TELEMETRY_MEMORY_PLAN_AT_INIT_DEFAULT)),
+            plan_file=str(_get(d, C.TELEMETRY_MEMORY_PLAN_FILE,
+                               C.TELEMETRY_MEMORY_PLAN_FILE_DEFAULT)),
+            activation_bytes_per_sample=float(_get(
+                d, C.TELEMETRY_MEMORY_ACT_BYTES,
+                C.TELEMETRY_MEMORY_ACT_BYTES_DEFAULT)),
+            hbm_limit_gb=(float(d[C.TELEMETRY_MEMORY_HBM_LIMIT_GB])
+                          if d.get(C.TELEMETRY_MEMORY_HBM_LIMIT_GB)
+                          is not None else None))
+        if not 0.0 <= cfg.headroom_warn_frac <= 1.0:
+            raise ConfigError(
+                f"telemetry.memory.headroom_warn_frac must be in [0, 1], "
+                f"got {cfg.headroom_warn_frac}")
+        if not 1 <= cfg.oom_exit_code <= 255:
+            raise ConfigError(
+                f"telemetry.memory.oom_exit_code must be in [1, 255], got "
+                f"{cfg.oom_exit_code}")
+        if cfg.hbm_limit_gb is not None and cfg.hbm_limit_gb <= 0:
+            raise ConfigError(
+                f"telemetry.memory.hbm_limit_gb must be positive, got "
+                f"{cfg.hbm_limit_gb}")
+        _pattern_file(cfg.plan_file, "memory_plan", ".json",
+                      "telemetry.memory.plan_file", "tools/memory_report.py")
+        return cfg
+
+
+@dataclass
+class TelemetryDevicetimeConfig:
+    """``telemetry.devicetime``: parsed and checked as the reference does;
+    the device-time observatory is not ported yet (refused when on)."""
+
+    enabled: bool = C.TELEMETRY_DEVICETIME_ENABLED_DEFAULT
+    capture_steps: int = C.TELEMETRY_DEVICETIME_CAPTURE_STEPS_DEFAULT
+    every_steps: int = C.TELEMETRY_DEVICETIME_EVERY_STEPS_DEFAULT
+    keep_last: int = C.TELEMETRY_DEVICETIME_KEEP_LAST_DEFAULT
+    dir: str = C.TELEMETRY_DEVICETIME_DIR_DEFAULT
+    top_k: int = C.TELEMETRY_DEVICETIME_TOP_K_DEFAULT
+    divergence_warn: float = C.TELEMETRY_DEVICETIME_DIVERGENCE_WARN_DEFAULT
+    hbm_gbps: Optional[float] = None
+
+    @classmethod
+    def from_dict(cls, d: Any) -> "TelemetryDevicetimeConfig":
+        d = _telemetry_block(d, "telemetry.devicetime", (
+            C.TELEMETRY_DEVICETIME_ENABLED,
+            C.TELEMETRY_DEVICETIME_CAPTURE_STEPS,
+            C.TELEMETRY_DEVICETIME_EVERY_STEPS,
+            C.TELEMETRY_DEVICETIME_KEEP_LAST, C.TELEMETRY_DEVICETIME_DIR,
+            C.TELEMETRY_DEVICETIME_TOP_K,
+            C.TELEMETRY_DEVICETIME_DIVERGENCE_WARN,
+            C.TELEMETRY_DEVICETIME_HBM_GBPS))
+        cfg = cls(
+            enabled=bool(_get(d, C.TELEMETRY_DEVICETIME_ENABLED,
+                              C.TELEMETRY_DEVICETIME_ENABLED_DEFAULT)),
+            capture_steps=int(_get(
+                d, C.TELEMETRY_DEVICETIME_CAPTURE_STEPS,
+                C.TELEMETRY_DEVICETIME_CAPTURE_STEPS_DEFAULT)),
+            every_steps=int(_get(
+                d, C.TELEMETRY_DEVICETIME_EVERY_STEPS,
+                C.TELEMETRY_DEVICETIME_EVERY_STEPS_DEFAULT)),
+            keep_last=int(_get(d, C.TELEMETRY_DEVICETIME_KEEP_LAST,
+                               C.TELEMETRY_DEVICETIME_KEEP_LAST_DEFAULT)),
+            dir=str(_get(d, C.TELEMETRY_DEVICETIME_DIR,
+                         C.TELEMETRY_DEVICETIME_DIR_DEFAULT)),
+            top_k=int(_get(d, C.TELEMETRY_DEVICETIME_TOP_K,
+                           C.TELEMETRY_DEVICETIME_TOP_K_DEFAULT)),
+            divergence_warn=float(_get(
+                d, C.TELEMETRY_DEVICETIME_DIVERGENCE_WARN,
+                C.TELEMETRY_DEVICETIME_DIVERGENCE_WARN_DEFAULT)),
+            hbm_gbps=(float(d[C.TELEMETRY_DEVICETIME_HBM_GBPS])
+                      if d.get(C.TELEMETRY_DEVICETIME_HBM_GBPS) is not None
+                      else None))
+        if cfg.capture_steps < 1:
+            raise ConfigError(
+                f"telemetry.devicetime.capture_steps must be >= 1, got "
+                f"{cfg.capture_steps}")
+        if cfg.every_steps <= cfg.capture_steps:
+            raise ConfigError(
+                f"telemetry.devicetime needs every_steps > capture_steps "
+                f"(a capture must close before the next can open), got "
+                f"every_steps={cfg.every_steps} "
+                f"capture_steps={cfg.capture_steps}")
+        if cfg.keep_last < 1:
+            raise ConfigError(
+                f"telemetry.devicetime.keep_last must be >= 1, got "
+                f"{cfg.keep_last}")
+        if cfg.top_k < 1:
+            raise ConfigError(
+                f"telemetry.devicetime.top_k must be >= 1, got {cfg.top_k}")
+        if not 0.0 < cfg.divergence_warn <= 1.0:
+            raise ConfigError(
+                f"telemetry.devicetime.divergence_warn must be in (0, 1], "
+                f"got {cfg.divergence_warn}")
+        if cfg.hbm_gbps is not None and cfg.hbm_gbps <= 0:
+            raise ConfigError(
+                f"telemetry.devicetime.hbm_gbps must be positive, got "
+                f"{cfg.hbm_gbps}")
+        return cfg
+
+
+@dataclass
+class TelemetryNumericsConfig:
+    """``telemetry.numerics``: in serving, the int8 KV-cache round-trip
+    error gauges (one measure per prefill on the int8 pool)."""
+
+    enabled: bool = C.TELEMETRY_NUMERICS_ENABLED_DEFAULT
+    max_groups: int = C.TELEMETRY_NUMERICS_MAX_GROUPS_DEFAULT
+    max_spike_dumps: int = C.TELEMETRY_NUMERICS_MAX_SPIKE_DUMPS_DEFAULT
+
+    @classmethod
+    def from_dict(cls, d: Any) -> "TelemetryNumericsConfig":
+        d = _telemetry_block(d, "telemetry.numerics", (
+            C.TELEMETRY_NUMERICS_ENABLED, C.TELEMETRY_NUMERICS_MAX_GROUPS,
+            C.TELEMETRY_NUMERICS_MAX_SPIKE_DUMPS))
+        cfg = cls(
+            enabled=bool(_get(d, C.TELEMETRY_NUMERICS_ENABLED,
+                              C.TELEMETRY_NUMERICS_ENABLED_DEFAULT)),
+            max_groups=int(_get(d, C.TELEMETRY_NUMERICS_MAX_GROUPS,
+                                C.TELEMETRY_NUMERICS_MAX_GROUPS_DEFAULT)),
+            max_spike_dumps=int(_get(
+                d, C.TELEMETRY_NUMERICS_MAX_SPIKE_DUMPS,
+                C.TELEMETRY_NUMERICS_MAX_SPIKE_DUMPS_DEFAULT)))
+        if cfg.max_groups < 1:
+            raise ConfigError(
+                f"telemetry.numerics.max_groups must be >= 1, got "
+                f"{cfg.max_groups}")
+        if cfg.max_spike_dumps < 0:
+            raise ConfigError(
+                f"telemetry.numerics.max_spike_dumps must be >= 0, got "
+                f"{cfg.max_spike_dumps}")
+        return cfg
+
+
+@dataclass
+class TelemetryRequestsConfig:
+    """``telemetry.requests``: the per-request SLO accountant
+    (telemetry/requests.py)."""
+
+    enabled: bool = C.TELEMETRY_REQUESTS_ENABLED_DEFAULT
+    file: str = C.TELEMETRY_REQUESTS_FILE_DEFAULT
+    window_sec: float = C.TELEMETRY_REQUESTS_WINDOW_SEC_DEFAULT
+
+    @classmethod
+    def from_dict(cls, d: Any) -> "TelemetryRequestsConfig":
+        d = _telemetry_block(d, "telemetry.requests", (
+            C.TELEMETRY_REQUESTS_ENABLED, C.TELEMETRY_REQUESTS_FILE,
+            C.TELEMETRY_REQUESTS_WINDOW_SEC))
+        cfg = cls(
+            enabled=bool(_get(d, C.TELEMETRY_REQUESTS_ENABLED,
+                              C.TELEMETRY_REQUESTS_ENABLED_DEFAULT)),
+            file=str(_get(d, C.TELEMETRY_REQUESTS_FILE,
+                          C.TELEMETRY_REQUESTS_FILE_DEFAULT)),
+            window_sec=float(_get(d, C.TELEMETRY_REQUESTS_WINDOW_SEC,
+                                  C.TELEMETRY_REQUESTS_WINDOW_SEC_DEFAULT)))
+        _pattern_file(cfg.file, "requests", ".jsonl",
+                      "telemetry.requests.file", "tools/slo_report.py")
+        if cfg.window_sec <= 0:
+            raise ConfigError(
+                f"telemetry.requests.window_sec must be positive, got "
+                f"{cfg.window_sec}")
+        return cfg
+
+
+_TELEMETRY_SUB_BLOCKS = {
+    C.TELEMETRY_TRACE: TelemetryTraceConfig,
+    C.TELEMETRY_METRICS: TelemetryMetricsConfig,
+    C.TELEMETRY_FLEET: TelemetryFleetConfig,
+    C.TELEMETRY_MEMORY: TelemetryMemoryConfig,
+    C.TELEMETRY_DEVICETIME: TelemetryDevicetimeConfig,
+    C.TELEMETRY_NUMERICS: TelemetryNumericsConfig,
+    C.TELEMETRY_REQUESTS: TelemetryRequestsConfig,
+}
+
+
+@dataclass
+class TelemetryConfig:
+    """``telemetry`` block of ``init_serving``: the metrics registry, the
+    step tracer, the recompile detector, the int8 KV error gauges
+    (``numerics``) and the request accountant (``requests``). Parsed and
+    checked as the reference parses it; off (the default) every hook is a
+    no-op. With telemetry on, ``fleet``, ``memory``, ``devicetime`` and
+    the tensorboard sink are not ported yet and raise by name.
+    ``goodput`` parses and serving builds nothing from it, as in the
+    reference's ``init_serving``."""
+
+    enabled: bool = False
+    dir: str = C.TELEMETRY_DIR_DEFAULT
+    trace: TelemetryTraceConfig = field(default_factory=TelemetryTraceConfig)
+    metrics: TelemetryMetricsConfig = field(
+        default_factory=TelemetryMetricsConfig)
+    recompile_detection: bool = C.TELEMETRY_RECOMPILE_DEFAULT
+    goodput: bool = C.TELEMETRY_GOODPUT_DEFAULT
+    fleet: TelemetryFleetConfig = field(default_factory=TelemetryFleetConfig)
+    memory: TelemetryMemoryConfig = field(
+        default_factory=TelemetryMemoryConfig)
+    devicetime: TelemetryDevicetimeConfig = field(
+        default_factory=TelemetryDevicetimeConfig)
+    numerics: TelemetryNumericsConfig = field(
+        default_factory=TelemetryNumericsConfig)
+    requests: TelemetryRequestsConfig = field(
+        default_factory=TelemetryRequestsConfig)
+
+    @classmethod
+    def from_dict(cls, d: Any) -> "TelemetryConfig":
+        d = _telemetry_block(d, C.TELEMETRY, (
+            C.TELEMETRY_ENABLED, C.TELEMETRY_DIR, C.TELEMETRY_RECOMPILE,
+            C.TELEMETRY_GOODPUT, *_TELEMETRY_SUB_BLOCKS))
+        cfg = cls(
+            enabled=bool(_get(d, C.TELEMETRY_ENABLED, False)),
+            dir=str(_get(d, C.TELEMETRY_DIR, C.TELEMETRY_DIR_DEFAULT)),
+            recompile_detection=bool(_get(d, C.TELEMETRY_RECOMPILE,
+                                          C.TELEMETRY_RECOMPILE_DEFAULT)),
+            goodput=bool(_get(d, C.TELEMETRY_GOODPUT,
+                              C.TELEMETRY_GOODPUT_DEFAULT)),
+            **{key: sub.from_dict(d.get(key))
+               for key, sub in _TELEMETRY_SUB_BLOCKS.items()})
+        if cfg.enabled and not cfg.dir:
+            raise ConfigError(
+                "telemetry.enabled requires telemetry.dir (where the trace "
+                "file and metrics JSONL land)")
+        if cfg.fleet.enabled and not cfg.goodput:
+            raise ConfigError(
+                "telemetry.fleet requires telemetry.goodput (fleet "
+                "aggregation reads the goodput accountant's deltas)")
+        if cfg.devicetime.enabled and cfg.trace.jax_profiler_dir:
+            raise ConfigError(
+                "telemetry.devicetime and telemetry.trace.jax_profiler_dir "
+                "are mutually exclusive: the passthrough holds the one "
+                "profiler session open for the whole run, so scheduled "
+                "captures could never start")
+        if cfg.enabled:
+            for key in (C.TELEMETRY_FLEET, C.TELEMETRY_MEMORY,
+                        C.TELEMETRY_DEVICETIME):
+                if getattr(cfg, key).enabled:
+                    raise not_yet_ported(f"telemetry.{key}")
+            for sink in cfg.metrics.sinks:
+                if sink in C.TELEMETRY_METRICS_UNPORTED_SINKS:
+                    raise not_yet_ported(
+                        f"the telemetry.metrics.sinks {sink!r} sink")
+        return cfg
+
+
 def check_serving_blocks(config: Dict[str, Any]
                          ) -> Optional[Dict[str, Any]]:
     """Check the top-level blocks of an ``init_serving`` config, read as
-    the reference's ``init_serving`` reads them: a telemetry block with
-    ``enabled: true`` is refused as not yet ported, and so is any key it
-    does not know. Returns the ``resilience.fault_injection`` block (the
-    serving chaos plan ``FaultPlan.resolve`` reads), or None when the
+    the reference's ``init_serving`` reads them: ``serving``,
+    ``telemetry`` (parsed by ``TelemetryConfig``) and ``resilience``; any
+    other key raises. Returns the ``resilience.fault_injection`` block
+    (the serving chaos plan ``FaultPlan.resolve`` reads), or None when the
     block has none."""
     unknown = set(config) - {C.SERVING, C.TELEMETRY, C.RESILIENCE}
     if unknown:
         raise ConfigError(
             f"unknown init_serving config keys {sorted(unknown)}; the port "
             f"reads {sorted({C.SERVING, C.TELEMETRY, C.RESILIENCE})}")
-    if _flag(_as_block(config.get(C.TELEMETRY), C.TELEMETRY),
-             C.SUB_BLOCK_ENABLED):
-        raise not_yet_ported("the telemetry block")
     return _as_block(config.get(C.RESILIENCE), C.RESILIENCE).get(
         C.FAULT_INJECTION) or None
 

@@ -154,6 +154,98 @@ SERVING_RESILIENCE_KEYS = frozenset({
 #############################################
 # Other top-level blocks of the JAX package's config that serving reads
 #############################################
-TELEMETRY = "telemetry"
 RESILIENCE = "resilience"
 FAULT_INJECTION = "fault_injection"   # resilience.fault_injection: a FaultPlan
+
+#############################################
+# Telemetry: metrics registry, step tracer, recompile detector and the
+# request accountant (telemetry/). The training-side sub-blocks (fleet,
+# memory, devicetime) parse as the reference parses them and are refused
+# when on.
+#############################################
+TELEMETRY = "telemetry"
+TELEMETRY_ENABLED = "enabled"
+TELEMETRY_DIR = "dir"
+TELEMETRY_DIR_DEFAULT = "telemetry"
+TELEMETRY_TRACE = "trace"
+TELEMETRY_TRACE_ENABLED = "enabled"
+TELEMETRY_TRACE_ENABLED_DEFAULT = True
+TELEMETRY_TRACE_FILE = "file"
+TELEMETRY_TRACE_FILE_DEFAULT = "trace.json"
+TELEMETRY_TRACE_SYNC_SPANS = "sync_spans"
+TELEMETRY_TRACE_SYNC_SPANS_DEFAULT = True
+# the reference's key; in the port a torch.profiler capture directory
+TELEMETRY_TRACE_JAX_PROFILER_DIR = "jax_profiler_dir"
+TELEMETRY_METRICS = "metrics"
+TELEMETRY_METRICS_SINKS = "sinks"
+TELEMETRY_METRICS_SINKS_DEFAULT = ("jsonl",)
+TELEMETRY_METRICS_VALID_SINKS = ("jsonl", "tensorboard", "memory")
+TELEMETRY_METRICS_UNPORTED_SINKS = ("tensorboard",)
+TELEMETRY_METRICS_FILE = "file"
+TELEMETRY_METRICS_FILE_DEFAULT = "metrics.jsonl"
+TELEMETRY_RECOMPILE = "recompile_detection"
+TELEMETRY_RECOMPILE_DEFAULT = True
+# parsed as the reference parses it; serving builds no goodput accountant
+TELEMETRY_GOODPUT = "goodput"
+TELEMETRY_GOODPUT_DEFAULT = True
+TELEMETRY_FLEET = "fleet"
+TELEMETRY_FLEET_ENABLED = "enabled"
+TELEMETRY_FLEET_ENABLED_DEFAULT = False
+TELEMETRY_FLEET_WINDOW = "window"
+TELEMETRY_FLEET_WINDOW_DEFAULT = 8
+TELEMETRY_FLEET_MIN_WINDOW = "min_window"
+TELEMETRY_FLEET_MIN_WINDOW_DEFAULT = 3
+TELEMETRY_FLEET_ZSCORE = "zscore"
+TELEMETRY_FLEET_ZSCORE_DEFAULT = 3.0
+TELEMETRY_FLEET_PERSIST = "persist"
+TELEMETRY_FLEET_PERSIST_DEFAULT = 3
+TELEMETRY_FLEET_BREAKDOWN_FILE = "breakdown_file"
+TELEMETRY_FLEET_BREAKDOWN_FILE_DEFAULT = "fleet_breakdown.json"
+TELEMETRY_MEMORY = "memory"
+TELEMETRY_MEMORY_ENABLED = "enabled"
+TELEMETRY_MEMORY_ENABLED_DEFAULT = False
+TELEMETRY_MEMORY_HEADROOM_WARN_FRAC = "headroom_warn_frac"
+TELEMETRY_MEMORY_HEADROOM_WARN_FRAC_DEFAULT = 0.1
+TELEMETRY_MEMORY_CRASHDUMP_DIR = "crashdump_dir"
+TELEMETRY_MEMORY_CRASHDUMP_DIR_DEFAULT = "crashdumps"
+TELEMETRY_MEMORY_OOM_EXIT_CODE = "oom_exit_code"
+TELEMETRY_MEMORY_OOM_EXIT_CODE_DEFAULT = 114
+TELEMETRY_MEMORY_PLAN_AT_INIT = "plan_at_init"
+TELEMETRY_MEMORY_PLAN_AT_INIT_DEFAULT = True
+TELEMETRY_MEMORY_PLAN_FILE = "plan_file"
+TELEMETRY_MEMORY_PLAN_FILE_DEFAULT = "memory_plan.json"
+TELEMETRY_MEMORY_ACT_BYTES = "activation_bytes_per_sample"
+TELEMETRY_MEMORY_ACT_BYTES_DEFAULT = 0.0
+TELEMETRY_MEMORY_HBM_LIMIT_GB = "hbm_limit_gb"
+TELEMETRY_DEVICETIME = "devicetime"
+TELEMETRY_DEVICETIME_ENABLED = "enabled"
+TELEMETRY_DEVICETIME_ENABLED_DEFAULT = False
+TELEMETRY_DEVICETIME_CAPTURE_STEPS = "capture_steps"
+TELEMETRY_DEVICETIME_CAPTURE_STEPS_DEFAULT = 3
+TELEMETRY_DEVICETIME_EVERY_STEPS = "every_steps"
+TELEMETRY_DEVICETIME_EVERY_STEPS_DEFAULT = 200
+TELEMETRY_DEVICETIME_KEEP_LAST = "keep_last"
+TELEMETRY_DEVICETIME_KEEP_LAST_DEFAULT = 2
+TELEMETRY_DEVICETIME_DIR = "dir"
+TELEMETRY_DEVICETIME_DIR_DEFAULT = "devicetime"
+TELEMETRY_DEVICETIME_TOP_K = "top_k"
+TELEMETRY_DEVICETIME_TOP_K_DEFAULT = 10
+TELEMETRY_DEVICETIME_DIVERGENCE_WARN = "divergence_warn"
+TELEMETRY_DEVICETIME_DIVERGENCE_WARN_DEFAULT = 0.25
+TELEMETRY_DEVICETIME_HBM_GBPS = "hbm_gbps"
+# int8 KV-cache round-trip error gauges in serving
+TELEMETRY_NUMERICS = "numerics"
+TELEMETRY_NUMERICS_ENABLED = "enabled"
+TELEMETRY_NUMERICS_ENABLED_DEFAULT = False
+TELEMETRY_NUMERICS_MAX_GROUPS = "max_groups"
+TELEMETRY_NUMERICS_MAX_GROUPS_DEFAULT = 16
+TELEMETRY_NUMERICS_MAX_SPIKE_DUMPS = "max_spike_dumps"
+TELEMETRY_NUMERICS_MAX_SPIKE_DUMPS_DEFAULT = 8
+# the per-request SLO accountant (telemetry/requests.py)
+TELEMETRY_REQUESTS = "requests"
+TELEMETRY_REQUESTS_ENABLED = "enabled"
+TELEMETRY_REQUESTS_ENABLED_DEFAULT = False
+TELEMETRY_REQUESTS_FILE = "file"
+TELEMETRY_REQUESTS_FILE_DEFAULT = "requests.jsonl"
+TELEMETRY_REQUESTS_WINDOW_SEC = "window_sec"
+TELEMETRY_REQUESTS_WINDOW_SEC_DEFAULT = 10.0

@@ -6,6 +6,12 @@ engine runs on the card unless the caller passes ``device="cpu"``; with no
 card and no device it raises rather than fall back to the CPU.
 Tensor-parallel inference (``mp_size > 1``), int8 weights (``quantize``)
 and checkpoint loading are not ported yet and are refused by name.
+
+Telemetry: ``recompile_detector`` flags a ``forward`` or ``generate`` call
+at an input signature the engine has not run before (and the serving
+engine's steps share it); a ``tracer`` (the run's ``StepTracer``) brackets
+every call in an ``inference_forward`` or ``generate`` span, and without
+one the span is the reusable no-op.
 """
 
 from typing import Any, Mapping, Optional
@@ -15,6 +21,7 @@ import torch
 
 from deepspeed_tpu_torch.config.config import not_yet_ported
 from deepspeed_tpu_torch.models.gpt import init_kv_cache
+from deepspeed_tpu_torch.telemetry import RecompileDetector, StepTracer
 
 # Smallest prompt bucket: shorter prompts share it.
 MIN_PROMPT_BUCKET = 8
@@ -66,13 +73,13 @@ class InferenceEngine:
     ``state_dict`` (tensors or numpy arrays; ``models/convert.py`` makes one
     from a flax tree or from a seed), or None to keep the module's own
     weights. The engine owns the module: its weights are cast and moved in
-    place.
+    place. ``tracer``: the run's ``StepTracer`` (None: no spans).
     """
 
     def __init__(self, model, params: Optional[Mapping[str, Any]] = None,
                  dtype: Optional[torch.dtype] = None, device=None,
                  mp_size: int = 1, quantize: bool = False,
-                 checkpoint: Optional[str] = None):
+                 checkpoint: Optional[str] = None, tracer=None):
         if mp_size != 1:
             raise not_yet_ported(f"mp_size={mp_size} (tensor-parallel "
                                  f"inference)")
@@ -96,13 +103,18 @@ class InferenceEngine:
         self.module = model
         self.model_cfg = model.cfg
         self._generate_calls = 0
+        self.recompile_detector = RecompileDetector()
+        self.tracer = tracer if tracer is not None else \
+            StepTracer(enabled=False)
 
     @torch.no_grad()
     def forward(self, input_ids, **kwargs):
         """Deterministic forward; returns the module's output dict."""
         ids = torch.as_tensor(input_ids, device=self.device).long()
         kwargs.setdefault("deterministic", True)
-        return self.module(ids, **kwargs)
+        self.recompile_detector.check("inference.forward", ids)
+        with self.tracer.span("inference_forward"):
+            return self.module(ids, **kwargs)
 
     __call__ = forward
 
@@ -165,6 +177,19 @@ class InferenceEngine:
             gen.manual_seed(int(seed))
 
         tb = ids.shape[1]
+        self.recompile_detector.check(
+            "inference.generate", ids, mask,
+            {"static": f"max_new_tokens={new},"
+                       f"temperature={float(temperature)},"
+                       f"top_k={int(top_k)}"})
+        with self.tracer.span("generate", prompt_len=t0, bucket=tb,
+                              new_tokens=new):
+            full = self._generate(ids, mask, b, tb, new, temperature,
+                                  top_k, gen)
+        return full[:, t_pad:]
+
+    def _generate(self, ids, mask, b, tb, new, temperature, top_k, gen):
+        cfg, dev = self.model_cfg, self.device
         cache = init_kv_cache(cfg, b, tb + new, dtype=self.dtype,
                               device=dev)
         # One fixed [B, tb + new] key-validity mask: pads never visible,
@@ -187,5 +212,4 @@ class InferenceEngine:
             nxt = sample_logits(out["logits"][:, -1].float(), temperature,
                                 top_k, gen)
             toks.append(nxt)
-        full = torch.cat([ids, torch.stack(toks, dim=1)], dim=1)
-        return full[:, t_pad:]
+        return torch.cat([ids, torch.stack(toks, dim=1)], dim=1)

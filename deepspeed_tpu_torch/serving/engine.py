@@ -55,7 +55,23 @@ count) and attends through the paged decode-attention kernel; "auto" is
 pool) and "gather" on the CPU. ``int8_kv_cache`` stores the pools as int8
 with per-(token, head) scales on every path.
 
-Not ported yet, and refused by ``init_serving``: telemetry.
+Telemetry (``telemetry/``) rides the reference's contract. Metrics go
+through the ``MetricsRegistry`` (no sinks: no-ops), spans through the
+``StepTracer`` (``prefill``, ``decode_step``, ``mixed_step``,
+``spec_step``; disabled: a reusable null span and zero device syncs), and
+the optional ``RequestAccountant`` keeps the per-request SLO ledger and
+the engine's serving-time partition, whose ``compile`` bucket takes a
+dispatch at a call signature the engine had not run before (the JAX
+engine's "a jit cache grew"). Each group of step gauges is emitted only
+when its feature is on, so the tag set of an engine with a feature off is
+unchanged. With the int8 pool and ``telemetry.numerics`` on, each cold
+prefill measures the round-trip error of the K/V it quantized, on the
+device, fetched in one transfer.
+
+The decode, mixed and speculative spans end in the host fetch of the
+sampled tokens, so they cover the device work even without
+``sync_spans``; the prefill span ends in the first token's fetch, except
+on a replay, which fetches nothing.
 """
 
 import dataclasses
@@ -65,6 +81,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.comm.quantize import roundtrip_error
 from deepspeed_tpu_torch.config.config import ServingConfig
 from deepspeed_tpu_torch.inference.engine import (InferenceEngine,
                                                   bucket_length,
@@ -81,7 +98,39 @@ from deepspeed_tpu_torch.serving.kv_cache import (BlockPool,
 from deepspeed_tpu_torch.serving.resilience import ResilienceManager
 from deepspeed_tpu_torch.serving.scheduler import (PrefixCache, Scheduler,
                                                    Sequence)
+from deepspeed_tpu_torch.telemetry import null_telemetry
 from deepspeed_tpu_torch.utils.logging import log_dist
+
+# Every metric tag the serving engine can emit.
+SERVING_METRIC_TAGS = frozenset({
+    "serving/ttft_ms",
+    "serving/tokens_per_sec",
+    # with the request accountant on
+    "serving/tokens_per_sec_window",
+    "serving/batch_occupancy",
+    "serving/kv_blocks_in_use",
+    "serving/queue_depth",
+    "serving/preempted_seqs",
+    "serving/requests_completed",
+    # with decode_attention "auto" or "kernel"
+    "serving/decode_attn_kernel",
+    # with the prefix cache on
+    "serving/prefix_hits",
+    "serving/prefix_blocks_reused",
+    # with speculative decoding on
+    "serving/spec_accept_rate",
+    "serving/spec_tokens_per_verify",
+    # with serving.resilience on
+    "serving/shed_requests",
+    "serving/deadline_expired",
+    "serving/cancelled",
+    "serving/recoveries",
+    "serving/retries",
+    "serving/degraded_level",
+    # with chunked prefill on
+    "serving/chunked_tokens_per_step",
+    "serving/prefill_chunks_in_flight",
+})
 
 
 def _check_kernel_takes(what: str, head_dim: int, dtype: torch.dtype,
@@ -117,18 +166,27 @@ class ServeEngine:
     """Continuous-batching serving engine over an :class:`InferenceEngine`.
 
     ``engine``: an InferenceEngine wrapping the port's GPT. ``config``: a
-    ``ServingConfig`` (None for defaults). ``fault_plan``: a
-    ``resilience.FaultPlan`` whose serving hooks inject chaos (None: none).
-    Drive it with ``submit()`` and ``step()`` / ``run_until_complete()``.
+    ``ServingConfig`` (None for defaults). ``telemetry``: the run's
+    ``Telemetry`` facade (None or a disabled one: no telemetry work beyond
+    host float arithmetic). ``measure_kv_quant_error``: with the int8 pool
+    and telemetry on, the per-prefill KV round-trip error gauges.
+    ``request_accountant``: a ``RequestAccountant`` (None: off).
+    ``fault_plan``: a ``resilience.FaultPlan`` whose serving hooks inject
+    chaos (None: none). Drive it with ``submit()`` and ``step()`` /
+    ``run_until_complete()``; ``close()`` ends it.
     """
 
     def __init__(self, engine: InferenceEngine,
-                 config: Optional[ServingConfig] = None, fault_plan=None):
+                 config: Optional[ServingConfig] = None, telemetry=None,
+                 measure_kv_quant_error: bool = False,
+                 request_accountant=None, fault_plan=None):
         self.engine = engine
         self.module = engine.module
         self.model_cfg = engine.model_cfg
         self.device = engine.device
         self.scfg = config if config is not None else ServingConfig()
+        self.telemetry = telemetry if telemetry is not None \
+            else null_telemetry()
 
         model_max = int(self.model_cfg.max_seq_len)
         self.max_model_len = min(self.scfg.max_model_len or model_max,
@@ -175,6 +233,23 @@ class ServeEngine:
         self._spec_k = 0
         if self.scfg.spec_decode:
             self._init_speculative()
+        # The call signatures each site has run (a prompt bucket, a decode
+        # window): a dispatch at a new one is filed under "compile" in the
+        # engine partition, where the JAX engine's jit caches grow.
+        self._signatures: Dict[str, set] = {
+            "prefill": set(), "prefill_tail": set(), "decode": set(),
+            "spec": set(), "mixed": set()}
+        # The request accountant: None keeps every hook one attribute
+        # check and the emitted tag set unchanged.
+        self._req_acc = request_accountant
+        if self._req_acc is not None:
+            self._req_acc.spec_k = self._spec_k
+            self.sched.accountant = self._req_acc
+        # With the int8 pool, the numerics opt-in and telemetry on, each
+        # cold prefill measures the round-trip error of the K/V it
+        # quantizes into the pool.
+        self._measure_kv = (bool(measure_kv_quant_error)
+                            and bool(int8) and self.telemetry.enabled)
         # Chaos is independent of the manager: a serve fault with
         # resilience off crashes the loop.
         self._fault = fault_plan
@@ -286,12 +361,14 @@ class ServeEngine:
                 return self._resil.shed(prompt, int(max_new_tokens), eos,
                                         reason)
         rid = self.sched.submit(prompt, int(max_new_tokens), eos)
+        req = self.sched.waiting[-1]
         if self._resil is not None:
             dl = (deadline_ms if deadline_ms is not None
                   else self.scfg.resil_default_deadline_ms)
             if dl is not None:
-                req = self.sched.waiting[-1]
                 req.deadline = req.arrival + dl / 1e3
+        if self._req_acc is not None:
+            self._req_acc.on_submit(req)
         return rid
 
     def cancel(self, rid: int) -> bool:
@@ -319,6 +396,12 @@ class ServeEngine:
         ids, ``active`` count)."""
         info: Dict[str, Any] = {"step": self._step_count, "prefilled": [],
                                 "finished": [], "active": 0}
+        # The engine partition: the accountant's one cursor advances at
+        # each phase boundary, so the step's wall clock lands in exactly
+        # one category.
+        acc = self._req_acc
+        if acc is not None:
+            acc.engine_mark("host_idle")    # since the previous step
         if self._resil is not None:
             self._resil.process_boundary()
         if self._fault is not None \
@@ -330,13 +413,20 @@ class ServeEngine:
                 break
             self.stats["slot_assignments"].setdefault(seq.slot, 0)
             self.stats["slot_assignments"][seq.slot] += 1
+            if acc is not None:
+                acc.engine_mark("scheduler_admission")
             if self._chunked:
                 # No prefill here: the prompt enters the mixed step in
                 # chunks from its adopted head; its first token and prefix
                 # registration come with its last chunk (_mixed_round).
                 seq.pos = seq.prefilled = seq.shared_len
                 continue
+            n_sigs = self._n_signatures("prefill", "prefill_tail")
             self._prefill(seq)
+            if acc is not None:
+                grew = self._n_signatures("prefill", "prefill_tail") > n_sigs
+                acc.engine_mark("compile" if grew else "prefill")
+                acc.on_prefilled(seq)
             self.sched.register_prefix(seq, self._step_count)
             info["prefilled"].append(seq.request.rid)
             if seq.finished():      # max_new_tokens == 1 / instant EOS
@@ -349,18 +439,32 @@ class ServeEngine:
                 self.sched.ensure_capacity(seq, lookahead=self._spec_k)
         active = self.sched.active          # preemption may have evicted
         info["active"] = len(active)
+        if acc is not None:
+            acc.engine_mark("scheduler_admission")
+        dt = 0.0
+        n_tokens = 0
         if active:
+            n_sigs = self._n_signatures("decode", "spec", "mixed")
             if self._resil is not None:
                 n_tokens, dt, active = self._resil.run_decode(active, info)
                 self._resil.note_step(dt)
             else:
                 n_tokens, dt = self._decode_round(active, info)
+            if acc is not None:
+                grew = self._n_signatures("decode", "spec", "mixed") > n_sigs
+                acc.engine_mark("compile" if grew else "decode")
+                acc.on_decode_step(
+                    [s for s in active if self.sched.running.get(s.slot)
+                     is s], dt, self._step_count)
             self.stats["decode_steps"] += 1
             if n_tokens and dt > 0:
                 self._decode_tokens += n_tokens
                 self._decode_sec += dt
         if self.prefix_cache is not None:
             self.stats["prefix_hits"] = self.prefix_cache.hits
+        # the gauges carry this step's index, as its TTFT and completion
+        # rows do
+        self._emit_step_metrics(len(active), dt, n_tokens)
         self._step_count += 1
         return info
 
@@ -395,15 +499,33 @@ class ServeEngine:
 
     def close(self) -> None:
         """Give every request still running or queued a terminal
-        ``aborted`` record (its slot and blocks released): every
-        submitted rid resolves through ``results``."""
-        for seq in list(self.sched.running.values()):
-            self.sched.abort(seq)
-            self.results[seq.request.rid] = self._result_record(seq,
-                                                                "aborted")
-        while self.sched.waiting:
-            req = self.sched.waiting.popleft()
-            self.results[req.rid] = self._queue_record(req, "aborted")
+        ``aborted`` record (its slot and blocks released; the accountant
+        writes its record too): every submitted rid resolves through
+        ``results``. Then close the request records and the telemetry
+        this engine drives (sink files, the trace, a profiler capture),
+        even when a step raised before."""
+        acc = self._req_acc
+        try:
+            for seq in list(self.sched.running.values()):
+                rid = seq.request.rid
+                self.sched.abort(seq)
+                self.results[rid] = self._result_record(seq, "aborted")
+                if acc is not None:
+                    slo = acc.on_finish(seq, self._step_count,
+                                        status="aborted")
+                    if slo is not None:
+                        self.results[rid]["slo"] = slo
+            while self.sched.waiting:
+                req = self.sched.waiting.popleft()
+                self.results[req.rid] = self._queue_record(req, "aborted")
+                if acc is not None:
+                    acc.on_drop(req, "aborted", self._step_count)
+        finally:
+            try:
+                if acc is not None:
+                    acc.close()
+            finally:
+                self.telemetry.close()
 
     # ------------------------------------------------------------------
     # internals
@@ -466,6 +588,23 @@ class ServeEngine:
         self.sched.finish(seq)
         self.results[rid] = self._result_record(seq, "finished")
         info["finished"].append(rid)
+        if self.telemetry.enabled:
+            self.telemetry.registry.counter("serving/requests_completed").inc(
+                step=self._step_count)
+        if self._req_acc is not None:
+            slo = self._req_acc.on_finish(seq, self._step_count)
+            if slo is not None:
+                self.results[rid]["slo"] = slo
+
+    def _n_signatures(self, *sites: str) -> int:
+        return sum(len(self._signatures[s]) for s in sites)
+
+    def _check_signature(self, site: str, name: str, *inputs) -> None:
+        """The recompile detector's check at a dispatch site, and the
+        engine's own record of the signatures each site has run (``name``
+        carries the bucket or window, which fixes the inputs' shapes)."""
+        self.engine.recompile_detector.check(name, *inputs)
+        self._signatures[site].add(name)
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         return sample_logits(logits, self.scfg.temperature,
@@ -476,30 +615,46 @@ class ServeEngine:
         self._record_first_token(seq, self._prefill_tokens(
             seq, seq.request.prompt))
 
-    def _prefill_tokens(self, seq: Sequence, tokens: List[int]) -> int:
+    def _prefill_tokens(self, seq: Sequence, tokens: List[int],
+                        replay: bool = False) -> Optional[int]:
         """Write ``tokens``' K/V at positions ``[0, len(tokens))`` of
         ``seq``'s blocks and return the token sampled after them (a host
-        fetch). A prefix-cache hit (``shared_len``) computes only the
-        tail: the adopted blocks already hold ``[0, shared_len)``."""
+        fetch; None on a ``replay``, which drops it). A prefix-cache hit
+        (``shared_len``) computes only the tail: the adopted blocks
+        already hold ``[0, shared_len)``."""
         if seq.shared_len:
-            return self._prefill_tail(seq, tokens)
+            return self._prefill_tail(seq, tokens, replay)
         t = len(tokens)
-        ids = torch.zeros((1, seq.bucket), dtype=torch.long)
+        bucket = seq.bucket
+        ids = torch.zeros((1, bucket), dtype=torch.long)
         ids[0, :t] = torch.tensor(tokens)        # right-pad: causal
-        tok, k_stack, v_stack = self._prefill_impl(ids.to(self.device), t)
-        blocks = torch.tensor(seq.block_table, dtype=torch.long,
-                              device=self.device)
-        pack_prefill(self._pools, blocks, k_stack, v_stack)
-        return int(tok)
+        ids = ids.to(self.device)
+        # one signature per bucket: a retrace under this name is a bug
+        self._check_signature("prefill", f"serving.prefill_b{bucket}", ids,
+                              t)
+        args = {"replay": 1} if replay else {}
+        with self.telemetry.span("prefill", rid=seq.request.rid,
+                                 bucket=bucket, prompt_len=t, **args):
+            tok, k_stack, v_stack = self._prefill_impl(ids, t)
+            if self._measure_kv and not replay:
+                self._emit_kv_quant_error(k_stack, v_stack, t, bucket)
+            blocks = torch.tensor(seq.block_table, dtype=torch.long,
+                                  device=self.device)
+            pack_prefill(self._pools, blocks, k_stack, v_stack)
+            if replay:
+                return None
+            return int(tok)                      # host fetch: first token
 
-    def _prefill_tail(self, seq: Sequence, tokens: List[int]) -> int:
+    def _prefill_tail(self, seq: Sequence, tokens: List[int],
+                      replay: bool = False) -> Optional[int]:
         """Prefill only the unshared tail of ``tokens``: the tail,
         right-padded to a block-multiple bucket, runs one multi-token
         paged forward at position ``shared_len`` through the gather path
         (as the JAX package's tail prefill does). Writes land past the
         adopted head blocks; pad positions past the allocated blocks hit
         zero table entries (scratch). The bucket is capped so no write
-        index runs past the table."""
+        index runs past the table. The KV error gauge is not measured
+        here: the adopted head was measured at its cold prefill."""
         t = len(tokens)
         sl = seq.shared_len
         tail = t - sl                           # >= 1 (match is capped)
@@ -510,23 +665,36 @@ class ServeEngine:
         bt = torch.zeros((1, self.max_blocks), dtype=torch.int32)
         bt[0, :len(seq.block_table)] = torch.tensor(seq.block_table)
         dev = self.device
+        ids, bt = ids.to(dev), bt.to(dev)
         start = torch.tensor([sl], dtype=torch.int32, device=dev)
-        cache = [PagedLayerCache(*self._pools[i], bt.to(dev), start,
-                                 self.block_size, "gather",
-                                 dtype=self._dtype)
-                 for i in range(self.model_cfg.num_layers)]
-        pos_ids = torch.clamp(start.long()[:, None] + torch.arange(
-            tb, device=dev), max=self.model_cfg.max_seq_len - 1)
-        out = self.module(ids.to(dev), position_ids=pos_ids, cache=cache)
-        last = out["logits"][:, tail - 1].float()                # [1, V]
-        return int(self._sample(last)[0])
+        self._check_signature("prefill_tail", f"serving.prefill_tail_b{tb}",
+                              ids, bt, start, tail)
+        args = {"replay": 1} if replay else {"shared_len": sl}
+        with self.telemetry.span("prefill", rid=seq.request.rid, bucket=tb,
+                                 prompt_len=t, **args):
+            cache = [PagedLayerCache(*self._pools[i], bt, start,
+                                     self.block_size, "gather",
+                                     dtype=self._dtype)
+                     for i in range(self.model_cfg.num_layers)]
+            pos_ids = torch.clamp(start.long()[:, None] + torch.arange(
+                tb, device=dev), max=self.model_cfg.max_seq_len - 1)
+            out = self.module(ids, position_ids=pos_ids, cache=cache)
+            if replay:
+                return None
+            last = out["logits"][:, tail - 1].float()            # [1, V]
+            return int(self._sample(last)[0])    # host fetch: first token
 
     def _record_first_token(self, seq: Sequence, first: int) -> None:
-        """Append the prefill's sampled token; TTFT is stamped at the
-        request's first prefill only (not on a preemption restart)."""
+        """Append the prefill's sampled token; TTFT is stamped (and
+        observed) at the request's first prefill only, not on a
+        preemption restart."""
+        now = time.monotonic()
         seq.tokens.append(first)
         if seq.request.first_token_time is None:
-            seq.request.first_token_time = time.monotonic()
+            seq.request.first_token_time = now
+            if self.telemetry.enabled:
+                self.telemetry.registry.histogram("serving/ttft_ms").observe(
+                    (now - seq.request.arrival) * 1e3, step=self._step_count)
 
     def _replay_prefill(self, seq: Sequence, replay: List[int]) -> None:
         """Recovery replay (``serving/resilience.py``): rebuild ``seq``'s
@@ -538,7 +706,7 @@ class ServeEngine:
         if self._chunked:
             self._replay_chunked(seq, replay)
         else:
-            self._prefill_tokens(seq, replay)
+            self._prefill_tokens(seq, replay, replay=True)
 
     def _replay_chunked(self, seq: Sequence, replay: List[int]) -> None:
         """Chunked replay: ``[shared_len, len(replay))`` through the mixed
@@ -547,9 +715,12 @@ class ServeEngine:
         t0, total = seq.shared_len, len(replay)
         while t0 < total:
             c = min(self._chunk_budget, total - t0)
-            self._mixed_dispatch(
-                [seq], [(seq.slot, replay[t0 + i], t0 + i)
-                        for i in range(c)])
+            with self.telemetry.span("prefill", rid=seq.request.rid,
+                                     bucket=seq.bucket, prompt_len=total,
+                                     replay=1):
+                self._mixed_dispatch(
+                    [seq], [(seq.slot, replay[t0 + i], t0 + i)
+                            for i in range(c)], 1)
             t0 += c
 
     def _prefill_impl(self, ids: torch.Tensor, length: int):
@@ -639,17 +810,21 @@ class ServeEngine:
             wb *= 2
         return min(wb, self.max_blocks)
 
-    def _dispatch_batch(self, active: List[Sequence], chunk: int):
+    def _dispatch_batch(self, active: List[Sequence], chunk: int,
+                        site: str):
         """Decode batch tensors on the device, the window cut under the
-        fast path, and the attention impl; keeps the window accounting.
-        Shared by the plain and the speculative round, after the fault
-        hook."""
+        fast path, and the attention impl; keeps the window accounting and
+        checks the signature (one per window: ``site`` "decode" or
+        "spec"). Shared by the plain and the speculative round, after the
+        fault hook."""
         self._fault_hook()
         mb = self.max_blocks
         bt, pos, toks = self._batch_inputs(active)
+        name = f"serving.{site}_step"
         if self._fast_path:
             wb, impl = self._window_blocks(active, chunk), self._attn_impl
             bt = np.ascontiguousarray(bt[:, :wb])
+            name = f"{name}_w{wb}"
         else:
             wb, impl = mb, "gather"
         self.stats["gathered_positions"] += wb * self.block_size
@@ -657,13 +832,17 @@ class ServeEngine:
         if impl == "kernel":
             self.stats["kernel_steps"] += 1
         dev = self.device
-        return (torch.from_numpy(bt).to(dev), torch.from_numpy(pos).to(dev),
-                torch.from_numpy(toks).to(dev), impl)
+        bt, pos, toks = (torch.from_numpy(bt).to(dev),
+                         torch.from_numpy(pos).to(dev),
+                         torch.from_numpy(toks).to(dev))
+        self._check_signature(site, name, toks, pos, bt)
+        return bt, pos, toks, impl
 
     def _decode(self, active: List[Sequence]) -> List[int]:
-        bt, pos, toks, impl = self._dispatch_batch(active, 1)
-        logits = self._decode_impl(bt, pos, toks, impl)
-        tok_host = self._sample(logits).cpu().numpy()   # host fetch
+        bt, pos, toks, impl = self._dispatch_batch(active, 1, "decode")
+        with self.telemetry.span("decode_step", active=len(active)):
+            logits = self._decode_impl(bt, pos, toks, impl)
+            tok_host = self._sample(logits).cpu().numpy()   # host fetch
         return [int(tok_host[s.slot]) for s in active]
 
     def _decode_impl(self, bt, pos, toks, impl: str) -> torch.Tensor:
@@ -701,7 +880,7 @@ class ServeEngine:
             chunks.append((s, len(rows), c))
             rows.extend((s.slot, s.request.prompt[t0 + i], t0 + i)
                         for i in range(c))
-        tok_host = self._mixed_dispatch(active, rows)
+        tok_host = self._mixed_dispatch(active, rows, len(active))
         self.stats["chunk_tokens_last"] = len(rows)
         appended = len(decoding)
         for r, seq in enumerate(decoding):
@@ -715,17 +894,21 @@ class ServeEngine:
             if seq.prefilled == len(seq.request.prompt):
                 self._record_first_token(seq, int(tok_host[r0 + c - 1]))
                 appended += 1
+                if self._req_acc is not None:
+                    self._req_acc.on_prefilled(seq)
                 self.sched.register_prefix(seq, self._step_count)
                 info["prefilled"].append(seq.request.rid)
                 if seq.finished():   # max_new_tokens == 1 / instant EOS
                     self._finish(seq, info)
         return appended
 
-    def _mixed_dispatch(self, table_seqs: List[Sequence], rows):
+    def _mixed_dispatch(self, table_seqs: List[Sequence], rows,
+                        n_active: int):
         """Run one ragged token batch. ``rows``: ``(slot, token,
         position)`` triples, padded to the token budget with pad rows of
         slot ``max_batch_size``, the spare all-scratch table row (their
-        writes land in scratch block 0, their reads see only it)."""
+        writes land in scratch block 0, their reads see only it). One
+        signature ever, whatever the decode/prefill mix."""
         nb, mb, budget = (self.scfg.max_batch_size, self.max_blocks,
                           self._chunk_budget)
         bt = np.zeros((nb + 1, mb), np.int32)    # row nb: pad/scratch row
@@ -741,12 +924,18 @@ class ServeEngine:
         # copied with the step's other inputs, before any kernel runs
         runs = chunked_runs(bt[slots], pos, self.block_size)
         runs.on(dev)
-        logits = self._mixed_impl(
-            torch.from_numpy(bt).to(dev), torch.from_numpy(pos).to(dev),
-            torch.from_numpy(slots).to(dev), torch.from_numpy(toks).to(dev),
-            runs)
+        bt, pos, slots, toks = (torch.from_numpy(bt).to(dev),
+                                torch.from_numpy(pos).to(dev),
+                                torch.from_numpy(slots).to(dev),
+                                torch.from_numpy(toks).to(dev))
+        self._check_signature("mixed", "serving.mixed_step", toks, pos,
+                              slots, bt)
+        with self.telemetry.span("mixed_step", active=n_active,
+                                 tokens=len(rows)):
+            logits = self._mixed_impl(bt, pos, slots, toks, runs)
+            tok_host = self._sample(logits).cpu().numpy()   # host fetch
         self.stats["mixed_steps"] += 1
-        return self._sample(logits).cpu().numpy()   # host fetch
+        return tok_host
 
     def _mixed_impl(self, bt, pos, slots, toks, runs) -> torch.Tensor:
         cache = [ChunkedLayerCache(*self._pools[i], bt, slots, pos,
@@ -801,8 +990,9 @@ class ServeEngine:
         positions stay behind ``seq.pos``: masked now, overwritten by the
         next round. Returns the number of tokens appended."""
         k = self._spec_k
-        bt, pos, toks, impl = self._dispatch_batch(active, k + 1)
-        chunk, greedy = self._spec_impl(bt, pos, toks, k, impl)
+        bt, pos, toks, impl = self._dispatch_batch(active, k + 1, "spec")
+        with self.telemetry.span("spec_step", active=len(active), k=k):
+            chunk, greedy = self._spec_impl(bt, pos, toks, k, impl)
         appended = 0
         for seq in active:
             s = seq.slot
@@ -852,3 +1042,90 @@ class ServeEngine:
         out = self.module(chunk, position_ids=pos_ids, cache=cache)
         greedy = torch.argmax(out["logits"].float(), dim=-1)   # [B, k + 1]
         return chunk.cpu().numpy(), greedy.cpu().numpy()   # host fetch
+
+    # -- telemetry ------------------------------------------------------
+    def _emit_kv_quant_error(self, k_stack: torch.Tensor,
+                             v_stack: torch.Tensor, length: int,
+                             bucket: int) -> None:
+        """``numerics/kv_quant_rel_err`` / ``_max_abs_err``: the round-trip
+        error of the per-(token, head) int8 quantization the pool stores
+        (block = head_dim, half to even), over the prompt's real positions
+        (``[L, bucket, H, D]`` stacks cut to ``length``: a pad position's
+        zero block would round-trip exactly, as the reference's mask makes
+        it). Measured on the device; both scalars come back in one
+        transfer."""
+        ks = k_stack[:, :length].float()
+        vs = v_stack[:, :length].float()
+        head_dim = ks.shape[-1]
+        rk, mk = roundtrip_error(ks, 8, head_dim)
+        rv, mv = roundtrip_error(vs, 8, head_dim)
+        rel, mab = torch.stack([torch.maximum(rk, rv),
+                                torch.maximum(mk, mv)]).tolist()
+        reg = self.telemetry.registry
+        reg.gauge("numerics/kv_quant_rel_err").set(
+            rel, step=self._step_count, bucket=bucket)
+        reg.gauge("numerics/kv_quant_max_abs_err").set(
+            mab, step=self._step_count, bucket=bucket)
+
+    def _emit_step_metrics(self, n_active: int, dt_decode: float,
+                           n_tokens: int) -> None:
+        """The step's gauges and counters. ``dt_decode``: wall seconds of
+        the decode round only, so the throughput gauge means decode
+        tokens/s; ``n_tokens``: tokens appended this step. Each group
+        beyond the base set is emitted only while its feature is on."""
+        tel = self.telemetry
+        if not tel.enabled:
+            return
+        reg = tel.registry
+        step = self._step_count
+        reg.gauge("serving/batch_occupancy").set(
+            n_active / self.scfg.max_batch_size, step=step)
+        reg.gauge("serving/kv_blocks_in_use").set(self.pool.used_blocks,
+                                                  step=step)
+        reg.gauge("serving/queue_depth").set(self.sched.queue_depth,
+                                             step=step)
+        if n_tokens and dt_decode > 0:
+            reg.gauge("serving/tokens_per_sec").set(
+                self._decode_tokens / self._decode_sec, step=step)
+        acc = self._req_acc
+        if acc is not None:
+            # the rolling window, and the requests/* gauges
+            if n_tokens and dt_decode > 0:
+                acc.rolling_add(n_tokens, dt_decode)
+            rate = acc.rolling_rate()
+            if rate is not None:
+                reg.gauge("serving/tokens_per_sec_window").set(rate,
+                                                               step=step)
+            acc.emit(step)
+
+        def advance(tag: str, total: float) -> None:
+            ctr = reg.counter(tag)
+            if total > ctr.total:
+                ctr.inc(total - ctr.total, step=step)
+
+        advance("serving/preempted_seqs", self.sched.preempted_total)
+        if self._fast_path and n_active:
+            reg.gauge("serving/decode_attn_kernel").set(
+                1.0 if self._attn_impl == "kernel" else 0.0, step=step)
+        if self.prefix_cache is not None:
+            advance("serving/prefix_hits", self.prefix_cache.hits)
+            advance("serving/prefix_blocks_reused",
+                    self.prefix_cache.blocks_reused)
+        if self._spec_k and self.stats["spec_rounds"]:
+            reg.gauge("serving/spec_accept_rate").set(
+                self.stats["spec_accepted"]
+                / max(1, self.stats["spec_proposed"]), step=step)
+            reg.gauge("serving/spec_tokens_per_verify").set(
+                self.stats["spec_new_tokens"] / self.stats["spec_rounds"],
+                step=step)
+        if self._resil is not None:
+            reg.gauge("serving/degraded_level").set(
+                self._resil.degraded_level, step=step)
+            for name, total in self._resil.counters.items():
+                advance(f"serving/{name}", total)
+        if self._chunked:
+            reg.gauge("serving/chunked_tokens_per_step").set(
+                self.stats["chunk_tokens_last"], step=step)
+            reg.gauge("serving/prefill_chunks_in_flight").set(
+                sum(1 for s in self.sched.running.values()
+                    if s.prefilled < len(s.request.prompt)), step=step)

@@ -13,11 +13,11 @@ boundaries:
   (``Scheduler.abort``; the pool's refcounts raise on a double free).
   Terminal statuses ``deadline_expired`` / ``cancelled``.
 - **Admission control and load shedding**: at submit the projected queue
-  wait (pending decode tokens over the engine's cumulative decode rate;
-  the rolling-window rate of the reference's request accountant waits for
-  the telemetry slice) is held against ``max_queue_wait_ms``, and
-  ``max_queue_depth`` is the backstop. A shed request gets a real rid and
-  a terminal ``shed`` record, never a queue slot.
+  wait (pending decode tokens over the request accountant's rolling-window
+  decode rate when the accountant is on, else over the engine's cumulative
+  rate) is held against ``max_queue_wait_ms``, and ``max_queue_depth`` is
+  the backstop. A shed request gets a real rid and a terminal ``shed``
+  record, never a queue slot.
 - **Recovery from a failed decode dispatch**: retry through
   ``guardrails/retry.py``'s backoff, then rebuild in place (a fresh
   BlockPool, fresh pools, a fresh prefix cache) and replay every live
@@ -41,7 +41,9 @@ boundaries:
 
 Chaos comes from ``resilience/fault.py``'s ``FaultPlan``; injection is
 independent of this manager (a fault with resilience off crashes the
-loop). The counters are plain attributes until telemetry is ported.
+loop). The engine emits ``counters`` and ``degraded_level`` as the
+``serving/*`` resilience metrics, and every terminal request this manager
+resolves (shed, expired, cancelled) reaches the request accountant.
 """
 
 import collections
@@ -85,14 +87,17 @@ class ResilienceManager:
 
     # -- admission control / load shedding ------------------------------
     def _projected_wait_ms(self) -> Optional[float]:
-        """Pending decode tokens over the engine's cumulative decode rate;
-        None before any decode evidence (a cold engine never sheds on
-        projection)."""
+        """Pending decode tokens over the measured decode rate: the
+        accountant's rolling window when it is on (it follows a changing
+        load), else the engine's cumulative rate. None before any decode
+        evidence (a cold engine never sheds on projection)."""
         eng = self.engine
-        if eng._decode_sec <= 0:
-            return None
-        rate = eng._decode_tokens / eng._decode_sec
-        if rate <= 0:
+        rate = None
+        if eng._req_acc is not None:
+            rate = eng._req_acc.rolling_rate()
+        if rate is None and eng._decode_sec > 0:
+            rate = eng._decode_tokens / eng._decode_sec
+        if not rate or rate <= 0:
             return None
         sched = eng.sched
         pending = sum(r.max_new_tokens for r in sched.waiting)
@@ -124,6 +129,8 @@ class ResilienceManager:
         req = Request(rid, list(prompt), int(max_new_tokens), eos_token_id)
         self.counters["shed_requests"] += 1
         eng.results[rid] = eng._queue_record(req, "shed", reason=reason)
+        if eng._req_acc is not None:
+            eng._req_acc.on_drop(req, "shed", eng._step_count)
         logger.warning("serving: shed request %d (%s)", rid, reason)
         return rid
 
@@ -177,6 +184,8 @@ class ResilienceManager:
         eng = self.engine
         self.counters[status] += 1
         eng.results[req.rid] = eng._queue_record(req, status)
+        if eng._req_acc is not None:
+            eng._req_acc.on_drop(req, status, eng._step_count)
 
     def _abort(self, seq: Sequence, status: str) -> None:
         """Terminal-abort a running sequence: slot and KV blocks released
@@ -185,6 +194,11 @@ class ResilienceManager:
         eng.sched.abort(seq)
         self.counters[status] += 1
         eng.results[seq.request.rid] = eng._result_record(seq, status)
+        if eng._req_acc is not None:
+            slo = eng._req_acc.on_finish(seq, eng._step_count,
+                                         status=status)
+            if slo is not None:
+                eng.results[seq.request.rid]["slo"] = slo
 
     # -- decode recovery + degradation ladder ---------------------------
     def run_decode(self, active: List[Sequence], info: Dict[str, Any]):
@@ -261,9 +275,15 @@ class ResilienceManager:
         lvl = self.degraded_level
         if lvl == 1:
             eng._spec_k = 0
+            if eng._req_acc is not None:
+                eng._req_acc.spec_k = 0
             action = "speculative decoding off"
         elif lvl == 2:
             eng._attn_impl = "gather"
+            # the decode sites run new signatures from here (the JAX
+            # engine drops its decode programs)
+            eng._signatures["decode"].clear()
+            eng._signatures["spec"].clear()
             action = "decode attention kernel -> gather"
         else:
             eng.sched.slot_cap = max(1, eng.scfg.max_batch_size // 2)

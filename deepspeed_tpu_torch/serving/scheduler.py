@@ -240,6 +240,10 @@ class Scheduler:
         self.slot_cap = int(num_slots)
         self._ids = itertools.count()
         self.preempted_total = 0
+        # The request accountant (telemetry/requests.py), set by the engine
+        # so admission and preemption mark the per-request ledger. None:
+        # off.
+        self.accountant = None
 
     # -- submission -----------------------------------------------------
     def submit(self, prompt: List[int], max_new_tokens: int,
@@ -314,6 +318,8 @@ class Scheduler:
         self.running[slot] = seq
         if req.admitted_time is None:
             req.admitted_time = time.monotonic()
+        if self.accountant is not None:
+            self.accountant.on_admit(seq)
         return seq
 
     def register_prefix(self, seq: Sequence, step: int) -> None:
@@ -370,6 +376,8 @@ class Scheduler:
         seq.request.preempted_count += 1
         self.waiting.appendleft(seq.request)
         self.preempted_total += 1
+        if self.accountant is not None:
+            self.accountant.on_preempt(seq)
 
     # -- completion -----------------------------------------------------
     def finish(self, seq: Sequence) -> None:

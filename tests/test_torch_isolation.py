@@ -1,7 +1,7 @@
 """The port (deepspeed_tpu_torch) and chip_smoke.py stand alone: neither
 imports jax, flax or the JAX package deepspeed_tpu, whether serving (the
-bucketed path, and the chunked path with the int8 pool and the prefix
-cache) or training (``initialize`` and one ``train_batch`` on the CPU,
+bucketed path, with telemetry on too, and the chunked path with the int8
+pool and the prefix cache) or training (``initialize`` and one ``train_batch`` on the CPU,
 dense and with a ``sparse_attention`` block)."""
 
 import ast
@@ -31,6 +31,23 @@ srv = deepspeed_tpu_torch.init_serving(
                                       "decode_attention": "kernel"}})
 rid = srv.submit([1, 2, 3, 4, 5], 4)
 assert len(srv.run_until_complete()[rid]["tokens"]) == 9
+
+import os, tempfile
+model, cfg = make_gpt("tiny", dtype=torch.float32)
+with tempfile.TemporaryDirectory() as run_dir:
+    srv = deepspeed_tpu_torch.init_serving(
+        model, params=init_gpt_params(cfg, seed=0), dtype=torch.float32,
+        device="cpu", config={
+            "serving": {"max_batch_size": 2, "kv_block_size": 4,
+                        "kv_num_blocks": 16, "int8_kv_cache": True},
+            "telemetry": {"enabled": True, "dir": run_dir,
+                          "requests": {"enabled": True},
+                          "numerics": {"enabled": True}}})
+    rid = srv.submit([1, 2, 3, 4, 5], 4)
+    assert srv.run_until_complete()[rid]["slo"]["tpot_obs"] == 3
+    srv.close()
+    assert sorted(os.listdir(run_dir)) == ["metrics.jsonl",
+                                           "requests.jsonl", "trace.json"]
 
 model, cfg = make_gpt("tiny", dtype=torch.float32)
 srv = deepspeed_tpu_torch.init_serving(

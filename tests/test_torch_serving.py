@@ -7,6 +7,8 @@ The oracle in both packages is greedy ``generate``: every served request
 must match it token for token.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -179,15 +181,36 @@ def test_auto_decode_attention_takes_the_kernel_on_cuda():
     {"resilience": {"fault_injection": {"serve_decode_fault_at_step": 1}},
      "telemetry": {"enabled": True}},
 ])
-def test_unported_config_keys_raise(tiny, config):
-    """Serving telemetry is not ported yet: a telemetry block that is on
-    raises, beside speculative decoding, a resilience block or a fault
-    plan (each of which serves on its own: tests/test_torch_spec.py and
-    tests/test_torch_serving_resilience.py)."""
+def test_unported_config_keys_raise(tiny, config, tmp_path, monkeypatch):
+    """A telemetry block that is on now serves, beside speculative
+    decoding, a resilience block or a fault plan, with the telemetry
+    parsed as the reference parses it (``dir`` defaults to "telemetry"
+    in the working directory). What is still not ported raises by name:
+    the same config with ``telemetry.fleet`` on."""
+    from deepspeed_tpu.config.config import TelemetryConfig as JaxTelemetry
+
     _jm, _cfg, _params, sd = tiny
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("DSTPU_FAULT_PLAN", raising=False)
+    want = JaxTelemetry.from_dict(config["telemetry"])
     model, _ = make_gpt("tiny", max_seq_len=64, dtype=torch.float32)
-    with pytest.raises(ConfigError, match="not yet ported"):
-        deepspeed_tpu_torch.init_serving(model, config=config, params=sd,
+    srv = deepspeed_tpu_torch.init_serving(model, config=config, params=sd,
+                                           device="cpu")
+    assert srv.telemetry.enabled == want.enabled
+    assert (srv._req_acc is not None) == want.requests.enabled
+    assert srv.telemetry.tracer.path == os.path.join(want.dir,
+                                                     want.trace.file)
+    assert srv.telemetry.metrics_path == os.path.join(want.dir,
+                                                      want.metrics.file)
+    srv.close()
+    assert os.path.exists(tmp_path / want.dir / want.metrics.file)
+    fleet = {**config, "telemetry": {**config["telemetry"],
+                                     "fleet": {"enabled": True}}}
+    JaxTelemetry.from_dict(fleet["telemetry"])
+    model, _ = make_gpt("tiny", max_seq_len=64, dtype=torch.float32)
+    with pytest.raises(ConfigError, match="telemetry.fleet is not yet "
+                                          "ported"):
+        deepspeed_tpu_torch.init_serving(model, config=fleet, params=sd,
                                          device="cpu")
 
 

@@ -76,18 +76,19 @@ def test_speculative_and_resilience_parsed_as_the_reference(key, block):
 def test_init_serving_top_level_blocks_as_the_reference(config, on):
     """``init_serving``'s top-level blocks, read as the reference's
     ``init_serving`` reads them: telemetry is on with ``enabled: true``
-    (``TelemetryConfig``) and is not ported yet; resilience acts only
-    through a ``fault_injection`` plan (serving chaos), which the port
-    hands back for ``FaultPlan.resolve``."""
+    and parses to the reference's ``TelemetryConfig`` fields; resilience
+    acts only through a ``fault_injection`` plan (serving chaos), which
+    the port hands back for ``FaultPlan.resolve``."""
+    import dataclasses
+
     from deepspeed_tpu.config.config import TelemetryConfig
+    from deepspeed_tpu_torch.config import TelemetryConfig as PortTelemetry
     from deepspeed_tpu_torch.config.config import check_serving_blocks
 
     fault = dict(config.get("resilience") or {}).get("fault_injection")
-    ref_on = (TelemetryConfig.from_dict(config.get("telemetry")).enabled
-              or bool(fault))
-    assert ref_on == on
-    if TelemetryConfig.from_dict(config.get("telemetry")).enabled:
-        with pytest.raises(ConfigError, match="not yet ported"):
-            check_serving_blocks(config)
-    else:
-        assert check_serving_blocks(config) == (fault or None)
+    want = TelemetryConfig.from_dict(config.get("telemetry"))
+    assert (want.enabled or bool(fault)) == on
+    got = PortTelemetry.from_dict(config.get("telemetry"))
+    assert got.enabled == want.enabled
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert check_serving_blocks(config) == (fault or None)
