@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only chunked   # the build, then phase 2a'' only
     python3 chip_smoke.py --only spec      # the build, then phase 3b only
     python3 chip_smoke.py --only telemetry # the build, then phase 3c only
+    python3 chip_smoke.py --only bert      # the build, then phase 8 only
     python3 chip_smoke.py --only sparse,chunked
 
 1. Device: requires CUDA, prints the card's name and power limit, builds
@@ -59,7 +60,15 @@
      of the forward, dq and dk/dv kernels (fp32 [2, 2048, 2, 256] through
      the FMA kernels, bf16 [2, 2048, 2, 64] through the tensor-core ones;
      an identity V, K and dO on a D-wide window) against
-     ``dropout_keep_mask``, no bit flipped;
+     ``dropout_keep_mask``, no bit flipped; the non-causal key-padded
+     branch (BERT's) the same way in every dtype at dropout 0 and 0.1
+     (FLASH_NONCAUSAL_CASES: [4, 128, 16, 64], [2, 512, 16, 64] and Sq <
+     Sk, each with an all-padding row), and in bf16 at bench_bert's
+     shapes [32, 128, 16, 64] and [8, 512, 16, 64] held to the plain
+     versions once more (o, lse, dq, dk/dv, under its all-valid key mask
+     and a padded one) and timed under the all-valid mask beside SDPA
+     with the bool [B, 1, 1, S] mask (the kernels line's ``_bert128`` /
+     ``_bert512`` rows);
    - fused Adam, bit for bit, over GPT-2's 148 parameter tensors (with
      the bf16 copy of the new params that the bf16 training step uses);
    - block-sparse attention forward, dq and dk/dv (kernels #8-#10; all
@@ -206,6 +215,22 @@
    path against the plain path (``impl: "xla"``, the same mask function
    and seeds), held as in phase 4.
 
+8. BERT-large pretraining (``--only bert`` runs it alone): ``initialize``
+   -> ``train_batch`` on ``make_bert("bert-large")`` with
+   ``bench.py:bench_bert``'s configuration (LAMB lr 2e-3, ZeRO 2, bf16, a
+   bf16 accumulator, GAS 8) at seq 128 x micro 32 and seq 512 x micro 8:
+   the tensor-core flash forward, dq and dk/dv launch 192 times each a
+   step (24 layers x GAS 8), every other kernel and every plain version
+   never, the loss falls; samples/s, step ms, MFU, peak memory, the idle
+   share, a profiled step's top kernels, LAMB's and the whole apply's
+   device ms and kernels; at seq 128 the matmuls by shape and a step on
+   padded rows. Then seq 512 with the reference's fixed block-16 sparse
+   layout (#8-#10 on the FMA route, 192 each a step; the sparse/dense
+   ratio; the kernels held to their plain versions and timed at [8, 512,
+   16, 64] beside SDPA with the expanded mask: the ``_block16`` rows),
+   and the fp32 comparisons at bert-large width and 2 layers, dense
+   (flash on FMAs) and sparse, against the plain path.
+
 Any failure exits non-zero. The last stdout line is
 ``{"ok": true, "device": {...}}``; before it come the card line and a
 ``{"kernels": [...]}`` line. The FMA flash rows (``flash_attention_fwd``,
@@ -224,10 +249,13 @@ fp32 chunked run and is timed on the bf16 inputs of the run kernels'
 row (``chunked_prefill_attention_tc``, which counts the bf16 chunked
 run). The verify row (``paged_decode_attention_verify``, kernel #1 at S =
 k + 1) counts the S = 5 launches of phase 3b's measured bf16 speculative
-run and is timed at S = 5 on the path's shapes.
+run and is timed at S = 5 on the path's shapes. The ``_bert128`` /
+``_bert512`` flash rows count phase 8's seq-128 / seq-512 steps and the
+``_block16`` sparse rows its sparse steps.
 """
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -1108,17 +1136,23 @@ def round_step(torch, ref, dtype=None):
     return torch.where(r == 0, torch.zeros_like(r), step)
 
 
-def flash_bytes_flops(q, mask, which):
-    """What one kernel must move and compute for these inputs (causal,
-    self-attention): each input read once and each output written once;
+def flash_bytes_flops(q, mask, which, causal=True):
+    """What one kernel must move and compute for these inputs
+    (self-attention): each input read once and each output written once;
     per visible (query, key) pair 2*D flops for each of its products (the
-    forward has 2, dq 3, dk/dv 4)."""
+    forward has 2, dq 3, dk/dv 4). Causal: the lower triangle; else every
+    query sees the keys its row of the [B, S] ``mask`` keeps (all
+    without one)."""
     b, s, h, d = q.shape
     es = q.element_size()
     big = b * s * h * d * es               # one [B, S, H, D] tensor
     rows = b * h * s * 4                   # one fp32 [B, H, S] vector
     mbytes = 0 if mask is None else b * s * 4
-    pairs = b * h * s * (s + 1) // 2
+    if causal:
+        pairs = b * h * s * (s + 1) // 2
+    else:
+        keys = b * s if mask is None else int(mask.sum().item())
+        pairs = h * s * keys
     if which == "fwd":                     # q, k, v -> o, lse
         return 4 * big + rows + mbytes, 4 * d * pairs
     if which == "dq":                      # q, k, v, dO, lse, delta -> dq
@@ -1142,12 +1176,20 @@ FLASH_DROP_CASES = ((16, 512, 512, 12, 64, False),
                     (16, 512, 512, 12, 64, True))
 FLASH_DROP_CASES_16 = ((4, 300, 300, 4, 128, True),
                        (4, 100, 300, 4, 72, True))
+# The non-causal, key-padded cases (BERT's attention), every dtype at
+# dropout 0 and 0.1: bench_bert's head shape at seq 128 and 512 (fewer
+# rows) and Sq < Sk; each with an all-padding batch row.
+FLASH_NONCAUSAL_CASES = ((4, 128, 128, 16, 64, True),
+                         (2, 512, 512, 16, 64, True),
+                         (4, 100, 300, 16, 64, True))
 
 
-def compare_flash_case(torch, fa, dtype, case, worst, rate=0.0, seed=None):
+def compare_flash_case(torch, fa, dtype, case, worst, rate=0.0, seed=None,
+                       causal=True):
     """Kernels #3-#5 and the whole autograd path against their plain
-    versions on one causal ``case`` (B, Sq, Sk, H, D, masked), at dropout
-    ``rate`` with ``seed``; q is the last Sq rows of the fused projection.
+    versions on one ``case`` (B, Sq, Sk, H, D, masked), causal or not, at
+    dropout ``rate`` with ``seed``; q is the last Sq rows of the fused
+    projection.
     Folds each output's max |err| into ``worst`` and fails beyond the
     tolerances (KERNEL_TOL, FLASH_16BIT_RMS_TOL), if dk/dv differ between
     two launches on the same inputs, or if an all-padding batch row is
@@ -1156,43 +1198,45 @@ def compare_flash_case(torch, fa, dtype, case, worst, rate=0.0, seed=None):
     name = str(dtype).split(".")[1]
     qkv, q, k, v, dout, mask = flash_case(
         torch, dtype, b, s, h, d,
-        seed=s + masked + 1000 * (d != 64) + 7 * (s - sq), masked=masked,
+        seed=(s + masked + 1000 * (d != 64) + 7 * (s - sq)
+              + 31 * (not causal)), masked=masked,
         dout_scale=FLASH_DOUT_SCALE[name])
     q, dout = q[:, s - sq:], dout[:, s - sq:].contiguous()
     scale = 1.0 / d ** 0.5
     drop = (rate, seed)
-    qp, kp, vp, mp = fa._prepare(q, k, v, mask, True)
+    qp, kp, vp, mp = fa._prepare(q, k, v, mask, causal)
     if qp.data_ptr() != q.data_ptr():
         fail("flash_attention copied an aligned strided view")
     route = fa._route(dtype, d)
-    out, lse = fa.flash_attention_fwd(qp, kp, vp, mp, True, scale, *drop)
-    want = fa.flash_attention_reference(q, k, v, causal=True, kv_mask=mask,
-                                        dropout_rate=rate, dropout_seed=seed)
+    out, lse = fa.flash_attention_fwd(qp, kp, vp, mp, causal, scale, *drop)
+    want = fa.flash_attention_reference(q, k, v, causal=causal,
+                                        kv_mask=mask, dropout_rate=rate,
+                                        dropout_seed=seed)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
     delta = delta.contiguous()
-    dq = fa.flash_attention_bwd_dq(qp, kp, vp, dout, mp, lse, delta, True,
+    dq = fa.flash_attention_bwd_dq(qp, kp, vp, dout, mp, lse, delta, causal,
                                    scale, *drop)
-    dq2 = fa.flash_attention_bwd_dq(qp, kp, vp, dout, mp, lse, delta, True,
+    dq2 = fa.flash_attention_bwd_dq(qp, kp, vp, dout, mp, lse, delta, causal,
                                     scale, *drop)
     dk, dv = fa.flash_attention_bwd_dkv(qp, kp, vp, dout, mp, lse, delta,
-                                        True, scale, *drop)
+                                        causal, scale, *drop)
     dk2, dv2 = fa.flash_attention_bwd_dkv(qp, kp, vp, dout, mp, lse, delta,
-                                          True, scale, *drop)
+                                          causal, scale, *drop)
     # the FMA dq (the first version of the 16-bit route) on the same inputs
     dq_fma = (fa._launch_dq("flash_attention", qp, kp, vp, dout, mp, lse,
-                            delta, True, scale, *drop)
+                            delta, causal, scale, *drop)
               if route == "tc" else None)
     torch.cuda.synchronize()
     what = (f"{name} B={b} Sq={sq} Sk={s} H={h} D={d} masked={masked} "
-            f"dropout={rate} ({route})")
+            f"causal={causal} dropout={rate} ({route})")
     if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
         fail(f"flash dkv {what}: two launches on one input differ")
     if not torch.equal(dq, dq2):
         fail(f"flash dq {what}: two launches on one input differ")
-    dq_w = fa.flash_bwd_dq_reference(q, k, v, dout, mp, lse, delta, True,
+    dq_w = fa.flash_bwd_dq_reference(q, k, v, dout, mp, lse, delta, causal,
                                      scale, *drop)
     dk_w, dv_w = fa.flash_bwd_dkv_reference(q, k, v, dout, mp, lse, delta,
-                                            True, scale, *drop)
+                                            causal, scale, *drop)
     # the whole autograd path against the reference's autograd
     x1 = qkv.detach().clone().requires_grad_()
     x2 = qkv.detach().clone().requires_grad_()
@@ -1200,7 +1244,7 @@ def compare_flash_case(torch, fa, dtype, case, worst, rate=0.0, seed=None):
     for x, fn in ((x1, fa.flash_attention),
                   (x2, fa.flash_attention_reference)):
         qq, kk, vv = (t.reshape(b, s, h, d) for t in x.split(h * d, dim=-1))
-        o = fn(qq[:, s - sq:], kk, vv, causal=True, kv_mask=mask,
+        o = fn(qq[:, s - sq:], kk, vv, causal=causal, kv_mask=mask,
                dropout_rate=rate, dropout_seed=seed)
         o.backward(dout)
         outs.append(o)
@@ -1253,7 +1297,8 @@ def compare_flash_case(torch, fa, dtype, case, worst, rate=0.0, seed=None):
     return route
 
 
-def print_flash_worst(worst, cases, rate=0.0):
+def print_flash_worst(worst, cases, rate=0.0, kind="causal, with/without "
+                      "key mask"):
     for key, name in sorted(k for k in worst if len(k) == 2):
         err, rms, peak = worst[(key, name)]
         lim = FLASH_16BIT_RMS_TOL["autograd" if key.startswith("autograd")
@@ -1261,8 +1306,8 @@ def print_flash_worst(worst, cases, rate=0.0):
         limit = (f"atol {KERNEL_TOL[name]}" if name == "float32" else
                  f"beyond one {name} step: "
                  f"{worst[(key, name, 'rel')]:.3g} of the RMS, limit {lim}")
-        print(f"flash_attention {key} {name} {cases}, causal, with/without "
-              f"key mask, dO x {FLASH_DOUT_SCALE[name]}: max |err| "
+        print(f"flash_attention {key} {name} {cases}, {kind}, "
+              f"dO x {FLASH_DOUT_SCALE[name]}: max |err| "
               f"{err:.3g} where the reference's RMS is {rms:.3g} and its "
               f"max |x| {peak:.3g} ({limit})")
 
@@ -1350,32 +1395,40 @@ def check_flash_attention(torch, reports):
     ``reports``: the kernels line's rows by name."""
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 
-    worst, worst_drop = {}, {}
+    worst, worst_drop, worst_nc, worst_nc_drop = {}, {}, {}, {}
     tc_wrappers = (fa.flash_attention_fwd_tc, fa.flash_attention_bwd_dq_tc,
                    fa.flash_attention_bwd_dkv_tc)
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         sixteen = dtype != torch.float32
-        for cases, sink, rate in (
+        for cases, sink, rate, causal in (
                 (FLASH_CASES + (FLASH_CASES_16 if sixteen else ()), worst,
-                 0.0),
+                 0.0, True),
                 (FLASH_DROP_CASES + (FLASH_DROP_CASES_16 if sixteen else ()),
-                 worst_drop, FLASH_DROPOUT)):
+                 worst_drop, FLASH_DROPOUT, True),
+                (FLASH_NONCAUSAL_CASES, worst_nc, 0.0, False),
+                (FLASH_NONCAUSAL_CASES, worst_nc_drop, FLASH_DROPOUT,
+                 False)):
             for case in cases:
                 tc = [w.launches for w in tc_wrappers]
                 route = compare_flash_case(
                     torch, fa, dtype, case, sink, rate,
-                    FLASH_DROPOUT_SEED if rate else None)
+                    FLASH_DROPOUT_SEED if rate else None, causal=causal)
                 grew = [w.launches > n for w, n in zip(tc_wrappers, tc)]
                 if route != ("tc" if sixteen else "fma") or \
                         grew != [sixteen] * 3:
-                    fail(f"flash {dtype} {case}: routed to {route}, "
-                         f"tensor-core launches {grew}")
+                    fail(f"flash {dtype} {case} causal={causal}: routed to "
+                         f"{route}, tensor-core launches {grew}")
     print_flash_worst(worst, "(B,Sq,Sk,H,D) in FLASH_CASES (+ "
                       "FLASH_CASES_16 in 16 bits)")
     print_flash_worst(worst_drop, f"dropout {FLASH_DROPOUT}, "
                       f"FLASH_DROP_CASES (+ FLASH_DROP_CASES_16)",
                       FLASH_DROPOUT)
+    nc = "non-causal, key mask with an all-padding row"
+    print_flash_worst(worst_nc, "FLASH_NONCAUSAL_CASES", kind=nc)
+    print_flash_worst(worst_nc_drop, f"dropout {FLASH_DROPOUT}, "
+                      f"FLASH_NONCAUSAL_CASES", FLASH_DROPOUT, kind=nc)
     time_flash(torch, fa, reports, worst, worst_drop)
+    time_flash_bert(torch, fa, reports)
 
 
 def time_flash(torch, fa, reports, worst, worst_drop):
@@ -1522,6 +1575,195 @@ def time_flash(torch, fa, reports, worst, worst_drop):
                       f"counted)")
             del prepped, sdpa_in
         del layers
+        torch.cuda.empty_cache()
+
+
+# bench_bert's attention shapes ([B, S, H, D], bert-large: 16 heads of 64)
+# at seq 128 (micro 32) and seq 512 (micro 8), and the kernels line's rows
+FLASH_BERT_SHAPES = (("bert128", 32, 128, 16, 64), ("bert512", 8, 512, 16, 64))
+# lse: fp32 scores of 16-bit products summed in another order, as
+# SPARSE_LSE_TOL
+FLASH_LSE_TOL = 1e-5
+
+
+def hold_flash_bert(torch, fa, q, k, v, dout, mask, scale, what):
+    """The forward (o and lse), dq and dk/dv kernels, non-causal under the
+    key ``mask``, against their plain versions on one input: o, dq, dk and
+    dv within one bf16 rounding step + FLASH_16BIT_RMS_TOL["kernel"] of
+    the reference's RMS, lse within FLASH_LSE_TOL, dq and dk/dv bit-equal
+    over two launches. Returns the max |err| by row key (fwd: o; dkv: dk
+    and dv)."""
+    q, k, v, mp = fa._prepare(q, k, v, mask, False)
+    out, lse = fa.flash_attention_fwd(q, k, v, mp, False, scale)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+    delta = delta.contiguous()
+    args = (q, k, v, dout, mp, lse, delta, False, scale)
+    dq, dq2 = (fa.flash_attention_bwd_dq(*args) for _ in range(2))
+    (dk, dv), (dk2, dv2) = (fa.flash_attention_bwd_dkv(*args)
+                            for _ in range(2))
+    torch.cuda.synchronize()
+    if not (same_bits(torch, dq, dq2) and same_bits(torch, dk, dk2)
+            and same_bits(torch, dv, dv2)):
+        fail(f"flash {what}: two launches on one input differ")
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    lse_w = scores.masked_fill(~mask[:, None, None, :],
+                               float("-inf")).logsumexp(-1)
+    del scores
+    lse_err = (lse - lse_w).abs().max().item()
+    if not lse_err <= FLASH_LSE_TOL:
+        fail(f"flash lse {what}: max |err| {lse_err}")
+    dk_w, dv_w = fa.flash_bwd_dkv_reference(*args)
+    pairs = {"fwd": (out, fa.flash_attention_reference(
+                 q, k, v, causal=False, kv_mask=mask)),
+             "dq": (dq, fa.flash_bwd_dq_reference(*args)),
+             "dk": (dk, dk_w), "dv": (dv, dv_w)}
+    errs = {}
+    for key, (got, ref) in pairs.items():
+        ref = ref.float()
+        diff = (got.float() - ref).abs()
+        rms = ref.pow(2).mean().sqrt().item()
+        rel = ((diff - round_step(torch, ref)).clamp_min(0).max().item()
+               / max(rms, 1e-30))
+        errs[key] = diff.max().item()
+        if not torch.isfinite(got).all() or \
+                rel > FLASH_16BIT_RMS_TOL["kernel"]:
+            fail(f"flash {key} {what}: max |err| {errs[key]} (reference "
+                 f"RMS {rms}); beyond one rounding step {rel} of the RMS")
+    print(f"flash_attention {what} against the plain versions: max |err| "
+          f"{json.dumps(errs)}, lse {lse_err:.3g} (limit {FLASH_LSE_TOL}); "
+          f"dq, dk/dv bit-equal over two launches")
+    return {"fwd": errs["fwd"], "dq": errs["dq"],
+            "dkv": max(errs["dk"], errs["dv"])}
+
+
+def time_flash_bert(torch, fa, reports):
+    """The flash rows at bench_bert's two shapes, bf16, non-causal under
+    bench_bert's key mask (every key valid, as its batches are), rotating
+    over 4 layers' inputs, as device time: the tensor-core forward, dq
+    and dk/dv beside their plain versions (host-paced), SDPA with the
+    boolean [B, 1, 1, S] mask (the memory-efficient backend, the one that
+    takes a mask: its forward, and its whole backward for dq and dk/dv)
+    and the bound. First each kernel is held to its plain version
+    (:func:`hold_flash_bert`) on the first layer's inputs, under that
+    mask and under a padded one (lengths drawn in [S / 2, S], as phase
+    8's padded batch); each row's max |err| is the larger of the two."""
+    import numpy as np
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    dtype = torch.bfloat16
+    for label, b, s, h, d in FLASH_BERT_SHAPES:
+        scale = 1.0 / d ** 0.5
+        mask = torch.ones(b, s, dtype=torch.bool, device="cuda")
+        lens = np.random.default_rng(6).integers(s // 2, s + 1, b)
+        padded = torch.from_numpy(np.arange(s)[None] < lens[:, None]).cuda()
+        layers = []
+        for i in range(4):
+            _qkv, q, k, v, dout, _m = flash_case(torch, dtype, b, s, h, d,
+                                                 seed=300 + i)
+            if i == 0:
+                errs = {}
+                for tag, m in (("all keys", mask), ("padded", padded)):
+                    one = hold_flash_bert(
+                        torch, fa, q, k, v, dout, m, scale,
+                        f"bf16 [{b}, {s}, {h}, {d}] non-causal, {tag}")
+                    errs = {key: max(errs.get(key, 0.0), e)
+                            for key, e in one.items()}
+            q, k, v, mp = fa._prepare(q, k, v, mask, False)
+            out, lse = fa.flash_attention_fwd(q, k, v, mp, False, scale)
+            delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+            layers.append((q, k, v, dout, mp, lse, delta.contiguous()))
+        it = {"i": 0}
+
+        def nxt():
+            it["i"] = (it["i"] + 1) % len(layers)
+            return layers[it["i"]]
+
+        def bwd(fn):
+            def run():
+                q, k, v, dout, mp, lse, delta = nxt()
+                return fn(q, k, v, dout, mp, lse, delta, False, scale)
+            return run
+
+        def fwd(fn):
+            def run():
+                q, k, v, _dout, mp, _lse, _delta = nxt()
+                return fn(q, k, v, mp, False, scale)
+            return run
+
+        def plain_fwd():
+            q, k, v, *_ = nxt()
+            return fa.flash_attention_reference(q, k, v, causal=False,
+                                                kv_mask=mask)
+
+        kern = {"fwd": fwd(fa.flash_attention_fwd),
+                "dq": bwd(fa.flash_attention_bwd_dq),
+                "dkv": bwd(fa.flash_attention_bwd_dkv)}
+        plain = {"fwd": plain_fwd, "dq": bwd(fa.flash_bwd_dq_reference),
+                 "dkv": bwd(fa.flash_bwd_dkv_reference)}
+        am = mask[:, None, None, :]
+        sdpa_in = []
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            for q, k, v, dout, *_ in layers:
+                qt, kt, vt = (t.transpose(1, 2).contiguous()
+                              .requires_grad_() for t in (q, k, v))
+                o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+                sdpa_in.append((qt, kt, vt, o,
+                                dout.transpose(1, 2).contiguous()))
+            sit = {"i": 0}
+
+            def snxt():
+                sit["i"] = (sit["i"] + 1) % len(sdpa_in)
+                return sdpa_in[sit["i"]]
+
+            def sdpa_fwd():
+                qt, kt, vt, _o, _do = snxt()
+                with torch.no_grad():
+                    F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+
+            def sdpa_bwd():
+                qt, kt, vt, o, dot = snxt()
+                torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
+
+            lib = {"fwd": device_ms(torch, sdpa_fwd, names=True),
+                   "bwd": device_ms(torch, sdpa_bwd, names=True)}
+        times = {}
+        for key in ("fwd", "dq", "dkv"):
+            row = {"fwd": "flash_attention_fwd_tc", "dq":
+                   "flash_attention_bwd_dq_tc", "dkv":
+                   "flash_attention_bwd_dkv_tc"}[key] + "_" + label
+            kernel_ms, kernel_names = device_ms(torch, kern[key], names=True)
+            plain_ms, _ = device_ms(torch, plain[key], iters=5, warmup=1)
+            library, lib_names = lib["fwd" if key == "fwd" else "bwd"]
+            nbytes, flops = flash_bytes_flops(layers[0][0], mask, key,
+                                              causal=False)
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = flops / BF16_FLOPS
+            rep = reports[row]
+            rep.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library,
+                       bound_ms=max(t_bytes, t_ops) * 1e3,
+                       bound_by="bytes" if t_bytes >= t_ops
+                       else "operations",
+                       max_abs_err=errs[key])
+            times[key] = kernel_ms
+            lib_top = {k[:60]: round(v, 4) for k, v in lib_names.items()}
+            print(f"flash_attention {key} timing bf16 B={b} S={s} H={h} "
+                  f"D={d} non-causal, bench_bert's key mask ({row}, device "
+                  f"time): kernel {kernel_ms:.4f} ms {sorted(kernel_names)}, "
+                  f"plain {plain_ms:.4f} ms, SDPA "
+                  f"{'fwd' if key == 'fwd' else 'bwd (dq+dk+dv)'} with the "
+                  f"[B, 1, 1, S] bool mask, backend EFFICIENT_ATTENTION "
+                  f"{library:.4f} ms {lib_top}, bound "
+                  f"{rep['bound_ms']:.4f} ms ({nbytes} bytes / 3.35 TB/s, "
+                  f"{flops} flops / 989 TFLOP/s)")
+        print(f"flash_attention {label} summary (bf16, non-causal, key "
+              f"mask): forward {times['fwd']:.4f} ms = "
+              f"{times['fwd'] / lib['fwd'][0]:.3f}x SDPA's "
+              f"{lib['fwd'][0]:.4f}; dq + dk/dv "
+              f"{times['dq'] + times['dkv']:.4f} ms = "
+              f"{(times['dq'] + times['dkv']) / lib['bwd'][0]:.3f}x SDPA's "
+              f"whole backward {lib['bwd'][0]:.4f}")
+        del layers, sdpa_in
         torch.cuda.empty_cache()
 
 
@@ -3690,6 +3932,19 @@ KERNELS = (
      "deepspeed_tpu/ops/transformer/chunked_prefill.py:65"),
     ("paged_decode_attention_verify", "paged_attention",
      "deepspeed_tpu/ops/transformer/paged_attention.py:69"),
+) + tuple(
+    (f"{name}_{label}", "flash_attention_tc",
+     f"deepspeed_tpu/ops/transformer/flash_attention.py:{line}")
+    for label in ("bert128", "bert512")
+    for name, line in (("flash_attention_fwd_tc", 113),
+                       ("flash_attention_bwd_dq_tc", 231),
+                       ("flash_attention_bwd_dkv_tc", 287))) + (
+    ("sparse_attention_fwd_block16", "sparse_attention",
+     "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:88"),
+    ("sparse_attention_bwd_dq_block16", "sparse_attention",
+     "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:147"),
+    ("sparse_attention_bwd_dkv_block16", "sparse_attention",
+     "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:194"),
 )
 # the flash kernels of the 16-bit training step: the tensor-core forward,
 # dq and dk/dv; the FMA kernels take the fp32 path
@@ -4166,8 +4421,6 @@ def train_engine(torch, fused_ln, dropout=False, config=TRAIN_CONFIG,
 def check_training(torch, card, fused_ln=False, dropout=False):
     """Phase 4 (unfused), 6 (``fused_ln=True``) or 7 (``dropout``, the
     default 0.1): the counted, timed and profiled training steps."""
-    from torch.profiler import ProfilerActivity, profile
-
     engine, model, cfg, batches, per_step, n_params = train_engine(
         torch, fused_ln, dropout)
     if dropout and cfg.dropout_rate != 0.1:
@@ -4200,29 +4453,34 @@ def check_training(torch, card, fused_ln=False, dropout=False):
     if dropout:
         training["profile"] = profile_dropout_step(torch, engine, batches)
     elif profile_step(torch, engine, batches, what) is not None:
-        # A second step with the operands' shapes recorded (which costs
-        # host time, so the idle share above comes from the first): the
-        # matmuls by shape, i.e. which products take the GEMM time.
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     record_shapes=True) as prof:
-            engine.train_batch(batches)
-            torch.cuda.synchronize()
-
-        def dev_us(a):
-            return getattr(a, "self_device_time_total",
-                           getattr(a, "self_cuda_time_total", 0.0))
-
-        ops = [a for a in prof.key_averages(group_by_input_shape=True)
-               if a.key in ("aten::mm", "aten::addmm", "aten::bmm")]
-        ops.sort(key=lambda a: -dev_us(a))
-        print(f"{what} profile, matmuls by input shape (op, shapes, "
-              "device ms per step, calls): " + json.dumps(
-                  [[a.key, str(a.input_shapes)[:90], dev_us(a) / 1e3,
-                    a.count] for a in ops[:10]]))
+        profile_matmuls(torch, engine, batches, what)
     del engine, model
     torch.cuda.empty_cache()
     return training
+
+
+def profile_matmuls(torch, engine, batches, what):
+    """A second profiled step with the operands' shapes recorded (which
+    costs host time, so the idle share comes from the first): the matmuls
+    by shape, i.e. which products take the GEMM time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        engine.train_batch(batches)
+        torch.cuda.synchronize()
+
+    def dev_us(a):
+        return getattr(a, "self_device_time_total",
+                       getattr(a, "self_cuda_time_total", 0.0))
+
+    ops = [a for a in prof.key_averages(group_by_input_shape=True)
+           if a.key in ("aten::mm", "aten::addmm", "aten::bmm")]
+    ops.sort(key=lambda a: -dev_us(a))
+    print(f"{what} profile, matmuls by input shape (op, shapes, device ms "
+          "per step, calls): " + json.dumps(
+              [[a.key, str(a.input_shapes)[:90], dev_us(a) / 1e3, a.count]
+               for a in ops[:10]]))
 
 
 def check_fused_ln_sites(torch, card, base_ms):
@@ -4465,9 +4723,469 @@ def check_long_training(torch, card):
     return long
 
 
+# ---------------------------------------------------------------------------
+# 8. BERT-large pretraining
+# ---------------------------------------------------------------------------
+
+BERT_CONFIG = {                   # bench.py:bench_bert's
+    "train_micro_batch_size_per_gpu": 32,
+    "gradient_accumulation_steps": 8,
+    "optimizer": {"type": "Lamb", "params": {"lr": 2e-3}},
+    "zero_optimization": {"stage": 2},
+    "data_types": {"grad_accum_dtype": "bfloat16"},
+    "bf16": {"enabled": True},
+}
+BERT_RUNS = ((128, 32), (512, 8))          # bench_bert's (seq, micro)
+BERT_WARMUP, BERT_STEPS = 2, 5
+# The sparse-attention example of the reference DeepSpeed's configuration
+# documentation (docs/_pages/config-json.md, "Sparse Attention"): the
+# reference's default block of 16, so #8-#10 take the FMA kernels
+BERT_SPARSE = {"mode": "fixed", "block": 16,
+               "different_layout_per_head": True, "num_local_blocks": 4,
+               "num_global_blocks": 1, "attention": "bidirectional",
+               "horizontal_global_attention": False,
+               "num_different_global_patterns": 4}
+SPARSE_BLOCK16_ROWS = {"fwd": "sparse_attention_fwd_block16",
+                       "dq": "sparse_attention_bwd_dq_block16",
+                       "dkv": "sparse_attention_bwd_dkv_block16"}
+
+
+def bert_batches(torch, cfg, gas, micro, seq, padded=False):
+    """bench_bert's batches (``bench.py:129-135``: ids, MLM labels at 15%
+    of the positions, an all-ones key mask) from seed 0; ``padded``: rows
+    of lengths drawn in [seq / 2, seq], padding masked, pad ids 0, no
+    labels there."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (gas, micro, seq), dtype=np.int32)
+    labels = np.where(rng.random((gas, micro, seq)) < 0.15, ids, -100)
+    mask = np.ones((gas, micro, seq), np.int32)
+    if padded:
+        lens = rng.integers(seq // 2, seq + 1, (gas, micro))
+        mask = (np.arange(seq) < lens[..., None]).astype(np.int32)
+        ids = ids * mask
+        labels = np.where(mask == 1, labels, -100)
+    return {"input_ids": torch.from_numpy(ids).cuda(),
+            "attention_mask": torch.from_numpy(mask).cuda(),
+            "labels": torch.from_numpy(labels.astype(np.int32)).cuda()}
+
+
+def bert_engine(torch, seq, micro, sd, sparse=None):
+    """bench_bert's engine on ``make_bert("bert-large")`` at dropout 0 and
+    ``max_seq_len = max(seq, 128)``, weights ``sd`` (drawn at 512
+    positions: the first ``max_seq_len`` rows of ``wpe``), with
+    ``sparse`` as the config's ``sparse_attention``."""
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models import make_bert
+
+    model, cfg = make_bert("bert-large", dropout_rate=0.0,
+                           max_seq_len=max(seq, 128))
+    sd = dict(sd, wpe=sd["wpe"][:cfg.max_seq_len])
+    config = dict(BERT_CONFIG, train_micro_batch_size_per_gpu=micro)
+    if sparse:
+        config["sparse_attention"] = sparse
+    engine, *_ = dtt.initialize(model=model, params=sd, config=config)
+    return engine, model, cfg
+
+
+def profiled_kernels(torch, fn):
+    """Device kernels of one call of ``fn`` under ``torch.profiler``: their
+    count and the sum of their durations (ms; one stream, so their busy
+    time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(kernels), sum(e.time_range.elapsed_us()
+                             for e in kernels) / 1e3
+
+
+def apply_cost(torch, engine):
+    """LAMB's update on the engine's own state and gradients (the result
+    dropped): its device kernels and their device ms (profiled), and its
+    host-paced time (:func:`cuda_ms`, 3 back-to-back calls); then one
+    whole apply (``engine._apply_step``: the fp32 gradient copies, the
+    global norm, LAMB, the copy back, the zeroing) profiled the same way.
+    The apply takes a real step on the accumulator it finds (zero after
+    a ``train_batch``)."""
+    opt, st = engine.optimizer, engine.state
+
+    def lamb():
+        opt.update(engine._grads32, st.opt_state, st.params, lr=opt.lr)
+
+    lamb()
+    lamb_n, lamb_ms = profiled_kernels(torch, lamb)
+    host_ms = cuda_ms(lamb, iters=3, warmup=1)
+    apply_n, apply_ms = profiled_kernels(
+        torch, lambda: engine._apply_step(opt.lr))
+    return {"lamb_device_ms": lamb_ms, "lamb_kernels": lamb_n,
+            "lamb_host_paced_ms": host_ms, "apply_device_ms": apply_ms,
+            "apply_kernels": apply_n}
+
+
+def bert_run(torch, card, seq, micro, sd, sparse=None):
+    """One bench_bert configuration: BERT_WARMUP, then BERT_STEPS counted
+    and timed steps (:func:`counted_steps`: flash #3-#5 on the
+    tensor-core route, or with ``sparse`` #8-#10 on the FMA route, 24
+    layers x GAS 8 = 192 launches each a step; every other kernel and
+    every plain version none; the loss falls), a profiled step, LAMB's
+    cost, and at seq 128 the matmuls by shape and one step on padded
+    rows (the key mask at work: 192 launches each, no plain version, a
+    finite loss). ``sd``: the weights (:func:`bert_engine`). Returns the
+    run's record."""
+    t0 = time.perf_counter()
+    engine, model, cfg = bert_engine(torch, seq, micro, sd, sparse)
+    setup_s = time.perf_counter() - t0
+    if sparse and (model.cfg.sparse_attention != sparse or any(
+            layer.cfg is not model.cfg for layer in model.layer)):
+        fail("BERT: initialize did not route the layers' attention through "
+             "the sparse_attention block")
+    gas = BERT_CONFIG["gradient_accumulation_steps"]
+    batches = bert_batches(torch, cfg, gas, micro, seq)
+    kernels = (("sparse_attention_fwd",) + SPARSE_FMA_NAMES if sparse
+               else FLASH_NAMES)
+    per_step = {name: 0 for name in training_counters()}
+    per_step.update({name: cfg.num_layers * gas for name in kernels})
+    what = f"bert-large seq {seq}" + (" sparse" if sparse else "")
+    t0 = time.perf_counter()
+    step_ms, losses, launches = counted_steps(
+        torch, engine, batches, per_step, what, BERT_WARMUP, BERT_STEPS)
+    steps_s = time.perf_counter() - t0
+    med = median(step_ms)
+    n_params = sum(p.numel() for p in model.parameters())
+    samples = gas * micro
+    flops = train_flops_per_step(n_params, samples, seq, cfg.hidden_size,
+                                 cfg.num_layers)
+    rec = {
+        "model": "bert-large", "params": n_params, "seq": seq,
+        "micro_batch": micro, "gas": gas, "dtype": "bfloat16",
+        "optimizer": "Lamb", "sparse_attention": sparse,
+        "steps": BERT_STEPS, "step_ms_median": med,
+        "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
+        "step_ms": step_ms, "samples_per_s": samples / (med / 1e3),
+        "tokens_per_s": samples * seq / (med / 1e3),
+        "model_tflops_per_s": flops / (med / 1e3) / 1e12,
+        "mfu_vs_989_tflops_dense_bf16": flops / (med / 1e3) / BF16_FLOPS,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "losses": losses, "launches": launches, "card": card,
+        "setup_s": setup_s, "steps_s": steps_s}
+    print(f"{what} (initialize -> train_batch, bench_bert's config): "
+          f"{json.dumps(rec)}")
+    t0 = time.perf_counter()
+    stats = profile_step(torch, engine, batches, what)
+    if stats is None:
+        fail(f"{what}: the profiler recorded no device events")
+    busy = stats["device_busy_ms_per_step"]
+    rec.update(apply_cost(torch, engine), device_busy_ms=busy,
+               profiled_idle_share=stats["device_idle_share"],
+               kernels_per_step=stats["kernels_per_step"],
+               # the unprofiled step against the profiled step's busy time
+               device_idle_share=1.0 - busy / med)
+    rec["lamb_share_of_busy"] = rec["lamb_device_ms"] / busy
+    print(f"{what} ({card}): device busy {busy:.2f} ms of the median step "
+          f"{med:.2f} ms: idle share {rec['device_idle_share']:.4f} "
+          f"({rec['profiled_idle_share']:.4f} under the profiler), "
+          f"{rec['kernels_per_step']:.0f} kernels a step; LAMB "
+          f"{rec['lamb_device_ms']:.3f} device ms and {rec['lamb_kernels']} "
+          f"kernels a step ({len(engine.state.params)} tensors; "
+          f"{rec['lamb_share_of_busy']:.4f} of busy; host-paced "
+          f"{rec['lamb_host_paced_ms']:.3f} ms); the whole apply "
+          f"{rec['apply_device_ms']:.3f} device ms, {rec['apply_kernels']} "
+          f"kernels")
+    if seq == BERT_RUNS[0][0] and not sparse:
+        profile_matmuls(torch, engine, batches, what)
+        padded = bert_batches(torch, cfg, gas, micro, seq, padded=True)
+        counters = training_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        with PlainCalls() as plain:
+            loss = float(engine.train_batch(padded))
+        got = {n: counters[n].launches for n in kernels}
+        if any(plain.calls.values()) or not math.isfinite(loss) or \
+                set(got.values()) != {cfg.num_layers * gas}:
+            fail(f"{what} padded batch: loss {loss}, launches {got}, plain "
+                 f"calls {plain.calls}")
+        print(f"{what}: one step on padded rows (lengths "
+              f"{int(padded['attention_mask'].sum(-1).min())}-"
+              f"{int(padded['attention_mask'].sum(-1).max())}): loss {loss}, "
+              f"launches {got}, no plain version")
+    # the profiled step, LAMB's cost and the seq-128 extras
+    rec["profile_s"] = time.perf_counter() - t0
+    del engine, model, batches
+    torch.cuda.empty_cache()
+    return rec
+
+
+def time_sparse_block16(torch, reports):
+    """#8-#10 on the FMA route at the sparse BERT shape [8, 512, 16, 64]
+    bf16 with BERT_SPARSE's layout (a pattern per head), non-causal under
+    a key mask (rows padded from lengths in [256, 512]): each held to its
+    plain version (one bf16 rounding step + 1e-3 of the reference's RMS,
+    bit-equal over two launches), then timed as device time over 4
+    layers' inputs beside the plain version (host-paced), SDPA with the
+    layout-expanded mask (the forward, and its whole backward for dq and
+    dk/dv) and the bound (pairs counted from the layout and the mask)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    sp = sparse_module()
+    b, s, h, d = 8, 512, 16, 64
+    block = BERT_SPARSE["block"]
+    scale = 1.0 / d ** 0.5
+    layout = sparse_layout(BERT_SPARSE, h, s)
+    plan = sp.sparse_plan(layout, block)
+    if sp._route(torch.bfloat16, d, block) != "fma":
+        fail("sparse BERT: block 16 does not take the FMA route")
+    lens = np.random.default_rng(5).integers(s // 2, s + 1, b)
+    mask = torch.from_numpy(np.arange(s)[None] < lens[:, None]).cuda()
+    layers = []
+    for i in range(4):
+        _qkv, q, k, v, dout, _m = flash_case(torch, torch.bfloat16, b, s, h,
+                                             d, seed=400 + i)
+        q, k, v, km = sp._prepare(q, k, v, mask, plan)
+        out, lse = sp.sparse_attention_fwd(q, k, v, km, plan, False, scale)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+        layers.append((q, k, v, dout, km, lse, delta.contiguous(), plan,
+                       False, scale))
+    q, k, v, dout, km, lse, delta = layers[0][:7]
+    args = layers[0][4:]
+    outs = {"fwd": [sp.sparse_attention_fwd(q, k, v, km, plan, False,
+                                            scale)[0] for _ in range(2)],
+            "dq": [sp.sparse_attention_bwd_dq(q, k, v, dout, *args)
+                   for _ in range(2)],
+            "dkv": [torch.cat(sp.sparse_attention_bwd_dkv(q, k, v, dout,
+                                                          *args), -1)
+                    for _ in range(2)]}
+    refs = {"fwd": sp.sparse_fwd_reference(q, k, v, km, plan, False,
+                                           scale)[0],
+            "dq": sp.sparse_bwd_dq_reference(q, k, v, dout, *args),
+            "dkv": torch.cat(sp.sparse_bwd_dkv_reference(q, k, v, dout,
+                                                         *args), -1)}
+    torch.cuda.synchronize()
+    errs = {}
+    for key, (got, again) in outs.items():
+        ref = refs[key].float()
+        if not same_bits(torch, got, again):
+            fail(f"sparse {key} block 16: two launches on one input differ")
+        diff = (got.float() - ref).abs()
+        rms = ref.pow(2).mean().sqrt().item()
+        rel = ((diff - round_step(torch, ref)).clamp_min(0).max().item()
+               / max(rms, 1e-30))
+        errs[key] = diff.max().item()
+        if not torch.isfinite(got).all() or \
+                rel > FLASH_16BIT_RMS_TOL["kernel"]:
+            fail(f"sparse {key} block 16 bf16 [8, 512, 16, 64]: max |err| "
+                 f"{errs[key]}, {rel} of the RMS beyond one step")
+    del outs, refs
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % len(layers)
+        return layers[it["i"]]
+
+    def call(which, plain):
+        def go():
+            a = nxt()
+            if which == "fwd":
+                fa = (*a[:3], *a[4:5], *a[7:])
+                return (sp.sparse_fwd_reference if plain else
+                        sp._launch_fma_fwd)(*fa)
+            if plain:
+                return (sp.sparse_bwd_dq_reference if which == "dq" else
+                        sp.sparse_bwd_dkv_reference)(*a)
+            return sp._launch_fma(which, *a)
+        return go
+
+    am = sp._dense_mask(layout, block, "cuda")[None] & mask[:, None, None, :]
+    sdpa_in = []
+    for q, k, v, dout, *_ in layers[:2]:
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+        sdpa_in.append((qt, kt, vt, o, dout.transpose(1, 2).contiguous()))
+    sit = {"i": 0}
+
+    def snxt():
+        sit["i"] = (sit["i"] + 1) % len(sdpa_in)
+        return sdpa_in[sit["i"]]
+
+    def sdpa_fwd():
+        qt, kt, vt = snxt()[:3]
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+
+    def sdpa_bwd():
+        qt, kt, vt, o, dot = snxt()
+        torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
+
+    lib = {"fwd": device_ms(torch, sdpa_fwd, iters=10, warmup=2)[0],
+           "bwd": device_ms(torch, sdpa_bwd, iters=10, warmup=2)[0]}
+    dense = sp._dense_mask(layout, block, "cpu")
+    keys = mask.sum(-1).cpu()
+    # visible pairs: a query row sees its layout row's keys that its
+    # batch row keeps
+    pairs = int(sum((dense[:, :, :int(n)].sum() for n in keys), 0))
+    q0 = layers[0][0]
+    out = {}
+    for which in ("fwd", "dq", "dkv"):
+        ms = device_ms(torch, call(which, False), iters=20, warmup=3)[0]
+        plain = cuda_ms(call(which, True), iters=2, warmup=1)
+        nbytes, flops = sparse_bytes_flops(q0, pairs / b, which)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / BF16_FLOPS
+        library = lib["fwd" if which == "fwd" else "bwd"]
+        rep = reports[SPARSE_BLOCK16_ROWS[which]]
+        rep.update(ms=ms, plain_ms=plain, library_ms=library,
+                   bound_ms=max(t_bytes, t_ops) * 1e3,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   max_abs_err=errs[which])
+        out[which] = ms
+        print(f"sparse_attention {which} (FMA, block 16) timing bf16 B={b} "
+              f"S={s} H={h} D={d} {BERT_SPARSE['mode']} non-causal, key "
+              f"mask ({pairs} visible pairs, {pairs / (b * h * s * s):.4f} "
+              f"of the square; device time): kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms (host-paced), SDPA with the expanded mask "
+              f"{'fwd' if which == 'fwd' else 'bwd (dq+dk+dv)'} "
+              f"{library:.4f} ms, bound {rep['bound_ms']:.4f} ms ({nbytes} "
+              f"bytes / 3.35 TB/s, {flops:.0f} flops / 989 TFLOP/s), max "
+              f"|err| {errs[which]:.3g}")
+    del layers, sdpa_in
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_bert_fp32(torch, seq, micro, sparse=None):
+    """fp32 on the card, bert-large width at 2 layers, GAS 2, padded rows:
+    the kernels' path (flash #3-#5 on the FMA route, or with ``sparse``
+    #8-#10 on it) against the plain path (``attention_impl="xla"``, or the
+    sparse block's ``impl: "xla"``), both with LAMB: the first step's
+    accumulated gradients leaf by leaf to 1e-4 of the leaf's norm, the 3
+    losses to 1e-5 relative, as :func:`check_training_fp32` holds the GPT."""
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models import init_bert_params, make_bert
+    from deepspeed_tpu_torch.runtime.utils import global_norm
+
+    counters = training_counters()
+    counter = counters["sparse_attention_fwd" if sparse else
+                       "flash_attention_fwd"]
+    gas = 2
+    runs = {}
+    sd = None
+    for label, impl in (("kernels", "auto"), ("plain", "xla")):
+        conf = {"train_micro_batch_size_per_gpu": micro,
+                "gradient_accumulation_steps": gas,
+                "optimizer": {"type": "Lamb", "params": {"lr": 2e-3}},
+                "zero_optimization": {"stage": 2}}
+        over = {}
+        if sparse:
+            conf["sparse_attention"] = dict(sparse, impl=impl)
+        else:
+            over["attention_impl"] = impl
+        model, cfg = make_bert("bert-large", dropout_rate=0.0, num_layers=2,
+                               dtype=torch.float32,
+                               max_seq_len=max(seq, 128), **over)
+        if sd is None:          # one set of weights for both paths
+            sd = init_bert_params(cfg, seed=1)
+        engine, *_ = dtt.initialize(model=model, params=sd, config=conf)
+        batches = [bert_batches(torch, cfg, gas, micro, seq, padded=True)]
+        batches += [{k: v.roll(i, dims=1) for k, v in batches[0].items()}
+                    for i in (1, 2)]
+        before = counter.launches
+        first = []
+        for j in range(gas):
+            first.append(engine.forward({k: v[j] for k, v in
+                                         batches[0].items()}))
+            engine.backward(first[-1])
+        grads = [g.clone() for g in engine.state.grad_acc]
+        engine.step()
+        losses = [float(torch.stack(first).mean())]
+        losses += [float(engine.train_batch(b)) for b in batches[1:]]
+        launched = counter.launches - before
+        if (launched > 0) != (label == "kernels"):
+            fail(f"BERT fp32 comparison: the {label} run launched the "
+                 f"attention forward {launched} times")
+        runs[label] = (grads, losses)
+        names = engine.param_names
+        del engine, model
+        torch.cuda.empty_cache()
+    (gk, lk), (gp, lp) = runs["kernels"], runs["plain"]
+    rel = {n: float(global_norm([a - b])) / float(global_norm([b]))
+           for n, a, b in zip(names, gk, gp)}
+    worst = max(rel, key=rel.get)
+    attn = {n: f"{e:.3g}" for n, e in rel.items()
+            if "c_attn" in n or "c_proj" in n}
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    layout = f", {sparse['mode']} block {sparse['block']}" if sparse else ""
+    print(f"BERT fp32 bert-large width 2 layers, micro {micro} x {seq} "
+          f"padded, GAS 2{layout}: kernels vs plain path: first-step grad "
+          f"|diff|/|grad| per leaf: worst {worst} {rel[worst]:.3g} (limit "
+          f"1e-4); attention leaves {json.dumps(attn)}; losses {lk} vs "
+          f"{lp}, max rel diff {loss_rel:.3g} (limit 1e-5)")
+    if not rel[worst] <= 1e-4 or not loss_rel <= 1e-5:
+        fail(f"BERT fp32{layout}: the kernels' path disagrees with the "
+             f"plain path")
+
+
+def check_bert(torch, card, reports):
+    """Phase 8: BERT-large pretraining at bench_bert's two configurations,
+    then seq 512 with BERT_SPARSE (#8-#10 on the FMA route at block 16;
+    the step's sparse/dense ratio and the kernels at this shape), then
+    the fp32 comparisons. Fills the kernels line's BERT rows' launches
+    (each run's, every count set to 0 just before it)."""
+    from deepspeed_tpu_torch.models import BERT_CONFIGS, init_bert_params
+
+    t0 = time.perf_counter()
+    # one draw for every run, at bert-large's 512 positions
+    sd = init_bert_params(BERT_CONFIGS["bert-large"], seed=0)
+    print(f"BERT: bert-large weights drawn in {time.perf_counter() - t0:.1f}"
+          f" s")
+    recs = {}
+    for seq, micro in BERT_RUNS:
+        rec = bert_run(torch, card, seq, micro, sd)
+        recs[f"bert{seq}"] = rec
+        for name in FLASH_NAMES:
+            reports[f"{name}_bert{seq}"]["launches"] = rec["launches"][name]
+    seq, micro = BERT_RUNS[1]
+    rec = bert_run(torch, card, seq, micro, sd, sparse=BERT_SPARSE)
+    del sd
+    recs["sparse512"] = rec
+    for key, name in zip(("fwd", "dq", "dkv"),
+                         ("sparse_attention_fwd",) + SPARSE_FMA_NAMES):
+        reports[SPARSE_BLOCK16_ROWS[key]]["launches"] = rec["launches"][name]
+    ratio = rec["samples_per_s"] / recs["bert512"]["samples_per_s"]
+    t1 = time.perf_counter()
+    kern = time_sparse_block16(torch, reports)
+    t2 = time.perf_counter()
+    print(f"sparse BERT seq 512 ({card}): step "
+          f"{rec['step_ms_median']:.2f} ms against the dense step "
+          f"{recs['bert512']['step_ms_median']:.2f}: sparse/dense "
+          f"samples/s {ratio:.4f}; FMA kernels per call (ms) "
+          f"{json.dumps(kern)}")
+    check_bert_fp32(torch, 128, 8)
+    check_bert_fp32(torch, 512, 2, sparse=BERT_SPARSE)
+    print(f"BERT phase times: the sparse kernels' holds and timings "
+          f"{t2 - t1:.1f} s, the fp32 comparisons "
+          f"{time.perf_counter() - t2:.1f} s")
+    summary = {k: {f: r[f] for f in (
+        "samples_per_s", "step_ms_median", "mfu_vs_989_tflops_dense_bf16",
+        "peak_memory_gb", "device_idle_share", "kernels_per_step",
+        "lamb_device_ms", "lamb_kernels", "lamb_share_of_busy",
+        "setup_s", "steps_s", "profile_s")}
+        for k, r in recs.items()}
+    print(f"BERT summary ({card}; phase 8 took "
+          f"{time.perf_counter() - t0:.1f} s): {json.dumps(summary)}")
+    return recs
+
+
 def main() -> int:
     import torch
 
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs only on a "
               "GPU", file=sys.stderr)
@@ -4485,10 +5203,10 @@ def main() -> int:
             and args[0] == "--only" else None)
     if args and (not only
                  or not only <= {"kernels", "sparse", "chunked", "spec",
-                                 "telemetry"}
+                                 "telemetry", "bert"}
                  or ("kernels" in only and len(only) > 1)):
         fail(f"unknown arguments {args} (none, --only kernels, or --only "
-             f"with sparse, chunked, spec, telemetry or several, "
+             f"with sparse, chunked, spec, telemetry, bert or several, "
              f"comma-separated)")
     part = only is not None and "kernels" not in only
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4538,6 +5256,8 @@ def main() -> int:
                               reports["paged_decode_attention_verify"])
         if "telemetry" in only:
             check_telemetry(torch, card)
+        if "bert" in only:
+            check_bert(torch, card, reports)
         return 0
     check_fused_ln(torch, {
         ("bfloat16", "fwd"): reports["fused_ln_matmul_fwd_tc"],
@@ -4623,6 +5343,12 @@ def main() -> int:
     for name in FLASH_FMA_NAMES:
         reports[name + "_dropout"]["launches"] = fp32[name]
 
+    # 8. BERT-large pretraining (bench_bert's configurations, then sparse
+    # BERT at block 16), and its fp32 comparisons
+    check_bert(torch, card, reports)
+
+    print(f"chip_smoke: the whole run took {time.perf_counter() - t_run:.1f}"
+          f" s ({card})")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -6,9 +6,10 @@ torch and numpy, never jax, flax or deepspeed_tpu. Its entry points run on
 the CUDA device unless the caller passes ``device="cpu"``.
 
 Ported so far: single-device training (``initialize`` -> ``train_batch``)
-with the flash-attention and fused-Adam kernels, block-sparse attention
-(the ``sparse_attention`` block) with its own kernels, the GPT's fused
-LayerNorm + projection sites (``GPTConfig.fused_ln``) with theirs, and
+of the GPT-2 and BERT families with the flash-attention and fused-Adam
+kernels, Adam or LAMB, block-sparse attention (the ``sparse_attention``
+block) with its own kernels, the GPT's fused LayerNorm + projection sites
+(``GPTConfig.fused_ln``) with theirs, ``DeepSpeedTransformerLayer``, and
 continuous-batching GPT serving (``init_serving``) over the inference engine
 (``init_inference``) with the paged decode-attention kernel, speculative
 decoding, serving resilience (deadlines, shedding, recovery, the
@@ -34,9 +35,10 @@ def initialize(model=None, params: Optional[Dict[str, Any]] = None,
 
     Two entry styles, as in the JAX package:
     - module: ``model`` is an ``nn.Module`` whose forward returns the loss
-      (or a dict holding ``"loss"``), e.g. the port's GPT; ``params`` an
-      optional ``state_dict`` to load first. The module's parameters become
-      the fp32 masters, on ``device``, and are trained in place;
+      (or a dict holding ``"loss"``), e.g. the port's GPT or BERT;
+      ``params`` an optional ``state_dict`` to load first. The module's
+      parameters become the fp32 masters, on ``device``, and are trained
+      in place;
     - functional: ``loss_fn(params, batch, rng)`` with ``params`` a dict
       of tensors.
 
@@ -83,10 +85,10 @@ def initialize(model=None, params: Optional[Dict[str, Any]] = None,
 
 def _sparse_attention_surgery(model, loss_fn, block):
     """Config-driven sparse attention (``deepspeed_tpu/__init__.py:61-88``):
-    an in-tree model whose config has a ``sparse_attention`` field gets the
-    block in place (the same parameter tensors; nothing happens when its
-    config already carries this block). A custom model or a ``loss_fn``
-    entry cannot be rerouted: a warning says so."""
+    an in-tree model whose config has a ``sparse_attention`` field (the GPT
+    or BERT) gets the block in place (the same parameter tensors; nothing
+    happens when its config already carries this block). A custom model or
+    a ``loss_fn`` entry cannot be rerouted: a warning says so."""
     if model is not None and loss_fn is None and hasattr(model, "cfg") \
             and hasattr(model.cfg, "sparse_attention"):
         if model.cfg.sparse_attention != block:

@@ -818,11 +818,11 @@ _TRAINING_KEYS = frozenset({
 class DeepSpeedConfig:
     """Parsed, validated training configuration (the port of
     ``DeepSpeedTPUConfig``): the batch triple, the optimizer (Adam/AdamW,
-    ``fused_update``), the scheduler, bf16/fp16, the gradient-accumulation
-    dtype, clipping, prescaling, ``steps_per_print``, the
-    ``zero_optimization`` block and the ``sparse_attention`` block (kept
-    as given in ``.sparse_attention``; ``initialize`` routes the model's
-    attention through it). Every other training block of the JAX
+    ``fused_update``; LAMB), the scheduler, bf16/fp16, the
+    gradient-accumulation dtype, clipping, prescaling, ``steps_per_print``,
+    the ``zero_optimization`` block and the ``sparse_attention`` block
+    (kept as given in ``.sparse_attention``; ``initialize`` routes the
+    model's attention through it). Every other training block of the JAX
     schema raises ``ConfigError`` naming it with "not yet ported" unless it
     is off; an unknown key raises. ``world_size`` is the data-parallel
     degree the batch triple is solved for (one process so far)."""
@@ -869,7 +869,8 @@ class DeepSpeedConfig:
             name = str(opt[C.OPTIMIZER_TYPE]).lower()
             if name in C.NOT_YET_PORTED_OPTIMIZERS:
                 raise not_yet_ported(f"optimizer type {name!r}")
-            if name not in (C.ADAM_OPTIMIZER, C.ADAMW_OPTIMIZER):
+            if name not in (C.ADAM_OPTIMIZER, C.ADAMW_OPTIMIZER,
+                            C.LAMB_OPTIMIZER):
                 raise ConfigError(f"unknown optimizer '{name}'")
             self.optimizer_name = name
             self.optimizer_params = dict(opt.get(C.OPTIMIZER_PARAMS) or {})

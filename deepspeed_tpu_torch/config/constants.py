@@ -25,9 +25,9 @@ OPTIMIZER_FUSED_UPDATE_DEFAULT = False
 MAX_GRAD_NORM = "max_grad_norm"
 ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
+LAMB_OPTIMIZER = "lamb"
 # Optimizers of the JAX package not ported yet.
-NOT_YET_PORTED_OPTIMIZERS = ("lamb", "onebitadam", "onebitlamb", "cpuadam",
-                             "sgd")
+NOT_YET_PORTED_OPTIMIZERS = ("onebitadam", "onebitlamb", "cpuadam", "sgd")
 
 SCHEDULER = "scheduler"
 SCHEDULER_TYPE = "type"

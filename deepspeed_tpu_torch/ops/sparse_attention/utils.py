@@ -4,11 +4,12 @@
 presets).
 
 The in-tree model families route attention by config
-(``GPTConfig.sparse_attention``), so "replacing self-attention" swaps the
-config the model and its blocks carry: no weight surgery, since a sparse
-layout masks the same dense q/k/v projections, and the module keeps its
-parameter tensors. ``deepspeed_tpu_torch.initialize`` applies it when the
-training config carries a ``sparse_attention`` block.
+(``GPTConfig.sparse_attention``, ``BertConfig.sparse_attention``), so
+"replacing self-attention" swaps the config the model and its blocks carry:
+no weight surgery, since a sparse layout masks the same dense q/k/v
+projections, and the module keeps its parameter tensors.
+``deepspeed_tpu_torch.initialize`` applies it when the training config
+carries a ``sparse_attention`` block.
 """
 
 import dataclasses
@@ -77,18 +78,19 @@ class SparseAttentionUtils:
     @staticmethod
     def replace_model_self_attention_with_sparse_self_attention(
             model, sparse_attention_config: Dict[str, Any]):
-        """Route an in-tree family's attention through the sparse executor,
-        in place: the model and every submodule that carries the model's
+        """Route an in-tree family's attention (the GPT's causal blocks,
+        BERT's bidirectional layers) through the sparse executor, in
+        place: the model and every submodule that carries the model's
         config get a copy of it with ``sparse_attention`` set. The
         parameter tensors stay the same objects. Returns the model."""
         cfg = getattr(model, "cfg", None)
         if cfg is None or not hasattr(cfg, "sparse_attention"):
             raise ValueError(
                 f"sparse attention surgery supports the in-tree model "
-                f"families (GPT with a `sparse_attention` config field); "
-                f"got {type(model).__name__} — route attention through "
-                f"ops.sparse_attention.SparseSelfAttention in your model "
-                f"instead")
+                f"families (GPT and BERT, with a `sparse_attention` config "
+                f"field); got {type(model).__name__} — route attention "
+                f"through ops.sparse_attention.SparseSelfAttention in your "
+                f"model instead")
         block = dict(sparse_attention_config)
         sparsity_config_from_dict(block, cfg.num_heads)     # check the keys
         new_cfg = dataclasses.replace(cfg, sparse_attention=block)

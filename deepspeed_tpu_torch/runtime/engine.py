@@ -1,8 +1,9 @@
 """The training engine.
 
 The port of ``deepspeed_tpu/runtime/engine.py`` for one process on one
-device: fp32 master params, the Adam state, a gradient accumulator in
-``data_types.grad_accum_dtype`` and the loss-scale state.
+device: fp32 master params, the optimizer state (Adam's or LAMB's), a
+gradient accumulator in ``data_types.grad_accum_dtype`` and the
+loss-scale state.
 
 - ``train_batch(batches)`` takes batches with a leading
   gradient-accumulation dim. It casts the masters to the compute dtype
@@ -14,19 +15,19 @@ device: fp32 master params, the Adam state, a gradient accumulator in
 - ``forward``/``backward``/``step`` are the reference API over the same
   micro-step and apply.
 
-The apply: unscale into fp32 gradient buffers -> overflow check (fp16
-only; one read of a flag by the host) -> global norm -> clip -> the Adam
-update (``FusedAdam.update``, or the one multi-tensor kernel with
-``optimizer.fused_update``) -> skip on overflow -> loss-scale update ->
-zero the accumulator. The masters are the module's parameter tensors and
-are updated in place. With ``optimizer.fused_update`` and a compute dtype
-below fp32, the kernel also writes the new masters in that dtype, into
-buffers the engine keeps: the next step's forward reads those instead of
-casting the masters again.
+The apply: unscale into fp32 gradient buffers -> overflow check (fp16 only;
+one read of a flag by the host) -> global norm -> clip -> the update
+(``FusedAdam.update`` or ``FusedLamb.update``, or for Adam the one
+multi-tensor kernel with ``optimizer.fused_update``) -> skip on overflow ->
+loss-scale update -> zero the accumulator. The masters are the module's
+parameter tensors and are updated in place. With ``optimizer.fused_update``
+and a compute dtype below fp32, the kernel also writes the new masters in
+that dtype, into buffers the engine keeps: the next step's forward reads
+those instead of casting the masters again.
 """
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -37,6 +38,7 @@ from deepspeed_tpu_torch.config.config import (ConfigError, DeepSpeedConfig,
 from deepspeed_tpu_torch.ops.adam.fused_adam import (AdamState, FusedAdam,
                                                      FusedAdamW)
 from deepspeed_tpu_torch.ops.adam.fused_update import fused_adam_apply
+from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb, LambState
 from deepspeed_tpu_torch.runtime.lr_schedules import build_lr_schedule
 from deepspeed_tpu_torch.runtime.precision import (LossScaleState,
                                                    PrecisionPolicy,
@@ -46,6 +48,11 @@ from deepspeed_tpu_torch.runtime.utils import (clip_coef, global_norm,
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 
+# The optimizers the engine builds, and their states.
+Optimizer = Union[FusedAdam, FusedLamb]
+OptState = Union[AdamState, LambState]
+
+
 @dataclass
 class TrainState:
     """Everything that evolves during training."""
@@ -53,19 +60,22 @@ class TrainState:
     step: int                      # optimizer steps taken (not skipped)
     micro_step: int                # micro-batches seen
     params: List[torch.Tensor]     # fp32 masters
-    opt_state: AdamState
+    opt_state: OptState
     grad_acc: List[torch.Tensor]   # in grad_accum_dtype
     loss_scale: LossScaleState
     skipped_steps: int             # overflow-skipped steps
 
 
-def configure_optimizer(config: DeepSpeedConfig) -> FusedAdam:
+def configure_optimizer(config: DeepSpeedConfig) -> Optimizer:
     """The config's optimizer: Adam (``adam_w_mode`` defaults to True, as
-    in the JAX package) or AdamW; Adam with default params when the config
-    has no optimizer block."""
+    in the JAX package), AdamW or LAMB; Adam with default params when the
+    config has no optimizer block. A param the class does not take raises
+    TypeError, as in the JAX package."""
     name = config.optimizer_name or C.ADAM_OPTIMIZER
     params = dict(config.optimizer_params)
     params.pop(C.MAX_GRAD_NORM, None)   # the engine owns clipping
+    if name == C.LAMB_OPTIMIZER:
+        return FusedLamb(**params)
     params.pop("torch_adam", None)
     if name == C.ADAM_OPTIMIZER:
         return FusedAdam(adamw_mode=params.pop("adam_w_mode", True),
@@ -85,7 +95,7 @@ class DeepSpeedEngine:
 
     def __init__(self, loss_fn: Callable, params: Dict[str, torch.Tensor],
                  config: DeepSpeedConfig, device: torch.device,
-                 optimizer: Optional[FusedAdam] = None, lr_scheduler=None,
+                 optimizer: Optional[Optimizer] = None, lr_scheduler=None,
                  module: Optional[torch.nn.Module] = None,
                  rng_seed: int = 0):
         if config.world_size != 1:

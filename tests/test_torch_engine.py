@@ -331,7 +331,7 @@ def test_blocks_in_their_off_state_are_accepted(key, value):
     {"zero_optimization": {"stage": 2, "cpu_offload": True}},
     {"zero_optimization": {"stage": 2,
                            "zeropp": {"quantized_weights": "int8"}}},
-    {"optimizer": {"type": "Lamb", "params": {}}},
+    {"optimizer": {"type": "OneBitLamb", "params": {}}},
     {"optimizer": {"type": "OneBitAdam", "params": {}}},
     {"optimizer": {"type": "cpuadam", "params": {}}},
 ])

@@ -1,8 +1,9 @@
 """The port (deepspeed_tpu_torch) and chip_smoke.py stand alone: neither
 imports jax, flax or the JAX package deepspeed_tpu, whether serving (the
 bucketed path, with telemetry on too, and the chunked path with the int8
-pool and the prefix cache) or training (``initialize`` and one ``train_batch`` on the CPU,
-dense and with a ``sparse_attention`` block)."""
+pool and the prefix cache) or training (``initialize`` and one
+``train_batch`` on the CPU: the GPT dense and with a ``sparse_attention``
+block, and BERT with LAMB)."""
 
 import ast
 import os
@@ -85,6 +86,20 @@ engine, _opt, _loader, _sched = deepspeed_tpu_torch.initialize(
                                  "attention": "unidirectional"}})
 loss = engine.train_batch({"input_ids": torch.randint(0, 512, (2, 1, 64))})
 assert torch.isfinite(loss) and model.cfg.sparse_attention["block"] == 16
+
+from deepspeed_tpu_torch.models import init_bert_params, make_bert
+model, cfg = make_bert("tiny", dtype=torch.float32)
+engine, _opt, _loader, _sched = deepspeed_tpu_torch.initialize(
+    model=model, params=init_bert_params(cfg, seed=0), device="cpu",
+    config={"train_micro_batch_size_per_gpu": 2,
+            "gradient_accumulation_steps": 1,
+            "optimizer": {"type": "Lamb", "params": {"lr": 2e-3}},
+            "zero_optimization": {"stage": 2}})
+ids = torch.randint(0, 512, (1, 2, 16))
+loss = engine.train_batch({"input_ids": ids,
+                           "attention_mask": torch.ones_like(ids),
+                           "labels": ids})
+assert torch.isfinite(loss) and type(_opt).__name__ == "FusedLamb"
 print(sorted(m for m in set(sys.modules) - before
              if m.split(".")[0] in ("jax", "jaxlib", "flax")
              or m == "deepspeed_tpu" or m.startswith("deepspeed_tpu.")))
