@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only spec      # the build, then phase 3b only
     python3 chip_smoke.py --only telemetry # the build, then phase 3c only
     python3 chip_smoke.py --only bert      # the build, then phase 8 only
+    python3 chip_smoke.py --only ckpt      # the build, then phase 9 only
     python3 chip_smoke.py --only sparse,chunked
 
 1. Device: requires CUDA, prints the card's name and power limit, builds
@@ -230,6 +231,26 @@
    16, 64] beside SDPA with the expanded mask: the ``_block16`` rows),
    and the fp32 comparisons at bert-large width and 2 layers, dense
    (flash on FMAs) and sparse, against the plain path.
+9. Checkpointing, the dataloader and preemption-safe training (``--only
+   ckpt`` runs it alone; :func:`check_ckpt`): full-width, full-depth
+   GPT-2 at phase 7's configuration fed by ``initialize(training_data=
+   ...)`` over a seeded token dataset through ``RepeatingLoader`` and
+   ``PrefetchLoader``: (a) 6 uninterrupted steps with a sync save after
+   step 3; (b) a fresh engine loads it (first without the optimizer
+   states: masters equal, moments zero) and runs steps 4-6 bit-equal to
+   (a) and 3 more under ``resilience`` at interval 1, ``save()`` timed on
+   the step path, the writes off it, the last checkpoint corrupted and
+   skipped by the restore; (c) ``Supervisor`` over this script's
+   ``--ckpt-child`` with ``{"preempt_at_step": 3, "ckpt_write_errors":
+   1}``: one restart, steps 1-6 bit-equal to (a), the resumed child's
+   #3-#5 at 96 launches a step and #11 at 1, no plain version; (d)
+   ``init_serving(checkpoint=...)`` in bf16 gives the live masters'
+   tokens with kernel #1 launching; (e) ``remat`` at phase 4's
+   configuration: 3 steps bit-equal to ``remat=False``, #3 at 192
+   launches a step, #4/#5 at 96, peak memory and step time of both; (f)
+   LAMB at bert-large width and 2 layers: a save/load round trip, the
+   next loss bit-equal. The kernels line's rows and launch counts are
+   the earlier phases'.
 
 Any failure exits non-zero. The last stdout line is
 ``{"ok": true, "device": {...}}``; before it come the card line and a
@@ -5182,6 +5203,492 @@ def check_bert(torch, card, reports):
     return recs
 
 
+# ---------------------------------------------------------------------------
+# 9. checkpointing, the dataloader and preemption-safe training
+# ---------------------------------------------------------------------------
+
+CKPT_STEPS, CKPT_AT = 6, 3         # steps of (a); the sync save's step
+CKPT_EXTRA = 3                     # (b)'s steps past (a)'s, saves reused
+CKPT_SAMPLES = 1000                # the synthetic token dataset
+CKPT_FAULT_PLAN = {"preempt_at_step": 3, "ckpt_write_errors": 1}
+CKPT_CONFIG = dict(TRAIN_CONFIG, steps_per_print=1000)
+CKPT_DIR = os.path.join(HERE, "build", "ckpt_smoke")   # .gitignore lists it
+
+
+def ckpt_dataset(vocab):
+    """A seeded synthetic token dataset at phase 7's sequence length, drawn
+    in bulk."""
+    import numpy as np
+
+    ids = np.random.default_rng(0).integers(
+        0, vocab, (CKPT_SAMPLES, TRAIN_SEQ), dtype=np.int32)
+    return [{"input_ids": row} for row in ids]
+
+
+def ckpt_engine(torch, sd, resilience=None, remat=False, dropout=True):
+    """Phase 7's engine (make_gpt("gpt2") at its dropout 0.1, bench_gpt2's
+    configuration with fused Adam, a bf16 accumulator) fed by
+    ``initialize(training_data=...)`` over ``ckpt_dataset``;
+    ``resilience``: the config's block. Returns (engine, model, loader)."""
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models import make_gpt
+
+    over = {} if dropout else {"dropout_rate": 0.0}
+    model, cfg = make_gpt("gpt2", remat=remat, **over)
+    config = dict(CKPT_CONFIG)
+    if resilience is not None:
+        config["resilience"] = resilience
+    engine, _opt, loader, _sched = dtt.initialize(
+        model=model, params=sd, config=config,
+        training_data=ckpt_dataset(cfg.vocab_size))
+    return engine, model, loader
+
+
+def ckpt_stream(torch, engine, loader, state=None):
+    """Each step's [GAS, micro, S] batch from ``RepeatingLoader`` (resumed
+    at ``state``) through ``PrefetchLoader`` over ``engine.put_batch``,
+    with the loader's position after that batch: the prefetch reads ahead
+    of the steps, so the position a checkpoint keeps is the one of the
+    batches the steps consumed."""
+    from deepspeed_tpu_torch.runtime.dataloader import (PrefetchLoader,
+                                                        RepeatingLoader)
+
+    gas = CKPT_CONFIG["gradient_accumulation_steps"]
+    rep = RepeatingLoader(loader)
+    if state:
+        rep.load_state_dict(state)
+
+    def groups():
+        while True:
+            micro = [next(rep) for _ in range(gas)]
+            yield rep.state_dict(), {"input_ids": torch.stack(
+                [m["input_ids"] for m in micro])}
+
+    return iter(PrefetchLoader(groups(), lambda sb: (
+        sb[0], engine.put_batch(sb[1], leading_gas_dim=True))))
+
+
+def ckpt_steps(torch, engine, stream, n, consumed=None):
+    """``n`` steps: (loss reprs, step ms); ``consumed`` takes the loader
+    position of each step's batch."""
+    losses, step_ms = [], []
+    for _ in range(n):
+        pos, batch = next(stream)
+        if consumed is not None:
+            # before the step: its checkpoint is taken inside train_batch
+            consumed.update(pos)
+        t0 = time.perf_counter()
+        loss = float(engine.train_batch(batch))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(repr(loss))
+    return losses, step_ms
+
+
+def dir_gb(path):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _d, files in os.walk(path) for f in files) / 1e9
+
+
+def ckpt_per_step(cfg, remat=False):
+    """Launches a step of #3-#5 and #11 on phase 7's path; under remat
+    the forward (#3) runs again in the backward."""
+    per_layer = cfg.num_layers * CKPT_CONFIG["gradient_accumulation_steps"]
+    per_step = {name: 0 for name in training_counters()}
+    per_step.update({name: per_layer for name in FLASH_NAMES})
+    per_step["fused_adam"] = 1
+    if remat:
+        per_step["flash_attention_fwd_tc"] = 2 * per_layer
+    return per_step
+
+
+def check_launches(counts, per_step, steps, what):
+    for name, n in per_step.items():
+        if counts[name] != steps * n:
+            fail(f"{what}: {name} launched {counts[name]} times in {steps} "
+                 f"steps, expected {steps * n}")
+
+
+def ckpt_child(torch, ckpt_dir, out):
+    """The supervised child of phase 9 (c): phase 7's engine with
+    ``resilience`` at interval 1, ``auto_resume``, the loader's position
+    as its client state, steps to CKPT_STEPS (while the fault plan is
+    armed, each step's write drained before the next, so the injected
+    preemption after step 3 tears that step's write only). Each loss goes to ``out`` as a line; the
+    incarnation that ends writes its launch counts, plain calls and the
+    step it resumed from."""
+    from deepspeed_tpu_torch.models import GPT_CONFIGS, init_gpt_params
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.resilience import RESUME_ATTEMPT_ENV
+
+    missing = [s for s in {src for _n, src, _r in KERNELS}
+               if not os.path.exists(build.library_path(s))]
+    if missing:
+        fail(f"supervised child: kernels {sorted(missing)} are not built; "
+             f"a child never rebuilds")
+    t0 = time.perf_counter()
+    sd = init_gpt_params(GPT_CONFIGS["gpt2"], seed=0)
+    engine, model, loader = ckpt_engine(torch, sd, resilience={
+        "enabled": True, "checkpoint": {"dir": ckpt_dir, "interval": 1,
+                                        "keep_last": 2,
+                                        "backoff_seconds": 0.05}})
+    del sd
+    consumed = {}
+    engine.register_client_state_fn(lambda: {"loader": dict(consumed)})
+    t1 = time.perf_counter()
+    path, client = engine.auto_resume()
+    restore_s = time.perf_counter() - t1
+    start = engine.global_steps
+    stream = ckpt_stream(torch, engine, loader,
+                         client.get("loader") if client else None)
+    counters = training_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    with open(out, "a", buffering=1) as f, PlainCalls() as plain:
+        for step in range(start, CKPT_STEPS):
+            losses, step_ms = ckpt_steps(torch, engine, stream, 1, consumed)
+            f.write(json.dumps({"step": step + 1, "loss": losses[0],
+                                "ms": step_ms[0]}) + "\n")
+            if engine.fault_plan is not None:
+                engine.ckpt_manager.wait()
+    mgr = engine.ckpt_manager
+    mgr.close()
+    summary = {"attempt": int(os.environ.get(RESUME_ATTEMPT_ENV, "0")),
+               "resumed_from": path, "start": start, "restore_s": restore_s,
+               "setup_s": t1 - t0,
+               "launches": {n: fn.launches for n, fn in counters.items()},
+               "plain": plain.calls, "stats": mgr.stats}
+    with open(out, "a") as f:
+        f.write(json.dumps({"summary": summary}) + "\n")
+    return 0
+
+
+def check_ckpt(torch, card):
+    """Phase 9 (``--only ckpt`` runs it alone), on full-width, full-depth
+    GPT-2 at phase 7's configuration, data from ``initialize(training_data
+    =...)`` through ``RepeatingLoader`` and ``PrefetchLoader``:
+    (a) CKPT_STEPS uninterrupted steps, with a sync save after step 3;
+    (b) a fresh engine loads it without the optimizer states (masters
+    equal, moments zero), then whole, and runs steps 4-6 bit-equal to (a)
+    and CKPT_EXTRA more under ``resilience`` at interval 1 (save() timed
+    on the step path), the last step's checkpoint corrupted (the restore
+    falls back past it), beside (d) serving from the checkpoint; (c) ``Supervisor`` over a child preempted after step 3
+    with one injected write error: one restart, steps 1-6 bit-equal to
+    (a), the resumed child's #3-#5 at 96 a step and #11 at 1, no plain
+    version; (e) ``remat`` at phase 4's configuration: 3 steps bit-equal
+    to ``remat=False``, #3 at 192 a step; (f) LAMB at bert-large width, 2
+    layers: a save/load round trip, the next loss bit-equal."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.models import GPT_CONFIGS, init_gpt_params
+    from deepspeed_tpu_torch.resilience import (Supervisor, find_restorable,
+                                                list_checkpoints)
+    from deepspeed_tpu_torch.resilience.checkpoint import (METRICS_FILE,
+                                                           MetricsJSONL)
+    from deepspeed_tpu_torch.runtime.checkpointing import consolidate_to_fp32
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    rec = {"card": card}
+    sd = init_gpt_params(GPT_CONFIGS["gpt2"], seed=0)
+
+    # (a) uninterrupted, with the sync save after step 3
+    sync_dir = os.path.join(CKPT_DIR, "sync")
+    engine, model, loader = ckpt_engine(torch, sd)
+    stream = ckpt_stream(torch, engine, loader)
+    consumed = {}
+    want, a_ms = ckpt_steps(torch, engine, stream, CKPT_AT, consumed)
+    t0 = time.perf_counter()
+    engine.save_checkpoint(sync_dir, client_state={"loader": dict(consumed)})
+    rec["sync_save_s"] = time.perf_counter() - t0
+    rec["sync_save_gb"] = dir_gb(sync_dir)
+    more, ms = ckpt_steps(torch, engine, stream, CKPT_STEPS - CKPT_AT)
+    want += more
+    a_ms += ms
+    rec["losses"], rec["uninterrupted_step_ms"] = want, a_ms
+    if not all(np.isfinite([float(x) for x in want])):
+        fail(f"phase 9 (a): losses not finite: {want}")
+    del engine, model, stream
+    torch.cuda.empty_cache()
+
+    # (b) a fresh engine: the load without optimizer states, then whole
+    auto_dir = os.path.join(CKPT_DIR, "auto")
+    last = CKPT_STEPS + CKPT_EXTRA
+    engine, model, loader = ckpt_engine(torch, sd, resilience={
+        "enabled": True, "checkpoint": {"dir": auto_dir, "interval": 1,
+                                        "keep_last": 2},
+        "fault_injection": {"corrupt_shard_at_step": last}})
+    engine.load_checkpoint(sync_dir, load_optimizer_states=False)
+    saved = consolidate_to_fp32(sync_dir)
+    live = {k: v.detach().float().cpu().numpy()
+            for k, v in model.state_dict().items()}
+    if set(saved) != set(live) or not all(
+            np.array_equal(saved[k], live[k]) for k in saved):
+        fail("phase 9 (b): load_optimizer_states=False did not restore "
+             "the masters")
+    st = engine.state
+    if st.opt_state.step != 0 or any(bool(t.any()) for t in (
+            st.opt_state.exp_avg + st.opt_state.exp_avg_sq)):
+        fail("phase 9 (b): load_optimizer_states=False kept moments")
+    t0 = time.perf_counter()
+    _path, client = engine.load_checkpoint(sync_dir)
+    torch.cuda.synchronize()
+    rec["sync_load_s"] = time.perf_counter() - t0
+    if engine.global_steps != CKPT_AT:
+        fail(f"phase 9 (b): restored global step {engine.global_steps}")
+
+    # (d) serving from the checkpoint beside the live masters
+    rec["serving"] = ckpt_serving(torch, sync_dir, {
+        k: v.detach().clone() for k, v in model.state_dict().items()})
+
+    mgr = engine.ckpt_manager
+    save_ms = []
+    orig_save = mgr.save
+
+    def timed_save(*a, **k):
+        t = time.perf_counter()
+        orig_save(*a, **k)
+        save_ms.append((time.perf_counter() - t) * 1e3)
+
+    mgr.save = timed_save
+    stream = ckpt_stream(torch, engine, loader, client["loader"])
+    got, b_ms = ckpt_steps(torch, engine, stream, last - CKPT_AT)
+    t0 = time.perf_counter()
+    mgr.wait()
+    rec["drain_after_steps_s"] = time.perf_counter() - t0
+    if got[:CKPT_STEPS - CKPT_AT] != want[CKPT_AT:]:
+        fail(f"phase 9 (b): steps 4-6 after the load {got} differ from "
+             f"the uninterrupted {want[CKPT_AT:]}")
+    rows = MetricsJSONL(os.path.join(auto_dir, METRICS_FILE)).read()
+    committed = [s for s, _ in list_checkpoints(auto_dir)]
+    found = find_restorable(auto_dir)
+    if last not in committed or found is None or \
+            found[1]["step"] != max(s for s in committed if s < last):
+        fail(f"phase 9 (b): the corrupt step-{last} checkpoint did "
+             f"not fall back: committed {committed}, restorable "
+             f"{found and found[1]['step']}")
+    rec["resilience"] = {
+        "save_ms_on_step_path": save_ms,
+        "write_s": [r["value"] for r in rows
+                    if r["tag"] == "Train/Checkpoint/write_latency_sec"],
+        "superseded": mgr.stats["dropped"], "stats": dict(mgr.stats),
+        "pinned_buffer_sets": mgr._pool.allocated,
+        "step_ms": b_ms,
+        "step_ratio_vs_none": median(b_ms) / median(a_ms[CKPT_AT:]),
+        # the last steps, once the three pinned buffer sets exist
+        "step_ratio_steady": median(b_ms[-CKPT_EXTRA:])
+        / median(a_ms[CKPT_AT:]),
+        "committed": committed, "fell_back_to": found[1]["step"]}
+    mgr.close()
+    del engine, model, stream, saved, live
+    torch.cuda.empty_cache()
+
+    # (c) the supervised, preempted child
+    rec["supervised"] = ckpt_supervised(torch, want)
+
+    # (e) remat at phase 4's configuration, and (f) BERT with LAMB
+    rec["remat"] = ckpt_remat(torch, sd)
+    del sd
+    rec["bert_lamb"] = ckpt_bert(torch)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    r = rec["resilience"]
+    print(f"phase 9 checkpointing ({card}): save() on the step path "
+          f"{json.dumps([round(x, 3) for x in r['save_ms_on_step_path']])}"
+          f" ms, the writes off it {json.dumps(r['write_s'])} s, "
+          f"{r['superseded']} snapshots superseded, step time with "
+          f"resilience at interval 1 / without {r['step_ratio_vs_none']:.4f}"
+          f" ({r['step_ratio_steady']:.4f} over the last {CKPT_EXTRA} "
+          f"steps, the pinned buffers allocated); sync save {rec['sync_save_s']:.2f} s for "
+          f"{rec['sync_save_gb']:.3f} GB, load {rec['sync_load_s']:.2f} s; "
+          f"remat peak {rec['remat']['peak_gb']} GB, step ms "
+          f"{rec['remat']['step_ms_median']}; phase {rec['phase_s']:.1f} s")
+    print(f"phase 9 record: {json.dumps(rec)}")
+    return rec
+
+
+def ckpt_serving(torch, sync_dir, live_sd):
+    """(d): bf16 ``init_serving(checkpoint=...)`` and the same from the
+    live masters, ``decode_attention: "kernel"``: equal tokens, #1
+    launching."""
+    import numpy as np
+
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models import make_gpt
+    from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
+
+    config = {"serving": {"max_batch_size": 8, "kv_block_size": 16,
+                          "kv_num_blocks": 8 * 1024 // 16 + 1,
+                          "decode_attention": "kernel"}}
+    prompts = np.random.default_rng(1).integers(0, 50257, (4, 32)).tolist()
+    out = {}
+    for name, kw in (("checkpoint", {"checkpoint": sync_dir}),
+                     ("live", {"params": live_sd})):
+        with torch.device("cuda"):
+            model, _ = make_gpt("gpt2", dtype=torch.bfloat16)
+        srv = dtt.init_serving(model, dtype=torch.bfloat16, config=config,
+                               **kw)
+        pa.paged_decode_attention.launches = 0
+        rids = [srv.submit(p, 16) for p in prompts]
+        res = srv.run_until_complete()
+        out[name] = ([res[r]["tokens"] for r in rids],
+                     pa.paged_decode_attention.launches)
+        srv.close()
+        del srv, model
+    if out["checkpoint"][0] != out["live"][0]:
+        fail("phase 9 (d): tokens served from the checkpoint differ from "
+             "the live masters'")
+    if out["checkpoint"][1] == 0:
+        fail("phase 9 (d): kernel #1 never launched")
+    torch.cuda.empty_cache()
+    return {"requests": len(prompts), "new_tokens": 16,
+            "kernel_launches": out["checkpoint"][1], "tokens_equal": True}
+
+
+def ckpt_supervised(torch, want):
+    """(c): ``Supervisor`` over ``chip_smoke.py --ckpt-child`` with
+    CKPT_FAULT_PLAN: one restart; steps 1-6 bit-equal to (a); the resumed
+    child resumed from step 2 and launched #3-#5 96 times a step and #11
+    once, no plain version."""
+    from deepspeed_tpu_torch.models import GPT_CONFIGS
+    from deepspeed_tpu_torch.resilience import FAULT_PLAN_ENV, Supervisor
+
+    run_dir = os.path.join(CKPT_DIR, "supervised")
+    os.makedirs(run_dir)
+    out = os.path.join(run_dir, "losses.jsonl")
+    t0 = time.perf_counter()
+    sup = Supervisor([sys.executable, os.path.abspath(__file__),
+                      "--ckpt-child", os.path.join(run_dir, "ckpt"), out],
+                     max_restarts=2, backoff=0.05,
+                     env={FAULT_PLAN_ENV: json.dumps(CKPT_FAULT_PLAN)})
+    rc = sup.run()
+    wall = time.perf_counter() - t0
+    rows = ([json.loads(line) for line in open(out)]
+            if os.path.exists(out) else [])
+    losses = {r["step"]: r["loss"] for r in rows if "step" in r}
+    summary = [r["summary"] for r in rows if "summary" in r]
+    if rc != 0 or sup.restarts != 1 or len(summary) != 1:
+        fail(f"phase 9 (c): supervisor rc {rc}, exit codes "
+             f"{sup.exit_codes}, {len(summary)} finished incarnations")
+    s = summary[0]
+    got = [losses.get(i) for i in range(1, CKPT_STEPS + 1)]
+    if got != want:
+        fail(f"phase 9 (c): the supervised trajectory {got} differs from "
+             f"the uninterrupted {want}")
+    if s["attempt"] != 1 or s["start"] != CKPT_AT - 1:
+        fail(f"phase 9 (c): the resumed child (attempt {s['attempt']}) "
+             f"started at step {s['start']}, expected {CKPT_AT - 1}")
+    steps = CKPT_STEPS - s["start"]
+    check_launches(s["launches"], ckpt_per_step(GPT_CONFIGS["gpt2"]), steps,
+                   "phase 9 (c) resumed child")
+    if any(s["plain"].values()):
+        fail(f"phase 9 (c): a plain version ran: {s['plain']}")
+    return {"exit_codes": sup.exit_codes, "restarts": sup.restarts,
+            "resumed_from": s["resumed_from"], "start": s["start"],
+            "restore_s": s["restore_s"], "child_setup_s": s["setup_s"],
+            "launches": {k: v for k, v in s["launches"].items() if v},
+            "writer_stats": s["stats"], "wall_s": wall,
+            "step_ms": [r["ms"] for r in rows if "step" in r]}
+
+
+def ckpt_remat(torch, sd):
+    """(e): phase 4's configuration (dropout 0) with and without
+    ``remat``, 3 steps each on the same data: the losses bit-equal, #3 at
+    192 launches a step under remat and #4/#5 at 96; peak memory and step
+    time of each."""
+    from deepspeed_tpu_torch.models import GPT_CONFIGS
+
+    runs = {}
+    for remat in (False, True):
+        engine, model, loader = ckpt_engine(torch, sd, remat=remat,
+                                            dropout=False)
+        stream = ckpt_stream(torch, engine, loader)
+        ckpt_steps(torch, engine, stream, 1)          # warm up
+        counters = training_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        with PlainCalls() as plain:
+            losses, step_ms = ckpt_steps(torch, engine, stream, 3)
+        launches = {n: fn.launches for n, fn in counters.items()}
+        check_launches(launches, ckpt_per_step(GPT_CONFIGS["gpt2"], remat),
+                       3, f"phase 9 (e) remat={remat}")
+        if any(plain.calls.values()):
+            fail(f"phase 9 (e): a plain version ran: {plain.calls}")
+        runs[remat] = {"losses": losses, "step_ms": step_ms,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del engine, model, stream
+        torch.cuda.empty_cache()
+    if runs[True]["losses"] != runs[False]["losses"]:
+        fail(f"phase 9 (e): remat losses {runs[True]['losses']} differ "
+             f"from {runs[False]['losses']}")
+    return {"losses": runs[False]["losses"],
+            "peak_gb": {"remat": runs[True]["peak_gb"],
+                        "no_remat": runs[False]["peak_gb"]},
+            "step_ms_median": {"remat": median(runs[True]["step_ms"]),
+                               "no_remat": median(runs[False]["step_ms"])}}
+
+
+def ckpt_bert(torch):
+    """(f): bench_bert's configuration (LAMB, bf16, GAS 8) on bert-large
+    width and 2 layers at seq 128: 2 steps, a sync save, a third step; a
+    fresh engine loads and its step's loss is bit-equal to the third;
+    #3-#5 launch 16 times each in it (2 layers x GAS 8), no plain
+    version."""
+    from dataclasses import replace
+
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models import (BERT_CONFIGS, init_bert_params,
+                                            make_bert)
+
+    seq, micro = BERT_RUNS[0]
+    cfg = replace(BERT_CONFIGS["bert-large"], num_layers=2,
+                  max_seq_len=seq)
+    sd = init_bert_params(cfg, seed=0)
+    batches = bert_batches(torch, cfg, BERT_CONFIG[
+        "gradient_accumulation_steps"], micro, seq)
+    bert_dir = os.path.join(CKPT_DIR, "bert")
+
+    def engine():
+        model, _ = make_bert(cfg)
+        config = dict(BERT_CONFIG, train_micro_batch_size_per_gpu=micro)
+        return dtt.initialize(model=model, params=sd, config=config)[0]
+
+    e1 = engine()
+    for _ in range(2):
+        e1.train_batch(batches)
+    t0 = time.perf_counter()
+    e1.save_checkpoint(bert_dir)
+    save_s = time.perf_counter() - t0
+    want = repr(float(e1.train_batch(batches)))
+    del e1
+    e2 = engine()
+    t0 = time.perf_counter()
+    e2.load_checkpoint(bert_dir)
+    load_s = time.perf_counter() - t0
+    counters = training_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    with PlainCalls() as plain:
+        got = repr(float(e2.train_batch(batches)))
+    if got != want:
+        fail(f"phase 9 (f): BERT's loss after the load {got} differs from "
+             f"{want}")
+    per_step = {name: 0 for name in counters}
+    per_step.update({name: cfg.num_layers * BERT_CONFIG[
+        "gradient_accumulation_steps"] for name in FLASH_NAMES})
+    check_launches({n: fn.launches for n, fn in counters.items()}, per_step,
+                   1, "phase 9 (f)")
+    if any(plain.calls.values()):
+        fail(f"phase 9 (f): a plain version ran: {plain.calls}")
+    gb = dir_gb(bert_dir)
+    del e2
+    torch.cuda.empty_cache()
+    return {"loss": got, "save_s": save_s, "load_s": load_s, "gb": gb}
+
+
 def main() -> int:
     import torch
 
@@ -5199,15 +5706,17 @@ def main() -> int:
         fail(f"imported deepspeed_tpu_torch from {pkg}, not from this "
              f"checkout ({HERE})")
     args = sys.argv[1:]
+    if args[:1] == ["--ckpt-child"] and len(args) == 3:
+        return ckpt_child(torch, args[1], args[2])   # phase 9 (c)'s child
     only = (set(args[1].split(",")) if len(args) == 2
             and args[0] == "--only" else None)
     if args and (not only
                  or not only <= {"kernels", "sparse", "chunked", "spec",
-                                 "telemetry", "bert"}
+                                 "telemetry", "bert", "ckpt"}
                  or ("kernels" in only and len(only) > 1)):
         fail(f"unknown arguments {args} (none, --only kernels, or --only "
-             f"with sparse, chunked, spec, telemetry, bert or several, "
-             f"comma-separated)")
+             f"with sparse, chunked, spec, telemetry, bert, ckpt or "
+             f"several, comma-separated)")
     part = only is not None and "kernels" not in only
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5258,6 +5767,8 @@ def main() -> int:
             check_telemetry(torch, card)
         if "bert" in only:
             check_bert(torch, card, reports)
+        if "ckpt" in only:
+            check_ckpt(torch, card)
         return 0
     check_fused_ln(torch, {
         ("bfloat16", "fwd"): reports["fused_ln_matmul_fwd_tc"],
@@ -5346,6 +5857,9 @@ def main() -> int:
     # 8. BERT-large pretraining (bench_bert's configurations, then sparse
     # BERT at block 16), and its fp32 comparisons
     check_bert(torch, card, reports)
+
+    # 9. checkpointing, the dataloader and preemption-safe training
+    check_ckpt(torch, card)
 
     print(f"chip_smoke: the whole run took {time.perf_counter() - t_run:.1f}"
           f" s ({card})")

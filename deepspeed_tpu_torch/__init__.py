@@ -14,8 +14,10 @@ continuous-batching GPT serving (``init_serving``) over the inference engine
 (``init_inference``) with the paged decode-attention kernel, speculative
 decoding, serving resilience (deadlines, shedding, recovery, the
 degradation ladder, ``FaultPlan`` chaos) and serving telemetry (metrics,
-a Chrome trace of the steps, per-request SLO records); every kernel
-written in CUDA for Hopper.
+a Chrome trace of the steps, per-request SLO records); the dataloader,
+checkpoint save/load, preemption-safe training (checkpoints off the step
+path, auto-resume, the supervisor) and activation checkpointing
+(``remat``); every kernel written in CUDA for Hopper.
 """
 
 import json
@@ -29,9 +31,9 @@ def initialize(model=None, params: Optional[Dict[str, Any]] = None,
                config: Optional[Union[str, Dict[str, Any]]] = None,
                loss_fn: Optional[Callable] = None, device=None,
                optimizer=None, lr_scheduler=None, training_data=None,
-               config_params=None, rng_seed: int = 0):
-    """Build the training engine. Returns ``(engine, optimizer, None,
-    lr_scheduler)``.
+               collate_fn=None, config_params=None, rng_seed: int = 0):
+    """Build the training engine. Returns ``(engine, optimizer,
+    training_dataloader, lr_scheduler)``.
 
     Two entry styles, as in the JAX package:
     - module: ``model`` is an ``nn.Module`` whose forward returns the loss
@@ -43,21 +45,21 @@ def initialize(model=None, params: Optional[Dict[str, Any]] = None,
       of tensors.
 
     ``device`` None means the CUDA device; the CPU only when asked for.
-    ``training_data`` (the dataloader) is not ported yet.
+    ``training_data``: an indexable dataset; the third value is then a
+    ``DeepSpeedDataLoader`` over it with batches of the micro-batch size
+    (one process: world 1, rank 0), stacked by ``collate_fn``
+    (``default_collate`` by default); None without it.
     """
     import numpy as np
     import torch
 
-    from deepspeed_tpu_torch.config.config import (DeepSpeedConfig,
-                                                   not_yet_ported)
+    from deepspeed_tpu_torch.config.config import DeepSpeedConfig
     from deepspeed_tpu_torch.inference.engine import resolve_device
     from deepspeed_tpu_torch.models.adapter import module_loss_fn
+    from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
     from deepspeed_tpu_torch.runtime.engine import (DeepSpeedEngine,
                                                     engine_world_size)
 
-    if training_data is not None:
-        raise not_yet_ported("initialize(training_data=...) (the "
-                             "dataloader)")
     cfg = config if config is not None else config_params
     if not isinstance(cfg, DeepSpeedConfig):
         cfg = DeepSpeedConfig(cfg, world_size=engine_world_size())
@@ -80,7 +82,12 @@ def initialize(model=None, params: Optional[Dict[str, Any]] = None,
     engine = DeepSpeedEngine(loss_fn, dict(params), cfg, device=dev,
                              optimizer=optimizer, lr_scheduler=lr_scheduler,
                              module=model, rng_seed=rng_seed)
-    return engine, engine.optimizer, None, engine.lr_scheduler
+    dataloader = None
+    if training_data is not None:
+        dataloader = DeepSpeedDataLoader(
+            training_data, batch_size=cfg.train_micro_batch_size_per_gpu,
+            collate_fn=collate_fn)
+    return engine, engine.optimizer, dataloader, engine.lr_scheduler
 
 
 def _sparse_attention_surgery(model, loss_fn, block):

@@ -698,6 +698,121 @@ class FP16Config:
         return self.loss_scale == 0.0
 
 
+def _known(block: Dict[str, Any], known, what: str) -> None:
+    unknown = set(block) - set(known)
+    if unknown:
+        raise ConfigError(f"unknown {what} keys {sorted(unknown)}; expected "
+                          f"a subset of {sorted(known)}")
+
+
+@dataclass
+class ActivationCheckpointingConfig:
+    """The ``activation_checkpointing`` block
+    (``runtime/activation_checkpointing.py`` maps it to a recompute
+    policy)."""
+
+    partition_activations: bool = False
+    contiguous_memory_optimization: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+    cpu_checkpointing: bool = False
+
+    @classmethod
+    def from_dict(cls, d: Any) -> "ActivationCheckpointingConfig":
+        d = _as_block(d, C.ACTIVATION_CHECKPOINTING)
+        _known(d, (C.ACT_CHKPT_PARTITION_ACTIVATIONS,
+                   C.ACT_CHKPT_CONTIGUOUS_MEMORY_OPTIMIZATION,
+                   C.ACT_CHKPT_NUMBER_CHECKPOINTS,
+                   C.ACT_CHKPT_SYNCHRONIZE_CHECKPOINT_BOUNDARY,
+                   C.ACT_CHKPT_PROFILE, C.ACT_CHKPT_CPU_CHECKPOINTING),
+               C.ACTIVATION_CHECKPOINTING)
+        return cls(
+            partition_activations=_flag(d, C.ACT_CHKPT_PARTITION_ACTIVATIONS),
+            contiguous_memory_optimization=_flag(
+                d, C.ACT_CHKPT_CONTIGUOUS_MEMORY_OPTIMIZATION),
+            number_checkpoints=d.get(C.ACT_CHKPT_NUMBER_CHECKPOINTS),
+            synchronize_checkpoint_boundary=_flag(
+                d, C.ACT_CHKPT_SYNCHRONIZE_CHECKPOINT_BOUNDARY),
+            profile=_flag(d, C.ACT_CHKPT_PROFILE),
+            cpu_checkpointing=_flag(d, C.ACT_CHKPT_CPU_CHECKPOINTING))
+
+
+@dataclass
+class ResilienceCheckpointConfig:
+    """The auto-checkpoint knobs (``resilience/checkpoint.py``)."""
+
+    dir: str = ""
+    interval: int = C.RESILIENCE_CKPT_INTERVAL_DEFAULT
+    keep_last: int = C.RESILIENCE_CKPT_KEEP_LAST_DEFAULT
+    max_retries: int = C.RESILIENCE_CKPT_MAX_RETRIES_DEFAULT
+    backoff_seconds: float = C.RESILIENCE_CKPT_BACKOFF_DEFAULT
+    async_write: bool = C.RESILIENCE_CKPT_ASYNC_DEFAULT
+
+    @classmethod
+    def from_dict(cls, d: Any) -> "ResilienceCheckpointConfig":
+        d = _as_block(d, f"{C.RESILIENCE}.{C.RESILIENCE_CHECKPOINT}")
+        _known(d, (C.RESILIENCE_CKPT_DIR, C.RESILIENCE_CKPT_INTERVAL,
+                   C.RESILIENCE_CKPT_KEEP_LAST, C.RESILIENCE_CKPT_MAX_RETRIES,
+                   C.RESILIENCE_CKPT_BACKOFF, C.RESILIENCE_CKPT_ASYNC),
+               f"{C.RESILIENCE}.{C.RESILIENCE_CHECKPOINT}")
+        cfg = cls(
+            dir=str(_get(d, C.RESILIENCE_CKPT_DIR, "")),
+            interval=int(_get(d, C.RESILIENCE_CKPT_INTERVAL,
+                              C.RESILIENCE_CKPT_INTERVAL_DEFAULT)),
+            keep_last=int(_get(d, C.RESILIENCE_CKPT_KEEP_LAST,
+                               C.RESILIENCE_CKPT_KEEP_LAST_DEFAULT)),
+            max_retries=int(_get(d, C.RESILIENCE_CKPT_MAX_RETRIES,
+                                 C.RESILIENCE_CKPT_MAX_RETRIES_DEFAULT)),
+            backoff_seconds=float(_get(d, C.RESILIENCE_CKPT_BACKOFF,
+                                       C.RESILIENCE_CKPT_BACKOFF_DEFAULT)),
+            async_write=bool(_get(d, C.RESILIENCE_CKPT_ASYNC,
+                                  C.RESILIENCE_CKPT_ASYNC_DEFAULT)))
+        if cfg.interval < 1:
+            raise ConfigError("resilience.checkpoint.interval must be >= 1")
+        if cfg.keep_last < 1:
+            raise ConfigError("resilience.checkpoint.keep_last must be >= 1")
+        if cfg.max_retries < 0:
+            raise ConfigError("resilience.checkpoint.max_retries must be >= 0")
+        return cfg
+
+
+@dataclass
+class ResilienceConfig:
+    """Preemption-safe training (``resilience/``): auto checkpointing every
+    ``checkpoint.interval`` steps off the step path, auto-resume from the
+    newest complete manifest, and the deterministic fault plan
+    (``fault_injection`` keys are ``FaultPlan`` fields; the
+    ``DSTPU_FAULT_PLAN`` JSON overrides them)."""
+
+    enabled: bool = False
+    checkpoint: ResilienceCheckpointConfig = field(
+        default_factory=ResilienceCheckpointConfig)
+    auto_resume: bool = C.RESILIENCE_AUTO_RESUME_DEFAULT
+    fault_injection: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, d: Any) -> "ResilienceConfig":
+        d = _as_block(d, C.RESILIENCE)
+        _known(d, (C.RESILIENCE_ENABLED, C.RESILIENCE_CHECKPOINT,
+                   C.RESILIENCE_AUTO_RESUME, C.FAULT_INJECTION),
+               C.RESILIENCE)
+        cfg = cls(
+            enabled=_flag(d, C.RESILIENCE_ENABLED),
+            checkpoint=ResilienceCheckpointConfig.from_dict(
+                d.get(C.RESILIENCE_CHECKPOINT)),
+            auto_resume=bool(_get(d, C.RESILIENCE_AUTO_RESUME,
+                                  C.RESILIENCE_AUTO_RESUME_DEFAULT)),
+            fault_injection=dict(_as_block(
+                d.get(C.FAULT_INJECTION),
+                f"{C.RESILIENCE}.{C.FAULT_INJECTION}")))
+        if cfg.enabled and not cfg.checkpoint.dir:
+            raise ConfigError(
+                "resilience.enabled requires resilience.checkpoint.dir "
+                "(where manifests/shards are committed)")
+        return cfg
+
+
 def _enabled(value: Any, key: str) -> bool:
     """The rule of most blocks: on only with ``enabled: true``."""
     return _flag(_as_block(value, key), C.SUB_BLOCK_ENABLED)
@@ -739,22 +854,6 @@ def _elasticity_on(value: Any, key: str) -> bool:
                                                          "elasticity.live")
 
 
-def _resilience_on(value: Any, key: str) -> bool:
-    """Auto checkpointing (``enabled``), or a fault-injection plan in the
-    block or the environment."""
-    block = _as_block(value, key)
-    return (_flag(block, C.SUB_BLOCK_ENABLED)
-            or bool(block.get("fault_injection"))
-            or bool(os.environ.get(C.FAULT_PLAN_ENV)))
-
-
-def _remat_policy_on(value: Any, key: str) -> bool:
-    """Only these two flags change the rematerialisation policy."""
-    block = _as_block(value, key)
-    return (_flag(block, "partition_activations")
-            or _flag(block, "cpu_checkpointing"))
-
-
 def _pipeline_on(value: Any, key: str) -> bool:
     return int(_get(_as_block(value, key), "stages", 1)) > 1
 
@@ -784,9 +883,7 @@ def _never(value: Any, key: str) -> bool:
 _BLOCK_ON = {
     "comm": _comm_on, "pipeline": _pipeline_on, "moe": _moe_on,
     "telemetry": _enabled, "autotuning": _autotuning_on,
-    "elasticity": _elasticity_on, "resilience": _resilience_on,
-    "activation_checkpointing": _remat_policy_on,
-    "sparse_gradients": _truthy, "flops_profiler": _enabled,
+    "elasticity": _elasticity_on, "sparse_gradients": _truthy, "flops_profiler": _enabled,
     "progressive_layer_drop": _enabled, "quantize_training": _enabled,
     "guardrails": _enabled, "mesh": _mesh_on, "eigenvalue": _never,
     "amp": _enabled, "tensorboard": _enabled, "aio": _never,
@@ -800,8 +897,8 @@ _BLOCK_ON = {
 def _turns_on(key: str, value: Any) -> bool:
     """Whether the top-level block ``key`` with ``value`` turns its
     feature on (``_BLOCK_ON``). The environment's autotuning handshake
-    and fault plan count without their blocks, as in the reference."""
-    if value is None and key not in ("autotuning", "resilience"):
+    counts without its block, as in the reference."""
+    if value is None and key != "autotuning":
         return False
     return _BLOCK_ON[key](value, key)
 
@@ -812,6 +909,7 @@ _TRAINING_KEYS = frozenset({
     C.OPTIMIZER, C.SCHEDULER, C.FP16, C.BF16, C.BFLOAT16, C.DATA_TYPES,
     C.GRADIENT_CLIPPING, C.PRESCALE_GRADIENTS, C.GRADIENT_PREDIVIDE_FACTOR,
     C.STEPS_PER_PRINT, C.ZERO_OPTIMIZATION, C.SERVING, C.SPARSE_ATTENTION,
+    C.RESILIENCE, C.ACTIVATION_CHECKPOINTING,
 })
 
 
@@ -820,9 +918,10 @@ class DeepSpeedConfig:
     ``DeepSpeedTPUConfig``): the batch triple, the optimizer (Adam/AdamW,
     ``fused_update``; LAMB), the scheduler, bf16/fp16, the
     gradient-accumulation dtype, clipping, prescaling, ``steps_per_print``,
-    the ``zero_optimization`` block and the ``sparse_attention`` block
+    the ``zero_optimization`` block, the ``sparse_attention`` block
     (kept as given in ``.sparse_attention``; ``initialize`` routes the
-    model's attention through it). Every other training block of the JAX
+    model's attention through it), ``resilience`` and
+    ``activation_checkpointing``. Every other training block of the JAX
     schema raises ``ConfigError`` naming it with "not yet ported" unless it
     is off; an unknown key raises. ``world_size`` is the data-parallel
     degree the batch triple is solved for (one process so far)."""
@@ -921,6 +1020,12 @@ class DeepSpeedConfig:
             _check_sparse_attention(self.sparse_attention)
         self.steps_per_print = int(_get(d, C.STEPS_PER_PRINT,
                                         C.STEPS_PER_PRINT_DEFAULT))
+        self.activation_checkpointing_provided = \
+            C.ACTIVATION_CHECKPOINTING in d
+        self.activation_checkpointing = \
+            ActivationCheckpointingConfig.from_dict(
+                d.get(C.ACTIVATION_CHECKPOINTING))
+        self.resilience = ResilienceConfig.from_dict(d.get(C.RESILIENCE))
 
     @property
     def precision_dtype(self) -> str:

@@ -70,8 +70,7 @@ SPARSE_ATTENTION = "sparse_attention"
 # by the reference's own rule (config.py:_BLOCK_ON).
 NOT_YET_PORTED_BLOCKS = (
     "comm", "pipeline", "moe", "telemetry", "autotuning",
-    "elasticity", "resilience", "activation_checkpointing",
-    "sparse_gradients", "flops_profiler", "progressive_layer_drop",
+    "elasticity", "sparse_gradients", "flops_profiler", "progressive_layer_drop",
     "quantize_training", "guardrails", "mesh", "eigenvalue", "amp",
     "tensorboard", "aio", "wall_clock_breakdown",
     "memory_breakdown", "dump_state", "check_numerics",
@@ -82,6 +81,46 @@ NOT_YET_PORTED_BLOCKS = (
 # ``enabled``; a fault plan in the environment arms fault injection.
 AUTOTUNING_ENV = "DSTPU_AUTOTUNE"
 FAULT_PLAN_ENV = "DSTPU_FAULT_PLAN"
+
+#############################################
+# Resilience: auto checkpointing off the step path, auto-resume and the
+# fault plan (resilience/)
+#############################################
+RESILIENCE = "resilience"
+RESILIENCE_ENABLED = "enabled"
+RESILIENCE_CHECKPOINT = "checkpoint"
+RESILIENCE_CKPT_DIR = "dir"
+RESILIENCE_CKPT_INTERVAL = "interval"
+RESILIENCE_CKPT_INTERVAL_DEFAULT = 100
+RESILIENCE_CKPT_KEEP_LAST = "keep_last"
+RESILIENCE_CKPT_KEEP_LAST_DEFAULT = 3
+RESILIENCE_CKPT_MAX_RETRIES = "max_retries"
+RESILIENCE_CKPT_MAX_RETRIES_DEFAULT = 3
+RESILIENCE_CKPT_BACKOFF = "backoff_seconds"
+RESILIENCE_CKPT_BACKOFF_DEFAULT = 0.5
+RESILIENCE_CKPT_ASYNC = "async"
+RESILIENCE_CKPT_ASYNC_DEFAULT = True
+RESILIENCE_AUTO_RESUME = "auto_resume"
+RESILIENCE_AUTO_RESUME_DEFAULT = True
+FAULT_INJECTION = "fault_injection"   # resilience.fault_injection: a FaultPlan
+# The supervisor's exit-code classes (resilience/supervisor.py), the JAX
+# package's defaults: the guardrails watchdog's rc restarts at once, the
+# memory observatory's OOM rc is not restarted, the live-elasticity rc
+# restarts as a warned preemption.
+GUARDRAILS_WATCHDOG_EXIT_CODE_DEFAULT = 113
+MEMORY_OOM_EXIT_CODE_DEFAULT = 114
+ELASTIC_PREEMPT_EXIT_CODE_DEFAULT = 115
+
+#############################################
+# Activation checkpointing (runtime/activation_checkpointing.py)
+#############################################
+ACTIVATION_CHECKPOINTING = "activation_checkpointing"
+ACT_CHKPT_PARTITION_ACTIVATIONS = "partition_activations"
+ACT_CHKPT_NUMBER_CHECKPOINTS = "number_checkpoints"
+ACT_CHKPT_CONTIGUOUS_MEMORY_OPTIMIZATION = "contiguous_memory_optimization"
+ACT_CHKPT_SYNCHRONIZE_CHECKPOINT_BOUNDARY = "synchronize_checkpoint_boundary"
+ACT_CHKPT_PROFILE = "profile"
+ACT_CHKPT_CPU_CHECKPOINTING = "cpu_checkpointing"
 
 #############################################
 # Serving: the continuous-batching serving engine (serving/)
@@ -150,12 +189,6 @@ SERVING_RESILIENCE_KEYS = frozenset({
     SERVING_RESIL_MAX_QUEUE_WAIT_MS, SERVING_RESIL_DEFAULT_DEADLINE_MS,
     SERVING_RESIL_MAX_RETRIES, SERVING_RESIL_RETRY_BASE_SEC,
     SERVING_RESIL_DEGRADE_AFTER, SERVING_RESIL_SLOW_STEP_MS})
-
-#############################################
-# Other top-level blocks of the JAX package's config that serving reads
-#############################################
-RESILIENCE = "resilience"
-FAULT_INJECTION = "fault_injection"   # resilience.fault_injection: a FaultPlan
 
 #############################################
 # Telemetry: metrics registry, step tracer, recompile detector and the

@@ -4,8 +4,10 @@ deterministic forward, and KV-cache generation.
 The port of ``deepspeed_tpu/inference/engine.py`` for one device. The
 engine runs on the card unless the caller passes ``device="cpu"``; with no
 card and no device it raises rather than fall back to the CPU.
-Tensor-parallel inference (``mp_size > 1``), int8 weights (``quantize``)
-and checkpoint loading are not ported yet and are refused by name.
+``checkpoint``: a training checkpoint (``runtime/checkpointing``) whose
+fp32 masters become the weights. Tensor-parallel inference (``mp_size >
+1``) and int8 weights (``quantize``) are not ported yet and are refused
+by name.
 
 Telemetry: ``recompile_detector`` flags a ``forward`` or ``generate`` call
 at an input signature the engine has not run before (and the serving
@@ -72,7 +74,9 @@ class InferenceEngine:
     ``model``: the port's GPT (``models/gpt.py``). ``params``: a
     ``state_dict`` (tensors or numpy arrays; ``models/convert.py`` makes one
     from a flax tree or from a seed), or None to keep the module's own
-    weights. The engine owns the module: its weights are cast and moved in
+    weights. ``checkpoint``: a directory ``save_checkpoint`` wrote (its
+    ``latest`` tag, or a tag directory), read through
+    ``load_module_params`` when ``params`` is None. The engine owns the module: its weights are cast and moved in
     place. ``tracer``: the run's ``StepTracer`` (None: no spans).
     """
 
@@ -85,13 +89,15 @@ class InferenceEngine:
                                  f"inference)")
         if quantize:
             raise not_yet_ported("quantize (int8 weights)")
-        if checkpoint is not None:
-            raise not_yet_ported("checkpoint loading")
         if not hasattr(model, "cfg"):
             raise ValueError(f"InferenceEngine needs the port's GPT family; "
                              f"{type(model).__name__} is not")
         self.device = resolve_device(device)
         self.dtype = dtype if dtype is not None else torch.bfloat16
+        if checkpoint is not None and params is None:
+            from deepspeed_tpu_torch.runtime.checkpointing import \
+                load_module_params
+            params = load_module_params(checkpoint)
         if params is not None:
             model.load_state_dict(
                 {k: torch.as_tensor(np.asarray(v)) if not isinstance(

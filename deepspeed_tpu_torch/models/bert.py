@@ -17,6 +17,9 @@ parameters' dtype, then cast to ``cfg.dtype``; the residual sums in
 forward through the fused CE head returns ``"logits": None``, as
 ``models/gpt.py`` explains.
 
+``remat`` recomputes each layer whole in the backward (its ``recompute``
+set is ``{"layer"}``), as JAX's ``nn.remat(BertLayer)``.
+
 Dropout (``dropout_rate > 0`` in a training forward) takes the host int
 ``dropout_seed``; the sites' seeds fold from it with
 ``ops/dropout.fold_seed`` as in the GPT: the embeddings ``(0, 0)``, layer
@@ -30,7 +33,7 @@ Departures from the JAX model:
   (``make_bert(..., nsp=...)``), so that it holds exactly a given tree's
   parameters. A forward with ``next_sentence_label`` on a model built
   without the head raises ValueError.
-- ``remat``, ``sparse_embedding_grad`` and a batch carrying ``pld_theta``
+- ``sparse_embedding_grad`` and a batch carrying ``pld_theta``
   (progressive layer drop) raise "not yet ported".
 - ``comm.overlap.marked_block`` is left out: it is the identity unless
   the overlapped grad sync (not ported) is on.
@@ -42,7 +45,6 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.config.config import not_yet_ported
 from deepspeed_tpu_torch.models.gpt import (_dense, _layer_norm,
@@ -53,6 +55,8 @@ from deepspeed_tpu_torch.ops.sparse_attention.utils import \
     get_sparse_self_attention
 from deepspeed_tpu_torch.ops.transformer.attention import attention
 from deepspeed_tpu_torch.ops.xent import fused_cross_entropy
+from deepspeed_tpu_torch.runtime.activation_checkpointing import \
+    module_checkpoint
 
 
 @dataclass(frozen=True)
@@ -79,9 +83,8 @@ class BertConfig:
     sparse_embedding_grad: Any = None
 
     def __post_init__(self):
-        for key, off in (("remat", False), ("sparse_embedding_grad", None)):
-            if getattr(self, key) not in (off, None, 0, False):
-                raise not_yet_ported(f"BertConfig.{key}")
+        if self.sparse_embedding_grad not in (None, 0, False):
+            raise not_yet_ported("BertConfig.sparse_embedding_grad")
         if self.hidden_size % self.num_heads:
             raise ValueError(f"hidden_size {self.hidden_size} is not a "
                              f"multiple of num_heads {self.num_heads}")
@@ -108,11 +111,14 @@ class BertLayer(nn.Module):
     ``dropout_rate``) are the fused layer op's own widths and rates.
 
     ``recompute`` names the pieces whose activations the backward
-    recomputes instead of saving (``torch.utils.checkpoint``,
-    non-reentrant): ``"norm"`` (the two LayerNorms), ``"attn"`` (the
-    attention block) and ``"mlp"`` (the MLP block). The dropout masks are
-    regenerated from the same seeds, so outputs and gradients are
-    bit-equal to no recomputation. ``BertModel`` recomputes nothing."""
+    recomputes instead of saving (``runtime/activation_checkpointing.
+    module_checkpoint``: non-reentrant, the layer's parameters as they are
+    in the forward, the engine's compute-dtype copies included): ``"norm"`` (the two LayerNorms), ``"attn"`` (the
+    attention block), ``"mlp"`` (the MLP block) or ``"layer"`` (the whole
+    layer). The dropout masks are regenerated from the same seeds, so
+    outputs and gradients are bit-equal to no recomputation.
+    ``BertModel`` recomputes the whole layer under ``cfg.remat`` and
+    nothing otherwise."""
 
     recompute: frozenset = frozenset()
 
@@ -142,7 +148,7 @@ class BertLayer(nn.Module):
 
         def run(h):
             if torch.is_grad_enabled():
-                return checkpoint(fn, h, use_reentrant=False)
+                return module_checkpoint(self, fn, h)
             return fn(h)
         return run
 
@@ -154,6 +160,12 @@ class BertLayer(nn.Module):
         None. ``seeds``: the dropout seeds of the layer's three sites
         (probabilities, attention output, MLP output), or None for no
         dropout."""
+        if "layer" in self.recompute and torch.is_grad_enabled():
+            return module_checkpoint(self, self._forward, x, attn_mask,
+                                     seeds)
+        return self._forward(x, attn_mask, seeds)
+
+    def _forward(self, x, attn_mask, seeds):
         cfg = self.cfg
         dt = cfg.dtype
         attn_seed, proj_seed, mlp_seed = seeds or (None, None, None)
@@ -215,6 +227,9 @@ class BertModel(nn.Module):
                        else nn.LayerNorm(d, eps=eps))
         self.layer = nn.ModuleList(BertLayer(cfg)
                                    for _ in range(cfg.num_layers))
+        if cfg.remat:
+            for layer in self.layer:
+                layer.recompute = frozenset({"layer"})
         self.ln_f = nn.LayerNorm(d, eps=eps) if cfg.pre_layer_norm else None
         self.mlm_transform = nn.Linear(d, d)
         self.mlm_ln = nn.LayerNorm(d, eps=eps)

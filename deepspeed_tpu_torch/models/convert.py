@@ -7,6 +7,8 @@ The flax tree (as ``GPT.init`` prints it): ``wte`` [V, D], ``wpe`` [P, D],
 ``lm_head/kernel``. A Dense ``kernel`` is [in, out]; the port's
 ``nn.Linear.weight`` is [out, in], so it is transposed both ways. Padded
 vocab rows are kept. Both directions copy values exactly.
+``state_arrays_from_flax`` maps a whole JAX-written training state (a
+resilience checkpoint's named arrays) the same way.
 """
 
 from typing import Any, Dict, Mapping
@@ -269,3 +271,52 @@ def init_bert_params(cfg: BertConfig, seed: int = 0,
     """Random full-width BERT weights without a download: the port's
     ``state_dict`` of :func:`init_flax_bert_params`."""
     return bert_params_from_flax(init_flax_bert_params(cfg, seed, nsp))
+
+
+# the TrainState groups whose leaves are per-parameter trees
+_STATE_TREES = ("params.", "opt_state.exp_avg.", "opt_state.exp_avg_sq.",
+                "grad_acc.")
+
+
+def _unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for name, value in flat.items():
+        node = tree
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return tree
+
+
+def state_arrays_from_flax(arrays: Mapping[str, Any], family: str = "gpt"
+                           ) -> Dict[str, np.ndarray]:
+    """A JAX-written TrainState's named arrays (as
+    ``resilience.find_restorable`` reads them: ``params.h_0.c_attn.kernel``,
+    ``opt_state.exp_avg.h_0...``, ...) -> the port's names
+    (``params.h.0.c_attn.weight``, ...), for ``resilience.restore(...,
+    convert=...)``. ``params``, the moments and ``grad_acc`` go through
+    ``gpt_params_from_flax`` or ``bert_params_from_flax`` (``family``),
+    Dense kernels transposed; the scalars (``step``, ``micro_step``,
+    ``loss_scale.*``, ``skipped_steps``, ``opt_state.step``) carry over as
+    they are. JAX's ``rng`` key cannot seed a torch generator: it is left
+    out with a logged line (the engine keeps its generator; nothing at
+    dropout 0 depends on it)."""
+    from deepspeed_tpu_torch.utils.logging import logger
+
+    convert = {"gpt": gpt_params_from_flax,
+               "bert": bert_params_from_flax}[family]
+    out: Dict[str, np.ndarray] = {}
+    for prefix in _STATE_TREES:
+        flat = {k[len(prefix):]: v for k, v in arrays.items()
+                if k.startswith(prefix)}
+        if flat:
+            sd = convert(_unflatten(flat))
+            out.update({prefix + k: v.numpy() for k, v in sd.items()})
+    for name, value in arrays.items():
+        if name == "rng":
+            logger.info("state_arrays_from_flax: the JAX rng key is left "
+                        "out (it cannot seed a torch generator)")
+        elif not name.startswith(_STATE_TREES):
+            out[name] = np.asarray(value)
+    return out

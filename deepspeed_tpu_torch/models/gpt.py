@@ -41,8 +41,13 @@ forward's attention through ``ops/sparse_attention`` (its kernels on the
 card); a forward with a cache stays dense, as in JAX. ``fused_ln`` fuses
 the pre-LN sites (LN1 + QKV, LN2 + fc + GELU) through
 ``ops/transformer/fused.ln_matmul`` (its kernels on the card), in every
-forward form, as in JAX. MoE, remat and the sparse embedding gradient are
-refused at construction until a later slice ports them.
+forward form, as in JAX. ``remat`` recomputes each block whole in the
+backward of a training forward (``runtime/activation_checkpointing.
+module_checkpoint``: non-reentrant, no policy, as JAX's
+``nn.remat(GPTBlock)``); the dropout masks come
+back from the same folded seeds, so losses and gradients equal those
+without it. MoE and the sparse embedding gradient are refused at
+construction until a later slice ports them.
 """
 
 from dataclasses import dataclass, replace
@@ -61,6 +66,8 @@ from deepspeed_tpu_torch.ops.transformer.attention import (attention,
                                                            xla_attention)
 from deepspeed_tpu_torch.ops.transformer.fused import ln_matmul, ln_matmul_ok
 from deepspeed_tpu_torch.ops.xent import fused_cross_entropy
+from deepspeed_tpu_torch.runtime.activation_checkpointing import \
+    module_checkpoint
 
 
 def _fused_ln_sites(mode) -> Tuple[str, ...]:
@@ -108,7 +115,7 @@ class GPTConfig:
 
     def __post_init__(self):
         _fused_ln_sites(self.fused_ln)
-        for key, off in (("remat", False), ("moe_experts", 0),
+        for key, off in (("moe_experts", 0),
                          ("sparse_embedding_grad", None)):
             if getattr(self, key) not in (off, None, 0, False):
                 raise not_yet_ported(f"GPTConfig.{key}")
@@ -347,7 +354,12 @@ class GPT(nn.Module):
             else:
                 seeds = (tuple(fold_seed(dropout_seed, i + 1, site)
                                for site in range(3)) if drop else None)
-                x = block(x, attn_mask, seeds=seeds)
+                if cfg.remat and torch.is_grad_enabled():
+                    # (x, attn_mask, kv_cache, pos, seeds)
+                    x = module_checkpoint(block, block, x, attn_mask, None,
+                                          None, seeds)
+                else:
+                    x = block(x, attn_mask, seeds=seeds)
 
         x = _layer_norm(self.ln_f, x)
         fused = cfg.tie_embeddings and cfg.fused_ce

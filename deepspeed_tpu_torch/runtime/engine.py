@@ -24,10 +24,21 @@ parameter tensors and are updated in place. With ``optimizer.fused_update``
 and a compute dtype below fp32, the kernel also writes the new masters in
 that dtype, into buffers the engine keeps: the next step's forward reads
 those instead of casting the masters again.
+
+Checkpointing: ``save_checkpoint`` / ``load_checkpoint`` write and read a
+tag directory synchronously (``runtime/checkpointing.py``); with a
+``resilience`` block the engine snapshots its state every
+``checkpoint.interval`` steps and a background thread writes it
+(``resilience/checkpoint.py``), ``auto_resume`` restores the newest
+complete one, and the fault plan's preemption fires after the step's
+snapshot. A restore copies into the live tensors in place: the masters
+stay the module's parameters. An ``activation_checkpointing`` block
+configures ``runtime/activation_checkpointing.py``.
 """
 
+import os
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -64,6 +75,7 @@ class TrainState:
     grad_acc: List[torch.Tensor]   # in grad_accum_dtype
     loss_scale: LossScaleState
     skipped_steps: int             # overflow-skipped steps
+    rng: torch.Generator           # CPU generator of the dropout seeds
 
 
 def configure_optimizer(config: DeepSpeedConfig) -> Optimizer:
@@ -90,7 +102,8 @@ class DeepSpeedEngine:
     engine updates these tensors in place (pass a module's parameters to
     train the module). ``device``: where they live. ``rng``: a host int in
     [-2**31, 2**31) drawn per micro-batch from a CPU generator seeded with
-    ``rng_seed`` (the seed of the step's dropout), None in evaluation.
+    ``rng_seed`` (the seed of the step's dropout; ``state.rng``, the JAX
+    state's ``rng`` leaf's counterpart), None in evaluation.
     """
 
     def __init__(self, loss_fn: Callable, params: Dict[str, torch.Tensor],
@@ -131,25 +144,32 @@ class DeepSpeedEngine:
         self.steps_per_print = config.steps_per_print
 
         self.param_names = list(params)
+        if config.activation_checkpointing_provided:
+            # an explicit block (re)configures the module-level policy; an
+            # absent one leaves it to a later engine's block
+            from deepspeed_tpu_torch.runtime import \
+                activation_checkpointing as ac
+            ac.configure(deepspeed_config=config)
         masters = []
         for name in self.param_names:
             p = params[name]
             if p.device != device or p.dtype != torch.float32:
                 p = p.detach().to(device=device, dtype=torch.float32)
             masters.append(p.detach())
+        # the micro-batches' dropout seeds, drawn on the host: a generator
+        # on the card would synchronize every micro-step to give one up
+        generator = torch.Generator(device="cpu")
+        generator.manual_seed(int(rng_seed))
         self.state = TrainState(
             step=0, micro_step=0, params=masters,
             opt_state=self.optimizer.init(masters),
             grad_acc=[torch.zeros(p.shape, dtype=self.grad_accum_dtype,
                                   device=device) for p in masters],
-            loss_scale=self.loss_scaler.init(), skipped_steps=0)
+            loss_scale=self.loss_scaler.init(), skipped_steps=0,
+            rng=generator)
         # unscaled fp32 gradients: the same buffers every step
         self._grads32 = [torch.empty(p.shape, dtype=torch.float32,
                                      device=device) for p in masters]
-        # the micro-batches' dropout seeds, drawn on the host: a generator
-        # on the card would synchronize every micro-step to give one up
-        self.generator = torch.Generator(device="cpu")
-        self.generator.manual_seed(int(rng_seed))
         self.global_steps = 0
         self.micro_steps = 0
         self._micro_in_window = 0
@@ -160,6 +180,36 @@ class DeepSpeedEngine:
         self._cast_versions: Optional[List[int]] = None
         self._last_loss = None
         self._last_norm = None
+        self._init_resilience(config.resilience)
+
+    @property
+    def generator(self) -> torch.Generator:
+        return self.state.rng
+
+    def _init_resilience(self, rcfg) -> None:
+        """The fault plan (with ``resilience.enabled``, a
+        ``fault_injection`` block or ``DSTPU_FAULT_PLAN``) and, with
+        ``enabled``, the checkpoint manager. A plan that sets a key whose
+        hook is not ported raises."""
+        from deepspeed_tpu_torch.resilience.fault import (
+            FaultPlan, check_training_plan)
+
+        self.recovery_count = 0
+        self.ckpt_manager = None
+        self.fault_plan = None
+        self._client_state_fn = None
+        if (rcfg.enabled or rcfg.fault_injection
+                or os.environ.get(C.FAULT_PLAN_ENV)):
+            check_training_plan(rcfg.fault_injection)
+            self.fault_plan = FaultPlan.resolve(rcfg.fault_injection)
+        if rcfg.enabled:
+            from deepspeed_tpu_torch.resilience import AsyncCheckpointManager
+
+            ck = rcfg.checkpoint
+            self.ckpt_manager = AsyncCheckpointManager(
+                ck.dir, interval=ck.interval, keep_last=ck.keep_last,
+                max_retries=ck.max_retries, backoff=ck.backoff_seconds,
+                async_write=ck.async_write, fault_plan=self.fault_plan)
 
     # ------------------------------------------------------------------
     # the step
@@ -177,9 +227,13 @@ class DeepSpeedEngine:
             src = self.precision.cast_params(src)
         return [t.detach().requires_grad_() for t in src]
 
-    def _put(self, batch, leading_gas_dim: bool = False):
-        """The batch as tensors on the device (numpy arrays and tensors
-        alike)."""
+    def put_batch(self, batch, leading_gas_dim: bool = False):
+        """The batch (a dict of numpy arrays or tensors) as tensors on the
+        engine's device. A host tensor bound for the card is pinned first,
+        so its copy is asynchronous (``runtime/dataloader.PrefetchLoader``
+        overlaps it with the step); a tensor already there is kept. With
+        ``leading_gas_dim`` each leaf's first dim must be
+        ``gradient_accumulation_steps`` (the ``train_batch`` form)."""
         out = {}
         for k, x in batch.items():
             t = x if isinstance(x, torch.Tensor) else torch.as_tensor(
@@ -190,6 +244,8 @@ class DeepSpeedEngine:
                     f"train_batch: leaf {k!r} has leading dim "
                     f"{t.shape[0]}, expected gradient_accumulation_steps="
                     f"{self.gradient_accumulation_steps}")
+            if self.device.type == "cuda" and t.device.type == "cpu":
+                t = t.pin_memory()
             out[k] = t.to(self.device, non_blocking=True)
         return out
 
@@ -285,7 +341,7 @@ class DeepSpeedEngine:
         loss of the micro-batches (a device tensor; nothing waits for
         it)."""
         gas = self.gradient_accumulation_steps
-        batches = self._put(batches, leading_gas_dim=True)
+        batches = self.put_batch(batches, leading_gas_dim=True)
         lr = self._current_lr()
         compute = self._make_compute_params()   # hoisted out of the loop
         losses = [self._micro_step(compute, {k: v[i] for k, v in
@@ -297,6 +353,7 @@ class DeepSpeedEngine:
         loss = torch.stack(losses).mean()
         self._last_loss = loss
         self._after_step(loss)
+        self._resilience_step_hook()
         return loss
 
     # ------------------------------------------------------------------
@@ -312,7 +369,7 @@ class DeepSpeedEngine:
         counts)."""
         if self._compute_params is None:
             self._compute_params = self._make_compute_params()
-        loss = self._micro_step(self._compute_params, self._put(batch))
+        loss = self._micro_step(self._compute_params, self.put_batch(batch))
         self._last_loss = loss
         return loss
 
@@ -332,15 +389,135 @@ class DeepSpeedEngine:
         self._apply_step(self._current_lr())
         self._micro_in_window = 0
         self._after_step(self._last_loss)
+        self._resilience_step_hook()
 
     @torch.no_grad()
     def eval_batch(self, batch) -> torch.Tensor:
         """Deterministic loss of one batch on the compute-dtype params."""
         params = dict(zip(self.param_names,
                           self.precision.cast_params(self.state.params)))
-        out = self.loss_fn(params, self._put(batch), None)
+        out = self.loss_fn(params, self.put_batch(batch), None)
         loss = out[0] if isinstance(out, tuple) else out
         return loss.float()
+
+    # ------------------------------------------------------------------
+    # resilience: auto checkpointing off the step path and auto-resume
+    # ------------------------------------------------------------------
+    def _resilience_step_hook(self) -> None:
+        """After every optimizer step: the interval's snapshot (written in
+        the background), then any injected preemption. Snapshot first,
+        then preempt: the interrupted write is the torn-checkpoint case
+        the manifest protocol handles."""
+        mgr = self.ckpt_manager
+        if mgr is not None and self.global_steps % mgr.interval == 0:
+            self.save_checkpoint_async()
+        fp = self.fault_plan
+        if fp is not None and fp.should_preempt(self.global_steps):
+            fp.preempt(self.global_steps)
+
+    def register_client_state_fn(self, fn: Callable[[], Dict]) -> None:
+        """A callable whose result rides every auto checkpoint as the
+        client state (e.g. the dataloader's position)."""
+        self._client_state_fn = fn
+
+    def save_checkpoint_async(self,
+                              client_state: Optional[Dict] = None) -> None:
+        """Snapshot now, write in the background (the resilience
+        manager)."""
+        if self.ckpt_manager is None:
+            raise RuntimeError(
+                "save_checkpoint_async requires the resilience block: "
+                '{"resilience": {"enabled": true, "checkpoint": {"dir": ...}}}')
+        if client_state is None and self._client_state_fn is not None:
+            client_state = self._client_state_fn()
+        self.ckpt_manager.save(self, client_state=client_state)
+
+    def auto_resume(self):
+        """Restore from the newest complete resilience checkpoint under the
+        configured dir. Returns (path, client_state); (None, {}) means a
+        fresh start."""
+        from deepspeed_tpu_torch.resilience import restore
+
+        rcfg = self.config.resilience
+        if not (rcfg.enabled and rcfg.auto_resume):
+            return None, {}
+        return restore(self, rcfg.checkpoint.dir)
+
+    def _snapshot_state(self) -> List[Tuple[str, Any]]:
+        """The state as named leaves, in ``TrainState`` order and under the
+        JAX state's names (``params.<name>``, ``opt_state.exp_avg.<name>``,
+        ``loss_scale.scale``, ...): the live tensors, numpy scalars for the
+        counters and the generator's state (a uint8 tensor) as ``rng``."""
+        st = self.state
+        names = self.param_names
+        i32 = np.int32
+        out: List[Tuple[str, Any]] = [("step", i32(st.step)),
+                                      ("micro_step", i32(st.micro_step))]
+        out += [(f"params.{n}", p) for n, p in zip(names, st.params)]
+        out.append(("opt_state.step", i32(st.opt_state.step)))
+        for field in ("exp_avg", "exp_avg_sq"):
+            out += [(f"opt_state.{field}.{n}", t)
+                    for n, t in zip(names, getattr(st.opt_state, field))]
+        out += [(f"grad_acc.{n}", t) for n, t in zip(names, st.grad_acc)]
+        ls = st.loss_scale
+        out += [("loss_scale.scale", np.float32(ls.scale)),
+                ("loss_scale.good_steps", i32(ls.good_steps)),
+                ("loss_scale.hysteresis", i32(ls.hysteresis)),
+                ("skipped_steps", i32(st.skipped_steps)),
+                ("rng", st.rng.get_state())]
+        return out
+
+    @torch.no_grad()
+    def _apply_restored_state(self, arrays: Dict[str, np.ndarray]) -> None:
+        """Install named host arrays (a subset of :meth:`_snapshot_state`'s
+        names, shapes checked by the caller): tensors are copied into the
+        live ones in place (the masters stay the module's parameters; their
+        version counters move, so the next forward recasts them), the
+        counters and the generator state are set."""
+        st = self.state
+        for name, leaf in self._snapshot_state():
+            if name not in arrays or not isinstance(leaf, torch.Tensor) \
+                    or name == "rng":
+                continue
+            leaf.copy_(torch.from_numpy(np.ascontiguousarray(
+                arrays[name])))
+
+        def scalar(name, cast, default):
+            return cast(arrays[name]) if name in arrays else default
+
+        st.step = scalar("step", int, st.step)
+        st.micro_step = scalar("micro_step", int, st.micro_step)
+        st.skipped_steps = scalar("skipped_steps", int, st.skipped_steps)
+        st.opt_state = st.opt_state._replace(
+            step=scalar("opt_state.step", int, st.opt_state.step))
+        ls = st.loss_scale
+        st.loss_scale = LossScaleState(
+            scale=scalar("loss_scale.scale", float, ls.scale),
+            good_steps=scalar("loss_scale.good_steps", int, ls.good_steps),
+            hysteresis=scalar("loss_scale.hysteresis", int, ls.hysteresis))
+        if "rng" in arrays:
+            st.rng.set_state(torch.from_numpy(
+                np.asarray(arrays["rng"], dtype=np.uint8).copy()))
+        self._compute_params = None
+
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[Dict] = None,
+                        save_latest: bool = True) -> str:
+        from deepspeed_tpu_torch.runtime import checkpointing
+
+        return checkpointing.save_checkpoint(
+            self, save_dir, tag=tag, client_state=client_state or {},
+            save_latest=save_latest)
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_optimizer_states: bool = True,
+                        load_lr_scheduler_states: bool = True):
+        from deepspeed_tpu_torch.runtime import checkpointing
+
+        return checkpointing.load_checkpoint(
+            self, load_dir, tag=tag,
+            load_optimizer_states=load_optimizer_states,
+            load_lr_scheduler_states=load_lr_scheduler_states)
 
     # ------------------------------------------------------------------
     # getters

@@ -173,7 +173,7 @@ def test_nsp_labels_need_the_head():
         model(**_torch_batch(_batch(nsp=True)))
 
 
-@pytest.mark.parametrize("override", [{"remat": True},
+@pytest.mark.parametrize("override", [{"sparse_embedding_grad": True},
                                       {"sparse_embedding_grad": ("data",)}])
 def test_training_options_not_yet_ported(override):
     with pytest.raises(ConfigError, match="not yet ported"):

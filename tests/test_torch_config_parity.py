@@ -1,6 +1,8 @@
 """Port parity: the top-level training blocks the port has not ported
 yet (``config/constants.py:NOT_YET_PORTED_BLOCKS``) are read "on" by the
-reference's own rule for each block.
+reference's own rule for each block, and the blocks it has ported since
+(``resilience``, ``activation_checkpointing``) parse to the reference's
+fields.
 
 The same dict goes to the JAX package's ``DeepSpeedTPUConfig`` and to the
 port's ``DeepSpeedConfig``. Where the reference parses it with the block's
@@ -39,11 +41,6 @@ REFERENCE_ON = {
     "telemetry": lambda c: c.telemetry.enabled,
     "autotuning": lambda c: c.autotuning.enabled,
     "elasticity": lambda c: c.elasticity_enabled or c.elasticity_live.enabled,
-    "resilience": lambda c: (c.resilience.enabled
-                             or bool(c.resilience.fault_injection)),
-    "activation_checkpointing": lambda c: (
-        c.activation_checkpointing.partition_activations
-        or c.activation_checkpointing.cpu_checkpointing),
     "sparse_gradients": lambda c: c.sparse_gradients_enabled,
     "flops_profiler": lambda c: c.flops_profiler.enabled,
     "progressive_layer_drop": lambda c: c.pld.enabled,
@@ -79,12 +76,6 @@ CASES = [
     ("autotuning", {"top_k": 3}), ("autotuning", {"enabled": True}),
     ("elasticity", {"max_train_batch_size": 8}),
     ("elasticity", {"live": {"enabled": True}}),
-    ("resilience", {"auto_resume": True}),
-    ("resilience", {"fault_injection": {"preempt_at_step": 3}}),
-    ("resilience", {"enabled": True}),
-    ("activation_checkpointing", {"number_checkpoints": 4,
-                                  "profile": True}),
-    ("activation_checkpointing", {"partition_activations": True}),
     ("sparse_gradients", False), ("sparse_gradients", True),
     ("flops_profiler", {"profile_step": 1}),
     ("flops_profiler", {"enabled": True}),
@@ -110,9 +101,54 @@ CASES = [
 ]
 
 
+# The blocks ported since they were refused: each value parses to the
+# reference's fields, or raises where the reference raises.
+PORTED_CASES = [
+    ("resilience", {"auto_resume": True}),
+    ("resilience", {"fault_injection": {"preempt_at_step": 3}}),
+    ("resilience", {"enabled": True}),
+    ("activation_checkpointing", {"number_checkpoints": 4,
+                                  "profile": True}),
+    ("activation_checkpointing", {"partition_activations": True}),
+    ("resilience", {"enabled": True, "checkpoint": {"dir": "d",
+                                                    "interval": 7,
+                                                    "async": False}}),
+    ("resilience", {"enabled": False, "checkpoint": {"keep_last": 0}}),
+    ("activation_checkpointing", {"cpu_checkpointing": True,
+                                  "contiguous_memory_optimization": True,
+                                  "synchronize_checkpoint_boundary": True}),
+    ("activation_checkpointing", None),
+]
+
+
+def _parsed(cfg, key):
+    """The reference's parsed fields of a ported block."""
+    block = getattr(cfg, key)
+    fields = dict(block.__dict__)
+    if key == "resilience":
+        fields["checkpoint"] = dict(block.checkpoint.__dict__)
+    else:
+        fields["provided"] = cfg.activation_checkpointing_provided
+    return fields
+
+
+@pytest.mark.parametrize("key,value", PORTED_CASES)
+def test_ported_block_parses_as_the_reference(key, value, monkeypatch):
+    monkeypatch.delenv(C.FAULT_PLAN_ENV, raising=False)
+    d = dict(BASE, **{key: value})
+    try:
+        want = _parsed(DeepSpeedTPUConfig(dict(d), world_size=1), key)
+    except Exception:                   # the reference refuses it
+        with pytest.raises(ConfigError):
+            DeepSpeedConfig(dict(d))
+        return
+    assert _parsed(DeepSpeedConfig(dict(d)), key) == want
+
+
 def test_cases_cover_every_unported_block():
     assert set(REFERENCE_ON) == set(C.NOT_YET_PORTED_BLOCKS)
     assert {k for k, _v in CASES} == set(C.NOT_YET_PORTED_BLOCKS)
+    assert not {k for k, _v in PORTED_CASES} & set(C.NOT_YET_PORTED_BLOCKS)
 
 
 @pytest.mark.parametrize("key,value", CASES)
@@ -142,7 +178,8 @@ def test_environment_turns_a_block_on_as_in_the_reference(env, key,
     environment arm the feature of a block that does not say ``enabled``,
     and with no block at all (the reference's engine arms its fault plan
     from the environment alone); an explicit ``enabled: false`` keeps
-    autotuning off."""
+    autotuning off. Autotuning is not ported and is refused; the fault
+    plan is, and the engine arms it."""
     monkeypatch.setenv(env, "1" if key == "autotuning" else
                        '{"preempt_at_step": 3}')
     d = dict(BASE, **{key: {"top_k": 3} if key == "autotuning"
@@ -151,8 +188,14 @@ def test_environment_turns_a_block_on_as_in_the_reference(env, key,
     if key == "autotuning":
         assert ref.autotuning.enabled
     for cfg in (d, BASE):               # with the block and without it
-        with pytest.raises(ConfigError, match="not yet ported"):
-            DeepSpeedConfig(dict(cfg))
+        if key == "autotuning":
+            with pytest.raises(ConfigError, match="not yet ported"):
+                DeepSpeedConfig(dict(cfg))
+        else:
+            engine = deepspeed_tpu_torch.initialize(
+                model=make_gpt("tiny")[0], config=dict(cfg),
+                device="cpu")[0]
+            assert engine.fault_plan.should_preempt(3)
     if key == "autotuning":
         off = dict(BASE, autotuning={"enabled": False})
         assert not DeepSpeedTPUConfig(dict(off),

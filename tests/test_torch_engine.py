@@ -210,8 +210,7 @@ def test_gradient_clipping_and_scheduler():
 # ``eigenvalue`` are read by no feature of the reference and always parse,
 # so their places hold a second value of another block.
 _ON = {"comm": {"hierarchical": "on"},
-       "activation_checkpointing": {"cpu_checkpointing": True},
-       "aio": ("resilience", {"fault_injection": {"preempt_at_step": 3}}),
+       "aio": ("elasticity", {"live": {"enabled": True}}),
        "compressed_allreduce": ("moe", {})}
 NOT_PORTED = [_ON[k] if isinstance(_ON.get(k), tuple)
               else (k, _ON.get(k, {"enabled": True}))
@@ -227,9 +226,11 @@ NOT_PORTED += [("pipeline", {"stages": 2}), ("mesh", {"model": 2}),
                ("memory_breakdown", True), ("dump_state", True),
                ("check_numerics", True), ("communication_data_type", "bf16"),
                ("legacy_fusion", True),
-               ("activation_checkpointing", {"partition_activations": True}),
+               ("telemetry", {"enabled": True, "dir": "run"}),
                ("quantize_training", {"enabled": True, "quantize_bits": 8}),
-               ("moe", False)]
+               ("moe", False), ("guardrails", {"enabled": True,
+                                               "detector": {}}),
+               ("flops_profiler", {"enabled": True, "profile_step": 2})]
 
 
 @pytest.mark.parametrize("key,value", NOT_PORTED)
@@ -381,9 +382,10 @@ def test_batch_triple_solved():
 
 def test_entry_point_walls():
     with pytest.raises(ConfigError, match="not yet ported"):
-        deepspeed_tpu_torch.initialize(model=make_gpt("tiny")[0],
-                                       config=_config(), device="cpu",
-                                       training_data=[1])
+        deepspeed_tpu_torch.initialize(
+            model=make_gpt("tiny")[0], device="cpu",
+            config=dict(_config(), resilience={
+                "fault_injection": {"nan_loss_at_step": 1}}))
     with pytest.raises(ConfigError, match="not yet ported"):
         _linear_engine(DeepSpeedConfig(_config(), world_size=2))
     with pytest.raises(ValueError, match="leading dim"):

@@ -195,11 +195,12 @@ def test_seeded_weights_have_the_flax_layout_and_distributions():
 
 
 @pytest.mark.parametrize("override", [
-    {"moe_experts": 4}, {"remat": True}, {"sparse_embedding_grad": True}])
+    {"moe_experts": 4}, {"moe_experts": 2}, {"sparse_embedding_grad": True}])
 def test_training_options_not_yet_ported(override):
-    """Each option is refused at construction. ``fused_ln`` and dropout
-    are ported: tests/test_torch_fused_ln.py holds fused_ln's values and
-    sites, tests/test_torch_dropout.py the dropout sites."""
+    """Each option is refused at construction. ``fused_ln``, dropout and
+    ``remat`` are ported: tests/test_torch_fused_ln.py holds fused_ln's
+    values and sites, tests/test_torch_dropout.py the dropout sites,
+    tests/test_torch_activation_checkpointing.py remat."""
     with pytest.raises(ConfigError, match="not yet ported"):
         model, _ = make_gpt("tiny", **override)
         model(torch.zeros(1, 4, dtype=torch.long), deterministic=False)

@@ -1,9 +1,11 @@
 """The port (deepspeed_tpu_torch) and chip_smoke.py stand alone: neither
 imports jax, flax or the JAX package deepspeed_tpu, whether serving (the
 bucketed path, with telemetry on too, and the chunked path with the int8
-pool and the prefix cache) or training (``initialize`` and one
+pool and the prefix cache), training (``initialize`` and one
 ``train_batch`` on the CPU: the GPT dense and with a ``sparse_attention``
-block, and BERT with LAMB)."""
+block, and BERT with LAMB) or checkpointing (a synchronous save and load,
+an auto checkpoint restored, and a supervised child that resumes from
+it)."""
 
 import ast
 import os
@@ -100,6 +102,47 @@ loss = engine.train_batch({"input_ids": ids,
                            "attention_mask": torch.ones_like(ids),
                            "labels": ids})
 assert torch.isfinite(loss) and type(_opt).__name__ == "FusedLamb"
+
+import json
+from deepspeed_tpu_torch.resilience import Supervisor
+CHILD = (
+    "import json, sys\n"
+    "before = set(sys.modules)\n"
+    "import torch, deepspeed_tpu_torch\n"
+    "from deepspeed_tpu_torch.models import make_gpt\n"
+    "engine = deepspeed_tpu_torch.initialize(\n"
+    "    model=make_gpt('tiny', dtype=torch.float32)[0], device='cpu',\n"
+    "    config=json.loads(sys.argv[1]))[0]\n"
+    "assert engine.auto_resume()[0] is not None\n"
+    "engine.train_batch({'input_ids': torch.randint(0, 512, (1, 2, 16))})\n"
+    "engine.ckpt_manager.close()\n"
+    "mods = sorted(m for m in set(sys.modules) - before\n"
+    "              if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+    "                                     'deepspeed_tpu'))\n"
+    "open(sys.argv[2], 'w').write(json.dumps(mods))\n")
+with tempfile.TemporaryDirectory() as ckpt:
+    conf = {"train_micro_batch_size_per_gpu": 2,
+            "gradient_accumulation_steps": 1,
+            "resilience": {"enabled": True,
+                           "checkpoint": {"dir": ckpt + "/auto"}}}
+    model, cfg = make_gpt("tiny", dtype=torch.float32)
+    engine = deepspeed_tpu_torch.initialize(
+        model=model, params=init_gpt_params(cfg, seed=0), device="cpu",
+        config=conf)[0]
+    engine.train_batch({"input_ids": torch.randint(0, 512, (1, 2, 16))})
+    engine.save_checkpoint(ckpt + "/sync")
+    engine.save_checkpoint_async()
+    engine.ckpt_manager.close()
+    again = deepspeed_tpu_torch.initialize(
+        model=make_gpt("tiny", dtype=torch.float32)[0], device="cpu",
+        config=conf)[0]
+    assert again.load_checkpoint(ckpt + "/sync")[0] is not None
+    assert again.auto_resume()[0] is not None
+    again.ckpt_manager.close()
+    sup = Supervisor([sys.executable, "-c", CHILD, json.dumps(conf),
+                      ckpt + "/child.json"], max_restarts=0)
+    assert sup.run() == 0
+    assert json.load(open(ckpt + "/child.json")) == []
 print(sorted(m for m in set(sys.modules) - before
              if m.split(".")[0] in ("jax", "jaxlib", "flax")
              or m == "deepspeed_tpu" or m.startswith("deepspeed_tpu.")))

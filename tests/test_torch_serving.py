@@ -215,7 +215,7 @@ def test_unported_config_keys_raise(tiny, config, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [{"mp_size": 2}, {"quantize": True},
-                                    {"checkpoint": "ckpt"}])
+                                    {"mp_size": 4}])
 def test_unported_inference_options_raise(tiny, kwargs):
     with pytest.raises(ConfigError, match="not yet ported"):
         _port_engine(tiny[3], **kwargs)
