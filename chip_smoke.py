@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only spec      # the build, then phase 3b only
     python3 chip_smoke.py --only telemetry # the build, then phase 3c only
     python3 chip_smoke.py --only bert      # the build, then phase 8 only
+    python3 chip_smoke.py --only serving   # the build, then phase 3 only
     python3 chip_smoke.py --only ckpt      # the build, then phase 9 only
     python3 chip_smoke.py --only sparse,chunked
 
@@ -81,13 +82,19 @@
      16384, 12, 64], bf16 and fp16, (d) [2, 2048, 12, 64], BigBird block
      64, bidirectional, with (b)'s key mask, bf16 and fp16, (e) [2, 2048,
      4, 128], BigBird block 128, causal, with the key mask, bf16 and fp16,
-     and (f) [1, 1024, 4, 72], ``fixed`` block 64, bf16; (d)-(f) also at
-     the split cap 4 (where the forward, dq and dk/dv all split); the
-     forward, dq and dk/dv on the route ``sparse_attention._route``
-     picks (16 bits at blocks of 64 and more: the tensor-core kernels of
-     ``csrc/sparse_attention_tc.cu``; fp32 and block 16:
+     (f) [1, 1024, 4, 72], ``fixed`` block 64, bf16, (g) [2, 1024, 12,
+     64], BigBird block 32, causal, with the key mask, bf16, and (h) [2,
+     1024, 4, 128], BigBird block 16, causal, with the key mask, bf16 and
+     fp16; (d)-(f) also at the split cap 4 (where the forward, dq and
+     dk/dv all split), (b), (g) and (h) at the 16-row kernels' cap of 1
+     step (dq and dk/dv split); the forward on the route
+     ``sparse_attention._route`` picks and dq and dk/dv on
+     ``_route_bwd``'s (16 bits at blocks of 64 and more: the tensor-core
+     kernels of ``csrc/sparse_attention_tc.cu``; 16 bits at other
+     multiples of 16: the FMA forward and the 16-row tensor-core dq and
+     dk/dv of ``csrc/sparse_attention_tc16.cu``; fp32:
      ``csrc/sparse_attention.cu``; each call counted by its route's
-     wrappers only); each kernel and, but at (c), the whole autograd
+     wrapper only); each kernel and, but at (c), the whole autograd
      path, with flash's tolerances, lse to 1e-5 (``SPARSE_LSE_TOL``),
      every output bit-equal over two launches, the all-padding rows o = 0
      and lse = -1e30 exactly; timed at (c) in bf16, the tensor-core
@@ -125,8 +132,14 @@
    - fp32 token identity of "kernel", "gather", chunked prefill at budget
      64 and ``generate``, except at a true tie of the top two logits;
    - the int8 pool: bucketed bf16 through kernel #1's int8 branch (no
-     gather), fp32 "kernel" vs "gather", and chunked fp32 with kernel #2
-     against its plain version swapped in (tie rule on the int8 model);
+     gather); chunked bf16 at budget 256 through kernel #2's int8 branch
+     (the run kernels over int8 pools, calls == ``mixed_steps *
+     num_layers``, no gather, no plain version; its mixed step and TTFT;
+     its tokens against the bucketed run under the bf16 tie rule,
+     BF16_TIE_STEPS; then every call held against its plain version on
+     the served pools); fp32 "kernel" vs "gather", and chunked fp32 with
+     kernel #2 against its plain version swapped in (tie rule on the int8
+     model);
    - a prefix trace (8 requests sharing a 512-token head), bucketed and
      chunked with ``prefix_cache``: >= 7 hits, tokens equal to the run
      without the cache (tie rule);
@@ -226,11 +239,14 @@
    share, a profiled step's top kernels, LAMB's and the whole apply's
    device ms and kernels; at seq 128 the matmuls by shape and a step on
    padded rows. Then seq 512 with the reference's fixed block-16 sparse
-   layout (#8-#10 on the FMA route, 192 each a step; the sparse/dense
-   ratio; the kernels held to their plain versions and timed at [8, 512,
-   16, 64] beside SDPA with the expanded mask: the ``_block16`` rows),
-   and the fp32 comparisons at bert-large width and 2 layers, dense
-   (flash on FMAs) and sparse, against the plain path.
+   layout (#8 on the FMA route, #9/#10 on the 16-row tensor-core route,
+   192 each a step, the FMA dq and dk/dv none; the sparse/dense ratio,
+   the idle share and the sparse kernels' device ms in a profiled step;
+   the kernels held to their plain versions and timed at [8, 512, 16,
+   64] beside the FMA dq and dk/dv on the same inputs and SDPA with the
+   expanded mask: the ``_block16`` and ``_tc16`` rows; the same at block
+   32, printed), and the fp32 comparisons at bert-large width and 2
+   layers, dense (flash on FMAs) and sparse, against the plain path.
 9. Checkpointing, the dataloader and preemption-safe training (``--only
    ckpt`` runs it alone; :func:`check_ckpt`): full-width, full-depth
    GPT-2 at phase 7's configuration fed by ``initialize(training_data=
@@ -268,11 +284,17 @@ version's route), which count phase 5's long steps. The first chunked-
 prefill kernel's row (``chunked_prefill_attention``) counts phase 3's
 fp32 chunked run and is timed on the bf16 inputs of the run kernels'
 row (``chunked_prefill_attention_tc``, which counts the bf16 chunked
-run). The verify row (``paged_decode_attention_verify``, kernel #1 at S =
+run); its int8 twin (``chunked_prefill_attention_tc_int8``, bf16 q over
+int8 pools) counts phase 3's bf16 chunked int8 run and is timed on int8
+pools. The verify row (``paged_decode_attention_verify``, kernel #1 at S =
 k + 1) counts the S = 5 launches of phase 3b's measured bf16 speculative
 run and is timed at S = 5 on the path's shapes. The ``_bert128`` /
-``_bert512`` flash rows count phase 8's seq-128 / seq-512 steps and the
-``_block16`` sparse rows its sparse steps.
+``_bert512`` flash rows count phase 8's seq-128 / seq-512 steps; of the
+sparse BERT rows, the FMA forward (``sparse_attention_fwd_block16``) and
+the 16-row dq and dk/dv (``sparse_attention_bwd_dq_tc16``,
+``sparse_attention_bwd_dkv_tc16``) count its sparse steps, and the FMA dq
+and dk/dv (``_block16``, their first versions, timed on the same inputs)
+its sparse fp32 comparison.
 """
 
 import json
@@ -911,7 +933,8 @@ def check_chunked_prefill(torch, reports):
     Then timing at the T=256 mixed step: the run kernels beside the first
     kernel on the same bf16 inputs (its first version), the plain version,
     SDPA per segment and the bound; and the decode rows' split counts.
-    ``reports``: the kernels line's rows, by route."""
+    ``reports``: the kernels line's rows, by route ("walk", "tc"), and
+    "tc_int8" for the run kernels over int8 pools."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -1063,6 +1086,14 @@ def check_chunked_prefill(torch, reports):
         bound_by=main["bound_by"], first_ms=main["first_ms"],
         max_abs_err=max(e for (r, lab, _s), e in worst.items()
                         if r == "tc" and not lab.startswith("int8")))
+    # the int8 branch's row: bf16 q over int8 pools on the run kernels
+    i8 = timings["int8 pools, bfloat16 q"]
+    reports["tc_int8"].update(
+        ms=i8["ms"], plain_ms=i8["plain_ms"], library_ms=i8["library_ms"],
+        bound_ms=i8["bound_ms"], bound_by=i8["bound_by"],
+        first_ms=i8["first_ms"],
+        max_abs_err=max(e for (r, lab, _s), e in worst.items()
+                        if r == "tc" and lab.startswith("int8")))
     # the first kernel's row: its own route's errors (fp32 q), its time on
     # the run kernels' bf16 inputs (the first version of that route)
     reports["walk"].update(
@@ -1892,15 +1923,22 @@ SPARSE_BIDIR = {"mode": "bigbird", "block": 64, "num_random_blocks": 1,
 # with (b)'s key mask: the tensor-core route's key-mask and non-causal
 # branches, (e) and (f) its other head dims: D = 128 (dq reads q and dO
 # from shared memory, dk/dv streams 32-query steps) causal with the key
-# mask, and D = 72 (zero-padded to 80). 16 bits take the tensor-core dq
-# and dk/dv at blocks of 64 and more, (b)'s the FMA kernels. ``caps``:
-# split caps the tensor-core kernels also run at (beside SPLIT_CAP).
+# mask, and D = 72 (zero-padded to 80); (g) BigBird at block 32, causal,
+# with the key mask (lists differ inside a 16-row item: the per-warp
+# bits at work) and (h) D = 128 at the BigBird block 16, causal, with the
+# key mask. 16 bits take the tensor-core dq and dk/dv: the 64-row kernels
+# at blocks of 64 and more, the 16-row kernels at (b), (g) and (h), whose
+# forward stays on the FMA kernel. ``caps``: split caps the tensor-core
+# kernels also run at (beside SPLIT_CAP): SPARSE_SMALL_CAP tiles of 64
+# rows on the 64-row route, SPARSE_SMALL_CAP16 steps of 64 rows on the
+# 16-row route.
 SPARSE_SMALL_CAP = 4             # every walk longer than 4 tiles splits
+SPARSE_SMALL_CAP16 = 1           # every walk longer than 4 blocks splits
 SPARSE_CASES = (
     ("a", 1, 4096, 12, 64, SPARSE_LONG, True, False,
      ("float32", "bfloat16", "float16"), ()),
     ("b", 2, 1024, 12, 64, {"mode": "fixed", "block": 16}, False, True,
-     ("float32", "bfloat16"), ()),
+     ("float32", "bfloat16"), (SPARSE_SMALL_CAP16,)),
     ("c", 1, SPARSE_SEQ, 12, 64, SPARSE_LONG, True, False,
      ("bfloat16", "float16"), ()),
     ("d", 2, 2048, 12, 64, SPARSE_BIDIR, False, True,
@@ -1908,11 +1946,17 @@ SPARSE_CASES = (
     ("e", 2, 2048, 4, 128, dict(SPARSE_LONG, block=128), True, True,
      ("bfloat16", "float16"), (SPARSE_SMALL_CAP,)),
     ("f", 1, 1024, 4, 72, {"mode": "fixed", "block": 64}, False, False,
-     ("bfloat16",), (SPARSE_SMALL_CAP,)))
+     ("bfloat16",), (SPARSE_SMALL_CAP,)),
+    ("g", 2, 1024, 12, 64, dict(SPARSE_LONG, block=32), True, True,
+     ("bfloat16",), (SPARSE_SMALL_CAP16,)),
+    ("h", 2, 1024, 4, 128, dict(SPARSE_LONG, block=16), True, True,
+     ("bfloat16", "float16"), (SPARSE_SMALL_CAP16,)))
 SPARSE_SWEEP_CAPS = (4, 8, 16, 32, 64, 128, None)   # None: no split
 SPARSE_TC_NAMES = ("sparse_attention_bwd_dq_tc",
                    "sparse_attention_bwd_dkv_tc")
 SPARSE_FMA_NAMES = ("sparse_attention_bwd_dq", "sparse_attention_bwd_dkv")
+SPARSE_TC16_NAMES = ("sparse_attention_bwd_dq_tc16",
+                     "sparse_attention_bwd_dkv_tc16")
 
 
 def sparse_module():
@@ -1980,21 +2024,31 @@ def same_bits(torch, a, b):
     return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
 
 
-def check_sparse_attention(torch, reports):
-    """Kernels #8-#10 against their plain versions in SPARSE_CASES: each
+def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
+    """Kernels #8-#10 against their plain versions in ``cases``: each
     kernel and, but at (c), the whole autograd path, with flash's
-    tolerances; dq and dk/dv on the route ``sparse_attention._route``
-    picks (each call counted by that route's wrappers only), (d)-(f) on
-    the tensor cores also at SPARSE_SMALL_CAP; every output bit-equal over
-    two launches. Then timing at (c), the path's shape, and the sweep of the
+    tolerances; the forward on the route ``sparse_attention._route``
+    picks, dq and dk/dv on ``_route_bwd``'s (each call counted by its
+    route's wrapper only), the tensor-core kernels also at their small
+    caps; every output bit-equal over two launches. Then, with
+    ``timing``, timing at (c), the path's shape, and the sweep of the
     split cap (:func:`time_sparse`). ``reports``: the kernels line's rows
-    ("fwd", "dq", "dkv" for the FMA kernels, "dq_tc", "dkv_tc")."""
+    ("fwd", "dq", "dkv" for the FMA kernels, "fwd_tc", "dq_tc",
+    "dkv_tc")."""
     sp = sparse_module()
-    routes = {"fma": (sp.sparse_attention_fwd, sp.sparse_attention_bwd_dq,
-                      sp.sparse_attention_bwd_dkv),
-              "tc": (sp.sparse_attention_fwd_tc,
+    counters = {("fwd", "fma"): sp.sparse_attention_fwd,
+                ("fwd", "tc"): sp.sparse_attention_fwd_tc,
+                ("dq", "fma"): sp.sparse_attention_bwd_dq,
+                ("dq", "tc"): sp.sparse_attention_bwd_dq_tc,
+                ("dq", "tc16"): sp.sparse_attention_bwd_dq_tc16,
+                ("dkv", "fma"): sp.sparse_attention_bwd_dkv,
+                ("dkv", "tc"): sp.sparse_attention_bwd_dkv_tc,
+                ("dkv", "tc16"): sp.sparse_attention_bwd_dkv_tc16}
+    at_cap = {"tc": (sp.sparse_attention_fwd_tc,
                      sp.sparse_attention_bwd_dq_tc,
-                     sp.sparse_attention_bwd_dkv_tc)}   # fwd, dq, dk/dv
+                     sp.sparse_attention_bwd_dkv_tc),
+              "tc16": (None, sp.sparse_attention_bwd_dq_tc16,
+                       sp.sparse_attention_bwd_dkv_tc16)}
     worst = {}
 
     def hold(key, case, name, route, got, ref):
@@ -2020,14 +2074,15 @@ def check_sparse_attention(torch, reports):
             worst[(key, name, route)] = (err, rms, rel)
 
     for (case, b, s, h, d, block_cfg, causal, masked, dtypes,
-         caps) in SPARSE_CASES:
+         caps) in cases:
         scale = 1.0 / d ** 0.5
         layout = sparse_layout(block_cfg, h, s)
         block = block_cfg["block"]
         plan = sp.sparse_plan(layout, block)
         for name in dtypes:
             dtype = getattr(torch, name)
-            route = sp._route(dtype, d, block)
+            fwd_route = sp._route(dtype, d, block)
+            route = sp._route_bwd(dtype, d, block)
             qkv, q, k, v, dout, mask = flash_case(
                 torch, dtype, b, s, h, d,
                 seed=s + masked if d == 64 else s + d, masked=masked,
@@ -2037,19 +2092,21 @@ def check_sparse_attention(torch, reports):
             qp, kp, vp, mp = sp._prepare(q, k, v, mask, plan)
             if qp.data_ptr() != q.data_ptr():
                 fail("sparse_attention copied an aligned strided view")
-            before = {r: [w.launches for w in ws] for r, ws in routes.items()}
+            before = {key: w.launches for key, w in counters.items()}
             out, lse = sp.sparse_attention_fwd(qp, kp, vp, mp, plan, causal,
                                                scale)
             delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
             args = (dout, mp, lse, delta.contiguous(), plan, causal, scale)
             dq = sp.sparse_attention_bwd_dq(qp, kp, vp, *args)
             dk, dv = sp.sparse_attention_bwd_dkv(qp, kp, vp, *args)
-            grew = {r: [w.launches - n for w, n in zip(ws, before[r])]
-                    for r, ws in routes.items()}
-            if any(grew[r] != ([1, 1, 1] if r == route else [0, 0, 0])
-                   for r in routes):
-                fail(f"sparse {case} {name}: routed to {route}, launches "
-                     f"{grew}")
+            grew = {f"{k}/{r}": w.launches - before[(k, r)]
+                    for (k, r), w in counters.items()}
+            want = {f"{k}/{r}": int(r == (fwd_route if k == "fwd" else
+                                          route))
+                    for k, r in counters}
+            if grew != want:
+                fail(f"sparse {case} {name}: routed to {fwd_route} (fwd) "
+                     f"and {route} (dq, dk/dv), launches {grew}")
             got = {"fwd": out, "dq": dq, "dk": dk, "dv": dv}
             lses = {"": (lse,)}
             again = dict(zip(("fwd", "lse"), sp.sparse_attention_fwd(
@@ -2058,22 +2115,32 @@ def check_sparse_attention(torch, reports):
             again["dq"] = sp.sparse_attention_bwd_dq(qp, kp, vp, *args)
             again["dk"], again["dv"] = sp.sparse_attention_bwd_dkv(
                 qp, kp, vp, *args)
-            for cap in caps if route == "tc" else ():
-                for which in ("fwd", "dq", "dkv"):   # all three split here
-                    if not plan.work(which, causal, cap).n_split:
+            if route == "tc16":
+                w16 = [plan.work16(w, causal) for w in ("dq", "dkv")]
+                print(f"sparse_attention {case} {name}: 16-row work lists "
+                      f"(dq, dk/dv): items {[w.n_items for w in w16]}, "
+                      f"masked share "
+                      f"{[round(w.masked_share, 4) for w in w16]}")
+            for cap in caps if route in at_cap else ():
+                fwd_c, dq_c, dkv_c = at_cap[route]
+                works = plan.work16 if route == "tc16" else plan.work
+                # every walk of the route's kernels splits here
+                for which in ("fwd", "dq", "dkv") if fwd_c else ("dq",
+                                                                 "dkv"):
+                    if not works(which, causal, cap).n_split:
                         fail(f"sparse {case}: the {which} walks do not "
                              f"split at cap {cap}")
                 tag = f" cap {cap}"
-                lses[tag] = ()
+                if fwd_c:
+                    lses[tag] = ()
                 for sink in (got, again):
-                    sink["fwd" + tag], lse_c = sp.sparse_attention_fwd_tc(
-                        qp, kp, vp, mp, plan, causal, scale, cap=cap)
-                    lses[tag] += (lse_c,)
-                    sink["dq" + tag] = sp.sparse_attention_bwd_dq_tc(
+                    if fwd_c:
+                        sink["fwd" + tag], lse_c = fwd_c(
+                            qp, kp, vp, mp, plan, causal, scale, cap=cap)
+                        lses[tag] += (lse_c,)
+                    sink["dq" + tag] = dq_c(qp, kp, vp, *args, cap=cap)
+                    sink["dk" + tag], sink["dv" + tag] = dkv_c(
                         qp, kp, vp, *args, cap=cap)
-                    sink["dk" + tag], sink["dv" + tag] = \
-                        sp.sparse_attention_bwd_dkv_tc(qp, kp, vp, *args,
-                                                       cap=cap)
             torch.cuda.synchronize()
             for tag, (first, second) in lses.items():
                 if not same_bits(torch, first, second):
@@ -2109,32 +2176,37 @@ def check_sparse_attention(torch, reports):
                     fail(f"sparse lse{tag} {case} {name}: empty rows differ")
                 lse_err = (got_lse - want_lse)[seen].abs().max().item()
                 if not lse_err <= SPARSE_LSE_TOL:
-                    fail(f"sparse lse{tag} {case} {name} ({route}): max "
+                    fail(f"sparse lse{tag} {case} {name} ({fwd_route}): max "
                          f"|err| {lse_err}")
-                if lse_err >= worst.get(("lse", name, route), (0.0,))[0]:
-                    worst[("lse", name, route)] = (lse_err, 0.0, 0.0)
+                if lse_err >= worst.get(("lse", name, fwd_route), (0.0,))[0]:
+                    worst[("lse", name, fwd_route)] = (lse_err, 0.0, 0.0)
             for key, (t, r) in pairs.items():
-                hold(key, case, name, route, t, r)
+                hold(key, case, name, fwd_route if key.startswith("fwd")
+                     or key == "autograd out" else route, t, r)
             if masked:
                 if any(t[1].abs().max().item() != 0.0
                        for t in got.values()):
                     fail(f"sparse {case} {name}: the all-padding batch row "
                          f"is not exactly zero")
-                print(f"sparse_attention {case} {name} ({route}): batch row "
-                      f"1 (all padding): {', '.join(got)} exactly 0, lse "
-                      f"-1e30")
+                print(f"sparse_attention {case} {name} ({fwd_route} fwd, "
+                      f"{route} dq and dk/dv): batch row 1 (all padding): "
+                      f"{', '.join(got)} exactly 0, lse -1e30")
             del qkv, q, k, v, dout, out, lse, want, want_lse, dq, dk, dv
             del lses
             del dq_w, dk_w, dv_w, pairs, got, again, ref
             torch.cuda.empty_cache()
-    print(f"sparse_attention worst errors over SPARSE_CASES ((a) "
-          f"[1,4096,12,64] bigbird-256 causal, (b) [2,1024,12,64] fixed-16 "
-          f"bidirectional with a key mask, (c) [1,16384,12,64] bigbird-256 "
-          f"causal, (d) [2,2048,12,64] bigbird-64 bidirectional with a key "
-          f"mask, (e) [2,2048,4,128] bigbird-128 causal with a key mask, "
-          f"(f) [1,1024,4,72] fixed-64 bidirectional; (d)-(f) also at cap "
-          f"{SPARSE_SMALL_CAP}), dO x 0.1 in fp32 and x 1 in 16 bits; each "
-          f"output by dtype and route:")
+    print(f"sparse_attention worst errors over the cases "
+          f"{[c[0] for c in cases]} of SPARSE_CASES ((a) [1,4096,12,64] "
+          f"bigbird-256 causal, (b) [2,1024,12,64] fixed-16 bidirectional "
+          f"with a key mask, (c) [1,16384,12,64] bigbird-256 causal, (d) "
+          f"[2,2048,12,64] bigbird-64 bidirectional with a key mask, (e) "
+          f"[2,2048,4,128] bigbird-128 causal with a key mask, (f) "
+          f"[1,1024,4,72] fixed-64 bidirectional, (g) [2,1024,12,64] "
+          f"bigbird-32 causal with a key mask, (h) [2,1024,4,128] "
+          f"bigbird-16 causal with a key mask; (d)-(f) also at cap "
+          f"{SPARSE_SMALL_CAP}, (b), (g), (h) at cap {SPARSE_SMALL_CAP16}), "
+          f"dO x 0.1 in fp32 and x 1 in 16 bits; each output by dtype and "
+          f"route:")
     for key, name, route in sorted(worst):
         err, rms, rel = worst[(key, name, route)]
         path = "autograd" if key.startswith("autograd") else "kernel"
@@ -2144,7 +2216,9 @@ def check_sparse_attention(torch, reports):
                f"{FLASH_16BIT_RMS_TOL[path]}")
         print(f"  {key} {name} ({route}): max |err| {err:.3g}, reference "
               f"RMS {rms:.3g} ({lim})")
-    time_sparse(torch, sp, reports, worst)
+    if timing:
+        time_sparse(torch, sp, reports, worst)
+    return worst
 
 
 def time_sparse(torch, sp, reports, worst):
@@ -3068,12 +3142,24 @@ def top2_gap(torch, engine, prefix) -> float:
 
 
 def int8_gap(torch, srv, chunked):
-    """Top-2 logit gap of the int8 pool's model at a prefix, the way the
-    serving path computes it (through the plain gather path, fp32):
-    chunked, every token attends over pool K/V quantized when written;
-    bucketed, the prompt attends over its own unquantized dense cache,
-    is packed into the pool quantized, and each later token attends over
-    the pool."""
+    """Top-2 logit gap of the int8 pool's model at a prefix
+    (:func:`int8_logits`)."""
+    logits = int8_logits(torch, srv, chunked)
+
+    def gap(prefix, prompt_len):
+        top = torch.topk(logits(prefix, prompt_len), 2).values
+        return float(top[0] - top[1])
+
+    return gap
+
+
+def int8_logits(torch, srv, chunked):
+    """The int8 pool's model's next-token logits (fp32) at a prefix, the
+    way the serving path computes them (through the plain gather path, in
+    the engine's dtype): chunked, every token attends over pool K/V
+    quantized when written; bucketed, the prompt attends over its own
+    unquantized dense cache, is packed into the pool quantized, and each
+    later token attends over the pool."""
     from deepspeed_tpu_torch.models import init_kv_cache
     from deepspeed_tpu_torch.serving.kv_cache import (PagedLayerCache,
                                                       init_paged_pools,
@@ -3081,7 +3167,7 @@ def int8_gap(torch, srv, chunked):
 
     cfg, bs = srv.model_cfg, srv.block_size
 
-    def gap(prefix, prompt_len):
+    def logits_at(prefix, prompt_len):
         n = len(prefix)
         nb = -(-n // bs)
         pools = init_paged_pools(cfg, nb + 1, bs, int8=True, device="cuda")
@@ -3110,10 +3196,9 @@ def int8_gap(torch, srv, chunked):
                              torch.stack([c[1][0] for c in dense]))
                 if n > prompt_len:
                     logits = paged(prompt_len)
-        top = torch.topk(logits.float(), 2).values
-        return float(top[0] - top[1])
+        return logits.float()
 
-    return gap
+    return logits_at
 
 
 def check_identity(torch, engine, name, got, want, prompt_lens, gap=None):
@@ -3154,11 +3239,13 @@ def quantile(xs, f):
     return xs[lo] + (xs[hi] - xs[lo]) * (x - lo)
 
 
-def kernel_stats(events, steps, wall_us, annotations=()):
+def kernel_stats(events, steps, wall_us, annotations=(), pick=()):
     """Device busy time (union of kernel intervals), idle share and the
     top kernels by device time, per step, from profiler events; the
     device-side spans of the ``record_function`` ranges named in
-    ``annotations`` are not kernels and are left out."""
+    ``annotations`` are not kernels and are left out. ``pick``: names
+    whose kernels' device ms per step (every kernel whose name holds the
+    name) are added under ``picked_ms_per_step``."""
     from torch.autograd import DeviceType
 
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
@@ -3178,12 +3265,17 @@ def kernel_stats(events, steps, wall_us, annotations=()):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"steps": steps, "step_ms": wall_us / steps / 1e3,
-            "device_busy_ms_per_step": busy / steps / 1e3,
-            "device_idle_share": 1.0 - busy / wall_us,
-            "kernels_per_step": len(kernels) / steps,
-            "top_kernels_ms_per_step": {n[:70]: t / steps / 1e3
-                                        for n, t in top}}
+    out = {"steps": steps, "step_ms": wall_us / steps / 1e3,
+           "device_busy_ms_per_step": busy / steps / 1e3,
+           "device_idle_share": 1.0 - busy / wall_us,
+           "kernels_per_step": len(kernels) / steps,
+           "top_kernels_ms_per_step": {n[:70]: t / steps / 1e3
+                                       for n, t in top}}
+    if pick:
+        out["picked_ms_per_step"] = {
+            p: sum(t for n, t in by_name.items() if p in n) / steps / 1e3
+            for p in pick}
+    return out
 
 
 def profile_steps(torch, srv, steps, what, check):
@@ -3378,8 +3470,8 @@ def check_serving(torch):
     # (measured second), fp32 kernel vs gather, chunked fp32 kernel #2 vs
     # its plain version swapped in
     serve(torch, bf16, "kernel", params, requests, int8_kv_cache=True)
-    _srv, _toks, m = serve(torch, bf16, "kernel", params, requests,
-                           int8_kv_cache=True)
+    srv_i8b, toks_i8b, m = serve(torch, bf16, "kernel", params, requests,
+                                 int8_kv_cache=True)
     int8 = {"dtype": "bfloat16", "kernel_steps": m["kernel_steps"],
             "kernel_launches": m["launches"]["paged_decode_attention"],
             "decode_step_ms_median": median(m["step_ms"]),
@@ -3389,6 +3481,8 @@ def check_serving(torch):
     print(f"serving bf16 int8 pool, kernel (int8 launches == kernel_steps "
           f"x 12, no gather): {json.dumps(int8)}")
     out["int8"] = int8
+    out["int8_chunked"] = check_int8_chunked_bf16(torch, params, requests,
+                                                  srv_i8b, toks_i8b)
     # fp32: runs of the int8 pool that differ only in fp32 summation
     # order do not stay token-identical at ties alone. Every new K/V row
     # is requantized: a value on a half step whose fp32 rounding differs
@@ -3460,6 +3554,95 @@ def check_serving(torch):
     out["decode_profile"] = profile_decode(torch, params, requests)
     out["chunked_profile"] = profile_chunked(torch, params, requests)
     return out
+
+
+# a first difference between two bf16 int8-pool paths is a tie when each
+# served token is its own path's choice between the two, by the plain
+# model's logits there, within this many bf16 rounding steps of the top
+# logit (the kernel path and the plain gather path round the same sums at
+# other places)
+BF16_TIE_STEPS = 8
+
+
+def check_bf16_int8_ties(torch, name, srv_c, srv_b, got, want, plens):
+    """The bf16 tie rule between the chunked (``got``, served by ``srv_c``)
+    and bucketed (``want``, ``srv_b``) int8-pool paths: the two models
+    differ (the bucketed prompt attends over its unquantized dense cache,
+    the chunked one over the quantized pool), so rows may diverge, but at
+    a request's first difference each served token must be its own
+    model's choice between the two tokens (:func:`int8_logits`, the plain
+    gather path) within BF16_TIE_STEPS bf16 steps of the top logit.
+    Returns (requests differing, worst margin in steps)."""
+    lc = int8_logits(torch, srv_c, True)
+    lb = int8_logits(torch, srv_b, False)
+    differ, worst = 0, 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        at = first_diff(a, b)
+        if at is None and len(a) == len(b):
+            continue
+        if at is None or at < plens[i]:
+            fail(f"{name}: request {i} differs in length or prompt")
+        c_logits, b_logits = lc(a[:at], plens[i]), lb(a[:at], plens[i])
+        ta, tb = a[at], b[at]
+        step = float(round_step(torch, c_logits.abs().max()))
+        # how far each path's plain model prefers the other path's token
+        miss = max(float(c_logits[tb] - c_logits[ta]),
+                   float(b_logits[ta] - b_logits[tb])) / step
+        print(f"{name}: request {i} first differs at position {at} "
+              f"(tokens {ta} / {tb}): the chunked model prefers its token by "
+              f"{float(c_logits[ta] - c_logits[tb]):.4g}, the bucketed "
+              f"model its own by {float(b_logits[tb] - b_logits[ta]):.4g} "
+              f"(a bf16 step of the top logit {step:.3g})")
+        if miss > BF16_TIE_STEPS:
+            fail(f"{name}: request {i} differs at {at} where a path's "
+                 f"plain model prefers the other token by {miss:.3g} bf16 "
+                 f"steps > {BF16_TIE_STEPS} (not a tie)")
+        differ += 1
+        worst = max(worst, miss)
+    return differ, worst
+
+
+def check_int8_chunked_bf16(torch, params, requests, srv_b, toks_b):
+    """Kernel #2's int8 branch on the served trace: the bf16 trace over the
+    int8 pool at ``chunked_prefill: {token_budget: 256}`` (the run kernels
+    over int8 pools; measured second): launches == mixed_steps x 12, no
+    plain version, no gather, no dense attention; its mixed step and TTFT;
+    its tokens against the int8 bucketed bf16 run (``srv_b``, ``toks_b``)
+    under the bf16 tie rule (:func:`check_bf16_int8_ties`). Then the same
+    trace with every kernel call held against its plain version on the
+    served pools (bf16 2e-2)."""
+    from deepspeed_tpu_torch.ops.transformer import chunked_prefill
+
+    bf16 = torch.bfloat16
+    cfg = {"int8_kv_cache": True, "chunked_prefill": {"token_budget": 256}}
+    if chunked_prefill._route(bf16, torch.int8, 64) != "tc":
+        fail("bf16 q over int8 pools does not take the run kernels")
+    serve(torch, bf16, "kernel", params, requests, **cfg)
+    srv, toks, m = serve(torch, bf16, "kernel", params, requests, **cfg)
+    plens = [len(p) for p, _ in requests]
+    differ, worst = check_bf16_int8_ties(
+        torch, "bf16 int8 chunked@256 vs int8 bucketed", srv, srv_b, toks,
+        toks_b, plens)
+    _srv, _toks, mb = serve(torch, bf16, "kernel", params, requests,
+                            attention="both", **cfg)
+    row = {"dtype": "bfloat16", "token_budget": 256,
+           "mixed_steps": m["mixed_steps"],
+           "kernel_launches": m["launches"]["chunked_prefill_attention_tc"],
+           **step_summary(m),
+           "requests_differing_from_bucketed": differ,
+           "worst_tie_margin_bf16_steps": worst,
+           "held_calls": mb["checked_calls"],
+           "held_max_abs_err": mb["max_err"]}
+    print(f"serving bf16 int8 pool chunked at budget 256 (kernel #2's int8 "
+          f"branch: the run kernels over int8 pools, calls == mixed_steps x "
+          f"12, no gather, no plain version; then each call held against "
+          f"its plain version on the served pools, bf16 2e-2): "
+          f"{json.dumps(row)}")
+    print(f"serving bf16 int8 chunked at budget 256: mixed step median "
+          f"{row.get('step_ms_median', float('nan')):.2f} ms, TTFT median "
+          f"{row.get('ttft_ms_median', float('nan')):.1f} ms; "
+          f"{row['kernel_launches']} run-kernel calls over int8 pools")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -3953,6 +4136,8 @@ KERNELS = (
      "deepspeed_tpu/ops/transformer/chunked_prefill.py:65"),
     ("paged_decode_attention_verify", "paged_attention",
      "deepspeed_tpu/ops/transformer/paged_attention.py:69"),
+    ("chunked_prefill_attention_tc_int8", "chunked_prefill",
+     "deepspeed_tpu/ops/transformer/chunked_prefill.py:65"),
 ) + tuple(
     (f"{name}_{label}", "flash_attention_tc",
      f"deepspeed_tpu/ops/transformer/flash_attention.py:{line}")
@@ -3966,6 +4151,10 @@ KERNELS = (
      "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:147"),
     ("sparse_attention_bwd_dkv_block16", "sparse_attention",
      "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:194"),
+    ("sparse_attention_bwd_dq_tc16", "sparse_attention_tc16",
+     "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:147"),
+    ("sparse_attention_bwd_dkv_tc16", "sparse_attention_tc16",
+     "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:194"),
 )
 # the flash kernels of the 16-bit training step: the tensor-core forward,
 # dq and dk/dv; the FMA kernels take the fp32 path
@@ -3977,7 +4166,7 @@ FLASH_FMA_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
 FUSED_LN_TC_NAMES = FUSED_LN_ROUTES["fused_ln_tc"]
 # the sources whose ptxas report is printed kernel by kernel
 TC_SOURCES = ("flash_attention_tc", "fused_ln_tc", "sparse_attention_tc",
-              "chunked_prefill")
+              "sparse_attention_tc16", "chunked_prefill")
 
 
 # ---------------------------------------------------------------------------
@@ -4241,6 +4430,9 @@ def training_counters():
             "sparse_attention_bwd_dkv": sp.sparse_attention_bwd_dkv,
             "sparse_attention_bwd_dq_tc": sp.sparse_attention_bwd_dq_tc,
             "sparse_attention_bwd_dkv_tc": sp.sparse_attention_bwd_dkv_tc,
+            "sparse_attention_bwd_dq_tc16": sp.sparse_attention_bwd_dq_tc16,
+            "sparse_attention_bwd_dkv_tc16":
+                sp.sparse_attention_bwd_dkv_tc16,
             "fused_adam": fused_adam_apply,
             "fused_ln_matmul_fwd": fused.ln_matmul_fwd,
             "fused_ln_matmul_bwd": fused.ln_matmul_bwd,
@@ -4293,9 +4485,10 @@ def counted_steps(torch, engine, batches, per_step, what, warmup, steps):
     return step_ms, losses, launches
 
 
-def profile_step(torch, engine, batches, what):
+def profile_step(torch, engine, batches, what, pick=()):
     """Device busy share and device time by kernel of one profiled
-    ``train_batch``; returns the stats, or None without device events."""
+    ``train_batch`` (``pick``: as :func:`kernel_stats`); returns the
+    stats, or None without device events."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -4304,7 +4497,7 @@ def profile_step(torch, engine, batches, what):
         engine.train_batch(batches)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    stats = kernel_stats(prof.events(), 1, wall_us)
+    stats = kernel_stats(prof.events(), 1, wall_us, pick=pick)
     if stats is None:
         print(f"{what} profile: the profiler recorded no device events; "
               f"device busy share not measured")
@@ -4766,9 +4959,17 @@ BERT_SPARSE = {"mode": "fixed", "block": 16,
                "num_global_blocks": 1, "attention": "bidirectional",
                "horizontal_global_attention": False,
                "num_different_global_patterns": 4}
+# the sparse BERT step's kernels by CUDA function name (profiler names
+# hold them): #8 on FMAs, #9/#10 on the 16-row tensor-core kernels and
+# their second pass
+SPARSE_PROFILE_KERNELS = ("sparse_fwd_kernel", "sparse_dq_tc16_kernel",
+                          "sparse_dkv_tc16_kernel", "sparse_reduce16_kernel",
+                          "sparse_bwd_dq_kernel", "sparse_bwd_dkv_kernel")
 SPARSE_BLOCK16_ROWS = {"fwd": "sparse_attention_fwd_block16",
                        "dq": "sparse_attention_bwd_dq_block16",
-                       "dkv": "sparse_attention_bwd_dkv_block16"}
+                       "dkv": "sparse_attention_bwd_dkv_block16",
+                       "dq_tc16": "sparse_attention_bwd_dq_tc16",
+                       "dkv_tc16": "sparse_attention_bwd_dkv_tc16"}
 
 
 def bert_batches(torch, cfg, gas, micro, seq, padded=False):
@@ -4852,10 +5053,12 @@ def apply_cost(torch, engine):
 def bert_run(torch, card, seq, micro, sd, sparse=None):
     """One bench_bert configuration: BERT_WARMUP, then BERT_STEPS counted
     and timed steps (:func:`counted_steps`: flash #3-#5 on the
-    tensor-core route, or with ``sparse`` #8-#10 on the FMA route, 24
-    layers x GAS 8 = 192 launches each a step; every other kernel and
-    every plain version none; the loss falls), a profiled step, LAMB's
-    cost, and at seq 128 the matmuls by shape and one step on padded
+    tensor-core route, or with ``sparse`` #8 on the FMA route and #9/#10
+    on the 16-row tensor-core route, 24 layers x GAS 8 = 192 launches
+    each a step; every other kernel, the FMA dq and dk/dv included, and
+    every plain version none; the loss falls), a profiled step (with
+    ``sparse``, the sparse kernels' device ms in it), LAMB's cost, and at
+    seq 128 the matmuls by shape and one step on padded
     rows (the key mask at work: 192 launches each, no plain version, a
     finite loss). ``sd``: the weights (:func:`bert_engine`). Returns the
     run's record."""
@@ -4868,7 +5071,7 @@ def bert_run(torch, card, seq, micro, sd, sparse=None):
              "the sparse_attention block")
     gas = BERT_CONFIG["gradient_accumulation_steps"]
     batches = bert_batches(torch, cfg, gas, micro, seq)
-    kernels = (("sparse_attention_fwd",) + SPARSE_FMA_NAMES if sparse
+    kernels = (("sparse_attention_fwd",) + SPARSE_TC16_NAMES if sparse
                else FLASH_NAMES)
     per_step = {name: 0 for name in training_counters()}
     per_step.update({name: cfg.num_layers * gas for name in kernels})
@@ -4898,16 +5101,24 @@ def bert_run(torch, card, seq, micro, sd, sparse=None):
     print(f"{what} (initialize -> train_batch, bench_bert's config): "
           f"{json.dumps(rec)}")
     t0 = time.perf_counter()
-    stats = profile_step(torch, engine, batches, what)
+    stats = profile_step(torch, engine, batches, what,
+                         pick=SPARSE_PROFILE_KERNELS if sparse else ())
     if stats is None:
         fail(f"{what}: the profiler recorded no device events")
     busy = stats["device_busy_ms_per_step"]
+    if sparse:
+        rec["sparse_kernels_device_ms"] = stats["picked_ms_per_step"]
     rec.update(apply_cost(torch, engine), device_busy_ms=busy,
                profiled_idle_share=stats["device_idle_share"],
                kernels_per_step=stats["kernels_per_step"],
                # the unprofiled step against the profiled step's busy time
                device_idle_share=1.0 - busy / med)
     rec["lamb_share_of_busy"] = rec["lamb_device_ms"] / busy
+    if sparse:
+        print(f"{what} ({card}): the sparse kernels' device ms in the "
+              f"profiled step: "
+              f"{json.dumps(rec['sparse_kernels_device_ms'])} (busy "
+              f"{busy:.2f} ms)")
     print(f"{what} ({card}): device busy {busy:.2f} ms of the median step "
           f"{med:.2f} ms: idle share {rec['device_idle_share']:.4f} "
           f"({rec['profiled_idle_share']:.4f} under the profiler), "
@@ -4942,26 +5153,36 @@ def bert_run(torch, card, seq, micro, sd, sparse=None):
     return rec
 
 
-def time_sparse_block16(torch, reports):
-    """#8-#10 on the FMA route at the sparse BERT shape [8, 512, 16, 64]
-    bf16 with BERT_SPARSE's layout (a pattern per head), non-causal under
-    a key mask (rows padded from lengths in [256, 512]): each held to its
-    plain version (one bf16 rounding step + 1e-3 of the reference's RMS,
-    bit-equal over two launches), then timed as device time over 4
-    layers' inputs beside the plain version (host-paced), SDPA with the
-    layout-expanded mask (the forward, and its whole backward for dq and
-    dk/dv) and the bound (pairs counted from the layout and the mask)."""
+def time_sparse_block16(torch, reports, block=16):
+    """#8-#10 at the sparse BERT shape [8, 512, 16, 64] bf16 with
+    BERT_SPARSE's layout (a pattern per head) at ``block`` (16, its own;
+    32 for the 16-row kernels' block-32 reading), non-causal under a key
+    mask (rows padded from lengths in [256, 512]): the forward on its FMA
+    route, dq and dk/dv on their 16-row tensor-core route and, on the
+    same inputs, on the FMA kernels (their first versions). Each held to
+    its plain version (one bf16 rounding step + 1e-3 of the reference's
+    RMS, bit-equal over two launches), the 16-row kernels also at
+    SPARSE_SMALL_CAP16 (split items summed by the second pass); then timed
+    as device time over 4 layers' inputs beside the plain version
+    (host-paced), SDPA with the layout-expanded mask (the forward, and
+    its whole backward for dq and dk/dv) and the bound (pairs counted from
+    the layout and the mask). Prints each 16-row work list's items,
+    longest walk, split items and masked share. Fills the kernels line's
+    rows in ``reports`` (None: print only). Returns the device ms by
+    row."""
     import numpy as np
     import torch.nn.functional as F
 
     sp = sparse_module()
     b, s, h, d = 8, 512, 16, 64
-    block = BERT_SPARSE["block"]
     scale = 1.0 / d ** 0.5
-    layout = sparse_layout(BERT_SPARSE, h, s)
+    cfg = dict(BERT_SPARSE, block=block)
+    layout = sparse_layout(cfg, h, s)
     plan = sp.sparse_plan(layout, block)
-    if sp._route(torch.bfloat16, d, block) != "fma":
-        fail("sparse BERT: block 16 does not take the FMA route")
+    if sp._route(torch.bfloat16, d, block) != "fma" or \
+            sp._route_bwd(torch.bfloat16, d, block) != "tc16":
+        fail(f"sparse BERT: block {block} does not take the FMA forward "
+             f"and the 16-row tensor-core backward")
     lens = np.random.default_rng(5).integers(s // 2, s + 1, b)
     mask = torch.from_numpy(np.arange(s)[None] < lens[:, None]).cuda()
     layers = []
@@ -4973,34 +5194,61 @@ def time_sparse_block16(torch, reports):
         delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
         layers.append((q, k, v, dout, km, lse, delta.contiguous(), plan,
                        False, scale))
-    q, k, v, dout, km, lse, delta = layers[0][:7]
-    args = layers[0][4:]
-    outs = {"fwd": [sp.sparse_attention_fwd(q, k, v, km, plan, False,
-                                            scale)[0] for _ in range(2)],
-            "dq": [sp.sparse_attention_bwd_dq(q, k, v, dout, *args)
-                   for _ in range(2)],
-            "dkv": [torch.cat(sp.sparse_attention_bwd_dkv(q, k, v, dout,
-                                                          *args), -1)
-                    for _ in range(2)]}
-    refs = {"fwd": sp.sparse_fwd_reference(q, k, v, km, plan, False,
-                                           scale)[0],
-            "dq": sp.sparse_bwd_dq_reference(q, k, v, dout, *args),
-            "dkv": torch.cat(sp.sparse_bwd_dkv_reference(q, k, v, dout,
-                                                         *args), -1)}
+    a = layers[0]
+    fwd_args = (*a[:3], a[4], plan, False, scale)
+    small = SPARSE_SMALL_CAP16
+    for which in ("dq", "dkv"):
+        for cap in (None, small):
+            w = plan.work16(which, False, cap)
+            print(f"sparse_attention {which} 16-row work list at the sparse "
+                  f"BERT layout, block {block}, cap {cap or sp.SPLIT_CAP}: "
+                  f"{w.n_items} "
+                  f"items, longest walk {w.longest} steps of 64 rows, "
+                  f"{w.n_split} split items in {w.n_slots} pieces, masked "
+                  f"share {w.masked_share:.4f}, warps owning a block "
+                  f"{w.fill:.4f}")
+        if (block == 16 and plan.work16(which, False).masked_share) or \
+                not plan.work16(which, False, small).n_split:
+            fail(f"sparse BERT {which}: the 16-row work list masks warps "
+                 f"or does not split at cap {small}")
+
+    def dkv(fn, *args, **kw):
+        return torch.cat(fn(*args, **kw), -1)
+
+    outs = {"fwd": [sp._launch_fma_fwd(*fwd_args)[0] for _ in range(2)],
+            "dq": [sp._launch_fma("dq", *a) for _ in range(2)],
+            "dkv": [dkv(sp._launch_fma, "dkv", *a) for _ in range(2)],
+            "dq_tc16": [sp.sparse_attention_bwd_dq_tc16(*a)
+                        for _ in range(2)],
+            "dkv_tc16": [dkv(sp.sparse_attention_bwd_dkv_tc16, *a)
+                         for _ in range(2)],
+            f"dq_tc16 cap {small}": [sp.sparse_attention_bwd_dq_tc16(
+                *a, cap=small) for _ in range(2)],
+            f"dkv_tc16 cap {small}": [dkv(sp.sparse_attention_bwd_dkv_tc16,
+                                          *a, cap=small) for _ in range(2)]}
+    refs = {"fwd": sp.sparse_fwd_reference(*fwd_args)[0],
+            "dq": sp.sparse_bwd_dq_reference(*a),
+            "dkv": dkv(sp.sparse_bwd_dkv_reference, *a)}
     torch.cuda.synchronize()
     errs = {}
     for key, (got, again) in outs.items():
-        ref = refs[key].float()
+        ref = refs[key.split("_")[0]].float()
         if not same_bits(torch, got, again):
-            fail(f"sparse {key} block 16: two launches on one input differ")
+            fail(f"sparse {key} block {block}: two launches on one input "
+                 f"differ")
         diff = (got.float() - ref).abs()
         rms = ref.pow(2).mean().sqrt().item()
         rel = ((diff - round_step(torch, ref)).clamp_min(0).max().item()
                / max(rms, 1e-30))
         errs[key] = diff.max().item()
+        print(f"sparse_attention {key} block {block} bf16 [8, 512, 16, "
+              f"64]: max |err| {errs[key]:.3g}, {rel:.3g} of the RMS beyond "
+              f"one step "
+              f"(limit {FLASH_16BIT_RMS_TOL['kernel']}), bit-equal over two "
+              f"launches")
         if not torch.isfinite(got).all() or \
                 rel > FLASH_16BIT_RMS_TOL["kernel"]:
-            fail(f"sparse {key} block 16 bf16 [8, 512, 16, 64]: max |err| "
+            fail(f"sparse {key} block {block} bf16 [8, 512, 16, 64]: max |err| "
                  f"{errs[key]}, {rel} of the RMS beyond one step")
     del outs, refs
     it = {"i": 0}
@@ -5009,17 +5257,22 @@ def time_sparse_block16(torch, reports):
         it["i"] = (it["i"] + 1) % len(layers)
         return layers[it["i"]]
 
-    def call(which, plain):
+    def call(which, how):
+        """One call of ``which`` ("fwd", "dq", "dkv") by ``how``: "plain",
+        "fma" or "tc16"."""
         def go():
             a = nxt()
             if which == "fwd":
                 fa = (*a[:3], *a[4:5], *a[7:])
-                return (sp.sparse_fwd_reference if plain else
+                return (sp.sparse_fwd_reference if how == "plain" else
                         sp._launch_fma_fwd)(*fa)
-            if plain:
+            if how == "plain":
                 return (sp.sparse_bwd_dq_reference if which == "dq" else
                         sp.sparse_bwd_dkv_reference)(*a)
-            return sp._launch_fma(which, *a)
+            if how == "fma":
+                return sp._launch_fma(which, *a)
+            return (sp.sparse_attention_bwd_dq_tc16 if which == "dq" else
+                    sp.sparse_attention_bwd_dkv_tc16)(*a)
         return go
 
     am = sp._dense_mask(layout, block, "cuda")[None] & mask[:, None, None, :]
@@ -5052,29 +5305,45 @@ def time_sparse_block16(torch, reports):
     # batch row keeps
     pairs = int(sum((dense[:, :, :int(n)].sum() for n in keys), 0))
     q0 = layers[0][0]
+    plain = {which: cuda_ms(call(which, "plain"), iters=2, warmup=1)
+             for which in ("fwd", "dq", "dkv")}
     out = {}
-    for which in ("fwd", "dq", "dkv"):
-        ms = device_ms(torch, call(which, False), iters=20, warmup=3)[0]
-        plain = cuda_ms(call(which, True), iters=2, warmup=1)
+    for row, which, how in (("fwd", "fwd", "fma"), ("dq", "dq", "fma"),
+                            ("dkv", "dkv", "fma"), ("dq_tc16", "dq", "tc16"),
+                            ("dkv_tc16", "dkv", "tc16")):
+        ms = device_ms(torch, call(which, how), iters=20, warmup=3)[0]
         nbytes, flops = sparse_bytes_flops(q0, pairs / b, which)
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = flops / BF16_FLOPS
         library = lib["fwd" if which == "fwd" else "bwd"]
-        rep = reports[SPARSE_BLOCK16_ROWS[which]]
-        rep.update(ms=ms, plain_ms=plain, library_ms=library,
+        rep = {} if reports is None else reports[SPARSE_BLOCK16_ROWS[row]]
+        err = max(v for key, v in errs.items() if key.split()[0] == row)
+        rep.update(ms=ms, plain_ms=plain[which], library_ms=library,
                    bound_ms=max(t_bytes, t_ops) * 1e3,
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   max_abs_err=errs[which])
-        out[which] = ms
-        print(f"sparse_attention {which} (FMA, block 16) timing bf16 B={b} "
+                   max_abs_err=max(err, rep.get("max_abs_err") or 0.0))
+        out[row] = ms
+        extra = ""
+        if how == "tc16":
+            rep["fma_ms"] = out[which]
+            extra = (f", the FMA kernel on the same inputs {out[which]:.4f} "
+                     f"ms ({out[which] / ms:.2f}x)")
+        print(f"sparse_attention {row} ({how}, block {block}) timing bf16 "
+              f"B={b} "
               f"S={s} H={h} D={d} {BERT_SPARSE['mode']} non-causal, key "
               f"mask ({pairs} visible pairs, {pairs / (b * h * s * s):.4f} "
-              f"of the square; device time): kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms (host-paced), SDPA with the expanded mask "
-              f"{'fwd' if which == 'fwd' else 'bwd (dq+dk+dv)'} "
-              f"{library:.4f} ms, bound {rep['bound_ms']:.4f} ms ({nbytes} "
+              f"of the square; device time): kernel {ms:.4f} ms{extra}, "
+              f"plain {plain[which]:.4f} ms (host-paced), SDPA with the "
+              f"expanded mask {'fwd' if which == 'fwd' else 'bwd (dq+dk+dv)'}"
+              f" {library:.4f} ms, bound {rep['bound_ms']:.4f} ms ({nbytes} "
               f"bytes / 3.35 TB/s, {flops:.0f} flops / 989 TFLOP/s), max "
-              f"|err| {errs[which]:.3g}")
+              f"|err| {rep['max_abs_err']:.3g}")
+    pair = out["dq_tc16"] + out["dkv_tc16"]
+    print(f"sparse_attention backward pair bf16 at the sparse BERT shape, "
+          f"block {block}: "
+          f"16-row tensor cores dq + dk/dv {pair:.4f} ms, FMA "
+          f"{out['dq'] + out['dkv']:.4f} ms, SDPA's whole backward with the "
+          f"expanded mask {lib['bwd']:.4f} ms ({pair / lib['bwd']:.3f}x)")
     del layers, sdpa_in
     torch.cuda.empty_cache()
     return out
@@ -5086,7 +5355,8 @@ def check_bert_fp32(torch, seq, micro, sparse=None):
     #8-#10 on it) against the plain path (``attention_impl="xla"``, or the
     sparse block's ``impl: "xla"``), both with LAMB: the first step's
     accumulated gradients leaf by leaf to 1e-4 of the leaf's norm, the 3
-    losses to 1e-5 relative, as :func:`check_training_fp32` holds the GPT."""
+    losses to 1e-5 relative, as :func:`check_training_fp32` holds the GPT.
+    Returns the kernels run's launches by counter."""
     import deepspeed_tpu_torch as dtt
     from deepspeed_tpu_torch.models import init_bert_params, make_bert
     from deepspeed_tpu_torch.runtime.utils import global_norm
@@ -5117,6 +5387,7 @@ def check_bert_fp32(torch, seq, micro, sparse=None):
         batches += [{k: v.roll(i, dims=1) for k, v in batches[0].items()}
                     for i in (1, 2)]
         before = counter.launches
+        counts = {n: c.launches for n, c in counters.items()}
         first = []
         for j in range(gas):
             first.append(engine.forward({k: v[j] for k, v in
@@ -5130,6 +5401,9 @@ def check_bert_fp32(torch, seq, micro, sparse=None):
         if (launched > 0) != (label == "kernels"):
             fail(f"BERT fp32 comparison: the {label} run launched the "
                  f"attention forward {launched} times")
+        if label == "kernels":
+            launches = {n: c.launches - counts[n]
+                        for n, c in counters.items()}
         runs[label] = (grads, losses)
         names = engine.param_names
         del engine, model
@@ -5150,14 +5424,17 @@ def check_bert_fp32(torch, seq, micro, sparse=None):
     if not rel[worst] <= 1e-4 or not loss_rel <= 1e-5:
         fail(f"BERT fp32{layout}: the kernels' path disagrees with the "
              f"plain path")
+    return launches
 
 
 def check_bert(torch, card, reports):
     """Phase 8: BERT-large pretraining at bench_bert's two configurations,
-    then seq 512 with BERT_SPARSE (#8-#10 on the FMA route at block 16;
-    the step's sparse/dense ratio and the kernels at this shape), then
-    the fp32 comparisons. Fills the kernels line's BERT rows' launches
-    (each run's, every count set to 0 just before it)."""
+    then seq 512 with BERT_SPARSE (#8 on the FMA route and #9/#10 on the
+    16-row tensor-core route at block 16; the step's sparse/dense ratio,
+    idle share and sparse kernels' device ms, and the kernels at this
+    shape), then the fp32 comparisons. Fills the kernels line's BERT rows'
+    launches (each run's, every count set to 0 just before it; the FMA
+    dq and dk/dv ``_block16`` rows count the sparse fp32 comparison)."""
     from deepspeed_tpu_torch.models import BERT_CONFIGS, init_bert_params
 
     t0 = time.perf_counter()
@@ -5175,20 +5452,32 @@ def check_bert(torch, card, reports):
     rec = bert_run(torch, card, seq, micro, sd, sparse=BERT_SPARSE)
     del sd
     recs["sparse512"] = rec
-    for key, name in zip(("fwd", "dq", "dkv"),
-                         ("sparse_attention_fwd",) + SPARSE_FMA_NAMES):
+    for key, name in zip(("fwd", "dq_tc16", "dkv_tc16"),
+                         ("sparse_attention_fwd",) + SPARSE_TC16_NAMES):
         reports[SPARSE_BLOCK16_ROWS[key]]["launches"] = rec["launches"][name]
     ratio = rec["samples_per_s"] / recs["bert512"]["samples_per_s"]
     t1 = time.perf_counter()
     kern = time_sparse_block16(torch, reports)
+    # the 16-row kernels' block-32 reading: the same shape and pattern
+    kern32 = time_sparse_block16(torch, None, block=32)
     t2 = time.perf_counter()
     print(f"sparse BERT seq 512 ({card}): step "
           f"{rec['step_ms_median']:.2f} ms against the dense step "
           f"{recs['bert512']['step_ms_median']:.2f}: sparse/dense "
-          f"samples/s {ratio:.4f}; FMA kernels per call (ms) "
-          f"{json.dumps(kern)}")
+          f"samples/s {ratio:.4f} ({rec['samples_per_s']:.2f} against "
+          f"{recs['bert512']['samples_per_s']:.2f}); idle share "
+          f"{rec['device_idle_share']:.4f} (dense "
+          f"{recs['bert512']['device_idle_share']:.4f}); the sparse "
+          f"kernels' device ms a step "
+          f"{json.dumps(rec['sparse_kernels_device_ms'])}; "
+          f"per call (ms, #8 FMA, #9/#10 16-row tensor cores and their FMA "
+          f"first versions) {json.dumps(kern)}; at block 32 "
+          f"{json.dumps(kern32)}")
     check_bert_fp32(torch, 128, 8)
-    check_bert_fp32(torch, 512, 2, sparse=BERT_SPARSE)
+    fp32 = check_bert_fp32(torch, 512, 2, sparse=BERT_SPARSE)
+    # the FMA dq and dk/dv rows: fp32's route at block 16
+    for key, name in zip(("dq", "dkv"), SPARSE_FMA_NAMES):
+        reports[SPARSE_BLOCK16_ROWS[key]]["launches"] = fp32[name]
     print(f"BERT phase times: the sparse kernels' holds and timings "
           f"{t2 - t1:.1f} s, the fp32 comparisons "
           f"{time.perf_counter() - t2:.1f} s")
@@ -5712,11 +6001,11 @@ def main() -> int:
             and args[0] == "--only" else None)
     if args and (not only
                  or not only <= {"kernels", "sparse", "chunked", "spec",
-                                 "telemetry", "bert", "ckpt"}
+                                 "telemetry", "bert", "ckpt", "serving"}
                  or ("kernels" in only and len(only) > 1)):
         fail(f"unknown arguments {args} (none, --only kernels, or --only "
-             f"with sparse, chunked, spec, telemetry, bert, ckpt or "
-             f"several, comma-separated)")
+             f"with sparse, chunked, serving, spec, telemetry, bert, ckpt "
+             f"or several, comma-separated)")
     part = only is not None and "kernels" not in only
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5744,22 +6033,31 @@ def main() -> int:
                                    reports["paged_decode_attention_int8"])
         time_paged_splits(torch)
     if not part or "chunked" in only:
-        check_chunked_prefill(torch, {
-            r: reports[n] for r, n in CHUNKED_NAMES.items()})
+        check_chunked_prefill(torch, dict(
+            {r: reports[n] for r, n in CHUNKED_NAMES.items()},
+            tc_int8=reports["chunked_prefill_attention_tc_int8"]))
     if not part:
         check_flash_attention(torch, reports)
         check_flash_dropout_mask(torch, torch.float32, 256)
         check_flash_dropout_mask(torch, torch.bfloat16, 64)
         check_fused_adam(torch, reports["fused_adam"])
     if not part or "sparse" in only:
-        check_sparse_attention(torch, {
+        worst = check_sparse_attention(torch, {
             "fwd": reports["sparse_attention_fwd"],
             "fwd_tc": reports["sparse_attention_fwd_tc"],
             "dq": reports["sparse_attention_bwd_dq"],
             "dkv": reports["sparse_attention_bwd_dkv"],
             "dq_tc": reports["sparse_attention_bwd_dq_tc"],
             "dkv_tc": reports["sparse_attention_bwd_dkv_tc"]})
+        # the 16-row rows' errors over phase 2d's cases; phase 8 adds the
+        # sparse BERT shape's and times them
+        for name, keys in zip(SPARSE_TC16_NAMES, (("dq",), ("dk", "dv"))):
+            reports[name]["max_abs_err"] = max(
+                w[0] for (k, _n, r), w in worst.items()
+                if r == "tc16" and k.split()[0] in keys)
     if part:
+        if "serving" in only:
+            check_serving(torch)
         if "spec" in only:
             check_speculative(torch, card,
                               reports["paged_decode_attention_verify"])
@@ -5791,6 +6089,8 @@ def main() -> int:
         serving["chunked"]["kernel_launches"]
     reports["chunked_prefill_attention"]["launches"] = \
         serving["chunked_fp32"]["kernel_launches"]
+    reports["chunked_prefill_attention_tc_int8"]["launches"] = \
+        serving["int8_chunked"]["kernel_launches"]
 
     # 3b. speculative serving and resilience (fills the verify row)
     check_speculative(torch, card, reports["paged_decode_attention_verify"])

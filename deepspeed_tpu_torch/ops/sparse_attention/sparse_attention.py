@@ -16,15 +16,21 @@ no visible key gives 0 (and lse -1e30), not NaN.
   :func:`sparse_attention_bwd_dkv` (#10). Per (head, query block) they
   walk only that row's active key blocks, and dk/dv walk the transposed
   lists, so compute and memory traffic scale with the layout's density.
-  :func:`_route` picks the kernels of all three: bfloat16 and float16
-  with ``head_dim`` a multiple of 8 up to 128 and a layout block that is
-  a multiple of 64 run the tensor-core kernels of
-  ``csrc/sparse_attention_tc.cu`` (:func:`sparse_attention_fwd_tc`,
-  :func:`sparse_attention_bwd_dq_tc`, :func:`sparse_attention_bwd_dkv_tc`),
-  which walk the work lists of :meth:`SparsePlan.work` (long walks cut
-  into pieces of at most :data:`SPLIT_CAP` tiles, whose fp32 partials a
-  second pass combines in a fixed order); float32 and blocks of 16 or 32
-  run the fp32-FMA kernels of ``csrc/sparse_attention.cu``. On a CUDA
+  :func:`_route` picks the forward's kernel and :func:`_route_bwd` the
+  backward's. bfloat16 and float16 with ``head_dim`` a multiple of 8 up
+  to 128 and a layout block that is a multiple of 64 run the tensor-core
+  kernels of ``csrc/sparse_attention_tc.cu`` for all three
+  (:func:`sparse_attention_fwd_tc`, :func:`sparse_attention_bwd_dq_tc`,
+  :func:`sparse_attention_bwd_dkv_tc`), which walk the work lists of
+  :meth:`SparsePlan.work` (long walks cut into pieces of at most
+  :data:`SPLIT_CAP` tiles, whose fp32 partials a second pass combines in
+  a fixed order). The same types and head dims at any other block that
+  is a multiple of 16 (16, 32, 48, ...: the reference's default is 16)
+  run dq and dk/dv on the 16-row tensor-core kernels of
+  ``csrc/sparse_attention_tc16.cu`` (:func:`sparse_attention_bwd_dq_tc16`,
+  :func:`sparse_attention_bwd_dkv_tc16`) over :meth:`SparsePlan.work16`,
+  and the forward on the FMA kernel. float32 at every block runs the
+  fp32-FMA kernels of ``csrc/sparse_attention.cu``. On a CUDA
   tensor each wrapper launches its kernel (built at first use) or
   raises; it never falls back. On a CPU tensor each dispatching wrapper
   runs its plain version (:func:`sparse_fwd_reference`,
@@ -39,8 +45,9 @@ once per layout and kept on each device they are used on
 Each kernel wrapper counts its launches in ``.launches``: the FMA kernels
 in ``sparse_attention_fwd``, ``sparse_attention_bwd_dq`` and
 ``sparse_attention_bwd_dkv``, the tensor-core ones in
-``sparse_attention_fwd_tc``, ``sparse_attention_bwd_dq_tc`` and
-``sparse_attention_bwd_dkv_tc``.
+``sparse_attention_fwd_tc``, ``sparse_attention_bwd_dq_tc``,
+``sparse_attention_bwd_dkv_tc``, ``sparse_attention_bwd_dq_tc16`` and
+``sparse_attention_bwd_dkv_tc16``.
 """
 
 import ctypes
@@ -64,7 +71,8 @@ __all__ = ["NEG_INF", "layout_to_dense_mask", "layout_kv_indices",
            "sparse_attention_fwd_tc",
            "sparse_attention_bwd_dq", "sparse_attention_bwd_dkv",
            "sparse_attention_bwd_dq_tc", "sparse_attention_bwd_dkv_tc",
-           "SPLIT_CAP", "WorkList"]
+           "sparse_attention_bwd_dq_tc16", "sparse_attention_bwd_dkv_tc16",
+           "SPLIT_CAP", "WorkList", "WorkList16"]
 
 NEG_INF = -1e30
 LSE_FLOOR = NEG_INF / 2          # the backward's guard for empty rows
@@ -72,6 +80,8 @@ MAX_HEAD_DIM = 128
 MAX_BATCH_HEADS = 65535          # the grid's second dimension
 BLOCK_MULTIPLE = 16              # the kernels' row tiles: 16, 32 or 64
 TC_TILE = 64                     # the tensor-core kernels' row tile
+SUB_TILE = 16                    # a warp's rows in the 16-row kernels
+WARPS = TC_TILE // SUB_TILE      # sub-blocks a 16-row work item holds
 # The longest run of 64-row tiles that one work item of the tensor-core
 # backward walks (SparsePlan.work cuts longer walks into pieces). Taken
 # from chip_smoke.py's sweep of the cap at the long-sequence path's shape
@@ -85,16 +95,36 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _FN = {}
 
 
+def _tc_operands(dtype: torch.dtype, head_dim: int) -> bool:
+    return (dtype in (torch.bfloat16, torch.float16) and head_dim % 8 == 0
+            and 8 <= head_dim <= MAX_HEAD_DIM)
+
+
 def _route(dtype: torch.dtype, head_dim: int, block: int) -> str:
-    """Which kernels compute o, dq and dk/dv on CUDA: ``"tc"`` (the tensor
-    cores, ``csrc/sparse_attention_tc.cu``) for bfloat16 and float16 with
-    ``head_dim`` a multiple of 8 in [8, 128] and a layout ``block`` that is
-    a multiple of 64 (a 64-row tile never straddles two layout rows);
-    ``"fma"`` (``csrc/sparse_attention.cu``) for everything else the
-    kernels take: float32, and blocks of 16 or 32."""
-    return ("tc" if dtype in (torch.bfloat16, torch.float16)
-            and head_dim % 8 == 0 and 8 <= head_dim <= MAX_HEAD_DIM
-            and block % TC_TILE == 0 else "fma")
+    """Which kernel computes the forward (o, lse) on CUDA: ``"tc"`` (the
+    tensor cores, ``csrc/sparse_attention_tc.cu``) for bfloat16 and
+    float16 with ``head_dim`` a multiple of 8 in [8, 128] and a layout
+    ``block`` that is a multiple of 64 (a 64-row tile never straddles two
+    layout rows); ``"fma"`` (``csrc/sparse_attention.cu``) for everything
+    else the kernels take: float32, and blocks of 16, 32, 48, ... The
+    backward's route is :func:`_route_bwd`."""
+    return ("tc" if _tc_operands(dtype, head_dim) and block % TC_TILE == 0
+            else "fma")
+
+
+def _route_bwd(dtype: torch.dtype, head_dim: int, block: int) -> str:
+    """Which kernels compute dq and dk/dv on CUDA: ``"tc"``
+    (``csrc/sparse_attention_tc.cu``) where :func:`_route` gives it;
+    ``"tc16"`` (``csrc/sparse_attention_tc16.cu``: 16-row sub-blocks on
+    the tensor cores) for the same dtypes and head dims at a layout block
+    that is a multiple of 16 and not of 64; ``"fma"``
+    (``csrc/sparse_attention.cu``) for everything else the kernels take:
+    float32 at every block."""
+    if not _tc_operands(dtype, head_dim):
+        return "fma"
+    if block % TC_TILE == 0:
+        return "tc"
+    return "tc16" if block % SUB_TILE == 0 else "fma"
 
 
 def layout_to_dense_mask(layout: np.ndarray, block: int) -> np.ndarray:
@@ -214,6 +244,151 @@ def build_work(layout: np.ndarray, block: int, which: str, causal: bool,
                     np.asarray(splits, np.int32).reshape(-1, 4), n_slots)
 
 
+class WorkList16(WorkList):
+    """The work of one 16-row tensor-core backward kernel
+    (``csrc/sparse_attention_tc16.cu``) for one (layout, causal, cap):
+
+    - ``items`` int32 [n, 8]: a thread block's share of one batch row, in
+      launch order (longest first): the head; the first rows of the
+      16-row blocks its 4 warps own (queries for dq, keys for dk/dv; -1
+      where a warp owns none); the offset and count of its walk in
+      ``tiles``; its scratch slot if it is a piece of a split walk (-1 if
+      not);
+    - ``tiles`` int32 [m, 2]: each walk entry, item after item: the first
+      row of a 16-row block of the other axis and the bits of the item's
+      warps whose layout row ("dq") or column ("dkv") lists it;
+    - ``splits`` int32 [n_split, 7]: each split item's head, its 4 rows,
+      first slot and piece count (its pieces hold consecutive slots, in
+      walk order); ``n_slots`` slots in all.
+
+    The kernel streams a walk 4 entries (64 rows) a step."""
+
+    @property
+    def longest(self) -> int:
+        """The longest walk one item takes, in 64-row steps."""
+        return -(-int(self.items[:, 6].max()) // WARPS)
+
+    @property
+    def walk_max(self) -> int:
+        """The longest walk's entries rounded up to whole steps: the
+        shared memory a thread block keeps its walk in."""
+        return WARPS * self.longest
+
+    @property
+    def masked_share(self) -> float:
+        """The share of (owned warp, walk entry) pairs whose warp does not
+        list the entry: warp-steps masked off."""
+        owned = (self.items[:, 1:5] >= 0).sum(1)
+        total = int((owned * self.items[:, 6]).sum())
+        if not total:
+            return 0.0
+        listed = int(np.unpackbits(self.tiles[:, 1].astype(np.uint8)).sum())
+        return (total - listed) / total
+
+    @property
+    def fill(self) -> float:
+        """The share of the items' warps that own a block."""
+        return float((self.items[:, 1:5] >= 0).mean())
+
+
+def _walks16(layout: np.ndarray, block: int, which: str, causal: bool):
+    """For each head: ``{first row of a 16-row block of the rows the
+    ``which`` kernel owns: its walk}``, the walk being the first rows of
+    the other axis' 16-row blocks that its layout row ("dq") or column
+    ("dkv") lists, ascending, without those wholly above the causal
+    diagonal (keys after its last query; queries before its first key)."""
+    lay = layout if which == "dq" else layout.transpose(0, 2, 1)
+    sub = np.arange(block // SUB_TILE, dtype=np.int64) * SUB_TILE
+    for h in range(lay.shape[0]):
+        walks = {}
+        for r in range(lay.shape[1]):
+            starts = (np.nonzero(lay[h, r])[0][:, None] * block
+                      + sub[None]).ravel()
+            for row0 in r * block + sub:
+                walk = starts
+                if causal:
+                    walk = (starts[starts <= row0] if which == "dq" else
+                            starts[starts >= row0])
+                walks[int(row0)] = tuple(int(x) for x in walk)
+        yield h, walks
+
+
+def _pack16(walks: dict) -> list:
+    """One head's 16-row blocks packed into items of up to 4 (a list of
+    row lists): blocks with equal walks together, 4 at a time; the rest
+    of each group of equal walks whole, next-fit, in order of first
+    appearance (a group that does not fit the open item opens a new
+    one)."""
+    groups = {}
+    for row0, walk in walks.items():
+        groups.setdefault(walk, []).append(row0)
+    items, rest = [], []
+    for rows in groups.values():
+        full = len(rows) - len(rows) % WARPS
+        items += [rows[i:i + WARPS] for i in range(0, full, WARPS)]
+        if full < len(rows):
+            rest.append(rows[full:])
+    open_item = []
+    for rows in rest:
+        if len(open_item) + len(rows) > WARPS:
+            items.append(open_item)
+            open_item = []
+        open_item = open_item + rows
+    if open_item:
+        items.append(open_item)
+    return items
+
+
+def build_work16(layout: np.ndarray, block: int, which: str, causal: bool,
+                 cap: int) -> WorkList16:
+    """The :class:`WorkList16` of one 16-row backward kernel: each head's
+    16-row blocks of :func:`_walks16` packed by :func:`_pack16`; an
+    item's walk is the union of its blocks' walks, ascending, each entry
+    with the bits of the warps that list it. A walk of more than ``cap``
+    steps of 4 entries is cut into ``ceil(steps / cap)`` pieces of whole
+    steps whose step counts differ by at most one (only the last piece
+    may end in a partial step); an empty walk is one item with no entries
+    (its rows are written as zeros). Items sorted longest first (then by
+    head, rows and piece: a fixed order)."""
+    if cap < 1:
+        raise ValueError(f"split cap must be >= 1, got {cap}")
+    pieces = []               # (len, h, rows, piece, count, entries)
+    for h, walks in _walks16(layout, block, which, causal):
+        for rows in _pack16(walks):
+            bits = {}
+            for w, row0 in enumerate(rows):
+                for e in walks[row0]:
+                    bits[e] = bits.get(e, 0) | (1 << w)
+            walk = np.array(sorted(bits.items()), np.int64).reshape(-1, 2)
+            rows = tuple(rows) + (-1,) * (WARPS - len(rows))
+            n = len(walk)
+            steps = -(-n // WARPS)
+            count = max(1, -(-steps // cap))
+            for p in range(count):
+                run = walk[WARPS * (p * steps // count):
+                           WARPS * ((p + 1) * steps // count)]
+                pieces.append((len(run), h, rows, p, count, run))
+    pieces.sort(key=lambda x: (-x[0], x[1], x[2], x[3]))
+    first, splits, n_slots = {}, [], 0
+    for _n, h, rows, _p, count, _r in sorted(
+            (x for x in pieces if x[4] > 1 and x[3] == 0),
+            key=lambda x: (x[1], x[2])):
+        first[(h, rows)] = n_slots
+        splits.append((h, *rows, n_slots, count))
+        n_slots += count
+    items = np.empty((len(pieces), 8), np.int32)
+    off = 0
+    for i, (n, h, rows, p, count, _r) in enumerate(pieces):
+        items[i] = (h, *rows, off, n,
+                    first[(h, rows)] + p if count > 1 else -1)
+        off += n
+    tiles = np.concatenate([np.zeros((0, 2), np.int64)]
+                           + [x[5] for x in pieces]).astype(np.int32)
+    return WorkList16(items, tiles if len(tiles) else np.zeros((1, 2),
+                                                               np.int32),
+                      np.asarray(splits, np.int32).reshape(-1, 7), n_slots)
+
+
 def _work_key(which: str, causal: bool, cap: Optional[int]):
     """The forward walks dq's list: both own query tiles and visit the
     key tiles of their layout row."""
@@ -264,12 +439,31 @@ class SparsePlan:
             self._work[key] = build_work(self.layout, self.block, *key)
         return self._work[key]
 
+    def work16(self, which: str, causal: bool,
+               cap: Optional[int] = None) -> WorkList16:
+        """The :class:`WorkList16` of the 16-row tensor-core ``which``
+        kernel ("dq" or "dkv"), its walks cut at ``cap`` steps of 64 rows
+        (:data:`SPLIT_CAP` by default); built once per (which, causal,
+        cap). Any layout block that is a multiple of 16."""
+        if which not in ("dq", "dkv"):
+            raise ValueError(f"no 16-row work list for kernel {which!r}")
+        if self.block % SUB_TILE:
+            raise ValueError(f"the 16-row tensor-core kernels take a layout "
+                             f"block that is a multiple of {SUB_TILE}; got "
+                             f"block {self.block}")
+        key = ("16",) + _work_key(which, causal, cap)
+        if key not in self._work:
+            self._work[key] = build_work16(self.layout, self.block,
+                                           *key[1:])
+        return self._work[key]
+
     def work_on(self, device: torch.device, which: str, causal: bool,
-                cap: Optional[int] = None):
+                cap: Optional[int] = None, rows16: bool = False):
         """``(work list, items, tiles, splits)``, the arrays on
-        ``device``, copied once per device."""
-        w = self.work(which, causal, cap)
-        key = (str(device),) + _work_key(which, causal, cap)
+        ``device``, copied once per device: :meth:`work`'s, or with
+        ``rows16`` :meth:`work16`'s."""
+        w = (self.work16 if rows16 else self.work)(which, causal, cap)
+        key = ((str(device), rows16) + _work_key(which, causal, cap))
         if key not in self._on:
             self._on[key] = (w,) + tuple(
                 torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -391,8 +585,9 @@ def sparse_bwd_dkv_reference(q, k, v, dout, key_mask, lse, delta,
 
 def _kernel(name: str = "sparse_attention"):
     """The ctypes functions of ``csrc/<name>.cu``: ``sparse_attention``
-    (forward, dq, dk/dv on FMAs) or ``sparse_attention_tc`` (forward, dq,
-    dk/dv on the tensor cores), built and loaded at first use."""
+    (forward, dq, dk/dv on FMAs), ``sparse_attention_tc`` (forward, dq,
+    dk/dv on the tensor cores) or ``sparse_attention_tc16`` (dq, dk/dv on
+    the tensor cores over 16-row blocks), built and loaded at first use."""
     if name not in _FN:
         lib = build.load(name)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -407,12 +602,15 @@ def _kernel(name: str = "sparse_attention"):
             tail = shape + end
         else:
             tail = shape + [ptr, ptr, i32, i32] + end
-            fns["fwd"] = (lib.sparse_attention_tc_fwd,
-                          [ptr] * 6 + [i32] + [ptr] * 3 + tail)
+            if name == "sparse_attention_tc":
+                fns["fwd"] = (lib.sparse_attention_tc_fwd,
+                              [ptr] * 6 + [i32] + [ptr] * 3 + tail)
+        # n_items (then, over 16-row blocks, walk_max)
+        count = [i32] * (2 if name == "sparse_attention_tc16" else 1)
         fns["dq"] = (getattr(lib, f"{name}_bwd_dq"),
-                     [ptr] * 7 + [i32] + [ptr] * 4 + tail)
+                     [ptr] * 7 + count + [ptr] * 4 + tail)
         fns["dkv"] = (getattr(lib, f"{name}_bwd_dkv"),
-                      [ptr] * 7 + [i32] + [ptr] * 5 + tail)
+                      [ptr] * 7 + count + [ptr] * 5 + tail)
         out = {}
         for key, (fn, argtypes) in fns.items():
             fn.argtypes = argtypes
@@ -572,29 +770,33 @@ def _launch_fma(which, q, k, v, dout, key_mask, lse, delta, plan, causal,
 
 
 def _launch_tc(which, q, k, v, dout, key_mask, lse, delta, plan, causal,
-               scale, cap):
-    """dq or dk, dv by the tensor-core kernels of
-    ``csrc/sparse_attention_tc.cu``, over the plan's work list at ``cap``;
-    the split walks' fp32 partials go to scratch allocated here."""
+               scale, cap, name="sparse_attention_tc"):
+    """dq or dk, dv by the tensor-core kernels of ``csrc/<name>.cu``
+    (``sparse_attention_tc`` over the plan's 64-row work list at ``cap``,
+    ``sparse_attention_tc16`` over its 16-row one); the split walks' fp32
+    partials (64 rows an item either way) go to scratch allocated here."""
     b, s, h, d = q.shape
     nout = 1 if which == "dq" else 2
     outs = [torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
             for _ in range(nout)]
-    work, items, tiles, splits = plan.work_on(q.device, which, causal, cap)
+    rows16 = name == "sparse_attention_tc16"
+    work, items, tiles, splits = plan.work_on(q.device, which, causal, cap,
+                                              rows16=rows16)
+    count = (work.n_items, work.walk_max) if rows16 else (work.n_items,)
     part = (torch.empty((b, work.n_slots, nout, TC_TILE, d),
                         dtype=torch.float32, device=q.device)
             if work.n_split else None)
-    fn = _kernel("sparse_attention_tc")[which]
+    fn = _kernel(name)[which]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                 _ptr(key_mask), items.data_ptr(), tiles.data_ptr(),
-                work.n_items, lse.data_ptr(), delta.data_ptr(),
+                *count, lse.data_ptr(), delta.data_ptr(),
                 *(t.data_ptr() for t in outs), _strides(q, k, v), b, h, s,
                 d, plan.block, float(scale), int(causal), _ptr(part),
                 splits.data_ptr() if work.n_split else None, work.n_split,
                 work.n_slots, _DTYPE_CODES[q.dtype], stream)
-    _check(rc, which, "sparse_attention_tc")
+    _check(rc, which, name)
     return outs[0] if which == "dq" else tuple(outs)
 
 
@@ -611,19 +813,39 @@ def _require_tc(q, plan: SparsePlan, what: str):
                          f"CUDA tensors, got {q.device}")
 
 
+def _require_tc16(q, plan: SparsePlan, what: str):
+    """The 16-row tensor-core wrappers' walls: inputs of their route, on
+    CUDA."""
+    if _route_bwd(q.dtype, q.shape[-1], plan.block) != "tc16":
+        raise ValueError(
+            f"the 16-row tensor-core sparse {what} kernel takes bfloat16 or "
+            f"float16 with head_dim a multiple of 8 in [8, {MAX_HEAD_DIM}] "
+            f"and a layout block that is a multiple of {SUB_TILE} and not "
+            f"of {TC_TILE}; got {q.dtype}, head_dim {q.shape[-1]}, block "
+            f"{plan.block}")
+    if q.device.type != "cuda":
+        raise ValueError(f"the 16-row tensor-core sparse {what} kernel "
+                         f"runs on CUDA tensors, got {q.device}")
+
+
 def sparse_attention_bwd_dq(q, k, v, dout, key_mask, lse, delta,
                             plan: SparsePlan, causal: bool, scale: float):
-    """dq (kernel #9) on the kernel :func:`_route` picks: ``dout``
+    """dq (kernel #9) on the kernel :func:`_route_bwd` picks: ``dout``
     contiguous [B, S, H, D]; ``lse`` and ``delta`` fp32 [B, H, S].
     Returns dq, contiguous [B, S, H, D]. The FMA kernel's launches count
-    here, the tensor-core kernel's in :func:`sparse_attention_bwd_dq_tc`;
-    on the CPU, the plain version (neither counts)."""
+    here, the tensor-core kernels' in :func:`sparse_attention_bwd_dq_tc`
+    and :func:`sparse_attention_bwd_dq_tc16`; on the CPU, the plain
+    version (none counts)."""
     if not _on_cuda(q, "dq"):
         return sparse_bwd_dq_reference(q, k, v, dout, key_mask, lse, delta,
                                        plan, causal, scale)
-    if _route(q.dtype, q.shape[-1], plan.block) == "tc":
+    route = _route_bwd(q.dtype, q.shape[-1], plan.block)
+    if route == "tc":
         return sparse_attention_bwd_dq_tc(q, k, v, dout, key_mask, lse,
                                           delta, plan, causal, scale)
+    if route == "tc16":
+        return sparse_attention_bwd_dq_tc16(q, k, v, dout, key_mask, lse,
+                                            delta, plan, causal, scale)
     dq = _launch_fma("dq", q, k, v, dout, key_mask, lse, delta, plan,
                      causal, scale)
     sparse_attention_bwd_dq.launches += 1
@@ -645,18 +867,41 @@ def sparse_attention_bwd_dq_tc(q, k, v, dout, key_mask, lse, delta,
     return dq
 
 
+def sparse_attention_bwd_dq_tc16(q, k, v, dout, key_mask, lse, delta,
+                                 plan: SparsePlan, causal: bool,
+                                 scale: float, cap: Optional[int] = None):
+    """dq on the tensor cores over 16-row blocks (bfloat16 or float16,
+    ``head_dim`` a multiple of 8 up to 128, a layout block that is a
+    multiple of 16 and not of 64, CUDA tensors; anything else raises
+    ValueError): a block of 4 warps owns up to 4 query blocks of one head
+    (:meth:`SparsePlan.work16`) and streams 4 gathered key blocks a step;
+    walks longer than ``cap`` steps (:data:`SPLIT_CAP` by default) split.
+    Inputs and output as :func:`sparse_attention_bwd_dq`."""
+    _require_tc16(q, plan, "dq")
+    dq = _launch_tc("dq", q, k, v, dout, key_mask, lse, delta, plan, causal,
+                    scale, cap, "sparse_attention_tc16")
+    sparse_attention_bwd_dq_tc16.launches += 1
+    return dq
+
+
 def sparse_attention_bwd_dkv(q, k, v, dout, key_mask, lse, delta,
                              plan: SparsePlan, causal: bool, scale: float):
-    """dk and dv (kernel #10) on the kernel :func:`_route` picks, walking
-    the transposed lists. Returns dk, dv, contiguous [B, S, H, D]. The FMA
-    kernel's launches count here, the tensor-core kernel's in
-    :func:`sparse_attention_bwd_dkv_tc`; on the CPU, the plain version."""
+    """dk and dv (kernel #10) on the kernel :func:`_route_bwd` picks,
+    walking the transposed lists. Returns dk, dv, contiguous [B, S, H, D].
+    The FMA kernel's launches count here, the tensor-core kernels' in
+    :func:`sparse_attention_bwd_dkv_tc` and
+    :func:`sparse_attention_bwd_dkv_tc16`; on the CPU, the plain
+    version."""
     if not _on_cuda(q, "dkv"):
         return sparse_bwd_dkv_reference(q, k, v, dout, key_mask, lse, delta,
                                         plan, causal, scale)
-    if _route(q.dtype, q.shape[-1], plan.block) == "tc":
+    route = _route_bwd(q.dtype, q.shape[-1], plan.block)
+    if route == "tc":
         return sparse_attention_bwd_dkv_tc(q, k, v, dout, key_mask, lse,
                                            delta, plan, causal, scale)
+    if route == "tc16":
+        return sparse_attention_bwd_dkv_tc16(q, k, v, dout, key_mask, lse,
+                                             delta, plan, causal, scale)
     dk, dv = _launch_fma("dkv", q, k, v, dout, key_mask, lse, delta, plan,
                          causal, scale)
     sparse_attention_bwd_dkv.launches += 1
@@ -677,19 +922,37 @@ def sparse_attention_bwd_dkv_tc(q, k, v, dout, key_mask, lse, delta,
     return dk, dv
 
 
+def sparse_attention_bwd_dkv_tc16(q, k, v, dout, key_mask, lse, delta,
+                                  plan: SparsePlan, causal: bool,
+                                  scale: float, cap: Optional[int] = None):
+    """dk and dv on the tensor cores over 16-row blocks (the walls of
+    :func:`sparse_attention_bwd_dq_tc16`): a block of 4 warps owns up to 4
+    key blocks of one head, grouped by equal lists, and streams gathered
+    query blocks with their dO, lse and delta; a walk longer than ``cap``
+    steps splits, its pieces summed by a second pass in piece order.
+    Inputs and outputs as :func:`sparse_attention_bwd_dkv`."""
+    _require_tc16(q, plan, "dkv")
+    dk, dv = _launch_tc("dkv", q, k, v, dout, key_mask, lse, delta, plan,
+                        causal, scale, cap, "sparse_attention_tc16")
+    sparse_attention_bwd_dkv_tc16.launches += 1
+    return dk, dv
+
+
 sparse_attention_fwd.launches = 0
 sparse_attention_fwd_tc.launches = 0
 sparse_attention_bwd_dq.launches = 0
 sparse_attention_bwd_dq_tc.launches = 0
 sparse_attention_bwd_dkv.launches = 0
 sparse_attention_bwd_dkv_tc.launches = 0
+sparse_attention_bwd_dq_tc16.launches = 0
+sparse_attention_bwd_dkv_tc16.launches = 0
 
 
 class _SparseAttention(torch.autograd.Function):
     """The kernels with their gradient (the JAX ``_sparse_vjp_fn``): the
     forward saves ``out`` and ``lse``; the backward takes ``delta =
     rowsum(dO * out)`` in fp32 from the output in its dtype, then runs dq
-    and dk/dv on the route :func:`_route` picks."""
+    and dk/dv on the route :func:`_route_bwd` picks."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, plan, causal, scale):
