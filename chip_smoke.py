@@ -87,12 +87,11 @@
      1024, 4, 128], BigBird block 16, causal, with the key mask, bf16 and
      fp16; (d)-(f) also at the split cap 4 (where the forward, dq and
      dk/dv all split), (b), (g) and (h) at the 16-row kernels' cap of 1
-     step (dq and dk/dv split); the forward on the route
-     ``sparse_attention._route`` picks and dq and dk/dv on
-     ``_route_bwd``'s (16 bits at blocks of 64 and more: the tensor-core
-     kernels of ``csrc/sparse_attention_tc.cu``; 16 bits at other
-     multiples of 16: the FMA forward and the 16-row tensor-core dq and
-     dk/dv of ``csrc/sparse_attention_tc16.cu``; fp32:
+     step (the forward, dq and dk/dv split); all three on the route
+     ``sparse_attention._route`` picks (16 bits at blocks of 64 and
+     more: the tensor-core kernels of ``csrc/sparse_attention_tc.cu``;
+     16 bits at other multiples of 16: the 16-row tensor-core forward,
+     dq and dk/dv of ``csrc/sparse_attention_tc16.cu``; fp32:
      ``csrc/sparse_attention.cu``; each call counted by its route's
      wrapper only); each kernel and, but at (c), the whole autograd
      path, with flash's tolerances, lse to 1e-5 (``SPARSE_LSE_TOL``),
@@ -239,14 +238,16 @@
    share, a profiled step's top kernels, LAMB's and the whole apply's
    device ms and kernels; at seq 128 the matmuls by shape and a step on
    padded rows. Then seq 512 with the reference's fixed block-16 sparse
-   layout (#8 on the FMA route, #9/#10 on the 16-row tensor-core route,
-   192 each a step, the FMA dq and dk/dv none; the sparse/dense ratio,
-   the idle share and the sparse kernels' device ms in a profiled step;
-   the kernels held to their plain versions and timed at [8, 512, 16,
-   64] beside the FMA dq and dk/dv on the same inputs and SDPA with the
-   expanded mask: the ``_block16`` and ``_tc16`` rows; the same at block
-   32, printed), and the fp32 comparisons at bert-large width and 2
-   layers, dense (flash on FMAs) and sparse, against the plain path.
+   layout (#8-#10 on the 16-row tensor-core route, 192 each a step, the
+   FMA forward, dq and dk/dv none; the sparse/dense ratio, the idle
+   share and the sparse kernels' device ms in a profiled step; the
+   kernels held to their plain versions, also at the 16-row kernels' cap
+   of 1 step where the second passes run, and timed at [8, 512, 16, 64]
+   beside the FMA forward, dq and dk/dv on the same inputs and SDPA with
+   the expanded mask: the ``_block16`` and ``_tc16`` rows; the same at
+   block 32, printed), and the fp32 comparisons at bert-large width and
+   2 layers, dense (flash on FMAs) and sparse (#8-#10 on FMAs), against
+   the plain path.
 9. Checkpointing, the dataloader and preemption-safe training (``--only
    ckpt`` runs it alone; :func:`check_ckpt`): full-width, full-depth
    GPT-2 at phase 7's configuration fed by ``initialize(training_data=
@@ -290,11 +291,11 @@ pools. The verify row (``paged_decode_attention_verify``, kernel #1 at S =
 k + 1) counts the S = 5 launches of phase 3b's measured bf16 speculative
 run and is timed at S = 5 on the path's shapes. The ``_bert128`` /
 ``_bert512`` flash rows count phase 8's seq-128 / seq-512 steps; of the
-sparse BERT rows, the FMA forward (``sparse_attention_fwd_block16``) and
-the 16-row dq and dk/dv (``sparse_attention_bwd_dq_tc16``,
-``sparse_attention_bwd_dkv_tc16``) count its sparse steps, and the FMA dq
-and dk/dv (``_block16``, their first versions, timed on the same inputs)
-its sparse fp32 comparison.
+sparse BERT rows, the 16-row forward, dq and dk/dv
+(``sparse_attention_fwd_tc16``, ``sparse_attention_bwd_dq_tc16``,
+``sparse_attention_bwd_dkv_tc16``) count its sparse steps, and the FMA
+forward, dq and dk/dv (``_block16``, their first versions, timed on the
+same inputs) its sparse fp32 comparison.
 """
 
 import json
@@ -1926,9 +1927,9 @@ SPARSE_BIDIR = {"mode": "bigbird", "block": 64, "num_random_blocks": 1,
 # mask, and D = 72 (zero-padded to 80); (g) BigBird at block 32, causal,
 # with the key mask (lists differ inside a 16-row item: the per-warp
 # bits at work) and (h) D = 128 at the BigBird block 16, causal, with the
-# key mask. 16 bits take the tensor-core dq and dk/dv: the 64-row kernels
-# at blocks of 64 and more, the 16-row kernels at (b), (g) and (h), whose
-# forward stays on the FMA kernel. ``caps``: split caps the tensor-core
+# key mask. 16 bits take the tensor-core forward, dq and dk/dv: the
+# 64-row kernels at blocks of 64 and more, the 16-row kernels at (b), (g)
+# and (h). ``caps``: split caps the tensor-core
 # kernels also run at (beside SPLIT_CAP): SPARSE_SMALL_CAP tiles of 64
 # rows on the 64-row route, SPARSE_SMALL_CAP16 steps of 64 rows on the
 # 16-row route.
@@ -1955,7 +1956,9 @@ SPARSE_SWEEP_CAPS = (4, 8, 16, 32, 64, 128, None)   # None: no split
 SPARSE_TC_NAMES = ("sparse_attention_bwd_dq_tc",
                    "sparse_attention_bwd_dkv_tc")
 SPARSE_FMA_NAMES = ("sparse_attention_bwd_dq", "sparse_attention_bwd_dkv")
-SPARSE_TC16_NAMES = ("sparse_attention_bwd_dq_tc16",
+# the 16-row route's three kernels (the sparse BERT step's)
+SPARSE_TC16_NAMES = ("sparse_attention_fwd_tc16",
+                     "sparse_attention_bwd_dq_tc16",
                      "sparse_attention_bwd_dkv_tc16")
 
 
@@ -2027,10 +2030,10 @@ def same_bits(torch, a, b):
 def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
     """Kernels #8-#10 against their plain versions in ``cases``: each
     kernel and, but at (c), the whole autograd path, with flash's
-    tolerances; the forward on the route ``sparse_attention._route``
-    picks, dq and dk/dv on ``_route_bwd``'s (each call counted by its
-    route's wrapper only), the tensor-core kernels also at their small
-    caps; every output bit-equal over two launches. Then, with
+    tolerances; all three on the route ``sparse_attention._route`` picks
+    (each call counted by its route's wrapper only), the tensor-core
+    kernels also at their small caps; every output bit-equal over two
+    launches. Then, with
     ``timing``, timing at (c), the path's shape, and the sweep of the
     split cap (:func:`time_sparse`). ``reports``: the kernels line's rows
     ("fwd", "dq", "dkv" for the FMA kernels, "fwd_tc", "dq_tc",
@@ -2038,6 +2041,7 @@ def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
     sp = sparse_module()
     counters = {("fwd", "fma"): sp.sparse_attention_fwd,
                 ("fwd", "tc"): sp.sparse_attention_fwd_tc,
+                ("fwd", "tc16"): sp.sparse_attention_fwd_tc16,
                 ("dq", "fma"): sp.sparse_attention_bwd_dq,
                 ("dq", "tc"): sp.sparse_attention_bwd_dq_tc,
                 ("dq", "tc16"): sp.sparse_attention_bwd_dq_tc16,
@@ -2047,7 +2051,8 @@ def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
     at_cap = {"tc": (sp.sparse_attention_fwd_tc,
                      sp.sparse_attention_bwd_dq_tc,
                      sp.sparse_attention_bwd_dkv_tc),
-              "tc16": (None, sp.sparse_attention_bwd_dq_tc16,
+              "tc16": (sp.sparse_attention_fwd_tc16,
+                       sp.sparse_attention_bwd_dq_tc16,
                        sp.sparse_attention_bwd_dkv_tc16)}
     worst = {}
 
@@ -2081,8 +2086,7 @@ def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
         plan = sp.sparse_plan(layout, block)
         for name in dtypes:
             dtype = getattr(torch, name)
-            fwd_route = sp._route(dtype, d, block)
-            route = sp._route_bwd(dtype, d, block)
+            route = sp._route(dtype, d, block)
             qkv, q, k, v, dout, mask = flash_case(
                 torch, dtype, b, s, h, d,
                 seed=s + masked if d == 64 else s + d, masked=masked,
@@ -2101,12 +2105,10 @@ def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
             dk, dv = sp.sparse_attention_bwd_dkv(qp, kp, vp, *args)
             grew = {f"{k}/{r}": w.launches - before[(k, r)]
                     for (k, r), w in counters.items()}
-            want = {f"{k}/{r}": int(r == (fwd_route if k == "fwd" else
-                                          route))
-                    for k, r in counters}
+            want = {f"{k}/{r}": int(r == route) for k, r in counters}
             if grew != want:
-                fail(f"sparse {case} {name}: routed to {fwd_route} (fwd) "
-                     f"and {route} (dq, dk/dv), launches {grew}")
+                fail(f"sparse {case} {name}: routed to {route}, launches "
+                     f"{grew}")
             got = {"fwd": out, "dq": dq, "dk": dk, "dv": dv}
             lses = {"": (lse,)}
             again = dict(zip(("fwd", "lse"), sp.sparse_attention_fwd(
@@ -2118,26 +2120,24 @@ def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
             if route == "tc16":
                 w16 = [plan.work16(w, causal) for w in ("dq", "dkv")]
                 print(f"sparse_attention {case} {name}: 16-row work lists "
-                      f"(dq, dk/dv): items {[w.n_items for w in w16]}, "
+                      f"(the forward and dq, dk/dv): items "
+                      f"{[w.n_items for w in w16]}, "
                       f"masked share "
                       f"{[round(w.masked_share, 4) for w in w16]}")
             for cap in caps if route in at_cap else ():
                 fwd_c, dq_c, dkv_c = at_cap[route]
                 works = plan.work16 if route == "tc16" else plan.work
                 # every walk of the route's kernels splits here
-                for which in ("fwd", "dq", "dkv") if fwd_c else ("dq",
-                                                                 "dkv"):
+                for which in ("fwd", "dq", "dkv"):
                     if not works(which, causal, cap).n_split:
                         fail(f"sparse {case}: the {which} walks do not "
                              f"split at cap {cap}")
                 tag = f" cap {cap}"
-                if fwd_c:
-                    lses[tag] = ()
+                lses[tag] = ()
                 for sink in (got, again):
-                    if fwd_c:
-                        sink["fwd" + tag], lse_c = fwd_c(
-                            qp, kp, vp, mp, plan, causal, scale, cap=cap)
-                        lses[tag] += (lse_c,)
+                    sink["fwd" + tag], lse_c = fwd_c(
+                        qp, kp, vp, mp, plan, causal, scale, cap=cap)
+                    lses[tag] += (lse_c,)
                     sink["dq" + tag] = dq_c(qp, kp, vp, *args, cap=cap)
                     sink["dk" + tag], sink["dv" + tag] = dkv_c(
                         qp, kp, vp, *args, cap=cap)
@@ -2176,20 +2176,19 @@ def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
                     fail(f"sparse lse{tag} {case} {name}: empty rows differ")
                 lse_err = (got_lse - want_lse)[seen].abs().max().item()
                 if not lse_err <= SPARSE_LSE_TOL:
-                    fail(f"sparse lse{tag} {case} {name} ({fwd_route}): max "
+                    fail(f"sparse lse{tag} {case} {name} ({route}): max "
                          f"|err| {lse_err}")
-                if lse_err >= worst.get(("lse", name, fwd_route), (0.0,))[0]:
-                    worst[("lse", name, fwd_route)] = (lse_err, 0.0, 0.0)
+                if lse_err >= worst.get(("lse", name, route), (0.0,))[0]:
+                    worst[("lse", name, route)] = (lse_err, 0.0, 0.0)
             for key, (t, r) in pairs.items():
-                hold(key, case, name, fwd_route if key.startswith("fwd")
-                     or key == "autograd out" else route, t, r)
+                hold(key, case, name, route, t, r)
             if masked:
                 if any(t[1].abs().max().item() != 0.0
                        for t in got.values()):
                     fail(f"sparse {case} {name}: the all-padding batch row "
                          f"is not exactly zero")
-                print(f"sparse_attention {case} {name} ({fwd_route} fwd, "
-                      f"{route} dq and dk/dv): batch row 1 (all padding): "
+                print(f"sparse_attention {case} {name} ({route}): batch "
+                      f"row 1 (all padding): "
                       f"{', '.join(got)} exactly 0, lse -1e30")
             del qkv, q, k, v, dout, out, lse, want, want_lse, dq, dk, dv
             del lses
@@ -4155,6 +4154,8 @@ KERNELS = (
      "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:147"),
     ("sparse_attention_bwd_dkv_tc16", "sparse_attention_tc16",
      "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:194"),
+    ("sparse_attention_fwd_tc16", "sparse_attention_tc16",
+     "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:88"),
 )
 # the flash kernels of the 16-bit training step: the tensor-core forward,
 # dq and dk/dv; the FMA kernels take the fp32 path
@@ -4426,6 +4427,7 @@ def training_counters():
             "flash_attention_bwd_dkv_tc": fa.flash_attention_bwd_dkv_tc,
             "sparse_attention_fwd": sp.sparse_attention_fwd,
             "sparse_attention_fwd_tc": sp.sparse_attention_fwd_tc,
+            "sparse_attention_fwd_tc16": sp.sparse_attention_fwd_tc16,
             "sparse_attention_bwd_dq": sp.sparse_attention_bwd_dq,
             "sparse_attention_bwd_dkv": sp.sparse_attention_bwd_dkv,
             "sparse_attention_bwd_dq_tc": sp.sparse_attention_bwd_dq_tc,
@@ -4953,21 +4955,25 @@ BERT_RUNS = ((128, 32), (512, 8))          # bench_bert's (seq, micro)
 BERT_WARMUP, BERT_STEPS = 2, 5
 # The sparse-attention example of the reference DeepSpeed's configuration
 # documentation (docs/_pages/config-json.md, "Sparse Attention"): the
-# reference's default block of 16, so #8-#10 take the FMA kernels
+# reference's default block of 16, so #8-#10 take the 16-row tensor-core
+# kernels
 BERT_SPARSE = {"mode": "fixed", "block": 16,
                "different_layout_per_head": True, "num_local_blocks": 4,
                "num_global_blocks": 1, "attention": "bidirectional",
                "horizontal_global_attention": False,
                "num_different_global_patterns": 4}
 # the sparse BERT step's kernels by CUDA function name (profiler names
-# hold them): #8 on FMAs, #9/#10 on the 16-row tensor-core kernels and
-# their second pass
-SPARSE_PROFILE_KERNELS = ("sparse_fwd_kernel", "sparse_dq_tc16_kernel",
-                          "sparse_dkv_tc16_kernel", "sparse_reduce16_kernel",
+# hold them): #8-#10 on the 16-row tensor-core kernels and their second
+# passes; the FMA kernels (their first versions) should not appear
+SPARSE_PROFILE_KERNELS = ("sparse_fwd_tc16_kernel",
+                          "sparse_fwd_combine16_kernel",
+                          "sparse_dq_tc16_kernel", "sparse_dkv_tc16_kernel",
+                          "sparse_reduce16_kernel", "sparse_fwd_kernel",
                           "sparse_bwd_dq_kernel", "sparse_bwd_dkv_kernel")
 SPARSE_BLOCK16_ROWS = {"fwd": "sparse_attention_fwd_block16",
                        "dq": "sparse_attention_bwd_dq_block16",
                        "dkv": "sparse_attention_bwd_dkv_block16",
+                       "fwd_tc16": "sparse_attention_fwd_tc16",
                        "dq_tc16": "sparse_attention_bwd_dq_tc16",
                        "dkv_tc16": "sparse_attention_bwd_dkv_tc16"}
 
@@ -5053,10 +5059,10 @@ def apply_cost(torch, engine):
 def bert_run(torch, card, seq, micro, sd, sparse=None):
     """One bench_bert configuration: BERT_WARMUP, then BERT_STEPS counted
     and timed steps (:func:`counted_steps`: flash #3-#5 on the
-    tensor-core route, or with ``sparse`` #8 on the FMA route and #9/#10
-    on the 16-row tensor-core route, 24 layers x GAS 8 = 192 launches
-    each a step; every other kernel, the FMA dq and dk/dv included, and
-    every plain version none; the loss falls), a profiled step (with
+    tensor-core route, or with ``sparse`` #8-#10 on the 16-row
+    tensor-core route, 24 layers x GAS 8 = 192 launches each a step;
+    every other kernel, the FMA forward, dq and dk/dv included, and every
+    plain version none; the loss falls), a profiled step (with
     ``sparse``, the sparse kernels' device ms in it), LAMB's cost, and at
     seq 128 the matmuls by shape and one step on padded
     rows (the key mask at work: 192 launches each, no plain version, a
@@ -5071,8 +5077,7 @@ def bert_run(torch, card, seq, micro, sd, sparse=None):
              "the sparse_attention block")
     gas = BERT_CONFIG["gradient_accumulation_steps"]
     batches = bert_batches(torch, cfg, gas, micro, seq)
-    kernels = (("sparse_attention_fwd",) + SPARSE_TC16_NAMES if sparse
-               else FLASH_NAMES)
+    kernels = SPARSE_TC16_NAMES if sparse else FLASH_NAMES
     per_step = {name: 0 for name in training_counters()}
     per_step.update({name: cfg.num_layers * gas for name in kernels})
     what = f"bert-large seq {seq}" + (" sparse" if sparse else "")
@@ -5157,19 +5162,19 @@ def time_sparse_block16(torch, reports, block=16):
     """#8-#10 at the sparse BERT shape [8, 512, 16, 64] bf16 with
     BERT_SPARSE's layout (a pattern per head) at ``block`` (16, its own;
     32 for the 16-row kernels' block-32 reading), non-causal under a key
-    mask (rows padded from lengths in [256, 512]): the forward on its FMA
-    route, dq and dk/dv on their 16-row tensor-core route and, on the
-    same inputs, on the FMA kernels (their first versions). Each held to
-    its plain version (one bf16 rounding step + 1e-3 of the reference's
-    RMS, bit-equal over two launches), the 16-row kernels also at
-    SPARSE_SMALL_CAP16 (split items summed by the second pass); then timed
-    as device time over 4 layers' inputs beside the plain version
-    (host-paced), SDPA with the layout-expanded mask (the forward, and
-    its whole backward for dq and dk/dv) and the bound (pairs counted from
-    the layout and the mask). Prints each 16-row work list's items,
-    longest walk, split items and masked share. Fills the kernels line's
-    rows in ``reports`` (None: print only). Returns the device ms by
-    row."""
+    mask (rows padded from lengths in [256, 512]): the forward, dq and
+    dk/dv on their 16-row tensor-core route and, on the same inputs, on
+    the FMA kernels (their first versions). Each held to its plain version
+    (one bf16 rounding step + 1e-3 of the reference's RMS, the forward's
+    lse to SPARSE_LSE_TOL, bit-equal over two launches), the 16-row
+    kernels also at SPARSE_SMALL_CAP16 (split items combined or summed by
+    the second passes); then timed as device time over 4 layers' inputs
+    beside the plain version (host-paced), SDPA with the layout-expanded
+    mask (the forward, and its whole backward for dq and dk/dv) and the
+    bound (pairs counted from the layout and the mask). Prints each
+    16-row work list's items, longest walk, split items and masked share
+    (the forward walks dq's). Fills the kernels line's rows in
+    ``reports`` (None: print only). Returns the device ms by row."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -5179,10 +5184,9 @@ def time_sparse_block16(torch, reports, block=16):
     cfg = dict(BERT_SPARSE, block=block)
     layout = sparse_layout(cfg, h, s)
     plan = sp.sparse_plan(layout, block)
-    if sp._route(torch.bfloat16, d, block) != "fma" or \
-            sp._route_bwd(torch.bfloat16, d, block) != "tc16":
-        fail(f"sparse BERT: block {block} does not take the FMA forward "
-             f"and the 16-row tensor-core backward")
+    if sp._route(torch.bfloat16, d, block) != "tc16":
+        fail(f"sparse BERT: block {block} does not take the 16-row "
+             f"tensor-core forward and backward")
     lens = np.random.default_rng(5).integers(s // 2, s + 1, b)
     mask = torch.from_numpy(np.arange(s)[None] < lens[:, None]).cuda()
     layers = []
@@ -5211,10 +5215,17 @@ def time_sparse_block16(torch, reports, block=16):
                 not plan.work16(which, False, small).n_split:
             fail(f"sparse BERT {which}: the 16-row work list masks warps "
                  f"or does not split at cap {small}")
+    if plan.work16("fwd", False) is not plan.work16("dq", False):
+        fail("sparse BERT: the forward does not walk dq's 16-row list")
 
     def dkv(fn, *args, **kw):
         return torch.cat(fn(*args, **kw), -1)
 
+    # the 16-row forward's o and lse, at the default cap and at cap 1
+    fwd16 = {"fwd_tc16": [sp.sparse_attention_fwd_tc16(*fwd_args)
+                          for _ in range(2)],
+             f"fwd_tc16 cap {small}": [sp.sparse_attention_fwd_tc16(
+                 *fwd_args, cap=small) for _ in range(2)]}
     outs = {"fwd": [sp._launch_fma_fwd(*fwd_args)[0] for _ in range(2)],
             "dq": [sp._launch_fma("dq", *a) for _ in range(2)],
             "dkv": [dkv(sp._launch_fma, "dkv", *a) for _ in range(2)],
@@ -5226,10 +5237,28 @@ def time_sparse_block16(torch, reports, block=16):
                 *a, cap=small) for _ in range(2)],
             f"dkv_tc16 cap {small}": [dkv(sp.sparse_attention_bwd_dkv_tc16,
                                           *a, cap=small) for _ in range(2)]}
-    refs = {"fwd": sp.sparse_fwd_reference(*fwd_args)[0],
+    outs.update({key: [o for o, _l in pair] for key, pair in fwd16.items()})
+    ref_o, ref_lse = sp.sparse_fwd_reference(*fwd_args)
+    refs = {"fwd": ref_o,
             "dq": sp.sparse_bwd_dq_reference(*a),
             "dkv": dkv(sp.sparse_bwd_dkv_reference, *a)}
     torch.cuda.synchronize()
+    seen = ref_lse > sp.NEG_INF / 2
+    for key, ((_o, lse1), (_o2, lse2)) in fwd16.items():
+        if not same_bits(torch, lse1, lse2):
+            fail(f"sparse {key} lse block {block}: two launches on one "
+                 f"input differ")
+        if not torch.equal(seen, lse1 > sp.NEG_INF / 2) or \
+                not (lse1[~seen] == sp.NEG_INF).all():
+            fail(f"sparse {key} lse block {block}: empty rows differ")
+        lse_err = (lse1 - ref_lse)[seen].abs().max().item()
+        print(f"sparse_attention {key} block {block} bf16 [8, 512, 16, 64]: "
+              f"lse max |err| {lse_err:.3g} (limit {SPARSE_LSE_TOL}), "
+              f"{int((~seen).sum())} empty rows at -1e30, bit-equal over "
+              f"two launches")
+        if not lse_err <= SPARSE_LSE_TOL:
+            fail(f"sparse {key} lse block {block}: max |err| {lse_err}")
+    del fwd16, ref_lse, seen
     errs = {}
     for key, (got, again) in outs.items():
         ref = refs[key.split("_")[0]].float()
@@ -5264,8 +5293,9 @@ def time_sparse_block16(torch, reports, block=16):
             a = nxt()
             if which == "fwd":
                 fa = (*a[:3], *a[4:5], *a[7:])
-                return (sp.sparse_fwd_reference if how == "plain" else
-                        sp._launch_fma_fwd)(*fa)
+                return {"plain": sp.sparse_fwd_reference,
+                        "fma": sp._launch_fma_fwd,
+                        "tc16": sp.sparse_attention_fwd_tc16}[how](*fa)
             if how == "plain":
                 return (sp.sparse_bwd_dq_reference if which == "dq" else
                         sp.sparse_bwd_dkv_reference)(*a)
@@ -5309,7 +5339,9 @@ def time_sparse_block16(torch, reports, block=16):
              for which in ("fwd", "dq", "dkv")}
     out = {}
     for row, which, how in (("fwd", "fwd", "fma"), ("dq", "dq", "fma"),
-                            ("dkv", "dkv", "fma"), ("dq_tc16", "dq", "tc16"),
+                            ("dkv", "dkv", "fma"),
+                            ("fwd_tc16", "fwd", "tc16"),
+                            ("dq_tc16", "dq", "tc16"),
                             ("dkv_tc16", "dkv", "tc16")):
         ms = device_ms(torch, call(which, how), iters=20, warmup=3)[0]
         nbytes, flops = sparse_bytes_flops(q0, pairs / b, which)
@@ -5338,6 +5370,11 @@ def time_sparse_block16(torch, reports, block=16):
               f" {library:.4f} ms, bound {rep['bound_ms']:.4f} ms ({nbytes} "
               f"bytes / 3.35 TB/s, {flops:.0f} flops / 989 TFLOP/s), max "
               f"|err| {rep['max_abs_err']:.3g}")
+    print(f"sparse_attention forward bf16 at the sparse BERT shape, block "
+          f"{block}: 16-row tensor cores {out['fwd_tc16']:.4f} ms, FMA "
+          f"{out['fwd']:.4f} ms ({out['fwd'] / out['fwd_tc16']:.2f}x), SDPA "
+          f"with the expanded mask {lib['fwd']:.4f} ms "
+          f"({out['fwd_tc16'] / lib['fwd']:.3f}x)")
     pair = out["dq_tc16"] + out["dkv_tc16"]
     print(f"sparse_attention backward pair bf16 at the sparse BERT shape, "
           f"block {block}: "
@@ -5429,12 +5466,12 @@ def check_bert_fp32(torch, seq, micro, sparse=None):
 
 def check_bert(torch, card, reports):
     """Phase 8: BERT-large pretraining at bench_bert's two configurations,
-    then seq 512 with BERT_SPARSE (#8 on the FMA route and #9/#10 on the
-    16-row tensor-core route at block 16; the step's sparse/dense ratio,
-    idle share and sparse kernels' device ms, and the kernels at this
-    shape), then the fp32 comparisons. Fills the kernels line's BERT rows'
-    launches (each run's, every count set to 0 just before it; the FMA
-    dq and dk/dv ``_block16`` rows count the sparse fp32 comparison)."""
+    then seq 512 with BERT_SPARSE (#8-#10 on the 16-row tensor-core route
+    at block 16; the step's sparse/dense ratio, idle share and sparse
+    kernels' device ms, and the kernels at this shape), then the fp32
+    comparisons. Fills the kernels line's BERT rows' launches (each
+    run's, every count set to 0 just before it; the FMA forward, dq and
+    dk/dv ``_block16`` rows count the sparse fp32 comparison)."""
     from deepspeed_tpu_torch.models import BERT_CONFIGS, init_bert_params
 
     t0 = time.perf_counter()
@@ -5452,9 +5489,8 @@ def check_bert(torch, card, reports):
     rec = bert_run(torch, card, seq, micro, sd, sparse=BERT_SPARSE)
     del sd
     recs["sparse512"] = rec
-    for key, name in zip(("fwd", "dq_tc16", "dkv_tc16"),
-                         ("sparse_attention_fwd",) + SPARSE_TC16_NAMES):
-        reports[SPARSE_BLOCK16_ROWS[key]]["launches"] = rec["launches"][name]
+    for name in SPARSE_TC16_NAMES:
+        reports[name]["launches"] = rec["launches"][name]
     ratio = rec["samples_per_s"] / recs["bert512"]["samples_per_s"]
     t1 = time.perf_counter()
     kern = time_sparse_block16(torch, reports)
@@ -5470,13 +5506,14 @@ def check_bert(torch, card, reports):
           f"{recs['bert512']['device_idle_share']:.4f}); the sparse "
           f"kernels' device ms a step "
           f"{json.dumps(rec['sparse_kernels_device_ms'])}; "
-          f"per call (ms, #8 FMA, #9/#10 16-row tensor cores and their FMA "
+          f"per call (ms, #8-#10 on the 16-row tensor cores and their FMA "
           f"first versions) {json.dumps(kern)}; at block 32 "
           f"{json.dumps(kern32)}")
     check_bert_fp32(torch, 128, 8)
     fp32 = check_bert_fp32(torch, 512, 2, sparse=BERT_SPARSE)
-    # the FMA dq and dk/dv rows: fp32's route at block 16
-    for key, name in zip(("dq", "dkv"), SPARSE_FMA_NAMES):
+    # the FMA forward, dq and dk/dv rows: fp32's route at block 16
+    for key, name in zip(("fwd", "dq", "dkv"),
+                         ("sparse_attention_fwd",) + SPARSE_FMA_NAMES):
         reports[SPARSE_BLOCK16_ROWS[key]]["launches"] = fp32[name]
     print(f"BERT phase times: the sparse kernels' holds and timings "
           f"{t2 - t1:.1f} s, the fp32 comparisons "
@@ -6051,7 +6088,8 @@ def main() -> int:
             "dkv_tc": reports["sparse_attention_bwd_dkv_tc"]})
         # the 16-row rows' errors over phase 2d's cases; phase 8 adds the
         # sparse BERT shape's and times them
-        for name, keys in zip(SPARSE_TC16_NAMES, (("dq",), ("dk", "dv"))):
+        for name, keys in zip(SPARSE_TC16_NAMES,
+                              (("fwd",), ("dq",), ("dk", "dv"))):
             reports[name]["max_abs_err"] = max(
                 w[0] for (k, _n, r), w in worst.items()
                 if r == "tc16" and k.split()[0] in keys)

@@ -10,8 +10,8 @@
 // forward's row with no visible key gives o = 0 and lse = -1e30; the
 // backward's lse clamped at -5e29, p = exp(s - lse) on visible pairs only,
 // ds = p (dp - delta), dq = scale sum ds k, dk = sum ds (scale q), dv =
-// sum p dO). fp32 and blocks of 16 or 32 stay on sparse_attention.cu's
-// FMA kernels.
+// sum p dO). fp32 stays on sparse_attention.cu's FMA kernels; other
+// multiples of 16 take sparse_attention_tc16.cu's 16-row kernels.
 //
 // What bounds it on an H100: at the long-sequence training shape (B*H =
 // 12, S = 16384, D = 64, bf16, BigBird block 256, causal) the forward must

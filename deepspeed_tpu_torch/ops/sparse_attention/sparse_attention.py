@@ -16,20 +16,20 @@ no visible key gives 0 (and lse -1e30), not NaN.
   :func:`sparse_attention_bwd_dkv` (#10). Per (head, query block) they
   walk only that row's active key blocks, and dk/dv walk the transposed
   lists, so compute and memory traffic scale with the layout's density.
-  :func:`_route` picks the forward's kernel and :func:`_route_bwd` the
-  backward's. bfloat16 and float16 with ``head_dim`` a multiple of 8 up
-  to 128 and a layout block that is a multiple of 64 run the tensor-core
-  kernels of ``csrc/sparse_attention_tc.cu`` for all three
+  :func:`_route` picks the kernels of all three (``_route_bwd`` is the
+  same function). bfloat16 and float16 with ``head_dim`` a multiple of 8
+  up to 128 and a layout block that is a multiple of 64 run the
+  tensor-core kernels of ``csrc/sparse_attention_tc.cu``
   (:func:`sparse_attention_fwd_tc`, :func:`sparse_attention_bwd_dq_tc`,
   :func:`sparse_attention_bwd_dkv_tc`), which walk the work lists of
   :meth:`SparsePlan.work` (long walks cut into pieces of at most
   :data:`SPLIT_CAP` tiles, whose fp32 partials a second pass combines in
   a fixed order). The same types and head dims at any other block that
   is a multiple of 16 (16, 32, 48, ...: the reference's default is 16)
-  run dq and dk/dv on the 16-row tensor-core kernels of
-  ``csrc/sparse_attention_tc16.cu`` (:func:`sparse_attention_bwd_dq_tc16`,
-  :func:`sparse_attention_bwd_dkv_tc16`) over :meth:`SparsePlan.work16`,
-  and the forward on the FMA kernel. float32 at every block runs the
+  run the 16-row tensor-core kernels of ``csrc/sparse_attention_tc16.cu``
+  (:func:`sparse_attention_fwd_tc16`, :func:`sparse_attention_bwd_dq_tc16`,
+  :func:`sparse_attention_bwd_dkv_tc16`) over :meth:`SparsePlan.work16`
+  (the forward walks dq's list). float32 at every block runs the
   fp32-FMA kernels of ``csrc/sparse_attention.cu``. On a CUDA
   tensor each wrapper launches its kernel (built at first use) or
   raises; it never falls back. On a CPU tensor each dispatching wrapper
@@ -46,8 +46,8 @@ Each kernel wrapper counts its launches in ``.launches``: the FMA kernels
 in ``sparse_attention_fwd``, ``sparse_attention_bwd_dq`` and
 ``sparse_attention_bwd_dkv``, the tensor-core ones in
 ``sparse_attention_fwd_tc``, ``sparse_attention_bwd_dq_tc``,
-``sparse_attention_bwd_dkv_tc``, ``sparse_attention_bwd_dq_tc16`` and
-``sparse_attention_bwd_dkv_tc16``.
+``sparse_attention_bwd_dkv_tc``, ``sparse_attention_fwd_tc16``,
+``sparse_attention_bwd_dq_tc16`` and ``sparse_attention_bwd_dkv_tc16``.
 """
 
 import ctypes
@@ -68,7 +68,7 @@ __all__ = ["NEG_INF", "layout_to_dense_mask", "layout_kv_indices",
            "sparse_attention", "SparseSelfAttention", "pad_to_block_size",
            "sparse_fwd_reference", "sparse_bwd_dq_reference",
            "sparse_bwd_dkv_reference", "sparse_attention_fwd",
-           "sparse_attention_fwd_tc",
+           "sparse_attention_fwd_tc", "sparse_attention_fwd_tc16",
            "sparse_attention_bwd_dq", "sparse_attention_bwd_dkv",
            "sparse_attention_bwd_dq_tc", "sparse_attention_bwd_dkv_tc",
            "sparse_attention_bwd_dq_tc16", "sparse_attention_bwd_dkv_tc16",
@@ -101,23 +101,14 @@ def _tc_operands(dtype: torch.dtype, head_dim: int) -> bool:
 
 
 def _route(dtype: torch.dtype, head_dim: int, block: int) -> str:
-    """Which kernel computes the forward (o, lse) on CUDA: ``"tc"`` (the
-    tensor cores, ``csrc/sparse_attention_tc.cu``) for bfloat16 and
-    float16 with ``head_dim`` a multiple of 8 in [8, 128] and a layout
-    ``block`` that is a multiple of 64 (a 64-row tile never straddles two
-    layout rows); ``"fma"`` (``csrc/sparse_attention.cu``) for everything
-    else the kernels take: float32, and blocks of 16, 32, 48, ... The
-    backward's route is :func:`_route_bwd`."""
-    return ("tc" if _tc_operands(dtype, head_dim) and block % TC_TILE == 0
-            else "fma")
-
-
-def _route_bwd(dtype: torch.dtype, head_dim: int, block: int) -> str:
-    """Which kernels compute dq and dk/dv on CUDA: ``"tc"``
-    (``csrc/sparse_attention_tc.cu``) where :func:`_route` gives it;
-    ``"tc16"`` (``csrc/sparse_attention_tc16.cu``: 16-row sub-blocks on
-    the tensor cores) for the same dtypes and head dims at a layout block
-    that is a multiple of 16 and not of 64; ``"fma"``
+    """Which kernels compute the forward (o, lse), dq and dk/dv on CUDA:
+    ``"tc"`` (the tensor cores, ``csrc/sparse_attention_tc.cu``) for
+    bfloat16 and float16 with ``head_dim`` a multiple of 8 in [8, 128] and
+    a layout ``block`` that is a multiple of 64 (a 64-row tile never
+    straddles two layout rows); ``"tc16"``
+    (``csrc/sparse_attention_tc16.cu``: 16-row sub-blocks on the tensor
+    cores) for the same dtypes and head dims at a block that is a
+    multiple of 16 and not of 64; ``"fma"``
     (``csrc/sparse_attention.cu``) for everything else the kernels take:
     float32 at every block."""
     if not _tc_operands(dtype, head_dim):
@@ -125,6 +116,10 @@ def _route_bwd(dtype: torch.dtype, head_dim: int, block: int) -> str:
     if block % TC_TILE == 0:
         return "tc"
     return "tc16" if block % SUB_TILE == 0 else "fma"
+
+
+# the backward's route: the forward's, one function
+_route_bwd = _route
 
 
 def layout_to_dense_mask(layout: np.ndarray, block: int) -> np.ndarray:
@@ -442,10 +437,11 @@ class SparsePlan:
     def work16(self, which: str, causal: bool,
                cap: Optional[int] = None) -> WorkList16:
         """The :class:`WorkList16` of the 16-row tensor-core ``which``
-        kernel ("dq" or "dkv"), its walks cut at ``cap`` steps of 64 rows
+        kernel ("fwd", "dq" or "dkv"; the forward's is dq's, the same
+        object), its walks cut at ``cap`` steps of 64 rows
         (:data:`SPLIT_CAP` by default); built once per (which, causal,
         cap). Any layout block that is a multiple of 16."""
-        if which not in ("dq", "dkv"):
+        if which not in ("fwd", "dq", "dkv"):
             raise ValueError(f"no 16-row work list for kernel {which!r}")
         if self.block % SUB_TILE:
             raise ValueError(f"the 16-row tensor-core kernels take a layout "
@@ -586,8 +582,9 @@ def sparse_bwd_dkv_reference(q, k, v, dout, key_mask, lse, delta,
 def _kernel(name: str = "sparse_attention"):
     """The ctypes functions of ``csrc/<name>.cu``: ``sparse_attention``
     (forward, dq, dk/dv on FMAs), ``sparse_attention_tc`` (forward, dq,
-    dk/dv on the tensor cores) or ``sparse_attention_tc16`` (dq, dk/dv on
-    the tensor cores over 16-row blocks), built and loaded at first use."""
+    dk/dv on the tensor cores) or ``sparse_attention_tc16`` (forward, dq,
+    dk/dv on the tensor cores over 16-row blocks), built and loaded at
+    first use."""
     if name not in _FN:
         lib = build.load(name)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -595,18 +592,13 @@ def _kernel(name: str = "sparse_attention"):
         # route, part, splits, n_split, n_slots), dtype, stream
         shape = [i32] * 5 + [f32, i32]
         end = [i32, ptr]
-        fns = {}
-        if name == "sparse_attention":
-            fns["fwd"] = (lib.sparse_attention_fwd,
-                          [ptr] * 6 + [i32] + [ptr] * 3 + shape + end)
-            tail = shape + end
-        else:
-            tail = shape + [ptr, ptr, i32, i32] + end
-            if name == "sparse_attention_tc":
-                fns["fwd"] = (lib.sparse_attention_tc_fwd,
-                              [ptr] * 6 + [i32] + [ptr] * 3 + tail)
-        # n_items (then, over 16-row blocks, walk_max)
+        tail = (shape + end if name == "sparse_attention" else
+                shape + [ptr, ptr, i32, i32] + end)
+        # the index lists' width or n_items (then, over 16-row blocks,
+        # walk_max)
         count = [i32] * (2 if name == "sparse_attention_tc16" else 1)
+        fns = {"fwd": (getattr(lib, f"{name}_fwd"),
+                       [ptr] * 6 + count + [ptr] * 3 + tail)}
         fns["dq"] = (getattr(lib, f"{name}_bwd_dq"),
                      [ptr] * 7 + count + [ptr] * 4 + tail)
         fns["dkv"] = (getattr(lib, f"{name}_bwd_dkv"),
@@ -685,13 +677,17 @@ def sparse_attention_fwd(q, k, v, key_mask, plan: SparsePlan, causal: bool,
     ``out`` (contiguous [B, S, H, D] in q's dtype) and ``lse`` (fp32 [B,
     H, S], natural log; -1e30 for a row with no visible key). On CUDA the
     inputs are as :func:`_prepare` returns them. The FMA kernel's launches
-    count here, the tensor-core kernel's in
-    :func:`sparse_attention_fwd_tc`; on the CPU, the plain version
-    (neither counts)."""
+    count here, the tensor-core kernels' in
+    :func:`sparse_attention_fwd_tc` and :func:`sparse_attention_fwd_tc16`;
+    on the CPU, the plain version (none counts)."""
     if not _on_cuda(q, "forward"):
         return sparse_fwd_reference(q, k, v, key_mask, plan, causal, scale)
-    if _route(q.dtype, q.shape[-1], plan.block) == "tc":
+    route = _route(q.dtype, q.shape[-1], plan.block)
+    if route == "tc":
         return sparse_attention_fwd_tc(q, k, v, key_mask, plan, causal, scale)
+    if route == "tc16":
+        return sparse_attention_fwd_tc16(q, k, v, key_mask, plan, causal,
+                                         scale)
     out, lse = _launch_fma_fwd(q, k, v, key_mask, plan, causal, scale)
     sparse_attention_fwd.launches += 1
     return out, lse
@@ -725,24 +721,56 @@ def sparse_attention_fwd_tc(q, k, v, key_mask, plan: SparsePlan,
     partials (o, m, l) that a second pass combines in piece order. Inputs
     and outputs as :func:`sparse_attention_fwd`."""
     _require_tc(q, plan, "forward")
+    out, lse = _launch_tc_fwd(q, k, v, key_mask, plan, causal, scale, cap)
+    sparse_attention_fwd_tc.launches += 1
+    return out, lse
+
+
+def sparse_attention_fwd_tc16(q, k, v, key_mask, plan: SparsePlan,
+                              causal: bool, scale: float,
+                              cap: Optional[int] = None):
+    """The forward on the tensor cores over 16-row blocks (the walls of
+    :func:`sparse_attention_bwd_dq_tc16`): a block of 4 warps owns up to 4
+    query blocks of one head (dq's list, :meth:`SparsePlan.work16`), each
+    warp an online softmax over the gathered key blocks its bit lists;
+    walks longer than ``cap`` steps of 64 rows (:data:`SPLIT_CAP` by
+    default) split, their pieces' fp32 partials (o, m, l) combined by a
+    second pass in piece order. Inputs and outputs as
+    :func:`sparse_attention_fwd`."""
+    _require_tc16(q, plan, "forward")
+    out, lse = _launch_tc_fwd(q, k, v, key_mask, plan, causal, scale, cap,
+                              "sparse_attention_tc16")
+    sparse_attention_fwd_tc16.launches += 1
+    return out, lse
+
+
+def _launch_tc_fwd(q, k, v, key_mask, plan, causal, scale, cap,
+                   name="sparse_attention_tc"):
+    """The forward by the tensor-core kernel of ``csrc/<name>.cu``
+    (``sparse_attention_tc`` over dq's 64-row work list at ``cap``,
+    ``sparse_attention_tc16`` over its 16-row one); a split walk's pieces
+    leave fp32 (o, m, l) in scratch allocated here (64 rows an item either
+    way)."""
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    work, items, tiles, splits = plan.work_on(q.device, "fwd", causal, cap)
+    rows16 = name == "sparse_attention_tc16"
+    work, items, tiles, splits = plan.work_on(q.device, "fwd", causal, cap,
+                                              rows16=rows16)
+    count = (work.n_items, work.walk_max) if rows16 else (work.n_items,)
     part = (torch.empty(b * work.n_slots * TC_TILE * (d + 2),
                         dtype=torch.float32, device=q.device)
             if work.n_split else None)
-    fn = _kernel("sparse_attention_tc")["fwd"]
+    fn = _kernel(name)["fwd"]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
-                items.data_ptr(), tiles.data_ptr(), work.n_items,
+                items.data_ptr(), tiles.data_ptr(), *count,
                 out.data_ptr(), lse.data_ptr(), _strides(q, k, v), b, h, s,
                 d, plan.block, float(scale), int(causal), _ptr(part),
                 splits.data_ptr() if work.n_split else None, work.n_split,
                 work.n_slots, _DTYPE_CODES[q.dtype], stream)
-    _check(rc, "forward", "sparse_attention_tc")
-    sparse_attention_fwd_tc.launches += 1
+    _check(rc, "forward", name)
     return out, lse
 
 
@@ -816,7 +844,7 @@ def _require_tc(q, plan: SparsePlan, what: str):
 def _require_tc16(q, plan: SparsePlan, what: str):
     """The 16-row tensor-core wrappers' walls: inputs of their route, on
     CUDA."""
-    if _route_bwd(q.dtype, q.shape[-1], plan.block) != "tc16":
+    if _route(q.dtype, q.shape[-1], plan.block) != "tc16":
         raise ValueError(
             f"the 16-row tensor-core sparse {what} kernel takes bfloat16 or "
             f"float16 with head_dim a multiple of 8 in [8, {MAX_HEAD_DIM}] "
@@ -830,7 +858,7 @@ def _require_tc16(q, plan: SparsePlan, what: str):
 
 def sparse_attention_bwd_dq(q, k, v, dout, key_mask, lse, delta,
                             plan: SparsePlan, causal: bool, scale: float):
-    """dq (kernel #9) on the kernel :func:`_route_bwd` picks: ``dout``
+    """dq (kernel #9) on the kernel :func:`_route` picks: ``dout``
     contiguous [B, S, H, D]; ``lse`` and ``delta`` fp32 [B, H, S].
     Returns dq, contiguous [B, S, H, D]. The FMA kernel's launches count
     here, the tensor-core kernels' in :func:`sparse_attention_bwd_dq_tc`
@@ -839,7 +867,7 @@ def sparse_attention_bwd_dq(q, k, v, dout, key_mask, lse, delta,
     if not _on_cuda(q, "dq"):
         return sparse_bwd_dq_reference(q, k, v, dout, key_mask, lse, delta,
                                        plan, causal, scale)
-    route = _route_bwd(q.dtype, q.shape[-1], plan.block)
+    route = _route(q.dtype, q.shape[-1], plan.block)
     if route == "tc":
         return sparse_attention_bwd_dq_tc(q, k, v, dout, key_mask, lse,
                                           delta, plan, causal, scale)
@@ -886,7 +914,7 @@ def sparse_attention_bwd_dq_tc16(q, k, v, dout, key_mask, lse, delta,
 
 def sparse_attention_bwd_dkv(q, k, v, dout, key_mask, lse, delta,
                              plan: SparsePlan, causal: bool, scale: float):
-    """dk and dv (kernel #10) on the kernel :func:`_route_bwd` picks,
+    """dk and dv (kernel #10) on the kernel :func:`_route` picks,
     walking the transposed lists. Returns dk, dv, contiguous [B, S, H, D].
     The FMA kernel's launches count here, the tensor-core kernels' in
     :func:`sparse_attention_bwd_dkv_tc` and
@@ -895,7 +923,7 @@ def sparse_attention_bwd_dkv(q, k, v, dout, key_mask, lse, delta,
     if not _on_cuda(q, "dkv"):
         return sparse_bwd_dkv_reference(q, k, v, dout, key_mask, lse, delta,
                                         plan, causal, scale)
-    route = _route_bwd(q.dtype, q.shape[-1], plan.block)
+    route = _route(q.dtype, q.shape[-1], plan.block)
     if route == "tc":
         return sparse_attention_bwd_dkv_tc(q, k, v, dout, key_mask, lse,
                                            delta, plan, causal, scale)
@@ -940,6 +968,7 @@ def sparse_attention_bwd_dkv_tc16(q, k, v, dout, key_mask, lse, delta,
 
 sparse_attention_fwd.launches = 0
 sparse_attention_fwd_tc.launches = 0
+sparse_attention_fwd_tc16.launches = 0
 sparse_attention_bwd_dq.launches = 0
 sparse_attention_bwd_dq_tc.launches = 0
 sparse_attention_bwd_dkv.launches = 0
@@ -952,7 +981,7 @@ class _SparseAttention(torch.autograd.Function):
     """The kernels with their gradient (the JAX ``_sparse_vjp_fn``): the
     forward saves ``out`` and ``lse``; the backward takes ``delta =
     rowsum(dO * out)`` in fp32 from the output in its dtype, then runs dq
-    and dk/dv on the route :func:`_route_bwd` picks."""
+    and dk/dv on the route :func:`_route` picks."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, plan, causal, scale):

@@ -15,7 +15,7 @@ that combines a split tile's pieces) runs only on the card, where
   mask whose second batch row is all padding: o within 1e-5 in fp32, lse
   within 1e-5, the empty rows o = 0 and lse = -1e30 exactly;
 - the route, the wrapper's walls, and the dispatching wrapper's plain path
-  on the CPU.
+  on the CPU (the 16-row forward: ``tests/test_torch_sparse_fwd_tc16.py``).
 """
 
 import importlib
@@ -169,11 +169,11 @@ def test_piecewise_split_forward_matches_jax_kernel(attention, cap):
 @pytest.mark.parametrize("dtype,head_dim,block,route", [
     (torch.bfloat16, 64, 256, "tc"), (torch.float16, 128, 64, "tc"),
     (torch.bfloat16, 72, 128, "tc"), (torch.float32, 64, 256, "fma"),
-    (torch.bfloat16, 64, 16, "fma"), (torch.float16, 64, 32, "fma")])
+    (torch.bfloat16, 64, 16, "tc16"), (torch.float16, 64, 32, "tc16")])
 def test_forward_route(dtype, head_dim, block, route):
     """The forward takes the backward's route: 16 bits at blocks that are
-    multiples of 64 on the tensor cores, fp32 and blocks of 16 or 32 on
-    the FMA kernel."""
+    multiples of 64 on the 64-row tensor-core kernel, at blocks of 16 or
+    32 on the 16-row one, fp32 on the FMA kernel."""
     assert sp._route(dtype, head_dim, block) == route
 
 

@@ -19,7 +19,8 @@ on the CPU:
   ``_sparse_bwd_dq_kernel`` and ``_sparse_bwd_dkv_kernel`` (interpret),
   fp32 atol 1e-5, with a key mask that leaves one batch row all padding;
 - which inputs ``_route_bwd`` sends to the 16-row kernels, the ``_tc16``
-  wrappers' walls, and the dispatching wrappers' plain path on the CPU.
+  wrappers' walls, and the dispatching wrappers' plain path on the CPU (the
+  16-row forward: ``tests/test_torch_sparse_fwd_tc16.py``).
 """
 
 import collections
@@ -162,7 +163,7 @@ def test_work16_masks_differing_lists_and_caches(plans):
     with pytest.raises(ValueError, match="cap"):
         plan.work16("dq", False, 0)
     with pytest.raises(ValueError, match="no 16-row work list"):
-        plan.work16("fwd", False)
+        plan.work16("bwd", False)
     with pytest.raises(ValueError, match="multiple of 16"):
         sp.SparsePlan(np.ones((1, 4, 4), np.int8), 24).work16("dq", True)
 
@@ -328,11 +329,11 @@ def test_piecewise16_matches_jax_kernels(mode, block, attention, masked):
 def test_route_bwd(dtype, head_dim, block, route):
     """16-bit types at head dims the kernels take: blocks that are
     multiples of 64 on the 64-row kernels, other multiples of 16 on the
-    16-row kernels; fp32 at every block on the FMA kernels. The forward's
-    route is unchanged (``_route``: FMA at blocks of 16 and 32)."""
+    16-row kernels; fp32 at every block on the FMA kernels. The forward
+    takes the same route (``_route``, of which ``_route_bwd`` is the
+    other name)."""
     assert sp._route_bwd(dtype, head_dim, block) == route
-    assert sp._route(dtype, head_dim, block) == (
-        "tc" if route == "tc" else "fma")
+    assert sp._route(dtype, head_dim, block) == route
 
 
 def _inputs(dtype, block, s=96, h=2, d=16, b=1):
@@ -349,7 +350,8 @@ def _inputs(dtype, block, s=96, h=2, d=16, b=1):
 WRAPPERS = ("sparse_attention_bwd_dq", "sparse_attention_bwd_dkv",
             "sparse_attention_bwd_dq_tc", "sparse_attention_bwd_dkv_tc",
             "sparse_attention_bwd_dq_tc16", "sparse_attention_bwd_dkv_tc16",
-            "sparse_attention_fwd", "sparse_attention_fwd_tc")
+            "sparse_attention_fwd", "sparse_attention_fwd_tc",
+            "sparse_attention_fwd_tc16")
 
 
 def _counts():

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Check and design probe of the 16-row tensor-core block-sparse backward
-(``deepspeed_tpu_torch/csrc/sparse_attention_tc16.cu``) on one GPU.
+"""Check and design probe of the 16-row tensor-core block-sparse forward
+and backward (``deepspeed_tpu_torch/csrc/sparse_attention_tc16.cu``) on
+one GPU.
 
     python3 tools/probe_sparse_tc16.py
 
-Builds the source (and ``sparse_attention.cu``, whose FMA forward gives
-the lse) and prints its registers, shared memory and spills; holds dq and
+Builds the source (and ``sparse_attention.cu``, the fp32 route) and
+prints its registers, shared memory and spills; holds the forward, dq and
 dk/dv against their plain versions in ``chip_smoke.py``'s phase 2d cases
 at blocks of 16 and 32 ((b), (g), (h): fixed 16 with a key mask, BigBird
 32 causal, D = 128), at SPARSE_SMALL_CAP16 too, bit-equal over two
@@ -23,16 +24,18 @@ per process, all started together:
 - ``four_blocks_bq32``: dk/dv at 4 blocks an SM (at most 128 registers),
   streaming 32 queries a step;
 - ``bq32``: dk/dv streams 32 queries a step at 3 blocks an SM;
+- ``fwd_three_blocks``: the forward at 3 blocks an SM at D <= 64 instead
+  of 4;
 - ``no_products``: every load, wait and store of the walk, no product
   (wrong results: timed only);
 - ``no_steps``: each block's prologue and epilogue only (wrong results:
   timed only).
 
-Holds ``source``, ``branchy`` and ``two_blocks`` against the plain
-versions at the sparse BERT shape ([8, 512, 16, 64] bf16, BERT_SPARSE,
-non-causal, key mask), then times dq and dk/dv of every variant on 4
-layers' inputs in rotation, in two rounds of opposite order. Exits
-non-zero without CUDA or on any miss.
+Holds every variant but the last two against the plain versions at the
+sparse BERT shape ([8, 512, 16, 64] bf16, BERT_SPARSE, non-causal, key
+mask; the forward's o and lse), then times the forward, dq and dk/dv of
+every variant on 4 layers' inputs in rotation, in two rounds of opposite
+order. Exits non-zero without CUDA or on any miss.
 """
 
 import ctypes
@@ -48,9 +51,11 @@ LIVE = "      live |= ((unsigned)(Wt[ENTRY * e + 1] >> warp) & 1u) << e;"
 STEPS = "  const int steps = (cnt + EPS - 1) / EPS;"
 DQ_BOUNDS = "__launch_bounds__(NT, DMAX <= 64 ? 4 : 1) sparse_dq"
 DKV_BOUNDS = "__launch_bounds__(NT, DMAX <= 64 ? 3 : 1) sparse_dkv"
+FWD_BOUNDS = "__launch_bounds__(NT, DMAX <= 64 ? 4 : 1) sparse_fwd"
 BQ = "  constexpr int BQ = DMAX <= 64 ? 64 : 32;"
 HELD = ("source", "branchy", "two_blocks", "three_blocks",
-        "four_blocks_bq32", "bq32")
+        "four_blocks_bq32", "bq32", "fwd_three_blocks")
+KERNELS = ("fwd", "dq", "dkv")
 
 
 def bounds(src: str, dq: int, dkv: int) -> str:
@@ -59,8 +64,8 @@ def bounds(src: str, dq: int, dkv: int) -> str:
 
 
 def variants(src: str) -> dict:
-    for text, n in ((FULL, 2), (LIVE, 2), (STEPS, 2), (DQ_BOUNDS, 1),
-                    (DKV_BOUNDS, 1), (BQ, 2)):
+    for text, n in ((FULL, 3), (LIVE, 3), (STEPS, 3), (DQ_BOUNDS, 1),
+                    (DKV_BOUNDS, 1), (FWD_BOUNDS, 1), (BQ, 2)):
         if src.count(text) != n:
             raise SystemExit(f"probe_sparse_tc16: {text!r} moved")
     bq32 = src.replace(BQ, "  constexpr int BQ = 32;")
@@ -70,6 +75,8 @@ def variants(src: str) -> dict:
             "three_blocks": bounds(src, 3, 3),
             "four_blocks_bq32": bounds(bq32, 4, 4),
             "bq32": bq32,
+            "fwd_three_blocks": src.replace(
+                FWD_BOUNDS, FWD_BOUNDS.replace("4 : 1", "3 : 1")),
             "no_products": src.replace(LIVE, "      live |= 0u * e;"),
             "no_steps": src.replace(STEPS, "  const int steps = 0 * cnt;")}
 
@@ -138,33 +145,42 @@ def main() -> int:
         lib = ctypes.CDLL(os.path.join(OUT, name + ".so"))
         fns[name] = {}
         for key, fn in src_fns.items():
-            sym = ("sparse_attention_tc16_error_string" if key == "err"
-                   else f"sparse_attention_tc16_bwd_{key}")
+            sym = {"err": "sparse_attention_tc16_error_string",
+                   "fwd": "sparse_attention_tc16_fwd"}.get(
+                       key, f"sparse_attention_tc16_bwd_{key}")
             got = getattr(lib, sym)
             got.argtypes, got.restype = fn.argtypes, fn.restype
             fns[name][key] = got
     layers = bert_inputs(torch, cs, sp)
     a = layers[0]
+    fa = (*a[:3], a[4], *a[7:])
+    want_o, want_lse = sp.sparse_fwd_reference(*fa)
     want_dq = sp.sparse_bwd_dq_reference(*a)
     want_dkv = torch.cat(sp.sparse_bwd_dkv_reference(*a), -1)
     for name in HELD:
         sp._FN["sparse_attention_tc16"] = fns[name]
+        o, lse = sp.sparse_attention_fwd_tc16(*fa)
         dq = sp.sparse_attention_bwd_dq_tc16(*a)
         dkv = torch.cat(sp.sparse_attention_bwd_dkv_tc16(*a), -1)
         torch.cuda.synchronize()
         errs = [float((x.float() - w.float()).abs().max())
-                for x, w in ((dq, want_dq), (dkv, want_dkv))]
-        print(f"{name}: max |err| dq {errs[0]:.3g}, dk/dv {errs[1]:.3g}")
-        if not max(errs) < 0.05:
+                for x, w in ((o, want_o), (dq, want_dq), (dkv, want_dkv))]
+        lse_err = float((lse - want_lse).abs().max())
+        print(f"{name}: max |err| o {errs[0]:.3g}, lse {lse_err:.3g}, dq "
+              f"{errs[1]:.3g}, dk/dv {errs[2]:.3g}")
+        if not max(errs) < 0.05 or not lse_err <= cs.SPARSE_LSE_TOL:
             raise SystemExit(f"probe_sparse_tc16: {name} disagrees")
     it = {"i": 0}
 
     def call(which):
         def go():
             it["i"] = (it["i"] + 1) % len(layers)
+            x = layers[it["i"]]
+            if which == "fwd":
+                return sp.sparse_attention_fwd_tc16(*x[:3], x[4], *x[7:])
             fn = (sp.sparse_attention_bwd_dq_tc16 if which == "dq" else
                   sp.sparse_attention_bwd_dkv_tc16)
-            return fn(*layers[it["i"]])
+            return fn(*x)
         return go
 
     times = {}
@@ -174,10 +190,10 @@ def main() -> int:
             sp._FN["sparse_attention_tc16"] = fns[name]
             times.setdefault(name, []).append(tuple(
                 round(cs.device_ms(torch, call(w), iters=20, warmup=3)[0], 4)
-                for w in ("dq", "dkv")))
+                for w in KERNELS))
     sp._FN["sparse_attention_tc16"] = src_fns
-    print(f"16-row (dq, dk/dv) device ms at the sparse BERT shape by variant "
-          f"(two rounds): {times}")
+    print(f"16-row (forward, dq, dk/dv) device ms at the sparse BERT shape "
+          f"by variant (two rounds): {times}")
     return 0
 
 
