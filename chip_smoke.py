@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only bert      # the build, then phase 8 only
     python3 chip_smoke.py --only serving   # the build, then phase 3 only
     python3 chip_smoke.py --only ckpt      # the build, then phase 9 only
+    python3 chip_smoke.py --only fp32      # the build, then phase 7b only
     python3 chip_smoke.py --only sparse,chunked
 
 1. Device: requires CUDA, prints the card's name and power limit, builds
@@ -46,11 +47,14 @@
      the decode rows' split counts beside the rule's pick;
    - flash attention forward, dq and dk/dv at [16, 512, 12, 64] causal,
      with and without a key mask holding an all-padding row, and at S=5
-     and S=300, in fp32 (the FMA kernels), bf16 and fp16 (the tensor-core
-     forward, dq and dk/dv of ``csrc/flash_attention_tc.cu``, the FMA dq
-     on the same inputs beside it);
-     in 16 bits also at D=128, at D=72 (zero-padded to 80) and with Sq <
-     Sk (bottom-right causal); the whole autograd path against the plain
+     and S=300, in fp32 (the FMA forward, the 3xTF32 dq and dk/dv of
+     ``csrc/flash_attention_tf32.cu``), bf16 and fp16 (the tensor-core
+     forward, dq and dk/dv of ``csrc/flash_attention_tc.cu``), the FMA dq
+     and dk/dv held on the same inputs beside either; also at D=128, at
+     D=72 (zero-padded to 80 in 16 bits) and with Sq < Sk (bottom-right
+     causal), and, in fp32 and bf16, at D = 256 on the FMA route (its
+     widest branch, causal with the key mask, dropout 0 and 0.1); the
+     whole autograd path against the plain
      version's; fp32 within 1e-5 (dO x 0.1), 16-bit within one rounding
      step of its type plus 1e-3 of the reference's RMS (0.15 on the
      autograd path; dO unscaled); dq and dk/dv bit-equal over two
@@ -58,9 +62,13 @@
      same at dropout 0.1 with one seed on both sides; timed as device
      time at dropout 0 and 0.1 beside the FMA
      kernels on the same inputs, the plain versions and SDPA with its
-     backend pinned and printed; and the dropout keep-mask read back out
+     backend pinned and printed (fp32 bounds at FP32_3XTF32_FLOPS), the
+     D = 256 FMA kernels in bf16 at [4, 512, 8, 256] beside cuDNN's SDPA (the
+     ``_d256`` rows); and the dropout keep-mask read back out
      of the forward, dq and dk/dv kernels (fp32 [2, 2048, 2, 256] through
-     the FMA kernels, bf16 [2, 2048, 2, 64] through the tensor-core ones;
+     the FMA kernels, fp32 [2, 2048, 2, 64] through the FMA forward and
+     the 3xTF32 dq and dk/dv, bf16 [2, 2048, 2, 64] through the
+     tensor-core ones;
      an identity V, K and dO on a D-wide window) against
      ``dropout_keep_mask``, no bit flipped; the non-causal key-padded
      branch (BERT's) the same way in every dtype at dropout 0 and 0.1
@@ -227,6 +235,14 @@
    forward passes). Then in fp32 at 2 layers and dropout 0.1 the kernels'
    path against the plain path (``impl: "xla"``, the same mask function
    and seeds), held as in phase 4.
+7b. fp32 training at full width (``--only fp32`` runs it alone;
+   :func:`check_fp32_training`): ``make_gpt("gpt2", dtype=torch.float32)``
+   (dropout 0.1) through ``initialize`` with phase 4's shape and no bf16
+   block, DeepSpeed's default precision: the FMA forward, the 3xTF32 dq
+   and dk/dv launch 96 times each per step, the FMA dq and dk/dv never,
+   fused Adam once, no plain version, the loss falls, matmul TF32 off;
+   step time, tokens/s, peak memory, the idle share and a profiled step's
+   device ms of #3-#5 and the GEMMs.
 
 8. BERT-large pretraining (``--only bert`` runs it alone): ``initialize``
    -> ``train_batch`` on ``make_bert("bert-large")`` with
@@ -271,13 +287,18 @@
 
 Any failure exits non-zero. The last stdout line is
 ``{"ok": true, "device": {...}}``; before it come the card line and a
-``{"kernels": [...]}`` line. The FMA flash rows (``flash_attention_fwd``,
-``flash_attention_bwd_dq``, ``flash_attention_bwd_dkv`` and their
-``_dropout`` twins) are fp32's route: timed in fp32, their launches
-counted over the fp32 comparison of phase 4 (and of phase 7 at dropout),
-every count set to 0 just before it; so are ``fused_ln.cu``'s rows
-(``fused_ln_matmul_fwd``, ``fused_ln_matmul_bwd``) over phase 6's fp32
-comparison, while the ``_tc`` rows count phase 6 and its fp16 run. The
+``{"kernels": [...]}`` line. The fp32 flash rows (the FMA forward
+``flash_attention_fwd``, the 3xTF32 ``flash_attention_bwd_dq_tf32`` and
+``flash_attention_bwd_dkv_tf32``, and the FMA ``flash_attention_bwd_dq``
+and ``flash_attention_bwd_dkv``, their first versions, timed on the same
+inputs) are timed in fp32; at dropout 0 their launches count the fp32
+comparison of phase 4, their ``_dropout`` twins phase 7b's timed steps
+(the FMA dq and dk/dv 0 in both), every count set to 0 just before it;
+the ``_d256`` rows (the FMA route above D = 128) are timed in bf16 and
+count the FMA wrappers' launches at D > 128 (``.launches_wide``) over
+phases 4, 7 and 7b, set to 0 just before each. ``fused_ln.cu``'s rows
+(``fused_ln_matmul_fwd``, ``fused_ln_matmul_bwd``) are fp32's route,
+counted over phase 6's fp32 comparison, while the ``_tc`` rows count phase 6 and its fp16 run. The
 FMA sparse rows (``sparse_attention_fwd``, ``sparse_attention_bwd_dq``,
 ``sparse_attention_bwd_dkv``) count phase 5's fp32 comparison and are
 timed on the bf16 inputs of their tensor-core twins (their first
@@ -310,6 +331,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOPS = 67e12               # H100 SXM fp32, outside the tensor cores
 BF16_FLOPS = 989e12              # H100 SXM dense bf16, tensor cores
+# fp32-accurate products on the tensor cores: three TF32 products (hi.hi,
+# hi.lo, lo.hi) per fp32 product at the 495 TFLOP/s of dense TF32. It is
+# the least time the card takes for an fp32 product, so every fp32 row's
+# compute bound counts its products at this rate, not at FP32_FLOPS.
+FP32_3XTF32_FLOPS = 495e12 / 3
 KERNEL_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # Flash attention: in fp32, dO is scaled by 0.1 and every element held to
 # atol 1e-5 (1e-4 of gradients near 0.1). In bf16, dO is unscaled and each
@@ -1053,9 +1079,10 @@ def check_chunked_prefill(torch, reports):
             nbytes, flops = chunked_bytes_flops(q, table, pos, blocks, bs,
                                                  int8)
             t_bytes = nbytes / HBM_BYTES_PER_S
-            # the run kernels' chunk products on the tensor cores; the
-            # first kernel on fp32 FMAs
-            peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+            # the run kernels' chunk products on the tensor cores; fp32's
+            # at the 3xTF32 rate (the first kernel runs them on FMAs)
+            peak = (BF16_FLOPS if dtype == torch.bfloat16
+                    else FP32_3XTF32_FLOPS)
             t_ops = flops / peak
             row.update(bound_ms=max(t_bytes, t_ops) * 1e3,
                        bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -1214,10 +1241,13 @@ def flash_bytes_flops(q, mask, which, causal=True):
 
 
 # Phase 2's flash cases, causal: (B, Sq, Sk, H, D, key mask). Every dtype
-# runs FLASH_CASES (the training shape and ragged S, D = 64); bf16 and
-# fp16 also run FLASH_CASES_16, the tensor-core kernels' other widths
-# (D = 128, and D = 72, zero-padded to 80 in shared memory) and Sq < Sk
-# (bottom-right causal). At dropout 0.1 the same split.
+# runs FLASH_CASES (the training shape and ragged S, D = 64) and
+# FLASH_CASES_16, the tensor-core kernels' other widths (D = 128, and D =
+# 72, zero-padded to 80 in shared memory in 16 bits) and Sq < Sk
+# (bottom-right causal): the 16-bit tensor-core forward, dq and dk/dv, and
+# in fp32 the FMA forward with the 3xTF32 dq and dk/dv. fp32 and bf16 also
+# run FLASH_CASES_256, the FMA route's D = 256 (its widest branch, for
+# every dtype above D = 128). At dropout 0.1 the same split.
 FLASH_CASES = ((16, 512, 512, 12, 64, False), (16, 512, 512, 12, 64, True),
                (4, 5, 5, 12, 64, True), (4, 300, 300, 12, 64, False),
                (4, 300, 300, 12, 64, True))
@@ -1229,6 +1259,10 @@ FLASH_DROP_CASES = ((16, 512, 512, 12, 64, False),
                     (16, 512, 512, 12, 64, True))
 FLASH_DROP_CASES_16 = ((4, 300, 300, 4, 128, True),
                        (4, 100, 300, 4, 72, True))
+FLASH_CASES_256 = ((4, 300, 300, 4, 256, True), (4, 100, 300, 4, 256, False))
+FLASH_DROP_CASES_256 = ((4, 300, 300, 4, 256, True),)
+# the _d256 rows' timing shape [B, S, H, D]: bf16, causal, no mask
+FLASH_D256_SHAPE = (4, 512, 8, 256)
 # The non-causal, key-padded cases (BERT's attention), every dtype at
 # dropout 0 and 0.1: bench_bert's head shape at seq 128 and 512 (fewer
 # rows) and Sq < Sk; each with an all-padding batch row.
@@ -1242,11 +1276,14 @@ def compare_flash_case(torch, fa, dtype, case, worst, rate=0.0, seed=None,
     """Kernels #3-#5 and the whole autograd path against their plain
     versions on one ``case`` (B, Sq, Sk, H, D, masked), causal or not, at
     dropout ``rate`` with ``seed``; q is the last Sq rows of the fused
-    projection.
+    projection. Where dq and dk/dv take the tensor cores (16 bits, or
+    3xTF32 in fp32), the FMA dq and dk/dv (their first versions) are held
+    on the same inputs too.
     Folds each output's max |err| into ``worst`` and fails beyond the
-    tolerances (KERNEL_TOL, FLASH_16BIT_RMS_TOL), if dk/dv differ between
-    two launches on the same inputs, or if an all-padding batch row is
-    not exactly zero. Returns the route the forward and dk/dv took."""
+    tolerances (KERNEL_TOL, FLASH_16BIT_RMS_TOL), if dq or dk/dv differ
+    between two launches on the same inputs, or if an all-padding batch
+    row is not exactly zero. Returns the routes of the forward, dq and
+    dk/dv (:func:`flash_attention._route`)."""
     b, sq, s, h, d, masked = case
     name = str(dtype).split(".")[1]
     qkv, q, k, v, dout, mask = flash_case(
@@ -1260,7 +1297,7 @@ def compare_flash_case(torch, fa, dtype, case, worst, rate=0.0, seed=None,
     qp, kp, vp, mp = fa._prepare(q, k, v, mask, causal)
     if qp.data_ptr() != q.data_ptr():
         fail("flash_attention copied an aligned strided view")
-    route = fa._route(dtype, d)
+    routes = tuple(fa._route(dtype, d, w) for w in ("fwd", "dq", "dkv"))
     out, lse = fa.flash_attention_fwd(qp, kp, vp, mp, causal, scale, *drop)
     want = fa.flash_attention_reference(q, k, v, causal=causal,
                                         kv_mask=mask, dropout_rate=rate,
@@ -1275,13 +1312,17 @@ def compare_flash_case(torch, fa, dtype, case, worst, rate=0.0, seed=None,
                                         causal, scale, *drop)
     dk2, dv2 = fa.flash_attention_bwd_dkv(qp, kp, vp, dout, mp, lse, delta,
                                           causal, scale, *drop)
-    # the FMA dq (the first version of the 16-bit route) on the same inputs
+    # the FMA dq and dk/dv (the tensor-core routes' first versions) on the
+    # same inputs
+    first = routes[1] != "fma"
     dq_fma = (fa._launch_dq("flash_attention", qp, kp, vp, dout, mp, lse,
-                            delta, causal, scale, *drop)
-              if route == "tc" else None)
+                            delta, causal, scale, *drop) if first else None)
+    dkv_fma = (fa._launch_dkv("flash_attention", qp, kp, vp, dout, mp, lse,
+                              delta, causal, scale, *drop)
+               if first else None)
     torch.cuda.synchronize()
     what = (f"{name} B={b} Sq={sq} Sk={s} H={h} D={d} masked={masked} "
-            f"causal={causal} dropout={rate} ({route})")
+            f"causal={causal} dropout={rate} ({'/'.join(routes)})")
     if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
         fail(f"flash dkv {what}: two launches on one input differ")
     if not torch.equal(dq, dq2):
@@ -1317,8 +1358,10 @@ def compare_flash_case(torch, fa, dtype, case, worst, rate=0.0, seed=None,
     pairs = {"fwd": (out, want), "dq": (dq, dq_w), "dk": (dk, dk_w),
              "dv": (dv, dv_w), "autograd out": tuple(outs),
              "autograd dqkv": (x1.grad, grad_w)}
-    if dq_fma is not None:
+    if first:
         pairs["dq (FMA kernel, same inputs)"] = (dq_fma, dq_w)
+        pairs["dk (FMA kernel, same inputs)"] = (dkv_fma[0], dk_w)
+        pairs["dv (FMA kernel, same inputs)"] = (dkv_fma[1], dv_w)
     for key, (got, ref) in pairs.items():
         if not torch.isfinite(got).all():
             fail(f"flash {key} {what}: non-finite output")
@@ -1347,7 +1390,7 @@ def compare_flash_case(torch, fa, dtype, case, worst, rate=0.0, seed=None,
     if masked and b > 1 and any(t[1].abs().max().item() != 0.0
                                 for t in (out, dq, dk, dv)):
         fail(f"flash {what}: the all-padding row is not exactly zero")
-    return route
+    return routes
 
 
 def print_flash_worst(worst, cases, rate=0.0, kind="causal, with/without "
@@ -1439,67 +1482,146 @@ def device_ms(torch, fn, iters=20, warmup=3, names=False):
     return start.elapsed_time(end) / iters, kernels
 
 
+def flash_wrappers(fa):
+    """Each flash kernel's wrappers by route: the forward, dq and dk/dv."""
+    return {"fwd": {"tc": fa.flash_attention_fwd_tc,
+                    "fma": fa.flash_attention_fwd},
+            "dq": {"tc": fa.flash_attention_bwd_dq_tc,
+                   "tf32": fa.flash_attention_bwd_dq_tf32,
+                   "fma": fa.flash_attention_bwd_dq},
+            "dkv": {"tc": fa.flash_attention_bwd_dkv_tc,
+                    "tf32": fa.flash_attention_bwd_dkv_tf32,
+                    "fma": fa.flash_attention_bwd_dkv}}
+
+
+def flash_wide_launches(fa):
+    """The FMA wrappers' launches at D > 128, by kernel."""
+    return {"fwd": fa.flash_attention_fwd.launches_wide,
+            "dq": fa.flash_attention_bwd_dq.launches_wide,
+            "dkv": fa.flash_attention_bwd_dkv.launches_wide}
+
+
+def take_wide_launches(fa, total=None):
+    """``total`` (by kernel; zeros when None) plus the FMA wrappers' launches
+    at D > 128 since they were last set to 0; sets them to 0."""
+    total = dict(total or dict.fromkeys(("fwd", "dq", "dkv"), 0))
+    for key, n in flash_wide_launches(fa).items():
+        total[key] += n
+    for fn in (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv):
+        fn.launches_wide = 0
+    return total
+
+
+def flash_routes_expected(dtype, d):
+    """The routes of the forward, dq and dk/dv that phase 2 holds the code
+    to: 16-bit up to D = 128 the tensor cores; fp32 up to D = 128 the FMA
+    forward and the 3xTF32 dq and dk/dv; every dtype above D = 128 the FMA
+    kernels."""
+    import torch
+
+    if d > 128:
+        return ("fma",) * 3
+    return ("fma", "tf32", "tf32") if dtype == torch.float32 else ("tc",) * 3
+
+
 def check_flash_attention(torch, reports):
     """#3-#5 against their plain versions in fp32, bf16 and fp16 at dropout
-    0 (FLASH_CASES, and FLASH_CASES_16 in the 16-bit types) and at dropout
-    0.1 (FLASH_DROP_CASES, FLASH_DROP_CASES_16); 16-bit forward, dq and
-    dk/dv must take the tensor-core kernels and fp32 the FMA kernels. Then
-    timed by device time at the training shape (:func:`time_flash`).
-    ``reports``: the kernels line's rows by name."""
+    0 (FLASH_CASES and FLASH_CASES_16) and at dropout 0.1
+    (FLASH_DROP_CASES, FLASH_DROP_CASES_16), and at D = 256 in fp32 and
+    bf16 (FLASH_CASES_256, FLASH_DROP_CASES_256); each call must launch
+    the kernel of the route :func:`flash_routes_expected` names, counted
+    in that route's wrapper alone, and in the FMA wrappers'
+    ``.launches_wide`` exactly when D > 128. Then timed by device time
+    (:func:`time_flash`) at the training shape, and on the FMA route at
+    FLASH_D256_SHAPE. ``reports``: the kernels line's rows by name."""
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 
     worst, worst_drop, worst_nc, worst_nc_drop = {}, {}, {}, {}
-    tc_wrappers = (fa.flash_attention_fwd_tc, fa.flash_attention_bwd_dq_tc,
-                   fa.flash_attention_bwd_dkv_tc)
+    worst_256 = {}
+    wrappers = flash_wrappers(fa)
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        sixteen = dtype != torch.float32
+        wide = FLASH_CASES_256 if dtype != torch.float16 else ()
+        wide_drop = FLASH_DROP_CASES_256 if dtype != torch.float16 else ()
         for cases, sink, rate, causal in (
-                (FLASH_CASES + (FLASH_CASES_16 if sixteen else ()), worst,
-                 0.0, True),
-                (FLASH_DROP_CASES + (FLASH_DROP_CASES_16 if sixteen else ()),
-                 worst_drop, FLASH_DROPOUT, True),
+                (FLASH_CASES + FLASH_CASES_16, worst, 0.0, True),
+                (FLASH_DROP_CASES + FLASH_DROP_CASES_16, worst_drop,
+                 FLASH_DROPOUT, True),
                 (FLASH_NONCAUSAL_CASES, worst_nc, 0.0, False),
                 (FLASH_NONCAUSAL_CASES, worst_nc_drop, FLASH_DROPOUT,
-                 False)):
+                 False),
+                (wide, worst_256, 0.0, True),
+                (wide_drop, worst_256, FLASH_DROPOUT, True)):
             for case in cases:
-                tc = [w.launches for w in tc_wrappers]
-                route = compare_flash_case(
+                before = {(k, r): w.launches for k, by in wrappers.items()
+                          for r, w in by.items()}
+                wide = flash_wide_launches(fa)
+                routes = compare_flash_case(
                     torch, fa, dtype, case, sink, rate,
                     FLASH_DROPOUT_SEED if rate else None, causal=causal)
-                grew = [w.launches > n for w, n in zip(tc_wrappers, tc)]
-                if route != ("tc" if sixteen else "fma") or \
-                        grew != [sixteen] * 3:
+                want = flash_routes_expected(dtype, case[4])
+                grew = {k: sorted(r for r, w in by.items()
+                                  if w.launches > before[(k, r)])
+                        for k, by in wrappers.items()}
+                grew_wide = sorted(k for k, n in flash_wide_launches(
+                    fa).items() if n > wide[k])
+                if routes != want or any(
+                        grew[k] != [r] for k, r in zip(wrappers, want)) \
+                        or grew_wide != (sorted(wrappers)
+                                         if case[4] > 128 else []):
                     fail(f"flash {dtype} {case} causal={causal}: routed to "
-                         f"{route}, tensor-core launches {grew}")
-    print_flash_worst(worst, "(B,Sq,Sk,H,D) in FLASH_CASES (+ "
-                      "FLASH_CASES_16 in 16 bits)")
+                         f"{routes} (expected {want}), launches grew on "
+                         f"{grew}, wide launches on {grew_wide}")
+    print_flash_worst(worst, "(B,Sq,Sk,H,D) in FLASH_CASES and "
+                      "FLASH_CASES_16")
     print_flash_worst(worst_drop, f"dropout {FLASH_DROPOUT}, "
-                      f"FLASH_DROP_CASES (+ FLASH_DROP_CASES_16)",
+                      f"FLASH_DROP_CASES and FLASH_DROP_CASES_16",
                       FLASH_DROPOUT)
     nc = "non-causal, key mask with an all-padding row"
     print_flash_worst(worst_nc, "FLASH_NONCAUSAL_CASES", kind=nc)
     print_flash_worst(worst_nc_drop, f"dropout {FLASH_DROPOUT}, "
                       f"FLASH_NONCAUSAL_CASES", FLASH_DROPOUT, kind=nc)
-    time_flash(torch, fa, reports, worst, worst_drop)
+    print_flash_worst(worst_256, f"D = 256 on the FMA route, dropout 0 and "
+                      f"{FLASH_DROPOUT}, FLASH_CASES_256 and "
+                      f"FLASH_DROP_CASES_256")
+    time_flash(torch, fa, reports, {0.0: worst, FLASH_DROPOUT: worst_drop})
+    # the _d256 rows: bf16 times, the max |err| of both dtypes' D = 256
+    # cases at dropout 0 and 0.1
+    both = {}
+    for k, v in worst_256.items():
+        if len(k) == 2 and v[0] >= both.get((k[0], "bfloat16"), (-1.0,))[0]:
+            both[(k[0], "bfloat16")] = v
+    # beside cuDNN's SDPA: SDPA's own pick at D = 256, and the faster of
+    # its backends there
+    time_flash(torch, fa, reports, {0.0: both}, shape=FLASH_D256_SHAPE,
+               dtypes=(torch.bfloat16,), suffix="_d256",
+               backends={"bfloat16": "CUDNN_ATTENTION"})
     time_flash_bert(torch, fa, reports)
 
 
-def time_flash(torch, fa, reports, worst, worst_drop):
-    """The flash rows' times at the training shape [16, 512, 12, 64],
-    causal, no mask, rotating over 4 layers' inputs (150 MB in bf16, three
-    times the 50 MB L2) as the step does, at dropout 0 and 0.1, all as
-    device time (:func:`device_ms`): bf16 on the routed kernels (the
-    tensor-core forward, dq and dk/dv) beside the FMA kernels on the same
-    inputs (their first versions' route), and fp32 on the FMA kernels,
-    which fp32 takes; each beside its plain version and
-    SDPA with its backend pinned (flash for bf16, memory-efficient for
-    fp32). The tensor-core rows also print their host-paced time
+def time_flash(torch, fa, reports, worsts, shape=(16, 512, 12, 64),
+               dtypes=None, suffix="", backends=None):
+    """The flash rows' times at ``shape`` [B, S, H, D] (by default the
+    training shape), causal, no mask, rotating over 4 layers' inputs (150
+    MB in bf16 at the training shape, three times the 50 MB L2) as the
+    step does, at each dropout rate of ``worsts`` (rate: phase 2's max
+    |err| by (output, dtype name)), all as device time
+    (:func:`device_ms`), in each of ``dtypes`` (bf16 and fp32 by default):
+    bf16 on its routes (the tensor-core forward, dq and dk/dv up to D =
+    128) beside the FMA kernels on the same inputs (their first versions'
+    route), and fp32 on its routes (the FMA forward, the 3xTF32 dq and
+    dk/dv) beside the FMA dq and dk/dv on the same inputs, which fill the
+    FMA rows; each beside its plain version and SDPA with its backend
+    pinned (flash for bf16, memory-efficient for fp32, unless
+    ``backends`` names another by dtype name). Row names end in
+    ``suffix``. The tensor-core rows also print their host-paced time
     (:func:`cuda_ms`: 50 back-to-back calls between two events), which
-    counts the wrapper's host work where it exceeds the device's."""
+    counts the wrapper's host work where it exceeds the device's. fp32
+    bounds count the products at FP32_3XTF32_FLOPS."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    b, s, h, d = 16, 512, 12, 64
+    b, s, h, d = shape
     scale = 1.0 / d ** 0.5
     it = {"i": 0}
 
@@ -1507,14 +1629,15 @@ def time_flash(torch, fa, reports, worst, worst_drop):
         it["i"] = (it["i"] + 1) % len(items)
         return items[it["i"]]
 
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes or (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
-        backend = (SDPBackend.FLASH_ATTENTION if dtype == torch.bfloat16
-                   else SDPBackend.EFFICIENT_ATTENTION)
+        backend = getattr(SDPBackend, (backends or {}).get(name) or (
+            "FLASH_ATTENTION" if dtype == torch.bfloat16
+            else "EFFICIENT_ATTENTION"))
         layers = [flash_case(torch, dtype, b, s, h, d, seed=100 + i)
                   for i in range(4)]
         q0 = layers[0][1]
-        for rate in (0.0, FLASH_DROPOUT):
+        for rate, src in worsts.items():
             drop = (rate, FLASH_DROPOUT_SEED if rate else None)
             prepped = []
             for _qkv, q, k, v, dout, _m in layers:
@@ -1578,43 +1701,57 @@ def time_flash(torch, fa, reports, worst, worst_drop):
 
                 lib = {"fwd": device_ms(torch, sdpa_fwd, names=True),
                        "bwd": device_ms(torch, sdpa_bwd, names=True)}
-            src = worst_drop if rate else worst
+            pair = {}
             for key in ("fwd", "dq", "dkv"):
-                route = fa._route(dtype, d)
-                row = {"fwd": "flash_attention_fwd", "dq":
-                       "flash_attention_bwd_dq", "dkv":
-                       "flash_attention_bwd_dkv"}[key]
-                row += ("_tc" if route == "tc" else "") + (
-                    "_dropout" if rate else "")
+                route = fa._route(dtype, d, key)
+                base = {"fwd": "flash_attention_fwd", "dq":
+                        "flash_attention_bwd_dq", "dkv":
+                        "flash_attention_bwd_dkv"}[key]
+                tail = "_dropout" if rate else ""
+                row = base + {"tc": "_tc", "tf32": "_tf32",
+                              "fma": ""}[route] + tail + suffix
                 kernel_ms, kernel_names = device_ms(torch, kern[key],
                                                     names=True)
                 plain_ms, _ = device_ms(torch, plain[key], iters=5,
                                         warmup=1)
                 library, lib_names = lib["fwd" if key == "fwd" else "bwd"]
                 nbytes, flops = flash_bytes_flops(q0, None, key)
-                peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+                peak = (BF16_FLOPS if dtype == torch.bfloat16
+                        else FP32_3XTF32_FLOPS)
                 t_bytes = nbytes / HBM_BYTES_PER_S
                 t_ops = flops / peak
-                errs = [src[(k, name)][0] for k in
-                        {"fwd": ("fwd",), "dq": ("dq",),
-                         "dkv": ("dk", "dv")}[key]]
+                outs = {"fwd": ("fwd",), "dq": ("dq",),
+                        "dkv": ("dk", "dv")}[key]
+                bound = dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                             bound_by="bytes" if t_bytes >= t_ops
+                             else "operations")
                 rep = reports[row]
                 rep.update(ms=kernel_ms, plain_ms=plain_ms,
-                           library_ms=library,
-                           bound_ms=max(t_bytes, t_ops) * 1e3,
-                           bound_by="bytes" if t_bytes >= t_ops
-                           else "operations",
-                           max_abs_err=max(errs))
+                           library_ms=library, **bound,
+                           max_abs_err=max(src[(k, name)][0] for k in outs))
+                pair[key] = kernel_ms
                 extra = ""
-                if route == "tc":
+                if route != "fma":
                     host_ms = cuda_ms(kern[key])
                     first_ms, _ = device_ms(torch, fma(key))
                     rep.update(host_paced_ms=host_ms, fma_ms=first_ms)
+                    pair[key + " fma"] = first_ms
                     extra = (f", host-paced {host_ms:.4f} ms (50 calls "
                              f"between two events), the FMA kernel on the "
                              f"same inputs {first_ms:.4f} ms "
                              f"({first_ms / kernel_ms:.2f}x)")
+                    if route == "tf32":
+                        # the FMA rows: fp32's first versions of dq and
+                        # dk/dv, on the same inputs
+                        reports[base + tail + suffix].update(
+                            ms=first_ms, plain_ms=plain_ms,
+                            library_ms=library, **bound,
+                            max_abs_err=max(
+                                src[(f"{k} (FMA kernel, same inputs)",
+                                     name)][0] for k in outs))
                 lib_top = {k[:60]: round(v, 4) for k, v in lib_names.items()}
+                rate_name = ("3xTF32, 495 / 3" if peak == FP32_3XTF32_FLOPS
+                             else f"{peak / 1e12:.0f}")
                 print(f"flash_attention {key} timing {name} B={b} S={s} "
                       f"H={h} D={d} causal dropout {rate} ({row}, device "
                       f"time): kernel {kernel_ms:.4f} ms "
@@ -1622,10 +1759,18 @@ def time_flash(torch, fa, reports, worst, worst_drop):
                       f"{plain_ms:.4f} ms, SDPA "
                       f"{'fwd' if key == 'fwd' else 'bwd (dq+dk+dv)'} "
                       f"dropout_p={rate} backend {backend.name} "
-                      f"{library:.4f} ms {lib_top}, bound {rep['bound_ms']:.4f} ms ({nbytes} bytes / "
-                      f"3.35 TB/s, {flops} flops / {peak / 1e12:.0f} "
-                      f"TFLOP/s; the hash's integer operations are not "
-                      f"counted)")
+                      f"{library:.4f} ms {lib_top}, bound "
+                      f"{rep['bound_ms']:.4f} ms ({nbytes} bytes / 3.35 "
+                      f"TB/s, {flops} flops / {rate_name} TFLOP/s; the "
+                      f"hash's integer operations are not counted)")
+            bwd = pair["dq"] + pair["dkv"]
+            first = (f"; the FMA pair on the same inputs "
+                     f"{pair['dq fma'] + pair['dkv fma']:.4f} ms"
+                     if "dq fma" in pair else "")
+            print(f"flash_attention backward summary ({name}, dropout "
+                  f"{rate}): dq + dk/dv {bwd:.4f} ms = "
+                  f"{bwd / lib['bwd'][0]:.3f}x SDPA's whole backward "
+                  f"{lib['bwd'][0]:.4f} ms{first}")
             del prepped, sdpa_in
         del layers
         torch.cuda.empty_cache()
@@ -1824,7 +1969,8 @@ def check_flash_dropout_mask(torch, dtype, d):
     """The keep-mask read back out of the forward, dq and dk/dv kernels
     that ``dtype`` and head dim ``d`` route to, bit for bit against
     ``dropout_keep_mask``: non-causal at [2, 2048, 2, d] (fp32 at d = 256:
-    the FMA kernels; bf16 at d = 64: the tensor-core kernels). The key
+    the FMA kernels; fp32 at d = 64: the FMA forward with the 3xTF32 dq
+    and dk/dv; bf16 at d = 64: the tensor-core kernels). The key
     mask keeps only the last d cols, c0 = 2048 - d onwards, and V is the
     identity on them (V[j, c] = 1 iff j = c0 + c), so o[i, c] != 0 iff
     score (i, c0 + c) was kept; dO is the identity on rows 1024 to 1023 +
@@ -1848,10 +1994,10 @@ def check_flash_dropout_mask(torch, dtype, d):
     mask[:, c0:] = 1.0
     scale = 1.0 / d ** 0.5
     drop = (FLASH_DROPOUT, FLASH_DROPOUT_SEED)
-    route = fa._route(dtype, d)
-    tc_wrappers = (fa.flash_attention_fwd_tc, fa.flash_attention_bwd_dq_tc,
-                   fa.flash_attention_bwd_dkv_tc)
-    before = [w.launches for w in tc_wrappers]
+    routes = flash_routes_expected(dtype, d)
+    wrappers = flash_wrappers(fa)
+    before = {(k, r): w.launches for k, by in wrappers.items()
+              for r, w in by.items()}
     qp, kp, vp, mp = fa._prepare(q, k, v, mask, False)
     out, lse = fa.flash_attention_fwd(qp, kp, vp, mp, False, scale, *drop)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
@@ -1866,10 +2012,13 @@ def check_flash_dropout_mask(torch, dtype, d):
     dq = fa.flash_attention_bwd_dq(qp, k_eye, vp, ones, mp, lse_eye, zeros,
                                    False, scale, *drop)
     torch.cuda.synchronize()
-    tc = [w.launches - n for w, n in zip(tc_wrappers, before)]
-    if tc != ([2, 1, 1] if route == "tc" else [0, 0, 0]):
-        fail(f"flash dropout mask readout ({dtype}, D={d}): tensor-core "
-             f"launches {tc}, route {route}")
+    grew = {f"{k}/{r}": w.launches - before[(k, r)]
+            for k, by in wrappers.items() for r, w in by.items()
+            if w.launches > before[(k, r)]}
+    want = {f"{k}/{r}": n for k, r, n in zip(wrappers, routes, (2, 1, 1))}
+    if grew != want:
+        fail(f"flash dropout mask readout ({dtype}, D={d}): launches "
+             f"{grew}, expected {want}")
     ar = torch.arange(s, device="cuda")
     cols = torch.arange(c0, c0 + d, device="cuda")
     flips_o = flips_dv = flips_dq = 0
@@ -1888,7 +2037,8 @@ def check_flash_dropout_mask(torch, dtype, d):
     kept = float((out != 0).float().mean())
     name = str(dtype).split(".")[1]
     print(f"flash dropout mask readout ({name}, non-causal, [{b}, {s}, {h}, "
-          f"{d}], rate {FLASH_DROPOUT}, {route} kernels): forward "
+          f"{d}], rate {FLASH_DROPOUT}, {'/'.join(routes)} kernels): "
+          f"forward "
           f"{b * h * s * d} scores, {flips_o} differ from dropout_keep_mask;"
           f" dq {b * h * s * d} scores, {flips_dq} differ; dk/dv "
           f"{b * h * d * d} scores, {flips_dv} differ; kept share "
@@ -2818,7 +2968,8 @@ def time_fused_ln(torch, dtype, reports, errs):
                 "fused_ln", *nxt()[:5], 1e-5, act))[0]
             t["first bwd"] = device_ms(torch, lambda: fz._launch_bwd(
                 "fused_ln", *nxt(), 1e-5, act))[0]
-        es, peak = (4, FP32_FLOPS) if dtype == torch.float32 else (
+        # fp32's products at the 3xTF32 rate (fused_ln.cu runs them on FMAs)
+        es, peak = (4, FP32_3XTF32_FLOPS) if dtype == torch.float32 else (
             2, BF16_FLOPS)
         for which in ("fwd", "bwd"):
             nbytes, flops = fused_ln_bytes_flops(n, d, f, act, es, which)
@@ -4156,6 +4307,20 @@ KERNELS = (
      "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:194"),
     ("sparse_attention_fwd_tc16", "sparse_attention_tc16",
      "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:88"),
+    ("flash_attention_bwd_dq_tf32", "flash_attention_tf32",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:231"),
+    ("flash_attention_bwd_dkv_tf32", "flash_attention_tf32",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:287"),
+    ("flash_attention_bwd_dq_tf32_dropout", "flash_attention_tf32",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:276"),
+    ("flash_attention_bwd_dkv_tf32_dropout", "flash_attention_tf32",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:330"),
+    ("flash_attention_fwd_d256", "flash_attention",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:113"),
+    ("flash_attention_bwd_dq_d256", "flash_attention",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:231"),
+    ("flash_attention_bwd_dkv_d256", "flash_attention",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:287"),
 )
 # the flash kernels of the 16-bit training step: the tensor-core forward,
 # dq and dk/dv; the FMA kernels take the fp32 path
@@ -4163,11 +4328,16 @@ FLASH_NAMES = ("flash_attention_fwd_tc", "flash_attention_bwd_dq_tc",
                "flash_attention_bwd_dkv_tc")
 FLASH_FMA_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
                    "flash_attention_bwd_dkv")
+# the fp32 path's dq and dk/dv (3xTF32; the FMA dq and dk/dv take head
+# dims above 128 only)
+FLASH_TF32_NAMES = ("flash_attention_bwd_dq_tf32",
+                    "flash_attention_bwd_dkv_tf32")
 # #6/#7 of the 16-bit steps (wgmma); fused_ln.cu's take the fp32 path
 FUSED_LN_TC_NAMES = FUSED_LN_ROUTES["fused_ln_tc"]
 # the sources whose ptxas report is printed kernel by kernel
 TC_SOURCES = ("flash_attention_tc", "fused_ln_tc", "sparse_attention_tc",
-              "sparse_attention_tc16", "chunked_prefill")
+              "sparse_attention_tc16", "chunked_prefill",
+              "flash_attention_tf32")
 
 
 # ---------------------------------------------------------------------------
@@ -4425,6 +4595,8 @@ def training_counters():
             "flash_attention_bwd_dq_tc": fa.flash_attention_bwd_dq_tc,
             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
             "flash_attention_bwd_dkv_tc": fa.flash_attention_bwd_dkv_tc,
+            "flash_attention_bwd_dq_tf32": fa.flash_attention_bwd_dq_tf32,
+            "flash_attention_bwd_dkv_tf32": fa.flash_attention_bwd_dkv_tf32,
             "sparse_attention_fwd": sp.sparse_attention_fwd,
             "sparse_attention_fwd_tc": sp.sparse_attention_fwd_tc,
             "sparse_attention_fwd_tc16": sp.sparse_attention_fwd_tc16,
@@ -4737,8 +4909,10 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None,
     runs the unfused model. At ``dropout`` both models drop out at that
     rate with the engines' seeds (one ``rng_seed``, so the same seeds):
     the same masks on both paths (the plain attention uses the kernels'
-    mask function). Returns the kernels' run's launches, every count set to
-    0 just before it (the fp32 path's rows of the kernels line)."""
+    mask function). Dense, the kernels' run must launch the 3xTF32 dq and
+    dk/dv and never the FMA ones. Returns the kernels' run's launches,
+    every count set to 0 just before it (the fp32 path's rows of the
+    kernels line)."""
     import numpy as np
 
     import deepspeed_tpu_torch as dtt
@@ -4802,6 +4976,11 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None,
                 fail(f"fp32 comparison: the kernels' run launched a 16-bit "
                      f"route (tensor-core flash or sparse, wgmma "
                      f"fused_ln): {launches}")
+            if not sparse and (
+                    not all(launches[n] for n in FLASH_TF32_NAMES)
+                    or any(launches[n] for n in FLASH_FMA_NAMES[1:])):
+                fail(f"fp32 comparison: dq and dk/dv did not take the "
+                     f"3xTF32 kernels alone: {launches}")
         runs[label] = (grads, losses)
         names = engine.param_names
         del engine, model
@@ -4830,6 +5009,99 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None,
         fail(f"training fp32{layout}: the kernels' path disagrees with the "
              f"plain path")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# 7b. fp32 training at full width: DeepSpeed's default precision
+# ---------------------------------------------------------------------------
+
+# bench_gpt2's shape (micro 16 x seq 512, GAS 8, Adam with the fused
+# update, ZeRO 2) with no bf16 / fp16 block: the engine keeps fp32
+FP32_TRAIN_CONFIG = {k: v for k, v in TRAIN_CONFIG.items()
+                     if k not in ("bf16", "data_types")}
+# the profiled step's device ms: #3 fp32 (the FMA forward), the 3xTF32 dq
+# and dk/dv, and every GEMM kernel (cuBLAS's names hold "gemm")
+FP32_PICK = ("flash_fwd_kernel", "flash_bwd_dq_tf32_kernel",
+             "flash_bwd_dkv_tf32_kernel", "gemm")
+
+
+def check_fp32_training(torch, card):
+    """Phase 7b (``--only fp32`` runs it alone): full-width GPT-2 trained in
+    fp32, DeepSpeed's default precision: ``make_gpt("gpt2",
+    dtype=torch.float32)`` (12 layers, width 768, its default dropout 0.1;
+    the model's compute dtype is its own field, bf16 by default, as in
+    the JAX model) through ``initialize`` with FP32_TRAIN_CONFIG, so
+    attention runs fp32 through the FMA forward and the 3xTF32 dq and
+    dk/dv. Prints the TF32 flags and fails if matmuls may use TF32 (the
+    plain fp32 path is full fp32). Held: the forward, dq and dk/dv launch
+    12 layers x 8 micro-batches = 96 times a step each (the dropout
+    branch), the FMA dq and dk/dv and every 16-bit kernel never, Adam
+    once, no plain version, the loss falls. Printed: step ms (median of 5
+    after 2 warm-up), tokens/s, peak GB, one profiled step's busy ms, the
+    idle share against it, kernels a step and the device ms a step of
+    FP32_PICK."""
+    flags = {"torch.backends.cuda.matmul.allow_tf32":
+             torch.backends.cuda.matmul.allow_tf32,
+             "torch.backends.cudnn.allow_tf32":
+             torch.backends.cudnn.allow_tf32,
+             "float32_matmul_precision":
+             torch.get_float32_matmul_precision()}
+    print(f"fp32 training: {json.dumps(flags)}")
+    if flags["torch.backends.cuda.matmul.allow_tf32"] or \
+            flags["float32_matmul_precision"] != "highest":
+        fail("fp32 training: matmuls may use TF32; the plain fp32 path must "
+             "be full fp32")
+    engine, model, cfg, batches, per_step, n_params = train_engine(
+        torch, False, dropout=True, config=FP32_TRAIN_CONFIG,
+        dtype=torch.float32)
+    if engine.precision.dtype != torch.float32 or cfg.dropout_rate != 0.1:
+        fail(f"fp32 training: precision {engine.precision.name}, dropout "
+             f"{cfg.dropout_rate}")
+    per_layer = cfg.num_layers * TRAIN_CONFIG["gradient_accumulation_steps"]
+    per_step.update({name: 0 for name in FLASH_NAMES})
+    per_step.update({"flash_attention_fwd": per_layer,
+                     "flash_attention_bwd_dq_tf32": per_layer,
+                     "flash_attention_bwd_dkv_tf32": per_layer})
+    step_ms, losses, launches = counted_steps(
+        torch, engine, batches, per_step, "fp32 training", TRAIN_WARMUP,
+        TRAIN_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = median(step_ms)
+    gas = TRAIN_CONFIG["gradient_accumulation_steps"]
+    micro = TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
+    tokens = gas * micro * TRAIN_SEQ
+    flops = train_flops_per_step(n_params, gas * micro, TRAIN_SEQ,
+                                 cfg.hidden_size, cfg.num_layers)
+    rec = {"model": "gpt2", "params": n_params, "micro_batch": micro,
+           "gas": gas, "seq": TRAIN_SEQ, "dtype": "float32",
+           "precision": engine.precision.name, "fused_update": True,
+           "dropout_rate": cfg.dropout_rate, "steps": TRAIN_STEPS,
+           "step_ms_median": med, "step_ms_min": min(step_ms),
+           "step_ms_max": max(step_ms), "step_ms": step_ms,
+           "tokens_per_s": tokens / (med / 1e3),
+           "model_tflops_per_s": flops / (med / 1e3) / 1e12,
+           "peak_memory_gb": peak_gb, "losses": losses,
+           "launches": {n: c for n, c in launches.items() if c},
+           "flags": flags, "card": card}
+    stats = profile_step(torch, engine, batches, "fp32 training",
+                         pick=FP32_PICK)
+    if stats is not None:
+        busy = stats["device_busy_ms_per_step"]
+        rec.update(device_busy_ms=busy,
+                   device_idle_share=1.0 - busy / med,
+                   profiled_idle_share=stats["device_idle_share"],
+                   kernels_per_step=stats["kernels_per_step"],
+                   device_ms_per_step=stats["picked_ms_per_step"])
+    print(f"fp32 training gpt2 (initialize -> train_batch, no bf16 block): "
+          f"{json.dumps(rec)}")
+    print(f"fp32 training ({card}): step {med:.2f} ms, "
+          f"{rec['tokens_per_s']:.1f} tokens/s, peak {peak_gb:.3f} GB; "
+          f"device busy {rec.get('device_busy_ms')} ms, idle share "
+          f"{rec.get('device_idle_share')}; device ms a step "
+          f"{json.dumps(rec.get('device_ms_per_step'))}")
+    del engine, model, batches
+    torch.cuda.empty_cache()
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -5388,8 +5660,8 @@ def time_sparse_block16(torch, reports, block=16):
 
 def check_bert_fp32(torch, seq, micro, sparse=None):
     """fp32 on the card, bert-large width at 2 layers, GAS 2, padded rows:
-    the kernels' path (flash #3-#5 on the FMA route, or with ``sparse``
-    #8-#10 on it) against the plain path (``attention_impl="xla"``, or the
+    the kernels' path (flash #3 on the FMA kernel and #4/#5 on 3xTF32, or
+    with ``sparse`` #8-#10 on the FMA route) against the plain path (``attention_impl="xla"``, or the
     sparse block's ``impl: "xla"``), both with LAMB: the first step's
     accumulated gradients leaf by leaf to 1e-4 of the leaf's norm, the 3
     losses to 1e-5 relative, as :func:`check_training_fp32` holds the GPT.
@@ -6038,11 +6310,12 @@ def main() -> int:
             and args[0] == "--only" else None)
     if args and (not only
                  or not only <= {"kernels", "sparse", "chunked", "spec",
-                                 "telemetry", "bert", "ckpt", "serving"}
+                                 "telemetry", "bert", "ckpt", "serving",
+                                 "fp32"}
                  or ("kernels" in only and len(only) > 1)):
         fail(f"unknown arguments {args} (none, --only kernels, or --only "
-             f"with sparse, chunked, serving, spec, telemetry, bert, ckpt "
-             f"or several, comma-separated)")
+             f"with sparse, chunked, serving, spec, telemetry, bert, ckpt, "
+             f"fp32 or several, comma-separated)")
     part = only is not None and "kernels" not in only
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6076,6 +6349,7 @@ def main() -> int:
     if not part:
         check_flash_attention(torch, reports)
         check_flash_dropout_mask(torch, torch.float32, 256)
+        check_flash_dropout_mask(torch, torch.float32, 64)
         check_flash_dropout_mask(torch, torch.bfloat16, 64)
         check_fused_adam(torch, reports["fused_adam"])
     if not part or "sparse" in only:
@@ -6105,6 +6379,8 @@ def main() -> int:
             check_bert(torch, card, reports)
         if "ckpt" in only:
             check_ckpt(torch, card)
+        if "fp32" in only:
+            check_fp32_training(torch, card)
         return 0
     check_fused_ln(torch, {
         ("bfloat16", "fwd"): reports["fused_ln_matmul_fwd_tc"],
@@ -6136,12 +6412,17 @@ def main() -> int:
     # 3c. serving telemetry: on and off give the same tokens and launches
     check_telemetry(torch, card)
 
-    # 4. the training path end to end, and its fp32 comparison
+    # 4. the training path end to end, and its fp32 comparison; the FMA
+    # kernels' launches at D > 128 are counted over phases 4, 7 and 7b
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    take_wide_launches(fa)
     training = check_training(torch, card)
+    wide = take_wide_launches(fa)
     for name in FLASH_NAMES + ("fused_adam",):
         reports[name]["launches"] = training["launches"][name]
     fp32 = check_training_fp32(torch)
-    for name in FLASH_FMA_NAMES:
+    for name in FLASH_FMA_NAMES + FLASH_TF32_NAMES:
         reports[name]["launches"] = fp32[name]
 
     # 5. long-sequence training with block-sparse attention, and its fp32
@@ -6174,7 +6455,9 @@ def main() -> int:
 
     # 7. training at the default dropout 0.1 (make_gpt("gpt2") as it is),
     # and its fp32 comparison at that rate
+    take_wide_launches(fa)
     drop = check_training(torch, card, dropout=True)
+    wide = take_wide_launches(fa, wide)
     for name in FLASH_NAMES:
         reports[name + "_dropout"]["launches"] = drop["launches"][name]
     prof = drop.get("profile") or {}
@@ -6188,9 +6471,18 @@ def main() -> int:
           f"{training['peak_memory_gb']:.3f} GB; hash dropout forward "
           f"{prof.get('hash_dropout_forward_device_ms_per_step')} device "
           f"ms per step, flash {prof.get('flash_ms_per_step')} ({card})")
-    fp32 = check_training_fp32(torch, dropout=FLASH_DROPOUT)
-    for name in FLASH_FMA_NAMES:
-        reports[name + "_dropout"]["launches"] = fp32[name]
+    check_training_fp32(torch, dropout=FLASH_DROPOUT)
+
+    # 7b. fp32 training at full width (DeepSpeed's default precision): the
+    # fp32 rows at dropout count its timed steps
+    take_wide_launches(fa)
+    fp32 = check_fp32_training(torch, card)
+    wide = take_wide_launches(fa, wide)
+    for name in FLASH_FMA_NAMES + FLASH_TF32_NAMES:
+        reports[name + "_dropout"]["launches"] = fp32["launches"].get(name,
+                                                                      0)
+    for name, key in zip(FLASH_FMA_NAMES, ("fwd", "dq", "dkv")):
+        reports[name + "_d256"]["launches"] = wide[key]
 
     # 8. BERT-large pretraining (bench_bert's configurations, then sparse
     # BERT at block 16), and its fp32 comparisons

@@ -1,0 +1,628 @@
+// Flash attention dq and dk/dv for float32 on Hopper's tensor cores
+// (sm_90a), as 3xTF32: head_dim a multiple of 8 up to 128.
+//
+// Replaces, for fp32, the Pallas TPU kernels _bwd_dq_kernel (dq) and
+// _bwd_dkv_kernel (dk and dv) of deepspeed_tpu/ops/transformer/
+// flash_attention.py. Each computes exactly the function that
+// flash_attention.cu's header states (bottom-right causal j <= i + Sk -
+// Sq; the key mask multiplying p; a row whose keys are all masked
+// contributes nothing; the dropout keep-mask Drop::keep(i, j) regenerated
+// in registers, never stored), through the same C interface: q, k, v read
+// through their [B, S, H, D] strides; dO, dq, dk, dv contiguous [B, S, H,
+// D]; lse and delta fp32 [B * H, Sq]. The fp32 forward stays on
+// flash_attention.cu's FMA kernel, and head dims above 128 on its FMA dq
+// and dk/dv.
+//
+// What bounds it on an H100: at the training shape (B*H = 192, S = 512,
+// D = 64, fp32, causal) dq must move q, k, v, dO and dq (63 MB, 19 us at
+// 3.35 TB/s) and do 9.7 GFLOP of fp32-accurate products; dk/dv moves six
+// [B, S, H, D] tensors (23 us) and does 12.9 GFLOP. As three TF32
+// products each, at 495 TFLOP/s of TF32, that is 59 us and 78 us:
+// operations bound both. flash_attention.cu's FMA kernels do the same
+// products as fp32 FMAs fed by one 16-byte shared-memory load per four
+// FMAs, so shared memory bounds them (0.86 and 1.21 ms). These kernels
+// take 0.31 and 0.45 ms (5.4x and 5.7x their bounds), held by mma.sync
+// throughput and the splits and adds around it; with one TF32 product
+// they took 0.19 and 0.27, with none 0.08 and 0.10
+// (tools/probe_flash_tf32.py).
+//
+// What the design does:
+// - products on the tensor cores: mma.sync.m16n8k8 with tf32 operands and
+//   fp32 accumulators. Every fp32 operand x is split into hi = tf32(x)
+//   (cvt.rna: round to nearest, ties away from zero) and lo = tf32(x -
+//   hi), and each product is three mmas, lo.hi + hi.lo + hi.hi (the
+//   small terms first): that keeps each operand to ~2^-22 of its size,
+//   where one TF32 rounding (2^-11) would miss the fp32 path's 1e-5. The
+//   three mmas of one k-step (8 products) sum into a fresh tile that an
+//   fp32 add folds into the running sum: the tensor cores' accumulation
+//   drops low bits of its larger addend, which over a whole walk missed
+//   1e-5 at the training shape; rounded adds keep an FMA loop's error. The
+//   products are s = q.k^T and dp = dO.v^T, then dq = ds.k in dq, and
+//   s^T = k.q^T, dp^T = v.dO^T, dv = p^T.dO and dk = ds^T.q in dk/dv;
+// - B operands are split where they are loaded into fragments (32-bit
+//   shared loads, rows DMAX + 4 floats apart, so the 8 x 4 lanes of a
+//   fragment hit 32 distinct banks in both orientations); p and ds are
+//   split in registers. The rounding is cvt.rna's, done in two integer
+//   operations (ptxas expands cvt.rna.tf32.f32 to four; the instruction
+//   measured 0.41 / 0.56 ms for dq / dk/dv against 0.32 / 0.44 at the
+//   training shape, tools/probe_flash_tf32.py). Splitting each streamed
+//   tile once into hi and lo tiles in shared memory (the probe's
+//   presplit variant) measured 0.40 / 0.54: its 87 KB a block fit two
+//   blocks an SM, not three;
+// - the first products' accumulator fragment (rows g, g + 8, columns
+//   2t, 2t + 1 of each 8-column tile) becomes the A fragment of the
+//   second products with no shuffle: the k index of m16n8k8 is permuted
+//   so that its columns t and t + 4 are keys (or queries) 2t and 2t + 1
+//   of the tile, and the B operand's rows are read in the same order;
+// - a block of 4 warps owns 64 rows (queries in dq, keys in dk/dv), 16
+//   per warp, and streams the other axis in tiles of 32 rows through two
+//   shared stages filled by cp.async (16 bytes = 4 floats), so one tile's
+//   loads are in flight while the tensor cores work on the previous one.
+//   At D <= 64 a block takes 70 KB and three fit an SM (at most 168
+//   registers a thread, no spills); tiles of 64 rows (two blocks, 104
+//   KB) measured 0.36 / 0.54 ms and tiles of 16 (four blocks) 0.33 /
+//   0.46. At D = 128 one block an SM;
+// - the causal mask and the ragged end are evaluated only on tiles that
+//   cross them; tiles above the diagonal are never loaded. dq blocks
+//   start with the last query tiles (the longest walks), dk/dv blocks
+//   with the first key tiles;
+// - no atomics: every output element is summed by one thread in a fixed
+//   order, so the outputs are bit-equal over two launches.
+
+#include <math.h>
+#include <stdint.h>
+
+#include "attention_tile.cuh"
+
+namespace {
+
+using attn_tile::cp_async16;
+using attn_tile::cp_async_commit;
+using attn_tile::cp_async_wait;
+using attn_tile::Drop;
+using attn_tile::Strides;
+using attn_tile::strides_of;
+
+constexpr int NT = 128;      // threads: 4 warps
+constexpr int BM = 64;       // rows a block owns, 16 per warp
+constexpr int BS = 32;       // rows of a streamed tile
+constexpr int BLOCKS64 = 3;  // blocks an SM at D <= 64 (70 KB a block)
+constexpr float LOG2E = 1.4426950408889634f;
+
+// rows x D floats of src (row stride `stride`) into dst [rows][DP] by
+// cp.async, 16 bytes at a time; rows at or past `valid` are zeros
+template <int DP>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          long long stride, int rows,
+                                          int valid, int D) {
+  const int cpr = D / 4;
+  for (int idx = threadIdx.x; idx < rows * cpr; idx += NT) {
+    const int r = idx / cpr;
+    const int c = (idx - r * cpr) * 4;
+    const bool ok = r < valid;
+    cp_async16(dst + r * DP + c, ok ? src + r * stride + c : src, ok);
+  }
+}
+
+// cvt.rna.tf32.f32 in two integer operations: the nearest value with 10
+// mantissa bits, ties away from zero (half of the dropped 13 bits' range
+// added to the magnitude's bits, then those bits cleared), exact for
+// every finite x. ptxas expands the cvt instruction to four, with a
+// case for inf and NaN that the split does not need (there hi is inf and
+// lo NaN either way, so the products are NaN).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x as hi = tf32(x) and lo = tf32(x - hi) (x - hi is exact)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// one m16n8k8 TF32 product into fp32 accumulators (not volatile: the
+// compiler may interleave independent products). With g = lane / 4, t =
+// lane % 4: a[0..3] hold A (row g, k t), (g + 8, t), (g, t + 4), (g + 8,
+// t + 4); b[0..1] B (k t, col g), (k t + 4, col g); c rows g (c[0],
+// c[1]) and g + 8 (c[2], c[3]) at cols 2t, 2t + 1.
+__device__ __forceinline__ void mma8(float (&c)[4], const uint32_t (&a)[4],
+                                     const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += A.B as 3xTF32: lo.hi + hi.lo + hi.hi into a fresh tile, which an
+// fp32 add then folds into c, so the tensor cores never add to the
+// running sum (their fp32 accumulation drops low bits of the larger
+// addend: summed in the mma, dv missed 1e-5 at |dv| = 8.5)
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  mma8(d, al, bh);
+  mma8(d, ah, bl);
+  mma8(d, ah, bh);
+  c[0] += d[0];
+  c[1] += d[1];
+  c[2] += d[2];
+  c[3] += d[3];
+}
+
+// the A fragment (hi, lo) of the warp's 16 rows of a shared tile `a`
+// (already offset to the warp's first row) at columns kc .. kc + 7
+template <int DP>
+__device__ __forceinline__ void a_rows(const float* a, int kc,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const int lane = threadIdx.x & 31;
+  const float* p = a + (lane >> 2) * DP + kc + (lane & 3);
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[8 * DP], hi[1], lo[1]);
+  split_tf32(p[4], hi[2], lo[2]);
+  split_tf32(p[8 * DP + 4], hi[3], lo[3]);
+}
+
+// acc[n] += A . B^T over columns kc .. kc + 7, where B's rows n are the
+// tile's rows 8n .. 8n + 7 (the non-transposed operand: k in q.k^T, v in
+// dO.v^T, q in k.q^T, dO in v.dO^T)
+template <int NN, int DP>
+__device__ __forceinline__ void mma_rows(float (&acc)[NN][4],
+                                         const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4],
+                                         const float* B, int kc) {
+  const int lane = threadIdx.x & 31;
+  const int at = (lane >> 2) * DP + kc + (lane & 3);
+#pragma unroll
+  for (int n = 0; n < NN; ++n) {
+    uint32_t bh[2], bl[2];
+    split_tf32(B[at + n * 8 * DP], bh[0], bl[0]);
+    split_tf32(B[at + n * 8 * DP + 4], bh[1], bl[1]);
+    mma3(acc[n], ah, al, bh, bl);
+  }
+}
+
+// acc[n] += X . B over the tile's rows 8 kk .. 8 kk + 7, where X is an
+// fp32 accumulator tile [16][8 NS] (p or ds) and B's k runs along the
+// tile's rows, n along its columns (k in ds.k, dO in dv, q in dk). The k
+// index is permuted: the fragment's columns t and t + 4 are the tile's
+// rows 8 kk + 2t and 8 kk + 2t + 1, which are the columns this lane holds
+// of X, so X's accumulator fragment is the A fragment as it is; output
+// n-tiles at or past D are skipped
+template <int NO, int NS, int DP>
+__device__ __forceinline__ void mma_cols(float (&acc)[NO][4],
+                                         const float (&x)[NS][4], int kk,
+                                         const float* B, int D) {
+  const int lane = threadIdx.x & 31;
+  uint32_t ah[4], al[4];
+  split_tf32(x[kk][0], ah[0], al[0]);   // (g, 2t)
+  split_tf32(x[kk][2], ah[1], al[1]);   // (g + 8, 2t)
+  split_tf32(x[kk][1], ah[2], al[2]);   // (g, 2t + 1)
+  split_tf32(x[kk][3], ah[3], al[3]);   // (g + 8, 2t + 1)
+  const int at = (8 * kk + 2 * (lane & 3)) * DP + (lane >> 2);
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    if (n * 8 < D) {
+      uint32_t bh[2], bl[2];
+      split_tf32(B[at + n * 8], bh[0], bl[0]);
+      split_tf32(B[at + DP + n * 8], bh[1], bl[1]);
+      mma3(acc[n], ah, al, bh, bl);
+    }
+  }
+}
+
+// the warp's accumulator tile [16][8 NO] times `mul` to dst rows (row
+// stride `stride` floats) r0 and r0 + 8 of the block's tile, rows at or
+// past `valid` skipped; 8-byte stores
+template <int NO>
+__device__ __forceinline__ void store_acc(float* dst, long long stride,
+                                          const float (&acc)[NO][4],
+                                          float mul, int valid, int D) {
+  const int lane = threadIdx.x & 31;
+  const int r = (threadIdx.x >> 5) * 16 + (lane >> 2);
+  const int c = 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    if (n * 8 < D) {
+      if (r < valid)
+        *reinterpret_cast<float2*>(dst + r * stride + 8 * n + c) =
+            make_float2(acc[n][0] * mul, acc[n][1] * mul);
+      if (r + 8 < valid)
+        *reinterpret_cast<float2*>(dst + (r + 8) * stride + 8 * n + c) =
+            make_float2(acc[n][2] * mul, acc[n][3] * mul);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dq: grid (B * H, ceil(Sq / BM)); the block owns 64 queries (counted from
+// the end, so the longest causal walks start first) and walks key tiles
+// up to the last key its last query can see
+// ---------------------------------------------------------------------------
+template <int DMAX, bool DROP>
+__global__ void __launch_bounds__(NT, DMAX <= 64 ? BLOCKS64 : 1)
+    flash_bwd_dq_tf32_kernel(
+        const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const float* __restrict__ dout,
+        const float* __restrict__ mask, const float* __restrict__ lse,
+        const float* __restrict__ delta, float* __restrict__ dq_out,
+        Strides st, int H, int Sq, int Sk, int D, float scale, int causal,
+        uint32_t seed, int thresh, float inv_keep) {
+  constexpr int BN = BS;                     // keys per streamed tile
+  constexpr int DP = DMAX + 4;               // row pitch (floats)
+  constexpr int NO = DMAX / 8;               // output n-tiles
+  constexpr int NS = BN / 8;                 // score n-tiles
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                 // [BM][DP]
+  float* Os = Qs + BM * DP;         // [BM][DP] dO
+  float* Ks = Os + BM * DP;         // [2][BN][DP]
+  float* Vs = Ks + 2 * BN * DP;     // [2][BN][DP]
+  float* Ms = Vs + 2 * BN * DP;     // [2][BN]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int offset = Sk - Sq;
+  const int nq = min(BM, Sq - q0);
+  const long long orow = (long long)H * D;  // dO / dq row stride
+  const float* kb = k + b * st.kb + h * st.kh;
+  const float* vb = v + b * st.vb + h * st.vh;
+  const float* mb = mask ? mask + (long long)b * Sk : nullptr;
+  const Drop drop(seed, bh, thresh, inv_keep);
+  const int k_end = causal ? min(Sk, q0 + nq + offset) : Sk;
+  const int ntiles = (k_end + BN - 1) / BN;
+  const float sl = scale * LOG2E;
+  const int i0 = q0 + warp * 16 + g;  // this lane's rows: i0 and i0 + 8
+  // lse (base 2) and delta of the lane's rows; rows past Sq read zeros
+  // (their q and dO are zero-filled, so their ds is 0; they are not stored)
+  const long long at = (long long)bh * Sq;
+  const float ls0 = i0 < Sq ? lse[at + i0] * LOG2E : 0.f;
+  const float ls1 = i0 + 8 < Sq ? lse[at + i0 + 8] * LOG2E : 0.f;
+  const float de0 = i0 < Sq ? delta[at + i0] : 0.f;
+  const float de1 = i0 + 8 < Sq ? delta[at + i0 + 8] : 0.f;
+
+  auto load_kv = [&](int it) {
+    const int k0 = it * BN, s = it & 1;
+    const int valid = min(BN, Sk - k0);
+    load_rows<DP>(Ks + s * BN * DP, kb + k0 * st.ks, st.ks, BN, valid, D);
+    load_rows<DP>(Vs + s * BN * DP, vb + k0 * st.vs, st.vs, BN, valid, D);
+    if (mb && threadIdx.x < BN)
+      Ms[s * BN + threadIdx.x] =
+          threadIdx.x < valid ? mb[k0 + threadIdx.x] : 0.f;
+  };
+  load_rows<DP>(Qs, q + b * st.qb + h * st.qh + q0 * st.qs, st.qs, BM, nq,
+                D);
+  load_rows<DP>(Os, dout + ((long long)b * Sq + q0) * orow + (long long)h * D,
+                orow, BM, nq, D);
+  load_kv(0);
+  cp_async_commit();
+
+  const float* Qw = Qs + warp * 16 * DP;
+  const float* Ow = Os + warp * 16 * DP;
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) load_kv(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int k0 = it * BN;
+    const float* Kt = Ks + (it & 1) * BN * DP;
+    const float* Vt = Vs + (it & 1) * BN * DP;
+    const float* Mt = Ms + (it & 1) * BN;
+
+    // s = q.k^T and dp = dO.v^T
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < DMAX; kc += 8) {
+      if (kc < D) {
+        uint32_t ah[4], al[4];
+        a_rows<DP>(Qw, kc, ah, al);
+        mma_rows<NS, DP>(s, ah, al, Kt, kc);
+        a_rows<DP>(Ow, kc, ah, al);
+        mma_rows<NS, DP>(dp, ah, al, Vt, kc);
+      }
+    }
+    // p = exp(s - lse) mask_j; ds = p (D dp - delta), in place of dp
+    const bool edge = k0 + BN > Sk || (causal && k0 + BN - 1 > q0 + offset);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * t + (e & 1);
+        const int j = k0 + c;
+        const int i = e < 2 ? i0 : i0 + 8;
+        const bool vis = !edge || (j < Sk && (!causal || j <= i + offset));
+        float p = vis ? exp2f(s[n][e] * sl - (e < 2 ? ls0 : ls1)) : 0.f;
+        if (mb) p *= Mt[c];
+        float d = dp[n][e];
+        if (DROP) d = drop.apply(d, i, j);
+        dp[n][e] = p * (d - (e < 2 ? de0 : de1));
+      }
+    // dq += ds.k
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk)
+      mma_cols<NO, NS, DP>(acc, dp, kk, Kt, D);
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+
+  store_acc<NO>(dq_out + ((long long)b * Sq + q0) * orow + (long long)h * D,
+                orow, acc, scale, nq, D);
+}
+
+// ---------------------------------------------------------------------------
+// dk and dv: grid (B * H, ceil(Sk / BM)); the block owns 64 keys and walks
+// query tiles from the first query that can see its first key
+// ---------------------------------------------------------------------------
+template <int DMAX, bool DROP>
+__global__ void __launch_bounds__(NT, DMAX <= 64 ? BLOCKS64 : 1)
+    flash_bwd_dkv_tf32_kernel(
+        const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const float* __restrict__ dout,
+        const float* __restrict__ mask, const float* __restrict__ lse,
+        const float* __restrict__ delta, float* __restrict__ dk_out,
+        float* __restrict__ dv_out, Strides st, int H, int Sq, int Sk, int D,
+        float scale, int causal, uint32_t seed, int thresh, float inv_keep) {
+  constexpr int BQ = BS;                     // queries per streamed tile
+  constexpr int DP = DMAX + 4;
+  constexpr int NO = DMAX / 8;
+  constexpr int NS = BQ / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;                 // [BM][DP]
+  float* Vs = Ks + BM * DP;         // [BM][DP]
+  float* Qs = Vs + BM * DP;         // [2][BQ][DP]
+  float* Os = Qs + 2 * BQ * DP;     // [2][BQ][DP] dO
+  float* Ls = Os + 2 * BQ * DP;     // [2][BQ] lse (base 2)
+  float* Es = Ls + 2 * BQ;          // [2][BQ] delta
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.y * BM;
+  const int offset = Sk - Sq;
+  const int nk = min(BM, Sk - k0);
+  const long long orow = (long long)H * D;  // dO / dk / dv row stride
+  const float* qb = q + b * st.qb + h * st.qh;
+  const float* ob = dout + (long long)b * Sq * orow + (long long)h * D;
+  const Drop drop(seed, bh, thresh, inv_keep);
+  const float sl = scale * LOG2E;
+  const int j0 = k0 + warp * 16 + g;  // this lane's keys: j0 and j0 + 8
+  const float km0 = (mask && j0 < Sk) ? mask[(long long)b * Sk + j0] : 1.f;
+  const float km1 =
+      (mask && j0 + 8 < Sk) ? mask[(long long)b * Sk + j0 + 8] : 1.f;
+  const int q_first = causal ? max(0, k0 - offset) : 0;
+  const int it0 = q_first / BQ;
+  const int ntiles = (Sq + BQ - 1) / BQ;
+
+  auto load_q = [&](int it) {
+    const int q0 = it * BQ, s = (it - it0) & 1;
+    const int valid = min(BQ, Sq - q0);
+    load_rows<DP>(Qs + s * BQ * DP, qb + q0 * st.qs, st.qs, BQ, valid, D);
+    load_rows<DP>(Os + s * BQ * DP, ob + q0 * orow, orow, BQ, valid, D);
+    if (threadIdx.x < BQ) {
+      const bool ok = (int)threadIdx.x < valid;
+      const long long at = (long long)bh * Sq + q0 + threadIdx.x;
+      Ls[s * BQ + threadIdx.x] = ok ? lse[at] * LOG2E : 0.f;
+      Es[s * BQ + threadIdx.x] = ok ? delta[at] : 0.f;
+    }
+  };
+  load_rows<DP>(Ks, k + b * st.kb + h * st.kh + k0 * st.ks, st.ks, BM, nk,
+                D);
+  load_rows<DP>(Vs, v + b * st.vb + h * st.vh + k0 * st.vs, st.vs, BM, nk,
+                D);
+  load_q(it0);
+  cp_async_commit();
+
+  float dka[NO][4], dva[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  const float* Kw = Ks + warp * 16 * DP;
+  const float* Vw = Vs + warp * 16 * DP;
+
+  for (int it = it0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) load_q(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int q0 = it * BQ, s_ = (it - it0) & 1;
+    const float* Qt = Qs + s_ * BQ * DP;
+    const float* Ot = Os + s_ * BQ * DP;
+    const float* Lt = Ls + s_ * BQ;
+    const float* Et = Es + s_ * BQ;
+
+    // s^T = k.q^T and dp^T = v.dO^T: rows keys, columns queries
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < DMAX; kc += 8) {
+      if (kc < D) {
+        uint32_t ah[4], al[4];
+        a_rows<DP>(Kw, kc, ah, al);
+        mma_rows<NS, DP>(s, ah, al, Qt, kc);
+        a_rows<DP>(Vw, kc, ah, al);
+        mma_rows<NS, DP>(dp, ah, al, Ot, kc);
+      }
+    }
+    // p^T = exp(s - lse_i) mask_j; ds^T = p^T (D dp^T - delta_i); p^T
+    // becomes D p^T for dv. The row is the key j, the column the query i.
+    const bool edge =
+        q0 + BQ > Sq || (causal && q0 + offset < k0 + BM - 1);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * t + (e & 1);
+        const int i = q0 + c;
+        const int j = e < 2 ? j0 : j0 + 8;
+        const bool vis = !edge || (i < Sq && (!causal || j <= i + offset));
+        float p = vis ? exp2f(s[n][e] * sl - Lt[c]) * (e < 2 ? km0 : km1)
+                      : 0.f;
+        float d = dp[n][e];
+        if (DROP) {
+          const bool kp = drop.keep(i, j);   // (query, key): swapped
+          d = kp ? d * drop.inv_keep : 0.f;
+          dp[n][e] = p * (d - Et[c]);
+          p = kp ? p * drop.inv_keep : 0.f;
+        } else {
+          dp[n][e] = p * (d - Et[c]);
+        }
+        s[n][e] = p;
+      }
+    // dv += (D p^T).dO and dk += ds^T.q
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      mma_cols<NO, NS, DP>(dva, s, kk, Ot, D);
+      mma_cols<NO, NS, DP>(dka, dp, kk, Qt, D);
+    }
+    __syncthreads();
+  }
+
+  const long long off = ((long long)b * Sk + k0) * orow + (long long)h * D;
+  store_acc<NO>(dk_out + off, orow, dka, scale, nk, D);
+  store_acc<NO>(dv_out + off, orow, dva, 1.f, nk, D);
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+enum Which { DQ = 1, DKV = 2 };
+
+struct Args {
+  const float *q, *k, *v, *dout;
+  const float *mask, *lse, *delta;
+  float *dq, *dk, *dv;
+  Strides st;
+  int B, H, Sq, Sk, D;
+  float scale;
+  int causal;
+  uint32_t seed;   // dropout: the host's seed, threshold and 1 / (1 - rate)
+  int thresh;
+  float inv_keep;
+};
+
+// shared bytes: two resident 64-row tiles, two stages of two streamed
+// tiles and the streamed tile's per-row floats (dq: the key mask; dk/dv:
+// lse and delta)
+template <int DMAX>
+constexpr size_t smem_bytes(Which w) {
+  return sizeof(float) *
+         ((size_t)(2 * BM + 4 * BS) * (DMAX + 4) + (w == DQ ? 2 : 4) * BS);
+}
+
+template <int DMAX, bool DROP>
+cudaError_t launch(Which w, const Args& a, cudaStream_t stream) {
+  const size_t smem = smem_bytes<DMAX>(w);
+  cudaError_t err;
+  if (w == DQ) {
+    auto fn = flash_bwd_dq_tf32_kernel<DMAX, DROP>;
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(a.B * a.H, (a.Sq + BM - 1) / BM);
+    fn<<<grid, NT, smem, stream>>>(a.q, a.k, a.v, a.dout, a.mask, a.lse,
+                                   a.delta, a.dq, a.st, a.H, a.Sq, a.Sk, a.D,
+                                   a.scale, a.causal, a.seed, a.thresh,
+                                   a.inv_keep);
+  } else {
+    auto fn = flash_bwd_dkv_tf32_kernel<DMAX, DROP>;
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(a.B * a.H, (a.Sk + BM - 1) / BM);
+    fn<<<grid, NT, smem, stream>>>(a.q, a.k, a.v, a.dout, a.mask, a.lse,
+                                   a.delta, a.dk, a.dv, a.st, a.H, a.Sq,
+                                   a.Sk, a.D, a.scale, a.causal, a.seed,
+                                   a.thresh, a.inv_keep);
+  }
+  return cudaGetLastError();
+}
+
+template <bool DROP>
+cudaError_t dispatch_d(Which w, const Args& a, cudaStream_t stream) {
+  if (a.D <= 64) return launch<64, DROP>(w, a, stream);
+  return launch<128, DROP>(w, a, stream);
+}
+
+int run(Which w, const Args& a, int dtype, void* stream) {
+  if (dtype != 0 || a.D < 8 || a.D > 128 || a.D % 8 != 0 || a.B < 1 ||
+      a.H < 1 || a.Sq < 1 || a.Sk < 1 || (a.causal && a.Sq > a.Sk) ||
+      a.thresh < 0 || a.thresh > (1 << 24) || (a.Sq + BM - 1) / BM > 65535 ||
+      (a.Sk + BM - 1) / BM > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // rate 0 (threshold 0, scale 1) is the variant without the hash
+  return (int)(a.thresh > 0 || a.inv_keep != 1.f
+                   ? dispatch_d<true>(w, a, st)
+                   : dispatch_d<false>(w, a, st));
+}
+
+}  // namespace
+
+extern "C" {
+
+// The arguments of flash_attention.cu's flash_attention_bwd_dq and
+// flash_attention_bwd_dkv, with dtype 0 (float32) and D a multiple of 8
+// in [8, 128]. Returns cudaGetLastError() after the launch (0 =
+// launched).
+int flash_attention_tf32_bwd_dq(const void* q, const void* k, const void* v,
+                                const void* dout, const float* mask,
+                                const float* lse, const float* delta,
+                                void* dq, const long long* strides, int B,
+                                int H, int Sq, int Sk, int D, float scale,
+                                int causal, uint32_t seed, int thresh,
+                                float inv_keep, int dtype, void* stream) {
+  Args a{};
+  a.q = static_cast<const float*>(q); a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.dout = static_cast<const float*>(dout); a.mask = mask; a.lse = lse;
+  a.delta = delta; a.dq = static_cast<float*>(dq);
+  a.st = strides_of(strides);
+  a.B = B; a.H = H; a.Sq = Sq; a.Sk = Sk; a.D = D; a.scale = scale;
+  a.causal = causal; a.seed = seed; a.thresh = thresh; a.inv_keep = inv_keep;
+  return run(DQ, a, dtype, stream);
+}
+
+int flash_attention_tf32_bwd_dkv(const void* q, const void* k, const void* v,
+                                 const void* dout, const float* mask,
+                                 const float* lse, const float* delta,
+                                 void* dk, void* dv, const long long* strides,
+                                 int B, int H, int Sq, int Sk, int D,
+                                 float scale, int causal, uint32_t seed,
+                                 int thresh, float inv_keep, int dtype,
+                                 void* stream) {
+  Args a{};
+  a.q = static_cast<const float*>(q); a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.dout = static_cast<const float*>(dout); a.mask = mask; a.lse = lse;
+  a.delta = delta; a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv); a.st = strides_of(strides);
+  a.B = B; a.H = H; a.Sq = Sq; a.Sk = Sk; a.D = D; a.scale = scale;
+  a.causal = causal; a.seed = seed; a.thresh = thresh; a.inv_keep = inv_keep;
+  return run(DKV, a, dtype, stream);
+}
+
+const char* flash_attention_tf32_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

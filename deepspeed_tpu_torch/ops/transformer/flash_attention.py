@@ -10,14 +10,17 @@ and the fp32 row logsumexp; the backward recomputes the probabilities.
 - On CUDA tensors, :func:`flash_attention` runs Hopper kernels (built at
   first use) through an ``autograd.Function``: :func:`flash_attention_fwd`,
   then in the backward :func:`flash_attention_bwd_dq` and
-  :func:`flash_attention_bwd_dkv`. :func:`_route` picks the kernels of all
-  three: bfloat16 and float16 with ``head_dim`` up to 128 run the
-  tensor-core kernels of ``csrc/flash_attention_tc.cu``
-  (:func:`flash_attention_fwd_tc`, :func:`flash_attention_bwd_dq_tc`,
-  :func:`flash_attention_bwd_dkv_tc`); float32 and 16-bit head dims in
-  (128, 256] run the fp32-FMA kernels of ``csrc/flash_attention.cu``. It
-  launches them or raises; it never falls back to the plain version or
-  from one kernel to another.
+  :func:`flash_attention_bwd_dkv`. :func:`_route` picks each one's kernel:
+  bfloat16 and float16 with ``head_dim`` up to 128 run the tensor-core
+  kernels of ``csrc/flash_attention_tc.cu`` (:func:`flash_attention_fwd_tc`,
+  :func:`flash_attention_bwd_dq_tc`, :func:`flash_attention_bwd_dkv_tc`);
+  float32 dq and dk/dv with ``head_dim`` up to 128 the 3xTF32 tensor-core
+  kernels of ``csrc/flash_attention_tf32.cu``
+  (:func:`flash_attention_bwd_dq_tf32`,
+  :func:`flash_attention_bwd_dkv_tf32`); the float32 forward and 16-bit
+  and float32 head dims in (128, 256] the FMA kernels of
+  ``csrc/flash_attention.cu``. It launches them or raises; it never falls
+  back to the plain version or from one kernel to another.
 - On CPU tensors it runs :func:`flash_attention_reference`, the plain
   PyTorch version (materialised fp32 scores, differentiated by autograd)
   that the CPU tests hold against the JAX kernel and ``chip_smoke.py``
@@ -39,7 +42,11 @@ Each kernel counts its launches in its own wrapper's ``.launches``: the
 FMA kernels in ``flash_attention_fwd``, ``flash_attention_bwd_dq`` and
 ``flash_attention_bwd_dkv``, the tensor-core ones in
 ``flash_attention_fwd_tc``, ``flash_attention_bwd_dq_tc`` and
-``flash_attention_bwd_dkv_tc``.
+``flash_attention_bwd_dkv_tc``, the 3xTF32 ones in
+``flash_attention_bwd_dq_tf32`` and ``flash_attention_bwd_dkv_tf32``.
+The FMA wrappers also count, in ``.launches_wide``, their launches at head
+dims above 128 (the kernels' widest branch, which no tensor-core route
+takes).
 """
 
 import ctypes
@@ -54,6 +61,7 @@ __all__ = ["flash_attention", "flash_attention_reference", "flash_ok",
            "flash_attention_fwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "flash_attention_fwd_tc",
            "flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc",
+           "flash_attention_bwd_dq_tf32", "flash_attention_bwd_dkv_tf32",
            "flash_bwd_dq_reference",
            "flash_bwd_dkv_reference", "dropout_keep_mask"]
 
@@ -64,16 +72,23 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _FN = {}
 
 
-def _route(dtype: torch.dtype, head_dim: int) -> str:
-    """Which kernels compute the forward, dq and dk/dv on CUDA: ``"tc"`` (the
-    tensor cores, ``csrc/flash_attention_tc.cu``) for bfloat16 and float16
-    with ``head_dim`` a multiple of 8 in [8, 128] (a head dim that is not
-    a multiple of 16 is zero-padded in shared memory); ``"fma"``
-    (``csrc/flash_attention.cu``) for everything else the kernels take:
-    float32, and 16-bit head dims in (128, 256]."""
-    return ("tc" if dtype in (torch.bfloat16, torch.float16)
-            and head_dim % 8 == 0 and 8 <= head_dim <= TC_MAX_HEAD_DIM
-            else "fma")
+def _route(dtype: torch.dtype, head_dim: int, which: str = "fwd") -> str:
+    """Which kernel computes ``which`` (``"fwd"``, ``"dq"`` or ``"dkv"``) on
+    CUDA: ``"tc"`` (the tensor cores, ``csrc/flash_attention_tc.cu``) for
+    bfloat16 and float16 with ``head_dim`` a multiple of 8 in [8, 128] (a
+    head dim that is not a multiple of 16 is zero-padded in shared
+    memory); ``"tf32"`` (3xTF32 on the tensor cores,
+    ``csrc/flash_attention_tf32.cu``) for the float32 dq and dk/dv at
+    those head dims; ``"fma"`` (``csrc/flash_attention.cu``) for
+    everything else the kernels take: the float32 forward, and head dims
+    in (128, 256]."""
+    if which not in ("fwd", "dq", "dkv"):
+        raise ValueError(f"which must be fwd, dq or dkv, got {which!r}")
+    if not (head_dim % 8 == 0 and 8 <= head_dim <= TC_MAX_HEAD_DIM):
+        return "fma"
+    if dtype in (torch.bfloat16, torch.float16):
+        return "tc"
+    return "tf32" if dtype == torch.float32 and which != "fwd" else "fma"
 
 
 def flash_ok(q: torch.Tensor, k: torch.Tensor, causal: bool) -> bool:
@@ -241,8 +256,8 @@ def flash_bwd_dkv_reference(q, k, v, dout, kv_mask, lse, delta,
 
 def _kernel(name: str = "flash_attention"):
     """The ctypes functions of ``csrc/<name>.cu`` (``flash_attention``,
-    ``flash_attention_tc``: forward, dq, dk/dv), built and loaded at first
-    use."""
+    ``flash_attention_tc``: forward, dq, dk/dv; ``flash_attention_tf32``:
+    dq, dk/dv), built and loaded at first use."""
     if name not in _FN:
         lib = build.load(name)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -253,6 +268,8 @@ def _kernel(name: str = "flash_attention"):
                "dkv": (f"{name}_bwd_dkv", 10)}
         out = {}
         for key, (sym, n_ptrs) in fns.items():
+            if not hasattr(lib, sym):      # the tf32 source has no forward
+                continue
             fn = getattr(lib, sym)
             fn.argtypes = [ptr] * n_ptrs + shape
             fn.restype = i32
@@ -390,6 +407,14 @@ def _require_tc(q):
             f"{q.dtype}, head_dim {q.shape[-1]}")
 
 
+def _require_tf32(q):
+    if _route(q.dtype, q.shape[-1], "dq") != "tf32":
+        raise ValueError(
+            f"the 3xTF32 flash kernels take float32 with head_dim a "
+            f"multiple of 8 in [8, {TC_MAX_HEAD_DIM}]; got {q.dtype}, "
+            f"head_dim {q.shape[-1]}")
+
+
 def flash_attention_fwd(q, k, v, kv_mask, causal: bool, scale: float,
                         dropout_rate: float = 0.0,
                         dropout_seed: Optional[int] = None):
@@ -404,6 +429,7 @@ def flash_attention_fwd(q, k, v, kv_mask, causal: bool, scale: float,
     out, lse = _launch_fwd("flash_attention", q, k, v, kv_mask, causal,
                            scale, dropout_rate, dropout_seed)
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_wide += q.shape[-1] > TC_MAX_HEAD_DIM
     return out, lse
 
 
@@ -426,14 +452,18 @@ def flash_attention_bwd_dq(q, k, v, dout, kv_mask, lse, delta, causal: bool,
     """Launch the dq kernel :func:`_route` picks: ``dout`` contiguous [B,
     Sq, H, D]; ``lse`` and ``delta`` fp32 [B, H, Sq]. Returns dq,
     contiguous [B, Sq, H, D]. The FMA kernel's launches count here, the
-    tensor-core kernel's in :func:`flash_attention_bwd_dq_tc`."""
-    if _route(q.dtype, q.shape[-1]) == "tc":
-        return flash_attention_bwd_dq_tc(q, k, v, dout, kv_mask, lse, delta,
-                                         causal, scale, dropout_rate,
-                                         dropout_seed)
+    tensor-core kernels' in :func:`flash_attention_bwd_dq_tc` and
+    :func:`flash_attention_bwd_dq_tf32`."""
+    route = _route(q.dtype, q.shape[-1], "dq")
+    if route != "fma":
+        fn = (flash_attention_bwd_dq_tc if route == "tc"
+              else flash_attention_bwd_dq_tf32)
+        return fn(q, k, v, dout, kv_mask, lse, delta, causal, scale,
+                  dropout_rate, dropout_seed)
     dq = _launch_dq("flash_attention", q, k, v, dout, kv_mask, lse, delta,
                     causal, scale, dropout_rate, dropout_seed)
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.launches_wide += q.shape[-1] > TC_MAX_HEAD_DIM
     return dq
 
 
@@ -451,20 +481,38 @@ def flash_attention_bwd_dq_tc(q, k, v, dout, kv_mask, lse, delta,
     return dq
 
 
+def flash_attention_bwd_dq_tf32(q, k, v, dout, kv_mask, lse, delta,
+                                causal: bool, scale: float,
+                                dropout_rate: float = 0.0,
+                                dropout_seed: Optional[int] = None):
+    """Launch the 3xTF32 dq kernel (float32, ``head_dim`` a multiple of 8
+    up to 128; anything else raises). Inputs and output as
+    :func:`flash_attention_bwd_dq`."""
+    _require_tf32(q)
+    dq = _launch_dq("flash_attention_tf32", q, k, v, dout, kv_mask, lse,
+                    delta, causal, scale, dropout_rate, dropout_seed)
+    flash_attention_bwd_dq_tf32.launches += 1
+    return dq
+
+
 def flash_attention_bwd_dkv(q, k, v, dout, kv_mask, lse, delta,
                             causal: bool, scale: float,
                             dropout_rate: float = 0.0,
                             dropout_seed: Optional[int] = None):
     """Launch the dk/dv kernel :func:`_route` picks. Returns dk, dv,
     contiguous [B, Sk, H, D]. The FMA kernel's launches count here, the
-    tensor-core kernel's in :func:`flash_attention_bwd_dkv_tc`."""
-    if _route(q.dtype, q.shape[-1]) == "tc":
-        return flash_attention_bwd_dkv_tc(q, k, v, dout, kv_mask, lse, delta,
-                                          causal, scale, dropout_rate,
-                                          dropout_seed)
+    tensor-core kernels' in :func:`flash_attention_bwd_dkv_tc` and
+    :func:`flash_attention_bwd_dkv_tf32`."""
+    route = _route(q.dtype, q.shape[-1], "dkv")
+    if route != "fma":
+        fn = (flash_attention_bwd_dkv_tc if route == "tc"
+              else flash_attention_bwd_dkv_tf32)
+        return fn(q, k, v, dout, kv_mask, lse, delta, causal, scale,
+                  dropout_rate, dropout_seed)
     dk, dv = _launch_dkv("flash_attention", q, k, v, dout, kv_mask, lse,
                          delta, causal, scale, dropout_rate, dropout_seed)
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.launches_wide += q.shape[-1] > TC_MAX_HEAD_DIM
     return dk, dv
 
 
@@ -482,19 +530,39 @@ def flash_attention_bwd_dkv_tc(q, k, v, dout, kv_mask, lse, delta,
     return dk, dv
 
 
+def flash_attention_bwd_dkv_tf32(q, k, v, dout, kv_mask, lse, delta,
+                                 causal: bool, scale: float,
+                                 dropout_rate: float = 0.0,
+                                 dropout_seed: Optional[int] = None):
+    """Launch the 3xTF32 dk/dv kernel (float32, ``head_dim`` a multiple of
+    8 up to 128; anything else raises). Inputs and outputs as
+    :func:`flash_attention_bwd_dkv`."""
+    _require_tf32(q)
+    dk, dv = _launch_dkv("flash_attention_tf32", q, k, v, dout, kv_mask, lse,
+                         delta, causal, scale, dropout_rate, dropout_seed)
+    flash_attention_bwd_dkv_tf32.launches += 1
+    return dk, dv
+
+
 flash_attention_fwd.launches = 0
 flash_attention_fwd_tc.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dq_tc.launches = 0
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv_tc.launches = 0
+flash_attention_bwd_dq_tf32.launches = 0
+flash_attention_bwd_dkv_tf32.launches = 0
+flash_attention_fwd.launches_wide = 0
+flash_attention_bwd_dq.launches_wide = 0
+flash_attention_bwd_dkv.launches_wide = 0
 
 
 class _FlashAttention(torch.autograd.Function):
     """The CUDA kernels with their gradient: the forward saves ``out`` and
     ``lse`` (and keeps the dropout's rate and seed); the backward takes
-    ``delta = rowsum(dO * out)`` in fp32, then launches dq and dk/dv,
-    which regenerate the forward's keep-mask."""
+    ``delta = rowsum(dO * out)`` in fp32, then launches the dq and dk/dv
+    kernels of their routes (which regenerate the forward's keep-mask) or
+    raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, causal, scale, rate, seed):

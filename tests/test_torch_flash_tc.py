@@ -136,7 +136,7 @@ def test_split_operand_product_matches_jax(dtype):
 ROUTES = [(torch.bfloat16, 64, "tc"), (torch.float16, 64, "tc"),
           (torch.bfloat16, 8, "tc"), (torch.float16, 72, "tc"),
           (torch.bfloat16, 128, "tc"), (torch.float16, 128, "tc"),
-          (torch.float32, 64, "fma"), (torch.float32, 128, "fma"),
+          (torch.float32, 64, "tf32"), (torch.float32, 128, "tf32"),
           (torch.float32, 256, "fma"), (torch.bfloat16, 136, "fma"),
           (torch.float16, 256, "fma")]
 
@@ -144,28 +144,34 @@ ROUTES = [(torch.bfloat16, 64, "tc"), (torch.float16, 64, "tc"),
 @pytest.mark.parametrize("dtype,head_dim,route", ROUTES)
 def test_dq_routes_like_dkv(dtype, head_dim, route, monkeypatch):
     """``flash_attention_bwd_dq`` launches the kernel of the library that
-    ``flash_attention_bwd_dkv`` launches, and counts it in the routed
-    wrapper's ``.launches`` (the launches are recorded, not run: the
-    operands are meta tensors)."""
+    ``flash_attention_bwd_dkv`` launches (the 3xTF32 kernels for float32
+    up to D = 128), and counts it in the routed wrapper's ``.launches``
+    (the launches are recorded, not run: the operands are meta
+    tensors)."""
     launched = []
     monkeypatch.setattr(fa, "_launch_dq",
                         lambda name, *a: launched.append(("dq", name)))
     monkeypatch.setattr(fa, "_launch_dkv",
                         lambda name, *a: launched.append(("dkv", name))
                         or (None, None))
-    wrappers = (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dq_tc,
-                fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dkv_tc)
-    for w in wrappers:
-        monkeypatch.setattr(w, "launches", 0)
+    wrappers = {"fma": (fa.flash_attention_bwd_dq,
+                        fa.flash_attention_bwd_dkv),
+                "tc": (fa.flash_attention_bwd_dq_tc,
+                       fa.flash_attention_bwd_dkv_tc),
+                "tf32": (fa.flash_attention_bwd_dq_tf32,
+                         fa.flash_attention_bwd_dkv_tf32)}
+    for pair in wrappers.values():
+        for w in pair:
+            monkeypatch.setattr(w, "launches", 0)
     q = torch.empty(1, 8, 1, head_dim, dtype=dtype, device="meta")
     lse = torch.empty(1, 1, 8, device="meta")
     fa.flash_attention_bwd_dq(q, q, q, q, None, lse, lse, True, 0.125)
     fa.flash_attention_bwd_dkv(q, q, q, q, None, lse, lse, True, 0.125)
-    lib = "flash_attention_tc" if route == "tc" else "flash_attention"
+    lib = {"tc": "flash_attention_tc", "tf32": "flash_attention_tf32",
+           "fma": "flash_attention"}[route]
     assert launched == [("dq", lib), ("dkv", lib)]
-    tc = route == "tc"
-    assert [w.launches for w in wrappers] == [int(not tc), int(tc),
-                                              int(not tc), int(tc)]
+    assert {r: [w.launches for w in pair] for r, pair in wrappers.items()} \
+        == {r: [int(r == route)] * 2 for r in wrappers}
 
 
 @pytest.mark.parametrize("dtype,head_dim", [(torch.float32, 64),

@@ -1,0 +1,208 @@
+"""The 3xTF32 flash backward kernels' route and arithmetic
+(deepspeed_tpu_torch).
+
+``csrc/flash_attention_tf32.cu`` (dq and dk/dv for float32 on the tensor
+cores) runs only on the card, where ``chip_smoke.py`` holds it against the
+plain versions. Here: which kernel ``_route`` picks for the forward, dq and
+dk/dv by dtype and head dim, that the new wrappers refuse the rest and
+that a missing ``nvcc`` raises, and a plain PyTorch model of the kernels'
+arithmetic: every fp32 operand of the five products (s = q.k^T, dp =
+dO.v^T, dq = ds.k, dk = ds^T.q, dv = p^T.dO) is split into hi =
+tf32(x) and lo = tf32(x - hi), ``cvt.rna.tf32.f32`` emulated with int32
+bit operations, and each product is lo.hi + hi.lo + hi.hi in fp32. On
+numpy-made inputs the model stays within 1e-5 of the largest value of both
+the JAX kernels (``interpret=True``) and the port's fp32 plain versions,
+causal and non-causal under a key mask, at dropout 0 and 0.1; one TF32
+product (hi.hi) does not, which is why the kernels pay for three.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.ops.transformer.flash_attention import \
+    flash_attention as jax_flash_attention
+from deepspeed_tpu_torch.ops import build
+from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+torch.set_num_threads(1)
+
+B, S, H, D = 2, 128, 2, 16
+REL = 1e-5          # of the reference's largest |value|
+F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
+
+
+@pytest.mark.parametrize("dtype,head_dim,routes", [
+    (F32, 64, ("fma", "tf32", "tf32")), (F32, 8, ("fma", "tf32", "tf32")),
+    (F32, 72, ("fma", "tf32", "tf32")), (F32, 128, ("fma", "tf32", "tf32")),
+    (F32, 136, ("fma", "fma", "fma")), (F32, 256, ("fma", "fma", "fma")),
+    (BF16, 64, ("tc", "tc", "tc")), (F16, 128, ("tc", "tc", "tc")),
+    (BF16, 256, ("fma", "fma", "fma")), (F16, 136, ("fma", "fma", "fma"))])
+def test_route(dtype, head_dim, routes):
+    """The forward keeps its route (fp32 on the FMA kernel); the fp32 dq
+    and dk/dv take 3xTF32 up to D = 128; 16-bit types the tensor cores up
+    to D = 128; every head dim above 128 the FMA kernels."""
+    assert tuple(fa._route(dtype, head_dim, w)
+                 for w in ("fwd", "dq", "dkv")) == routes
+    assert fa._route(dtype, head_dim) == routes[0]
+
+
+def test_route_refuses_an_unknown_kernel():
+    with pytest.raises(ValueError, match="fwd, dq or dkv"):
+        fa._route(F32, 64, "dk")
+
+
+@pytest.mark.parametrize("dtype,head_dim", [(BF16, 64), (F16, 128),
+                                            (F32, 136), (F32, 256)])
+def test_tf32_wrappers_refuse_other_routes(dtype, head_dim):
+    """The 3xTF32 wrappers raise, before any launch, for what they do not
+    take; nothing falls back to another kernel."""
+    q = torch.empty(1, 8, 1, head_dim, dtype=dtype, device="meta")
+    lse = torch.empty(1, 1, 8, device="meta")
+    before = (fa.flash_attention_bwd_dq_tf32.launches,
+              fa.flash_attention_bwd_dkv_tf32.launches)
+    with pytest.raises(ValueError, match="3xTF32 flash kernels"):
+        fa.flash_attention_bwd_dq_tf32(q, q, q, q, None, lse, lse, True,
+                                       0.125)
+    with pytest.raises(ValueError, match="3xTF32 flash kernels"):
+        fa.flash_attention_bwd_dkv_tf32(q, q, q, q, None, lse, lse, True,
+                                        0.125)
+    assert (fa.flash_attention_bwd_dq_tf32.launches,
+            fa.flash_attention_bwd_dkv_tf32.launches) == before
+
+
+def test_missing_nvcc_raises_for_tf32(monkeypatch, tmp_path):
+    monkeypatch.setattr(build, "find_nvcc", lambda: None)
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build("flash_attention_tf32")
+    assert not list(tmp_path.iterdir())
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on fp32 ``x``: the nearest value with 10
+    mantissa bits, ties away from zero (add half of the dropped 13 bits'
+    range to the magnitude's bits, then clear them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def test_tf32_rounding_emulation():
+    """The emulation keeps 10 mantissa bits, rounds to nearest and sends
+    ties away from zero in both signs."""
+    one = 1.0 + 2.0 ** -10                 # a tf32 value
+    half = 2.0 ** -11                      # half its last place
+    x = torch.tensor([one, one + half, 1.0 + half, 1.0 + half * 0.99,
+                      -(1.0 + half), 3.0e-30, 1.0e30], dtype=F32)
+    got = _tf32(x)
+    assert got.tolist()[:5] == [one, one + 2 * half, one, 1.0, -one]
+    assert ((got.view(torch.int32) & 0x1FFF) == 0).all()
+    rel = ((got - x).abs() / x.abs()).max().item()
+    assert rel <= 2.0 ** -11
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
+    """a @ b over the last two dims as the kernels multiply fp32
+    operands: with 3 terms, lo.hi + hi.lo + hi.hi of hi = tf32(x) and lo =
+    tf32(x - hi), each product in fp32; with 1, hi.hi alone."""
+    ah, bh = _tf32(a), _tf32(b)
+    if terms == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _model(q, k, v, do, mask, lse, delta, causal, scale, rate, seed, terms):
+    """dq, dk and dv as the 3xTF32 kernels compute them from q, k, v, dO
+    ([B, S, H, D] fp32), the key mask and the forward's lse and delta
+    ([B, H, Sq]): s = q.k^T and dp = dO.v^T; p = exp(scale s - lse) under
+    the causal and key masks; dp dropped out; ds = p (dp - delta); dq =
+    scale ds.k, dk = scale ds^T.q, dv = (D p)^T.dO."""
+    qh, kh, vh, doh = (t.permute(0, 2, 1, 3) for t in (q, k, v, do))
+    sq, sk = q.shape[1], k.shape[1]
+    s = _mm(qh, kh.transpose(-1, -2), terms)
+    p = torch.exp(s * scale - lse[..., None])
+    if causal:
+        vis = torch.ones(sq, sk, dtype=torch.bool).tril(sk - sq)
+        p = p.masked_fill(~vis, 0.0)
+    p = p * mask[:, None, None, :]
+    dp = _mm(doh, vh.transpose(-1, -2), terms)
+    if rate:
+        keep = fa._keep_bhqk(seed, q.shape[0], q.shape[2], sq, sk, rate,
+                             "cpu")
+        dp = torch.where(keep, dp * (1.0 / (1.0 - rate)), 0.0)
+        pd = torch.where(keep, p * (1.0 / (1.0 - rate)), 0.0)
+    else:
+        pd = p
+    ds = p * (dp - delta[..., None])
+    dq = _mm(ds, kh, terms) * scale
+    dk = _mm(ds.transpose(-1, -2), qh, terms) * scale
+    dv = _mm(pd.transpose(-1, -2), doh, terms)
+    return [t.permute(0, 2, 1, 3) for t in (dq, dk, dv)]
+
+
+def _seed_of(key) -> int:
+    kd = np.asarray(jax.random.key_data(key)).astype(np.uint32).ravel()
+    return int(kd[0] ^ (kd[-1] << np.uint32(1)))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [True, False])
+def test_3xtf32_model_matches_jax_and_plain(causal, rate):
+    """The 3xTF32 model of dq, dk and dv against the JAX backward kernels
+    (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``; interpret, fp32, through
+    ``jax.grad``) and the port's fp32 plain versions on the same inputs:
+    within 1e-5 of each reference's largest |value|; the one-product model
+    beyond it for every output."""
+    rng = np.random.default_rng(31 + 2 * causal + int(rate * 10))
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(B, S, H, D))
+                                    .astype(np.float32)) for _ in range(4))
+    mask = np.ones((B, S), np.float32)
+    if causal:
+        mask[1, 90:] = 0.0
+    else:
+        mask[0, 100:] = 0.0
+        mask[1, 40:] = 0.0
+    scale = 1.0 / D ** 0.5
+    key = jax.random.PRNGKey(7)
+    seed = _seed_of(key) if rate else None
+
+    def f(q, k, v):
+        out = jax_flash_attention(q, k, v, causal=causal,
+                                  kv_mask=jnp.asarray(mask), block_q=64,
+                                  block_k=64, dropout_rate=rate,
+                                  dropout_rng=key if rate else None,
+                                  interpret=True)
+        return jnp.sum(out * jnp.asarray(do.numpy())), out
+
+    (_, _out), grads = jax.value_and_grad(
+        f, argnums=(0, 1, 2), has_aux=True)(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    want_jax = [np.asarray(g) for g in grads]
+    # the forward's lse and delta as the kernels receive them
+    tm = torch.from_numpy(mask)
+    s = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
+    if causal:
+        s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(),
+                          float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    l = (torch.exp(s - m) * tm[:, None, None, :]).sum(-1, keepdim=True)
+    lse = (m + torch.log(l.clamp_min(1e-30)))[..., 0]
+    out = fa.flash_attention_reference(q, k, v, causal=causal, kv_mask=tm,
+                                       dropout_rate=rate, dropout_seed=seed)
+    delta = (do * out).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, tm, lse, delta, causal, scale, rate, seed)
+    want_plain = [fa.flash_bwd_dq_reference(*args),
+                  *fa.flash_bwd_dkv_reference(*args)]
+    for ref_name, want in (("jax", want_jax), ("plain", want_plain)):
+        for terms, within in ((3, True), (1, False)):
+            got = _model(*args, terms)
+            errs = [float(np.abs(g.numpy() - np.asarray(w)).max()
+                          / np.abs(np.asarray(w)).max())
+                    for g, w in zip(got, want)]
+            if within:
+                assert max(errs) <= REL, (ref_name, terms, errs)
+            else:
+                assert min(errs) > REL, (ref_name, terms, errs)
