@@ -47,11 +47,12 @@
      the decode rows' split counts beside the rule's pick;
    - flash attention forward, dq and dk/dv at [16, 512, 12, 64] causal,
      with and without a key mask holding an all-padding row, and at S=5
-     and S=300, in fp32 (the FMA forward, the 3xTF32 dq and dk/dv of
-     ``csrc/flash_attention_tf32.cu``), bf16 and fp16 (the tensor-core
-     forward, dq and dk/dv of ``csrc/flash_attention_tc.cu``), the FMA dq
-     and dk/dv held on the same inputs beside either; also at D=128, at
-     D=72 (zero-padded to 80 in 16 bits) and with Sq < Sk (bottom-right
+     and S=300, in fp32 (the 3xTF32 forward, dq and dk/dv of
+     ``csrc/flash_attention_tf32.cu``, the FMA forward held on the same
+     inputs beside them), bf16 and fp16 (the tensor-core forward, dq and
+     dk/dv of ``csrc/flash_attention_tc.cu``), the FMA dq and dk/dv held
+     on the same inputs beside either; also at D=128, at D=72 and D=8
+     (zero-padded to 80 and 16 in 16 bits) and with Sq < Sk (bottom-right
      causal), and, in fp32 and bf16, at D = 256 on the FMA route (its
      widest branch, causal with the key mask, dropout 0 and 0.1); the
      whole autograd path against the plain
@@ -66,8 +67,8 @@
      D = 256 FMA kernels in bf16 at [4, 512, 8, 256] beside cuDNN's SDPA (the
      ``_d256`` rows); and the dropout keep-mask read back out
      of the forward, dq and dk/dv kernels (fp32 [2, 2048, 2, 256] through
-     the FMA kernels, fp32 [2, 2048, 2, 64] through the FMA forward and
-     the 3xTF32 dq and dk/dv, bf16 [2, 2048, 2, 64] through the
+     the FMA kernels, fp32 [2, 2048, 2, 64] through the 3xTF32 forward,
+     dq and dk/dv, bf16 [2, 2048, 2, 64] through the
      tensor-core ones;
      an identity V, K and dO on a D-wide window) against
      ``dropout_keep_mask``, no bit flipped; the non-causal key-padded
@@ -238,8 +239,8 @@
 7b. fp32 training at full width (``--only fp32`` runs it alone;
    :func:`check_fp32_training`): ``make_gpt("gpt2", dtype=torch.float32)``
    (dropout 0.1) through ``initialize`` with phase 4's shape and no bf16
-   block, DeepSpeed's default precision: the FMA forward, the 3xTF32 dq
-   and dk/dv launch 96 times each per step, the FMA dq and dk/dv never,
+   block, DeepSpeed's default precision: the 3xTF32 forward, dq and dk/dv
+   launch 96 times each per step, the FMA forward, dq and dk/dv never,
    fused Adam once, no plain version, the loss falls, matmul TF32 off;
    step time, tokens/s, peak memory, the idle share and a profiled step's
    device ms of #3-#5 and the GEMMs.
@@ -262,7 +263,7 @@
    beside the FMA forward, dq and dk/dv on the same inputs and SDPA with
    the expanded mask: the ``_block16`` and ``_tc16`` rows; the same at
    block 32, printed), and the fp32 comparisons at bert-large width and
-   2 layers, dense (flash on FMAs) and sparse (#8-#10 on FMAs), against
+   2 layers, dense (flash on 3xTF32) and sparse (#8-#10 on FMAs), against
    the plain path.
 9. Checkpointing, the dataloader and preemption-safe training (``--only
    ckpt`` runs it alone; :func:`check_ckpt`): full-width, full-depth
@@ -287,13 +288,14 @@
 
 Any failure exits non-zero. The last stdout line is
 ``{"ok": true, "device": {...}}``; before it come the card line and a
-``{"kernels": [...]}`` line. The fp32 flash rows (the FMA forward
-``flash_attention_fwd``, the 3xTF32 ``flash_attention_bwd_dq_tf32`` and
-``flash_attention_bwd_dkv_tf32``, and the FMA ``flash_attention_bwd_dq``
-and ``flash_attention_bwd_dkv``, their first versions, timed on the same
-inputs) are timed in fp32; at dropout 0 their launches count the fp32
-comparison of phase 4, their ``_dropout`` twins phase 7b's timed steps
-(the FMA dq and dk/dv 0 in both), every count set to 0 just before it;
+``{"kernels": [...]}`` line. The fp32 flash rows (the 3xTF32
+``flash_attention_fwd_tf32``, ``flash_attention_bwd_dq_tf32`` and
+``flash_attention_bwd_dkv_tf32``, and the FMA ``flash_attention_fwd``,
+``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``, their first
+versions, timed on the same inputs) are timed in fp32; at dropout 0
+their launches count the fp32 comparison of phase 4, their ``_dropout``
+twins phase 7b's timed steps (the FMA kernels 0 in both), every count
+set to 0 just before it;
 the ``_d256`` rows (the FMA route above D = 128) are timed in bf16 and
 count the FMA wrappers' launches at D > 128 (``.launches_wide``) over
 phases 4, 7 and 7b, set to 0 just before each. ``fused_ln.cu``'s rows
@@ -1242,10 +1244,11 @@ def flash_bytes_flops(q, mask, which, causal=True):
 
 # Phase 2's flash cases, causal: (B, Sq, Sk, H, D, key mask). Every dtype
 # runs FLASH_CASES (the training shape and ragged S, D = 64) and
-# FLASH_CASES_16, the tensor-core kernels' other widths (D = 128, and D =
-# 72, zero-padded to 80 in shared memory in 16 bits) and Sq < Sk
+# FLASH_CASES_16, the tensor-core kernels' other widths (D = 128, D = 72,
+# zero-padded to 80 in shared memory in 16 bits, and D = 8, their
+# narrowest, padded to 16) and Sq < Sk
 # (bottom-right causal): the 16-bit tensor-core forward, dq and dk/dv, and
-# in fp32 the FMA forward with the 3xTF32 dq and dk/dv. fp32 and bf16 also
+# in fp32 the 3xTF32 forward, dq and dk/dv. fp32 and bf16 also
 # run FLASH_CASES_256, the FMA route's D = 256 (its widest branch, for
 # every dtype above D = 128). At dropout 0.1 the same split.
 FLASH_CASES = ((16, 512, 512, 12, 64, False), (16, 512, 512, 12, 64, True),
@@ -1254,7 +1257,7 @@ FLASH_CASES = ((16, 512, 512, 12, 64, False), (16, 512, 512, 12, 64, True),
 FLASH_CASES_16 = ((4, 300, 300, 4, 128, False), (4, 300, 300, 4, 128, True),
                   (4, 300, 300, 4, 72, True), (4, 5, 5, 4, 72, True),
                   (4, 100, 300, 12, 64, True), (4, 100, 300, 4, 128, False),
-                  (4, 37, 300, 4, 72, True))
+                  (4, 37, 300, 4, 72, True), (4, 300, 300, 4, 8, True))
 FLASH_DROP_CASES = ((16, 512, 512, 12, 64, False),
                     (16, 512, 512, 12, 64, True))
 FLASH_DROP_CASES_16 = ((4, 300, 300, 4, 128, True),
@@ -1278,7 +1281,7 @@ def compare_flash_case(torch, fa, dtype, case, worst, rate=0.0, seed=None,
     dropout ``rate`` with ``seed``; q is the last Sq rows of the fused
     projection. Where dq and dk/dv take the tensor cores (16 bits, or
     3xTF32 in fp32), the FMA dq and dk/dv (their first versions) are held
-    on the same inputs too.
+    on the same inputs too, and in fp32 the FMA forward.
     Folds each output's max |err| into ``worst`` and fails beyond the
     tolerances (KERNEL_TOL, FLASH_16BIT_RMS_TOL), if dq or dk/dv differ
     between two launches on the same inputs, or if an all-padding batch
@@ -1320,6 +1323,9 @@ def compare_flash_case(torch, fa, dtype, case, worst, rate=0.0, seed=None,
     dkv_fma = (fa._launch_dkv("flash_attention", qp, kp, vp, dout, mp, lse,
                               delta, causal, scale, *drop)
                if first else None)
+    fwd_fma = (fa._launch_fwd("flash_attention", qp, kp, vp, mp, causal,
+                              scale, *drop)[0]
+               if routes[0] == "tf32" else None)
     torch.cuda.synchronize()
     what = (f"{name} B={b} Sq={sq} Sk={s} H={h} D={d} masked={masked} "
             f"causal={causal} dropout={rate} ({'/'.join(routes)})")
@@ -1362,6 +1368,8 @@ def compare_flash_case(torch, fa, dtype, case, worst, rate=0.0, seed=None,
         pairs["dq (FMA kernel, same inputs)"] = (dq_fma, dq_w)
         pairs["dk (FMA kernel, same inputs)"] = (dkv_fma[0], dk_w)
         pairs["dv (FMA kernel, same inputs)"] = (dkv_fma[1], dv_w)
+    if fwd_fma is not None:
+        pairs["fwd (FMA kernel, same inputs)"] = (fwd_fma, want)
     for key, (got, ref) in pairs.items():
         if not torch.isfinite(got).all():
             fail(f"flash {key} {what}: non-finite output")
@@ -1485,6 +1493,7 @@ def device_ms(torch, fn, iters=20, warmup=3, names=False):
 def flash_wrappers(fa):
     """Each flash kernel's wrappers by route: the forward, dq and dk/dv."""
     return {"fwd": {"tc": fa.flash_attention_fwd_tc,
+                    "tf32": fa.flash_attention_fwd_tf32,
                     "fma": fa.flash_attention_fwd},
             "dq": {"tc": fa.flash_attention_bwd_dq_tc,
                    "tf32": fa.flash_attention_bwd_dq_tf32,
@@ -1515,14 +1524,13 @@ def take_wide_launches(fa, total=None):
 
 def flash_routes_expected(dtype, d):
     """The routes of the forward, dq and dk/dv that phase 2 holds the code
-    to: 16-bit up to D = 128 the tensor cores; fp32 up to D = 128 the FMA
-    forward and the 3xTF32 dq and dk/dv; every dtype above D = 128 the FMA
-    kernels."""
+    to: 16-bit up to D = 128 the tensor cores; fp32 up to D = 128 3xTF32
+    on them; every dtype above D = 128 the FMA kernels."""
     import torch
 
     if d > 128:
         return ("fma",) * 3
-    return ("fma", "tf32", "tf32") if dtype == torch.float32 else ("tc",) * 3
+    return ("tf32",) * 3 if dtype == torch.float32 else ("tc",) * 3
 
 
 def check_flash_attention(torch, reports):
@@ -1609,9 +1617,9 @@ def time_flash(torch, fa, reports, worsts, shape=(16, 512, 12, 64),
     (:func:`device_ms`), in each of ``dtypes`` (bf16 and fp32 by default):
     bf16 on its routes (the tensor-core forward, dq and dk/dv up to D =
     128) beside the FMA kernels on the same inputs (their first versions'
-    route), and fp32 on its routes (the FMA forward, the 3xTF32 dq and
-    dk/dv) beside the FMA dq and dk/dv on the same inputs, which fill the
-    FMA rows; each beside its plain version and SDPA with its backend
+    route), and fp32 on its routes (the 3xTF32 forward, dq and dk/dv)
+    beside the FMA forward, dq and dk/dv on the same inputs, which fill
+    the FMA rows; each beside its plain version and SDPA with its backend
     pinned (flash for bf16, memory-efficient for fp32, unless
     ``backends`` names another by dtype name). Row names end in
     ``suffix``. The tensor-core rows also print their host-paced time
@@ -1741,8 +1749,8 @@ def time_flash(torch, fa, reports, worsts, shape=(16, 512, 12, 64),
                              f"same inputs {first_ms:.4f} ms "
                              f"({first_ms / kernel_ms:.2f}x)")
                     if route == "tf32":
-                        # the FMA rows: fp32's first versions of dq and
-                        # dk/dv, on the same inputs
+                        # the FMA rows: fp32's first versions of the
+                        # forward, dq and dk/dv, on the same inputs
                         reports[base + tail + suffix].update(
                             ms=first_ms, plain_ms=plain_ms,
                             library_ms=library, **bound,
@@ -1969,8 +1977,8 @@ def check_flash_dropout_mask(torch, dtype, d):
     """The keep-mask read back out of the forward, dq and dk/dv kernels
     that ``dtype`` and head dim ``d`` route to, bit for bit against
     ``dropout_keep_mask``: non-causal at [2, 2048, 2, d] (fp32 at d = 256:
-    the FMA kernels; fp32 at d = 64: the FMA forward with the 3xTF32 dq
-    and dk/dv; bf16 at d = 64: the tensor-core kernels). The key
+    the FMA kernels; fp32 at d = 64: the 3xTF32 forward, dq and dk/dv;
+    bf16 at d = 64: the tensor-core kernels). The key
     mask keeps only the last d cols, c0 = 2048 - d onwards, and V is the
     identity on them (V[j, c] = 1 iff j = c0 + c), so o[i, c] != 0 iff
     score (i, c0 + c) was kept; dO is the identity on rows 1024 to 1023 +
@@ -4307,6 +4315,10 @@ KERNELS = (
      "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:194"),
     ("sparse_attention_fwd_tc16", "sparse_attention_tc16",
      "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:88"),
+    ("flash_attention_fwd_tf32", "flash_attention_tf32",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:113"),
+    ("flash_attention_fwd_tf32_dropout", "flash_attention_tf32",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:160"),
     ("flash_attention_bwd_dq_tf32", "flash_attention_tf32",
      "deepspeed_tpu/ops/transformer/flash_attention.py:231"),
     ("flash_attention_bwd_dkv_tf32", "flash_attention_tf32",
@@ -4323,14 +4335,13 @@ KERNELS = (
      "deepspeed_tpu/ops/transformer/flash_attention.py:287"),
 )
 # the flash kernels of the 16-bit training step: the tensor-core forward,
-# dq and dk/dv; the FMA kernels take the fp32 path
+# dq and dk/dv; the FMA kernels take head dims above 128 only
 FLASH_NAMES = ("flash_attention_fwd_tc", "flash_attention_bwd_dq_tc",
                "flash_attention_bwd_dkv_tc")
 FLASH_FMA_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
                    "flash_attention_bwd_dkv")
-# the fp32 path's dq and dk/dv (3xTF32; the FMA dq and dk/dv take head
-# dims above 128 only)
-FLASH_TF32_NAMES = ("flash_attention_bwd_dq_tf32",
+# the fp32 path's forward, dq and dk/dv (3xTF32)
+FLASH_TF32_NAMES = ("flash_attention_fwd_tf32", "flash_attention_bwd_dq_tf32",
                     "flash_attention_bwd_dkv_tf32")
 # #6/#7 of the 16-bit steps (wgmma); fused_ln.cu's take the fp32 path
 FUSED_LN_TC_NAMES = FUSED_LN_ROUTES["fused_ln_tc"]
@@ -4595,6 +4606,7 @@ def training_counters():
             "flash_attention_bwd_dq_tc": fa.flash_attention_bwd_dq_tc,
             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
             "flash_attention_bwd_dkv_tc": fa.flash_attention_bwd_dkv_tc,
+            "flash_attention_fwd_tf32": fa.flash_attention_fwd_tf32,
             "flash_attention_bwd_dq_tf32": fa.flash_attention_bwd_dq_tf32,
             "flash_attention_bwd_dkv_tf32": fa.flash_attention_bwd_dkv_tf32,
             "sparse_attention_fwd": sp.sparse_attention_fwd,
@@ -4909,10 +4921,10 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None,
     runs the unfused model. At ``dropout`` both models drop out at that
     rate with the engines' seeds (one ``rng_seed``, so the same seeds):
     the same masks on both paths (the plain attention uses the kernels'
-    mask function). Dense, the kernels' run must launch the 3xTF32 dq and
-    dk/dv and never the FMA ones. Returns the kernels' run's launches,
-    every count set to 0 just before it (the fp32 path's rows of the
-    kernels line)."""
+    mask function). Dense, the kernels' run must launch the 3xTF32
+    forward, dq and dk/dv and never the FMA ones. Returns the kernels'
+    run's launches, every count set to 0 just before it (the fp32 path's
+    rows of the kernels line)."""
     import numpy as np
 
     import deepspeed_tpu_torch as dtt
@@ -4921,7 +4933,7 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None,
 
     counters = training_counters()
     counter = counters["sparse_attention_fwd" if sparse else
-                       "flash_attention_fwd"]
+                       "flash_attention_fwd_tf32"]
     ln_counter = counters["fused_ln_matmul_bwd"]
     what = "sparse " if sparse else ""
     gas = 2
@@ -4978,9 +4990,9 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None,
                      f"fused_ln): {launches}")
             if not sparse and (
                     not all(launches[n] for n in FLASH_TF32_NAMES)
-                    or any(launches[n] for n in FLASH_FMA_NAMES[1:])):
-                fail(f"fp32 comparison: dq and dk/dv did not take the "
-                     f"3xTF32 kernels alone: {launches}")
+                    or any(launches[n] for n in FLASH_FMA_NAMES)):
+                fail(f"fp32 comparison: the forward, dq and dk/dv did not "
+                     f"take the 3xTF32 kernels alone: {launches}")
         runs[label] = (grads, losses)
         names = engine.param_names
         del engine, model
@@ -5019,9 +5031,9 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None,
 # update, ZeRO 2) with no bf16 / fp16 block: the engine keeps fp32
 FP32_TRAIN_CONFIG = {k: v for k, v in TRAIN_CONFIG.items()
                      if k not in ("bf16", "data_types")}
-# the profiled step's device ms: #3 fp32 (the FMA forward), the 3xTF32 dq
-# and dk/dv, and every GEMM kernel (cuBLAS's names hold "gemm")
-FP32_PICK = ("flash_fwd_kernel", "flash_bwd_dq_tf32_kernel",
+# the profiled step's device ms: the 3xTF32 forward, dq and dk/dv, and
+# every GEMM kernel (cuBLAS's names hold "gemm")
+FP32_PICK = ("flash_fwd_tf32_kernel", "flash_bwd_dq_tf32_kernel",
              "flash_bwd_dkv_tf32_kernel", "gemm")
 
 
@@ -5031,11 +5043,11 @@ def check_fp32_training(torch, card):
     dtype=torch.float32)`` (12 layers, width 768, its default dropout 0.1;
     the model's compute dtype is its own field, bf16 by default, as in
     the JAX model) through ``initialize`` with FP32_TRAIN_CONFIG, so
-    attention runs fp32 through the FMA forward and the 3xTF32 dq and
-    dk/dv. Prints the TF32 flags and fails if matmuls may use TF32 (the
-    plain fp32 path is full fp32). Held: the forward, dq and dk/dv launch
-    12 layers x 8 micro-batches = 96 times a step each (the dropout
-    branch), the FMA dq and dk/dv and every 16-bit kernel never, Adam
+    attention runs fp32 through the 3xTF32 forward, dq and dk/dv. Prints
+    the TF32 flags and fails if matmuls may use TF32 (the plain fp32 path
+    is full fp32). Held: the forward, dq and dk/dv launch 12 layers x 8
+    micro-batches = 96 times a step each (the dropout branch), the FMA
+    forward, dq and dk/dv and every 16-bit kernel never, Adam
     once, no plain version, the loss falls. Printed: step ms (median of 5
     after 2 warm-up), tokens/s, peak GB, one profiled step's busy ms, the
     idle share against it, kernels a step and the device ms a step of
@@ -5059,9 +5071,7 @@ def check_fp32_training(torch, card):
              f"{cfg.dropout_rate}")
     per_layer = cfg.num_layers * TRAIN_CONFIG["gradient_accumulation_steps"]
     per_step.update({name: 0 for name in FLASH_NAMES})
-    per_step.update({"flash_attention_fwd": per_layer,
-                     "flash_attention_bwd_dq_tf32": per_layer,
-                     "flash_attention_bwd_dkv_tf32": per_layer})
+    per_step.update({name: per_layer for name in FLASH_TF32_NAMES})
     step_ms, losses, launches = counted_steps(
         torch, engine, batches, per_step, "fp32 training", TRAIN_WARMUP,
         TRAIN_STEPS)
@@ -5660,11 +5670,12 @@ def time_sparse_block16(torch, reports, block=16):
 
 def check_bert_fp32(torch, seq, micro, sparse=None):
     """fp32 on the card, bert-large width at 2 layers, GAS 2, padded rows:
-    the kernels' path (flash #3 on the FMA kernel and #4/#5 on 3xTF32, or
-    with ``sparse`` #8-#10 on the FMA route) against the plain path (``attention_impl="xla"``, or the
-    sparse block's ``impl: "xla"``), both with LAMB: the first step's
-    accumulated gradients leaf by leaf to 1e-4 of the leaf's norm, the 3
-    losses to 1e-5 relative, as :func:`check_training_fp32` holds the GPT.
+    the kernels' path (flash #3-#5 on 3xTF32, or with ``sparse`` #8-#10
+    on the FMA route) against the plain path (``attention_impl="xla"``,
+    or the sparse block's ``impl: "xla"``), both with LAMB: the first
+    step's accumulated gradients leaf by leaf to 1e-4 of the leaf's norm,
+    the 3 losses to 1e-5 relative, as :func:`check_training_fp32` holds
+    the GPT.
     Returns the kernels run's launches by counter."""
     import deepspeed_tpu_torch as dtt
     from deepspeed_tpu_torch.models import init_bert_params, make_bert
@@ -5672,7 +5683,7 @@ def check_bert_fp32(torch, seq, micro, sparse=None):
 
     counters = training_counters()
     counter = counters["sparse_attention_fwd" if sparse else
-                       "flash_attention_fwd"]
+                       "flash_attention_fwd_tf32"]
     gas = 2
     runs = {}
     sd = None

@@ -1,27 +1,29 @@
-// Flash attention dq and dk/dv for float32 on Hopper's tensor cores
-// (sm_90a), as 3xTF32: head_dim a multiple of 8 up to 128.
+// Flash attention forward, dq and dk/dv for float32 on Hopper's tensor
+// cores (sm_90a), as 3xTF32: head_dim a multiple of 8 up to 128.
 //
-// Replaces, for fp32, the Pallas TPU kernels _bwd_dq_kernel (dq) and
-// _bwd_dkv_kernel (dk and dv) of deepspeed_tpu/ops/transformer/
-// flash_attention.py. Each computes exactly the function that
-// flash_attention.cu's header states (bottom-right causal j <= i + Sk -
-// Sq; the key mask multiplying p; a row whose keys are all masked
-// contributes nothing; the dropout keep-mask Drop::keep(i, j) regenerated
-// in registers, never stored), through the same C interface: q, k, v read
-// through their [B, S, H, D] strides; dO, dq, dk, dv contiguous [B, S, H,
-// D]; lse and delta fp32 [B * H, Sq]. The fp32 forward stays on
-// flash_attention.cu's FMA kernel, and head dims above 128 on its FMA dq
-// and dk/dv.
+// Replaces, for fp32, the Pallas TPU kernels _fwd_kernel (o and lse),
+// _bwd_dq_kernel (dq) and _bwd_dkv_kernel (dk and dv) of deepspeed_tpu/
+// ops/transformer/flash_attention.py. Each computes exactly the function
+// that flash_attention.cu's header states (bottom-right causal j <= i +
+// Sk - Sq; the row max over the visible keys, masked ones included; the
+// key mask multiplying p; l and lse keeping the undropped mass; a row
+// whose keys are all masked gives o = 0 and contributes nothing; the
+// dropout keep-mask Drop::keep(i, j) regenerated in registers, never
+// stored), through the same C interface: q, k, v read through their [B,
+// S, H, D] strides; out, dO, dq, dk, dv contiguous [B, S, H, D]; lse and
+// delta fp32 [B * H, Sq]. Head dims above 128 stay on flash_attention.cu's
+// FMA kernels.
 //
 // What bounds it on an H100: at the training shape (B*H = 192, S = 512,
-// D = 64, fp32, causal) dq must move q, k, v, dO and dq (63 MB, 19 us at
-// 3.35 TB/s) and do 9.7 GFLOP of fp32-accurate products; dk/dv moves six
-// [B, S, H, D] tensors (23 us) and does 12.9 GFLOP. As three TF32
-// products each, at 495 TFLOP/s of TF32, that is 59 us and 78 us:
-// operations bound both. flash_attention.cu's FMA kernels do the same
-// products as fp32 FMAs fed by one 16-byte shared-memory load per four
-// FMAs, so shared memory bounds them (0.86 and 1.21 ms). These kernels
-// take 0.31 and 0.45 ms (5.4x and 5.7x their bounds), held by mma.sync
+// D = 64, fp32, causal) the forward must move q, k, v and o (50 MB, 15 us
+// at 3.35 TB/s) and do 6.4 GFLOP of fp32-accurate products; dq moves q,
+// k, v, dO and dq (63 MB, 19 us) and does 9.7 GFLOP; dk/dv moves six [B,
+// S, H, D] tensors (23 us) and does 12.9 GFLOP. As three TF32 products
+// each, at 495 TFLOP/s of TF32, that is 39, 59 and 78 us: operations
+// bound all three. flash_attention.cu's FMA kernels do the same products
+// as fp32 FMAs fed by one 16-byte shared-memory load per four FMAs, so
+// shared memory bounds them (0.63, 0.86 and 1.21 ms). dq and dk/dv take
+// 0.31 and 0.45 ms (5.4x and 5.7x their bounds), held by mma.sync
 // throughput and the splits and adds around it; with one TF32 product
 // they took 0.19 and 0.27, with none 0.08 and 0.10
 // (tools/probe_flash_tf32.py).
@@ -37,8 +39,12 @@
 //   fp32 add folds into the running sum: the tensor cores' accumulation
 //   drops low bits of its larger addend, which over a whole walk missed
 //   1e-5 at the training shape; rounded adds keep an FMA loop's error. The
-//   products are s = q.k^T and dp = dO.v^T, then dq = ds.k in dq, and
-//   s^T = k.q^T, dp^T = v.dO^T, dv = p^T.dO and dk = ds^T.q in dk/dv;
+//   products are s = q.k^T and o += p.v in the forward, s = q.k^T and dp =
+//   dO.v^T, then dq = ds.k in dq, and s^T = k.q^T, dp^T = v.dO^T, dv =
+//   p^T.dO and dk = ds^T.q in dk/dv. The forward computes s exactly as dq
+//   does (q unscaled, the same splits and k-steps, scale applied after),
+//   so the lse it saves and the p the backward recomputes come from the
+//   same fp32 scores;
 // - B operands are split where they are loaded into fragments (32-bit
 //   shared loads, rows DMAX + 4 floats apart, so the 8 x 4 lanes of a
 //   fragment hit 32 distinct banks in both orientations); p and ds are
@@ -54,18 +60,25 @@
 //   second products with no shuffle: the k index of m16n8k8 is permuted
 //   so that its columns t and t + 4 are keys (or queries) 2t and 2t + 1
 //   of the tile, and the B operand's rows are read in the same order;
-// - a block of 4 warps owns 64 rows (queries in dq, keys in dk/dv), 16
-//   per warp, and streams the other axis in tiles of 32 rows through two
-//   shared stages filled by cp.async (16 bytes = 4 floats), so one tile's
-//   loads are in flight while the tensor cores work on the previous one.
-//   At D <= 64 a block takes 70 KB and three fit an SM (at most 168
-//   registers a thread, no spills); tiles of 64 rows (two blocks, 104
-//   KB) measured 0.36 / 0.54 ms and tiles of 16 (four blocks) 0.33 /
-//   0.46. At D = 128 one block an SM;
+// - the forward's online softmax runs on those fragments: a lane holds
+//   rows g and g + 8, their running max reduces over the quad's 4 lanes
+//   by shuffles, each lane sums its own share of l (the quad's shares
+//   are added once, at the end), and each key tile rescales the o
+//   accumulator by alpha before its p.v is folded in;
+// - a block of 4 warps owns 64 rows (queries in the forward and dq, keys
+//   in dk/dv), 16 per warp, and streams the other axis in tiles of 32
+//   rows through two shared stages filled by cp.async (16 bytes = 4
+//   floats), so one tile's loads are in flight while the tensor cores
+//   work on the previous one. At D <= 64 a dq or dk/dv block takes 70 KB
+//   and three fit an SM (at most 168 registers a thread, no spills);
+//   tiles of 64 rows (two blocks, 104 KB) measured 0.36 / 0.54 ms and
+//   tiles of 16 (four blocks) 0.33 / 0.46. The forward keeps q alone
+//   resident: 52 KB a block at D <= 64, four blocks an SM. At D = 128 one
+//   backward block an SM, two forward blocks;
 // - the causal mask and the ragged end are evaluated only on tiles that
-//   cross them; tiles above the diagonal are never loaded. dq blocks
-//   start with the last query tiles (the longest walks), dk/dv blocks
-//   with the first key tiles;
+//   cross them; tiles above the diagonal are never loaded. Forward and dq
+//   blocks start with the last query tiles (the longest walks), dk/dv
+//   blocks with the first key tiles;
 // - no atomics: every output element is summed by one thread in a fixed
 //   order, so the outputs are bit-equal over two launches.
 
@@ -80,14 +93,18 @@ using attn_tile::cp_async16;
 using attn_tile::cp_async_commit;
 using attn_tile::cp_async_wait;
 using attn_tile::Drop;
+using attn_tile::row_max;
+using attn_tile::row_sum;
 using attn_tile::Strides;
 using attn_tile::strides_of;
 
 constexpr int NT = 128;      // threads: 4 warps
 constexpr int BM = 64;       // rows a block owns, 16 per warp
 constexpr int BS = 32;       // rows of a streamed tile
-constexpr int BLOCKS64 = 3;  // blocks an SM at D <= 64 (70 KB a block)
+constexpr int BLOCKS64 = 3;  // dq, dk/dv blocks an SM at D <= 64 (70 KB)
+constexpr int FWD64 = 4;     // forward blocks an SM at D <= 64 (52 KB)
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // rows x D floats of src (row stride `stride`) into dst [rows][DP] by
 // cp.async, 16 bytes at a time; rows at or past `valid` are zeros
@@ -234,6 +251,162 @@ __device__ __forceinline__ void store_acc(float* dst, long long stride,
         *reinterpret_cast<float2*>(dst + (r + 8) * stride + 8 * n + c) =
             make_float2(acc[n][2] * mul, acc[n][3] * mul);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward: grid (B * H, ceil(Sq / BM)); the block owns 64 queries (counted
+// from the end, so the longest causal walks start first) and walks key
+// tiles up to the last key its last query can see, with an online softmax
+// ---------------------------------------------------------------------------
+template <int DMAX, bool DROP>
+__global__ void __launch_bounds__(NT, DMAX <= 64 ? FWD64 : 2)
+    flash_fwd_tf32_kernel(
+        const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const float* __restrict__ mask,
+        float* __restrict__ out, float* __restrict__ lse, Strides st, int H,
+        int Sq, int Sk, int D, float scale, int causal, uint32_t seed,
+        int thresh, float inv_keep) {
+  constexpr int BN = BS;                     // keys per streamed tile
+  constexpr int DP = DMAX + 4;               // row pitch (floats)
+  constexpr int NO = DMAX / 8;               // output n-tiles
+  constexpr int NS = BN / 8;                 // score n-tiles
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                 // [BM][DP]
+  float* Ks = Qs + BM * DP;         // [2][BN][DP]
+  float* Vs = Ks + 2 * BN * DP;     // [2][BN][DP]
+  float* Ms = Vs + 2 * BN * DP;     // [2][BN]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int offset = Sk - Sq;
+  const int nq = min(BM, Sq - q0);
+  const float* kb = k + b * st.kb + h * st.kh;
+  const float* vb = v + b * st.vb + h * st.vh;
+  const float* mb = mask ? mask + (long long)b * Sk : nullptr;
+  const Drop drop(seed, bh, thresh, inv_keep);
+  // keys past the reach of the tile's last query are visible to no query
+  const int k_end = causal ? min(Sk, q0 + nq + offset) : Sk;
+  const int ntiles = (k_end + BN - 1) / BN;
+  const float sl = scale * LOG2E;   // s in base-2 units: exp2(s' - m')
+  const int i0 = q0 + warp * 16 + g;  // this lane's rows: i0 and i0 + 8
+
+  auto load_kv = [&](int it) {
+    const int k0 = it * BN, s = it & 1;
+    const int valid = min(BN, Sk - k0);
+    load_rows<DP>(Ks + s * BN * DP, kb + k0 * st.ks, st.ks, BN, valid, D);
+    load_rows<DP>(Vs + s * BN * DP, vb + k0 * st.vs, st.vs, BN, valid, D);
+    if (mb && threadIdx.x < BN)
+      Ms[s * BN + threadIdx.x] =
+          threadIdx.x < valid ? mb[k0 + threadIdx.x] : 0.f;
+  };
+  load_rows<DP>(Qs, q + b * st.qb + h * st.qh + q0 * st.qs, st.qs, BM, nq,
+                D);
+  load_kv(0);
+  cp_async_commit();
+
+  const float* Qw = Qs + warp * 16 * DP;
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  // running max (base 2) of rows i0, i0 + 8, and this lane's share of l
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) load_kv(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int k0 = it * BN;
+    const float* Kt = Ks + (it & 1) * BN * DP;
+    const float* Vt = Vs + (it & 1) * BN * DP;
+    const float* Mt = Ms + (it & 1) * BN;
+
+    // s = q.k^T, as the dq kernel computes it; then scaled, base 2
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < DMAX; kc += 8) {
+      if (kc < D) {
+        uint32_t ah[4], al[4];
+        a_rows<DP>(Qw, kc, ah, al);
+        mma_rows<NS, DP>(s, ah, al, Kt, kc);
+      }
+    }
+    const bool edge = k0 + BN > Sk || (causal && k0 + BN - 1 > q0 + offset);
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * sl;
+        if (edge) {
+          const int j = k0 + 8 * n + 2 * t + (e & 1);
+          const int i = e < 2 ? i0 : i0 + 8;
+          if (j >= Sk || (causal && j > i + offset)) x = -INFINITY;
+        }
+        s[n][e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x);
+        else mx1 = fmaxf(mx1, x);
+      }
+    // a tile that shows a row no key leaves it as it was (alpha 1); the
+    // first tile that does starts it (alpha 0 on the empty o)
+    const float mn0 = fmaxf(m0, row_max<4>(mx0));
+    const float mn1 = fmaxf(m1, row_max<4>(mx1));
+    const float a0 = mn0 == -INFINITY ? 1.f
+                     : m0 == -INFINITY ? 0.f : exp2f(m0 - mn0);
+    const float a1 = mn1 == -INFINITY ? 1.f
+                     : m1 == -INFINITY ? 0.f : exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * t + (e & 1);
+        const float x = s[n][e];
+        float p = x == -INFINITY ? 0.f : exp2f(x - (e < 2 ? mn0 : mn1));
+        if (mb) p *= Mt[c];
+        if (e < 2) sum0 += p;   // the normaliser keeps the undropped mass
+        else sum1 += p;
+        if (DROP) p = drop.apply(p, e < 2 ? i0 : i0 + 8, k0 + c);
+        s[n][e] = p;
+      }
+    l0 = l0 * a0 + sum0;
+    l1 = l1 * a1 + sum1;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      acc[n][0] *= a0; acc[n][1] *= a0;
+      acc[n][2] *= a1; acc[n][3] *= a1;
+    }
+    // o += p.v
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk)
+      mma_cols<NO, NS, DP>(acc, s, kk, Vt, D);
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+
+  // o = acc / max(l, 1e-30); lse = m + log(max(l, 1e-30))
+  const float ls0 = fmaxf(row_sum<4>(l0), 1e-30f);
+  const float ls1 = fmaxf(row_sum<4>(l1), 1e-30f);
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    acc[n][0] /= ls0; acc[n][1] /= ls0;
+    acc[n][2] /= ls1; acc[n][3] /= ls1;
+  }
+  const long long orow = (long long)H * D;
+  store_acc<NO>(out + ((long long)b * Sq + q0) * orow + (long long)h * D,
+                orow, acc, 1.f, nq, D);
+  if (t == 0) {
+    if (i0 < Sq) lse[(long long)bh * Sq + i0] = m0 * LN2 + logf(ls0);
+    if (i0 + 8 < Sq) lse[(long long)bh * Sq + i0 + 8] = m1 * LN2 + logf(ls1);
   }
 }
 
@@ -505,12 +678,12 @@ __global__ void __launch_bounds__(NT, DMAX <= 64 ? BLOCKS64 : 1)
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-enum Which { DQ = 1, DKV = 2 };
+enum Which { FWD = 0, DQ = 1, DKV = 2 };
 
 struct Args {
   const float *q, *k, *v, *dout;
   const float *mask, *lse, *delta;
-  float *dq, *dk, *dv;
+  float *out, *lse_out, *dq, *dk, *dv;
   Strides st;
   int B, H, Sq, Sk, D;
   float scale;
@@ -520,20 +693,30 @@ struct Args {
   float inv_keep;
 };
 
-// shared bytes: two resident 64-row tiles, two stages of two streamed
-// tiles and the streamed tile's per-row floats (dq: the key mask; dk/dv:
-// lse and delta)
+// shared bytes: the resident 64-row tiles (the forward: q; dq: q, dO;
+// dk/dv: k, v), two stages of two streamed tiles and the streamed tile's
+// per-row floats (the forward and dq: the key mask; dk/dv: lse and delta)
 template <int DMAX>
 constexpr size_t smem_bytes(Which w) {
-  return sizeof(float) *
-         ((size_t)(2 * BM + 4 * BS) * (DMAX + 4) + (w == DQ ? 2 : 4) * BS);
+  return sizeof(float) * ((size_t)((w == FWD ? 1 : 2) * BM + 4 * BS) *
+                              (DMAX + 4) +
+                          (w == DKV ? 4 : 2) * BS);
 }
 
 template <int DMAX, bool DROP>
 cudaError_t launch(Which w, const Args& a, cudaStream_t stream) {
   const size_t smem = smem_bytes<DMAX>(w);
   cudaError_t err;
-  if (w == DQ) {
+  if (w == FWD) {
+    auto fn = flash_fwd_tf32_kernel<DMAX, DROP>;
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(a.B * a.H, (a.Sq + BM - 1) / BM);
+    fn<<<grid, NT, smem, stream>>>(a.q, a.k, a.v, a.mask, a.out, a.lse_out,
+                                   a.st, a.H, a.Sq, a.Sk, a.D, a.scale,
+                                   a.causal, a.seed, a.thresh, a.inv_keep);
+  } else if (w == DQ) {
     auto fn = flash_bwd_dq_tf32_kernel<DMAX, DROP>;
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
@@ -580,10 +763,26 @@ int run(Which w, const Args& a, int dtype, void* stream) {
 
 extern "C" {
 
-// The arguments of flash_attention.cu's flash_attention_bwd_dq and
-// flash_attention_bwd_dkv, with dtype 0 (float32) and D a multiple of 8
-// in [8, 128]. Returns cudaGetLastError() after the launch (0 =
-// launched).
+// The arguments of flash_attention.cu's flash_attention_fwd,
+// flash_attention_bwd_dq and flash_attention_bwd_dkv, with dtype 0
+// (float32) and D a multiple of 8 in [8, 128]. Returns cudaGetLastError()
+// after the launch (0 = launched).
+int flash_attention_tf32_fwd(const void* q, const void* k, const void* v,
+                             const float* mask, void* out, float* lse,
+                             const long long* strides, int B, int H, int Sq,
+                             int Sk, int D, float scale, int causal,
+                             uint32_t seed, int thresh, float inv_keep,
+                             int dtype, void* stream) {
+  Args a{};
+  a.q = static_cast<const float*>(q); a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v); a.mask = mask;
+  a.out = static_cast<float*>(out); a.lse_out = lse;
+  a.st = strides_of(strides);
+  a.B = B; a.H = H; a.Sq = Sq; a.Sk = Sk; a.D = D; a.scale = scale;
+  a.causal = causal; a.seed = seed; a.thresh = thresh; a.inv_keep = inv_keep;
+  return run(FWD, a, dtype, stream);
+}
+
 int flash_attention_tf32_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const float* mask,
                                 const float* lse, const float* delta,

@@ -14,13 +14,13 @@ and the fp32 row logsumexp; the backward recomputes the probabilities.
   bfloat16 and float16 with ``head_dim`` up to 128 run the tensor-core
   kernels of ``csrc/flash_attention_tc.cu`` (:func:`flash_attention_fwd_tc`,
   :func:`flash_attention_bwd_dq_tc`, :func:`flash_attention_bwd_dkv_tc`);
-  float32 dq and dk/dv with ``head_dim`` up to 128 the 3xTF32 tensor-core
-  kernels of ``csrc/flash_attention_tf32.cu``
-  (:func:`flash_attention_bwd_dq_tf32`,
-  :func:`flash_attention_bwd_dkv_tf32`); the float32 forward and 16-bit
-  and float32 head dims in (128, 256] the FMA kernels of
-  ``csrc/flash_attention.cu``. It launches them or raises; it never falls
-  back to the plain version or from one kernel to another.
+  float32 with ``head_dim`` up to 128 the 3xTF32 tensor-core kernels of
+  ``csrc/flash_attention_tf32.cu`` (:func:`flash_attention_fwd_tf32`,
+  :func:`flash_attention_bwd_dq_tf32`,
+  :func:`flash_attention_bwd_dkv_tf32`); every head dim in (128, 256] the
+  FMA kernels of ``csrc/flash_attention.cu``. It launches them or raises;
+  it never falls back to the plain version or from one kernel to
+  another.
 - On CPU tensors it runs :func:`flash_attention_reference`, the plain
   PyTorch version (materialised fp32 scores, differentiated by autograd)
   that the CPU tests hold against the JAX kernel and ``chip_smoke.py``
@@ -43,10 +43,10 @@ FMA kernels in ``flash_attention_fwd``, ``flash_attention_bwd_dq`` and
 ``flash_attention_bwd_dkv``, the tensor-core ones in
 ``flash_attention_fwd_tc``, ``flash_attention_bwd_dq_tc`` and
 ``flash_attention_bwd_dkv_tc``, the 3xTF32 ones in
-``flash_attention_bwd_dq_tf32`` and ``flash_attention_bwd_dkv_tf32``.
-The FMA wrappers also count, in ``.launches_wide``, their launches at head
-dims above 128 (the kernels' widest branch, which no tensor-core route
-takes).
+``flash_attention_fwd_tf32``, ``flash_attention_bwd_dq_tf32`` and
+``flash_attention_bwd_dkv_tf32``. The FMA wrappers also count, in
+``.launches_wide``, their launches at head dims above 128 (the kernels'
+widest branch, which no tensor-core route takes).
 """
 
 import ctypes
@@ -61,7 +61,8 @@ __all__ = ["flash_attention", "flash_attention_reference", "flash_ok",
            "flash_attention_fwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "flash_attention_fwd_tc",
            "flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc",
-           "flash_attention_bwd_dq_tf32", "flash_attention_bwd_dkv_tf32",
+           "flash_attention_fwd_tf32", "flash_attention_bwd_dq_tf32",
+           "flash_attention_bwd_dkv_tf32",
            "flash_bwd_dq_reference",
            "flash_bwd_dkv_reference", "dropout_keep_mask"]
 
@@ -78,17 +79,17 @@ def _route(dtype: torch.dtype, head_dim: int, which: str = "fwd") -> str:
     bfloat16 and float16 with ``head_dim`` a multiple of 8 in [8, 128] (a
     head dim that is not a multiple of 16 is zero-padded in shared
     memory); ``"tf32"`` (3xTF32 on the tensor cores,
-    ``csrc/flash_attention_tf32.cu``) for the float32 dq and dk/dv at
-    those head dims; ``"fma"`` (``csrc/flash_attention.cu``) for
-    everything else the kernels take: the float32 forward, and head dims
-    in (128, 256]."""
+    ``csrc/flash_attention_tf32.cu``) for float32 at those head dims;
+    ``"fma"`` (``csrc/flash_attention.cu``) for everything else the
+    kernels take: head dims in (128, 256]. The forward, dq and dk/dv of
+    one dtype and head dim take the same route."""
     if which not in ("fwd", "dq", "dkv"):
         raise ValueError(f"which must be fwd, dq or dkv, got {which!r}")
     if not (head_dim % 8 == 0 and 8 <= head_dim <= TC_MAX_HEAD_DIM):
         return "fma"
     if dtype in (torch.bfloat16, torch.float16):
         return "tc"
-    return "tf32" if dtype == torch.float32 and which != "fwd" else "fma"
+    return "tf32" if dtype == torch.float32 else "fma"
 
 
 def flash_ok(q: torch.Tensor, k: torch.Tensor, causal: bool) -> bool:
@@ -256,8 +257,8 @@ def flash_bwd_dkv_reference(q, k, v, dout, kv_mask, lse, delta,
 
 def _kernel(name: str = "flash_attention"):
     """The ctypes functions of ``csrc/<name>.cu`` (``flash_attention``,
-    ``flash_attention_tc``: forward, dq, dk/dv; ``flash_attention_tf32``:
-    dq, dk/dv), built and loaded at first use."""
+    ``flash_attention_tc``, ``flash_attention_tf32``: forward, dq, dk/dv),
+    built and loaded at first use."""
     if name not in _FN:
         lib = build.load(name)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -268,8 +269,6 @@ def _kernel(name: str = "flash_attention"):
                "dkv": (f"{name}_bwd_dkv", 10)}
         out = {}
         for key, (sym, n_ptrs) in fns.items():
-            if not hasattr(lib, sym):      # the tf32 source has no forward
-                continue
             fn = getattr(lib, sym)
             fn.argtypes = [ptr] * n_ptrs + shape
             fn.restype = i32
@@ -408,7 +407,7 @@ def _require_tc(q):
 
 
 def _require_tf32(q):
-    if _route(q.dtype, q.shape[-1], "dq") != "tf32":
+    if _route(q.dtype, q.shape[-1]) != "tf32":
         raise ValueError(
             f"the 3xTF32 flash kernels take float32 with head_dim a "
             f"multiple of 8 in [8, {TC_MAX_HEAD_DIM}]; got {q.dtype}, "
@@ -421,11 +420,14 @@ def flash_attention_fwd(q, k, v, kv_mask, causal: bool, scale: float,
     """Launch the forward kernel :func:`_route` picks: returns ``out``
     (contiguous [B, Sq, H, D] in q's dtype) and ``lse`` (fp32 [B, H, Sq],
     of the undropped probabilities). Inputs as :func:`_prepare` returns
-    them. The FMA kernel's launches count here, the tensor-core kernel's
-    in :func:`flash_attention_fwd_tc`."""
-    if _route(q.dtype, q.shape[-1]) == "tc":
-        return flash_attention_fwd_tc(q, k, v, kv_mask, causal, scale,
-                                      dropout_rate, dropout_seed)
+    them. The FMA kernel's launches count here, the tensor-core kernels'
+    in :func:`flash_attention_fwd_tc` and :func:`flash_attention_fwd_tf32`."""
+    route = _route(q.dtype, q.shape[-1])
+    if route != "fma":
+        fn = (flash_attention_fwd_tc if route == "tc"
+              else flash_attention_fwd_tf32)
+        return fn(q, k, v, kv_mask, causal, scale, dropout_rate,
+                  dropout_seed)
     out, lse = _launch_fwd("flash_attention", q, k, v, kv_mask, causal,
                            scale, dropout_rate, dropout_seed)
     flash_attention_fwd.launches += 1
@@ -443,6 +445,19 @@ def flash_attention_fwd_tc(q, k, v, kv_mask, causal: bool, scale: float,
     out, lse = _launch_fwd("flash_attention_tc", q, k, v, kv_mask, causal,
                            scale, dropout_rate, dropout_seed)
     flash_attention_fwd_tc.launches += 1
+    return out, lse
+
+
+def flash_attention_fwd_tf32(q, k, v, kv_mask, causal: bool, scale: float,
+                             dropout_rate: float = 0.0,
+                             dropout_seed: Optional[int] = None):
+    """Launch the 3xTF32 forward kernel (float32, ``head_dim`` a multiple
+    of 8 up to 128; anything else raises). Inputs and outputs as
+    :func:`flash_attention_fwd`."""
+    _require_tf32(q)
+    out, lse = _launch_fwd("flash_attention_tf32", q, k, v, kv_mask, causal,
+                           scale, dropout_rate, dropout_seed)
+    flash_attention_fwd_tf32.launches += 1
     return out, lse
 
 
@@ -550,6 +565,7 @@ flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dq_tc.launches = 0
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv_tc.launches = 0
+flash_attention_fwd_tf32.launches = 0
 flash_attention_bwd_dq_tf32.launches = 0
 flash_attention_bwd_dkv_tf32.launches = 0
 flash_attention_fwd.launches_wide = 0

@@ -36,12 +36,13 @@ REL = 1e-5          # of the reference's largest |value|
     (torch.bfloat16, 64, "tc"), (torch.float16, 64, "tc"),
     (torch.bfloat16, 8, "tc"), (torch.float16, 72, "tc"),
     (torch.bfloat16, 128, "tc"), (torch.float16, 128, "tc"),
-    (torch.float32, 64, "fma"), (torch.float32, 128, "fma"),
+    (torch.float32, 64, "tf32"), (torch.float32, 128, "tf32"),
     (torch.float32, 256, "fma"), (torch.bfloat16, 136, "fma"),
     (torch.float16, 256, "fma"), (torch.bfloat16, 60, "fma")])
 def test_route(dtype, head_dim, route):
     """16-bit types with head_dim a multiple of 8 up to 128 take the
-    tensor cores; fp32 and 16-bit head dims above 128 the FMA kernels."""
+    tensor cores, fp32 there 3xTF32 on them; head dims above 128 (and
+    those not a multiple of 8) the FMA kernels."""
     assert fa._route(dtype, head_dim) == route
 
 
@@ -172,6 +173,38 @@ def test_dq_routes_like_dkv(dtype, head_dim, route, monkeypatch):
     assert launched == [("dq", lib), ("dkv", lib)]
     assert {r: [w.launches for w in pair] for r, pair in wrappers.items()} \
         == {r: [int(r == route)] * 2 for r in wrappers}
+
+
+@pytest.mark.parametrize("dtype,head_dim,route", ROUTES)
+def test_fwd_routes_like_dkv(dtype, head_dim, route, monkeypatch):
+    """``flash_attention_fwd`` launches the kernel of the library that
+    ``flash_attention_bwd_dkv`` launches (the 3xTF32 kernels for float32
+    up to D = 128), and counts it in the routed wrapper's ``.launches``
+    alone; the FMA wrapper's ``.launches_wide`` counts exactly its
+    launches above D = 128 (recorded, not run: meta tensors)."""
+    launched = []
+    monkeypatch.setattr(fa, "_launch_fwd",
+                        lambda name, *a: launched.append(("fwd", name))
+                        or (None, None))
+    monkeypatch.setattr(fa, "_launch_dkv",
+                        lambda name, *a: launched.append(("dkv", name))
+                        or (None, None))
+    wrappers = {"fma": fa.flash_attention_fwd,
+                "tc": fa.flash_attention_fwd_tc,
+                "tf32": fa.flash_attention_fwd_tf32}
+    for w in wrappers.values():
+        monkeypatch.setattr(w, "launches", 0)
+    monkeypatch.setattr(fa.flash_attention_fwd, "launches_wide", 0)
+    q = torch.empty(1, 8, 1, head_dim, dtype=dtype, device="meta")
+    lse = torch.empty(1, 1, 8, device="meta")
+    fa.flash_attention_fwd(q, q, q, None, True, 0.125)
+    fa.flash_attention_bwd_dkv(q, q, q, q, None, lse, lse, True, 0.125)
+    lib = {"tc": "flash_attention_tc", "tf32": "flash_attention_tf32",
+           "fma": "flash_attention"}[route]
+    assert launched == [("fwd", lib), ("dkv", lib)]
+    assert {r: w.launches for r, w in wrappers.items()} \
+        == {r: int(r == route) for r in wrappers}
+    assert fa.flash_attention_fwd.launches_wide == int(head_dim > 128)
 
 
 @pytest.mark.parametrize("dtype,head_dim", [(torch.float32, 64),

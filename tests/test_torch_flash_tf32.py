@@ -1,19 +1,19 @@
-"""The 3xTF32 flash backward kernels' route and arithmetic
-(deepspeed_tpu_torch).
+"""The 3xTF32 flash kernels' route and arithmetic (deepspeed_tpu_torch).
 
-``csrc/flash_attention_tf32.cu`` (dq and dk/dv for float32 on the tensor
-cores) runs only on the card, where ``chip_smoke.py`` holds it against the
-plain versions. Here: which kernel ``_route`` picks for the forward, dq and
-dk/dv by dtype and head dim, that the new wrappers refuse the rest and
-that a missing ``nvcc`` raises, and a plain PyTorch model of the kernels'
-arithmetic: every fp32 operand of the five products (s = q.k^T, dp =
-dO.v^T, dq = ds.k, dk = ds^T.q, dv = p^T.dO) is split into hi =
-tf32(x) and lo = tf32(x - hi), ``cvt.rna.tf32.f32`` emulated with int32
-bit operations, and each product is lo.hi + hi.lo + hi.hi in fp32. On
-numpy-made inputs the model stays within 1e-5 of the largest value of both
-the JAX kernels (``interpret=True``) and the port's fp32 plain versions,
-causal and non-causal under a key mask, at dropout 0 and 0.1; one TF32
-product (hi.hi) does not, which is why the kernels pay for three.
+``csrc/flash_attention_tf32.cu`` (the forward, dq and dk/dv for float32 on
+the tensor cores) runs only on the card, where ``chip_smoke.py`` holds it
+against the plain versions. Here: which kernel ``_route`` picks for the
+forward, dq and dk/dv by dtype and head dim, that the 3xTF32 wrappers
+refuse the rest and that a missing ``nvcc`` raises, and plain PyTorch
+models of the kernels' arithmetic: every fp32 operand of the products (s =
+q.k^T and o = p.v in the forward; s, dp = dO.v^T, dq = ds.k, dk = ds^T.q,
+dv = p^T.dO in the backward) is split into hi = tf32(x) and lo = tf32(x -
+hi), ``cvt.rna.tf32.f32`` emulated with int32 bit operations, and each
+product is lo.hi + hi.lo + hi.hi in fp32. On numpy-made inputs the models
+stay within 1e-5 of the largest value of both the JAX kernels
+(``interpret=True``) and the port's fp32 plain versions, causal and
+non-causal under a key mask, at dropout 0 and 0.1; one TF32 product
+(hi.hi) does not, which is why the kernels pay for three.
 """
 
 import jax
@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu.ops.transformer.flash_attention import \
+    _flash_forward as jax_flash_forward
 from deepspeed_tpu.ops.transformer.flash_attention import \
     flash_attention as jax_flash_attention
 from deepspeed_tpu_torch.ops import build
@@ -35,15 +37,16 @@ F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
 
 
 @pytest.mark.parametrize("dtype,head_dim,routes", [
-    (F32, 64, ("fma", "tf32", "tf32")), (F32, 8, ("fma", "tf32", "tf32")),
-    (F32, 72, ("fma", "tf32", "tf32")), (F32, 128, ("fma", "tf32", "tf32")),
+    (F32, 64, ("tf32", "tf32", "tf32")), (F32, 8, ("tf32", "tf32", "tf32")),
+    (F32, 72, ("tf32", "tf32", "tf32")),
+    (F32, 128, ("tf32", "tf32", "tf32")),
     (F32, 136, ("fma", "fma", "fma")), (F32, 256, ("fma", "fma", "fma")),
     (BF16, 64, ("tc", "tc", "tc")), (F16, 128, ("tc", "tc", "tc")),
     (BF16, 256, ("fma", "fma", "fma")), (F16, 136, ("fma", "fma", "fma"))])
 def test_route(dtype, head_dim, routes):
-    """The forward keeps its route (fp32 on the FMA kernel); the fp32 dq
-    and dk/dv take 3xTF32 up to D = 128; 16-bit types the tensor cores up
-    to D = 128; every head dim above 128 the FMA kernels."""
+    """The fp32 forward, dq and dk/dv take 3xTF32 up to D = 128; 16-bit
+    types the tensor cores up to D = 128; every head dim above 128 the FMA
+    kernels."""
     assert tuple(fa._route(dtype, head_dim, w)
                  for w in ("fwd", "dq", "dkv")) == routes
     assert fa._route(dtype, head_dim) == routes[0]
@@ -61,23 +64,34 @@ def test_tf32_wrappers_refuse_other_routes(dtype, head_dim):
     take; nothing falls back to another kernel."""
     q = torch.empty(1, 8, 1, head_dim, dtype=dtype, device="meta")
     lse = torch.empty(1, 1, 8, device="meta")
-    before = (fa.flash_attention_bwd_dq_tf32.launches,
-              fa.flash_attention_bwd_dkv_tf32.launches)
+    wrappers = (fa.flash_attention_fwd_tf32, fa.flash_attention_bwd_dq_tf32,
+                fa.flash_attention_bwd_dkv_tf32)
+    before = [w.launches for w in wrappers]
+    with pytest.raises(ValueError, match="3xTF32 flash kernels"):
+        fa.flash_attention_fwd_tf32(q, q, q, None, True, 0.125)
     with pytest.raises(ValueError, match="3xTF32 flash kernels"):
         fa.flash_attention_bwd_dq_tf32(q, q, q, q, None, lse, lse, True,
                                        0.125)
     with pytest.raises(ValueError, match="3xTF32 flash kernels"):
         fa.flash_attention_bwd_dkv_tf32(q, q, q, q, None, lse, lse, True,
                                         0.125)
-    assert (fa.flash_attention_bwd_dq_tf32.launches,
-            fa.flash_attention_bwd_dkv_tf32.launches) == before
+    assert [w.launches for w in wrappers] == before
 
 
 def test_missing_nvcc_raises_for_tf32(monkeypatch, tmp_path):
+    """Without ``nvcc`` the build raises, and so does the forward's
+    wrapper, which launches (and counts) nothing."""
     monkeypatch.setattr(build, "find_nvcc", lambda: None)
     monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(fa, "_FN", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build("flash_attention_tf32")
+    q = torch.empty(1, 8, 1, 64, device="meta")
+    before = fa.flash_attention_fwd_tf32.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        fa.flash_attention_fwd_tf32(q, q, q, None, True, 0.125)
+    assert fa.flash_attention_fwd_tf32.launches == before
     assert not list(tmp_path.iterdir())
 
 
@@ -206,3 +220,104 @@ def test_3xtf32_model_matches_jax_and_plain(causal, rate):
                 assert max(errs) <= REL, (ref_name, terms, errs)
             else:
                 assert min(errs) > REL, (ref_name, terms, errs)
+
+
+LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
+TILE, KSTEP = 32, 8       # keys of a streamed tile; keys of one k-step
+
+
+def _fwd_model(q, k, v, mask, causal, scale, rate, seed, terms):
+    """o ([B, S, H, D]) and lse ([B, H, Sq]) as the 3xTF32 forward kernel
+    computes them from q, k, v ([B, S, H, D] fp32) and the key mask: over
+    tiles of 32 keys, s = q.k^T (q unscaled) in base-2 units x = s scale
+    log2(e), -inf where the causal mask hides a key; the running max m
+    and alpha = 2^(m_old - m_new); p = 2^(x - m) times the key mask; l =
+    l alpha + sum(p); o = o alpha, then the tile's (dropped) p.v folded in
+    by one fp32 add per k-step of 8 keys; at the end o / max(l, 1e-30) and
+    lse = m ln(2) + log(max(l, 1e-30))."""
+    qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+    sq, sk = q.shape[1], k.shape[1]
+    sl = torch.tensor(scale, dtype=F32) * torch.tensor(LOG2E, dtype=F32)
+    rows = torch.arange(sq)[:, None]
+    m = torch.full(qh.shape[:3], float("-inf"))
+    l = torch.zeros(qh.shape[:3])
+    o = torch.zeros(qh.shape)
+    keep = (fa._keep_bhqk(seed, q.shape[0], q.shape[2], sq, sk, rate, "cpu")
+            if rate else None)
+    for k0 in range(0, sk, TILE):
+        cols = torch.arange(k0, min(k0 + TILE, sk))[None, :]
+        x = _mm(qh, kh[:, :, k0:k0 + TILE].transpose(-1, -2), terms) * sl
+        if causal:
+            x = x.masked_fill(cols > rows + (sk - sq), float("-inf"))
+        m_new = torch.maximum(m, x.amax(-1))
+        alpha = torch.where(m == float("-inf"), 0.0, torch.exp2(m - m_new))
+        p = torch.exp2(x - m_new[..., None])
+        p = p * mask[:, None, None, k0:k0 + TILE]
+        l = l * alpha + p.sum(-1)
+        if rate:
+            p = torch.where(keep[..., k0:k0 + TILE],
+                            p * (1.0 / (1.0 - rate)), 0.0)
+        o = o * alpha[..., None]
+        for j in range(0, p.shape[-1], KSTEP):
+            o = o + _mm(p[..., j:j + KSTEP],
+                        vh[:, :, k0 + j:k0 + j + KSTEP], terms)
+        m = m_new
+    ls = l.clamp_min(1e-30)
+    return (o / ls[..., None]).permute(0, 2, 1, 3), m * LN2 + torch.log(ls)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [True, False])
+def test_3xtf32_forward_model_matches_jax_and_plain(causal, rate):
+    """The forward kernel's model (3xTF32 s and p.v, the online softmax
+    over 32-key tiles) against the JAX ``_fwd_kernel`` (interpret, fp32:
+    o and lse) and the port's plain version (o, and the lse of its fp32
+    scores) on the same inputs under a key mask: o and lse within 1e-5 of
+    each reference's largest |value| (the three-product model: within
+    6e-7). With one TF32 product (hi.hi) the model misses 1e-5 at this
+    size in both: o by 3.5e-4 to 7.6e-4 of the largest |o|, lse by 7.9e-5
+    to 1.4e-4 of the largest |lse|, which is why the kernel pays for
+    three."""
+    rng = np.random.default_rng(41 + 2 * causal + int(rate * 10))
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, S, H, D))
+                                .astype(np.float32)) for _ in range(3))
+    mask = np.ones((B, S), np.float32)
+    if causal:
+        mask[1, 90:] = 0.0
+    else:
+        mask[0, 100:] = 0.0
+        mask[1, 40:] = 0.0
+    scale = 1.0 / D ** 0.5
+    seed = _seed_of(jax.random.PRNGKey(9)) if rate else None
+
+    def bhsd(t):
+        return jnp.asarray(t.permute(0, 2, 1, 3).reshape(B * H, S, D)
+                           .numpy())
+
+    jseed = jnp.asarray(np.array([seed or 0], np.uint32).view(np.int32))
+    out, lse = jax_flash_forward(
+        bhsd(q), bhsd(k), bhsd(v), jnp.asarray(mask)[:, None, :], causal,
+        scale, 64, 64, True, nheads=H, dropout_rate=rate, seed=jseed)
+    want_jax = (np.asarray(out).reshape(B, H, S, D).transpose(0, 2, 1, 3),
+                np.asarray(lse)[..., 0].reshape(B, H, S))
+    tm = torch.from_numpy(mask)
+    s = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
+    if causal:
+        s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(),
+                          float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    l = (torch.exp(s - m) * tm[:, None, None, :]).sum(-1, keepdim=True)
+    want_plain = (fa.flash_attention_reference(
+        q, k, v, causal=causal, kv_mask=tm, dropout_rate=rate,
+        dropout_seed=seed), (m + torch.log(l.clamp_min(1e-30)))[..., 0])
+    errs = {}
+    for ref_name, want in (("jax", want_jax), ("plain", want_plain)):
+        for terms in (3, 1):
+            got = _fwd_model(q, k, v, tm, causal, scale, rate, seed, terms)
+            errs[(ref_name, terms)] = [
+                float(np.abs(np.asarray(g) - np.asarray(w)).max()
+                      / np.abs(np.asarray(w)).max())
+                for g, w in zip(got, want)]
+    for ref_name in ("jax", "plain"):
+        assert max(errs[(ref_name, 3)]) <= REL, errs
+        assert min(errs[(ref_name, 1)]) > REL, errs

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""A/B of the fp32 flash backward's route (kernels #4 and #5) on the fp32
-GPT-2 training step, in one process on one GPU.
+"""A/B of the fp32 flash routes (the forward, kernel #3; the backward,
+kernels #4 and #5) on the fp32 GPT-2 training step, in one process on one
+GPU.
 
-    python3 tools/ab_flash_fp32.py [--pairs N]
+    python3 tools/ab_flash_fp32.py [--part fwd|bwd|both] [--pairs N]
 
 The step is ``chip_smoke.py``'s phase 7b: ``make_gpt("gpt2",
 dtype=torch.float32)`` (12 layers, width 768, dropout 0.1) through
@@ -10,16 +11,18 @@ dtype=torch.float32)`` (12 layers, width 768, dropout 0.1) through
 x seq 512, GAS 8, Adam with the fused update, ZeRO 2, no bf16 block:
 DeepSpeed's default precision). Host-clock step times move between
 machines and calls, so the two routes are compared inside one process, on
-one engine, in ABBA order: side "tf32" is the route as it is (the 3xTF32
-dq and dk/dv of ``csrc/flash_attention_tf32.cu``), side "fma" swaps them
-for the FMA dq and dk/dv of ``csrc/flash_attention.cu`` (their first
-versions; the forward is the FMA kernel on both sides). Each round runs
-one untimed step, then 5 timed steps (host clock ending in a
-synchronize); a round's number is its median. Then one profiled step a
-side: device busy ms, the idle share against the side's median round, and
-the device ms a step of the forward, dq, dk/dv and the GEMMs. Prints the
-card; exits non-zero without CUDA, or if a side did not launch the
-kernels it names.
+one engine, in ABBA order. Side "tf32" is the route as it is (the 3xTF32
+forward, dq and dk/dv of ``csrc/flash_attention_tf32.cu``); side "fma"
+swaps the part under test for its first version in
+``csrc/flash_attention.cu``: with ``--part fwd`` the FMA forward (dq and
+dk/dv on 3xTF32 on both sides), with ``--part bwd`` the FMA dq and dk/dv
+(the forward on 3xTF32 on both sides); ``both`` (the default) runs the
+forward's A/B, then the backward's. Each round runs one untimed step,
+then 5 timed steps (host clock ending in a synchronize); a round's number
+is its median. Then one profiled step a side: device busy ms, the idle
+share against the side's median round, and the device ms a step of the
+forward, dq, dk/dv and the GEMMs. Prints the card; exits non-zero
+without CUDA, or if a side did not launch the kernels it names.
 """
 
 import json
@@ -29,6 +32,75 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS = 5
+# the 3xTF32 wrappers each part swaps, with the launch of its FMA kernel
+PARTS = {"fwd": (("flash_attention_fwd_tf32", "_launch_fwd"),),
+         "bwd": (("flash_attention_bwd_dq_tf32", "_launch_dq"),
+                 ("flash_attention_bwd_dkv_tf32", "_launch_dkv"))}
+
+
+def ab(torch, cs, fa, engine, batches, per_step, part, pairs, card):
+    """One part's ABBA rounds and profiled steps; prints and returns its
+    record."""
+    tf32 = {name: getattr(fa, name) for name, _l in PARTS[part]}
+    fma_calls = {"n": 0}
+
+    def fma(launch):
+        def run(*a):
+            fma_calls["n"] += 1
+            return getattr(fa, launch)("flash_attention", *a)
+        return run
+
+    shims = {name: fma(launch) for name, launch in PARTS[part]}
+
+    def use(side):
+        for name in tf32:
+            setattr(fa, name, tf32[name] if side == "tf32" else shims[name])
+
+    rounds = {"tf32": [], "fma": []}
+    order = []
+    for i in range(pairs):
+        order += ["tf32", "fma"] if i % 2 == 0 else ["fma", "tf32"]
+    for side in order:
+        use(side)
+        engine.train_batch(batches)
+        torch.cuda.synchronize()
+        before = [w.launches for w in tf32.values()] + [fma_calls["n"]]
+        ms, _losses = cs.timed_steps(torch, engine, batches, STEPS)
+        after = [w.launches for w in tf32.values()] + [fma_calls["n"]]
+        got = tuple(a - b for a, b in zip(after, before))
+        n = STEPS * per_step
+        want = ((n,) * len(tf32) + (0,) if side == "tf32"
+                else (0,) * len(tf32) + (len(tf32) * n,))
+        if got != want:
+            cs.fail(f"ab_flash_fp32 {part}: side {side} launched "
+                    f"({', '.join(tf32)}, fma) {got}, expected {want}")
+        rounds[side].append(statistics.median(ms))
+        print(f"{part} {side}: step ms {[round(x, 2) for x in ms]}",
+              flush=True)
+    wins = sum(a < b for a, b in zip(rounds["tf32"], rounds["fma"]))
+    pick = cs.FP32_PICK + ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                           "flash_bwd_dkv_kernel")
+    prof = {}
+    for side in ("tf32", "fma"):
+        use(side)
+        st = cs.profile_step(torch, engine, batches,
+                             f"fp32 gpt2 {part} {side}", pick=pick)
+        if st is None:
+            continue
+        busy = st["device_busy_ms_per_step"]
+        prof[side] = {"device_busy_ms": busy,
+                      "idle_share": 1.0 - busy / statistics.median(
+                          rounds[side]),
+                      "profiled_idle_share": st["device_idle_share"],
+                      "device_ms_per_step": st["picked_ms_per_step"]}
+    use("tf32")
+    rec = {"part": part, "card": card, "order": order,
+           "round_medians_ms": rounds,
+           "median_of_rounds_ms": {k: statistics.median(v)
+                                   for k, v in rounds.items()},
+           "tf32_faster_rounds": f"{wins} of {pairs}", "profiled": prof}
+    print(json.dumps(rec), flush=True)
+    return rec
 
 
 def main() -> int:
@@ -37,8 +109,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ab_flash_fp32: no CUDA device", file=sys.stderr)
         return 2
-    args = sys.argv[1:]
-    pairs = int(args[1]) if args[:1] == ["--pairs"] and len(args) == 2 else 4
+    args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+    if len(sys.argv) % 2 == 0 or not set(args) <= {"--part", "--pairs"} \
+            or args.get("--part", "both") not in ("fwd", "bwd", "both"):
+        print("usage: ab_flash_fp32.py [--part fwd|bwd|both] [--pairs N]",
+              file=sys.stderr)
+        return 2
+    part = args.get("--part", "both")
+    pairs = int(args.get("--pairs", 4))
     sys.path.insert(0, HERE)
     import chip_smoke as cs
     from deepspeed_tpu_torch.ops import build
@@ -50,22 +128,6 @@ def main() -> int:
     print(card, flush=True)
     build.build_all(["flash_attention", "flash_attention_tf32",
                      "fused_adam"])
-    tf32 = (fa.flash_attention_bwd_dq_tf32, fa.flash_attention_bwd_dkv_tf32)
-    fma_calls = {"n": 0}
-
-    def fma_dq(*a):
-        fma_calls["n"] += 1
-        return fa._launch_dq("flash_attention", *a)
-
-    def fma_dkv(*a):
-        fma_calls["n"] += 1
-        return fa._launch_dkv("flash_attention", *a)
-
-    def use(side):
-        (fa.flash_attention_bwd_dq_tf32,
-         fa.flash_attention_bwd_dkv_tf32) = (
-            tf32 if side == "tf32" else (fma_dq, fma_dkv))
-
     engine, _model, cfg, batches, _per_step, _n = cs.train_engine(
         torch, False, dropout=True, config=cs.FP32_TRAIN_CONFIG,
         dtype=torch.float32)
@@ -76,46 +138,8 @@ def main() -> int:
     torch.cuda.synchronize()
     per_step = (cfg.num_layers
                 * cs.TRAIN_CONFIG["gradient_accumulation_steps"])
-    rounds = {"tf32": [], "fma": []}
-    order = []
-    for i in range(pairs):
-        order += ["tf32", "fma"] if i % 2 == 0 else ["fma", "tf32"]
-    for side in order:
-        use(side)
-        engine.train_batch(batches)
-        torch.cuda.synchronize()
-        before = (tf32[0].launches, tf32[1].launches, fma_calls["n"])
-        ms, _losses = cs.timed_steps(torch, engine, batches, STEPS)
-        got = (tf32[0].launches - before[0], tf32[1].launches - before[1],
-               fma_calls["n"] - before[2])
-        n = STEPS * per_step
-        want = (n, n, 0) if side == "tf32" else (0, 0, 2 * n)
-        if got != want:
-            cs.fail(f"ab_flash_fp32: side {side} launched (dq tf32, dkv "
-                    f"tf32, fma) {got}, expected {want}")
-        rounds[side].append(statistics.median(ms))
-        print(f"{side}: step ms {[round(x, 2) for x in ms]}", flush=True)
-    wins = sum(a < b for a, b in zip(rounds["tf32"], rounds["fma"]))
-    pick = cs.FP32_PICK + ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
-    prof = {}
-    for side in ("tf32", "fma"):
-        use(side)
-        st = cs.profile_step(torch, engine, batches, f"fp32 gpt2 {side}",
-                             pick=pick)
-        if st is None:
-            continue
-        busy = st["device_busy_ms_per_step"]
-        prof[side] = {"device_busy_ms": busy,
-                      "idle_share": 1.0 - busy / statistics.median(
-                          rounds[side]),
-                      "profiled_idle_share": st["device_idle_share"],
-                      "device_ms_per_step": st["picked_ms_per_step"]}
-    use("tf32")
-    print(json.dumps({
-        "card": card, "order": order, "round_medians_ms": rounds,
-        "median_of_rounds_ms": {k: statistics.median(v)
-                                for k, v in rounds.items()},
-        "tf32_faster_rounds": f"{wins} of {pairs}", "profiled": prof}))
+    for p in (("fwd", "bwd") if part == "both" else (part,)):
+        ab(torch, cs, fa, engine, batches, per_step, p, pairs, card)
     return 0
 
 

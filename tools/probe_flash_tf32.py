@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Check and design probe of the 3xTF32 flash dq and dk/dv
+"""Check and design probe of the 3xTF32 flash forward, dq and dk/dv
 (``deepspeed_tpu_torch/csrc/flash_attention_tf32.cu``) on one GPU.
 
     python3 tools/probe_flash_tf32.py
 
 Builds the source (and ``flash_attention.cu``, the FMA route) and prints
-each kernel's registers and spills; holds dq and dk/dv against their plain
-versions in ``chip_smoke.py``'s fp32 flash cases (FLASH_CASES and
-FLASH_CASES_16 at dropout 0 and FLASH_DROP_CASES at 0.1, causal;
-FLASH_NONCAUSAL_CASES at 0 and 0.1), the FMA dq and dk/dv on the same
-inputs, bit-equal over two launches, all-padding rows exactly 0. Then
+each kernel's registers and spills; holds the forward, dq and dk/dv
+against their plain versions in ``chip_smoke.py``'s fp32 flash cases
+(FLASH_CASES and FLASH_CASES_16 at dropout 0 and FLASH_DROP_CASES at 0.1,
+causal; FLASH_NONCAUSAL_CASES at 0 and 0.1), the FMA kernels on the same
+inputs, dq and dk/dv bit-equal over two launches, all-padding rows
+exactly 0. Then
 builds variants of the source with ``nvcc`` into
 ``build/flash_tf32_variants/`` (a directory ``.gitignore`` lists), one
 per process, all started together:
@@ -18,9 +19,13 @@ per process, all started together:
 - ``presplit``: each streamed tile split once, after it lands, into hi
   (in place) and lo tiles in shared memory, which the fragment loads
   read, instead of a split at every fragment load (two more tiles: 87 KB
-  a block at D <= 64, two blocks an SM);
-- ``bs64``: streamed tiles of 64 rows, one block an SM fewer;
-- ``bs16``: streamed tiles of 16 rows, 4 blocks an SM;
+  a dq or dk/dv block at D <= 64, two blocks an SM; 70 KB a forward
+  block);
+- ``bs64``: streamed tiles of 64 rows, one dq or dk/dv block an SM
+  fewer, two forward blocks;
+- ``bs16``: streamed tiles of 16 rows, 4 dq or dk/dv blocks an SM (the
+  forward's stay 4);
+- ``fwd3``: the forward at three blocks an SM at D <= 64, not four;
 - ``cvt``: the split by the ``cvt.rna.tf32.f32`` instruction (which
   ptxas expands with a case for inf and NaN) instead of two integer
   operations;
@@ -29,14 +34,14 @@ per process, all started together:
 - ``no_products``: no mma at all, every load, split, softmax and store
   kept where its result is used (wrong results: timed only).
 
-Prints the SASS opcode counts of the dq kernel at D = 64 (``cuobjdump``,
-where the toolkit has it). Holds the variants that keep the arithmetic
-like the source, then times dq and dk/dv of every variant
-at the training shape [16, 512, 12, 64] fp32 causal on 4 layers' inputs
-in rotation, in two rounds of opposite order, beside the FMA kernels on
-the same inputs and SDPA's whole fp32 backward (memory-efficient
-backend), all as device time. Exits non-zero without CUDA or on any
-miss.
+Prints the SASS opcode counts of the forward and dq kernels at D = 64
+(``cuobjdump``, where the toolkit has it). Holds the variants that keep
+the arithmetic like the source, then times the forward, dq and dk/dv of
+every variant at the training shape [16, 512, 12, 64] fp32 causal on 4
+layers' inputs in rotation, in two rounds of opposite order, beside the
+FMA kernels on the same inputs and SDPA's fp32 forward and whole backward
+(memory-efficient backend), all as device time. Exits non-zero without
+CUDA or on any miss.
 """
 
 import ctypes
@@ -52,10 +57,11 @@ LO_TERMS = "  mma8(d, al, bh);\n  mma8(d, ah, bl);\n"
 HI_TERM = "  mma8(d, ah, bh);\n"
 BS = "constexpr int BS = 32;"
 BLOCKS = "constexpr int BLOCKS64 = 3;"
+FWD_BLOCKS = "constexpr int FWD64 = 4;"
 RNA = "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;"
 CVT = ('  uint32_t h;\n  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(h) : '
        '"f"(x));\n  return h;')
-HELD = ("source", "presplit", "bs64", "bs16", "cvt")
+HELD = ("source", "presplit", "bs64", "bs16", "fwd3", "cvt")
 # the presplit variant: split_tile, and the lo tiles of the two streamed
 # tiles after the resident and streamed tiles in shared memory
 SPLIT_TILE = """// the rows x D floats of a landed tile as hi (in place) and lo (into
@@ -87,16 +93,16 @@ ET = "    const float* Et = Es + s_ * BQ;\n"
 SPLIT = ("    split_tile<DP>({0}s + {1} * {3} * DP, {0}l, {3}, D);\n"
          "    split_tile<DP>({2}s + {1} * {3} * DP, {2}l, {3}, D);\n"
          "    __syncthreads();\n")
-SMEM = "(2 * BM + 4 * BS)"
+SMEM = "* BM + 4 * BS)"
 # (pattern, replacement, matches)
 PRESPLIT_SUBS = (
     (r"const float\* B, int (kc|D)\)", r"const float* B, const float* Bl, "
      r"int \1)", 2),
     (r"split_tf32\(B\[([^\]]+)\], (bh\[\d\]), (bl\[\d\])\);",
      r"\2 = __float_as_uint(B[\1]); \3 = __float_as_uint(Bl[\1]);", 4),
-    (r"(mma_rows<NS, DP>\(\w+, ah, al, )(\w)t, kc\)", r"\1\2t, \2l, kc)", 4),
+    (r"(mma_rows<NS, DP>\(\w+, ah, al, )(\w)t, kc\)", r"\1\2t, \2l, kc)", 5),
     (r"(mma_cols<NO, NS, DP>\(\w+, \w+, kk, )(\w)t, D\)", r"\1\2t, \2l, D)",
-     3))
+     4))
 
 
 def presplit(src: str) -> str:
@@ -112,23 +118,25 @@ def presplit(src: str) -> str:
                      "  float* Ol = Ql + BQ * DP;\n")
             .replace(MT, MT + SPLIT.format("K", "(it & 1)", "V", "BN"))
             .replace(ET, ET + SPLIT.format("Q", "s_", "O", "BQ"))
-            .replace(SMEM, "(2 * BM + 6 * BS)")
+            .replace(SMEM, "* BM + 6 * BS)")
             .replace(BLOCKS, "constexpr int BLOCKS64 = 2;"))
 
 
 def variants(src: str) -> dict:
     """The source, and each of its choices changed."""
     for text, n in ((LO_TERMS, 1), (HI_TERM, 1), (BS, 1), (BLOCKS, 1),
-                    (RNA, 1), (MMA8, 1), (MS, 1), (ES, 1), (MT, 1), (ET, 1),
-                    (SMEM, 1)):
+                    (FWD_BLOCKS, 1), (RNA, 1), (MMA8, 1), (MS, 2), (ES, 1),
+                    (MT, 2), (ET, 1), (SMEM, 1)):
         if src.count(text) != n:
             raise SystemExit(f"probe_flash_tf32: {text!r} moved")
     return {"source": src,
             "presplit": presplit(src),
             "bs64": src.replace(BS, "constexpr int BS = 64;").replace(
-                BLOCKS, "constexpr int BLOCKS64 = 2;"),
+                BLOCKS, "constexpr int BLOCKS64 = 2;").replace(
+                FWD_BLOCKS, "constexpr int FWD64 = 2;"),
             "bs16": src.replace(BS, "constexpr int BS = 16;").replace(
                 BLOCKS, "constexpr int BLOCKS64 = 4;"),
+            "fwd3": src.replace(FWD_BLOCKS, "constexpr int FWD64 = 3;"),
             "cvt": src.replace(RNA, CVT),
             "one_product": src.replace(LO_TERMS, ""),
             "no_products": src.replace(LO_TERMS + HI_TERM, "")}
@@ -185,7 +193,7 @@ def main() -> int:
                 routes = cs.compare_flash_case(
                     torch, fa, f32, case, worst, rate,
                     cs.FLASH_DROPOUT_SEED if rate else None, causal=causal)
-                if routes != ("fma", "tf32", "tf32"):
+                if routes != ("tf32", "tf32", "tf32"):
                     cs.fail(f"probe_flash_tf32: routes {routes}")
         print(f"{tag}: held in every fp32 case; max |err| " + json.dumps(
             {k[0]: f"{v[0]:.3g}" for k, v in worst.items() if len(k) == 2}),
@@ -216,14 +224,15 @@ def main() -> int:
         lib = ctypes.CDLL(os.path.join(OUT, name + ".so"))
         fns[name] = {}
         for key, fn in src_fns.items():
-            sym = ("flash_attention_tf32_error_string" if key == "err"
-                   else f"flash_attention_tf32_bwd_{key}")
+            sym = {"err": "flash_attention_tf32_error_string",
+                   "fwd": "flash_attention_tf32_fwd"}.get(
+                       key, f"flash_attention_tf32_bwd_{key}")
             got = getattr(lib, sym)
             got.argtypes, got.restype = fn.argtypes, fn.restype
             fns[name][key] = got
-    print("SASS opcodes of flash_bwd_dq_tf32_kernel<64, false>: "
-          + json.dumps(sass_ops(libs[0], "flash_bwd_dq_tf32_kernelILi64ELb0")),
-          flush=True)
+    for kernel in ("flash_fwd_tf32_kernel", "flash_bwd_dq_tf32_kernel"):
+        print(f"SASS opcodes of {kernel}<64, false>: " + json.dumps(
+            sass_ops(libs[0], kernel + "ILi64ELb0")), flush=True)
     for name in HELD[1:]:
         fa._FN["flash_attention_tf32"] = fns[name]
         hold(name)
@@ -243,7 +252,11 @@ def main() -> int:
     def call(launch, lib, which):
         def go():
             it["i"] = (it["i"] + 1) % len(layers)
-            return launch(lib, *layers[it["i"]], 0.0, None)
+            q, k, v, dout, mask, lse, delta, causal, scale = layers[it["i"]]
+            if which == "fwd":
+                return launch(lib, q, k, v, mask, causal, scale, 0.0, None)
+            return launch(lib, q, k, v, dout, mask, lse, delta, causal,
+                          scale, 0.0, None)
         return go
 
     times = {}
@@ -257,7 +270,8 @@ def main() -> int:
             times.setdefault(name, []).append(tuple(
                 round(cs.device_ms(torch, call(launch, lib, w), iters=20,
                                    warmup=3)[0], 4)
-                for w, launch in (("dq", fa._launch_dq),
+                for w, launch in (("fwd", fa._launch_fwd),
+                                  ("dq", fa._launch_dq),
                                   ("dkv", fa._launch_dkv))))
     fa._FN["flash_attention_tf32"] = src_fns
     import torch.nn.functional as F
@@ -271,15 +285,23 @@ def main() -> int:
             o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
             sdpa_in.append((qt, kt, vt, o, dout.transpose(1, 2).contiguous()))
 
+        def sdpa_fwd():
+            it["i"] = (it["i"] + 1) % len(sdpa_in)
+            qt, kt, vt, _o, _dot = sdpa_in[it["i"]]
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
         def sdpa_bwd():
             it["i"] = (it["i"] + 1) % len(sdpa_in)
             qt, kt, vt, o, dot = sdpa_in[it["i"]]
             torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
 
+        sdpa_fwd_ms = cs.device_ms(torch, sdpa_fwd)[0]
         sdpa_ms = cs.device_ms(torch, sdpa_bwd)[0]
-    print(f"fp32 [16, 512, 12, 64] causal (dq, dk/dv) device ms by variant "
-          f"(two rounds; 'fma' the FMA kernels on the same inputs), SDPA's "
-          f"whole backward {sdpa_ms:.4f} ms ({card}): {json.dumps(times)}")
+    print(f"fp32 [16, 512, 12, 64] causal (forward, dq, dk/dv) device ms by "
+          f"variant (two rounds; 'fma' the FMA kernels on the same inputs), "
+          f"SDPA's forward {sdpa_fwd_ms:.4f} ms and whole backward "
+          f"{sdpa_ms:.4f} ms ({card}): {json.dumps(times)}")
     return 0
 
 
