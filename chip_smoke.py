@@ -10,7 +10,7 @@
     python3 chip_smoke.py --only bert      # the build, then phase 8 only
     python3 chip_smoke.py --only serving   # the build, then phase 3 only
     python3 chip_smoke.py --only ckpt      # the build, then phase 9 only
-    python3 chip_smoke.py --only fp32      # the build, then phase 7b only
+    python3 chip_smoke.py --only fp32      # the build, then phases 7b, 5b
     python3 chip_smoke.py --only sparse,chunked
 
 1. Device: requires CUDA, prints the card's name and power limit, builds
@@ -93,24 +93,32 @@
      4, 128], BigBird block 128, causal, with the key mask, bf16 and fp16,
      (f) [1, 1024, 4, 72], ``fixed`` block 64, bf16, (g) [2, 1024, 12,
      64], BigBird block 32, causal, with the key mask, bf16, and (h) [2,
-     1024, 4, 128], BigBird block 16, causal, with the key mask, bf16 and
-     fp16; (d)-(f) also at the split cap 4 (where the forward, dq and
-     dk/dv all split), (b), (g) and (h) at the 16-row kernels' cap of 1
-     step (the forward, dq and dk/dv split); all three on the route
-     ``sparse_attention._route`` picks (16 bits at blocks of 64 and
-     more: the tensor-core kernels of ``csrc/sparse_attention_tc.cu``;
-     16 bits at other multiples of 16: the 16-row tensor-core forward,
-     dq and dk/dv of ``csrc/sparse_attention_tc16.cu``; fp32:
-     ``csrc/sparse_attention.cu``; each call counted by its route's
-     wrapper only); each kernel and, but at (c), the whole autograd
-     path, with flash's tolerances, lse to 1e-5 (``SPARSE_LSE_TOL``),
-     every output bit-equal over two launches, the all-padding rows o = 0
-     and lse = -1e30 exactly; timed at (c) in bf16, the tensor-core
-     forward, dq and dk/dv beside the FMA kernels on the same inputs, the
-     plain versions, SDPA with the layout-expanded mask and the bound,
-     the tensor-core pair at every split cap of SPARSE_SWEEP_CAPS and the
-     forward at every cap at (d)'s shape (items, split tiles, pieces and
-     longest walk printed);
+     1024, 4, 128], BigBird block 16, causal, with the key mask, bf16,
+     fp16 and fp32, and (i) the same at D = 8, fp32; (f) also in fp32;
+     (d)-(f) also at the split cap 4 (where the forward, dq and dk/dv
+     all split), (b), (g), (h) and (i) at the 16-row lists' cap of 1
+     step (the forward, dq and dk/dv split); each kernel on the route
+     ``sparse_attention._route`` picks for it (16 bits at blocks of 64
+     and more: the tensor-core kernels of
+     ``csrc/sparse_attention_tc.cu``; 16 bits at other multiples of 16:
+     the 16-row tensor-core forward, dq and dk/dv of
+     ``csrc/sparse_attention_tc16.cu``; fp32: the FMA forward of
+     ``csrc/sparse_attention.cu`` and the 3xTF32 dq and dk/dv of
+     ``csrc/sparse_attention_tf32.cu`` over the 16-row lists; each call
+     counted by its route's wrapper only); each kernel and, but at (c),
+     the whole autograd path, with flash's tolerances (the 3xTF32 dq and
+     dk/dv within 1e-5 of the reference's largest |value|), lse to 1e-5
+     (``SPARSE_LSE_TOL``), every output bit-equal over two launches, the
+     all-padding rows o = 0 and lse = -1e30 exactly; timed at (c) in
+     bf16, the tensor-core forward, dq and dk/dv beside the FMA kernels
+     on the same inputs, the plain versions, SDPA with the
+     layout-expanded mask and the bound, the tensor-core pair at every
+     split cap of SPARSE_SWEEP_CAPS and the forward at every cap at (d)'s
+     shape (items, split tiles, pieces and longest walk printed); then
+     at (c)'s shape in fp32 (:func:`time_sparse_fp32`): the FMA forward,
+     dq and dk/dv and the 3xTF32 dq and dk/dv held (also at cap 1) and
+     timed on fp32 inputs beside the plain versions, SDPA in fp32 with
+     the mask and the bounds at FP32_3XTF32_FLOPS;
    - the fused LayerNorm + projection forward and backward (kernels #6,
      #7) on the route ``fused._route`` picks (bf16 and fp16 up to D =
      1664: the wgmma kernels of ``csrc/fused_ln_tc.cu``; fp32 and wider
@@ -212,8 +220,18 @@
    and a profiled step. Then the same configuration with dense flash
    attention (1 + 2 steps) for the sparse/dense tokens/s ratio, both
    printed beside the same step's reading with the FMA forward,
-   and in fp32 at 2 layers and seq 4096 the kernels' path (#8-#10 on
-   FMAs) against the plain path (``impl: "xla"``), held as in phase 4.
+   and in fp32 at 2 layers and seq 4096 the kernels' path (#8 on FMAs,
+   #9/#10 on 3xTF32, their FMA kernels never) against the plain path
+   (``impl: "xla"``), held as in phase 4.
+5b. Long-sequence training in fp32 (``--only fp32`` runs it too;
+   :func:`check_long_fp32_training`): phase 5's configuration with no
+   ``bf16`` block and no bf16 accumulator on ``make_gpt("gpt2",
+   dtype=torch.float32)`` at seq 16384 (DeepSpeed's default precision):
+   the FMA forward (#8) and the 3xTF32 dq and dk/dv launch 48 times each
+   per step, the FMA dq and dk/dv never, fused Adam once, no plain
+   version, the loss falls; step time, tokens/s, peak memory, the idle
+   share and a profiled step's device ms of the sparse kernels and the
+   GEMMs. No dense twin.
 6. Training with the fused LayerNorm + projection sites: phase 4's
    configuration on ``make_gpt("gpt2", fused_ln=True)``: #6 and #7 launch
    192 times each per step (2 sites x 12 layers x GAS 8) through the
@@ -236,7 +254,7 @@
    forward passes). Then in fp32 at 2 layers and dropout 0.1 the kernels'
    path against the plain path (``impl: "xla"``, the same mask function
    and seeds), held as in phase 4.
-7b. fp32 training at full width (``--only fp32`` runs it alone;
+7b. fp32 training at full width (``--only fp32`` runs it and 5b;
    :func:`check_fp32_training`): ``make_gpt("gpt2", dtype=torch.float32)``
    (dropout 0.1) through ``initialize`` with phase 4's shape and no bf16
    block, DeepSpeed's default precision: the 3xTF32 forward, dq and dk/dv
@@ -261,10 +279,12 @@
    kernels held to their plain versions, also at the 16-row kernels' cap
    of 1 step where the second passes run, and timed at [8, 512, 16, 64]
    beside the FMA forward, dq and dk/dv on the same inputs and SDPA with
-   the expanded mask: the ``_block16`` and ``_tc16`` rows; the same at
-   block 32, printed), and the fp32 comparisons at bert-large width and
-   2 layers, dense (flash on 3xTF32) and sparse (#8-#10 on FMAs), against
-   the plain path.
+   the expanded mask: the ``_tc16`` rows; the same at block 32, printed;
+   then fp32 at that shape: the FMA forward, dq and dk/dv and the 3xTF32
+   dq and dk/dv, the ``_block16`` and ``_tf32_block16`` rows), and the
+   fp32 comparisons at bert-large width and 2 layers, dense (flash on
+   3xTF32) and sparse (#8 on FMAs, #9/#10 on 3xTF32), against the plain
+   path.
 9. Checkpointing, the dataloader and preemption-safe training (``--only
    ckpt`` runs it alone; :func:`check_ckpt`): full-width, full-depth
    GPT-2 at phase 7's configuration fed by ``initialize(training_data=
@@ -302,9 +322,11 @@ phases 4, 7 and 7b, set to 0 just before each. ``fused_ln.cu``'s rows
 (``fused_ln_matmul_fwd``, ``fused_ln_matmul_bwd``) are fp32's route,
 counted over phase 6's fp32 comparison, while the ``_tc`` rows count phase 6 and its fp16 run. The
 FMA sparse rows (``sparse_attention_fwd``, ``sparse_attention_bwd_dq``,
-``sparse_attention_bwd_dkv``) count phase 5's fp32 comparison and are
-timed on the bf16 inputs of their tensor-core twins (their first
-version's route), which count phase 5's long steps. The first chunked-
+``sparse_attention_bwd_dkv``) and the 3xTF32 ones
+(``sparse_attention_bwd_dq_tf32``, ``sparse_attention_bwd_dkv_tf32``)
+count phase 5b's timed steps (the FMA dq and dk/dv, the 3xTF32 kernels'
+first versions, 0) and are timed on fp32 inputs at the path's shape; the
+tensor-core rows count phase 5's long steps. The first chunked-
 prefill kernel's row (``chunked_prefill_attention``) counts phase 3's
 fp32 chunked run and is timed on the bf16 inputs of the run kernels'
 row (``chunked_prefill_attention_tc``, which counts the bf16 chunked
@@ -316,9 +338,10 @@ run and is timed at S = 5 on the path's shapes. The ``_bert128`` /
 ``_bert512`` flash rows count phase 8's seq-128 / seq-512 steps; of the
 sparse BERT rows, the 16-row forward, dq and dk/dv
 (``sparse_attention_fwd_tc16``, ``sparse_attention_bwd_dq_tc16``,
-``sparse_attention_bwd_dkv_tc16``) count its sparse steps, and the FMA
-forward, dq and dk/dv (``_block16``, their first versions, timed on the
-same inputs) its sparse fp32 comparison.
+``sparse_attention_bwd_dkv_tc16``) count its sparse steps, and the fp32
+rows at that shape (the FMA forward, dq and dk/dv, ``_block16``, and the
+3xTF32 dq and dk/dv, ``_tf32_block16``, all timed on fp32 inputs) its
+sparse fp32 comparison.
 """
 
 import json
@@ -2085,12 +2108,15 @@ SPARSE_BIDIR = {"mode": "bigbird", "block": 64, "num_random_blocks": 1,
 # mask, and D = 72 (zero-padded to 80); (g) BigBird at block 32, causal,
 # with the key mask (lists differ inside a 16-row item: the per-warp
 # bits at work) and (h) D = 128 at the BigBird block 16, causal, with the
-# key mask. 16 bits take the tensor-core forward, dq and dk/dv: the
-# 64-row kernels at blocks of 64 and more, the 16-row kernels at (b), (g)
-# and (h). ``caps``: split caps the tensor-core
-# kernels also run at (beside SPLIT_CAP): SPARSE_SMALL_CAP tiles of 64
-# rows on the 64-row route, SPARSE_SMALL_CAP16 steps of 64 rows on the
-# 16-row route.
+# key mask; (i) D = 8 there, fp32. 16 bits take the tensor-core forward,
+# dq and dk/dv: the 64-row kernels at blocks of 64 and more, the 16-row
+# kernels at (b), (g) and (h). fp32 ((a), (b), (f), (h), (i): head dims
+# 64, 72, 128 and 8, blocks 256, 64 and 16, the all-padding row) takes
+# the FMA forward and the 3xTF32 dq and dk/dv over the 16-row lists.
+# ``caps``: split caps the tensor-core kernels also run at (beside
+# SPLIT_CAP): SPARSE_SMALL_CAP tiles of 64 rows on the 64-row route,
+# SPARSE_SMALL_CAP16 steps of 64 rows on the 16-row lists (the 3xTF32
+# dq and dk/dv at (f) take SPARSE_SMALL_CAP steps).
 SPARSE_SMALL_CAP = 4             # every walk longer than 4 tiles splits
 SPARSE_SMALL_CAP16 = 1           # every walk longer than 4 blocks splits
 SPARSE_CASES = (
@@ -2105,15 +2131,20 @@ SPARSE_CASES = (
     ("e", 2, 2048, 4, 128, dict(SPARSE_LONG, block=128), True, True,
      ("bfloat16", "float16"), (SPARSE_SMALL_CAP,)),
     ("f", 1, 1024, 4, 72, {"mode": "fixed", "block": 64}, False, False,
-     ("bfloat16",), (SPARSE_SMALL_CAP,)),
+     ("bfloat16", "float32"), (SPARSE_SMALL_CAP,)),
     ("g", 2, 1024, 12, 64, dict(SPARSE_LONG, block=32), True, True,
      ("bfloat16",), (SPARSE_SMALL_CAP16,)),
     ("h", 2, 1024, 4, 128, dict(SPARSE_LONG, block=16), True, True,
-     ("bfloat16", "float16"), (SPARSE_SMALL_CAP16,)))
+     ("bfloat16", "float16", "float32"), (SPARSE_SMALL_CAP16,)),
+    ("i", 2, 1024, 4, 8, dict(SPARSE_LONG, block=16), True, True,
+     ("float32",), (SPARSE_SMALL_CAP16,)))
 SPARSE_SWEEP_CAPS = (4, 8, 16, 32, 64, 128, None)   # None: no split
 SPARSE_TC_NAMES = ("sparse_attention_bwd_dq_tc",
                    "sparse_attention_bwd_dkv_tc")
 SPARSE_FMA_NAMES = ("sparse_attention_bwd_dq", "sparse_attention_bwd_dkv")
+# the fp32 dq and dk/dv (3xTF32 over the 16-row lists)
+SPARSE_TF32_NAMES = ("sparse_attention_bwd_dq_tf32",
+                     "sparse_attention_bwd_dkv_tf32")
 # the 16-row route's three kernels (the sparse BERT step's)
 SPARSE_TC16_NAMES = ("sparse_attention_fwd_tc16",
                      "sparse_attention_bwd_dq_tc16",
@@ -2185,17 +2216,27 @@ def same_bits(torch, a, b):
     return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
 
 
+# each output's kernel, whose route it takes ("dq cap 1": dq's)
+SPARSE_WHICH = {"fwd": "fwd", "dq": "dq", "dk": "dkv", "dv": "dkv",
+                "autograd out": "fwd", "autograd dqkv": "dq"}
+
+
+def sparse_kernel_of(key):
+    return SPARSE_WHICH.get(key) or SPARSE_WHICH[key.split()[0]]
+
+
 def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
     """Kernels #8-#10 against their plain versions in ``cases``: each
     kernel and, but at (c), the whole autograd path, with flash's
-    tolerances; all three on the route ``sparse_attention._route`` picks
+    tolerances (the 3xTF32 dq and dk/dv: 1e-5 of the reference's largest
+    |value|); each on the route ``sparse_attention._route`` picks for it
     (each call counted by its route's wrapper only), the tensor-core
     kernels also at their small caps; every output bit-equal over two
     launches. Then, with
     ``timing``, timing at (c), the path's shape, and the sweep of the
     split cap (:func:`time_sparse`). ``reports``: the kernels line's rows
     ("fwd", "dq", "dkv" for the FMA kernels, "fwd_tc", "dq_tc",
-    "dkv_tc")."""
+    "dkv_tc", "dq_tf32", "dkv_tf32")."""
     sp = sparse_module()
     counters = {("fwd", "fma"): sp.sparse_attention_fwd,
                 ("fwd", "tc"): sp.sparse_attention_fwd_tc,
@@ -2203,15 +2244,20 @@ def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
                 ("dq", "fma"): sp.sparse_attention_bwd_dq,
                 ("dq", "tc"): sp.sparse_attention_bwd_dq_tc,
                 ("dq", "tc16"): sp.sparse_attention_bwd_dq_tc16,
+                ("dq", "tf32"): sp.sparse_attention_bwd_dq_tf32,
                 ("dkv", "fma"): sp.sparse_attention_bwd_dkv,
                 ("dkv", "tc"): sp.sparse_attention_bwd_dkv_tc,
-                ("dkv", "tc16"): sp.sparse_attention_bwd_dkv_tc16}
+                ("dkv", "tc16"): sp.sparse_attention_bwd_dkv_tc16,
+                ("dkv", "tf32"): sp.sparse_attention_bwd_dkv_tf32}
+    # each backward route's wrappers at a cap (fp32's forward has none)
     at_cap = {"tc": (sp.sparse_attention_fwd_tc,
                      sp.sparse_attention_bwd_dq_tc,
                      sp.sparse_attention_bwd_dkv_tc),
               "tc16": (sp.sparse_attention_fwd_tc16,
                        sp.sparse_attention_bwd_dq_tc16,
-                       sp.sparse_attention_bwd_dkv_tc16)}
+                       sp.sparse_attention_bwd_dkv_tc16),
+              "tf32": (None, sp.sparse_attention_bwd_dq_tf32,
+                       sp.sparse_attention_bwd_dkv_tf32)}
     worst = {}
 
     def hold(key, case, name, route, got, ref):
@@ -2221,7 +2267,9 @@ def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
         err = diff.max().item()
         rms = ref.float().pow(2).mean().sqrt().item()
         if name == "float32":
-            rel, bad = 0.0, err > KERNEL_TOL[name]
+            # the 3xTF32 kernels: 1e-5 of the largest |value|
+            top = ref.abs().max().item() if route == "tf32" else 1.0
+            rel, bad = err / max(top, 1e-30), err > KERNEL_TOL[name] * top
         else:
             step = round_step(torch, ref, getattr(torch, name))
             rel = ((diff - step).clamp_min(0).max().item()
@@ -2230,8 +2278,8 @@ def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
                 "autograd" if key.startswith("autograd") else "kernel"]
         if bad:
             fail(f"sparse {key} {case} {name} ({route}): max |err| {err} "
-                 f"(reference RMS {rms}); beyond one {name} step {rel} of "
-                 f"the RMS")
+                 f"(reference RMS {rms}); {rel} of the largest |value| "
+                 f"(fp32) or of the RMS beyond one {name} step")
         w = worst.get((key, name, route))
         if w is None or err > w[0]:
             worst[(key, name, route)] = (err, rms, rel)
@@ -2244,7 +2292,9 @@ def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
         plan = sp.sparse_plan(layout, block)
         for name in dtypes:
             dtype = getattr(torch, name)
-            route = sp._route(dtype, d, block)
+            routes = {w: sp._route(dtype, d, block, w)
+                      for w in ("fwd", "dq", "dkv")}
+            route = routes["dq"]            # the backward's
             qkv, q, k, v, dout, mask = flash_case(
                 torch, dtype, b, s, h, d,
                 seed=s + masked if d == 64 else s + d, masked=masked,
@@ -2263,9 +2313,9 @@ def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
             dk, dv = sp.sparse_attention_bwd_dkv(qp, kp, vp, *args)
             grew = {f"{k}/{r}": w.launches - before[(k, r)]
                     for (k, r), w in counters.items()}
-            want = {f"{k}/{r}": int(r == route) for k, r in counters}
+            want = {f"{k}/{r}": int(r == routes[k]) for k, r in counters}
             if grew != want:
-                fail(f"sparse {case} {name}: routed to {route}, launches "
+                fail(f"sparse {case} {name}: routed to {routes}, launches "
                      f"{grew}")
             got = {"fwd": out, "dq": dq, "dk": dk, "dv": dv}
             lses = {"": (lse,)}
@@ -2275,7 +2325,7 @@ def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
             again["dq"] = sp.sparse_attention_bwd_dq(qp, kp, vp, *args)
             again["dk"], again["dv"] = sp.sparse_attention_bwd_dkv(
                 qp, kp, vp, *args)
-            if route == "tc16":
+            if route in ("tc16", "tf32"):
                 w16 = [plan.work16(w, causal) for w in ("dq", "dkv")]
                 print(f"sparse_attention {case} {name}: 16-row work lists "
                       f"(the forward and dq, dk/dv): items "
@@ -2284,18 +2334,22 @@ def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
                       f"{[round(w.masked_share, 4) for w in w16]}")
             for cap in caps if route in at_cap else ():
                 fwd_c, dq_c, dkv_c = at_cap[route]
-                works = plan.work16 if route == "tc16" else plan.work
+                works = plan.work if route == "tc" else plan.work16
                 # every walk of the route's kernels splits here
-                for which in ("fwd", "dq", "dkv"):
+                kinds = ("dq", "dkv") if fwd_c is None else ("fwd", "dq",
+                                                              "dkv")
+                for which in kinds:
                     if not works(which, causal, cap).n_split:
                         fail(f"sparse {case}: the {which} walks do not "
                              f"split at cap {cap}")
                 tag = f" cap {cap}"
-                lses[tag] = ()
+                if fwd_c is not None:
+                    lses[tag] = ()
                 for sink in (got, again):
-                    sink["fwd" + tag], lse_c = fwd_c(
-                        qp, kp, vp, mp, plan, causal, scale, cap=cap)
-                    lses[tag] += (lse_c,)
+                    if fwd_c is not None:
+                        sink["fwd" + tag], lse_c = fwd_c(
+                            qp, kp, vp, mp, plan, causal, scale, cap=cap)
+                        lses[tag] += (lse_c,)
                     sink["dq" + tag] = dq_c(qp, kp, vp, *args, cap=cap)
                     sink["dk" + tag], sink["dv" + tag] = dkv_c(
                         qp, kp, vp, *args, cap=cap)
@@ -2306,7 +2360,8 @@ def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
                          f"launches")
             for key, t in got.items():
                 if not same_bits(torch, t, again[key]):
-                    fail(f"sparse {key} {case} {name} ({route}): differs "
+                    fail(f"sparse {key} {case} {name} ("
+                         f"{routes[sparse_kernel_of(key)]}): differs "
                          f"between two launches")
             want, want_lse = sp.sparse_fwd_reference(q, k, v, mp, plan,
                                                      causal, scale)
@@ -2334,18 +2389,19 @@ def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
                     fail(f"sparse lse{tag} {case} {name}: empty rows differ")
                 lse_err = (got_lse - want_lse)[seen].abs().max().item()
                 if not lse_err <= SPARSE_LSE_TOL:
-                    fail(f"sparse lse{tag} {case} {name} ({route}): max "
-                         f"|err| {lse_err}")
-                if lse_err >= worst.get(("lse", name, route), (0.0,))[0]:
-                    worst[("lse", name, route)] = (lse_err, 0.0, 0.0)
+                    fail(f"sparse lse{tag} {case} {name} ({routes['fwd']}): "
+                         f"max |err| {lse_err}")
+                key = ("lse", name, routes["fwd"])
+                if lse_err >= worst.get(key, (0.0,))[0]:
+                    worst[key] = (lse_err, 0.0, 0.0)
             for key, (t, r) in pairs.items():
-                hold(key, case, name, route, t, r)
+                hold(key, case, name, routes[sparse_kernel_of(key)], t, r)
             if masked:
                 if any(t[1].abs().max().item() != 0.0
                        for t in got.values()):
                     fail(f"sparse {case} {name}: the all-padding batch row "
                          f"is not exactly zero")
-                print(f"sparse_attention {case} {name} ({route}): batch "
+                print(f"sparse_attention {case} {name} ({routes}): batch "
                       f"row 1 (all padding): "
                       f"{', '.join(got)} exactly 0, lse -1e30")
             del qkv, q, k, v, dout, out, lse, want, want_lse, dq, dk, dv
@@ -2360,14 +2416,16 @@ def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
           f"[2,2048,4,128] bigbird-128 causal with a key mask, (f) "
           f"[1,1024,4,72] fixed-64 bidirectional, (g) [2,1024,12,64] "
           f"bigbird-32 causal with a key mask, (h) [2,1024,4,128] "
-          f"bigbird-16 causal with a key mask; (d)-(f) also at cap "
-          f"{SPARSE_SMALL_CAP}, (b), (g), (h) at cap {SPARSE_SMALL_CAP16}), "
-          f"dO x 0.1 in fp32 and x 1 in 16 bits; each output by dtype and "
-          f"route:")
+          f"bigbird-16 causal with a key mask, (i) (h) at D = 8; (d)-(f) "
+          f"also at cap {SPARSE_SMALL_CAP}, (b), (g)-(i) at cap "
+          f"{SPARSE_SMALL_CAP16}), dO x 0.1 in fp32 and x 1 in 16 bits; "
+          f"each output by dtype and route:")
     for key, name, route in sorted(worst):
         err, rms, rel = worst[(key, name, route)]
         path = "autograd" if key.startswith("autograd") else "kernel"
         lim = (f"limit {SPARSE_LSE_TOL}" if key == "lse" else
+               f"{rel:.3g} of the largest |value|, limit 1e-5"
+               if route == "tf32" else
                "atol 1e-5" if name == "float32" else
                f"beyond one step {rel:.3g} of the RMS, limit "
                f"{FLASH_16BIT_RMS_TOL[path]}")
@@ -2379,15 +2437,16 @@ def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
 
 
 def time_sparse(torch, sp, reports, worst):
-    """The sparse rows' times at the path's shape [1, 16384, 12, 64] bf16,
-    BigBird 256, causal, rotating over 4 layers' inputs (300 MB of q/k/v,
-    six times the 50 MB L2) as the step does, as device time: #8 and the
-    FMA dq and dk/dv (their first versions) and the tensor-core dq and
-    dk/dv on the same inputs, beside the plain versions (host-paced), SDPA
-    with the layout-expanded mask (the forward, and its whole backward for
-    the pair) and the bound. Then the tensor-core kernels at every cap of
+    """The tensor-core rows' times at the path's shape [1, 16384, 12, 64]
+    bf16, BigBird 256, causal, rotating over 4 layers' inputs (300 MB of
+    q/k/v, six times the 50 MB L2) as the step does, as device time: the
+    forward, dq and dk/dv beside the FMA kernels (their first versions) on
+    the same inputs, the plain versions (host-paced), SDPA with the
+    layout-expanded mask (the forward, and its whole backward for the
+    pair) and the bound. Then the tensor-core kernels at every cap of
     SPARSE_SWEEP_CAPS: the split's items, split tiles, pieces and longest
-    walk, and their device time."""
+    walk, and their device time; the forward's sweep; and the fp32 rows
+    at this shape (:func:`time_sparse_fp32`)."""
     import torch.nn.functional as F
 
     h, d = 12, 64
@@ -2471,6 +2530,8 @@ def time_sparse(torch, sp, reports, worst):
                             ("dq_tc", "dq", "tc"), ("dkv_tc", "dkv", "tc")):
         times[row] = device_ms(torch, call(which, how), iters=20,
                                warmup=3)[0]
+        if how == "fma":   # beside the tensor-core rows; the FMA rows'
+            continue       # own readings are fp32's (time_sparse_fp32)
         lib = sdpa_fwd_ms if which == "fwd" else sdpa_bwd_ms
         nbytes, flops = sparse_bytes_flops(q0, npairs, which)
         t_bytes = nbytes / HBM_BYTES_PER_S
@@ -2484,12 +2545,10 @@ def time_sparse(torch, sp, reports, worst):
                    bound_ms=max(t_bytes, t_ops) * 1e3,
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    max_abs_err=max(errs))
-        extra = ""
-        if how == "tc":
-            fma_ms = times[which]
-            rep["fma_ms"] = fma_ms
-            extra = (f", the FMA kernel on the same inputs {fma_ms:.4f} ms "
-                     f"({fma_ms / times[row]:.2f}x)")
+        fma_ms = times[which]
+        rep["fma_ms"] = fma_ms
+        extra = (f", the FMA kernel on the same inputs {fma_ms:.4f} ms "
+                 f"({fma_ms / times[row]:.2f}x)")
         print(f"sparse_attention {row} timing bf16 B={b} S={s} H={h} D={d} "
               f"bigbird block {block} causal ({npairs} visible pairs, "
               f"{npairs / (h * s * (s + 1) / 2):.4f} of the causal square; "
@@ -2538,6 +2597,215 @@ def time_sparse(torch, sp, reports, worst):
     del layers, prepped
     torch.cuda.empty_cache()
     sweep_sparse_fwd(torch, sp)
+    time_sparse_fp32(torch, sp, reports, "the path's shape", b, s, h, d,
+                     SPARSE_LONG, True)
+
+
+def time_sparse_fp32(torch, sp, reports, label, b, s, h, d, block_cfg,
+                     causal, lens=None):
+    """#8-#10 in fp32 at [b, s, h, d] under ``block_cfg`` (a key mask
+    keeping the first ``lens[i]`` keys of batch row i, or none) on 4
+    layers' inputs in rotation: the FMA forward (whose lse the backward
+    reads), the FMA dq and dk/dv (the first versions) and the 3xTF32 dq
+    and dk/dv on the same inputs. Held first: the 3xTF32 dq and dk/dv
+    against the plain versions within 1e-5 of the reference's largest
+    |value| and bit-equal over two launches, at SPLIT_CAP and at
+    SPARSE_SMALL_CAP16 (where they split), the FMA kernels the same way
+    (the forward's o to atol 1e-5, its lse to SPARSE_LSE_TOL). Then timed
+    as device time beside the plain versions (host-paced), SDPA in fp32
+    with the layout-expanded mask (the forward, and its whole backward
+    for dq and dk/dv) and the bound at FP32_3XTF32_FLOPS over the visible
+    pairs. Fills ``reports``' rows "fwd", "dq", "dkv", "dq_tf32",
+    "dkv_tf32"; returns the device ms by row."""
+    import numpy as np
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    scale = 1.0 / d ** 0.5
+    block = block_cfg["block"]
+    layout = sparse_layout(block_cfg, h, s)
+    plan = sp.sparse_plan(layout, block)
+    if sp._route(torch.float32, d, block, "dq") != "tf32" or \
+            sp._route(torch.float32, d, block) != "fma":
+        fail(f"sparse fp32 {label}: dq and dk/dv do not take 3xTF32 or "
+             f"the forward not the FMA kernel")
+    mask = None
+    if lens is not None:
+        mask = torch.from_numpy(np.arange(s)[None] < lens[:, None]).cuda()
+    layers = []
+    for i in range(4):
+        _qkv, q, k, v, dout, _m = flash_case(
+            torch, torch.float32, b, s, h, d, seed=500 + i,
+            dout_scale=FLASH_DOUT_SCALE["float32"])
+        q, k, v, km = sp._prepare(q, k, v, mask, plan)
+        out, lse = sp._launch_fma_fwd(q, k, v, km, plan, causal, scale)
+        delta = (dout * out).sum(-1).transpose(1, 2).contiguous()
+        layers.append((q, k, v, dout, km, lse, delta, plan, causal, scale))
+    a = layers[0]
+    fwd_args = (*a[:3], a[4], plan, causal, scale)
+    small = SPARSE_SMALL_CAP16
+    for which in ("dq", "dkv"):
+        if not plan.work16(which, causal, small).n_split:
+            fail(f"sparse fp32 {label}: the {which} walks do not split at "
+                 f"cap {small}")
+
+    def dkv(fn, *args, **kw):
+        return torch.cat(fn(*args, **kw), -1)
+
+    outs = {"dq": [sp._launch_fma("dq", *a) for _ in range(2)],
+            "dkv": [dkv(sp._launch_fma, "dkv", *a) for _ in range(2)]}
+    for cap in (None, small):
+        tag = "" if cap is None else f" cap {cap}"
+        outs["dq_tf32" + tag] = [sp.sparse_attention_bwd_dq_tf32(
+            *a, cap=cap) for _ in range(2)]
+        outs["dkv_tf32" + tag] = [dkv(sp.sparse_attention_bwd_dkv_tf32, *a,
+                                      cap=cap) for _ in range(2)]
+    fwd = [sp._launch_fma_fwd(*fwd_args) for _ in range(2)]
+    ref_o, ref_lse = sp.sparse_fwd_reference(*fwd_args)
+    refs = {"dq": sp.sparse_bwd_dq_reference(*a),
+            "dkv": dkv(sp.sparse_bwd_dkv_reference, *a)}
+    torch.cuda.synchronize()
+    seen = ref_lse > sp.NEG_INF / 2
+    if not same_bits(torch, fwd[0][0], fwd[1][0]) or \
+            not same_bits(torch, fwd[0][1], fwd[1][1]):
+        fail(f"sparse fp32 fwd {label}: two launches differ")
+    errs = {"fwd": (fwd[0][0] - ref_o).abs().max().item()}
+    lse_err = (fwd[0][1] - ref_lse)[seen].abs().max().item()
+    if not errs["fwd"] <= KERNEL_TOL["float32"] or \
+            not lse_err <= SPARSE_LSE_TOL:
+        fail(f"sparse fp32 fwd {label}: o max |err| {errs['fwd']}, lse "
+             f"{lse_err}")
+    rels = {}
+    for key, (got, again) in outs.items():
+        ref = refs[key.split("_")[0].split()[0]]
+        top = ref.abs().max().item()
+        errs[key] = (got - ref).abs().max().item()
+        rels[key] = errs[key] / max(top, 1e-30)
+        if not same_bits(torch, got, again):
+            fail(f"sparse fp32 {key} {label}: two launches differ")
+        if not torch.isfinite(got).all() or \
+                not rels[key] <= KERNEL_TOL["float32"]:
+            fail(f"sparse fp32 {key} {label}: max |err| {errs[key]}, "
+                 f"{rels[key]} of the largest |value| {top}")
+    print(f"sparse_attention fp32 at {label} [{b}, {s}, {h}, {d}] "
+          f"{block_cfg['mode']} block {block}: held, bit-equal over two "
+          f"launches; the FMA forward's o max |err| {errs['fwd']:.3g} "
+          f"(atol 1e-5), lse {lse_err:.3g}; dq and dk/dv max |err| over the "
+          f"reference's largest |value| (limit 1e-5): "
+          f"{json.dumps({k: f'{v:.3g}' for k, v in rels.items()})}")
+    del outs, refs, fwd, ref_o, ref_lse, seen
+    torch.cuda.empty_cache()
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % len(layers)
+        return layers[it["i"]]
+
+    def call(which, how):
+        """One call of ``which`` ("fwd", "dq", "dkv") by ``how``: "plain",
+        "fma" or "tf32"."""
+        def go():
+            a = nxt()
+            if which == "fwd":
+                fa = (*a[:3], a[4], *a[7:])
+                return (sp.sparse_fwd_reference if how == "plain" else
+                        sp._launch_fma_fwd)(*fa)
+            if how == "plain":
+                return (sp.sparse_bwd_dq_reference if which == "dq" else
+                        sp.sparse_bwd_dkv_reference)(*a)
+            if how == "fma":
+                return sp._launch_fma(which, *a)
+            return (sp.sparse_attention_bwd_dq_tf32 if which == "dq" else
+                    sp.sparse_attention_bwd_dkv_tf32)(*a)
+        return go
+
+    # yardstick: SDPA in fp32 (the memory-efficient backend, pinned) with
+    # the layout-expanded boolean mask (one head's where every head has
+    # the same layout) on contiguous [B, H, S, D] copies
+    same = bool((layout == layout[:1]).all())
+    am = sp._dense_mask(layout[:1] if same else layout, block, "cuda")[None]
+    if causal:
+        am = am & torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+    if mask is not None:
+        am = am & mask[:, None, None, :]
+    backend = SDPBackend.EFFICIENT_ATTENTION
+    sdpa_in = []
+    for q, k, v, dout, *_ in layers[:2]:
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        with sdpa_kernel(backend):
+            o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+        sdpa_in.append((qt, kt, vt, o, dout.transpose(1, 2).contiguous()))
+    sit = {"i": 0}
+
+    def snxt():
+        sit["i"] = (sit["i"] + 1) % len(sdpa_in)
+        return sdpa_in[sit["i"]]
+
+    def sdpa_fwd():
+        qt, kt, vt = snxt()[:3]
+        with torch.no_grad(), sdpa_kernel(backend):
+            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+
+    def sdpa_bwd():
+        qt, kt, vt, o, dot = snxt()
+        torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
+
+    lib = {"fwd": device_ms(torch, sdpa_fwd, iters=5, warmup=2)[0],
+           "bwd": device_ms(torch, sdpa_bwd, iters=5, warmup=2)[0]}
+    del sdpa_in, am
+    torch.cuda.empty_cache()
+    if mask is None:
+        pairs = b * sparse_pairs(layout, block, causal)
+    else:   # a query row sees its layout row's keys its batch row keeps
+        dense = sp._dense_mask(layout, block, "cpu")
+        pairs = int(sum(dense[:, :, :int(n)].sum() for n in lens))
+    plain = {which: cuda_ms(call(which, "plain"), iters=2, warmup=1)
+             for which in ("fwd", "dq", "dkv")}
+    card = card_line()
+    out = {}
+    for row, which, how in (("fwd", "fwd", "fma"), ("dq", "dq", "fma"),
+                            ("dkv", "dkv", "fma"),
+                            ("dq_tf32", "dq", "tf32"),
+                            ("dkv_tf32", "dkv", "tf32")):
+        ms = device_ms(torch, call(which, how), iters=10, warmup=2)[0]
+        nbytes, flops = sparse_bytes_flops(layers[0][0], pairs / b, which)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / FP32_3XTF32_FLOPS
+        library = lib["fwd" if which == "fwd" else "bwd"]
+        rep = reports[row]
+        rep.update(ms=ms, plain_ms=plain[which], library_ms=library,
+                   bound_ms=max(t_bytes, t_ops) * 1e3,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   max_abs_err=max(v for k, v in errs.items()
+                                   if k.split()[0] == row))
+        out[row] = ms
+        extra = ""
+        if how == "tf32":
+            rep["fma_ms"] = out[which]
+            extra = (f", the FMA kernel on the same inputs {out[which]:.4f} "
+                     f"ms ({out[which] / ms:.2f}x)")
+        print(f"sparse_attention {row} ({how}) timing fp32 at {label} "
+              f"B={b} S={s} H={h} D={d} {block_cfg['mode']} block {block} "
+              f"{'causal' if causal else 'non-causal'}"
+              f"{'' if mask is None else ', key mask'} ({pairs} visible "
+              f"pairs; device time; {card}): kernel {ms:.4f} ms{extra}, "
+              f"plain {plain[which]:.4f} ms (host-paced), SDPA fp32 "
+              f"({backend.name}) with the mask "
+              f"{'fwd' if which == 'fwd' else 'bwd (dq+dk+dv)'} "
+              f"{library:.4f} ms, bound {rep['bound_ms']:.4f} ms ({nbytes} "
+              f"bytes / 3.35 TB/s, {flops:.0f} flops / 165 TFLOP/s, "
+              f"3xTF32), max |err| {rep['max_abs_err']:.3g}")
+    pair = out["dq_tf32"] + out["dkv_tf32"]
+    print(f"sparse_attention backward pair fp32 at {label} ({card}): 3xTF32 "
+          f"dq + dk/dv {pair:.4f} ms, FMA {out['dq'] + out['dkv']:.4f} ms "
+          f"({(out['dq'] + out['dkv']) / pair:.2f}x), SDPA's fp32 whole "
+          f"backward with the mask {lib['bwd']:.4f} ms "
+          f"({pair / lib['bwd']:.3f}x); FMA forward {out['fwd']:.4f} ms, "
+          f"SDPA's {lib['fwd']:.4f} ms ({out['fwd'] / lib['fwd']:.3f}x)")
+    del layers
+    torch.cuda.empty_cache()
+    return out
 
 
 def sweep_sparse_fwd(torch, sp):
@@ -4333,6 +4601,14 @@ KERNELS = (
      "deepspeed_tpu/ops/transformer/flash_attention.py:231"),
     ("flash_attention_bwd_dkv_d256", "flash_attention",
      "deepspeed_tpu/ops/transformer/flash_attention.py:287"),
+    ("sparse_attention_bwd_dq_tf32", "sparse_attention_tf32",
+     "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:147"),
+    ("sparse_attention_bwd_dkv_tf32", "sparse_attention_tf32",
+     "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:194"),
+    ("sparse_attention_bwd_dq_tf32_block16", "sparse_attention_tf32",
+     "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:147"),
+    ("sparse_attention_bwd_dkv_tf32_block16", "sparse_attention_tf32",
+     "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:194"),
 )
 # the flash kernels of the 16-bit training step: the tensor-core forward,
 # dq and dk/dv; the FMA kernels take head dims above 128 only
@@ -4348,7 +4624,7 @@ FUSED_LN_TC_NAMES = FUSED_LN_ROUTES["fused_ln_tc"]
 # the sources whose ptxas report is printed kernel by kernel
 TC_SOURCES = ("flash_attention_tc", "fused_ln_tc", "sparse_attention_tc",
               "sparse_attention_tc16", "chunked_prefill",
-              "flash_attention_tf32")
+              "flash_attention_tf32", "sparse_attention_tf32")
 
 
 # ---------------------------------------------------------------------------
@@ -4619,6 +4895,9 @@ def training_counters():
             "sparse_attention_bwd_dq_tc16": sp.sparse_attention_bwd_dq_tc16,
             "sparse_attention_bwd_dkv_tc16":
                 sp.sparse_attention_bwd_dkv_tc16,
+            "sparse_attention_bwd_dq_tf32": sp.sparse_attention_bwd_dq_tf32,
+            "sparse_attention_bwd_dkv_tf32":
+                sp.sparse_attention_bwd_dkv_tf32,
             "fused_adam": fused_adam_apply,
             "fused_ln_matmul_fwd": fused.ln_matmul_fwd,
             "fused_ln_matmul_bwd": fused.ln_matmul_bwd,
@@ -4922,9 +5201,10 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None,
     rate with the engines' seeds (one ``rng_seed``, so the same seeds):
     the same masks on both paths (the plain attention uses the kernels'
     mask function). Dense, the kernels' run must launch the 3xTF32
-    forward, dq and dk/dv and never the FMA ones. Returns the kernels'
-    run's launches, every count set to 0 just before it (the fp32 path's
-    rows of the kernels line)."""
+    forward, dq and dk/dv and never the FMA ones; sparse, the 3xTF32 dq
+    and dk/dv and never the FMA ones (the forward is FMA's). Returns the
+    kernels' run's launches, every count set to 0 just before it (the
+    fp32 path's rows of the kernels line)."""
     import numpy as np
 
     import deepspeed_tpu_torch as dtt
@@ -4993,6 +5273,11 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None,
                     or any(launches[n] for n in FLASH_FMA_NAMES)):
                 fail(f"fp32 comparison: the forward, dq and dk/dv did not "
                      f"take the 3xTF32 kernels alone: {launches}")
+            if sparse and (
+                    not all(launches[n] for n in SPARSE_TF32_NAMES)
+                    or any(launches[n] for n in SPARSE_FMA_NAMES)):
+                fail(f"fp32 comparison: the sparse dq and dk/dv did not "
+                     f"take the 3xTF32 kernels alone: {launches}")
         runs[label] = (grads, losses)
         names = engine.param_names
         del engine, model
@@ -5038,7 +5323,7 @@ FP32_PICK = ("flash_fwd_tf32_kernel", "flash_bwd_dq_tf32_kernel",
 
 
 def check_fp32_training(torch, card):
-    """Phase 7b (``--only fp32`` runs it alone): full-width GPT-2 trained in
+    """Phase 7b (``--only fp32`` runs it and 5b): full-width GPT-2 trained in
     fp32, DeepSpeed's default precision: ``make_gpt("gpt2",
     dtype=torch.float32)`` (12 layers, width 768, its default dropout 0.1;
     the model's compute dtype is its own field, bf16 by default, as in
@@ -5137,13 +5422,16 @@ SPARSE_KERNELS = ("sparse_attention_fwd_tc",) + SPARSE_TC_NAMES
 LONG_FMA_STEP_MS, LONG_FMA_RATIO = 583.05, 1.6777
 
 
-def long_engine(torch, config):
+def long_engine(torch, config, **over):
+    """bench_gpt2_long's engine (dropout 0) with ``config``, its fixed
+    batch; ``over``: further GPTConfig fields."""
     import numpy as np
 
     import deepspeed_tpu_torch as dtt
     from deepspeed_tpu_torch.models import init_gpt_params, make_gpt
 
-    model, cfg = make_gpt("gpt2", dropout_rate=0.0, max_seq_len=SPARSE_SEQ)
+    model, cfg = make_gpt("gpt2", dropout_rate=0.0, max_seq_len=SPARSE_SEQ,
+                          **over)
     engine, *_ = dtt.initialize(model=model, params=init_gpt_params(
         cfg, seed=0), config=config)
     gas = config["gradient_accumulation_steps"]
@@ -5222,6 +5510,81 @@ def check_long_training(torch, card):
 
 
 # ---------------------------------------------------------------------------
+# 5b. long-sequence training in fp32: DeepSpeed's default precision
+# ---------------------------------------------------------------------------
+
+# LONG_CONFIG with no bf16 block and no bf16 accumulator: the engine keeps
+# fp32 and the model computes in fp32
+LONG_FP32_CONFIG = {k: v for k, v in LONG_CONFIG.items()
+                    if k not in ("bf16", "data_types")}
+# the profiled step's device ms: the FMA forward, the 3xTF32 dq and dk/dv
+# and their split pass, the FMA dq and dk/dv (none should run) and every
+# GEMM kernel (cuBLAS's names hold "gemm")
+LONG_FP32_PICK = ("sparse_fwd_kernel", "sparse_dq_tf32_kernel",
+                  "sparse_dkv_tf32_kernel", "sparse_reduce_tf32_kernel",
+                  "sparse_bwd_dq_kernel", "sparse_bwd_dkv_kernel", "gemm")
+
+
+def check_long_fp32_training(torch, card):
+    """Phase 5b (``--only fp32`` runs it too): full-width GPT-2 at seq
+    16384 in fp32, ``make_gpt("gpt2", dtype=torch.float32)`` at
+    bench_gpt2_long's dropout 0 through ``initialize`` with
+    LONG_FP32_CONFIG: the FMA forward (#8) and the 3xTF32 dq and dk/dv
+    launch 48 times each a step (12 layers x GAS 4), the FMA dq and dk/dv,
+    every other attention kernel and every plain version never, fused
+    Adam once, the loss falls. Prints step ms (median of 5 after 2
+    warm-up), tokens/s, peak GB, one profiled step's busy ms, the idle
+    share against it and the device ms a step of LONG_FP32_PICK."""
+    engine, model, cfg, batches = long_engine(torch, LONG_FP32_CONFIG,
+                                              dtype=torch.float32)
+    if engine.precision.dtype != torch.float32 or \
+            model.cfg.sparse_attention != SPARSE_LONG:
+        fail(f"long fp32 training: precision {engine.precision.name}, "
+             f"sparse_attention {model.cfg.sparse_attention}")
+    gas = LONG_CONFIG["gradient_accumulation_steps"]
+    micro = LONG_CONFIG["train_micro_batch_size_per_gpu"]
+    per_step = {name: 0 for name in training_counters()}
+    per_step.update({name: cfg.num_layers * gas for name in
+                     ("sparse_attention_fwd",) + SPARSE_TF32_NAMES})
+    per_step["fused_adam"] = 1
+    step_ms, losses, launches = counted_steps(
+        torch, engine, batches, per_step, "long fp32 training", LONG_WARMUP,
+        LONG_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = median(step_ms)
+    tokens = gas * micro * SPARSE_SEQ
+    rec = {"model": "gpt2", "seq": SPARSE_SEQ, "micro_batch": micro,
+           "gas": gas, "dtype": "float32",
+           "precision": engine.precision.name, "fused_update": True,
+           "sparse_attention": SPARSE_LONG, "steps": LONG_STEPS,
+           "step_ms_median": med, "step_ms_min": min(step_ms),
+           "step_ms_max": max(step_ms), "step_ms": step_ms,
+           "tokens_per_s": tokens / (med / 1e3), "peak_memory_gb": peak_gb,
+           "losses": losses,
+           "launches": {n: c for n, c in launches.items() if c},
+           "card": card}
+    stats = profile_step(torch, engine, batches, "long fp32 training",
+                         pick=LONG_FP32_PICK)
+    if stats is not None:
+        busy = stats["device_busy_ms_per_step"]
+        rec.update(device_busy_ms=busy, device_idle_share=1.0 - busy / med,
+                   profiled_idle_share=stats["device_idle_share"],
+                   kernels_per_step=stats["kernels_per_step"],
+                   device_ms_per_step=stats["picked_ms_per_step"])
+    print(f"long fp32 training gpt2 seq {SPARSE_SEQ} bigbird "
+          f"(initialize -> train_batch, no bf16 block): {json.dumps(rec)}")
+    print(f"long fp32 training ({card}): step {med:.2f} ms, "
+          f"{rec['tokens_per_s']:.1f} tokens/s, peak {peak_gb:.3f} GB; "
+          f"device busy {rec.get('device_busy_ms')} ms, idle share "
+          f"{rec.get('device_idle_share')}; device ms a step "
+          f"{json.dumps(rec.get('device_ms_per_step'))}")
+    rec["launches"] = launches
+    del engine, model, batches
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # 8. BERT-large pretraining
 # ---------------------------------------------------------------------------
 
@@ -5252,12 +5615,17 @@ SPARSE_PROFILE_KERNELS = ("sparse_fwd_tc16_kernel",
                           "sparse_dq_tc16_kernel", "sparse_dkv_tc16_kernel",
                           "sparse_reduce16_kernel", "sparse_fwd_kernel",
                           "sparse_bwd_dq_kernel", "sparse_bwd_dkv_kernel")
-SPARSE_BLOCK16_ROWS = {"fwd": "sparse_attention_fwd_block16",
-                       "dq": "sparse_attention_bwd_dq_block16",
-                       "dkv": "sparse_attention_bwd_dkv_block16",
-                       "fwd_tc16": "sparse_attention_fwd_tc16",
+SPARSE_BLOCK16_ROWS = {"fwd_tc16": "sparse_attention_fwd_tc16",
                        "dq_tc16": "sparse_attention_bwd_dq_tc16",
                        "dkv_tc16": "sparse_attention_bwd_dkv_tc16"}
+# fp32 at that shape: the FMA forward, dq and dk/dv (the dq and dk/dv
+# rows are the first versions) and the 3xTF32 dq and dk/dv
+SPARSE_FP32_BLOCK16_ROWS = {
+    "fwd": "sparse_attention_fwd_block16",
+    "dq": "sparse_attention_bwd_dq_block16",
+    "dkv": "sparse_attention_bwd_dkv_block16",
+    "dq_tf32": "sparse_attention_bwd_dq_tf32_block16",
+    "dkv_tf32": "sparse_attention_bwd_dkv_tf32_block16"}
 
 
 def bert_batches(torch, cfg, gas, micro, seq, padded=False):
@@ -5455,8 +5823,11 @@ def time_sparse_block16(torch, reports, block=16):
     mask (the forward, and its whole backward for dq and dk/dv) and the
     bound (pairs counted from the layout and the mask). Prints each
     16-row work list's items, longest walk, split items and masked share
-    (the forward walks dq's). Fills the kernels line's rows in
-    ``reports`` (None: print only). Returns the device ms by row."""
+    (the forward walks dq's). Fills the kernels line's 16-row rows in
+    ``reports`` (None: print only); with ``reports``, then the fp32
+    readings at this shape (:func:`time_sparse_fp32`: the FMA forward, dq
+    and dk/dv rows and the 3xTF32 dq and dk/dv rows). Returns the device
+    ms by row."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -5630,7 +6001,9 @@ def time_sparse_block16(torch, reports, block=16):
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = flops / BF16_FLOPS
         library = lib["fwd" if which == "fwd" else "bwd"]
-        rep = {} if reports is None else reports[SPARSE_BLOCK16_ROWS[row]]
+        # the FMA kernels' rows take their fp32 readings (below)
+        rep = ({} if reports is None or how == "fma" else
+               reports[SPARSE_BLOCK16_ROWS[row]])
         err = max(v for key, v in errs.items() if key.split()[0] == row)
         rep.update(ms=ms, plain_ms=plain[which], library_ms=library,
                    bound_ms=max(t_bytes, t_ops) * 1e3,
@@ -5665,13 +6038,20 @@ def time_sparse_block16(torch, reports, block=16):
           f"expanded mask {lib['bwd']:.4f} ms ({pair / lib['bwd']:.3f}x)")
     del layers, sdpa_in
     torch.cuda.empty_cache()
+    if reports is not None:
+        fp32 = time_sparse_fp32(
+            torch, sp, {k: reports[n]
+                        for k, n in SPARSE_FP32_BLOCK16_ROWS.items()},
+            "the sparse BERT shape", b, s, h, d, cfg, False, lens)
+        out.update({f"{k} fp32": ms for k, ms in fp32.items()})
     return out
 
 
 def check_bert_fp32(torch, seq, micro, sparse=None):
     """fp32 on the card, bert-large width at 2 layers, GAS 2, padded rows:
-    the kernels' path (flash #3-#5 on 3xTF32, or with ``sparse`` #8-#10
-    on the FMA route) against the plain path (``attention_impl="xla"``,
+    the kernels' path (flash #3-#5 on 3xTF32, or with ``sparse`` #8 on
+    the FMA route and #9/#10 on 3xTF32, never their FMA kernels) against
+    the plain path (``attention_impl="xla"``,
     or the sparse block's ``impl: "xla"``), both with LAMB: the first
     step's accumulated gradients leaf by leaf to 1e-4 of the leaf's norm,
     the 3 losses to 1e-5 relative, as :func:`check_training_fp32` holds
@@ -5724,6 +6104,11 @@ def check_bert_fp32(torch, seq, micro, sparse=None):
         if label == "kernels":
             launches = {n: c.launches - counts[n]
                         for n, c in counters.items()}
+            if sparse and (
+                    not all(launches[n] for n in SPARSE_TF32_NAMES)
+                    or any(launches[n] for n in SPARSE_FMA_NAMES)):
+                fail(f"BERT fp32 comparison: the sparse dq and dk/dv did "
+                     f"not take the 3xTF32 kernels alone: {launches}")
         runs[label] = (grads, losses)
         names = engine.param_names
         del engine, model
@@ -5754,7 +6139,8 @@ def check_bert(torch, card, reports):
     kernels' device ms, and the kernels at this shape), then the fp32
     comparisons. Fills the kernels line's BERT rows' launches (each
     run's, every count set to 0 just before it; the FMA forward, dq and
-    dk/dv ``_block16`` rows count the sparse fp32 comparison)."""
+    dk/dv ``_block16`` rows and the 3xTF32 dq and dk/dv ``_tf32_block16``
+    rows count the sparse fp32 comparison)."""
     from deepspeed_tpu_torch.models import BERT_CONFIGS, init_bert_params
 
     t0 = time.perf_counter()
@@ -5794,10 +6180,12 @@ def check_bert(torch, card, reports):
           f"{json.dumps(kern32)}")
     check_bert_fp32(torch, 128, 8)
     fp32 = check_bert_fp32(torch, 512, 2, sparse=BERT_SPARSE)
-    # the FMA forward, dq and dk/dv rows: fp32's route at block 16
-    for key, name in zip(("fwd", "dq", "dkv"),
-                         ("sparse_attention_fwd",) + SPARSE_FMA_NAMES):
-        reports[SPARSE_BLOCK16_ROWS[key]]["launches"] = fp32[name]
+    # the fp32 rows at block 16: the FMA forward, dq and dk/dv (0: the
+    # first versions) and the 3xTF32 dq and dk/dv
+    for key, name in zip(("fwd", "dq", "dkv", "dq_tf32", "dkv_tf32"),
+                         ("sparse_attention_fwd",) + SPARSE_FMA_NAMES
+                         + SPARSE_TF32_NAMES):
+        reports[SPARSE_FP32_BLOCK16_ROWS[key]]["launches"] = fp32[name]
     print(f"BERT phase times: the sparse kernels' holds and timings "
           f"{t2 - t1:.1f} s, the fp32 comparisons "
           f"{time.perf_counter() - t2:.1f} s")
@@ -6370,7 +6758,9 @@ def main() -> int:
             "dq": reports["sparse_attention_bwd_dq"],
             "dkv": reports["sparse_attention_bwd_dkv"],
             "dq_tc": reports["sparse_attention_bwd_dq_tc"],
-            "dkv_tc": reports["sparse_attention_bwd_dkv_tc"]})
+            "dkv_tc": reports["sparse_attention_bwd_dkv_tc"],
+            "dq_tf32": reports["sparse_attention_bwd_dq_tf32"],
+            "dkv_tf32": reports["sparse_attention_bwd_dkv_tf32"]})
         # the 16-row rows' errors over phase 2d's cases; phase 8 adds the
         # sparse BERT shape's and times them
         for name, keys in zip(SPARSE_TC16_NAMES,
@@ -6392,6 +6782,7 @@ def main() -> int:
             check_ckpt(torch, card)
         if "fp32" in only:
             check_fp32_training(torch, card)
+            check_long_fp32_training(torch, card)
         return 0
     check_fused_ln(torch, {
         ("bfloat16", "fwd"): reports["fused_ln_matmul_fwd_tc"],
@@ -6441,9 +6832,14 @@ def main() -> int:
     long = check_long_training(torch, card)
     for name in SPARSE_KERNELS:
         reports[name]["launches"] = long["launches"][name]
-    fp32 = check_training_fp32(torch, seq=4096, micro=1, sparse=SPARSE_LONG)
-    for name in ("sparse_attention_fwd",) + SPARSE_FMA_NAMES:
-        reports[name]["launches"] = fp32[name]
+    check_training_fp32(torch, seq=4096, micro=1, sparse=SPARSE_LONG)
+
+    # 5b. long-sequence training in fp32: the fp32 sparse rows count its
+    # timed steps (the FMA dq and dk/dv 0)
+    long32 = check_long_fp32_training(torch, card)
+    for name in ("sparse_attention_fwd",) + SPARSE_FMA_NAMES \
+            + SPARSE_TF32_NAMES:
+        reports[name]["launches"] = long32["launches"][name]
 
     # 6. training with the fused LayerNorm + projection sites, its one-site
     # variants and its fp32 comparison

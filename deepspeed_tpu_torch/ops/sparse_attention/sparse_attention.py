@@ -16,9 +16,9 @@ no visible key gives 0 (and lse -1e30), not NaN.
   :func:`sparse_attention_bwd_dkv` (#10). Per (head, query block) they
   walk only that row's active key blocks, and dk/dv walk the transposed
   lists, so compute and memory traffic scale with the layout's density.
-  :func:`_route` picks the kernels of all three (``_route_bwd`` is the
-  same function). bfloat16 and float16 with ``head_dim`` a multiple of 8
-  up to 128 and a layout block that is a multiple of 64 run the
+  :func:`_route` picks each kernel's route (``_route_bwd`` is its view
+  for dq and dk/dv). bfloat16 and float16 with ``head_dim`` a multiple of
+  8 up to 128 and a layout block that is a multiple of 64 run the
   tensor-core kernels of ``csrc/sparse_attention_tc.cu``
   (:func:`sparse_attention_fwd_tc`, :func:`sparse_attention_bwd_dq_tc`,
   :func:`sparse_attention_bwd_dkv_tc`), which walk the work lists of
@@ -29,11 +29,16 @@ no visible key gives 0 (and lse -1e30), not NaN.
   run the 16-row tensor-core kernels of ``csrc/sparse_attention_tc16.cu``
   (:func:`sparse_attention_fwd_tc16`, :func:`sparse_attention_bwd_dq_tc16`,
   :func:`sparse_attention_bwd_dkv_tc16`) over :meth:`SparsePlan.work16`
-  (the forward walks dq's list). float32 at every block runs the
-  fp32-FMA kernels of ``csrc/sparse_attention.cu``. On a CUDA
-  tensor each wrapper launches its kernel (built at first use) or
-  raises; it never falls back. On a CPU tensor each dispatching wrapper
-  runs its plain version (:func:`sparse_fwd_reference`,
+  (the forward walks dq's list). float32 with those head dims at any
+  block that is a multiple of 16 runs dq and dk/dv as 3xTF32 on the
+  tensor cores (``csrc/sparse_attention_tf32.cu``:
+  :func:`sparse_attention_bwd_dq_tf32`,
+  :func:`sparse_attention_bwd_dkv_tf32`, over the same 16-row lists) and
+  the forward on the fp32-FMA kernel of ``csrc/sparse_attention.cu``,
+  whose dq and dk/dv are the 3xTF32 kernels' first versions and run on no
+  path. On a CUDA tensor each wrapper launches its kernel (built at first
+  use) or raises; it never falls back. On a CPU tensor each dispatching
+  wrapper runs its plain version (:func:`sparse_fwd_reference`,
   :func:`sparse_bwd_dq_reference`, :func:`sparse_bwd_dkv_reference`),
   which the CPU tests hold against the JAX kernels and ``chip_smoke.py``
   holds the CUDA kernels against.
@@ -47,7 +52,8 @@ in ``sparse_attention_fwd``, ``sparse_attention_bwd_dq`` and
 ``sparse_attention_bwd_dkv``, the tensor-core ones in
 ``sparse_attention_fwd_tc``, ``sparse_attention_bwd_dq_tc``,
 ``sparse_attention_bwd_dkv_tc``, ``sparse_attention_fwd_tc16``,
-``sparse_attention_bwd_dq_tc16`` and ``sparse_attention_bwd_dkv_tc16``.
+``sparse_attention_bwd_dq_tc16``, ``sparse_attention_bwd_dkv_tc16``,
+``sparse_attention_bwd_dq_tf32`` and ``sparse_attention_bwd_dkv_tf32``.
 """
 
 import ctypes
@@ -72,6 +78,7 @@ __all__ = ["NEG_INF", "layout_to_dense_mask", "layout_kv_indices",
            "sparse_attention_bwd_dq", "sparse_attention_bwd_dkv",
            "sparse_attention_bwd_dq_tc", "sparse_attention_bwd_dkv_tc",
            "sparse_attention_bwd_dq_tc16", "sparse_attention_bwd_dkv_tc16",
+           "sparse_attention_bwd_dq_tf32", "sparse_attention_bwd_dkv_tf32",
            "SPLIT_CAP", "WorkList", "WorkList16"]
 
 NEG_INF = -1e30
@@ -93,6 +100,8 @@ SPLIT_CAP = 64
 IMPLS = ("auto", "pallas", "xla")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _FN = {}
+# the libraries that walk SparsePlan.work16's 16-row lists
+_ROWS16 = ("sparse_attention_tc16", "sparse_attention_tf32")
 
 
 def _tc_operands(dtype: torch.dtype, head_dim: int) -> bool:
@@ -100,17 +109,28 @@ def _tc_operands(dtype: torch.dtype, head_dim: int) -> bool:
             and 8 <= head_dim <= MAX_HEAD_DIM)
 
 
-def _route(dtype: torch.dtype, head_dim: int, block: int) -> str:
-    """Which kernels compute the forward (o, lse), dq and dk/dv on CUDA:
-    ``"tc"`` (the tensor cores, ``csrc/sparse_attention_tc.cu``) for
-    bfloat16 and float16 with ``head_dim`` a multiple of 8 in [8, 128] and
-    a layout ``block`` that is a multiple of 64 (a 64-row tile never
-    straddles two layout rows); ``"tc16"``
-    (``csrc/sparse_attention_tc16.cu``: 16-row sub-blocks on the tensor
-    cores) for the same dtypes and head dims at a block that is a
-    multiple of 16 and not of 64; ``"fma"``
+def _route(dtype: torch.dtype, head_dim: int, block: int,
+           which: str = "fwd") -> str:
+    """Which kernel computes the forward (o, lse), dq or dk/dv (``which``
+    "fwd", "dq" or "dkv") on CUDA: ``"tc"`` (the tensor cores,
+    ``csrc/sparse_attention_tc.cu``) for bfloat16 and float16 with
+    ``head_dim`` a multiple of 8 in [8, 128] and a layout ``block`` that is
+    a multiple of 64 (a 64-row tile never straddles two layout rows);
+    ``"tc16"`` (``csrc/sparse_attention_tc16.cu``: 16-row sub-blocks on
+    the tensor cores) for the same dtypes and head dims at a block that is
+    a multiple of 16 and not of 64; ``"tf32"``
+    (``csrc/sparse_attention_tf32.cu``: 3xTF32 on the tensor cores over
+    the 16-row lists) for float32 dq and dk/dv at those head dims and any
+    block that is a multiple of 16; ``"fma"``
     (``csrc/sparse_attention.cu``) for everything else the kernels take:
-    float32 at every block."""
+    the float32 forward."""
+    if which not in ("fwd", "dq", "dkv"):
+        raise ValueError(f"the sparse kernels are fwd, dq or dkv, got "
+                         f"{which!r}")
+    if dtype == torch.float32:
+        on_grid = (head_dim % 8 == 0 and 8 <= head_dim <= MAX_HEAD_DIM
+                   and block % SUB_TILE == 0)
+        return "tf32" if which != "fwd" and on_grid else "fma"
     if not _tc_operands(dtype, head_dim):
         return "fma"
     if block % TC_TILE == 0:
@@ -118,8 +138,9 @@ def _route(dtype: torch.dtype, head_dim: int, block: int) -> str:
     return "tc16" if block % SUB_TILE == 0 else "fma"
 
 
-# the backward's route: the forward's, one function
-_route_bwd = _route
+def _route_bwd(dtype: torch.dtype, head_dim: int, block: int) -> str:
+    """The backward's route: :func:`_route`'s for dq, which dk/dv share."""
+    return _route(dtype, head_dim, block, "dq")
 
 
 def layout_to_dense_mask(layout: np.ndarray, block: int) -> np.ndarray:
@@ -582,27 +603,29 @@ def sparse_bwd_dkv_reference(q, k, v, dout, key_mask, lse, delta,
 def _kernel(name: str = "sparse_attention"):
     """The ctypes functions of ``csrc/<name>.cu``: ``sparse_attention``
     (forward, dq, dk/dv on FMAs), ``sparse_attention_tc`` (forward, dq,
-    dk/dv on the tensor cores) or ``sparse_attention_tc16`` (forward, dq,
-    dk/dv on the tensor cores over 16-row blocks), built and loaded at
-    first use."""
+    dk/dv on the tensor cores), ``sparse_attention_tc16`` (forward, dq,
+    dk/dv on the tensor cores over 16-row blocks) or
+    ``sparse_attention_tf32`` (dq, dk/dv for fp32 as 3xTF32 over 16-row
+    blocks), built and loaded at first use."""
     if name not in _FN:
         lib = build.load(name)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # B, H, S, D, block, scale, causal (then, on the tensor-core
-        # route, part, splits, n_split, n_slots), dtype, stream
+        # routes, part, splits, n_split, n_slots), dtype, stream
         shape = [i32] * 5 + [f32, i32]
         end = [i32, ptr]
         tail = (shape + end if name == "sparse_attention" else
                 shape + [ptr, ptr, i32, i32] + end)
         # the index lists' width or n_items (then, over 16-row blocks,
         # walk_max)
-        count = [i32] * (2 if name == "sparse_attention_tc16" else 1)
-        fns = {"fwd": (getattr(lib, f"{name}_fwd"),
-                       [ptr] * 6 + count + [ptr] * 3 + tail)}
-        fns["dq"] = (getattr(lib, f"{name}_bwd_dq"),
-                     [ptr] * 7 + count + [ptr] * 4 + tail)
-        fns["dkv"] = (getattr(lib, f"{name}_bwd_dkv"),
-                      [ptr] * 7 + count + [ptr] * 5 + tail)
+        count = [i32] * (2 if name in _ROWS16 else 1)
+        fns = {"dq": (getattr(lib, f"{name}_bwd_dq"),
+                      [ptr] * 7 + count + [ptr] * 4 + tail),
+               "dkv": (getattr(lib, f"{name}_bwd_dkv"),
+                       [ptr] * 7 + count + [ptr] * 5 + tail)}
+        if name != "sparse_attention_tf32":   # the fp32 forward is FMA's
+            fns["fwd"] = (getattr(lib, f"{name}_fwd"),
+                          [ptr] * 6 + count + [ptr] * 3 + tail)
         out = {}
         for key, (fn, argtypes) in fns.items():
             fn.argtypes = argtypes
@@ -801,13 +824,14 @@ def _launch_tc(which, q, k, v, dout, key_mask, lse, delta, plan, causal,
                scale, cap, name="sparse_attention_tc"):
     """dq or dk, dv by the tensor-core kernels of ``csrc/<name>.cu``
     (``sparse_attention_tc`` over the plan's 64-row work list at ``cap``,
-    ``sparse_attention_tc16`` over its 16-row one); the split walks' fp32
-    partials (64 rows an item either way) go to scratch allocated here."""
+    ``sparse_attention_tc16`` and ``sparse_attention_tf32`` over its 16-row
+    one); the split walks' fp32 partials (64 rows an item either way) go to
+    scratch allocated here."""
     b, s, h, d = q.shape
     nout = 1 if which == "dq" else 2
     outs = [torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
             for _ in range(nout)]
-    rows16 = name == "sparse_attention_tc16"
+    rows16 = name in _ROWS16
     work, items, tiles, splits = plan.work_on(q.device, which, causal, cap,
                                               rows16=rows16)
     count = (work.n_items, work.walk_max) if rows16 else (work.n_items,)
@@ -856,23 +880,40 @@ def _require_tc16(q, plan: SparsePlan, what: str):
                          f"runs on CUDA tensors, got {q.device}")
 
 
+def _require_tf32(q, plan: SparsePlan, what: str):
+    """The 3xTF32 wrappers' walls: inputs of their route, on CUDA."""
+    if _route(q.dtype, q.shape[-1], plan.block, what) != "tf32":
+        raise ValueError(
+            f"the 3xTF32 sparse {what} kernel takes float32 with head_dim a "
+            f"multiple of 8 in [8, {MAX_HEAD_DIM}] and a layout block that "
+            f"is a multiple of {SUB_TILE}; got {q.dtype}, head_dim "
+            f"{q.shape[-1]}, block {plan.block}")
+    if q.device.type != "cuda":
+        raise ValueError(f"the 3xTF32 sparse {what} kernel runs on CUDA "
+                         f"tensors, got {q.device}")
+
+
 def sparse_attention_bwd_dq(q, k, v, dout, key_mask, lse, delta,
                             plan: SparsePlan, causal: bool, scale: float):
     """dq (kernel #9) on the kernel :func:`_route` picks: ``dout``
     contiguous [B, S, H, D]; ``lse`` and ``delta`` fp32 [B, H, S].
     Returns dq, contiguous [B, S, H, D]. The FMA kernel's launches count
-    here, the tensor-core kernels' in :func:`sparse_attention_bwd_dq_tc`
-    and :func:`sparse_attention_bwd_dq_tc16`; on the CPU, the plain
-    version (none counts)."""
+    here, the tensor-core kernels' in :func:`sparse_attention_bwd_dq_tc`,
+    :func:`sparse_attention_bwd_dq_tc16` and
+    :func:`sparse_attention_bwd_dq_tf32`; on the CPU, the plain version
+    (none counts)."""
     if not _on_cuda(q, "dq"):
         return sparse_bwd_dq_reference(q, k, v, dout, key_mask, lse, delta,
                                        plan, causal, scale)
-    route = _route(q.dtype, q.shape[-1], plan.block)
+    route = _route(q.dtype, q.shape[-1], plan.block, "dq")
     if route == "tc":
         return sparse_attention_bwd_dq_tc(q, k, v, dout, key_mask, lse,
                                           delta, plan, causal, scale)
     if route == "tc16":
         return sparse_attention_bwd_dq_tc16(q, k, v, dout, key_mask, lse,
+                                            delta, plan, causal, scale)
+    if route == "tf32":
+        return sparse_attention_bwd_dq_tf32(q, k, v, dout, key_mask, lse,
                                             delta, plan, causal, scale)
     dq = _launch_fma("dq", q, k, v, dout, key_mask, lse, delta, plan,
                      causal, scale)
@@ -917,18 +958,22 @@ def sparse_attention_bwd_dkv(q, k, v, dout, key_mask, lse, delta,
     """dk and dv (kernel #10) on the kernel :func:`_route` picks,
     walking the transposed lists. Returns dk, dv, contiguous [B, S, H, D].
     The FMA kernel's launches count here, the tensor-core kernels' in
-    :func:`sparse_attention_bwd_dkv_tc` and
-    :func:`sparse_attention_bwd_dkv_tc16`; on the CPU, the plain
+    :func:`sparse_attention_bwd_dkv_tc`,
+    :func:`sparse_attention_bwd_dkv_tc16` and
+    :func:`sparse_attention_bwd_dkv_tf32`; on the CPU, the plain
     version."""
     if not _on_cuda(q, "dkv"):
         return sparse_bwd_dkv_reference(q, k, v, dout, key_mask, lse, delta,
                                         plan, causal, scale)
-    route = _route(q.dtype, q.shape[-1], plan.block)
+    route = _route(q.dtype, q.shape[-1], plan.block, "dkv")
     if route == "tc":
         return sparse_attention_bwd_dkv_tc(q, k, v, dout, key_mask, lse,
                                            delta, plan, causal, scale)
     if route == "tc16":
         return sparse_attention_bwd_dkv_tc16(q, k, v, dout, key_mask, lse,
+                                             delta, plan, causal, scale)
+    if route == "tf32":
+        return sparse_attention_bwd_dkv_tf32(q, k, v, dout, key_mask, lse,
                                              delta, plan, causal, scale)
     dk, dv = _launch_fma("dkv", q, k, v, dout, key_mask, lse, delta, plan,
                          causal, scale)
@@ -966,6 +1011,40 @@ def sparse_attention_bwd_dkv_tc16(q, k, v, dout, key_mask, lse, delta,
     return dk, dv
 
 
+def sparse_attention_bwd_dq_tf32(q, k, v, dout, key_mask, lse, delta,
+                                 plan: SparsePlan, causal: bool,
+                                 scale: float, cap: Optional[int] = None):
+    """dq for float32 as 3xTF32 on the tensor cores (``head_dim`` a
+    multiple of 8 up to 128, any layout block that is a multiple of 16,
+    CUDA tensors; anything else raises ValueError): a block of 4 warps
+    owns up to 4 query blocks of 16 rows of one head
+    (:meth:`SparsePlan.work16`) and streams 2 gathered key blocks a step;
+    walks longer than ``cap`` steps of 64 rows (:data:`SPLIT_CAP` by
+    default) split, their pieces summed by a second pass in piece order.
+    Inputs and output as :func:`sparse_attention_bwd_dq`."""
+    _require_tf32(q, plan, "dq")
+    dq = _launch_tc("dq", q, k, v, dout, key_mask, lse, delta, plan, causal,
+                    scale, cap, "sparse_attention_tf32")
+    sparse_attention_bwd_dq_tf32.launches += 1
+    return dq
+
+
+def sparse_attention_bwd_dkv_tf32(q, k, v, dout, key_mask, lse, delta,
+                                  plan: SparsePlan, causal: bool,
+                                  scale: float, cap: Optional[int] = None):
+    """dk and dv for float32 as 3xTF32 on the tensor cores (the walls of
+    :func:`sparse_attention_bwd_dq_tf32`): a block of 4 warps owns up to 4
+    key blocks of 16 rows of one head, grouped by equal lists, and streams
+    gathered query blocks with their dO, lse and delta; a walk longer than
+    ``cap`` steps splits, its pieces summed by a second pass in piece
+    order. Inputs and outputs as :func:`sparse_attention_bwd_dkv`."""
+    _require_tf32(q, plan, "dkv")
+    dk, dv = _launch_tc("dkv", q, k, v, dout, key_mask, lse, delta, plan,
+                        causal, scale, cap, "sparse_attention_tf32")
+    sparse_attention_bwd_dkv_tf32.launches += 1
+    return dk, dv
+
+
 sparse_attention_fwd.launches = 0
 sparse_attention_fwd_tc.launches = 0
 sparse_attention_fwd_tc16.launches = 0
@@ -975,13 +1054,16 @@ sparse_attention_bwd_dkv.launches = 0
 sparse_attention_bwd_dkv_tc.launches = 0
 sparse_attention_bwd_dq_tc16.launches = 0
 sparse_attention_bwd_dkv_tc16.launches = 0
+sparse_attention_bwd_dq_tf32.launches = 0
+sparse_attention_bwd_dkv_tf32.launches = 0
 
 
 class _SparseAttention(torch.autograd.Function):
     """The kernels with their gradient (the JAX ``_sparse_vjp_fn``): the
     forward saves ``out`` and ``lse``; the backward takes ``delta =
     rowsum(dO * out)`` in fp32 from the output in its dtype, then runs dq
-    and dk/dv on the route :func:`_route` picks."""
+    and dk/dv on the routes :func:`_route` picks for them (for float32 the
+    3xTF32 kernels, over the FMA forward's lse)."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, plan, causal, scale):

@@ -18,9 +18,10 @@ on the CPU:
   step, split pieces summed in piece order) against the JAX kernels
   ``_sparse_bwd_dq_kernel`` and ``_sparse_bwd_dkv_kernel`` (interpret),
   fp32 atol 1e-5, with a key mask that leaves one batch row all padding;
-- which inputs ``_route_bwd`` sends to the 16-row kernels, the ``_tc16``
-  wrappers' walls, and the dispatching wrappers' plain path on the CPU (the
-  16-row forward: ``tests/test_torch_sparse_fwd_tc16.py``).
+- which inputs ``_route_bwd`` sends to the 16-row kernels (fp32: the
+  3xTF32 ones), the ``_tc16`` wrappers' walls, and the dispatching
+  wrappers' plain path on the CPU (the 16-row forward:
+  ``tests/test_torch_sparse_fwd_tc16.py``).
 """
 
 import collections
@@ -322,18 +323,22 @@ def test_piecewise16_matches_jax_kernels(mode, block, attention, masked):
     (torch.bfloat16, 64, 16, "tc16"), (torch.float16, 64, 32, "tc16"),
     (torch.bfloat16, 128, 16, "tc16"), (torch.float16, 72, 48, "tc16"),
     (torch.bfloat16, 8, 96, "tc16"), (torch.bfloat16, 64, 64, "tc"),
-    (torch.float16, 128, 256, "tc"), (torch.float32, 64, 16, "fma"),
-    (torch.float32, 64, 32, "fma"), (torch.float32, 64, 64, "fma"),
+    (torch.float16, 128, 256, "tc"), (torch.float32, 64, 16, "tf32"),
+    (torch.float32, 64, 32, "tf32"), (torch.float32, 64, 64, "tf32"),
     (torch.bfloat16, 64, 24, "fma"), (torch.bfloat16, 136, 16, "fma"),
     (torch.float16, 60, 32, "fma")])
 def test_route_bwd(dtype, head_dim, block, route):
     """16-bit types at head dims the kernels take: blocks that are
     multiples of 64 on the 64-row kernels, other multiples of 16 on the
-    16-row kernels; fp32 at every block on the FMA kernels. The forward
-    takes the same route (``_route``, of which ``_route_bwd`` is the
-    other name)."""
+    16-row kernels; fp32 dq and dk/dv at every multiple of 16 on the
+    3xTF32 kernels. The 16-bit forward takes the same route, the fp32
+    forward the FMA kernel (``_route``; ``_route_bwd`` is its view for dq
+    and dk/dv)."""
     assert sp._route_bwd(dtype, head_dim, block) == route
-    assert sp._route(dtype, head_dim, block) == route
+    assert sp._route(dtype, head_dim, block, "dq") == route
+    assert sp._route(dtype, head_dim, block, "dkv") == route
+    assert sp._route(dtype, head_dim, block) == (
+        "fma" if route == "tf32" else route)
 
 
 def _inputs(dtype, block, s=96, h=2, d=16, b=1):

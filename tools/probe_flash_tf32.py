@@ -11,7 +11,8 @@ against their plain versions in ``chip_smoke.py``'s fp32 flash cases
 causal; FLASH_NONCAUSAL_CASES at 0 and 0.1), the FMA kernels on the same
 inputs, dq and dk/dv bit-equal over two launches, all-padding rows
 exactly 0. Then
-builds variants of the source with ``nvcc`` into
+builds variants of the source (with ``tf32_mma.cuh``, its products'
+header, inlined) with ``nvcc`` into
 ``build/flash_tf32_variants/`` (a directory ``.gitignore`` lists), one
 per process, all started together:
 
@@ -75,17 +76,20 @@ __device__ __forceinline__ void split_tile(float* tile, float* lo, int rows,
     const int at = r * DP + (idx - r * cpr) * 4;
     float4 x = *reinterpret_cast<const float4*>(tile + at);
     uint32_t h[4], l[4];
-    split_tf32(x.x, h[0], l[0]);
-    split_tf32(x.y, h[1], l[1]);
-    split_tf32(x.z, h[2], l[2]);
-    split_tf32(x.w, h[3], l[3]);
+    attn_tf32::split_tf32(x.x, h[0], l[0]);
+    attn_tf32::split_tf32(x.y, h[1], l[1]);
+    attn_tf32::split_tf32(x.z, h[2], l[2]);
+    attn_tf32::split_tf32(x.w, h[3], l[3]);
     *reinterpret_cast<uint4*>(tile + at) = make_uint4(h[0], h[1], h[2], h[3]);
     *reinterpret_cast<uint4*>(lo + at) = make_uint4(l[0], l[1], l[2], l[3]);
   }
 }
 
 """
-MMA8 = "// one m16n8k8 TF32 product"
+# split_tile goes before load_rows, in the source's own namespace (NT)
+LOAD_ROWS = "// rows x D floats of src (row stride"
+# the 3xTF32 products' header, which the variants patch too: inlined
+HEADER = '#include "tf32_mma.cuh"\n'
 MS = "  float* Ms = Vs + 2 * BN * DP;     // [2][BN]\n"
 ES = "  float* Es = Ls + 2 * BQ;          // [2][BQ] delta\n"
 MT = "    const float* Mt = Ms + (it & 1) * BN;\n"
@@ -111,7 +115,7 @@ def presplit(src: str) -> str:
         src, got = re.subn(pattern, repl, src)
         if got != n:
             raise SystemExit(f"probe_flash_tf32: {pattern!r} matched {got}")
-    return (src.replace(MMA8, SPLIT_TILE + MMA8)
+    return (src.replace(LOAD_ROWS, SPLIT_TILE + LOAD_ROWS)
             .replace(MS, MS + "  float* Kl = Ms + 2 * BN;\n"
                      "  float* Vl = Kl + BN * DP;\n")
             .replace(ES, ES + "  float* Ql = Es + 2 * BQ;\n"
@@ -125,8 +129,8 @@ def presplit(src: str) -> str:
 def variants(src: str) -> dict:
     """The source, and each of its choices changed."""
     for text, n in ((LO_TERMS, 1), (HI_TERM, 1), (BS, 1), (BLOCKS, 1),
-                    (FWD_BLOCKS, 1), (RNA, 1), (MMA8, 1), (MS, 2), (ES, 1),
-                    (MT, 2), (ET, 1), (SMEM, 1)):
+                    (FWD_BLOCKS, 1), (RNA, 1), (LOAD_ROWS, 1), (MS, 2),
+                    (ES, 1), (MT, 2), (ET, 1), (SMEM, 1)):
         if src.count(text) != n:
             raise SystemExit(f"probe_flash_tf32: {text!r} moved")
     return {"source": src,
@@ -201,7 +205,9 @@ def main() -> int:
 
     hold("source")
     with open(os.path.join(build.CSRC, "flash_attention_tf32.cu")) as f:
-        srcs = variants(f.read())
+        src = f.read()
+    with open(os.path.join(build.CSRC, "tf32_mma.cuh")) as f:
+        srcs = variants(src.replace(HEADER, f.read()))
     os.makedirs(OUT, exist_ok=True)
     procs = {}
     for name, text in srcs.items():
