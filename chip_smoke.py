@@ -10,7 +10,8 @@
     python3 chip_smoke.py --only bert      # the build, then phase 8 only
     python3 chip_smoke.py --only serving   # the build, then phase 3 only
     python3 chip_smoke.py --only ckpt      # the build, then phase 9 only
-    python3 chip_smoke.py --only fp32      # the build, then phases 7b, 5b
+    python3 chip_smoke.py --only fp32      # the build, the fp32 sparse
+                                           # holds, phases 5b, 7b
     python3 chip_smoke.py --only sparse,chunked
 
 1. Device: requires CUDA, prints the card's name and power limit, builds
@@ -102,12 +103,12 @@
      and more: the tensor-core kernels of
      ``csrc/sparse_attention_tc.cu``; 16 bits at other multiples of 16:
      the 16-row tensor-core forward, dq and dk/dv of
-     ``csrc/sparse_attention_tc16.cu``; fp32: the FMA forward of
-     ``csrc/sparse_attention.cu`` and the 3xTF32 dq and dk/dv of
-     ``csrc/sparse_attention_tf32.cu`` over the 16-row lists; each call
-     counted by its route's wrapper only); each kernel and, but at (c),
-     the whole autograd path, with flash's tolerances (the 3xTF32 dq and
-     dk/dv within 1e-5 of the reference's largest |value|), lse to 1e-5
+     ``csrc/sparse_attention_tc16.cu``; fp32: the 3xTF32 forward, dq and
+     dk/dv of ``csrc/sparse_attention_tf32.cu`` over the 16-row lists;
+     each call counted by its route's wrapper only); each kernel and, but
+     at (c), the whole autograd path, with flash's tolerances (the fp32
+     forward's o to atol 1e-5, the 3xTF32 dq and dk/dv within 1e-5 of
+     the reference's largest |value|), lse to 1e-5
      (``SPARSE_LSE_TOL``), every output bit-equal over two launches, the
      all-padding rows o = 0 and lse = -1e30 exactly; timed at (c) in
      bf16, the tensor-core forward, dq and dk/dv beside the FMA kernels
@@ -115,10 +116,11 @@
      layout-expanded mask and the bound, the tensor-core pair at every
      split cap of SPARSE_SWEEP_CAPS and the forward at every cap at (d)'s
      shape (items, split tiles, pieces and longest walk printed); then
-     at (c)'s shape in fp32 (:func:`time_sparse_fp32`): the FMA forward,
-     dq and dk/dv and the 3xTF32 dq and dk/dv held (also at cap 1) and
-     timed on fp32 inputs beside the plain versions, SDPA in fp32 with
-     the mask and the bounds at FP32_3XTF32_FLOPS;
+     at (c)'s shape in fp32 (:func:`time_sparse_fp32`): the 3xTF32
+     forward, dq and dk/dv (also at cap 1) and the FMA forward, dq and
+     dk/dv (their first versions) held and timed on fp32 inputs beside
+     the plain versions, SDPA in fp32 with the mask and the bounds at
+     FP32_3XTF32_FLOPS;
    - the fused LayerNorm + projection forward and backward (kernels #6,
      #7) on the route ``fused._route`` picks (bf16 and fp16 up to D =
      1664: the wgmma kernels of ``csrc/fused_ln_tc.cu``; fp32 and wider
@@ -220,15 +222,15 @@
    and a profiled step. Then the same configuration with dense flash
    attention (1 + 2 steps) for the sparse/dense tokens/s ratio, both
    printed beside the same step's reading with the FMA forward,
-   and in fp32 at 2 layers and seq 4096 the kernels' path (#8 on FMAs,
-   #9/#10 on 3xTF32, their FMA kernels never) against the plain path
+   and in fp32 at 2 layers and seq 4096 the kernels' path (#8-#10 on
+   3xTF32, their FMA kernels never) against the plain path
    (``impl: "xla"``), held as in phase 4.
 5b. Long-sequence training in fp32 (``--only fp32`` runs it too;
    :func:`check_long_fp32_training`): phase 5's configuration with no
    ``bf16`` block and no bf16 accumulator on ``make_gpt("gpt2",
    dtype=torch.float32)`` at seq 16384 (DeepSpeed's default precision):
-   the FMA forward (#8) and the 3xTF32 dq and dk/dv launch 48 times each
-   per step, the FMA dq and dk/dv never, fused Adam once, no plain
+   the 3xTF32 forward (#8), dq and dk/dv launch 48 times each per step,
+   the FMA forward, dq and dk/dv never, fused Adam once, no plain
    version, the loss falls; step time, tokens/s, peak memory, the idle
    share and a profiled step's device ms of the sparse kernels and the
    GEMMs. No dense twin.
@@ -254,7 +256,9 @@
    forward passes). Then in fp32 at 2 layers and dropout 0.1 the kernels'
    path against the plain path (``impl: "xla"``, the same mask function
    and seeds), held as in phase 4.
-7b. fp32 training at full width (``--only fp32`` runs it and 5b;
+7b. fp32 training at full width (``--only fp32`` runs it, 5b, every
+   fp32 sparse hold of phase 2d and :func:`time_sparse_fp32` at both
+   shapes, and the fp32 sparse comparisons of phases 5 and 8;
    :func:`check_fp32_training`): ``make_gpt("gpt2", dtype=torch.float32)``
    (dropout 0.1) through ``initialize`` with phase 4's shape and no bf16
    block, DeepSpeed's default precision: the 3xTF32 forward, dq and dk/dv
@@ -281,9 +285,9 @@
    beside the FMA forward, dq and dk/dv on the same inputs and SDPA with
    the expanded mask: the ``_tc16`` rows; the same at block 32, printed;
    then fp32 at that shape: the FMA forward, dq and dk/dv and the 3xTF32
-   dq and dk/dv, the ``_block16`` and ``_tf32_block16`` rows), and the
-   fp32 comparisons at bert-large width and 2 layers, dense (flash on
-   3xTF32) and sparse (#8 on FMAs, #9/#10 on 3xTF32), against the plain
+   forward, dq and dk/dv, the ``_block16`` and ``_tf32_block16`` rows),
+   and the fp32 comparisons at bert-large width and 2 layers, dense
+   (flash on 3xTF32) and sparse (#8-#10 on 3xTF32), against the plain
    path.
 9. Checkpointing, the dataloader and preemption-safe training (``--only
    ckpt`` runs it alone; :func:`check_ckpt`): full-width, full-depth
@@ -323,9 +327,10 @@ phases 4, 7 and 7b, set to 0 just before each. ``fused_ln.cu``'s rows
 counted over phase 6's fp32 comparison, while the ``_tc`` rows count phase 6 and its fp16 run. The
 FMA sparse rows (``sparse_attention_fwd``, ``sparse_attention_bwd_dq``,
 ``sparse_attention_bwd_dkv``) and the 3xTF32 ones
-(``sparse_attention_bwd_dq_tf32``, ``sparse_attention_bwd_dkv_tf32``)
-count phase 5b's timed steps (the FMA dq and dk/dv, the 3xTF32 kernels'
-first versions, 0) and are timed on fp32 inputs at the path's shape; the
+(``sparse_attention_fwd_tf32``, ``sparse_attention_bwd_dq_tf32``,
+``sparse_attention_bwd_dkv_tf32``) count phase 5b's timed steps (the FMA
+kernels, the 3xTF32 kernels' first versions, 0) and are timed on fp32
+inputs at the path's shape; the
 tensor-core rows count phase 5's long steps. The first chunked-
 prefill kernel's row (``chunked_prefill_attention``) counts phase 3's
 fp32 chunked run and is timed on the bf16 inputs of the run kernels'
@@ -340,8 +345,8 @@ sparse BERT rows, the 16-row forward, dq and dk/dv
 (``sparse_attention_fwd_tc16``, ``sparse_attention_bwd_dq_tc16``,
 ``sparse_attention_bwd_dkv_tc16``) count its sparse steps, and the fp32
 rows at that shape (the FMA forward, dq and dk/dv, ``_block16``, and the
-3xTF32 dq and dk/dv, ``_tf32_block16``, all timed on fp32 inputs) its
-sparse fp32 comparison.
+3xTF32 forward, dq and dk/dv, ``_tf32_block16``, all timed on fp32
+inputs) its sparse fp32 comparison.
 """
 
 import json
@@ -2091,7 +2096,8 @@ SPARSE_LONG = {"mode": "bigbird", "block": 256, "num_random_blocks": 1,
 SPARSE_SEQ = 16384
 # lse: the same fp32 scores summed in another order (the tensor-core
 # forward: 16-bit products, exact in fp32, its softmax in base 2, the lse
-# converted once); the FMA forward's is held to the same 1e-5
+# converted once); the fp32 forwards' (3xTF32, FMA) are held to the same
+# 1e-5
 SPARSE_LSE_TOL = 1e-5
 # BigBird at block 64, bidirectional: its global rows and columns walk
 # every block, so dq and dk/dv both split
@@ -2112,11 +2118,11 @@ SPARSE_BIDIR = {"mode": "bigbird", "block": 64, "num_random_blocks": 1,
 # dq and dk/dv: the 64-row kernels at blocks of 64 and more, the 16-row
 # kernels at (b), (g) and (h). fp32 ((a), (b), (f), (h), (i): head dims
 # 64, 72, 128 and 8, blocks 256, 64 and 16, the all-padding row) takes
-# the FMA forward and the 3xTF32 dq and dk/dv over the 16-row lists.
+# the 3xTF32 forward, dq and dk/dv over the 16-row lists.
 # ``caps``: split caps the tensor-core kernels also run at (beside
 # SPLIT_CAP): SPARSE_SMALL_CAP tiles of 64 rows on the 64-row route,
 # SPARSE_SMALL_CAP16 steps of 64 rows on the 16-row lists (the 3xTF32
-# dq and dk/dv at (f) take SPARSE_SMALL_CAP steps).
+# forward, dq and dk/dv at (f) take SPARSE_SMALL_CAP steps).
 SPARSE_SMALL_CAP = 4             # every walk longer than 4 tiles splits
 SPARSE_SMALL_CAP16 = 1           # every walk longer than 4 blocks splits
 SPARSE_CASES = (
@@ -2141,9 +2147,12 @@ SPARSE_CASES = (
 SPARSE_SWEEP_CAPS = (4, 8, 16, 32, 64, 128, None)   # None: no split
 SPARSE_TC_NAMES = ("sparse_attention_bwd_dq_tc",
                    "sparse_attention_bwd_dkv_tc")
-SPARSE_FMA_NAMES = ("sparse_attention_bwd_dq", "sparse_attention_bwd_dkv")
-# the fp32 dq and dk/dv (3xTF32 over the 16-row lists)
-SPARSE_TF32_NAMES = ("sparse_attention_bwd_dq_tf32",
+# the FMA forward, dq and dk/dv: the first versions, on no path
+SPARSE_FMA_NAMES = ("sparse_attention_fwd", "sparse_attention_bwd_dq",
+                    "sparse_attention_bwd_dkv")
+# the fp32 forward, dq and dk/dv (3xTF32 over the 16-row lists)
+SPARSE_TF32_NAMES = ("sparse_attention_fwd_tf32",
+                     "sparse_attention_bwd_dq_tf32",
                      "sparse_attention_bwd_dkv_tf32")
 # the 16-row route's three kernels (the sparse BERT step's)
 SPARSE_TC16_NAMES = ("sparse_attention_fwd_tc16",
@@ -2236,11 +2245,12 @@ def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
     ``timing``, timing at (c), the path's shape, and the sweep of the
     split cap (:func:`time_sparse`). ``reports``: the kernels line's rows
     ("fwd", "dq", "dkv" for the FMA kernels, "fwd_tc", "dq_tc",
-    "dkv_tc", "dq_tf32", "dkv_tf32")."""
+    "dkv_tc", "fwd_tf32", "dq_tf32", "dkv_tf32")."""
     sp = sparse_module()
     counters = {("fwd", "fma"): sp.sparse_attention_fwd,
                 ("fwd", "tc"): sp.sparse_attention_fwd_tc,
                 ("fwd", "tc16"): sp.sparse_attention_fwd_tc16,
+                ("fwd", "tf32"): sp.sparse_attention_fwd_tf32,
                 ("dq", "fma"): sp.sparse_attention_bwd_dq,
                 ("dq", "tc"): sp.sparse_attention_bwd_dq_tc,
                 ("dq", "tc16"): sp.sparse_attention_bwd_dq_tc16,
@@ -2249,14 +2259,15 @@ def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
                 ("dkv", "tc"): sp.sparse_attention_bwd_dkv_tc,
                 ("dkv", "tc16"): sp.sparse_attention_bwd_dkv_tc16,
                 ("dkv", "tf32"): sp.sparse_attention_bwd_dkv_tf32}
-    # each backward route's wrappers at a cap (fp32's forward has none)
+    # each route's forward, dq and dk/dv wrappers at a cap
     at_cap = {"tc": (sp.sparse_attention_fwd_tc,
                      sp.sparse_attention_bwd_dq_tc,
                      sp.sparse_attention_bwd_dkv_tc),
               "tc16": (sp.sparse_attention_fwd_tc16,
                        sp.sparse_attention_bwd_dq_tc16,
                        sp.sparse_attention_bwd_dkv_tc16),
-              "tf32": (None, sp.sparse_attention_bwd_dq_tf32,
+              "tf32": (sp.sparse_attention_fwd_tf32,
+                       sp.sparse_attention_bwd_dq_tf32,
                        sp.sparse_attention_bwd_dkv_tf32)}
     worst = {}
 
@@ -2267,8 +2278,10 @@ def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
         err = diff.max().item()
         rms = ref.float().pow(2).mean().sqrt().item()
         if name == "float32":
-            # the 3xTF32 kernels: 1e-5 of the largest |value|
-            top = ref.abs().max().item() if route == "tf32" else 1.0
+            # the 3xTF32 dq and dk/dv: 1e-5 of the largest |value|; every
+            # forward's o: atol 1e-5
+            top = (ref.abs().max().item() if route == "tf32"
+                   and sparse_kernel_of(key) != "fwd" else 1.0)
             rel, bad = err / max(top, 1e-30), err > KERNEL_TOL[name] * top
         else:
             step = round_step(torch, ref, getattr(torch, name))
@@ -2336,20 +2349,16 @@ def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
                 fwd_c, dq_c, dkv_c = at_cap[route]
                 works = plan.work if route == "tc" else plan.work16
                 # every walk of the route's kernels splits here
-                kinds = ("dq", "dkv") if fwd_c is None else ("fwd", "dq",
-                                                              "dkv")
-                for which in kinds:
+                for which in ("fwd", "dq", "dkv"):
                     if not works(which, causal, cap).n_split:
                         fail(f"sparse {case}: the {which} walks do not "
                              f"split at cap {cap}")
                 tag = f" cap {cap}"
-                if fwd_c is not None:
-                    lses[tag] = ()
+                lses[tag] = ()
                 for sink in (got, again):
-                    if fwd_c is not None:
-                        sink["fwd" + tag], lse_c = fwd_c(
-                            qp, kp, vp, mp, plan, causal, scale, cap=cap)
-                        lses[tag] += (lse_c,)
+                    sink["fwd" + tag], lse_c = fwd_c(
+                        qp, kp, vp, mp, plan, causal, scale, cap=cap)
+                    lses[tag] += (lse_c,)
                     sink["dq" + tag] = dq_c(qp, kp, vp, *args, cap=cap)
                     sink["dk" + tag], sink["dv" + tag] = dkv_c(
                         qp, kp, vp, *args, cap=cap)
@@ -2425,7 +2434,7 @@ def check_sparse_attention(torch, reports, cases=SPARSE_CASES, timing=True):
         path = "autograd" if key.startswith("autograd") else "kernel"
         lim = (f"limit {SPARSE_LSE_TOL}" if key == "lse" else
                f"{rel:.3g} of the largest |value|, limit 1e-5"
-               if route == "tf32" else
+               if route == "tf32" and sparse_kernel_of(key) != "fwd" else
                "atol 1e-5" if name == "float32" else
                f"beyond one step {rel:.3g} of the RMS, limit "
                f"{FLASH_16BIT_RMS_TOL[path]}")
@@ -2605,18 +2614,19 @@ def time_sparse_fp32(torch, sp, reports, label, b, s, h, d, block_cfg,
                      causal, lens=None):
     """#8-#10 in fp32 at [b, s, h, d] under ``block_cfg`` (a key mask
     keeping the first ``lens[i]`` keys of batch row i, or none) on 4
-    layers' inputs in rotation: the FMA forward (whose lse the backward
-    reads), the FMA dq and dk/dv (the first versions) and the 3xTF32 dq
-    and dk/dv on the same inputs. Held first: the 3xTF32 dq and dk/dv
-    against the plain versions within 1e-5 of the reference's largest
-    |value| and bit-equal over two launches, at SPLIT_CAP and at
-    SPARSE_SMALL_CAP16 (where they split), the FMA kernels the same way
-    (the forward's o to atol 1e-5, its lse to SPARSE_LSE_TOL). Then timed
-    as device time beside the plain versions (host-paced), SDPA in fp32
-    with the layout-expanded mask (the forward, and its whole backward
-    for dq and dk/dv) and the bound at FP32_3XTF32_FLOPS over the visible
-    pairs. Fills ``reports``' rows "fwd", "dq", "dkv", "dq_tf32",
-    "dkv_tf32"; returns the device ms by row."""
+    layers' inputs in rotation: the 3xTF32 forward (whose lse the backward
+    reads), dq and dk/dv, and the FMA forward, dq and dk/dv (their first
+    versions) on the same inputs. Held first, at SPLIT_CAP and at
+    SPARSE_SMALL_CAP16 (where the forward's, dq's and dk/dv's walks
+    split), every output bit-equal over two launches: the 3xTF32 forward's
+    o to atol 1e-5 (KERNEL_TOL) and its lse to SPARSE_LSE_TOL on the rows
+    with a visible key (-1e30 exactly on the others), dq and dk/dv within
+    1e-5 of the reference's largest |value|; the FMA kernels the same way.
+    Then timed as device time beside the plain versions (host-paced), SDPA
+    in fp32 with the layout-expanded mask (the forward, and its whole
+    backward for dq and dk/dv) and the bound at FP32_3XTF32_FLOPS over the
+    visible pairs. Fills ``reports``' rows "fwd", "dq", "dkv",
+    "fwd_tf32", "dq_tf32", "dkv_tf32"; returns the device ms by row."""
     import numpy as np
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -2625,10 +2635,10 @@ def time_sparse_fp32(torch, sp, reports, label, b, s, h, d, block_cfg,
     block = block_cfg["block"]
     layout = sparse_layout(block_cfg, h, s)
     plan = sp.sparse_plan(layout, block)
-    if sp._route(torch.float32, d, block, "dq") != "tf32" or \
-            sp._route(torch.float32, d, block) != "fma":
-        fail(f"sparse fp32 {label}: dq and dk/dv do not take 3xTF32 or "
-             f"the forward not the FMA kernel")
+    if any(sp._route(torch.float32, d, block, w) != "tf32"
+           for w in ("fwd", "dq", "dkv")):
+        fail(f"sparse fp32 {label}: the forward, dq and dk/dv do not take "
+             f"3xTF32")
     mask = None
     if lens is not None:
         mask = torch.from_numpy(np.arange(s)[None] < lens[:, None]).cuda()
@@ -2638,13 +2648,14 @@ def time_sparse_fp32(torch, sp, reports, label, b, s, h, d, block_cfg,
             torch, torch.float32, b, s, h, d, seed=500 + i,
             dout_scale=FLASH_DOUT_SCALE["float32"])
         q, k, v, km = sp._prepare(q, k, v, mask, plan)
-        out, lse = sp._launch_fma_fwd(q, k, v, km, plan, causal, scale)
+        out, lse = sp.sparse_attention_fwd_tf32(q, k, v, km, plan, causal,
+                                                scale)
         delta = (dout * out).sum(-1).transpose(1, 2).contiguous()
         layers.append((q, k, v, dout, km, lse, delta, plan, causal, scale))
     a = layers[0]
     fwd_args = (*a[:3], a[4], plan, causal, scale)
     small = SPARSE_SMALL_CAP16
-    for which in ("dq", "dkv"):
+    for which in ("fwd", "dq", "dkv"):
         if not plan.work16(which, causal, small).n_split:
             fail(f"sparse fp32 {label}: the {which} walks do not split at "
                  f"cap {small}")
@@ -2654,27 +2665,34 @@ def time_sparse_fp32(torch, sp, reports, label, b, s, h, d, block_cfg,
 
     outs = {"dq": [sp._launch_fma("dq", *a) for _ in range(2)],
             "dkv": [dkv(sp._launch_fma, "dkv", *a) for _ in range(2)]}
+    fwds = {"fwd": [sp._launch_fma_fwd(*fwd_args) for _ in range(2)]}
     for cap in (None, small):
         tag = "" if cap is None else f" cap {cap}"
+        fwds["fwd_tf32" + tag] = [sp.sparse_attention_fwd_tf32(
+            *fwd_args, cap=cap) for _ in range(2)]
         outs["dq_tf32" + tag] = [sp.sparse_attention_bwd_dq_tf32(
             *a, cap=cap) for _ in range(2)]
         outs["dkv_tf32" + tag] = [dkv(sp.sparse_attention_bwd_dkv_tf32, *a,
                                       cap=cap) for _ in range(2)]
-    fwd = [sp._launch_fma_fwd(*fwd_args) for _ in range(2)]
     ref_o, ref_lse = sp.sparse_fwd_reference(*fwd_args)
     refs = {"dq": sp.sparse_bwd_dq_reference(*a),
             "dkv": dkv(sp.sparse_bwd_dkv_reference, *a)}
     torch.cuda.synchronize()
     seen = ref_lse > sp.NEG_INF / 2
-    if not same_bits(torch, fwd[0][0], fwd[1][0]) or \
-            not same_bits(torch, fwd[0][1], fwd[1][1]):
-        fail(f"sparse fp32 fwd {label}: two launches differ")
-    errs = {"fwd": (fwd[0][0] - ref_o).abs().max().item()}
-    lse_err = (fwd[0][1] - ref_lse)[seen].abs().max().item()
-    if not errs["fwd"] <= KERNEL_TOL["float32"] or \
-            not lse_err <= SPARSE_LSE_TOL:
-        fail(f"sparse fp32 fwd {label}: o max |err| {errs['fwd']}, lse "
-             f"{lse_err}")
+    errs, lse_errs = {}, {}
+    for key, ((o, lse), (o2, lse2)) in fwds.items():
+        if not same_bits(torch, o, o2) or not same_bits(torch, lse, lse2):
+            fail(f"sparse fp32 {key} {label}: two launches differ")
+        if not torch.equal(seen, lse > sp.NEG_INF / 2) or \
+                not (lse[~seen] == sp.NEG_INF).all():
+            fail(f"sparse fp32 {key} {label}: empty rows differ")
+        errs[key] = (o - ref_o).abs().max().item()
+        lse_errs[key] = (lse - ref_lse)[seen].abs().max().item()
+        if not torch.isfinite(o).all() or \
+                not errs[key] <= KERNEL_TOL["float32"] or \
+                not lse_errs[key] <= SPARSE_LSE_TOL:
+            fail(f"sparse fp32 {key} {label}: o max |err| {errs[key]}, lse "
+                 f"{lse_errs[key]}")
     rels = {}
     for key, (got, again) in outs.items():
         ref = refs[key.split("_")[0].split()[0]]
@@ -2687,13 +2705,16 @@ def time_sparse_fp32(torch, sp, reports, label, b, s, h, d, block_cfg,
                 not rels[key] <= KERNEL_TOL["float32"]:
             fail(f"sparse fp32 {key} {label}: max |err| {errs[key]}, "
                  f"{rels[key]} of the largest |value| {top}")
+    fwd_errs = {k: [f"{errs[k]:.3g}", f"{v:.3g}"]
+                for k, v in lse_errs.items()}
     print(f"sparse_attention fp32 at {label} [{b}, {s}, {h}, {d}] "
           f"{block_cfg['mode']} block {block}: held, bit-equal over two "
-          f"launches; the FMA forward's o max |err| {errs['fwd']:.3g} "
-          f"(atol 1e-5), lse {lse_err:.3g}; dq and dk/dv max |err| over the "
-          f"reference's largest |value| (limit 1e-5): "
+          f"launches; the forwards' o max |err| (atol 1e-5) and lse max "
+          f"|err| (limit {SPARSE_LSE_TOL}; {int((~seen).sum())} empty rows "
+          f"at -1e30): {json.dumps(fwd_errs)}; dq and dk/dv max |err| over "
+          f"the reference's largest |value| (limit 1e-5): "
           f"{json.dumps({k: f'{v:.3g}' for k, v in rels.items()})}")
-    del outs, refs, fwd, ref_o, ref_lse, seen
+    del outs, fwds, refs, ref_o, ref_lse, seen
     torch.cuda.empty_cache()
     it = {"i": 0}
 
@@ -2708,8 +2729,9 @@ def time_sparse_fp32(torch, sp, reports, label, b, s, h, d, block_cfg,
             a = nxt()
             if which == "fwd":
                 fa = (*a[:3], a[4], *a[7:])
-                return (sp.sparse_fwd_reference if how == "plain" else
-                        sp._launch_fma_fwd)(*fa)
+                return {"plain": sp.sparse_fwd_reference,
+                        "fma": sp._launch_fma_fwd,
+                        "tf32": sp.sparse_attention_fwd_tf32}[how](*fa)
             if how == "plain":
                 return (sp.sparse_bwd_dq_reference if which == "dq" else
                         sp.sparse_bwd_dkv_reference)(*a)
@@ -2766,6 +2788,7 @@ def time_sparse_fp32(torch, sp, reports, label, b, s, h, d, block_cfg,
     out = {}
     for row, which, how in (("fwd", "fwd", "fma"), ("dq", "dq", "fma"),
                             ("dkv", "dkv", "fma"),
+                            ("fwd_tf32", "fwd", "tf32"),
                             ("dq_tf32", "dq", "tf32"),
                             ("dkv_tf32", "dkv", "tf32")):
         ms = device_ms(torch, call(which, how), iters=10, warmup=2)[0]
@@ -2801,8 +2824,10 @@ def time_sparse_fp32(torch, sp, reports, label, b, s, h, d, block_cfg,
           f"dq + dk/dv {pair:.4f} ms, FMA {out['dq'] + out['dkv']:.4f} ms "
           f"({(out['dq'] + out['dkv']) / pair:.2f}x), SDPA's fp32 whole "
           f"backward with the mask {lib['bwd']:.4f} ms "
-          f"({pair / lib['bwd']:.3f}x); FMA forward {out['fwd']:.4f} ms, "
-          f"SDPA's {lib['fwd']:.4f} ms ({out['fwd'] / lib['fwd']:.3f}x)")
+          f"({pair / lib['bwd']:.3f}x); 3xTF32 forward "
+          f"{out['fwd_tf32']:.4f} ms, FMA {out['fwd']:.4f} ms "
+          f"({out['fwd'] / out['fwd_tf32']:.2f}x), SDPA's "
+          f"{lib['fwd']:.4f} ms ({out['fwd_tf32'] / lib['fwd']:.3f}x)")
     del layers
     torch.cuda.empty_cache()
     return out
@@ -4609,6 +4634,10 @@ KERNELS = (
      "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:147"),
     ("sparse_attention_bwd_dkv_tf32_block16", "sparse_attention_tf32",
      "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:194"),
+    ("sparse_attention_fwd_tf32", "sparse_attention_tf32",
+     "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:88"),
+    ("sparse_attention_fwd_tf32_block16", "sparse_attention_tf32",
+     "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:88"),
 )
 # the flash kernels of the 16-bit training step: the tensor-core forward,
 # dq and dk/dv; the FMA kernels take head dims above 128 only
@@ -4895,6 +4924,7 @@ def training_counters():
             "sparse_attention_bwd_dq_tc16": sp.sparse_attention_bwd_dq_tc16,
             "sparse_attention_bwd_dkv_tc16":
                 sp.sparse_attention_bwd_dkv_tc16,
+            "sparse_attention_fwd_tf32": sp.sparse_attention_fwd_tf32,
             "sparse_attention_bwd_dq_tf32": sp.sparse_attention_bwd_dq_tf32,
             "sparse_attention_bwd_dkv_tf32":
                 sp.sparse_attention_bwd_dkv_tf32,
@@ -5200,9 +5230,9 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None,
     runs the unfused model. At ``dropout`` both models drop out at that
     rate with the engines' seeds (one ``rng_seed``, so the same seeds):
     the same masks on both paths (the plain attention uses the kernels'
-    mask function). Dense, the kernels' run must launch the 3xTF32
-    forward, dq and dk/dv and never the FMA ones; sparse, the 3xTF32 dq
-    and dk/dv and never the FMA ones (the forward is FMA's). Returns the
+    mask function). The kernels' run must launch the 3xTF32 forward, dq
+    and dk/dv (flash, or with ``sparse`` the block-sparse ones) and never
+    the FMA ones. Returns the
     kernels' run's launches, every count set to 0 just before it (the
     fp32 path's rows of the kernels line)."""
     import numpy as np
@@ -5212,7 +5242,7 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None,
     from deepspeed_tpu_torch.runtime.utils import global_norm
 
     counters = training_counters()
-    counter = counters["sparse_attention_fwd" if sparse else
+    counter = counters["sparse_attention_fwd_tf32" if sparse else
                        "flash_attention_fwd_tf32"]
     ln_counter = counters["fused_ln_matmul_bwd"]
     what = "sparse " if sparse else ""
@@ -5276,8 +5306,8 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None,
             if sparse and (
                     not all(launches[n] for n in SPARSE_TF32_NAMES)
                     or any(launches[n] for n in SPARSE_FMA_NAMES)):
-                fail(f"fp32 comparison: the sparse dq and dk/dv did not "
-                     f"take the 3xTF32 kernels alone: {launches}")
+                fail(f"fp32 comparison: the sparse forward, dq and dk/dv did "
+                     f"not take the 3xTF32 kernels alone: {launches}")
         runs[label] = (grads, losses)
         names = engine.param_names
         del engine, model
@@ -5517,11 +5547,12 @@ def check_long_training(torch, card):
 # fp32 and the model computes in fp32
 LONG_FP32_CONFIG = {k: v for k, v in LONG_CONFIG.items()
                     if k not in ("bf16", "data_types")}
-# the profiled step's device ms: the FMA forward, the 3xTF32 dq and dk/dv
-# and their split pass, the FMA dq and dk/dv (none should run) and every
-# GEMM kernel (cuBLAS's names hold "gemm")
-LONG_FP32_PICK = ("sparse_fwd_kernel", "sparse_dq_tf32_kernel",
-                  "sparse_dkv_tf32_kernel", "sparse_reduce_tf32_kernel",
+# the profiled step's device ms: the 3xTF32 forward, dq and dk/dv and
+# their second passes, the FMA forward, dq and dk/dv (none should run) and
+# every GEMM kernel (cuBLAS's names hold "gemm")
+LONG_FP32_PICK = ("sparse_fwd_tf32_kernel", "sparse_fwd_combine_tf32_kernel",
+                  "sparse_dq_tf32_kernel", "sparse_dkv_tf32_kernel",
+                  "sparse_reduce_tf32_kernel", "sparse_fwd_kernel",
                   "sparse_bwd_dq_kernel", "sparse_bwd_dkv_kernel", "gemm")
 
 
@@ -5529,8 +5560,8 @@ def check_long_fp32_training(torch, card):
     """Phase 5b (``--only fp32`` runs it too): full-width GPT-2 at seq
     16384 in fp32, ``make_gpt("gpt2", dtype=torch.float32)`` at
     bench_gpt2_long's dropout 0 through ``initialize`` with
-    LONG_FP32_CONFIG: the FMA forward (#8) and the 3xTF32 dq and dk/dv
-    launch 48 times each a step (12 layers x GAS 4), the FMA dq and dk/dv,
+    LONG_FP32_CONFIG: the 3xTF32 forward (#8), dq and dk/dv launch 48
+    times each a step (12 layers x GAS 4), the FMA forward, dq and dk/dv,
     every other attention kernel and every plain version never, fused
     Adam once, the loss falls. Prints step ms (median of 5 after 2
     warm-up), tokens/s, peak GB, one profiled step's busy ms, the idle
@@ -5544,8 +5575,8 @@ def check_long_fp32_training(torch, card):
     gas = LONG_CONFIG["gradient_accumulation_steps"]
     micro = LONG_CONFIG["train_micro_batch_size_per_gpu"]
     per_step = {name: 0 for name in training_counters()}
-    per_step.update({name: cfg.num_layers * gas for name in
-                     ("sparse_attention_fwd",) + SPARSE_TF32_NAMES})
+    per_step.update({name: cfg.num_layers * gas
+                     for name in SPARSE_TF32_NAMES})
     per_step["fused_adam"] = 1
     step_ms, losses, launches = counted_steps(
         torch, engine, batches, per_step, "long fp32 training", LONG_WARMUP,
@@ -5618,12 +5649,13 @@ SPARSE_PROFILE_KERNELS = ("sparse_fwd_tc16_kernel",
 SPARSE_BLOCK16_ROWS = {"fwd_tc16": "sparse_attention_fwd_tc16",
                        "dq_tc16": "sparse_attention_bwd_dq_tc16",
                        "dkv_tc16": "sparse_attention_bwd_dkv_tc16"}
-# fp32 at that shape: the FMA forward, dq and dk/dv (the dq and dk/dv
-# rows are the first versions) and the 3xTF32 dq and dk/dv
+# fp32 at that shape: the FMA forward, dq and dk/dv (the first versions)
+# and the 3xTF32 forward, dq and dk/dv
 SPARSE_FP32_BLOCK16_ROWS = {
     "fwd": "sparse_attention_fwd_block16",
     "dq": "sparse_attention_bwd_dq_block16",
     "dkv": "sparse_attention_bwd_dkv_block16",
+    "fwd_tf32": "sparse_attention_fwd_tf32_block16",
     "dq_tf32": "sparse_attention_bwd_dq_tf32_block16",
     "dkv_tf32": "sparse_attention_bwd_dkv_tf32_block16"}
 
@@ -5825,9 +5857,9 @@ def time_sparse_block16(torch, reports, block=16):
     16-row work list's items, longest walk, split items and masked share
     (the forward walks dq's). Fills the kernels line's 16-row rows in
     ``reports`` (None: print only); with ``reports``, then the fp32
-    readings at this shape (:func:`time_sparse_fp32`: the FMA forward, dq
-    and dk/dv rows and the 3xTF32 dq and dk/dv rows). Returns the device
-    ms by row."""
+    readings at this shape (:func:`time_sparse_fp32_block16`: the FMA
+    forward, dq and dk/dv rows and the 3xTF32 forward, dq and dk/dv
+    rows). Returns the device ms by row."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -5840,7 +5872,7 @@ def time_sparse_block16(torch, reports, block=16):
     if sp._route(torch.bfloat16, d, block) != "tc16":
         fail(f"sparse BERT: block {block} does not take the 16-row "
              f"tensor-core forward and backward")
-    lens = np.random.default_rng(5).integers(s // 2, s + 1, b)
+    lens = sparse_bert_lens(b, s)
     mask = torch.from_numpy(np.arange(s)[None] < lens[:, None]).cuda()
     layers = []
     for i in range(4):
@@ -6039,18 +6071,33 @@ def time_sparse_block16(torch, reports, block=16):
     del layers, sdpa_in
     torch.cuda.empty_cache()
     if reports is not None:
-        fp32 = time_sparse_fp32(
-            torch, sp, {k: reports[n]
-                        for k, n in SPARSE_FP32_BLOCK16_ROWS.items()},
-            "the sparse BERT shape", b, s, h, d, cfg, False, lens)
+        fp32 = time_sparse_fp32_block16(torch, sp, reports)
         out.update({f"{k} fp32": ms for k, ms in fp32.items()})
     return out
 
 
+def sparse_bert_lens(b, s):
+    """The sparse BERT readings' key mask: batch row i keeps its first
+    lens[i] keys, drawn in [s / 2, s] from seed 5."""
+    import numpy as np
+
+    return np.random.default_rng(5).integers(s // 2, s + 1, b)
+
+
+def time_sparse_fp32_block16(torch, sp, reports):
+    """:func:`time_sparse_fp32` at the sparse BERT shape [8, 512, 16, 64]
+    with BERT_SPARSE's layout and key mask, non-causal: the kernels line's
+    ``_block16`` and ``_tf32_block16`` rows."""
+    b, s, h, d = 8, 512, 16, 64
+    rows = {k: reports[n] for k, n in SPARSE_FP32_BLOCK16_ROWS.items()}
+    return time_sparse_fp32(torch, sp, rows, "the sparse BERT shape", b, s,
+                            h, d, BERT_SPARSE, False, sparse_bert_lens(b, s))
+
+
 def check_bert_fp32(torch, seq, micro, sparse=None):
     """fp32 on the card, bert-large width at 2 layers, GAS 2, padded rows:
-    the kernels' path (flash #3-#5 on 3xTF32, or with ``sparse`` #8 on
-    the FMA route and #9/#10 on 3xTF32, never their FMA kernels) against
+    the kernels' path (flash #3-#5 on 3xTF32, or with ``sparse`` #8-#10
+    on 3xTF32, never their FMA kernels) against
     the plain path (``attention_impl="xla"``,
     or the sparse block's ``impl: "xla"``), both with LAMB: the first
     step's accumulated gradients leaf by leaf to 1e-4 of the leaf's norm,
@@ -6062,7 +6109,7 @@ def check_bert_fp32(torch, seq, micro, sparse=None):
     from deepspeed_tpu_torch.runtime.utils import global_norm
 
     counters = training_counters()
-    counter = counters["sparse_attention_fwd" if sparse else
+    counter = counters["sparse_attention_fwd_tf32" if sparse else
                        "flash_attention_fwd_tf32"]
     gas = 2
     runs = {}
@@ -6107,8 +6154,9 @@ def check_bert_fp32(torch, seq, micro, sparse=None):
             if sparse and (
                     not all(launches[n] for n in SPARSE_TF32_NAMES)
                     or any(launches[n] for n in SPARSE_FMA_NAMES)):
-                fail(f"BERT fp32 comparison: the sparse dq and dk/dv did "
-                     f"not take the 3xTF32 kernels alone: {launches}")
+                fail(f"BERT fp32 comparison: the sparse forward, dq and "
+                     f"dk/dv did not take the 3xTF32 kernels alone: "
+                     f"{launches}")
         runs[label] = (grads, losses)
         names = engine.param_names
         del engine, model
@@ -6181,10 +6229,9 @@ def check_bert(torch, card, reports):
     check_bert_fp32(torch, 128, 8)
     fp32 = check_bert_fp32(torch, 512, 2, sparse=BERT_SPARSE)
     # the fp32 rows at block 16: the FMA forward, dq and dk/dv (0: the
-    # first versions) and the 3xTF32 dq and dk/dv
-    for key, name in zip(("fwd", "dq", "dkv", "dq_tf32", "dkv_tf32"),
-                         ("sparse_attention_fwd",) + SPARSE_FMA_NAMES
-                         + SPARSE_TF32_NAMES):
+    # first versions) and the 3xTF32 forward, dq and dk/dv
+    for key, name in zip(("fwd", "dq", "dkv", "fwd_tf32", "dq_tf32",
+                          "dkv_tf32"), SPARSE_FMA_NAMES + SPARSE_TF32_NAMES):
         reports[SPARSE_FP32_BLOCK16_ROWS[key]]["launches"] = fp32[name]
     print(f"BERT phase times: the sparse kernels' holds and timings "
           f"{t2 - t1:.1f} s, the fp32 comparisons "
@@ -6759,6 +6806,7 @@ def main() -> int:
             "dkv": reports["sparse_attention_bwd_dkv"],
             "dq_tc": reports["sparse_attention_bwd_dq_tc"],
             "dkv_tc": reports["sparse_attention_bwd_dkv_tc"],
+            "fwd_tf32": reports["sparse_attention_fwd_tf32"],
             "dq_tf32": reports["sparse_attention_bwd_dq_tf32"],
             "dkv_tf32": reports["sparse_attention_bwd_dkv_tf32"]})
         # the 16-row rows' errors over phase 2d's cases; phase 8 adds the
@@ -6781,8 +6829,25 @@ def main() -> int:
         if "ckpt" in only:
             check_ckpt(torch, card)
         if "fp32" in only:
-            check_fp32_training(torch, card)
+            # every fp32 sparse hold and timing, the fp32 sparse
+            # comparisons of phases 5 and 8, then phases 5b and 7b
+            sp = sparse_module()
+            check_sparse_attention(torch, reports, cases=tuple(
+                c[:8] + (("float32",), c[9]) for c in SPARSE_CASES
+                if "float32" in c[8]), timing=False)
+            time_sparse_fp32(torch, sp, {
+                "fwd": reports["sparse_attention_fwd"],
+                "dq": reports["sparse_attention_bwd_dq"],
+                "dkv": reports["sparse_attention_bwd_dkv"],
+                "fwd_tf32": reports["sparse_attention_fwd_tf32"],
+                "dq_tf32": reports["sparse_attention_bwd_dq_tf32"],
+                "dkv_tf32": reports["sparse_attention_bwd_dkv_tf32"]},
+                "the path's shape", 1, SPARSE_SEQ, 12, 64, SPARSE_LONG, True)
+            time_sparse_fp32_block16(torch, sp, reports)
+            check_training_fp32(torch, seq=4096, micro=1, sparse=SPARSE_LONG)
+            check_bert_fp32(torch, 512, 2, sparse=BERT_SPARSE)
             check_long_fp32_training(torch, card)
+            check_fp32_training(torch, card)
         return 0
     check_fused_ln(torch, {
         ("bfloat16", "fwd"): reports["fused_ln_matmul_fwd_tc"],
@@ -6835,10 +6900,9 @@ def main() -> int:
     check_training_fp32(torch, seq=4096, micro=1, sparse=SPARSE_LONG)
 
     # 5b. long-sequence training in fp32: the fp32 sparse rows count its
-    # timed steps (the FMA dq and dk/dv 0)
+    # timed steps (the FMA forward, dq and dk/dv 0)
     long32 = check_long_fp32_training(torch, card)
-    for name in ("sparse_attention_fwd",) + SPARSE_FMA_NAMES \
-            + SPARSE_TF32_NAMES:
+    for name in SPARSE_FMA_NAMES + SPARSE_TF32_NAMES:
         reports[name]["launches"] = long32["launches"][name]
 
     # 6. training with the fused LayerNorm + projection sites, its one-site

@@ -1,16 +1,17 @@
 // Block-sparse attention forward and backward for Hopper (sm_90a), on
 // fp32 FMAs.
 //
-// Replaces the three Pallas TPU kernels of deepspeed_tpu/ops/
-// sparse_attention/sparse_attention.py: _sparse_kernel (forward),
-// _sparse_bwd_dq_kernel and _sparse_bwd_dkv_kernel (backward) on their
-// FMA route (ops/sparse_attention/sparse_attention.py, _route): the fp32
-// forward at every block. The fp32 dq and dk/dv take the 3xTF32 kernels
-// of sparse_attention_tf32.cu (this file's dq and dk/dv are their first
-// versions and run on no path); bf16 and fp16 take the tensor-core
-// forward, dq and dk/dv of sparse_attention_tc.cu at blocks that are
-// multiples of 64 and of sparse_attention_tc16.cu at other multiples of
-// 16. All compute the same function. A layout
+// The first versions of the three Pallas TPU kernels of deepspeed_tpu/
+// ops/sparse_attention/sparse_attention.py: _sparse_kernel (forward),
+// _sparse_bwd_dq_kernel and _sparse_bwd_dkv_kernel (backward). They run
+// on no path: the FMA route (ops/sparse_attention/sparse_attention.py,
+// _route) takes only inputs these kernels refuse too. fp32 takes the
+// 3xTF32 forward, dq and dk/dv of sparse_attention_tf32.cu; bf16 and
+// fp16 take the tensor-core forward, dq and dk/dv of
+// sparse_attention_tc.cu at blocks that are multiples of 64 and of
+// sparse_attention_tc16.cu at other multiples of 16. chip_smoke.py holds
+// and times these beside them on the same inputs. All compute the same
+// function. A layout
 // [H, NB, NB] of blocks of `block` positions (NB = S / block) says which
 // key blocks each query block attends. The host turns it into index lists:
 // kv_idx [H, NB, max_kv] with kv_cnt [H, NB] (the active key blocks of

@@ -30,15 +30,15 @@ no visible key gives 0 (and lse -1e30), not NaN.
   (:func:`sparse_attention_fwd_tc16`, :func:`sparse_attention_bwd_dq_tc16`,
   :func:`sparse_attention_bwd_dkv_tc16`) over :meth:`SparsePlan.work16`
   (the forward walks dq's list). float32 with those head dims at any
-  block that is a multiple of 16 runs dq and dk/dv as 3xTF32 on the
-  tensor cores (``csrc/sparse_attention_tf32.cu``:
-  :func:`sparse_attention_bwd_dq_tf32`,
-  :func:`sparse_attention_bwd_dkv_tf32`, over the same 16-row lists) and
-  the forward on the fp32-FMA kernel of ``csrc/sparse_attention.cu``,
-  whose dq and dk/dv are the 3xTF32 kernels' first versions and run on no
-  path. On a CUDA tensor each wrapper launches its kernel (built at first
-  use) or raises; it never falls back. On a CPU tensor each dispatching
-  wrapper runs its plain version (:func:`sparse_fwd_reference`,
+  block that is a multiple of 16 runs the forward, dq and dk/dv as 3xTF32
+  on the tensor cores (``csrc/sparse_attention_tf32.cu``:
+  :func:`sparse_attention_fwd_tf32`, :func:`sparse_attention_bwd_dq_tf32`,
+  :func:`sparse_attention_bwd_dkv_tf32`, over the same 16-row lists). The
+  fp32-FMA kernels of ``csrc/sparse_attention.cu`` are the first versions
+  of all three and run on no path: they take no input that the other
+  routes refuse. On a CUDA tensor each wrapper launches its kernel
+  (built at first use) or raises; it never falls back. On a CPU tensor
+  each dispatching wrapper runs its plain version (:func:`sparse_fwd_reference`,
   :func:`sparse_bwd_dq_reference`, :func:`sparse_bwd_dkv_reference`),
   which the CPU tests hold against the JAX kernels and ``chip_smoke.py``
   holds the CUDA kernels against.
@@ -53,7 +53,8 @@ in ``sparse_attention_fwd``, ``sparse_attention_bwd_dq`` and
 ``sparse_attention_fwd_tc``, ``sparse_attention_bwd_dq_tc``,
 ``sparse_attention_bwd_dkv_tc``, ``sparse_attention_fwd_tc16``,
 ``sparse_attention_bwd_dq_tc16``, ``sparse_attention_bwd_dkv_tc16``,
-``sparse_attention_bwd_dq_tf32`` and ``sparse_attention_bwd_dkv_tf32``.
+``sparse_attention_fwd_tf32``, ``sparse_attention_bwd_dq_tf32`` and
+``sparse_attention_bwd_dkv_tf32``.
 """
 
 import ctypes
@@ -78,7 +79,8 @@ __all__ = ["NEG_INF", "layout_to_dense_mask", "layout_kv_indices",
            "sparse_attention_bwd_dq", "sparse_attention_bwd_dkv",
            "sparse_attention_bwd_dq_tc", "sparse_attention_bwd_dkv_tc",
            "sparse_attention_bwd_dq_tc16", "sparse_attention_bwd_dkv_tc16",
-           "sparse_attention_bwd_dq_tf32", "sparse_attention_bwd_dkv_tf32",
+           "sparse_attention_fwd_tf32", "sparse_attention_bwd_dq_tf32",
+           "sparse_attention_bwd_dkv_tf32",
            "SPLIT_CAP", "WorkList", "WorkList16"]
 
 NEG_INF = -1e30
@@ -120,17 +122,18 @@ def _route(dtype: torch.dtype, head_dim: int, block: int,
     the tensor cores) for the same dtypes and head dims at a block that is
     a multiple of 16 and not of 64; ``"tf32"``
     (``csrc/sparse_attention_tf32.cu``: 3xTF32 on the tensor cores over
-    the 16-row lists) for float32 dq and dk/dv at those head dims and any
-    block that is a multiple of 16; ``"fma"``
-    (``csrc/sparse_attention.cu``) for everything else the kernels take:
-    the float32 forward."""
+    the 16-row lists) for the float32 forward, dq and dk/dv at those head
+    dims and any block that is a multiple of 16; ``"fma"``
+    (``csrc/sparse_attention.cu``) for everything else, which that
+    kernel refuses too (:func:`_prepare` raises first on the autograd
+    path)."""
     if which not in ("fwd", "dq", "dkv"):
         raise ValueError(f"the sparse kernels are fwd, dq or dkv, got "
                          f"{which!r}")
     if dtype == torch.float32:
         on_grid = (head_dim % 8 == 0 and 8 <= head_dim <= MAX_HEAD_DIM
                    and block % SUB_TILE == 0)
-        return "tf32" if which != "fwd" and on_grid else "fma"
+        return "tf32" if on_grid else "fma"
     if not _tc_operands(dtype, head_dim):
         return "fma"
     if block % TC_TILE == 0:
@@ -605,8 +608,8 @@ def _kernel(name: str = "sparse_attention"):
     (forward, dq, dk/dv on FMAs), ``sparse_attention_tc`` (forward, dq,
     dk/dv on the tensor cores), ``sparse_attention_tc16`` (forward, dq,
     dk/dv on the tensor cores over 16-row blocks) or
-    ``sparse_attention_tf32`` (dq, dk/dv for fp32 as 3xTF32 over 16-row
-    blocks), built and loaded at first use."""
+    ``sparse_attention_tf32`` (forward, dq, dk/dv for fp32 as 3xTF32 over
+    16-row blocks), built and loaded at first use."""
     if name not in _FN:
         lib = build.load(name)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -619,13 +622,12 @@ def _kernel(name: str = "sparse_attention"):
         # the index lists' width or n_items (then, over 16-row blocks,
         # walk_max)
         count = [i32] * (2 if name in _ROWS16 else 1)
-        fns = {"dq": (getattr(lib, f"{name}_bwd_dq"),
+        fns = {"fwd": (getattr(lib, f"{name}_fwd"),
+                       [ptr] * 6 + count + [ptr] * 3 + tail),
+               "dq": (getattr(lib, f"{name}_bwd_dq"),
                       [ptr] * 7 + count + [ptr] * 4 + tail),
                "dkv": (getattr(lib, f"{name}_bwd_dkv"),
                        [ptr] * 7 + count + [ptr] * 5 + tail)}
-        if name != "sparse_attention_tf32":   # the fp32 forward is FMA's
-            fns["fwd"] = (getattr(lib, f"{name}_fwd"),
-                          [ptr] * 6 + count + [ptr] * 3 + tail)
         out = {}
         for key, (fn, argtypes) in fns.items():
             fn.argtypes = argtypes
@@ -700,8 +702,9 @@ def sparse_attention_fwd(q, k, v, key_mask, plan: SparsePlan, causal: bool,
     ``out`` (contiguous [B, S, H, D] in q's dtype) and ``lse`` (fp32 [B,
     H, S], natural log; -1e30 for a row with no visible key). On CUDA the
     inputs are as :func:`_prepare` returns them. The FMA kernel's launches
-    count here, the tensor-core kernels' in
-    :func:`sparse_attention_fwd_tc` and :func:`sparse_attention_fwd_tc16`;
+    count here (it takes no input the other routes refuse, so none does),
+    the tensor-core kernels' in :func:`sparse_attention_fwd_tc`,
+    :func:`sparse_attention_fwd_tc16` and :func:`sparse_attention_fwd_tf32`;
     on the CPU, the plain version (none counts)."""
     if not _on_cuda(q, "forward"):
         return sparse_fwd_reference(q, k, v, key_mask, plan, causal, scale)
@@ -710,6 +713,9 @@ def sparse_attention_fwd(q, k, v, key_mask, plan: SparsePlan, causal: bool,
         return sparse_attention_fwd_tc(q, k, v, key_mask, plan, causal, scale)
     if route == "tc16":
         return sparse_attention_fwd_tc16(q, k, v, key_mask, plan, causal,
+                                         scale)
+    if route == "tf32":
+        return sparse_attention_fwd_tf32(q, k, v, key_mask, plan, causal,
                                          scale)
     out, lse = _launch_fma_fwd(q, k, v, key_mask, plan, causal, scale)
     sparse_attention_fwd.launches += 1
@@ -767,17 +773,36 @@ def sparse_attention_fwd_tc16(q, k, v, key_mask, plan: SparsePlan,
     return out, lse
 
 
+def sparse_attention_fwd_tf32(q, k, v, key_mask, plan: SparsePlan,
+                              causal: bool, scale: float,
+                              cap: Optional[int] = None):
+    """The forward for float32 as 3xTF32 on the tensor cores (the walls of
+    :func:`sparse_attention_bwd_dq_tf32`): a block of 4 warps owns up to
+    4 query blocks of 16 rows of one head (dq's list,
+    :meth:`SparsePlan.work16`), each warp a base-2 online softmax over the
+    gathered key blocks its bit lists, its scores computed as dq computes
+    them (q unscaled, the scale in the exponent); walks longer than
+    ``cap`` steps of 64 rows (:data:`SPLIT_CAP` by default) split, their
+    pieces' fp32 partials (o, m, l) combined by a second pass in piece
+    order. Inputs and outputs as :func:`sparse_attention_fwd`."""
+    _require_tf32(q, plan, "fwd")
+    out, lse = _launch_tc_fwd(q, k, v, key_mask, plan, causal, scale, cap,
+                              "sparse_attention_tf32")
+    sparse_attention_fwd_tf32.launches += 1
+    return out, lse
+
+
 def _launch_tc_fwd(q, k, v, key_mask, plan, causal, scale, cap,
                    name="sparse_attention_tc"):
     """The forward by the tensor-core kernel of ``csrc/<name>.cu``
     (``sparse_attention_tc`` over dq's 64-row work list at ``cap``,
-    ``sparse_attention_tc16`` over its 16-row one); a split walk's pieces
-    leave fp32 (o, m, l) in scratch allocated here (64 rows an item either
-    way)."""
+    ``sparse_attention_tc16`` and ``sparse_attention_tf32`` over its
+    16-row one); a split walk's pieces leave fp32 (o, m, l) in scratch
+    allocated here (64 rows an item either way)."""
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    rows16 = name == "sparse_attention_tc16"
+    rows16 = name in _ROWS16
     work, items, tiles, splits = plan.work_on(q.device, "fwd", causal, cap,
                                               rows16=rows16)
     count = (work.n_items, work.walk_max) if rows16 else (work.n_items,)
@@ -1018,7 +1043,7 @@ def sparse_attention_bwd_dq_tf32(q, k, v, dout, key_mask, lse, delta,
     multiple of 8 up to 128, any layout block that is a multiple of 16,
     CUDA tensors; anything else raises ValueError): a block of 4 warps
     owns up to 4 query blocks of 16 rows of one head
-    (:meth:`SparsePlan.work16`) and streams 2 gathered key blocks a step;
+    (:meth:`SparsePlan.work16`) and streams one gathered key block a step;
     walks longer than ``cap`` steps of 64 rows (:data:`SPLIT_CAP` by
     default) split, their pieces summed by a second pass in piece order.
     Inputs and output as :func:`sparse_attention_bwd_dq`."""
@@ -1054,6 +1079,7 @@ sparse_attention_bwd_dkv.launches = 0
 sparse_attention_bwd_dkv_tc.launches = 0
 sparse_attention_bwd_dq_tc16.launches = 0
 sparse_attention_bwd_dkv_tc16.launches = 0
+sparse_attention_fwd_tf32.launches = 0
 sparse_attention_bwd_dq_tf32.launches = 0
 sparse_attention_bwd_dkv_tf32.launches = 0
 
@@ -1062,8 +1088,9 @@ class _SparseAttention(torch.autograd.Function):
     """The kernels with their gradient (the JAX ``_sparse_vjp_fn``): the
     forward saves ``out`` and ``lse``; the backward takes ``delta =
     rowsum(dO * out)`` in fp32 from the output in its dtype, then runs dq
-    and dk/dv on the routes :func:`_route` picks for them (for float32 the
-    3xTF32 kernels, over the FMA forward's lse)."""
+    and dk/dv on the routes :func:`_route` picks for them (for float32 all
+    three on the 3xTF32 kernels, dq and dk/dv over the lse of scores
+    computed as they compute them)."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, plan, causal, scale):

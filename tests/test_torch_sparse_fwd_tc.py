@@ -168,12 +168,12 @@ def test_piecewise_split_forward_matches_jax_kernel(attention, cap):
 
 @pytest.mark.parametrize("dtype,head_dim,block,route", [
     (torch.bfloat16, 64, 256, "tc"), (torch.float16, 128, 64, "tc"),
-    (torch.bfloat16, 72, 128, "tc"), (torch.float32, 64, 256, "fma"),
+    (torch.bfloat16, 72, 128, "tc"), (torch.float32, 64, 256, "tf32"),
     (torch.bfloat16, 64, 16, "tc16"), (torch.float16, 64, 32, "tc16")])
 def test_forward_route(dtype, head_dim, block, route):
     """The forward takes the backward's route: 16 bits at blocks that are
     multiples of 64 on the 64-row tensor-core kernel, at blocks of 16 or
-    32 on the 16-row one, fp32 on the FMA kernel."""
+    32 on the 16-row one, fp32 on the 3xTF32 kernel."""
     assert sp._route(dtype, head_dim, block) == route
 
 

@@ -273,7 +273,7 @@ def test_piecewise_split_matches_jax_kernels(attention, masked):
     (torch.bfloat16, 64, 256, "tc"), (torch.float16, 64, 256, "tc"),
     (torch.bfloat16, 64, 64, "tc"), (torch.float16, 128, 128, "tc"),
     (torch.bfloat16, 8, 64, "tc"), (torch.float16, 72, 192, "tc"),
-    (torch.float32, 64, 256, "fma"), (torch.float32, 128, 64, "fma"),
+    (torch.float32, 64, 256, "tf32"), (torch.float32, 128, 64, "tf32"),
     (torch.bfloat16, 64, 16, "tc16"), (torch.float16, 64, 32, "tc16"),
     (torch.bfloat16, 64, 96, "tc16"), (torch.bfloat16, 136, 256, "fma"),
     (torch.float16, 60, 64, "fma")])
@@ -281,7 +281,8 @@ def test_route(dtype, head_dim, block, route):
     """16-bit types at head dims the kernels take and blocks that are
     multiples of 64 go to the 64-row tensor-core kernels, other multiples
     of 16 (16, 32, 96; the reference's default is 16) to the 16-row ones;
-    fp32 and head dims off the grid to the FMA kernels."""
+    fp32 to the 3xTF32 kernels; head dims off the grid to the FMA
+    kernels."""
     assert sp._route(dtype, head_dim, block) == route
 
 

@@ -331,14 +331,12 @@ def test_route_bwd(dtype, head_dim, block, route):
     """16-bit types at head dims the kernels take: blocks that are
     multiples of 64 on the 64-row kernels, other multiples of 16 on the
     16-row kernels; fp32 dq and dk/dv at every multiple of 16 on the
-    3xTF32 kernels. The 16-bit forward takes the same route, the fp32
-    forward the FMA kernel (``_route``; ``_route_bwd`` is its view for dq
-    and dk/dv)."""
+    3xTF32 kernels. The forward takes the same route (``_route``;
+    ``_route_bwd`` is its view for dq and dk/dv)."""
     assert sp._route_bwd(dtype, head_dim, block) == route
     assert sp._route(dtype, head_dim, block, "dq") == route
     assert sp._route(dtype, head_dim, block, "dkv") == route
-    assert sp._route(dtype, head_dim, block) == (
-        "fma" if route == "tf32" else route)
+    assert sp._route(dtype, head_dim, block) == route
 
 
 def _inputs(dtype, block, s=96, h=2, d=16, b=1):
