@@ -54,8 +54,13 @@
      dk/dv of ``csrc/flash_attention_tc.cu``), the FMA dq and dk/dv held
      on the same inputs beside either; also at D=128, at D=72 and D=8
      (zero-padded to 80 and 16 in 16 bits) and with Sq < Sk (bottom-right
-     causal), and, in fp32 and bf16, at D = 256 on the FMA route (its
-     widest branch, causal with the key mask, dropout 0 and 0.1); the
+     causal), and in every dtype at D = 256 and D = 136 (zero-padded to
+     144): causal with the key mask, Sq < Sk, and non-causal with a key
+     mask holding an all-padding row, at dropout 0 and 0.1 (16 bits: the
+     wgmma forward and dk/dv of ``csrc/flash_attention_tc256.cu`` with
+     the FMA dq, each new kernel also held to the FMA kernel on the same
+     inputs and its forward bit-equal over two launches; fp32: the FMA
+     forward, dq and dk/dv); the
      whole autograd path against the plain
      version's; fp32 within 1e-5 (dO x 0.1), 16-bit within one rounding
      step of its type plus 1e-3 of the reference's RMS (0.15 on the
@@ -65,11 +70,20 @@
      time at dropout 0 and 0.1 beside the FMA
      kernels on the same inputs, the plain versions and SDPA with its
      backend pinned and printed (fp32 bounds at FP32_3XTF32_FLOPS), the
-     D = 256 FMA kernels in bf16 at [4, 512, 8, 256] beside cuDNN's SDPA (the
-     ``_d256`` rows); and the dropout keep-mask read back out
+     D = 256 kernels in bf16 at [4, 512, 8, 256] beside cuDNN's SDPA and
+     the FMA kernels on the same inputs (the ``_d256`` rows; first each
+     of them, and the FMA forward and dk/dv, held there to its plain
+     version at 1e-3 of the RMS and bit-equal over two launches, on the
+     timed inputs and the path's, and in fp16 on one), the fp32 FMA
+     forward, dq and dk/dv there beside SDPA in fp32 (the ``_d256_fp32``
+     rows), and one line of the slice's path: forward + backward through
+     ``flash_attention()`` at that shape in bf16 (device ms, each
+     wrapper's launches, every count set to 0 just before) beside SDPA's
+     forward + backward; and the dropout keep-mask read back out
      of the forward, dq and dk/dv kernels (fp32 [2, 2048, 2, 256] through
-     the FMA kernels, fp32 [2, 2048, 2, 64] through the 3xTF32 forward,
-     dq and dk/dv, bf16 [2, 2048, 2, 64] through the
+     the FMA kernels, bf16 [2, 2048, 2, 256] through the wgmma forward and
+     dk/dv and the FMA dq, fp32 [2, 2048, 2, 64] through the 3xTF32
+     forward, dq and dk/dv, bf16 [2, 2048, 2, 64] through the
      tensor-core ones;
      an identity V, K and dO on a D-wide window) against
      ``dropout_keep_mask``, no bit flipped; the non-causal key-padded
@@ -320,10 +334,18 @@ versions, timed on the same inputs) are timed in fp32; at dropout 0
 their launches count the fp32 comparison of phase 4, their ``_dropout``
 twins phase 7b's timed steps (the FMA kernels 0 in both), every count
 set to 0 just before it;
-the ``_d256`` rows (the FMA route above D = 128) are timed in bf16 and
-count the FMA wrappers' launches at D > 128 (``.launches_wide``) over
-phases 4, 7 and 7b, set to 0 just before each. ``fused_ln.cu``'s rows
-(``fused_ln_matmul_fwd``, ``fused_ln_matmul_bwd``) are fp32's route,
+the ``_d256`` rows are timed in bf16 at [4, 512, 8, 256]: the wgmma
+forward and dk/dv (``flash_attention_fwd_tc256_d256``,
+``flash_attention_bwd_dkv_tc256_d256``) and the FMA dq
+(``flash_attention_bwd_dq_d256``) count phase 2's forward + backward
+through ``flash_attention()`` at that shape, the FMA forward and dk/dv
+(their first versions, timed on the same inputs) the FMA wrappers'
+launches at D > 128 (``.launches_wide``) over phases 4 and 7, which train
+in bf16, and the ``_d256_fp32`` rows (the FMA kernels timed on fp32
+inputs at that shape) those over phase 7b, which trains in fp32, every
+count set to 0 just before each phase; the ``_d256`` rows' max |err| is
+that of the kernels held on the timed inputs (``hold_flash_d256``).
+``fused_ln.cu``'s rows (``fused_ln_matmul_fwd``, ``fused_ln_matmul_bwd``) are fp32's route,
 counted over phase 6's fp32 comparison, while the ``_tc`` rows count phase 6 and its fp16 run. The
 FMA sparse rows (``sparse_attention_fwd``, ``sparse_attention_bwd_dq``,
 ``sparse_attention_bwd_dkv``) and the 3xTF32 ones
@@ -1276,9 +1298,11 @@ def flash_bytes_flops(q, mask, which, causal=True):
 # zero-padded to 80 in shared memory in 16 bits, and D = 8, their
 # narrowest, padded to 16) and Sq < Sk
 # (bottom-right causal): the 16-bit tensor-core forward, dq and dk/dv, and
-# in fp32 the 3xTF32 forward, dq and dk/dv. fp32 and bf16 also
-# run FLASH_CASES_256, the FMA route's D = 256 (its widest branch, for
-# every dtype above D = 128). At dropout 0.1 the same split.
+# in fp32 the 3xTF32 forward, dq and dk/dv. Every dtype also runs
+# FLASH_CASES_256 (and FLASH_NONCAUSAL_CASES_256): head dims above 128, D
+# = 256 and D = 136 (zero-padded to 144 in 16 bits), where 16 bits take
+# the wgmma forward and dk/dv and the FMA dq, fp32 all three FMA kernels
+# (their widest branch). At dropout 0.1 the same split.
 FLASH_CASES = ((16, 512, 512, 12, 64, False), (16, 512, 512, 12, 64, True),
                (4, 5, 5, 12, 64, True), (4, 300, 300, 12, 64, False),
                (4, 300, 300, 12, 64, True))
@@ -1290,8 +1314,14 @@ FLASH_DROP_CASES = ((16, 512, 512, 12, 64, False),
                     (16, 512, 512, 12, 64, True))
 FLASH_DROP_CASES_16 = ((4, 300, 300, 4, 128, True),
                        (4, 100, 300, 4, 72, True))
-FLASH_CASES_256 = ((4, 300, 300, 4, 256, True), (4, 100, 300, 4, 256, False))
-FLASH_DROP_CASES_256 = ((4, 300, 300, 4, 256, True),)
+FLASH_CASES_256 = ((4, 300, 300, 4, 256, True), (4, 100, 300, 4, 256, False),
+                   (4, 300, 300, 4, 136, True), (4, 37, 300, 4, 136, False))
+FLASH_DROP_CASES_256 = ((4, 300, 300, 4, 256, True),
+                        (4, 100, 300, 4, 136, True))
+# non-causal, key-padded with an all-padding batch row, at dropout 0 and
+# 0.1
+FLASH_NONCAUSAL_CASES_256 = ((4, 128, 128, 4, 256, True),
+                             (4, 100, 300, 4, 256, True))
 # the _d256 rows' timing shape [B, S, H, D]: bf16, causal, no mask
 FLASH_D256_SHAPE = (4, 512, 8, 256)
 # The non-causal, key-padded cases (BERT's attention), every dtype at
@@ -1307,14 +1337,16 @@ def compare_flash_case(torch, fa, dtype, case, worst, rate=0.0, seed=None,
     """Kernels #3-#5 and the whole autograd path against their plain
     versions on one ``case`` (B, Sq, Sk, H, D, masked), causal or not, at
     dropout ``rate`` with ``seed``; q is the last Sq rows of the fused
-    projection. Where dq and dk/dv take the tensor cores (16 bits, or
-    3xTF32 in fp32), the FMA dq and dk/dv (their first versions) are held
-    on the same inputs too, and in fp32 the FMA forward.
+    projection. Where a kernel is not the FMA kernel (the tensor cores in
+    16 bits, 3xTF32 in fp32, wgmma above D = 128 in 16 bits), the FMA
+    kernel (its first version) is held on the same inputs too, except the
+    16-bit forward up to D = 128; the wgmma forward and dk/dv are also held
+    to the FMA kernel's outputs.
     Folds each output's max |err| into ``worst`` and fails beyond the
-    tolerances (KERNEL_TOL, FLASH_16BIT_RMS_TOL), if dq or dk/dv differ
-    between two launches on the same inputs, or if an all-padding batch
-    row is not exactly zero. Returns the routes of the forward, dq and
-    dk/dv (:func:`flash_attention._route`)."""
+    tolerances (KERNEL_TOL, FLASH_16BIT_RMS_TOL), if the forward, dq or
+    dk/dv differ between two launches on the same inputs, or if an
+    all-padding batch row is not exactly zero. Returns the routes of the
+    forward, dq and dk/dv (:func:`flash_attention._route`)."""
     b, sq, s, h, d, masked = case
     name = str(dtype).split(".")[1]
     qkv, q, k, v, dout, mask = flash_case(
@@ -1330,6 +1362,7 @@ def compare_flash_case(torch, fa, dtype, case, worst, rate=0.0, seed=None,
         fail("flash_attention copied an aligned strided view")
     routes = tuple(fa._route(dtype, d, w) for w in ("fwd", "dq", "dkv"))
     out, lse = fa.flash_attention_fwd(qp, kp, vp, mp, causal, scale, *drop)
+    out2, lse2 = fa.flash_attention_fwd(qp, kp, vp, mp, causal, scale, *drop)
     want = fa.flash_attention_reference(q, k, v, causal=causal,
                                         kv_mask=mask, dropout_rate=rate,
                                         dropout_seed=seed)
@@ -1343,20 +1376,21 @@ def compare_flash_case(torch, fa, dtype, case, worst, rate=0.0, seed=None,
                                         causal, scale, *drop)
     dk2, dv2 = fa.flash_attention_bwd_dkv(qp, kp, vp, dout, mp, lse, delta,
                                           causal, scale, *drop)
-    # the FMA dq and dk/dv (the tensor-core routes' first versions) on the
-    # same inputs
-    first = routes[1] != "fma"
+    # the FMA kernels (the other routes' first versions) on the same inputs
     dq_fma = (fa._launch_dq("flash_attention", qp, kp, vp, dout, mp, lse,
-                            delta, causal, scale, *drop) if first else None)
+                            delta, causal, scale, *drop)
+              if routes[1] != "fma" else None)
     dkv_fma = (fa._launch_dkv("flash_attention", qp, kp, vp, dout, mp, lse,
                               delta, causal, scale, *drop)
-               if first else None)
+               if routes[2] != "fma" else None)
     fwd_fma = (fa._launch_fwd("flash_attention", qp, kp, vp, mp, causal,
                               scale, *drop)[0]
-               if routes[0] == "tf32" else None)
+               if routes[0] in ("tf32", "tc256") else None)
     torch.cuda.synchronize()
     what = (f"{name} B={b} Sq={sq} Sk={s} H={h} D={d} masked={masked} "
             f"causal={causal} dropout={rate} ({'/'.join(routes)})")
+    if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+        fail(f"flash fwd {what}: two launches on one input differ")
     if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
         fail(f"flash dkv {what}: two launches on one input differ")
     if not torch.equal(dq, dq2):
@@ -1392,12 +1426,18 @@ def compare_flash_case(torch, fa, dtype, case, worst, rate=0.0, seed=None,
     pairs = {"fwd": (out, want), "dq": (dq, dq_w), "dk": (dk, dk_w),
              "dv": (dv, dv_w), "autograd out": tuple(outs),
              "autograd dqkv": (x1.grad, grad_w)}
-    if first:
+    if dq_fma is not None:
         pairs["dq (FMA kernel, same inputs)"] = (dq_fma, dq_w)
+    if dkv_fma is not None:
         pairs["dk (FMA kernel, same inputs)"] = (dkv_fma[0], dk_w)
         pairs["dv (FMA kernel, same inputs)"] = (dkv_fma[1], dv_w)
     if fwd_fma is not None:
         pairs["fwd (FMA kernel, same inputs)"] = (fwd_fma, want)
+    if routes[0] == "tc256":
+        pairs["fwd against the FMA kernel"] = (out, fwd_fma)
+    if routes[2] == "tc256":
+        pairs["dk against the FMA kernel"] = (dk, dkv_fma[0])
+        pairs["dv against the FMA kernel"] = (dv, dkv_fma[1])
     for key, (got, ref) in pairs.items():
         if not torch.isfinite(got).all():
             fail(f"flash {key} {what}: non-finite output")
@@ -1522,12 +1562,14 @@ def flash_wrappers(fa):
     """Each flash kernel's wrappers by route: the forward, dq and dk/dv."""
     return {"fwd": {"tc": fa.flash_attention_fwd_tc,
                     "tf32": fa.flash_attention_fwd_tf32,
+                    "tc256": fa.flash_attention_fwd_tc256,
                     "fma": fa.flash_attention_fwd},
             "dq": {"tc": fa.flash_attention_bwd_dq_tc,
                    "tf32": fa.flash_attention_bwd_dq_tf32,
                    "fma": fa.flash_attention_bwd_dq},
             "dkv": {"tc": fa.flash_attention_bwd_dkv_tc,
                     "tf32": fa.flash_attention_bwd_dkv_tf32,
+                    "tc256": fa.flash_attention_bwd_dkv_tc256,
                     "fma": fa.flash_attention_bwd_dkv}}
 
 
@@ -1553,32 +1595,44 @@ def take_wide_launches(fa, total=None):
 def flash_routes_expected(dtype, d):
     """The routes of the forward, dq and dk/dv that phase 2 holds the code
     to: 16-bit up to D = 128 the tensor cores; fp32 up to D = 128 3xTF32
-    on them; every dtype above D = 128 the FMA kernels."""
+    on them; above D = 128 16-bit the wgmma forward and dk/dv with the FMA
+    dq, fp32 the FMA kernels."""
     import torch
 
     if d > 128:
-        return ("fma",) * 3
+        return (("fma",) * 3 if dtype == torch.float32
+                else ("tc256", "fma", "tc256"))
     return ("tf32",) * 3 if dtype == torch.float32 else ("tc",) * 3
+
+
+def flash_wide_expected(dtype, d):
+    """The FMA wrappers whose ``.launches_wide`` a call at head dim ``d``
+    grows: none up to D = 128; above, dq in 16 bits, all three in fp32."""
+    return sorted(k for k, r in zip(("fwd", "dq", "dkv"),
+                                    flash_routes_expected(dtype, d))
+                  if d > 128 and r == "fma")
 
 
 def check_flash_attention(torch, reports):
     """#3-#5 against their plain versions in fp32, bf16 and fp16 at dropout
     0 (FLASH_CASES and FLASH_CASES_16) and at dropout 0.1
-    (FLASH_DROP_CASES, FLASH_DROP_CASES_16), and at D = 256 in fp32 and
-    bf16 (FLASH_CASES_256, FLASH_DROP_CASES_256); each call must launch
-    the kernel of the route :func:`flash_routes_expected` names, counted
-    in that route's wrapper alone, and in the FMA wrappers'
-    ``.launches_wide`` exactly when D > 128. Then timed by device time
-    (:func:`time_flash`) at the training shape, and on the FMA route at
-    FLASH_D256_SHAPE. ``reports``: the kernels line's rows by name."""
+    (FLASH_DROP_CASES, FLASH_DROP_CASES_16), and above D = 128
+    (FLASH_CASES_256, FLASH_DROP_CASES_256, FLASH_NONCAUSAL_CASES_256 at
+    dropout 0 and 0.1); each call must launch the kernel of the route
+    :func:`flash_routes_expected` names, counted in that route's wrapper
+    alone, and in the FMA wrappers' ``.launches_wide`` those
+    :func:`flash_wide_expected` names. Then timed by device time
+    (:func:`time_flash`) at the training shape and at FLASH_D256_SHAPE
+    (bf16 on its routes, fp32 on the FMA kernels; the bf16 kernels first
+    held there by :func:`hold_flash_d256`), and the slice's path at that
+    shape (:func:`time_flash_d256_path`). ``reports``: the
+    kernels line's rows by name."""
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 
     worst, worst_drop, worst_nc, worst_nc_drop = {}, {}, {}, {}
     worst_256 = {}
     wrappers = flash_wrappers(fa)
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        wide = FLASH_CASES_256 if dtype != torch.float16 else ()
-        wide_drop = FLASH_DROP_CASES_256 if dtype != torch.float16 else ()
         for cases, sink, rate, causal in (
                 (FLASH_CASES + FLASH_CASES_16, worst, 0.0, True),
                 (FLASH_DROP_CASES + FLASH_DROP_CASES_16, worst_drop,
@@ -1586,8 +1640,11 @@ def check_flash_attention(torch, reports):
                 (FLASH_NONCAUSAL_CASES, worst_nc, 0.0, False),
                 (FLASH_NONCAUSAL_CASES, worst_nc_drop, FLASH_DROPOUT,
                  False),
-                (wide, worst_256, 0.0, True),
-                (wide_drop, worst_256, FLASH_DROPOUT, True)):
+                (FLASH_CASES_256, worst_256, 0.0, True),
+                (FLASH_DROP_CASES_256, worst_256, FLASH_DROPOUT, True),
+                (FLASH_NONCAUSAL_CASES_256, worst_256, 0.0, False),
+                (FLASH_NONCAUSAL_CASES_256, worst_256, FLASH_DROPOUT,
+                 False)):
             for case in cases:
                 before = {(k, r): w.launches for k, by in wrappers.items()
                           for r, w in by.items()}
@@ -1603,8 +1660,7 @@ def check_flash_attention(torch, reports):
                     fa).items() if n > wide[k])
                 if routes != want or any(
                         grew[k] != [r] for k, r in zip(wrappers, want)) \
-                        or grew_wide != (sorted(wrappers)
-                                         if case[4] > 128 else []):
+                        or grew_wide != flash_wide_expected(dtype, case[4]):
                     fail(f"flash {dtype} {case} causal={causal}: routed to "
                          f"{routes} (expected {want}), launches grew on "
                          f"{grew}, wide launches on {grew_wide}")
@@ -1617,22 +1673,52 @@ def check_flash_attention(torch, reports):
     print_flash_worst(worst_nc, "FLASH_NONCAUSAL_CASES", kind=nc)
     print_flash_worst(worst_nc_drop, f"dropout {FLASH_DROPOUT}, "
                       f"FLASH_NONCAUSAL_CASES", FLASH_DROPOUT, kind=nc)
-    print_flash_worst(worst_256, f"D = 256 on the FMA route, dropout 0 and "
-                      f"{FLASH_DROPOUT}, FLASH_CASES_256 and "
-                      f"FLASH_DROP_CASES_256")
+    print_flash_worst(worst_256, f"D = 256 and 136, dropout 0 and "
+                      f"{FLASH_DROPOUT}, FLASH_CASES_256, "
+                      f"FLASH_DROP_CASES_256 and FLASH_NONCAUSAL_CASES_256",
+                      kind="causal with/without key mask, and non-causal "
+                      "with an all-padding row")
     time_flash(torch, fa, reports, {0.0: worst, FLASH_DROPOUT: worst_drop})
-    # the _d256 rows: bf16 times, the max |err| of both dtypes' D = 256
-    # cases at dropout 0 and 0.1
-    both = {}
-    for k, v in worst_256.items():
-        if len(k) == 2 and v[0] >= both.get((k[0], "bfloat16"), (-1.0,))[0]:
-            both[(k[0], "bfloat16")] = v
-    # beside cuDNN's SDPA: SDPA's own pick at D = 256, and the faster of
-    # its backends there
-    time_flash(torch, fa, reports, {0.0: both}, shape=FLASH_D256_SHAPE,
-               dtypes=(torch.bfloat16,), suffix="_d256",
-               backends={"bfloat16": "CUDNN_ATTENTION"})
+    # the _d256 rows: bf16 times beside cuDNN's SDPA (SDPA's own pick at D
+    # = 256, and the faster of its backends there), their max |err| that
+    # of the kernels held at that shape on the timed inputs
+    time_flash(torch, fa, reports, {0.0: hold_flash_d256(torch, fa)},
+               shape=FLASH_D256_SHAPE, dtypes=(torch.bfloat16,),
+               suffix="_d256", backends={"bfloat16": "CUDNN_ATTENTION"})
+    # the fp32 FMA kernels at that shape, beside SDPA in fp32 (TF32 off)
+    time_flash(torch, fa, reports, {0.0: worst_256}, shape=FLASH_D256_SHAPE,
+               dtypes=(torch.float32,), suffix="_d256_fp32")
+    time_flash_d256_path(torch, fa, reports)
     time_flash_bert(torch, fa, reports)
+
+
+def hold_flash_d256(torch, fa):
+    """The kernels the ``_d256`` rows time, held at FLASH_D256_SHAPE
+    (causal, no mask) by :func:`hold_flash`: the wgmma forward and dk/dv,
+    the FMA dq, and the FMA forward and dk/dv on the same inputs, in bf16
+    on the four layers :func:`time_flash` times there (seeds 100-103) and
+    on the inputs of :func:`time_flash_d256_path` (seed 321), and in fp16
+    on the first layer. Returns the bf16 max |err| by (output, dtype
+    name), as :func:`compare_flash_case` folds them, for the rows."""
+    b, s, h, d = FLASH_D256_SHAPE
+    errs = {}
+    for dtype, seed in ((torch.bfloat16, 100), (torch.bfloat16, 101),
+                        (torch.bfloat16, 102), (torch.bfloat16, 103),
+                        (torch.bfloat16, 321), (torch.float16, 100)):
+        _qkv, q, k, v, dout, _m = flash_case(torch, dtype, b, s, h, d,
+                                             seed=seed)
+        name = str(dtype).split(".")[1]
+        one = hold_flash(torch, fa, q, k, v, dout, None, d ** -0.5,
+                         f"{name} {list(FLASH_D256_SHAPE)} causal, seed "
+                         f"{seed}", causal=True, fma=True)
+        if dtype == torch.bfloat16:
+            errs = {key: max(errs.get(key, 0.0), e)
+                    for key, e in one.items()}
+    return {(out, "bfloat16"): (errs[key],) for out, key in (
+        ("fwd", "fwd"), ("dq", "dq"), ("dk", "dkv"), ("dv", "dkv"),
+        ("fwd (FMA kernel, same inputs)", "fwd fma"),
+        ("dk (FMA kernel, same inputs)", "dkv fma"),
+        ("dv (FMA kernel, same inputs)", "dkv fma"))}
 
 
 def time_flash(torch, fa, reports, worsts, shape=(16, 512, 12, 64),
@@ -1644,12 +1730,14 @@ def time_flash(torch, fa, reports, worsts, shape=(16, 512, 12, 64),
     |err| by (output, dtype name)), all as device time
     (:func:`device_ms`), in each of ``dtypes`` (bf16 and fp32 by default):
     bf16 on its routes (the tensor-core forward, dq and dk/dv up to D =
-    128) beside the FMA kernels on the same inputs (their first versions'
-    route), and fp32 on its routes (the 3xTF32 forward, dq and dk/dv)
-    beside the FMA forward, dq and dk/dv on the same inputs, which fill
-    the FMA rows; each beside its plain version and SDPA with its backend
-    pinned (flash for bf16, memory-efficient for fp32, unless
-    ``backends`` names another by dtype name). Row names end in
+    128; above, the wgmma forward and dk/dv and the FMA dq) beside the FMA
+    kernels on the same inputs (their first versions' route), which fill
+    the FMA rows above D = 128, and fp32 on its routes (the 3xTF32
+    forward, dq and dk/dv up to D = 128) beside the FMA forward, dq and
+    dk/dv on the same inputs, which fill the FMA rows; each beside its
+    plain version and SDPA with its backend pinned (flash for bf16,
+    memory-efficient for fp32, unless ``backends`` names another by dtype
+    name). Row names end in
     ``suffix``. The tensor-core rows also print their host-paced time
     (:func:`cuda_ms`: 50 back-to-back calls between two events), which
     counts the wrapper's host work where it exceeds the device's. fp32
@@ -1744,7 +1832,7 @@ def time_flash(torch, fa, reports, worsts, shape=(16, 512, 12, 64),
                         "flash_attention_bwd_dq", "dkv":
                         "flash_attention_bwd_dkv"}[key]
                 tail = "_dropout" if rate else ""
-                row = base + {"tc": "_tc", "tf32": "_tf32",
+                row = base + {"tc": "_tc", "tf32": "_tf32", "tc256": "_tc256",
                               "fma": ""}[route] + tail + suffix
                 kernel_ms, kernel_names = device_ms(torch, kern[key],
                                                     names=True)
@@ -1776,8 +1864,8 @@ def time_flash(torch, fa, reports, worsts, shape=(16, 512, 12, 64),
                              f"between two events), the FMA kernel on the "
                              f"same inputs {first_ms:.4f} ms "
                              f"({first_ms / kernel_ms:.2f}x)")
-                    if route == "tf32":
-                        # the FMA rows: fp32's first versions of the
+                    if route in ("tf32", "tc256"):
+                        # the FMA rows: the first versions of the
                         # forward, dq and dk/dv, on the same inputs
                         reports[base + tail + suffix].update(
                             ms=first_ms, plain_ms=plain_ms,
@@ -1800,9 +1888,10 @@ def time_flash(torch, fa, reports, worsts, shape=(16, 512, 12, 64),
                       f"TB/s, {flops} flops / {rate_name} TFLOP/s; the "
                       f"hash's integer operations are not counted)")
             bwd = pair["dq"] + pair["dkv"]
-            first = (f"; the FMA pair on the same inputs "
-                     f"{pair['dq fma'] + pair['dkv fma']:.4f} ms"
-                     if "dq fma" in pair else "")
+            fma_bwd = (pair.get("dq fma", pair["dq"])
+                       + pair.get("dkv fma", pair["dkv"]))
+            first = (f"; the FMA pair on the same inputs {fma_bwd:.4f} ms"
+                     if "dq fma" in pair or "dkv fma" in pair else "")
             print(f"flash_attention backward summary ({name}, dropout "
                   f"{rate}): dq + dk/dv {bwd:.4f} ms = "
                   f"{bwd / lib['bwd'][0]:.3f}x SDPA's whole backward "
@@ -1810,6 +1899,90 @@ def time_flash(torch, fa, reports, worsts, shape=(16, 512, 12, 64),
             del prepped, sdpa_in
         del layers
         torch.cuda.empty_cache()
+
+
+def time_flash_d256_path(torch, fa, reports):
+    """The slice's path: forward + backward through ``flash_attention()``
+    at FLASH_D256_SHAPE in bf16, causal, as a model with 256-wide heads
+    calls it (q, k and v views of one fused projection that needs its
+    gradient), beside SDPA's forward + backward (cuDNN) on contiguous [B,
+    H, S, D] copies, both as device time (:func:`device_ms`). The
+    gradient is first held to the plain path's (one bf16 step +
+    FLASH_16BIT_RMS_TOL["autograd"] of the RMS). Every flash wrapper's
+    count is set to 0 just before the timed drive and read just after:
+    each call must launch the wgmma forward and dk/dv and the FMA dq
+    (``.launches_wide``) once, and no other flash kernel; the ``_d256``
+    rows of those three take the counts."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, s, h, d = FLASH_D256_SHAPE
+    qkv, *_rest, dout, _m = flash_case(torch, torch.bfloat16, b, s, h, d,
+                                       seed=321)
+    x = qkv.detach().clone().requires_grad_()
+    calls = {"n": 0}
+
+    def run(fn):
+        x.grad = None
+        qq, kk, vv = (t.reshape(b, s, h, d) for t in x.split(h * d, dim=-1))
+        fn(qq, kk, vv, causal=True).backward(dout)
+        calls["n"] += 1
+        return x.grad
+
+    got = run(fa.flash_attention).clone()
+    ref = run(fa.flash_attention_reference)
+    torch.cuda.synchronize()
+    rms = ref.float().pow(2).mean().sqrt().item()
+    rel = (((got.float() - ref.float()).abs()
+            - round_step(torch, ref)).clamp_min(0).max().item()
+           / max(rms, 1e-30))
+    if not torch.isfinite(got).all() or rel > FLASH_16BIT_RMS_TOL["autograd"]:
+        fail(f"flash_attention() bf16 {FLASH_D256_SHAPE}: the gradient is "
+             f"{rel} of the RMS beyond one bf16 step of the plain path's")
+    wrappers = flash_wrappers(fa)
+    for by in wrappers.values():
+        for w in by.values():
+            w.launches = 0
+    take_wide_launches(fa)
+    calls["n"] = 0
+    path_ms, path_names = device_ms(torch, lambda: run(fa.flash_attention),
+                                    names=True)
+    torch.cuda.synchronize()
+    n = calls["n"]
+    grew = {f"{k}/{r}": w.launches for k, by in wrappers.items()
+            for r, w in by.items() if w.launches}
+    wide = take_wide_launches(fa)
+    if (grew != {"fwd/tc256": n, "dq/fma": n, "dkv/tc256": n}
+            or wide != {"fwd": 0, "dq": n, "dkv": 0}):
+        fail(f"flash_attention() bf16 {FLASH_D256_SHAPE}: {n} calls "
+             f"launched {grew}, FMA launches above D = 128 {wide}")
+    for row in ("flash_attention_fwd_tc256_d256",
+                "flash_attention_bwd_dq_d256",
+                "flash_attention_bwd_dkv_tc256_d256"):
+        reports[row]["launches"] = n
+    q, k, v = (t.reshape(b, s, h, d).detach() for t in qkv.split(h * d, -1))
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = dout.transpose(1, 2).contiguous()
+
+    def sdpa():
+        for t in (qt, kt, vt):
+            t.grad = None
+        F.scaled_dot_product_attention(qt, kt, vt,
+                                       is_causal=True).backward(dot)
+
+    with sdpa_kernel(SDPBackend.CUDNN_ATTENTION):
+        lib_ms, lib_names = device_ms(torch, sdpa, names=True)
+    top = {k[:60]: round(t, 4) for k, t in sorted(
+        path_names.items(), key=lambda kv: -kv[1])[:6]}
+    lib_top = {k[:60]: round(t, 4) for k, t in lib_names.items()}
+    print(f"flash_attention() forward + backward, the slice's path (bf16 "
+          f"B={b} S={s} H={h} D={d} causal, device time): {path_ms:.4f} ms "
+          f"a call; {n} calls launched {grew} (the FMA dq's "
+          f".launches_wide {wide['dq']}); kernels {top}; SDPA forward + "
+          f"backward (cuDNN) {lib_ms:.4f} ms {lib_top}: "
+          f"{path_ms / lib_ms:.2f}x; gradient {rel:.3g} of the RMS beyond one bf16 step of the "
+          f"plain path's (limit {FLASH_16BIT_RMS_TOL['autograd']})")
 
 
 # bench_bert's attention shapes ([B, S, H, D], bert-large: 16 heads of 64)
@@ -1820,54 +1993,82 @@ FLASH_BERT_SHAPES = (("bert128", 32, 128, 16, 64), ("bert512", 8, 512, 16, 64))
 FLASH_LSE_TOL = 1e-5
 
 
-def hold_flash_bert(torch, fa, q, k, v, dout, mask, scale, what):
-    """The forward (o and lse), dq and dk/dv kernels, non-causal under the
-    key ``mask``, against their plain versions on one input: o, dq, dk and
-    dv within one bf16 rounding step + FLASH_16BIT_RMS_TOL["kernel"] of
-    the reference's RMS, lse within FLASH_LSE_TOL, dq and dk/dv bit-equal
-    over two launches. Returns the max |err| by row key (fwd: o; dkv: dk
-    and dv)."""
-    q, k, v, mp = fa._prepare(q, k, v, mask, False)
-    out, lse = fa.flash_attention_fwd(q, k, v, mp, False, scale)
+def hold_flash(torch, fa, q, k, v, dout, mask, scale, what, causal=False,
+               fma=False):
+    """The forward (o and lse), dq and dk/dv kernels of the route, causal
+    or not, under the key ``mask`` (or none), against their plain versions
+    on one 16-bit input: o, dq, dk and dv within one rounding step of the
+    dtype + FLASH_16BIT_RMS_TOL["kernel"] of the reference's RMS, lse
+    within FLASH_LSE_TOL, each kernel bit-equal over two launches. With
+    ``fma``, the FMA forward and dk/dv (their first versions) are held the
+    same way on the same inputs. Returns the max |err| by row key (fwd: o;
+    dkv: dk and dv; "fwd fma" and "dkv fma" with ``fma``)."""
+    dtype = q.dtype
+    q, k, v, mp = fa._prepare(q, k, v, mask, causal)
+    sq, sk = q.shape[1], k.shape[1]
+    fwds = [fa.flash_attention_fwd(q, k, v, mp, causal, scale)
+            for _ in range(2)]
+    out, lse = fwds[0]
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
     delta = delta.contiguous()
-    args = (q, k, v, dout, mp, lse, delta, False, scale)
-    dq, dq2 = (fa.flash_attention_bwd_dq(*args) for _ in range(2))
-    (dk, dv), (dk2, dv2) = (fa.flash_attention_bwd_dkv(*args)
-                            for _ in range(2))
+    args = (q, k, v, dout, mp, lse, delta, causal, scale)
+    dqs = [fa.flash_attention_bwd_dq(*args) for _ in range(2)]
+    dkvs = [fa.flash_attention_bwd_dkv(*args) for _ in range(2)]
+    runs = {"fwd": fwds, "dq": [(t,) for t in dqs], "dkv": dkvs}
+    if fma:
+        runs["fwd fma"] = [fa._launch_fwd("flash_attention", q, k, v, mp,
+                                          causal, scale, 0.0, None)
+                           for _ in range(2)]
+        runs["dkv fma"] = [fa._launch_dkv("flash_attention", *args, 0.0,
+                                          None) for _ in range(2)]
     torch.cuda.synchronize()
-    if not (same_bits(torch, dq, dq2) and same_bits(torch, dk, dk2)
-            and same_bits(torch, dv, dv2)):
-        fail(f"flash {what}: two launches on one input differ")
+    for key, (one, two) in runs.items():
+        if not all(same_bits(torch, a, b) for a, b in zip(one, two)):
+            fail(f"flash {key} {what}: two launches on one input differ")
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
-    lse_w = scores.masked_fill(~mask[:, None, None, :],
-                               float("-inf")).logsumexp(-1)
+    vis = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        vis = vis.tril(sk - sq)
+    if mask is not None:
+        vis = vis & mask[:, None, None, :]
+    lse_w = scores.masked_fill(~vis, float("-inf")).logsumexp(-1)
     del scores
-    lse_err = (lse - lse_w).abs().max().item()
+    lse_err = max((runs[key][0][1] - lse_w).abs().max().item()
+                  for key in runs if key.startswith("fwd"))
     if not lse_err <= FLASH_LSE_TOL:
         fail(f"flash lse {what}: max |err| {lse_err}")
+    o_w = fa.flash_attention_reference(q, k, v, causal=causal, kv_mask=mask)
     dk_w, dv_w = fa.flash_bwd_dkv_reference(*args)
-    pairs = {"fwd": (out, fa.flash_attention_reference(
-                 q, k, v, causal=False, kv_mask=mask)),
-             "dq": (dq, fa.flash_bwd_dq_reference(*args)),
-             "dk": (dk, dk_w), "dv": (dv, dv_w)}
-    errs = {}
-    for key, (got, ref) in pairs.items():
-        ref = ref.float()
-        diff = (got.float() - ref).abs()
-        rms = ref.pow(2).mean().sqrt().item()
-        rel = ((diff - round_step(torch, ref)).clamp_min(0).max().item()
-               / max(rms, 1e-30))
-        errs[key] = diff.max().item()
-        if not torch.isfinite(got).all() or \
-                rel > FLASH_16BIT_RMS_TOL["kernel"]:
-            fail(f"flash {key} {what}: max |err| {errs[key]} (reference "
-                 f"RMS {rms}); beyond one rounding step {rel} of the RMS")
+    pairs = {"fwd": [(out, o_w)],
+             "dq": [(dqs[0], fa.flash_bwd_dq_reference(*args))],
+             "dkv": [(dkvs[0][0], dk_w), (dkvs[0][1], dv_w)]}
+    if fma:
+        pairs["fwd fma"] = [(runs["fwd fma"][0][0], o_w)]
+        pairs["dkv fma"] = [(runs["dkv fma"][0][0], dk_w),
+                            (runs["dkv fma"][0][1], dv_w)]
+    errs, rels = {}, {}
+    for key, both in pairs.items():
+        for got, ref in both:
+            ref = ref.float()
+            diff = (got.float() - ref).abs()
+            rms = ref.pow(2).mean().sqrt().item()
+            rel = ((diff - round_step(torch, ref, dtype)).clamp_min(0).max()
+                   .item() / max(rms, 1e-30))
+            err = diff.max().item()
+            errs[key] = max(errs.get(key, 0.0), err)
+            rels[key] = max(rels.get(key, 0.0), rel)
+            if not torch.isfinite(got).all() or \
+                    rel > FLASH_16BIT_RMS_TOL["kernel"]:
+                fail(f"flash {key} {what}: max |err| {err} (reference "
+                     f"RMS {rms}); beyond one rounding step {rel} of the "
+                     f"RMS")
     print(f"flash_attention {what} against the plain versions: max |err| "
-          f"{json.dumps(errs)}, lse {lse_err:.3g} (limit {FLASH_LSE_TOL}); "
-          f"dq, dk/dv bit-equal over two launches")
-    return {"fwd": errs["fwd"], "dq": errs["dq"],
-            "dkv": max(errs["dk"], errs["dv"])}
+          f"{json.dumps(errs)}, beyond one rounding step "
+          f"{json.dumps({k: float(f'{r:.3g}') for k, r in rels.items()})} "
+          f"of the RMS (limit {FLASH_16BIT_RMS_TOL['kernel']}), lse "
+          f"{lse_err:.3g} (limit {FLASH_LSE_TOL}); each kernel bit-equal "
+          f"over two launches")
+    return errs
 
 
 def time_flash_bert(torch, fa, reports):
@@ -1878,7 +2079,7 @@ def time_flash_bert(torch, fa, reports):
     boolean [B, 1, 1, S] mask (the memory-efficient backend, the one that
     takes a mask: its forward, and its whole backward for dq and dk/dv)
     and the bound. First each kernel is held to its plain version
-    (:func:`hold_flash_bert`) on the first layer's inputs, under that
+    (:func:`hold_flash`) on the first layer's inputs, under that
     mask and under a padded one (lengths drawn in [S / 2, S], as phase
     8's padded batch); each row's max |err| is the larger of the two."""
     import numpy as np
@@ -1898,7 +2099,7 @@ def time_flash_bert(torch, fa, reports):
             if i == 0:
                 errs = {}
                 for tag, m in (("all keys", mask), ("padded", padded)):
-                    one = hold_flash_bert(
+                    one = hold_flash(
                         torch, fa, q, k, v, dout, m, scale,
                         f"bf16 [{b}, {s}, {h}, {d}] non-causal, {tag}")
                     errs = {key: max(errs.get(key, 0.0), e)
@@ -2005,7 +2206,8 @@ def check_flash_dropout_mask(torch, dtype, d):
     """The keep-mask read back out of the forward, dq and dk/dv kernels
     that ``dtype`` and head dim ``d`` route to, bit for bit against
     ``dropout_keep_mask``: non-causal at [2, 2048, 2, d] (fp32 at d = 256:
-    the FMA kernels; fp32 at d = 64: the 3xTF32 forward, dq and dk/dv;
+    the FMA kernels; bf16 at d = 256: the wgmma forward and dk/dv and the
+    FMA dq; fp32 at d = 64: the 3xTF32 forward, dq and dk/dv;
     bf16 at d = 64: the tensor-core kernels). The key
     mask keeps only the last d cols, c0 = 2048 - d onwards, and V is the
     identity on them (V[j, c] = 1 iff j = c0 + c), so o[i, c] != 0 iff
@@ -4626,6 +4828,16 @@ KERNELS = (
      "deepspeed_tpu/ops/transformer/flash_attention.py:231"),
     ("flash_attention_bwd_dkv_d256", "flash_attention",
      "deepspeed_tpu/ops/transformer/flash_attention.py:287"),
+    ("flash_attention_fwd_tc256_d256", "flash_attention_tc256",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:113"),
+    ("flash_attention_bwd_dkv_tc256_d256", "flash_attention_tc256",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:287"),
+    ("flash_attention_fwd_d256_fp32", "flash_attention",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:113"),
+    ("flash_attention_bwd_dq_d256_fp32", "flash_attention",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:231"),
+    ("flash_attention_bwd_dkv_d256_fp32", "flash_attention",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:287"),
     ("sparse_attention_bwd_dq_tf32", "sparse_attention_tf32",
      "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:147"),
     ("sparse_attention_bwd_dkv_tf32", "sparse_attention_tf32",
@@ -4651,8 +4863,9 @@ FLASH_TF32_NAMES = ("flash_attention_fwd_tf32", "flash_attention_bwd_dq_tf32",
 # #6/#7 of the 16-bit steps (wgmma); fused_ln.cu's take the fp32 path
 FUSED_LN_TC_NAMES = FUSED_LN_ROUTES["fused_ln_tc"]
 # the sources whose ptxas report is printed kernel by kernel
-TC_SOURCES = ("flash_attention_tc", "fused_ln_tc", "sparse_attention_tc",
-              "sparse_attention_tc16", "chunked_prefill",
+TC_SOURCES = ("flash_attention_tc", "flash_attention_tc256", "fused_ln_tc",
+              "sparse_attention_tc", "sparse_attention_tc16",
+              "chunked_prefill",
               "flash_attention_tf32", "sparse_attention_tf32")
 
 
@@ -6795,6 +7008,7 @@ def main() -> int:
     if not part:
         check_flash_attention(torch, reports)
         check_flash_dropout_mask(torch, torch.float32, 256)
+        check_flash_dropout_mask(torch, torch.bfloat16, 256)
         check_flash_dropout_mask(torch, torch.float32, 64)
         check_flash_dropout_mask(torch, torch.bfloat16, 64)
         check_fused_adam(torch, reports["fused_adam"])
@@ -6880,7 +7094,8 @@ def main() -> int:
     check_telemetry(torch, card)
 
     # 4. the training path end to end, and its fp32 comparison; the FMA
-    # kernels' launches at D > 128 are counted over phases 4, 7 and 7b
+    # kernels' launches at D > 128 are counted over phases 4 and 7 (bf16,
+    # the _d256 rows) and 7b (fp32, the _d256_fp32 rows)
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 
     take_wide_launches(fa)
@@ -6948,12 +7163,14 @@ def main() -> int:
     # fp32 rows at dropout count its timed steps
     take_wide_launches(fa)
     fp32 = check_fp32_training(torch, card)
-    wide = take_wide_launches(fa, wide)
+    wide32 = take_wide_launches(fa)
     for name in FLASH_FMA_NAMES + FLASH_TF32_NAMES:
         reports[name + "_dropout"]["launches"] = fp32["launches"].get(name,
                                                                       0)
     for name, key in zip(FLASH_FMA_NAMES, ("fwd", "dq", "dkv")):
-        reports[name + "_d256"]["launches"] = wide[key]
+        reports[name + "_d256_fp32"]["launches"] = wide32[key]
+        if key != "dq":   # dq's _d256 row counts phase 2's path
+            reports[name + "_d256"]["launches"] = wide[key]
 
     # 8. BERT-large pretraining (bench_bert's configurations, then sparse
     # BERT at block 16), and its fp32 comparisons

@@ -1,6 +1,7 @@
 // Tile helpers of the attention kernels on Hopper's tensor cores:
 // flash_attention_tc.cu (TPU kernels #3-#5) and sparse_attention_tc.cu
-// (#9, #10). A block of NT = 128 threads (4 warps) owns BM = 64 rows, 16
+// (#9, #10); flash_attention_tc256.cu borrows the quad reductions. A
+// block of NT = 128 threads (4 warps) owns BM = 64 rows, 16
 // per warp, and streams the other axis through shared tiles of 16-bit
 // rows DP elements apart, filled by cp.async (load_rows); products are
 // mma.sync.m16n8k16 with fp32 accumulators and fragments read by ldmatrix

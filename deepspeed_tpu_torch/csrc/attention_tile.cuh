@@ -6,7 +6,7 @@
 // of an fp32 operand into two 16-bit terms) serve fused_ln.cu and, through
 // attention_tc.cuh's tiles, flash_attention_tc.cu and
 // sparse_attention_tc.cu; Drop is the attention dropout's hash, shared by
-// both flash sources.
+// the flash sources.
 //
 // A block has THREADS threads. The rows of the tile it owns get LPR
 // neighbouring lanes each (LPR a power of two up to 32, so that a row's

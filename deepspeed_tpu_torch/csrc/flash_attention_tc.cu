@@ -11,8 +11,9 @@
 // keep-mask Drop::keep(i, j) regenerated in registers, never stored),
 // through the same C interface: q, k, v read through their [B, S, H, D]
 // strides; o, dO, dk, dv contiguous [B, S, H, D]; lse and delta fp32
-// [B * H, Sq]. fp32 and head dims above 128 stay on flash_attention.cu's
-// FMA kernels.
+// [B * H, Sq]. fp32 takes flash_attention_tf32.cu; head dims above 128
+// take flash_attention_tc256.cu's forward and dk/dv and flash_attention.cu's
+// FMA dq.
 //
 // What bounds it on an H100: at the training shape (B*H = 192, S = 512,
 // D = 64, bf16, causal) the forward must move q, k, v and o, 4 x 12.6 MB,

@@ -68,11 +68,26 @@
 #include <type_traits>
 
 #include "attention_tile.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using attn_tile::load8;
 using attn_tile::row_sum;
+using hopper::consumer_sync;
+using hopper::fence_acc;
+using hopper::fence_proxy_async;
+using hopper::gmma_desc;
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::smem_u32;
+using hopper::tma_load;
+using hopper::wgmma128;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_wait;
 
 constexpr int WG = 128;                // threads of a warpgroup
 constexpr int BN = 128;                // wgmma n: a tile's columns
@@ -219,147 +234,6 @@ __device__ __forceinline__ void unpack8(const uint4& u, float (&v)[8]) {
     const float2 f = unpack2<T>(w[k]);
     v[2 * k] = f.x;
     v[2 * k + 1] = f.y;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Hopper primitives: mbarriers, TMA, wgmma
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// returns once the phase of parity `parity` has completed; a wait of more
-// than ~2^34 cycles (seconds) traps, so a broken pipeline fails its
-// launch instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1LL << 34)) __trap();
-  }
-}
-
-// a 2-D box of a tensor map into shared memory; c0 runs along the
-// contiguous dimension. Boxes past the tensor's edge fill with zeros and
-// still count their whole size against the barrier.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// the consumer warpgroups' own barrier (the producer warp does not join)
-__device__ __forceinline__ void consumer_sync(int threads) {
-  asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
-}
-
-// A wgmma matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units), swizzle (1: 128-byte, 2: 64-byte). K-major
-// swizzled operands: stride = the 8-row group's bytes, leading unused.
-// MN-major 128-byte swizzle: leading = the bytes between two 64-wide MN
-// blocks, stride = the bytes between two 8-deep k groups.
-__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lead,
-                                              uint32_t stride,
-                                              uint64_t swizzle) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)((lead >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((stride >> 4) & 0x3FFF) << 32) | (swizzle << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accumulator reads or writes across an
-// asynchronous wgmma
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define FLN_WGMMA_M64N128K16(TYPE)                                          \
-  asm volatile(                                                             \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                          \
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TYPE "." TYPE " "      \
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "                                   \
-      "%8, %9, %10, %11, %12, %13, %14, %15, "                              \
-      "%16, %17, %18, %19, %20, %21, %22, %23, "                            \
-      "%24, %25, %26, %27, %28, %29, %30, %31, "                            \
-      "%32, %33, %34, %35, %36, %37, %38, %39, "                            \
-      "%40, %41, %42, %43, %44, %45, %46, %47, "                            \
-      "%48, %49, %50, %51, %52, %53, %54, %55, "                            \
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "                           \
-      "%64, %65, p, 1, 1, %67, %68;\n}\n"                                   \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),    \
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),    \
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),    \
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),    \
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),    \
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),    \
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                  \
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB))
-
-// d (+)= A B over k 16: A [64 x 16] and B [16 x 128] from descriptors; TA /
-// TB: 0 K-major, 1 MN-major. The accumulator layout: d[4 i + 2 h + e] is
-// row 16 warp + lane / 4 + 8 h, column 8 i + 2 (lane % 4) + e.
-template <typename T, int TA, int TB>
-__device__ __forceinline__ void wgmma128(float (&d)[64], uint64_t a,
-                                         uint64_t b, int scale_d) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    FLN_WGMMA_M64N128K16("bf16");
-  } else {
-    FLN_WGMMA_M64N128K16("f16");
   }
 }
 

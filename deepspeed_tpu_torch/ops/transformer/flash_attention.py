@@ -17,9 +17,12 @@ and the fp32 row logsumexp; the backward recomputes the probabilities.
   float32 with ``head_dim`` up to 128 the 3xTF32 tensor-core kernels of
   ``csrc/flash_attention_tf32.cu`` (:func:`flash_attention_fwd_tf32`,
   :func:`flash_attention_bwd_dq_tf32`,
-  :func:`flash_attention_bwd_dkv_tf32`); every head dim in (128, 256] the
-  FMA kernels of ``csrc/flash_attention.cu``. It launches them or raises;
-  it never falls back to the plain version or from one kernel to
+  :func:`flash_attention_bwd_dkv_tf32`); bfloat16 and float16 with
+  ``head_dim`` in (128, 256] the forward and dk/dv of
+  ``csrc/flash_attention_tc256.cu`` (wgmma: :func:`flash_attention_fwd_tc256`,
+  :func:`flash_attention_bwd_dkv_tc256`) and the FMA dq; float32 there all
+  three FMA kernels of ``csrc/flash_attention.cu``. It launches them or
+  raises; it never falls back to the plain version or from one kernel to
   another.
 - On CPU tensors it runs :func:`flash_attention_reference`, the plain
   PyTorch version (materialised fp32 scores, differentiated by autograd)
@@ -44,9 +47,11 @@ FMA kernels in ``flash_attention_fwd``, ``flash_attention_bwd_dq`` and
 ``flash_attention_fwd_tc``, ``flash_attention_bwd_dq_tc`` and
 ``flash_attention_bwd_dkv_tc``, the 3xTF32 ones in
 ``flash_attention_fwd_tf32``, ``flash_attention_bwd_dq_tf32`` and
-``flash_attention_bwd_dkv_tf32``. The FMA wrappers also count, in
-``.launches_wide``, their launches at head dims above 128 (the kernels'
-widest branch, which no tensor-core route takes).
+``flash_attention_bwd_dkv_tf32``, the wgmma ones at head dims above 128
+in ``flash_attention_fwd_tc256`` and ``flash_attention_bwd_dkv_tc256``.
+The FMA wrappers also count, in ``.launches_wide``, their launches at head
+dims above 128 (the kernels' widest branch: dq in 16 bits, all three in
+float32).
 """
 
 import ctypes
@@ -62,8 +67,8 @@ __all__ = ["flash_attention", "flash_attention_reference", "flash_ok",
            "flash_attention_bwd_dkv", "flash_attention_fwd_tc",
            "flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc",
            "flash_attention_fwd_tf32", "flash_attention_bwd_dq_tf32",
-           "flash_attention_bwd_dkv_tf32",
-           "flash_bwd_dq_reference",
+           "flash_attention_bwd_dkv_tf32", "flash_attention_fwd_tc256",
+           "flash_attention_bwd_dkv_tc256", "flash_bwd_dq_reference",
            "flash_bwd_dkv_reference", "dropout_keep_mask"]
 
 MAX_HEAD_DIM = 256
@@ -80,12 +85,19 @@ def _route(dtype: torch.dtype, head_dim: int, which: str = "fwd") -> str:
     head dim that is not a multiple of 16 is zero-padded in shared
     memory); ``"tf32"`` (3xTF32 on the tensor cores,
     ``csrc/flash_attention_tf32.cu``) for float32 at those head dims;
-    ``"fma"`` (``csrc/flash_attention.cu``) for everything else the
-    kernels take: head dims in (128, 256]. The forward, dq and dk/dv of
+    ``"tc256"`` (wgmma, ``csrc/flash_attention_tc256.cu``) for the
+    forward and dk/dv in bfloat16 and float16 with ``head_dim`` a multiple
+    of 8 in (128, 256]; ``"fma"`` (``csrc/flash_attention.cu``) for
+    everything else the kernels take: dq in 16 bits and all three in
+    float32 at those head dims. Up to D = 128 the forward, dq and dk/dv of
     one dtype and head dim take the same route."""
     if which not in ("fwd", "dq", "dkv"):
         raise ValueError(f"which must be fwd, dq or dkv, got {which!r}")
     if not (head_dim % 8 == 0 and 8 <= head_dim <= TC_MAX_HEAD_DIM):
+        if (dtype in (torch.bfloat16, torch.float16) and which != "dq"
+                and head_dim % 8 == 0
+                and TC_MAX_HEAD_DIM < head_dim <= MAX_HEAD_DIM):
+            return "tc256"
         return "fma"
     if dtype in (torch.bfloat16, torch.float16):
         return "tc"
@@ -257,8 +269,9 @@ def flash_bwd_dkv_reference(q, k, v, dout, kv_mask, lse, delta,
 
 def _kernel(name: str = "flash_attention"):
     """The ctypes functions of ``csrc/<name>.cu`` (``flash_attention``,
-    ``flash_attention_tc``, ``flash_attention_tf32``: forward, dq, dk/dv),
-    built and loaded at first use."""
+    ``flash_attention_tc``, ``flash_attention_tf32``: forward, dq, dk/dv;
+    ``flash_attention_tc256``: forward and dk/dv), built and loaded at
+    first use: those of the three that the library exports."""
     if name not in _FN:
         lib = build.load(name)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -269,6 +282,8 @@ def _kernel(name: str = "flash_attention"):
                "dkv": (f"{name}_bwd_dkv", 10)}
         out = {}
         for key, (sym, n_ptrs) in fns.items():
+            if not hasattr(lib, sym):
+                continue
             fn = getattr(lib, sym)
             fn.argtypes = [ptr] * n_ptrs + shape
             fn.restype = i32
@@ -406,6 +421,15 @@ def _require_tc(q):
             f"{q.dtype}, head_dim {q.shape[-1]}")
 
 
+def _require_tc256(q):
+    if _route(q.dtype, q.shape[-1]) != "tc256" or q.device.type == "cpu":
+        raise ValueError(
+            f"the wgmma flash kernels take CUDA bfloat16 or float16 with "
+            f"head_dim a multiple of 8 in ({TC_MAX_HEAD_DIM}, "
+            f"{MAX_HEAD_DIM}]; got {q.dtype}, head_dim {q.shape[-1]} on "
+            f"{q.device}")
+
+
 def _require_tf32(q):
     if _route(q.dtype, q.shape[-1]) != "tf32":
         raise ValueError(
@@ -421,11 +445,12 @@ def flash_attention_fwd(q, k, v, kv_mask, causal: bool, scale: float,
     (contiguous [B, Sq, H, D] in q's dtype) and ``lse`` (fp32 [B, H, Sq],
     of the undropped probabilities). Inputs as :func:`_prepare` returns
     them. The FMA kernel's launches count here, the tensor-core kernels'
-    in :func:`flash_attention_fwd_tc` and :func:`flash_attention_fwd_tf32`."""
+    in :func:`flash_attention_fwd_tc`, :func:`flash_attention_fwd_tf32`
+    and :func:`flash_attention_fwd_tc256`."""
     route = _route(q.dtype, q.shape[-1])
     if route != "fma":
-        fn = (flash_attention_fwd_tc if route == "tc"
-              else flash_attention_fwd_tf32)
+        fn = {"tc": flash_attention_fwd_tc, "tf32": flash_attention_fwd_tf32,
+              "tc256": flash_attention_fwd_tc256}[route]
         return fn(q, k, v, kv_mask, causal, scale, dropout_rate,
                   dropout_seed)
     out, lse = _launch_fwd("flash_attention", q, k, v, kv_mask, causal,
@@ -445,6 +470,19 @@ def flash_attention_fwd_tc(q, k, v, kv_mask, causal: bool, scale: float,
     out, lse = _launch_fwd("flash_attention_tc", q, k, v, kv_mask, causal,
                            scale, dropout_rate, dropout_seed)
     flash_attention_fwd_tc.launches += 1
+    return out, lse
+
+
+def flash_attention_fwd_tc256(q, k, v, kv_mask, causal: bool, scale: float,
+                              dropout_rate: float = 0.0,
+                              dropout_seed: Optional[int] = None):
+    """Launch the wgmma forward kernel (CUDA bfloat16 or float16,
+    ``head_dim`` a multiple of 8 in (128, 256]; anything else raises).
+    Inputs and outputs as :func:`flash_attention_fwd`."""
+    _require_tc256(q)
+    out, lse = _launch_fwd("flash_attention_tc256", q, k, v, kv_mask, causal,
+                           scale, dropout_rate, dropout_seed)
+    flash_attention_fwd_tc256.launches += 1
     return out, lse
 
 
@@ -516,12 +554,14 @@ def flash_attention_bwd_dkv(q, k, v, dout, kv_mask, lse, delta,
                             dropout_seed: Optional[int] = None):
     """Launch the dk/dv kernel :func:`_route` picks. Returns dk, dv,
     contiguous [B, Sk, H, D]. The FMA kernel's launches count here, the
-    tensor-core kernels' in :func:`flash_attention_bwd_dkv_tc` and
-    :func:`flash_attention_bwd_dkv_tf32`."""
+    tensor-core kernels' in :func:`flash_attention_bwd_dkv_tc`,
+    :func:`flash_attention_bwd_dkv_tf32` and
+    :func:`flash_attention_bwd_dkv_tc256`."""
     route = _route(q.dtype, q.shape[-1], "dkv")
     if route != "fma":
-        fn = (flash_attention_bwd_dkv_tc if route == "tc"
-              else flash_attention_bwd_dkv_tf32)
+        fn = {"tc": flash_attention_bwd_dkv_tc,
+              "tf32": flash_attention_bwd_dkv_tf32,
+              "tc256": flash_attention_bwd_dkv_tc256}[route]
         return fn(q, k, v, dout, kv_mask, lse, delta, causal, scale,
                   dropout_rate, dropout_seed)
     dk, dv = _launch_dkv("flash_attention", q, k, v, dout, kv_mask, lse,
@@ -542,6 +582,21 @@ def flash_attention_bwd_dkv_tc(q, k, v, dout, kv_mask, lse, delta,
     dk, dv = _launch_dkv("flash_attention_tc", q, k, v, dout, kv_mask, lse,
                          delta, causal, scale, dropout_rate, dropout_seed)
     flash_attention_bwd_dkv_tc.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dkv_tc256(q, k, v, dout, kv_mask, lse, delta,
+                                  causal: bool, scale: float,
+                                  dropout_rate: float = 0.0,
+                                  dropout_seed: Optional[int] = None):
+    """Launch the wgmma dk/dv kernel (CUDA bfloat16 or float16,
+    ``head_dim`` a multiple of 8 in (128, 256]; anything else raises).
+    Inputs and outputs as :func:`flash_attention_bwd_dkv`."""
+    _require_tc256(q)
+    dk, dv = _launch_dkv("flash_attention_tc256", q, k, v, dout, kv_mask,
+                         lse, delta, causal, scale, dropout_rate,
+                         dropout_seed)
+    flash_attention_bwd_dkv_tc256.launches += 1
     return dk, dv
 
 
@@ -568,6 +623,8 @@ flash_attention_bwd_dkv_tc.launches = 0
 flash_attention_fwd_tf32.launches = 0
 flash_attention_bwd_dq_tf32.launches = 0
 flash_attention_bwd_dkv_tf32.launches = 0
+flash_attention_fwd_tc256.launches = 0
+flash_attention_bwd_dkv_tc256.launches = 0
 flash_attention_fwd.launches_wide = 0
 flash_attention_bwd_dq.launches_wide = 0
 flash_attention_bwd_dkv.launches_wide = 0

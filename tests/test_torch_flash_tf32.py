@@ -42,11 +42,12 @@ F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
     (F32, 128, ("tf32", "tf32", "tf32")),
     (F32, 136, ("fma", "fma", "fma")), (F32, 256, ("fma", "fma", "fma")),
     (BF16, 64, ("tc", "tc", "tc")), (F16, 128, ("tc", "tc", "tc")),
-    (BF16, 256, ("fma", "fma", "fma")), (F16, 136, ("fma", "fma", "fma"))])
+    (BF16, 256, ("tc256", "fma", "tc256")),
+    (F16, 136, ("tc256", "fma", "tc256"))])
 def test_route(dtype, head_dim, routes):
     """The fp32 forward, dq and dk/dv take 3xTF32 up to D = 128; 16-bit
-    types the tensor cores up to D = 128; every head dim above 128 the FMA
-    kernels."""
+    types the tensor cores up to D = 128; above 128, fp32 the FMA kernels
+    and 16-bit types the wgmma forward and dk/dv and the FMA dq."""
     assert tuple(fa._route(dtype, head_dim, w)
                  for w in ("fwd", "dq", "dkv")) == routes
     assert fa._route(dtype, head_dim) == routes[0]
