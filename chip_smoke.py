@@ -57,10 +57,11 @@
      causal), and in every dtype at D = 256 and D = 136 (zero-padded to
      144): causal with the key mask, Sq < Sk, and non-causal with a key
      mask holding an all-padding row, at dropout 0 and 0.1 (16 bits: the
-     wgmma forward and dk/dv of ``csrc/flash_attention_tc256.cu`` with
-     the FMA dq, each new kernel also held to the FMA kernel on the same
-     inputs and its forward bit-equal over two launches; fp32: the FMA
-     forward, dq and dk/dv); the
+     wgmma forward, dq and dk/dv of ``csrc/flash_attention_tc256.cu``,
+     each also held to the FMA kernel on the same inputs and bit-equal
+     over two launches; fp32: the 3xTF32 forward of
+     ``csrc/flash_attention_tf32.cu``, the FMA forward held on the same
+     inputs, and the FMA dq and dk/dv); the
      whole autograd path against the plain
      version's; fp32 within 1e-5 (dO x 0.1), 16-bit within one rounding
      step of its type plus 1e-3 of the reference's RMS (0.15 on the
@@ -72,17 +73,19 @@
      backend pinned and printed (fp32 bounds at FP32_3XTF32_FLOPS), the
      D = 256 kernels in bf16 at [4, 512, 8, 256] beside cuDNN's SDPA and
      the FMA kernels on the same inputs (the ``_d256`` rows; first each
-     of them, and the FMA forward and dk/dv, held there to its plain
+     of them, and the FMA forward, dq and dk/dv, held there to its plain
      version at 1e-3 of the RMS and bit-equal over two launches, on the
-     timed inputs and the path's, and in fp16 on one), the fp32 FMA
-     forward, dq and dk/dv there beside SDPA in fp32 (the ``_d256_fp32``
-     rows), and one line of the slice's path: forward + backward through
-     ``flash_attention()`` at that shape in bf16 (device ms, each
-     wrapper's launches, every count set to 0 just before) beside SDPA's
-     forward + backward; and the dropout keep-mask read back out
+     timed inputs and the path's, and in fp16 on one), the fp32 3xTF32
+     forward and FMA forward, dq and dk/dv there beside SDPA in fp32 (the
+     ``_d256_fp32`` rows), and two lines of the slice's path: forward +
+     backward through ``flash_attention()`` at that shape in bf16 and in
+     fp32 (device ms, each wrapper's launches, every count set to 0 just
+     before; the output and gradient held to the plain path's) beside
+     SDPA's forward + backward; and the dropout keep-mask read back out
      of the forward, dq and dk/dv kernels (fp32 [2, 2048, 2, 256] through
-     the FMA kernels, bf16 [2, 2048, 2, 256] through the wgmma forward and
-     dk/dv and the FMA dq, fp32 [2, 2048, 2, 64] through the 3xTF32
+     the 3xTF32 forward and the FMA dq and dk/dv, bf16 [2, 2048, 2, 256]
+     through the wgmma forward, dq and dk/dv, fp32 [2, 2048, 2, 64]
+     through the 3xTF32
      forward, dq and dk/dv, bf16 [2, 2048, 2, 64] through the
      tensor-core ones;
      an identity V, K and dO on a D-wide window) against
@@ -335,14 +338,17 @@ their launches count the fp32 comparison of phase 4, their ``_dropout``
 twins phase 7b's timed steps (the FMA kernels 0 in both), every count
 set to 0 just before it;
 the ``_d256`` rows are timed in bf16 at [4, 512, 8, 256]: the wgmma
-forward and dk/dv (``flash_attention_fwd_tc256_d256``,
-``flash_attention_bwd_dkv_tc256_d256``) and the FMA dq
-(``flash_attention_bwd_dq_d256``) count phase 2's forward + backward
-through ``flash_attention()`` at that shape, the FMA forward and dk/dv
-(their first versions, timed on the same inputs) the FMA wrappers'
-launches at D > 128 (``.launches_wide``) over phases 4 and 7, which train
-in bf16, and the ``_d256_fp32`` rows (the FMA kernels timed on fp32
-inputs at that shape) those over phase 7b, which trains in fp32, every
+forward, dq and dk/dv (``flash_attention_fwd_tc256_d256``,
+``flash_attention_bwd_dq_tc256_d256``,
+``flash_attention_bwd_dkv_tc256_d256``) count phase 2's bf16 forward +
+backward through ``flash_attention()`` at that shape, the FMA forward, dq
+and dk/dv (their first versions, timed on the same inputs) the FMA
+wrappers' launches at D > 128 (``.launches_wide``) over phases 4 and 7,
+which train in bf16; the ``_d256_fp32`` rows are timed on fp32 inputs at
+that shape: the 3xTF32 forward (``flash_attention_fwd_tf32_d256_fp32``)
+and the FMA dq and dk/dv count phase 2's fp32 forward + backward through
+``flash_attention()`` there, the FMA forward (its first version) the FMA
+wrapper's launches at D > 128 over phase 7b, which trains in fp32, every
 count set to 0 just before each phase; the ``_d256`` rows' max |err| is
 that of the kernels held on the timed inputs (``hold_flash_d256``).
 ``fused_ln.cu``'s rows (``fused_ln_matmul_fwd``, ``fused_ln_matmul_bwd``) are fp32's route,
@@ -1301,8 +1307,8 @@ def flash_bytes_flops(q, mask, which, causal=True):
 # in fp32 the 3xTF32 forward, dq and dk/dv. Every dtype also runs
 # FLASH_CASES_256 (and FLASH_NONCAUSAL_CASES_256): head dims above 128, D
 # = 256 and D = 136 (zero-padded to 144 in 16 bits), where 16 bits take
-# the wgmma forward and dk/dv and the FMA dq, fp32 all three FMA kernels
-# (their widest branch). At dropout 0.1 the same split.
+# the wgmma forward, dq and dk/dv, fp32 the 3xTF32 forward and the FMA dq
+# and dk/dv (their widest branch). At dropout 0.1 the same split.
 FLASH_CASES = ((16, 512, 512, 12, 64, False), (16, 512, 512, 12, 64, True),
                (4, 5, 5, 12, 64, True), (4, 300, 300, 12, 64, False),
                (4, 300, 300, 12, 64, True))
@@ -1340,8 +1346,8 @@ def compare_flash_case(torch, fa, dtype, case, worst, rate=0.0, seed=None,
     projection. Where a kernel is not the FMA kernel (the tensor cores in
     16 bits, 3xTF32 in fp32, wgmma above D = 128 in 16 bits), the FMA
     kernel (its first version) is held on the same inputs too, except the
-    16-bit forward up to D = 128; the wgmma forward and dk/dv are also held
-    to the FMA kernel's outputs.
+    16-bit forward up to D = 128; the wgmma forward, dq and dk/dv are also
+    held to the FMA kernel's outputs.
     Folds each output's max |err| into ``worst`` and fails beyond the
     tolerances (KERNEL_TOL, FLASH_16BIT_RMS_TOL), if the forward, dq or
     dk/dv differ between two launches on the same inputs, or if an
@@ -1435,6 +1441,8 @@ def compare_flash_case(torch, fa, dtype, case, worst, rate=0.0, seed=None,
         pairs["fwd (FMA kernel, same inputs)"] = (fwd_fma, want)
     if routes[0] == "tc256":
         pairs["fwd against the FMA kernel"] = (out, fwd_fma)
+    if routes[1] == "tc256":
+        pairs["dq against the FMA kernel"] = (dq, dq_fma)
     if routes[2] == "tc256":
         pairs["dk against the FMA kernel"] = (dk, dkv_fma[0])
         pairs["dv against the FMA kernel"] = (dv, dkv_fma[1])
@@ -1566,6 +1574,7 @@ def flash_wrappers(fa):
                     "fma": fa.flash_attention_fwd},
             "dq": {"tc": fa.flash_attention_bwd_dq_tc,
                    "tf32": fa.flash_attention_bwd_dq_tf32,
+                   "tc256": fa.flash_attention_bwd_dq_tc256,
                    "fma": fa.flash_attention_bwd_dq},
             "dkv": {"tc": fa.flash_attention_bwd_dkv_tc,
                     "tf32": fa.flash_attention_bwd_dkv_tf32,
@@ -1595,19 +1604,20 @@ def take_wide_launches(fa, total=None):
 def flash_routes_expected(dtype, d):
     """The routes of the forward, dq and dk/dv that phase 2 holds the code
     to: 16-bit up to D = 128 the tensor cores; fp32 up to D = 128 3xTF32
-    on them; above D = 128 16-bit the wgmma forward and dk/dv with the FMA
-    dq, fp32 the FMA kernels."""
+    on them; above D = 128 16-bit the wgmma forward, dq and dk/dv, fp32
+    the 3xTF32 forward with the FMA dq and dk/dv."""
     import torch
 
     if d > 128:
-        return (("fma",) * 3 if dtype == torch.float32
-                else ("tc256", "fma", "tc256"))
+        return (("tf32", "fma", "fma") if dtype == torch.float32
+                else ("tc256",) * 3)
     return ("tf32",) * 3 if dtype == torch.float32 else ("tc",) * 3
 
 
 def flash_wide_expected(dtype, d):
     """The FMA wrappers whose ``.launches_wide`` a call at head dim ``d``
-    grows: none up to D = 128; above, dq in 16 bits, all three in fp32."""
+    grows: none up to D = 128 and none in 16 bits; above it in fp32, dq
+    and dk/dv."""
     return sorted(k for k, r in zip(("fwd", "dq", "dkv"),
                                     flash_routes_expected(dtype, d))
                   if d > 128 and r == "fma")
@@ -1623,10 +1633,11 @@ def check_flash_attention(torch, reports):
     alone, and in the FMA wrappers' ``.launches_wide`` those
     :func:`flash_wide_expected` names. Then timed by device time
     (:func:`time_flash`) at the training shape and at FLASH_D256_SHAPE
-    (bf16 on its routes, fp32 on the FMA kernels; the bf16 kernels first
-    held there by :func:`hold_flash_d256`), and the slice's path at that
-    shape (:func:`time_flash_d256_path`). ``reports``: the
-    kernels line's rows by name."""
+    (bf16 on its routes, the bf16 kernels first held there by
+    :func:`hold_flash_d256`; fp32 on its routes, the 3xTF32 forward and
+    the FMA dq and dk/dv), and the slice's path at that shape in bf16 and
+    fp32 (:func:`time_flash_d256_path`). ``reports``: the kernels line's
+    rows by name."""
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 
     worst, worst_drop, worst_nc, worst_nc_drop = {}, {}, {}, {}
@@ -1685,17 +1696,19 @@ def check_flash_attention(torch, reports):
     time_flash(torch, fa, reports, {0.0: hold_flash_d256(torch, fa)},
                shape=FLASH_D256_SHAPE, dtypes=(torch.bfloat16,),
                suffix="_d256", backends={"bfloat16": "CUDNN_ATTENTION"})
-    # the fp32 FMA kernels at that shape, beside SDPA in fp32 (TF32 off)
+    # the fp32 kernels at that shape (the 3xTF32 forward, the FMA dq and
+    # dk/dv), beside the FMA forward and SDPA in fp32 (TF32 off)
     time_flash(torch, fa, reports, {0.0: worst_256}, shape=FLASH_D256_SHAPE,
                dtypes=(torch.float32,), suffix="_d256_fp32")
     time_flash_d256_path(torch, fa, reports)
+    time_flash_d256_path(torch, fa, reports, torch.float32)
     time_flash_bert(torch, fa, reports)
 
 
 def hold_flash_d256(torch, fa):
     """The kernels the ``_d256`` rows time, held at FLASH_D256_SHAPE
-    (causal, no mask) by :func:`hold_flash`: the wgmma forward and dk/dv,
-    the FMA dq, and the FMA forward and dk/dv on the same inputs, in bf16
+    (causal, no mask) by :func:`hold_flash`: the wgmma forward, dq and
+    dk/dv, and the FMA forward, dq and dk/dv on the same inputs, in bf16
     on the four layers :func:`time_flash` times there (seeds 100-103) and
     on the inputs of :func:`time_flash_d256_path` (seed 321), and in fp16
     on the first layer. Returns the bf16 max |err| by (output, dtype
@@ -1717,6 +1730,7 @@ def hold_flash_d256(torch, fa):
     return {(out, "bfloat16"): (errs[key],) for out, key in (
         ("fwd", "fwd"), ("dq", "dq"), ("dk", "dkv"), ("dv", "dkv"),
         ("fwd (FMA kernel, same inputs)", "fwd fma"),
+        ("dq (FMA kernel, same inputs)", "dq fma"),
         ("dk (FMA kernel, same inputs)", "dkv fma"),
         ("dv (FMA kernel, same inputs)", "dkv fma"))}
 
@@ -1730,11 +1744,12 @@ def time_flash(torch, fa, reports, worsts, shape=(16, 512, 12, 64),
     |err| by (output, dtype name)), all as device time
     (:func:`device_ms`), in each of ``dtypes`` (bf16 and fp32 by default):
     bf16 on its routes (the tensor-core forward, dq and dk/dv up to D =
-    128; above, the wgmma forward and dk/dv and the FMA dq) beside the FMA
-    kernels on the same inputs (their first versions' route), which fill
-    the FMA rows above D = 128, and fp32 on its routes (the 3xTF32
-    forward, dq and dk/dv up to D = 128) beside the FMA forward, dq and
-    dk/dv on the same inputs, which fill the FMA rows; each beside its
+    128; above, the wgmma ones) beside the FMA kernels on the same inputs
+    (their first versions' route), which fill the FMA rows above D = 128,
+    and fp32 on its routes (the 3xTF32 forward, dq and dk/dv up to D =
+    128; above, the 3xTF32 forward and the FMA dq and dk/dv) beside the
+    FMA kernels on the same inputs, which fill the FMA rows; each beside
+    its
     plain version and SDPA with its backend pinned (flash for bf16,
     memory-efficient for fp32, unless ``backends`` names another by dtype
     name). Row names end in
@@ -1832,8 +1847,7 @@ def time_flash(torch, fa, reports, worsts, shape=(16, 512, 12, 64),
                         "flash_attention_bwd_dq", "dkv":
                         "flash_attention_bwd_dkv"}[key]
                 tail = "_dropout" if rate else ""
-                row = base + {"tc": "_tc", "tf32": "_tf32", "tc256": "_tc256",
-                              "fma": ""}[route] + tail + suffix
+                row = base + ROW_TAGS[route] + tail + suffix
                 kernel_ms, kernel_names = device_ms(torch, kern[key],
                                                     names=True)
                 plain_ms, _ = device_ms(torch, plain[key], iters=5,
@@ -1901,44 +1915,66 @@ def time_flash(torch, fa, reports, worsts, shape=(16, 512, 12, 64),
         torch.cuda.empty_cache()
 
 
-def time_flash_d256_path(torch, fa, reports):
+ROW_TAGS = {"tc": "_tc", "tf32": "_tf32", "tc256": "_tc256", "fma": ""}
+
+
+def time_flash_d256_path(torch, fa, reports, dtype=None):
     """The slice's path: forward + backward through ``flash_attention()``
-    at FLASH_D256_SHAPE in bf16, causal, as a model with 256-wide heads
-    calls it (q, k and v views of one fused projection that needs its
-    gradient), beside SDPA's forward + backward (cuDNN) on contiguous [B,
-    H, S, D] copies, both as device time (:func:`device_ms`). The
-    gradient is first held to the plain path's (one bf16 step +
-    FLASH_16BIT_RMS_TOL["autograd"] of the RMS). Every flash wrapper's
-    count is set to 0 just before the timed drive and read just after:
-    each call must launch the wgmma forward and dk/dv and the FMA dq
-    (``.launches_wide``) once, and no other flash kernel; the ``_d256``
-    rows of those three take the counts."""
+    at FLASH_D256_SHAPE, causal, in ``dtype`` (bf16 by default, or fp32),
+    as a model with 256-wide heads calls it (q, k and v views of one fused
+    projection that needs its gradient), beside SDPA's forward + backward
+    on contiguous [B, H, S, D] copies (cuDNN in bf16, memory-efficient in
+    fp32 with TF32 off), both as device time (:func:`device_ms`). The
+    result is first held to the plain path's: in bf16 the gradient within
+    one bf16 step + FLASH_16BIT_RMS_TOL["autograd"] of the RMS, in fp32
+    the output and the gradient within KERNEL_TOL (dO x 0.1). Every flash
+    wrapper's count is set to 0 just before the timed drive and read just
+    after: each call must launch the kernels of the routes
+    :func:`flash_routes_expected` names once each (bf16: the wgmma
+    forward, dq and dk/dv; fp32: the 3xTF32 forward and the FMA dq and
+    dk/dv, which the FMA wrappers' ``.launches_wide`` count too) and no
+    other flash kernel; their ``_d256`` (bf16) or ``_d256_fp32`` rows take
+    the counts."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
+    dtype = dtype or torch.bfloat16
+    name = str(dtype).split(".")[1]
     b, s, h, d = FLASH_D256_SHAPE
-    qkv, *_rest, dout, _m = flash_case(torch, torch.bfloat16, b, s, h, d,
-                                       seed=321)
+    qkv, *_rest, dout, _m = flash_case(torch, dtype, b, s, h, d, seed=321,
+                                       dout_scale=FLASH_DOUT_SCALE[name])
     x = qkv.detach().clone().requires_grad_()
     calls = {"n": 0}
 
     def run(fn):
         x.grad = None
         qq, kk, vv = (t.reshape(b, s, h, d) for t in x.split(h * d, dim=-1))
-        fn(qq, kk, vv, causal=True).backward(dout)
+        out = fn(qq, kk, vv, causal=True)
+        out.backward(dout)
         calls["n"] += 1
-        return x.grad
+        return out.detach(), x.grad
 
-    got = run(fa.flash_attention).clone()
-    ref = run(fa.flash_attention_reference)
+    got_o, got = (t.clone() for t in run(fa.flash_attention))
+    ref_o, ref = run(fa.flash_attention_reference)
     torch.cuda.synchronize()
     rms = ref.float().pow(2).mean().sqrt().item()
-    rel = (((got.float() - ref.float()).abs()
-            - round_step(torch, ref)).clamp_min(0).max().item()
-           / max(rms, 1e-30))
-    if not torch.isfinite(got).all() or rel > FLASH_16BIT_RMS_TOL["autograd"]:
-        fail(f"flash_attention() bf16 {FLASH_D256_SHAPE}: the gradient is "
-             f"{rel} of the RMS beyond one bf16 step of the plain path's")
+    if dtype == torch.float32:
+        err = max((got_o - ref_o).abs().max().item(),
+                  (got - ref).abs().max().item())
+        held = (f"output and gradient max |err| {err:.3g} against the "
+                f"plain path's (limit {KERNEL_TOL[name]}, dO x "
+                f"{FLASH_DOUT_SCALE[name]})")
+        bad = not err <= KERNEL_TOL[name]
+    else:
+        rel = (((got.float() - ref.float()).abs()
+                - round_step(torch, ref)).clamp_min(0).max().item()
+               / max(rms, 1e-30))
+        held = (f"gradient {rel:.3g} of the RMS beyond one bf16 step of "
+                f"the plain path's (limit "
+                f"{FLASH_16BIT_RMS_TOL['autograd']})")
+        bad = rel > FLASH_16BIT_RMS_TOL["autograd"]
+    if bad or not (torch.isfinite(got).all() and torch.isfinite(got_o).all()):
+        fail(f"flash_attention() {name} {FLASH_D256_SHAPE}: {held}")
     wrappers = flash_wrappers(fa)
     for by in wrappers.values():
         for w in by.values():
@@ -1952,14 +1988,17 @@ def time_flash_d256_path(torch, fa, reports):
     grew = {f"{k}/{r}": w.launches for k, by in wrappers.items()
             for r, w in by.items() if w.launches}
     wide = take_wide_launches(fa)
-    if (grew != {"fwd/tc256": n, "dq/fma": n, "dkv/tc256": n}
-            or wide != {"fwd": 0, "dq": n, "dkv": 0}):
-        fail(f"flash_attention() bf16 {FLASH_D256_SHAPE}: {n} calls "
-             f"launched {grew}, FMA launches above D = 128 {wide}")
-    for row in ("flash_attention_fwd_tc256_d256",
-                "flash_attention_bwd_dq_d256",
-                "flash_attention_bwd_dkv_tc256_d256"):
-        reports[row]["launches"] = n
+    routes = flash_routes_expected(dtype, d)
+    want = {f"{k}/{r}": n for k, r in zip(("fwd", "dq", "dkv"), routes)}
+    want_wide = {k: n if k in flash_wide_expected(dtype, d) else 0
+                 for k in ("fwd", "dq", "dkv")}
+    if grew != want or wide != want_wide:
+        fail(f"flash_attention() {name} {FLASH_D256_SHAPE}: {n} calls "
+             f"launched {grew}, FMA launches above D = 128 {wide} "
+             f"(expected {want}, {want_wide})")
+    suffix = "_d256" if dtype == torch.bfloat16 else "_d256_fp32"
+    for base, r in zip(FLASH_FMA_NAMES, routes):
+        reports[base + ROW_TAGS[r] + suffix]["launches"] = n
     q, k, v = (t.reshape(b, s, h, d).detach() for t in qkv.split(h * d, -1))
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
@@ -1971,18 +2010,19 @@ def time_flash_d256_path(torch, fa, reports):
         F.scaled_dot_product_attention(qt, kt, vt,
                                        is_causal=True).backward(dot)
 
-    with sdpa_kernel(SDPBackend.CUDNN_ATTENTION):
+    backend = (SDPBackend.CUDNN_ATTENTION if dtype == torch.bfloat16
+               else SDPBackend.EFFICIENT_ATTENTION)
+    with sdpa_kernel(backend):
         lib_ms, lib_names = device_ms(torch, sdpa, names=True)
     top = {k[:60]: round(t, 4) for k, t in sorted(
         path_names.items(), key=lambda kv: -kv[1])[:6]}
     lib_top = {k[:60]: round(t, 4) for k, t in lib_names.items()}
-    print(f"flash_attention() forward + backward, the slice's path (bf16 "
+    print(f"flash_attention() forward + backward, the slice's path ({name} "
           f"B={b} S={s} H={h} D={d} causal, device time): {path_ms:.4f} ms "
-          f"a call; {n} calls launched {grew} (the FMA dq's "
-          f".launches_wide {wide['dq']}); kernels {top}; SDPA forward + "
-          f"backward (cuDNN) {lib_ms:.4f} ms {lib_top}: "
-          f"{path_ms / lib_ms:.2f}x; gradient {rel:.3g} of the RMS beyond one bf16 step of the "
-          f"plain path's (limit {FLASH_16BIT_RMS_TOL['autograd']})")
+          f"a call; {n} calls launched {grew} (the FMA wrappers' "
+          f".launches_wide {wide}); kernels {top}; SDPA forward + "
+          f"backward ({backend.name}) {lib_ms:.4f} ms {lib_top}: "
+          f"{path_ms / lib_ms:.2f}x; {held}")
 
 
 # bench_bert's attention shapes ([B, S, H, D], bert-large: 16 heads of 64)
@@ -2000,9 +2040,10 @@ def hold_flash(torch, fa, q, k, v, dout, mask, scale, what, causal=False,
     on one 16-bit input: o, dq, dk and dv within one rounding step of the
     dtype + FLASH_16BIT_RMS_TOL["kernel"] of the reference's RMS, lse
     within FLASH_LSE_TOL, each kernel bit-equal over two launches. With
-    ``fma``, the FMA forward and dk/dv (their first versions) are held the
-    same way on the same inputs. Returns the max |err| by row key (fwd: o;
-    dkv: dk and dv; "fwd fma" and "dkv fma" with ``fma``)."""
+    ``fma``, the FMA forward, dq and dk/dv (their first versions) are held
+    the same way on the same inputs. Returns the max |err| by row key
+    (fwd: o; dkv: dk and dv; "fwd fma", "dq fma" and "dkv fma" with
+    ``fma``)."""
     dtype = q.dtype
     q, k, v, mp = fa._prepare(q, k, v, mask, causal)
     sq, sk = q.shape[1], k.shape[1]
@@ -2019,6 +2060,8 @@ def hold_flash(torch, fa, q, k, v, dout, mask, scale, what, causal=False,
         runs["fwd fma"] = [fa._launch_fwd("flash_attention", q, k, v, mp,
                                           causal, scale, 0.0, None)
                            for _ in range(2)]
+        runs["dq fma"] = [(fa._launch_dq("flash_attention", *args, 0.0,
+                                         None),) for _ in range(2)]
         runs["dkv fma"] = [fa._launch_dkv("flash_attention", *args, 0.0,
                                           None) for _ in range(2)]
     torch.cuda.synchronize()
@@ -2038,12 +2081,13 @@ def hold_flash(torch, fa, q, k, v, dout, mask, scale, what, causal=False,
     if not lse_err <= FLASH_LSE_TOL:
         fail(f"flash lse {what}: max |err| {lse_err}")
     o_w = fa.flash_attention_reference(q, k, v, causal=causal, kv_mask=mask)
+    dq_w = fa.flash_bwd_dq_reference(*args)
     dk_w, dv_w = fa.flash_bwd_dkv_reference(*args)
-    pairs = {"fwd": [(out, o_w)],
-             "dq": [(dqs[0], fa.flash_bwd_dq_reference(*args))],
+    pairs = {"fwd": [(out, o_w)], "dq": [(dqs[0], dq_w)],
              "dkv": [(dkvs[0][0], dk_w), (dkvs[0][1], dv_w)]}
     if fma:
         pairs["fwd fma"] = [(runs["fwd fma"][0][0], o_w)]
+        pairs["dq fma"] = [(runs["dq fma"][0][0], dq_w)]
         pairs["dkv fma"] = [(runs["dkv fma"][0][0], dk_w),
                             (runs["dkv fma"][0][1], dv_w)]
     errs, rels = {}, {}
@@ -2206,8 +2250,9 @@ def check_flash_dropout_mask(torch, dtype, d):
     """The keep-mask read back out of the forward, dq and dk/dv kernels
     that ``dtype`` and head dim ``d`` route to, bit for bit against
     ``dropout_keep_mask``: non-causal at [2, 2048, 2, d] (fp32 at d = 256:
-    the FMA kernels; bf16 at d = 256: the wgmma forward and dk/dv and the
-    FMA dq; fp32 at d = 64: the 3xTF32 forward, dq and dk/dv;
+    the 3xTF32 forward and the FMA dq and dk/dv; bf16 at d = 256: the
+    wgmma forward, dq and dk/dv; fp32 at d = 64: the 3xTF32 forward, dq
+    and dk/dv;
     bf16 at d = 64: the tensor-core kernels). The key
     mask keeps only the last d cols, c0 = 2048 - d onwards, and V is the
     identity on them (V[j, c] = 1 iff j = c0 + c), so o[i, c] != 0 iff
@@ -4832,6 +4877,10 @@ KERNELS = (
      "deepspeed_tpu/ops/transformer/flash_attention.py:113"),
     ("flash_attention_bwd_dkv_tc256_d256", "flash_attention_tc256",
      "deepspeed_tpu/ops/transformer/flash_attention.py:287"),
+    ("flash_attention_bwd_dq_tc256_d256", "flash_attention_tc256",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:231"),
+    ("flash_attention_fwd_tf32_d256_fp32", "flash_attention_tf32",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:113"),
     ("flash_attention_fwd_d256_fp32", "flash_attention",
      "deepspeed_tpu/ops/transformer/flash_attention.py:113"),
     ("flash_attention_bwd_dq_d256_fp32", "flash_attention",
@@ -7168,9 +7217,9 @@ def main() -> int:
         reports[name + "_dropout"]["launches"] = fp32["launches"].get(name,
                                                                       0)
     for name, key in zip(FLASH_FMA_NAMES, ("fwd", "dq", "dkv")):
-        reports[name + "_d256_fp32"]["launches"] = wide32[key]
-        if key != "dq":   # dq's _d256 row counts phase 2's path
-            reports[name + "_d256"]["launches"] = wide[key]
+        reports[name + "_d256"]["launches"] = wide[key]
+        if key == "fwd":   # dq's and dk/dv's count phase 2's fp32 path
+            reports[name + "_d256_fp32"]["launches"] = wide32[key]
 
     # 8. BERT-large pretraining (bench_bert's configurations, then sparse
     # BERT at block 16), and its fp32 comparisons

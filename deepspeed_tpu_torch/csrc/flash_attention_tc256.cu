@@ -1,23 +1,26 @@
-// Flash attention forward and dk/dv on Hopper's warpgroup tensor cores
+// Flash attention forward, dq and dk/dv on Hopper's warpgroup tensor cores
 // (wgmma, sm_90a), for bf16 and fp16 with head_dim a multiple of 8 in
 // (128, 256].
 //
-// Replaces, for those types and head dims, two Pallas TPU kernels of
+// Replaces, for those types and head dims, three Pallas TPU kernels of
 // deepspeed_tpu/ops/transformer/flash_attention.py: _fwd_kernel (the
-// forward, pallas_call at :205) and _bwd_dkv_kernel (dk and dv, :420).
-// Each computes exactly the function that flash_attention.cu's header
-// states (bottom-right causal j <= i + Sk - Sq; the key mask multiplying
-// p; lse of the undropped mass; a row whose keys are all masked gives o =
-// 0 and lse = m + log(1e-30); the dropout keep-mask Drop::keep(i, j)
-// regenerated in registers, never stored), through the C interface of
-// flash_attention_tc.cu's forward and dk/dv. dq at these head dims, and
-// fp32, stay on flash_attention.cu's FMA kernels.
+// forward, pallas_call at :205), _bwd_dq_kernel (dq, :390) and
+// _bwd_dkv_kernel (dk and dv, :420). Each computes exactly the function
+// that flash_attention.cu's header states (bottom-right causal j <= i +
+// Sk - Sq; the key mask multiplying p; lse of the undropped mass; a row
+// whose keys are all masked gives o = 0 and lse = m + log(1e-30); the
+// dropout keep-mask Drop::keep(i, j) regenerated in registers, never
+// stored), through the C interface of flash_attention_tc.cu's forward, dq
+// and dk/dv. fp32 at these head dims runs flash_attention_tf32.cu's
+// forward and flash_attention.cu's FMA dq and dk/dv.
 //
 // What bounds it on an H100: at [B, S, H, D] = [4, 512, 8, 256] bf16
 // causal the forward must move q, k, v and o, 33.5 MB, 10.0 us at 3.35
-// TB/s, against 4.3 GFLOP of products (4.4 us at 989 TFLOP/s); dk/dv moves
-// q, k, v, dO, dk and dv, 50 MB, 15.1 us, against 8.6 GFLOP (8.7 us).
-// Bytes bound both; the FMA kernels ran at 66x and 84x those bounds.
+// TB/s, against 4.3 GFLOP of products (4.4 us at 989 TFLOP/s); dq moves
+// q, k, v, dO and dq, 42 MB, 12.6 us, against 8.6 GFLOP with the split ds
+// (8.7 us); dk/dv moves q, k, v, dO, dk and dv, 50 MB, 15.1 us, against
+// 8.6 GFLOP (8.7 us). Bytes bound all three; the FMA kernels ran at 66x,
+// 75x and 84x those bounds.
 //
 // Why flash_attention_tc.cu's design does not widen to D = 256: it gives
 // each warp 16 rows and keeps the forward's q fragments and o accumulator,
@@ -47,6 +50,24 @@
 //   and fenced to the async proxy before wgmma reads it; the same layout
 //   is a K-major operand (q and k in s, v and dO in dp^T) and an MN-major
 //   one (V in p.V, dO in dv, q in dk);
+// - dq: a block owns 64 queries, q and dO resident (64 KB); 64-key K and
+//   V tiles stream through DQ_STAGES stages (64 KB a stage). s = q.k^T
+//   and dp = dO.v^T are the forward's s product (m64n64k16, K-major from
+//   shared memory), s scaled in fp32 as the forward scales it, so p =
+//   exp2(s scale log2(e) - lse log2(e)) comes from the scores the lse was
+//   made of. Its accumulators, 128 (dq) + 32 (s) + 32 (dp) registers a
+//   thread on one warpgroup, are split over DQ_WGS = 2: warpgroup 0
+//   computes s and p, warpgroup 1 dp; p goes to warpgroup 1 through 16 KB
+//   of shared memory, which forms ds = p (D dp - delta) once, splits it
+//   into hi / lo A fragments and hands them back in the same 16 KB; each
+//   warpgroup then adds ds.K over half of dq's columns (m64n128k16, K
+//   read MN-major as the forward reads V), 64 accumulator registers a
+//   thread. 208.5 KB of shared memory, one block an SM, 226 registers,
+//   no spill. tools/probe_flash_tc256.py timed it at [4, 512, 8, 256]
+//   bf16 causal (H100, device time, two chip calls): 0.0503-0.0519 ms,
+//   against 0.0573-0.0580 for one warpgroup doing all of it (251
+//   registers, no spill), 0.0564-0.0570 for two warpgroups with one K/V
+//   stage and 0.0558-0.0563 for one with one stage;
 // - the forward: a block of FWD_WGS warpgroups owns FWD_WGS x 64 queries,
 //   q resident (64 KB at two warpgroups); 64-key K and V tiles stream
 //   through a ring of FWD_STAGES stages (64 KB a stage). At two
@@ -67,11 +88,11 @@
 //   stages, and picked the design and the constants below;
 // - the causal mask is evaluated only on tiles that cross the diagonal or
 //   the ragged end; tiles above the diagonal are never loaded. Forward
-//   blocks start with the last query tiles (the longest walks), dk/dv
-//   blocks with the first key tiles;
+//   and dq blocks start with the last query tiles (the longest walks),
+//   dk/dv blocks with the first key tiles;
 // - no atomics: every output element is summed by one thread in a fixed
-//   order, so two launches give the same bits; o, dk and dv leave through
-//   shared memory in 16-byte stores.
+//   order, so two launches give the same bits; o, dq, dk and dv leave
+//   through shared memory in 16-byte stores.
 
 #include <math.h>
 #include <stdint.h>
@@ -96,6 +117,7 @@ using hopper::fence_proxy_async;
 using hopper::fence_regs;
 using hopper::gmma_desc;
 using hopper::smem_u32;
+using hopper::wgmma128_rs;
 using hopper::wgmma256_rs;
 using hopper::wgmma64;
 using hopper::wgmma_commit;
@@ -112,6 +134,8 @@ constexpr int SMEM_LIMIT = 232448;   // 227 KB of dynamic shared memory
 // tools/probe_flash_tc256.py's picks
 constexpr int FWD_WGS = 2;         // consumer warpgroups of a forward block
 constexpr int FWD_STAGES = 2;      // the forward's K/V ring
+constexpr int DQ_WGS = 2;          // warpgroups over a dq block's 64 rows
+constexpr int DQ_STAGES = 2;       // dq's K/V ring
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -380,6 +404,210 @@ __global__ void __launch_bounds__(WG* NWG, 1) flash_fwd_tc256_kernel(
              Qs, QROWS, nq, D, NT);
 }
 
+// acc += x B over 64 rows of B (MN-major, the 128 columns at b): x, an
+// accumulator of a scores product, already split in the A fragments hi
+// and lo; waits for the products
+template <typename T>
+__device__ __forceinline__ void half_product(float (&acc)[64],
+                                             uint32_t (&hi)[4][4],
+                                             uint32_t (&lo)[4][4],
+                                             const uint8_t* b) {
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    wgmma128_rs<T>(acc, hi[kc], desc_mn(b, BN, kc), 1);
+    wgmma128_rs<T>(acc, lo[kc], desc_mn(b, BN, kc), 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc);
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    fence_regs(hi[kc]);
+    fence_regs(lo[kc]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dq: grid (B * H, ceil(Sq / 64)), NWG = 2 warpgroups over the block's 64
+// queries (counted from the end, so the longest causal walks start first),
+// walking key tiles up to the last key its last query can see: 0 computes
+// s and p, 1 dp and ds, and each owns half of dq's columns
+// (tools/probe_flash_tc256.py patches in one warpgroup doing all of it).
+// ---------------------------------------------------------------------------
+template <typename T, int NWG, int STAGES, bool DROP>
+__global__ void __launch_bounds__(WG* NWG, 1) flash_bwd_dq_tc256_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ mask,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dq_out, Strides st, int H, int Sq, int Sk, int D,
+    float scale, int causal, uint32_t seed, int thresh, float inv_keep) {
+  constexpr int NT = WG * NWG;
+  constexpr int NB = DMAX / NWG;       // dq columns a warpgroup owns
+  extern __shared__ __align__(1024) uint8_t smem[];
+  uint8_t* Qs = smem;                  // q, resident; then dq
+  uint8_t* Os = Qs + TILE;             // dO, resident
+  uint8_t* Ks = Os + TILE;             // [STAGES] K tiles
+  uint8_t* Vs = Ks + STAGES * TILE;    // [STAGES] V tiles
+  float* Ms = reinterpret_cast<float*>(Vs + STAGES * TILE);  // [STAGES][BN]
+  // two warpgroups: [32][WG] words, p (fp32) from warpgroup 0, then ds's
+  // hi and lo A fragments from warpgroup 1 (each thread's to the thread
+  // of the same place)
+  uint32_t* Xs = reinterpret_cast<uint32_t*>(Ms + STAGES * BN);
+  if (threadIdx.x == 0 && (smem_u32(smem) & 1023)) __trap();
+
+  const int wg = threadIdx.x / WG;
+  const int tw = threadIdx.x % WG;
+  const int warp = tw >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int offset = Sk - Sq;
+  const int nq = min(BM, Sq - q0);
+  const int dk = (D + 15) & ~15;
+  const long long orow = (long long)H * D;  // dO / dq row stride
+  const T* kb = k + b * st.kb + h * st.kh;
+  const T* vb = v + b * st.vb + h * st.vh;
+  const float* mb = mask ? mask + (long long)b * Sk : nullptr;
+  const Drop drop(seed, bh, thresh, inv_keep);
+  // keys past the reach of the block's last query are visible to no query
+  const int k_end = causal ? min(Sk, q0 + nq + offset) : Sk;
+  const int ntiles = (k_end + BN - 1) / BN;
+  const float sl = scale * LOG2E;
+  const int i0 = q0 + warp * 16 + g;   // this lane's rows: i0 and i0 + 8
+  // lse (base 2) and delta of the lane's rows; rows past Sq read zeros
+  // (their q and dO are zero-filled, so their ds is 0; they are not stored)
+  const long long at = (long long)bh * Sq;
+  const float ls0 = i0 < Sq ? lse[at + i0] * LOG2E : 0.f;
+  const float ls1 = i0 + 8 < Sq ? lse[at + i0 + 8] * LOG2E : 0.f;
+  const float de0 = i0 < Sq ? delta[at + i0] : 0.f;
+  const float de1 = i0 + 8 < Sq ? delta[at + i0 + 8] : 0.f;
+
+  auto load_kv = [&](int it) {
+    const int k0 = it * BN, s = it % STAGES;
+    const int valid = min(BN, Sk - k0);
+    load_tile(Ks + s * TILE, kb + k0 * st.ks, st.ks, BN, valid, D, dk, NT);
+    load_tile(Vs + s * TILE, vb + k0 * st.vs, st.vs, BN, valid, D, dk, NT);
+    if (mb && threadIdx.x < BN)
+      Ms[s * BN + threadIdx.x] =
+          (int)threadIdx.x < valid ? mb[k0 + threadIdx.x] : 0.f;
+  };
+  load_tile(Qs, q + b * st.qb + h * st.qh + q0 * st.qs, st.qs, BM, nq, D, dk,
+            NT);
+  load_tile(Os, dout + ((long long)b * Sq + q0) * orow + (long long)h * D,
+            orow, BM, nq, D, dk, NT);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ntiles) load_kv(s);
+    cp_async_commit();
+  }
+
+  float acc[NB / 2];                   // dq, columns wg NB .. wg NB + NB - 1
+#pragma unroll
+  for (int i = 0; i < NB / 2; ++i) acc[i] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + STAGES - 1 < ntiles) load_kv(it + STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();
+    fence_proxy_async();   // the copies, before wgmma reads them
+    __syncthreads();
+    const int k0 = it * BN;
+    const uint8_t* Kt = Ks + (it % STAGES) * TILE;
+    const uint8_t* Vt = Vs + (it % STAGES) * TILE;
+    const float* Mt = Ms + (it % STAGES) * BN;
+    const bool edge =
+        k0 + BN > Sk || (causal && k0 + BN - 1 > q0 + offset);
+    // p = exp2(s scale log2(e) - lse log2(e)) mask_j on the element (n, e)
+    // of an accumulator of s (as the forward scales s), 0 where key j is
+    // hidden from query i
+    auto prob = [&](float sv, int n, int e) {
+      const int c = 8 * n + 2 * t + (e & 1);
+      const int j = k0 + c;
+      const int i = e < 2 ? i0 : i0 + 8;
+      const bool vis = !edge || (j < Sk && (!causal || j <= i + offset));
+      float p = vis ? exp2f(sv * sl - (e < 2 ? ls0 : ls1)) : 0.f;
+      if (mb) p *= Mt[c];
+      return p;
+    };
+    // ds = p (D dp - delta_i)
+    auto dsv = [&](float p, float d, int n, int e) {
+      if (DROP)
+        d = drop.apply(d, e < 2 ? i0 : i0 + 8, k0 + 8 * n + 2 * t + (e & 1));
+      return p * (d - (e < 2 ? de0 : de1));
+    };
+
+    // warpgroup 0: s = q.k^T, then p; warpgroup 1: dp = dO.v^T
+    float x[32];
+    wgmma_fence();
+    scores<T>(x, wg ? Os : Qs, BM, 0, wg ? Vt : Kt, dk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(x);
+    if (wg == 0) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          Xs[(4 * n + e) * WG + tw] = __float_as_uint(prob(x[4 * n + e],
+                                                           n, e));
+    }
+    __syncthreads();   // p handed over
+    uint32_t hi[4][4], lo[4][4];
+    const T* tag = nullptr;
+    if (wg == 1) {
+      // ds, split once into hi = T(ds) and lo = T(ds - hi) and handed
+      // back in the slots p came in
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[4 * n + e] = dsv(__uint_as_float(Xs[(4 * n + e) * WG + tw]),
+                             x[4 * n + e], n, e);
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          split16(x[8 * kc + 2 * r], x[8 * kc + 2 * r + 1], hi[kc][r],
+                  lo[kc][r], tag);
+          Xs[(4 * kc + r) * WG + tw] = hi[kc][r];
+          Xs[(16 + 4 * kc + r) * WG + tw] = lo[kc][r];
+        }
+    }
+    __syncthreads();   // ds handed back
+    if (wg == 0) {
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          hi[kc][r] = Xs[(4 * kc + r) * WG + tw];
+          lo[kc][r] = Xs[(16 + 4 * kc + r) * WG + tw];
+        }
+    }
+    // dq[:, wg NB ..] += ds.k[:, wg NB ..]
+    half_product<T>(acc, hi, lo, Kt + wg * (NB / 64) * BN * ROWB);
+    __syncthreads();  // this stage (and Xs) consumed before it is refilled
+  }
+
+  // dq = scale acc through the q tile's shared memory
+  const int r0 = warp * 16 + g;
+#pragma unroll
+  for (int i = 0; i < NB / 8; ++i) {
+    const int cc = wg * (NB / 8) + i;   // the 16-byte chunk of the row
+    if (8 * cc < dk) {
+      put_pair<T>(Qs, BM, r0, cc, t, acc[4 * i] * scale,
+                  acc[4 * i + 1] * scale);
+      put_pair<T>(Qs, BM, r0 + 8, cc, t, acc[4 * i + 2] * scale,
+                  acc[4 * i + 3] * scale);
+    }
+  }
+  __syncthreads();
+  store_tile(dq_out + ((long long)b * Sq + q0) * orow + (long long)h * D,
+             orow, Qs, BM, nq, D, NT);
+}
+
 // ---------------------------------------------------------------------------
 // dk and dv: grid (B * H, ceil(Sk / 64)), 256 threads; the block owns 64
 // keys and walks query tiles from the first query that can see its first
@@ -537,12 +765,12 @@ __global__ void __launch_bounds__(2 * WG, 1) flash_bwd_dkv_tc256_kernel(
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-enum Which { FWD = 0, DKV = 2 };
+enum Which { FWD = 0, DQ = 1, DKV = 2 };
 
 struct Args {
   const void *q, *k, *v, *dout;
   const float *mask, *lse_in, *delta;
-  void *out, *dk, *dv;
+  void *out, *dq, *dk, *dv;
   float* lse;
   Strides st;
   int B, H, Sq, Sk, D;
@@ -556,11 +784,19 @@ struct Args {
 constexpr size_t fwd_smem(int nwg, int stages) {
   return (size_t)(nwg + 2 * stages) * TILE + sizeof(float) * stages * BN;
 }
+// q and dO resident, STAGES of K and V, the stages' key mask and, at two
+// warpgroups, the 16 KB handoff of p and ds
+constexpr size_t dq_smem(int nwg, int stages) {
+  return (size_t)(2 + 2 * stages) * TILE + sizeof(float) * stages * BN +
+         (nwg > 1 ? sizeof(uint32_t) * 32 * WG : 0);
+}
 constexpr size_t dkv_smem() {
   return (size_t)6 * TILE + sizeof(float) * 4 * BN + sizeof(float) * 32 * WG;
 }
 static_assert(fwd_smem(FWD_WGS, FWD_STAGES) <= SMEM_LIMIT,
               "the forward's tiles exceed a block's shared memory");
+static_assert(dq_smem(DQ_WGS, DQ_STAGES) <= SMEM_LIMIT,
+              "dq's tiles exceed a block's shared memory");
 static_assert(dkv_smem() <= SMEM_LIMIT,
               "dk/dv's tiles exceed a block's shared memory");
 
@@ -584,6 +820,15 @@ cudaError_t launch(Which w, const Args& a, cudaStream_t stream) {
     fn<<<grid, WG * FWD_WGS, smem, stream>>>(
         q, k, v, a.mask, static_cast<T*>(a.out), a.lse, a.st, a.H, a.Sq,
         a.Sk, a.D, a.scale, a.causal, a.seed, a.thresh, a.inv_keep);
+  } else if (w == DQ) {
+    constexpr size_t smem = dq_smem(DQ_WGS, DQ_STAGES);
+    auto fn = flash_bwd_dq_tc256_kernel<T, DQ_WGS, DQ_STAGES, DROP>;
+    if ((err = set_smem(fn, smem)) != cudaSuccess) return err;
+    const dim3 grid(a.B * a.H, (a.Sq + BM - 1) / BM);
+    fn<<<grid, WG * DQ_WGS, smem, stream>>>(
+        q, k, v, static_cast<const T*>(a.dout), a.mask, a.lse_in, a.delta,
+        static_cast<T*>(a.dq), a.st, a.H, a.Sq, a.Sk, a.D, a.scale,
+        a.causal, a.seed, a.thresh, a.inv_keep);
   } else {
     constexpr size_t smem = dkv_smem();
     auto fn = flash_bwd_dkv_tc256_kernel<T, DROP>;
@@ -622,10 +867,10 @@ int run(Which w, const Args& a, int dtype, void* stream) {
 
 extern "C" {
 
-// The arguments of flash_attention_tc.cu's flash_attention_tc_fwd and
-// flash_attention_tc_bwd_dkv, with dtype 1 (bfloat16) or 2 (float16) and
-// D a multiple of 8 in (128, 256]. Returns cudaGetLastError() after the
-// launch (0 = launched).
+// The arguments of flash_attention_tc.cu's flash_attention_tc_fwd,
+// flash_attention_tc_bwd_dq and flash_attention_tc_bwd_dkv, with dtype 1
+// (bfloat16) or 2 (float16) and D a multiple of 8 in (128, 256]. Returns
+// cudaGetLastError() after the launch (0 = launched).
 int flash_attention_tc256_fwd(const void* q, const void* k, const void* v,
                               const float* mask, void* out, float* lse,
                               const long long* strides, int B, int H, int Sq,
@@ -638,6 +883,22 @@ int flash_attention_tc256_fwd(const void* q, const void* k, const void* v,
   a.B = B; a.H = H; a.Sq = Sq; a.Sk = Sk; a.D = D; a.scale = scale;
   a.causal = causal; a.seed = seed; a.thresh = thresh; a.inv_keep = inv_keep;
   return run(FWD, a, dtype, stream);
+}
+
+int flash_attention_tc256_bwd_dq(const void* q, const void* k,
+                                 const void* v, const void* dout,
+                                 const float* mask, const float* lse,
+                                 const float* delta, void* dq,
+                                 const long long* strides, int B, int H,
+                                 int Sq, int Sk, int D, float scale,
+                                 int causal, uint32_t seed, int thresh,
+                                 float inv_keep, int dtype, void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout; a.mask = mask; a.lse_in = lse;
+  a.delta = delta; a.dq = dq; a.st = strides_of(strides);
+  a.B = B; a.H = H; a.Sq = Sq; a.Sk = Sk; a.D = D; a.scale = scale;
+  a.causal = causal; a.seed = seed; a.thresh = thresh; a.inv_keep = inv_keep;
+  return run(DQ, a, dtype, stream);
 }
 
 int flash_attention_tc256_bwd_dkv(const void* q, const void* k,

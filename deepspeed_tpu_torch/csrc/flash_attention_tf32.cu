@@ -1,5 +1,6 @@
 // Flash attention forward, dq and dk/dv for float32 on Hopper's tensor
-// cores (sm_90a), as 3xTF32: head_dim a multiple of 8 up to 128.
+// cores (sm_90a), as 3xTF32: head_dim a multiple of 8 up to 128, and the
+// forward up to 256.
 //
 // Replaces, for fp32, the Pallas TPU kernels _fwd_kernel (o and lse),
 // _bwd_dq_kernel (dq) and _bwd_dkv_kernel (dk and dv) of deepspeed_tpu/
@@ -11,8 +12,8 @@
 // dropout keep-mask Drop::keep(i, j) regenerated in registers, never
 // stored), through the same C interface: q, k, v read through their [B,
 // S, H, D] strides; out, dO, dq, dk, dv contiguous [B, S, H, D]; lse and
-// delta fp32 [B * H, Sq]. Head dims above 128 stay on flash_attention.cu's
-// FMA kernels.
+// delta fp32 [B * H, Sq]. dq and dk/dv above D = 128 stay on
+// flash_attention.cu's FMA kernels.
 //
 // What bounds it on an H100: at the training shape (B*H = 192, S = 512,
 // D = 64, fp32, causal) the forward must move q, k, v and o (50 MB, 15 us
@@ -79,6 +80,25 @@
 //   cross them; tiles above the diagonal are never loaded. Forward and dq
 //   blocks start with the last query tiles (the longest walks), dk/dv
 //   blocks with the first key tiles;
+// - the forward at D in (128, 256] is this file's kernel at DMAX = 256,
+//   not a file of its own: the 32-key walk, the splits and the softmax
+//   are the same, and only the o accumulator widens. At [4, 512, 8, 256]
+//   causal it must move q, k, v and o (67 MB, 20 us) and do 4.3 GFLOP of
+//   fp32-accurate products, 26 us at 165 TFLOP/s (3xTF32): operations
+//   bound it. One warp owning a 16-row group's 256 columns holds 128
+//   accumulator registers a thread, and a block of 4 warps (200 KB: q
+//   and two stages of 32-key K and V at rows of 260 floats) is one block
+//   an SM: 0.3437-0.3515 ms there (219-223 registers). FWD256_SPLIT = 2
+//   puts two warps on each 16-row group, each owning 128 columns of o;
+//   each sums s over its half of the head dim and the pair adds the two
+//   partial sums through 16 KB of shared memory (FWD256_SHARE_S; a + b
+//   and b + a are the same bits, so both run the same softmax): 216 KB,
+//   165-168 registers, 0.1921-0.1965 ms. Each warp computing all of s
+//   itself took 0.2402-0.2457, and 16-key tiles 0.2342-0.2345 (shared)
+//   and 0.3640-0.3681 (one warp); tools/probe_flash_tf32_d256.py, H100,
+//   device time, two chip calls. The fp32 dq and dk/dv that follow it
+//   are the FMA kernels, which sum s in another order; the autograd path
+//   stays within fp32's 1e-5 of the plain path's (chip_smoke.py);
 // - no atomics: every output element is summed by one thread in a fixed
 //   order, so the outputs are bit-equal over two launches.
 
@@ -108,17 +128,25 @@ constexpr int BM = 64;       // rows a block owns, 16 per warp
 constexpr int BS = 32;       // rows of a streamed tile
 constexpr int BLOCKS64 = 3;  // dq, dk/dv blocks an SM at D <= 64 (70 KB)
 constexpr int FWD64 = 4;     // forward blocks an SM at D <= 64 (52 KB)
+// the forward at D in (128, 256] (tools/probe_flash_tf32_d256.py's
+// picks): FWD256_SPLIT warps over each 16-row group, each owning 256 /
+// FWD256_SPLIT columns of o; with FWD256_SHARE_S, each of two such warps
+// sums s over its half of the head dim and the pair adds the two partial
+// sums through shared memory, else each computes all of s itself
+constexpr int FWD256_SPLIT = 2;
+constexpr bool FWD256_SHARE_S = true;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // rows x D floats of src (row stride `stride`) into dst [rows][DP] by
-// cp.async, 16 bytes at a time; rows at or past `valid` are zeros
-template <int DP>
+// cp.async, 16 bytes at a time, by NTH threads; rows at or past `valid`
+// are zeros
+template <int DP, int NTH = NT>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long long stride, int rows,
                                           int valid, int D) {
   const int cpr = D / 4;
-  for (int idx = threadIdx.x; idx < rows * cpr; idx += NT) {
+  for (int idx = threadIdx.x; idx < rows * cpr; idx += NTH) {
     const int r = idx / cpr;
     const int c = (idx - r * cpr) * 4;
     const bool ok = r < valid;
@@ -129,10 +157,17 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
 // ---------------------------------------------------------------------------
 // forward: grid (B * H, ceil(Sq / BM)); the block owns 64 queries (counted
 // from the end, so the longest causal walks start first) and walks key
-// tiles up to the last key its last query can see, with an online softmax
+// tiles up to the last key its last query can see, with an online softmax.
+// SPLIT warps share each 16-row group: each runs the group's softmax
+// itself and owns DMAX / SPLIT columns of o (SPLIT > 1 only at DMAX =
+// 256, where D > 128 keeps every warp's columns in range); with SHARE two
+// warps each sum s over their half of the head dim and add the other's
+// partial sum (own + other's in both: the same bits), else each computes
+// all of s.
 // ---------------------------------------------------------------------------
-template <int DMAX, bool DROP>
-__global__ void __launch_bounds__(NT, DMAX <= 64 ? FWD64 : 2)
+template <int DMAX, int SPLIT, bool DROP>
+__global__ void __launch_bounds__(NT* SPLIT, DMAX <= 64 ? FWD64
+                                             : DMAX <= 128 ? 2 : 1)
     flash_fwd_tf32_kernel(
         const float* __restrict__ q, const float* __restrict__ k,
         const float* __restrict__ v, const float* __restrict__ mask,
@@ -141,15 +176,21 @@ __global__ void __launch_bounds__(NT, DMAX <= 64 ? FWD64 : 2)
         int thresh, float inv_keep) {
   constexpr int BN = BS;                     // keys per streamed tile
   constexpr int DP = DMAX + 4;               // row pitch (floats)
-  constexpr int NO = DMAX / 8;               // output n-tiles
+  constexpr int NO = DMAX / 8 / SPLIT;       // a warp's output n-tiles
   constexpr int NS = BN / 8;                 // score n-tiles
+  constexpr int NTH = NT * SPLIT;            // threads
+  constexpr bool SHARE = SPLIT == 2 && FWD256_SHARE_S;
+  constexpr int KS = SHARE ? DMAX / 2 : DMAX;  // head-dim columns s sums
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                 // [BM][DP]
   float* Ks = Qs + BM * DP;         // [2][BN][DP]
   float* Vs = Ks + 2 * BN * DP;     // [2][BN][DP]
   float* Ms = Vs + 2 * BN * DP;     // [2][BN]
+  float* Xs = Ms + 2 * BN;          // SHARE: [NTH / 32][NS * 4][32] s
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = (threadIdx.x >> 5) % 4, lane = threadIdx.x & 31;
+  const int c0 = (threadIdx.x >> 7) * (DMAX / SPLIT);  // first column of o
+  const int kq = SHARE ? c0 : 0;    // first head-dim column s sums
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -170,14 +211,16 @@ __global__ void __launch_bounds__(NT, DMAX <= 64 ? FWD64 : 2)
   auto load_kv = [&](int it) {
     const int k0 = it * BN, s = it & 1;
     const int valid = min(BN, Sk - k0);
-    load_rows<DP>(Ks + s * BN * DP, kb + k0 * st.ks, st.ks, BN, valid, D);
-    load_rows<DP>(Vs + s * BN * DP, vb + k0 * st.vs, st.vs, BN, valid, D);
+    load_rows<DP, NTH>(Ks + s * BN * DP, kb + k0 * st.ks, st.ks, BN, valid,
+                       D);
+    load_rows<DP, NTH>(Vs + s * BN * DP, vb + k0 * st.vs, st.vs, BN, valid,
+                       D);
     if (mb && threadIdx.x < BN)
       Ms[s * BN + threadIdx.x] =
           threadIdx.x < valid ? mb[k0 + threadIdx.x] : 0.f;
   };
-  load_rows<DP>(Qs, q + b * st.qb + h * st.qh + q0 * st.qs, st.qs, BM, nq,
-                D);
+  load_rows<DP, NTH>(Qs, q + b * st.qb + h * st.qh + q0 * st.qs, st.qs, BM,
+                     nq, D);
   load_kv(0);
   cp_async_commit();
 
@@ -196,7 +239,7 @@ __global__ void __launch_bounds__(NT, DMAX <= 64 ? FWD64 : 2)
     __syncthreads();
     const int k0 = it * BN;
     const float* Kt = Ks + (it & 1) * BN * DP;
-    const float* Vt = Vs + (it & 1) * BN * DP;
+    const float* Vt = Vs + (it & 1) * BN * DP + c0;   // the warp's columns
     const float* Mt = Ms + (it & 1) * BN;
 
     // s = q.k^T, as the dq kernel computes it; then scaled, base 2
@@ -204,12 +247,27 @@ __global__ void __launch_bounds__(NT, DMAX <= 64 ? FWD64 : 2)
 #pragma unroll
     for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-    for (int kc = 0; kc < DMAX; kc += 8) {
+    for (int kk = 0; kk < KS; kk += 8) {
+      const int kc = kq + kk;
       if (kc < D) {
         uint32_t ah[4], al[4];
         a_rows<DP>(Qw, kc, ah, al);
         mma_rows<NS, DP>(s, ah, al, Kt, kc);
       }
+    }
+    if constexpr (SHARE) {
+      // the pair's partial sums through shared memory (warps w and w ^ 4)
+      float* mine = Xs + (threadIdx.x >> 5) * NS * 4 * 32 + lane;
+      const float* other = Xs + ((threadIdx.x >> 5) ^ 4) * NS * 4 * 32 + lane;
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine[(4 * n + e) * 32] = s[n][e];
+      __syncthreads();
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] += other[(4 * n + e) * 32];
     }
     const bool edge = k0 + BN > Sk || (causal && k0 + BN - 1 > q0 + offset);
     float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -258,25 +316,31 @@ __global__ void __launch_bounds__(NT, DMAX <= 64 ? FWD64 : 2)
       acc[n][0] *= a0; acc[n][1] *= a0;
       acc[n][2] *= a1; acc[n][3] *= a1;
     }
-    // o += p.v
+    // o += p.v over the warp's columns
 #pragma unroll
     for (int kk = 0; kk < NS; ++kk)
-      mma_cols<NO, NS, DP>(acc, s, kk, Vt, D);
+      mma_cols<NO, NS, DP>(acc, s, kk, Vt, D - c0);
     __syncthreads();  // this stage is consumed before it is refilled
   }
 
   // o = acc / max(l, 1e-30); lse = m + log(max(l, 1e-30))
   const float ls0 = fmaxf(row_sum<4>(l0), 1e-30f);
   const float ls1 = fmaxf(row_sum<4>(l1), 1e-30f);
+  const long long orow = (long long)H * D;
+  float* ob = out + ((long long)b * Sq + q0) * orow + (long long)h * D + c0;
+  const int r = warp * 16 + g;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
-    acc[n][0] /= ls0; acc[n][1] /= ls0;
-    acc[n][2] /= ls1; acc[n][3] /= ls1;
+    if (c0 + n * 8 < D) {
+      if (r < nq)
+        *reinterpret_cast<float2*>(ob + r * orow + 8 * n + 2 * t) =
+            make_float2(acc[n][0] / ls0, acc[n][1] / ls0);
+      if (r + 8 < nq)
+        *reinterpret_cast<float2*>(ob + (r + 8) * orow + 8 * n + 2 * t) =
+            make_float2(acc[n][2] / ls1, acc[n][3] / ls1);
+    }
   }
-  const long long orow = (long long)H * D;
-  store_acc<NO>(out + ((long long)b * Sq + q0) * orow + (long long)h * D,
-                orow, acc, 1.f, nq, D);
-  if (t == 0) {
+  if (t == 0 && c0 == 0) {
     if (i0 < Sq) lse[(long long)bh * Sq + i0] = m0 * LN2 + logf(ls0);
     if (i0 + 8 < Sq) lse[(long long)bh * Sq + i0 + 8] = m1 * LN2 + logf(ls1);
   }
@@ -566,13 +630,18 @@ struct Args {
 };
 
 // shared bytes: the resident 64-row tiles (the forward: q; dq: q, dO;
-// dk/dv: k, v), two stages of two streamed tiles and the streamed tile's
+// dk/dv: k, v), two stages of two streamed tiles, the streamed tile's
 // per-row floats (the forward and dq: the key mask; dk/dv: lse and delta)
+// and the forward's shared partial scores at DMAX = 256
 template <int DMAX>
 constexpr size_t smem_bytes(Which w) {
   return sizeof(float) * ((size_t)((w == FWD ? 1 : 2) * BM + 4 * BS) *
                               (DMAX + 4) +
-                          (w == DKV ? 4 : 2) * BS);
+                          (w == DKV ? 4 : 2) * BS +
+                          (w == FWD && DMAX > 128 && FWD256_SPLIT == 2 &&
+                                   FWD256_SHARE_S
+                               ? NT * FWD256_SPLIT * BS / 2
+                               : 0));
 }
 
 template <int DMAX, bool DROP>
@@ -580,14 +649,17 @@ cudaError_t launch(Which w, const Args& a, cudaStream_t stream) {
   const size_t smem = smem_bytes<DMAX>(w);
   cudaError_t err;
   if (w == FWD) {
-    auto fn = flash_fwd_tf32_kernel<DMAX, DROP>;
+    constexpr int SPLIT = DMAX > 128 ? FWD256_SPLIT : 1;
+    auto fn = flash_fwd_tf32_kernel<DMAX, SPLIT, DROP>;
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
     const dim3 grid(a.B * a.H, (a.Sq + BM - 1) / BM);
-    fn<<<grid, NT, smem, stream>>>(a.q, a.k, a.v, a.mask, a.out, a.lse_out,
+    fn<<<grid, NT * SPLIT, smem, stream>>>(a.q, a.k, a.v, a.mask, a.out, a.lse_out,
                                    a.st, a.H, a.Sq, a.Sk, a.D, a.scale,
                                    a.causal, a.seed, a.thresh, a.inv_keep);
+  } else if constexpr (DMAX > 128) {
+    return cudaErrorInvalidValue;   // dq and dk/dv take D <= 128 (run)
   } else if (w == DQ) {
     auto fn = flash_bwd_dq_tf32_kernel<DMAX, DROP>;
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -615,11 +687,13 @@ cudaError_t launch(Which w, const Args& a, cudaStream_t stream) {
 template <bool DROP>
 cudaError_t dispatch_d(Which w, const Args& a, cudaStream_t stream) {
   if (a.D <= 64) return launch<64, DROP>(w, a, stream);
-  return launch<128, DROP>(w, a, stream);
+  if (a.D <= 128) return launch<128, DROP>(w, a, stream);
+  return launch<256, DROP>(w, a, stream);   // the forward alone
 }
 
 int run(Which w, const Args& a, int dtype, void* stream) {
-  if (dtype != 0 || a.D < 8 || a.D > 128 || a.D % 8 != 0 || a.B < 1 ||
+  if (dtype != 0 || a.D < 8 || a.D > (w == FWD ? 256 : 128) ||
+      a.D % 8 != 0 || a.B < 1 ||
       a.H < 1 || a.Sq < 1 || a.Sk < 1 || (a.causal && a.Sq > a.Sk) ||
       a.thresh < 0 || a.thresh > (1 << 24) || (a.Sq + BM - 1) / BM > 65535 ||
       (a.Sk + BM - 1) / BM > 65535)
@@ -637,8 +711,9 @@ extern "C" {
 
 // The arguments of flash_attention.cu's flash_attention_fwd,
 // flash_attention_bwd_dq and flash_attention_bwd_dkv, with dtype 0
-// (float32) and D a multiple of 8 in [8, 128]. Returns cudaGetLastError()
-// after the launch (0 = launched).
+// (float32) and D a multiple of 8 in [8, 256] (the forward) or [8, 128]
+// (dq, dk/dv). Returns cudaGetLastError() after the launch (0 =
+// launched).
 int flash_attention_tf32_fwd(const void* q, const void* k, const void* v,
                              const float* mask, void* out, float* lse,
                              const long long* strides, int B, int H, int Sq,

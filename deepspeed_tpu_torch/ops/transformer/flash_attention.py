@@ -18,12 +18,13 @@ and the fp32 row logsumexp; the backward recomputes the probabilities.
   ``csrc/flash_attention_tf32.cu`` (:func:`flash_attention_fwd_tf32`,
   :func:`flash_attention_bwd_dq_tf32`,
   :func:`flash_attention_bwd_dkv_tf32`); bfloat16 and float16 with
-  ``head_dim`` in (128, 256] the forward and dk/dv of
+  ``head_dim`` in (128, 256] the forward, dq and dk/dv of
   ``csrc/flash_attention_tc256.cu`` (wgmma: :func:`flash_attention_fwd_tc256`,
-  :func:`flash_attention_bwd_dkv_tc256`) and the FMA dq; float32 there all
-  three FMA kernels of ``csrc/flash_attention.cu``. It launches them or
-  raises; it never falls back to the plain version or from one kernel to
-  another.
+  :func:`flash_attention_bwd_dq_tc256`,
+  :func:`flash_attention_bwd_dkv_tc256`); float32 there the 3xTF32
+  forward and the FMA dq and dk/dv of ``csrc/flash_attention.cu``. It
+  launches them or raises; it never falls back to the plain version or
+  from one kernel to another.
 - On CPU tensors it runs :func:`flash_attention_reference`, the plain
   PyTorch version (materialised fp32 scores, differentiated by autograd)
   that the CPU tests hold against the JAX kernel and ``chip_smoke.py``
@@ -48,10 +49,10 @@ FMA kernels in ``flash_attention_fwd``, ``flash_attention_bwd_dq`` and
 ``flash_attention_bwd_dkv_tc``, the 3xTF32 ones in
 ``flash_attention_fwd_tf32``, ``flash_attention_bwd_dq_tf32`` and
 ``flash_attention_bwd_dkv_tf32``, the wgmma ones at head dims above 128
-in ``flash_attention_fwd_tc256`` and ``flash_attention_bwd_dkv_tc256``.
-The FMA wrappers also count, in ``.launches_wide``, their launches at head
-dims above 128 (the kernels' widest branch: dq in 16 bits, all three in
-float32).
+in ``flash_attention_fwd_tc256``, ``flash_attention_bwd_dq_tc256`` and
+``flash_attention_bwd_dkv_tc256``. The FMA wrappers also count, in
+``.launches_wide``, their launches at head dims above 128 (the kernels'
+widest branch, which only float32 dq and dk/dv take).
 """
 
 import ctypes
@@ -68,7 +69,8 @@ __all__ = ["flash_attention", "flash_attention_reference", "flash_ok",
            "flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc",
            "flash_attention_fwd_tf32", "flash_attention_bwd_dq_tf32",
            "flash_attention_bwd_dkv_tf32", "flash_attention_fwd_tc256",
-           "flash_attention_bwd_dkv_tc256", "flash_bwd_dq_reference",
+           "flash_attention_bwd_dq_tc256", "flash_attention_bwd_dkv_tc256",
+           "flash_bwd_dq_reference",
            "flash_bwd_dkv_reference", "dropout_keep_mask"]
 
 MAX_HEAD_DIM = 256
@@ -83,25 +85,23 @@ def _route(dtype: torch.dtype, head_dim: int, which: str = "fwd") -> str:
     CUDA: ``"tc"`` (the tensor cores, ``csrc/flash_attention_tc.cu``) for
     bfloat16 and float16 with ``head_dim`` a multiple of 8 in [8, 128] (a
     head dim that is not a multiple of 16 is zero-padded in shared
-    memory); ``"tf32"`` (3xTF32 on the tensor cores,
-    ``csrc/flash_attention_tf32.cu``) for float32 at those head dims;
-    ``"tc256"`` (wgmma, ``csrc/flash_attention_tc256.cu``) for the
-    forward and dk/dv in bfloat16 and float16 with ``head_dim`` a multiple
-    of 8 in (128, 256]; ``"fma"`` (``csrc/flash_attention.cu``) for
-    everything else the kernels take: dq in 16 bits and all three in
-    float32 at those head dims. Up to D = 128 the forward, dq and dk/dv of
-    one dtype and head dim take the same route."""
+    memory); ``"tc256"`` (wgmma, ``csrc/flash_attention_tc256.cu``) for
+    them with ``head_dim`` a multiple of 8 in (128, 256]; ``"tf32"``
+    (3xTF32 on the tensor cores, ``csrc/flash_attention_tf32.cu``) for
+    float32 with ``head_dim`` a multiple of 8 in [8, 128], and for its
+    forward in (128, 256]; ``"fma"`` (``csrc/flash_attention.cu``) for
+    everything else the kernels take: float32 dq and dk/dv above D = 128.
+    The forward, dq and dk/dv of one dtype and head dim take the same
+    route, except float32 above D = 128."""
     if which not in ("fwd", "dq", "dkv"):
         raise ValueError(f"which must be fwd, dq or dkv, got {which!r}")
-    if not (head_dim % 8 == 0 and 8 <= head_dim <= TC_MAX_HEAD_DIM):
-        if (dtype in (torch.bfloat16, torch.float16) and which != "dq"
-                and head_dim % 8 == 0
-                and TC_MAX_HEAD_DIM < head_dim <= MAX_HEAD_DIM):
-            return "tc256"
-        return "fma"
+    narrow = head_dim % 8 == 0 and 8 <= head_dim <= TC_MAX_HEAD_DIM
+    wide = head_dim % 8 == 0 and TC_MAX_HEAD_DIM < head_dim <= MAX_HEAD_DIM
     if dtype in (torch.bfloat16, torch.float16):
-        return "tc"
-    return "tf32" if dtype == torch.float32 else "fma"
+        return "tc" if narrow else "tc256" if wide else "fma"
+    if dtype == torch.float32 and (narrow or (wide and which == "fwd")):
+        return "tf32"
+    return "fma"
 
 
 def flash_ok(q: torch.Tensor, k: torch.Tensor, causal: bool) -> bool:
@@ -269,8 +269,8 @@ def flash_bwd_dkv_reference(q, k, v, dout, kv_mask, lse, delta,
 
 def _kernel(name: str = "flash_attention"):
     """The ctypes functions of ``csrc/<name>.cu`` (``flash_attention``,
-    ``flash_attention_tc``, ``flash_attention_tf32``: forward, dq, dk/dv;
-    ``flash_attention_tc256``: forward and dk/dv), built and loaded at
+    ``flash_attention_tc``, ``flash_attention_tf32``,
+    ``flash_attention_tc256``: forward, dq, dk/dv), built and loaded at
     first use: those of the three that the library exports."""
     if name not in _FN:
         lib = build.load(name)
@@ -413,29 +413,33 @@ def _launch_dkv(name, q, k, v, dout, kv_mask, lse, delta, causal, scale,
     return dk, dv
 
 
-def _require_tc(q):
-    if _route(q.dtype, q.shape[-1]) != "tc":
-        raise ValueError(
-            f"the tensor-core flash kernels take bfloat16 or float16 with "
-            f"head_dim a multiple of 8 in [8, {TC_MAX_HEAD_DIM}]; got "
-            f"{q.dtype}, head_dim {q.shape[-1]}")
+def _require(q, which: str, route: str, takes: str):
+    """Raises unless ``_route`` sends ``which`` of q's dtype and head dim
+    to ``route`` and q is not a CPU tensor: a wrapper checks its own
+    kernel's route, so widening one kernel's route widens no other
+    wrapper."""
+    if _route(q.dtype, q.shape[-1], which) != route or \
+            q.device.type == "cpu":
+        raise ValueError(f"{takes}; got {which} of {q.dtype}, head_dim "
+                         f"{q.shape[-1]} on {q.device}")
 
 
-def _require_tc256(q):
-    if _route(q.dtype, q.shape[-1]) != "tc256" or q.device.type == "cpu":
-        raise ValueError(
-            f"the wgmma flash kernels take CUDA bfloat16 or float16 with "
-            f"head_dim a multiple of 8 in ({TC_MAX_HEAD_DIM}, "
-            f"{MAX_HEAD_DIM}]; got {q.dtype}, head_dim {q.shape[-1]} on "
-            f"{q.device}")
+def _require_tc(q, which: str):
+    _require(q, which, "tc", f"the tensor-core flash kernels take CUDA "
+             f"bfloat16 or float16 with head_dim a multiple of 8 in [8, "
+             f"{TC_MAX_HEAD_DIM}]")
 
 
-def _require_tf32(q):
-    if _route(q.dtype, q.shape[-1]) != "tf32":
-        raise ValueError(
-            f"the 3xTF32 flash kernels take float32 with head_dim a "
-            f"multiple of 8 in [8, {TC_MAX_HEAD_DIM}]; got {q.dtype}, "
-            f"head_dim {q.shape[-1]}")
+def _require_tc256(q, which: str):
+    _require(q, which, "tc256", f"the wgmma flash kernels take CUDA "
+             f"bfloat16 or float16 with head_dim a multiple of 8 in "
+             f"({TC_MAX_HEAD_DIM}, {MAX_HEAD_DIM}]")
+
+
+def _require_tf32(q, which: str):
+    _require(q, which, "tf32", f"the 3xTF32 flash kernels take CUDA "
+             f"float32 with head_dim a multiple of 8 in [8, "
+             f"{TC_MAX_HEAD_DIM}], the forward up to {MAX_HEAD_DIM}")
 
 
 def flash_attention_fwd(q, k, v, kv_mask, causal: bool, scale: float,
@@ -466,7 +470,7 @@ def flash_attention_fwd_tc(q, k, v, kv_mask, causal: bool, scale: float,
     """Launch the tensor-core forward kernel (bfloat16 or float16,
     ``head_dim`` a multiple of 8 up to 128; anything else raises). Inputs
     and outputs as :func:`flash_attention_fwd`."""
-    _require_tc(q)
+    _require_tc(q, "fwd")
     out, lse = _launch_fwd("flash_attention_tc", q, k, v, kv_mask, causal,
                            scale, dropout_rate, dropout_seed)
     flash_attention_fwd_tc.launches += 1
@@ -479,7 +483,7 @@ def flash_attention_fwd_tc256(q, k, v, kv_mask, causal: bool, scale: float,
     """Launch the wgmma forward kernel (CUDA bfloat16 or float16,
     ``head_dim`` a multiple of 8 in (128, 256]; anything else raises).
     Inputs and outputs as :func:`flash_attention_fwd`."""
-    _require_tc256(q)
+    _require_tc256(q, "fwd")
     out, lse = _launch_fwd("flash_attention_tc256", q, k, v, kv_mask, causal,
                            scale, dropout_rate, dropout_seed)
     flash_attention_fwd_tc256.launches += 1
@@ -489,10 +493,10 @@ def flash_attention_fwd_tc256(q, k, v, kv_mask, causal: bool, scale: float,
 def flash_attention_fwd_tf32(q, k, v, kv_mask, causal: bool, scale: float,
                              dropout_rate: float = 0.0,
                              dropout_seed: Optional[int] = None):
-    """Launch the 3xTF32 forward kernel (float32, ``head_dim`` a multiple
-    of 8 up to 128; anything else raises). Inputs and outputs as
+    """Launch the 3xTF32 forward kernel (CUDA float32, ``head_dim`` a
+    multiple of 8 up to 256; anything else raises). Inputs and outputs as
     :func:`flash_attention_fwd`."""
-    _require_tf32(q)
+    _require_tf32(q, "fwd")
     out, lse = _launch_fwd("flash_attention_tf32", q, k, v, kv_mask, causal,
                            scale, dropout_rate, dropout_seed)
     flash_attention_fwd_tf32.launches += 1
@@ -505,12 +509,14 @@ def flash_attention_bwd_dq(q, k, v, dout, kv_mask, lse, delta, causal: bool,
     """Launch the dq kernel :func:`_route` picks: ``dout`` contiguous [B,
     Sq, H, D]; ``lse`` and ``delta`` fp32 [B, H, Sq]. Returns dq,
     contiguous [B, Sq, H, D]. The FMA kernel's launches count here, the
-    tensor-core kernels' in :func:`flash_attention_bwd_dq_tc` and
-    :func:`flash_attention_bwd_dq_tf32`."""
+    tensor-core kernels' in :func:`flash_attention_bwd_dq_tc`,
+    :func:`flash_attention_bwd_dq_tf32` and
+    :func:`flash_attention_bwd_dq_tc256`."""
     route = _route(q.dtype, q.shape[-1], "dq")
     if route != "fma":
-        fn = (flash_attention_bwd_dq_tc if route == "tc"
-              else flash_attention_bwd_dq_tf32)
+        fn = {"tc": flash_attention_bwd_dq_tc,
+              "tf32": flash_attention_bwd_dq_tf32,
+              "tc256": flash_attention_bwd_dq_tc256}[route]
         return fn(q, k, v, dout, kv_mask, lse, delta, causal, scale,
                   dropout_rate, dropout_seed)
     dq = _launch_dq("flash_attention", q, k, v, dout, kv_mask, lse, delta,
@@ -527,10 +533,24 @@ def flash_attention_bwd_dq_tc(q, k, v, dout, kv_mask, lse, delta,
     """Launch the tensor-core dq kernel (bfloat16 or float16, ``head_dim``
     a multiple of 8 up to 128; anything else raises). Inputs and output as
     :func:`flash_attention_bwd_dq`."""
-    _require_tc(q)
+    _require_tc(q, "dq")
     dq = _launch_dq("flash_attention_tc", q, k, v, dout, kv_mask, lse, delta,
                     causal, scale, dropout_rate, dropout_seed)
     flash_attention_bwd_dq_tc.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dq_tc256(q, k, v, dout, kv_mask, lse, delta,
+                                 causal: bool, scale: float,
+                                 dropout_rate: float = 0.0,
+                                 dropout_seed: Optional[int] = None):
+    """Launch the wgmma dq kernel (CUDA bfloat16 or float16, ``head_dim`` a
+    multiple of 8 in (128, 256]; anything else raises). Inputs and output
+    as :func:`flash_attention_bwd_dq`."""
+    _require_tc256(q, "dq")
+    dq = _launch_dq("flash_attention_tc256", q, k, v, dout, kv_mask, lse,
+                    delta, causal, scale, dropout_rate, dropout_seed)
+    flash_attention_bwd_dq_tc256.launches += 1
     return dq
 
 
@@ -541,7 +561,7 @@ def flash_attention_bwd_dq_tf32(q, k, v, dout, kv_mask, lse, delta,
     """Launch the 3xTF32 dq kernel (float32, ``head_dim`` a multiple of 8
     up to 128; anything else raises). Inputs and output as
     :func:`flash_attention_bwd_dq`."""
-    _require_tf32(q)
+    _require_tf32(q, "dq")
     dq = _launch_dq("flash_attention_tf32", q, k, v, dout, kv_mask, lse,
                     delta, causal, scale, dropout_rate, dropout_seed)
     flash_attention_bwd_dq_tf32.launches += 1
@@ -578,7 +598,7 @@ def flash_attention_bwd_dkv_tc(q, k, v, dout, kv_mask, lse, delta,
     """Launch the tensor-core dk/dv kernel (bfloat16 or float16,
     ``head_dim`` a multiple of 8 up to 128; anything else raises). Inputs
     and outputs as :func:`flash_attention_bwd_dkv`."""
-    _require_tc(q)
+    _require_tc(q, "dkv")
     dk, dv = _launch_dkv("flash_attention_tc", q, k, v, dout, kv_mask, lse,
                          delta, causal, scale, dropout_rate, dropout_seed)
     flash_attention_bwd_dkv_tc.launches += 1
@@ -592,7 +612,7 @@ def flash_attention_bwd_dkv_tc256(q, k, v, dout, kv_mask, lse, delta,
     """Launch the wgmma dk/dv kernel (CUDA bfloat16 or float16,
     ``head_dim`` a multiple of 8 in (128, 256]; anything else raises).
     Inputs and outputs as :func:`flash_attention_bwd_dkv`."""
-    _require_tc256(q)
+    _require_tc256(q, "dkv")
     dk, dv = _launch_dkv("flash_attention_tc256", q, k, v, dout, kv_mask,
                          lse, delta, causal, scale, dropout_rate,
                          dropout_seed)
@@ -607,7 +627,7 @@ def flash_attention_bwd_dkv_tf32(q, k, v, dout, kv_mask, lse, delta,
     """Launch the 3xTF32 dk/dv kernel (float32, ``head_dim`` a multiple of
     8 up to 128; anything else raises). Inputs and outputs as
     :func:`flash_attention_bwd_dkv`."""
-    _require_tf32(q)
+    _require_tf32(q, "dkv")
     dk, dv = _launch_dkv("flash_attention_tf32", q, k, v, dout, kv_mask, lse,
                          delta, causal, scale, dropout_rate, dropout_seed)
     flash_attention_bwd_dkv_tf32.launches += 1
@@ -624,6 +644,7 @@ flash_attention_fwd_tf32.launches = 0
 flash_attention_bwd_dq_tf32.launches = 0
 flash_attention_bwd_dkv_tf32.launches = 0
 flash_attention_fwd_tc256.launches = 0
+flash_attention_bwd_dq_tc256.launches = 0
 flash_attention_bwd_dkv_tc256.launches = 0
 flash_attention_fwd.launches_wide = 0
 flash_attention_bwd_dq.launches_wide = 0

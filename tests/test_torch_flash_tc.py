@@ -37,13 +37,13 @@ REL = 1e-5          # of the reference's largest |value|
     (torch.bfloat16, 8, "tc"), (torch.float16, 72, "tc"),
     (torch.bfloat16, 128, "tc"), (torch.float16, 128, "tc"),
     (torch.float32, 64, "tf32"), (torch.float32, 128, "tf32"),
-    (torch.float32, 256, "fma"), (torch.bfloat16, 136, "tc256"),
+    (torch.float32, 256, "tf32"), (torch.bfloat16, 136, "tc256"),
     (torch.float16, 256, "tc256"), (torch.bfloat16, 60, "fma")])
 def test_route(dtype, head_dim, route):
-    """16-bit types with head_dim a multiple of 8 up to 128 take the
-    tensor cores, fp32 there 3xTF32 on them; the 16-bit forward (and
-    dk/dv) above 128 the wgmma kernels; fp32 above 128 (and head dims
-    not a multiple of 8) the FMA kernels."""
+    """The forward's route: 16-bit types with head_dim a multiple of 8 up
+    to 128 take the tensor cores, fp32 3xTF32 on them up to 256; 16-bit
+    above 128 the wgmma kernels; head dims not a multiple of 8 the FMA
+    kernels."""
     assert fa._route(dtype, head_dim) == route
 
 
@@ -149,10 +149,9 @@ _LIBS = {"tc": "flash_attention_tc", "tf32": "flash_attention_tf32",
 def test_dq_routes_like_dkv(dtype, head_dim, route, monkeypatch):
     """``flash_attention_bwd_dq`` launches the kernel of the library that
     ``flash_attention_bwd_dkv`` launches (the 3xTF32 kernels for float32
-    up to D = 128), except above D = 128 in 16 bits, where dk/dv takes
-    the wgmma kernel and dq the FMA one; each counts in its routed
-    wrapper's ``.launches`` (the launches are recorded, not run: the
-    operands are meta tensors)."""
+    up to D = 128, the FMA ones above; the wgmma kernels above D = 128 in
+    16 bits); each counts in its routed wrapper's ``.launches`` (the
+    launches are recorded, not run: the operands are meta tensors)."""
     launched = []
     monkeypatch.setattr(fa, "_launch_dq",
                         lambda name, *a: launched.append(("dq", name)))
@@ -165,7 +164,8 @@ def test_dq_routes_like_dkv(dtype, head_dim, route, monkeypatch):
                        fa.flash_attention_bwd_dkv_tc),
                 "tf32": (fa.flash_attention_bwd_dq_tf32,
                          fa.flash_attention_bwd_dkv_tf32),
-                "tc256": (None, fa.flash_attention_bwd_dkv_tc256)}
+                "tc256": (fa.flash_attention_bwd_dq_tc256,
+                          fa.flash_attention_bwd_dkv_tc256)}
     for pair in wrappers.values():
         for w in pair:
             if w is not None:
@@ -174,7 +174,7 @@ def test_dq_routes_like_dkv(dtype, head_dim, route, monkeypatch):
     lse = torch.empty(1, 1, 8, device="meta")
     fa.flash_attention_bwd_dq(q, q, q, q, None, lse, lse, True, 0.125)
     fa.flash_attention_bwd_dkv(q, q, q, q, None, lse, lse, True, 0.125)
-    dq_route = "fma" if route == "tc256" else route
+    dq_route = route
     assert fa._route(dtype, head_dim, "dq") == dq_route
     assert launched == [("dq", _LIBS[dq_route]), ("dkv", _LIBS[route])]
     assert {r: [w and w.launches for w in pair]
@@ -188,10 +188,11 @@ def test_dq_routes_like_dkv(dtype, head_dim, route, monkeypatch):
 def test_fwd_routes_like_dkv(dtype, head_dim, route, monkeypatch):
     """``flash_attention_fwd`` launches the kernel of the library that
     ``flash_attention_bwd_dkv`` launches (the 3xTF32 kernels for float32
-    up to D = 128, the wgmma ones above 128 in 16 bits), and counts it in
-    the routed wrapper's ``.launches`` alone; the FMA wrapper's
-    ``.launches_wide`` counts exactly its launches above D = 128
-    (recorded, not run: meta tensors)."""
+    up to D = 128, the wgmma ones above 128 in 16 bits), except float32
+    above D = 128, where the forward takes the 3xTF32 kernel and dk/dv
+    the FMA one; it counts in the routed wrapper's ``.launches`` alone;
+    the FMA wrapper's ``.launches_wide`` counts exactly its launches above
+    D = 128 (recorded, not run: meta tensors)."""
     launched = []
     monkeypatch.setattr(fa, "_launch_fwd",
                         lambda name, *a: launched.append(("fwd", name))
@@ -210,11 +211,14 @@ def test_fwd_routes_like_dkv(dtype, head_dim, route, monkeypatch):
     lse = torch.empty(1, 1, 8, device="meta")
     fa.flash_attention_fwd(q, q, q, None, True, 0.125)
     fa.flash_attention_bwd_dkv(q, q, q, q, None, lse, lse, True, 0.125)
-    assert launched == [("fwd", _LIBS[route]), ("dkv", _LIBS[route])]
+    fwd_route = fa._route(dtype, head_dim, "fwd")
+    assert fwd_route == ("tf32" if dtype == torch.float32 and head_dim > 128
+                         else route)
+    assert launched == [("fwd", _LIBS[fwd_route]), ("dkv", _LIBS[route])]
     assert {r: w.launches for r, w in wrappers.items()} \
-        == {r: int(r == route) for r in wrappers}
+        == {r: int(r == fwd_route) for r in wrappers}
     assert fa.flash_attention_fwd.launches_wide == int(
-        head_dim > 128 and route == "fma")
+        head_dim > 128 and fwd_route == "fma")
 
 
 @pytest.mark.parametrize("dtype,head_dim", [(torch.float32, 64),

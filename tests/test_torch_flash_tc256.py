@@ -1,21 +1,23 @@
-"""The wgmma flash forward and dk/dv at head dims in (128, 256]
+"""The wgmma flash forward, dq and dk/dv at head dims in (128, 256]
 (deepspeed_tpu_torch): their route and their arithmetic.
 
 ``csrc/flash_attention_tc256.cu`` (bfloat16 and float16) runs only on the
 card, where ``chip_smoke.py`` holds it against the plain versions and the
 FMA kernels. Here: which kernel ``_route`` picks for the forward, dq and
-dk/dv around D = 128 and 256, that the new wrappers refuse the rest
+dk/dv around D = 128 and 256, that the wgmma wrappers refuse the rest
 (fp32, narrow or too wide heads, CPU tensors), that a missing ``nvcc``
 raises, that the CPU path of ``flash_attention()`` at D = 256 is the JAX
 kernels' function (``interpret=True``), and a plain PyTorch model of the
 kernels' arithmetic: 16-bit-exact inputs, so fp32 products; the forward's
 walk over 64-query blocks and 64-key tiles with the online softmax in
 base-2 units; dk/dv over 64-key blocks walking 64-query tiles, p^T made
-once (the dv warpgroup's) and shared with the dk warpgroup; p (in p.V and
-dv) and ds (in dk) split into hi = T(x) and lo = T(x - hi). On
-numpy-made inputs the model stays within 1e-5 of the largest value of the
-JAX kernels' o, dk and dv (fp32), at dropout 0 and 0.1; one 16-bit term
-does not, which is why the kernels pay for the second.
+once (the dv warpgroup's) and shared with the dk warpgroup; dq over
+64-query blocks walking 64-key tiles, p made by one warpgroup, ds by the
+other; p (in p.V and dv) and ds (in dk and dq) split into hi = T(x) and
+lo = T(x - hi). On numpy-made inputs the model stays within 1e-5 of the
+largest value of the JAX kernels' o, dq, dk and dv (fp32), at dropout 0
+and 0.1; one 16-bit term does not, which is why the kernels pay for the
+second.
 """
 
 import math
@@ -40,20 +42,21 @@ ATOL = 1e-5         # fp32 plain path against the JAX kernels
 TILE = 64           # the kernels' rows a warpgroup owns and streams
 LOG2E = 1.4426950408889634
 F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
-WIDE = ("tc256", "fma", "tc256")
+WIDE = ("tc256",) * 3
+F32_WIDE = ("tf32", "fma", "fma")
 
 
 @pytest.mark.parametrize("dtype,head_dim,routes", [
-    (F32, 128, ("tf32",) * 3), (F32, 136, ("fma",) * 3),
-    (F32, 256, ("fma",) * 3), (F32, 264, ("fma",) * 3),
+    (F32, 128, ("tf32",) * 3), (F32, 136, F32_WIDE),
+    (F32, 256, F32_WIDE), (F32, 264, ("fma",) * 3),
     (BF16, 128, ("tc",) * 3), (BF16, 136, WIDE), (BF16, 256, WIDE),
     (BF16, 264, ("fma",) * 3),
     (F16, 128, ("tc",) * 3), (F16, 136, WIDE), (F16, 256, WIDE),
     (F16, 264, ("fma",) * 3)])
 def test_route(dtype, head_dim, routes):
-    """16-bit types above D = 128 take the wgmma forward and dk/dv and the
-    FMA dq; fp32 there the FMA kernels; D = 264 is past every kernel (the
-    FMA route, which ``flash_ok`` refuses)."""
+    """16-bit types above D = 128 take the wgmma forward, dq and dk/dv;
+    fp32 there the 3xTF32 forward and the FMA dq and dk/dv; D = 264 is
+    past every kernel (the FMA route, which ``flash_ok`` refuses)."""
     assert tuple(fa._route(dtype, head_dim, w)
                  for w in ("fwd", "dq", "dkv")) == routes
     assert fa.flash_ok(torch.empty(1, 8, 1, head_dim, dtype=dtype,
@@ -64,21 +67,26 @@ def test_route(dtype, head_dim, routes):
 
 @pytest.mark.parametrize("dtype,head_dim,device", [
     (F32, 256, "meta"), (BF16, 128, "meta"), (F16, 264, "meta"),
-    (BF16, 256, "cpu")])
+    (BF16, 256, "cpu"), (F32, 136, "meta"), (F16, 136, "cpu"),
+    (BF16, 120, "meta")])
 def test_wrappers_refuse_other_routes(dtype, head_dim, device):
-    """The wgmma wrappers raise, before any launch, for fp32, D <= 128,
-    D > 256 and CPU tensors; nothing falls back to another kernel."""
+    """The wgmma wrappers (forward, dq and dk/dv) raise, before any
+    launch, for fp32 (whose forward takes 3xTF32 there), D <= 128, D > 256
+    and CPU tensors; nothing falls back to another kernel."""
     q = torch.empty(1, 8, 1, head_dim, dtype=dtype, device=device)
     lse = torch.empty(1, 1, 8, device=device)
-    before = (fa.flash_attention_fwd_tc256.launches,
-              fa.flash_attention_bwd_dkv_tc256.launches)
+    wrappers = (fa.flash_attention_fwd_tc256, fa.flash_attention_bwd_dq_tc256,
+                fa.flash_attention_bwd_dkv_tc256)
+    before = [w.launches for w in wrappers]
     with pytest.raises(ValueError, match="wgmma flash kernels"):
         fa.flash_attention_fwd_tc256(q, q, q, None, True, 0.0625)
     with pytest.raises(ValueError, match="wgmma flash kernels"):
+        fa.flash_attention_bwd_dq_tc256(q, q, q, q, None, lse, lse, True,
+                                        0.0625)
+    with pytest.raises(ValueError, match="wgmma flash kernels"):
         fa.flash_attention_bwd_dkv_tc256(q, q, q, q, None, lse, lse, True,
                                          0.0625)
-    assert (fa.flash_attention_fwd_tc256.launches,
-            fa.flash_attention_bwd_dkv_tc256.launches) == before
+    assert [w.launches for w in wrappers] == before
 
 
 def test_missing_nvcc_raises_for_tc256(monkeypatch, tmp_path):
@@ -90,20 +98,30 @@ def test_missing_nvcc_raises_for_tc256(monkeypatch, tmp_path):
 
 
 def test_kernel_binds_only_what_the_library_exports(monkeypatch):
-    """``_kernel`` takes the forward and dk/dv of a library without dq (as
-    ``flash_attention_tc256`` is), and no dq."""
+    """``_kernel`` takes the forward, dq and dk/dv that
+    ``flash_attention_tc256`` exports, and of a library without dq no
+    dq."""
     def fn():
         return lambda *a: 0
 
-    lib = SimpleNamespace(flash_attention_tc256_fwd=fn(),
-                          flash_attention_tc256_bwd_dkv=fn(),
-                          flash_attention_tc256_error_string=fn())
-    monkeypatch.setattr(build, "load", lambda name: lib)
-    monkeypatch.delitem(fa._FN, "flash_attention_tc256", raising=False)
-    got = fa._kernel("flash_attention_tc256")
-    monkeypatch.delitem(fa._FN, "flash_attention_tc256")
-    assert sorted(got) == ["dkv", "err", "fwd"]
-    assert got["fwd"] is lib.flash_attention_tc256_fwd
+    full = SimpleNamespace(flash_attention_tc256_fwd=fn(),
+                           flash_attention_tc256_bwd_dq=fn(),
+                           flash_attention_tc256_bwd_dkv=fn(),
+                           flash_attention_tc256_error_string=fn())
+    part = SimpleNamespace(flash_attention_tc256_fwd=fn(),
+                           flash_attention_tc256_bwd_dkv=fn(),
+                           flash_attention_tc256_error_string=fn())
+    for lib, want in ((full, ["dkv", "dq", "err", "fwd"]),
+                      (part, ["dkv", "err", "fwd"])):
+        monkeypatch.setattr(build, "load", lambda name, lib=lib: lib)
+        monkeypatch.delitem(fa._FN, "flash_attention_tc256", raising=False)
+        got = fa._kernel("flash_attention_tc256")
+        monkeypatch.delitem(fa._FN, "flash_attention_tc256")
+        assert sorted(got) == want
+        assert got["fwd"] is lib.flash_attention_tc256_fwd
+    assert got.get("dq") is None
+    # dq's nine pointers (q, k, v, dO, mask, lse, delta, dq, strides)
+    assert len(full.flash_attention_tc256_bwd_dq.argtypes) == 9 + 12
 
 
 def _seed_of(key) -> int:
@@ -256,6 +274,80 @@ def _dkv_model(q, k, v, do, mask, lse, delta, scale, dtype, n, rate, seed):
     return torch.cat(dks, 2), torch.cat(dvs, 2)
 
 
+def _dq_model(q, k, v, do, mask, lse, delta, scale, dtype, n, rate, seed):
+    """The dq kernel's arithmetic (causal, Sq = Sk): for each block of 64
+    queries, the 64-key tiles its last query can see; warpgroup 0's p =
+    exp2(s scale log2(e) - lse_i log2(e)) from s = q.k^T in fp32 (as the
+    forward scales s), times the key mask and 0 past the diagonal;
+    warpgroup 1's dp = dO.v^T, dropped out, and ds = p (D dp - delta_i),
+    handed back as T-terms(ds); dq += T-terms(ds).k (each warpgroup over
+    half of the head dim's columns, which leaves each column's sum as it
+    is); dq times scale at the end. [B, H, S, D] fp32; lse and delta [B,
+    H, S]."""
+    sl = scale * LOG2E
+    inv = 1.0 / (1.0 - rate) if rate else 1.0
+    dqs = []
+    for q0 in range(0, S, TILE):
+        rows = torch.arange(q0, q0 + TILE)
+        dq = torch.zeros(B, H, TILE, q.shape[-1])
+        for k0 in range(0, q0 + TILE, TILE):
+            cols = torch.arange(k0, k0 + TILE)
+            s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, rows], k[:, :, cols])
+            p = torch.exp2(s * sl - (lse[:, :, rows] * LOG2E)[..., None])
+            p = p.masked_fill(cols[None, :] > rows[:, None], 0.0)
+            p = p * mask[:, None, None, cols]
+            dp = torch.einsum("bhqd,bhkd->bhqk", do[:, :, rows],
+                              v[:, :, cols])
+            if rate:
+                dp = torch.where(_keep(seed, rows, cols, rate), dp * inv,
+                                 0.0)
+            ds = p * (dp - delta[:, :, rows, None])
+            dq += torch.einsum("bhqk,bhkd->bhqd", _terms(ds, dtype, n),
+                               k[:, :, cols])
+        dqs.append(dq * scale)
+    return torch.cat(dqs, 2)
+
+
+def _lse_delta(tq, tk, tdo, tm, o, scale):
+    """The forward's lse (of the fp32 scores, causal, under the key mask)
+    and delta = rowsum(dO * o), [B, H, S], from [B, H, S, D] tensors and
+    o [B, S, H, D] (numpy)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", tq, tk) * scale
+    s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(), -math.inf)
+    mx = s.amax(-1, keepdim=True)
+    lse = (mx + torch.log((torch.exp(s - mx) * tm[:, None, None, :])
+                          .sum(-1, keepdim=True).clamp_min(1e-30)))[..., 0]
+    return lse, (tdo * torch.from_numpy(o).transpose(1, 2)).sum(-1)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype,d", [(BF16, 256), (F16, 256), (BF16, 136),
+                                     (F16, 136)])
+def test_dq_model_matches_jax(dtype, d, rate):
+    """The dq model with ds in two 16-bit terms against the JAX
+    ``_bwd_dq_kernel`` (interpret, fp32, causal, key-padded, through
+    ``jax.grad``): within 1e-5 of its largest |dq|, at dropout 0 and 0.1,
+    in bf16 and fp16 at D = 256 and 136; with one term, not."""
+    q, k, v, do, mask = _inputs(53 + d + int(rate * 10), d, dtype)
+    key = jax.random.PRNGKey(13)
+    seed = _seed_of(key) if rate else None
+    want_o, want_dq, _dk, _dv = _jax(q, k, v, do, mask, True, rate, key)
+    scale = 1.0 / d ** 0.5
+    tq, tk, tv, tdo = (torch.from_numpy(x).transpose(1, 2)
+                       for x in (q, k, v, do))
+    tm = torch.from_numpy(mask)
+    lse, delta = _lse_delta(tq, tk, tdo, tm, want_o, scale)
+    for n, within in ((2, True), (1, False)):
+        dq = _dq_model(tq, tk, tv, tdo, tm, lse, delta, scale, dtype, n,
+                       rate, seed)
+        err = float(np.abs(dq.transpose(1, 2).numpy() - want_dq).max()
+                    / np.abs(want_dq).max())
+        if within:
+            assert err <= REL, (n, err)
+        else:
+            assert err > REL, (n, err)
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype,d", [(BF16, 256), (F16, 256), (BF16, 136)])
 def test_split_operand_model_matches_jax(dtype, d, rate):
@@ -272,12 +364,7 @@ def test_split_operand_model_matches_jax(dtype, d, rate):
     tq, tk, tv, tdo = (torch.from_numpy(x).transpose(1, 2)
                        for x in (q, k, v, do))
     tm = torch.from_numpy(mask)
-    s = torch.einsum("bhqd,bhkd->bhqk", tq, tk) * scale
-    s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(), -math.inf)
-    mx = s.amax(-1, keepdim=True)
-    lse = (mx + torch.log((torch.exp(s - mx) * tm[:, None, None, :])
-                          .sum(-1, keepdim=True).clamp_min(1e-30)))[..., 0]
-    delta = (tdo * torch.from_numpy(want_o).transpose(1, 2)).sum(-1)
+    lse, delta = _lse_delta(tq, tk, tdo, tm, want_o, scale)
     for n, within in ((2, True), (1, False)):
         o, lse_m = _fwd_model(tq, tk, tv, tm, scale, dtype, n, rate, seed)
         np.testing.assert_allclose(lse_m.numpy(), lse.numpy(), atol=1e-5,

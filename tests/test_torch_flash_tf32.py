@@ -4,7 +4,9 @@
 the tensor cores) runs only on the card, where ``chip_smoke.py`` holds it
 against the plain versions. Here: which kernel ``_route`` picks for the
 forward, dq and dk/dv by dtype and head dim, that the 3xTF32 wrappers
-refuse the rest and that a missing ``nvcc`` raises, and plain PyTorch
+refuse the rest (each its own kernel's: the forward takes head dims up
+to 256, dq and dk/dv up to 128) and that a missing ``nvcc`` raises, and
+plain PyTorch
 models of the kernels' arithmetic: every fp32 operand of the products (s =
 q.k^T and o = p.v in the forward; s, dp = dO.v^T, dq = ds.k, dk = ds^T.q,
 dv = p^T.dO in the backward) is split into hi = tf32(x) and lo = tf32(x -
@@ -12,8 +14,9 @@ hi), ``cvt.rna.tf32.f32`` emulated with int32 bit operations, and each
 product is lo.hi + hi.lo + hi.hi in fp32. On numpy-made inputs the models
 stay within 1e-5 of the largest value of both the JAX kernels
 (``interpret=True``) and the port's fp32 plain versions, causal and
-non-causal under a key mask, at dropout 0 and 0.1; one TF32 product
-(hi.hi) does not, which is why the kernels pay for three.
+non-causal under a key mask, at dropout 0 and 0.1 (the forward's also at
+D = 256); one TF32 product (hi.hi) does not, which is why the kernels pay
+for three.
 """
 
 import jax
@@ -40,14 +43,14 @@ F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
     (F32, 64, ("tf32", "tf32", "tf32")), (F32, 8, ("tf32", "tf32", "tf32")),
     (F32, 72, ("tf32", "tf32", "tf32")),
     (F32, 128, ("tf32", "tf32", "tf32")),
-    (F32, 136, ("fma", "fma", "fma")), (F32, 256, ("fma", "fma", "fma")),
+    (F32, 136, ("tf32", "fma", "fma")), (F32, 256, ("tf32", "fma", "fma")),
     (BF16, 64, ("tc", "tc", "tc")), (F16, 128, ("tc", "tc", "tc")),
-    (BF16, 256, ("tc256", "fma", "tc256")),
-    (F16, 136, ("tc256", "fma", "tc256"))])
+    (BF16, 256, ("tc256", "tc256", "tc256")),
+    (F16, 136, ("tc256", "tc256", "tc256"))])
 def test_route(dtype, head_dim, routes):
-    """The fp32 forward, dq and dk/dv take 3xTF32 up to D = 128; 16-bit
-    types the tensor cores up to D = 128; above 128, fp32 the FMA kernels
-    and 16-bit types the wgmma forward and dk/dv and the FMA dq."""
+    """The fp32 forward, dq and dk/dv take 3xTF32 up to D = 128, and the
+    forward up to 256 (dq and dk/dv the FMA kernels there); 16-bit types
+    the tensor cores up to D = 128 and the wgmma kernels above."""
     assert tuple(fa._route(dtype, head_dim, w)
                  for w in ("fwd", "dq", "dkv")) == routes
     assert fa._route(dtype, head_dim) == routes[0]
@@ -58,25 +61,33 @@ def test_route_refuses_an_unknown_kernel():
         fa._route(F32, 64, "dk")
 
 
-@pytest.mark.parametrize("dtype,head_dim", [(BF16, 64), (F16, 128),
-                                            (F32, 136), (F32, 256)])
-def test_tf32_wrappers_refuse_other_routes(dtype, head_dim):
-    """The 3xTF32 wrappers raise, before any launch, for what they do not
-    take; nothing falls back to another kernel."""
-    q = torch.empty(1, 8, 1, head_dim, dtype=dtype, device="meta")
-    lse = torch.empty(1, 1, 8, device="meta")
-    wrappers = (fa.flash_attention_fwd_tf32, fa.flash_attention_bwd_dq_tf32,
-                fa.flash_attention_bwd_dkv_tf32)
-    before = [w.launches for w in wrappers]
-    with pytest.raises(ValueError, match="3xTF32 flash kernels"):
-        fa.flash_attention_fwd_tf32(q, q, q, None, True, 0.125)
-    with pytest.raises(ValueError, match="3xTF32 flash kernels"):
-        fa.flash_attention_bwd_dq_tf32(q, q, q, q, None, lse, lse, True,
-                                       0.125)
-    with pytest.raises(ValueError, match="3xTF32 flash kernels"):
-        fa.flash_attention_bwd_dkv_tf32(q, q, q, q, None, lse, lse, True,
-                                        0.125)
-    assert [w.launches for w in wrappers] == before
+@pytest.mark.parametrize("dtype,head_dim,device,takes", [
+    (BF16, 64, "meta", ()), (F16, 128, "meta", ()),
+    (F32, 136, "meta", ("fwd",)), (F32, 256, "meta", ("fwd",)),
+    (F32, 264, "meta", ()), (F32, 256, "cpu", ()), (F32, 64, "cpu", ()),
+    (BF16, 256, "meta", ())])
+def test_tf32_wrappers_refuse_other_routes(dtype, head_dim, device, takes):
+    """Each 3xTF32 wrapper raises, before any launch, for what its own
+    kernel does not take (``takes``: the kernels whose wall lets these
+    inputs through): above D = 128 the forward takes float32 and dq and
+    dk/dv do not, so widening the forward's route widened no other
+    wrapper; CPU tensors never; nothing falls back to another kernel."""
+    q = torch.empty(1, 8, 1, head_dim, dtype=dtype, device=device)
+    lse = torch.empty(1, 1, 8, device=device)
+    calls = {"fwd": (fa.flash_attention_fwd_tf32, (q, q, q, None, True,
+                                                   0.125)),
+             "dq": (fa.flash_attention_bwd_dq_tf32,
+                    (q, q, q, q, None, lse, lse, True, 0.125)),
+             "dkv": (fa.flash_attention_bwd_dkv_tf32,
+                     (q, q, q, q, None, lse, lse, True, 0.125))}
+    before = [w.launches for w, _a in calls.values()]
+    for which, (wrapper, args) in calls.items():
+        if which in takes:
+            fa._require_tf32(q, which)      # its wall lets them through
+            continue
+        with pytest.raises(ValueError, match="3xTF32 flash kernels"):
+            wrapper(*args)
+    assert [w.launches for w, _a in calls.values()] == before
 
 
 def test_missing_nvcc_raises_for_tf32(monkeypatch, tmp_path):
@@ -290,24 +301,36 @@ def test_3xtf32_forward_model_matches_jax_and_plain(causal, rate):
         mask[1, 40:] = 0.0
     scale = 1.0 / D ** 0.5
     seed = _seed_of(jax.random.PRNGKey(9)) if rate else None
+    errs = _forward_errors(q, k, v, mask, causal, scale, rate, seed)
+    for ref_name in ("jax", "plain"):
+        assert max(errs[(ref_name, 3)]) <= REL, errs
+        assert min(errs[(ref_name, 1)]) > REL, errs
+
+
+def _forward_errors(q, k, v, mask, causal, scale, rate, seed):
+    """The forward model's o and lse, with 3 and 1 TF32 products, against
+    the JAX ``_fwd_kernel`` (interpret, fp32) and the port's plain version
+    (o, and the lse of its fp32 scores): each output's max |err| over the
+    reference's largest |value|, by (reference, products)."""
+    b, s, h, d = q.shape
 
     def bhsd(t):
-        return jnp.asarray(t.permute(0, 2, 1, 3).reshape(B * H, S, D)
+        return jnp.asarray(t.permute(0, 2, 1, 3).reshape(b * h, s, d)
                            .numpy())
 
     jseed = jnp.asarray(np.array([seed or 0], np.uint32).view(np.int32))
     out, lse = jax_flash_forward(
         bhsd(q), bhsd(k), bhsd(v), jnp.asarray(mask)[:, None, :], causal,
-        scale, 64, 64, True, nheads=H, dropout_rate=rate, seed=jseed)
-    want_jax = (np.asarray(out).reshape(B, H, S, D).transpose(0, 2, 1, 3),
-                np.asarray(lse)[..., 0].reshape(B, H, S))
+        scale, 64, 64, True, nheads=h, dropout_rate=rate, seed=jseed)
+    want_jax = (np.asarray(out).reshape(b, h, s, d).transpose(0, 2, 1, 3),
+                np.asarray(lse)[..., 0].reshape(b, h, s))
     tm = torch.from_numpy(mask)
-    s = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
     if causal:
-        s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(),
-                          float("-inf"))
-    m = s.amax(-1, keepdim=True)
-    l = (torch.exp(s - m) * tm[:, None, None, :]).sum(-1, keepdim=True)
+        sc = sc.masked_fill(~torch.ones(s, s, dtype=torch.bool).tril(),
+                            float("-inf"))
+    m = sc.amax(-1, keepdim=True)
+    l = (torch.exp(sc - m) * tm[:, None, None, :]).sum(-1, keepdim=True)
     want_plain = (fa.flash_attention_reference(
         q, k, v, causal=causal, kv_mask=tm, dropout_rate=rate,
         dropout_seed=seed), (m + torch.log(l.clamp_min(1e-30)))[..., 0])
@@ -319,6 +342,23 @@ def test_3xtf32_forward_model_matches_jax_and_plain(causal, rate):
                 float(np.abs(np.asarray(g) - np.asarray(w)).max()
                       / np.abs(np.asarray(w)).max())
                 for g, w in zip(got, want)]
+    return errs
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_3xtf32_forward_model_matches_jax_at_d256(rate):
+    """The same forward model at D = 256, the widest head the kernel takes
+    (its DMAX = 256 instance: the same 32-key walk, the o accumulator 256
+    columns wide), causal under a key mask: o and lse within 1e-5 of each
+    reference's largest |value| with three TF32 products, beyond it with
+    one."""
+    rng = np.random.default_rng(61 + int(rate * 10))
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, S, H, 256))
+                                .astype(np.float32)) for _ in range(3))
+    mask = np.ones((1, S), np.float32)
+    mask[0, 100:] = 0.0
+    seed = _seed_of(jax.random.PRNGKey(9)) if rate else None
+    errs = _forward_errors(q, k, v, mask, True, 1.0 / 16.0, rate, seed)
     for ref_name in ("jax", "plain"):
         assert max(errs[(ref_name, 3)]) <= REL, errs
         assert min(errs[(ref_name, 1)]) > REL, errs

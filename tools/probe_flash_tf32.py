@@ -105,8 +105,8 @@ PRESPLIT_SUBS = (
     (r"split_tf32\(B\[([^\]]+)\], (bh\[\d\]), (bl\[\d\])\);",
      r"\2 = __float_as_uint(B[\1]); \3 = __float_as_uint(Bl[\1]);", 4),
     (r"(mma_rows<NS, DP>\(\w+, ah, al, )(\w)t, kc\)", r"\1\2t, \2l, kc)", 5),
-    (r"(mma_cols<NO, NS, DP>\(\w+, \w+, kk, )(\w)t, D\)", r"\1\2t, \2l, D)",
-     4))
+    (r"(mma_cols<NO, NS, DP>\(\w+, \w+, kk, )(\w)t, (D(?: - c0)?)\)",
+     r"\1\2t, \2l, \3)", 4))
 
 
 def presplit(src: str) -> str:
