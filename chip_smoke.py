@@ -59,9 +59,10 @@
      mask holding an all-padding row, at dropout 0 and 0.1 (16 bits: the
      wgmma forward, dq and dk/dv of ``csrc/flash_attention_tc256.cu``,
      each also held to the FMA kernel on the same inputs and bit-equal
-     over two launches; fp32: the 3xTF32 forward of
-     ``csrc/flash_attention_tf32.cu``, the FMA forward held on the same
-     inputs, and the FMA dq and dk/dv); the
+     over two launches; fp32: the 3xTF32 forward, dq and dk/dv of
+     ``csrc/flash_attention_tf32.cu``, the FMA forward, dq and dk/dv held
+     on the same inputs and dq and dk/dv also to the FMA kernels'
+     outputs); the
      whole autograd path against the plain
      version's; fp32 within 1e-5 (dO x 0.1), 16-bit within one rounding
      step of its type plus 1e-3 of the reference's RMS (0.15 on the
@@ -76,14 +77,15 @@
      of them, and the FMA forward, dq and dk/dv, held there to its plain
      version at 1e-3 of the RMS and bit-equal over two launches, on the
      timed inputs and the path's, and in fp16 on one), the fp32 3xTF32
-     forward and FMA forward, dq and dk/dv there beside SDPA in fp32 (the
-     ``_d256_fp32`` rows), and two lines of the slice's path: forward +
+     forward, dq and dk/dv and the FMA forward, dq and dk/dv there beside
+     SDPA in fp32 (the ``_d256_fp32`` rows), and two lines of the slice's
+     path: forward +
      backward through ``flash_attention()`` at that shape in bf16 and in
      fp32 (device ms, each wrapper's launches, every count set to 0 just
      before; the output and gradient held to the plain path's) beside
      SDPA's forward + backward; and the dropout keep-mask read back out
      of the forward, dq and dk/dv kernels (fp32 [2, 2048, 2, 256] through
-     the 3xTF32 forward and the FMA dq and dk/dv, bf16 [2, 2048, 2, 256]
+     the 3xTF32 forward, dq and dk/dv, bf16 [2, 2048, 2, 256]
      through the wgmma forward, dq and dk/dv, fp32 [2, 2048, 2, 64]
      through the 3xTF32
      forward, dq and dk/dv, bf16 [2, 2048, 2, 64] through the
@@ -345,12 +347,17 @@ backward through ``flash_attention()`` at that shape, the FMA forward, dq
 and dk/dv (their first versions, timed on the same inputs) the FMA
 wrappers' launches at D > 128 (``.launches_wide``) over phases 4 and 7,
 which train in bf16; the ``_d256_fp32`` rows are timed on fp32 inputs at
-that shape: the 3xTF32 forward (``flash_attention_fwd_tf32_d256_fp32``)
-and the FMA dq and dk/dv count phase 2's fp32 forward + backward through
-``flash_attention()`` there, the FMA forward (its first version) the FMA
-wrapper's launches at D > 128 over phase 7b, which trains in fp32, every
-count set to 0 just before each phase; the ``_d256`` rows' max |err| is
-that of the kernels held on the timed inputs (``hold_flash_d256``).
+that shape: the 3xTF32 forward, dq and dk/dv
+(``flash_attention_fwd_tf32_d256_fp32``,
+``flash_attention_bwd_dq_tf32_d256_fp32``,
+``flash_attention_bwd_dkv_tf32_d256_fp32``) count phase 2's fp32
+forward + backward through ``flash_attention()`` there, the FMA forward,
+dq and dk/dv (their first versions, timed on the same inputs) the FMA
+wrappers' launches at D > 128 over phase 7b, which trains in fp32, every
+count set to 0 just before each phase (the run fails unless every
+``.launches_wide`` count is 0); the ``_d256`` rows' max |err| is that of
+the kernels held on the timed inputs (``hold_flash_d256``), and so is the
+``_d256_fp32`` rows' (``hold_flash_d256_fp32``).
 ``fused_ln.cu``'s rows (``fused_ln_matmul_fwd``, ``fused_ln_matmul_bwd``) are fp32's route,
 counted over phase 6's fp32 comparison, while the ``_tc`` rows count phase 6 and its fp16 run. The
 FMA sparse rows (``sparse_attention_fwd``, ``sparse_attention_bwd_dq``,
@@ -1307,8 +1314,8 @@ def flash_bytes_flops(q, mask, which, causal=True):
 # in fp32 the 3xTF32 forward, dq and dk/dv. Every dtype also runs
 # FLASH_CASES_256 (and FLASH_NONCAUSAL_CASES_256): head dims above 128, D
 # = 256 and D = 136 (zero-padded to 144 in 16 bits), where 16 bits take
-# the wgmma forward, dq and dk/dv, fp32 the 3xTF32 forward and the FMA dq
-# and dk/dv (their widest branch). At dropout 0.1 the same split.
+# the wgmma forward, dq and dk/dv, fp32 the 3xTF32 forward, dq and dk/dv.
+# At dropout 0.1 the same split.
 FLASH_CASES = ((16, 512, 512, 12, 64, False), (16, 512, 512, 12, 64, True),
                (4, 5, 5, 12, 64, True), (4, 300, 300, 12, 64, False),
                (4, 300, 300, 12, 64, True))
@@ -1346,8 +1353,9 @@ def compare_flash_case(torch, fa, dtype, case, worst, rate=0.0, seed=None,
     projection. Where a kernel is not the FMA kernel (the tensor cores in
     16 bits, 3xTF32 in fp32, wgmma above D = 128 in 16 bits), the FMA
     kernel (its first version) is held on the same inputs too, except the
-    16-bit forward up to D = 128; the wgmma forward, dq and dk/dv are also
-    held to the FMA kernel's outputs.
+    16-bit forward up to D = 128; the wgmma forward, dq and dk/dv, and the
+    3xTF32 dq and dk/dv above D = 128, are also held to the FMA kernel's
+    outputs.
     Folds each output's max |err| into ``worst`` and fails beyond the
     tolerances (KERNEL_TOL, FLASH_16BIT_RMS_TOL), if the forward, dq or
     dk/dv differ between two launches on the same inputs, or if an
@@ -1441,9 +1449,9 @@ def compare_flash_case(torch, fa, dtype, case, worst, rate=0.0, seed=None,
         pairs["fwd (FMA kernel, same inputs)"] = (fwd_fma, want)
     if routes[0] == "tc256":
         pairs["fwd against the FMA kernel"] = (out, fwd_fma)
-    if routes[1] == "tc256":
+    if routes[1] == "tc256" or (routes[1] == "tf32" and d > 128):
         pairs["dq against the FMA kernel"] = (dq, dq_fma)
-    if routes[2] == "tc256":
+    if routes[2] == "tc256" or (routes[2] == "tf32" and d > 128):
         pairs["dk against the FMA kernel"] = (dk, dkv_fma[0])
         pairs["dv against the FMA kernel"] = (dv, dkv_fma[1])
     for key, (got, ref) in pairs.items():
@@ -1603,24 +1611,13 @@ def take_wide_launches(fa, total=None):
 
 def flash_routes_expected(dtype, d):
     """The routes of the forward, dq and dk/dv that phase 2 holds the code
-    to: 16-bit up to D = 128 the tensor cores; fp32 up to D = 128 3xTF32
-    on them; above D = 128 16-bit the wgmma forward, dq and dk/dv, fp32
-    the 3xTF32 forward with the FMA dq and dk/dv."""
+    to: fp32 3xTF32 on the tensor cores up to D = 256; 16-bit the tensor
+    cores up to D = 128, the wgmma forward, dq and dk/dv above."""
     import torch
 
-    if d > 128:
-        return (("tf32", "fma", "fma") if dtype == torch.float32
-                else ("tc256",) * 3)
-    return ("tf32",) * 3 if dtype == torch.float32 else ("tc",) * 3
-
-
-def flash_wide_expected(dtype, d):
-    """The FMA wrappers whose ``.launches_wide`` a call at head dim ``d``
-    grows: none up to D = 128 and none in 16 bits; above it in fp32, dq
-    and dk/dv."""
-    return sorted(k for k, r in zip(("fwd", "dq", "dkv"),
-                                    flash_routes_expected(dtype, d))
-                  if d > 128 and r == "fma")
+    if dtype == torch.float32:
+        return ("tf32",) * 3
+    return ("tc256",) * 3 if d > 128 else ("tc",) * 3
 
 
 def check_flash_attention(torch, reports):
@@ -1630,14 +1627,14 @@ def check_flash_attention(torch, reports):
     (FLASH_CASES_256, FLASH_DROP_CASES_256, FLASH_NONCAUSAL_CASES_256 at
     dropout 0 and 0.1); each call must launch the kernel of the route
     :func:`flash_routes_expected` names, counted in that route's wrapper
-    alone, and in the FMA wrappers' ``.launches_wide`` those
-    :func:`flash_wide_expected` names. Then timed by device time
-    (:func:`time_flash`) at the training shape and at FLASH_D256_SHAPE
-    (bf16 on its routes, the bf16 kernels first held there by
-    :func:`hold_flash_d256`; fp32 on its routes, the 3xTF32 forward and
-    the FMA dq and dk/dv), and the slice's path at that shape in bf16 and
-    fp32 (:func:`time_flash_d256_path`). ``reports``: the kernels line's
-    rows by name."""
+    alone, and none in the FMA wrappers' ``.launches_wide``. Then timed
+    by device time (:func:`time_flash`) at the training shape and at
+    FLASH_D256_SHAPE (bf16 on its routes, the bf16 kernels first held
+    there by :func:`hold_flash_d256`; fp32 on its routes, the 3xTF32
+    forward, dq and dk/dv, first held there by
+    :func:`hold_flash_d256_fp32`), and the slice's path at that shape in
+    bf16 and fp32 (:func:`time_flash_d256_path`). ``reports``: the kernels
+    line's rows by name."""
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 
     worst, worst_drop, worst_nc, worst_nc_drop = {}, {}, {}, {}
@@ -1671,7 +1668,7 @@ def check_flash_attention(torch, reports):
                     fa).items() if n > wide[k])
                 if routes != want or any(
                         grew[k] != [r] for k, r in zip(wrappers, want)) \
-                        or grew_wide != flash_wide_expected(dtype, case[4]):
+                        or grew_wide:
                     fail(f"flash {dtype} {case} causal={causal}: routed to "
                          f"{routes} (expected {want}), launches grew on "
                          f"{grew}, wide launches on {grew_wide}")
@@ -1696,10 +1693,12 @@ def check_flash_attention(torch, reports):
     time_flash(torch, fa, reports, {0.0: hold_flash_d256(torch, fa)},
                shape=FLASH_D256_SHAPE, dtypes=(torch.bfloat16,),
                suffix="_d256", backends={"bfloat16": "CUDNN_ATTENTION"})
-    # the fp32 kernels at that shape (the 3xTF32 forward, the FMA dq and
-    # dk/dv), beside the FMA forward and SDPA in fp32 (TF32 off)
-    time_flash(torch, fa, reports, {0.0: worst_256}, shape=FLASH_D256_SHAPE,
-               dtypes=(torch.float32,), suffix="_d256_fp32")
+    # the fp32 kernels at that shape (the 3xTF32 forward, dq and dk/dv),
+    # beside the FMA forward, dq and dk/dv and SDPA in fp32 (TF32 off),
+    # their max |err| that of the kernels held on the timed inputs
+    time_flash(torch, fa, reports, {0.0: hold_flash_d256_fp32(torch, fa)},
+               shape=FLASH_D256_SHAPE, dtypes=(torch.float32,),
+               suffix="_d256_fp32")
     time_flash_d256_path(torch, fa, reports)
     time_flash_d256_path(torch, fa, reports, torch.float32)
     time_flash_bert(torch, fa, reports)
@@ -1735,6 +1734,68 @@ def hold_flash_d256(torch, fa):
         ("dv (FMA kernel, same inputs)", "dkv fma"))}
 
 
+def hold_flash_d256_fp32(torch, fa):
+    """The kernels the ``_d256_fp32`` rows time, held at FLASH_D256_SHAPE
+    (fp32, causal, no mask) on the four layers :func:`time_flash` times
+    there (seeds 100-103) and on the inputs of :func:`time_flash_d256_path`
+    (seed 321): the 3xTF32 forward (o), dq and dk/dv, and the FMA forward,
+    dq and dk/dv on the same inputs, each against its plain version within
+    KERNEL_TOL of the reference's largest |value| and bit-equal over two
+    launches. Returns the max |err| by (output, dtype name), as
+    :func:`compare_flash_case` folds them, for the rows."""
+    b, s, h, d = FLASH_D256_SHAPE
+    scale = d ** -0.5
+    tol = KERNEL_TOL["float32"]
+    outs = {"fwd": ("fwd",), "dq": ("dq",), "dkv": ("dk", "dv")}
+    errs, rels = {}, {}
+    for seed in (100, 101, 102, 103, 321):
+        _qkv, q, k, v, dout, _m = flash_case(torch, torch.float32, b, s, h,
+                                             d, seed=seed)
+        q, k, v, mp = fa._prepare(q, k, v, None, True)
+        out, lse = fa.flash_attention_fwd(q, k, v, mp, True, scale)
+        delta = (dout * out).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, dout, mp, lse, delta, True, scale)
+        calls = {
+            "fwd": lambda: fa.flash_attention_fwd(q, k, v, mp, True, scale),
+            "dq": lambda: (fa.flash_attention_bwd_dq(*args),),
+            "dkv": lambda: fa.flash_attention_bwd_dkv(*args),
+            "fwd fma": lambda: fa._launch_fwd("flash_attention", q, k, v, mp,
+                                              True, scale, 0.0, None),
+            "dq fma": lambda: (fa._launch_dq("flash_attention", *args, 0.0,
+                                             None),),
+            "dkv fma": lambda: fa._launch_dkv("flash_attention", *args, 0.0,
+                                              None)}
+        runs = {key: (call(), call()) for key, call in calls.items()}
+        torch.cuda.synchronize()
+        what = f"float32 {list(FLASH_D256_SHAPE)} causal, seed {seed}"
+        for key, (one, two) in runs.items():
+            if not all(same_bits(torch, x, y) for x, y in zip(one, two)):
+                fail(f"flash {key} {what}: two launches on one input differ")
+        refs = {"fwd": (fa.flash_attention_reference(q, k, v, causal=True),),
+                "dq": (fa.flash_bwd_dq_reference(*args),),
+                "dkv": fa.flash_bwd_dkv_reference(*args)}
+        for key, (one, _two) in runs.items():
+            kernel, _, first = key.partition(" ")
+            for out_name, got, ref in zip(outs[kernel], one, refs[kernel]):
+                err = (got - ref).abs().max().item()
+                peak = ref.abs().max().item()
+                if not torch.isfinite(got).all() or not err <= tol * peak:
+                    fail(f"flash {out_name}{' (FMA)' if first else ''} "
+                         f"{what}: max |err| {err} beyond {tol} of the "
+                         f"reference's max |x| {peak}")
+                row = (f"{out_name} (FMA kernel, same inputs)" if first
+                       else out_name)
+                errs[row] = max(errs.get(row, 0.0), err)
+                rels[row] = max(rels.get(row, 0.0), err / peak)
+        del runs, refs
+    print(f"flash_attention float32 {list(FLASH_D256_SHAPE)} causal, seeds "
+          f"100-103 and 321, against the plain versions: max |err| "
+          f"{json.dumps(errs)}, of the reference's max |x| "
+          f"{json.dumps({k: float(f'{r:.3g}') for k, r in rels.items()})} "
+          f"(limit {tol}); each kernel bit-equal over two launches")
+    return {(row, "float32"): (err,) for row, err in errs.items()}
+
+
 def time_flash(torch, fa, reports, worsts, shape=(16, 512, 12, 64),
                dtypes=None, suffix="", backends=None):
     """The flash rows' times at ``shape`` [B, S, H, D] (by default the
@@ -1747,13 +1808,10 @@ def time_flash(torch, fa, reports, worsts, shape=(16, 512, 12, 64),
     128; above, the wgmma ones) beside the FMA kernels on the same inputs
     (their first versions' route), which fill the FMA rows above D = 128,
     and fp32 on its routes (the 3xTF32 forward, dq and dk/dv up to D =
-    128; above, the 3xTF32 forward and the FMA dq and dk/dv) beside the
-    FMA kernels on the same inputs, which fill the FMA rows; each beside
-    its
-    plain version and SDPA with its backend pinned (flash for bf16,
-    memory-efficient for fp32, unless ``backends`` names another by dtype
-    name). Row names end in
-    ``suffix``. The tensor-core rows also print their host-paced time
+    256) beside the FMA kernels on the same inputs, which fill the FMA
+    rows; each beside its plain version and SDPA with its backend pinned
+    (flash for bf16, memory-efficient for fp32, unless ``backends`` names
+    another by dtype name). Row names end in ``suffix``. The tensor-core rows also print their host-paced time
     (:func:`cuda_ms`: 50 back-to-back calls between two events), which
     counts the wrapper's host work where it exceeds the device's. fp32
     bounds count the products at FP32_3XTF32_FLOPS."""
@@ -1931,10 +1989,9 @@ def time_flash_d256_path(torch, fa, reports, dtype=None):
     wrapper's count is set to 0 just before the timed drive and read just
     after: each call must launch the kernels of the routes
     :func:`flash_routes_expected` names once each (bf16: the wgmma
-    forward, dq and dk/dv; fp32: the 3xTF32 forward and the FMA dq and
-    dk/dv, which the FMA wrappers' ``.launches_wide`` count too) and no
-    other flash kernel; their ``_d256`` (bf16) or ``_d256_fp32`` rows take
-    the counts."""
+    forward, dq and dk/dv; fp32: the 3xTF32 forward, dq and dk/dv) and
+    no other flash kernel, the FMA wrappers' ``.launches_wide`` none;
+    their ``_d256`` (bf16) or ``_d256_fp32`` rows take the counts."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -1990,8 +2047,7 @@ def time_flash_d256_path(torch, fa, reports, dtype=None):
     wide = take_wide_launches(fa)
     routes = flash_routes_expected(dtype, d)
     want = {f"{k}/{r}": n for k, r in zip(("fwd", "dq", "dkv"), routes)}
-    want_wide = {k: n if k in flash_wide_expected(dtype, d) else 0
-                 for k in ("fwd", "dq", "dkv")}
+    want_wide = dict.fromkeys(("fwd", "dq", "dkv"), 0)
     if grew != want or wide != want_wide:
         fail(f"flash_attention() {name} {FLASH_D256_SHAPE}: {n} calls "
              f"launched {grew}, FMA launches above D = 128 {wide} "
@@ -2250,7 +2306,7 @@ def check_flash_dropout_mask(torch, dtype, d):
     """The keep-mask read back out of the forward, dq and dk/dv kernels
     that ``dtype`` and head dim ``d`` route to, bit for bit against
     ``dropout_keep_mask``: non-causal at [2, 2048, 2, d] (fp32 at d = 256:
-    the 3xTF32 forward and the FMA dq and dk/dv; bf16 at d = 256: the
+    the 3xTF32 forward, dq and dk/dv; bf16 at d = 256: the
     wgmma forward, dq and dk/dv; fp32 at d = 64: the 3xTF32 forward, dq
     and dk/dv;
     bf16 at d = 64: the tensor-core kernels). The key
@@ -4881,6 +4937,10 @@ KERNELS = (
      "deepspeed_tpu/ops/transformer/flash_attention.py:231"),
     ("flash_attention_fwd_tf32_d256_fp32", "flash_attention_tf32",
      "deepspeed_tpu/ops/transformer/flash_attention.py:113"),
+    ("flash_attention_bwd_dq_tf32_d256_fp32", "flash_attention_tf32",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:231"),
+    ("flash_attention_bwd_dkv_tf32_d256_fp32", "flash_attention_tf32",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:287"),
     ("flash_attention_fwd_d256_fp32", "flash_attention",
      "deepspeed_tpu/ops/transformer/flash_attention.py:113"),
     ("flash_attention_bwd_dq_d256_fp32", "flash_attention",
@@ -7218,8 +7278,10 @@ def main() -> int:
                                                                       0)
     for name, key in zip(FLASH_FMA_NAMES, ("fwd", "dq", "dkv")):
         reports[name + "_d256"]["launches"] = wide[key]
-        if key == "fwd":   # dq's and dk/dv's count phase 2's fp32 path
-            reports[name + "_d256_fp32"]["launches"] = wide32[key]
+        reports[name + "_d256_fp32"]["launches"] = wide32[key]
+    if any(wide.values()) or any(wide32.values()):
+        fail(f"the FMA flash kernels launched at D > 128 on a training "
+             f"path: {wide} over phases 4 and 7, {wide32} over phase 7b")
 
     # 8. BERT-large pretraining (bench_bert's configurations, then sparse
     # BERT at block 16), and its fp32 comparisons

@@ -42,12 +42,12 @@
 // dense bf16 on the tensor cores: bytes bound it. These kernels do their
 // products as fp32 FMAs (67 TFLOP/s), as the TPU kernel multiplies in
 // fp32, so they are bound by the FMA rate, about 0.1 ms for the forward.
-// They run fp32 above D = 128 and the bf16 / fp16 dq there;
-// flash_attention_tc.cu holds the tensor-core forward, dq and dk/dv that
-// take bf16 and fp16 up to D = 128, flash_attention_tc256.cu the wgmma
-// forward and dk/dv that take them in (128, 256], and
-// flash_attention_tf32.cu the 3xTF32 forward, dq and dk/dv that take fp32
-// up to D = 128.
+// No route runs them: flash_attention_tc.cu holds the tensor-core
+// forward, dq and dk/dv that take bf16 and fp16 up to D = 128,
+// flash_attention_tc256.cu the wgmma forward, dq and dk/dv that take them
+// in (128, 256], and flash_attention_tf32.cu the 3xTF32 forward, dq and
+// dk/dv that take fp32 up to D = 256. They stay as those kernels' first
+// versions, which chip_smoke.py holds and times on the same inputs.
 //
 // What the design does:
 // - every kernel streams one axis in tiles through shared memory and keeps

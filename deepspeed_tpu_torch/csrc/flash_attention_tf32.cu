@@ -1,6 +1,5 @@
 // Flash attention forward, dq and dk/dv for float32 on Hopper's tensor
-// cores (sm_90a), as 3xTF32: head_dim a multiple of 8 up to 128, and the
-// forward up to 256.
+// cores (sm_90a), as 3xTF32: head_dim a multiple of 8 up to 256.
 //
 // Replaces, for fp32, the Pallas TPU kernels _fwd_kernel (o and lse),
 // _bwd_dq_kernel (dq) and _bwd_dkv_kernel (dk and dv) of deepspeed_tpu/
@@ -12,8 +11,7 @@
 // dropout keep-mask Drop::keep(i, j) regenerated in registers, never
 // stored), through the same C interface: q, k, v read through their [B,
 // S, H, D] strides; out, dO, dq, dk, dv contiguous [B, S, H, D]; lse and
-// delta fp32 [B * H, Sq]. dq and dk/dv above D = 128 stay on
-// flash_attention.cu's FMA kernels.
+// delta fp32 [B * H, Sq].
 //
 // What bounds it on an H100: at the training shape (B*H = 192, S = 512,
 // D = 64, fp32, causal) the forward must move q, k, v and o (50 MB, 15 us
@@ -96,9 +94,37 @@
 //   165-168 registers, 0.1921-0.1965 ms. Each warp computing all of s
 //   itself took 0.2402-0.2457, and 16-key tiles 0.2342-0.2345 (shared)
 //   and 0.3640-0.3681 (one warp); tools/probe_flash_tf32_d256.py, H100,
-//   device time, two chip calls. The fp32 dq and dk/dv that follow it
-//   are the FMA kernels, which sum s in another order; the autograd path
-//   stays within fp32's 1e-5 of the plain path's (chip_smoke.py);
+//   device time, two chip calls;
+// - dq and dk/dv at D in (128, 256] are kernels of their own
+//   (flash_bwd_dq_tf32_d256_kernel, flash_bwd_dkv_tf32_d256_kernel): at
+//   [4, 512, 8, 256] causal dq must move q, k, v, dO and dq (84 MB, 25 us)
+//   and do 6.45 GFLOP of fp32-accurate products, 39 us at 165 TFLOP/s;
+//   dk/dv moves six such tensors (30 us) and does 8.6 GFLOP, 52 us:
+//   operations bound both. One warp owning a 16-row group's 256 columns
+//   would hold 128 accumulator registers for dq and 256 for dk and dv,
+//   and the D <= 128 layout (64 resident rows of two tensors, two stages
+//   of two 32-row tiles) needs 266,496 bytes of shared memory against
+//   a block's 232,448. So two warps share each 16-row group, each owning
+//   128 columns of dq (of dk and of dv), as the forward's pair does: each
+//   sums s and dp (s^T and dp^T) over its half of the head dim and the
+//   pair adds the partial tiles through shared memory (add_pair: own +
+//   other's, the same bits in both). A block keeps 64 rows resident
+//   (eight warps) and streams 16-row tiles in two stages: 216 KB, one
+//   block an SM, 169 registers for dq and 236-237 for dk/dv, no spills.
+//   s is summed as the forward sums it (the same halves, k-steps and
+//   splits), so the p that dq recomputes comes from the forward's
+//   scores; s^T = k.q^T runs mma3's two small products swapped
+//   (mma3<true>: q_lo.k_hi, then q_hi.k_lo), and the probe's check on
+//   one warp found all 65,536 of its s^T bit-equal to s, where mma3's
+//   default order (the D <= 128 dk/dv's) misses 40. Measured (H100 80GB
+//   HBM3, 700 W, device time, two rounds, dropout 0 and 0.1;
+//   tools/probe_flash_tf32_d256.py): dq 0.2708-0.2785 ms and dk/dv
+//   0.3736-0.3833 (kept); dk/dv with one warp of a pair owning dv and
+//   summing s^T, the other dk and dp^T, p^T handed over (the probe's
+//   OWNERS_DKV patch, 255 registers) 0.4556-0.5113; 32 resident rows and
+//   32-row tiles (four warps an SM) dq 0.3791-0.4005, dk/dv 0.5762-0.6175
+//   (halves) and 0.9849-1.0016 (owners). The FMA kernels took
+//   0.8904-0.9028 and 1.2477-1.2542 on the same inputs;
 // - no atomics: every output element is summed by one thread in a fixed
 //   order, so the outputs are bit-equal over two launches.
 
@@ -114,6 +140,7 @@ using attn_tf32::a_rows;
 using attn_tf32::mma_cols;
 using attn_tf32::mma_rows;
 using attn_tf32::store_acc;
+using attn_tf32::store_acc_at;
 using attn_tile::cp_async16;
 using attn_tile::cp_async_commit;
 using attn_tile::cp_async_wait;
@@ -135,6 +162,11 @@ constexpr int FWD64 = 4;     // forward blocks an SM at D <= 64 (52 KB)
 // sums through shared memory, else each computes all of s itself
 constexpr int FWD256_SPLIT = 2;
 constexpr bool FWD256_SHARE_S = true;
+// dq and dk/dv at D in (128, 256] (the probe's picks): BWD256_ROWS rows a
+// block owns (queries in dq, keys in dk/dv), two warps on each 16-row
+// group, BWD256_TILE rows a streamed tile
+constexpr int BWD256_ROWS = 64;
+constexpr int BWD256_TILE = 16;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -152,6 +184,44 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
     const bool ok = r < valid;
     cp_async16(dst + r * DP + c, ok ? src + r * stride + c : src, ok);
   }
+}
+
+// a warp's [16][8 NS] tile into shared memory at dst (its lane's first
+// float; one row of 32 floats an element), or added from there
+template <int NS>
+__device__ __forceinline__ void put_tile(float* dst,
+                                         const float (&a)[NS][4]) {
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dst[(4 * n + e) * 32] = a[n][e];
+}
+
+template <int NS>
+__device__ __forceinline__ void add_tile(float (&a)[NS][4],
+                                         const float* src) {
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[n][e] += src[(4 * n + e) * 32];
+}
+
+// the pair's partial sums of its tiles through shared memory Xs
+// ([warps][tiles][NS * 4][32]): each warp of the pair (w and w ^ NG)
+// stores its own tiles and, after one barrier, adds the other's: own +
+// other's, the same bits in both warps
+template <int NS, int NG, typename... Tile>
+__device__ __forceinline__ void add_pair(float* Xs, Tile&... tiles) {
+  constexpr int X = NS * 4 * 32;            // floats a tile
+  constexpr int N = sizeof...(Tile);
+  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* mine = Xs + wid * N * X + lane;
+  const float* other = Xs + (wid ^ NG) * N * X + lane;
+  int x = 0;                                // a tile's slot: argument order
+  (put_tile<NS>(mine + X * x++, tiles), ...);
+  __syncthreads();
+  x = 0;
+  (add_tile<NS>(tiles, other + X * x++), ...);
 }
 
 // ---------------------------------------------------------------------------
@@ -255,20 +325,7 @@ __global__ void __launch_bounds__(NT* SPLIT, DMAX <= 64 ? FWD64
         mma_rows<NS, DP>(s, ah, al, Kt, kc);
       }
     }
-    if constexpr (SHARE) {
-      // the pair's partial sums through shared memory (warps w and w ^ 4)
-      float* mine = Xs + (threadIdx.x >> 5) * NS * 4 * 32 + lane;
-      const float* other = Xs + ((threadIdx.x >> 5) ^ 4) * NS * 4 * 32 + lane;
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) mine[(4 * n + e) * 32] = s[n][e];
-      __syncthreads();
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] += other[(4 * n + e) * 32];
-    }
+    if constexpr (SHARE) add_pair<NS, 4>(Xs, s);  // warps w and w ^ 4
     const bool edge = k0 + BN > Sk || (causal && k0 + BN - 1 > q0 + offset);
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
@@ -612,6 +669,296 @@ __global__ void __launch_bounds__(NT, DMAX <= 64 ? BLOCKS64 : 1)
 }
 
 // ---------------------------------------------------------------------------
+// dq and dk/dv at D in (128, 256]: two warps on each 16-row group (warps w
+// and w ^ NG of a block of NG groups), each owning 128 columns of the
+// output, so that an accumulator fits a thread. Scores are summed as the
+// forward sums them: each warp of a pair over its half of the head dim,
+// the halves added as own + other's (the same bits in both warps).
+// ---------------------------------------------------------------------------
+
+// dq: grid (B * H, ceil(Sq / BWD256_ROWS)); queries counted from the end,
+// key tiles up to the last key the block's last query can see. Each warp
+// of a pair sums s = q.k^T and dp = dO.v^T over its half, the pair adds
+// them, and each forms p and ds for the tile and folds ds.k into its
+// columns of dq.
+template <bool DROP>
+__global__ void __launch_bounds__(BWD256_ROWS * 4, 1)
+    flash_bwd_dq_tf32_d256_kernel(
+        const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const float* __restrict__ dout,
+        const float* __restrict__ mask, const float* __restrict__ lse,
+        const float* __restrict__ delta, float* __restrict__ dq_out,
+        Strides st, int H, int Sq, int Sk, int D, float scale, int causal,
+        uint32_t seed, int thresh, float inv_keep) {
+  constexpr int DP = 256 + 4;                // row pitch (floats)
+  constexpr int BQ = BWD256_ROWS;            // queries a block owns
+  constexpr int BN = BWD256_TILE;            // keys per streamed tile
+  constexpr int NTH = BQ * 4;                // threads: 2 warps a group
+  constexpr int NG = BQ / 16;                // 16-row groups
+  constexpr int NO = 16;                     // a warp's output n-tiles
+  constexpr int NS = BN / 8;                 // score n-tiles
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                 // [BQ][DP]
+  float* Os = Qs + BQ * DP;         // [BQ][DP] dO
+  float* Ks = Os + BQ * DP;         // [2][BN][DP]
+  float* Vs = Ks + 2 * BN * DP;     // [2][BN][DP]
+  float* Ms = Vs + 2 * BN * DP;     // [2][BN]
+  float* Xs = Ms + 2 * BN;          // partial s and dp (add_pair)
+
+  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = wid % NG;        // the warp's 16-row group
+  const int c0 = wid / NG * 128;    // the first column of its half
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int offset = Sk - Sq;
+  const int nq = min(BQ, Sq - q0);
+  const long long orow = (long long)H * D;  // dO / dq row stride
+  const float* kb = k + b * st.kb + h * st.kh;
+  const float* vb = v + b * st.vb + h * st.vh;
+  const float* mb = mask ? mask + (long long)b * Sk : nullptr;
+  const Drop drop(seed, bh, thresh, inv_keep);
+  const int k_end = causal ? min(Sk, q0 + nq + offset) : Sk;
+  const int ntiles = (k_end + BN - 1) / BN;
+  const float sl = scale * LOG2E;
+  const int i0 = q0 + warp * 16 + g;  // this lane's rows: i0 and i0 + 8
+  const long long at = (long long)bh * Sq;
+  const float ls0 = i0 < Sq ? lse[at + i0] * LOG2E : 0.f;
+  const float ls1 = i0 + 8 < Sq ? lse[at + i0 + 8] * LOG2E : 0.f;
+  const float de0 = i0 < Sq ? delta[at + i0] : 0.f;
+  const float de1 = i0 + 8 < Sq ? delta[at + i0 + 8] : 0.f;
+
+  auto load_kv = [&](int it) {
+    const int k0 = it * BN, s = it & 1;
+    const int valid = min(BN, Sk - k0);
+    load_rows<DP, NTH>(Ks + s * BN * DP, kb + k0 * st.ks, st.ks, BN, valid,
+                       D);
+    load_rows<DP, NTH>(Vs + s * BN * DP, vb + k0 * st.vs, st.vs, BN, valid,
+                       D);
+    if (mb && threadIdx.x < BN)
+      Ms[s * BN + threadIdx.x] =
+          threadIdx.x < valid ? mb[k0 + threadIdx.x] : 0.f;
+  };
+  load_rows<DP, NTH>(Qs, q + b * st.qb + h * st.qh + q0 * st.qs, st.qs, BQ,
+                     nq, D);
+  load_rows<DP, NTH>(
+      Os, dout + ((long long)b * Sq + q0) * orow + (long long)h * D, orow,
+      BQ, nq, D);
+  load_kv(0);
+  cp_async_commit();
+
+  const float* Qw = Qs + warp * 16 * DP;
+  const float* Ow = Os + warp * 16 * DP;
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) load_kv(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int k0 = it * BN;
+    const float* Kt = Ks + (it & 1) * BN * DP;
+    const float* Vt = Vs + (it & 1) * BN * DP;
+    const float* Mt = Ms + (it & 1) * BN;
+
+    // s = q.k^T and dp = dO.v^T over the warp's half, then the pair's sum
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 128; kk += 8) {
+      const int kc = c0 + kk;
+      if (kc < D) {
+        uint32_t ah[4], al[4];
+        a_rows<DP>(Qw, kc, ah, al);
+        mma_rows<NS, DP>(s, ah, al, Kt, kc);
+        a_rows<DP>(Ow, kc, ah, al);
+        mma_rows<NS, DP>(dp, ah, al, Vt, kc);
+      }
+    }
+    add_pair<NS, NG>(Xs, s, dp);
+    // p = exp(s - lse) mask_j; ds = p (D dp - delta), in place of dp
+    const bool edge = k0 + BN > Sk || (causal && k0 + BN - 1 > q0 + offset);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * t + (e & 1);
+        const int j = k0 + c;
+        const int i = e < 2 ? i0 : i0 + 8;
+        const bool vis = !edge || (j < Sk && (!causal || j <= i + offset));
+        float p = vis ? exp2f(s[n][e] * sl - (e < 2 ? ls0 : ls1)) : 0.f;
+        if (mb) p *= Mt[c];
+        float d = dp[n][e];
+        if (DROP) d = drop.apply(d, i, j);
+        dp[n][e] = p * (d - (e < 2 ? de0 : de1));
+      }
+    // dq[:, half] += ds.k[:, half]
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk)
+      mma_cols<NO, NS, DP>(acc, dp, kk, Kt + c0, D - c0);
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+
+  store_acc_at<NO>(
+      dq_out + ((long long)b * Sq + q0) * orow + (long long)h * D + c0, orow,
+      acc, scale, warp * 16, nq, D - c0);
+}
+
+// dk and dv: grid (B * H, ceil(Sk / BWD256_ROWS)); query tiles from the
+// first query that can see the block's first key. Each warp of a pair
+// sums s^T = k.q^T (in s's product order: the forward's bits) and dp^T =
+// v.dO^T over its half, the pair adds them, and each folds (D p^T).dO and
+// ds^T.q into its halves of dv and dk.
+template <bool DROP>
+__global__ void __launch_bounds__(BWD256_ROWS * 4, 1)
+    flash_bwd_dkv_tf32_d256_kernel(
+        const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const float* __restrict__ dout,
+        const float* __restrict__ mask, const float* __restrict__ lse,
+        const float* __restrict__ delta, float* __restrict__ dk_out,
+        float* __restrict__ dv_out, Strides st, int H, int Sq, int Sk, int D,
+        float scale, int causal, uint32_t seed, int thresh, float inv_keep) {
+  constexpr int DP = 256 + 4;
+  constexpr int BK = BWD256_ROWS;            // keys a block owns
+  constexpr int BQ = BWD256_TILE;            // queries per streamed tile
+  constexpr int NTH = BK * 4;
+  constexpr int NG = BK / 16;
+  constexpr int NO = 16;                     // a warp's output n-tiles
+  constexpr int NS = BQ / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;                 // [BK][DP]
+  float* Vs = Ks + BK * DP;         // [BK][DP]
+  float* Qs = Vs + BK * DP;         // [2][BQ][DP]
+  float* Os = Qs + 2 * BQ * DP;     // [2][BQ][DP] dO
+  float* Ls = Os + 2 * BQ * DP;     // [2][BQ] lse (base 2)
+  float* Es = Ls + 2 * BQ;          // [2][BQ] delta
+  float* Xs = Es + 2 * BQ;          // partial s^T and dp^T (add_pair)
+
+  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = wid % NG;
+  const int c0 = wid / NG * 128;    // the first column of its half
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.y * BK;
+  const int offset = Sk - Sq;
+  const int nk = min(BK, Sk - k0);
+  const long long orow = (long long)H * D;  // dO / dk / dv row stride
+  const float* qb = q + b * st.qb + h * st.qh;
+  const float* ob = dout + (long long)b * Sq * orow + (long long)h * D;
+  const Drop drop(seed, bh, thresh, inv_keep);
+  const float sl = scale * LOG2E;
+  const int j0 = k0 + warp * 16 + g;  // this lane's keys: j0 and j0 + 8
+  const float km0 = (mask && j0 < Sk) ? mask[(long long)b * Sk + j0] : 1.f;
+  const float km1 =
+      (mask && j0 + 8 < Sk) ? mask[(long long)b * Sk + j0 + 8] : 1.f;
+  const int q_first = causal ? max(0, k0 - offset) : 0;
+  const int it0 = q_first / BQ;
+  const int ntiles = (Sq + BQ - 1) / BQ;
+
+  auto load_q = [&](int it) {
+    const int q0 = it * BQ, s = (it - it0) & 1;
+    const int valid = min(BQ, Sq - q0);
+    load_rows<DP, NTH>(Qs + s * BQ * DP, qb + q0 * st.qs, st.qs, BQ, valid,
+                       D);
+    load_rows<DP, NTH>(Os + s * BQ * DP, ob + q0 * orow, orow, BQ, valid,
+                       D);
+    if (threadIdx.x < BQ) {
+      const bool ok = (int)threadIdx.x < valid;
+      const long long at = (long long)bh * Sq + q0 + threadIdx.x;
+      Ls[s * BQ + threadIdx.x] = ok ? lse[at] * LOG2E : 0.f;
+      Es[s * BQ + threadIdx.x] = ok ? delta[at] : 0.f;
+    }
+  };
+  load_rows<DP, NTH>(Ks, k + b * st.kb + h * st.kh + k0 * st.ks, st.ks, BK,
+                     nk, D);
+  load_rows<DP, NTH>(Vs, v + b * st.vb + h * st.vh + k0 * st.vs, st.vs, BK,
+                     nk, D);
+  load_q(it0);
+  cp_async_commit();
+
+  float dva[NO][4], dka[NO][4];     // the warp's columns of dv and dk
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dva[n][e] = dka[n][e] = 0.f;
+  const float* Kw = Ks + warp * 16 * DP;
+  const float* Vw = Vs + warp * 16 * DP;
+
+  for (int it = it0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) load_q(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int q0 = it * BQ, s_ = (it - it0) & 1;
+    const float* Qt = Qs + s_ * BQ * DP;
+    const float* Ot = Os + s_ * BQ * DP;
+    const float* Lt = Ls + s_ * BQ;
+    const float* Et = Es + s_ * BQ;
+    const bool edge =
+        q0 + BQ > Sq || (causal && q0 + offset < k0 + BK - 1);
+
+    // s^T = k.q^T and dp^T = v.dO^T: rows keys, columns queries
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 128; kk += 8) {
+      const int kc = c0 + kk;
+      if (kc < D) {
+        uint32_t ah[4], al[4];
+        a_rows<DP>(Kw, kc, ah, al);
+        mma_rows<NS, DP, true>(s, ah, al, Qt, kc);
+        a_rows<DP>(Vw, kc, ah, al);
+        mma_rows<NS, DP>(dp, ah, al, Ot, kc);
+      }
+    }
+    add_pair<NS, NG>(Xs, s, dp);
+    // p^T = exp(s - lse_i) mask_j; ds^T = p^T (D dp^T - delta_i); p^T
+    // becomes D p^T for dv. The row is the key j, the column the query i.
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * t + (e & 1);
+        const int i = q0 + c;
+        const int j = e < 2 ? j0 : j0 + 8;
+        const bool vis = !edge || (i < Sq && (!causal || j <= i + offset));
+        const float p =
+            vis ? exp2f(s[n][e] * sl - Lt[c]) * (e < 2 ? km0 : km1) : 0.f;
+        const bool kp = !DROP || drop.keep(i, j);   // (query, key): swapped
+        const float d = DROP ? (kp ? dp[n][e] * drop.inv_keep : 0.f)
+                             : dp[n][e];
+        dp[n][e] = p * (d - Et[c]);
+        s[n][e] = DROP ? (kp ? p * drop.inv_keep : 0.f) : p;
+      }
+    // dv += (D p^T).dO and dk += ds^T.q over the warp's columns
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      mma_cols<NO, NS, DP>(dva, s, kk, Ot + c0, D - c0);
+      mma_cols<NO, NS, DP>(dka, dp, kk, Qt + c0, D - c0);
+    }
+    __syncthreads();
+  }
+
+  const long long off = ((long long)b * Sk + k0) * orow + (long long)h * D;
+  store_acc_at<NO>(dv_out + off + c0, orow, dva, 1.f, warp * 16, nk, D - c0);
+  store_acc_at<NO>(dk_out + off + c0, orow, dka, scale, warp * 16, nk,
+                   D - c0);
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 enum Which { FWD = 0, DQ = 1, DKV = 2 };
@@ -629,19 +976,23 @@ struct Args {
   float inv_keep;
 };
 
-// shared bytes: the resident 64-row tiles (the forward: q; dq: q, dO;
-// dk/dv: k, v), two stages of two streamed tiles, the streamed tile's
-// per-row floats (the forward and dq: the key mask; dk/dv: lse and delta)
-// and the forward's shared partial scores at DMAX = 256
+// shared bytes: the resident rows (the forward: q; dq: q, dO; dk/dv: k,
+// v), two stages of two streamed tiles, the streamed tile's per-row floats
+// (the forward and dq: the key mask; dk/dv: lse and delta), the forward's
+// shared partial scores at DMAX = 256, and at DMAX = 256 dq's and dk/dv's
+// pair exchange (add_pair's two tiles a warp)
 template <int DMAX>
 constexpr size_t smem_bytes(Which w) {
-  return sizeof(float) * ((size_t)((w == FWD ? 1 : 2) * BM + 4 * BS) *
-                              (DMAX + 4) +
-                          (w == DKV ? 4 : 2) * BS +
-                          (w == FWD && DMAX > 128 && FWD256_SPLIT == 2 &&
-                                   FWD256_SHARE_S
-                               ? NT * FWD256_SPLIT * BS / 2
-                               : 0));
+  const bool wide = DMAX > 128 && w != FWD;
+  const int rows = wide ? BWD256_ROWS : BM;
+  const int tile = wide ? BWD256_TILE : BS;
+  size_t floats = (size_t)((w == FWD ? 1 : 2) * rows + 4 * tile) *
+                      (DMAX + 4) +
+                  (w == DKV ? 4 : 2) * tile;
+  if (w == FWD && DMAX > 128 && FWD256_SPLIT == 2 && FWD256_SHARE_S)
+    floats += NT * FWD256_SPLIT * BS / 2;
+  if (wide) floats += 4 * rows * tile;
+  return sizeof(float) * floats;
 }
 
 template <int DMAX, bool DROP>
@@ -659,7 +1010,28 @@ cudaError_t launch(Which w, const Args& a, cudaStream_t stream) {
                                    a.st, a.H, a.Sq, a.Sk, a.D, a.scale,
                                    a.causal, a.seed, a.thresh, a.inv_keep);
   } else if constexpr (DMAX > 128) {
-    return cudaErrorInvalidValue;   // dq and dk/dv take D <= 128 (run)
+    constexpr int R = BWD256_ROWS;
+    if (w == DQ) {
+      auto fn = flash_bwd_dq_tf32_d256_kernel<DROP>;
+      err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+      const dim3 grid(a.B * a.H, (a.Sq + R - 1) / R);
+      fn<<<grid, R * 4, smem, stream>>>(a.q, a.k, a.v, a.dout, a.mask, a.lse,
+                                        a.delta, a.dq, a.st, a.H, a.Sq, a.Sk,
+                                        a.D, a.scale, a.causal, a.seed,
+                                        a.thresh, a.inv_keep);
+    } else {
+      auto fn = flash_bwd_dkv_tf32_d256_kernel<DROP>;
+      err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+      const dim3 grid(a.B * a.H, (a.Sk + R - 1) / R);
+      fn<<<grid, R * 4, smem, stream>>>(a.q, a.k, a.v, a.dout, a.mask, a.lse,
+                                        a.delta, a.dk, a.dv, a.st, a.H, a.Sq,
+                                        a.Sk, a.D, a.scale, a.causal, a.seed,
+                                        a.thresh, a.inv_keep);
+    }
   } else if (w == DQ) {
     auto fn = flash_bwd_dq_tf32_kernel<DMAX, DROP>;
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -688,15 +1060,15 @@ template <bool DROP>
 cudaError_t dispatch_d(Which w, const Args& a, cudaStream_t stream) {
   if (a.D <= 64) return launch<64, DROP>(w, a, stream);
   if (a.D <= 128) return launch<128, DROP>(w, a, stream);
-  return launch<256, DROP>(w, a, stream);   // the forward alone
+  return launch<256, DROP>(w, a, stream);
 }
 
 int run(Which w, const Args& a, int dtype, void* stream) {
-  if (dtype != 0 || a.D < 8 || a.D > (w == FWD ? 256 : 128) ||
-      a.D % 8 != 0 || a.B < 1 ||
+  constexpr int ROWS = BWD256_ROWS < BM ? BWD256_ROWS : BM;  // fewest
+  if (dtype != 0 || a.D < 8 || a.D > 256 || a.D % 8 != 0 || a.B < 1 ||
       a.H < 1 || a.Sq < 1 || a.Sk < 1 || (a.causal && a.Sq > a.Sk) ||
-      a.thresh < 0 || a.thresh > (1 << 24) || (a.Sq + BM - 1) / BM > 65535 ||
-      (a.Sk + BM - 1) / BM > 65535)
+      a.thresh < 0 || a.thresh > (1 << 24) ||
+      (a.Sq + ROWS - 1) / ROWS > 65535 || (a.Sk + ROWS - 1) / ROWS > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // rate 0 (threshold 0, scale 1) is the variant without the hash
@@ -711,9 +1083,8 @@ extern "C" {
 
 // The arguments of flash_attention.cu's flash_attention_fwd,
 // flash_attention_bwd_dq and flash_attention_bwd_dkv, with dtype 0
-// (float32) and D a multiple of 8 in [8, 256] (the forward) or [8, 128]
-// (dq, dk/dv). Returns cudaGetLastError() after the launch (0 =
-// launched).
+// (float32) and D a multiple of 8 in [8, 256]. Returns cudaGetLastError()
+// after the launch (0 = launched).
 int flash_attention_tf32_fwd(const void* q, const void* k, const void* v,
                              const float* mask, void* out, float* lse,
                              const long long* strides, int B, int H, int Sq,

@@ -49,14 +49,23 @@ __device__ __forceinline__ void mma8(float (&c)[4], const uint32_t (&a)[4],
 // c += A.B as 3xTF32: lo.hi + hi.lo + hi.hi into a fresh tile, which an
 // fp32 add then folds into c, so the tensor cores never add to the
 // running sum (their fp32 accumulation drops low bits of the larger
-// addend: summed in the mma, dv missed 1e-5 at |dv| = 8.5)
+// addend: summed in the mma, dv missed 1e-5 at |dv| = 8.5). With SWAP the
+// two small products run in the other order, hi.lo then lo.hi: for s^T =
+// k.q^T that is q.k^T's order (q_lo.k_hi, then q_hi.k_lo), so the
+// transposed scores are the same products summed in the same order
+template <bool SWAP = false>
 __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
                                      const uint32_t (&al)[4],
                                      const uint32_t (&bh)[2],
                                      const uint32_t (&bl)[2]) {
   float d[4] = {0.f, 0.f, 0.f, 0.f};
-  mma8(d, al, bh);
-  mma8(d, ah, bl);
+  if (SWAP) {
+    mma8(d, ah, bl);
+    mma8(d, al, bh);
+  } else {
+    mma8(d, al, bh);
+    mma8(d, ah, bl);
+  }
   mma8(d, ah, bh);
   c[0] += d[0];
   c[1] += d[1];
@@ -79,8 +88,8 @@ __device__ __forceinline__ void a_rows(const float* a, int kc,
 
 // acc[n] += A . B^T over columns kc .. kc + 7, where B's rows n are the
 // tile's rows 8n .. 8n + 7 (the non-transposed operand: k in q.k^T, v in
-// dO.v^T, q in k.q^T, dO in v.dO^T)
-template <int NN, int DP>
+// dO.v^T, q in k.q^T, dO in v.dO^T); SWAP as mma3's
+template <int NN, int DP, bool SWAP = false>
 __device__ __forceinline__ void mma_rows(float (&acc)[NN][4],
                                          const uint32_t (&ah)[4],
                                          const uint32_t (&al)[4],
@@ -92,7 +101,7 @@ __device__ __forceinline__ void mma_rows(float (&acc)[NN][4],
     uint32_t bh[2], bl[2];
     split_tf32(B[at + n * 8 * DP], bh[0], bl[0]);
     split_tf32(B[at + n * 8 * DP + 4], bh[1], bl[1]);
-    mma3(acc[n], ah, al, bh, bl);
+    mma3<SWAP>(acc[n], ah, al, bh, bl);
   }
 }
 
@@ -126,14 +135,15 @@ __device__ __forceinline__ void mma_cols(float (&acc)[NO][4],
 }
 
 // the warp's accumulator tile [16][8 NO] times `mul` to dst rows (row
-// stride `stride` floats) r0 and r0 + 8 of the block's tile, rows at or
-// past `valid` skipped; 8-byte stores
+// stride `stride` floats) r0 + g and r0 + g + 8 of the block's tile, rows
+// at or past `valid` skipped, columns at or past D too; 8-byte stores
 template <int NO>
-__device__ __forceinline__ void store_acc(float* dst, long long stride,
-                                          const float (&acc)[NO][4],
-                                          float mul, int valid, int D) {
+__device__ __forceinline__ void store_acc_at(float* dst, long long stride,
+                                             const float (&acc)[NO][4],
+                                             float mul, int r0, int valid,
+                                             int D) {
   const int lane = threadIdx.x & 31;
-  const int r = (threadIdx.x >> 5) * 16 + (lane >> 2);
+  const int r = r0 + (lane >> 2);
   const int c = 2 * (lane & 3);
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
@@ -146,6 +156,14 @@ __device__ __forceinline__ void store_acc(float* dst, long long stride,
             make_float2(acc[n][2] * mul, acc[n][3] * mul);
     }
   }
+}
+
+// store_acc_at with warp w's rows at 16 w, w = threadIdx.x / 32
+template <int NO>
+__device__ __forceinline__ void store_acc(float* dst, long long stride,
+                                          const float (&acc)[NO][4],
+                                          float mul, int valid, int D) {
+  store_acc_at<NO>(dst, stride, acc, mul, (threadIdx.x >> 5) * 16, valid, D);
 }
 
 }  // namespace attn_tf32

@@ -14,15 +14,17 @@ and the fp32 row logsumexp; the backward recomputes the probabilities.
   bfloat16 and float16 with ``head_dim`` up to 128 run the tensor-core
   kernels of ``csrc/flash_attention_tc.cu`` (:func:`flash_attention_fwd_tc`,
   :func:`flash_attention_bwd_dq_tc`, :func:`flash_attention_bwd_dkv_tc`);
-  float32 with ``head_dim`` up to 128 the 3xTF32 tensor-core kernels of
+  float32 with ``head_dim`` up to 256 the 3xTF32 tensor-core kernels of
   ``csrc/flash_attention_tf32.cu`` (:func:`flash_attention_fwd_tf32`,
   :func:`flash_attention_bwd_dq_tf32`,
   :func:`flash_attention_bwd_dkv_tf32`); bfloat16 and float16 with
   ``head_dim`` in (128, 256] the forward, dq and dk/dv of
   ``csrc/flash_attention_tc256.cu`` (wgmma: :func:`flash_attention_fwd_tc256`,
   :func:`flash_attention_bwd_dq_tc256`,
-  :func:`flash_attention_bwd_dkv_tc256`); float32 there the 3xTF32
-  forward and the FMA dq and dk/dv of ``csrc/flash_attention.cu``. It
+  :func:`flash_attention_bwd_dkv_tc256`). No head dim that
+  :func:`flash_ok` admits routes to the FMA kernels of
+  ``csrc/flash_attention.cu``; they stay as the other kernels' first
+  versions, which ``chip_smoke.py`` times on the same inputs. It
   launches them or raises; it never falls back to the plain version or
   from one kernel to another.
 - On CPU tensors it runs :func:`flash_attention_reference`, the plain
@@ -52,7 +54,7 @@ FMA kernels in ``flash_attention_fwd``, ``flash_attention_bwd_dq`` and
 in ``flash_attention_fwd_tc256``, ``flash_attention_bwd_dq_tc256`` and
 ``flash_attention_bwd_dkv_tc256``. The FMA wrappers also count, in
 ``.launches_wide``, their launches at head dims above 128 (the kernels'
-widest branch, which only float32 dq and dk/dv take).
+widest branch, which no route takes).
 """
 
 import ctypes
@@ -88,20 +90,17 @@ def _route(dtype: torch.dtype, head_dim: int, which: str = "fwd") -> str:
     memory); ``"tc256"`` (wgmma, ``csrc/flash_attention_tc256.cu``) for
     them with ``head_dim`` a multiple of 8 in (128, 256]; ``"tf32"``
     (3xTF32 on the tensor cores, ``csrc/flash_attention_tf32.cu``) for
-    float32 with ``head_dim`` a multiple of 8 in [8, 128], and for its
-    forward in (128, 256]; ``"fma"`` (``csrc/flash_attention.cu``) for
-    everything else the kernels take: float32 dq and dk/dv above D = 128.
-    The forward, dq and dk/dv of one dtype and head dim take the same
-    route, except float32 above D = 128."""
+    float32 with ``head_dim`` a multiple of 8 in [8, 256]; ``"fma"``
+    (``csrc/flash_attention.cu``) for nothing that :func:`flash_ok`
+    admits. The forward, dq and dk/dv of one dtype and head dim take the
+    same route."""
     if which not in ("fwd", "dq", "dkv"):
         raise ValueError(f"which must be fwd, dq or dkv, got {which!r}")
-    narrow = head_dim % 8 == 0 and 8 <= head_dim <= TC_MAX_HEAD_DIM
-    wide = head_dim % 8 == 0 and TC_MAX_HEAD_DIM < head_dim <= MAX_HEAD_DIM
+    if head_dim % 8 or not 8 <= head_dim <= MAX_HEAD_DIM:
+        return "fma"
     if dtype in (torch.bfloat16, torch.float16):
-        return "tc" if narrow else "tc256" if wide else "fma"
-    if dtype == torch.float32 and (narrow or (wide and which == "fwd")):
-        return "tf32"
-    return "fma"
+        return "tc" if head_dim <= TC_MAX_HEAD_DIM else "tc256"
+    return "tf32" if dtype == torch.float32 else "fma"
 
 
 def flash_ok(q: torch.Tensor, k: torch.Tensor, causal: bool) -> bool:
@@ -439,7 +438,7 @@ def _require_tc256(q, which: str):
 def _require_tf32(q, which: str):
     _require(q, which, "tf32", f"the 3xTF32 flash kernels take CUDA "
              f"float32 with head_dim a multiple of 8 in [8, "
-             f"{TC_MAX_HEAD_DIM}], the forward up to {MAX_HEAD_DIM}")
+             f"{MAX_HEAD_DIM}]")
 
 
 def flash_attention_fwd(q, k, v, kv_mask, causal: bool, scale: float,
@@ -558,8 +557,8 @@ def flash_attention_bwd_dq_tf32(q, k, v, dout, kv_mask, lse, delta,
                                 causal: bool, scale: float,
                                 dropout_rate: float = 0.0,
                                 dropout_seed: Optional[int] = None):
-    """Launch the 3xTF32 dq kernel (float32, ``head_dim`` a multiple of 8
-    up to 128; anything else raises). Inputs and output as
+    """Launch the 3xTF32 dq kernel (CUDA float32, ``head_dim`` a multiple
+    of 8 up to 256; anything else raises). Inputs and output as
     :func:`flash_attention_bwd_dq`."""
     _require_tf32(q, "dq")
     dq = _launch_dq("flash_attention_tf32", q, k, v, dout, kv_mask, lse,
@@ -624,8 +623,8 @@ def flash_attention_bwd_dkv_tf32(q, k, v, dout, kv_mask, lse, delta,
                                  causal: bool, scale: float,
                                  dropout_rate: float = 0.0,
                                  dropout_seed: Optional[int] = None):
-    """Launch the 3xTF32 dk/dv kernel (float32, ``head_dim`` a multiple of
-    8 up to 128; anything else raises). Inputs and outputs as
+    """Launch the 3xTF32 dk/dv kernel (CUDA float32, ``head_dim`` a
+    multiple of 8 up to 256; anything else raises). Inputs and outputs as
     :func:`flash_attention_bwd_dkv`."""
     _require_tf32(q, "dkv")
     dk, dv = _launch_dkv("flash_attention_tf32", q, k, v, dout, kv_mask, lse,

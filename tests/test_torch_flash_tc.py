@@ -139,7 +139,7 @@ ROUTES = [(torch.bfloat16, 64, "tc"), (torch.float16, 64, "tc"),
           (torch.bfloat16, 8, "tc"), (torch.float16, 72, "tc"),
           (torch.bfloat16, 128, "tc"), (torch.float16, 128, "tc"),
           (torch.float32, 64, "tf32"), (torch.float32, 128, "tf32"),
-          (torch.float32, 256, "fma"), (torch.bfloat16, 136, "tc256"),
+          (torch.float32, 256, "tf32"), (torch.bfloat16, 136, "tc256"),
           (torch.float16, 256, "tc256")]
 _LIBS = {"tc": "flash_attention_tc", "tf32": "flash_attention_tf32",
          "tc256": "flash_attention_tc256", "fma": "flash_attention"}
@@ -149,8 +149,8 @@ _LIBS = {"tc": "flash_attention_tc", "tf32": "flash_attention_tf32",
 def test_dq_routes_like_dkv(dtype, head_dim, route, monkeypatch):
     """``flash_attention_bwd_dq`` launches the kernel of the library that
     ``flash_attention_bwd_dkv`` launches (the 3xTF32 kernels for float32
-    up to D = 128, the FMA ones above; the wgmma kernels above D = 128 in
-    16 bits); each counts in its routed wrapper's ``.launches`` (the
+    up to D = 256; the wgmma kernels above D = 128 in 16 bits); each
+    counts in its routed wrapper's ``.launches`` (the
     launches are recorded, not run: the operands are meta tensors)."""
     launched = []
     monkeypatch.setattr(fa, "_launch_dq",
@@ -188,11 +188,10 @@ def test_dq_routes_like_dkv(dtype, head_dim, route, monkeypatch):
 def test_fwd_routes_like_dkv(dtype, head_dim, route, monkeypatch):
     """``flash_attention_fwd`` launches the kernel of the library that
     ``flash_attention_bwd_dkv`` launches (the 3xTF32 kernels for float32
-    up to D = 128, the wgmma ones above 128 in 16 bits), except float32
-    above D = 128, where the forward takes the 3xTF32 kernel and dk/dv
-    the FMA one; it counts in the routed wrapper's ``.launches`` alone;
-    the FMA wrapper's ``.launches_wide`` counts exactly its launches above
-    D = 128 (recorded, not run: meta tensors)."""
+    up to D = 256, the wgmma ones above 128 in 16 bits); it counts in the
+    routed wrapper's ``.launches`` alone; the FMA wrapper's
+    ``.launches_wide`` counts exactly its launches above D = 128, none
+    (recorded, not run: meta tensors)."""
     launched = []
     monkeypatch.setattr(fa, "_launch_fwd",
                         lambda name, *a: launched.append(("fwd", name))
@@ -212,8 +211,7 @@ def test_fwd_routes_like_dkv(dtype, head_dim, route, monkeypatch):
     fa.flash_attention_fwd(q, q, q, None, True, 0.125)
     fa.flash_attention_bwd_dkv(q, q, q, q, None, lse, lse, True, 0.125)
     fwd_route = fa._route(dtype, head_dim, "fwd")
-    assert fwd_route == ("tf32" if dtype == torch.float32 and head_dim > 128
-                         else route)
+    assert fwd_route == route
     assert launched == [("fwd", _LIBS[fwd_route]), ("dkv", _LIBS[route])]
     assert {r: w.launches for r, w in wrappers.items()} \
         == {r: int(r == fwd_route) for r in wrappers}

@@ -43,7 +43,7 @@ TILE = 64           # the kernels' rows a warpgroup owns and streams
 LOG2E = 1.4426950408889634
 F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
 WIDE = ("tc256",) * 3
-F32_WIDE = ("tf32", "fma", "fma")
+F32_WIDE = ("tf32",) * 3
 
 
 @pytest.mark.parametrize("dtype,head_dim,routes", [
@@ -55,8 +55,8 @@ F32_WIDE = ("tf32", "fma", "fma")
     (F16, 264, ("fma",) * 3)])
 def test_route(dtype, head_dim, routes):
     """16-bit types above D = 128 take the wgmma forward, dq and dk/dv;
-    fp32 there the 3xTF32 forward and the FMA dq and dk/dv; D = 264 is
-    past every kernel (the FMA route, which ``flash_ok`` refuses)."""
+    fp32 there the 3xTF32 forward, dq and dk/dv; D = 264 is past every
+    kernel (the FMA route, which ``flash_ok`` refuses)."""
     assert tuple(fa._route(dtype, head_dim, w)
                  for w in ("fwd", "dq", "dkv")) == routes
     assert fa.flash_ok(torch.empty(1, 8, 1, head_dim, dtype=dtype,
@@ -71,7 +71,7 @@ def test_route(dtype, head_dim, routes):
     (BF16, 120, "meta")])
 def test_wrappers_refuse_other_routes(dtype, head_dim, device):
     """The wgmma wrappers (forward, dq and dk/dv) raise, before any
-    launch, for fp32 (whose forward takes 3xTF32 there), D <= 128, D > 256
+    launch, for fp32 (3xTF32's route there), D <= 128, D > 256
     and CPU tensors; nothing falls back to another kernel."""
     q = torch.empty(1, 8, 1, head_dim, dtype=dtype, device=device)
     lse = torch.empty(1, 1, 8, device=device)

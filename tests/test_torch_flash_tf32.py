@@ -4,19 +4,19 @@
 the tensor cores) runs only on the card, where ``chip_smoke.py`` holds it
 against the plain versions. Here: which kernel ``_route`` picks for the
 forward, dq and dk/dv by dtype and head dim, that the 3xTF32 wrappers
-refuse the rest (each its own kernel's: the forward takes head dims up
-to 256, dq and dk/dv up to 128) and that a missing ``nvcc`` raises, and
-plain PyTorch
-models of the kernels' arithmetic: every fp32 operand of the products (s =
+refuse the rest (each its own kernel's: float32 with head dims up to
+256) and that a missing ``nvcc`` raises, and plain PyTorch models of the
+kernels' arithmetic: every fp32 operand of the products (s =
 q.k^T and o = p.v in the forward; s, dp = dO.v^T, dq = ds.k, dk = ds^T.q,
 dv = p^T.dO in the backward) is split into hi = tf32(x) and lo = tf32(x -
 hi), ``cvt.rna.tf32.f32`` emulated with int32 bit operations, and each
 product is lo.hi + hi.lo + hi.hi in fp32. On numpy-made inputs the models
 stay within 1e-5 of the largest value of both the JAX kernels
 (``interpret=True``) and the port's fp32 plain versions, causal and
-non-causal under a key mask, at dropout 0 and 0.1 (the forward's also at
-D = 256); one TF32 product (hi.hi) does not, which is why the kernels pay
-for three.
+non-causal under a key mask, at dropout 0 and 0.1 (also at D = 256,
+where the backward sums s and dp by halves of the head dim as its two
+warps a row group do); one TF32 product (hi.hi) does not, which is why
+the kernels pay for three.
 """
 
 import jax
@@ -43,14 +43,15 @@ F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
     (F32, 64, ("tf32", "tf32", "tf32")), (F32, 8, ("tf32", "tf32", "tf32")),
     (F32, 72, ("tf32", "tf32", "tf32")),
     (F32, 128, ("tf32", "tf32", "tf32")),
-    (F32, 136, ("tf32", "fma", "fma")), (F32, 256, ("tf32", "fma", "fma")),
+    (F32, 136, ("tf32", "tf32", "tf32")),
+    (F32, 256, ("tf32", "tf32", "tf32")),
     (BF16, 64, ("tc", "tc", "tc")), (F16, 128, ("tc", "tc", "tc")),
     (BF16, 256, ("tc256", "tc256", "tc256")),
     (F16, 136, ("tc256", "tc256", "tc256"))])
 def test_route(dtype, head_dim, routes):
-    """The fp32 forward, dq and dk/dv take 3xTF32 up to D = 128, and the
-    forward up to 256 (dq and dk/dv the FMA kernels there); 16-bit types
-    the tensor cores up to D = 128 and the wgmma kernels above."""
+    """The fp32 forward, dq and dk/dv take 3xTF32 up to D = 256; 16-bit
+    types the tensor cores up to D = 128 and the wgmma kernels above. No
+    head dim routes to the FMA kernels."""
     assert tuple(fa._route(dtype, head_dim, w)
                  for w in ("fwd", "dq", "dkv")) == routes
     assert fa._route(dtype, head_dim) == routes[0]
@@ -63,15 +64,15 @@ def test_route_refuses_an_unknown_kernel():
 
 @pytest.mark.parametrize("dtype,head_dim,device,takes", [
     (BF16, 64, "meta", ()), (F16, 128, "meta", ()),
-    (F32, 136, "meta", ("fwd",)), (F32, 256, "meta", ("fwd",)),
+    (F32, 136, "meta", ("fwd", "dq", "dkv")),
+    (F32, 256, "meta", ("fwd", "dq", "dkv")),
     (F32, 264, "meta", ()), (F32, 256, "cpu", ()), (F32, 64, "cpu", ()),
     (BF16, 256, "meta", ())])
 def test_tf32_wrappers_refuse_other_routes(dtype, head_dim, device, takes):
     """Each 3xTF32 wrapper raises, before any launch, for what its own
     kernel does not take (``takes``: the kernels whose wall lets these
-    inputs through): above D = 128 the forward takes float32 and dq and
-    dk/dv do not, so widening the forward's route widened no other
-    wrapper; CPU tensors never; nothing falls back to another kernel."""
+    inputs through): float32 up to D = 256, no other dtype and no wider
+    head; CPU tensors never; nothing falls back to another kernel."""
     q = torch.empty(1, 8, 1, head_dim, dtype=dtype, device=device)
     lse = torch.empty(1, 1, 8, device=device)
     calls = {"fwd": (fa.flash_attention_fwd_tf32, (q, q, q, None, True,
@@ -140,21 +141,32 @@ def _mm(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
     return al @ bh + ah @ bl + ah @ bh
 
 
-def _model(q, k, v, do, mask, lse, delta, causal, scale, rate, seed, terms):
+def _mm_halves(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
+    """:func:`_mm` summed by halves of 128 along the product's k axis (the
+    head dim), the halves added after: s and dp as the D = 256 kernels'
+    two warps a row group sum them."""
+    return (_mm(a[..., :128], b[..., :128, :], terms)
+            + _mm(a[..., 128:], b[..., 128:, :], terms))
+
+
+def _model(q, k, v, do, mask, lse, delta, causal, scale, rate, seed, terms,
+           halves=False):
     """dq, dk and dv as the 3xTF32 kernels compute them from q, k, v, dO
     ([B, S, H, D] fp32), the key mask and the forward's lse and delta
-    ([B, H, Sq]): s = q.k^T and dp = dO.v^T; p = exp(scale s - lse) under
-    the causal and key masks; dp dropped out; ds = p (dp - delta); dq =
-    scale ds.k, dk = scale ds^T.q, dv = (D p)^T.dO."""
+    ([B, H, Sq]): s = q.k^T and dp = dO.v^T (with ``halves``, summed by
+    halves of the head dim); p = exp(scale s - lse) under the causal and
+    key masks; dp dropped out; ds = p (dp - delta); dq = scale ds.k, dk =
+    scale ds^T.q, dv = (D p)^T.dO."""
     qh, kh, vh, doh = (t.permute(0, 2, 1, 3) for t in (q, k, v, do))
     sq, sk = q.shape[1], k.shape[1]
-    s = _mm(qh, kh.transpose(-1, -2), terms)
+    score = _mm_halves if halves else _mm
+    s = score(qh, kh.transpose(-1, -2), terms)
     p = torch.exp(s * scale - lse[..., None])
     if causal:
         vis = torch.ones(sq, sk, dtype=torch.bool).tril(sk - sq)
         p = p.masked_fill(~vis, 0.0)
     p = p * mask[:, None, None, :]
-    dp = _mm(doh, vh.transpose(-1, -2), terms)
+    dp = score(doh, vh.transpose(-1, -2), terms)
     if rate:
         keep = fa._keep_bhqk(seed, q.shape[0], q.shape[2], sq, sk, rate,
                              "cpu")
@@ -183,15 +195,45 @@ def test_3xtf32_model_matches_jax_and_plain(causal, rate):
     within 1e-5 of each reference's largest |value|; the one-product model
     beyond it for every output."""
     rng = np.random.default_rng(31 + 2 * causal + int(rate * 10))
-    q, k, v, do = (torch.from_numpy(rng.normal(size=(B, S, H, D))
-                                    .astype(np.float32)) for _ in range(4))
     mask = np.ones((B, S), np.float32)
     if causal:
         mask[1, 90:] = 0.0
     else:
         mask[0, 100:] = 0.0
         mask[1, 40:] = 0.0
-    scale = 1.0 / D ** 0.5
+    _hold_backward_model(rng, (B, S, H, D), mask, causal, rate)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [True, False])
+def test_3xtf32_model_matches_jax_and_plain_at_d256(causal, rate):
+    """The same at D = 256, the widest head dq and dk/dv take, with s and
+    dp summed by halves of the head dim as the kernels' two warps a
+    16-row group sum them and add the halves: causal under a key mask and
+    non-causal with two key masks, dq, dk and dv within 1e-5 of each
+    reference's largest |value| with three TF32 products, beyond it with
+    one."""
+    rng = np.random.default_rng(71 + 2 * causal + int(rate * 10))
+    mask = np.ones((2, S), np.float32)
+    if causal:
+        mask[1, 90:] = 0.0
+    else:
+        mask[0, 100:] = 0.0
+        mask[1, 40:] = 0.0
+    _hold_backward_model(rng, (2, S, 1, 256), mask, causal, rate,
+                         halves=True)
+
+
+def _hold_backward_model(rng, shape, mask, causal, rate, halves=False):
+    """The backward model (:func:`_model`) on q, k, v and dO drawn from
+    ``rng`` at ``shape`` [B, S, H, D], against the JAX backward kernels
+    (``jax.grad`` of the interpreted kernel) and the port's plain
+    versions: three products within 1e-5 of each reference's largest
+    |value| for every output, one product beyond it for every output."""
+    b, s_len, h, d = shape
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape)
+                                    .astype(np.float32)) for _ in range(4))
+    scale = 1.0 / d ** 0.5
     key = jax.random.PRNGKey(7)
     seed = _seed_of(key) if rate else None
 
@@ -211,8 +253,9 @@ def test_3xtf32_model_matches_jax_and_plain(causal, rate):
     tm = torch.from_numpy(mask)
     s = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
     if causal:
-        s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(),
-                          float("-inf"))
+        s = s.masked_fill(
+            ~torch.ones(s_len, s_len, dtype=torch.bool).tril(),
+            float("-inf"))
     m = s.amax(-1, keepdim=True)
     l = (torch.exp(s - m) * tm[:, None, None, :]).sum(-1, keepdim=True)
     lse = (m + torch.log(l.clamp_min(1e-30)))[..., 0]
@@ -224,7 +267,7 @@ def test_3xtf32_model_matches_jax_and_plain(causal, rate):
                   *fa.flash_bwd_dkv_reference(*args)]
     for ref_name, want in (("jax", want_jax), ("plain", want_plain)):
         for terms, within in ((3, True), (1, False)):
-            got = _model(*args, terms)
+            got = _model(*args, terms, halves=halves)
             errs = [float(np.abs(g.numpy() - np.asarray(w)).max()
                           / np.abs(np.asarray(w)).max())
                     for g, w in zip(got, want)]
