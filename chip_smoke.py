@@ -142,17 +142,19 @@
      FP32_3XTF32_FLOPS;
    - the fused LayerNorm + projection forward and backward (kernels #6,
      #7) on the route ``fused._route`` picks (bf16 and fp16 up to D =
-     1664: the wgmma kernels of ``csrc/fused_ln_tc.cu``; fp32 and wider
-     16-bit: ``csrc/fused_ln.cu``; each call counted by its route's
-     wrapper only) at the training path's two sites (n = 8192 rows, D =
+     1664: the wgmma kernels of ``csrc/fused_ln_tc.cu``; fp32: the
+     3xTF32 wgmma kernels of ``csrc/fused_ln_tf32.cu``; wider 16-bit:
+     ``csrc/fused_ln.cu``; each call counted by its route's wrapper only;
+     ``fused_ln.cu``'s fp32 kernels, the first version, held on the same
+     fp32 inputs) at the training path's two sites (n = 8192 rows, D =
      768, F = 2304 without activation and 3072 with GELU), a tail (n =
      300, D = 136, F = 200), GPT-2 XL's width (D = 1600), a D above the
      route's limit (2048) and the decode size (n = 8), fp32, bf16 and
      fp16, each kernel alone and the whole autograd path, as
      ``FUSED_LN_TOL`` states, y and the five gradients bit-equal over two
-     launches; timed at the path's sites in bf16 and fp16 (beside
-     ``fused_ln.cu``'s 16-bit kernels, the first version, on the same
-     inputs) and in fp32, beside the plain
+     launches; timed at the path's sites in bf16, fp16 and fp32, beside
+     ``fused_ln.cu``'s kernels (the first version) on the same inputs,
+     the plain
      versions and the unfused eager sequence (``F.layer_norm`` -> cast ->
      ``F.linear`` (-> GELU) and its autograd backward), with the kernels
      of one call by device time.
@@ -260,8 +262,8 @@
    Adam once, no plain version, the loss falls; step time, tokens/s, MFU,
    peak memory, a profiled step and the ratio to phase 4's step; the
    "qkv" and "mlp" variants (1 + 2 steps each); then in fp32 at 2 layers
-   the fused kernels' path (``fused_ln.cu``'s fp32 route only) against
-   the unfused plain path, held as in phase 4; then ``fp16`` (loss scale
+   the fused kernels' path (the 3xTF32 route only, ``fused_ln.cu`` never)
+   against the unfused plain path, held as in phase 4; then ``fp16`` (loss scale
    from 2**16) on the fp16 model (1 + 2 steps): #6 and #7 launch 192
    times each per step through the wgmma route's fp16 branch, no plain
    version, finite losses.
@@ -285,6 +287,15 @@
    fused Adam once, no plain version, the loss falls, matmul TF32 off;
    step time, tokens/s, peak memory, the idle share and a profiled step's
    device ms of #3-#5 and the GEMMs.
+7c. fp32 training with the fused sites at full width (``--only fp32``
+   runs it after 7b): phase 7b on ``make_gpt("gpt2", dtype=torch.float32,
+   fused_ln=True)``, 1 + 2 steps: #6 and #7 launch 192 times each per
+   step through ``csrc/fused_ln_tf32.cu`` (3xTF32 on wgmma),
+   ``fused_ln.cu``'s and the wgmma route's wrappers never, the 3xTF32
+   flash kernels 96 times each, fused Adam once, no plain version, the
+   loss falls, matmul TF32 off; step time, its ratio to 7b's, tokens/s,
+   peak memory and a profiled step's device ms of the new kernels beside
+   the GEMMs.
 
 8. BERT-large pretraining (``--only bert`` runs it alone): ``initialize``
    -> ``train_batch`` on ``make_bert("bert-large")`` with
@@ -358,8 +369,12 @@ count set to 0 just before each phase (the run fails unless every
 ``.launches_wide`` count is 0); the ``_d256`` rows' max |err| is that of
 the kernels held on the timed inputs (``hold_flash_d256``), and so is the
 ``_d256_fp32`` rows' (``hold_flash_d256_fp32``).
-``fused_ln.cu``'s rows (``fused_ln_matmul_fwd``, ``fused_ln_matmul_bwd``) are fp32's route,
-counted over phase 6's fp32 comparison, while the ``_tc`` rows count phase 6 and its fp16 run. The
+The 3xTF32 rows (``fused_ln_matmul_fwd_tf32``, ``fused_ln_matmul_bwd_tf32``)
+are fp32's route, counted over phase 7c's timed steps; ``fused_ln.cu``'s
+rows (``fused_ln_matmul_fwd``, ``fused_ln_matmul_bwd``) are timed as their
+first version on the same fp32 inputs and counted over phase 6's fp32
+comparison (0, or the run fails), while the ``_tc`` rows count phase 6
+and its fp16 run. The
 FMA sparse rows (``sparse_attention_fwd``, ``sparse_attention_bwd_dq``,
 ``sparse_attention_bwd_dkv``) and the 3xTF32 ones
 (``sparse_attention_fwd_tf32``, ``sparse_attention_bwd_dq_tf32``,
@@ -3299,6 +3314,8 @@ FUSED_LN_NAMES = ("dx", "dgamma", "dbeta", "dw", "dbias")
 # the launch counters of each route's wrappers
 FUSED_LN_ROUTES = {"fused_ln_tc": ("fused_ln_matmul_fwd_tc",
                                    "fused_ln_matmul_bwd_tc"),
+                   "fused_ln_tf32": ("fused_ln_matmul_fwd_tf32",
+                                     "fused_ln_matmul_bwd_tf32"),
                    "fused_ln": ("fused_ln_matmul_fwd",
                                 "fused_ln_matmul_bwd")}
 # Each output's max |err| over its plain version's RMS. fp32: the same
@@ -3455,6 +3472,14 @@ def check_fused_ln(torch, reports):
                 first_dw = fz._launch_bwd("fused_ln", *args, dy, 1e-5,
                                           act)[3]
                 pairs.append(("first-version dw", first_dw, grads_w[3]))
+            if name == "float32":
+                # fused_ln.cu's fp32 kernels (the first version, on no
+                # path) held on the same inputs
+                pairs.append(("first-fwd y", fz._launch_fwd(
+                    "fused_ln", *args, 1e-5, act), y_w))
+                pairs += [(f"first-bwd {k}", a, b) for k, a, b in zip(
+                    FUSED_LN_NAMES, fz._launch_bwd("fused_ln", *args, dy,
+                                                   1e-5, act), grads_w)]
             for key, got, ref in pairs:
                 if got.dtype != ref.dtype or got.shape != ref.shape:
                     fail(f"fused_ln {key} {name}: {got.dtype} "
@@ -3511,18 +3536,19 @@ def check_fused_ln(torch, reports):
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         name = str(dtype).split(".")[1]
         time_fused_ln(torch, dtype, {
-            which: reports[(name, which)] for which in ("fwd", "bwd")},
-            {which: worst[("path", name, which)]
-             for which in ("fwd", "bwd")})
+            which: rep for (nm, which), rep in reports.items()
+            if nm == name}, {k[2]: err for k, err in worst.items()
+                             if k[0] == "path" and k[1] == name})
 
 
 def time_fused_ln(torch, dtype, reports, errs):
     """#6 and #7 timed at the path's sites in ``dtype`` on the route
     ``fused._route`` names, rotating over 2 sets of inputs, beside the
-    plain versions and the unfused eager sequence; in 16 bits also
-    ``csrc/fused_ln.cu``'s kernels on the same inputs, the first version;
-    the kernels of one call of each route by device time. Fills the
-    ``fwd`` / ``bwd`` rows per layer (both sites summed)."""
+    plain versions, the unfused eager sequence and ``csrc/fused_ln.cu``'s
+    kernels on the same inputs, the first version; the kernels of one
+    call of each route by device time. Fills the ``fwd`` / ``bwd`` rows
+    per layer (both sites summed), and in fp32 the first version's rows
+    (``first-fwd`` / ``first-bwd``: the same function and inputs)."""
     from deepspeed_tpu_torch.ops.transformer import fused as fz
     from torch.profiler import ProfilerActivity, profile
 
@@ -3567,7 +3593,7 @@ def time_fused_ln(torch, dtype, reports, errs):
                  *nxt(), **kw), iters=5, warmup=1),
              "library fwd": device_ms(torch, lib_fwd)[0],
              "library bwd": device_ms(torch, lib_bwd)[0]}
-        if t["route"] == "fused_ln_tc":
+        if t["route"] != "fused_ln":
             t["first fwd"] = device_ms(torch, lambda: fz._launch_fwd(
                 "fused_ln", *nxt()[:5], 1e-5, act))[0]
             t["first bwd"] = device_ms(torch, lambda: fz._launch_bwd(
@@ -3585,7 +3611,7 @@ def time_fused_ln(torch, dtype, reports, errs):
         # the kernels of one forward and backward call of each route, by
         # device time
         routes = [("routed", None)]
-        if t["route"] == "fused_ln_tc":
+        if t["route"] != "fused_ln":
             routes.append(("first", "fused_ln"))
         for label, lib in routes:
             with profile(activities=[ProfilerActivity.CPU,
@@ -3626,6 +3652,11 @@ def time_fused_ln(torch, dtype, reports, errs):
             first = (f", fused_ln.cu (the first version) on the same inputs "
                      f"{rep['first_ms']:.4f} ms "
                      f"({rep['first_ms'] / rep['ms']:.2f}x)")
+            if f"first-{which}" in reports:
+                reports[f"first-{which}"].update(
+                    {k: rep[k] for k in ("plain_ms", "library_ms",
+                                         "bound_ms", "bound_by")},
+                    ms=rep["first_ms"], max_abs_err=errs[f"first-{which}"])
         print(f"fused_ln {which} per layer (both sites, {name}, "
               f"{times[FUSED_LN_SITES[0]]['route']}; device time, plain "
               f"host-paced): kernel {rep['ms']:.4f} ms{first}, plain "
@@ -4959,6 +4990,10 @@ KERNELS = (
      "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:88"),
     ("sparse_attention_fwd_tf32_block16", "sparse_attention_tf32",
      "deepspeed_tpu/ops/sparse_attention/sparse_attention.py:88"),
+    ("fused_ln_matmul_fwd_tf32", "fused_ln_tf32",
+     "deepspeed_tpu/ops/transformer/fused.py:68"),
+    ("fused_ln_matmul_bwd_tf32", "fused_ln_tf32",
+     "deepspeed_tpu/ops/transformer/fused.py:81"),
 )
 # the flash kernels of the 16-bit training step: the tensor-core forward,
 # dq and dk/dv; the FMA kernels take head dims above 128 only
@@ -4969,13 +5004,18 @@ FLASH_FMA_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
 # the fp32 path's forward, dq and dk/dv (3xTF32)
 FLASH_TF32_NAMES = ("flash_attention_fwd_tf32", "flash_attention_bwd_dq_tf32",
                     "flash_attention_bwd_dkv_tf32")
-# #6/#7 of the 16-bit steps (wgmma); fused_ln.cu's take the fp32 path
+# #6/#7 of the 16-bit steps (wgmma) and of the fp32 ones (3xTF32 on
+# wgmma); fused_ln.cu's (16-bit D above fused.TC_MAX_D; its fp32 kernels,
+# the first version, run on no path)
 FUSED_LN_TC_NAMES = FUSED_LN_ROUTES["fused_ln_tc"]
+FUSED_LN_TF32_NAMES = FUSED_LN_ROUTES["fused_ln_tf32"]
+FUSED_LN_FIRST_NAMES = FUSED_LN_ROUTES["fused_ln"]
 # the sources whose ptxas report is printed kernel by kernel
 TC_SOURCES = ("flash_attention_tc", "flash_attention_tc256", "fused_ln_tc",
               "sparse_attention_tc", "sparse_attention_tc16",
               "chunked_prefill",
-              "flash_attention_tf32", "sparse_attention_tf32")
+              "flash_attention_tf32", "sparse_attention_tf32",
+              "fused_ln_tf32")
 
 
 # ---------------------------------------------------------------------------
@@ -5254,7 +5294,9 @@ def training_counters():
             "fused_ln_matmul_fwd": fused.ln_matmul_fwd,
             "fused_ln_matmul_bwd": fused.ln_matmul_bwd,
             "fused_ln_matmul_fwd_tc": fused.ln_matmul_fwd_tc,
-            "fused_ln_matmul_bwd_tc": fused.ln_matmul_bwd_tc}
+            "fused_ln_matmul_bwd_tc": fused.ln_matmul_bwd_tc,
+            "fused_ln_matmul_fwd_tf32": fused.ln_matmul_fwd_tf32,
+            "fused_ln_matmul_bwd_tf32": fused.ln_matmul_bwd_tf32}
 
 
 def timed_steps(torch, engine, batches, steps):
@@ -5566,7 +5608,7 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None,
     counters = training_counters()
     counter = counters["sparse_attention_fwd_tf32" if sparse else
                        "flash_attention_fwd_tf32"]
-    ln_counter = counters["fused_ln_matmul_bwd"]
+    ln_counter = counters["fused_ln_matmul_bwd_tf32"]
     what = "sparse " if sparse else ""
     gas = 2
     rng = np.random.default_rng(1)
@@ -5620,6 +5662,9 @@ def check_training_fp32(torch, seq=512, micro=4, sparse=None,
                 fail(f"fp32 comparison: the kernels' run launched a 16-bit "
                      f"route (tensor-core flash or sparse, wgmma "
                      f"fused_ln): {launches}")
+            if any(launches[n] for n in FUSED_LN_FIRST_NAMES):
+                fail(f"fp32 comparison: the kernels' run launched "
+                     f"fused_ln.cu, which no fp32 path takes: {launches}")
             if not sparse and (
                     not all(launches[n] for n in FLASH_TF32_NAMES)
                     or any(launches[n] for n in FLASH_FMA_NAMES)):
@@ -5672,10 +5717,16 @@ FP32_TRAIN_CONFIG = {k: v for k, v in TRAIN_CONFIG.items()
 # every GEMM kernel (cuBLAS's names hold "gemm")
 FP32_PICK = ("flash_fwd_tf32_kernel", "flash_bwd_dq_tf32_kernel",
              "flash_bwd_dkv_tf32_kernel", "gemm")
+# phase 7c's too: csrc/fused_ln_tf32.cu's products, prologues and row pass
+FUSED_LN_TF32_PICK = ("ln_mm_tf32_kernel", "ln_prologue_tf32_kernel",
+                      "ln_rows_bwd_kernel")
+# phase 7c's counted steps after its warm-up (a bring-up check, not a
+# benchmark: 7b's five give its median)
+FUSED32_WARMUP, FUSED32_STEPS = 1, 2
 
 
-def check_fp32_training(torch, card):
-    """Phase 7b (``--only fp32`` runs it and 5b): full-width GPT-2 trained in
+def check_fp32_training(torch, card, fused_ln=False, base_ms=None):
+    """Phase 7b (``--only fp32`` runs it, 7c and 5b): full-width GPT-2 trained in
     fp32, DeepSpeed's default precision: ``make_gpt("gpt2",
     dtype=torch.float32)`` (12 layers, width 768, its default dropout 0.1;
     the model's compute dtype is its own field, bf16 by default, as in
@@ -5688,7 +5739,14 @@ def check_fp32_training(torch, card):
     once, no plain version, the loss falls. Printed: step ms (median of 5
     after 2 warm-up), tokens/s, peak GB, one profiled step's busy ms, the
     idle share against it, kernels a step and the device ms a step of
-    FP32_PICK."""
+    FP32_PICK.
+
+    Phase 7c, ``fused_ln=True``: the same on ``make_gpt("gpt2",
+    dtype=torch.float32, fused_ln=True)``, 1 + 2 steps: #6 and #7 launch
+    2 sites x 12 layers x 8 = 192 times a step each through the 3xTF32
+    wrappers of ``csrc/fused_ln_tf32.cu``, ``fused_ln.cu``'s and the wgmma
+    route's never; the step's ratio to ``base_ms`` (7b's median from the
+    same run) and the device ms of the new kernels beside the GEMMs'."""
     flags = {"torch.backends.cuda.matmul.allow_tf32":
              torch.backends.cuda.matmul.allow_tf32,
              "torch.backends.cudnn.allow_tf32":
@@ -5700,18 +5758,24 @@ def check_fp32_training(torch, card):
             flags["float32_matmul_precision"] != "highest":
         fail("fp32 training: matmuls may use TF32; the plain fp32 path must "
              "be full fp32")
+    what = "fp32 fused_ln training" if fused_ln else "fp32 training"
     engine, model, cfg, batches, per_step, n_params = train_engine(
-        torch, False, dropout=True, config=FP32_TRAIN_CONFIG,
+        torch, fused_ln, dropout=True, config=FP32_TRAIN_CONFIG,
         dtype=torch.float32)
     if engine.precision.dtype != torch.float32 or cfg.dropout_rate != 0.1:
-        fail(f"fp32 training: precision {engine.precision.name}, dropout "
+        fail(f"{what}: precision {engine.precision.name}, dropout "
              f"{cfg.dropout_rate}")
     per_layer = cfg.num_layers * TRAIN_CONFIG["gradient_accumulation_steps"]
     per_step.update({name: 0 for name in FLASH_NAMES})
     per_step.update({name: per_layer for name in FLASH_TF32_NAMES})
+    # the fp32 model's sites take the 3xTF32 route; the wgmma and
+    # fused_ln.cu's wrappers 0
+    for tc, tf32 in zip(FUSED_LN_TC_NAMES, FUSED_LN_TF32_NAMES):
+        per_step[tf32], per_step[tc] = per_step[tc], 0
+    warmup, steps = ((FUSED32_WARMUP, FUSED32_STEPS) if fused_ln
+                     else (TRAIN_WARMUP, TRAIN_STEPS))
     step_ms, losses, launches = counted_steps(
-        torch, engine, batches, per_step, "fp32 training", TRAIN_WARMUP,
-        TRAIN_STEPS)
+        torch, engine, batches, per_step, what, warmup, steps)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     med = median(step_ms)
     gas = TRAIN_CONFIG["gradient_accumulation_steps"]
@@ -5722,7 +5786,8 @@ def check_fp32_training(torch, card):
     rec = {"model": "gpt2", "params": n_params, "micro_batch": micro,
            "gas": gas, "seq": TRAIN_SEQ, "dtype": "float32",
            "precision": engine.precision.name, "fused_update": True,
-           "dropout_rate": cfg.dropout_rate, "steps": TRAIN_STEPS,
+           "fused_ln": fused_ln, "dropout_rate": cfg.dropout_rate,
+           "steps": steps,
            "step_ms_median": med, "step_ms_min": min(step_ms),
            "step_ms_max": max(step_ms), "step_ms": step_ms,
            "tokens_per_s": tokens / (med / 1e3),
@@ -5730,8 +5795,10 @@ def check_fp32_training(torch, card):
            "peak_memory_gb": peak_gb, "losses": losses,
            "launches": {n: c for n, c in launches.items() if c},
            "flags": flags, "card": card}
-    stats = profile_step(torch, engine, batches, "fp32 training",
-                         pick=FP32_PICK)
+    if base_ms:
+        rec["step_ratio_vs_unfused"] = med / base_ms
+    stats = profile_step(torch, engine, batches, what, pick=FP32_PICK + (
+        FUSED_LN_TF32_PICK if fused_ln else ()))
     if stats is not None:
         busy = stats["device_busy_ms_per_step"]
         rec.update(device_busy_ms=busy,
@@ -5739,9 +5806,11 @@ def check_fp32_training(torch, card):
                    profiled_idle_share=stats["device_idle_share"],
                    kernels_per_step=stats["kernels_per_step"],
                    device_ms_per_step=stats["picked_ms_per_step"])
-    print(f"fp32 training gpt2 (initialize -> train_batch, no bf16 block): "
+    print(f"{what} gpt2 (initialize -> train_batch, no bf16 block): "
           f"{json.dumps(rec)}")
-    print(f"fp32 training ({card}): step {med:.2f} ms, "
+    ratio = (f" ({rec['step_ratio_vs_unfused']:.4f}x phase 7b's "
+             f"{base_ms:.2f} ms)" if base_ms else "")
+    print(f"{what} ({card}): step {med:.2f} ms{ratio}, "
           f"{rec['tokens_per_s']:.1f} tokens/s, peak {peak_gb:.3f} GB; "
           f"device busy {rec.get('device_busy_ms')} ms, idle share "
           f"{rec.get('device_idle_share')}; device ms a step "
@@ -7170,15 +7239,19 @@ def main() -> int:
             check_training_fp32(torch, seq=4096, micro=1, sparse=SPARSE_LONG)
             check_bert_fp32(torch, 512, 2, sparse=BERT_SPARSE)
             check_long_fp32_training(torch, card)
-            check_fp32_training(torch, card)
+            fp32 = check_fp32_training(torch, card)
+            check_fp32_training(torch, card, fused_ln=True,
+                                base_ms=fp32["step_ms_median"])
         return 0
     check_fused_ln(torch, {
         ("bfloat16", "fwd"): reports["fused_ln_matmul_fwd_tc"],
         ("bfloat16", "bwd"): reports["fused_ln_matmul_bwd_tc"],
         ("float16", "fwd"): reports["fused_ln_matmul_fwd_tc_fp16"],
         ("float16", "bwd"): reports["fused_ln_matmul_bwd_tc_fp16"],
-        ("float32", "fwd"): reports["fused_ln_matmul_fwd"],
-        ("float32", "bwd"): reports["fused_ln_matmul_bwd"]})
+        ("float32", "fwd"): reports["fused_ln_matmul_fwd_tf32"],
+        ("float32", "bwd"): reports["fused_ln_matmul_bwd_tf32"],
+        ("float32", "first-fwd"): reports["fused_ln_matmul_fwd"],
+        ("float32", "first-bwd"): reports["fused_ln_matmul_bwd"]})
     if only:
         print(json.dumps({"kernels_checked": [k for k, *_ in KERNELS]}))
         return 0
@@ -7230,7 +7303,8 @@ def main() -> int:
         reports[name]["launches"] = long32["launches"][name]
 
     # 6. training with the fused LayerNorm + projection sites, its one-site
-    # variants and its fp32 comparison
+    # variants and its fp32 comparison (the 3xTF32 route; fused_ln.cu's
+    # fp32 rows count 0 there)
     fused = check_training(torch, card, fused_ln=True)
     for name in FUSED_LN_TC_NAMES:
         reports[name]["launches"] = fused["launches"][name]
@@ -7242,7 +7316,7 @@ def main() -> int:
           f"{training['peak_memory_gb']:.3f} GB")
     check_fused_ln_sites(torch, card, base_ms)
     fp32 = check_training_fp32(torch, fused_ln=True)
-    for name in FUSED_LN_ROUTES["fused_ln"]:
+    for name in FUSED_LN_FIRST_NAMES:
         reports[name]["launches"] = fp32[name]
     fp16 = check_fused_ln_fp16(torch, card)
     for name in FUSED_LN_TC_NAMES:
@@ -7282,6 +7356,13 @@ def main() -> int:
     if any(wide.values()) or any(wide32.values()):
         fail(f"the FMA flash kernels launched at D > 128 on a training "
              f"path: {wide} over phases 4 and 7, {wide32} over phase 7b")
+
+    # 7c. fp32 training with the fused LayerNorm + projection sites at full
+    # width: the 3xTF32 #6 / #7 rows count its timed steps
+    fused32 = check_fp32_training(torch, card, fused_ln=True,
+                                  base_ms=fp32["step_ms_median"])
+    for name in FUSED_LN_TF32_NAMES:
+        reports[name]["launches"] = fused32["launches"][name]
 
     # 8. BERT-large pretraining (bench_bert's configurations, then sparse
     # BERT at block 16), and its fp32 comparisons

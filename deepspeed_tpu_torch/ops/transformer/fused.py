@@ -16,10 +16,14 @@ bias)``, as the JAX VJP does.
   both: bfloat16 and float16 with D up to ``TC_MAX_D`` run the wgmma + TMA
   kernels of ``csrc/fused_ln_tc.cu`` (:func:`ln_matmul_fwd_tc`: one
   kernel a call; :func:`ln_matmul_bwd_tc`: five kernels a call under
-  GELU, six without); float32, and 16-bit D above ``TC_MAX_D``, run
-  ``csrc/fused_ln.cu`` (fp32 FMAs, 16-bit ``mma.sync``: two kernels a
-  forward call, six a backward call). It launches them or raises; it
-  never falls back to the plain versions or from one kernel to another.
+  GELU, six without); float32 runs the 3xTF32 wgmma + TMA kernels of
+  ``csrc/fused_ln_tf32.cu`` (:func:`ln_matmul_fwd_tf32`: two kernels a
+  call; :func:`ln_matmul_bwd_tf32`: six); 16-bit D above ``TC_MAX_D``
+  runs ``csrc/fused_ln.cu`` (``mma.sync``: two kernels a forward call,
+  six a backward call), whose fp32 kernels (FMAs) no route takes any
+  more: ``chip_smoke.py`` times them as the first version on the fp32
+  route's inputs. It launches them or raises; it never falls back to the
+  plain versions or from one kernel to another.
 - On CPU tensors the same Function runs :func:`ln_matmul_reference` and
   :func:`ln_matmul_bwd_reference`, the plain PyTorch versions that the CPU
   tests hold against the JAX kernels and ``chip_smoke.py`` holds the CUDA
@@ -30,9 +34,11 @@ bias)``, as the JAX VJP does.
 Each route counts its calls in its own wrappers' ``.launches``, one per
 call whatever the kernels a call runs: ``csrc/fused_ln.cu``'s in
 ``ln_matmul_fwd`` and ``ln_matmul_bwd``, ``csrc/fused_ln_tc.cu``'s in
-``ln_matmul_fwd_tc`` and ``ln_matmul_bwd_tc``. A training step of
-``make_gpt("gpt2", fused_ln=True)`` in bf16 or fp16 counts 2 sites x 12
-layers x GAS in each ``_tc`` wrapper and 0 in the others.
+``ln_matmul_fwd_tc`` and ``ln_matmul_bwd_tc``, ``csrc/fused_ln_tf32.cu``'s
+in ``ln_matmul_fwd_tf32`` and ``ln_matmul_bwd_tf32``. A training step of
+``make_gpt("gpt2", fused_ln=True)`` counts 2 sites x 12 layers x GAS in
+each ``_tc`` wrapper in bf16 or fp16, in each ``_tf32`` wrapper in fp32,
+and 0 in the others.
 The JAX package's ``LNParams`` / ``DenseParams`` (flax shadow modules that
 keep the parameter tree of the unfused model) have no counterpart: the
 port's GPT passes its ``nn.LayerNorm`` and ``nn.Linear`` tensors.
@@ -48,7 +54,8 @@ from deepspeed_tpu_torch.ops import build
 
 __all__ = ["ln_matmul", "ln_matmul_ok", "ln_matmul_reference",
            "ln_matmul_bwd_reference", "ln_matmul_fwd", "ln_matmul_bwd",
-           "ln_matmul_fwd_tc", "ln_matmul_bwd_tc"]
+           "ln_matmul_fwd_tc", "ln_matmul_bwd_tc", "ln_matmul_fwd_tf32",
+           "ln_matmul_bwd_tf32"]
 
 _SQRT_2_OVER_PI = 0.7978845608028654
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -68,11 +75,16 @@ _FN = {}
 def _route(dtype: torch.dtype, d: int) -> str:
     """The library that computes #6 and #7 on CUDA: ``"fused_ln_tc"``
     (wgmma + TMA, ``csrc/fused_ln_tc.cu``) for bfloat16 and float16 with D
-    a multiple of 8 up to ``TC_MAX_D``; ``"fused_ln"``
-    (``csrc/fused_ln.cu``) for everything else the kernels take: float32,
-    and 16-bit D above ``TC_MAX_D``."""
+    a multiple of 8 up to ``TC_MAX_D``; ``"fused_ln_tf32"`` (3xTF32 on
+    wgmma + TMA, ``csrc/fused_ln_tf32.cu``) for float32 with D a multiple
+    of 8; ``"fused_ln"`` (``csrc/fused_ln.cu``) for everything else the
+    kernels take: 16-bit D above ``TC_MAX_D``."""
+    if d % 8 or d < 8:
+        return "fused_ln"
+    if dtype == torch.float32:
+        return "fused_ln_tf32"
     return ("fused_ln_tc" if dtype in (torch.bfloat16, torch.float16)
-            and d % 8 == 0 and 8 <= d <= TC_MAX_D else "fused_ln")
+            and d <= TC_MAX_D else "fused_ln")
 
 
 def _gelu_tanh(x):
@@ -150,9 +162,10 @@ def ln_matmul_bwd_reference(x, gamma, beta, w, bias, dy, *,
 
 
 def _kernel(name: str = "fused_ln"):
-    """The ctypes functions of ``csrc/<name>.cu`` (``fused_ln`` or
-    ``fused_ln_tc``, one C interface): forward, backward, the backward's
-    workspace size and the error string, built and loaded at first use."""
+    """The ctypes functions of ``csrc/<name>.cu`` (``fused_ln``,
+    ``fused_ln_tc`` or ``fused_ln_tf32``, one C interface): forward,
+    backward, the backward's workspace size and the error string, built
+    and loaded at first use."""
     if name not in _FN:
         lib = build.load(name)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -219,9 +232,13 @@ def _launch_fwd(name, x, gamma, beta, w, bias, eps, activation):
     n, d = x.shape
     f = w.shape[0]
     y = torch.empty((n, f), dtype=x.dtype, device=x.device)
-    # fused_ln.cu's row statistics; the wgmma forward computes its own
-    stats = (torch.empty(2 * n, dtype=torch.float32, device=x.device)
-             if name == "fused_ln" else None)
+    # the forward's scratch: fused_ln.cu's row statistics; the 3xTF32
+    # forward's W hi and lo ([F, D] each), gamma, beta and bias in fp32,
+    # then its row statistics; the 16-bit wgmma forward takes none
+    size = {"fused_ln": 2 * n,
+            "fused_ln_tf32": 2 * f * d + 2 * d + f + 2 * n}.get(name)
+    stats = (None if size is None else
+             torch.empty(size, dtype=torch.float32, device=x.device))
     fwd = _kernel(name)[0]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -274,16 +291,28 @@ def _require_tc(x):
             f"{x.shape[-1]}")
 
 
+def _require_tf32(x):
+    if _route(x.dtype, x.shape[-1]) != "fused_ln_tf32":
+        raise ValueError(
+            f"the 3xTF32 fused_ln kernels take float32 with D a multiple of "
+            f"8; got {x.dtype}, D {x.shape[-1]}")
+
+
 def ln_matmul_fwd(x, gamma, beta, w, bias, *, eps: float = 1e-5,
                   activation: Optional[str] = None) -> torch.Tensor:
     """Launch the forward :func:`_route` picks on x [n, D] (inputs as
     :func:`_prepare` returns them); returns y [n, F] in x's dtype.
     ``csrc/fused_ln.cu``'s forward (two kernels: the rows' statistics,
     then the product) counts one launch here per call; the wgmma forward
-    (one kernel) counts in :func:`ln_matmul_fwd_tc`."""
-    if _route(x.dtype, x.shape[-1]) == "fused_ln_tc":
+    (one kernel) counts in :func:`ln_matmul_fwd_tc`, the 3xTF32 one in
+    :func:`ln_matmul_fwd_tf32`."""
+    route = _route(x.dtype, x.shape[-1])
+    if route == "fused_ln_tc":
         return ln_matmul_fwd_tc(x, gamma, beta, w, bias, eps=eps,
                                 activation=activation)
+    if route == "fused_ln_tf32":
+        return ln_matmul_fwd_tf32(x, gamma, beta, w, bias, eps=eps,
+                                  activation=activation)
     y = _launch_fwd("fused_ln", x, gamma, beta, w, bias, eps, activation)
     ln_matmul_fwd.launches += 1
     return y
@@ -301,6 +330,20 @@ def ln_matmul_fwd_tc(x, gamma, beta, w, bias, *, eps: float = 1e-5,
     return y
 
 
+def ln_matmul_fwd_tf32(x, gamma, beta, w, bias, *, eps: float = 1e-5,
+                       activation: Optional[str] = None) -> torch.Tensor:
+    """The 3xTF32 forward of ``csrc/fused_ln_tf32.cu`` (float32 with D a
+    multiple of 8; anything else raises): a prologue that splits W into
+    TF32 hi and lo and takes the rows' statistics, then the wgmma product
+    that normalises x on its way into the A fragments. One call is one
+    launch."""
+    _require_tf32(x)
+    y = _launch_fwd("fused_ln_tf32", x, gamma, beta, w, bias, eps,
+                    activation)
+    ln_matmul_fwd_tf32.launches += 1
+    return y
+
+
 def ln_matmul_bwd(x, gamma, beta, w, bias, dy, *, eps: float = 1e-5,
                   activation: Optional[str] = None):
     """Launch the backward :func:`_route` picks on x [n, D] and dy [n, F]
@@ -308,10 +351,15 @@ def ln_matmul_bwd(x, gamma, beta, w, bias, dy, *, eps: float = 1e-5,
     dtypes of :func:`ln_matmul_bwd_reference`. Its kernels run on the
     current stream, with scratch from PyTorch's caching allocator:
     ``csrc/fused_ln.cu``'s six count one launch here per call, the wgmma
-    route's in :func:`ln_matmul_bwd_tc`."""
-    if _route(x.dtype, x.shape[-1]) == "fused_ln_tc":
+    route's in :func:`ln_matmul_bwd_tc`, the 3xTF32 route's in
+    :func:`ln_matmul_bwd_tf32`."""
+    route = _route(x.dtype, x.shape[-1])
+    if route == "fused_ln_tc":
         return ln_matmul_bwd_tc(x, gamma, beta, w, bias, dy, eps=eps,
                                 activation=activation)
+    if route == "fused_ln_tf32":
+        return ln_matmul_bwd_tf32(x, gamma, beta, w, bias, dy, eps=eps,
+                                  activation=activation)
     grads = _launch_bwd("fused_ln", x, gamma, beta, w, bias, dy, eps,
                         activation)
     ln_matmul_bwd.launches += 1
@@ -333,10 +381,27 @@ def ln_matmul_bwd_tc(x, gamma, beta, w, bias, dy, *, eps: float = 1e-5,
     return grads
 
 
+def ln_matmul_bwd_tf32(x, gamma, beta, w, bias, dy, *, eps: float = 1e-5,
+                       activation: Optional[str] = None):
+    """The 3xTF32 backward of ``csrc/fused_ln_tf32.cu`` (float32 with D a
+    multiple of 8; anything else raises): a prologue (W^T's and ln^T's
+    TF32 hi and lo, K-major for wgmma, and the rows' statistics), under
+    GELU the recompute that writes g = dy gelu'(pre), dln = g W and dW =
+    g^T ln on wgmma, the row pass and the fixed-order sums; six kernels,
+    one launch counted per call."""
+    _require_tf32(x)
+    grads = _launch_bwd("fused_ln_tf32", x, gamma, beta, w, bias, dy, eps,
+                        activation)
+    ln_matmul_bwd_tf32.launches += 1
+    return grads
+
+
 ln_matmul_fwd.launches = 0
 ln_matmul_fwd_tc.launches = 0
+ln_matmul_fwd_tf32.launches = 0
 ln_matmul_bwd.launches = 0
 ln_matmul_bwd_tc.launches = 0
+ln_matmul_bwd_tf32.launches = 0
 
 
 class _LNMatmul(torch.autograd.Function):

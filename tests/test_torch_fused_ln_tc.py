@@ -55,8 +55,8 @@ def _constant(name):
     (torch.bfloat16, 1664, "fused_ln_tc"),      # the widest panel
     (torch.bfloat16, 1672, "fused_ln"),
     (torch.float16, 2048, "fused_ln"),
-    (torch.float32, 768, "fused_ln"),
-    (torch.float32, 136, "fused_ln")])
+    (torch.float32, 768, "fused_ln_tf32"),
+    (torch.float32, 136, "fused_ln_tf32")])
 def test_route_by_dtype_and_width(dtype, d, route):
     assert fused._route(dtype, d) == route
 
