@@ -36,7 +36,9 @@
    - ragged chunked-prefill attention at the same shapes, on the route
      ``chunked_prefill._route`` picks (bf16 q over bf16 or int8 pools:
      the run kernels, counted in ``chunked_prefill_attention_tc``; fp32
-     q: the first kernel, counted in ``chunked_prefill_attention``): a
+     q over fp32 or int8 pools: the fp32 run kernels, 3xTF32, counted in
+     ``chunked_prefill_attention_tf32``; the first kernel, counted in
+     ``chunked_prefill_attention``, also held on the fp32 inputs): a
      256-token mixed step (8 decode rows at positions 100-1000, a
      200-token chunk from 0, a 40-token chunk from 37, pad rows), an
      8-token all-decode step, a 128-token step whose 100-token chunk
@@ -44,8 +46,11 @@
      8 decode rows over a 1,024-key window (the run kernels also at every
      split count 1-8), fp/bf16 and int8 pools, NaN scratch, pad rows
      excluded, bit-equal over two launches; timed at the mixed step, the
-     run kernels beside the first kernel on the same bf16 inputs, and
-     the decode rows' split counts beside the rule's pick;
+     run kernels of both dtypes (and each kind of item alone) beside the
+     first kernel on the same inputs, and the decode rows' split counts
+     beside the rule's pick; the first kernel's own route, head dim 256,
+     held and timed at the mixed step in bf16 and fp32 q over fp and
+     int8 pools;
    - flash attention forward, dq and dk/dv at [16, 512, 12, 64] causal,
      with and without a key mask holding an all-padding row, and at S=5
      and S=300, in fp32 (the 3xTF32 forward, dq and dk/dv of
@@ -154,6 +159,8 @@
      ``FUSED_LN_TOL`` states, y and the five gradients bit-equal over two
      launches; timed at the path's sites in bf16, fp16 and fp32, beside
      ``fused_ln.cu``'s kernels (the first version) on the same inputs,
+     and in bf16 at both sites' shapes at D = 2048 (n 8192, F 6144 and
+     8192 with GELU: ``fused_ln.cu``'s 16-bit route, also held there),
      the plain
      versions and the unfused eager sequence (``F.layer_norm`` -> cast ->
      ``F.linear`` (-> GELU) and its autograd backward), with the kernels
@@ -167,7 +174,9 @@
      kernels; the first kernel and kernel #1 none, no plain attention at
      all), its TTFT and mixed step printed beside an earlier reading
      on the first kernel; both timed on their second run; the fp32 chunked runs go
-     through the first kernel, counted the same way;
+     through the fp32 run kernels, counted the same way (calls ==
+     ``mixed_steps * num_layers``; the first kernel 0 over every fp32
+     chunked trace, or the run fails);
    - fp32 token identity of "kernel", "gather", chunked prefill at budget
      64 and ``generate``, except at a true tie of the top two logits;
    - the int8 pool: bucketed bf16 through kernel #1's int8 branch (no
@@ -381,13 +390,19 @@ FMA sparse rows (``sparse_attention_fwd``, ``sparse_attention_bwd_dq``,
 ``sparse_attention_bwd_dkv_tf32``) count phase 5b's timed steps (the FMA
 kernels, the 3xTF32 kernels' first versions, 0) and are timed on fp32
 inputs at the path's shape; the
-tensor-core rows count phase 5's long steps. The first chunked-
-prefill kernel's row (``chunked_prefill_attention``) counts phase 3's
-fp32 chunked run and is timed on the bf16 inputs of the run kernels'
-row (``chunked_prefill_attention_tc``, which counts the bf16 chunked
-run); its int8 twin (``chunked_prefill_attention_tc_int8``, bf16 q over
-int8 pools) counts phase 3's bf16 chunked int8 run and is timed on int8
-pools. The verify row (``paged_decode_attention_verify``, kernel #1 at S =
+tensor-core rows count phase 5's long steps. The run kernels' rows
+count phase 3: ``chunked_prefill_attention_tc`` the bf16 chunked run,
+``chunked_prefill_attention_tc_int8`` (bf16 q over int8 pools) the bf16
+chunked int8 run, ``chunked_prefill_attention_tf32`` the fp32 chunked@64
+run and ``chunked_prefill_attention_tf32_int8`` the fp32 int8 chunked@64
+run, each timed at the mixed step on its own inputs. The first chunked-
+prefill kernel's row (``chunked_prefill_attention``) counts its launches
+over phase 3's fp32 chunked traces (0) and is timed on the fp32 run
+kernels' inputs, as their first version; its ``_d256`` rows (bf16 or
+fp32 q, ``_int8`` over int8 pools) are its own route, head dim 256, held
+and timed at the mixed step, counted by the same counter. The
+``fused_ln_matmul_*_d2048`` rows are ``fused_ln.cu``'s 16-bit route at D
+= 2048, timed at both sites' shapes, counted as ``fused_ln.cu``'s rows. The verify row (``paged_decode_attention_verify``, kernel #1 at S =
 k + 1) counts the S = 5 launches of phase 3b's measured bf16 speculative
 run and is timed at S = 5 on the path's shapes. The ``_bert128`` /
 ``_bert512`` flash rows count phase 8's seq-128 / seq-512 steps; of the
@@ -1027,29 +1042,44 @@ CHUNKED_SHAPES = {"T=256 mixed": (256, MIXED_DECODE_POS, MIXED_CHUNKS),
                                              CROSS_CHUNKS),
                   "T=8 window 1024": (8, WINDOW_DECODE_POS, [])}
 CHUNKED_NAMES = {"walk": "chunked_prefill_attention",
-                 "tc": "chunked_prefill_attention_tc"}
+                 "tc": "chunked_prefill_attention_tc",
+                 "tf32": "chunked_prefill_attention_tf32"}
+# every kernel #1 / #2 counter summed over every trace serve() ran, each
+# run's counts held to its route's there: the first chunked-prefill
+# kernel's route (head dims above 128, or neither q dtype of the run
+# kernels) reads its launches on the serving path here
+SERVED_LAUNCHES = {}
+
+
+def chunked_wrappers(cp):
+    """Each route's counting wrapper: the run kernels' own, and the public
+    call for the first kernel (its route's launches count there)."""
+    return {r: getattr(cp, n) for r, n in CHUNKED_NAMES.items()}
 
 
 def check_chunked_prefill(torch, reports):
     """Kernel #2 on the route ``chunked_prefill._route`` picks (bf16 q over
-    bf16 or int8 pools: the run kernels; fp32 q: the first kernel), each
+    bf16 or int8 pools: the run kernels; fp32 q over fp32 or int8 pools:
+    the fp32 run kernels, 3xTF32; wider heads: the first kernel), each
     call counted by its route's wrapper only, in CHUNKED_SHAPES against
     the plain version (fp32 1e-5, bf16 2e-2, NaN scratch, pad rows
     excluded), every output bit-equal over two launches; the run kernels
-    also at every split count of the decode rows (the 1,024-key window).
-    Then timing at the T=256 mixed step: the run kernels beside the first
-    kernel on the same bf16 inputs (its first version), the plain version,
-    SDPA per segment and the bound; and the decode rows' split counts.
-    ``reports``: the kernels line's rows, by route ("walk", "tc"), and
-    "tc_int8" for the run kernels over int8 pools."""
+    also at every split count of the decode rows (the 1,024-key window);
+    the first kernel on the fp32 inputs too (the fp32 route's first
+    version). Then timing at the T=256 mixed step: the run kernels, each
+    kind of item alone, beside the first kernel on the same inputs (its
+    first version), the plain version, SDPA per segment and the bound; the
+    decode rows' split counts; and the first kernel's route, head dim 256
+    (``check_chunked_d256``). ``reports``: the kernels line's rows, by
+    route ("walk", "tc", "tf32"), "tc_int8" and "tf32_int8" for the run
+    kernels over int8 pools, and the D = 256 rows by label."""
     import numpy as np
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops.transformer import chunked_prefill as cp
 
     bs, d = 16, 64
-    wrappers = {"walk": cp.chunked_prefill_attention,
-                "tc": cp.chunked_prefill_attention_tc}
+    wrappers = chunked_wrappers(cp)
     worst = {}
     for int8 in (False, True):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1070,12 +1100,17 @@ def check_chunked_prefill(torch, reports):
                 if grew != {r: 2 if r == route else 0 for r in wrappers}:
                     fail(f"chunked_prefill {label} {sname}: routed to "
                          f"{route}, launches {grew}")
-                if route == "tc" and sname == "T=8 window 1024":
+                if route != "walk" and sname == "T=8 window 1024":
                     for sp_ in range(1, 9):
                         outs[f", {sp_} splits"] = [
-                            cp.chunked_prefill_attention_tc(
-                                *args, block_size=bs, splits=sp_)
+                            wrappers[route](*args, block_size=bs,
+                                            splits=sp_)
                             for _ in range(2)]
+                if route == "tf32":
+                    # the first kernel on the same inputs: this route's
+                    # first version, held as it is timed
+                    outs[", first kernel"] = [
+                        cp._launch_walk(*args, bs, None) for _ in range(2)]
                 torch.cuda.synchronize()
                 want = cp.chunked_prefill_attention_reference(
                     *args, block_size=bs)
@@ -1092,7 +1127,8 @@ def check_chunked_prefill(torch, reports):
                         fail(f"chunked_prefill_attention {label} {sname}"
                              f"{tag} ({route}): max |err| {err} > "
                              f"{KERNEL_TOL[name]} or non-finite real rows")
-                    key = (route, label, sname + tag)
+                    key = ("walk" if tag == ", first kernel" else route,
+                           label, sname + tag)
                     worst[key] = max(worst.get(key, 0.0), err)
     for (route, label, sname), err in sorted(worst.items()):
         print(f"chunked_prefill_attention {label}, {sname} ({route}; H=12 "
@@ -1108,6 +1144,7 @@ def check_chunked_prefill(torch, reports):
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[1]
             label = f"{'int8 pools, ' if int8 else ''}{name} q"
+            route = cp._route(dtype, torch.int8 if int8 else dtype, d)
             q, pools, table, pos, n_real, blocks = chunked_case(
                 torch, dtype, 256, MIXED_DECODE_POS, MIXED_CHUNKS,
                 seed=5 + int8, layers=8, int8=int8)
@@ -1129,19 +1166,19 @@ def check_chunked_prefill(torch, reports):
                 cp._launch_walk(q, *nxt(), table, pos, bs, None)
 
             def runs_call(items):
-                return lambda: cp.chunked_prefill_attention_tc(
+                return lambda: wrappers[route](
                     q, *nxt(), table, pos, block_size=bs, runs=items)
 
-            row = {"first_ms": device_ms(torch, first)[0]}
-            if dtype == torch.bfloat16:
-                row["ms"] = device_ms(torch, runs_call(runs))[0]
-                row["host_ms"] = cuda_ms(runs_call(runs))
-                # each kernel alone: the chunk items, the decode items
-                none = np.zeros((0, 4))
-                row["chunk_ms"] = device_ms(torch, runs_call(cp.ChunkedRuns(
-                    runs.items[:runs.n_chunk], none)))[0]
-                row["decode_ms"] = device_ms(torch, runs_call(
-                    cp.ChunkedRuns(none, runs.items[runs.n_chunk:])))[0]
+            # the run kernels, each kernel alone (the chunk items, the
+            # decode items), the first kernel on the same inputs
+            none = np.zeros((0, 4))
+            row = {"ms": device_ms(torch, runs_call(runs))[0],
+                   "host_ms": cuda_ms(runs_call(runs)),
+                   "chunk_ms": device_ms(torch, runs_call(cp.ChunkedRuns(
+                       runs.items[:runs.n_chunk], none)))[0],
+                   "decode_ms": device_ms(torch, runs_call(cp.ChunkedRuns(
+                       none, runs.items[runs.n_chunk:])))[0],
+                   "first_ms": device_ms(torch, first)[0]}
             row["plain_ms"] = cuda_ms(
                 lambda: cp.chunked_prefill_attention_reference(
                     q, *nxt(), table, pos, block_size=bs), iters=5, warmup=1)
@@ -1167,17 +1204,16 @@ def check_chunked_prefill(torch, reports):
             row.update(bound_ms=max(t_bytes, t_ops) * 1e3,
                        bound_by="bytes" if t_bytes >= t_ops else "operations")
             timings[label] = row
-            new = (f"run kernels {row['ms']:.4f} ms (host-paced "
-                   f"{row['host_ms']:.4f} ms; {runs.n_chunk} chunk items "
-                   f"alone {row['chunk_ms']:.4f} ms, {runs.n_decode} decode "
-                   f"items at {cp.chunked_decode_splits(runs, 12)} splits "
-                   f"alone {row['decode_ms']:.4f} ms), the first kernel on "
-                   f"the same inputs " if "ms" in row
-                   else "the first kernel ")
-            print(f"chunked_prefill_attention timing, {label}, T=256 mixed "
-                  f"(decode rows at {MIXED_DECODE_POS}, chunks (first "
-                  f"position, tokens) {MIXED_CHUNKS}, {256 - n_real} pads; "
-                  f"device time): {new}{row['first_ms']:.4f} ms, plain "
+            print(f"chunked_prefill_attention timing, {label} ({route}), "
+                  f"T=256 mixed (decode rows at {MIXED_DECODE_POS}, chunks "
+                  f"(first position, tokens) {MIXED_CHUNKS}, {256 - n_real} "
+                  f"pads; device time): run kernels {row['ms']:.4f} ms "
+                  f"(host-paced {row['host_ms']:.4f} ms; {runs.n_chunk} "
+                  f"chunk items alone {row['chunk_ms']:.4f} ms, "
+                  f"{runs.n_decode} decode items at "
+                  f"{cp.chunked_decode_splits(runs, 12)} splits alone "
+                  f"{row['decode_ms']:.4f} ms), the first kernel on the same "
+                  f"inputs {row['first_ms']:.4f} ms, plain "
                   f"{row['plain_ms']:.4f} ms (host-paced), SDPA per segment "
                   f"(pre-gathered) {row['library_ms']:.4f} ms, bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes} "
@@ -1187,36 +1223,142 @@ def check_chunked_prefill(torch, reports):
 
     time_chunked_splits(torch, cp, bs)
 
-    main = timings["bfloat16 q"]
-    reports["tc"].update(
-        ms=main["ms"], plain_ms=main["plain_ms"],
-        library_ms=main["library_ms"], bound_ms=main["bound_ms"],
-        bound_by=main["bound_by"], first_ms=main["first_ms"],
-        max_abs_err=max(e for (r, lab, _s), e in worst.items()
-                        if r == "tc" and not lab.startswith("int8")))
-    # the int8 branch's row: bf16 q over int8 pools on the run kernels
-    i8 = timings["int8 pools, bfloat16 q"]
-    reports["tc_int8"].update(
-        ms=i8["ms"], plain_ms=i8["plain_ms"], library_ms=i8["library_ms"],
-        bound_ms=i8["bound_ms"], bound_by=i8["bound_by"],
-        first_ms=i8["first_ms"],
-        max_abs_err=max(e for (r, lab, _s), e in worst.items()
-                        if r == "tc" and lab.startswith("int8")))
-    # the first kernel's row: its own route's errors (fp32 q), its time on
-    # the run kernels' bf16 inputs (the first version of that route)
+    # the run kernels' rows: bf16 q ("tc") and fp32 q ("tf32"), each over
+    # its own-dtype pools and over int8 pools ("_int8")
+    for route, name in (("tc", "bfloat16"), ("tf32", "float32")):
+        for int8 in (False, True):
+            t = timings[f"{'int8 pools, ' if int8 else ''}{name} q"]
+            reports[route + ("_int8" if int8 else "")].update(
+                ms=t["ms"], plain_ms=t["plain_ms"],
+                library_ms=t["library_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], first_ms=t["first_ms"],
+                max_abs_err=max(e for (r, lab, _s), e in worst.items()
+                                if r == route
+                                and lab.startswith("int8") == int8))
+    # the first kernel's row: its time on the fp32 route's inputs (the
+    # first version of that route), its errors over every hold of it at
+    # D = 64 (fp32 q, fp32 and int8 pools)
+    main32 = timings["float32 q"]
     reports["walk"].update(
-        ms=main["first_ms"], plain_ms=main["plain_ms"],
-        library_ms=main["library_ms"], bound_ms=main["bound_ms"],
-        bound_by=main["bound_by"],
-        max_abs_err=max(e for (r, lab, _s), e in worst.items()
-                        if r == "walk" and not lab.startswith("int8")))
-    print(f"chunked_prefill_attention at the T=256 mixed step, bf16: run "
-          f"kernels {main['ms']:.4f} ms against the first kernel's "
-          f"{main['first_ms']:.4f} ({main['first_ms'] / main['ms']:.2f}x) "
-          f"and SDPA per segment's {main['library_ms']:.4f} "
-          f"({main['ms'] / main['library_ms']:.3f}x); int8 pools: run "
-          f"kernels {timings['int8 pools, bfloat16 q']['ms']:.4f} ms, first "
-          f"kernel {timings['int8 pools, bfloat16 q']['first_ms']:.4f} ms")
+        ms=main32["first_ms"], plain_ms=main32["plain_ms"],
+        library_ms=main32["library_ms"], bound_ms=main32["bound_ms"],
+        bound_by=main32["bound_by"],
+        max_abs_err=max(e for (r, _lab, _s), e in worst.items()
+                        if r == "walk"))
+    for route, name in (("tc", "bfloat16"), ("tf32", "float32")):
+        for int8 in ("", "int8 pools, "):
+            t = timings[f"{int8}{name} q"]
+            print(f"chunked_prefill_attention at the T=256 mixed step, "
+                  f"{int8}{name} q: run kernels {t['ms']:.4f} ms against "
+                  f"the first kernel's {t['first_ms']:.4f} "
+                  f"({t['first_ms'] / t['ms']:.2f}x), SDPA per segment's "
+                  f"{t['library_ms']:.4f} ({t['ms'] / t['library_ms']:.3f}x)"
+                  f" and the bound's {t['bound_ms']:.4f} "
+                  f"({t['ms'] / t['bound_ms']:.2f}x)")
+    check_chunked_d256(torch, cp, reports)
+
+
+def chunked_d256_row(name, int8):
+    """The kernels line's row suffix of the first kernel's route (head
+    dims in (128, 256]) for q of dtype ``name``, over int8 pools or not."""
+    return ("d256" + ("_fp32" if name == "float32" else "")
+            + ("_int8" if int8 else ""))
+
+
+def check_chunked_d256(torch, cp, reports):
+    """The first kernel on its own route, head dim 256, at the T=256 mixed
+    step: bf16 and fp32 q over pools of q's dtype and over int8 pools,
+    through the public call (counted by ``chunked_prefill_attention``
+    only), against the plain version (``KERNEL_TOL``; NaN scratch, pad
+    rows excluded), bit-equal over two launches; then timed (8 layers'
+    pools in rotation, no NaN) beside the plain version, SDPA per segment
+    and the bound. ``reports``: the rows by ``chunked_d256_row``."""
+    import torch.nn.functional as F
+
+    bs, d = 16, 256
+    wrappers = chunked_wrappers(cp)
+    for int8 in (False, True):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            label = f"{'int8 pools, ' if int8 else ''}{name} q"
+            route = cp._route(dtype, torch.int8 if int8 else dtype, d)
+            if route != "walk":
+                fail(f"chunked_prefill D=256 {label}: routed to {route}")
+            q, pools, table, pos, n_real, blocks = chunked_case(
+                torch, dtype, 256, MIXED_DECODE_POS, MIXED_CHUNKS,
+                seed=21 + int8, layers=8, int8=int8, d=d)
+            kp, vp, ks, vs = pools[0]
+            args = (q, kp, vp, ks, vs, table, pos)
+            before = {r: w.launches for r, w in wrappers.items()}
+            got, again = (cp.chunked_prefill_attention(*args, block_size=bs)
+                          for _ in range(2))
+            grew = {r: w.launches - before[r] for r, w in wrappers.items()}
+            if grew != {r: 2 if r == "walk" else 0 for r in wrappers}:
+                fail(f"chunked_prefill D=256 {label}: launches {grew}")
+            want = cp.chunked_prefill_attention_reference(*args,
+                                                          block_size=bs)
+            torch.cuda.synchronize()
+            if not same_bits(torch, got, again):
+                fail(f"chunked_prefill D=256 {label}: differs between two "
+                     f"launches")
+            real = got[:n_real]
+            err = (real.float() - want[:n_real].float()).abs().max().item()
+            if not torch.isfinite(real).all() or err > KERNEL_TOL[name]:
+                fail(f"chunked_prefill_attention D=256 {label}: max |err| "
+                     f"{err} > {KERNEL_TOL[name]} or non-finite real rows")
+            del got, again, want, real
+            for k, v, ks_, vs_ in pools:
+                if int8:
+                    ks_[0] = 1.0
+                    vs_[0] = 1.0
+                else:
+                    k[0] = 0.0
+                    v[0] = 0.0
+            it = {"i": 0}
+
+            def nxt():
+                it["i"] = (it["i"] + 1) % len(pools)
+                return pools[it["i"]]
+
+            row = {"ms": device_ms(torch, lambda: cp._launch_walk(
+                q, *nxt(), table, pos, bs, None))[0]}
+            row["plain_ms"] = cuda_ms(
+                lambda: cp.chunked_prefill_attention_reference(
+                    q, *nxt(), table, pos, block_size=bs), iters=3,
+                warmup=1)
+            qs, kv, mask = segment_sdpa_inputs(torch, q, pools, table, pos,
+                                               n_real, bs)
+            git = {"i": 0}
+
+            def gnxt():
+                git["i"] = (git["i"] + 1) % len(kv)
+                return kv[git["i"]]
+
+            row["library_ms"] = device_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qs, *gnxt(), attn_mask=mask))[0]
+            nbytes, flops = chunked_bytes_flops(q, table, pos, blocks, bs,
+                                                 int8)
+            peak = (BF16_FLOPS if dtype == torch.bfloat16
+                    else FP32_3XTF32_FLOPS)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+            row.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       max_abs_err=err)
+            reports[chunked_d256_row(name, int8)].update(row)
+            print(f"chunked_prefill_attention D=256, {label} (the first "
+                  f"kernel, its route; T=256 mixed, H=12 BS=16 WB=64, NaN "
+                  f"scratch, pad rows excluded, bit-equal over two "
+                  f"launches): max |err| {err:.3g} (atol "
+                  f"{KERNEL_TOL[name]}); device time {row['ms']:.4f} ms, "
+                  f"plain {row['plain_ms']:.4f} ms (host-paced), SDPA per "
+                  f"segment (pre-gathered) {row['library_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes} "
+                  f"bytes / 3.35 TB/s, {flops} flops / "
+                  f"{peak / 1e12:.0f} TFLOP/s): "
+                  f"{row['ms'] / row['bound_ms']:.2f}x the bound, "
+                  f"{row['ms'] / row['library_ms']:.2f}x SDPA")
+            del pools, kv, qs, mask
 
 
 def time_chunked_splits(torch, cp, bs):
@@ -3308,6 +3450,10 @@ FUSED_LN_TAIL = ((300, 136, 200, None), (300, 136, 200, "gelu"))
 FUSED_LN_XL = ((300, 1600, 264, "gelu"),)
 FUSED_LN_WIDE = ((300, 2048, 256, "gelu"),)
 FUSED_LN_DECODE = ((8, 768, 2304, None), (8, 768, 3072, "gelu"))
+# the 16-bit route above that limit at the path's row count: the two sites'
+# shapes at D = 2048 (F 3 D and, under GELU, 4 D); held and timed in bf16
+FUSED_LN_D2048 = ((16 * 512, 2048, 6144, None),
+                  (16 * 512, 2048, 8192, "gelu"))
 FUSED_LN_CASES = (FUSED_LN_SITES + FUSED_LN_TAIL + FUSED_LN_XL
                   + FUSED_LN_WIDE + FUSED_LN_DECODE)
 FUSED_LN_NAMES = ("dx", "dgamma", "dbeta", "dw", "dbias")
@@ -3420,7 +3566,9 @@ def check_fused_ln(torch, reports):
     worst, bad = {}, []
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         name = str(dtype).split(".")[1]
-        for i, (n, d, f, act) in enumerate(FUSED_LN_CASES):
+        cases = FUSED_LN_CASES + (FUSED_LN_D2048 if name == "bfloat16"
+                                  else ())
+        for i, (n, d, f, act) in enumerate(cases):
             x, gamma, beta, w, bias, dy = fused_ln_case(torch, dtype, n, d,
                                                         f, seed=40 + i)
             kw = dict(eps=1e-5, activation=act)
@@ -3517,13 +3665,14 @@ def check_fused_ln(torch, reports):
                 k = (key.split()[0], name)
                 w_ = worst.get(k, (0.0, 0.0))
                 worst[k] = (max(w_[0], err), max(w_[1], rel))
-                if i < len(FUSED_LN_SITES):
-                    pk = ("path", name, key.split()[0])
+                if i < len(FUSED_LN_SITES) or i >= len(FUSED_LN_CASES):
+                    pk = ("path" if i < len(FUSED_LN_SITES) else "d2048",
+                          name, key.split()[0])
                     worst[pk] = max(worst.get(pk, 0.0), err)
             del x, gamma, beta, w, bias, dy, args, y, grads, y_w, grads_w
             del y2, grads2, leaves, x3, y3, pairs
     for (key, name), (err, rel) in sorted(
-            (k, v) for k, v in worst.items() if k[0] != "path"):
+            (k, v) for k, v in worst.items() if len(k) == 2):
         limit = (f"limit {FUSED_LN_TOL[name]}" if name == "float32" else
                  f"beyond one {name} step; limit {FUSED_LN_TOL[name]}")
         print(f"fused_ln {key} {name} (every case, +-GELU, the decode dW "
@@ -3539,10 +3688,16 @@ def check_fused_ln(torch, reports):
             which: rep for (nm, which), rep in reports.items()
             if nm == name}, {k[2]: err for k, err in worst.items()
                              if k[0] == "path" and k[1] == name})
+    # the 16-bit route above fused.TC_MAX_D (fused_ln.cu), at D = 2048
+    time_fused_ln(torch, torch.bfloat16, {
+        which: reports[("bfloat16", f"{which}-d2048")]
+        for which in ("fwd", "bwd")}, {k[2]: err for k, err in worst.items()
+                                       if k[0] == "d2048"},
+        sites=FUSED_LN_D2048)
 
 
-def time_fused_ln(torch, dtype, reports, errs):
-    """#6 and #7 timed at the path's sites in ``dtype`` on the route
+def time_fused_ln(torch, dtype, reports, errs, sites=FUSED_LN_SITES):
+    """#6 and #7 timed at ``sites`` (the path's) in ``dtype`` on the route
     ``fused._route`` names, rotating over 2 sets of inputs, beside the
     plain versions, the unfused eager sequence and ``csrc/fused_ln.cu``'s
     kernels on the same inputs, the first version; the kernels of one
@@ -3555,7 +3710,7 @@ def time_fused_ln(torch, dtype, reports, errs):
     name = str(dtype).split(".")[1]
     sets = {site: [fused_ln_case(torch, dtype, *site[:3], seed=60 + j)
                    for j in range(2)]
-            for site in FUSED_LN_SITES}
+            for site in sites}
     times = {}
     for site, cases in sets.items():
         n, d, f, act = site
@@ -3643,7 +3798,7 @@ def time_fused_ln(torch, dtype, reports, errs):
             plain_ms=sum(t[f"plain {which}"] for t in times.values()),
             library_ms=sum(t[f"library {which}"] for t in times.values()),
             bound_ms=sum(t[f"bound {which}"] for t in times.values()),
-            bound_by=times[FUSED_LN_SITES[0]][f"by {which}"],
+            bound_by=times[sites[0]][f"by {which}"],
             max_abs_err=errs[which])
         first = ""
         if all(f"first {which}" in t for t in times.values()):
@@ -3657,8 +3812,8 @@ def time_fused_ln(torch, dtype, reports, errs):
                     {k: rep[k] for k in ("plain_ms", "library_ms",
                                          "bound_ms", "bound_by")},
                     ms=rep["first_ms"], max_abs_err=errs[f"first-{which}"])
-        print(f"fused_ln {which} per layer (both sites, {name}, "
-              f"{times[FUSED_LN_SITES[0]]['route']}; device time, plain "
+        print(f"fused_ln {which} per layer (both sites, {name}, D="
+              f"{sites[0][1]}, {times[sites[0]]['route']}; device time, plain "
               f"host-paced): kernel {rep['ms']:.4f} ms{first}, plain "
               f"{rep['plain_ms']:.4f} ms, unfused eager sequence "
               f"{rep['library_ms']:.4f} ms, bound "
@@ -3811,7 +3966,7 @@ def serve(torch, dtype, mode, params, requests, wave1=10,
     label = (f"{mode}/{dtype}/{attention}/" + ",".join(
         f"{k}={v}" for k, v in sorted(serving.items())))
     # kernel #2's route: the run kernels for bf16 q (over bf16 or int8
-    # pools), the first kernel for fp32
+    # pools), the fp32 run kernels for fp32 q (over fp32 or int8 pools)
     cp_route = chunked_prefill._route(
         dtype, torch.int8 if serving.get("int8_kv_cache") else dtype,
         cfg.hidden_size // cfg.num_heads)
@@ -3886,6 +4041,8 @@ def serve(torch, dtype, mode, params, requests, wave1=10,
             and not want[CHUNKED_NAMES[cp_route]]):
         fail(f"{label}: kernel launches {launches} (by query count "
              f"{by_queries}), expected {want} ({want_by_s})")
+    for name, n in launches.items():
+        SERVED_LAUNCHES[name] = SERVED_LAUNCHES.get(name, 0) + n
     called = {k: v for k, v in plain.calls.items() if v}
     if swap_plain and not called:
         fail(f"{label}: the swapped-in plain version never ran")
@@ -4228,7 +4385,11 @@ def check_serving(torch):
                                chunked_prefill={"token_budget": 64})
     out["chunked_fp32"] = {
         "token_budget": 64, "mixed_steps": mc["mixed_steps"],
-        "kernel_launches": mc["launches"]["chunked_prefill_attention"]}
+        "kernel_launches": mc["launches"]["chunked_prefill_attention_tf32"],
+        "first_kernel_launches": mc["launches"]["chunked_prefill_attention"]}
+    print(f"serving fp32 chunked@64 (kernel #2's fp32 run kernels: one "
+          f"call a layer a mixed step, calls == mixed_steps x 12; the first "
+          f"kernel 0): {json.dumps(out['chunked_fp32'])}")
     print(f"serving fp32: kernel {mk['wall_s']:.2f} s, gather "
           f"{mg['wall_s']:.2f} s, chunked@64 {mc['wall_s']:.2f} s; step "
           f"median kernel {median(mk['step_ms']):.2f} ms, gather "
@@ -4289,7 +4450,12 @@ def check_serving(torch):
           f"version on the same pools: kernel #1 int8 {mik['checked_calls']}"
           f" calls, max |err| {mik['max_err']:.3g}; kernel #2 int8 "
           f"{mic['checked_calls']} calls, max |err| {mic['max_err']:.3g} "
-          f"(atol 1e-5)")
+          f"(atol 1e-5; the fp32 run kernels' calls "
+          f"{mic['launches']['chunked_prefill_attention_tf32']})")
+    out["int8_chunked_fp32"] = {
+        "token_budget": 64, "mixed_steps": mic["mixed_steps"],
+        "kernel_launches":
+            mic["launches"]["chunked_prefill_attention_tf32"]}
     int8["fp32_max_err_kernel1"] = mik["max_err"]
     int8["fp32_max_err_kernel2"] = mic["max_err"]
     for key, name, got, want, chunked in (
@@ -4312,6 +4478,7 @@ def check_serving(torch):
     # token; bucketed and chunked against the same run without the cache
     preq = prefix_trace(cfg)
     pl = [len(p) for p, _ in preq]
+    prefix_first = {}
     ref_srv, toks_ref, mref = serve(torch, fp32, "kernel", params, preq,
                                     wave1=1, second_wave="prefill")
     prefix = {"requests": len(preq), "shared_head": 512,
@@ -4324,6 +4491,9 @@ def check_serving(torch):
                                  prefix_cache=True, **extra)
         if mp["prefix_hits"] < 7:
             fail(f"prefix {label}: {mp['prefix_hits']} prefix hits < 7")
+        if label == "chunked":
+            prefix_first["prefix chunked@256"] = \
+                mp["launches"]["chunked_prefill_attention"]
         ties = check_identity(torch, ref_srv.engine,
                               f"fp32 prefix {label} vs no prefix cache",
                               toks_p, toks_ref, pl)
@@ -4335,6 +4505,17 @@ def check_serving(torch):
           f"TTFT of requests 1-7, warm with the cache, cold without): "
           f"{json.dumps(prefix)}")
     out["prefix"] = prefix
+
+    # the first kernel on no fp32 chunked trace (serve() fails a run whose
+    # counts are not its route's; this sums them for the kernels line)
+    first = {label: m["launches"]["chunked_prefill_attention"]
+             for label, m in (("chunked@64", mc), ("int8 chunked@64", mic))}
+    first.update(prefix_first)
+    if any(first.values()):
+        fail(f"the first chunked-prefill kernel launched on fp32 served "
+             f"traces: {first}")
+    print(f"the first chunked-prefill kernel's launches over the fp32 "
+          f"chunked traces: {first}")
 
     out["decode_profile"] = profile_decode(torch, params, requests)
     out["chunked_profile"] = profile_chunked(torch, params, requests)
@@ -4993,6 +5174,18 @@ KERNELS = (
     ("fused_ln_matmul_fwd_tf32", "fused_ln_tf32",
      "deepspeed_tpu/ops/transformer/fused.py:68"),
     ("fused_ln_matmul_bwd_tf32", "fused_ln_tf32",
+     "deepspeed_tpu/ops/transformer/fused.py:81"),
+    ("chunked_prefill_attention_tf32", "chunked_prefill",
+     "deepspeed_tpu/ops/transformer/chunked_prefill.py:65"),
+    ("chunked_prefill_attention_tf32_int8", "chunked_prefill",
+     "deepspeed_tpu/ops/transformer/chunked_prefill.py:65"),
+) + tuple(
+    ("chunked_prefill_attention_" + chunked_d256_row(name, int8),
+     "chunked_prefill", "deepspeed_tpu/ops/transformer/chunked_prefill.py:65")
+    for name in ("bfloat16", "float32") for int8 in (False, True)) + (
+    ("fused_ln_matmul_fwd_d2048", "fused_ln",
+     "deepspeed_tpu/ops/transformer/fused.py:68"),
+    ("fused_ln_matmul_bwd_d2048", "fused_ln",
      "deepspeed_tpu/ops/transformer/fused.py:81"),
 )
 # the flash kernels of the 16-bit training step: the tensor-core forward,
@@ -7182,7 +7375,12 @@ def main() -> int:
     if not part or "chunked" in only:
         check_chunked_prefill(torch, dict(
             {r: reports[n] for r, n in CHUNKED_NAMES.items()},
-            tc_int8=reports["chunked_prefill_attention_tc_int8"]))
+            tc_int8=reports["chunked_prefill_attention_tc_int8"],
+            tf32_int8=reports["chunked_prefill_attention_tf32_int8"],
+            **{chunked_d256_row(nm, i8):
+               reports["chunked_prefill_attention_" + chunked_d256_row(
+                   nm, i8)]
+               for nm in ("bfloat16", "float32") for i8 in (False, True)}))
     if not part:
         check_flash_attention(torch, reports)
         check_flash_dropout_mask(torch, torch.float32, 256)
@@ -7251,7 +7449,9 @@ def main() -> int:
         ("float32", "fwd"): reports["fused_ln_matmul_fwd_tf32"],
         ("float32", "bwd"): reports["fused_ln_matmul_bwd_tf32"],
         ("float32", "first-fwd"): reports["fused_ln_matmul_fwd"],
-        ("float32", "first-bwd"): reports["fused_ln_matmul_bwd"]})
+        ("float32", "first-bwd"): reports["fused_ln_matmul_bwd"],
+        ("bfloat16", "fwd-d2048"): reports["fused_ln_matmul_fwd_d2048"],
+        ("bfloat16", "bwd-d2048"): reports["fused_ln_matmul_bwd_d2048"]})
     if only:
         print(json.dumps({"kernels_checked": [k for k, *_ in KERNELS]}))
         return 0
@@ -7264,8 +7464,10 @@ def main() -> int:
         serving["int8"]["kernel_launches"]
     reports["chunked_prefill_attention_tc"]["launches"] = \
         serving["chunked"]["kernel_launches"]
-    reports["chunked_prefill_attention"]["launches"] = \
+    reports["chunked_prefill_attention_tf32"]["launches"] = \
         serving["chunked_fp32"]["kernel_launches"]
+    reports["chunked_prefill_attention_tf32_int8"]["launches"] = \
+        serving["int8_chunked_fp32"]["kernel_launches"]
     reports["chunked_prefill_attention_tc_int8"]["launches"] = \
         serving["int8_chunked"]["kernel_launches"]
 
@@ -7274,6 +7476,16 @@ def main() -> int:
 
     # 3c. serving telemetry: on and off give the same tokens and launches
     check_telemetry(torch, card)
+    # the first kernel, at D = 64 (timed as the first version) and on its
+    # own route (the _d256 rows): its launches over every served trace of
+    # phases 3-3c, bf16 and fp32 (0: no served model has a head dim above
+    # 128, and serve() holds each run to its route)
+    first = SERVED_LAUNCHES.get("chunked_prefill_attention", 0)
+    reports["chunked_prefill_attention"]["launches"] = first
+    for name in ("bfloat16", "float32"):
+        for int8 in (False, True):
+            reports["chunked_prefill_attention_" + chunked_d256_row(
+                name, int8)]["launches"] = first
 
     # 4. the training path end to end, and its fp32 comparison; the FMA
     # kernels' launches at D > 128 are counted over phases 4 and 7 (bf16,
@@ -7329,6 +7541,11 @@ def main() -> int:
     wide = take_wide_launches(fa, wide)
     for name in FLASH_NAMES:
         reports[name + "_dropout"]["launches"] = drop["launches"][name]
+    # fused_ln.cu's 16-bit route (D above fused.TC_MAX_D): its counters
+    # over the 16-bit training steps of phases 4, 6 (bf16 and fp16) and 7
+    for name in FUSED_LN_FIRST_NAMES:
+        reports[name + "_d2048"]["launches"] = sum(
+            run["launches"][name] for run in (training, fused, fp16, drop))
     prof = drop.get("profile") or {}
     print(f"dropout training: step {drop['step_ms_median']:.2f} ms (min "
           f"{drop['step_ms_min']:.2f}, max {drop['step_ms_max']:.2f}) "

@@ -472,14 +472,19 @@ cudaError_t launch_clusters(void (*kernel)(KArgs...), dim3 grid, int splits,
 
 // Instantiate ``KERNEL<T, P, TPKP>`` for head_dim D (TPKP = the power of
 // two >= D / 8) by calling LAUNCH(TPKP); shared by both kernels' hosts.
-#define PAGED_DISPATCH_D(D, LAUNCH) \
-  do {                              \
-    if ((D) <= 8) LAUNCH(1);        \
-    else if ((D) <= 16) LAUNCH(2);  \
-    else if ((D) <= 32) LAUNCH(4);  \
-    else if ((D) <= 64) LAUNCH(8);  \
-    else if ((D) <= 128) LAUNCH(16); \
-    else LAUNCH(32);                \
+// PAGED_DISPATCH_D128 for head dims up to 128 only (no TPKP = 32).
+#define PAGED_DISPATCH_D128(D, LAUNCH) \
+  do {                                 \
+    if ((D) <= 8) LAUNCH(1);           \
+    else if ((D) <= 16) LAUNCH(2);     \
+    else if ((D) <= 32) LAUNCH(4);     \
+    else if ((D) <= 64) LAUNCH(8);     \
+    else LAUNCH(16);                   \
+  } while (0)
+#define PAGED_DISPATCH_D(D, LAUNCH)                 \
+  do {                                              \
+    if ((D) <= 128) PAGED_DISPATCH_D128(D, LAUNCH); \
+    else LAUNCH(32);                                \
   } while (0)
 
 }  // namespace paged

@@ -13,15 +13,15 @@ per-(token, head) fp32 scales [N, BS, H].
 - On a CUDA tensor, :func:`chunked_prefill_attention` launches the Hopper
   kernels of ``csrc/chunked_prefill.cu`` (built at first use) or raises.
   It never falls back to the plain version. :func:`_route` picks them:
-  bfloat16 q over bfloat16 or int8 pools, with ``head_dim`` a multiple of
-  8 up to 128, runs the step's runs of one sequence
-  (:func:`chunked_prefill_attention_tc`:
-  :func:`chunked_runs` finds them once, on the host; runs of two or more
-  tokens on the tensor cores in items of up to 64 tokens, decode rows on
-  the one-query walk with their keys split over a thread-block cluster,
-  kernel #1's design); float32 q runs the first kernel
-  (``chunked_prefill_attention_fwd``, which finds runs of up to 8 tokens
-  in each block, on FMAs).
+  with ``head_dim`` a multiple of 8 up to 128, bfloat16 q over bfloat16
+  or int8 pools (:func:`chunked_prefill_attention_tc`) and float32 q over
+  float32 or int8 pools (:func:`chunked_prefill_attention_tf32`) run the
+  step's runs of one sequence: :func:`chunked_runs` finds them once, on
+  the host; runs of two or more tokens run on the tensor cores in items
+  of up to 64 tokens (fp32 as 3xTF32), decode rows on the one-query walk
+  with their keys split over a thread-block cluster, kernel #1's design.
+  Wider heads run the first kernel (``chunked_prefill_attention_fwd``,
+  which finds runs of up to 8 tokens in each block, on FMAs).
 - On a CPU tensor it runs :func:`chunked_prefill_attention_reference`,
   the plain PyTorch version the CPU tests hold against the JAX kernel and
   ``chip_smoke.py`` holds the CUDA kernels against.
@@ -29,10 +29,11 @@ per-(token, head) fp32 scales [N, BS, H].
 The JAX package gates its kernel on ``head_dim % 128`` (TPU lane tiling);
 the CUDA kernels take what the paged decode kernel takes
 (``paged_decode_ok``). ``chunked_prefill_attention.launches`` counts the
-first kernel's launches and ``chunked_prefill_attention_tc.launches`` the
-calls of the run kernels (one or two launches each: the chunk items'
-kernel if the step holds a run of two or more tokens, the decode items'
-if it holds a run of one), CUDA only.
+first kernel's launches, ``chunked_prefill_attention_tc.launches`` and
+``chunked_prefill_attention_tf32.launches`` the calls of the run kernels
+(one or two launches each: the chunk items' kernel if the step holds a
+run of two or more tokens, the decode items' if it holds a run of one),
+CUDA only.
 """
 
 import ctypes
@@ -47,6 +48,7 @@ from deepspeed_tpu_torch.ops.transformer.paged_attention import (
     dequantized)
 
 __all__ = ["chunked_prefill_attention", "chunked_prefill_attention_tc",
+           "chunked_prefill_attention_tf32",
            "chunked_prefill_attention_reference", "chunked_runs",
            "ChunkedRuns", "chunked_decode_splits"]
 
@@ -65,15 +67,20 @@ _FN = None
 
 def _route(dtype: torch.dtype, pool_dtype: torch.dtype,
            head_dim: int) -> str:
-    """Which kernels run a call on CUDA: ``"tc"`` (the runs of one
-    sequence: tensor cores for chunks, the split one-query walk for decode
-    rows) for bfloat16 q over bfloat16 or int8 pools with ``head_dim`` a
-    multiple of 8 in [8, 128]; ``"walk"`` (the first kernel, on FMAs) for
-    float32 q and wider heads."""
-    return ("tc" if dtype == torch.bfloat16
-            and pool_dtype in (torch.bfloat16, torch.int8)
-            and head_dim % 8 == 0 and 8 <= head_dim <= TC_MAX_HEAD_DIM
-            else "walk")
+    """Which kernels run a call on CUDA. With ``head_dim`` a multiple of 8
+    in [8, 128], the runs of one sequence (tensor cores for chunks, the
+    split one-query walk for decode rows): ``"tc"`` for bfloat16 q over
+    bfloat16 or int8 pools, ``"tf32"`` (3xTF32) for float32 q over float32
+    or int8 pools. ``"walk"`` (the first kernel, on FMAs) for the rest:
+    wider heads."""
+    if head_dim % 8 or not 8 <= head_dim <= TC_MAX_HEAD_DIM:
+        return "walk"
+    if dtype == torch.bfloat16 and pool_dtype in (torch.bfloat16,
+                                                  torch.int8):
+        return "tc"
+    if dtype == torch.float32 and pool_dtype in (torch.float32, torch.int8):
+        return "tf32"
+    return "walk"
 
 
 class ChunkedRuns:
@@ -168,8 +175,9 @@ def chunked_prefill_attention_reference(
 
 
 def _kernel():
-    """``(walk, runs, error string)``: the ctypes functions of
-    ``csrc/chunked_prefill.cu``, built and loaded at first use."""
+    """The ctypes functions of ``csrc/chunked_prefill.cu`` by route
+    (``"walk"``, ``"tc"``, ``"tf32"``) and its error string (``"err"``),
+    built and loaded at first use."""
     global _FN
     if _FN is None:
         lib = build.load("chunked_prefill")
@@ -177,22 +185,25 @@ def _kernel():
         walk = lib.chunked_prefill_attention_fwd
         walk.argtypes = [ptr] * 8 + [i32] * 5 + [ctypes.c_float, i32, i32,
                                                  ptr]
-        runs = lib.chunked_prefill_tc_fwd
-        runs.argtypes = [ptr] * 8 + [i32] * 2 + [ptr] + [i32] * 5 + [
-            ctypes.c_float, i32, i32, ptr]
-        for fn in (walk, runs):
+        fns = {"walk": walk, "tc": lib.chunked_prefill_tc_fwd,
+               "tf32": lib.chunked_prefill_tf32_fwd}
+        for route in ("tc", "tf32"):
+            fns[route].argtypes = [ptr] * 8 + [i32] * 2 + [ptr] + [
+                i32] * 5 + [ctypes.c_float, i32, i32, ptr]
+        for fn in fns.values():
             fn.restype = i32
         err = lib.chunked_prefill_attention_error_string
         err.argtypes = [i32]
         err.restype = ctypes.c_char_p
-        _FN = (walk, runs, err)
+        _FN = dict(fns, err=err)
     return _FN
 
 
 def _check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: "
-                           f"{_kernel()[2](rc).decode()} (cudaError {rc})")
+                           f"{_kernel()['err'](rc).decode()} (cudaError "
+                           f"{rc})")
 
 
 def chunked_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -218,7 +229,8 @@ def chunked_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     ``q.dtype``. The batch's K/V must already be in the pools
     (``ChunkedLayerCache.update_attend`` does both). The first kernel's
     launches count here, the run kernels' in
-    :func:`chunked_prefill_attention_tc`.
+    :func:`chunked_prefill_attention_tc` and
+    :func:`chunked_prefill_attention_tf32`.
     """
     if k_pool.shape[1] != block_size:
         raise ValueError(f"pool block size {k_pool.shape[1]} != "
@@ -234,8 +246,9 @@ def chunked_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          f"tensors, got {q.device}")
     _check_operands(q, k_pool, v_pool, k_scale, v_scale, table, pos,
                     block_size)
-    if _route(q.dtype, k_pool.dtype, q.shape[-1]) == "tc":
-        return chunked_prefill_attention_tc(
+    route = _route(q.dtype, k_pool.dtype, q.shape[-1])
+    if route != "walk":
+        return _RUN_WRAPPERS[route](
             q, k_pool, v_pool, k_scale, v_scale, table, pos,
             block_size=block_size, softmax_scale=softmax_scale, runs=runs)
     out = _launch_walk(q, k_pool, v_pool, k_scale, v_scale, table, pos,
@@ -266,7 +279,7 @@ def _launch_walk(q, k_pool, v_pool, k_scale, v_scale, table, pos,
              else 1.0 / (d ** 0.5))
     out = torch.empty_like(q)
     int8 = k_scale is not None
-    walk = _kernel()[0]
+    walk = _kernel()["walk"]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = walk(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -276,6 +289,56 @@ def _launch_walk(q, k_pool, v_pool, k_scale, v_scale, table, pos,
                   t, h, d, block_size, table.shape[1], float(scale),
                   _DTYPE_CODES[q.dtype], int(int8), stream)
     _check(rc, "chunked_prefill_attention")
+    return out
+
+
+_RUN_DTYPES = {"tc": "bfloat16 q over bfloat16 or int8 pools",
+               "tf32": "float32 q over float32 or int8 pools"}
+
+
+def _launch_runs(wrapper, route: str, q, k_pool, v_pool, k_scale, v_scale,
+                 table, pos, block_size: int,
+                 softmax_scale: Optional[float],
+                 runs: Optional[ChunkedRuns], splits: Optional[int]):
+    """One call of a route's run kernels (``"tc"`` or ``"tf32"``), counted
+    in ``wrapper.launches``: ValueError unless ``q`` is a CUDA tensor whose
+    call ``_route`` sends to ``route``; the step's run list found from
+    host copies when the caller has none (a device synchronisation),
+    ``splits`` by :func:`chunked_decode_splits` by default."""
+    what = wrapper.__name__
+    if _route(q.dtype, k_pool.dtype, q.shape[-1]) != route:
+        raise ValueError(
+            f"{what}: its run kernels take {_RUN_DTYPES[route]} and "
+            f"head_dim a multiple of 8 in [8, {TC_MAX_HEAD_DIM}]; got q "
+            f"{q.dtype}, pools {k_pool.dtype}, head_dim {q.shape[-1]}")
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: its run kernels run on CUDA tensors, "
+                         f"got {q.device}")
+    _check_operands(q, k_pool, v_pool, k_scale, v_scale, table, pos,
+                    block_size)
+    t, h, d = q.shape
+    int8 = k_scale is not None
+    if runs is None:
+        runs = chunked_runs(table.cpu().numpy(), pos.cpu().numpy(),
+                            block_size)
+    if splits is None:
+        splits = chunked_decode_splits(runs, h)
+    scale = (softmax_scale if softmax_scale is not None
+             else 1.0 / (d ** 0.5))
+    out = torch.empty_like(q)
+    items = runs.on(q.device)
+    fn = _kernel()[route]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                k_scale.data_ptr() if int8 else None,
+                v_scale.data_ptr() if int8 else None,
+                table.data_ptr(), pos.data_ptr(), items.data_ptr(),
+                runs.n_chunk, runs.n_decode, out.data_ptr(), t, h, d,
+                block_size, table.shape[1], float(scale), int(int8),
+                int(splits), stream)
+    _check(rc, what)
+    wrapper.launches += 1
     return out
 
 
@@ -296,42 +359,39 @@ def chunked_prefill_attention_tc(q: torch.Tensor, k_pool: torch.Tensor,
     v_scale p), decode items on the one-query walk with their keys split
     over ``splits`` blocks of a cluster (:func:`chunked_decode_splits` by
     default). Inputs and output as :func:`chunked_prefill_attention`."""
-    if _route(q.dtype, k_pool.dtype, q.shape[-1]) != "tc":
-        raise ValueError(
-            f"the chunked-prefill run kernels take bfloat16 q over bfloat16 "
-            f"or int8 pools and head_dim a multiple of 8 in [8, "
-            f"{TC_MAX_HEAD_DIM}]; got q {q.dtype}, pools {k_pool.dtype}, "
-            f"head_dim {q.shape[-1]}")
-    if q.device.type != "cuda":
-        raise ValueError(f"the chunked-prefill run kernels run on CUDA "
-                         f"tensors, got {q.device}")
-    _check_operands(q, k_pool, v_pool, k_scale, v_scale, table, pos,
-                    block_size)
-    t, h, d = q.shape
-    int8 = k_scale is not None
-    if runs is None:
-        runs = chunked_runs(table.cpu().numpy(), pos.cpu().numpy(),
-                            block_size)
-    if splits is None:
-        splits = chunked_decode_splits(runs, h)
-    scale = (softmax_scale if softmax_scale is not None
-             else 1.0 / (d ** 0.5))
-    out = torch.empty_like(q)
-    items = runs.on(q.device)
-    fn = _kernel()[1]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                k_scale.data_ptr() if int8 else None,
-                v_scale.data_ptr() if int8 else None,
-                table.data_ptr(), pos.data_ptr(), items.data_ptr(),
-                runs.n_chunk, runs.n_decode, out.data_ptr(), t, h, d,
-                block_size, table.shape[1], float(scale), int(int8),
-                int(splits), stream)
-    _check(rc, "chunked_prefill_attention_tc")
-    chunked_prefill_attention_tc.launches += 1
-    return out
+    return _launch_runs(chunked_prefill_attention_tc, "tc", q, k_pool,
+                        v_pool, k_scale, v_scale, table, pos, block_size,
+                        softmax_scale, runs, splits)
+
+
+def chunked_prefill_attention_tf32(q: torch.Tensor, k_pool: torch.Tensor,
+                                   v_pool: torch.Tensor,
+                                   k_scale: Optional[torch.Tensor],
+                                   v_scale: Optional[torch.Tensor],
+                                   table: torch.Tensor, pos: torch.Tensor,
+                                   *, block_size: int,
+                                   softmax_scale: Optional[float] = None,
+                                   runs: Optional[ChunkedRuns] = None,
+                                   splits: Optional[int] = None
+                                   ) -> torch.Tensor:
+    """The fp32 run kernels (float32 q over float32 pools, or int8 pools
+    with their scales; ``head_dim`` a multiple of 8 up to 128; CUDA
+    tensors; anything else raises ValueError): chunk items on the tensor
+    cores as 3xTF32 (each fp32 operand split into two TF32 terms, three
+    products each; int8 codes exact in TF32, so two, with k_scale
+    multiplying s and v_scale p in fp32), decode items on the fp32
+    one-query walk with their keys split over ``splits`` blocks of a
+    cluster (:func:`chunked_decode_splits` by default). Inputs and output
+    as :func:`chunked_prefill_attention`."""
+    return _launch_runs(chunked_prefill_attention_tf32, "tf32", q, k_pool,
+                        v_pool, k_scale, v_scale, table, pos, block_size,
+                        softmax_scale, runs, splits)
+
+
+_RUN_WRAPPERS = {"tc": chunked_prefill_attention_tc,
+                 "tf32": chunked_prefill_attention_tf32}
 
 
 chunked_prefill_attention.launches = 0
 chunked_prefill_attention_tc.launches = 0
+chunked_prefill_attention_tf32.launches = 0

@@ -322,9 +322,10 @@ def test_mixed_step_decode_rows_split_four_ways():
     (torch.bfloat16, torch.int8, 64, "tc"),
     (torch.bfloat16, torch.bfloat16, 128, "tc"),
     (torch.bfloat16, torch.bfloat16, 72, "tc"),
-    (torch.float32, torch.float32, 64, "walk"),
-    (torch.float32, torch.int8, 64, "walk"),
-    (torch.bfloat16, torch.bfloat16, 256, "walk")])
+    (torch.float32, torch.float32, 64, "tf32"),
+    (torch.float32, torch.int8, 64, "tf32"),
+    (torch.bfloat16, torch.bfloat16, 256, "walk"),
+    (torch.float32, torch.float32, 256, "walk")])
 def test_route(dtype, pool, d, route):
     assert cp._route(dtype, pool, d) == route
 
