@@ -146,25 +146,26 @@
      the plain versions, SDPA in fp32 with the mask and the bounds at
      FP32_3XTF32_FLOPS;
    - the fused LayerNorm + projection forward and backward (kernels #6,
-     #7) on the route ``fused._route`` picks (bf16 and fp16 up to D =
-     1664: the wgmma kernels of ``csrc/fused_ln_tc.cu``; fp32: the
-     3xTF32 wgmma kernels of ``csrc/fused_ln_tf32.cu``; wider 16-bit:
-     ``csrc/fused_ln.cu``; each call counted by its route's wrapper only;
-     ``fused_ln.cu``'s fp32 kernels, the first version, held on the same
-     fp32 inputs) at the training path's two sites (n = 8192 rows, D =
-     768, F = 2304 without activation and 3072 with GELU), a tail (n =
-     300, D = 136, F = 200), GPT-2 XL's width (D = 1600), a D above the
-     route's limit (2048) and the decode size (n = 8), fp32, bf16 and
-     fp16, each kernel alone and the whole autograd path, as
-     ``FUSED_LN_TOL`` states, y and the five gradients bit-equal over two
-     launches; timed at the path's sites in bf16, fp16 and fp32, beside
-     ``fused_ln.cu``'s kernels (the first version) on the same inputs,
-     and in bf16 at both sites' shapes at D = 2048 (n 8192, F 6144 and
-     8192 with GELU: ``fused_ln.cu``'s 16-bit route, also held there),
-     the plain
-     versions and the unfused eager sequence (``F.layer_norm`` -> cast ->
-     ``F.linear`` (-> GELU) and its autograd backward), with the kernels
-     of one call by device time.
+     #7) on the route ``fused._route`` picks (bf16 and fp16: the wgmma
+     kernels of ``csrc/fused_ln_tc.cu``, the resident panel up to D =
+     1664 and above it T(ln) streamed through the product; fp32: the
+     3xTF32 wgmma kernels of ``csrc/fused_ln_tf32.cu``; each call counted
+     by its route's wrapper only; ``csrc/fused_ln.cu``, the first
+     version, on no route, held on the same inputs in fp32 and above D =
+     1664) at the training path's two sites (n = 8192 rows, D = 768, F =
+     2304 without activation and 3072 with GELU), a tail (n = 300, D =
+     136, F = 200), GPT-2 XL's width (D = 1600), D above the panel (2048,
+     a ragged 1672 and a decode-sized call at 2048) and the decode size
+     (n = 8), fp32, bf16 and fp16, and in bf16 and fp16 both sites'
+     shapes at D = 2048 (n 8192, F 6144 and 8192 with GELU), each kernel
+     alone and the whole autograd path, as ``FUSED_LN_TOL`` states, y and
+     the five gradients bit-equal over two launches; timed at the path's
+     sites in bf16, fp16 and fp32, beside ``fused_ln.cu``'s kernels on
+     the same inputs, and in bf16 at D = 2048's two sites, beside
+     ``fused_ln.cu`` on the same inputs, the plain versions and the
+     unfused eager sequence (``F.layer_norm`` -> cast -> ``F.linear`` (->
+     GELU) and its autograd backward), with the kernels of one call by
+     device time.
 3. Serving end to end: ``init_serving`` on full-width GPT-2 (random
    weights from a seed) serves 16 requests in two waves:
    - bucketed bf16 through ``decode_attention: "kernel"`` (kernel #1
@@ -276,6 +277,18 @@
    from 2**16) on the fp16 model (1 + 2 steps): #6 and #7 launch 192
    times each per step through the wgmma route's fp16 branch, no plain
    version, finite losses.
+6b. Training at GPT-3 XL's width (:func:`check_wide_training`): phase
+   4's configuration on ``make_gpt("gpt2", hidden_size=2048,
+   num_heads=16, num_layers=4)`` (Brown et al. 2020's d_model 2048 and 16
+   heads of 128, cut to 4 of 24 layers so that the run stays under its
+   limit), ``fused_ln=True`` then ``False`` in one process, 1 + 2 steps
+   each: #6 and #7 launch 64 times each per step (2 sites x 4 layers x
+   GAS 8) through the wgmma route's streamed product (D = 2048 is above
+   the panel), ``fused_ln.cu``'s and the 3xTF32 wrappers never, each
+   flash kernel 32 times, fused Adam once, no plain version, the loss
+   falls, the two models' first-step losses within ``WIDE_LOSS_TOL``;
+   both step medians, their ratio, tokens/s, peak memory and a profiled
+   fused step's device ms of the new kernels.
 7. Training at the default dropout: phase 4's configuration on
    ``make_gpt("gpt2")`` as it is (``dropout_rate`` 0.1, hash dropout):
    each flash kernel of phase 4 launches 96 times per step through its
@@ -401,8 +414,12 @@ over phase 3's fp32 chunked traces (0) and is timed on the fp32 run
 kernels' inputs, as their first version; its ``_d256`` rows (bf16 or
 fp32 q, ``_int8`` over int8 pools) are its own route, head dim 256, held
 and timed at the mixed step, counted by the same counter. The
-``fused_ln_matmul_*_d2048`` rows are ``fused_ln.cu``'s 16-bit route at D
-= 2048, timed at both sites' shapes, counted as ``fused_ln.cu``'s rows. The verify row (``paged_decode_attention_verify``, kernel #1 at S =
+``fused_ln_matmul_*_tc_d2048`` rows are the wgmma route's streamed product
+at D = 2048, timed in bf16 at both sites' shapes, counted over phase 6b's
+fused steps; the ``fused_ln_matmul_*_d2048`` rows are ``fused_ln.cu``
+(the first version) timed on the same inputs, its launches summed over
+the 16-bit training steps of phases 4, 6, 6b and 7 (0, or the run
+fails). The verify row (``paged_decode_attention_verify``, kernel #1 at S =
 k + 1) counts the S = 5 launches of phase 3b's measured bf16 speculative
 run and is timed at S = 5 on the path's shapes. The ``_bert128`` /
 ``_bert512`` flash rows count phase 8's seq-128 / seq-512 steps; of the
@@ -3443,15 +3460,18 @@ def check_fused_adam(torch, report):
 FUSED_LN_SITES = ((16 * 512, 768, 2304, None), (16 * 512, 768, 3072, "gelu"))
 FUSED_LN_TAIL = ((300, 136, 200, None), (300, 136, 200, "gelu"))
 # D above 1280, where csrc/fused_ln_tc.cu's forward runs one warpgroup 32
-# deep (GPT-2 XL's width; F no tile divides); a D above its limit
-# (fused.TC_MAX_D), whose 16-bit case takes csrc/fused_ln.cu; and
-# decode-sized calls at the path's widths (n = the batch's rows in a
-# serving step with a cache)
+# deep (GPT-2 XL's width; F no tile divides); D above the widest resident
+# panel (fused.TC_MAX_D), where its 16-bit kernels stream T(ln) through
+# the product: 2048, a ragged 1672 (F no tile divides) and a decode-sized
+# call at 2048 (phase 6b's qkv site); and decode-sized calls at the path's
+# widths (n = the batch's rows in a serving step with a cache)
 FUSED_LN_XL = ((300, 1600, 264, "gelu"),)
-FUSED_LN_WIDE = ((300, 2048, 256, "gelu"),)
+FUSED_LN_WIDE = ((300, 2048, 256, "gelu"), (300, 1672, 264, "gelu"),
+                 (8, 2048, 6144, None))
 FUSED_LN_DECODE = ((8, 768, 2304, None), (8, 768, 3072, "gelu"))
 # the 16-bit route above that limit at the path's row count: the two sites'
-# shapes at D = 2048 (F 3 D and, under GELU, 4 D); held and timed in bf16
+# shapes at D = 2048 (F 3 D and, under GELU, 4 D: phase 6b's); held in
+# bf16 and fp16, timed in bf16 beside fused_ln.cu on the same inputs
 FUSED_LN_D2048 = ((16 * 512, 2048, 6144, None),
                   (16 * 512, 2048, 8192, "gelu"))
 FUSED_LN_CASES = (FUSED_LN_SITES + FUSED_LN_TAIL + FUSED_LN_XL
@@ -3550,15 +3570,18 @@ def check_fused_ln(torch, reports):
     """#6 and #7 alone on the plain versions' inputs, and the whole
     autograd path (3-D x through ``ln_matmul``) against the plain
     versions, in fp32, bf16 and fp16 at the path's two sites, the tail,
-    GPT-2 XL's width, a D above the wgmma route's limit and the decode
+    GPT-2 XL's width, D above the widest resident panel (FUSED_LN_WIDE,
+    and in 16 bits FUSED_LN_D2048: the streamed product) and the decode
     size (FUSED_LN_TOL); each call on the route ``fused._route`` names
-    (its wrapper counts it, the other route's do not) and y and the five
-    gradients bit-equal over two launches. Then timed at the path's
-    sites, per layer (both sites summed), in bf16 and fp16 beside
-    ``fused_ln.cu``'s 16-bit kernels (the first version) on the same
-    inputs, in fp32, and beside the plain
-    versions and the unfused eager sequence. ``reports``: the rows by
-    (dtype name, "fwd"/"bwd")."""
+    (its wrapper counts it, the other routes' do not) and y and the five
+    gradients bit-equal over two launches; ``fused_ln.cu`` (the first
+    version) held on the same inputs in fp32 and above the panel. Then
+    timed at the path's sites, per layer (both sites summed), in bf16 and
+    fp16 beside ``fused_ln.cu``'s 16-bit kernels on the same inputs, in
+    fp32, and in bf16 at FUSED_LN_D2048 beside ``fused_ln.cu``, and
+    beside the plain versions and the unfused eager sequence.
+    ``reports``: the rows by (dtype name, "fwd"/"bwd", and "first-*" /
+    "*-d2048" for the first version's and D = 2048's)."""
     from deepspeed_tpu_torch.ops.transformer import fused as fz
 
     counters = {n: getattr(fz, n[len("fused_"):])
@@ -3566,7 +3589,7 @@ def check_fused_ln(torch, reports):
     worst, bad = {}, []
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         name = str(dtype).split(".")[1]
-        cases = FUSED_LN_CASES + (FUSED_LN_D2048 if name == "bfloat16"
+        cases = FUSED_LN_CASES + (FUSED_LN_D2048 if name != "float32"
                                   else ())
         for i, (n, d, f, act) in enumerate(cases):
             x, gamma, beta, w, bias, dy = fused_ln_case(torch, dtype, n, d,
@@ -3620,9 +3643,9 @@ def check_fused_ln(torch, reports):
                 first_dw = fz._launch_bwd("fused_ln", *args, dy, 1e-5,
                                           act)[3]
                 pairs.append(("first-version dw", first_dw, grads_w[3]))
-            if name == "float32":
-                # fused_ln.cu's fp32 kernels (the first version, on no
-                # path) held on the same inputs
+            if name == "float32" or d > fz.TC_MAX_D:
+                # fused_ln.cu's kernels (the first version, on no path)
+                # held on the same inputs
                 pairs.append(("first-fwd y", fz._launch_fwd(
                     "fused_ln", *args, 1e-5, act), y_w))
                 pairs += [(f"first-bwd {k}", a, b) for k, a, b in zip(
@@ -3688,12 +3711,13 @@ def check_fused_ln(torch, reports):
             which: rep for (nm, which), rep in reports.items()
             if nm == name}, {k[2]: err for k, err in worst.items()
                              if k[0] == "path" and k[1] == name})
-    # the 16-bit route above fused.TC_MAX_D (fused_ln.cu), at D = 2048
+    # the 16-bit route above fused.TC_MAX_D (the streamed product) at D =
+    # 2048, beside fused_ln.cu on the same inputs (the first-* rows)
     time_fused_ln(torch, torch.bfloat16, {
         which: reports[("bfloat16", f"{which}-d2048")]
-        for which in ("fwd", "bwd")}, {k[2]: err for k, err in worst.items()
-                                       if k[0] == "d2048"},
-        sites=FUSED_LN_D2048)
+        for which in ("fwd", "bwd", "first-fwd", "first-bwd")},
+        {k[2]: err for k, err in worst.items()
+         if k[:2] == ("d2048", "bfloat16")}, sites=FUSED_LN_D2048)
 
 
 def time_fused_ln(torch, dtype, reports, errs, sites=FUSED_LN_SITES):
@@ -3702,7 +3726,8 @@ def time_fused_ln(torch, dtype, reports, errs, sites=FUSED_LN_SITES):
     plain versions, the unfused eager sequence and ``csrc/fused_ln.cu``'s
     kernels on the same inputs, the first version; the kernels of one
     call of each route by device time. Fills the ``fwd`` / ``bwd`` rows
-    per layer (both sites summed), and in fp32 the first version's rows
+    per layer (both sites summed), and where ``reports`` has them (fp32 at
+    the path's sites, bf16 at D = 2048) the first version's rows
     (``first-fwd`` / ``first-bwd``: the same function and inputs)."""
     from deepspeed_tpu_torch.ops.transformer import fused as fz
     from torch.profiler import ProfilerActivity, profile
@@ -5187,6 +5212,10 @@ KERNELS = (
      "deepspeed_tpu/ops/transformer/fused.py:68"),
     ("fused_ln_matmul_bwd_d2048", "fused_ln",
      "deepspeed_tpu/ops/transformer/fused.py:81"),
+    ("fused_ln_matmul_fwd_tc_d2048", "fused_ln_tc",
+     "deepspeed_tpu/ops/transformer/fused.py:68"),
+    ("fused_ln_matmul_bwd_tc_d2048", "fused_ln_tc",
+     "deepspeed_tpu/ops/transformer/fused.py:81"),
 )
 # the flash kernels of the 16-bit training step: the tensor-core forward,
 # dq and dk/dv; the FMA kernels take head dims above 128 only
@@ -5198,8 +5227,7 @@ FLASH_FMA_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
 FLASH_TF32_NAMES = ("flash_attention_fwd_tf32", "flash_attention_bwd_dq_tf32",
                     "flash_attention_bwd_dkv_tf32")
 # #6/#7 of the 16-bit steps (wgmma) and of the fp32 ones (3xTF32 on
-# wgmma); fused_ln.cu's (16-bit D above fused.TC_MAX_D; its fp32 kernels,
-# the first version, run on no path)
+# wgmma); fused_ln.cu's (the first version, on no path)
 FUSED_LN_TC_NAMES = FUSED_LN_ROUTES["fused_ln_tc"]
 FUSED_LN_TF32_NAMES = FUSED_LN_ROUTES["fused_ln_tf32"]
 FUSED_LN_FIRST_NAMES = FUSED_LN_ROUTES["fused_ln"]
@@ -5649,6 +5677,26 @@ def check_fused_ln_fp16(torch, card):
     return out
 
 
+# Phase 6b's model: GPT-3 XL's width (Brown et al. 2020, Table 2.1:
+# d_model 2048, 16 heads of 128), its one cut 4 layers of 24, so that the
+# whole run stays under its 1200 s; its sites' D = 2048 is above
+# fused.TC_MAX_D, so #6 and #7 take csrc/fused_ln_tc.cu's streamed product
+WIDE_MODEL = {"hidden_size": 2048, "num_heads": 16, "num_layers": 4}
+WIDE_WARMUP, WIDE_STEPS = 1, 2
+# the fused step's kernels of csrc/fused_ln_tc.cu above TC_MAX_D, by device
+# ms in one profiled step
+FUSED_LN_WIDE_PICK = ("stream_gemm_kernel", "ln_rows_kernel",
+                      "bwd_gemm_kernel", "ln_rows_bwd_kernel",
+                      "col_partial_kernel")
+# The first step's loss of the fused and the unfused model (the same
+# weights and batch), relative: the two paths round the same fp32
+# LayerNorm to bf16 and sum the same bf16 products in fp32 in other
+# orders, so logits differ by bf16 rounding noise (2**-8 of a value at
+# most, of either sign); the mean over 65,536 tokens' losses moves far
+# less. 2e-3, half a bf16 step, catches a wrong site, not noise.
+WIDE_LOSS_TOL = 2e-3
+
+
 def train_engine(torch, fused_ln, dropout=False, config=TRAIN_CONFIG,
                  **over):
     """bench_gpt2's engine (TRAIN_CONFIG) on full-width GPT-2 with the
@@ -5770,6 +5818,79 @@ def check_fused_ln_sites(torch, card, base_ms):
     print(f"fused_ln one-site variants (1 + 2 steps each; unfused step "
           f"{base_ms:.2f} ms, {card}): {json.dumps(out)}")
     return out
+
+
+def check_wide_training(torch, card):
+    """Phase 6b: TRAIN_CONFIG (bf16, micro 16 x seq 512, GAS 8, Adam with
+    ``fused_update``, ZeRO 2) on GPT-3 XL's width, ``train_engine(torch,
+    fused_ln, **WIDE_MODEL)``: d_model 2048, 16 heads of 128, cut to 4
+    layers of 24 (the one cut, so that the whole run stays under 1200 s).
+    ``fused_ln=True``, then ``False``, in one process, WIDE_WARMUP +
+    WIDE_STEPS counted steps each. Fused: #6 and #7 launch 2 sites x 4
+    layers x 8 = 64 times a step each through the ``_tc`` wrappers (the
+    streamed product: D = 2048 is above ``fused.TC_MAX_D``),
+    ``fused_ln.cu``'s and the ``_tf32`` wrappers never; both runs: each
+    flash kernel 32 times a step, fused Adam once, no plain version, the
+    loss falls. The first step's losses of the two models (the same
+    weights and batch) agree within WIDE_LOSS_TOL. Prints both step
+    medians, their ratio, tokens/s, peak GB and, from one profiled fused
+    step, the device ms of FUSED_LN_WIDE_PICK. Returns the two runs'
+    records by ``fused_ln``."""
+    gas = TRAIN_CONFIG["gradient_accumulation_steps"]
+    micro = TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
+    tokens = gas * micro * TRAIN_SEQ
+    runs = {}
+    for fused_ln in (True, False):
+        what = f"wide training (fused_ln={fused_ln})"
+        engine, model, cfg, batches, per_step, n_params = train_engine(
+            torch, fused_ln, **WIDE_MODEL)
+        step_ms, losses, launches = counted_steps(
+            torch, engine, batches, per_step, what, WIDE_WARMUP, WIDE_STEPS)
+        med = median(step_ms)
+        flops = train_flops_per_step(n_params, gas * micro, TRAIN_SEQ,
+                                     cfg.hidden_size, cfg.num_layers)
+        rec = {"hidden_size": cfg.hidden_size, "num_heads": cfg.num_heads,
+               "num_layers": cfg.num_layers, "params": n_params,
+               "micro_batch": micro, "gas": gas, "seq": TRAIN_SEQ,
+               "dtype": "bfloat16", "fused_ln": fused_ln,
+               "steps": WIDE_STEPS, "step_ms": step_ms,
+               "step_ms_median": med, "tokens_per_s": tokens / (med / 1e3),
+               "mfu_vs_989_tflops_dense_bf16":
+                   flops / (med / 1e3) / BF16_FLOPS,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "losses": losses,
+               "launches": {n: c for n, c in launches.items() if c},
+               "card": card}
+        if fused_ln:
+            stats = profile_step(torch, engine, batches, what,
+                                 pick=FUSED_LN_WIDE_PICK)
+            if stats is not None:
+                rec.update(device_busy_ms=stats["device_busy_ms_per_step"],
+                           device_ms_per_step=stats["picked_ms_per_step"])
+        print(f"{what} bf16, GPT-3 XL width at 4 layers (initialize -> "
+              f"train_batch): {json.dumps(rec)}")
+        runs[fused_ln] = rec
+        del engine, model, batches
+        torch.cuda.empty_cache()
+    fused, unfused = runs[True], runs[False]
+    rel = (abs(fused["losses"][0] - unfused["losses"][0])
+           / abs(unfused["losses"][0]))
+    ratio = fused["step_ms_median"] / unfused["step_ms_median"]
+    fused["step_ratio_vs_unfused"] = ratio
+    print(f"wide training (d_model 2048, 16 heads, 4 layers, micro 16 x "
+          f"512, GAS 8; {card}): fused step {fused['step_ms_median']:.2f} "
+          f"ms, unfused {unfused['step_ms_median']:.2f} ms, ratio "
+          f"{ratio:.4f}; {fused['tokens_per_s']:.1f} / "
+          f"{unfused['tokens_per_s']:.1f} tokens/s; peak "
+          f"{fused['peak_memory_gb']:.3f} / {unfused['peak_memory_gb']:.3f} "
+          f"GB; first-step losses {fused['losses'][0]} / "
+          f"{unfused['losses'][0]}, relative difference {rel:.3g} (limit "
+          f"{WIDE_LOSS_TOL}); the fused step's device ms "
+          f"{json.dumps(fused.get('device_ms_per_step'))}")
+    if not rel <= WIDE_LOSS_TOL:
+        fail(f"wide training: the fused and unfused models' first-step "
+             f"losses differ by {rel} relative")
+    return runs
 
 
 def check_training_fp32(torch, seq=512, micro=4, sparse=None,
@@ -7450,8 +7571,13 @@ def main() -> int:
         ("float32", "bwd"): reports["fused_ln_matmul_bwd_tf32"],
         ("float32", "first-fwd"): reports["fused_ln_matmul_fwd"],
         ("float32", "first-bwd"): reports["fused_ln_matmul_bwd"],
-        ("bfloat16", "fwd-d2048"): reports["fused_ln_matmul_fwd_d2048"],
-        ("bfloat16", "bwd-d2048"): reports["fused_ln_matmul_bwd_d2048"]})
+        ("bfloat16", "first-fwd-d2048"):
+            reports["fused_ln_matmul_fwd_d2048"],
+        ("bfloat16", "first-bwd-d2048"):
+            reports["fused_ln_matmul_bwd_d2048"],
+        ("bfloat16", "fwd-d2048"): reports["fused_ln_matmul_fwd_tc_d2048"],
+        ("bfloat16", "bwd-d2048"):
+            reports["fused_ln_matmul_bwd_tc_d2048"]})
     if only:
         print(json.dumps({"kernels_checked": [k for k, *_ in KERNELS]}))
         return 0
@@ -7534,6 +7660,14 @@ def main() -> int:
     for name in FUSED_LN_TC_NAMES:
         reports[name + "_fp16"]["launches"] = fp16["launches"][name]
 
+    # 6b. training at GPT-3 XL's width (4 layers): #6 / #7 above
+    # fused.TC_MAX_D on the wgmma route's streamed product (the _tc_d2048
+    # rows count its fused steps)
+    wide_runs = check_wide_training(torch, card)
+    for name in FUSED_LN_TC_NAMES:
+        reports[name + "_d2048"]["launches"] = \
+            wide_runs[True]["launches"].get(name, 0)
+
     # 7. training at the default dropout 0.1 (make_gpt("gpt2") as it is),
     # and its fp32 comparison at that rate
     take_wide_launches(fa)
@@ -7541,11 +7675,17 @@ def main() -> int:
     wide = take_wide_launches(fa, wide)
     for name in FLASH_NAMES:
         reports[name + "_dropout"]["launches"] = drop["launches"][name]
-    # fused_ln.cu's 16-bit route (D above fused.TC_MAX_D): its counters
-    # over the 16-bit training steps of phases 4, 6 (bf16 and fp16) and 7
+    # fused_ln.cu (the first version, on no route): its counters over the
+    # 16-bit training steps of phases 4, 6 (bf16 and fp16), 6b and 7; the
+    # run fails unless they read 0
     for name in FUSED_LN_FIRST_NAMES:
         reports[name + "_d2048"]["launches"] = sum(
-            run["launches"][name] for run in (training, fused, fp16, drop))
+            run["launches"].get(name, 0) for run in (
+                training, fused, fp16, drop, *wide_runs.values()))
+        if reports[name + "_d2048"]["launches"]:
+            fail(f"fused_ln.cu's {name} launched on a 16-bit training "
+                 f"path: {reports[name + '_d2048']['launches']} times over "
+                 f"phases 4, 6, 6b and 7")
     prof = drop.get("profile") or {}
     print(f"dropout training: step {drop['step_ms_median']:.2f} ms (min "
           f"{drop['step_ms_min']:.2f}, max {drop['step_ms_max']:.2f}) "

@@ -1,12 +1,12 @@
 // Fused LayerNorm + projection on Hopper's warpgroup tensor cores (wgmma)
 // and tensor memory accelerator (TMA), bf16 and fp16, for sm_90a.
 //
-// Replaces, for 16-bit x and W with D up to TC_MAX_D, the two Pallas TPU
-// kernels of deepspeed_tpu/ops/transformer/fused.py: _fwd_kernel (the
-// forward, pallas_call at :140) and _bwd_kernel (the backward, :165). The
-// function and its rounding points are those of csrc/fused_ln.cu, whose
-// header writes them out; that file keeps fp32 and the 16-bit D above
-// TC_MAX_D. With x [n, D], W [F, D] (nn.Linear's layout), T = bf16 or
+// Replaces, for 16-bit x and W at every D (a multiple of 8), the two
+// Pallas TPU kernels of deepspeed_tpu/ops/transformer/fused.py:
+// _fwd_kernel (the forward, pallas_call at :140) and _bwd_kernel (the
+// backward, :165). The function and its rounding points are those of
+// csrc/fused_ln.cu (the first version, on no route), whose header writes
+// them out. With x [n, D], W [F, D] (nn.Linear's layout), T = bf16 or
 // fp16:
 //
 //   y = act(T(LayerNorm(x)) W^T + bias)        (fp32 statistics and sums)
@@ -16,7 +16,9 @@
 // What bounds it on an H100: operations. At the training path's shapes (n
 // = 8192, D = 768, F = 2304 and 3072 + GELU) the forward multiplies 29.0
 // and 38.7 GFLOP (29 and 39 us at 989 TFLOP/s) against 16 and 20 us of
-// bytes; the backward runs two such products, three under GELU.
+// bytes; the backward runs two such products, three under GELU. At GPT-3
+// XL's D = 2048 (F 6144 and 8192 + GELU) the forward's two sites multiply
+// 481 GFLOP (0.4864 ms at 989 TFLOP/s), the backward's 1,237 (1.2507 ms).
 //
 // What the design does:
 // - Every product is wgmma.mma_async m64n128k16 with fp32 accumulators,
@@ -27,34 +29,71 @@
 //   of stages under full / empty mbarriers; consumer warpgroups issue the
 //   wgmmas on a stage, keep one group in flight, and release the stage
 //   when its products are done.
-// - Forward, one launch: a block owns a panel of 64 rows of x, brought in
-//   by TMA straight into wgmma's 128-byte-swizzled K-major layout, and
-//   normalises it once, in place: fp32 two-pass statistics, the
-//   normalisation rounded op by op, rounded to T. The panel stays
-//   resident while the block walks its share of W's column tiles, so x is
-//   normalised once per block, not once per column tile, and never
-//   reaches device memory. Up to D = 1280 two consumer warpgroups take
-//   alternate 128-column tiles, each through its own ring of W's 128 x 64
-//   tiles (16 KB a stage) fed by its own producer warp; above, one
-//   warpgroup, 32 deep (8 KB). The epilogue adds the bias in fp32,
-//   applies the GELU and stores T. The panel (128 D bytes), two stages and
-//   the barriers must fit the 232,448 bytes a block may use: 128 D +
-//   16,520 <= 232,448, so D <= 1664 (TC_MAX_D, a multiple of 64): every
-//   GPT-2 width, 768 to 1600, takes this file.
-// - Backward, five launches under GELU and six without, deterministic,
-//   no atomics: (1) under GELU the forward's kernel again, which also
-//   writes T(ln) [n, D] and the rows' statistics into the workspace (its
-//   panel, normalised once per call), dyc, and each warp's column sums of
-//   g over its 16 rows; without GELU a rows kernel writes T(ln) and the
-//   statistics and a column pass sums dy in 16-row blocks; (2) dln = dyc
-//   W, dyc K-major and W MN-major (the transpose bit of wgmma), into an
-//   fp32 scratch; (3) a row pass: dx and per-32-row partial sums of dgamma
-//   and dbeta; (4) dW = dyc^T T(ln), both operands MN-major, each block
-//   owning a 128 x 128 dW tile, summing all n rows in order and storing T
-//   straight from its accumulators (at the path's shapes 108 and 144
-//   tiles already fill the SMs, so dW is not split over n: no fp32
-//   partials); (5) one launch that sums the dbias, dgamma and dbeta
-//   partials in a fixed order.
+// - Forward up to TC_MAX_D, one launch: a block owns a panel of 64 rows
+//   of x, brought in by TMA straight into wgmma's 128-byte-swizzled
+//   K-major layout, and normalises it once, in place: fp32 two-pass
+//   statistics, the normalisation rounded op by op, rounded to T. The
+//   panel stays resident while the block walks its share of W's column
+//   tiles, so x is normalised once per block, not once per column tile,
+//   and never reaches device memory. Up to D = 1280 two consumer
+//   warpgroups take alternate 128-column tiles, each through its own ring
+//   of W's 128 x 64 tiles (16 KB a stage) fed by its own producer warp;
+//   above, one warpgroup, 32 deep (8 KB). The epilogue adds the bias in
+//   fp32, applies the GELU and stores T. The panel (128 D bytes), two
+//   stages and the barriers must fit the 232,448 bytes a block may use:
+//   128 D + 16,520 <= 232,448, so D <= 1664 (TC_MAX_D, a multiple of 64):
+//   every GPT-2 width, 768 to 1600, takes the panel.
+// - Forward above TC_MAX_D, two launches, no limit on D: ln_rows_kernel
+//   writes T(ln) [n, D] and the rows' statistics into the caller's
+//   scratch (the same bits the panel holds), then stream_gemm_kernel
+//   streams T(ln) and W, both K-major, through one TMA ring (4 stages, 64
+//   deep) into 128 x 256 output tiles, two consumer warpgroups of 64 x
+//   256 (two accumulators over one A descriptor) and a producer thread,
+//   and ends in the panel's epilogue. T(ln)'s round trip costs 2 n D 2
+//   bytes, ~20 us at n 8192, D 2048 (~4% of the bound), and buys a
+//   kernel with no limit on D. A 1-D grid walks the tiles in groups of 8
+//   row tiles, column by column, so that a wave's T(ln) and W tiles stay
+//   in L2.
+// - Backward, deterministic, no atomics: five launches under GELU up to
+//   TC_MAX_D, six otherwise. (1) under GELU, up to TC_MAX_D, the
+//   forward's panel kernel again, which also writes T(ln) [n, D] and the
+//   rows' statistics into the workspace (its panel, normalised once per
+//   call), dyc, and each warp's column sums of g over its 16 rows; above
+//   TC_MAX_D ln_rows_kernel, then the streamed product with the same
+//   epilogue (128 x 128 tiles there: at 256 its dy registers spill);
+//   without GELU the rows kernel and a column pass that sums dy in
+//   16-row blocks; (2) dln = dyc W, dyc K-major and W MN-major (the
+//   transpose bit of wgmma), into an fp32 scratch; (3) a row pass: dx and
+//   per-32-row partial sums of dgamma and dbeta; (4) dW = dyc^T T(ln),
+//   both operands MN-major, each block owning a 128 x 128 dW tile,
+//   summing all n rows in order and storing T straight from its
+//   accumulators (at the path's shapes 108 and 144 tiles already fill the
+//   SMs, so dW is not split over n: no fp32 partials); (5) one launch
+//   that sums the dbias, dgamma and dbeta partials in a fixed order.
+//   Every partition of a sum is the same at every D.
+//
+// tools/probe_fused_ln_wide.py (NVIDIA H100 80GB HBM3, 700.00 W; per
+// layer at n 8192, D 2048, both sites, bf16, device ms, two rounds of
+// opposite order). First, with 128 x 128 forward tiles: forward 0.983 /
+// 1.0545, backward 2.803 / 2.830; 128 x 256 tiles 0.9158 / 0.9032
+// forward, but the GELU recompute's dy registers spill there (336-384
+// bytes) and the backward took 2.8643 / 2.8938; 3 stages 1.2305 / 1.2481
+// forward, 6 stages 1.0267 / 1.083; groups of 1 row tile 1.1441 /
+// 1.1658, of 16 0.9864 / 0.9958, of 64 (column-major) 1.2618 / 1.2519.
+// Then, with this file's 256-wide forward: forward 0.8382 / 0.9278,
+// backward 2.7739 / 2.7877; 128-wide forward 1.0155 / 1.1034; a 256-wide
+// recompute 2.8504 / 3.0092 backward; 3 stages 0.9959 / 0.9905 and 2.8951
+// / 2.9199; groups of 1, 16 and 64 row tiles within the rounds' spread
+// forward (0.89-1.02), 2.78-3.08 backward. A built in registers from x and
+// the statistics (the RS form, B K-major, each stage's fragments built
+// while the stage before it is in the tensor cores, no T(ln) in the
+// forward) took 3.25-3.35 forward in three calls: the fragments' build
+// and a wait for each stage sit on the products' path. Its values were
+// wrong (first a third of y, rows 0-7 of each 16; with its fragments
+// pinned live across the wait, 0.0024 of y at F 6144 but most of it under
+// GELU), a fault of the variant not chased, since its time rules it out.
+// ptxas: 161 (MODE 0), 166 (GELU) and 157 (the recompute, 128 wide)
+// registers, no spills.
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is looked up
                     // at run time (cudaGetDriverEntryPoint), no -lcuda
@@ -97,6 +136,10 @@ constexpr int GEMM_HALF = 64 * GEMM_K * 2;            // one 64 x 64 box
 constexpr int GEMM_STAGE = 4 * GEMM_HALF;             // A and B: 32 KB
 constexpr int GEMM_STAGES = 4;
 constexpr int GEMM_THREADS = 3 * WG;   // two consumer warpgroups + producer
+constexpr int FWD_BN = 256;            // the streamed forward's tile columns
+constexpr int GELU_BN = 128;           // the streamed GELU recompute's
+constexpr int FWD_STAGES = 4;          // their ring: 48 or 32 KB a stage
+constexpr int FWD_GROUP = 8;           // row tiles of a group of their order
 constexpr int MAX_STAGES = 8;
 constexpr int SMEM_LIMIT = 232448;     // 227 KB of dynamic shared memory
 constexpr int TC_MAX_D = 1664;
@@ -278,6 +321,87 @@ __device__ __forceinline__ int panel_offset(int r, int c, int rows) {
          ((((c % PANEL_K) >> 3) ^ (r & 7)) << 4);
 }
 
+// dy of a 128-column tile at col0, for the thread whose first row is
+// rbase (and rbase + 8) and whose place in its quad is t: eight
+// neighbouring columns a vector, as the epilogue holds them; zeros past
+// n or F
+template <typename T>
+__device__ __forceinline__ void load_dy_tile(const T* __restrict__ dy,
+                                             int rbase, int col0, int t,
+                                             int n, int F,
+                                             uint4 (&dyr)[4][2]) {
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = rbase + 8 * h, col = col0 + 32 * g + 8 * t;
+      dyr[g][h] = row < n && col < F
+                      ? *reinterpret_cast<const uint4*>(
+                            dy + (long long)row * F + col)
+                      : make_uint4(0, 0, 0, 0);
+    }
+}
+
+// The epilogue of a warpgroup's 64 x 128 accumulators d at columns col0
+// (this thread's rows rbase and rbase + 8), in four groups of 32 columns:
+// the quad's transpose gives each lane eight neighbouring columns of its
+// two rows; bias in fp32, the activation, 16-byte T stores. MODE 0: y =
+// pre; 1: y = gelu(pre); 2: out = dyc = T(dy gelu'(pre)), and `part` (the
+// warp's partial row of dbias, written when part_ok) = the column sums of
+// g over the warp's 16 rows (a thread's two rows, then the 8 row groups,
+// lanes xor 4, 8, 16). Both forward kernels end in it, so both round at
+// the same points and sum dbias over the same 16-row blocks.
+template <typename T, int MODE>
+__device__ __forceinline__ void epilogue(const float (&d)[64],
+                                         const uint4 (&dyr)[4][2], int col0,
+                                         int rbase, int t, int n, int F,
+                                         const void* bias, int bcode,
+                                         T* __restrict__ out, float* part,
+                                         bool part_ok) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const int col = col0 + 32 * g + 8 * t;
+    const bool cok = col < F;
+    float bv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (cok) param8(bias, bcode, col, bv);
+    float cs[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v[8];
+      quad_columns(d, g, h, t, v);
+      const int row = rbase + 8 * h;
+      if (!cok || row >= n) continue;
+      float dyv[8];
+      if (MODE == 2) unpack8<T>(dyr[g][h], dyv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        v[e] += bv[e];
+        if (MODE == 1) v[e] = gelu(v[e]);
+        if (MODE == 2) {
+          v[e] = dyv[e] * gelu_grad(v[e]);
+          cs[e] += v[e];
+        }
+      }
+      *reinterpret_cast<uint4*>(out + (long long)row * F + col) =
+          pack8<T>(v);
+    }
+    if (MODE == 2) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+#pragma unroll
+        for (int m = 4; m < 32; m <<= 1)
+          cs[e] += __shfl_xor_sync(attn_tile::FULL, cs[e], m);
+      if (lane < 4 && cok && part_ok) {
+        reinterpret_cast<float4*>(part + col)[0] =
+            make_float4(cs[0], cs[1], cs[2], cs[3]);
+        reinterpret_cast<float4*>(part + col)[1] =
+            make_float4(cs[4], cs[5], cs[6], cs[7]);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // forward, and the backward's GELU prologue. grid (ceil(n / 64), nsplit):
 // a block owns a panel of 64 rows of x and the 128-column tiles j =
@@ -418,21 +542,9 @@ __global__ void __launch_bounds__(WG*(NWG + 1), 1)
        u += NWG * gridDim.y) {
     const int col0 = u * BN;
     const int t = lane & 3;
-    // MODE 2: the tile's dy, eight neighbouring columns a vector as the
-    // epilogue holds them, loaded before the products hide its latency
+    // MODE 2: the tile's dy, loaded before the products hide its latency
     uint4 dyr[4][2];
-    if (MODE == 2) {
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = rbase + 8 * h, col = col0 + 32 * g + 8 * t;
-          dyr[g][h] = row < n && col < F
-                          ? *reinterpret_cast<const uint4*>(
-                                dy + (long long)row * F + col)
-                          : make_uint4(0, 0, 0, 0);
-        }
-    }
+    if (MODE == 2) load_dy_tile(dy, rbase, col0, t, n, F, dyr);
     float d[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) d[i] = 0.f;
@@ -464,55 +576,130 @@ __global__ void __launch_bounds__(WG*(NWG + 1), 1)
     fence_acc(d);
     mbar_arrive(&empty[prev]);
 
-    // the epilogue, four groups of 32 columns: the quad's transpose gives
-    // each lane eight neighbouring columns of its two rows; bias in fp32,
-    // the activation, 16-byte T stores. MODE 2: the warp's column sums of
-    // g over its 16 rows (a thread's two rows, then the 8 row groups,
-    // lanes xor 4, 8, 16), one partial row per warp.
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      const int col = col0 + 32 * g + 8 * t;
-      const bool cok = col < F;
-      float bv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (cok) param8(bias, bcode, col, bv);
-      float cs[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float v[8];
-        quad_columns(d, g, h, t, v);
-        const int row = rbase + 8 * h;
-        if (!cok || row >= n) continue;
-        float dyv[8];
-        if (MODE == 2) unpack8<T>(dyr[g][h], dyv);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          v[e] += bv[e];
-          if (MODE == 1) v[e] = gelu(v[e]);
-          if (MODE == 2) {
-            v[e] = dyv[e] * gelu_grad(v[e]);
-            cs[e] += v[e];
-          }
-        }
-        *reinterpret_cast<uint4*>(out + (long long)row * F + col) =
-            pack8<T>(v);
-      }
-      if (MODE == 2) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-#pragma unroll
-          for (int m = 4; m < 32; m <<= 1)
-            cs[e] += __shfl_xor_sync(attn_tile::FULL, cs[e], m);
-        if (lane < 4 && cok && row0 + 16 * q < n) {
-          float* part = dbias_part + (long long)(4 * blockIdx.x + q) * F +
-                        col;
-          reinterpret_cast<float4*>(part)[0] =
-              make_float4(cs[0], cs[1], cs[2], cs[3]);
-          reinterpret_cast<float4*>(part)[1] =
-              make_float4(cs[4], cs[5], cs[6], cs[7]);
-        }
-      }
-    }
+    epilogue<T, MODE>(d, dyr, col0, rbase, t, n, F, bias, bcode, out,
+                      MODE == 2 ? dbias_part + (long long)(4 * blockIdx.x + q)
+                                                   * F
+                                : nullptr,
+                      row0 + 16 * q < n);
   }
+}
+
+// ---------------------------------------------------------------------------
+// above TC_MAX_D, the forward's product and the backward's GELU recompute,
+// streamed: T(ln) [n, D] (ln_rows_kernel's, in a scratch) and W [F, D],
+// both K-major, come in by TMA 64 deep a stage (a 128 x 64 box of T(ln),
+// TBN / 128 boxes of W's 128 x 64, 128-byte swizzle) into a ring of
+// FWD_STAGES stages under full / empty mbarriers, fed by one producer
+// thread; two consumer warpgroups each own 64 rows of the block's 128 x
+// TBN output tile (TBN = FWD_BN, or GELU_BN in MODE 2, whose dy registers
+// would spill at 256), one 64 x 128 accumulator per 128 columns over one
+// A descriptor, and end in the panel kernel's epilogue (MODE 0, 1, 2 as
+// there; warp q of warpgroup wg writes dbias partial (m0 + 64 wg + 16 q)
+// / 16: the same 16-row blocks). A 1-D grid walks the tiles in groups of
+// FWD_GROUP row tiles, column tile by column tile within a group, so that
+// a wave of blocks reads a few of T(ln)'s row tiles and W's column tiles
+// and finds them in L2.
+// ---------------------------------------------------------------------------
+template <typename T, int MODE>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+    stream_gemm_kernel(const __grid_constant__ CUtensorMap map_ln,
+                       const __grid_constant__ CUtensorMap map_w,
+                       const void* bias, int bcode, const T* __restrict__ dy,
+                       T* __restrict__ out, float* __restrict__ dbias_part,
+                       int n, int D, int F) {
+  constexpr int TBN = MODE == 2 ? GELU_BN : FWD_BN;
+  constexpr int HALVES = TBN / BN;
+  constexpr int A_BYTES = 128 * GEMM_K * 2;
+  constexpr int STAGE = A_BYTES + HALVES * BN * GEMM_K * 2;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + FWD_STAGES * STAGE);
+  uint64_t* empty = full + FWD_STAGES;
+  const int mt = (n + 127) / 128, nt = (F + TBN - 1) / TBN;
+  const int first = blockIdx.x / (FWD_GROUP * nt) * FWD_GROUP;
+  const int rows = min(FWD_GROUP, mt - first);
+  const int in = blockIdx.x % (FWD_GROUP * nt);
+  const int m0 = (first + in % rows) * 128, col0 = in / rows * TBN;
+  const int ksteps = (D + GEMM_K - 1) / GEMM_K;
+  if (threadIdx.x == 0) {
+    if (smem_u32(smem) & 1023) __trap();
+    for (int s = 0; s < FWD_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 2 * WG) {
+    if (threadIdx.x != 2 * WG) return;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      const int s = ks % FWD_STAGES;
+      uint8_t* st = smem + s * STAGE;
+      mbar_wait(&empty[s], ((ks / FWD_STAGES) & 1) ^ 1);
+      mbar_expect_tx(&full[s], STAGE);
+      tma_load(st, &map_ln, &full[s], ks * GEMM_K, m0);
+#pragma unroll
+      for (int h = 0; h < HALVES; ++h)
+        tma_load(st + A_BYTES + h * BN * 128, &map_w, &full[s], ks * GEMM_K,
+                 col0 + h * BN);
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / WG, q = (threadIdx.x % WG) >> 5;
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int rbase = m0 + wg * 64 + q * 16 + (lane >> 2);
+  // MODE 2: the tile's dy, loaded before the products hide its latency
+  uint4 dyr[HALVES][4][2];
+  if (MODE == 2) {
+#pragma unroll
+    for (int h = 0; h < HALVES; ++h)
+      load_dy_tile(dy, rbase, col0 + h * BN, t, n, F, dyr[h]);
+  }
+  float d[HALVES][64];
+#pragma unroll
+  for (int h = 0; h < HALVES; ++h)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[h][i] = 0.f;
+  int prev = -1;
+  for (int ks = 0; ks < ksteps; ++ks) {
+    const int s = ks % FWD_STAGES;
+    const uint8_t* st = smem + s * STAGE;
+    mbar_wait(&full[s], (ks / FWD_STAGES) & 1);
+#pragma unroll
+    for (int h = 0; h < HALVES; ++h) fence_acc(d[h]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < GEMM_K / 16; ++kk) {
+      // both K-major: 32 bytes along the swizzled 128-byte rows
+      const uint64_t da = gmma_desc(st + wg * GEMM_HALF + kk * 32, 16, 1024,
+                                    1);
+#pragma unroll
+      for (int h = 0; h < HALVES; ++h)
+        wgmma128<T, 0, 0>(d[h], da,
+                          gmma_desc(st + A_BYTES + h * BN * 128 + kk * 32,
+                                    16, 1024, 1),
+                          1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+#pragma unroll
+    for (int h = 0; h < HALVES; ++h) fence_acc(d[h]);
+    if (prev >= 0) mbar_arrive(&empty[prev]);
+    prev = s;
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int h = 0; h < HALVES; ++h) fence_acc(d[h]);
+
+  const int wrow = m0 + wg * 64 + q * 16;   // the warp's first row
+#pragma unroll
+  for (int h = 0; h < HALVES; ++h)
+    epilogue<T, MODE>(d[h], dyr[h], col0 + h * BN, rbase, t, n, F, bias,
+                      bcode, out,
+                      MODE == 2 ? dbias_part + (long long)(wrow / 16) * F
+                                : nullptr,
+                      wrow < n);
 }
 
 // ---------------------------------------------------------------------------
@@ -886,12 +1073,48 @@ cudaError_t ln_gemm(const void* x, const void* gamma, const void* beta,
   return cudaGetLastError();
 }
 
+// the streamed product (MODE as the panel kernel's) over T(ln) [n, D]
+template <typename T, int MODE>
+cudaError_t stream_gemm(const void* lnT, const void* w, const void* bias,
+                        int bcode, const void* dy, void* out,
+                        float* dbias_part, int n, int D, int F,
+                        cudaStream_t s) {
+  constexpr int TBN = MODE == 2 ? GELU_BN : FWD_BN;
+  constexpr size_t smem =
+      FWD_STAGES * (128 + TBN) * GEMM_K * 2 + 2 * FWD_STAGES * 8;
+  CUtensorMap map_ln, map_w;
+  cudaError_t err;
+  if ((err = make_map<T>(&map_ln, lnT, D, n, GEMM_K, 128)) != cudaSuccess ||
+      (err = make_map<T>(&map_w, w, D, F, GEMM_K, BN)) != cudaSuccess)
+    return err;
+  auto fn = stream_gemm_kernel<T, MODE>;
+  if ((err = set_smem(fn, smem)) != cudaSuccess) return err;
+  const long long tiles = (long long)cdiv(n, 128) * cdiv(F, TBN);
+  fn<<<(unsigned)tiles, GEMM_THREADS, smem, s>>>(
+      map_ln, map_w, bias, bcode, static_cast<const T*>(dy),
+      static_cast<T*>(out), dbias_part, n, D, F);
+  return cudaGetLastError();
+}
+
+// The forward (MODE 0/1) or the backward's GELU recompute (MODE 2). Up to
+// TC_MAX_D the panel kernel, one launch (lnT and stats written in MODE 2
+// only); above, ln_rows_kernel writes T(ln) into lnT [n, D] and the rows'
+// statistics into stats [2 n], then the streamed product reads T(ln).
 template <typename T, int MODE>
 cudaError_t ln_gemm_d(const void* x, const void* gamma, const void* beta,
                       int gcode, const void* w, const void* bias, int bcode,
                       const void* dy, void* out, float* dbias_part,
                       void* lnT, float* stats, int n, int D, int F, float eps,
                       cudaStream_t s) {
+  if (D > TC_MAX_D) {
+    ln_rows_kernel<T><<<cdiv(n, THREADS / 32), THREADS, 0, s>>>(
+        static_cast<const T*>(x), gamma, beta, gcode, stats,
+        static_cast<T*>(lnT), n, D, eps);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return stream_gemm<T, MODE>(lnT, w, bias, bcode, dy, out, dbias_part, n,
+                                D, F, s);
+  }
   return wide(D)
              ? ln_gemm<T, 2, 64, MODE>(x, gamma, beta, gcode, w, bias, bcode,
                                        dy, out, dbias_part, lnT, stats, n,
@@ -932,16 +1155,22 @@ struct BwdLayout {  // the backward's scratch, in one workspace
   }
 };
 
+// the forward's scratch above TC_MAX_D (`work`): T(ln) [n, D], then the
+// rows' statistics [2 n] in fp32
 template <typename T>
 int fwd(const void* x, const void* gamma, const void* beta, int gcode,
-        const void* w, const void* bias, int bcode, void* y, int n, int D,
-        int F, float eps, int gelu, cudaStream_t s) {
+        const void* w, const void* bias, int bcode, void* y, void* work,
+        int n, int D, int F, float eps, int gelu, cudaStream_t s) {
+  float* stats = D > TC_MAX_D
+                     ? reinterpret_cast<float*>(static_cast<char*>(work) +
+                                                (size_t)n * D * 2)
+                     : nullptr;
   return (int)(gelu ? ln_gemm_d<T, 1>(x, gamma, beta, gcode, w, bias, bcode,
-                                      nullptr, y, nullptr, nullptr, nullptr,
-                                      n, D, F, eps, s)
+                                      nullptr, y, nullptr, work, stats, n, D,
+                                      F, eps, s)
                     : ln_gemm_d<T, 0>(x, gamma, beta, gcode, w, bias, bcode,
-                                      nullptr, y, nullptr, nullptr, nullptr,
-                                      n, D, F, eps, s));
+                                      nullptr, y, nullptr, work, stats, n, D,
+                                      F, eps, s));
 }
 
 template <typename T>
@@ -1003,7 +1232,7 @@ int bwd(const void* xv, const void* gamma, const void* beta, int gcode,
 
 bool takes(int n, int D, int F, int dtype) {
   return (dtype == 1 || dtype == 2) && n >= 1 && D >= 8 && D % 8 == 0 &&
-         D <= TC_MAX_D && F >= 8 && F % 8 == 0;
+         F >= 8 && F % 8 == 0;
 }
 
 }  // namespace
@@ -1011,22 +1240,23 @@ bool takes(int n, int D, int F, int dtype) {
 extern "C" {
 
 // The arguments of fused_ln.cu's entry points, for dtype 1 (bfloat16) or
-// 2 (float16) and D a multiple of 8 up to TC_MAX_D (anything else returns
-// cudaErrorInvalidValue); the forward computes its own row statistics,
-// so `stats` is not used. Every call returns cudaGetLastError() after its
-// launches (0 = launched).
+// 2 (float16) and D and F multiples of 8 (anything else returns
+// cudaErrorInvalidValue). The forward's `stats` is its scratch: unused up
+// to TC_MAX_D; above, n D values of the dtype (T(ln)) then 2 n floats
+// (the rows' statistics), 16-byte aligned. Every call returns
+// cudaGetLastError() after its launches (0 = launched).
 int fused_ln_tc_fwd(const void* x, const void* gamma, const void* beta,
                     int gcode, const void* w, const void* bias, int bcode,
                     void* y, float* stats, int n, int D, int F, float eps,
                     int gelu, int dtype, void* stream) {
-  (void)stats;
-  if (!takes(n, D, F, dtype)) return (int)cudaErrorInvalidValue;
+  if (!takes(n, D, F, dtype) || (D > TC_MAX_D && stats == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return fwd<__nv_bfloat16>(x, gamma, beta, gcode, w, bias, bcode, y, n, D,
-                              F, eps, gelu, s);
-  return fwd<__half>(x, gamma, beta, gcode, w, bias, bcode, y, n, D, F, eps,
-                     gelu, s);
+    return fwd<__nv_bfloat16>(x, gamma, beta, gcode, w, bias, bcode, y,
+                              stats, n, D, F, eps, gelu, s);
+  return fwd<__half>(x, gamma, beta, gcode, w, bias, bcode, y, stats, n, D,
+                     F, eps, gelu, s);
 }
 
 long long fused_ln_tc_bwd_workspace(int n, int D, int F, int gelu,

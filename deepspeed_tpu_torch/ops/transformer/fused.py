@@ -13,17 +13,17 @@ bias)``, as the JAX VJP does.
 - On CUDA tensors, :func:`ln_matmul` runs Hopper kernels (built at first
   use) through an ``autograd.Function``: :func:`ln_matmul_fwd`, then in
   the backward :func:`ln_matmul_bwd`. :func:`_route` picks the kernels of
-  both: bfloat16 and float16 with D up to ``TC_MAX_D`` run the wgmma + TMA
-  kernels of ``csrc/fused_ln_tc.cu`` (:func:`ln_matmul_fwd_tc`: one
-  kernel a call; :func:`ln_matmul_bwd_tc`: five kernels a call under
-  GELU, six without); float32 runs the 3xTF32 wgmma + TMA kernels of
-  ``csrc/fused_ln_tf32.cu`` (:func:`ln_matmul_fwd_tf32`: two kernels a
-  call; :func:`ln_matmul_bwd_tf32`: six); 16-bit D above ``TC_MAX_D``
-  runs ``csrc/fused_ln.cu`` (``mma.sync``: two kernels a forward call,
-  six a backward call), whose fp32 kernels (FMAs) no route takes any
-  more: ``chip_smoke.py`` times them as the first version on the fp32
-  route's inputs. It launches them or raises; it never falls back to the
-  plain versions or from one kernel to another.
+  both: bfloat16 and float16 run the wgmma + TMA kernels of
+  ``csrc/fused_ln_tc.cu`` at every D the kernels take
+  (:func:`ln_matmul_fwd_tc`: one kernel a call up to ``TC_MAX_D``, two
+  above; :func:`ln_matmul_bwd_tc`: five kernels a call under GELU up to
+  ``TC_MAX_D``, six otherwise); float32 runs the 3xTF32 wgmma + TMA
+  kernels of ``csrc/fused_ln_tf32.cu`` (:func:`ln_matmul_fwd_tf32`: two
+  kernels a call; :func:`ln_matmul_bwd_tf32`: six). No route runs
+  ``csrc/fused_ln.cu`` (``mma.sync`` in 16 bits, FMAs in fp32), the
+  first version: ``chip_smoke.py`` holds and times it on the routes'
+  inputs. It launches them or raises; it never falls back to the plain
+  versions or from one kernel to another.
 - On CPU tensors the same Function runs :func:`ln_matmul_reference` and
   :func:`ln_matmul_bwd_reference`, the plain PyTorch versions that the CPU
   tests hold against the JAX kernels and ``chip_smoke.py`` holds the CUDA
@@ -61,13 +61,15 @@ _SQRT_2_OVER_PI = 0.7978845608028654
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _PARAM_CODES = _DTYPE_CODES
 MAX_COL_TILES = 65535            # the grid's second dimension, 128 a tile
-# The widest D the wgmma kernels take: a forward block keeps a panel of
-# 64 normalised rows in shared memory (128 D bytes) beside at least two
-# 8 KB stages of W and 136 bytes of barriers, within the 232,448 bytes a
-# block may use on an H100: 128 D + 16,520 <= 232,448 holds up to D =
-# 1664 (a multiple of 64), so every GPT-2 width (768, 1024, 1280, 1600)
-# takes them. csrc/fused_ln_tc.cu holds the same constant, TC_MAX_D, and
-# refuses a wider D; tests/test_torch_fused_ln_tc.py holds the two equal.
+# The widest resident panel of the wgmma forward: a block keeps 64
+# normalised rows in shared memory (128 D bytes) beside at least two 8 KB
+# stages of W and 136 bytes of barriers, within the 232,448 bytes a block
+# may use on an H100: 128 D + 16,520 <= 232,448 holds up to D = 1664 (a
+# multiple of 64), so every GPT-2 width (768, 1024, 1280, 1600) takes the
+# panel. Above it csrc/fused_ln_tc.cu (which holds the same constant,
+# TC_MAX_D; tests/test_torch_fused_ln_tc.py holds the two equal) writes
+# T(ln) once and streams it through the product instead, and the
+# forward's scratch holds T(ln) and the rows' statistics.
 TC_MAX_D = 1664
 _FN = {}
 
@@ -75,16 +77,16 @@ _FN = {}
 def _route(dtype: torch.dtype, d: int) -> str:
     """The library that computes #6 and #7 on CUDA: ``"fused_ln_tc"``
     (wgmma + TMA, ``csrc/fused_ln_tc.cu``) for bfloat16 and float16 with D
-    a multiple of 8 up to ``TC_MAX_D``; ``"fused_ln_tf32"`` (3xTF32 on
-    wgmma + TMA, ``csrc/fused_ln_tf32.cu``) for float32 with D a multiple
-    of 8; ``"fused_ln"`` (``csrc/fused_ln.cu``) for everything else the
-    kernels take: 16-bit D above ``TC_MAX_D``."""
+    a multiple of 8; ``"fused_ln_tf32"`` (3xTF32 on wgmma + TMA,
+    ``csrc/fused_ln_tf32.cu``) for float32 with D a multiple of 8;
+    ``"fused_ln"`` (``csrc/fused_ln.cu``) only for what
+    :func:`ln_matmul_ok` refuses anyway."""
     if d % 8 or d < 8:
         return "fused_ln"
     if dtype == torch.float32:
         return "fused_ln_tf32"
     return ("fused_ln_tc" if dtype in (torch.bfloat16, torch.float16)
-            and d <= TC_MAX_D else "fused_ln")
+            else "fused_ln")
 
 
 def _gelu_tanh(x):
@@ -232,11 +234,14 @@ def _launch_fwd(name, x, gamma, beta, w, bias, eps, activation):
     n, d = x.shape
     f = w.shape[0]
     y = torch.empty((n, f), dtype=x.dtype, device=x.device)
-    # the forward's scratch: fused_ln.cu's row statistics; the 3xTF32
-    # forward's W hi and lo ([F, D] each), gamma, beta and bias in fp32,
-    # then its row statistics; the 16-bit wgmma forward takes none
+    # the forward's scratch, in fp32 words: fused_ln.cu's row statistics;
+    # the 3xTF32 forward's W hi and lo ([F, D] each), gamma, beta and bias
+    # in fp32, then its row statistics; the 16-bit wgmma forward's none up
+    # to TC_MAX_D, above it T(ln) [n, D] in x's dtype, then the statistics
     size = {"fused_ln": 2 * n,
-            "fused_ln_tf32": 2 * f * d + 2 * d + f + 2 * n}.get(name)
+            "fused_ln_tf32": 2 * f * d + 2 * d + f + 2 * n,
+            "fused_ln_tc": n * d // 2 + 2 * n if d > TC_MAX_D else None
+            }.get(name)
     stats = (None if size is None else
              torch.empty(size, dtype=torch.float32, device=x.device))
     fwd = _kernel(name)[0]
@@ -287,8 +292,7 @@ def _require_tc(x):
     if _route(x.dtype, x.shape[-1]) != "fused_ln_tc":
         raise ValueError(
             f"the wgmma fused_ln kernels take bfloat16 or float16 with D a "
-            f"multiple of 8 up to {TC_MAX_D}; got {x.dtype}, D "
-            f"{x.shape[-1]}")
+            f"multiple of 8; got {x.dtype}, D {x.shape[-1]}")
 
 
 def _require_tf32(x):
@@ -303,9 +307,9 @@ def ln_matmul_fwd(x, gamma, beta, w, bias, *, eps: float = 1e-5,
     """Launch the forward :func:`_route` picks on x [n, D] (inputs as
     :func:`_prepare` returns them); returns y [n, F] in x's dtype.
     ``csrc/fused_ln.cu``'s forward (two kernels: the rows' statistics,
-    then the product) counts one launch here per call; the wgmma forward
-    (one kernel) counts in :func:`ln_matmul_fwd_tc`, the 3xTF32 one in
-    :func:`ln_matmul_fwd_tf32`."""
+    then the product) counts one launch here per call, for what no model
+    reaches; the wgmma forward counts in :func:`ln_matmul_fwd_tc`, the
+    3xTF32 one in :func:`ln_matmul_fwd_tf32`."""
     route = _route(x.dtype, x.shape[-1])
     if route == "fused_ln_tc":
         return ln_matmul_fwd_tc(x, gamma, beta, w, bias, eps=eps,
@@ -321,9 +325,10 @@ def ln_matmul_fwd(x, gamma, beta, w, bias, *, eps: float = 1e-5,
 def ln_matmul_fwd_tc(x, gamma, beta, w, bias, *, eps: float = 1e-5,
                      activation: Optional[str] = None) -> torch.Tensor:
     """The wgmma + TMA forward of ``csrc/fused_ln_tc.cu`` (bfloat16 or
-    float16, D up to ``TC_MAX_D``; anything else raises): one kernel that
+    float16; anything else raises): up to ``TC_MAX_D`` one kernel that
     normalises a panel of rows once and walks W's column tiles against
-    it. One call is one launch."""
+    it; above, a rows kernel that writes T(ln) once and a product that
+    streams it and W through a TMA ring. One call is one launch."""
     _require_tc(x)
     y = _launch_fwd("fused_ln_tc", x, gamma, beta, w, bias, eps, activation)
     ln_matmul_fwd_tc.launches += 1
@@ -368,11 +373,12 @@ def ln_matmul_bwd(x, gamma, beta, w, bias, dy, *, eps: float = 1e-5,
 
 def ln_matmul_bwd_tc(x, gamma, beta, w, bias, dy, *, eps: float = 1e-5,
                      activation: Optional[str] = None):
-    """The backward of ``csrc/fused_ln_tc.cu`` (bfloat16 or float16, D up
-    to ``TC_MAX_D``; anything else raises): T(ln) once into the
-    workspace (by the GELU recompute's kernel, or without GELU a rows
-    kernel), dln = dyc W and dW = dyc^T T(ln) on wgmma, the row pass and
-    the fixed-order sums; five kernels under GELU, six without, one
+    """The backward of ``csrc/fused_ln_tc.cu`` (bfloat16 or float16;
+    anything else raises): T(ln) once into the workspace (up to
+    ``TC_MAX_D`` under GELU by the recompute's panel kernel; else by a
+    rows kernel, then under GELU the streamed product recomputes), dln =
+    dyc W and dW = dyc^T T(ln) on wgmma, the row pass and the fixed-order
+    sums; five kernels under GELU up to ``TC_MAX_D``, six otherwise, one
     launch counted per call."""
     _require_tc(x)
     grads = _launch_bwd("fused_ln_tc", x, gamma, beta, w, bias, dy, eps,

@@ -156,6 +156,40 @@ def test_row_block_accumulation_matches_jax():
         _close(g, w, 5e-4, name)
 
 
+@pytest.mark.parametrize("dtype,tols", [("float32", (2e-5, 2e-4)),
+                                        ("bfloat16", (2e-2, 5e-2))])
+@pytest.mark.parametrize("act", [None, "gelu"])
+def test_plain_versions_match_jax_above_panel_width(act, dtype, tols):
+    """Above fused.TC_MAX_D (D = 1728, n 16, F 64), where the 16-bit
+    kernels stream T(ln) through the product: the port's plain forward and
+    backward (what chip_smoke.py holds those kernels against) against
+    JAX's _fwd_kernel / _bwd_kernel in interpret mode, y and all five
+    gradients, with the forward and gradient tolerances above. JAX's
+    ``ln_matmul`` gates these shapes off the TPU (D and F multiples of
+    128), so its kernels are called as its VJP calls them, with y's
+    cotangent dy in y's dtype and the gradients cast as it casts them."""
+    assert 1728 > fused.TC_MAX_D
+    arrs = _inputs(4, 16, 1728, 64)
+    x, gamma, beta, w, bias, dy = arrs
+    jdt = DTYPES[dtype][0]
+    jx, jw, jbias = (jnp.asarray(a, jdt) for a in (x, w, bias))
+    jg, jb = jnp.asarray(gamma), jnp.asarray(beta)
+    want_y = np.asarray(jfused._run_fwd(jx, jg, jb, jw, jbias, EPS, act, 128,
+                                        True).astype(jnp.float32))
+    dx, dw, dbias, dg, db = jfused._run_bwd(jx, jg, jb, jw, jbias,
+                                            jnp.asarray(dy, jdt), EPS, act,
+                                            128, True)
+    # dx in x's dtype, dgamma and dbeta in fp32 (gamma's), dw and dbias
+    # in w's and bias's
+    want = [np.asarray(a.astype(jnp.float32)) for a in
+            (dx, dg, db, dw.astype(jdt), dbias.astype(jdt))]
+    got_y, got = _port_side(arrs, dtype, act)
+    assert np.abs(got_y - want_y).max() <= tols[0]
+    for name, g, w in zip(("dx", "dgamma", "dbeta", "dw", "dbias"), got,
+                          want):
+        _close(g, w, tols[1], name)
+
+
 @pytest.mark.parametrize("act", [None, "gelu"])
 def test_plain_backward_matches_jax_grad(act):
     """ln_matmul_bwd_reference called alone, in fp32 (the CUDA kernels'

@@ -63,10 +63,11 @@ BK = _constant("BK")
     (F32, 768, "fused_ln_tf32"), (F32, 1600, "fused_ln_tf32"),
     (F32, 2048, "fused_ln_tf32"),
     (BF16, 768, "fused_ln_tc"), (F16, 1600, "fused_ln_tc"),
-    (BF16, 2048, "fused_ln"), (F16, 2048, "fused_ln")])
+    (BF16, 2048, "fused_ln_tc"), (F16, 2048, "fused_ln_tc")])
 def test_route(dtype, d, route):
     """fp32 takes the 3xTF32 kernels at every D the gate admits; 16-bit
-    types keep their routes (wgmma up to TC_MAX_D, fused_ln.cu above)."""
+    types keep theirs, the wgmma kernels at every D (the resident panel up
+    to TC_MAX_D, the streamed product above)."""
     assert fused._route(dtype, d) == route
 
 

@@ -34,7 +34,8 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(HERE, "build", "fused_ln_tc_variants")
-EPI = "    // the epilogue, four groups of 32 columns"
+EPI = "    epilogue<T, MODE>(d, dyr, col0, rbase, t, n, F, bias, bcode, out,"
+EPI_END = "row0 + 16 * q < n);\n"
 NORM = ("for (int r = warp; r < PANEL_ROWS && row0 + r < n; "
         "r += CONSUMERS / 32) {")
 KEEP = "    if (d[0] == 1234.5f && d[63] == 1.f) out[0] = d[5];\n"
@@ -45,7 +46,7 @@ def variants(src: str) -> dict:
         raise SystemExit("probe_fused_ln_tc: the source's epilogue or "
                          "normalisation moved")
     i = src.index(EPI)
-    j = src.index("  }\n}\n", i)        # the end of the tile loop
+    j = src.index(EPI_END, i) + len(EPI_END)   # the end of the call
     no_epi = src[:i] + KEEP + src[j:]
     skip = NORM.replace("r < PANEL_ROWS && row0 + r < n", "r < 0")
     return {"source": src, "no_epilogue": no_epi,
