@@ -4,7 +4,7 @@
     python3 chip_smoke.py                  # everything, one card
     python3 chip_smoke.py --only kernels   # stop after phase 2
     python3 chip_smoke.py --only sparse    # the build, then phase 2d only
-    python3 chip_smoke.py --only chunked   # the build, then phase 2a'' only
+    python3 chip_smoke.py --only chunked   # the build, then phases 2a'', 3d
     python3 chip_smoke.py --only spec      # the build, then phase 3b only
     python3 chip_smoke.py --only telemetry # the build, then phase 3c only
     python3 chip_smoke.py --only bert      # the build, then phase 8 only
@@ -48,9 +48,13 @@
      excluded, bit-equal over two launches; timed at the mixed step, the
      run kernels of both dtypes (and each kind of item alone) beside the
      first kernel on the same inputs, and the decode rows' split counts
-     beside the rule's pick; the first kernel's own route, head dim 256,
-     held and timed at the mixed step in bf16 and fp32 q over fp and
-     int8 pools;
+     beside the rule's pick at head dims 64, 128 and 256; the run kernels at
+     head dims 256 and 136 (zero-padded to 144 in the 16-bit tiles; bf16
+     q: the wgmma chunk kernel, fp32 q: the wide 3xTF32 one, beside the
+     decode walk) in bf16 and fp32 q over fp and int8 pools at the mixed
+     step, held the same way and timed (each kind of item alone too)
+     beside the first kernel on the same inputs, SDPA per segment and
+     the bound;
    - flash attention forward, dq and dk/dv at [16, 512, 12, 64] causal,
      with and without a key mask holding an all-padding row, and at S=5
      and S=300, in fp32 (the 3xTF32 forward, dq and dk/dv of
@@ -193,6 +197,18 @@
      chunked with ``prefix_cache``: >= 7 hits, tokens equal to the run
      without the cache (tie rule);
    - a profiled window of 16 decode steps and of 16 chunked mixed steps.
+3d. Serving with 256-wide heads (``--only chunked`` runs it too;
+   :func:`check_wide_serving`): ``init_serving`` on
+   ``GPTConfig(hidden_size=4096, num_heads=16, num_layers=2)`` (GPT-J-6B's
+   attention width on this family's GPT-2 block, 2 of its 28 layers;
+   random weights from seed 0) serves phase 3's 16 requests chunked: bf16
+   at budget 256 over the bf16 pool and the int8 pool, fp32 at budget 64
+   over the fp32 pool and the int8 pool (every call held against its
+   plain version there): kernel #2's run kernels at D = 256, calls ==
+   ``mixed_steps * num_layers``, the first kernel, the plain version and
+   the gather 0; TTFT and the mixed step printed; the fp32 tokens against
+   the bucketed kernel path's (kernel #1 at D = 256) under phase 3's tie
+   rule. It runs between phases 3 and 3b.
 3b. Speculative serving and resilience: the same model and trace with
    ``speculative: {enabled: true, k: 4}`` (the draft: the first 6
    layers), guarded by ``serving.resilience``:
@@ -410,10 +426,12 @@ chunked int8 run, ``chunked_prefill_attention_tf32`` the fp32 chunked@64
 run and ``chunked_prefill_attention_tf32_int8`` the fp32 int8 chunked@64
 run, each timed at the mixed step on its own inputs. The first chunked-
 prefill kernel's row (``chunked_prefill_attention``) counts its launches
-over phase 3's fp32 chunked traces (0) and is timed on the fp32 run
-kernels' inputs, as their first version; its ``_d256`` rows (bf16 or
-fp32 q, ``_int8`` over int8 pools) are its own route, head dim 256, held
-and timed at the mixed step, counted by the same counter. The
+over every served trace of phases 3-3d (0, or the run fails) and is
+timed on the fp32 run kernels' inputs, as their first version. The run
+kernels' ``_d256`` rows (bf16 or fp32 q, ``_int8`` over int8 pools) are
+held and timed at the mixed step at head dim 256 (the first kernel timed
+on the same inputs beside them) and count phase 3d's chunked run of
+their dtype and pool. The
 ``fused_ln_matmul_*_tc_d2048`` rows are the wgmma route's streamed product
 at D = 2048, timed in bf16 at both sites' shapes, counted over phase 6b's
 fused steps; the ``fused_ln_matmul_*_d2048`` rows are ``fused_ln.cu``
@@ -1063,36 +1081,99 @@ CHUNKED_NAMES = {"walk": "chunked_prefill_attention",
                  "tf32": "chunked_prefill_attention_tf32"}
 # every kernel #1 / #2 counter summed over every trace serve() ran, each
 # run's counts held to its route's there: the first chunked-prefill
-# kernel's route (head dims above 128, or neither q dtype of the run
-# kernels) reads its launches on the serving path here
+# kernel (on no route) reads its launches on the serving path here
 SERVED_LAUNCHES = {}
 
 
 def chunked_wrappers(cp):
     """Each route's counting wrapper: the run kernels' own, and the public
-    call for the first kernel (its route's launches count there)."""
+    call for the first kernel (its launches through the public call count
+    there; no route sends it any)."""
     return {r: getattr(cp, n) for r, n in CHUNKED_NAMES.items()}
+
+
+def time_chunked(torch, cp, route, q, pools, table, pos, n_real, blocks,
+                 bs, int8):
+    """Kernel #2's run kernels on ``route`` at a mixed step's inputs
+    (``chunked_case`` with 8 layers' pools, rotated; scratch block 0 made
+    finite first), the run list found once, as the serving engine finds
+    it once per step: device ms of the run kernels, of each kind of item
+    alone (the chunk items, the decode items) and of the first kernel on
+    the same inputs (their first version); the plain version host-paced;
+    SDPA per segment (pre-gathered) and the bound. Returns the row, the
+    run list, and the bound's bytes, flops and peak."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    for k, v, ks, vs in pools:
+        if int8:
+            ks[0] = 1.0
+            vs[0] = 1.0
+        else:
+            k[0] = 0.0
+            v[0] = 0.0
+    wrapper = chunked_wrappers(cp)[route]
+    runs = cp.chunked_runs(table.cpu(), pos.cpu(), bs)
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % len(pools)
+        return pools[it["i"]]
+
+    def runs_call(items):
+        return lambda: wrapper(q, *nxt(), table, pos, block_size=bs,
+                               runs=items)
+
+    none = np.zeros((0, 4))
+    row = {"ms": device_ms(torch, runs_call(runs))[0],
+           "host_ms": cuda_ms(runs_call(runs)),
+           "chunk_ms": device_ms(torch, runs_call(cp.ChunkedRuns(
+               runs.items[:runs.n_chunk], none)))[0],
+           "decode_ms": device_ms(torch, runs_call(cp.ChunkedRuns(
+               none, runs.items[runs.n_chunk:])))[0],
+           "first_ms": device_ms(torch, lambda: cp._launch_walk(
+               q, *nxt(), table, pos, bs, None))[0]}
+    row["plain_ms"] = cuda_ms(
+        lambda: cp.chunked_prefill_attention_reference(
+            q, *nxt(), table, pos, block_size=bs), iters=3, warmup=1)
+    qs, kv, mask = segment_sdpa_inputs(torch, q, pools, table, pos, n_real,
+                                       bs)
+    git = {"i": 0}
+
+    def gnxt():
+        git["i"] = (git["i"] + 1) % len(kv)
+        return kv[git["i"]]
+
+    row["library_ms"] = device_ms(
+        torch, lambda: F.scaled_dot_product_attention(
+            qs, *gnxt(), attn_mask=mask))[0]
+    nbytes, flops = chunked_bytes_flops(q, table, pos, blocks, bs, int8)
+    # the run kernels' chunk products on the tensor cores; fp32's at the
+    # 3xTF32 rate (the first kernel runs them on FMAs)
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_3XTF32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    row.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return row, runs, nbytes, flops, peak
 
 
 def check_chunked_prefill(torch, reports):
     """Kernel #2 on the route ``chunked_prefill._route`` picks (bf16 q over
     bf16 or int8 pools: the run kernels; fp32 q over fp32 or int8 pools:
-    the fp32 run kernels, 3xTF32; wider heads: the first kernel), each
-    call counted by its route's wrapper only, in CHUNKED_SHAPES against
-    the plain version (fp32 1e-5, bf16 2e-2, NaN scratch, pad rows
-    excluded), every output bit-equal over two launches; the run kernels
-    also at every split count of the decode rows (the 1,024-key window);
-    the first kernel on the fp32 inputs too (the fp32 route's first
-    version). Then timing at the T=256 mixed step: the run kernels, each
-    kind of item alone, beside the first kernel on the same inputs (its
-    first version), the plain version, SDPA per segment and the bound; the
-    decode rows' split counts; and the first kernel's route, head dim 256
+    the fp32 run kernels, 3xTF32), each call counted by its route's
+    wrapper only, in CHUNKED_SHAPES against the plain version (fp32 1e-5,
+    bf16 2e-2, NaN scratch, pad rows excluded), every output bit-equal
+    over two launches; the run kernels also at every split count of the
+    decode rows (the 1,024-key window); the first kernel on the fp32
+    inputs too (the fp32 route's first version). Then timing at the T=256
+    mixed step: the run kernels, each kind of item alone, beside the first
+    kernel on the same inputs (its first version), the plain version, SDPA
+    per segment and the bound; the decode rows' split counts at D = 64,
+    128 and 256; and the run kernels at head dims above 128
     (``check_chunked_d256``). ``reports``: the kernels line's rows, by
-    route ("walk", "tc", "tf32"), "tc_int8" and "tf32_int8" for the run
-    kernels over int8 pools, and the D = 256 rows by label."""
-    import numpy as np
-    import torch.nn.functional as F
-
+    route ("walk": the first kernel, "tc", "tf32"), "tc_int8" and
+    "tf32_int8" for the run kernels over int8 pools, and the D = 256 rows
+    by label."""
     from deepspeed_tpu_torch.ops.transformer import chunked_prefill as cp
 
     bs, d = 16, 64
@@ -1165,61 +1246,9 @@ def check_chunked_prefill(torch, reports):
             q, pools, table, pos, n_real, blocks = chunked_case(
                 torch, dtype, 256, MIXED_DECODE_POS, MIXED_CHUNKS,
                 seed=5 + int8, layers=8, int8=int8)
-            for k, v, ks, vs in pools:
-                if int8:
-                    ks[0] = 1.0
-                    vs[0] = 1.0
-                else:
-                    k[0] = 0.0
-                    v[0] = 0.0
-            runs = cp.chunked_runs(table.cpu(), pos.cpu(), bs)
-            it = {"i": 0}
-
-            def nxt():
-                it["i"] = (it["i"] + 1) % len(pools)
-                return pools[it["i"]]
-
-            def first():
-                cp._launch_walk(q, *nxt(), table, pos, bs, None)
-
-            def runs_call(items):
-                return lambda: wrappers[route](
-                    q, *nxt(), table, pos, block_size=bs, runs=items)
-
-            # the run kernels, each kernel alone (the chunk items, the
-            # decode items), the first kernel on the same inputs
-            none = np.zeros((0, 4))
-            row = {"ms": device_ms(torch, runs_call(runs))[0],
-                   "host_ms": cuda_ms(runs_call(runs)),
-                   "chunk_ms": device_ms(torch, runs_call(cp.ChunkedRuns(
-                       runs.items[:runs.n_chunk], none)))[0],
-                   "decode_ms": device_ms(torch, runs_call(cp.ChunkedRuns(
-                       none, runs.items[runs.n_chunk:])))[0],
-                   "first_ms": device_ms(torch, first)[0]}
-            row["plain_ms"] = cuda_ms(
-                lambda: cp.chunked_prefill_attention_reference(
-                    q, *nxt(), table, pos, block_size=bs), iters=5, warmup=1)
-            qs, kv, mask = segment_sdpa_inputs(torch, q, pools, table, pos,
-                                               n_real, bs)
-            git = {"i": 0}
-
-            def gnxt():
-                git["i"] = (git["i"] + 1) % len(kv)
-                return kv[git["i"]]
-
-            row["library_ms"] = device_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    qs, *gnxt(), attn_mask=mask))[0]
-            nbytes, flops = chunked_bytes_flops(q, table, pos, blocks, bs,
-                                                 int8)
-            t_bytes = nbytes / HBM_BYTES_PER_S
-            # the run kernels' chunk products on the tensor cores; fp32's
-            # at the 3xTF32 rate (the first kernel runs them on FMAs)
-            peak = (BF16_FLOPS if dtype == torch.bfloat16
-                    else FP32_3XTF32_FLOPS)
-            t_ops = flops / peak
-            row.update(bound_ms=max(t_bytes, t_ops) * 1e3,
-                       bound_by="bytes" if t_bytes >= t_ops else "operations")
+            row, runs, nbytes, flops, peak = time_chunked(
+                torch, cp, route, q, pools, table, pos, n_real, blocks, bs,
+                int8)
             timings[label] = row
             print(f"chunked_prefill_attention timing, {label} ({route}), "
                   f"T=256 mixed (decode rows at {MIXED_DECODE_POS}, chunks "
@@ -1228,7 +1257,7 @@ def check_chunked_prefill(torch, reports):
                   f"(host-paced {row['host_ms']:.4f} ms; {runs.n_chunk} "
                   f"chunk items alone {row['chunk_ms']:.4f} ms, "
                   f"{runs.n_decode} decode items at "
-                  f"{cp.chunked_decode_splits(runs, 12)} splits alone "
+                  f"{cp.chunked_decode_splits(runs, 12, d)} splits alone "
                   f"{row['decode_ms']:.4f} ms), the first kernel on the same "
                   f"inputs {row['first_ms']:.4f} ms, plain "
                   f"{row['plain_ms']:.4f} ms (host-paced), SDPA per segment "
@@ -1236,9 +1265,10 @@ def check_chunked_prefill(torch, reports):
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes} "
                   f"bytes / 3.35 TB/s, {flops} flops / "
                   f"{peak / 1e12:.0f} TFLOP/s)")
-            del pools, kv
+            del pools
 
-    time_chunked_splits(torch, cp, bs)
+    for sweep_d in (64, 128, 256):
+        time_chunked_splits(torch, cp, bs, d=sweep_d)
 
     # the run kernels' rows: bf16 q ("tc") and fp32 q ("tf32"), each over
     # its own-dtype pools and over int8 pools ("_int8")
@@ -1276,120 +1306,109 @@ def check_chunked_prefill(torch, reports):
 
 
 def chunked_d256_row(name, int8):
-    """The kernels line's row suffix of the first kernel's route (head
-    dims in (128, 256]) for q of dtype ``name``, over int8 pools or not."""
+    """The kernels line's row suffix of the run kernels at head dim 256 for
+    q of dtype ``name``, over int8 pools or not."""
     return ("d256" + ("_fp32" if name == "float32" else "")
             + ("_int8" if int8 else ""))
 
 
+# Head dims above 128 that phase 2a'' holds and times at the T=256 mixed
+# step: 256 (phase 3d's heads) and 136 (a multiple of 8 that is not one of
+# 16: the 16-bit tiles zero-pad it to 144)
+CHUNKED_WIDE_DIMS = (256, 136)
+
+
 def check_chunked_d256(torch, cp, reports):
-    """The first kernel on its own route, head dim 256, at the T=256 mixed
-    step: bf16 and fp32 q over pools of q's dtype and over int8 pools,
-    through the public call (counted by ``chunked_prefill_attention``
-    only), against the plain version (``KERNEL_TOL``; NaN scratch, pad
-    rows excluded), bit-equal over two launches; then timed (8 layers'
-    pools in rotation, no NaN) beside the plain version, SDPA per segment
-    and the bound. ``reports``: the rows by ``chunked_d256_row``."""
-    import torch.nn.functional as F
-
-    bs, d = 16, 256
+    """The run kernels at head dims above 128 (CHUNKED_WIDE_DIMS), at the
+    T=256 mixed step: bf16 q over bf16 and int8 pools (route "tc": the
+    wgmma chunk kernel ``chunked_tc256_kernel``) and fp32 q over fp32 and
+    int8 pools ("tf32": the wide 3xTF32 ``chunked_tf32w_kernel``), each
+    beside the decode walk at TPKP = 32, through the public call (counted
+    by the route's run wrapper only), against the plain version
+    (``KERNEL_TOL``; NaN scratch, pad rows excluded), bit-equal over two
+    launches; then timed (8 layers' pools in rotation, no NaN): the run
+    kernels, the chunk items alone and the decode items alone, beside the
+    first kernel on the same inputs (their first version), the plain
+    version, SDPA per segment and the bound. ``reports``: the D = 256 rows
+    by ``chunked_d256_row``."""
+    bs = 16
     wrappers = chunked_wrappers(cp)
-    for int8 in (False, True):
-        for dtype in (torch.bfloat16, torch.float32):
-            name = str(dtype).split(".")[1]
-            label = f"{'int8 pools, ' if int8 else ''}{name} q"
-            route = cp._route(dtype, torch.int8 if int8 else dtype, d)
-            if route != "walk":
-                fail(f"chunked_prefill D=256 {label}: routed to {route}")
-            q, pools, table, pos, n_real, blocks = chunked_case(
-                torch, dtype, 256, MIXED_DECODE_POS, MIXED_CHUNKS,
-                seed=21 + int8, layers=8, int8=int8, d=d)
-            kp, vp, ks, vs = pools[0]
-            args = (q, kp, vp, ks, vs, table, pos)
-            before = {r: w.launches for r, w in wrappers.items()}
-            got, again = (cp.chunked_prefill_attention(*args, block_size=bs)
-                          for _ in range(2))
-            grew = {r: w.launches - before[r] for r, w in wrappers.items()}
-            if grew != {r: 2 if r == "walk" else 0 for r in wrappers}:
-                fail(f"chunked_prefill D=256 {label}: launches {grew}")
-            want = cp.chunked_prefill_attention_reference(*args,
-                                                          block_size=bs)
-            torch.cuda.synchronize()
-            if not same_bits(torch, got, again):
-                fail(f"chunked_prefill D=256 {label}: differs between two "
-                     f"launches")
-            real = got[:n_real]
-            err = (real.float() - want[:n_real].float()).abs().max().item()
-            if not torch.isfinite(real).all() or err > KERNEL_TOL[name]:
-                fail(f"chunked_prefill_attention D=256 {label}: max |err| "
-                     f"{err} > {KERNEL_TOL[name]} or non-finite real rows")
-            del got, again, want, real
-            for k, v, ks_, vs_ in pools:
-                if int8:
-                    ks_[0] = 1.0
-                    vs_[0] = 1.0
-                else:
-                    k[0] = 0.0
-                    v[0] = 0.0
-            it = {"i": 0}
-
-            def nxt():
-                it["i"] = (it["i"] + 1) % len(pools)
-                return pools[it["i"]]
-
-            row = {"ms": device_ms(torch, lambda: cp._launch_walk(
-                q, *nxt(), table, pos, bs, None))[0]}
-            row["plain_ms"] = cuda_ms(
-                lambda: cp.chunked_prefill_attention_reference(
-                    q, *nxt(), table, pos, block_size=bs), iters=3,
-                warmup=1)
-            qs, kv, mask = segment_sdpa_inputs(torch, q, pools, table, pos,
-                                               n_real, bs)
-            git = {"i": 0}
-
-            def gnxt():
-                git["i"] = (git["i"] + 1) % len(kv)
-                return kv[git["i"]]
-
-            row["library_ms"] = device_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    qs, *gnxt(), attn_mask=mask))[0]
-            nbytes, flops = chunked_bytes_flops(q, table, pos, blocks, bs,
-                                                 int8)
-            peak = (BF16_FLOPS if dtype == torch.bfloat16
-                    else FP32_3XTF32_FLOPS)
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-            row.update(bound_ms=max(t_bytes, t_ops) * 1e3,
-                       bound_by="bytes" if t_bytes >= t_ops else "operations",
-                       max_abs_err=err)
-            reports[chunked_d256_row(name, int8)].update(row)
-            print(f"chunked_prefill_attention D=256, {label} (the first "
-                  f"kernel, its route; T=256 mixed, H=12 BS=16 WB=64, NaN "
-                  f"scratch, pad rows excluded, bit-equal over two "
-                  f"launches): max |err| {err:.3g} (atol "
-                  f"{KERNEL_TOL[name]}); device time {row['ms']:.4f} ms, "
-                  f"plain {row['plain_ms']:.4f} ms (host-paced), SDPA per "
-                  f"segment (pre-gathered) {row['library_ms']:.4f} ms, bound "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes} "
-                  f"bytes / 3.35 TB/s, {flops} flops / "
-                  f"{peak / 1e12:.0f} TFLOP/s): "
-                  f"{row['ms'] / row['bound_ms']:.2f}x the bound, "
-                  f"{row['ms'] / row['library_ms']:.2f}x SDPA")
-            del pools, kv, qs, mask
+    for d in CHUNKED_WIDE_DIMS:
+        for int8 in (False, True):
+            for dtype in (torch.bfloat16, torch.float32):
+                name = str(dtype).split(".")[1]
+                label = f"{'int8 pools, ' if int8 else ''}{name} q"
+                route = cp._route(dtype, torch.int8 if int8 else dtype, d)
+                want_route = "tc" if dtype == torch.bfloat16 else "tf32"
+                if route != want_route:
+                    fail(f"chunked_prefill D={d} {label}: routed to {route},"
+                         f" not the run kernels ({want_route})")
+                q, pools, table, pos, n_real, blocks = chunked_case(
+                    torch, dtype, 256, MIXED_DECODE_POS, MIXED_CHUNKS,
+                    seed=21 + int8 + d, layers=8, int8=int8, d=d)
+                kp, vp, ks, vs = pools[0]
+                args = (q, kp, vp, ks, vs, table, pos)
+                before = {r: w.launches for r, w in wrappers.items()}
+                got, again = (cp.chunked_prefill_attention(
+                    *args, block_size=bs) for _ in range(2))
+                grew = {r: w.launches - before[r]
+                        for r, w in wrappers.items()}
+                if grew != {r: 2 if r == route else 0 for r in wrappers}:
+                    fail(f"chunked_prefill D={d} {label}: launches {grew}")
+                want = cp.chunked_prefill_attention_reference(
+                    *args, block_size=bs)
+                torch.cuda.synchronize()
+                if not same_bits(torch, got, again):
+                    fail(f"chunked_prefill D={d} {label}: differs between "
+                         f"two launches")
+                real = got[:n_real]
+                err = (real.float() - want[:n_real].float()).abs().max()
+                err = err.item()
+                if not torch.isfinite(real).all() or err > KERNEL_TOL[name]:
+                    fail(f"chunked_prefill_attention D={d} {label} "
+                         f"({route}): max |err| {err} > {KERNEL_TOL[name]} "
+                         f"or non-finite real rows")
+                del got, again, want, real
+                row, runs, nbytes, flops, peak = time_chunked(
+                    torch, cp, route, q, pools, table, pos, n_real, blocks,
+                    bs, int8)
+                row["max_abs_err"] = err
+                if d == 256:
+                    reports[chunked_d256_row(name, int8)].update(row)
+                print(f"chunked_prefill_attention D={d}, {label} (the run "
+                      f"kernels, route {route}; T=256 mixed, H=12 BS=16 "
+                      f"WB=64, NaN scratch, pad rows excluded, bit-equal "
+                      f"over two launches): max |err| {err:.3g} (atol "
+                      f"{KERNEL_TOL[name]}); device time: run kernels "
+                      f"{row['ms']:.4f} ms ({runs.n_chunk} chunk items "
+                      f"alone {row['chunk_ms']:.4f} ms, {runs.n_decode} "
+                      f"decode items at "
+                      f"{cp.chunked_decode_splits(runs, 12, d)}"
+                      f" splits alone {row['decode_ms']:.4f} ms), the first "
+                      f"kernel on the same inputs {row['first_ms']:.4f} ms "
+                      f"({row['first_ms'] / row['ms']:.2f}x), plain "
+                      f"{row['plain_ms']:.4f} ms (host-paced), SDPA per "
+                      f"segment (pre-gathered) {row['library_ms']:.4f} ms "
+                      f"({row['ms'] / row['library_ms']:.3f}x), bound "
+                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
+                      f"{nbytes} bytes / 3.35 TB/s, {flops} flops / "
+                      f"{peak / 1e12:.0f} TFLOP/s; "
+                      f"{row['ms'] / row['bound_ms']:.2f}x)")
+                del pools
 
 
-def time_chunked_splits(torch, cp, bs):
+def time_chunked_splits(torch, cp, bs, d=64):
     """The run kernels' decode rows at every split count (1-8) and the
     rule's pick (``chunked_decode_splits``): 1, 2, 4 and 8 rows (a mixed
     step's decode rows, at most the 8 slots), each at the last position of
-    a 256- or 1,024-key window (bf16, 8 layers' pools in rotation; device
-    time)."""
+    a 256- or 1,024-key window (bf16, head dim ``d``, 8 layers' pools in
+    rotation; device time)."""
     sweep = {}
     for window in (256, 1024):
         for rows in (1, 2, 4, 8):
             q, pools, table, pos, _n, _b = chunked_case(
                 torch, torch.bfloat16, rows, [window - 1] * rows, [],
-                seed=11 + rows, layers=8, wb=window // bs)
+                seed=11 + rows, layers=8, wb=window // bs, d=d)
             for k, v, _ks, _vs in pools:
                 k[0] = 0.0
                 v[0] = 0.0
@@ -1404,15 +1423,18 @@ def time_chunked_splits(torch, cp, bs):
 
             ms = {n: device_ms(torch, lambda n=n: call(n))[0]
                   for n in range(1, 9)}
-            pick = cp.chunked_decode_splits(runs, 12)
+            pick = cp.chunked_decode_splits(runs, 12, d)
             best = min(ms, key=ms.get)
             sweep[f"{rows}x{window}"] = {
                 "ms": {n: round(v, 4) for n, v in ms.items()},
                 "fastest": best, "pick": pick,
                 "pick_over_fastest": round(ms[pick] / ms[best], 4)}
             del pools
+    worst = max(s["pick_over_fastest"] for s in sweep.values())
     print(f"chunked_prefill decode rows by split count (rows x window keys,"
-          f" bf16, H=12 D=64, device ms): {json.dumps(sweep)}")
+          f" bf16, H=12 D={d}, device ms): {json.dumps(sweep)}; the rule's "
+          f"pick within {(worst - 1) * 100:.1f}% of the fastest count in "
+          f"every case")
 
 
 # ---------------------------------------------------------------------------
@@ -3850,18 +3872,18 @@ def time_fused_ln(torch, dtype, reports, errs, sites=FUSED_LN_SITES):
 # ---------------------------------------------------------------------------
 
 def serving_engine(torch, dtype, mode, params, fault=None, telemetry=None,
-                   **serving):
-    """Full-width GPT-2 behind ``init_serving``: 8 slots, KV block 16, a
-    pool of 8 x 1024 positions (plus the scratch block); ``serving`` adds
-    keys of the serving block (chunked prefill, int8 pool, prefix cache,
-    speculative decoding, resilience); ``fault``: a
-    ``resilience.fault_injection`` plan; ``telemetry``: a telemetry
-    block."""
+                   model_cfg=None, **serving):
+    """Full-width GPT-2 (or the GPTConfig ``model_cfg``) behind
+    ``init_serving``: 8 slots, KV block 16, a pool of 8 x 1024 positions
+    (plus the scratch block); ``serving`` adds keys of the serving block
+    (chunked prefill, int8 pool, prefix cache, speculative decoding,
+    resilience); ``fault``: a ``resilience.fault_injection`` plan;
+    ``telemetry``: a telemetry block."""
     import deepspeed_tpu_torch as dtt
     from deepspeed_tpu_torch.models import make_gpt
 
     with torch.device("cuda"):
-        model, _cfg = make_gpt("gpt2", dtype=dtype)
+        model, _cfg = make_gpt(model_cfg or "gpt2", dtype=dtype)
     bs = 16
     config = {"serving": {"max_batch_size": 8, "kv_block_size": bs,
                           "kv_num_blocks": 8 * 1024 // bs + 1,
@@ -3969,7 +3991,7 @@ class KernelShims:
 
 def serve(torch, dtype, mode, params, requests, wave1=10,
           second_wave="finish", attention="kernel", telemetry=None,
-          **serving):
+          model_cfg=None, **serving):
     """Serve ``requests``: ``wave1`` at once, the rest when the first
     request finishes (backfill), or with ``second_wave="prefill"`` as soon
     as request 0 has its first token (so the rest find its prompt in the
@@ -3979,13 +4001,14 @@ def serve(torch, dtype, mode, params, requests, wave1=10,
     step's kernel replaced by its plain version (nothing launches); or
     "both", every kernel call held against its plain version on the
     same inputs (``max_err`` in the metrics). ``telemetry``: a telemetry
-    block for ``init_serving`` (the caller closes the engine)."""
+    block for ``init_serving`` (the caller closes the engine).
+    ``model_cfg``: the served GPTConfig (full-width GPT-2 by default)."""
     from deepspeed_tpu_torch.ops.transformer import chunked_prefill
     from deepspeed_tpu_torch.ops.transformer.paged_attention import \
         paged_decode_attention
 
     srv = serving_engine(torch, dtype, mode, params, telemetry=telemetry,
-                         **serving)
+                         model_cfg=model_cfg, **serving)
     cfg = srv.model_cfg
     chunked = srv.scfg.chunked_prefill
     label = (f"{mode}/{dtype}/{attention}/" + ",".join(
@@ -4634,6 +4657,97 @@ def check_int8_chunked_bf16(torch, params, requests, srv_b, toks_b):
           f"{row.get('ttft_ms_median', float('nan')):.1f} ms; "
           f"{row['kernel_launches']} run-kernel calls over int8 pools")
     return row
+
+
+# ---------------------------------------------------------------------------
+# 3d. serving with 256-wide heads
+# ---------------------------------------------------------------------------
+
+# GPT-J-6B's attention width (Wang and Komatsuzaki 2021: d_model 4096, 16
+# heads of 256) on this family's GPT-2 block (no rotary embedding, no
+# parallel block), cut to 2 of its 28 layers so that the run stays within
+# its limit
+WIDE_HEADS_CFG = {"hidden_size": 4096, "num_heads": 16, "num_layers": 2}
+
+
+def check_wide_serving(torch):
+    """Phase 3d: ``init_serving`` on ``GPTConfig(hidden_size=4096,
+    num_heads=16, num_layers=2)`` (random weights from seed 0) serves phase
+    3's 16 requests chunked: bf16 at token budget 256 over the bf16 pool
+    (once to warm up, then measured) and over the int8 pool, fp32 at budget
+    64 over the fp32 pool and over the int8 pool (every kernel call held
+    against its plain version on the served pools). Every run's kernel #2
+    calls == ``mixed_steps * num_layers`` on its route's run kernels at
+    head dim 256 (``serve`` checks it); the first kernel, every plain
+    version, the gather and dense attention 0. The fp32 tokens against
+    the bucketed "kernel" path's (kernel #1 at D = 256) under phase 3's
+    tie rule. Returns each run's row, by the kernels line's D = 256 row
+    suffix (``chunked_d256_row``)."""
+    from dataclasses import replace
+
+    from deepspeed_tpu_torch.models import GPT_CONFIGS, init_gpt_params
+    from deepspeed_tpu_torch.ops.transformer import chunked_prefill as cp
+
+    cfg = replace(GPT_CONFIGS["gpt2"], **WIDE_HEADS_CFG)
+    d = cfg.hidden_size // cfg.num_heads
+    t0 = time.perf_counter()
+    params = init_gpt_params(cfg, seed=0)
+    print(f"phase 3d model (d_model {cfg.hidden_size}, {cfg.num_heads} heads "
+          f"of {d}, {cfg.num_layers} layers): weights from seed 0 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    requests = trace(cfg)
+    plens = [len(p) for p, _ in requests]
+    bf16, fp32 = torch.bfloat16, torch.float32
+    runs = (("bfloat16", False, 256), ("bfloat16", True, 256),
+            ("float32", False, 64), ("float32", True, 64))
+    out, toks = {}, {}
+    for name, int8, budget in runs:
+        dtype = getattr(torch, name)
+        extra = {"chunked_prefill": {"token_budget": budget}}
+        if int8:
+            extra["int8_kv_cache"] = True
+        route = cp._route(dtype, torch.int8 if int8 else dtype, d)
+        if route != ("tc" if dtype == bf16 else "tf32"):
+            fail(f"phase 3d {name} q{' int8' if int8 else ''}: kernel #2 "
+                 f"routed to {route}")
+        if not out:
+            serve(torch, dtype, "kernel", params, requests, model_cfg=cfg,
+                  **extra)
+        both = dtype == fp32 and int8
+        srv, toks[(name, int8)], m = serve(
+            torch, dtype, "kernel", params, requests, model_cfg=cfg,
+            attention="both" if both else "kernel", **extra)
+        row = {"dtype": name, "int8_kv_cache": int8, "token_budget": budget,
+               "mixed_steps": m["mixed_steps"],
+               "kernel_launches": m["launches"][CHUNKED_NAMES[route]],
+               "first_kernel_launches":
+                   m["launches"]["chunked_prefill_attention"],
+               **step_summary(m)}
+        if both:
+            row.update(held_calls=m["checked_calls"],
+                       held_max_abs_err=m["max_err"])
+        out[chunked_d256_row(name, int8)] = row
+        print(f"serving d_model 4096, 16 heads of 256, {name} "
+              f"{'int8 pool ' if int8 else ''}chunked at budget {budget} "
+              f"(kernel #2's run kernels at D = 256: calls == mixed_steps x "
+              f"{cfg.num_layers}; the first kernel, the plain version and the"
+              f" gather 0): {json.dumps(row)}")
+        print(f"serving 256-wide heads, {name} {'int8 pool ' if int8 else ''}"
+              f"chunked@{budget}: TTFT median "
+              f"{row.get('ttft_ms_median', float('nan')):.1f} ms, mixed step "
+              f"median {row.get('step_ms_median', float('nan')):.2f} ms, "
+              f"{row['kernel_launches']} run-kernel calls")
+        del srv
+    srv_k, toks_k, mk = serve(torch, fp32, "kernel", params, requests,
+                              model_cfg=cfg)
+    ties = check_identity(torch, srv_k.engine,
+                          "256-wide heads, fp32 chunked@64 vs bucketed "
+                          "kernel", toks[("float32", False)], toks_k, plens)
+    out["d256_fp32"]["ties_vs_bucketed"] = ties
+    print(f"serving 256-wide heads, fp32: chunked@64 tokens equal to the "
+          f"bucketed kernel path's ({mk['launches']['paged_decode_attention']}"
+          f" kernel #1 launches at D = 256) but at {ties} top-2 ties")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -7528,6 +7642,8 @@ def main() -> int:
                 w[0] for (k, _n, r), w in worst.items()
                 if r == "tc16" and k.split()[0] in keys)
     if part:
+        if "chunked" in only:
+            check_wide_serving(torch)
         if "serving" in only:
             check_serving(torch)
         if "spec" in only:
@@ -7597,21 +7713,26 @@ def main() -> int:
     reports["chunked_prefill_attention_tc_int8"]["launches"] = \
         serving["int8_chunked"]["kernel_launches"]
 
+    # 3d. serving with 256-wide heads: the run kernels' D = 256 rows count
+    # its chunked runs
+    for suffix, row in check_wide_serving(torch).items():
+        reports["chunked_prefill_attention_" + suffix]["launches"] = \
+            row["kernel_launches"]
+
     # 3b. speculative serving and resilience (fills the verify row)
     check_speculative(torch, card, reports["paged_decode_attention_verify"])
 
     # 3c. serving telemetry: on and off give the same tokens and launches
     check_telemetry(torch, card)
-    # the first kernel, at D = 64 (timed as the first version) and on its
-    # own route (the _d256 rows): its launches over every served trace of
-    # phases 3-3c, bf16 and fp32 (0: no served model has a head dim above
-    # 128, and serve() holds each run to its route)
+    # the first kernel (timed at D = 64 and 256 as the run kernels' first
+    # version): its launches over every served trace of phases 3-3d, bf16
+    # and fp32, at head dims 64 and 256 (0: no route sends it any, and
+    # serve() holds each run to its route)
     first = SERVED_LAUNCHES.get("chunked_prefill_attention", 0)
     reports["chunked_prefill_attention"]["launches"] = first
-    for name in ("bfloat16", "float32"):
-        for int8 in (False, True):
-            reports["chunked_prefill_attention_" + chunked_d256_row(
-                name, int8)]["launches"] = first
+    if first:
+        fail(f"the first chunked-prefill kernel launched {first} times on "
+             f"the served traces of phases 3-3d")
 
     # 4. the training path end to end, and its fp32 comparison; the FMA
     # kernels' launches at D > 128 are counted over phases 4 and 7 (bf16,

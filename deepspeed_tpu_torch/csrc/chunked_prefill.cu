@@ -16,11 +16,12 @@
 // (T, H, WB) streams each block once per token; a prompt chunk of c tokens
 // would read its prefix c times.
 //
-// Three routes run here, picked by ops/transformer/chunked_prefill.py
-// (_route):
+// Two routes run here, picked by ops/transformer/chunked_prefill.py
+// (_route), over every head dim the paged decode kernel takes (a
+// multiple of 8 up to 256); the first kernel is on neither:
 //
-// 1. bf16 q over bf16 or int8 pools, head_dim a multiple of 8 up to 128:
-//    runs of one sequence (chunked_prefill_tc_fwd). The host finds the step's runs
+// 1. bf16 q over bf16 or int8 pools: runs of one sequence
+//    (chunked_prefill_tc_fwd). The host finds the step's runs
 //    once (chunked_runs; the serving engine once per mixed step, shared by
 //    the layers): consecutive tokens with one table row at consecutive
 //    (or, for pad tokens, equal) positions. It hands the kernels a compact
@@ -54,8 +55,10 @@
 //    chunk items' kernel, so the two overlap. Every output element is
 //    summed by one thread in a fixed order, with no atomics; pad tokens
 //    write only their own rows.
-// 2. fp32 q over fp32 or int8 pools, head_dim a multiple of 8 up to 128:
-//    the same run list, fork and join (chunked_prefill_tf32_fwd). Decode
+//    At head dims in (128, 256] the chunk items run chunked_tc256_kernel
+//    (below), the decode items the same walk at TPKP = 32.
+// 2. fp32 q over fp32 or int8 pools: the same run list, fork and join
+//    (chunked_prefill_tf32_fwd). Decode
 //    items run chunked_decode_kernel<float, P>, kernel #1's fp32 walk.
 //    Chunk items run chunked_tf32_kernel: chunked_tc_kernel's structure
 //    (an item's 64 query rows, 16 a row group, one head a block; 64-key
@@ -88,16 +91,53 @@
 //    position 1,000, 200- and 40-token chunks, H = 12, D = 64) the call
 //    must read 31 MB (0.0093 ms at 3.35 TB/s) and do 82 MFLOP, 0.0005 ms
 //    at the 165 TFLOP/s of three TF32 products each. What the design does
-//    about the first kernel's four faults (route 3): it walks runs, not
+//    about the first kernel's four faults (below): it walks runs, not
 //    tokens (a block per item and head, no idle blocks); a chunk item's
 //    prefix is read once per 64 tokens, not once per 8; the products run
 //    on the tensor cores; and a decode row's keys are split over a
-//    cluster, so the 1,000-key row no longer sets the time alone.
-// 3. Head dims in (128, 256], either dtype: the first design, kept as it
-//    was (chunked_prefill_attention_fwd, chunked_prefill_kernel below),
-//    also the yardstick of routes 1 and 2 on their inputs.
+//    cluster, so the 1,000-key row no longer sets the time alone. At head
+//    dims in (128, 256] the chunk items run chunked_tf32w_kernel (below).
 //
-// The first design (chunked_prefill_kernel): consecutive tokens of one
+// Head dims in (128, 256]. At D = 256 the bound is still bytes: the T =
+// 256 mixed step must read 62 MB in bf16 (0.0185 ms), 124 MB in fp32,
+// nearly all of it the decode rows' keys. chunked_tc_kernel does not
+// widen: 16 rows a warp with the o accumulator in registers is 128 fp32
+// registers a thread at D = 256 before s, p or an address
+// (flash_attention_tc256.cu says the same of its own kernels), and
+// chunked_tf32_kernel's q tile and two 64-key fp32 stages would need 330
+// KB. So:
+// - bf16 (chunked_tc256_kernel): a 64-token chunk item is one wgmma M of
+//   64 rows, so one warpgroup owns it, as flash_attention_tc256.cu's
+//   forward owns 64 queries: s = q.k^T on m64n64k16 from shared memory,
+//   o += p.v on m64n256k16 with p split into two bf16 terms in registers
+//   and V read MN-major, the fp32 o accumulator in 128 registers a
+//   thread. q and the K/V rows go by cp.async into wgmma_tile.cuh's
+//   128-byte-swizzled tiles (gathering a row through the table changes
+//   only its source address; TMA takes boxes, not gathers). The q tile
+//   and two 64-key K/V stages are 160 KB; int8 pools stage their codes
+//   in two stages and widen them into one bf16 stage. The online softmax
+//   is chunked_tc_kernel's, on the s accumulator;
+// - fp32 (chunked_tf32w_kernel): flash_attention_tf32.cu's D = 256
+//   forward: two warps on each 16 query rows, each summing s over half of
+//   the head dim (3xTF32) and owning those 128 columns of o; the pair adds
+//   its partial s through shared memory (add_pair: own + other's, the
+//   same bits in both), so both run one online softmax. 32-key tiles in
+//   two stages: 212 KB with the q tile;
+// - decode items: the walk of route 1 at TPKP = 32 (kernel #1's D = 256
+//   instantiation), 16 keys a tile; chunked_decode_splits counts keys
+//   and blocks in units of D = 64, so the pick follows the 4x work a key.
+// At the T = 256 mixed step, D = 256 (chip_smoke.py, H100 80GB HBM3 at
+// 700 W, device time) the run kernels take 0.066 ms in bf16 and 0.112 in fp32,
+// against the first kernel's 0.255 and 0.260 on the same inputs: the
+// chunk items alone 0.038 and 0.082, the decode items at 8 splits 0.035
+// and 0.048. A wgmma chunk item walks its tiles in series on one
+// warpgroup, so a block is latency-bound on its ~4 tiles.
+// Each keeps the arithmetic of its D <= 128 kernel, so one model of each
+// holds both widths against the JAX kernel in the CPU tests.
+//
+// The first design (chunked_prefill_attention_fwd, chunked_prefill_kernel
+// below), on no route since the run kernels took head dims above 128, is
+// kept as their first version on the same inputs: consecutive tokens of one
 // prompt chunk share their table row and sit at consecutive positions. A
 // thread block takes such a run of up to MAX_S = 8 tokens together (the
 // shared walk of paged_walk.cuh, the paged decode kernel's), so each K/V
@@ -120,6 +160,8 @@
 #include "attention_tc.cuh"
 #include "paged_walk.cuh"
 #include "tf32_mma.cuh"
+#include "wgmma.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -817,6 +859,513 @@ __global__ void __launch_bounds__(TF32_NT, 1)
   }
 }
 
+// The entries of a chunk item's table row that the kernels at head dims in
+// (128, 256] stage in shared memory, so that a tile's row addresses wait
+// on no device-memory read (an item walks at most 256 blocks' keys
+// without touching device memory for an address).
+constexpr int CHUNK_TBL = 256;
+
+// The wgmma chunk kernel's threads: one warpgroup, the item's 64 query
+// rows (one wgmma M).
+constexpr int TC256_NT = 128;
+
+// The wgmma chunk kernel's shared memory (bytes) for pools of P: the q
+// tile and the K/V tiles, 128-byte swizzled at 256 columns (two stages;
+// one for int8, whose two stages hold the codes as read, with their
+// scales, and are widened into it tile by tile: |code| <= 128 is exact in
+// bf16), and the item's table entries.
+template <typename P>
+constexpr size_t chunk_tc256_smem() {
+  constexpr bool INT8 = sizeof(P) == 1;
+  return (size_t)wg_tile::TILE * (1 + 2 * (INT8 ? 1 : 2)) +
+         (INT8 ? (size_t)2 * 2 * wg_tile::BN * (wg_tile::DMAX + sizeof(float))
+               : 0) +
+         sizeof(int) * CHUNK_TBL;
+}
+
+// ---------------------------------------------------------------------------
+// route 1 at head dims in (128, 256], runs of two or more tokens: grid
+// (items * H); block TC256_NT, one warpgroup on the item's 64 query rows.
+// items as chunked_tc_kernel's, and its arithmetic: s = q.k^T on
+// wgmma.m64n64k16 from the swizzled q and K tiles (fp32 sums of exact
+// 16-bit products), scaled in fp32 in base 2 (times k_scale for int8);
+// the mask only on tiles past the item's first position; keys past the
+// last visible one zero-filled; p (times v_scale) split into two 16-bit
+// terms for o += p.v on wgmma.m64n256k16 with p in registers and V read
+// MN-major; o = acc / max(l, 1e-30), the item's rows only.
+// ---------------------------------------------------------------------------
+template <typename P>
+__global__ void __launch_bounds__(TC256_NT, 1)
+    chunked_tc256_kernel(const __nv_bfloat16* __restrict__ q,
+                         const P* __restrict__ k_pool,
+                         const P* __restrict__ v_pool,
+                         const float* __restrict__ k_scale,
+                         const float* __restrict__ v_scale,
+                         const int* __restrict__ table,
+                         const int* __restrict__ pos,
+                         const int* __restrict__ items,
+                         __nv_bfloat16* __restrict__ out, int H, int D,
+                         int BS, int WB, float scale) {
+  using T = __nv_bfloat16;
+  using attn_tc::quad_max;
+  using attn_tc::quad_sum;
+  using attn_tile::cp_async16;
+  using attn_tile::cp_async_commit;
+  using attn_tile::cp_async_wait;
+  using attn_tile::pack16;
+  using wg_tile::BN;
+  using wg_tile::DMAX;
+  using wg_tile::swz;
+  using wg_tile::TILE;
+  constexpr int NT = TC256_NT;
+  constexpr int BM = 64;                   // query rows: one item
+  constexpr bool INT8 = sizeof(P) == 1;
+  constexpr int KV = INT8 ? 1 : 2;         // bf16 K/V stages
+  constexpr int CODES = INT8 ? 2 * BN * DMAX : 0;   // a pool's staged codes
+  constexpr int SCALES = INT8 ? 2 * BN : 0;
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  uint8_t* Qs = smem;                      // q; then o
+  uint8_t* Ks = Qs + TILE;                 // [KV] K tiles
+  uint8_t* Vs = Ks + KV * TILE;            // [KV] V tiles
+  // int8: the codes as read [2][BN][DMAX] and their scales [2][BN]
+  int8_t* Kc = reinterpret_cast<int8_t*>(Vs + KV * TILE);
+  int8_t* Vc = Kc + CODES;
+  float* Ksc = reinterpret_cast<float*>(Vc + CODES);
+  float* Vsc = Ksc + SCALES;
+  int* bts = reinterpret_cast<int*>(Vsc + SCALES);   // [CHUNK_TBL]
+  if (threadIdx.x == 0 && (hopper::smem_u32(smem) & 1023)) __trap();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int item = blockIdx.x / H;
+  const int h = blockIdx.x - item * H;
+  const int* it = items + 4 * item;
+  const int t0 = it[0], ntok = it[1], n_keys = it[2];
+  const long long row = (long long)H * D;   // token stride of q, pools, out
+  const int* bt = table + (long long)t0 * WB;
+  const int dk = (D + 15) & ~15;
+  const int cpr = dk >> 3;          // 16-byte chunks of a row (8 codes)
+  const float sl = scale * LOG2E;   // s in base-2 units: exp2(s' - m')
+  const int r0 = warp * 16 + g;     // this lane's rows: r0 and r0 + 8
+  // each row sees keys up to its own position (rows past the item, zero
+  // queries that are never stored, none on an edge tile)
+  const int pos0 = r0 < ntok ? pos[t0 + r0] : -1;
+  const int pos1 = r0 + 8 < ntok ? pos[t0 + r0 + 8] : -1;
+  const int pmin = pos[t0];         // positions never fall along an item
+  const int ntiles = (n_keys + BN - 1) / BN;
+  const int nblk = (n_keys + BS - 1) / BS;
+  for (int i = threadIdx.x; i < min(nblk, CHUNK_TBL); i += NT) bts[i] = bt[i];
+  __syncthreads();
+  auto block_of = [&](int i) { return i < CHUNK_TBL ? bts[i] : bt[i]; };
+
+  // keys k0 .. k0 + 63 gathered through the table row into stage n & 1;
+  // keys past the last visible one (their scales too), and the head dim's
+  // zero padding, zero-filled
+  auto load_kv = [&](int n) {
+    const int k0 = n * BN, s = n & 1;
+    for (int idx = threadIdx.x; idx < BN * cpr; idx += NT) {
+      const int r = idx / cpr;
+      const int cc = idx - r * cpr;
+      const int kp = k0 + r;
+      const bool ok = kp < n_keys && cc * 8 < D;
+      const long long off =
+          ok ? ((long long)block_of(kp / BS) * BS + kp % BS) * row + h * D +
+                   cc * 8
+             : 0;
+      if constexpr (INT8) {
+        cp_async8(Kc + (s * BN + r) * DMAX + cc * 8, k_pool + off, ok);
+        cp_async8(Vc + (s * BN + r) * DMAX + cc * 8, v_pool + off, ok);
+      } else {
+        cp_async16(Ks + s * TILE + swz(r, cc, BN), k_pool + off, ok);
+        cp_async16(Vs + s * TILE + swz(r, cc, BN), v_pool + off, ok);
+      }
+    }
+    if constexpr (INT8) {
+      if (threadIdx.x < BN) {
+        const int kp = k0 + threadIdx.x;
+        const bool ok = kp < n_keys;
+        const long long at =
+            ok ? ((long long)block_of(kp / BS) * BS + kp % BS) * H + h : 0;
+        cp_async4(Ksc + s * BN + threadIdx.x, k_scale + at, ok);
+        cp_async4(Vsc + s * BN + threadIdx.x, v_scale + at, ok);
+      }
+    }
+  };
+  wg_tile::load_tile(Qs, q + t0 * row + h * D, row, BM, ntok, D, dk, NT);
+  load_kv(0);
+  cp_async_commit();
+
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int n = 0; n < ntiles; ++n) {
+    if (n + 1 < ntiles) load_kv(n + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    hopper::fence_proxy_async();   // the copies, before wgmma reads them
+    __syncthreads();
+    const int k0 = n * BN;
+    const uint8_t* Kt = Ks + (INT8 ? 0 : (n & 1) * TILE);
+    const uint8_t* Vt = Vs + (INT8 ? 0 : (n & 1) * TILE);
+    const float* Kst = Ksc + (n & 1) * BN;
+    const float* Vst = Vsc + (n & 1) * BN;
+    if constexpr (INT8) {   // widen this stage's codes into the bf16 tiles
+      const int8_t* kc = Kc + (n & 1) * BN * DMAX;
+      const int8_t* vc = Vc + (n & 1) * BN * DMAX;
+      for (int idx = threadIdx.x; idx < BN * cpr; idx += NT) {
+        const int r = idx / cpr;
+        const int cc = idx - r * cpr;
+        const int8_t* src[2] = {kc + r * DMAX + cc * 8,
+                                vc + r * DMAX + cc * 8};
+        uint8_t* dst[2] = {Ks + swz(r, cc, BN), Vs + swz(r, cc, BN)};
+#pragma unroll
+        for (int o = 0; o < 2; ++o) {
+          uint32_t w[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            w[e] = pack16((float)src[o][2 * e], (float)src[o][2 * e + 1],
+                          static_cast<const T*>(nullptr));
+          *reinterpret_cast<uint4*>(dst[o]) = make_uint4(w[0], w[1], w[2],
+                                                         w[3]);
+        }
+      }
+      hopper::fence_proxy_async();
+      __syncthreads();
+    }
+
+    // s = q.k^T (fp32 sums of exact 16-bit products), scaled in fp32
+    float s[32];
+    hopper::wgmma_fence();
+    wg_tile::scores<T>(s, Qs, BM, 0, Kt, dk);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc(s);
+    // only tiles past the item's first position cross a row's diagonal
+    const bool edge = k0 + BN - 1 > pmin;
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * c + 2 * t + (e & 1);
+        const bool vis = !edge || k0 + col <= (e < 2 ? pos0 : pos1);
+        float x = s[4 * c + e] * sl;
+        if constexpr (INT8) x *= Kst[col];
+        x = vis ? x : -INFINITY;
+        s[4 * c + e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x);
+        else mx1 = fmaxf(mx1, x);
+      }
+    const float mn0 = fmaxf(m0, quad_max(mx0));
+    const float mn1 = fmaxf(m1, quad_max(mx1));
+    const float a0 = mn0 == -INFINITY ? 1.f
+                     : m0 == -INFINITY ? 0.f : exp2f(m0 - mn0);
+    const float a1 = mn1 == -INFINITY ? 1.f
+                     : m1 == -INFINITY ? 0.f : exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[4 * c + e];
+        float p = x == -INFINITY ? 0.f : exp2f(x - (e < 2 ? mn0 : mn1));
+        if (e < 2) sum0 += p;
+        else sum1 += p;
+        if constexpr (INT8) p *= Vst[8 * c + 2 * t + (e & 1)];
+        s[4 * c + e] = p;
+      }
+    l0 = l0 * a0 + sum0;
+    l1 = l1 * a1 + sum1;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      acc[4 * i] *= a0;
+      acc[4 * i + 1] *= a0;
+      acc[4 * i + 2] *= a1;
+      acc[4 * i + 3] *= a1;
+    }
+    wg_tile::wide_product<T>(acc, s, Vt);   // o += p.v, p in two terms
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+
+  // o = acc / max(l, 1e-30) through the q tile's shared memory
+  const float ls0 = fmaxf(quad_sum(l0), 1e-30f);
+  const float ls1 = fmaxf(quad_sum(l1), 1e-30f);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    if (8 * i < dk) {
+      wg_tile::put_pair<T>(Qs, BM, r0, i, t, acc[4 * i] / ls0,
+                           acc[4 * i + 1] / ls0);
+      wg_tile::put_pair<T>(Qs, BM, r0 + 8, i, t, acc[4 * i + 2] / ls1,
+                           acc[4 * i + 3] / ls1);
+    }
+  }
+  __syncthreads();
+  wg_tile::store_tile(out + t0 * row + h * D, row, Qs, BM, ntok, D, NT);
+}
+
+// The 3xTF32 chunk kernel at head dims in (128, 256]: keys per streamed
+// tile (two stages) and threads (8 warps, two on each 16 query rows, each
+// owning half of the head dim: 128 output columns and the half of s =
+// q.k^T it sums).
+constexpr int TF32W_BN = 32;
+constexpr int TF32W_NT = 256;
+
+// Its shared memory (bytes): the fp32 q tile and two K/V stages, fp32
+// rows 260 floats apart, or int8 codes rows 264 bytes apart with their
+// fp32 scales; the pairs' partial s (add_pair); the item's table entries.
+template <typename P>
+constexpr size_t chunk_tf32w_smem() {
+  constexpr int BN = TF32W_BN, DP = 256 + 4, DPB = 256 + 8;
+  constexpr bool INT8 = sizeof(P) == 1;
+  return sizeof(float) * (size_t)attn_tc::BM * DP +
+         (INT8 ? (size_t)2 * 2 * BN * DPB + sizeof(float) * 2 * 2 * BN
+               : sizeof(float) * (size_t)2 * 2 * BN * DP) +
+         sizeof(float) * (size_t)(TF32W_NT / 32) * (BN / 8) * 4 * 32 +
+         sizeof(int) * CHUNK_TBL;
+}
+
+// ---------------------------------------------------------------------------
+// route 2 at head dims in (128, 256], runs of two or more tokens in fp32:
+// grid (items * H); block TF32W_NT. items as chunked_tc_kernel's; the
+// arithmetic of chunked_tf32_kernel (every product 3xTF32, two over exact
+// codes, each folded into its sum by an fp32 add; s scaled in base 2,
+// times k_scale; the mask only on edge tiles; keys past the last visible
+// one and their scales zero-filled; v_scale into p before its split; o =
+// acc / max(l, 1e-30), the item's rows only) over 32-key tiles in two
+// stages, with one online softmax a row. Warps w and w ^ 4 share rows 16
+// (w % 4) .. + 15: warp w sums s over head-dim columns 128 (w / 4) .. +
+// 127, the two add their partial tiles through shared memory (own +
+// other's, the same bits in both), both run the same softmax, and each
+// owns those 128 columns of o.
+// ---------------------------------------------------------------------------
+template <typename P>
+__global__ void __launch_bounds__(TF32W_NT, 1)
+    chunked_tf32w_kernel(const float* __restrict__ q,
+                         const P* __restrict__ k_pool,
+                         const P* __restrict__ v_pool,
+                         const float* __restrict__ k_scale,
+                         const float* __restrict__ v_scale,
+                         const int* __restrict__ table,
+                         const int* __restrict__ pos,
+                         const int* __restrict__ items,
+                         float* __restrict__ out, int H, int D, int BS,
+                         int WB, float scale) {
+  using attn_tc::BM;
+  using attn_tc::quad_max;
+  using attn_tc::quad_sum;
+  using attn_tf32::a_rows;
+  using attn_tf32::add_pair;
+  using attn_tile::cp_async16;
+  using attn_tile::cp_async_commit;
+  using attn_tile::cp_async_wait;
+  constexpr int NT = TF32W_NT;
+  constexpr bool INT8 = sizeof(P) == 1;
+  constexpr int BN = TF32W_BN;      // keys per streamed tile
+  constexpr int DP = 256 + 4;       // fp32 row pitch (floats)
+  constexpr int DPB = 256 + 8;      // int8 row pitch (bytes)
+  constexpr int HALF = 128;         // head-dim columns a warp owns
+  constexpr int NO = HALF / 8;      // a warp's output n-tiles
+  constexpr int NS = BN / 8;        // score n-tiles
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);   // [BM][DP]
+  float* Ks = Qs + BM * DP;                         // fp32: [2][BN][DP]
+  float* Vs = Ks + 2 * BN * DP;                     // fp32: [2][BN][DP]
+  // int8: the codes [2][BN][DPB] and their scales [2][BN]
+  int8_t* Kc = reinterpret_cast<int8_t*>(Qs + BM * DP);
+  int8_t* Vc = Kc + 2 * BN * DPB;
+  float* Ksc = reinterpret_cast<float*>(Vc + 2 * BN * DPB);
+  float* Vsc = Ksc + 2 * BN;
+  float* Xs = INT8 ? Vsc + 2 * BN : Vs + 2 * BN * DP;  // [8][NS * 4][32]
+  int* bts = reinterpret_cast<int*>(Xs + (NT / 32) * NS * 4 * 32);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp & 3;                   // row group
+  const int c0 = (warp >> 2) * HALF;         // first column the warp owns
+  const int item = blockIdx.x / H;
+  const int h = blockIdx.x - item * H;
+  const int* it = items + 4 * item;
+  const int t0 = it[0], ntok = it[1], n_keys = it[2];
+  const long long row = (long long)H * D;   // token stride of q, pools, out
+  const int* bt = table + (long long)t0 * WB;
+  const float sl = scale * LOG2E;   // s in base-2 units: exp2(s' - m')
+  const int r0 = rg * 16 + g;       // this lane's rows: r0 and r0 + 8
+  // each row sees keys up to its own position (rows past the item, zero
+  // queries that are never stored, none on an edge tile)
+  const int pos0 = r0 < ntok ? pos[t0 + r0] : -1;
+  const int pos1 = r0 + 8 < ntok ? pos[t0 + r0 + 8] : -1;
+  const int pmin = pos[t0];         // positions never fall along an item
+  const int ntiles = (n_keys + BN - 1) / BN;
+  const int nblk = (n_keys + BS - 1) / BS;
+  for (int i = threadIdx.x; i < min(nblk, CHUNK_TBL); i += NT) bts[i] = bt[i];
+  __syncthreads();
+  auto block_of = [&](int i) { return i < CHUNK_TBL ? bts[i] : bt[i]; };
+
+  // keys k0 .. k0 + BN - 1 gathered through the table row into stage n &
+  // 1; keys past the last visible one (their scales too) zero-filled.
+  // Columns at or past D are never read.
+  auto load_kv = [&](int n) {
+    const int k0 = n * BN, s = n & 1;
+    constexpr int PER = INT8 ? 8 : 4;   // elements a copy moves
+    const int cpr = D / PER;
+    for (int idx = threadIdx.x; idx < BN * cpr; idx += NT) {
+      const int r = idx / cpr;
+      const int c = (idx - r * cpr) * PER;
+      const int kp = k0 + r;
+      const bool ok = kp < n_keys;
+      const long long off =
+          ok ? ((long long)block_of(kp / BS) * BS + kp % BS) * row + h * D + c
+             : 0;
+      if constexpr (INT8) {
+        cp_async8(Kc + (s * BN + r) * DPB + c, k_pool + off, ok);
+        cp_async8(Vc + (s * BN + r) * DPB + c, v_pool + off, ok);
+      } else {
+        cp_async16(Ks + (s * BN + r) * DP + c, k_pool + off, ok);
+        cp_async16(Vs + (s * BN + r) * DP + c, v_pool + off, ok);
+      }
+    }
+    if constexpr (INT8) {
+      if (threadIdx.x < BN) {
+        const int kp = k0 + threadIdx.x;
+        const bool ok = kp < n_keys;
+        const long long at =
+            ok ? ((long long)block_of(kp / BS) * BS + kp % BS) * H + h : 0;
+        cp_async4(Ksc + s * BN + threadIdx.x, k_scale + at, ok);
+        cp_async4(Vsc + s * BN + threadIdx.x, v_scale + at, ok);
+      }
+    }
+  };
+  {  // the item's queries; rows past it zero
+    const int cpr = D / 4;
+    const float* qb = q + (long long)t0 * row + h * D;
+    for (int idx = threadIdx.x; idx < BM * cpr; idx += NT) {
+      const int r = idx / cpr;
+      const int c = (idx - r * cpr) * 4;
+      const bool ok = r < ntok;
+      cp_async16(Qs + r * DP + c, ok ? qb + r * row + c : qb, ok);
+    }
+  }
+  load_kv(0);   // with q
+  cp_async_commit();
+
+  const float* Qw = Qs + rg * 16 * DP;   // the warp's 16 rows
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int n = 0; n < ntiles; ++n) {
+    if (n + 1 < ntiles) load_kv(n + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int k0 = n * BN;
+    const int st = n & 1;
+    const float* Kt = Ks + st * BN * DP;
+    const float* Vt = Vs + st * BN * DP + c0;   // the warp's columns
+    const int8_t* Kct = Kc + st * BN * DPB;
+    const int8_t* Vct = Vc + st * BN * DPB + c0;
+    const float* Kst = Ksc + st * BN;
+    const float* Vst = Vsc + st * BN;
+
+    // s = q.k^T over the warp's half of the head dim, every product
+    // 3xTF32 (two over exact codes); then the pair's halves added
+    float s[NS][4];
+#pragma unroll
+    for (int c = 0; c < NS; ++c) s[c][0] = s[c][1] = s[c][2] = s[c][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HALF; kk += 8) {
+      const int kc = c0 + kk;
+      if (kc < D) {
+        uint32_t ah[4], al[4];
+        a_rows<DP>(Qw, kc, ah, al);
+        if constexpr (INT8)
+          mma_rows_codes<NS, DPB>(s, ah, al, Kct, kc);
+        else
+          attn_tf32::mma_rows<NS, DP>(s, ah, al, Kt, kc);
+      }
+    }
+    add_pair<NS, 4>(Xs, s);   // warps w and w ^ 4
+    // only tiles past the item's first position cross a row's diagonal
+    const bool edge = k0 + BN - 1 > pmin;
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < NS; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * c + 2 * t + (e & 1);
+        const bool vis = !edge || k0 + col <= (e < 2 ? pos0 : pos1);
+        float x = s[c][e] * sl;
+        if constexpr (INT8) x *= Kst[col];
+        x = vis ? x : -INFINITY;
+        s[c][e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x);
+        else mx1 = fmaxf(mx1, x);
+      }
+    const float mn0 = fmaxf(m0, quad_max(mx0));
+    const float mn1 = fmaxf(m1, quad_max(mx1));
+    const float a0 = mn0 == -INFINITY ? 1.f
+                     : m0 == -INFINITY ? 0.f : exp2f(m0 - mn0);
+    const float a1 = mn1 == -INFINITY ? 1.f
+                     : m1 == -INFINITY ? 0.f : exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int c = 0; c < NS; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[c][e];
+        float p = x == -INFINITY ? 0.f : exp2f(x - (e < 2 ? mn0 : mn1));
+        if (e < 2) sum0 += p;
+        else sum1 += p;
+        if constexpr (INT8) p *= Vst[8 * c + 2 * t + (e & 1)];
+        s[c][e] = p;
+      }
+    l0 = l0 * a0 + sum0;
+    l1 = l1 * a1 + sum1;
+#pragma unroll
+    for (int c = 0; c < NO; ++c) {
+      acc[c][0] *= a0; acc[c][1] *= a0;
+      acc[c][2] *= a1; acc[c][3] *= a1;
+    }
+    // o += p.v over the warp's columns, p split in registers
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      if constexpr (INT8)
+        mma_cols_codes<NO, NS, DPB>(acc, s, kk, Vct, D - c0);
+      else
+        attn_tf32::mma_cols<NO, NS, DP>(acc, s, kk, Vt, D - c0);
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+
+  // o = acc / max(l, 1e-30), the item's rows and the warp's columns, from
+  // the fragments
+  const float ls0 = fmaxf(quad_sum(l0), 1e-30f);
+  const float ls1 = fmaxf(quad_sum(l1), 1e-30f);
+  float* ob = out + (long long)t0 * row + h * D + c0;
+#pragma unroll
+  for (int c = 0; c < NO; ++c) {
+    const int col = 8 * c + 2 * t;
+    if (c * 8 < D - c0) {
+      if (r0 < ntok)
+        *reinterpret_cast<float2*>(ob + r0 * row + col) =
+            make_float2(acc[c][0] / ls0, acc[c][1] / ls0);
+      if (r0 + 8 < ntok)
+        *reinterpret_cast<float2*>(ob + (r0 + 8) * row + col) =
+            make_float2(acc[c][2] / ls1, acc[c][3] / ls1);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // routes 1 and 2, runs of one token: grid (H * splits, items), clusters of
 // (splits, 1, 1); block THREADS. items int32 [n][4]: token, 1, keys
@@ -845,8 +1394,9 @@ __global__ void __launch_bounds__(THREADS) chunked_decode_kernel(
   finish_cluster<T, TPKP, 1>(sm, out + first, 1, H, D, rank, splits);
 }
 
-// The chunk items' kernel for q of T: chunked_tc_kernel for bf16,
-// chunked_tf32_kernel for fp32.
+// The chunk items' kernel for q of T and tiles of DMAX columns:
+// chunked_tc_kernel for bf16, chunked_tf32_kernel for fp32; at DMAX = 256
+// chunked_tc256_kernel and chunked_tf32w_kernel.
 template <typename T, typename P, int DMAX>
 cudaError_t launch_chunks(const void* q, const void* k_pool,
                           const void* v_pool, const float* k_scale,
@@ -855,25 +1405,47 @@ cudaError_t launch_chunks(const void* q, const void* k_pool,
                           void* out, int H, int D, int BS, int WB,
                           float scale, cudaStream_t st) {
   constexpr bool TF32 = std::is_same<T, float>::value;
-  constexpr size_t smem =
-      TF32 ? chunk_tf32_smem<P, DMAX>() : chunk_smem<P, DMAX>();
+  constexpr bool WIDE = DMAX > 128;
   void (*fn)(const T*, const P*, const P*, const float*, const float*,
              const int*, const int*, const int*, T*, int, int, int, int,
              float);
-  if constexpr (TF32)
+  size_t smem;
+  int threads;
+  if constexpr (TF32 && WIDE) {
+    fn = chunked_tf32w_kernel<P>;
+    smem = chunk_tf32w_smem<P>();
+    threads = TF32W_NT;
+  } else if constexpr (TF32) {
     fn = chunked_tf32_kernel<P, DMAX>;
-  else
+    smem = chunk_tf32_smem<P, DMAX>();
+    threads = TF32_NT;
+  } else if constexpr (WIDE) {
+    fn = chunked_tc256_kernel<P>;
+    smem = chunk_tc256_smem<P>();
+    threads = TC256_NT;
+  } else {
     fn = chunked_tc_kernel<P, DMAX>;
+    smem = chunk_smem<P, DMAX>();
+    threads = attn_tc::NT;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  fn<<<(unsigned)n_items * (unsigned)H, TF32 ? TF32_NT : attn_tc::NT, smem,
-        st>>>(
+  fn<<<(unsigned)n_items * (unsigned)H, threads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const P*>(k_pool),
       static_cast<const P*>(v_pool), k_scale, v_scale, table, pos, items,
       static_cast<T*>(out), H, D, BS, WB, scale);
   return cudaGetLastError();
 }
+
+constexpr size_t SMEM_LIMIT = 232448;   // 227 KB of dynamic shared memory
+static_assert(chunk_tc256_smem<__nv_bfloat16>() <= SMEM_LIMIT &&
+                  chunk_tc256_smem<int8_t>() <= SMEM_LIMIT,
+              "the wgmma chunk kernel's tiles exceed a block's shared memory");
+static_assert(chunk_tf32w_smem<float>() <= SMEM_LIMIT &&
+                  chunk_tf32w_smem<int8_t>() <= SMEM_LIMIT,
+              "the wide 3xTF32 chunk kernel's tiles exceed a block's shared "
+              "memory");
 
 template <typename T, typename P>
 cudaError_t launch_decode(const void* q, const void* k_pool,
@@ -892,7 +1464,7 @@ cudaError_t launch_decode(const void* q, const void* k_pool,
   err = launch_clusters(chunked_decode_kernel<T, P, TP>, grid, splits, st, \
                         qp, kp, vp, k_scale, v_scale, table, items, op, H, \
                         D, BS, WB, scale, splits)
-  PAGED_DISPATCH_D128(D, CHUNKED_DECODE_LAUNCH);
+  PAGED_DISPATCH_D(D, CHUNKED_DECODE_LAUNCH);
 #undef CHUNKED_DECODE_LAUNCH
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -957,13 +1529,13 @@ cudaError_t launch_runs(const void* q, const void* k_pool, const void* v_pool,
     if (err != cudaSuccess) return err;
   }
   if (n_chunk > 0) {
-    err = D <= 64
-              ? launch_chunks<T, P, 64>(q, k_pool, v_pool, k_scale, v_scale,
-                                        table, pos, items, n_chunk, out, H,
-                                        D, BS, WB, scale, st)
-              : launch_chunks<T, P, 128>(q, k_pool, v_pool, k_scale,
-                                         v_scale, table, pos, items, n_chunk,
-                                         out, H, D, BS, WB, scale, st);
+#define CHUNKED_CHUNKS_LAUNCH(DM)                                          \
+  launch_chunks<T, P, DM>(q, k_pool, v_pool, k_scale, v_scale, table, pos, \
+                          items, n_chunk, out, H, D, BS, WB, scale, st)
+    if (D <= 64) err = CHUNKED_CHUNKS_LAUNCH(64);
+    else if (D <= 128) err = CHUNKED_CHUNKS_LAUNCH(128);
+    else err = CHUNKED_CHUNKS_LAUNCH(256);
+#undef CHUNKED_CHUNKS_LAUNCH
     if (err != cudaSuccess) return err;
   }
   if (side != nullptr) {
@@ -981,7 +1553,7 @@ int run_kernels(const void* q, const void* k_pool, const void* v_pool,
                 const void* pos, const void* items, int n_chunk,
                 int n_decode, void* out, int NT, int H, int D, int BS,
                 int WB, float scale, int int8, int splits, void* stream) {
-  if (D < 8 || D > 128 || D % 8 != 0 || BS < 1 || WB < 1 || NT < 1 ||
+  if (D < 8 || D > MAX_D || D % 8 != 0 || BS < 1 || WB < 1 || NT < 1 ||
       H < 1 || n_chunk < 0 || n_decode < 0 || n_chunk + n_decode < 1 ||
       n_decode > 65535 || (long long)n_chunk * H > 0x7fffffffLL ||
       splits < 1 || splits > MAX_SPLITS ||
@@ -1060,7 +1632,7 @@ int chunked_prefill_attention_fwd(const void* q, const void* k_pool,
 }
 
 // Route 1 (bf16 q; bf16 pools, or int8 pools with fp32 scales k_scale /
-// v_scale [N, BS, H]; D a multiple of 8 in [8, 128]): items int32
+// v_scale [N, BS, H]; D a multiple of 8 in [8, 256]): items int32
 // [n_chunk + n_decode][4] from the host's run list (ops/transformer/
 // chunked_prefill.py: chunked_runs), the chunk items first; the decode
 // items' keys split over `splits` blocks of a cluster (1 to 8). Launches

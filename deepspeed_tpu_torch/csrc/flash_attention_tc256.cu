@@ -99,37 +99,40 @@
 
 #include "attention_tc.cuh"
 #include "wgmma.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
 using attn_tc::quad_max;
 using attn_tc::quad_sum;
-using attn_tile::cp_async16;
 using attn_tile::cp_async_commit;
 using attn_tile::cp_async_wait;
 using attn_tile::Drop;
-using attn_tile::pack16;
 using attn_tile::split16;
 using attn_tile::Strides;
 using attn_tile::strides_of;
 using hopper::fence_acc;
 using hopper::fence_proxy_async;
 using hopper::fence_regs;
-using hopper::gmma_desc;
 using hopper::smem_u32;
 using hopper::wgmma128_rs;
-using hopper::wgmma256_rs;
-using hopper::wgmma64;
 using hopper::wgmma_commit;
 using hopper::wgmma_fence;
 using hopper::wgmma_wait;
 
-constexpr int DMAX = 256;          // the widest head; tiles hold 256 columns
+using wg_tile::BN;                 // rows of a streamed tile
+using wg_tile::DMAX;               // the widest head; tiles hold 256 columns
+using wg_tile::desc_mn;
+using wg_tile::load_tile;
+using wg_tile::put_pair;
+using wg_tile::ROWB;
+using wg_tile::scores;
+using wg_tile::store_tile;
+using wg_tile::TILE;               // one 64-row tile of 16-bit values
+using wg_tile::wide_product;
+
 constexpr int WG = 128;            // threads of a warpgroup
 constexpr int BM = 64;             // rows a warpgroup owns
-constexpr int BN = 64;             // rows of a streamed tile
-constexpr int ROWB = 128;          // bytes of a row of a 64-column block
-constexpr int TILE = BN * DMAX * 2;  // one 64-row tile of 16-bit values
 constexpr int SMEM_LIMIT = 232448;   // 227 KB of dynamic shared memory
 // tools/probe_flash_tc256.py's picks
 constexpr int FWD_WGS = 2;         // consumer warpgroups of a forward block
@@ -138,113 +141,6 @@ constexpr int DQ_WGS = 2;          // warpgroups over a dq block's 64 rows
 constexpr int DQ_STAGES = 2;       // dq's K/V ring
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-// byte offset of the 16-byte chunk cc (columns 8 cc .. 8 cc + 7) of row r
-// in a swizzled tile of `rows` rows
-__device__ __forceinline__ int swz(int r, int cc, int rows) {
-  return (cc >> 3) * rows * ROWB + r * ROWB + (((cc & 7) ^ (r & 7)) << 4);
-}
-
-// rows x dk columns of src (row stride `stride` elements) into the
-// swizzled tile dst by cp.async, by `nt` threads; rows at or past `valid`
-// and columns at or past D are zeros, columns at or past dk untouched
-template <typename T>
-__device__ __forceinline__ void load_tile(uint8_t* dst, const T* src,
-                                          long long stride, int rows,
-                                          int valid, int D, int dk,
-                                          int nt) {
-  const int cpr = dk >> 3;
-  for (int idx = threadIdx.x; idx < rows * cpr; idx += nt) {
-    const int r = idx / cpr;
-    const int cc = idx - r * cpr;
-    const bool ok = r < valid && cc * 8 < D;
-    cp_async16(dst + swz(r, cc, rows), ok ? src + r * stride + cc * 8 : src,
-               ok);
-  }
-}
-
-// `valid` rows of D columns of the swizzled tile to dst (row stride
-// `stride` elements), 16-byte stores by `nt` threads
-template <typename T>
-__device__ __forceinline__ void store_tile(T* dst, long long stride,
-                                           const uint8_t* tile, int rows,
-                                           int valid, int D, int nt) {
-  const int cpr = D >> 3;
-  for (int idx = threadIdx.x; idx < valid * cpr; idx += nt) {
-    const int r = idx / cpr;
-    const int cc = idx - r * cpr;
-    *reinterpret_cast<uint4*>(dst + r * stride + cc * 8) =
-        *reinterpret_cast<const uint4*>(tile + swz(r, cc, rows));
-  }
-}
-
-// the accumulator pair (row r, columns 8 i + 2 t, + 1) as two T in place
-template <typename T>
-__device__ __forceinline__ void put_pair(uint8_t* tile, int rows, int r,
-                                         int i, int t, float x0, float x1) {
-  *reinterpret_cast<uint32_t*>(tile + swz(r, i, rows) + 4 * t) =
-      pack16(x0, x1, static_cast<const T*>(nullptr));
-}
-
-// a K-major operand: rows row0 .. row0 + 63 of a tile of `rows` rows,
-// k-step kc (columns 16 kc .. 16 kc + 15)
-__device__ __forceinline__ uint64_t desc_k(const uint8_t* tile, int rows,
-                                           int row0, int kc) {
-  return gmma_desc(tile + (kc >> 2) * rows * ROWB + row0 * ROWB +
-                       (kc & 3) * 32,
-                   16, 1024, 1);
-}
-
-// an MN-major operand: k-step kc over the tile's rows 16 kc .. 16 kc + 15,
-// its 256 columns the product's n
-__device__ __forceinline__ uint64_t desc_mn(const uint8_t* tile, int rows,
-                                            int kc) {
-  return gmma_desc(tile + kc * 16 * ROWB, rows * ROWB, 1024, 1);
-}
-
-// s (+)= A B^T over the head dim, 64 x 64, both from K-major tiles; k-steps
-// at or past dk (zero columns) skipped
-template <typename T>
-__device__ __forceinline__ void scores(float (&s)[32], const uint8_t* a,
-                                       int a_rows, int a_row0,
-                                       const uint8_t* b, int dk) {
-#pragma unroll
-  for (int kc = 0; kc < DMAX / 16; ++kc)
-    if (kc * 16 < dk)
-      wgmma64<T>(s, desc_k(a, a_rows, a_row0, kc), desc_k(b, BN, 0, kc),
-                 kc > 0);
-}
-
-// acc += x B over 64 rows of B (MN-major, 256 columns): x (fp32, the
-// 64 x 64 accumulator of a scores product) split into hi = T(x) and lo =
-// T(x - hi), each multiplied; waits for the products
-template <typename T>
-__device__ __forceinline__ void wide_product(float (&acc)[128],
-                                             const float (&x)[32],
-                                             const uint8_t* b) {
-  uint32_t hi[4][4], lo[4][4];
-  const T* tag = nullptr;
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      split16(x[8 * kc + 2 * r], x[8 * kc + 2 * r + 1], hi[kc][r],
-              lo[kc][r], tag);
-  wgmma_fence();
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    wgmma256_rs<T>(acc, hi[kc], desc_mn(b, BN, kc), 1);
-    wgmma256_rs<T>(acc, lo[kc], desc_mn(b, BN, kc), 1);
-  }
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_acc(acc);
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    fence_regs(hi[kc]);
-    fence_regs(lo[kc]);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // forward: grid (B * H, ceil(Sq / (64 NWG))); the block's query tile is

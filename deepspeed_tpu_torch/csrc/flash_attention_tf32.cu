@@ -137,6 +137,7 @@
 namespace {
 
 using attn_tf32::a_rows;
+using attn_tf32::add_pair;
 using attn_tf32::mma_cols;
 using attn_tf32::mma_rows;
 using attn_tf32::store_acc;
@@ -184,44 +185,6 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
     const bool ok = r < valid;
     cp_async16(dst + r * DP + c, ok ? src + r * stride + c : src, ok);
   }
-}
-
-// a warp's [16][8 NS] tile into shared memory at dst (its lane's first
-// float; one row of 32 floats an element), or added from there
-template <int NS>
-__device__ __forceinline__ void put_tile(float* dst,
-                                         const float (&a)[NS][4]) {
-#pragma unroll
-  for (int n = 0; n < NS; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dst[(4 * n + e) * 32] = a[n][e];
-}
-
-template <int NS>
-__device__ __forceinline__ void add_tile(float (&a)[NS][4],
-                                         const float* src) {
-#pragma unroll
-  for (int n = 0; n < NS; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) a[n][e] += src[(4 * n + e) * 32];
-}
-
-// the pair's partial sums of its tiles through shared memory Xs
-// ([warps][tiles][NS * 4][32]): each warp of the pair (w and w ^ NG)
-// stores its own tiles and, after one barrier, adds the other's: own +
-// other's, the same bits in both warps
-template <int NS, int NG, typename... Tile>
-__device__ __forceinline__ void add_pair(float* Xs, Tile&... tiles) {
-  constexpr int X = NS * 4 * 32;            // floats a tile
-  constexpr int N = sizeof...(Tile);
-  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* mine = Xs + wid * N * X + lane;
-  const float* other = Xs + (wid ^ NG) * N * X + lane;
-  int x = 0;                                // a tile's slot: argument order
-  (put_tile<NS>(mine + X * x++, tiles), ...);
-  __syncthreads();
-  x = 0;
-  (add_tile<NS>(tiles, other + X * x++), ...);
 }
 
 // ---------------------------------------------------------------------------

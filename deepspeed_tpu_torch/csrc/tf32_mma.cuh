@@ -1,12 +1,14 @@
 // The 3xTF32 products of the fp32 attention kernels on Hopper's tensor
-// cores (sm_90a): flash_attention_tf32.cu (TPU kernels #3-#5) and
-// sparse_attention_tf32.cu (#9, #10). An fp32 operand x is split into hi
-// = tf32(x) and lo = tf32(x - hi), and each product is three
-// mma.sync.m16n8k8 TF32 products, lo.hi + hi.lo + hi.hi, into a fresh
-// tile that an fp32 add folds into the running sum (see mma3). The
-// fragments follow mma.sync's layout with g = lane / 4, t = lane % 4: a
-// warp's accumulator tile [16][8 n] holds rows g and g + 8 at columns 8 n
-// + 2t and + 1. Shared tiles are fp32 with rows DP floats apart.
+// cores (sm_90a): flash_attention_tf32.cu (TPU kernels #3-#5),
+// sparse_attention_tf32.cu (#9, #10) and chunked_prefill.cu (#2). An
+// fp32 operand x is split into hi = tf32(x) and lo = tf32(x - hi), and
+// each product is three mma.sync.m16n8k8 TF32 products, lo.hi + hi.lo +
+// hi.hi, into a fresh tile that an fp32 add folds into the running sum
+// (see mma3). The fragments follow mma.sync's layout with g = lane / 4, t
+// = lane % 4: a warp's accumulator tile [16][8 n] holds rows g and g + 8
+// at columns 8 n + 2t and + 1. Shared tiles are fp32 with rows DP floats
+// apart. Two warps that each sum a product over half of its depth add
+// their partial tiles through shared memory (add_pair).
 
 #pragma once
 
@@ -164,6 +166,44 @@ __device__ __forceinline__ void store_acc(float* dst, long long stride,
                                           const float (&acc)[NO][4],
                                           float mul, int valid, int D) {
   store_acc_at<NO>(dst, stride, acc, mul, (threadIdx.x >> 5) * 16, valid, D);
+}
+
+// a warp's [16][8 NS] tile into shared memory at dst (its lane's first
+// float; one row of 32 floats an element), or added from there
+template <int NS>
+__device__ __forceinline__ void put_tile(float* dst,
+                                         const float (&a)[NS][4]) {
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dst[(4 * n + e) * 32] = a[n][e];
+}
+
+template <int NS>
+__device__ __forceinline__ void add_tile(float (&a)[NS][4],
+                                         const float* src) {
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[n][e] += src[(4 * n + e) * 32];
+}
+
+// the pair's partial sums of its tiles through shared memory Xs
+// ([warps][tiles][NS * 4][32]): each warp of the pair (w and w ^ NG)
+// stores its own tiles and, after one barrier, adds the other's: own +
+// other's, the same bits in both warps
+template <int NS, int NG, typename... Tile>
+__device__ __forceinline__ void add_pair(float* Xs, Tile&... tiles) {
+  constexpr int X = NS * 4 * 32;            // floats a tile
+  constexpr int N = sizeof...(Tile);
+  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* mine = Xs + wid * N * X + lane;
+  const float* other = Xs + (wid ^ NG) * N * X + lane;
+  int x = 0;                                // a tile's slot: argument order
+  (put_tile<NS>(mine + X * x++, tiles), ...);
+  __syncthreads();
+  x = 0;
+  (add_tile<NS>(tiles, other + X * x++), ...);
 }
 
 }  // namespace attn_tf32

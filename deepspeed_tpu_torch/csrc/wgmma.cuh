@@ -1,7 +1,8 @@
 // Hopper (sm_90a) primitives shared by the kernels that run warpgroup
 // matrix products: fused_ln_tc.cu (TPU kernels #6, #7 in 16 bits),
-// fused_ln_tf32.cu (#6, #7 in fp32, as 3xTF32) and
-// flash_attention_tc256.cu (#3-#5 at head dims in (128, 256]).
+// fused_ln_tf32.cu (#6, #7 in fp32, as 3xTF32),
+// flash_attention_tc256.cu (#3-#5 at head dims in (128, 256]) and
+// chunked_prefill.cu (#2's bf16 chunk items at those head dims).
 //
 // - mbarriers and TMA tensor loads (cp.async.bulk.tensor) for producer /
 //   consumer rings;

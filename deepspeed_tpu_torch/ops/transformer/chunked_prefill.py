@@ -13,15 +13,17 @@ per-(token, head) fp32 scales [N, BS, H].
 - On a CUDA tensor, :func:`chunked_prefill_attention` launches the Hopper
   kernels of ``csrc/chunked_prefill.cu`` (built at first use) or raises.
   It never falls back to the plain version. :func:`_route` picks them:
-  with ``head_dim`` a multiple of 8 up to 128, bfloat16 q over bfloat16
+  with ``head_dim`` a multiple of 8 up to 256, bfloat16 q over bfloat16
   or int8 pools (:func:`chunked_prefill_attention_tc`) and float32 q over
   float32 or int8 pools (:func:`chunked_prefill_attention_tf32`) run the
   step's runs of one sequence: :func:`chunked_runs` finds them once, on
   the host; runs of two or more tokens run on the tensor cores in items
-  of up to 64 tokens (fp32 as 3xTF32), decode rows on the one-query walk
-  with their keys split over a thread-block cluster, kernel #1's design.
-  Wider heads run the first kernel (``chunked_prefill_attention_fwd``,
-  which finds runs of up to 8 tokens in each block, on FMAs).
+  of up to 64 tokens (fp32 as 3xTF32; bf16 above 128 on warpgroup
+  products), decode rows on the one-query walk with their keys split
+  over a thread-block cluster, kernel #1's design. The first kernel
+  (``chunked_prefill_attention_fwd``, which finds runs of up to 8 tokens
+  in each block, on FMAs) is on no route: :func:`_launch_walk` keeps it
+  as the run kernels' first version on the same inputs.
 - On a CPU tensor it runs :func:`chunked_prefill_attention_reference`,
   the plain PyTorch version the CPU tests hold against the JAX kernel and
   ``chip_smoke.py`` holds the CUDA kernels against.
@@ -29,7 +31,8 @@ per-(token, head) fp32 scales [N, BS, H].
 The JAX package gates its kernel on ``head_dim % 128`` (TPU lane tiling);
 the CUDA kernels take what the paged decode kernel takes
 (``paged_decode_ok``). ``chunked_prefill_attention.launches`` counts the
-first kernel's launches, ``chunked_prefill_attention_tc.launches`` and
+first kernel's launches through the public call (none unless ``_route``
+is patched), ``chunked_prefill_attention_tc.launches`` and
 ``chunked_prefill_attention_tf32.launches`` the calls of the run kernels
 (one or two launches each: the chunk items' kernel if the step holds a
 run of two or more tokens, the decode items' if it holds a run of one),
@@ -44,8 +47,8 @@ import torch
 
 from deepspeed_tpu_torch.ops import build
 from deepspeed_tpu_torch.ops.transformer.paged_attention import (
-    _DTYPE_CODES, KEYS_PER_SPLIT, MAX_SPLITS, check_pool_operands,
-    dequantized)
+    _DTYPE_CODES, KEYS_PER_SPLIT, MAX_HEAD_DIM, MAX_SPLITS,
+    check_pool_operands, dequantized, paged_decode_ok)
 
 __all__ = ["chunked_prefill_attention", "chunked_prefill_attention_tc",
            "chunked_prefill_attention_tf32",
@@ -53,34 +56,34 @@ __all__ = ["chunked_prefill_attention", "chunked_prefill_attention_tc",
            "ChunkedRuns", "chunked_decode_splits"]
 
 TC_TOKENS = 64          # the tensor-core kernel's query rows per item
-TC_MAX_HEAD_DIM = 128
-# The decode items' cluster blocks that run well at once: three on each of
-# an H100's 132 SMs. chip_smoke.py (time_chunked_splits) timed 1, 2, 4 and
-# 8 decode rows x 12 heads over 256 and 1,024 keys at every split count:
-# 8 rows at 8 splits (768 blocks, kernel #1's 792 allowed them) ran 1.2x
-# (1,024 keys) and 1.7x (256 keys) behind 6 and 4 splits; with this bound
-# the rule's pick was within 5% of the fastest count in every case (two
-# runs).
+# The decode items' cluster blocks that run well at once at head dim
+# RULE_HEAD_DIM: three on each of an H100's 132 SMs. chip_smoke.py
+# (time_chunked_splits) timed 1, 2, 4 and 8 decode rows x 12 heads over 256
+# and 1,024 keys at every split count: at D = 64, 8 rows at 8 splits (768
+# blocks, kernel #1's 792 allowed them) ran 1.2x (1,024 keys) and 1.7x
+# (256 keys) behind 6 and 4 splits; with this bound the rule's pick was
+# within 5% of the fastest count in every case (two runs). At D = 256 the
+# same keys cost 4x the bytes and walk 4x the tiles (16 keys a tile, not
+# 64), and the D = 64 rule's pick ran up to 1.31x behind the fastest: so
+# the rule counts keys and blocks in units of RULE_HEAD_DIM's, and its
+# pick was the fastest count in all 16 cases at D = 128 and 256.
 DECODE_BLOCKS_PER_CARD = 396
+RULE_HEAD_DIM = 64
 _FN = None
 
 
 def _route(dtype: torch.dtype, pool_dtype: torch.dtype,
            head_dim: int) -> str:
-    """Which kernels run a call on CUDA. With ``head_dim`` a multiple of 8
-    in [8, 128], the runs of one sequence (tensor cores for chunks, the
-    split one-query walk for decode rows): ``"tc"`` for bfloat16 q over
-    bfloat16 or int8 pools, ``"tf32"`` (3xTF32) for float32 q over float32
-    or int8 pools. ``"walk"`` (the first kernel, on FMAs) for the rest:
-    wider heads."""
-    if head_dim % 8 or not 8 <= head_dim <= TC_MAX_HEAD_DIM:
+    """Which kernels run a call on CUDA: for everything the paged decode
+    kernel takes (``paged_decode_ok``: ``head_dim`` a multiple of 8 in [8,
+    256], pools of q's dtype or int8), the runs of one sequence (tensor
+    cores for chunks, the split one-query walk for decode rows): ``"tc"``
+    for bfloat16 q, ``"tf32"`` (3xTF32) for float32 q. ``"walk"`` (the
+    first kernel) for the rest, which every kernel refuses: the public
+    call raises before any launch."""
+    if not paged_decode_ok(head_dim, dtype, pool_dtype):
         return "walk"
-    if dtype == torch.bfloat16 and pool_dtype in (torch.bfloat16,
-                                                  torch.int8):
-        return "tc"
-    if dtype == torch.float32 and pool_dtype in (torch.float32, torch.int8):
-        return "tf32"
-    return "walk"
+    return "tc" if dtype == torch.bfloat16 else "tf32"
 
 
 class ChunkedRuns:
@@ -135,14 +138,19 @@ def chunked_runs(table, pos, block_size: int) -> ChunkedRuns:
     return ChunkedRuns(order(chunks), order(decode))
 
 
-def chunked_decode_splits(runs: ChunkedRuns, heads: int) -> int:
+def chunked_decode_splits(runs: ChunkedRuns, heads: int,
+                          head_dim: int) -> int:
     """Blocks per decode item of the run kernels' cluster walk, 1 to
     ``MAX_SPLITS``: kernel #1's rule (``paged_decode_splits``) with this
-    kernel's own card bound: one block per ``KEYS_PER_SPLIT`` keys of the
-    longest decode walk, and no more than the ``heads x decode items``
-    clusters fit in :data:`DECODE_BLOCKS_PER_CARD`."""
-    by_keys = -(-max(1, runs.longest_decode) // KEYS_PER_SPLIT)
-    by_card = DECODE_BLOCKS_PER_CARD // max(1, heads * runs.n_decode)
+    kernel's own card bound, both scaled by ``head_dim /``
+    :data:`RULE_HEAD_DIM`: one block per ``KEYS_PER_SPLIT x RULE_HEAD_DIM
+    / head_dim`` keys of the longest decode walk, and no more than the
+    ``heads x decode items`` clusters fit in ``DECODE_BLOCKS_PER_CARD x
+    head_dim / RULE_HEAD_DIM`` blocks."""
+    work = max(1, runs.longest_decode) * head_dim
+    by_keys = -(-work // (KEYS_PER_SPLIT * RULE_HEAD_DIM))
+    by_card = (DECODE_BLOCKS_PER_CARD * head_dim // RULE_HEAD_DIM
+               // max(1, heads * runs.n_decode))
     return max(1, min(MAX_SPLITS, by_keys, by_card))
 
 
@@ -251,6 +259,8 @@ def chunked_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
         return _RUN_WRAPPERS[route](
             q, k_pool, v_pool, k_scale, v_scale, table, pos,
             block_size=block_size, softmax_scale=softmax_scale, runs=runs)
+    # no operands the checks pass route here; tools/ab_chunked_fp32.py
+    # patches _route to serve a trace on the first kernel
     out = _launch_walk(q, k_pool, v_pool, k_scale, v_scale, table, pos,
                        block_size, softmax_scale)
     chunked_prefill_attention.launches += 1
@@ -273,7 +283,8 @@ def _launch_walk(q, k_pool, v_pool, k_scale, v_scale, table, pos,
                  block_size: int, softmax_scale: Optional[float]):
     """One launch of the first kernel (runs of up to 8 tokens found in each
     block, on FMAs), on operands :func:`_check_operands` accepted; any
-    dtype it takes, bfloat16 included."""
+    dtype it takes, bfloat16 included. No route runs it: it is the run
+    kernels' first version, timed on their inputs."""
     t, h, d = q.shape
     scale = (softmax_scale if softmax_scale is not None
              else 1.0 / (d ** 0.5))
@@ -309,7 +320,7 @@ def _launch_runs(wrapper, route: str, q, k_pool, v_pool, k_scale, v_scale,
     if _route(q.dtype, k_pool.dtype, q.shape[-1]) != route:
         raise ValueError(
             f"{what}: its run kernels take {_RUN_DTYPES[route]} and "
-            f"head_dim a multiple of 8 in [8, {TC_MAX_HEAD_DIM}]; got q "
+            f"head_dim a multiple of 8 in [8, {MAX_HEAD_DIM}]; got q "
             f"{q.dtype}, pools {k_pool.dtype}, head_dim {q.shape[-1]}")
     if q.device.type != "cuda":
         raise ValueError(f"{what}: its run kernels run on CUDA tensors, "
@@ -322,7 +333,7 @@ def _launch_runs(wrapper, route: str, q, k_pool, v_pool, k_scale, v_scale,
         runs = chunked_runs(table.cpu().numpy(), pos.cpu().numpy(),
                             block_size)
     if splits is None:
-        splits = chunked_decode_splits(runs, h)
+        splits = chunked_decode_splits(runs, h, d)
     scale = (softmax_scale if softmax_scale is not None
              else 1.0 / (d ** 0.5))
     out = torch.empty_like(q)
@@ -353,12 +364,13 @@ def chunked_prefill_attention_tc(q: torch.Tensor, k_pool: torch.Tensor,
                                  splits: Optional[int] = None
                                  ) -> torch.Tensor:
     """The run kernels (bfloat16 q over bfloat16 pools, or int8 pools with
-    their scales; ``head_dim`` a multiple of 8 up to 128; CUDA tensors;
+    their scales; ``head_dim`` a multiple of 8 up to 256; CUDA tensors;
     anything else raises ValueError): chunk items on the tensor cores
-    (int8 codes widened to bfloat16, exactly, k_scale multiplying s and
-    v_scale p), decode items on the one-query walk with their keys split
-    over ``splits`` blocks of a cluster (:func:`chunked_decode_splits` by
-    default). Inputs and output as :func:`chunked_prefill_attention`."""
+    (``mma.sync`` up to 128, warpgroup products above; int8 codes widened
+    to bfloat16, exactly, k_scale multiplying s and v_scale p), decode
+    items on the one-query walk with their keys split over ``splits``
+    blocks of a cluster (:func:`chunked_decode_splits` by default).
+    Inputs and output as :func:`chunked_prefill_attention`."""
     return _launch_runs(chunked_prefill_attention_tc, "tc", q, k_pool,
                         v_pool, k_scale, v_scale, table, pos, block_size,
                         softmax_scale, runs, splits)
@@ -375,7 +387,7 @@ def chunked_prefill_attention_tf32(q: torch.Tensor, k_pool: torch.Tensor,
                                    splits: Optional[int] = None
                                    ) -> torch.Tensor:
     """The fp32 run kernels (float32 q over float32 pools, or int8 pools
-    with their scales; ``head_dim`` a multiple of 8 up to 128; CUDA
+    with their scales; ``head_dim`` a multiple of 8 up to 256; CUDA
     tensors; anything else raises ValueError): chunk items on the tensor
     cores as 3xTF32 (each fp32 operand split into two TF32 terms, three
     products each; int8 codes exact in TF32, so two, with k_scale

@@ -14,13 +14,16 @@ adjacent positions with different table rows, pad rows):
   item's keys and the order, longest walk first;
 - a plain model of the kernels' output path (chunk items in 64-key tiles,
   an online softmax in base 2 with each row's own position; decode items
-  cut into the key shares of a cluster and combined in rank order)
-  against the JAX kernel ``chunked_prefill_attention_kernel``
-  (interpret): fp32 within 1e-5; bf16 q and pools, and bf16 q over int8
-  pools, as the kernels round them (p.V with p split into two bf16 terms,
-  int8 codes exact in bf16 with the scales applied in fp32, the output
-  rounded once) within one bf16 step of JAX's bf16 output plus 1e-3: both
-  sides sum the same fp32 products in other orders and round once;
+  cut into the key shares of a cluster, whole tiles of the walk's KT keys,
+  and combined in rank order) against the JAX kernel
+  ``chunked_prefill_attention_kernel`` (interpret): fp32 within 1e-5;
+  bf16 q and pools, and bf16 q over int8 pools, as the kernels round them
+  (p.V with p split into two bf16 terms, int8 codes exact in bf16 with the
+  scales applied in fp32, the output rounded once) within one bf16 step
+  of JAX's bf16 output plus 1e-3: both sides sum the same fp32 products in
+  other orders and round once. The same model at head dim 256, where the
+  chunk items run on warpgroup products (``chunked_tc256_kernel``, the
+  same arithmetic) and the decode walk takes 16 keys a tile;
 - the decode split rule, the route, and the run wrapper's walls.
 """
 
@@ -34,15 +37,26 @@ import torch
 from deepspeed_tpu.ops.transformer.chunked_prefill import \
     chunked_prefill_attention as jax_chunked_prefill_attention
 from deepspeed_tpu_torch.ops.transformer import chunked_prefill as cp
+from deepspeed_tpu_torch.ops.transformer.paged_attention import \
+    paged_decode_ok
 
 torch.set_num_threads(1)
 
 BS, H, D, WB = 16, 2, 64, 12
-KT = 64          # the decode walk's keys per tile at D = 64 (paged_walk.cuh)
 LOG2E = 1.0 / math.log(2.0)
 
 
-def _batch(seed):
+def _walk_tile(d):
+    """The decode walk's keys per tile (paged_walk.cuh): NPASS = 4 passes
+    of THREADS / TPKP keys, TPKP the power of two >= d / 8 (64 at D = 64,
+    16 at D = 256)."""
+    tpkp = 1
+    while tpkp * 8 < d:
+        tpkp *= 2
+    return 4 * (128 // tpkp)
+
+
+def _batch(seed, d=D):
     """A ragged mixed step as the serving engine builds it, and the pools.
     Sequences (first position, tokens): decode rows at 150 and 170, a
     chunk of 90 tokens from 30 (it crosses positions 64 and 128 and its
@@ -50,7 +64,7 @@ def _batch(seed):
     sit at adjacent positions (40, 41 then 42, 43) with different rows, a
     decode row at position 0, then 5 pad rows (the all-scratch row at
     position 0). Every sequence owns distinct blocks; table tails and pads
-    point at scratch block 0."""
+    point at scratch block 0. ``d``: the head dim."""
     rng = np.random.default_rng(seed)
     seqs = [(150, 1), (30, 90), (170, 1), (8, 3), (40, 2), (42, 2), (0, 1)]
     need = [(p0 + c - 1) // BS + 1 for p0, c in seqs]
@@ -69,9 +83,9 @@ def _batch(seed):
         pos.append(0)
     table = np.stack(table).astype(np.int32)
     pos = np.asarray(pos, np.int32)
-    k = rng.standard_normal((n_blocks, BS, H, D)).astype(np.float32)
-    v = rng.standard_normal((n_blocks, BS, H, D)).astype(np.float32)
-    q = rng.standard_normal((len(pos), H, D)).astype(np.float32)
+    k = rng.standard_normal((n_blocks, BS, H, d)).astype(np.float32)
+    v = rng.standard_normal((n_blocks, BS, H, d)).astype(np.float32)
+    q = rng.standard_normal((len(pos), H, d)).astype(np.float32)
     return q, k, v, table, pos
 
 
@@ -144,9 +158,10 @@ def _model(q, k, v, ks, vs, table, pos, runs, splits, bf16):
     (times k_scale) in base 2, each row masked past its own position, an
     online softmax, p (times v_scale) into p.V, split into two bf16 terms
     when ``bf16``; o = acc / max(l, 1e-30). Decode items: the keys cut into
-    ``splits`` shares of whole KT-key tiles, each share's (m, l, o) in
-    natural-log units, combined in rank order."""
+    ``splits`` shares of whole tiles of the walk's keys, each share's (m,
+    l, o) in natural-log units, combined in rank order."""
     t, h, d = q.shape
+    kt = _walk_tile(d)
     scale = 1.0 / math.sqrt(d)
     out = torch.full((t, h, d), float("nan"))
     ninf = torch.tensor(float("-inf"))
@@ -192,7 +207,7 @@ def _model(q, k, v, ks, vs, table, pos, runs, splits, bf16):
                 m = mn
             out[t0:t0 + n, hh] = acc / l.clamp_min(1e-30)[:, None]
     for tok, _one, nk, _z in runs.items[runs.n_chunk:].tolist():
-        nt = -(-nk // KT)
+        nt = -(-nk // kt)
         kk, vv, kss, vss = gather(torch.arange(nk), table[tok])
         if kss is not None:
             kk = kk * kss[..., None]
@@ -201,8 +216,8 @@ def _model(q, k, v, ks, vs, table, pos, runs, splits, bf16):
             s = q[tok, hh] @ kk[:, hh].T * scale
             parts = []
             for r in range(splits):
-                lo = min(nk, r * nt // splits * KT)
-                hi = min(nk, (r + 1) * nt // splits * KT)
+                lo = min(nk, r * nt // splits * kt)
+                hi = min(nk, (r + 1) * nt // splits * kt)
                 if lo == hi:
                     parts.append((float("-inf"), 0.0, torch.zeros(d)))
                     continue
@@ -227,7 +242,7 @@ def _jax(q, k, v, ks, vs, table, pos, dtype):
               for a in (k, v))
     o = jax_chunked_prefill_attention(jq, jk, jv, j(ks), j(vs),
                                       jnp.asarray(table), jnp.asarray(pos),
-                                      block_size=BS)
+                                      block_size=BS, interpret=True)
     return np.asarray(o.astype(jnp.float32))
 
 
@@ -254,12 +269,10 @@ def _bf16_step(x):
     return 2.0 ** (np.floor(np.log2(mag)) - 7)
 
 
-@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
-def test_model_matches_jax_kernel_bf16(case, int8):
-    """bf16 q over bf16 pools, or over int8 pools (codes and fp32 scales
-    from a seed): the model rounds as the kernels do; within one bf16
-    step of JAX's bf16 output plus 1e-3 (both round fp32 sums of the same
-    products, taken in other orders, once)."""
+def _hold_bf16(case, int8, splits_list):
+    """The bf16 model against JAX's bf16 output on ``case``, over bf16
+    pools or int8 ones (codes and fp32 scales from a seed), at each decode
+    split count of ``splits_list``."""
     q, k, v, table, pos, runs = case
     qb = _round_bf16(q)
     if int8:
@@ -275,11 +288,47 @@ def test_model_matches_jax_kernel_bf16(case, int8):
     else:
         want = _jax(q, k, v, None, None, table, pos, jnp.bfloat16)
         pools = (_round_bf16(k), _round_bf16(v), None, None)
-    for splits in (1, 5):
+    for splits in splits_list:
         got = _model(qb, *pools, table, pos, runs, splits, bf16=True)
         got = got.to(torch.bfloat16).float().numpy()
         excess = np.abs(got - want) - _bf16_step(want)
         assert excess.max() <= 1e-3, excess.max()
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_model_matches_jax_kernel_bf16(case, int8):
+    """bf16 q over bf16 pools, or over int8 pools (codes and fp32 scales
+    from a seed): the model rounds as the kernels do; within one bf16
+    step of JAX's bf16 output plus 1e-3 (both round fp32 sums of the same
+    products, taken in other orders, once)."""
+    _hold_bf16(case, int8, (1, 5))
+
+
+@pytest.fixture(scope="module")
+def case256():
+    """The same ragged step at head dim 256 (the JAX kernel's gate admits
+    it: a multiple of 128)."""
+    q, k, v, table, pos = _batch(3, d=256)
+    return q, k, v, table, pos, cp.chunked_runs(table, pos, BS)
+
+
+def test_model_matches_jax_kernel_fp32_d256(case256):
+    """fp32 at head dim 256, atol 1e-5, at 1 and 8 decode shares of the
+    walk's 16-key tiles."""
+    q, k, v, table, pos, runs = case256
+    want = _jax(q, k, v, None, None, table, pos, jnp.float32)
+    for splits in (1, 8):
+        got = _model(*(torch.from_numpy(a) for a in (q, k, v)), None, None,
+                     table, pos, runs, splits, bf16=False)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_model_matches_jax_kernel_bf16_d256(case256, int8):
+    """bf16 q over bf16 or int8 pools at head dim 256 (the wgmma chunk
+    kernel's arithmetic: two-term p, scales in fp32), at 1 and 8 decode
+    shares: within one bf16 step of JAX's bf16 output plus 1e-3."""
+    _hold_bf16(case256, int8, (1, 8))
 
 
 @pytest.mark.parametrize("longest,n_decode,want", [
@@ -293,7 +342,22 @@ def test_decode_split_rule(longest, n_decode, want):
     keys) pick the counts that ran fastest there, or within 5%."""
     decode = np.asarray([(i, 1, longest, 0) for i in range(n_decode)])
     runs = cp.ChunkedRuns(np.zeros((0, 4), np.int64), decode)
-    assert cp.chunked_decode_splits(runs, 12) == want
+    assert cp.chunked_decode_splits(runs, 12, 64) == want
+
+
+@pytest.mark.parametrize("d,longest,n_decode,want", [
+    (256, 256, 1, 8), (256, 1024, 8, 8), (256, 256, 8, 8), (256, 16, 1, 1),
+    (256, 17, 1, 2), (128, 256, 8, 8), (128, 1024, 16, 4),
+    (256, 1024, 64, 2)])
+def test_decode_split_rule_scales_with_head_dim(d, longest, n_decode, want):
+    """At head dim d the rule counts in units of D = 64: one block per 64
+    x 64 / d keys (16 at D = 256, a tile of the walk there) and at most
+    396 x d / 64 blocks over 12 heads x decode items. chip_smoke.py's
+    sweep at D = 256 (1-8 rows at 256 and 1,024 keys) ran fastest at 8
+    splits in every case."""
+    decode = np.asarray([(i, 1, longest, 0) for i in range(n_decode)])
+    runs = cp.ChunkedRuns(np.zeros((0, 4), np.int64), decode)
+    assert cp.chunked_decode_splits(runs, 12, d) == want
 
 
 def test_mixed_step_decode_rows_split_four_ways():
@@ -314,7 +378,7 @@ def test_mixed_step_decode_rows_split_four_ways():
     runs = cp.chunked_runs(table, pos, 16)
     assert runs.n_decode == 8 and runs.longest_decode == 1001
     assert runs.n_chunk == 4 + 1 + 1     # 200 = 64+64+64+8; 40; the pads
-    assert cp.chunked_decode_splits(runs, 12) == 4
+    assert cp.chunked_decode_splits(runs, 12, 64) == 4
 
 
 @pytest.mark.parametrize("dtype,pool,d,route", [
@@ -324,10 +388,17 @@ def test_mixed_step_decode_rows_split_four_ways():
     (torch.bfloat16, torch.bfloat16, 72, "tc"),
     (torch.float32, torch.float32, 64, "tf32"),
     (torch.float32, torch.int8, 64, "tf32"),
-    (torch.bfloat16, torch.bfloat16, 256, "walk"),
-    (torch.float32, torch.float32, 256, "walk")])
+    (torch.bfloat16, torch.bfloat16, 256, "tc"),
+    (torch.float32, torch.float32, 256, "tf32"),
+    (torch.bfloat16, torch.int8, 136, "tc"),
+    (torch.bfloat16, torch.int8, 200, "tc"),
+    (torch.bfloat16, torch.bfloat16, 264, "walk")])
 def test_route(dtype, pool, d, route):
+    """The run kernels take every head dim the paged decode kernel takes
+    (a multiple of 8 up to 256); what neither takes is "walk", which the
+    public call's checks refuse before any launch."""
     assert cp._route(dtype, pool, d) == route
+    assert (route != "walk") == paged_decode_ok(d, dtype, pool)
 
 
 def test_run_wrapper_refuses_and_counts_nothing():

@@ -8,7 +8,8 @@ cluster) run only on the card, where ``chip_smoke.py`` holds them against
 the plain version. Here, on the CPU:
 
 - ``_route``'s answers: ``"tf32"`` for float32 q over float32 or int8
-  pools at head dims that are multiples of 8 up to 128, ``"walk"`` above;
+  pools at head dims that are multiples of 8 up to 256, ``"walk"`` for
+  what no kernel takes;
 - the fp32 run wrapper's walls: another route or a CPU tensor raises, and
   nothing is counted;
 - a plain model of the kernels' arithmetic against the JAX kernel
@@ -25,8 +26,12 @@ the plain version. Here, on the CPU:
   over an int8 pool the codes are exact in TF32, so each product is
   lo.c + hi.c, k_scale multiplies s and v_scale p before its split.
   Decode items: fp32 products, the keys cut into a cluster's shares of
-  whole 64-key tiles and combined in rank order. The same model with one
-  TF32 product (hi.hi) alone misses 1e-5.
+  whole tiles of the walk's keys (64 at D = 64) and combined in rank
+  order. The same model with one TF32 product (hi.hi) alone misses 1e-5.
+  At head dim 256 (``chunked_tf32w_kernel``): 32-key tiles under one
+  online softmax a row, s summed over each half of the head dim (3xTF32)
+  and the two halves added, the decode walk's 16-key tiles; within 1e-5
+  too.
 """
 
 import math
@@ -43,14 +48,26 @@ from deepspeed_tpu_torch.ops.transformer import chunked_prefill as cp
 torch.set_num_threads(1)
 
 BS, H, D, WB = 16, 2, 64, 12
-KT = 64          # the fp32 decode walk's keys per tile at D = 64
-BN = 64          # the chunk kernel's keys per tile
-KH = BN // 2     # a tile's keys one of its two warps takes
 LOG2E = 1.0 / math.log(2.0)
 TOL = 1e-5
+HALF = 128       # head-dim columns one warp of a pair owns above D = 128
 
 
-def _batch(seed):
+def _layout(d):
+    """The fp32 run kernels' tiles at head dim ``d``: (keys per chunk
+    tile, keys one online softmax walks of each tile, the decode walk's
+    keys per tile). Up to 128: 64-key tiles whose halves two warps walk;
+    above: 32-key tiles, one softmax. The decode walk (paged_walk.cuh):
+    NPASS = 4 passes of THREADS / TPKP keys, TPKP the power of two >= d /
+    8."""
+    tpkp = 1
+    while tpkp * 8 < d:
+        tpkp *= 2
+    kt = 4 * (128 // tpkp)
+    return (64, 32, kt) if d <= HALF else (32, 32, kt)
+
+
+def _batch(seed, d=D):
     """A ragged mixed step as the serving engine builds it, and fp32
     pools. Sequences (first position, tokens): decode rows at 150 and 170,
     a chunk of 90 tokens from 30 (it crosses positions 64 and 128 and its
@@ -58,7 +75,7 @@ def _batch(seed):
     sit at adjacent positions (40, 41 then 42, 43) with different rows, a
     decode row at position 0, then 5 pad rows (the all-scratch row at
     position 0). Every sequence owns distinct blocks; table tails and pads
-    point at scratch block 0."""
+    point at scratch block 0. ``d``: the head dim."""
     rng = np.random.default_rng(seed)
     seqs = [(150, 1), (30, 90), (170, 1), (8, 3), (40, 2), (42, 2), (0, 1)]
     need = [(p0 + c - 1) // BS + 1 for p0, c in seqs]
@@ -77,9 +94,9 @@ def _batch(seed):
         pos.append(0)
     table = np.stack(table).astype(np.int32)
     pos = np.asarray(pos, np.int32)
-    k = rng.standard_normal((n_blocks, BS, H, D)).astype(np.float32)
-    v = rng.standard_normal((n_blocks, BS, H, D)).astype(np.float32)
-    q = rng.standard_normal((len(pos), H, D)).astype(np.float32)
+    k = rng.standard_normal((n_blocks, BS, H, d)).astype(np.float32)
+    v = rng.standard_normal((n_blocks, BS, H, d)).astype(np.float32)
+    q = rng.standard_normal((len(pos), H, d)).astype(np.float32)
     return q, k, v, table, pos
 
 
@@ -120,19 +137,28 @@ def _mm(a: torch.Tensor, b: torch.Tensor, terms: int,
 def _model(q, k, v, ks, vs, table, pos, runs, splits, terms=3):
     """The fp32 run kernels' output in plain PyTorch. q [T, H, D]; k, v
     fp32 pools, or int8 codes as floats with fp32 scales ks, vs [N, BS,
-    H]. Chunk items: keys 0 .. keys - 1 in 64-key tiles gathered through
-    the first token's row, keys past the last one zero with scale 0; each
-    tile's key halves (KH keys) walked by two online softmaxes: s = q.k^T
-    (``_mm``), scaled into base 2 and times k_scale in fp32, each row
-    masked past its own position, p times v_scale into o += p.v
-    (``_mm``); the halves' (m, l, o) combined with weights 2^(m_h - max),
-    half 0's first; o = acc / max(l, 1e-30). Decode items: fp32
-    products, the keys cut into ``splits`` shares of whole KT-key tiles,
-    each share's (m, l, o) in natural-log units, combined in rank
-    order."""
+    H]. Chunk items (tiles as ``_layout``): keys 0 .. keys - 1 in bn-key
+    tiles gathered through the first token's row, keys past the last one
+    zero with scale 0; each tile's key halves (kh keys; one half above D =
+    128) walked by their own online softmaxes: s = q.k^T (``_mm``; above
+    D = 128 the sum of the two head-dim halves' products), scaled into
+    base 2 and times k_scale in fp32, each row masked past its own
+    position, p times v_scale into o += p.v (``_mm``); the halves' (m, l,
+    o) combined with weights 2^(m_h - max), half 0's first; o = acc /
+    max(l, 1e-30). Decode items: fp32 products, the keys cut into
+    ``splits`` shares of whole tiles of the walk's keys, each share's (m,
+    l, o) in natural-log units, combined in rank order."""
     t, h, d = q.shape
+    bn, kh, kt = _layout(d)
     scale = 1.0 / math.sqrt(d)
     codes = ks is not None
+
+    def scores(a, b):
+        if d <= HALF:
+            return _mm(a, b.T, terms, codes)
+        return (_mm(a[:, :HALF], b[:, :HALF].T, terms, codes)
+                + _mm(a[:, HALF:], b[:, HALF:].T, terms, codes))
+
     out = torch.full((t, h, d), float("nan"))
     ninf = torch.tensor(float("-inf"))
 
@@ -144,8 +170,8 @@ def _model(q, k, v, ks, vs, table, pos, runs, splits, terms=3):
         return kk, vv, ks.reshape(-1, h)[tok], vs.reshape(-1, h)[tok]
 
     for t0, n, nk, _z in runs.items[:runs.n_chunk].tolist():
-        ntiles = -(-nk // BN)
-        kpos = torch.arange(ntiles * BN)
+        ntiles = -(-nk // bn)
+        kpos = torch.arange(ntiles * bn)
         valid = kpos < nk
         kk, vv, kss, vss = gather(torch.where(valid, kpos, 0), table[t0])
         kk = torch.where(valid[:, None, None], kk, 0.0)
@@ -156,14 +182,14 @@ def _model(q, k, v, ks, vs, table, pos, runs, splits, terms=3):
         rpos = torch.from_numpy(pos[t0:t0 + n].astype(np.int64))
         for hh in range(h):
             halves = []
-            for half in range(BN // KH):
+            for half in range(bn // kh):
                 m = torch.full((n,), float("-inf"))
                 l = torch.zeros(n)
                 acc = torch.zeros(n, d)
                 for j in range(ntiles):
-                    sl = slice(BN * j + KH * half, BN * j + KH * half + KH)
-                    x = _mm(q[t0:t0 + n, hh], kk[sl, hh].T, terms,
-                            codes) * (scale * LOG2E)
+                    sl = slice(bn * j + kh * half, bn * j + kh * half + kh)
+                    x = scores(q[t0:t0 + n, hh], kk[sl, hh]) * (
+                        scale * LOG2E)
                     if codes:
                         x = x * kss[sl, hh]
                     x = torch.where(kpos[sl][None, :] <= rpos[:, None], x,
@@ -180,6 +206,10 @@ def _model(q, k, v, ks, vs, table, pos, runs, splits, terms=3):
                                                  codes)
                     m = mn
                 halves.append((m, l, acc))
+            if len(halves) == 1:
+                m, l, acc = halves[0]
+                out[t0:t0 + n, hh] = acc / l.clamp_min(1e-30)[:, None]
+                continue
             top = torch.maximum(halves[0][0], halves[1][0])
             w = [torch.where(m == ninf, 0.0, torch.exp2(m - top))
                  for m, _l, _a in halves]
@@ -187,7 +217,7 @@ def _model(q, k, v, ks, vs, table, pos, runs, splits, terms=3):
             o = halves[0][2] * w[0][:, None] + halves[1][2] * w[1][:, None]
             out[t0:t0 + n, hh] = o / lsum.clamp_min(1e-30)[:, None]
     for tok, _one, nk, _z in runs.items[runs.n_chunk:].tolist():
-        nt = -(-nk // KT)
+        nt = -(-nk // kt)
         kk, vv, kss, vss = gather(torch.arange(nk), table[tok])
         if codes:
             kk = kk * kss[..., None]
@@ -196,8 +226,8 @@ def _model(q, k, v, ks, vs, table, pos, runs, splits, terms=3):
             s = q[tok, hh] @ kk[:, hh].T * scale
             parts = []
             for r in range(splits):
-                lo = min(nk, r * nt // splits * KT)
-                hi = min(nk, (r + 1) * nt // splits * KT)
+                lo = min(nk, r * nt // splits * kt)
+                hi = min(nk, (r + 1) * nt // splits * kt)
                 if lo == hi:
                     parts.append((float("-inf"), 0.0, torch.zeros(d)))
                     continue
@@ -223,12 +253,12 @@ def _jax(q, k, v, ks, vs, table, pos):
     return np.asarray(o, np.float32)
 
 
-@pytest.fixture(scope="module", params=["fp32", "int8"])
-def case(request):
-    """The batch over fp32 or int8 pools, its run list, the model's pools
-    (codes as floats) and the JAX kernel's output."""
-    q, k, v, table, pos = _batch(7)
-    if request.param == "int8":
+def _case(kind, d):
+    """The batch at head dim ``d`` over fp32 or int8 pools (``kind``), its
+    run list, the model's pools (codes as floats) and the JAX kernel's
+    output."""
+    q, k, v, table, pos = _batch(7, d)
+    if kind == "int8":
         k, v, ks, vs = _int8_pools(8, k.shape)
         pools = tuple(torch.from_numpy(a.astype(np.float32))
                       for a in (k, v, ks, vs))
@@ -240,12 +270,35 @@ def case(request):
             cp.chunked_runs(table, pos, BS), want)
 
 
+@pytest.fixture(scope="module", params=["fp32", "int8"])
+def case(request):
+    return _case(request.param, D)
+
+
+@pytest.fixture(scope="module", params=["fp32", "int8"])
+def case256(request):
+    """The same at head dim 256 (the JAX kernel's gate admits it)."""
+    return _case(request.param, 256)
+
+
 @pytest.mark.parametrize("splits", [1, 3, 8])
 def test_model_matches_jax_kernel(case, splits):
     """Every real and pad row within 1e-5 of the JAX kernel at 1, 3 and 8
     decode shares, over fp32 and int8 pools: the same function, every
     product 3xTF32, summed in another order."""
     q, pools, table, pos, runs, want = case
+    assert runs.n_chunk and runs.n_decode
+    got = _model(q, *pools, table, pos, runs, splits).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("splits", [1, 8])
+def test_model_matches_jax_kernel_d256(case256, splits):
+    """At head dim 256, every real and pad row within 1e-5 of the JAX
+    kernel at 1 and 8 decode shares, over fp32 and int8 pools: 32-key
+    tiles, s summed by head-dim halves, one softmax a row."""
+    q, pools, table, pos, runs, want = case256
     assert runs.n_chunk and runs.n_decode
     got = _model(q, *pools, table, pos, runs, splits).numpy()
     assert np.isfinite(got).all()
@@ -281,8 +334,10 @@ def test_tf32_split_is_exact_and_codes_need_no_lo():
     (torch.float32, torch.float32, 8, "tf32"),
     (torch.float32, torch.float32, 72, "tf32"),
     (torch.float32, torch.int8, 128, "tf32"),
-    (torch.float32, torch.float32, 136, "walk"),
-    (torch.float32, torch.int8, 256, "walk"),
+    (torch.float32, torch.float32, 136, "tf32"),
+    (torch.float32, torch.int8, 256, "tf32"),
+    (torch.float32, torch.float32, 200, "tf32"),
+    (torch.float32, torch.int8, 264, "walk"),
     (torch.float32, torch.float32, 60, "walk"),
     (torch.bfloat16, torch.bfloat16, 64, "tc"),
     (torch.bfloat16, torch.int8, 64, "tc")])
@@ -298,7 +353,7 @@ def _counters():
 
 def test_tf32_wrapper_refuses_and_counts_nothing():
     """Another route (bfloat16 q, a bfloat16 pool under fp32 q, a head
-    dim above 128) or a CPU tensor raises ValueError before any launch,
+    dim above 256) or a CPU tensor raises ValueError before any launch,
     and no counter moves; the bf16 run wrapper refuses fp32 q."""
     q, k, v, table, pos = (torch.from_numpy(a) for a in _batch(5))
     before = _counters()
@@ -310,8 +365,8 @@ def test_tf32_wrapper_refuses_and_counts_nothing():
     with pytest.raises(ValueError, match="take float32 q"):
         cp.chunked_prefill_attention_tf32(q, k.bfloat16(), v.bfloat16(),
                                           None, None, table, pos, **kw)
-    wide = torch.zeros(q.shape[0], H, 256)
-    with pytest.raises(ValueError, match="head_dim 256"):
+    wide = torch.zeros(q.shape[0], H, 264)
+    with pytest.raises(ValueError, match="head_dim 264"):
         cp.chunked_prefill_attention_tf32(wide, wide, wide, None, None,
                                           table, pos, **kw)
     with pytest.raises(ValueError, match="run on CUDA"):
