@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only bert      # the build, then phase 8 only
     python3 chip_smoke.py --only serving   # the build, then phase 3 only
     python3 chip_smoke.py --only ckpt      # the build, then phase 9 only
+    python3 chip_smoke.py --only guardrails  # the build, then phase 10
     python3 chip_smoke.py --only fp32      # the build, the fp32 sparse
                                            # holds, phases 5b, 7b
     python3 chip_smoke.py --only sparse,chunked
@@ -377,6 +378,37 @@
    LAMB at bert-large width and 2 layers: a save/load round trip, the
    next loss bit-equal. The kernels line's rows and launch counts are
    the earlier phases'.
+10. Training guardrails and the training telemetry they report through
+   (``--only guardrails`` runs it alone; :func:`check_guardrails`), on
+   full-width GPT-2 at phase 4's configuration (dropout 0): (a) the step
+   with guardrails and telemetry off, with the guardrails on (detector,
+   grad-norm tracking, a ring of 2 at ``snapshot_interval`` 10) and with
+   telemetry (goodput, numerics; trace without sync spans) on too: the
+   median of 5 steps and the mean of 10 (one ring snapshot among them,
+   into reused buffers) after 12 warm-up, their ratios to the off step
+   (the guardrails' mean within 1.05 of it), kernels a step, the idle
+   share and the
+   device-to-host copies of one profiled step each (none in the off step,
+   or the run fails), a ring snapshot's ms and GB (its buffers reused);
+   (b) the fault plan NaN-poisons attempts 5 and 6 of 10 committed steps
+   through a float ``weight`` leaf the loss multiplies by (a GPT batch's
+   token ids are ints, which the NaN-fill keeps): one rollback, two
+   spikes, finite losses and masters, the committed losses and final
+   masters held to a clean run with the window cut out (bit-equal when
+   two clean runs are, else within their own difference), the
+   guardrails' counters, the rollback instant, goodput's rollback
+   seconds, a spike dump naming a worst group, #3-#5 at 96 launches an
+   attempt and #11 at 1, no plain version; (c) ``Supervisor(run_dir=...)``
+   over this script's ``--guardrails-child`` (GPT-2 at 2 layers, full
+   width) with the fault plan hanging attempt 3 without bound: exit code
+   113 with a dump (stacks naming the hang, ``memory.json``, the metrics
+   tail), an immediate restart that resumes from step 2 and commits steps
+   3-4 as a clean run does (run twice in this process), the goodput
+   manifests stamped ``watchdog`` and ``clean`` and read by
+   ``tools/goodput_report.py``; (d) numerics' per-group statistics of one
+   step held to fp32 sums of the same gradients and masters (1e-5
+   relative), read back once at the flush, their copy and statistics
+   device ms. The kernels line's rows keep the earlier phases' launches.
 
 Any failure exits non-zero. The last stdout line is
 ``{"ok": true, "device": {...}}``; before it come the card line and a
@@ -7552,6 +7584,581 @@ def ckpt_bert(torch):
     return {"loss": got, "save_s": save_s, "load_s": load_s, "gb": gb}
 
 
+# ---------------------------------------------------------------------------
+# 10. Training guardrails and the training telemetry they report through
+# ---------------------------------------------------------------------------
+
+GR_DIR = os.path.join(HERE, "build", "guardrails_smoke")  # .gitignore lists it
+GR_CONFIG = dict(TRAIN_CONFIG, steps_per_print=1000)
+# (a): warm-up steps, then timed ones: the ring takes its snapshots at
+# the first step and every 10th, and pins a buffer set for each of the
+# first two (at steps 1 and 10); the timed 10 (13-22) hold one snapshot,
+# at step 20, into reused buffers
+GR_WARMUP, GR_TIMED = 12, 10
+GR_SNAPSHOT_INTERVAL = 10
+GR_K, GR_TOTAL = 4, 10             # (b): poisoned attempts k+1, k+2
+GR_CHILD_LAYERS = 2                # (c): the supervised children's depth
+GR_CHILD_STEPS, GR_HANG_AT = 4, 3  # (c): steps; the attempt that hangs
+GR_WATCHDOG_S = 20.0               # (c): the step deadline
+NUMERICS_TOL = 1e-5                # (d): relative, against fp32 sums
+# the telemetry block of (a)'s third leg and of (b): trace without sync
+# spans (a sync span would put its own waits in the step)
+GR_TELEMETRY = {"enabled": True, "trace": {"sync_spans": False},
+                "goodput": True, "numerics": {"enabled": True}}
+
+
+def gr_engine(torch, config, layers=None, weighted=False, seed=0):
+    """GR_CONFIG's engine over full-width GPT-2 (dropout 0; ``layers``
+    cuts its depth). ``weighted``: its loss multiplies the GPT token loss
+    by the mean of the batch's float ``weight`` leaf (1.0s), the leaf a
+    fault plan's NaN-fill poisons; a clean step's loss is the plain one,
+    bit for bit. Returns (engine, model, cfg)."""
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models import init_gpt_params, make_gpt
+    from deepspeed_tpu_torch.models.adapter import module_loss_fn
+
+    over = {"dropout_rate": 0.0}
+    if layers is not None:
+        over["num_layers"] = layers
+    model, cfg = make_gpt("gpt2", **over)
+    sd = init_gpt_params(cfg, seed=seed)
+    if not weighted:
+        engine = dtt.initialize(model=model, params=sd, config=config)[0]
+        return engine, model, cfg
+    model.load_state_dict(sd)
+    model.to(device="cuda", dtype=torch.float32)
+    base, params = module_loss_fn(model)
+
+    def loss_fn(p, batch, rng):
+        batch = dict(batch)
+        w = batch.pop("weight")
+        out = base(p, batch, rng)
+        return (out[0] if isinstance(out, tuple) else out) * w.mean()
+
+    engine = dtt.initialize(model=model, loss_fn=loss_fn, params=params,
+                            config=config)[0]
+    return engine, model, cfg
+
+
+def gr_stream(torch, cfg, n, seed=0, weighted=False):
+    """``n`` full-shape [GAS, micro, TRAIN_SEQ] batches on the card."""
+    import numpy as np
+
+    gas = TRAIN_CONFIG["gradient_accumulation_steps"]
+    micro = TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        b = {"input_ids": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (gas, micro, TRAIN_SEQ),
+            dtype=np.int32)).cuda()}
+        if weighted:
+            b["weight"] = torch.ones((gas, micro), device="cuda")
+        out.append(b)
+    return out
+
+
+def gr_per_step(cfg):
+    per_step = {name: 0 for name in training_counters()}
+    per_step.update({name: cfg.num_layers
+                     * TRAIN_CONFIG["gradient_accumulation_steps"]
+                     for name in FLASH_NAMES})
+    per_step["fused_adam"] = 1
+    return per_step
+
+
+def dtoh_copies(events):
+    """The device-to-host copies among a profile's device events."""
+    from torch.autograd import DeviceType
+
+    return [e.name for e in events if e.device_type == DeviceType.CUDA
+            and "DtoH" in e.name]
+
+
+def gr_leg(torch, name, config, card):
+    """One leg of (a): GR_WARMUP steps, then GR_TIMED timed steps (the
+    median of the first TRAIN_STEPS; the mean of all, which holds one ring
+    snapshot with the guardrails on) and one profiled step (kernels a
+    step, idle share, device-to-host copies)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    engine, model, cfg = gr_engine(torch, config)
+    batches = gr_stream(torch, cfg, 1)[0]
+    for _ in range(GR_WARMUP):
+        engine.train_batch(batches)
+    torch.cuda.synchronize()
+    step_ms, _losses = timed_steps(torch, engine, batches, GR_TIMED)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_batch(batches)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    stats = kernel_stats(events, 1, wall_us) or {}
+    out = {"leg": name, "step_ms": step_ms,
+           "step_ms_median": median(step_ms[:TRAIN_STEPS]),
+           "step_ms_mean_with_snapshot": sum(step_ms) / len(step_ms),
+           "kernels_per_step": stats.get("kernels_per_step"),
+           "device_idle_share": stats.get("device_idle_share"),
+           "dtoh_copies": dtoh_copies(events), "card": card}
+    return out, engine, model, cfg, batches
+
+
+def hold_numerics(torch, engine, batches):
+    """(d): one step's per-group statistics against a plain fp32
+    recomputation (sums in fp64) from the step's own gradients and
+    masters before and after, at NUMERICS_TOL relative; the statistics
+    read back once, at the flush. Returns the worst relative error and the
+    device ms of numerics' own work in the apply (the copy of the old
+    masters and the statistics)."""
+    obs = engine.numerics
+    plan = obs.plan
+    seen = {}
+    apply = engine._apply_step
+
+    def capture(lr):
+        seen["grads"] = [a.float() for a in engine.state.grad_acc]
+        seen["before"] = [p.detach().clone() for p in engine.state.params]
+        out = apply(lr)
+        seen["after"] = [p.detach().clone() for p in engine.state.params]
+        return out
+
+    engine._apply_step = capture
+    try:
+        engine.train_batch(batches)
+    finally:
+        del engine._apply_step
+    got = obs._last["groups"].double()
+    want = torch.zeros_like(got)
+    cdt = plan.compute_dtype
+    for gi, g, b, a in zip(plan.leaf_group, seen["grads"], seen["before"],
+                           seen["after"]):
+        gc = g.to(cdt)
+        want[gi] += torch.stack([
+            (g.double() ** 2).sum(), (b.double() ** 2).sum(),
+            ((a.double() - b.double()) ** 2).sum(),
+            (~torch.isfinite(gc) & torch.isfinite(g)).sum().double(),
+            ((gc == 0) & (g != 0)).sum().double()])
+    err = ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+    if not err <= NUMERICS_TOL:
+        fail(f"phase 10 (d): numerics statistics off by {err:.3g} relative "
+             f"(tolerance {NUMERICS_TOL})")
+    # numerics' own device work in the apply, on the engine's buffers: the
+    # old masters' copy, then the statistics (before and after the update)
+    copy_ms = cuda_ms(lambda: torch._foreach_copy_(
+        engine._numerics_old, seen["before"]), iters=10, warmup=2)
+
+    def stats():
+        s = plan.stats(engine._grads_flat, engine._old_flat)
+        torch._foreach_sub_(engine._numerics_old, seen["after"])
+        s[:, 2] = plan.update_sq(engine._old_flat)
+
+    stats_ms = cuda_ms(stats, iters=10, warmup=2)
+    fetches = []
+    orig = obs._fetch
+    obs._fetch = lambda: (fetches.append(1), orig())[1]
+    try:
+        obs.flush(engine.global_steps)
+    finally:
+        del obs._fetch
+    if fetches != [1]:
+        fail(f"phase 10 (d): the flush read the statistics "
+             f"{len(fetches)} times, expected once")
+    del seen
+    return {"max_rel_err": err, "groups": plan.num_groups,
+            "copy_ms": copy_ms, "stats_ms": stats_ms}
+
+
+def gr_overhead(torch, card):
+    """(a) and (d): the step with guardrails and telemetry off, with the
+    guardrails on (detector, grad-norm tracking, a ring of 2 at
+    ``snapshot_interval`` GR_SNAPSHOT_INTERVAL), and with telemetry
+    (goodput, numerics) on too; the snapshot's ms and GB; (d) on the third
+    leg's engine."""
+    guarded = dict(GR_CONFIG, guardrails={
+        "enabled": True,
+        "rollback": {"snapshot_interval": GR_SNAPSHOT_INTERVAL,
+                     "ring_size": 2},
+        "watchdog": {"crashdump_dir": os.path.join(GR_DIR, "dumps")}})
+    legs = {}
+    for name, config in (
+            ("off", GR_CONFIG), ("guardrails", guarded),
+            ("guardrails+telemetry", dict(guarded, telemetry=dict(
+                GR_TELEMETRY, dir=os.path.join(GR_DIR, "a_run"))))):
+        out, engine, model, cfg, batches = gr_leg(torch, name, config, card)
+        legs[name] = out
+        if name == "off" and out["dtoh_copies"]:
+            fail(f"phase 10 (a): the guardrails-off step copied from the "
+                 f"device to the host: {out['dtoh_copies']}")
+        if name == "guardrails":
+            gr = engine.guardrails
+            if gr.detector.stats["ok"] != GR_WARMUP + GR_TIMED + 1:
+                fail(f"phase 10 (a): detector stats {gr.detector.stats}")
+            # one more ring snapshot, timed alone: it reuses the buffers
+            # of the one it evicts
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            snap = gr.ring.take(engine)
+            snap.wait()
+            out["snapshot_ms"] = (time.perf_counter() - t0) * 1e3
+            out["snapshot_gb"] = sum(
+                t.numel() * t.element_size() for _n, t in snap.arrays
+                if hasattr(t, "numel")) / 1e9
+            out["ring_buffer_sets"] = gr.ring.pool.allocated
+            if gr.ring.pool.allocated != 2:
+                fail(f"phase 10 (a): the ring of 2 holds "
+                     f"{gr.ring.pool.allocated} buffer sets")
+        if name == "guardrails+telemetry":
+            legs["numerics"] = hold_numerics(torch, engine, batches)
+            engine.close()
+        del engine, model, batches
+        torch.cuda.empty_cache()
+    off = legs["off"]["step_ms_median"]
+    for name in ("guardrails", "guardrails+telemetry"):
+        leg = legs[name]
+        leg["ratio_median"] = leg["step_ms_median"] / off
+        leg["ratio_mean"] = (leg["step_ms_mean_with_snapshot"]
+                             / legs["off"]["step_ms_mean_with_snapshot"])
+    legs["numerics"]["per_step_ms"] = (
+        legs["guardrails+telemetry"]["step_ms_median"]
+        - legs["guardrails"]["step_ms_median"])
+    for name in ("off", "guardrails", "guardrails+telemetry"):
+        leg = legs[name]
+        mean = leg["step_ms_mean_with_snapshot"]
+        print(f"phase 10 (a) {name}: step {leg['step_ms_median']:.2f} ms "
+              f"median of {TRAIN_STEPS}, {mean:.2f} mean of {GR_TIMED}"
+              + (f" (ratios to off {leg['ratio_median']:.4f} / "
+                 f"{leg['ratio_mean']:.4f})" if name != "off" else "")
+              + f"; {leg['kernels_per_step']} kernels a step, idle "
+              f"{leg['device_idle_share']}, DtoH copies "
+              f"{len(leg['dtoh_copies'])} ({card})")
+    g = legs["guardrails"]
+    rate = g["snapshot_gb"] / g["snapshot_ms"] * 1e3
+    print(f"phase 10 (a) snapshot: {g['snapshot_ms']:.2f} ms for "
+          f"{g['snapshot_gb']:.3f} GB ({rate:.2f} GB/s into pinned "
+          f"buffers), {g['ring_buffer_sets']} buffer sets for the ring of 2 "
+          f"({card})")
+    n = legs["numerics"]
+    print(f"phase 10 (d) numerics at full width: {n['groups']} groups "
+          f"within {n['max_rel_err']:.3g} relative of fp32 sums (limit "
+          f"{NUMERICS_TOL}), read once at the flush; old masters' copy "
+          f"{n['copy_ms']:.3f} device ms, statistics {n['stats_ms']:.3f}, "
+          f"the step {n['per_step_ms']:.2f} ms over the guardrails leg "
+          f"({card})")
+    if legs["guardrails"]["ratio_mean"] > 1.05:
+        fail(f"phase 10 (a): the guardrails-on step is "
+             f"{legs['guardrails']['ratio_mean']:.4f}x the off step "
+             f"(limit 1.05)")
+    return legs
+
+
+def gr_committed(torch, engine, stream, total, loader=None):
+    """Train until ``total`` committed steps; returns {step: loss repr}
+    of the committed steps (a rolled-back attempt's loss belongs to no
+    surviving step) and the attempts."""
+    losses, attempts = {}, 0
+    it = iter(loader) if loader is not None else iter(stream)
+    while engine.global_steps < total:
+        before = engine.global_steps
+        loss = engine.train_batch(next(it))
+        if engine.global_steps == before + 1:
+            losses[engine.global_steps] = repr(float(loss))
+        attempts += 1
+        if attempts > 3 * total:
+            fail("phase 10 (b): the rollback did not converge")
+    torch.cuda.synchronize()
+    return losses, attempts
+
+
+def max_master_diff(torch, a, b):
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a, b))
+
+
+def gr_hold(torch, got, want, clean_diff, what):
+    """Hold ``got`` to ``want``: bit-equal when the two clean runs were,
+    else within their largest difference."""
+    if clean_diff == 0.0:
+        if got != want:
+            fail(f"{what}: {got} differs from the clean {want}")
+        return 0.0
+    diff = max(abs(float(got[k]) - float(want[k])) for k in want)
+    if set(got) != set(want) or diff > clean_diff:
+        fail(f"{what}: {got} differs from {want} by {diff} (two clean "
+             f"runs differ by {clean_diff})")
+    return diff
+
+
+def gr_rollback(torch, card):
+    """(b): the fault plan NaN-poisons attempts GR_K + 1 and GR_K + 2 of
+    GR_TOTAL committed steps; two spikes roll back to the step-GR_K
+    snapshot. One rollback, two spike verdicts, finite committed losses
+    and masters, the tail held to the clean run with the window cut out
+    (run twice first), the guardrails' counters and instants, goodput's
+    rollback categories and the spike dump's worst group in the run dir,
+    #3-#5 at 96 a step attempt and #11 at 1, no plain version."""
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    run = os.path.join(GR_DIR, "b_run")
+    dumps = os.path.join(GR_DIR, "b_dumps")
+    config = dict(GR_CONFIG, guardrails={
+        "enabled": True,
+        "detector": {"zscore_threshold": 1e9, "warmup_steps": 1},
+        "rollback": {"snapshot_interval": 1, "ring_size": 2,
+                     "consecutive_spikes": 2, "skip_batches": 0,
+                     "lr_decay": 1.0},
+        "watchdog": {"crashdump_dir": dumps}},
+        telemetry=dict(GR_TELEMETRY, dir=run),
+        resilience={"fault_injection": {"nan_loss_at_step": GR_K + 1,
+                                        "nan_loss_steps": 2}})
+    clean_runs = []
+    for _ in range(2):
+        engine, model, cfg = gr_engine(torch, GR_CONFIG, weighted=True)
+        stream = gr_stream(torch, cfg, GR_TOTAL + 2, weighted=True)
+        clean_stream = stream[:GR_K] + stream[GR_K + 2:]
+        losses, _n = gr_committed(torch, engine, clean_stream, GR_TOTAL)
+        clean_runs.append((losses, [p.detach().clone()
+                                    for p in engine.state.params]))
+        del engine, model, stream, clean_stream
+        torch.cuda.empty_cache()
+    (clean, clean_p), (clean2, clean2_p) = clean_runs
+    loss_diff = max(abs(float(clean[k]) - float(clean2[k])) for k in clean)
+    master_diff = max_master_diff(torch, clean_p, clean2_p)
+    del clean2_p
+
+    engine, model, cfg = gr_engine(torch, config, weighted=True)
+    stream = gr_stream(torch, cfg, GR_TOTAL + 2, weighted=True)
+
+    class _Stream:
+        def __iter__(self):
+            return iter(stream)
+
+    loader = RepeatingLoader(_Stream())
+    engine.register_data_skip_fn(loader.skip_batches)
+    counters = training_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with PlainCalls() as plain:
+        losses, attempts = gr_committed(torch, engine, stream, GR_TOTAL,
+                                        loader=loader)
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counters.items()}
+    gr = engine.guardrails
+    if (gr.policy.rollbacks != 1 or gr.detector.stats["spike"] != 2
+            or attempts != GR_TOTAL + 2):
+        fail(f"phase 10 (b): {gr.policy.rollbacks} rollbacks, detector "
+             f"{gr.detector.stats}, {attempts} attempts")
+    if not all(math.isfinite(float(v)) for v in losses.values()) or any(
+            not bool(torch.isfinite(p).all()) for p in engine.state.params):
+        fail(f"phase 10 (b): a committed loss or a master is not finite: "
+             f"{losses}")
+    check_launches(launches, gr_per_step(cfg), attempts, "phase 10 (b)")
+    if any(plain.calls.values()):
+        fail(f"phase 10 (b): a plain version ran: {plain.calls}")
+    if master_diff == 0.0 and loss_diff == 0.0:
+        gr_hold(torch, losses, clean, 0.0, "phase 10 (b) guarded run")
+        if max_master_diff(torch, engine.state.params, clean_p) != 0.0:
+            fail("phase 10 (b): the guarded masters differ from the clean "
+                 "run's")
+        held = "bit-equal"
+    else:
+        d = gr_hold(torch, losses, clean, loss_diff,
+                    "phase 10 (b) guarded run")
+        md = max_master_diff(torch, engine.state.params, clean_p)
+        if md > master_diff:
+            fail(f"phase 10 (b): the guarded masters differ from the clean "
+                 f"run's by {md}, two clean runs by {master_diff}")
+        held = (f"within the clean runs' own difference (losses {d} <= "
+                f"{loss_diff}, masters {md} <= {master_diff})")
+    engine.close()
+    rows = [json.loads(line) for line in open(os.path.join(
+        run, "metrics.jsonl"))]
+    tags = {r["tag"] for r in rows}
+    want_tags = {"guardrails/steps_ok", "guardrails/steps_spike",
+                 "guardrails/rollbacks", "guardrails/snapshots",
+                 "goodput/rollback_restore_sec",
+                 "goodput/rollback_replay_sec"}
+    if not want_tags <= tags:
+        fail(f"phase 10 (b): metrics lack {sorted(want_tags - tags)}")
+    last = {r["tag"]: r["value"] for r in rows}
+    if not (last["goodput/rollback_restore_sec"] > 0
+            and last["goodput/rollback_replay_sec"] > 0):
+        fail(f"phase 10 (b): goodput rollback seconds "
+             f"{last['goodput/rollback_restore_sec']} / "
+             f"{last['goodput/rollback_replay_sec']}")
+    trace = json.load(open(os.path.join(run, "trace.json")))
+    if "guardrails_rollback" not in {e["name"] for e in
+                                     trace["traceEvents"]
+                                     if e.get("ph") == "i"}:
+        fail("phase 10 (b): the trace has no guardrails_rollback instant")
+    spike = sorted(d for d in os.listdir(dumps) if d.startswith("spike_"))
+    info = json.load(open(os.path.join(dumps, spike[0], "info.json")))
+    if not info.get("worst_group") or len(spike) != 2:
+        fail(f"phase 10 (b): spike dumps {spike}, worst group "
+             f"{info.get('worst_group')}")
+    out = {"committed_losses": losses, "attempts": attempts,
+           "rollbacks": gr.policy.rollbacks,
+           "verdicts": dict(gr.detector.stats), "held": held,
+           "clean_loss_diff": loss_diff, "clean_master_diff": master_diff,
+           "worst_group": info["worst_group"],
+           "rollback_restore_s": last["goodput/rollback_restore_sec"],
+           "rollback_replay_s": last["goodput/rollback_replay_sec"],
+           "launches": {k: v for k, v in launches.items() if v},
+           "wall_s": wall, "card": card}
+    print(f"phase 10 (b) NaN-window rollback: {json.dumps(out)}")
+    del engine, model, stream, clean_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def gr_child(torch, ckpt, dumps, run, out):
+    """(c)'s supervised child: GR_CHILD_LAYERS-layer GPT-2 at full width,
+    GR_CONFIG, the resilience checkpoint every step, the watchdog at
+    GR_WATCHDOG_S, telemetry (goodput) into ``run``; resumes, trains to
+    GR_CHILD_STEPS and writes each loss to ``out``."""
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.resilience import RESUME_ATTEMPT_ENV
+
+    missing = [s for s in {src for _n, src, _r in KERNELS}
+               if not os.path.exists(build.library_path(s))]
+    if missing:
+        fail(f"supervised child: kernels {sorted(missing)} are not built; "
+             f"a child never rebuilds")
+    engine, model, cfg = gr_engine(torch, gr_child_config(ckpt, dumps, run),
+                                   layers=GR_CHILD_LAYERS)
+    path, _client = engine.auto_resume()
+    stream = gr_stream(torch, cfg, GR_CHILD_STEPS)
+    with open(out, "a", buffering=1) as f:
+        for i in range(engine.global_steps, GR_CHILD_STEPS):
+            loss = repr(float(engine.train_batch(stream[i])))
+            f.write(json.dumps({"step": i + 1, "loss": loss}) + "\n")
+        f.write(json.dumps({"summary": {
+            "attempt": int(os.environ.get(RESUME_ATTEMPT_ENV, "0")),
+            "resumed_from": path}}) + "\n")
+    engine.close()
+    return 0
+
+
+def gr_child_config(ckpt, dumps, run):
+    return dict(GR_CONFIG, steps_per_print=1, guardrails={
+        "enabled": True, "rollback": {"enabled": False},
+        "watchdog": {"enabled": True,
+                     "step_timeout_seconds": GR_WATCHDOG_S,
+                     "poll_interval_seconds": 0.5, "crashdump_dir": dumps}},
+        telemetry={"enabled": True, "dir": run,
+                   "trace": {"sync_spans": False}},
+        resilience={"enabled": True, "checkpoint": {
+            "dir": ckpt, "interval": 1, "keep_last": 2, "async": False}})
+
+
+def gr_watchdog(torch, card):
+    """(c): ``Supervisor(run_dir=...)`` over this script's
+    ``--guardrails-child``, the fault plan hanging attempt GR_HANG_AT
+    without bound: the first child exits 113 with a dump (every thread's
+    stack, ``memory.json`` from ``torch.cuda.memory_stats``, the metrics
+    tail), the supervisor restarts it at once, the resumed child's first
+    committed step (GR_HANG_AT) equals a clean run's (run twice in this
+    process), the manifests are finalized and ``tools/goodput_report.py``
+    reads them."""
+    from deepspeed_tpu_torch.resilience import FAULT_PLAN_ENV, Supervisor
+
+    base = os.path.join(GR_DIR, "c")
+    ckpt, dumps, run = (os.path.join(base, d) for d in ("ckpt", "dumps",
+                                                        "run"))
+    out = os.path.join(base, "losses.jsonl")
+    os.makedirs(base)
+    t0 = time.perf_counter()
+    sup = Supervisor([sys.executable, os.path.abspath(__file__),
+                      "--guardrails-child", ckpt, dumps, run, out],
+                     max_restarts=1, backoff=30.0, run_dir=run,
+                     env={FAULT_PLAN_ENV: json.dumps(
+                         {"hang_at_step": GR_HANG_AT,
+                          "hang_seconds": 3600})})
+    rc = sup.run()
+    wall = time.perf_counter() - t0
+    if rc != 0 or sup.exit_codes != [113, 0] or sup.immediate_restarts != 1:
+        fail(f"phase 10 (c): supervisor rc {rc}, exit codes "
+             f"{sup.exit_codes}, immediate restarts "
+             f"{sup.immediate_restarts}")
+    (dump,) = [d for d in os.listdir(dumps) if d.startswith("watchdog_")]
+    files = set(os.listdir(os.path.join(dumps, dump)))
+    need = {"stacks.txt", "memory.json", "metrics_tail.jsonl", "info.json"}
+    if not need <= files:
+        fail(f"phase 10 (c): the dump holds {sorted(files)}")
+    stacks = open(os.path.join(dumps, dump, "stacks.txt")).read()
+    mem = json.load(open(os.path.join(dumps, dump, "memory.json")))
+    info = json.load(open(os.path.join(dumps, dump, "info.json")))
+    if ("in hang" not in stacks or info["step"] != GR_HANG_AT
+            or not mem["devices"] or mem["devices"][0].get("stats") is None):
+        fail(f"phase 10 (c): dump info {info}, memory rows "
+             f"{mem['devices']}")
+    rows = [json.loads(line) for line in open(out)]
+    steps = [r["step"] for r in rows if "step" in r]
+    first = {}
+    for r in rows:
+        if "step" in r:
+            first.setdefault(r["step"], []).append(r["loss"])
+    if sorted(set(steps)) != list(range(1, GR_CHILD_STEPS + 1)):
+        fail(f"phase 10 (c): the children committed steps {steps}")
+    clean_runs = []
+    for _ in range(2):
+        engine, model, cfg = gr_engine(torch, GR_CONFIG,
+                                       layers=GR_CHILD_LAYERS)
+        stream = gr_stream(torch, cfg, GR_CHILD_STEPS)
+        clean_runs.append({i + 1: repr(float(engine.train_batch(b)))
+                           for i, b in enumerate(stream)})
+        del engine, model, stream
+        torch.cuda.empty_cache()
+    clean, clean2 = clean_runs
+    clean_diff = max(abs(float(clean[k]) - float(clean2[k])) for k in clean)
+    resumed = {k: v[-1] for k, v in first.items() if k >= GR_HANG_AT}
+    gr_hold(torch, resumed, {k: clean[k] for k in resumed}, clean_diff,
+            "phase 10 (c) resumed child")
+    docs = sorted((json.load(open(os.path.join(run, f)))
+                   for f in os.listdir(run) if f.startswith("run_manifest.")),
+                  key=lambda d: d["attempt"])
+    fates = [(d["attempt"], d["exit_rc"], d["restart_cause"]) for d in docs]
+    if fates != [(0, 113, "watchdog"), (1, 0, "clean")]:
+        fail(f"phase 10 (c): manifests {fates}")
+    report = subprocess.run(
+        [sys.executable, os.path.join(HERE, "tools", "goodput_report.py"),
+         run, "--json"], capture_output=True, text=True, timeout=120)
+    if report.returncode != 0:
+        fail(f"phase 10 (c): goodput_report rc {report.returncode}: "
+             f"{report.stderr[-2000:]}")
+    merged = json.loads(report.stdout)
+    out = {"exit_codes": sup.exit_codes, "dump": sorted(files),
+           "resumed_losses": resumed, "clean_losses": clean,
+           "clean_loss_diff": clean_diff, "manifests": fates,
+           "goodput_frac": merged.get("goodput_frac"),
+           "restart_s": merged.get("restart_sec"),
+           "card_in_manifest": docs[1].get("card"),
+           "peak_tflops_in_manifest": docs[1].get("peak_tflops_per_chip"),
+           "mfu_attempt_1": docs[1].get("mfu"),
+           "child_layers": GR_CHILD_LAYERS, "wall_s": wall, "card": card}
+    print(f"phase 10 (c) watchdog and supervised resume: {json.dumps(out)}")
+    return out
+
+
+def check_guardrails(torch, card):
+    """Phase 10 (``--only guardrails`` runs it alone): the training
+    guardrails and their telemetry on full-width GPT-2 at phase 4's
+    configuration (dropout 0); (a) the step's overhead, (b) the NaN-window
+    rollback, (c) the watchdog and the supervised resume (children at
+    GR_CHILD_LAYERS layers), (d) numerics held at full width."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(GR_DIR, ignore_errors=True)
+    os.makedirs(GR_DIR)
+    out = {"overhead": gr_overhead(torch, card),
+           "rollback": gr_rollback(torch, card),
+           "watchdog": gr_watchdog(torch, card)}
+    shutil.rmtree(GR_DIR, ignore_errors=True)
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7571,16 +8178,18 @@ def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--ckpt-child"] and len(args) == 3:
         return ckpt_child(torch, args[1], args[2])   # phase 9 (c)'s child
+    if args[:1] == ["--guardrails-child"] and len(args) == 5:
+        return gr_child(torch, *args[1:])            # phase 10 (c)'s child
     only = (set(args[1].split(",")) if len(args) == 2
             and args[0] == "--only" else None)
     if args and (not only
                  or not only <= {"kernels", "sparse", "chunked", "spec",
                                  "telemetry", "bert", "ckpt", "serving",
-                                 "fp32"}
+                                 "fp32", "guardrails"}
                  or ("kernels" in only and len(only) > 1)):
         fail(f"unknown arguments {args} (none, --only kernels, or --only "
              f"with sparse, chunked, serving, spec, telemetry, bert, ckpt, "
-             f"fp32 or several, comma-separated)")
+             f"fp32, guardrails or several, comma-separated)")
     part = only is not None and "kernels" not in only
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -7655,6 +8264,8 @@ def main() -> int:
             check_bert(torch, card, reports)
         if "ckpt" in only:
             check_ckpt(torch, card)
+        if "guardrails" in only:
+            check_guardrails(torch, card)
         if "fp32" in only:
             # every fp32 sparse hold and timing, the fp32 sparse
             # comparisons of phases 5 and 8, then phases 5b and 7b
@@ -7848,6 +8459,10 @@ def main() -> int:
 
     # 9. checkpointing, the dataloader and preemption-safe training
     check_ckpt(torch, card)
+
+    # 10. training guardrails and the training telemetry they report
+    # through (the kernels line's rows keep phase 4's launches)
+    check_guardrails(torch, card)
 
     print(f"chip_smoke: the whole run took {time.perf_counter() - t_run:.1f}"
           f" s ({card})")

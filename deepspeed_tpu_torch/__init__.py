@@ -16,7 +16,9 @@ decoding, serving resilience (deadlines, shedding, recovery, the
 degradation ladder, ``FaultPlan`` chaos) and serving telemetry (metrics,
 a Chrome trace of the steps, per-request SLO records); the dataloader,
 checkpoint save/load, preemption-safe training (checkpoints off the step
-path, auto-resume, the supervisor) and activation checkpointing
+path, auto-resume, the supervisor), the training guardrails (anomaly
+detection, in-memory rollback, the step watchdog) with training
+telemetry (spans, goodput, numerics) and activation checkpointing
 (``remat``); every kernel written in CUDA for Hopper.
 """
 

@@ -1,5 +1,6 @@
 """Parsed configs of the port: ``DeepSpeedConfig`` (training),
-``ServingConfig``, ``TelemetryConfig`` (serving) and ``ConfigError``.
+``ServingConfig``, ``TelemetryConfig`` (serving and training),
+``GuardrailsConfig`` and ``ConfigError``.
 
 Held to the walls of ``deepspeed_tpu/config/config.py``. A key the port has
 no feature for yet raises a ``ConfigError`` that names it and says "not yet
@@ -252,9 +253,10 @@ class ServingConfig:
         )
 
 
-def _telemetry_block(d: Any, what: str, known) -> Dict[str, Any]:
-    """A telemetry (sub-)block as the reference reads it (a falsy value is
-    an empty block), with the port's wall: an unknown key raises."""
+def _checked_block(d: Any, what: str, known) -> Dict[str, Any]:
+    """A telemetry or guardrails (sub-)block as the reference reads it (a
+    falsy value is an empty block), with the port's wall: an unknown key
+    raises."""
     d = _as_block(d, what)
     unknown = set(d) - set(known)
     if unknown:
@@ -276,7 +278,7 @@ class TelemetryTraceConfig:
 
     @classmethod
     def from_dict(cls, d: Any) -> "TelemetryTraceConfig":
-        d = _telemetry_block(d, "telemetry.trace", (
+        d = _checked_block(d, "telemetry.trace", (
             C.TELEMETRY_TRACE_ENABLED, C.TELEMETRY_TRACE_FILE,
             C.TELEMETRY_TRACE_SYNC_SPANS,
             C.TELEMETRY_TRACE_JAX_PROFILER_DIR))
@@ -299,7 +301,7 @@ class TelemetryMetricsConfig:
 
     @classmethod
     def from_dict(cls, d: Any) -> "TelemetryMetricsConfig":
-        d = _telemetry_block(d, "telemetry.metrics", (
+        d = _checked_block(d, "telemetry.metrics", (
             C.TELEMETRY_METRICS_SINKS, C.TELEMETRY_METRICS_FILE))
         sinks = tuple(_get(d, C.TELEMETRY_METRICS_SINKS,
                            C.TELEMETRY_METRICS_SINKS_DEFAULT))
@@ -336,7 +338,7 @@ class TelemetryFleetConfig:
 
     @classmethod
     def from_dict(cls, d: Any) -> "TelemetryFleetConfig":
-        d = _telemetry_block(d, "telemetry.fleet", (
+        d = _checked_block(d, "telemetry.fleet", (
             C.TELEMETRY_FLEET_ENABLED, C.TELEMETRY_FLEET_WINDOW,
             C.TELEMETRY_FLEET_MIN_WINDOW, C.TELEMETRY_FLEET_ZSCORE,
             C.TELEMETRY_FLEET_PERSIST, C.TELEMETRY_FLEET_BREAKDOWN_FILE))
@@ -385,7 +387,7 @@ class TelemetryMemoryConfig:
 
     @classmethod
     def from_dict(cls, d: Any) -> "TelemetryMemoryConfig":
-        d = _telemetry_block(d, "telemetry.memory", (
+        d = _checked_block(d, "telemetry.memory", (
             C.TELEMETRY_MEMORY_ENABLED, C.TELEMETRY_MEMORY_HEADROOM_WARN_FRAC,
             C.TELEMETRY_MEMORY_CRASHDUMP_DIR, C.TELEMETRY_MEMORY_OOM_EXIT_CODE,
             C.TELEMETRY_MEMORY_PLAN_AT_INIT, C.TELEMETRY_MEMORY_PLAN_FILE,
@@ -443,7 +445,7 @@ class TelemetryDevicetimeConfig:
 
     @classmethod
     def from_dict(cls, d: Any) -> "TelemetryDevicetimeConfig":
-        d = _telemetry_block(d, "telemetry.devicetime", (
+        d = _checked_block(d, "telemetry.devicetime", (
             C.TELEMETRY_DEVICETIME_ENABLED,
             C.TELEMETRY_DEVICETIME_CAPTURE_STEPS,
             C.TELEMETRY_DEVICETIME_EVERY_STEPS,
@@ -502,7 +504,9 @@ class TelemetryDevicetimeConfig:
 
 @dataclass
 class TelemetryNumericsConfig:
-    """``telemetry.numerics``: in serving, the int8 KV-cache round-trip
+    """``telemetry.numerics``: in training, the per-layer-group gradient,
+    weight and update statistics and the saturation and underflow counts
+    (``telemetry/numerics.py``); in serving, the int8 KV-cache round-trip
     error gauges (one measure per prefill on the int8 pool)."""
 
     enabled: bool = C.TELEMETRY_NUMERICS_ENABLED_DEFAULT
@@ -511,7 +515,7 @@ class TelemetryNumericsConfig:
 
     @classmethod
     def from_dict(cls, d: Any) -> "TelemetryNumericsConfig":
-        d = _telemetry_block(d, "telemetry.numerics", (
+        d = _checked_block(d, "telemetry.numerics", (
             C.TELEMETRY_NUMERICS_ENABLED, C.TELEMETRY_NUMERICS_MAX_GROUPS,
             C.TELEMETRY_NUMERICS_MAX_SPIKE_DUMPS))
         cfg = cls(
@@ -544,7 +548,7 @@ class TelemetryRequestsConfig:
 
     @classmethod
     def from_dict(cls, d: Any) -> "TelemetryRequestsConfig":
-        d = _telemetry_block(d, "telemetry.requests", (
+        d = _checked_block(d, "telemetry.requests", (
             C.TELEMETRY_REQUESTS_ENABLED, C.TELEMETRY_REQUESTS_FILE,
             C.TELEMETRY_REQUESTS_WINDOW_SEC))
         cfg = cls(
@@ -576,14 +580,15 @@ _TELEMETRY_SUB_BLOCKS = {
 
 @dataclass
 class TelemetryConfig:
-    """``telemetry`` block of ``init_serving``: the metrics registry, the
-    step tracer, the recompile detector, the int8 KV error gauges
-    (``numerics``) and the request accountant (``requests``). Parsed and
-    checked as the reference parses it; off (the default) every hook is a
-    no-op. With telemetry on, ``fleet``, ``memory``, ``devicetime`` and
-    the tensorboard sink are not ported yet and raise by name.
-    ``goodput`` parses and serving builds nothing from it, as in the
-    reference's ``init_serving``."""
+    """The ``telemetry`` block of ``init_serving`` and of training: the
+    metrics registry, the step tracer, the recompile detector, ``numerics``
+    (training: the per-layer-group statistics; serving: the int8 KV error
+    gauges), the request accountant (``requests``, serving) and the
+    goodput accountant (``goodput``, training; serving builds nothing from
+    it, as in the reference's ``init_serving``). Parsed and checked as the
+    reference parses it; off (the default) every hook is a no-op. With
+    telemetry on, ``fleet``, ``memory``, ``devicetime`` and the
+    tensorboard sink are not ported yet and raise by name."""
 
     enabled: bool = False
     dir: str = C.TELEMETRY_DIR_DEFAULT
@@ -604,7 +609,7 @@ class TelemetryConfig:
 
     @classmethod
     def from_dict(cls, d: Any) -> "TelemetryConfig":
-        d = _telemetry_block(d, C.TELEMETRY, (
+        d = _checked_block(d, C.TELEMETRY, (
             C.TELEMETRY_ENABLED, C.TELEMETRY_DIR, C.TELEMETRY_RECOMPILE,
             C.TELEMETRY_GOODPUT, *_TELEMETRY_SUB_BLOCKS))
         cfg = cls(
@@ -736,6 +741,174 @@ class ActivationCheckpointingConfig:
                 d, C.ACT_CHKPT_SYNCHRONIZE_CHECKPOINT_BOUNDARY),
             profile=_flag(d, C.ACT_CHKPT_PROFILE),
             cpu_checkpointing=_flag(d, C.ACT_CHKPT_CPU_CHECKPOINTING))
+
+
+@dataclass
+class GuardrailsDetectorConfig:
+    """Anomaly-detector knobs (``guardrails/detector.py``)."""
+
+    zscore_threshold: float = C.GUARDRAILS_DET_ZSCORE_DEFAULT
+    warmup_steps: int = C.GUARDRAILS_DET_WARMUP_DEFAULT
+    ewma_alpha: float = C.GUARDRAILS_DET_EWMA_ALPHA_DEFAULT
+    track_grad_norm: bool = C.GUARDRAILS_DET_TRACK_GRAD_NORM_DEFAULT
+    check_nonfinite_grads: bool = C.GUARDRAILS_DET_NONFINITE_GRADS_DEFAULT
+
+    @classmethod
+    def from_dict(cls, d: Any) -> "GuardrailsDetectorConfig":
+        d = _checked_block(d, "guardrails.detector", (
+            C.GUARDRAILS_DET_ZSCORE, C.GUARDRAILS_DET_WARMUP,
+            C.GUARDRAILS_DET_EWMA_ALPHA, C.GUARDRAILS_DET_TRACK_GRAD_NORM,
+            C.GUARDRAILS_DET_NONFINITE_GRADS))
+        cfg = cls(
+            zscore_threshold=float(_get(d, C.GUARDRAILS_DET_ZSCORE,
+                                        C.GUARDRAILS_DET_ZSCORE_DEFAULT)),
+            warmup_steps=int(_get(d, C.GUARDRAILS_DET_WARMUP,
+                                  C.GUARDRAILS_DET_WARMUP_DEFAULT)),
+            ewma_alpha=float(_get(d, C.GUARDRAILS_DET_EWMA_ALPHA,
+                                  C.GUARDRAILS_DET_EWMA_ALPHA_DEFAULT)),
+            track_grad_norm=bool(_get(
+                d, C.GUARDRAILS_DET_TRACK_GRAD_NORM,
+                C.GUARDRAILS_DET_TRACK_GRAD_NORM_DEFAULT)),
+            check_nonfinite_grads=bool(_get(
+                d, C.GUARDRAILS_DET_NONFINITE_GRADS,
+                C.GUARDRAILS_DET_NONFINITE_GRADS_DEFAULT)))
+        if cfg.zscore_threshold <= 0:
+            raise ConfigError(
+                "guardrails.detector.zscore_threshold must be > 0")
+        if cfg.warmup_steps < 1:
+            raise ConfigError("guardrails.detector.warmup_steps must be >= 1")
+        if not 0.0 < cfg.ewma_alpha <= 1.0:
+            raise ConfigError(
+                "guardrails.detector.ewma_alpha must be in (0, 1]")
+        return cfg
+
+
+@dataclass
+class GuardrailsRollbackConfig:
+    """In-memory rollback knobs (``guardrails/rollback.py``)."""
+
+    enabled: bool = C.GUARDRAILS_RB_ENABLED_DEFAULT
+    snapshot_interval: int = C.GUARDRAILS_RB_SNAPSHOT_INTERVAL_DEFAULT
+    ring_size: int = C.GUARDRAILS_RB_RING_SIZE_DEFAULT
+    consecutive_spikes: int = C.GUARDRAILS_RB_CONSECUTIVE_SPIKES_DEFAULT
+    skip_batches: int = C.GUARDRAILS_RB_SKIP_BATCHES_DEFAULT
+    lr_decay: float = C.GUARDRAILS_RB_LR_DECAY_DEFAULT
+    max_rollbacks: int = C.GUARDRAILS_RB_MAX_ROLLBACKS_DEFAULT
+    escalate_to_disk: bool = C.GUARDRAILS_RB_ESCALATE_DEFAULT
+
+    @classmethod
+    def from_dict(cls, d: Any) -> "GuardrailsRollbackConfig":
+        d = _checked_block(d, "guardrails.rollback", (
+            C.GUARDRAILS_RB_ENABLED, C.GUARDRAILS_RB_SNAPSHOT_INTERVAL,
+            C.GUARDRAILS_RB_RING_SIZE, C.GUARDRAILS_RB_CONSECUTIVE_SPIKES,
+            C.GUARDRAILS_RB_SKIP_BATCHES, C.GUARDRAILS_RB_LR_DECAY,
+            C.GUARDRAILS_RB_MAX_ROLLBACKS, C.GUARDRAILS_RB_ESCALATE))
+        cfg = cls(
+            enabled=bool(_get(d, C.GUARDRAILS_RB_ENABLED,
+                              C.GUARDRAILS_RB_ENABLED_DEFAULT)),
+            snapshot_interval=int(_get(
+                d, C.GUARDRAILS_RB_SNAPSHOT_INTERVAL,
+                C.GUARDRAILS_RB_SNAPSHOT_INTERVAL_DEFAULT)),
+            ring_size=int(_get(d, C.GUARDRAILS_RB_RING_SIZE,
+                               C.GUARDRAILS_RB_RING_SIZE_DEFAULT)),
+            consecutive_spikes=int(_get(
+                d, C.GUARDRAILS_RB_CONSECUTIVE_SPIKES,
+                C.GUARDRAILS_RB_CONSECUTIVE_SPIKES_DEFAULT)),
+            skip_batches=int(_get(d, C.GUARDRAILS_RB_SKIP_BATCHES,
+                                  C.GUARDRAILS_RB_SKIP_BATCHES_DEFAULT)),
+            lr_decay=float(_get(d, C.GUARDRAILS_RB_LR_DECAY,
+                                C.GUARDRAILS_RB_LR_DECAY_DEFAULT)),
+            max_rollbacks=int(_get(d, C.GUARDRAILS_RB_MAX_ROLLBACKS,
+                                   C.GUARDRAILS_RB_MAX_ROLLBACKS_DEFAULT)),
+            escalate_to_disk=bool(_get(d, C.GUARDRAILS_RB_ESCALATE,
+                                       C.GUARDRAILS_RB_ESCALATE_DEFAULT)))
+        for key, low in (("snapshot_interval", 1), ("ring_size", 1),
+                         ("consecutive_spikes", 1), ("skip_batches", 0),
+                         ("max_rollbacks", 1)):
+            if getattr(cfg, key) < low:
+                raise ConfigError(
+                    f"guardrails.rollback.{key} must be >= {low}")
+        if not 0.0 < cfg.lr_decay <= 1.0:
+            raise ConfigError("guardrails.rollback.lr_decay must be in (0, 1]")
+        return cfg
+
+
+@dataclass
+class GuardrailsWatchdogConfig:
+    """Step-deadline watchdog knobs (``guardrails/watchdog.py``)."""
+
+    enabled: bool = C.GUARDRAILS_WD_ENABLED_DEFAULT
+    step_timeout_seconds: float = C.GUARDRAILS_WD_TIMEOUT_DEFAULT
+    poll_interval_seconds: Optional[float] = None
+    crashdump_dir: str = C.GUARDRAILS_WD_CRASHDUMP_DIR_DEFAULT
+    exit_code: int = C.GUARDRAILS_WATCHDOG_EXIT_CODE_DEFAULT
+
+    @classmethod
+    def from_dict(cls, d: Any) -> "GuardrailsWatchdogConfig":
+        d = _checked_block(d, "guardrails.watchdog", (
+            C.GUARDRAILS_WD_ENABLED, C.GUARDRAILS_WD_TIMEOUT,
+            C.GUARDRAILS_WD_POLL, C.GUARDRAILS_WD_CRASHDUMP_DIR,
+            C.GUARDRAILS_WD_EXIT_CODE))
+        poll = d.get(C.GUARDRAILS_WD_POLL)
+        cfg = cls(
+            enabled=bool(_get(d, C.GUARDRAILS_WD_ENABLED,
+                              C.GUARDRAILS_WD_ENABLED_DEFAULT)),
+            step_timeout_seconds=float(_get(d, C.GUARDRAILS_WD_TIMEOUT,
+                                            C.GUARDRAILS_WD_TIMEOUT_DEFAULT)),
+            poll_interval_seconds=float(poll) if poll is not None else None,
+            crashdump_dir=str(_get(d, C.GUARDRAILS_WD_CRASHDUMP_DIR,
+                                   C.GUARDRAILS_WD_CRASHDUMP_DIR_DEFAULT)),
+            exit_code=int(_get(d, C.GUARDRAILS_WD_EXIT_CODE,
+                               C.GUARDRAILS_WATCHDOG_EXIT_CODE_DEFAULT)))
+        if cfg.enabled and cfg.step_timeout_seconds <= 0:
+            raise ConfigError(
+                "guardrails.watchdog.step_timeout_seconds must be > 0")
+        if cfg.poll_interval_seconds is not None \
+                and cfg.poll_interval_seconds <= 0:
+            raise ConfigError(
+                "guardrails.watchdog.poll_interval_seconds must be > 0 "
+                "(a non-positive poll busy-spins the watchdog thread)")
+        if not 0 < cfg.exit_code < 256:
+            raise ConfigError(
+                "guardrails.watchdog.exit_code must be in 1..255")
+        return cfg
+
+
+@dataclass
+class GuardrailsConfig:
+    """Unattended-training guardrails (``guardrails/``): the EWMA z-score
+    anomaly detector over loss and grad norm, in-memory rollback from a
+    ring of snapshots, and the step watchdog. Off (the default) the engine
+    holds no guardrails and its step path is unchanged: no read by the
+    host, no sync, no snapshot."""
+
+    enabled: bool = False
+    detector: GuardrailsDetectorConfig = field(
+        default_factory=GuardrailsDetectorConfig)
+    rollback: GuardrailsRollbackConfig = field(
+        default_factory=GuardrailsRollbackConfig)
+    watchdog: GuardrailsWatchdogConfig = field(
+        default_factory=GuardrailsWatchdogConfig)
+
+    @classmethod
+    def from_dict(cls, d: Any) -> "GuardrailsConfig":
+        d = _checked_block(d, C.GUARDRAILS, (
+            C.GUARDRAILS_ENABLED, C.GUARDRAILS_DETECTOR,
+            C.GUARDRAILS_ROLLBACK, C.GUARDRAILS_WATCHDOG))
+        return cls(
+            enabled=_flag(d, C.GUARDRAILS_ENABLED),
+            detector=GuardrailsDetectorConfig.from_dict(
+                d.get(C.GUARDRAILS_DETECTOR)),
+            rollback=GuardrailsRollbackConfig.from_dict(
+                d.get(C.GUARDRAILS_ROLLBACK)),
+            watchdog=GuardrailsWatchdogConfig.from_dict(
+                d.get(C.GUARDRAILS_WATCHDOG)))
+
+    @property
+    def nonfinite_grad_check(self) -> bool:
+        """The bf16 / fp32 skip on non-finite gradients: on only with the
+        guardrails on and the detector's ``check_nonfinite_grads``."""
+        return self.enabled and self.detector.check_nonfinite_grads
 
 
 @dataclass
@@ -882,13 +1055,13 @@ def _never(value: Any, key: str) -> bool:
 # (deepspeed_tpu/config/config.py and the engine that reads it).
 _BLOCK_ON = {
     "comm": _comm_on, "pipeline": _pipeline_on, "moe": _moe_on,
-    "telemetry": _enabled, "autotuning": _autotuning_on,
+    "autotuning": _autotuning_on,
     "elasticity": _elasticity_on, "sparse_gradients": _truthy, "flops_profiler": _enabled,
     "progressive_layer_drop": _enabled, "quantize_training": _enabled,
-    "guardrails": _enabled, "mesh": _mesh_on, "eigenvalue": _never,
+    "mesh": _mesh_on, "eigenvalue": _never,
     "amp": _enabled, "tensorboard": _enabled, "aio": _never,
     "wall_clock_breakdown": _truthy, "memory_breakdown": _truthy,
-    "dump_state": _truthy, "check_numerics": _truthy,
+    "dump_state": _truthy,
     "communication_data_type": lambda value, key: value is not None,
     "compressed_allreduce": _never, "legacy_fusion": _truthy,
 }
@@ -909,7 +1082,8 @@ _TRAINING_KEYS = frozenset({
     C.OPTIMIZER, C.SCHEDULER, C.FP16, C.BF16, C.BFLOAT16, C.DATA_TYPES,
     C.GRADIENT_CLIPPING, C.PRESCALE_GRADIENTS, C.GRADIENT_PREDIVIDE_FACTOR,
     C.STEPS_PER_PRINT, C.ZERO_OPTIMIZATION, C.SERVING, C.SPARSE_ATTENTION,
-    C.RESILIENCE, C.ACTIVATION_CHECKPOINTING,
+    C.RESILIENCE, C.ACTIVATION_CHECKPOINTING, C.TELEMETRY, C.GUARDRAILS,
+    C.CHECK_NUMERICS,
 })
 
 
@@ -920,8 +1094,11 @@ class DeepSpeedConfig:
     gradient-accumulation dtype, clipping, prescaling, ``steps_per_print``,
     the ``zero_optimization`` block, the ``sparse_attention`` block
     (kept as given in ``.sparse_attention``; ``initialize`` routes the
-    model's attention through it), ``resilience`` and
-    ``activation_checkpointing``. Every other training block of the JAX
+    model's attention through it), ``resilience``,
+    ``activation_checkpointing``, ``telemetry`` (its ``fleet``, ``memory``
+    and ``devicetime`` sub-blocks and the tensorboard sink refused when
+    on), ``guardrails`` and ``check_numerics``. Every other training block
+    of the JAX
     schema raises ``ConfigError`` naming it with "not yet ported" unless it
     is off; an unknown key raises. ``world_size`` is the data-parallel
     degree the batch triple is solved for (one process so far)."""
@@ -1026,6 +1203,11 @@ class DeepSpeedConfig:
             ActivationCheckpointingConfig.from_dict(
                 d.get(C.ACTIVATION_CHECKPOINTING))
         self.resilience = ResilienceConfig.from_dict(d.get(C.RESILIENCE))
+        self.telemetry = TelemetryConfig.from_dict(d.get(C.TELEMETRY))
+        self.guardrails = GuardrailsConfig.from_dict(d.get(C.GUARDRAILS))
+        self.check_numerics = _flag(d, C.CHECK_NUMERICS)
+        # the raw dict: the goodput manifests' config hash reads it
+        self._param_dict = d
 
     @property
     def precision_dtype(self) -> str:

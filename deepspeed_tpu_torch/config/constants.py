@@ -69,13 +69,16 @@ SPARSE_ATTENTION = "sparse_attention"
 # only in their off state, refused by name otherwise. Each is read "on"
 # by the reference's own rule (config.py:_BLOCK_ON).
 NOT_YET_PORTED_BLOCKS = (
-    "comm", "pipeline", "moe", "telemetry", "autotuning",
+    "comm", "pipeline", "moe", "autotuning",
     "elasticity", "sparse_gradients", "flops_profiler", "progressive_layer_drop",
-    "quantize_training", "guardrails", "mesh", "eigenvalue", "amp",
+    "quantize_training", "mesh", "eigenvalue", "amp",
     "tensorboard", "aio", "wall_clock_breakdown",
-    "memory_breakdown", "dump_state", "check_numerics",
+    "memory_breakdown", "dump_state",
     "communication_data_type", "compressed_allreduce", "legacy_fusion",
 )
+# Debug mode: fail fast on a non-finite loss or master after a step (one
+# more read by the host a step).
+CHECK_NUMERICS = "check_numerics"
 # The environment the reference's parser also reads: the launcher's
 # autotuning handshake turns the search on when the block has no
 # ``enabled``; a fault plan in the environment arms fault injection.
@@ -107,9 +110,57 @@ FAULT_INJECTION = "fault_injection"   # resilience.fault_injection: a FaultPlan
 # package's defaults: the guardrails watchdog's rc restarts at once, the
 # memory observatory's OOM rc is not restarted, the live-elasticity rc
 # restarts as a warned preemption.
-GUARDRAILS_WATCHDOG_EXIT_CODE_DEFAULT = 113
 MEMORY_OOM_EXIT_CODE_DEFAULT = 114
 ELASTIC_PREEMPT_EXIT_CODE_DEFAULT = 115
+
+#############################################
+# Guardrails: anomaly detection, in-memory rollback and the step watchdog
+# (guardrails/)
+#############################################
+GUARDRAILS = "guardrails"
+GUARDRAILS_ENABLED = "enabled"
+GUARDRAILS_DETECTOR = "detector"
+GUARDRAILS_DET_ZSCORE = "zscore_threshold"
+GUARDRAILS_DET_ZSCORE_DEFAULT = 6.0
+GUARDRAILS_DET_WARMUP = "warmup_steps"
+GUARDRAILS_DET_WARMUP_DEFAULT = 20
+GUARDRAILS_DET_EWMA_ALPHA = "ewma_alpha"
+GUARDRAILS_DET_EWMA_ALPHA_DEFAULT = 0.02
+GUARDRAILS_DET_TRACK_GRAD_NORM = "track_grad_norm"
+GUARDRAILS_DET_TRACK_GRAD_NORM_DEFAULT = True
+# skip the update on non-finite gradients in bf16 and fp32 too (fp16's
+# loss scaler already does); one more read by the host a step
+GUARDRAILS_DET_NONFINITE_GRADS = "check_nonfinite_grads"
+GUARDRAILS_DET_NONFINITE_GRADS_DEFAULT = False
+GUARDRAILS_ROLLBACK = "rollback"
+GUARDRAILS_RB_ENABLED = "enabled"
+GUARDRAILS_RB_ENABLED_DEFAULT = True
+GUARDRAILS_RB_SNAPSHOT_INTERVAL = "snapshot_interval"
+GUARDRAILS_RB_SNAPSHOT_INTERVAL_DEFAULT = 10
+GUARDRAILS_RB_RING_SIZE = "ring_size"
+GUARDRAILS_RB_RING_SIZE_DEFAULT = 2
+GUARDRAILS_RB_CONSECUTIVE_SPIKES = "consecutive_spikes"
+GUARDRAILS_RB_CONSECUTIVE_SPIKES_DEFAULT = 2
+GUARDRAILS_RB_SKIP_BATCHES = "skip_batches"
+GUARDRAILS_RB_SKIP_BATCHES_DEFAULT = 2
+GUARDRAILS_RB_LR_DECAY = "lr_decay"
+GUARDRAILS_RB_LR_DECAY_DEFAULT = 1.0
+GUARDRAILS_RB_MAX_ROLLBACKS = "max_rollbacks"
+GUARDRAILS_RB_MAX_ROLLBACKS_DEFAULT = 3
+GUARDRAILS_RB_ESCALATE = "escalate_to_disk"
+GUARDRAILS_RB_ESCALATE_DEFAULT = True
+GUARDRAILS_WATCHDOG = "watchdog"
+GUARDRAILS_WD_ENABLED = "enabled"
+GUARDRAILS_WD_ENABLED_DEFAULT = False
+GUARDRAILS_WD_TIMEOUT = "step_timeout_seconds"
+GUARDRAILS_WD_TIMEOUT_DEFAULT = 1800.0
+GUARDRAILS_WD_POLL = "poll_interval_seconds"
+GUARDRAILS_WD_CRASHDUMP_DIR = "crashdump_dir"
+GUARDRAILS_WD_CRASHDUMP_DIR_DEFAULT = "crashdumps"
+GUARDRAILS_WD_EXIT_CODE = "exit_code"
+# Distinct from every other exit of the runtime (1 generic, 2 usage,
+# 137/139/143 signal deaths): the supervisor restarts this one at once.
+GUARDRAILS_WATCHDOG_EXIT_CODE_DEFAULT = 113
 
 #############################################
 # Activation checkpointing (runtime/activation_checkpointing.py)
@@ -191,10 +242,10 @@ SERVING_RESILIENCE_KEYS = frozenset({
     SERVING_RESIL_DEGRADE_AFTER, SERVING_RESIL_SLOW_STEP_MS})
 
 #############################################
-# Telemetry: metrics registry, step tracer, recompile detector and the
-# request accountant (telemetry/). The training-side sub-blocks (fleet,
-# memory, devicetime) parse as the reference parses them and are refused
-# when on.
+# Telemetry: metrics registry, step tracer, recompile detector, the
+# request accountant, and in training goodput and numerics (telemetry/).
+# The fleet, memory and devicetime sub-blocks parse as the reference parses
+# them and are refused when on.
 #############################################
 TELEMETRY = "telemetry"
 TELEMETRY_ENABLED = "enabled"
@@ -218,7 +269,7 @@ TELEMETRY_METRICS_FILE = "file"
 TELEMETRY_METRICS_FILE_DEFAULT = "metrics.jsonl"
 TELEMETRY_RECOMPILE = "recompile_detection"
 TELEMETRY_RECOMPILE_DEFAULT = True
-# parsed as the reference parses it; serving builds no goodput accountant
+# training's goodput accountant; serving builds none, as in the reference
 TELEMETRY_GOODPUT = "goodput"
 TELEMETRY_GOODPUT_DEFAULT = True
 TELEMETRY_FLEET = "fleet"
@@ -266,7 +317,8 @@ TELEMETRY_DEVICETIME_TOP_K_DEFAULT = 10
 TELEMETRY_DEVICETIME_DIVERGENCE_WARN = "divergence_warn"
 TELEMETRY_DEVICETIME_DIVERGENCE_WARN_DEFAULT = 0.25
 TELEMETRY_DEVICETIME_HBM_GBPS = "hbm_gbps"
-# int8 KV-cache round-trip error gauges in serving
+# per-layer-group statistics in training, int8 KV-cache round-trip error
+# gauges in serving
 TELEMETRY_NUMERICS = "numerics"
 TELEMETRY_NUMERICS_ENABLED = "enabled"
 TELEMETRY_NUMERICS_ENABLED_DEFAULT = False

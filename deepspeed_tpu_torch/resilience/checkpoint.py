@@ -32,11 +32,15 @@ the host buffers; and each pending or in-flight snapshot owns its buffer
 set, so a snapshot that replaces another never reuses the buffers the
 writer is reading (at most three sets exist).
 
-The reference's ``telemetry`` / ``goodput`` hooks are not ported (training
-telemetry is not): the rows go to ``resilience_metrics.jsonl`` only.
+With the engine's telemetry the manager traces ``ckpt_snapshot`` and
+``ckpt_write`` spans and emits the ``ckpt/*`` gauges and counters beside
+``resilience_metrics.jsonl``; with its goodput accountant the snapshot on
+the step path is booked as ``ckpt_snapshot`` and a wait for the writer
+(a synchronous write, ``wait()``) as ``ckpt_write_stall``.
 """
 
 import atexit
+import contextlib
 import hashlib
 import json
 import os
@@ -262,10 +266,8 @@ class AsyncCheckpointManager:
             raise ValueError("checkpoint interval must be >= 1")
         if keep_last < 1:
             raise ValueError("keep_last must be >= 1")
-        if telemetry is not None or goodput is not None:
-            from deepspeed_tpu_torch.config.config import not_yet_ported
-            raise not_yet_ported("training telemetry and goodput "
-                                 "accounting of checkpoints")
+        self.telemetry = telemetry
+        self.goodput = goodput
         self.ckpt_dir = ckpt_dir
         self.interval = int(interval)
         self.keep_last = int(keep_last)
@@ -303,11 +305,14 @@ class AsyncCheckpointManager:
         retries, and terminal failures land in ``stats['failed']`` /
         ``last_error`` and the log."""
         t0 = time.monotonic()
-        snap = snapshot_engine(engine, client_state=client_state,
-                               pool=self._pool)
+        with self._measure("ckpt_snapshot"), self._span(
+                "ckpt_snapshot", step=int(engine.global_steps)):
+            snap = snapshot_engine(engine, client_state=client_state,
+                                   pool=self._pool)
         snap.meta["snapshot_sec"] = round(time.monotonic() - t0, 6)
         if not self.async_write:
-            self._write_with_retries(snap)
+            with self._measure("ckpt_write_stall"):
+                self._write_with_retries(snap)
             return
         with self._cv:
             if self._closed:
@@ -316,6 +321,7 @@ class AsyncCheckpointManager:
             if self._pending is not None:
                 # one writing + one pending; latest wins
                 self.stats["dropped"] += 1
+                self._counter("ckpt/dropped", step=snap.step)
                 logger.warning(
                     "async checkpoint backlog: dropping pending step %d "
                     "snapshot in favour of step %d", self._pending.step,
@@ -327,10 +333,27 @@ class AsyncCheckpointManager:
             self.wait()
 
     def wait(self) -> None:
-        """Returns once no snapshot is pending or being written."""
-        with self._cv:
+        """Returns once no snapshot is pending or being written (the
+        caller blocks on checkpoint I/O: goodput's ``ckpt_write_stall``)."""
+        with self._measure("ckpt_write_stall"), self._cv:
             self._cv.wait_for(
                 lambda: self._pending is None and not self._writing)
+
+    def _measure(self, category: str):
+        """A goodput interval when the engine's accountant was handed in."""
+        if self.goodput is not None:
+            return self.goodput.measure(category)
+        return contextlib.nullcontext()
+
+    def _span(self, name: str, **args):
+        """A tracer span when the engine's telemetry was handed in."""
+        if self.telemetry is not None:
+            return self.telemetry.span(name, **args)
+        return contextlib.nullcontext()
+
+    def _counter(self, name: str, step: int) -> None:
+        if self.telemetry is not None:
+            self.telemetry.registry.counter(name).inc(step=step)
 
     def _drain_at_exit(self) -> None:
         try:
@@ -373,17 +396,20 @@ class AsyncCheckpointManager:
         try:
             for attempt in range(self.max_retries + 1):
                 try:
-                    path = self._write_once(snap)
+                    with self._span("ckpt_write", step=snap.step):
+                        path = self._write_once(snap)
                     break
                 except Exception as e:  # noqa: BLE001 - retry any fault
                     self.last_error = e
                     if attempt >= self.max_retries:
                         self.stats["failed"] += 1
+                        self._counter("ckpt/failed", step=snap.step)
                         logger.error(
                             "checkpoint step %d failed after %d attempts: "
                             "%s", snap.step, attempt + 1, e)
                         return
                     self.stats["retries"] += 1
+                    self._counter("ckpt/retries", step=snap.step)
                     delay = backoff_delay(attempt, self.backoff,
                                           max_delay=60.0, jitter=0.25)
                     logger.warning(
@@ -399,7 +425,13 @@ class AsyncCheckpointManager:
                                 latency, snap.step)
         self.metrics.add_scalar("Train/Checkpoint/snapshot_sec",
                                 snap.meta.get("snapshot_sec", 0.0), snap.step)
-        if self.monitor is not None:
+        if self.telemetry is not None:
+            reg = self.telemetry.registry
+            reg.gauge("ckpt/write_latency_sec").set(latency, step=snap.step)
+            reg.gauge("ckpt/snapshot_sec").set(
+                snap.meta.get("snapshot_sec", 0.0), step=snap.step)
+            self._counter("ckpt/saved", step=snap.step)
+        elif self.monitor is not None:
             self.monitor.add_scalar("Train/Checkpoint/write_latency_sec",
                                     latency, snap.step)
         logger.info("checkpoint step %d committed to %s (%.3fs)",
@@ -508,12 +540,19 @@ def find_restorable(ckpt_dir: str):
     return None
 
 
+def _shape(x) -> Tuple[int, ...]:
+    """A leaf's shape, a tensor's (bf16 has no numpy form) or an array's."""
+    return tuple(x.shape) if isinstance(x, torch.Tensor) else tuple(
+        np.shape(x))
+
+
 def install_state_arrays(engine, arrays: Dict[str, np.ndarray], *,
                          step: int, micro_steps: int,
                          lr_scheduler_state: Optional[Dict] = None,
                          keep_prefixes: Tuple[str, ...] = ()) -> None:
-    """Copy named host arrays into ``engine``'s live state (in place: the
-    masters stay the module's parameter tensors), then set the step
+    """Copy named host arrays (numpy, or the host tensors of an in-memory
+    snapshot) into ``engine``'s live state (in place: the masters stay the
+    module's parameter tensors), then set the step
     counters and the scheduler state. Leaves named with one of
     ``keep_prefixes`` keep the engine's values. A missing leaf or a shape
     that differs raises ``ResilienceError``; a missing ``rng`` (a state
@@ -531,11 +570,10 @@ def install_state_arrays(engine, arrays: Dict[str, np.ndarray], *,
         logger.warning("restore: the snapshot has no 'rng' leaf; the "
                        "engine's dropout-seed generator is kept")
     for name, leaf in wanted:
-        if name in arrays and tuple(np.shape(arrays[name])) != tuple(
-                np.shape(leaf)):
+        if name in arrays and _shape(arrays[name]) != _shape(leaf):
             raise ResilienceError(
-                f"leaf {name!r}: snapshot shape {np.shape(arrays[name])} != "
-                f"engine shape {tuple(np.shape(leaf))}")
+                f"leaf {name!r}: snapshot shape {_shape(arrays[name])} != "
+                f"engine shape {_shape(leaf)}")
     engine._apply_restored_state({n: arrays[n] for n, _ in wanted
                                   if n in arrays})
     engine.global_steps = int(step)

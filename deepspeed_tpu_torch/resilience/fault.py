@@ -33,17 +33,26 @@ The training hooks the engine and ``resilience/checkpoint.py`` act on:
   (:meth:`FaultPlan.take_io_error`), each retried by the writer;
 - ``corrupt_shard_at_step``: the checkpoint of that step is corrupted
   after its commit (:func:`corrupt_one_shard`), and a restore falls back
-  past it.
+  past it;
+- ``nan_loss_at_step`` / ``nan_loss_steps``: the batches of that window of
+  step **attempts** (the engine's ``step_attempts``, which a rollback does
+  not rewind, so a rolled-back window is not poisoned again) have every
+  floating leaf NaN-filled before they reach the device
+  (:meth:`FaultPlan.poison_batch`); the guardrails are expected to see the
+  non-finite loss;
+- ``hang_at_step`` / ``hang_seconds``: that step attempt stalls inside the
+  watchdog's armed window (:meth:`FaultPlan.hang`); the watchdog is
+  expected to end the process first.
 
-The other training keys (NaN batches, hangs, slice preemption and its
-grace, rejoin) belong to the guardrails and elasticity, which are not
-ported: a training engine refuses a plan that sets one
-(:func:`check_training_plan`).
+The other training keys (slice preemption and its grace, rejoin) belong to
+live elasticity, which is not ported: a training engine refuses a plan
+that sets one (:func:`check_training_plan`).
 """
 
 import json
 import os
 import signal
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
@@ -52,11 +61,9 @@ from deepspeed_tpu_torch.config.constants import FAULT_PLAN_ENV
 from deepspeed_tpu_torch.utils.logging import logger
 
 RESUME_ATTEMPT_ENV = "DSTPU_RESUME_ATTEMPT"
-# Training keys whose hooks belong to slices not ported yet (the
-# guardrails: NaN batches, hangs; elasticity: slice preemption, rejoin).
-TRAINING_UNPORTED_KEYS = ("nan_loss_at_step", "nan_loss_steps",
-                          "hang_at_step", "hang_seconds",
-                          "slice_preempt_at_step", "slice_preempt_slice",
+# Training keys whose hooks belong to live elasticity, not ported yet
+# (slice preemption and its grace, rejoin).
+TRAINING_UNPORTED_KEYS = ("slice_preempt_at_step", "slice_preempt_slice",
                           "preempt_grace_seconds", "rejoin_after_steps")
 
 
@@ -149,6 +156,50 @@ class FaultPlan:
         return (self.corrupt_shard_at_step is not None
                 and global_step == self.corrupt_shard_at_step)
 
+    def should_nan_loss(self, step_attempt: int) -> bool:
+        """Poison the batch of this step attempt? Active for the window
+        ``[nan_loss_at_step, nan_loss_at_step + nan_loss_steps)``."""
+        return (self.nan_loss_at_step is not None
+                and self.nan_loss_at_step <= step_attempt
+                < self.nan_loss_at_step + self.nan_loss_steps)
+
+    def poison_batch(self, batch):
+        """NaN-fill every floating leaf of a batch (a dict, list or tuple
+        of tensors or numpy arrays, nested or not): the corrupted input
+        shard, whose step runs for real and whose loss and grads go
+        non-finite. Integer leaves (token ids) are kept as they are, as
+        the reference keeps them."""
+        import numpy as np
+        import torch
+
+        def leaf(x):
+            if isinstance(x, torch.Tensor):
+                return (torch.full_like(x, float("nan"))
+                        if x.is_floating_point() else x)
+            if isinstance(x, dict):
+                return {k: leaf(v) for k, v in x.items()}
+            if isinstance(x, (list, tuple)):
+                return type(x)(leaf(v) for v in x)
+            a = np.asarray(x)
+            if np.issubdtype(a.dtype, np.floating):
+                return np.full_like(a, np.nan)
+            return x
+
+        logger.warning("FaultPlan: NaN-poisoning the batch for this step")
+        return leaf(batch)
+
+    def should_hang(self, step_attempt: int) -> bool:
+        return (self.hang_at_step is not None
+                and step_attempt == self.hang_at_step)
+
+    def hang(self) -> None:
+        """Stall inside the step (the deadlocked collective or stuck
+        callback): wait ``hang_seconds`` on an event nothing sets. The
+        guardrails watchdog is expected to end the process long before."""
+        logger.warning("FaultPlan: injecting in-step hang (%.0fs): the "
+                       "watchdog should trip first", self.hang_seconds)
+        threading.Event().wait(self.hang_seconds)
+
     def preempt(self, global_step: int) -> None:
         """Deliver the injected preemption: SIGTERM to self, default
         disposition (process death), like a real maintenance event."""
@@ -216,8 +267,7 @@ def check_training_plan(config_block: Optional[Dict[str, Any]] = None,
     bad = sorted(set(keys) & set(TRAINING_UNPORTED_KEYS))
     if bad:
         raise not_yet_ported(f"the training fault_injection keys {bad} "
-                             f"(their hooks belong to the guardrails and "
-                             f"elasticity slices)")
+                             f"(their hooks belong to live elasticity)")
 
 
 def corrupt_one_shard(ckpt_path: str, manifest: Dict[str, Any]) -> str:

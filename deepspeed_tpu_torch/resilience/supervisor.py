@@ -13,9 +13,14 @@ Exit codes fall into the reference's three classes, with its defaults:
 delay, ``oom_rcs`` (the memory observatory's 114) end the loop at once,
 and ``warned_rcs`` (live elasticity's 115) restart as any preemption.
 
-Not ported: ``run_dir`` (goodput manifests, with the fleet straggler
-notes read from it) and ``available_worlds`` (the elastic world); each
-raises "not yet ported".
+``run_dir`` (the child's ``telemetry.dir``): after each attempt the
+supervisor stamps the attempt's goodput run manifests with its exit code,
+restart cause and end time (``telemetry/goodput.py``), and each child's
+environment carries its spawn time, so its accountant books interpreter
+start-up as ``init_restore``; ``tools/goodput_report.py`` merges the
+attempts. Not ported: the fleet layer's straggler notes read from the run
+dir and ``available_worlds`` (the elastic world), which raises "not yet
+ported".
 """
 
 import os
@@ -52,9 +57,6 @@ class Supervisor:
                  available_worlds: Optional[Callable[[int], int]] = None):
         from deepspeed_tpu_torch.config.config import not_yet_ported
 
-        if run_dir is not None:
-            raise not_yet_ported("Supervisor(run_dir=...) (goodput "
-                                 "manifests and fleet straggler notes)")
         if available_worlds is not None:
             raise not_yet_ported("Supervisor(available_worlds=...) (the "
                                  "elastic world)")
@@ -73,6 +75,7 @@ class Supervisor:
                            else (MEMORY_OOM_EXIT_CODE_DEFAULT,))
         self.warned_rcs = set(warned_rcs if warned_rcs is not None
                               else (ELASTIC_PREEMPT_EXIT_CODE_DEFAULT,))
+        self.run_dir = run_dir
         self.restarts = 0
         self.immediate_restarts = 0
         self.oom_exits = 0
@@ -84,7 +87,28 @@ class Supervisor:
             self.metrics = MetricsJSONL(os.path.join(ckpt_dir, METRICS_FILE))
 
     def _child_env(self, attempt: int) -> Dict[str, str]:
-        return {**os.environ, **self.env, RESUME_ATTEMPT_ENV: str(attempt)}
+        from deepspeed_tpu_torch.telemetry.goodput import \
+            ATTEMPT_START_WALL_ENV
+
+        return {**os.environ, **self.env, RESUME_ATTEMPT_ENV: str(attempt),
+                ATTEMPT_START_WALL_ENV: repr(time.time())}
+
+    def _finalize_attempt(self, attempt: int, rc: int,
+                          start_wall: float) -> None:
+        """Stamp the attempt's run manifests with its fate. Best effort:
+        accounting must never take down the recovery loop."""
+        if not self.run_dir:
+            return
+        from deepspeed_tpu_torch.telemetry.goodput import (
+            classify_exit, finalize_attempt_manifests)
+        try:
+            finalize_attempt_manifests(
+                self.run_dir, attempt, rc,
+                classify_exit(rc, self.immediate_restart_rcs, self.oom_rcs,
+                              self.warned_rcs),
+                start_wall, time.time())
+        except Exception as e:  # noqa: BLE001
+            logger.warning("supervisor: manifest finalize failed: %s", e)
 
     def _metric(self, tag: str, value: float, step: int) -> None:
         if self.metrics is not None:
@@ -97,6 +121,7 @@ class Supervisor:
         while True:
             logger.info("supervisor: launching attempt %d: %s", attempt,
                         " ".join(self.cmd))
+            start_wall = time.time()
             proc = subprocess.Popen(self.cmd, env=self._child_env(attempt))
             try:
                 rc = proc.wait()
@@ -109,6 +134,7 @@ class Supervisor:
                     proc.wait()
                 raise
             self.exit_codes.append(rc)
+            self._finalize_attempt(attempt, rc, start_wall)
             if rc == 0:
                 self._metric("Train/Resilience/recovery_count",
                              self.restarts, attempt)
@@ -164,6 +190,10 @@ def supervise_main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--oom_rc", type=int, action="append", default=None)
     ap.add_argument("--warned_rc", type=int, action="append", default=None)
     ap.add_argument("--checkpoint_dir", type=str, default=None)
+    ap.add_argument("--run_dir", type=str, default=None,
+                    help="the child's telemetry.dir: each attempt's goodput "
+                         "run manifests get its exit code and restart "
+                         "cause")
     ap.add_argument("cmd", nargs=argparse.REMAINDER,
                     help="training command (prefix with --)")
     args = ap.parse_args(argv)
@@ -174,7 +204,8 @@ def supervise_main(argv: Optional[List[str]] = None) -> int:
                       backoff=args.backoff, max_backoff=args.max_backoff,
                       immediate_restart_rcs=args.immediate_rc,
                       oom_rcs=args.oom_rc, warned_rcs=args.warned_rc,
-                      ckpt_dir=args.checkpoint_dir).run()
+                      ckpt_dir=args.checkpoint_dir,
+                      run_dir=args.run_dir).run()
 
 
 if __name__ == "__main__":

@@ -34,6 +34,18 @@ complete one, and the fault plan's preemption fires after the step's
 snapshot. A restore copies into the live tensors in place: the masters
 stay the module's parameters. An ``activation_checkpointing`` block
 configures ``runtime/activation_checkpointing.py``.
+
+Guardrails and training telemetry (the ``guardrails`` and ``telemetry``
+blocks): ``train_batch`` counts step attempts, poisons a batch or hangs
+under the fault plan, and brackets the step for the watchdog; after the
+step the detector reads the loss and grad norm (one read by the host a
+step), a spike streak restores the newest in-memory snapshot, and the
+interval checkpoint skips a spike's state. The telemetry traces
+``dataloader`` and ``train_step`` spans, emits ``Train/Samples/*`` and the
+memory gauges, books each interval in the goodput accountant, and
+numerics computes per-group statistics in the apply, read at the flush.
+Each is ``None`` (or the null facade) when off: such a step reads nothing
+on the host and waits for nothing more than it did before.
 """
 
 import os
@@ -43,6 +55,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import guardrails as _guardrails
 from deepspeed_tpu_torch.config import constants as C
 from deepspeed_tpu_torch.config.config import (ConfigError, DeepSpeedConfig,
                                                not_yet_ported)
@@ -180,11 +193,45 @@ class DeepSpeedEngine:
         self._cast_versions: Optional[List[int]] = None
         self._last_loss = None
         self._last_norm = None
+        # numerics' flat copy of the masters before the update (fused Adam
+        # writes them in place), and its views
+        self._old_flat: Optional[torch.Tensor] = None
+        self._numerics_old: Optional[List[torch.Tensor]] = None
+        self._init_telemetry(config)
         self._init_resilience(config.resilience)
+        # guardrails: None for a disabled block, and every hook tests it
+        from deepspeed_tpu_torch.guardrails import build_guardrails
+        self.guardrails = build_guardrails(
+            config.guardrails, telemetry=self.telemetry,
+            metrics_path=self.telemetry.metrics_path, goodput=self.goodput)
+        self._nonfinite_grad_check = config.guardrails.nonfinite_grad_check
+        # dispatched optimizer-step attempts: a rollback never rewinds
+        # them, so the fault plan's NaN window is not poisoned again
+        self.step_attempts = 0
 
     @property
     def generator(self) -> torch.Generator:
         return self.state.rng
+
+    def _init_telemetry(self, config: DeepSpeedConfig) -> None:
+        """The telemetry facade (the null one when off), the numerics
+        observatory and the goodput accountant (each None when off)."""
+        from deepspeed_tpu_torch.telemetry import build_training_telemetry
+
+        self.telemetry, self.numerics, self.goodput = \
+            build_training_telemetry(
+                config.telemetry, self.device, self.param_names,
+                compute_dtype=(self.precision.dtype if self.precision.mixed
+                               else None),
+                param_dict=config._param_dict)
+        # the highest step a rollback rewound past: steps committed again
+        # at or below it are replay
+        self._goodput_replay_until = 0
+        if self.numerics is not None:
+            # the fp32 gradient buffers as views of one flat buffer, group
+            # by group: numerics reduces each group in one pass
+            self._grads_flat, self._grads32 = \
+                self.numerics.plan.flat_like(self.state.params)
 
     def _init_resilience(self, rcfg) -> None:
         """The fault plan (with ``resilience.enabled``, a
@@ -209,7 +256,9 @@ class DeepSpeedEngine:
             self.ckpt_manager = AsyncCheckpointManager(
                 ck.dir, interval=ck.interval, keep_last=ck.keep_last,
                 max_retries=ck.max_retries, backoff=ck.backoff_seconds,
-                async_write=ck.async_write, fault_plan=self.fault_plan)
+                async_write=ck.async_write, fault_plan=self.fault_plan,
+                telemetry=self.telemetry if self.telemetry.enabled else None,
+                goodput=self.goodput)
 
     # ------------------------------------------------------------------
     # the step
@@ -286,8 +335,24 @@ class DeepSpeedEngine:
             g32.copy_(acc)
         if inv != 1.0:
             torch._foreach_mul_(grads, inv)
-        overflow = bool(has_inf_or_nan(grads)) if fp16 else False
+        if fp16:
+            overflow = bool(has_inf_or_nan(grads))
+        elif self._nonfinite_grad_check:
+            # the guardrails' gate: the same skip in bf16 and fp32, decided
+            # by one read through their counted site
+            overflow = bool(_guardrails._host_fetch(has_inf_or_nan(grads)))
+        else:
+            overflow = False
         norm = global_norm(grads)
+        nstats = None
+        if self.numerics is not None:
+            # before clipping and the update: raw grads, old masters
+            plan = self.numerics.plan
+            if self._numerics_old is None:
+                self._old_flat, self._numerics_old = plan.flat_like(
+                    st.params)
+            torch._foreach_copy_(self._numerics_old, st.params)
+            nstats = plan.stats(self._grads_flat, self._old_flat)
         if cfg.gradient_clipping > 0.0:
             torch._foreach_mul_(grads, clip_coef(cfg.gradient_clipping,
                                                  norm))
@@ -318,12 +383,23 @@ class DeepSpeedEngine:
         st.loss_scale = self.loss_scaler.update(st.loss_scale, overflow)
         torch._foreach_zero_(st.grad_acc)
         self._last_norm = norm
+        if nstats is not None:
+            # old - new: the committed update
+            torch._foreach_sub_(self._numerics_old, st.params)
+            nstats[:, 2] = plan.update_sq(self._old_flat)
+            self.numerics.note_step({"groups": nstats}, self.global_steps + 1)
         return overflow
 
     def _current_lr(self) -> float:
         if self.lr_scheduler is not None:
-            return self.lr_scheduler.lr_at(self.global_steps)
-        return float(self._base_lr)
+            lr = self.lr_scheduler.lr_at(self.global_steps)
+        else:
+            lr = float(self._base_lr)
+        # the rollback's LR decay scales whatever the schedule says
+        gr = self.guardrails
+        if gr is not None and gr.lr_scale != 1.0:
+            lr = lr * gr.lr_scale
+        return lr
 
     def _after_step(self, loss) -> None:
         self.global_steps += 1
@@ -338,23 +414,198 @@ class DeepSpeedEngine:
     def train_batch(self, batches) -> torch.Tensor:
         """One optimizer step over ``batches``, a dict whose leaves have a
         leading dim of gradient_accumulation_steps. Returns the mean fp32
-        loss of the micro-batches (a device tensor; nothing waits for
-        it)."""
+        loss of the micro-batches (a device tensor; with guardrails and
+        telemetry off nothing waits for it)."""
+        self.step_attempts += 1
+        fp = self.fault_plan
+        if fp is not None and fp.should_nan_loss(self.step_attempts):
+            batches = fp.poison_batch(batches)
+        gr = self.guardrails
+        if gr is not None:
+            gr.step_begin(self.global_steps + 1)
+        try:
+            return self._train_batch_inner(batches)
+        finally:
+            if gr is not None:
+                gr.step_end()
+
+    def _train_batch_inner(self, batches) -> torch.Tensor:
         gas = self.gradient_accumulation_steps
-        batches = self.put_batch(batches, leading_gas_dim=True)
+        tel = self.telemetry
+        g = self.goodput
+        if g is not None:
+            g.mark_gap()
+        with tel.span("dataloader", step=self.global_steps):
+            batches = self.put_batch(batches, leading_gas_dim=True)
+        if g is not None:
+            g.mark("data_stall")
+        status = tel.check_recompile("engine.train_step", batches,
+                                     step=self.global_steps)
+        fp = self.fault_plan
+        if fp is not None and fp.should_hang(self.step_attempts):
+            # inside the watchdog's armed window, before the step's work
+            fp.hang()
         lr = self._current_lr()
-        compute = self._make_compute_params()   # hoisted out of the loop
-        losses = [self._micro_step(compute, {k: v[i] for k, v in
-                                             batches.items()})
-                  for i in range(gas)]
-        del compute
-        self._apply_step(lr)
+        with tel.span("train_step", step=self.global_steps):
+            compute = self._make_compute_params()   # hoisted out of the loop
+            losses = [self._micro_step(compute, {k: v[i] for k, v in
+                                                 batches.items()})
+                      for i in range(gas)]
+            del compute
+            overflow = self._apply_step(lr)
         self.micro_steps += gas
         loss = torch.stack(losses).mean()
         self._last_loss = loss
         self._after_step(loss)
+        self._goodput_step_mark(status)
+        self._maybe_goodput_flops(batches)
+        rolled_back = self._guardrails_step_hook(loss, overflow,
+                                                 self._last_norm)
+        if self.config.check_numerics and not rolled_back:
+            self._check_numerics(loss, overflow)
+        self._post_step_hooks(loss)
+        self._emit_step_telemetry()
         self._resilience_step_hook()
         return loss
+
+    # ------------------------------------------------------------------
+    # guardrails and training telemetry
+    # ------------------------------------------------------------------
+    def register_data_skip_fn(self, fn: Callable[[int], int]) -> None:
+        """``fn(n)`` moves the data stream past ``n`` batches (pass
+        ``RepeatingLoader.skip_batches``): the rollback uses it to leave a
+        poisoned window behind. A no-op without guardrails."""
+        if self.guardrails is not None:
+            self.guardrails.register_data_skip_fn(fn)
+
+    def _guardrails_step_hook(self, loss, overflow: bool, norm) -> bool:
+        """The detector's feed after a step. Returns True when a rollback
+        rewound the engine (the caller then skips its fail-fast numerics
+        check: the anomaly was handled). Without guardrails: one attribute
+        test, no read by the host."""
+        gr = self.guardrails
+        if gr is None or loss is None:
+            return False
+        step_before = self.global_steps
+        rolled = gr.after_step(self, loss, overflow, norm)
+        if rolled:
+            # steps up to the pre-rollback mark are earned again: goodput
+            # books them as rollback_replay
+            self._goodput_replay_until = max(self._goodput_replay_until,
+                                             step_before)
+        return rolled
+
+    def _check_numerics(self, loss, overflow: bool = False) -> None:
+        """``check_numerics``: fail fast, naming the step and the leaves,
+        on a non-finite loss (not on an fp16 overflow step, whose update
+        was skipped) or a non-finite master after the step. One read of the
+        loss and one of a flag per leaf; a debug mode."""
+        if not overflow and not bool(torch.isfinite(loss)):
+            raise FloatingPointError(
+                f"check_numerics: non-finite loss {float(loss)} at global "
+                f"step {self.global_steps} (skipped_steps="
+                f"{self.state.skipped_steps})")
+        peaks = torch.stack(torch._foreach_norm(self.state.params,
+                                                ord=float("inf")))
+        finite = torch.isfinite(peaks).tolist()
+        if all(finite):
+            return
+        bad = [n for n, ok in zip(self.param_names, finite) if not ok]
+        raise FloatingPointError(
+            f"check_numerics: non-finite params after global step "
+            f"{self.global_steps}: {bad[:8]}{' ...' if len(bad) > 8 else ''}")
+
+    def _goodput_step_mark(self, status: str) -> None:
+        """End-of-step attribution: recompile for a step at an input
+        signature not seen before, rollback_replay while earning again the
+        ground a rollback gave up, productive_step otherwise."""
+        g = self.goodput
+        if g is None:
+            return
+        if status in ("compile", "retrace"):
+            cat = "recompile"
+        elif self.global_steps <= self._goodput_replay_until:
+            cat = "rollback_replay"
+        else:
+            cat = "productive_step"
+        g.step_mark(cat, self.global_steps)
+
+    def _maybe_goodput_flops(self, batches) -> None:
+        """Feed the accountant, once, a step's model FLOPs
+        (:func:`train_flops_per_step` from the module's width and depth and
+        the batch's tokens) and the card's peak for the compute dtype. A
+        model without ``cfg.hidden_size`` / ``num_layers`` or a batch
+        without ``input_ids`` reports no MFU."""
+        g = self.goodput
+        if g is None or not g.wants_flops:
+            return
+        from deepspeed_tpu_torch.telemetry.goodput import peak_tflops
+
+        mcfg = getattr(self.module, "cfg", None)
+        ids = batches.get("input_ids") if isinstance(batches, dict) else None
+        if mcfg is None or ids is None or ids.dim() != 3 \
+                or not hasattr(mcfg, "num_layers"):
+            g.flops_failed()
+            return
+        gas, micro, seq = ids.shape
+        n_params = sum(p.numel() for p in self.state.params)
+        name = (torch.cuda.get_device_name(self.device)
+                if self.device.type == "cuda" else "cpu")
+        g.set_flops(train_flops_per_step(n_params, gas * micro, seq,
+                                         mcfg.hidden_size, mcfg.num_layers),
+                    peak_tflops_per_chip=peak_tflops(
+                        name, self.precision.name))
+
+    def _post_step_hooks(self, loss) -> None:
+        """``Train/Samples/*`` scalars to the telemetry's sinks. Their
+        reads by the host happen only when a sink listens."""
+        reg = self.telemetry.registry
+        if reg.sinks:
+            reg.add_scalar("Train/Samples/train_loss", float(loss),
+                           self.global_steps)
+            reg.add_scalar("Train/Samples/lr", float(self._current_lr()),
+                           self.global_steps)
+            if self.config.fp16.enabled:
+                reg.add_scalar("Train/Samples/loss_scale",
+                               float(self.state.loss_scale.scale),
+                               self.global_steps)
+
+    def _emit_step_telemetry(self) -> None:
+        """Per-step emission: the card's peak and in-use memory gauges
+        (the allocator's counters, no sync), the goodput gauges, and every
+        ``steps_per_print`` steps numerics' one read, the flush and the run
+        manifest's refresh."""
+        tel = self.telemetry
+        if not tel.enabled:
+            return
+        step = self.global_steps
+        tel.set_step(step)
+        if self.device.type == "cuda":
+            tel.registry.gauge("engine/hbm_peak_bytes").set(
+                torch.cuda.max_memory_allocated(self.device), step=step,
+                devices=1)
+            tel.registry.gauge("engine/hbm_bytes_in_use").set(
+                torch.cuda.memory_allocated(self.device), step=step,
+                devices=1)
+        if self.goodput is not None:
+            self.goodput.emit(step)
+        if step % self.steps_per_print == 0:
+            if self.numerics is not None:
+                self.numerics.flush(step)
+            tel.flush()
+            if self.goodput is not None:
+                self.goodput.write_manifest()
+
+    def close(self) -> None:
+        """Stop the watchdog, drain the checkpoint writer, finalise the
+        run manifest and close the telemetry files."""
+        if self.guardrails is not None:
+            self.guardrails.close()
+        if self.ckpt_manager is not None:
+            self.ckpt_manager.close()
+        if self.goodput is not None:
+            self.goodput.finalize()
+        self.telemetry.close()
 
     # ------------------------------------------------------------------
     # the reference API
@@ -367,13 +618,28 @@ class DeepSpeedEngine:
         gradients (the backward cannot be split off an eager autograd
         pass any more than off the JAX program: :meth:`backward` only
         counts)."""
-        if self._compute_params is None:
-            self._compute_params = self._make_compute_params()
-        loss = self._micro_step(self._compute_params, self.put_batch(batch))
+        tel = self.telemetry
+        g = self.goodput
+        if g is not None:
+            g.mark_gap()
+        with tel.span("dataloader", step=self.global_steps):
+            batch = self.put_batch(batch)
+        if g is not None:
+            g.mark("data_stall")
+        with tel.span("forward", step=self.global_steps):
+            if self._compute_params is None:
+                self._compute_params = self._make_compute_params()
+            loss = self._micro_step(self._compute_params, batch)
+        if g is not None:
+            g.mark("rollback_replay"
+                   if self.global_steps < self._goodput_replay_until
+                   else "productive_step")
         self._last_loss = loss
         return loss
 
     def backward(self, loss=None, allreduce_gradients: bool = True):
+        with self.telemetry.span("backward", step=self.global_steps):
+            pass
         self.micro_steps += 1
         self._micro_in_window += 1
         return loss if loss is not None else self._last_loss
@@ -385,10 +651,29 @@ class DeepSpeedEngine:
         """The optimizer step at the accumulation boundary."""
         if not self.is_gradient_accumulation_boundary():
             return
-        self._compute_params = None
-        self._apply_step(self._current_lr())
-        self._micro_in_window = 0
-        self._after_step(self._last_loss)
+        self.step_attempts += 1
+        gr = self.guardrails
+        if gr is not None:
+            gr.step_begin(self.global_steps + 1, label="optimizer_step")
+        try:
+            fp = self.fault_plan
+            if fp is not None and fp.should_hang(self.step_attempts):
+                fp.hang()
+            self._compute_params = None
+            with self.telemetry.span("optimizer_step",
+                                     step=self.global_steps):
+                overflow = self._apply_step(self._current_lr())
+            self._micro_in_window = 0
+            self._after_step(self._last_loss)
+        finally:
+            if gr is not None:
+                gr.step_end()
+        self._goodput_step_mark("hit")
+        self._guardrails_step_hook(self._last_loss, overflow,
+                                   self._last_norm)
+        if self._last_loss is not None:
+            self._post_step_hooks(self._last_loss)
+        self._emit_step_telemetry()
         self._resilience_step_hook()
 
     @torch.no_grad()
@@ -408,8 +693,15 @@ class DeepSpeedEngine:
         the background), then any injected preemption. Snapshot first,
         then preempt: the interrupted write is the torn-checkpoint case
         the manifest protocol handles."""
+        # a step the detector called a spike is suspect (in bf16 its NaN
+        # grads committed): it must not become the newest checkpoint, which
+        # the rollback's escalation and a resume would restore
+        gr = self.guardrails
+        suspect = (gr is not None and gr.last_verdict is not None
+                   and bool(gr.last_verdict))
         mgr = self.ckpt_manager
-        if mgr is not None and self.global_steps % mgr.interval == 0:
+        if (mgr is not None and not suspect
+                and self.global_steps % mgr.interval == 0):
             self.save_checkpoint_async()
         fp = self.fault_plan
         if fp is not None and fp.should_preempt(self.global_steps):
@@ -441,6 +733,9 @@ class DeepSpeedEngine:
         rcfg = self.config.resilience
         if not (rcfg.enabled and rcfg.auto_resume):
             return None, {}
+        if self.goodput is not None:
+            with self.goodput.measure("init_restore"):
+                return restore(self, rcfg.checkpoint.dir)
         return restore(self, rcfg.checkpoint.dir)
 
     def _snapshot_state(self) -> List[Tuple[str, Any]]:
@@ -479,8 +774,11 @@ class DeepSpeedEngine:
             if name not in arrays or not isinstance(leaf, torch.Tensor) \
                     or name == "rng":
                 continue
-            leaf.copy_(torch.from_numpy(np.ascontiguousarray(
-                arrays[name])))
+            src = arrays[name]
+            if isinstance(src, torch.Tensor):    # an in-memory snapshot's
+                leaf.copy_(src, non_blocking=src.is_pinned())
+            else:
+                leaf.copy_(torch.from_numpy(np.ascontiguousarray(src)))
 
         def scalar(name, cast, default):
             return cast(arrays[name]) if name in arrays else default
@@ -499,6 +797,9 @@ class DeepSpeedEngine:
             st.rng.set_state(torch.from_numpy(
                 np.asarray(arrays["rng"], dtype=np.uint8).copy()))
         self._compute_params = None
+        # the fused update's compute-dtype copy is of the old masters: the
+        # next forward casts the restored ones
+        self._cast_versions = None
 
     def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
                         client_state: Optional[Dict] = None,
@@ -542,6 +843,16 @@ class DeepSpeedEngine:
 
     def loss_scale(self) -> float:
         return float(self.state.loss_scale.scale)
+
+
+def train_flops_per_step(n_params: int, batch: int, seq: int, hidden: int,
+                         layers: int) -> float:
+    """The model FLOPs of one forward and backward (the port's copy of
+    ``bench.py:train_flops_per_step``): 6 N per token for the dense path
+    plus the attention score and value products, 12 S H per token per
+    layer."""
+    tokens = batch * seq
+    return 6.0 * n_params * tokens + 12.0 * layers * hidden * seq * tokens
 
 
 def engine_world_size() -> int:

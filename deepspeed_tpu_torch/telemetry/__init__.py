@@ -1,7 +1,7 @@
-"""Serving telemetry of the port, behind one facade.
+"""Telemetry of the port, behind one facade.
 
-The port of ``deepspeed_tpu/telemetry/__init__.py``, as far as serving
-needs it:
+The port of ``deepspeed_tpu/telemetry/__init__.py``, as far as serving and
+the training engine need it:
 
 - :class:`MetricsRegistry`: counters, gauges and histograms with tags, fanned
   out to JSONL and in-memory sinks;
@@ -10,13 +10,19 @@ needs it:
 - :class:`RecompileDetector`: the first call of a step at a new input
   signature;
 - :class:`RequestAccountant`: the per-request SLO ledger and the engine's
-  serving-time partition.
+  serving-time partition;
+- :class:`GoodputAccountant`: training's wall-clock attribution, MFU and
+  run manifests;
+- :class:`NumericsObservatory`: training's per-layer-group statistics.
 
 ``build_telemetry(config.telemetry)`` wires the first three from the
 ``telemetry`` block; a disabled block yields the same facade with every
 path a no-op (no sinks, a reusable null span, detector off), so call sites
-never branch on "is telemetry on". The training half (goodput, memory,
-device time, numerics, fleet) is not ported yet.
+never branch on "is telemetry on". ``build_training_telemetry`` adds
+numerics and goodput for the training engine, each ``None`` when off, as
+the reference's engine wires them. The memory observatory (but for its
+crash-dump helpers, ``telemetry/memory.py``), device time, the fleet
+aggregator and MoE telemetry are not ported yet.
 """
 
 import os
@@ -25,6 +31,17 @@ from typing import Optional
 from deepspeed_tpu_torch.telemetry.fleet import (default_host,
                                                  host_scoped_path,
                                                  telemetry_host_component)
+from deepspeed_tpu_torch.telemetry.goodput import (GOODPUT_METRIC_TAGS,
+                                                   GoodputAccountant,
+                                                   build_goodput, card_info,
+                                                   config_hash)
+from deepspeed_tpu_torch.telemetry.goodput import \
+    CATEGORIES as GOODPUT_CATEGORIES
+from deepspeed_tpu_torch.telemetry.memory import collect_memory_snapshot
+from deepspeed_tpu_torch.telemetry.numerics import (NUMERICS_METRIC_TAGS,
+                                                    NumericsObservatory,
+                                                    NumericsPlan,
+                                                    build_numerics)
 from deepspeed_tpu_torch.telemetry.recompile import (RECOMPILE_COUNTER,
                                                      RecompileDetector,
                                                      tree_signature)
@@ -40,12 +57,16 @@ from deepspeed_tpu_torch.telemetry.requests import (ENGINE_CATEGORIES,
 from deepspeed_tpu_torch.telemetry.tracer import StepTracer
 
 __all__ = [
-    "Counter", "ENGINE_CATEGORIES", "Gauge", "Histogram", "InMemorySink",
-    "JSONLSink", "MetricsRegistry", "RECOMPILE_COUNTER",
+    "Counter", "ENGINE_CATEGORIES", "GOODPUT_CATEGORIES",
+    "GOODPUT_METRIC_TAGS", "Gauge", "GoodputAccountant", "Histogram",
+    "InMemorySink", "JSONLSink", "MetricsRegistry", "NUMERICS_METRIC_TAGS",
+    "NumericsObservatory", "NumericsPlan", "RECOMPILE_COUNTER",
     "REQUEST_CATEGORIES", "REQUEST_METRIC_TAGS", "RecompileDetector",
     "RequestAccountant", "Sink", "StepTracer", "Telemetry",
-    "build_requests", "build_telemetry", "default_host", "host_scoped_path",
-    "null_telemetry", "telemetry_host_component", "tree_signature",
+    "build_goodput", "build_numerics", "build_requests", "build_telemetry",
+    "build_training_telemetry", "collect_memory_snapshot", "default_host",
+    "host_scoped_path", "null_telemetry", "telemetry_host_component",
+    "tree_signature",
 ]
 
 
@@ -120,3 +141,23 @@ def build_telemetry(tcfg, device=None) -> Telemetry:
     recompile = RecompileDetector(registry=registry, tracer=tracer,
                                   enabled=tcfg.recompile_detection)
     return Telemetry(registry, tracer, recompile, enabled=True)
+
+
+def build_training_telemetry(tcfg, device, param_names, compute_dtype=None,
+                             param_dict=None):
+    """The training engine's telemetry: ``(telemetry, numerics, goodput)``.
+    The facade as :func:`build_telemetry` builds it; the numerics
+    observatory over ``param_names`` (statistics against
+    ``compute_dtype``), attached to it; the goodput accountant with the
+    config's hash (of ``param_dict``) and, on a card, its name and power
+    limit. A block that is off gives ``None`` for each of the last two."""
+    tel = build_telemetry(tcfg, device=device)
+    numerics = build_numerics(tcfg, param_names, compute_dtype=compute_dtype)
+    if numerics is not None:
+        numerics.attach(tel)
+    goodput = None
+    if tcfg is not None and tcfg.enabled and tcfg.goodput:
+        goodput = build_goodput(tcfg, telemetry=tel,
+                                cfg_hash=config_hash(param_dict),
+                                card=card_info(device))
+    return tel, numerics, goodput

@@ -1,8 +1,8 @@
 """Port parity: the top-level training blocks the port has not ported
 yet (``config/constants.py:NOT_YET_PORTED_BLOCKS``) are read "on" by the
 reference's own rule for each block, and the blocks it has ported since
-(``resilience``, ``activation_checkpointing``) parse to the reference's
-fields.
+(``resilience``, ``activation_checkpointing``, ``telemetry``,
+``guardrails``, ``check_numerics``) parse to the reference's fields.
 
 The same dict goes to the JAX package's ``DeepSpeedTPUConfig`` and to the
 port's ``DeepSpeedConfig``. Where the reference parses it with the block's
@@ -13,11 +13,14 @@ feature's switch off the reference's parsed config, as its engine reads
 it.
 """
 
+import dataclasses
+
 import deepspeed_tpu_torch
 import pytest
 import torch
 
 from deepspeed_tpu.config.config import DeepSpeedTPUConfig
+from deepspeed_tpu.resilience import FaultPlan as JaxFaultPlan
 from deepspeed_tpu_torch.config import ConfigError
 from deepspeed_tpu_torch.config.config import DeepSpeedConfig
 from deepspeed_tpu_torch.config import constants as C
@@ -61,6 +64,10 @@ REFERENCE_ON = {
     "compressed_allreduce": lambda c: False,   # read by no feature
     "legacy_fusion": lambda c: c.optimizer_legacy_fusion,
 }
+
+# Blocks of CASES the port has ported since: every value parses to the
+# reference's fields (or raises where the reference raises).
+PORTED_SINCE = {"telemetry", "guardrails", "check_numerics"}
 
 # Each block with keys but no ``enabled`` (the feature off in the
 # reference), then values that turn it on or that the reference refuses.
@@ -124,6 +131,13 @@ PORTED_CASES = [
 def _parsed(cfg, key):
     """The reference's parsed fields of a ported block."""
     block = getattr(cfg, key)
+    if key == "check_numerics":
+        return block
+    if key in ("telemetry", "guardrails"):
+        fields = dataclasses.asdict(block)
+        if key == "telemetry":
+            fields["metrics"]["sinks"] = tuple(fields["metrics"]["sinks"])
+        return fields
     fields = dict(block.__dict__)
     if key == "resilience":
         fields["checkpoint"] = dict(block.checkpoint.__dict__)
@@ -146,8 +160,10 @@ def test_ported_block_parses_as_the_reference(key, value, monkeypatch):
 
 
 def test_cases_cover_every_unported_block():
-    assert set(REFERENCE_ON) == set(C.NOT_YET_PORTED_BLOCKS)
-    assert {k for k, _v in CASES} == set(C.NOT_YET_PORTED_BLOCKS)
+    assert set(REFERENCE_ON) == set(C.NOT_YET_PORTED_BLOCKS) | PORTED_SINCE
+    assert {k for k, _v in CASES} == set(C.NOT_YET_PORTED_BLOCKS) | \
+        PORTED_SINCE
+    assert not PORTED_SINCE & set(C.NOT_YET_PORTED_BLOCKS)
     assert not {k for k, _v in PORTED_CASES} & set(C.NOT_YET_PORTED_BLOCKS)
 
 
@@ -157,12 +173,15 @@ def test_block_read_on_as_the_reference_reads_it(key, value, monkeypatch):
     monkeypatch.delenv(C.FAULT_PLAN_ENV, raising=False)
     d = dict(BASE, **{key: value})
     try:
-        on = REFERENCE_ON[key](DeepSpeedTPUConfig(dict(d), world_size=1))
+        ref = DeepSpeedTPUConfig(dict(d), world_size=1)
+        on = REFERENCE_ON[key](ref)
     except Exception:                   # the reference refuses it
         with pytest.raises(ConfigError):
             DeepSpeedConfig(dict(d))
         return
-    if on:
+    if key in PORTED_SINCE:             # ported: on or off, the same fields
+        assert _parsed(DeepSpeedConfig(dict(d)), key) == _parsed(ref, key)
+    elif on:
         with pytest.raises(ConfigError, match="not yet ported") as err:
             DeepSpeedConfig(dict(d))
         assert key in str(err.value)
@@ -212,3 +231,117 @@ def test_empty_moe_block_is_refused_by_initialize():
                                        config=dict(BASE, moe={}),
                                        device="cpu")
     assert "moe" in str(err.value)
+
+
+# The guardrails and the training telemetry blocks (the validation cases
+# of tests/test_guardrails.py's TestGuardrailsConfig among them): both
+# packages parse them to equal fields, or both raise.
+GUARDRAILS_CASES = [
+    {}, {"enabled": True}, {"enabled": False, "detector": {
+        "check_nonfinite_grads": True}},
+    {"enabled": True, "detector": {"check_nonfinite_grads": True}},
+    {"enabled": True, "detector": {"zscore_threshold": 3.5,
+                                   "warmup_steps": 4, "ewma_alpha": 0.1,
+                                   "track_grad_norm": False}},
+    {"enabled": True, "rollback": {"enabled": False}},
+    {"enabled": True, "rollback": {"snapshot_interval": 1, "ring_size": 3,
+                                   "consecutive_spikes": 1,
+                                   "skip_batches": 0, "lr_decay": 0.5,
+                                   "max_rollbacks": 5,
+                                   "escalate_to_disk": False}},
+    {"enabled": True, "watchdog": {"enabled": True,
+                                   "step_timeout_seconds": 30,
+                                   "poll_interval_seconds": 0.5,
+                                   "crashdump_dir": "dumps",
+                                   "exit_code": 99}},
+    {"enabled": True, "detector": {"zscore_threshold": 0}},
+    {"enabled": True, "detector": {"warmup_steps": 0}},
+    {"enabled": True, "detector": {"ewma_alpha": 0}},
+    {"enabled": True, "rollback": {"ring_size": 0}},
+    {"enabled": True, "rollback": {"consecutive_spikes": 0}},
+    {"enabled": True, "rollback": {"snapshot_interval": 0}},
+    {"enabled": True, "rollback": {"lr_decay": 0}},
+    {"enabled": True, "rollback": {"max_rollbacks": 0}},
+    {"enabled": True, "rollback": {"skip_batches": -1}},
+    {"enabled": True, "watchdog": {"enabled": True,
+                                   "step_timeout_seconds": 0}},
+    {"enabled": True, "watchdog": {"poll_interval_seconds": -1}},
+    {"enabled": True, "watchdog": {"exit_code": 0}},
+    {"enabled": True, "watchdog": {"exit_code": 256}},
+]
+
+
+@pytest.mark.parametrize("i", range(len(GUARDRAILS_CASES)))
+def test_guardrails_block_parses_as_the_reference(i):
+    d = dict(BASE, guardrails=GUARDRAILS_CASES[i])
+    try:
+        ref = DeepSpeedTPUConfig(dict(d), world_size=1)
+    except Exception:                   # the reference refuses it
+        with pytest.raises(ConfigError):
+            DeepSpeedConfig(dict(d))
+        return
+    got = DeepSpeedConfig(dict(d))
+    assert _parsed(got, "guardrails") == _parsed(ref, "guardrails")
+    assert got.guardrails.nonfinite_grad_check == \
+        ref.guardrails.nonfinite_grad_check
+
+
+TRAINING_TELEMETRY_CASES = [
+    {"enabled": True, "dir": "run", "goodput": True,
+     "numerics": {"enabled": True, "max_groups": 8}},
+    {"enabled": True, "dir": "run", "goodput": False,
+     "trace": {"sync_spans": False}, "metrics": {"sinks": ["memory"]}},
+    {"enabled": True, "dir": ""},
+    {"enabled": True, "numerics": {"max_groups": 0}},
+]
+# on in the reference, refused by name in the port
+REFUSED_TELEMETRY = [
+    ("telemetry.fleet", {"enabled": True, "fleet": {"enabled": True}}),
+    ("telemetry.memory", {"enabled": True, "memory": {"enabled": True}}),
+    ("telemetry.devicetime", {"enabled": True,
+                              "devicetime": {"enabled": True}}),
+    ("'tensorboard' sink", {"enabled": True,
+                            "metrics": {"sinks": ["tensorboard"]}}),
+]
+
+
+@pytest.mark.parametrize("i", range(len(TRAINING_TELEMETRY_CASES)))
+def test_training_telemetry_parses_as_the_reference(i):
+    d = dict(BASE, telemetry=TRAINING_TELEMETRY_CASES[i])
+    try:
+        ref = DeepSpeedTPUConfig(dict(d), world_size=1)
+    except Exception:
+        with pytest.raises(ConfigError):
+            DeepSpeedConfig(dict(d))
+        return
+    assert _parsed(DeepSpeedConfig(dict(d)), "telemetry") == \
+        _parsed(ref, "telemetry")
+
+
+@pytest.mark.parametrize("name,block", REFUSED_TELEMETRY)
+def test_unported_training_telemetry_raises_by_name(name, block):
+    d = dict(BASE, telemetry=block)
+    DeepSpeedTPUConfig(dict(d), world_size=1)
+    with pytest.raises(ConfigError, match="not yet ported") as err:
+        DeepSpeedConfig(dict(d))
+    assert name in str(err.value)
+
+
+@pytest.mark.parametrize("block", [
+    {"nan_loss_at_step": 4, "nan_loss_steps": 2},
+    {"hang_at_step": 7, "hang_seconds": 60},
+    {"nan_loss_at_step": 1, "hang_at_step": 3}])
+def test_guardrails_fault_keys_accepted_as_in_the_reference(block,
+                                                            monkeypatch):
+    """The NaN and hang keys arm the plan at ``initialize``; their window
+    equals the JAX plan's over every step attempt."""
+    monkeypatch.delenv(C.FAULT_PLAN_ENV, raising=False)
+    engine = deepspeed_tpu_torch.initialize(
+        model=make_gpt("tiny")[0], device="cpu",
+        config=dict(BASE, resilience={"fault_injection": block}))[0]
+    ref = JaxFaultPlan.resolve(block, env={})
+    for attempt in range(10):
+        assert engine.fault_plan.should_nan_loss(attempt) == \
+            ref.should_nan_loss(attempt)
+        assert engine.fault_plan.should_hang(attempt) == \
+            ref.should_hang(attempt)

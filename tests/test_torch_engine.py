@@ -217,19 +217,20 @@ NOT_PORTED = [_ON[k] if isinstance(_ON.get(k), tuple)
               for k in C.NOT_YET_PORTED_BLOCKS
               if k not in ("pipeline", "mesh", "sparse_gradients",
                            "wall_clock_breakdown", "memory_breakdown",
-                           "dump_state", "check_numerics",
+                           "dump_state",
                            "communication_data_type", "legacy_fusion",
                            "sparse_attention", "quantize_training",
                            "eigenvalue")]
 NOT_PORTED += [("pipeline", {"stages": 2}), ("mesh", {"model": 2}),
                ("sparse_gradients", True), ("wall_clock_breakdown", True),
                ("memory_breakdown", True), ("dump_state", True),
-               ("check_numerics", True), ("communication_data_type", "bf16"),
+               ("communication_data_type", "bf16"),
                ("legacy_fusion", True),
-               ("telemetry", {"enabled": True, "dir": "run"}),
+               ("telemetry", {"enabled": True, "dir": "run",
+                              "memory": {"enabled": True}}),
                ("quantize_training", {"enabled": True, "quantize_bits": 8}),
-               ("moe", False), ("guardrails", {"enabled": True,
-                                               "detector": {}}),
+               ("moe", False), ("telemetry", {"enabled": True,
+                                              "fleet": {"enabled": True}}),
                ("flops_profiler", {"enabled": True, "profile_step": 2})]
 
 
@@ -385,7 +386,7 @@ def test_entry_point_walls():
         deepspeed_tpu_torch.initialize(
             model=make_gpt("tiny")[0], device="cpu",
             config=dict(_config(), resilience={
-                "fault_injection": {"nan_loss_at_step": 1}}))
+                "fault_injection": {"slice_preempt_at_step": 1}}))
     with pytest.raises(ConfigError, match="not yet ported"):
         _linear_engine(DeepSpeedConfig(_config(), world_size=2))
     with pytest.raises(ValueError, match="leading dim"):

@@ -3,7 +3,8 @@ imports jax, flax or the JAX package deepspeed_tpu, whether serving (the
 bucketed path, with telemetry on too, and the chunked path with the int8
 pool and the prefix cache), training (``initialize`` and one
 ``train_batch`` on the CPU: the GPT dense and with a ``sparse_attention``
-block, and BERT with LAMB) or checkpointing (a synchronous save and load,
+block, BERT with LAMB, and the GPT with guardrails, their watchdog,
+``check_numerics`` and training telemetry with numerics) or checkpointing (a synchronous save and load,
 an auto checkpoint restored, and a supervised child that resumes from
 it)."""
 
@@ -102,6 +103,21 @@ loss = engine.train_batch({"input_ids": ids,
                            "attention_mask": torch.ones_like(ids),
                            "labels": ids})
 assert torch.isfinite(loss) and type(_opt).__name__ == "FusedLamb"
+
+with tempfile.TemporaryDirectory() as run_dir:
+    model, cfg = make_gpt("tiny", dtype=torch.float32)
+    engine = deepspeed_tpu_torch.initialize(
+        model=model, params=init_gpt_params(cfg, seed=0), device="cpu",
+        config={"train_micro_batch_size_per_gpu": 2,
+                "gradient_accumulation_steps": 1, "steps_per_print": 1,
+                "check_numerics": True,
+                "guardrails": {"enabled": True, "watchdog": {
+                    "enabled": True, "crashdump_dir": run_dir}},
+                "telemetry": {"enabled": True, "dir": run_dir,
+                              "numerics": {"enabled": True}}})[0]
+    loss = engine.train_batch({"input_ids": torch.randint(0, 512, (1, 2, 16))})
+    engine.close()
+    assert torch.isfinite(loss) and engine.guardrails.detector.stats["ok"] == 1
 
 import json
 from deepspeed_tpu_torch.resilience import Supervisor

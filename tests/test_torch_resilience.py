@@ -367,7 +367,7 @@ def test_fault_plan_inert_after_its_restart(monkeypatch):
 @pytest.mark.parametrize("key", TRAINING_UNPORTED_KEYS)
 def test_unported_training_fault_keys_raise_at_initialize(key, monkeypatch,
                                                           tmp_path):
-    """A plan key whose hook belongs to the guardrails or elasticity is
+    """A plan key whose hook belongs to live elasticity is
     refused (in the block and in the environment), where it would
     otherwise be inert; the JAX parser takes the same block."""
     value = 1 if key != "slice_preempt_slice" else 0
@@ -454,8 +454,9 @@ def test_supervisor_exit_code_classes(rc, codes, immediate):
 
 
 def test_supervisor_unported_arguments_raise():
-    with pytest.raises(ConfigError, match="not yet ported"):
-        Supervisor(["true"], run_dir="run")
+    """``available_worlds`` (the elastic world) is refused; ``run_dir``
+    (the goodput manifests) is taken since the guardrails slice."""
+    assert Supervisor(["true"], run_dir="run").run_dir == "run"
     with pytest.raises(ConfigError, match="not yet ported"):
         Supervisor(["true"], available_worlds=lambda a: 1)
 
